@@ -1,0 +1,167 @@
+"""Configuration dataclasses (PyTorch port).
+
+Own copy of the fields of ``quadtree_mpnnlstm_tpu/config.py`` that the
+forecast path reads; knobs of other paths (CSR degree caps, attention
+windows, the grid backend, bf16 messages, csum adjacency, debug hooks)
+are left out until a slice needs them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+CONDITIONS = (
+    "max_larger_than",
+    "max_smaller_than",
+    "min_larger_than",
+    "min_smaller_than",
+)
+
+NEG_INF = float("-inf")
+
+
+def _is_power_of_two(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphConfig:
+    """Static-shape description of the quadtree graph program.
+
+    Every graph tensor has a fixed capacity: ``n_max`` node slots and
+    ``e_max`` directed-edge slots, with validity masks, so meshes of a batch
+    stack into one tensor and overflow is counted instead of reshaping.
+
+    Attributes:
+      image_shape: (rows, cols) of the field.
+      max_grid_size: base-grid cell size, power of two.
+      thresh: split threshold.
+      condition: split criterion name.
+      padding: extra halo when evaluating split criteria.
+      edges_at_corners: 8-neighbour adjacency.
+      use_edge_attrs: (bearing, distance) edge attributes vs distance alone.
+      resolution: physical size of one pixel.
+      n_max / e_max: node / edge capacities (default: exact worst cases).
+      node_budget: coarsen the finest level until the mesh has at most
+        this many nodes (None = unbounded).
+      aggregation: ``"pallas"`` packs the per-tile Â blocks that the SpMM
+        kernels read (the name is kept from the JAX package); ``"xla"``
+        keeps the gather → scale → scatter edge-list path.
+      agg_nt / agg_eb / agg_sw: node-tile rows, edge-window slots and
+        source-window rows of the Â blocks.
+      carry_edges: keep the edge list on built graphs; with Â blocks the
+        convolutions never read it after the build.
+    """
+
+    image_shape: Tuple[int, int]
+    max_grid_size: int = 8
+    thresh: float = 0.05
+    condition: str = "max_larger_than"
+    padding: int = 0
+    edges_at_corners: bool = False
+    use_edge_attrs: bool = True
+    resolution: float = 0.25
+    n_max: Optional[int] = None
+    e_max: Optional[int] = None
+    node_budget: Optional[int] = None
+    aggregation: str = "xla"
+    agg_nt: int = 128
+    agg_eb: int = 1024
+    agg_sw: int = 512
+    carry_edges: bool = True
+
+    def __post_init__(self):
+        if not _is_power_of_two(self.max_grid_size):
+            raise ValueError(
+                f"max_grid_size must be a power of two, got {self.max_grid_size}"
+            )
+        if self.condition not in CONDITIONS:
+            raise ValueError(f"unknown condition {self.condition!r}")
+        if self.aggregation not in ("xla", "pallas"):
+            raise ValueError(f"unknown aggregation {self.aggregation!r}")
+        if self.thresh == NEG_INF:
+            raise ValueError("the pixelwise mesh (thresh=-inf) is not ported yet")
+        if not self.carry_edges and self.aggregation != "pallas":
+            raise ValueError("carry_edges=False needs aggregation='pallas'")
+        if self.n_max is None:
+            object.__setattr__(self, "n_max", self.num_pixels)
+        if self.e_max is None:
+            object.__setattr__(self, "e_max", self.num_pixels * self.num_dirs)
+
+    @property
+    def rows(self) -> int:
+        return self.image_shape[0]
+
+    @property
+    def cols(self) -> int:
+        return self.image_shape[1]
+
+    @property
+    def num_pixels(self) -> int:
+        return self.rows * self.cols
+
+    @property
+    def num_dirs(self) -> int:
+        return 8 if self.edges_at_corners else 4
+
+    @property
+    def depth(self) -> int:
+        """Number of split levels: cells go max_grid_size → 1."""
+        return int(math.log2(self.max_grid_size))
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        g = self.max_grid_size
+        return (-(-self.rows // g) * g, -(-self.cols // g) * g)
+
+    @property
+    def edge_dim(self) -> int:
+        return 2 if self.use_edge_attrs else 1
+
+    def replace(self, **kw) -> "GraphConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Seq2Seq architecture hyper-parameters.
+
+    ``input_features`` counts raw channels only; positional encoding (2)
+    and node size (1) are appended internally. The port runs the fused
+    ChebConv GConvLSTM in float32 with a remesh at every decoder step;
+    :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq` rejects
+    other values of ``convolution_type``, ``rnn_type``, ``fused_gates``,
+    ``remesh_every`` and ``compute_dtype``.
+    """
+
+    hidden_size: int = 32
+    input_features: int = 1
+    input_timesteps: int = 3
+    output_timesteps: int = 5
+    n_layers: int = 1
+    n_conv_layers: int = 3
+    convolution_type: str = "ChebConv"
+    rnn_type: str = "LSTM"
+    binary: bool = False
+    remesh_every: int = 1
+    fused_gates: bool = True
+    compute_dtype: str = "float32"
+
+    @property
+    def node_input_features(self) -> int:
+        # +2 positional encoding +1 node size
+        return self.input_features + 3
+
+    @property
+    def uses_edge_attrs(self) -> bool:
+        # Only attention convs consume 2-dim edge attributes.
+        return self.convolution_type in (
+            "MHTransformerConv",
+            "TransformerConv",
+            "GATConv",
+        )
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
