@@ -1,9 +1,9 @@
 """Configuration dataclasses (PyTorch port).
 
 Own copy of the fields of ``quadtree_mpnnlstm_tpu/config.py`` that the
-forecast path reads; knobs of other paths (CSR degree caps, attention
-windows, the grid backend, bf16 messages, csum adjacency, debug hooks)
-are left out until a slice needs them.
+forecast and training paths read; knobs of other paths (CSR degree caps,
+attention windows, the grid backend, bf16 messages, csum adjacency, debug
+hooks, remat, shared meshes) are left out until a slice needs them.
 """
 
 from __future__ import annotations
@@ -137,6 +137,7 @@ class ModelConfig:
     """
 
     hidden_size: int = 32
+    dropout: float = 0.1  # decoder head, training mode only
     input_features: int = 1
     input_timesteps: int = 3
     output_timesteps: int = 5
@@ -165,3 +166,16 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Defaults of ``NextFramePredictorS2S.train`` when the predictor is
+    given one: Adam at ``lr`` decayed by ``lr_decay`` every 3 epochs;
+    ``truncated_backprop`` is the decoder chunk length (0 = full BPTT)."""
+
+    lr: float = 0.01
+    lr_decay: float = 0.95
+    n_epochs: int = 20
+    truncated_backprop: int = 0
+    seed: int = 21

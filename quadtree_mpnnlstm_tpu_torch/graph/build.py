@@ -51,7 +51,9 @@ def _assemble(
     )
 
     data = flatten(img, graph)  # (B, T, n_max, C)
-    node_xy = _node_positions(data[:, 0], cfg)
+    # positions pool the constant positional-encoding channels, so Â and
+    # the edge attributes carry no gradient
+    node_xy = _node_positions(data[:, 0].detach(), cfg)
     node_img = pixel_node.reshape((b,) + tuple(cfg.image_shape))
     edge_src, edge_dst, edge_valid, edge_attr, n_edges, n_edges_raw = build_adjacency(
         node_img, node_xy, cfg

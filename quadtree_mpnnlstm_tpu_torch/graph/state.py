@@ -12,8 +12,9 @@ explicitly, so each sample of a batch keeps its own mesh:
   ``GraphConfig.carry_edges``).
 
 ``flatten`` (pixel→node mean pooling) is one segment sum; ``unflatten``
-(node→pixel painting) is a gather. Index tensors are int64, torch's index
-type.
+(node→pixel painting) is its adjoint gather. Both backwards sum in a fixed
+order, so a training step on the card is bit-reproducible. Index tensors
+are int64, torch's index type.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from quadtree_mpnnlstm_tpu_torch.ops.segment import segment_sum_nodes
+from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
 
 
 @dataclasses.dataclass
@@ -89,8 +90,7 @@ def unflatten(
     """
     rows, cols = image_shape
     b, n_max, c = data.shape
-    idx = graph.pixel_node.clamp_max(n_max - 1)
-    img = torch.gather(data, 1, idx[..., None].expand(b, idx.shape[1], c))
+    img = gather_nodes(data, graph.pixel_node, n_max)
     valid = (graph.pixel_node < n_max)[..., None]
     img = torch.where(valid, img, torch.full((), fill, dtype=data.dtype, device=data.device))
     return img.reshape(b, rows, cols, c)

@@ -12,7 +12,7 @@ from torch import nn
 
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors
 from quadtree_mpnnlstm_tpu_torch.ops import spmm
-from quadtree_mpnnlstm_tpu_torch.ops.segment import segment_sum_nodes
+from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
 
 
 def compute_sym_norm(graph: GraphTensors) -> torch.Tensor:
@@ -42,9 +42,8 @@ def a_mul(z: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
     if graph.agg[0] == "pallas":
         _, nt, _eb, sw = graph.agg
         return spmm.spmm_apply(z, graph.agg_meta, graph.n_max, nt, sw)
-    b, n, f = z.shape
-    src = graph.edge_src.clamp_max(n - 1)
-    zs = torch.gather(z, 1, src[..., None].expand(b, src.shape[1], f))
+    n = z.shape[1]
+    zs = gather_nodes(z, graph.edge_src, n)
     return segment_sum_nodes(graph.sym_coeff[..., None].to(z.dtype) * zs, graph.edge_dst, n)
 
 

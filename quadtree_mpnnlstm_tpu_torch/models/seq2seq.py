@@ -1,8 +1,8 @@
-"""Graph seq2seq encoder–decoder with per-step remeshing (forecast path).
+"""Graph seq2seq encoder–decoder with per-step remeshing.
 
-Counterpart of ``quadtree_mpnnlstm_tpu/models/seq2seq.py`` for its
-inference path: the fixed-mesh encoder and the decoder rollout with a
-remesh at every step. The JAX package runs both as ``nn.scan``s vmapped
+Counterpart of ``quadtree_mpnnlstm_tpu/models/seq2seq.py``: the fixed-mesh
+encoder and the decoder rollout with a remesh at every step, for
+inference and training. The JAX package runs both as ``nn.scan``s vmapped
 over samples; here they are Python loops over time with an explicit batch
 axis, each sample on its own mesh.
 
@@ -20,9 +20,11 @@ Reference quirks kept from the JAX package:
   * the remesh also runs after the last decoder step, and the mesh
     overflow is a running max over the whole rollout.
 
-Teacher forcing, ``remesh_input``, climatology, preset meshes and the
-shared-mesh batched layout are not on this path and are not ported.
-Dropout is inactive at inference and so is absent.
+Training mode (``model.train()``) turns on the decoder head's dropout;
+``decode`` takes a scheduled-sampling ratio. Both draw from the caller's
+``torch.Generator`` only, never from torch's global RNG, so a step is
+reproducible from its generator's seed. ``remesh_input``, climatology,
+preset meshes and the shared-mesh batched layout are not ported.
 """
 
 from __future__ import annotations
@@ -77,6 +79,19 @@ def _transfer_state(hc, old_graph, new_graph, shape):
     )
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each entry with probability 1 − rate and
+    scale it by 1/(1 − rate); the identity outside training or at rate 0.
+    The mask is drawn from ``generator``, on ``x``'s device."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     supported = dict(convolution_type="ChebConv", rnn_type="LSTM", fused_gates=True,
                      remesh_every=1, compute_dtype="float32")
@@ -86,6 +101,8 @@ def _check_supported(cfg: ModelConfig) -> None:
                 f"ModelConfig.{field}={getattr(cfg, field)!r} is not ported; "
                 f"this path runs {field}={value!r}"
             )
+    if not 0.0 <= cfg.dropout < 1.0:
+        raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
 
 
 def _make_cells(module: nn.Module, in_channels: int, hidden: int,
@@ -129,6 +146,7 @@ class Decoder(nn.Module):
         super().__init__()
         self.n_layers = cfg.n_layers
         self.binary = cfg.binary
+        self.dropout = cfg.dropout
         h = cfg.hidden_size
         # decoder input is [value, pos_x, pos_y, node_size]; conv stacks are
         # 1 layer deep
@@ -142,7 +160,7 @@ class Decoder(nn.Module):
     def rnn(self, i: int) -> GConvLSTM:
         return getattr(self, f"rnn_{i}")
 
-    def forward(self, x, graph, concat, hidden, cell):
+    def forward(self, x, graph, concat, hidden, cell, generator=None):
         out, h, c = self.rnn(0)(x, graph, hidden[0], cell[0])
         hs, cs = [self.norm_h(h)], [self.norm_c(c)]
         for i in range(1, self.n_layers):
@@ -152,6 +170,7 @@ class Decoder(nn.Module):
         output = torch.relu(self.norm_o(out))
         output = torch.cat([output, concat], dim=-1)
         output = self.fc_out2(torch.relu(self.fc_out1(output, graph)), graph)
+        output = dropout(output, self.dropout, self.training, generator)
         output = torch.tanh(output) + x[..., :1]  # residual on previous value
         if self.binary:
             output = torch.sigmoid(output)
@@ -183,31 +202,51 @@ class Seq2Seq(nn.Module):
         hidden, cell = zeros, zeros
         for t in range(cfg.input_timesteps):
             hidden, cell = self.encoder(data[:, t], graph, hidden, cell)
-        n_feats = data.shape[-1]
-        seed_cols = [0, n_feats - 3, n_feats - 2, n_feats - 1]
-        return Seq2SeqState(graph=graph, x=data[:, -1][..., seed_cols],
+        # decoder seed [value, pos_x, pos_y, node_size]: slices, not an index
+        # list, whose backward would scatter
+        last = data[:, -1]
+        return Seq2SeqState(graph=graph, x=torch.cat([last[..., :1], last[..., -3:]], dim=-1),
                             hidden=hidden, cell=cell)
 
     def decode(
-        self, state: Seq2SeqState, n_steps: int, mask: Optional[torch.Tensor] = None
+        self,
+        state: Seq2SeqState,
+        n_steps: int,
+        y: Optional[torch.Tensor] = None,
+        mask: Optional[torch.Tensor] = None,
+        teacher_forcing_ratio: float = 0.0,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[Seq2SeqState, torch.Tensor, torch.Tensor]:
         """Roll out ``n_steps`` frames, remeshing after each.
+
+        Scheduled sampling: with ``teacher_forcing_ratio`` > 0, one coin per
+        sample and step, drawn from ``generator``, decides whether the next
+        mesh and input are built from the true frame ``y[:, t]`` (B, n_steps,
+        rows, cols, 1) instead of the prediction.
 
         Returns (state, y_hat (B, n_steps, rows, cols, 1), pixel_nodes
         (n_steps, B, P) — the mesh each step ran on)."""
         shape = self.gcfg.image_shape
+        forcing = teacher_forcing_ratio > 0.0
+        if forcing and (y is None or generator is None):
+            raise ValueError("teacher forcing needs the targets y and a generator")
         frames, meshes = [], []
-        for _ in range(n_steps):
+        for t in range(n_steps):
             graph = state.graph
             output, hidden, cell = self.decoder(
-                state.x, graph, state.x[..., :1], state.hidden, state.cell
+                state.x, graph, state.x[..., :1], state.hidden, state.cell, generator
             )
             y_hat_t = unflatten(output, graph, shape, fill=0.0)  # (B, rows, cols, 1)
             frames.append(y_hat_t)
             meshes.append(graph.pixel_node)
 
+            base = y_hat_t
+            if forcing:
+                coin = torch.rand(y_hat_t.shape[0], generator=generator,
+                                  device=y_hat_t.device) < teacher_forcing_ratio
+                base = torch.where(coin[:, None, None, None], y[:, t].to(y_hat_t.dtype), y_hat_t)
             new_graph, data = image_to_graph(
-                add_positional_encoding(y_hat_t[:, None]), self.gcfg, mask=mask
+                add_positional_encoding(base[:, None]), self.gcfg, mask=mask
             )
             # running max overflow across the rollout
             new_graph = new_graph.replace(

@@ -31,3 +31,33 @@ def segment_sum_nodes(
     out = values.new_zeros((b * width,) + rest)
     out.index_put_((slot.reshape(-1),), values.reshape((b * length,) + rest), accumulate=True)
     return out.view((b, width) + rest)[:, :n_max]
+
+
+class _GatherNodes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, ids, n_max: int):
+        ctx.save_for_backward(ids)
+        ctx.n_max = n_max
+        b, length = ids.shape
+        rest = values.shape[2:]
+        idx = ids.clamp(0, n_max - 1).reshape((b, length) + (1,) * len(rest))
+        out = torch.gather(values, 1, idx.expand((b, length) + rest))
+        inside = ((ids >= 0) & (ids < n_max)).reshape(idx.shape)
+        return torch.where(inside, out, 0.0)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return segment_sum_nodes(g, ids, ctx.n_max), None, None
+
+
+def gather_nodes(values: torch.Tensor, ids: torch.Tensor, n_max: int) -> torch.Tensor:
+    """``values[b, ids[b, l]]`` for values (B, n_max, ...) and ids (B, L);
+    ids outside ``[0, n_max)`` read zeros.
+
+    The adjoint of :func:`segment_sum_nodes`, and its backward is that sum:
+    ``torch.gather``'s own backward scatters with float atomics on CUDA,
+    whose order changes from run to run.
+    """
+    return _GatherNodes.apply(values, ids, n_max)

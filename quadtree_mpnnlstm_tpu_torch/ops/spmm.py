@@ -21,9 +21,11 @@ Dispatch is by device: a CUDA tensor launches the kernel (and raises if it
 cannot be built or launched); a CPU tensor runs the plain version. Each
 kernel launch adds one to :data:`LAUNCHES`.
 
-The backward of ``spmm_apply`` (K2b: the same kernel on the cotangent,
-since Â is symmetric) comes with the training slice; this slice is
-forward only.
+``spmm_apply`` is differentiable in z through :class:`SpmmApply`, whose
+backward (K2b) launches the same kernel on the cotangent: Â is symmetric
+(both directions of every edge are materialised with the same weight), so
+``Âᵀ g = Â g``, as in the JAX package's VJP. Â itself carries no
+gradient: the blocks are built from detached windows.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 # kernel launches since the last reset_launch_counts(), by wrapper name
-LAUNCHES = {"spmm_build_blocks": 0, "spmm_apply": 0}
+LAUNCHES = {"spmm_build_blocks": 0, "spmm_apply": 0, "spmm_apply_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -247,9 +249,9 @@ def _build_blocks_cuda(src_rel, dst_rel, coeff, live, nt: int, sw: int) -> torch
     return blocks
 
 
-def _apply_cuda(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tensor:
-    """Launch K2 (``qtm_spmm_apply``): one CTA per (sample, tile, 64-row
-    slab, 32-column chunk of F)."""
+def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: str):
+    """Launch ``qtm_spmm_apply`` (one CTA per (sample, tile, 64-row slab,
+    32-column chunk of F)) and count it under ``counter``."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library()
@@ -266,9 +268,19 @@ def _apply_cuda(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tens
         _ptr(z), _ptr(blocks), _ptr(s0), _ptr(live), _ptr(out),
         b, t, nt, sw, n_max, f, _stream(),
     )
-    _raise_on(err, "spmm_apply")
-    LAUNCHES["spmm_apply"] += 1
+    _raise_on(err, counter)
+    LAUNCHES[counter] += 1
     return out
+
+
+def _apply_cuda(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tensor:
+    """K2: ``Â z``."""
+    return _launch_apply(z, s0, blocks, live, n_max, nt, sw, "spmm_apply")
+
+
+def _apply_bwd_cuda(g, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tensor:
+    """K2b: ``Âᵀ g = Â g``, the same kernel on the cotangent."""
+    return _launch_apply(g, s0, blocks, live, n_max, nt, sw, "spmm_apply_bwd")
 
 
 # ------------------------------------------------------- dispatch
@@ -281,10 +293,13 @@ def spmm_build_blocks(
 
     Replaces ``spmm_build_blocks``/``_build_kernel`` of
     ``quadtree_mpnnlstm_tpu/ops/pallas_spmm.py``. ``n_nodes`` (B,) bounds
-    the live-tile count. Entries are exact coefficient sums.
+    the live-tile count. Entries are exact coefficient sums. Â is not
+    differentiable: windows and node counts are detached on both paths, as
+    the JAX package stop-gradients them.
     """
+    windows = SpmmWindows(*(w.detach() for w in windows))
     t = windows.src_rel.shape[1]
-    live = live_tiles(n_nodes, t, nt)
+    live = live_tiles(n_nodes.detach(), t, nt)
     args = (windows.src_rel, windows.dst_rel, windows.coeff, live, nt, sw)
     if windows.src_rel.is_cuda:
         blocks = _build_blocks_cuda(*args)
@@ -293,14 +308,33 @@ def spmm_build_blocks(
     return SpmmBlocks(s0=windows.s0, blocks=blocks, live=live)
 
 
+class SpmmApply(torch.autograd.Function):
+    """``Â z`` with the backward ``Â g`` (K2b). Each direction launches its
+    kernel on a CUDA tensor and runs :func:`apply_plain` on a CPU tensor.
+    No gradient reaches the blocks, as the JAX VJP returns None for them."""
+
+    @staticmethod
+    def forward(ctx, z, s0, blocks, live, n_max: int, nt: int, sw: int):
+        ctx.save_for_backward(s0, blocks, live)
+        ctx.geometry = (n_max, nt, sw)
+        apply = _apply_cuda if z.is_cuda else apply_plain
+        return apply(z.contiguous(), s0, blocks, live, n_max, nt, sw)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        s0, blocks, live = ctx.saved_tensors
+        apply = _apply_bwd_cuda if g.is_cuda else apply_plain
+        dz = apply(g.contiguous(), s0, blocks, live, *ctx.geometry)
+        return dz, None, None, None, None, None, None
+
+
 def spmm_apply(z: torch.Tensor, meta: SpmmBlocks, n_max: int, nt: int, sw: int) -> torch.Tensor:
     """K2: ``out[b, n] = Σ_{e: dst_e = n} coeff_e · z[b, src_e]``, i.e. ``Â z``
     for every sample, from the blocks of :func:`spmm_build_blocks`.
 
-    Replaces the forward of ``spmm_apply`` (``_spmm_impl``/``_apply_kernel``)
-    of ``quadtree_mpnnlstm_tpu/ops/pallas_spmm.py``. z: (B, n_max, F) f32.
+    Replaces ``spmm_apply`` (``_spmm_impl``/``_apply_kernel`` forward,
+    ``_spmm_bwd`` backward) of ``quadtree_mpnnlstm_tpu/ops/pallas_spmm.py``.
+    z: (B, n_max, F) f32; differentiable in z.
     """
-    args = (z.contiguous(), meta.s0, meta.blocks, meta.live, n_max, nt, sw)
-    if z.is_cuda:
-        return _apply_cuda(*args)
-    return apply_plain(*args)
+    return SpmmApply.apply(z, meta.s0, meta.blocks, meta.live, n_max, nt, sw)

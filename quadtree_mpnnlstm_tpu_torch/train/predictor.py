@@ -1,26 +1,50 @@
-"""Forecast entry point: ``NextFramePredictorS2S.predict``.
+"""Trainer and forecaster: ``NextFramePredictorS2S``.
 
-Counterpart of the inference side of
-``quadtree_mpnnlstm_tpu/train/predictor.py``: the constructor's config
-resolution (eval model only) and ``predict``. The JAX package vmaps the
-model over the samples of a batch; here the batch axis is explicit and
-each sample keeps its own mesh. Training (optimizer, loss, checkpoints)
-comes with a later slice of the port.
+Counterpart of ``quadtree_mpnnlstm_tpu/train/predictor.py``: config
+resolution, ``train`` (Adam, global-norm clip, StepLR, truncated BPTT,
+scheduled sampling, the NaN and divergence guards), ``predict``,
+``score`` and checkpoints. The JAX package vmaps the model over the
+samples of a batch; here the batch axis is explicit and each sample keeps
+its own mesh. The batch loss is the mean over samples of each sample's
+loss, as the vmapped JAX loss is.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``; on
-the card the Â-block kernels (ops/spmm.py) carry every aggregation.
+the card the Â-block kernels (ops/spmm.py) carry every aggregation and
+its backward. Dropout and scheduled sampling draw from the predictor's
+``generator`` (a ``torch.Generator`` on its device, seeded from ``seed``),
+never from torch's global RNG.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from quadtree_mpnnlstm_tpu_torch.config import NEG_INF, GraphConfig, ModelConfig
+from quadtree_mpnnlstm_tpu_torch.config import NEG_INF, GraphConfig, ModelConfig, TrainConfig
 from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
+from quadtree_mpnnlstm_tpu_torch.train.losses import LOSSES
+from quadtree_mpnnlstm_tpu_torch.train.metrics import MetricsLogger
+from quadtree_mpnnlstm_tpu_torch.utils.params import get_n_params
 from quadtree_mpnnlstm_tpu_torch.utils.weights import init_params, params_from_jax
+
+CLIP_NORM = 10.0
+LR_DECAY_EVERY_EPOCHS = 3
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """Scale the gradients in place by ``max_norm/‖g‖`` when their global
+    norm ``‖g‖`` reaches ``max_norm``, as ``optax.clip_by_global_norm``
+    (``torch.nn.utils.clip_grad_norm_`` divides by ``‖g‖ + 1e-6`` instead).
+    Returns ``‖g‖`` as a device tensor; nothing syncs with the host."""
+    norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    return norm
 
 
 class NextFramePredictorS2S:
@@ -30,6 +54,7 @@ class NextFramePredictorS2S:
         self,
         image_shape,
         thresh: float,
+        experiment_name: str = "experiment",
         decompose: bool = True,
         input_features: int = 1,
         input_timesteps: int = 3,
@@ -37,16 +62,30 @@ class NextFramePredictorS2S:
         device: str = "cuda",
         condition: str = "max_larger_than",
         binary: bool = False,
-        seed: int = 21,
+        teacher_forcing_ratio: float = 0.0,
+        seed: Optional[int] = None,
         model_kwargs: Optional[Dict[str, Any]] = None,
         graph_kwargs: Optional[Dict[str, Any]] = None,
+        train_config: Optional[TrainConfig] = None,
+        run_dir: str = "runs",
+        tensorboard: bool = False,
     ):
+        self.experiment_name = experiment_name
         self.thresh = thresh if decompose else NEG_INF
+        self.binary = binary
+        self.output_timesteps = output_timesteps
+        self.teacher_forcing_ratio = teacher_forcing_ratio
+        self.train_config = train_config
+        self.run_dir = run_dir  # metrics: <run_dir>/<experiment_name>_<time>/
+        self.tensorboard = tensorboard
         self.device = torch.device(device)
+        if seed is None:  # explicit seed > train_config.seed > 21
+            seed = train_config.seed if train_config is not None else 21
 
         mk = dict(model_kwargs or {})
         self.cfg = ModelConfig(
             hidden_size=mk.pop("hidden_size", 32),
+            dropout=mk.pop("dropout", 0.1),
             input_features=input_features,
             input_timesteps=input_timesteps,
             output_timesteps=output_timesteps,
@@ -77,23 +116,209 @@ class NextFramePredictorS2S:
             self.gcfg = self.gcfg.replace(carry_edges=False)
 
         self.model = Seq2Seq(self.cfg, self.gcfg).to(self.device).eval()
-        gen = torch.Generator().manual_seed(seed)
-        init_params(self.model, gen)
+        init_params(self.model, torch.Generator().manual_seed(seed))
+        # dropout masks and scheduled-sampling coins of train()
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         # worst capacity overflow of the last predict() (0 = nothing dropped)
         self.last_overflow = 0
+        self.training_initiated = False
+        self.train_loss: list = []
+        self.test_loss: list = []
+        self.loss = None  # {"train_loss", "test_loss"} after train()
 
     def load_jax_params(self, tree) -> None:
         """Load a flax parameter tree (numpy leaves) of the JAX package."""
         self.model.load_state_dict(params_from_jax(tree))
 
+    def get_n_params(self) -> int:
+        return get_n_params(self.model)
+
+    # ---------------------------------------------------------------- training
+
+    def initiate_training(self, lr: float, lr_decay: float) -> None:
+        """Adam (β 0.9/0.999, ε 1e-8) over the model's parameters, the loss
+        (BCE for binary targets, else MSE) and the metrics writer."""
+        self.loss_func_name = "BCE" if self.binary else "MSE"
+        self.loss_func = LOSSES[self.loss_func_name]
+        self._base_lr = lr
+        self._lr_decay = lr_decay
+        self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr,
+                                          betas=(0.9, 0.999), eps=1e-8)
+        self.writer = MetricsLogger(self.run_dir, self.experiment_name, self.tensorboard)
+        self.train_loss, self.test_loss = [], []
+        self._epoch = 0
+        self.training_initiated = True
+
+    def _current_lr(self) -> float:
+        # StepLR: lr · γ^(epoch // 3)
+        return self._base_lr * (self._lr_decay ** (self._epoch // LR_DECAY_EVERY_EPOCHS))
+
+    def _set_lr(self) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = self._current_lr()
+
+    def _chunks(self, truncated_backprop: int):
+        """(t0, n) decoder chunks: one for full BPTT, else chunks of
+        ``truncated_backprop`` steps."""
+        t = self.output_timesteps
+        if truncated_backprop <= 0 or truncated_backprop >= t:
+            return [(0, t)]
+        out, t0 = [], 0
+        while t0 < t:
+            out.append((t0, min(truncated_backprop, t - t0)))
+            t0 += out[-1][1]
+        return out
+
+    def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _mask(self, mask) -> Optional[torch.Tensor]:
+        return None if mask is None else self._tensor(mask, torch.bool)
+
+    def train_step(self, x, y, mask=None, generator: Optional[torch.Generator] = None,
+                   truncated_backprop: int = 0):
+        """One forward, backward and clipped Adam update on a batch x
+        (B, T_in, rows, cols, C), y (B, T_out, rows, cols, 1).
+
+        With truncated BPTT every chunk re-encodes the inputs and decodes
+        its own steps from the encoder state; the loss is the sum of the
+        chunk means, and each chunk's backward runs as soon as its loss is
+        known. Returns (loss, mesh overflow) as device tensors, with no
+        host sync. ``generator`` defaults to the predictor's own."""
+        if not self.training_initiated:
+            raise RuntimeError("call initiate_training() before train_step()")
+        model = self.model.train()
+        gen = self.generator if generator is None else generator
+        x, y, m = self._tensor(x), self._tensor(y), self._mask(mask)
+        self.optimizer.zero_grad(set_to_none=True)
+        total = torch.zeros((), device=self.device)
+        overflow = torch.zeros((), dtype=torch.int64, device=self.device)
+        for t0, n in self._chunks(truncated_backprop):
+            y_c = y[:, t0:t0 + n]
+            state = model.encode(x, mask=m)
+            state, y_hat, _ = model.decode(state, n, y=y_c, mask=m,
+                                           teacher_forcing_ratio=self.teacher_forcing_ratio,
+                                           generator=gen)
+            loss = self.loss_func(y_hat, y_c, m).mean()
+            loss.backward()
+            total = total + loss.detach()
+            overflow = torch.maximum(overflow, state.graph.overflow.max())
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        # the global norm before the clip, a device tensor
+        self.last_grad_norm = clip_by_global_norm_(grads, CLIP_NORM)
+        self.optimizer.step()
+        return total, overflow
+
+    @torch.no_grad()
+    def _eval_loss(self, x, y, mask) -> torch.Tensor:
+        y_hat, _, _ = self.forecast(x, mask=mask)
+        return self.loss_func(y_hat, self._tensor(y), self._mask(mask)).mean()
+
+    def _drain_step_metrics(self, pending, running: float, epoch_overflow: int):
+        """Fetch and log one train step's device scalars; called one step
+        late so that the fetch waits on a step the device has finished
+        while the next one is already queued."""
+        loss_d, overflow_d, step_idx = pending
+        loss = float(loss_d)
+        self.writer.scalar("Loss/train", loss, step_idx)
+        return running + loss, max(epoch_overflow, int(overflow_d))
+
+    def train(
+        self,
+        loader_train,
+        loader_test,
+        n_epochs: Optional[int] = None,
+        lr: Optional[float] = None,
+        lr_decay: Optional[float] = None,
+        mask=None,
+        truncated_backprop: Optional[int] = None,
+        divergence_threshold: float = 4.0,
+    ) -> None:
+        """Train for ``n_epochs`` over ``loader_train`` and score each epoch
+        on ``loader_test`` (both yield (x, y, launch_date) numpy triplets).
+        Optimisation arguments default to the constructor's
+        ``train_config``, else to 200 epochs, lr 0.01, γ 0.95 and full BPTT.
+        Raises ``ValueError("NaN loss :(")`` on a NaN test loss and
+        ``ValueError("Diverged :(")`` when it exceeds
+        ``divergence_threshold``."""
+        tc = self.train_config or TrainConfig(n_epochs=200)
+        n_epochs = tc.n_epochs if n_epochs is None else n_epochs
+        lr = tc.lr if lr is None else lr
+        lr_decay = tc.lr_decay if lr_decay is None else lr_decay
+        if truncated_backprop is None:
+            truncated_backprop = tc.truncated_backprop
+        if mask is not None and tuple(np.asarray(mask).shape) != tuple(self.gcfg.image_shape):
+            raise ValueError(f"Mask and image shapes do not match. Got {np.asarray(mask).shape} "
+                             f"and {self.gcfg.image_shape}")
+        if not self.training_initiated:
+            self.initiate_training(lr, lr_decay)
+
+        st = time.time()
+        batch_step = 0
+        for epoch in range(n_epochs):
+            self._set_lr()
+            running, steps, epoch_overflow = 0.0, 0, 0
+            pending = None
+            for x, y, _launch in loader_train:
+                loss, overflow = self.train_step(x, y, mask=mask,
+                                                 truncated_backprop=truncated_backprop)
+                if pending is not None:
+                    running, epoch_overflow = self._drain_step_metrics(
+                        pending, running, epoch_overflow)
+                    steps += 1
+                pending = (loss, overflow, batch_step)
+                batch_step += 1
+            if pending is not None:
+                running, epoch_overflow = self._drain_step_metrics(
+                    pending, running, epoch_overflow)
+                steps += 1
+
+            running_test, steps_test = 0.0, 0
+            pending_test = None
+            for x, y, _launch in loader_test:
+                loss = self._eval_loss(x, y, mask)
+                if pending_test is not None:
+                    running_test += float(pending_test)
+                    steps_test += 1
+                pending_test = loss
+            if pending_test is not None:
+                running_test += float(pending_test)
+                steps_test += 1
+
+            running /= max(steps, 1)
+            running_test /= max(steps_test, 1)
+            if np.isnan(running_test):
+                raise ValueError("NaN loss :(")
+            if running_test > divergence_threshold:
+                raise ValueError("Diverged :(")
+
+            self.writer.scalar("Loss/test", running_test, epoch)
+            self.writer.scalar("Mesh/overflow_max", epoch_overflow, epoch)
+            if epoch_overflow > 0:
+                print(f"WARNING: mesh capacity overflow ({epoch_overflow} dropped slots at the "
+                      "worst step) — raise n_max/e_max/agg_* (GraphConfig)")
+            self._epoch += 1
+            self.train_loss.append(running)
+            self.test_loss.append(running_test)
+            print(
+                f"{self.experiment_name} | Epoch {epoch} train {self.loss_func_name}: "
+                f"{running:.4f}, test {self.loss_func_name}: {running_test:.4f}, "
+                f"lr: {self._current_lr():.4f}, "
+                f"time_per_epoch: {(time.time() - st) / (epoch + 1):.1f}"
+            )
+
+        print(f"Finished in {(time.time() - st) / 60} minutes")
+        self.writer.flush()
+        self.loss = {"train_loss": list(self.train_loss), "test_loss": list(self.test_loss)}
+
+    # ---------------------------------------------------------------- predict
+
     @torch.no_grad()
     def forecast(self, x, mask=None):
-        """One batch: x (B, T_in, rows, cols, C) array or tensor →
-        (y_hat (B, T_out, rows, cols, 1) tensor, overflow (B,), per-step
-        pixel_node maps (T_out, B, P))."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        m = None if mask is None else torch.as_tensor(mask, dtype=torch.bool, device=self.device)
-        y_hat, state, meshes = self.model.rollout(x, mask=m)
+        """One batch in eval mode: x (B, T_in, rows, cols, C) array or
+        tensor → (y_hat (B, T_out, rows, cols, 1) tensor, overflow (B,),
+        per-step pixel_node maps (T_out, B, P))."""
+        y_hat, state, meshes = self.model.eval().rollout(self._tensor(x), mask=self._mask(mask))
         return y_hat, state.graph.overflow, meshes
 
     def predict(self, loader, mask=None) -> np.ndarray:
@@ -111,3 +336,49 @@ class NextFramePredictorS2S:
                 "worst step) — raise n_max/e_max/agg_* (GraphConfig)"
             )
         return np.concatenate(outs, axis=0)
+
+    def score(self, loader, mask=None) -> Dict[str, float]:
+        """Masked MSE and RMSE of ``predict`` over a loader."""
+        y_hat = self.predict(loader, mask=mask)
+        y = np.concatenate([y for _, y, _ in loader], axis=0)
+        if mask is not None:
+            diff = (y_hat - y)[:, :, ~np.asarray(mask, bool)]
+        else:
+            diff = y_hat - y
+        mse = float(np.mean(diff**2))
+        return {"MSE": mse, "RMSE": float(np.sqrt(mse))}
+
+    # ------------------------------------------------------------ persistence
+
+    def _path(self, directory: str, suffix: str) -> str:
+        os.makedirs(directory, exist_ok=True)
+        return os.path.join(directory, f"{self.experiment_name}{suffix}")
+
+    def save(self, directory: str) -> str:
+        """Weights only, ``<directory>/<experiment_name>.pt``."""
+        path = self._path(directory, ".pt")
+        torch.save(self.model.state_dict(), path)
+        return path
+
+    def load(self, directory: str) -> None:
+        state = torch.load(self._path(directory, ".pt"), map_location=self.device,
+                           weights_only=True)
+        self.model.load_state_dict(state)
+
+    def save_checkpoint(self, directory: str) -> str:
+        """Resume state: weights, optimizer state and epoch,
+        ``<directory>/<experiment_name>_ckpt.pt``."""
+        path = self._path(directory, "_ckpt.pt")
+        torch.save({"model": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                    "epoch": self._epoch}, path)
+        return path
+
+    def restore_checkpoint(self, directory: str, lr: float = 0.01, lr_decay: float = 0.95) -> None:
+        if not self.training_initiated:
+            self.initiate_training(lr, lr_decay)
+        state = torch.load(self._path(directory, "_ckpt.pt"), map_location=self.device,
+                           weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._epoch = int(state["epoch"])

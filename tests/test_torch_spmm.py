@@ -1,12 +1,14 @@
 """PyTorch port vs JAX package: SpMM window metadata (bit-identical),
-Â-block densification (exact) and the block product (≤1e-5), with dead
-tiles; the Pallas kernels run in interpret mode on the CPU. The CUDA
+Â-block densification (exact), the block product and its backward
+(≤1e-5), with dead tiles; the Pallas kernels run in interpret mode on the
+CPU. The CUDA
 kernels are held against these plain versions on the card by
 tests/test_torch_kernels_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -135,4 +137,40 @@ def test_cpu_tensors_never_launch_kernels():
     tspmm.reset_launch_counts()
     meta = tspmm.spmm_build_blocks(tw, NT, SW, n_nodes)
     tspmm.spmm_apply(torch.zeros(2, 256, 4), meta, 256, NT, SW)
-    assert tspmm.LAUNCHES == {"spmm_build_blocks": 0, "spmm_apply": 0}
+    assert tspmm.LAUNCHES == {"spmm_build_blocks": 0, "spmm_apply": 0, "spmm_apply_bwd": 0}
+
+
+@pytest.mark.parametrize("n_max,thresh,f", [(1024, 0.3, 20), (1024, 0.1, 16), (768, 0.3, 3)])
+def test_apply_backward_matches_jax_and_the_true_transpose(n_max, thresh, f):
+    """K2b on the CPU: the gradient of <Â z, g> through ``spmm_apply`` (its
+    backward runs ``apply_plain`` on g) equals ``jax.grad`` through the JAX
+    package's ``spmm_apply`` (the same kernel on the cotangent) and the
+    transpose that autograd takes through ``apply_plain`` itself, which
+    holds while Â is symmetric: no window dropped an edge."""
+    eb = sw = 1024  # the main path's windows, wide enough to drop nothing
+    graphs, src, dst, coeff, n_nodes = _jax_graphs(n_max, thresh, seed=f + 1)
+    tw, ovf = tspmm.spmm_tile_meta(torch.from_numpy(src).long(), torch.from_numpy(dst).long(),
+                                   torch.from_numpy(coeff), n_max, NT, eb, sw)
+    assert int(ovf.max()) == 0
+    meta = tspmm.spmm_build_blocks(tw, NT, sw, torch.from_numpy(n_nodes))
+    rng = np.random.default_rng(f)
+    z = rng.standard_normal((len(graphs), n_max, f)).astype(np.float32)
+    g = rng.standard_normal((len(graphs), n_max, f)).astype(np.float32)
+
+    zt = torch.from_numpy(z).requires_grad_(True)
+    out = tspmm.spmm_apply(zt, meta, n_max, NT, sw)
+    assert type(out.grad_fn).__name__ == "SpmmApplyBackward"
+    (dz,) = torch.autograd.grad(out, zt, torch.from_numpy(g))
+
+    zt2 = torch.from_numpy(z).requires_grad_(True)
+    plain = tspmm.apply_plain(zt2, meta.s0, meta.blocks, meta.live, n_max, NT, sw)
+    (dz_t,) = torch.autograd.grad(plain, zt2, torch.from_numpy(g))
+    np.testing.assert_allclose(dz.numpy(), dz_t.numpy(), atol=1e-5)
+
+    for b, gr in enumerate(graphs):
+        jw, _ = jspmm.spmm_tile_meta(gr.edge_src, gr.edge_dst, gr.sym_coeff, n_max, NT, eb, sw)
+        jm = jspmm.spmm_build_blocks(jw, NT, eb, sw, n_nodes=gr.n_nodes)
+        gb = jnp.asarray(g[b])
+        ref = jax.grad(lambda zz: jnp.sum(jspmm.spmm_apply(zz, jm, n_max, NT, sw) * gb))(
+            jnp.asarray(z[b]))
+        np.testing.assert_allclose(dz[b].numpy(), np.asarray(ref), atol=1e-5)
