@@ -38,7 +38,28 @@ Phases (each prints one line; any failure raises and exits non-zero):
    gradient leaf must agree to ≤1e-4 × max(1, max|g|);
 8. train determinism: the same train step twice gives a bit-identical
    loss and gradients;
-9. the ``kernels`` JSON line, then the card line and the result line.
+9. attention path: ``predict`` with the TransformerConv model at the same
+   width (``bench.py --conv TransformerConv``: fused attention gate
+   stacks, 8 streams × d 16 = HD 128; head convs HD 16 and 1; attention
+   windows NT 128, EB = SW = 1024): finite frames of shape
+   (16, 10, 64, 64, 1), overflow 0, K3 launches as read from the code (56)
+   and no K1/K2; times one batch after a warm-up;
+10. attention kernels vs plain: K3 against ``attn_plain`` on the first
+   decoder step's operands at every HD of the path (≤1e-5), K4 against
+   autograd through ``attn_plain`` on the cotangents of one train step at
+   every HD (≤1e-5 × max(1, max|grad|)); both timed with CUDA events beside
+   their bounds;
+11. attention train path: ``train_step`` (attention dropout 0.1 from the
+   trainer's generator): a warm-up step in which every K3 output whose
+   inputs need a gradient carries the ``AttnApply`` node, then 8 timed
+   steps; finite loss, overflow 0, K3 and K4 launches per step as read
+   from the code (56 each), no K1/K2; frames/s and peak memory;
+12. attention gradients vs plain and determinism: one train step on the
+   kernels and one on the plain versions from the same weights and
+   generator (identical meshes, every gradient leaf ≤1e-4 ×
+   max(1, max|g|)), and the kernel step again, bit-identical;
+13. the ``kernels`` JSON line (K1, K2, K2b, K3, K4), then the card line and
+   the result line.
 
 It fails at once without a CUDA card, and when the port's package is not
 beside it.
@@ -66,6 +87,7 @@ DEVICE = "cuda"
 CANVAS, DIGIT = (64, 64), (18, 18)
 T_IN, T_OUT, BATCH = 4, 10, 16
 K2_TOL, ROLLOUT_TOL, GRAD_TOL = 1e-5, 1e-4, 1e-4
+K3_TOL, K4_TOL = 1e-5, 1e-5
 REPS = 20
 TRAIN_STEPS, LR = 8, 0.01
 
@@ -99,7 +121,7 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def make_model(seed: int, run_dir: str = "runs"):
+def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv"):
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -107,7 +129,7 @@ def make_model(seed: int, run_dir: str = "runs"):
         input_features=1, input_timesteps=T_IN, output_timesteps=T_OUT,
         device=DEVICE, seed=seed, run_dir=run_dir,
         model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
-                          convolution_type="ChebConv"),
+                          convolution_type=conv),
         graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
                           agg_eb=1024, agg_sw=1024, aggregation="pallas"),
     )
@@ -156,9 +178,9 @@ class Capture:
             p.stop()
 
 
-def make_trainer(seed: int, run_dir: str):
+def make_trainer(seed: int, run_dir: str, conv: str = "ChebConv"):
     """The main path's model, ready to train (Adam at lr 0.01, γ 0.95)."""
-    model = make_model(seed, run_dir)
+    model = make_model(seed, run_dir, conv)
     model.initiate_training(lr=LR, lr_decay=0.95)
     return model
 
@@ -175,6 +197,17 @@ def expected_launches(cfg) -> dict:
     return {"spmm_build_blocks": 1 + T_OUT, "spmm_apply": k2, "spmm_apply_bwd": k2 - 2}
 
 
+def expected_attn_launches(cfg) -> int:
+    """K3 launches of one forecast batch or train step of the
+    TransformerConv model, read from the code: one per conv layer of every
+    encoder cell step (the 2·4 gate streams of a layer run as the heads of
+    one call), one per decoder cell step (1 conv layer each) and one per
+    head conv (2) per decoder step. A train step launches K4 as often:
+    every q, k and v is a projection with parameters, so each call needs
+    its gradient."""
+    return T_IN * cfg.n_layers * cfg.n_conv_layers + T_OUT * (cfg.n_layers + 2)
+
+
 def train_batches(seed: int, n: int):
     """``n`` batches of 16 made as ``bench.py`` ``measure`` makes them."""
     from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
@@ -188,23 +221,25 @@ def train_batches(seed: int, n: int):
 
 
 class GradFnCheck:
-    """Wraps ``spmm_apply`` for one train step and records every output
-    whose input requires grad but whose autograd node is not K2b's."""
+    """Wraps a differentiable op (``spmm_apply`` or ``attn_apply``) for one
+    train step and records every output whose first input requires grad
+    but whose autograd node is not ``node``."""
 
-    def __init__(self, spmm):
-        self.spmm, self.calls, self.bad = spmm, 0, []
-        self._apply = spmm.spmm_apply
+    def __init__(self, module, name: str, node: str):
+        self.module, self.name, self.node = module, name, node
+        self.calls, self.bad = 0, []
+        self._apply = getattr(module, name)
 
     def __call__(self, z, *args):
         out = self._apply(z, *args)
         if z.requires_grad:
             self.calls += 1
-            if type(out.grad_fn).__name__ != "SpmmApplyBackward":
+            if type(out.grad_fn).__name__ != self.node:
                 self.bad.append(type(out.grad_fn).__name__)
         return out
 
     def __enter__(self):
-        self._patch = mock.patch.object(self.spmm, "spmm_apply", self)
+        self._patch = mock.patch.object(self.module, self.name, self)
         self._patch.start()
         return self
 
@@ -213,12 +248,13 @@ class GradFnCheck:
 
 
 class CaptureBwd:
-    """Wraps K2b's launcher during one train step and keeps the operands
-    of the first call at each cotangent width F, with the calls per F."""
+    """Wraps a backward launcher (K2b's or K4's) during one train step and
+    keeps the operands of the first call at each width F (the last axis of
+    its first operand), with the calls per F."""
 
-    def __init__(self, spmm):
-        self.spmm, self.first, self.per_width = spmm, {}, {}
-        self._launch = spmm._apply_bwd_cuda
+    def __init__(self, module, name: str):
+        self.module, self.name, self.first, self.per_width = module, name, {}, {}
+        self._launch = getattr(module, name)
 
     def __call__(self, *args):
         f = args[0].shape[-1]
@@ -227,7 +263,37 @@ class CaptureBwd:
         return self._launch(*args)
 
     def __enter__(self):
-        self._patch = mock.patch.object(self.spmm, "_apply_bwd_cuda", self)
+        self._patch = mock.patch.object(self.module, self.name, self)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+class AttnCapture:
+    """Wraps K3's launcher during one forecast and keeps, per width HD, the
+    operands of the first decoder step's call (or of the first call at a
+    width the decoder does not use), plus the calls at each width."""
+
+    def __init__(self, attn, enc_calls: int, dec_step_calls: int):
+        self.attn, self.calls, self.per_width = attn, 0, {}
+        self.first_ops, self.dec0_ops = {}, {}
+        self.dec0 = range(enc_calls, enc_calls + dec_step_calls)
+        self._launch = attn._attn_fwd_cuda
+
+    def __call__(self, *args):
+        hd = args[0].shape[-1]
+        self.per_width[hd] = self.per_width.get(hd, 0) + 1
+        (self.dec0_ops if self.calls in self.dec0 else self.first_ops).setdefault(hd, args)
+        self.calls += 1
+        return self._launch(*args)
+
+    def operands(self):
+        return dict(sorted({**self.first_ops, **self.dec0_ops}.items()))
+
+    def __enter__(self):
+        self._patch = mock.patch.object(self.attn, "_attn_fwd_cuda", self)
         self._patch.start()
         return self
 
@@ -285,6 +351,35 @@ def k2_bound_ms(live, n_max, nt, sw, f, batch):
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
+def attn_bound_ms(attn, args, backward: bool):
+    """Least time for K3's (or K4's) work on these operands: per slot that
+    reaches a visible row, its indices, attributes and keep values read
+    once; each q row with a slot, each k and v row that is a source (and,
+    for K4, each g row with a slot) read once; Wₑ read once; the output
+    (K4: dq, dk, dv, dWₑ) written once. Operations per such slot: the edge
+    term, logit and weighted sum, 2·A·HD + 4·HD (K4: recompute plus
+    backward, 4·A·HD + 11·HD)."""
+    import torch
+
+    q, _k, _v, we, keep, meta, dims = args[:7]
+    b, n_max, hd = q.shape
+    a = we.shape[0]
+    kh = 0 if keep is None else keep.shape[2]
+    dst, src = attn.slot_nodes(meta, dims)
+    base = torch.arange(b, device=q.device)[:, None] * n_max
+    n_slots = int((dst >= 0).sum())
+    rows_q = int(torch.unique((dst + base)[dst >= 0]).numel())
+    rows_kv = int(torch.unique((src + base)[src >= 0]).numel())
+    nbytes = (n_slots * (8 + 4 * a + 4 * kh) + (rows_q + 2 * rows_kv) * hd * 4 + a * hd * 4
+              + b * n_max * hd * 4)
+    ops = n_slots * (2 * a * hd + 4 * hd)
+    if backward:
+        nbytes += rows_q * hd * 4 + 2 * b * n_max * hd * 4 + a * hd * 4
+        ops = n_slots * (4 * a * hd + 11 * hd)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
 def block_diag_csr(s0, blocks, n_max, nt, sw):
     """Â of every sample as one block-diagonal sparse CSR matrix, for the
     library yardstick (torch.sparse.mm)."""
@@ -313,7 +408,7 @@ def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
     trainer = make_trainer(seed, run_dir.name)
     want = expected_launches(cfg)
     _, batches = train_batches(seed, TRAIN_STEPS + 1)
-    with GradFnCheck(spmm) as gcheck:
+    with GradFnCheck(spmm, "spmm_apply", "SpmmApplyBackward") as gcheck:
         loss, overflow = trainer.train_step(*batches[0])  # warm-up
     check(float(loss) == float(loss), "warm-up loss is NaN")
     check(not gcheck.bad and gcheck.calls == want["spmm_apply_bwd"],
@@ -368,7 +463,7 @@ def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
 
     # ---- phase 7: K2b vs its plain version, then a step on each path
     x_g, y_g = batches[0]
-    with CaptureBwd(spmm) as cap_b:
+    with CaptureBwd(spmm, "_apply_bwd_cuda") as cap_b:
         make_trainer(seed, run_dir.name).train_step(x_g, y_g)
     bwd_widths = []
     for f, bargs in sorted(cap_b.first.items()):
@@ -418,6 +513,157 @@ def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
     return train_launches, bwd_widths
 
 
+def attn_phases(seed: int, card: str, spmm, attn, loader, x):
+    """Phases 9-12 on the TransformerConv path; returns the forecast's and
+    the timed train steps' launches and K3's and K4's per-width
+    measurements."""
+    import torch
+
+    run_dir = tempfile.TemporaryDirectory()
+    conv = "TransformerConv"
+
+    def reset():
+        spmm.reset_launch_counts()
+        attn.reset_launch_counts()
+
+    def counts():
+        return {**spmm.LAUNCHES, **attn.LAUNCHES}
+
+    # ---- phase 9: predict() on the attention path
+    model = make_model(seed, run_dir.name, conv)
+    cfg = model.cfg
+    k3 = expected_attn_launches(cfg)
+    check(model.gcfg.attn_windows and not model.gcfg.carry_edges,
+          f"the predictor did not switch to attention windows: {model.gcfg}")
+    model.predict(loader)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(loader)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches = counts()
+    check(y.shape == (BATCH, T_OUT, *CANVAS, 1), f"attention predict shape {y.shape}")
+    check(bool(np.isfinite(y).all()), "non-finite attention forecast")
+    check(model.last_overflow == 0, f"attention mesh overflow {model.last_overflow}")
+    check(launches["attn_apply"] == k3 and launches["attn_apply_bwd"] == 0,
+          f"attention forecast launches {launches}, expected K3 {k3}")
+    check(all(launches[n] == 0 for n in spmm.LAUNCHES), f"Â-block kernels ran: {launches}")
+    print(json.dumps({
+        "phase": "attn_path", "card": card, "batch": BATCH, "batch_s": batch_s,
+        "frames_per_s": BATCH * T_OUT / batch_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "overflow": model.last_overflow, "launches": launches,
+    }), flush=True)
+
+    # ---- phase 10: K3 and K4 against their plain versions
+    enc_calls = T_IN * cfg.n_layers * cfg.n_conv_layers
+    with AttnCapture(attn, enc_calls, cfg.n_layers + 2) as cap:
+        model.forecast(x)
+    check(cap.calls == k3, "attention capture run disagrees with the path")
+    fwd = []
+    for hd, args in cap.operands().items():
+        with torch.no_grad():
+            err = float((attn._attn_fwd_cuda(*args) - attn.attn_plain(*args)).abs().max())
+        check(err <= K3_TOL, f"K3 differs from attn_plain at HD={hd}: {err}")
+        bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=False)
+        fwd.append(dict(HD=hd, calls=cap.per_width[hd], max_abs_err=err,
+                        live_tiles=int(args[5].live.long().sum()),
+                        ms=cuda_ms(lambda: attn._attn_fwd_cuda(*args)),
+                        plain_ms=cuda_ms(lambda: attn.attn_plain(*args)),
+                        bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    check(sorted(w["HD"] for w in fwd) == [1, 16, 128], f"K3 widths {[w['HD'] for w in fwd]}")
+    _, batches = train_batches(seed, TRAIN_STEPS + 1)
+    x_g, y_g = batches[0]
+    with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b:
+        make_trainer(seed, run_dir.name, conv).train_step(x_g, y_g)
+    check(sum(cap_b.per_width.values()) == k3, f"K4 calls {cap_b.per_width}, expected {k3}")
+    bwd = []
+    for hd, args in sorted(cap_b.first.items()):
+        errs, rel = {}, {}
+        for name, a, p in zip(("dq", "dk", "dv", "dwe"), attn._attn_bwd_cuda(*args),
+                              attn.attn_bwd_plain(*args)):
+            errs[name] = float((a - p).abs().max())
+            rel[name] = errs[name] / max(1.0, float(p.abs().max()))
+        check(max(rel.values()) <= K4_TOL, f"K4 differs from the plain backward at HD={hd}: "
+              f"{rel}")
+        bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=True)
+        bwd.append(dict(HD=hd, calls=cap_b.per_width[hd], abs_err=errs, err_rel_to_max=rel,
+                        max_abs_err=max(errs.values()), keep=args[4] is not None,
+                        live_tiles=int(args[5].live.long().sum()),
+                        ms=cuda_ms(lambda: attn._attn_bwd_cuda(*args)),
+                        plain_ms=cuda_ms(lambda: attn.attn_bwd_plain(*args)),
+                        bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    print(json.dumps({"phase": "attn_kernels_vs_plain", "card": card, "k3_by_width": fwd,
+                      "k4_by_width": bwd}), flush=True)
+
+    # ---- phase 11: train_step on the attention path
+    trainer = make_trainer(seed, run_dir.name, conv)
+    with GradFnCheck(attn, "attn_apply", "AttnApplyBackward") as gcheck:
+        loss, _ = trainer.train_step(x_g, y_g)  # warm-up
+    check(float(loss) == float(loss), "attention warm-up loss is NaN")
+    check(not gcheck.bad and gcheck.calls == k3,
+          f"K3 outputs without the AttnApply node: {gcheck.bad[:3]} "
+          f"({gcheck.calls} outputs required grad)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses, worst, pending = [], 0, None
+    for x_b, y_b in batches[1:]:
+        loss, overflow = trainer.train_step(x_b, y_b)
+        if pending is not None:  # one step late, as train() drains
+            losses.append(float(pending[0]))
+            worst = max(worst, int(pending[1]))
+        pending = (loss, overflow)
+    losses.append(float(pending[0]))
+    worst = max(worst, int(pending[1]))
+    train_s = time.perf_counter() - t0
+    train_launches = counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in train_launches.items()}
+    check(bool(np.isfinite(losses).all()), f"non-finite attention training loss {losses}")
+    check(worst == 0, f"mesh overflow {worst} in attention training")
+    check(per_step["attn_apply"] == per_step["attn_apply_bwd"] == k3,
+          f"attention launches per step {per_step}, expected K3 = K4 = {k3}")
+    check(all(train_launches[n] == 0 for n in spmm.LAUNCHES), f"Â-block kernels ran: {per_step}")
+    print(json.dumps({
+        "phase": "attn_train_path", "card": card, "batch": BATCH, "steps": TRAIN_STEPS,
+        "seconds": train_s, "steps_per_s": TRAIN_STEPS / train_s,
+        "frames_per_s": TRAIN_STEPS * BATCH * T_OUT / train_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "losses": losses, "overflow": worst, "launches_per_step": per_step,
+        "k3_outputs_checked": gcheck.calls,
+    }), flush=True)
+
+    # ---- phase 12: a kernel step vs a plain step; the kernel step again
+    loss_k, _, grads_k, meshes_k = step_with_meshes(make_trainer(seed, run_dir.name, conv),
+                                                    x_g, y_g, seed=1)
+    with mock.patch.object(attn, "_attn_fwd_cuda", attn.attn_plain), \
+            mock.patch.object(attn, "_attn_bwd_cuda", attn.attn_bwd_plain):
+        loss_p, _, grads_p, meshes_p = step_with_meshes(
+            make_trainer(seed, run_dir.name, conv), x_g, y_g, seed=1)
+    check(torch.equal(meshes_k, meshes_p),
+          "kernel and plain attention train steps ran on different meshes")
+    leaf_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                   / max(1.0, float(grads_p[n].abs().max())) for n in grads_p)
+    check(leaf_err <= GRAD_TOL, f"attention gradients differ from the plain path by {leaf_err}")
+    print(json.dumps({
+        "phase": "attn_grads_vs_plain", "card": card, "loss_kernel": float(loss_k),
+        "loss_plain": float(loss_p), "max_leaf_err_rel": leaf_err, "leaves": len(grads_p),
+        "meshes_identical": True,
+    }), flush=True)
+    loss_k2, _, grads_k2, meshes_k2 = step_with_meshes(make_trainer(seed, run_dir.name, conv),
+                                                       x_g, y_g, seed=1)
+    same = (torch.equal(loss_k, loss_k2) and torch.equal(meshes_k, meshes_k2)
+            and all(torch.equal(grads_k[n], grads_k2[n]) for n in grads_k))
+    check(same, "two identical attention train steps differ")
+    print(json.dumps({"phase": "attn_determinism", "card": card, "loss": float(loss_k2),
+                      "bit_identical": same}), flush=True)
+    run_dir.cleanup()
+    return launches, train_launches, fwd, bwd
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -431,7 +677,7 @@ def main() -> int:
     try:
         from quadtree_mpnnlstm_tpu_torch.data.loader import DataLoader
         from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
-        from quadtree_mpnnlstm_tpu_torch.ops import cuda_build, spmm
+        from quadtree_mpnnlstm_tpu_torch.ops import attn, cuda_build, spmm
     except ImportError as exc:
         print(f"chip_smoke: the port's package is not beside this script ({exc})",
               file=sys.stderr)
@@ -443,7 +689,8 @@ def main() -> int:
     # ---- phase 1: build
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
-    cuda_build.load_library("spmm.cu")  # raises if it does not load
+    for src in libs:
+        cuda_build.load_library(src)  # raises if it does not load
     ptxas = [ln.strip() for src in libs for ln in
              libs[src].with_suffix(".log").read_text().splitlines() if "registers" in ln]
     print(json.dumps({"phase": "build", "card": card, "sources": sorted(libs),
@@ -546,6 +793,8 @@ def main() -> int:
     }), flush=True)
 
     train_launches, bwd_widths = train_phases(args.seed, card, spmm, cfg, nt, sw, n_max)
+    attn_launches, attn_train_launches, k3_widths, k4_widths = attn_phases(
+        args.seed, card, spmm, attn, loader, x)
 
     # ---- phase 9: the kernels line
     n = sum(w["calls"] for w in widths)
@@ -575,6 +824,25 @@ def main() -> int:
              ms=mean_b("ms"), plain_ms=mean_b("plain_ms"), bound_ms=mean_b("bound_ms"),
              bound_by="bytes" if mean_b("bytes_ms") >= mean_b("ops_ms") else "operations",
              library_ms=mean_b("library_ms"), launches_by_path=by_path("spmm_apply_bwd")),
+    ]
+
+    def attn_entry(name, replaces, widths):
+        """Launch-weighted means over the widths HD the attention path uses."""
+        n_calls = sum(w["calls"] for w in widths)
+        avg = lambda key: sum(w["calls"] * w[key] for w in widths) / n_calls  # noqa: E731
+        return dict(
+            name=name, route="cuda", source="quadtree_mpnnlstm_tpu_torch/csrc/attn.cu",
+            replaces=replaces, launches=attn_train_launches[name],
+            max_abs_err=max(w["max_abs_err"] for w in widths), ms=avg("ms"),
+            plain_ms=avg("plain_ms"), bound_ms=avg("bound_ms"),
+            bound_by="bytes" if avg("bytes_ms") >= avg("ops_ms") else "operations",
+            library_ms=None,  # no PyTorch call adds the edge term to keys and values
+            launches_by_path={"predict_batch": attn_launches[name],
+                              f"train_{TRAIN_STEPS}_steps": attn_train_launches[name]})
+
+    kernels += [
+        attn_entry("attn_apply", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372", k3_widths),
+        attn_entry("attn_apply_bwd", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:424", k4_widths),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

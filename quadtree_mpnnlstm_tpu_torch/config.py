@@ -2,8 +2,8 @@
 
 Own copy of the fields of ``quadtree_mpnnlstm_tpu/config.py`` that the
 forecast and training paths read; knobs of other paths (CSR degree caps,
-attention windows, the grid backend, bf16 messages, csum adjacency, debug
-hooks, remat, shared meshes) are left out until a slice needs them.
+the grid backend, bf16 messages, csum adjacency, debug hooks, remat,
+shared meshes) are left out until a slice needs them.
 """
 
 from __future__ import annotations
@@ -50,9 +50,12 @@ class GraphConfig:
         kernels read (the name is kept from the JAX package); ``"xla"``
         keeps the gather → scale → scatter edge-list path.
       agg_nt / agg_eb / agg_sw: node-tile rows, edge-window slots and
-        source-window rows of the Â blocks.
-      carry_edges: keep the edge list on built graphs; with Â blocks the
-        convolutions never read it after the build.
+        source-window rows of the Â blocks (or attention windows).
+      attn_windows: with ``aggregation="pallas"``, pack the per-tile
+        attention windows that the TransformerConv kernels read
+        (ops/attn.py) instead of the Â blocks.
+      carry_edges: keep the edge list on built graphs; with Â blocks or
+        attention windows the convolutions never read it after the build.
     """
 
     image_shape: Tuple[int, int]
@@ -70,6 +73,7 @@ class GraphConfig:
     agg_nt: int = 128
     agg_eb: int = 1024
     agg_sw: int = 512
+    attn_windows: bool = False
     carry_edges: bool = True
 
     def __post_init__(self):
@@ -83,6 +87,8 @@ class GraphConfig:
             raise ValueError(f"unknown aggregation {self.aggregation!r}")
         if self.thresh == NEG_INF:
             raise ValueError("the pixelwise mesh (thresh=-inf) is not ported yet")
+        if self.attn_windows and self.aggregation != "pallas":
+            raise ValueError("attn_windows=True needs aggregation='pallas'")
         if not self.carry_edges and self.aggregation != "pallas":
             raise ValueError("carry_edges=False needs aggregation='pallas'")
         if self.n_max is None:
@@ -130,10 +136,12 @@ class ModelConfig:
 
     ``input_features`` counts raw channels only; positional encoding (2)
     and node size (1) are appended internally. The port runs the fused
-    ChebConv GConvLSTM in float32 with a remesh at every decoder step;
-    :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq` rejects
-    other values of ``convolution_type``, ``rnn_type``, ``fused_gates``,
-    ``remesh_every`` and ``compute_dtype``.
+    ChebConv or TransformerConv GConvLSTM in float32 with a remesh at every
+    decoder step; :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
+    rejects other values of ``convolution_type``, ``rnn_type``,
+    ``fused_gates``, ``remesh_every`` and ``compute_dtype``. ``dropout`` is
+    the decoder head's; attention convolutions drop attention weights at
+    their own fixed rate (``models/conv.py`` ``CONVOLUTION_KWARGS``).
     """
 
     hidden_size: int = 32

@@ -19,7 +19,7 @@ from quadtree_mpnnlstm_tpu_torch.graph.quadtree import (
 )
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors, flatten
 from quadtree_mpnnlstm_tpu_torch.models.conv import compute_sym_norm
-from quadtree_mpnnlstm_tpu_torch.ops import spmm
+from quadtree_mpnnlstm_tpu_torch.ops import attn, spmm
 
 
 def _node_positions(data0: torch.Tensor, cfg: GraphConfig) -> torch.Tensor:
@@ -71,11 +71,24 @@ def _assemble(
         n_edges=n_edges,
         node_xy=node_xy,
     )
-    graph = graph.replace(sym_coeff=compute_sym_norm(graph))
+    # attention windows read the edge attributes, not Â: skip the
+    # normalisation when the edge list is dropped after the build
+    if cfg.carry_edges or not cfg.attn_windows:
+        graph = graph.replace(sym_coeff=compute_sym_norm(graph))
 
     # -- capacity-overflow accounting (dropped nodes/edges/window misses)
     overflow = (n_nodes - n_max).clamp_min(0) + (n_edges_raw - cfg.e_max).clamp_min(0)
-    if cfg.aggregation == "pallas":
+    if cfg.attn_windows:
+        meta, window_overflow = attn.attn_tile_meta(
+            edge_src, edge_dst, edge_attr, n_max,
+            cfg.agg_nt, cfg.agg_eb, cfg.agg_sw, n_nodes,
+        )
+        overflow = overflow + window_overflow
+        graph = graph.replace(
+            attn_meta=meta,
+            agg=("pallas_attn", cfg.agg_nt, cfg.agg_eb, cfg.agg_sw),
+        )
+    elif cfg.aggregation == "pallas":
         windows, window_overflow = spmm.spmm_tile_meta(
             edge_src, edge_dst, graph.sym_coeff, n_max,
             cfg.agg_nt, cfg.agg_eb, cfg.agg_sw,
@@ -87,7 +100,8 @@ def _assemble(
         )
     graph = graph.replace(overflow=overflow)
     if not cfg.carry_edges:
-        # convolutions read only the Â blocks once they exist
+        # convolutions read only the Â blocks or attention windows once
+        # they exist
         graph = graph.replace(
             edge_src=None, edge_dst=None, edge_valid=None, edge_attr=None,
             sym_coeff=None, node_xy=None,

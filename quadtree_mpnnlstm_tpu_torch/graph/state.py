@@ -36,7 +36,7 @@ class GraphTensors:
     n_nodes: torch.Tensor     # (B,) int64 true node count (may exceed n_max)
     node_valid: torch.Tensor  # (B, n_max) bool
     # capacity-overflow counter: nodes past n_max + edges past e_max + SpMM
-    # window misses (zero when nothing was dropped)
+    # or attention window misses (zero when nothing was dropped)
     overflow: torch.Tensor    # (B,) int64
     edge_src: Optional[torch.Tensor] = None   # (B, e_max) int64, sentinel n_max
     edge_dst: Optional[torch.Tensor] = None   # (B, e_max) int64, sorted
@@ -47,6 +47,8 @@ class GraphTensors:
     sym_coeff: Optional[torch.Tensor] = None  # (B, e_max) f32 D^-1/2 A D^-1/2
     # per-tile Â blocks for the SpMM kernels (ops/spmm.py SpmmBlocks)
     agg_meta: Optional[object] = None
+    # per-tile attention windows for the attention kernels (ops/attn.py AttnMeta)
+    attn_meta: Optional[object] = None
     # aggregation backend descriptor: (name, nt, eb, sw)
     agg: tuple = ("xla", 0, 0, 0)
 

@@ -1,17 +1,27 @@
-"""Graph convolutions over per-sample padded meshes (ChebConv slice).
+"""Graph convolutions over per-sample padded meshes.
 
 Counterpart of ``quadtree_mpnnlstm_tpu/models/conv.py``: the symmetric
-normalisation, the ``Â z`` dispatch and ``ChebConv`` (K=3, 'sym'
-laplacian, lambda_max=2). Node tensors are (B, n_max, F).
+normalisation, the ``Â z`` dispatch, ``ChebConv`` (K=3, 'sym' laplacian,
+lambda_max=2), the attention-window branch of ``multi_stream_attention``
+and ``TransformerConv`` (heads=1, edge_dim=2, attention dropout 0.1,
+concat off in the registry). Node tensors are (B, n_max, F). Every conv
+takes ``(x, graph, generator)``; attention dropout draws its keep windows
+from ``generator`` in training mode (``module.train()``) only.
+
+Not ported yet: the edge-list and grid branches of the attention, the
+batch-middle (shared-mesh) layout, the α side channel (``sow``),
+``MHTransformerConv``, GCN and the GAT family.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors
-from quadtree_mpnnlstm_tpu_torch.ops import spmm
+from quadtree_mpnnlstm_tpu_torch.ops import attn, spmm
 from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
 
 
@@ -63,7 +73,8 @@ class ChebConv(nn.Module):
     def lin(self, k: int) -> nn.Linear:
         return getattr(self, f"lin_{k}")
 
-    def forward(self, x: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, graph: GraphTensors,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         scale = 2.0 / self.lambda_max
 
         def l_hat(z):
@@ -79,3 +90,98 @@ class ChebConv(nn.Module):
                 tx, tx_prev = 2.0 * l_hat(tx) - tx_prev, tx
                 out = out + self.lin(k)(tx)
         return out + self.bias
+
+
+def attr_dim(graph: GraphTensors) -> int:
+    """Edge-attribute feature count of the mesh representation the graph
+    carries (edge list or attention windows)."""
+    if graph.edge_attr is not None:
+        return graph.edge_attr.shape[-1]
+    if graph.attn_meta is not None:
+        return graph.attn_meta.attr.shape[-1]
+    raise ValueError("graph carries no edge attributes")
+
+
+def multi_stream_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: Optional[torch.Tensor],
+    graph: GraphTensors, heads: int, d: int, dropout: float = 0.0,
+    training: bool = False, generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Destination-aggregated edge attention for ``heads`` independent
+    streams packed on the feature axis: the implementation behind
+    TransformerConv and the fused attention gate stacks (models/fused.py),
+    where the 2·G gate convolutions of a cell run as extra heads of one
+    call. Runs on the graph's attention windows (``agg = "pallas_attn"``;
+    kernels K3/K4 on a CUDA tensor).
+
+    Dropout is drawn per window slot and head, as the JAX package's window
+    path draws it: a (B, T, heads, EB) keep window of 1/(1 − rate) with
+    probability 1 − rate, from ``generator``, in training mode only.
+
+    Args:
+      q/k/v: (B, n_max, heads·d) projected node features.
+      we: (A, heads·d) edge-projection weights, or None for no edge term.
+    Returns:
+      (B, n_max, heads, d).
+    """
+    if graph.agg[0] != "pallas_attn":
+        raise ValueError(
+            "attention runs on the attention windows only (GraphConfig.attn_windows with "
+            "aggregation='pallas'); the edge-list attention is not ported"
+        )
+    _, nt, eb, sw = graph.agg
+    meta = graph.attn_meta
+    b, n = q.shape[:2]
+    if we is None:
+        we = q.new_zeros((attr_dim(graph), heads * d))
+    keep = None
+    if training and dropout > 0.0:
+        if generator is None:
+            raise ValueError("attention dropout in training mode needs an explicit torch.Generator")
+        shape = (b, meta.s0.shape[1], heads, eb)
+        u = torch.rand(shape, generator=generator, device=q.device)
+        keep = (u < 1.0 - dropout).float() / (1.0 - dropout)
+    dims = attn.AttnDims(n, nt, eb, sw, heads, d)
+    return attn.attn_apply(q, k, v, we, keep, meta, dims).reshape(b, n, heads, d)
+
+
+class TransformerConv(nn.Module):
+    """Graph transformer (UniMP-style) attention conv. Parameters follow
+    the flax module: ``lin_query``, ``lin_key``, ``lin_value`` (with
+    bias), ``lin_edge`` (no bias; the edge projection Wₑ is its kernel, what
+    the flax module gets by applying it to the identity) and ``lin_skip``."""
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
+                 concat: bool = True, dropout: float = 0.0, edge_dim: Optional[int] = None,
+                 root_weight: bool = True, use_bias: bool = True):
+        super().__init__()
+        self.heads, self.out_channels = heads, out_channels
+        self.concat, self.dropout = concat, dropout
+        hd = heads * out_channels
+        self.lin_query = nn.Linear(in_channels, hd)
+        self.lin_key = nn.Linear(in_channels, hd)
+        self.lin_value = nn.Linear(in_channels, hd)
+        self.lin_edge = nn.Linear(edge_dim, hd, bias=False) if edge_dim is not None else None
+        self.lin_skip = (nn.Linear(in_channels, hd if concat else out_channels, bias=use_bias)
+                         if root_weight else None)
+
+    def forward(self, x: torch.Tensor, graph: GraphTensors,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h, d = self.heads, self.out_channels
+        we = None if self.lin_edge is None else self.lin_edge.weight.t()  # (A, h·d)
+        out = multi_stream_attention(
+            self.lin_query(x), self.lin_key(x), self.lin_value(x), we, graph, h, d,
+            dropout=self.dropout, training=self.training, generator=generator,
+        )
+        out = out.reshape(out.shape[:-2] + (h * d,)) if self.concat else out.mean(dim=-2)
+        if self.lin_skip is not None:
+            out = out + self.lin_skip(x)
+        return out
+
+
+# registry (parity: the JAX package's CONVOLUTIONS / CONVOLUTION_KWARGS)
+CONVOLUTIONS = {"ChebConv": ChebConv, "TransformerConv": TransformerConv}
+CONVOLUTION_KWARGS = {
+    "ChebConv": dict(K=3),
+    "TransformerConv": dict(heads=1, edge_dim=2, dropout=0.1, concat=False),
+}

@@ -20,11 +20,13 @@ Reference quirks kept from the JAX package:
   * the remesh also runs after the last decoder step, and the mesh
     overflow is a running max over the whole rollout.
 
-Training mode (``model.train()``) turns on the decoder head's dropout;
-``decode`` takes a scheduled-sampling ratio. Both draw from the caller's
-``torch.Generator`` only, never from torch's global RNG, so a step is
-reproducible from its generator's seed. ``remesh_input``, climatology,
-preset meshes and the shared-mesh batched layout are not ported.
+Training mode (``model.train()``) turns on the decoder head's dropout and,
+with TransformerConv, the attention dropout of every encoder and decoder
+attention; ``decode`` takes a scheduled-sampling ratio. All of them draw
+from the caller's ``torch.Generator`` only, never from torch's global
+RNG, so a step is reproducible from its generator's seed.
+``remesh_input``, climatology, preset meshes and the shared-mesh batched
+layout are not ported.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from quadtree_mpnnlstm_tpu_torch.config import GraphConfig, ModelConfig
 from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors, flatten, unflatten
 from quadtree_mpnnlstm_tpu_torch.models.cells import GConvLSTM
-from quadtree_mpnnlstm_tpu_torch.models.conv import ChebConv
+from quadtree_mpnnlstm_tpu_torch.models.conv import CONVOLUTION_KWARGS, CONVOLUTIONS
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
 
 
@@ -92,24 +94,29 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    supported = dict(convolution_type="ChebConv", rnn_type="LSTM", fused_gates=True,
-                     remesh_every=1, compute_dtype="float32")
-    for field, value in supported.items():
-        if getattr(cfg, field) != value:
+def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
+    supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=("LSTM",),
+                     fused_gates=(True,), remesh_every=(1,), compute_dtype=("float32",))
+    for field, values in supported.items():
+        if getattr(cfg, field) not in values:
             raise ValueError(
                 f"ModelConfig.{field}={getattr(cfg, field)!r} is not ported; "
-                f"this path runs {field}={value!r}"
+                f"this path runs {field} in {values!r}"
             )
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
+    if cfg.convolution_type == "TransformerConv" and not gcfg.attn_windows:
+        raise ValueError("TransformerConv runs on attention windows only (aggregation='pallas', "
+                         "attn_windows=True); the edge-list attention is not ported")
 
 
-def _make_cells(module: nn.Module, in_channels: int, hidden: int,
-                n_layers: int, n_conv_layers: int) -> None:
-    for i in range(n_layers):
+def _make_cells(module: nn.Module, cfg: ModelConfig, in_channels: int,
+                n_conv_layers: int) -> None:
+    hidden = cfg.hidden_size
+    for i in range(cfg.n_layers):
         module.add_module(
-            f"rnn_{i}", GConvLSTM(in_channels if i == 0 else hidden, hidden, n_conv_layers)
+            f"rnn_{i}", GConvLSTM(in_channels if i == 0 else hidden, hidden, n_conv_layers,
+                                  cfg.convolution_type)
         )
 
 
@@ -120,20 +127,20 @@ class Encoder(nn.Module):
         super().__init__()
         self.n_layers = cfg.n_layers
         h = cfg.hidden_size
-        _make_cells(self, cfg.node_input_features, h, cfg.n_layers, cfg.n_conv_layers)
+        _make_cells(self, cfg, cfg.node_input_features, cfg.n_conv_layers)
         self.norm_h = LayerNorm(h)
         self.norm_c = LayerNorm(h)
 
     def rnn(self, i: int) -> GConvLSTM:
         return getattr(self, f"rnn_{i}")
 
-    def forward(self, x_t, graph, prev_hidden, prev_cell):
+    def forward(self, x_t, graph, prev_hidden, prev_cell, generator=None):
         # Layer 0 consumes the previous timestep's TOP layer state.
-        _, h, c = self.rnn(0)(x_t, graph, prev_hidden[-1], prev_cell[-1])
+        _, h, c = self.rnn(0)(x_t, graph, prev_hidden[-1], prev_cell[-1], generator)
         hs, cs = [self.norm_h(h)], [self.norm_c(c)]
         zero = torch.zeros_like(hs[0])
         for i in range(1, self.n_layers):
-            _, h, c = self.rnn(i)(hs[-1], graph, zero, zero)
+            _, h, c = self.rnn(i)(hs[-1], graph, zero, zero, generator)
             hs.append(self.norm_h(h))
             cs.append(self.norm_c(c))
         return tuple(hs), tuple(cs)
@@ -150,9 +157,11 @@ class Decoder(nn.Module):
         h = cfg.hidden_size
         # decoder input is [value, pos_x, pos_y, node_size]; conv stacks are
         # 1 layer deep
-        _make_cells(self, 4, h, cfg.n_layers, 1)
-        self.fc_out1 = ChebConv(h + 1, h)  # + the concat (value) channel
-        self.fc_out2 = ChebConv(h, 1)
+        _make_cells(self, cfg, 4, 1)
+        conv_cls = CONVOLUTIONS[cfg.convolution_type]
+        kwargs = CONVOLUTION_KWARGS[cfg.convolution_type]
+        self.fc_out1 = conv_cls(h + 1, h, **kwargs)  # + the concat (value) channel
+        self.fc_out2 = conv_cls(h, 1, **kwargs)
         self.norm_o = LayerNorm(h)
         self.norm_h = LayerNorm(h)
         self.norm_c = LayerNorm(h)
@@ -161,15 +170,16 @@ class Decoder(nn.Module):
         return getattr(self, f"rnn_{i}")
 
     def forward(self, x, graph, concat, hidden, cell, generator=None):
-        out, h, c = self.rnn(0)(x, graph, hidden[0], cell[0])
+        out, h, c = self.rnn(0)(x, graph, hidden[0], cell[0], generator)
         hs, cs = [self.norm_h(h)], [self.norm_c(c)]
         for i in range(1, self.n_layers):
-            out, h, c = self.rnn(i)(hs[-1], graph, hidden[i], cell[i])
+            out, h, c = self.rnn(i)(hs[-1], graph, hidden[i], cell[i], generator)
             hs.append(self.norm_h(h))
             cs.append(self.norm_c(c))
         output = torch.relu(self.norm_o(out))
         output = torch.cat([output, concat], dim=-1)
-        output = self.fc_out2(torch.relu(self.fc_out1(output, graph)), graph)
+        output = self.fc_out1(output, graph, generator)
+        output = self.fc_out2(torch.relu(output), graph, generator)
         output = dropout(output, self.dropout, self.training, generator)
         output = torch.tanh(output) + x[..., :1]  # residual on previous value
         if self.binary:
@@ -182,14 +192,16 @@ class Seq2Seq(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gcfg: GraphConfig):
         super().__init__()
-        _check_supported(cfg)
+        _check_supported(cfg, gcfg)
         self.cfg, self.gcfg = cfg, gcfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
 
-    def encode(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> Seq2SeqState:
+    def encode(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> Seq2SeqState:
         """x: (B, T_in, rows, cols, C) → state after the last input frame,
-        on the mesh of the inputs (criterion: max over the input frames)."""
+        on the mesh of the inputs (criterion: max over the input frames).
+        ``generator`` feeds the attention dropout in training mode."""
         cfg, gcfg = self.cfg, self.gcfg
         if x.shape[1] != cfg.input_timesteps:
             raise ValueError(f"expected {cfg.input_timesteps} input frames, got {x.shape[1]}")
@@ -201,7 +213,7 @@ class Seq2Seq(nn.Module):
         graph, data = image_to_graph(add_positional_encoding(x.float()), gcfg, mask=mask)
         hidden, cell = zeros, zeros
         for t in range(cfg.input_timesteps):
-            hidden, cell = self.encoder(data[:, t], graph, hidden, cell)
+            hidden, cell = self.encoder(data[:, t], graph, hidden, cell, generator)
         # decoder seed [value, pos_x, pos_y, node_size]: slices, not an index
         # list, whose backward would scatter
         last = data[:, -1]

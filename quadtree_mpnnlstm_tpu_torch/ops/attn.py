@@ -1,0 +1,295 @@
+"""Fused TransformerConv aggregation over dst-sorted edge windows: window
+metadata, two CUDA kernels (``csrc/attn.cu``) and their plain PyTorch
+versions.
+
+Counterpart of ``quadtree_mpnnlstm_tpu/ops/pallas_attn.py``. The windows
+are the SpMM's (:func:`~quadtree_mpnnlstm_tpu_torch.ops.spmm.window_geometry`):
+the edges of a 128-node destination tile are one contiguous, dst-sorted
+window of EB slots, and their sources lie in the node rows
+``[s0, s0 + SW)``. Per slot the edge attributes are kept, so the edge term
+``e = attr · Wₑ`` is computed where it is used. For every destination
+node n and head h (with ``scale = 1/√d``):
+
+    logit_j = scale · q[n]_h · (k[src_j]_h + e_j,h)       for the slots j of n
+    α_j     = softmax over the slots of n (per head)
+    out[n]_h = Σ_j α_j · keep_j,h · (v[src_j]_h + e_j,h)
+
+Rows with no slot, and every row of a dead tile (at or past
+``live = ⌈n_nodes/NT⌉``), give 0. ``keep`` holds the dropout keep-scale of
+every (slot, head) window entry, or is None for no dropout.
+
+Everything carries a leading batch axis (one mesh per sample, one launch
+per batch). Dispatch is by device: a CUDA tensor launches the kernel (and
+raises if it cannot be built or launched); a CPU tensor runs the plain
+version. Each kernel launch adds one to :data:`LAUNCHES`.
+
+:class:`AttnApply` makes the aggregation differentiable in q, k, v and Wₑ
+on both devices: its backward (K4) recomputes α (flash-style) and returns
+per-slot dk/dv partials and per-CTA dWₑ partials, which are summed in a
+fixed order outside the kernel, so a training step is bit-reproducible.
+The windows, ``keep`` and the edge attributes carry no gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from quadtree_mpnnlstm_tpu_torch.ops import spmm
+from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
+
+# kernel launches since the last reset_launch_counts(), by wrapper name
+LAUNCHES = {"attn_apply": 0, "attn_apply_bwd": 0}
+
+# destination rows per CTA of both kernels; feature width and attribute
+# columns they accept (csrc/attn.cu kMaxRows, 32 lanes x 16 features, kMaxA)
+ROWS_PER_CTA = 16
+MAX_HD = 512
+MAX_A = 4
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class AttnMeta(NamedTuple):
+    """Per-tile attention windows of a batch of meshes (constants)."""
+
+    s0: torch.Tensor       # (B, T) int32 source-window start (16-aligned)
+    src_rel: torch.Tensor  # (B, T, EB) int32 src − s0[t]; −1 = no edge
+    dst_rel: torch.Tensor  # (B, T, EB) int32 dst − t·NT; −1 = no edge
+    attr: torch.Tensor     # (B, T, EB, A) f32 edge attributes per slot
+    live: torch.Tensor     # (B,) int32 live-tile count
+
+
+class AttnDims(NamedTuple):
+    """Static geometry of one aggregation."""
+
+    n_max: int
+    nt: int
+    eb: int
+    sw: int
+    heads: int
+    d: int
+
+
+def attn_tile_meta(
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_attr: torch.Tensor,
+    n_max: int,
+    nt: int,
+    eb: int,
+    sw: int,
+    n_nodes: torch.Tensor,
+) -> Tuple[AttnMeta, torch.Tensor]:
+    """Pack per-tile attention windows (batched ``attn_tile_meta`` of the
+    JAX package, bit-identical, with the attributes as (B, T, EB, A)
+    instead of the TPU's transposed (T, A, EB)). Returns (meta, overflow
+    (B,)). Detached: the windows are constants of the mesh."""
+    edge_src, edge_dst, edge_attr = edge_src.detach(), edge_dst.detach(), edge_attr.detach()
+    geo = spmm.window_geometry(edge_src, edge_dst, n_max, nt, eb, sw)
+    b, t, _ = geo["src_rel"].shape
+    a = edge_attr.shape[-1]
+    flat = geo["flat_idx"]
+    attr_w = torch.gather(edge_attr.float(), 1, flat[..., None].expand(b, flat.shape[1], a))
+    attr_w = torch.where(geo["in_tile"][..., None], attr_w.reshape(b, t, eb, a), 0.0)
+    meta = AttnMeta(
+        s0=geo["s0"].int(),
+        src_rel=geo["src_rel"].int(),
+        dst_rel=geo["dst_rel"].int(),
+        attr=attr_w,
+        live=spmm.live_tiles(n_nodes.detach(), t, nt),
+    )
+    return meta, geo["overflow"]
+
+
+def slot_nodes(meta: AttnMeta, dims: AttnDims) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dst, src) node ids (B, T·EB) int64 of every window slot, −1 where a
+    slot contributes nothing: dst for dead slots, slots of dead tiles and
+    slots that reach a padding row at or past ``n_max`` (whose output is
+    sliced off and whose cotangent is zero); src also where the source
+    falls outside the window or past ``n_max``, where the TPU kernel reads
+    a zero k/v row (the slot then still carries its edge term)."""
+    b, t, eb = meta.dst_rel.shape
+    tile = torch.arange(t, device=meta.dst_rel.device)[None, :, None]
+    dst_rel, src_rel = meta.dst_rel.long(), meta.src_rel.long()
+    dst = tile * dims.nt + dst_rel
+    dst_ok = (dst_rel >= 0) & (tile < meta.live[:, None, None]) & (dst < dims.n_max)
+    src = meta.s0.long()[..., None] + src_rel
+    src_ok = dst_ok & (src_rel >= 0) & (src_rel < dims.sw) & (src < dims.n_max)
+    return (torch.where(dst_ok, dst, -1).reshape(b, t * eb),
+            torch.where(src_ok, src, -1).reshape(b, t * eb))
+
+
+def _slot_keep(keep: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, T, KH, EB) keep windows → (B, T·EB, heads); head h reads row
+    min(h, KH − 1), as the TPU kernel does."""
+    b, t, kh, eb = keep.shape
+    rows = torch.arange(heads, device=keep.device).clamp_max(kh - 1)
+    return keep[:, :, rows, :].permute(0, 1, 3, 2).reshape(b, t * eb, heads)
+
+
+# ------------------------------------------------------- plain versions
+
+
+def attn_plain(q, k, v, we, keep: Optional[torch.Tensor], meta: AttnMeta,
+               dims: AttnDims) -> torch.Tensor:
+    """K3's function in plain PyTorch, over the window slots: gather k/v at
+    the sources and q at the destinations, per-head logits, a softmax per
+    destination with a detached max, and fixed-order segment sums. O(slots
+    · HD) memory. q, k, v: (B, n_max, heads·d); we: (A, heads·d)."""
+    n_max, heads, d = dims.n_max, dims.heads, dims.d
+    b = q.shape[0]
+    dst, src = slot_nodes(meta, dims)
+    slots = dst.shape[1]
+    attr = meta.attr.reshape(b, slots, -1)
+    e = (attr @ we).reshape(b, slots, heads, d)
+    kj = gather_nodes(k, src, n_max).reshape(b, slots, heads, d) + e
+    vj = gather_nodes(v, src, n_max).reshape(b, slots, heads, d) + e
+    qi = gather_nodes(q, dst, n_max).reshape(b, slots, heads, d)
+    logits = (qi * kj).sum(-1) * (1.0 / float(d) ** 0.5)  # (B, slots, heads)
+
+    valid = (dst >= 0)[..., None]
+    with torch.no_grad():
+        idx = dst.clamp_min(0)[..., None].expand(b, slots, heads)
+        mx = torch.full((b, n_max, heads), float("-inf"), device=q.device)
+        mx = mx.scatter_reduce(1, idx, torch.where(valid, logits, float("-inf")), "amax")
+        mx = torch.gather(mx, 1, idx)
+    ex = torch.exp(torch.where(valid, logits - mx, float("-inf")))
+    den = gather_nodes(segment_sum_nodes(ex, dst, n_max), dst, n_max)
+    alpha = ex / den.clamp_min(1e-30)
+    if keep is not None:
+        alpha = alpha * _slot_keep(keep, heads)
+    out = segment_sum_nodes(alpha[..., None] * vj, dst, n_max)  # (B, n_max, heads, d)
+    return out.reshape(b, n_max, heads * d)
+
+
+def attn_bwd_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
+    """K4's function in plain PyTorch: autograd through :func:`attn_plain`,
+    recomputed from the saved inputs. Returns (dq, dk, dv, dwe)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v, we)]
+        return torch.autograd.grad(attn_plain(*leaves, keep, meta, dims), leaves, g)
+
+
+# ------------------------------------------------------- CUDA kernels
+
+
+def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
+    """Check the operands of both kernels; returns (lib, pointers, ints)."""
+    from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
+
+    n_max, nt, eb, sw, heads, d = dims
+    b, t = meta.s0.shape
+    a = meta.attr.shape[-1]
+    hd = heads * d
+    if not 1 <= hd <= MAX_HD or not 1 <= a <= MAX_A:
+        raise ValueError(f"attention kernels take 1 ≤ heads·d ≤ {MAX_HD} and 1 ≤ A ≤ {MAX_A}; "
+                         f"got heads·d={hd}, A={a}")
+    check = spmm._check
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        check(x, name, torch.float32, (b, n_max, hd))
+    check(we, "we", torch.float32, (a, hd))
+    check(meta.s0, "s0", torch.int32, (b, t))
+    check(meta.src_rel, "src_rel", torch.int32, (b, t, eb))
+    check(meta.dst_rel, "dst_rel", torch.int32, (b, t, eb))
+    check(meta.attr, "attr", torch.float32, (b, t, eb, a))
+    check(meta.live, "live", torch.int32, (b,))
+    kh = 0
+    if keep is not None:
+        if keep.dim() != 4 or not 1 <= keep.shape[2] <= heads:
+            raise ValueError(f"keep must be (B, T, KH, EB) with 1 ≤ KH ≤ {heads}, "
+                             f"got {tuple(keep.shape)}")
+        kh = keep.shape[2]
+        check(keep, "keep", torch.float32, (b, t, kh, eb))
+    ptrs = [spmm._ptr(x) for x in (q, k, v, we)]
+    ptrs.append(ctypes.c_void_p(None if keep is None else keep.data_ptr()))
+    ptrs += [spmm._ptr(x) for x in meta]
+    ints = (b, t, eb, nt, sw, n_max, heads, d, a, kh, ROWS_PER_CTA)
+    return load_library("attn.cu"), ptrs, ints
+
+
+def _scale(d: int) -> ctypes.c_float:
+    return ctypes.c_float(1.0 / float(d) ** 0.5)
+
+
+def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims) -> torch.Tensor:
+    """Launch K3 (``qtm_attn_fwd``): one CTA per (sample, tile, 16-row
+    group), one warp per destination row."""
+    lib, ptrs, ints = _launch_args(q, k, v, we, keep, meta, dims)
+    out = torch.empty_like(q)
+    err = lib.qtm_attn_fwd(*ptrs, spmm._ptr(out), *ints, _scale(dims.d), spmm._stream())
+    spmm._raise_on(err, "attn_apply")
+    LAUNCHES["attn_apply"] += 1
+    return out
+
+
+def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
+    """Launch K4 (``qtm_attn_bwd``) and combine its partials in a fixed
+    order: the per-slot dk/dv rows by source node (``segment_sum_nodes``,
+    sort-based, no float atomics) and the per-CTA dWₑ partials by one
+    ``sum``. Returns (dq, dk, dv, dwe)."""
+    lib, ptrs, ints = _launch_args(q, k, v, we, keep, meta, dims)
+    spmm._check(g, "g", torch.float32, tuple(q.shape))
+    b, t, eb = meta.dst_rel.shape
+    a, hd = we.shape
+    groups = -(-dims.nt // ROWS_PER_CTA)
+    dq = torch.empty_like(q)
+    dk_slot = torch.empty((b, t * eb, hd), dtype=torch.float32, device=q.device)
+    dv_slot = torch.empty_like(dk_slot)
+    dwe_part = torch.empty((b, t * groups, a, hd), dtype=torch.float32, device=q.device)
+    err = lib.qtm_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(dq), spmm._ptr(dk_slot),
+                           spmm._ptr(dv_slot), spmm._ptr(dwe_part), *ints, _scale(dims.d),
+                           spmm._stream())
+    spmm._raise_on(err, "attn_apply_bwd")
+    LAUNCHES["attn_apply_bwd"] += 1
+    # slots the kernel skipped hold no values; their src id is −1 (dropped)
+    _, src = slot_nodes(meta, dims)
+    dk = segment_sum_nodes(dk_slot, src, dims.n_max)
+    dv = segment_sum_nodes(dv_slot, src, dims.n_max)
+    return dq, dk, dv, dwe_part.sum(dim=(0, 1))
+
+
+# ------------------------------------------------------- dispatch
+
+
+class AttnApply(torch.autograd.Function):
+    """K3 forward with the K4 backward. Each direction launches its kernel
+    on a CUDA tensor and runs its plain version on a CPU tensor. Only
+    q, k, v and Wₑ are saved (not α, which K4 recomputes); keep and the
+    windows get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, dims):
+        q, k, v, we = (x.contiguous() for x in (q, k, v, we))
+        ctx.save_for_backward(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live)
+        ctx.dims = dims
+        meta = AttnMeta(s0, src_rel, dst_rel, attr, live)
+        fwd = _attn_fwd_cuda if q.is_cuda else attn_plain
+        return fwd(q, k, v, we, keep, meta, dims)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, we, keep, *meta = ctx.saved_tensors
+        bwd = _attn_bwd_cuda if g.is_cuda else attn_bwd_plain
+        dq, dk, dv, dwe = bwd(q, k, v, we, keep, AttnMeta(*meta), ctx.dims, g.contiguous())
+        return (dq, dk, dv, dwe) + (None,) * 7
+
+
+def attn_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.Tensor,
+               keep: Optional[torch.Tensor], meta: AttnMeta, dims: AttnDims) -> torch.Tensor:
+    """K3: fused TransformerConv aggregation over the windows of ``meta``.
+
+    Replaces ``attn_apply`` (``_attn_impl``/``_fwd_kernel`` forward,
+    ``_attn_bwd``/``_bwd_kernel`` backward) of
+    ``quadtree_mpnnlstm_tpu/ops/pallas_attn.py``. q, k, v: (B, n_max,
+    heads·d) f32; we: (A, heads·d); keep: (B, T, KH, EB) keep-scale
+    windows, or None for no dropout. Returns (B, n_max, heads·d);
+    differentiable in q, k, v and we.
+    """
+    return AttnApply.apply(q, k, v, we, keep, *meta, dims)

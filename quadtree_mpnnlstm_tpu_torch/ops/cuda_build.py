@@ -41,6 +41,13 @@ SIGNATURES = {
         # z, blocks, s0, live, out, B, T, NT, SW, n_max, F, stream
         "qtm_spmm_apply": [_P] * 5 + [_C] * 6 + [_P],
     },
+    "attn.cu": {
+        # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,
+        # B, T, EB, NT, SW, n_max, H, D, A, KH, rows, scale, stream
+        "qtm_attn_fwd": [_P] * 11 + [_C] * 11 + [ctypes.c_float, _P],
+        # ... live, g, dq, dk_slot, dv_slot, dwe_part, B, ..., rows, scale, stream
+        "qtm_attn_bwd": [_P] * 15 + [_C] * 11 + [ctypes.c_float, _P],
+    },
 }
 
 

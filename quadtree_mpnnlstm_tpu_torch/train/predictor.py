@@ -9,8 +9,9 @@ its own mesh. The batch loss is the mean over samples of each sample's
 loss, as the vmapped JAX loss is.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``; on
-the card the Â-block kernels (ops/spmm.py) carry every aggregation and
-its backward. Dropout and scheduled sampling draw from the predictor's
+the card the Â-block kernels (ops/spmm.py, ChebConv) or the attention
+kernels (ops/attn.py, TransformerConv) carry every aggregation and its
+backward. Dropout and scheduled sampling draw from the predictor's
 ``generator`` (a ``torch.Generator`` on its device, seeded from ``seed``),
 never from torch's global RNG.
 """
@@ -111,8 +112,13 @@ class NextFramePredictorS2S:
             use_edge_attrs=self.cfg.uses_edge_attrs,
             **gk,
         )
+        if self.gcfg.aggregation == "pallas" and self.cfg.convolution_type == "TransformerConv":
+            # attention convs ride the attention windows (ops/attn.py), not
+            # the Cheb Â blocks
+            self.gcfg = self.gcfg.replace(attn_windows=True)
         if not carry_edges_explicit and self.gcfg.aggregation == "pallas":
-            # aggregation rides the Â blocks; the edge list is dead weight
+            # aggregation rides the Â blocks or attention windows; the edge
+            # list is dead weight
             self.gcfg = self.gcfg.replace(carry_edges=False)
 
         self.model = Seq2Seq(self.cfg, self.gcfg).to(self.device).eval()
@@ -195,7 +201,7 @@ class NextFramePredictorS2S:
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         for t0, n in self._chunks(truncated_backprop):
             y_c = y[:, t0:t0 + n]
-            state = model.encode(x, mask=m)
+            state = model.encode(x, mask=m, generator=gen)
             state, y_hat, _ = model.decode(state, n, y=y_c, mask=m,
                                            teacher_forcing_ratio=self.teacher_forcing_ratio,
                                            generator=gen)

@@ -7,9 +7,10 @@ reads numpy arrays only.
 
 ``init_params`` is the port's own init with the JAX package's rules:
 glorot-uniform with fan-in/fan-out on the last two axes of the stacked
-gate weights (leading axes are batch axes, as ``_glorot_batched``) and
-on (in, out) of every Dense kernel; zero biases and peepholes; LayerNorm
-scale 1, bias 0. It draws from the caller's ``torch.Generator``.
+gate weights (Chebyshev ``w_x_0``…, attention ``w_q_x_0``, ``w_e_1``…;
+leading axes are batch axes, as ``_glorot_batched``) and on (in, out) of
+every Dense kernel (``lin_0``…, ``lin_query``, ``lin_edge``, ``lin_skip``…);
+zero biases and peepholes; LayerNorm scale 1, bias 0. It draws from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_GATE_WEIGHT = re.compile(r"\.gates\.w_(x_0|h_0|\d+)$")
-_LIN_WEIGHT = re.compile(r"\.lin_\d+\.weight$")
+_GATE_WEIGHT = re.compile(r"\.gates\.w_[a-z0-9_]+$")
+_LIN_WEIGHT = re.compile(r"\.lin_[a-z0-9]+\.weight$")
 _NORM_WEIGHT = re.compile(r"norm_[a-z]+\.weight$")
 
 

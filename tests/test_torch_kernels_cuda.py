@@ -148,3 +148,103 @@ def test_unflatten_backward_is_reproducible_on_the_card(card):
     grads = [torch.autograd.grad(unflatten(nodes, graph, (64, 64)), nodes, cot)[0]
              for _ in range(2)]
     assert torch.equal(grads[0], grads[1])
+
+
+# ---------------------------------------------------------------- attention
+
+
+def _attn_case(device, ragged, heads, d, dropout):
+    """Attention windows of real meshes with dead tiles and empty rows, and
+    seeded q/k/v/Wₑ/keep of width heads·d."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    if ragged:
+        # n_max not a multiple of NT; 175 nodes in sample 0 (the sentinel
+        # edges' slots reach row 180 of a live tile, rows 175..179 have no
+        # slot), 73 in sample 1 (a dead tile with visible rows); source
+        # windows that run past n_max
+        n_max, nt, eb, sw, side, thresh, e_max = 180, 64, 1024, 180, 16, 0.02, 1000
+        rng = np.random.default_rng(0)
+        r, c = np.arange(side)[:, None], np.arange(side)[None, :]
+        frames = []
+        for _ in range(3):
+            cy, cx = rng.uniform(0, side, 2)
+            frames.append(np.exp(-((r - cy) ** 2 + (c - cx) ** 2) / (2 * (side / 6) ** 2)))
+        x = np.stack(frames)[:, None, :, :, None]
+    else:
+        n_max, nt, eb, sw, side, thresh, e_max = 2048, NT, EB, SW, 64, 0.1, 10240
+        x = np.random.default_rng(heads * d).random((3, 1, side, side, 1)) ** 4
+    cfg = GraphConfig(image_shape=(side, side), max_grid_size=8, thresh=thresh, n_max=n_max,
+                      e_max=e_max, node_budget=n_max)
+    g, _ = image_to_graph(add_positional_encoding(torch.from_numpy(x.astype(np.float32))), cfg)
+    meta, ovf = attn.attn_tile_meta(g.edge_src.to(device), g.edge_dst.to(device),
+                                    g.edge_attr.to(device), n_max, nt, eb, sw,
+                                    g.n_nodes.to(device))
+    assert int(ovf.max()) == 0 and int(meta.live.min()) < meta.s0.shape[1]  # dead tiles
+    gen = torch.Generator(device).manual_seed(heads * d)
+    hd = heads * d
+    qkv = [torch.randn(3, n_max, hd, device=device, generator=gen) for _ in range(3)]
+    we = torch.randn(2, hd, device=device, generator=gen)
+    keep = None
+    if dropout:
+        u = torch.rand(3, meta.s0.shape[1], heads, eb, device=device, generator=gen)
+        keep = (u < 0.9).float() / 0.9
+    dims = attn.AttnDims(n_max, nt, eb, sw, heads, d)
+    return (*qkv, we, keep, meta, dims), gen
+
+
+ATTN_CASES = [(1, 1, False, False), (1, 16, False, True), (8, 16, False, True),
+              (3, 8, True, True), (1, 1, True, False), (24, 16, False, False)]
+
+
+@pytest.mark.parametrize("heads,d,ragged,dropout", ATTN_CASES)
+def test_attn_kernels_match_plain(card, heads, d, ragged, dropout):
+    """K3 against ``attn_plain`` (≤1e-5) and K4 against autograd through it
+    (≤1e-5 × max(1, max|grad|)), at HD = 1, 16, 128 (and 24, 384), on
+    ragged shapes with dead tiles and rows without a slot."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _attn_case(card, ragged, heads, d, dropout)
+    before = dict(attn.LAUNCHES)
+    out = attn._attn_fwd_cuda(*args)
+    torch.testing.assert_close(out, attn.attn_plain(*args), rtol=0, atol=1e-5)
+    g = torch.randn(out.shape, device=card, generator=gen)
+    kern = attn._attn_bwd_cuda(*args, g)
+    plain = attn.attn_bwd_plain(*args, g)
+    for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern, plain):
+        err = float((a - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+    assert attn.LAUNCHES["attn_apply"] == before["attn_apply"] + 1
+    assert attn.LAUNCHES["attn_apply_bwd"] == before["attn_apply_bwd"] + 1
+
+
+def test_attn_apply_on_the_card_goes_through_the_kernels(card):
+    """A CUDA ``attn_apply`` on inputs that need a gradient carries the
+    ``AttnApply`` node; its backward launches K4 once and no K3, and K4 run
+    twice is bit-identical."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    (q, k, v, we, keep, meta, dims), gen = _attn_case(card, False, 8, 16, True)
+    leaves = [x.requires_grad_(True) for x in (q, k, v, we)]
+    out = attn.attn_apply(*leaves, keep, meta, dims)
+    assert type(out.grad_fn).__name__ == "AttnApplyBackward"
+    g = torch.randn(out.shape, device=card, generator=gen)
+    before = dict(attn.LAUNCHES)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    assert attn.LAUNCHES["attn_apply_bwd"] == before["attn_apply_bwd"] + 1
+    assert attn.LAUNCHES["attn_apply"] == before["attn_apply"]
+    again = torch.autograd.grad(out, leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_attn_wrappers_reject_bad_inputs(card):
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    (q, k, v, we, keep, meta, dims), _ = _attn_case(card, True, 1, 16, False)
+    with pytest.raises(TypeError):
+        attn._attn_fwd_cuda(q.double(), k, v, we, keep, meta, dims)
+    with pytest.raises(ValueError):
+        attn._attn_fwd_cuda(q.cpu(), k, v, we, keep, meta, dims)
+    with pytest.raises(ValueError):  # keep with more rows than heads
+        attn._attn_fwd_cuda(q, k, v, we, torch.ones(3, meta.s0.shape[1], 2, dims.eb,
+                                                     device=card), meta, dims)
