@@ -2,20 +2,23 @@
 """Where the port's time goes on one CUDA card.
 
     python3 chip_profile.py [--seed 0] [--reps 5] [--train] [--conv TransformerConv]
+    python3 chip_profile.py --workload ice [--train]
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
-TransformerConv`` the attention model) under ``torch.profiler`` after a
-warm-up: the forecast by default, and with ``--train`` the training step
+TransformerConv`` the attention model), or with ``--workload ice`` its
+sea-ice flagship (one 224×304 pixelwise forecast of 10 → 90 days,
+TransformerConv with climatology, batch 1), under ``torch.profiler`` after
+a warm-up: the forecast by default, and with ``--train`` the training step
 (``train_step``: fwd + bwd + clipped Adam). Prints one JSON line: wall
 time per batch, the device's busy time and idle share over the profiled
 window, the device time of the hand-written kernels, and the kernels that
 took the most device time. Wall times with the profiler off come first,
 so the profiler's overhead shows as the difference. The time of K1, K2,
-K2b, K3 and K4 is given apiece: their launchers run inside
+K2b, K3, K4, K5 and K6 is given apiece: their launchers run inside
 ``record_function`` ranges named after their launch counters (K2 and K2b
-are one kernel, told apart by the range that launched it; K4's range also
-holds the fixed-order sums of its partials), which the profiler mirrors on
+are one kernel, told apart by the range that launched it; K4's and K6's
+ranges also hold the fixed-order sums of their partials), which the profiler mirrors on
 the device as annotation spans; those spans, and the optimizer's, are
 kept out of the kernel sums and the busy time.
 """
@@ -36,10 +39,15 @@ RANGES = {("spmm", "_build_blocks_cuda"): "spmm_build_blocks",
           ("spmm", "_apply_cuda"): "spmm_apply",
           ("spmm", "_apply_bwd_cuda"): "spmm_apply_bwd",
           ("attn", "_attn_fwd_cuda"): "attn_apply",
-          ("attn", "_attn_bwd_cuda"): "attn_apply_bwd"}
+          ("attn", "_attn_bwd_cuda"): "attn_apply_bwd",
+          ("grid_attn", "_grid_attn_fwd_cuda"): "grid_attn_apply",
+          ("grid_attn", "_grid_attn_bwd_cuda"): "grid_attn_apply_bwd"}
 # the port's kernels by the start of their device names (csrc/*.cu)
 KERNELS = {"build_blocks_kernel": "::build_blocks_kernel(", "apply_kernel": "::apply_kernel(",
-           "attn_fwd_kernel": "::attn_fwd_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<"}
+           "attn_fwd_kernel": "::attn_fwd_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<",
+           "grid_attn_fwd_kernel": "::grid_attn_fwd_kernel<",
+           "grid_attn_bwd_dst_kernel": "::grid_attn_bwd_dst_kernel<",
+           "grid_attn_bwd_src_kernel": "::grid_attn_bwd_src_kernel<"}
 
 
 def _in_range(fn, name):
@@ -52,48 +60,65 @@ def _in_range(fn, name):
     return wrapped
 
 
+def _workload(args, run_dir: str):
+    """(batch, conv, warm_up, run): the callables that run one warm-up and
+    one profiled forecast or train step of the chosen workload."""
+    import torch
+
+    if args.workload == "ice":
+        data, clim, mask = chip_smoke.ice_data(args.seed)
+        model = chip_smoke.make_ice_model(args.seed, run_dir)
+        windows = [(data.x[i:i + 1], data.y[i:i + 1],
+                    model._clim_batch(clim, data.launch_dates[i:i + 1]))
+                   for i in range(1 + args.reps)]
+        if not args.train:
+            x0, _, c0 = windows[0]
+            run = lambda: model.forecast(x0, mask=mask, climatology=c0)  # noqa: E731
+            return 1, "TransformerConv", run, run
+        model.initiate_training(lr=chip_smoke.LR, lr_decay=0.95)
+        step = lambda b: model.train_step(b[0], b[1], mask=mask, climatology=b[2])  # noqa: E731
+        it = iter(windows[1:] * 3)
+        return 1, "TransformerConv", lambda: step(windows[0]), lambda: step(next(it))
+    ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
+    if args.train:
+        model = chip_smoke.make_trainer(args.seed, run_dir, args.conv)
+        it = iter(batches[1:] * 3)
+        return (chip_smoke.BATCH, args.conv, lambda: model.train_step(*batches[0]),
+                lambda: model.train_step(*next(it)))
+    model = chip_smoke.make_model(args.seed, run_dir, args.conv)
+    x = torch.as_tensor(ds.x, device="cuda")
+    run = lambda: model.forecast(x)  # noqa: E731
+    return chip_smoke.BATCH, args.conv, run, run
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--train", action="store_true", help="profile train_step")
     parser.add_argument("--conv", default="ChebConv", choices=("ChebConv", "TransformerConv"))
+    parser.add_argument("--workload", default="mnist", choices=("mnist", "ice"))
     args = parser.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from quadtree_mpnnlstm_tpu_torch.ops import attn, spmm
+    from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn, spmm
 
-    modules = {"spmm": spmm, "attn": attn}
+    modules = {"spmm": spmm, "attn": attn, "grid_attn": grid_attn}
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     run_dir = tempfile.TemporaryDirectory()
-    ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
-    if args.train:
-        model = chip_smoke.make_trainer(args.seed, run_dir.name, args.conv)
-        it = iter(batches[1:] * 3)
-
-        def run():
-            return model.train_step(*next(it))
-    else:
-        model = chip_smoke.make_model(args.seed, run_dir.name, args.conv)
-        x = torch.as_tensor(ds.x, device="cuda")
-
-        def run():
-            return model.forecast(x)
+    batch, conv, warm_up, run = _workload(args, run_dir.name)
 
     with contextlib.ExitStack() as stack:
         for (mod, attr), name in RANGES.items():
             module = modules[mod]
             stack.enter_context(
                 mock.patch.object(module, attr, _in_range(getattr(module, attr), name)))
-        if args.train:
-            model.train_step(*batches[0])
-        else:
-            run()
+        warm_up()
         torch.cuda.synchronize()
 
         def timed():
@@ -131,8 +156,8 @@ def main() -> int:
             calls[e.name] += 1
     print(json.dumps({
         "card": chip_smoke.card_line(),
-        "path": "train_step" if args.train else "forecast", "conv": args.conv,
-        "batch": chip_smoke.BATCH,
+        "workload": args.workload, "path": "train_step" if args.train else "forecast",
+        "conv": conv, "batch": batch,
         "wall_s_per_batch_median": wall[len(wall) // 2],
         "wall_s_per_batch_all": wall,
         "profiled_s_per_batch": window_s / args.reps,

@@ -58,8 +58,34 @@ Phases (each prints one line; any failure raises and exits non-zero):
    kernels and one on the plain versions from the same weights and
    generator (identical meshes, every gradient leaf ≤1e-4 ×
    max(1, max|g|)), and the kernel step again, bit-identical;
-13. the ``kernels`` JSON line (K1, K2, K2b, K3, K4), then the card line and
-   the result line.
+13. grid path: the sea-ice flagship through ``predict`` — the JAX
+   package's committed config (``bench.py`` ice workload): the pixelwise
+   224×304 grid (``aggregation="grid"``, the ice mask), 5 variables,
+   T_in 10 → T_out 90, hidden 32, 1 layer × 3 conv layers,
+   TransformerConv with gate stacks as 8 streams × d 32 = H 256 and head
+   convs at H 32 and 1, climatology concat, batch 1, f32; inputs are
+   ``IceDataset`` June windows of synthetic 2016 fields made from
+   ``--seed``. Finite frames, overflow 0, K5 launches as read from the
+   code (300 a forecast), no K1-K4; seconds per forecast after a warm-up;
+14. grid kernels vs plain: K5 against ``grid_attn_plain`` on the first
+   decoder step's operands at H 256, 32 and 1, with and without a keep
+   plane (≤1e-5), K6 against autograd through ``grid_attn_plain`` on the
+   cotangents of one train step at each H, with and without its keep
+   planes (≤1e-5 × max(1, max|grad|)); all timed beside their bounds;
+15. grid rollout vs plain: the whole 90-step forecast on the plain K5,
+   ≤1e-4 at every step (the mesh is fixed);
+16. grid train path: ``train_step`` at batch 1 (full BPTT, attention
+   dropout 0.1): a warm-up step in which every K5 output whose inputs need
+   a gradient carries the ``GridAttnApply`` node, then 3 timed steps;
+   finite loss, K5 and K6 launches per step as read from the code (300
+   each), no K1-K4; frames/s and peak memory;
+17. grid gradients vs plain and 18. determinism: one train step on the
+   kernels and one on the plain versions (T_out 6: the plain version keeps
+   D shifted copies of k and v a call) from the same weights and
+   generator, every gradient leaf ≤1e-4 × max(1, max|g|), and the kernel
+   step again, bit-identical;
+19. the ``kernels`` JSON line (K1, K2, K2b, K3, K4, K5, K6), then the card
+   line and the result line.
 
 It fails at once without a CUDA card, and when the port's package is not
 beside it.
@@ -74,6 +100,7 @@ import sys
 import tempfile
 import time
 import warnings
+from typing import Optional
 from unittest import mock
 
 import numpy as np
@@ -272,15 +299,16 @@ class CaptureBwd:
 
 
 class AttnCapture:
-    """Wraps K3's launcher during one forecast and keeps, per width HD, the
-    operands of the first decoder step's call (or of the first call at a
-    width the decoder does not use), plus the calls at each width."""
+    """Wraps an attention forward launcher (K3's or K5's) during one
+    forecast and keeps, per width HD, the operands of the first decoder
+    step's call (or of the first call at a width the decoder does not use),
+    plus the calls at each width."""
 
-    def __init__(self, attn, enc_calls: int, dec_step_calls: int):
-        self.attn, self.calls, self.per_width = attn, 0, {}
+    def __init__(self, module, name: str, enc_calls: int, dec_step_calls: int):
+        self.module, self.name, self.calls, self.per_width = module, name, 0, {}
         self.first_ops, self.dec0_ops = {}, {}
         self.dec0 = range(enc_calls, enc_calls + dec_step_calls)
-        self._launch = attn._attn_fwd_cuda
+        self._launch = getattr(module, name)
 
     def __call__(self, *args):
         hd = args[0].shape[-1]
@@ -293,7 +321,7 @@ class AttnCapture:
         return dict(sorted({**self.first_ops, **self.dec0_ops}.items()))
 
     def __enter__(self):
-        self._patch = mock.patch.object(self.attn, "_attn_fwd_cuda", self)
+        self._patch = mock.patch.object(self.module, self.name, self)
         self._patch.start()
         return self
 
@@ -376,6 +404,88 @@ def attn_bound_ms(attn, args, backward: bool):
     if backward:
         nbytes += rows_q * hd * 4 + 2 * b * n_max * hd * 4 + a * hd * 4
         ops = n_slots * (4 * a * hd + 11 * hd)
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms
+
+
+# ---------------------------------------------------------------- sea ice
+# The JAX package's committed sea-ice flagship (bench.py ice workload,
+# cli/ice_exp.py): pixelwise 224×304 grid, 5 variables, 10 → 90 days,
+# hidden 32, 1 LSTM layer × 3 conv layers, TransformerConv, climatology
+# concat, batch 1; synthetic fields and the Hudson-Bay-like mask from the
+# port's own copies, made from --seed.
+ICE_SHAPE, ICE_T_IN, ICE_T_OUT = (224, 304), 10, 90
+ICE_VARS = ["siconc", "t2m", "v10", "u10", "sshf"]
+ICE_MONTH, ICE_FORECASTS, ICE_TRAIN_STEPS = 6, 2, 3
+ICE_SHORT_T_OUT = 6  # the kernel-vs-plain step pair: plain keeps D shifted copies a call
+ICE_TBPTT = 0        # full BPTT
+K5_TOL, K6_TOL = 1e-5, 1e-5
+
+
+def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None):
+    """The flagship forecaster (T_out ``t_out``, default 90), random weights
+    from ``seed``."""
+    from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
+
+    return NextFramePredictorS2S(
+        image_shape=ICE_SHAPE, thresh=float("-inf"), decompose=False,
+        input_features=len(ICE_VARS), input_timesteps=ICE_T_IN,
+        output_timesteps=ICE_T_OUT if t_out is None else t_out,
+        use_climatology=True, device=DEVICE, seed=seed, run_dir=run_dir,
+        model_kwargs=dict(hidden_size=32, dropout=0.1, n_layers=1, n_conv_layers=3,
+                          convolution_type="TransformerConv", fused_gates=True),
+        graph_kwargs=dict(aggregation="grid"),
+    )
+
+
+def ice_data(seed: int):
+    """(IceDataset test windows of one month, climatology (366, rows, cols),
+    mask) from the synthetic fields of 2016 and the ice mask (the union of
+    the fields' open-water band and the land mask is what the model sees)."""
+    from quadtree_mpnnlstm_tpu_torch.data.ice_dataset import (
+        IceDataset,
+        climatology_from_dataset,
+        ice_mask,
+        synthetic_dataset,
+    )
+
+    ds, band = synthetic_dataset(shape=ICE_SHAPE, years=(2016, 2017), seed=seed)
+    data = IceDataset(ds, [2016], ICE_MONTH, ICE_T_IN, ICE_T_OUT, ICE_VARS, ["siconc"])
+    return data, climatology_from_dataset(ds, "siconc"), ice_mask(ICE_SHAPE, seed) | band
+
+
+def expected_grid_launches(cfg) -> int:
+    """K5 launches of one flagship forecast (or train step: K6 as many),
+    read from the code: one per conv layer of every encoder step (the 2·4
+    gate streams of a layer are the heads of one call), one per decoder
+    step's cell (1 conv layer) and one per head conv (2) per decoder step."""
+    return (ICE_T_IN * cfg.n_layers * cfg.n_conv_layers
+            + cfg.output_timesteps * (cfg.n_layers + 2))
+
+
+def grid_bound_ms(args, backward: bool):
+    """Least time for K5's (or K6's) work on these operands: the rows of
+    q, k, v (K6 also g) and the keep planes at valid pixels read once (a
+    masked pixel and its edges add nothing), e_dir and valid read once, the
+    output (K6: dq, dk, dv, de_dir) written once at every pixel, as the
+    wrappers allocate it. Operations per edge (a valid pixel's valid
+    neighbour): the edge term, logit and weighted sum, 6·H (K6: recompute
+    plus backward, 14·H)."""
+    from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shifts_for
+
+    q, _k, _v, e_dir, valid, keep, dims = args[:7]
+    b, p, h = q.shape
+    n_valid = int((valid != 0).sum())
+    rows_in, rows_out = b * n_valid * h * 4, b * p * h * 4
+    fixed = (e_dir.numel() * 4 + valid.numel() * 4
+             + (0 if keep is None else b * dims.ndirs * n_valid * dims.heads * 4))
+    valid2d = (valid != 0).reshape(1, dims.rows, dims.cols)
+    edges = b * sum(int(neighbor_valid(valid2d, dr, dc).sum())
+                    for dr, dc in shifts_for(dims.ndirs == 8))
+    if backward:
+        nbytes, ops = 4 * rows_in + 3 * rows_out + fixed + e_dir.numel() * 4, 14 * h * edges
+    else:
+        nbytes, ops = 3 * rows_in + rows_out + fixed, 6 * h * edges
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
@@ -559,7 +669,7 @@ def attn_phases(seed: int, card: str, spmm, attn, loader, x):
 
     # ---- phase 10: K3 and K4 against their plain versions
     enc_calls = T_IN * cfg.n_layers * cfg.n_conv_layers
-    with AttnCapture(attn, enc_calls, cfg.n_layers + 2) as cap:
+    with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
         model.forecast(x)
     check(cap.calls == k3, "attention capture run disagrees with the path")
     fwd = []
@@ -664,6 +774,216 @@ def attn_phases(seed: int, card: str, spmm, attn, loader, x):
     return launches, train_launches, fwd, bwd
 
 
+def grid_phases(seed: int, card: str, spmm, attn, grid_attn):
+    """Phases 13-18 on the sea-ice flagship (the pixelwise grid); returns
+    the forecast's and the timed train steps' launches and K5's and K6's
+    per-width measurements."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn)
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def counts():
+        return {k: v for m in modules for k, v in m.LAUNCHES.items()}
+
+    # ---- phase 13: the flagship forecast through predict()
+    t0 = time.perf_counter()
+    data, clim, mask = ice_data(seed)
+    data_s = time.perf_counter() - t0
+    windows = lambda i, j: ArrayDataset(data.x[i:j], data.y[i:j],  # noqa: E731
+                                        data.launch_dates[i:j])
+    model = make_ice_model(seed, run_dir.name)
+    cfg = model.cfg
+    k5 = expected_grid_launches(cfg)
+    check(model.gcfg.aggregation == "grid" and not model.gcfg.attn_windows,
+          f"the predictor did not configure the grid: {model.gcfg}")
+    model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(DataLoader(windows(0, ICE_FORECASTS)), climatology=clim, mask=mask)
+    torch.cuda.synchronize()
+    forecast_s = (time.perf_counter() - t0) / ICE_FORECASTS
+    launches = counts()
+    check(y.shape == (ICE_FORECASTS, ICE_T_OUT, *ICE_SHAPE, 1), f"grid predict shape {y.shape}")
+    check(bool(np.isfinite(y).all()), "non-finite grid forecast")
+    check(model.last_overflow == 0, f"grid mesh overflow {model.last_overflow}")
+    check(launches["grid_attn_apply"] == k5 * ICE_FORECASTS
+          and launches["grid_attn_apply_bwd"] == 0,
+          f"grid forecast launches {launches}, expected K5 {k5} a forecast")
+    others = {k: v for k, v in launches.items() if not k.startswith("grid_attn")}
+    check(not any(others.values()), f"K1-K4 ran on the grid path: {others}")
+    print(json.dumps({
+        "phase": "grid_path", "card": card, "batch": 1, "forecasts": ICE_FORECASTS,
+        "grid": ICE_SHAPE, "t_in": ICE_T_IN, "t_out": ICE_T_OUT, "windows": len(data),
+        "valid_pixels": int((~mask).sum()), "data_s": data_s, "s_per_forecast": forecast_s,
+        "frames_per_s": ICE_T_OUT / forecast_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "overflow": model.last_overflow, "k5_per_forecast": k5, "launches": launches,
+    }), flush=True)
+
+    # ---- phase 14: K5 and K6 against their plain versions
+    enc_calls = ICE_T_IN * cfg.n_layers * cfg.n_conv_layers
+    x0, y0, ld0 = data.x[:1], data.y[:1], data.launch_dates[:1]
+    clim0 = model._clim_batch(clim, ld0)
+    with AttnCapture(grid_attn, "_grid_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
+        model.forecast(x0, mask=mask, climatology=clim0)
+    check(cap.calls == k5, "grid capture run disagrees with the path")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    fwd = []
+    for hd, args in cap.operands().items():
+        q, dims = args[0], args[6]
+        keep = (torch.rand((q.shape[0], dims.ndirs, q.shape[1], dims.heads), generator=gen,
+                           device=DEVICE) < 0.9).float() / 0.9
+        for kargs in (args, args[:5] + (keep, dims)):
+            with torch.no_grad():
+                err = float((grid_attn._grid_attn_fwd_cuda(*kargs)
+                             - grid_attn.grid_attn_plain(*kargs)).abs().max())
+            check(err <= K5_TOL, f"K5 differs from grid_attn_plain at H={hd}: {err}")
+            bound, b_ms, o_ms = grid_bound_ms(kargs, backward=False)
+            fwd.append(dict(H=hd, heads=dims.heads, calls=cap.per_width[hd],
+                            keep=kargs[5] is not None, max_abs_err=err,
+                            ms=cuda_ms(lambda: grid_attn._grid_attn_fwd_cuda(*kargs)),
+                            plain_ms=cuda_ms(lambda: grid_attn.grid_attn_plain(*kargs)),
+                            bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    check(sorted({w["H"] for w in fwd}) == [1, 32, 256], f"K5 widths {[w['H'] for w in fwd]}")
+    short = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT)
+    short.initiate_training(lr=LR, lr_decay=0.95)
+    y_s, clim_s = y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]
+    with CaptureBwd(grid_attn, "_grid_attn_bwd_cuda") as cap_b:
+        short.train_step(x0, y_s, mask=mask, climatology=clim_s)
+    check(sum(cap_b.per_width.values()) == expected_grid_launches(short.cfg),
+          f"K6 calls {cap_b.per_width}")
+    bwd = []
+    for hd, args in sorted(cap_b.first.items()):
+        check(args[5] is not None, "a training step's K6 operands carry no keep planes")
+        for kargs in (args, args[:5] + (None,) + args[6:]):
+            errs, rel = {}, {}
+            for name, a, p in zip(("dq", "dk", "dv", "de_dir"),
+                                  grid_attn._grid_attn_bwd_cuda(*kargs),
+                                  grid_attn.grid_attn_bwd_plain(*kargs)):
+                errs[name] = float((a - p).abs().max())
+                rel[name] = errs[name] / max(1.0, float(p.abs().max()))
+            check(max(rel.values()) <= K6_TOL,
+                  f"K6 differs from the plain backward at H={hd}: {rel}")
+            bound, b_ms, o_ms = grid_bound_ms(kargs, backward=True)
+            # a flagship train step launches K6 once per K5 of its forward,
+            # so it weighs the widths as the forecast does
+            bwd.append(dict(H=hd, calls=cap.per_width[hd], keep=kargs[5] is not None,
+                            abs_err=errs, err_rel_to_max=rel, max_abs_err=max(errs.values()),
+                            ms=cuda_ms(lambda: grid_attn._grid_attn_bwd_cuda(*kargs)),
+                            plain_ms=cuda_ms(lambda: grid_attn.grid_attn_bwd_plain(*kargs)),
+                            bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    del cap, cap_b, args, kargs
+    print(json.dumps({"phase": "grid_kernels_vs_plain", "card": card, "k5_by_width": fwd,
+                      "k6_by_width": bwd, "library": None}), flush=True)
+
+    # ---- phase 15: the 90-step forecast on the plain versions
+    y_k, _, _ = model.forecast(x0, mask=mask, climatology=clim0)
+    with mock.patch.object(grid_attn, "_grid_attn_fwd_cuda", grid_attn.grid_attn_plain):
+        y_p, _, _ = model.forecast(x0, mask=mask, climatology=clim0)
+    step_err = (y_k - y_p).abs().amax(dim=(0, 2, 3, 4))  # (T_out,)
+    check(float(step_err.max()) <= ROLLOUT_TOL,
+          f"grid rollout differs from the plain one by {float(step_err.max())}")
+    print(json.dumps({"phase": "grid_rollout_vs_plain", "card": card, "steps": ICE_T_OUT,
+                      "max_abs_err": float(step_err.max()),
+                      "max_abs_err_last_step": float(step_err[-1]),
+                      "bit_identical": bool(torch.equal(y_k, y_p)),
+                      "max_abs_value": float(y_p.abs().max())}), flush=True)
+    del model, y_k, y_p
+
+    # ---- phase 16: train_step on the flagship
+    trainer = make_ice_model(seed, run_dir.name)
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    batches = [(data.x[i:i + 1], data.y[i:i + 1],
+                trainer._clim_batch(clim, data.launch_dates[i:i + 1]))
+               for i in range(ICE_TRAIN_STEPS + 1)]
+
+    def step(batch):
+        x_b, y_b, c_b = batch
+        return trainer.train_step(x_b, y_b, mask=mask, climatology=c_b,
+                                  truncated_backprop=ICE_TBPTT)
+
+    with GradFnCheck(grid_attn, "grid_attn_apply", "GridAttnApplyBackward") as gcheck:
+        loss, _ = step(batches[0])  # warm-up
+    check(float(loss) == float(loss), "grid warm-up loss is NaN")
+    check(not gcheck.bad and gcheck.calls == k5,
+          f"K5 outputs without the GridAttnApply node: {gcheck.bad[:3]} "
+          f"({gcheck.calls} outputs required grad)")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses, worst, pending = [], 0, None
+    for batch in batches[1:]:
+        loss, overflow = step(batch)
+        if pending is not None:  # one step late, as train() drains
+            losses.append(float(pending[0]))
+            worst = max(worst, int(pending[1]))
+        pending = (loss, overflow)
+    losses.append(float(pending[0]))
+    worst = max(worst, int(pending[1]))
+    train_s = time.perf_counter() - t0
+    train_launches = counts()
+    per_step = {k: v / ICE_TRAIN_STEPS for k, v in train_launches.items()}
+    check(bool(np.isfinite(losses).all()), f"non-finite grid training loss {losses}")
+    check(worst == 0, f"mesh overflow {worst} in grid training")
+    check(per_step["grid_attn_apply"] == per_step["grid_attn_apply_bwd"] == k5,
+          f"grid launches per step {per_step}, expected K5 = K6 = {k5}")
+    check(not any(v for k, v in per_step.items() if not k.startswith("grid_attn")),
+          f"K1-K4 ran on the grid train path: {per_step}")
+    print(json.dumps({
+        "phase": "grid_train_path", "card": card, "batch": 1, "steps": ICE_TRAIN_STEPS,
+        "truncated_backprop": ICE_TBPTT, "seconds": train_s,
+        "steps_per_s": ICE_TRAIN_STEPS / train_s,
+        "frames_per_s": ICE_TRAIN_STEPS * ICE_T_OUT / train_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "losses": losses, "overflow": worst, "launches_per_step": per_step,
+        "k5_outputs_checked": gcheck.calls,
+    }), flush=True)
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # ---- phases 17-18: a kernel step vs a plain step (T_out 6); the
+    # kernel step again
+    def short_step():
+        tr = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT)
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        gen_s = torch.Generator(device=DEVICE).manual_seed(1)
+        loss_s, _ = tr.train_step(x0, y_s, mask=mask, climatology=clim_s, generator=gen_s)
+        return loss_s, {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+
+    loss_k, grads_k = short_step()
+    with mock.patch.object(grid_attn, "_grid_attn_fwd_cuda", grid_attn.grid_attn_plain), \
+            mock.patch.object(grid_attn, "_grid_attn_bwd_cuda", grid_attn.grid_attn_bwd_plain):
+        loss_p, grads_p = short_step()
+    leaf_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                   / max(1.0, float(grads_p[n].abs().max())) for n in grads_p)
+    check(leaf_err <= GRAD_TOL, f"grid gradients differ from the plain path by {leaf_err}")
+    print(json.dumps({
+        "phase": "grid_grads_vs_plain", "card": card, "t_out": ICE_SHORT_T_OUT,
+        "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+        "max_leaf_err_rel": leaf_err, "leaves": len(grads_p),
+    }), flush=True)
+    del grads_p
+    torch.cuda.empty_cache()
+    loss_k2, grads_k2 = short_step()
+    same = torch.equal(loss_k, loss_k2) and all(torch.equal(grads_k[n], grads_k2[n])
+                                                 for n in grads_k)
+    check(same, "two identical grid train steps differ")
+    print(json.dumps({"phase": "grid_determinism", "card": card, "t_out": ICE_SHORT_T_OUT,
+                      "loss": float(loss_k2), "bit_identical": same}), flush=True)
+    run_dir.cleanup()
+    return launches, train_launches, fwd, bwd
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -677,7 +997,7 @@ def main() -> int:
     try:
         from quadtree_mpnnlstm_tpu_torch.data.loader import DataLoader
         from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
-        from quadtree_mpnnlstm_tpu_torch.ops import attn, cuda_build, spmm
+        from quadtree_mpnnlstm_tpu_torch.ops import attn, cuda_build, grid_attn, spmm
     except ImportError as exc:
         print(f"chip_smoke: the port's package is not beside this script ({exc})",
               file=sys.stderr)
@@ -795,8 +1115,10 @@ def main() -> int:
     train_launches, bwd_widths = train_phases(args.seed, card, spmm, cfg, nt, sw, n_max)
     attn_launches, attn_train_launches, k3_widths, k4_widths = attn_phases(
         args.seed, card, spmm, attn, loader, x)
+    grid_launches, grid_train_launches, k5_widths, k6_widths = grid_phases(
+        args.seed, card, spmm, attn, grid_attn)
 
-    # ---- phase 9: the kernels line
+    # ---- phase 19: the kernels line
     n = sum(w["calls"] for w in widths)
     mean = lambda key: sum(w["calls"] * w[key] for w in widths) / n  # noqa: E731
     nb = sum(w["calls"] for w in bwd_widths)
@@ -826,23 +1148,35 @@ def main() -> int:
              library_ms=mean_b("library_ms"), launches_by_path=by_path("spmm_apply_bwd")),
     ]
 
-    def attn_entry(name, replaces, widths):
-        """Launch-weighted means over the widths HD the attention path uses."""
+    def attn_entry(name, source, replaces, widths, fwd_launches, train_launches, steps):
+        """Launch-weighted means over the widths the attention path uses."""
         n_calls = sum(w["calls"] for w in widths)
         avg = lambda key: sum(w["calls"] * w[key] for w in widths) / n_calls  # noqa: E731
         return dict(
-            name=name, route="cuda", source="quadtree_mpnnlstm_tpu_torch/csrc/attn.cu",
-            replaces=replaces, launches=attn_train_launches[name],
+            name=name, route="cuda", source=f"quadtree_mpnnlstm_tpu_torch/csrc/{source}",
+            replaces=replaces, launches=train_launches[name],
             max_abs_err=max(w["max_abs_err"] for w in widths), ms=avg("ms"),
             plain_ms=avg("plain_ms"), bound_ms=avg("bound_ms"),
             bound_by="bytes" if avg("bytes_ms") >= avg("ops_ms") else "operations",
-            library_ms=None,  # no PyTorch call adds the edge term to keys and values
-            launches_by_path={"predict_batch": attn_launches[name],
-                              f"train_{TRAIN_STEPS}_steps": attn_train_launches[name]})
+            # no PyTorch call adds per-edge (or per-direction) terms to keys
+            # and values
+            library_ms=None,
+            launches_by_path={"predict_batch": fwd_launches[name],
+                              f"train_{steps}_steps": train_launches[name]})
 
+    grid_src = "quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py"
     kernels += [
-        attn_entry("attn_apply", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372", k3_widths),
-        attn_entry("attn_apply_bwd", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:424", k4_widths),
+        attn_entry("attn_apply", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372",
+                   k3_widths, attn_launches, attn_train_launches, TRAIN_STEPS),
+        attn_entry("attn_apply_bwd", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:424",
+                   k4_widths, attn_launches, attn_train_launches, TRAIN_STEPS),
+        # the forecast runs K5 without keep planes, training K6 with them
+        attn_entry("grid_attn_apply", "grid_attn.cu", f"{grid_src}:446",
+                   [w for w in k5_widths if not w["keep"]], grid_launches,
+                   grid_train_launches, ICE_TRAIN_STEPS),
+        attn_entry("grid_attn_apply_bwd", "grid_attn.cu", f"{grid_src}:446",
+                   [w for w in k6_widths if w["keep"]], grid_launches, grid_train_launches,
+                   ICE_TRAIN_STEPS),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)

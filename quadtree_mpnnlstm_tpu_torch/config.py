@@ -2,8 +2,8 @@
 
 Own copy of the fields of ``quadtree_mpnnlstm_tpu/config.py`` that the
 forecast and training paths read; knobs of other paths (CSR degree caps,
-the grid backend, bf16 messages, csum adjacency, debug hooks, remat,
-shared meshes) are left out until a slice needs them.
+bf16 messages, csum adjacency, debug hooks, remat, shared meshes) are left
+out until a slice needs them.
 """
 
 from __future__ import annotations
@@ -48,12 +48,21 @@ class GraphConfig:
         this many nodes (None = unbounded).
       aggregation: ``"pallas"`` packs the per-tile Â blocks that the SpMM
         kernels read (the name is kept from the JAX package); ``"xla"``
-        keeps the gather → scale → scatter edge-list path.
+        keeps the gather → scale → scatter edge-list path; ``"grid"`` is
+        the pixelwise mesh (``thresh=-inf``) as an identity-mapped raster
+        with shift-stencil aggregation (ops/grid.py), ``n_max = rows·cols``.
       agg_nt / agg_eb / agg_sw: node-tile rows, edge-window slots and
         source-window rows of the Â blocks (or attention windows).
       attn_windows: with ``aggregation="pallas"``, pack the per-tile
         attention windows that the TransformerConv kernels read
         (ops/attn.py) instead of the Â blocks.
+      grid_attn: with ``aggregation="grid"``, ``"pallas"`` or ``"xla"``.
+        It selects nothing in the port: both values run the same stencil
+        attention (ops/grid_attn.py: kernel K5 on a CUDA tensor, the plain
+        shift/softmax chain on a CPU one), and no code of the port reads
+        the field. It mirrors the JAX package's field of the same name,
+        where ``"xla"`` selects the chain whose α the attention-map dump
+        reads (not ported).
       carry_edges: keep the edge list on built graphs; with Â blocks or
         attention windows the convolutions never read it after the build.
     """
@@ -74,6 +83,7 @@ class GraphConfig:
     agg_eb: int = 1024
     agg_sw: int = 512
     attn_windows: bool = False
+    grid_attn: str = "xla"
     carry_edges: bool = True
 
     def __post_init__(self):
@@ -83,10 +93,20 @@ class GraphConfig:
             )
         if self.condition not in CONDITIONS:
             raise ValueError(f"unknown condition {self.condition!r}")
-        if self.aggregation not in ("xla", "pallas"):
+        if self.aggregation not in ("xla", "pallas", "grid"):
             raise ValueError(f"unknown aggregation {self.aggregation!r}")
-        if self.thresh == NEG_INF:
-            raise ValueError("the pixelwise mesh (thresh=-inf) is not ported yet")
+        if self.grid_attn not in ("xla", "pallas"):
+            raise ValueError(f"unknown grid_attn {self.grid_attn!r}")
+        if self.aggregation == "grid":
+            if not self.pixelwise:
+                raise ValueError("aggregation='grid' needs the pixelwise mesh (thresh=-inf); "
+                                 "quadtree meshes use 'xla' or 'pallas'")
+            if self.n_max not in (None, self.num_pixels):
+                raise ValueError("grid aggregation uses the identity node mapping: n_max must be "
+                                 f"rows*cols={self.num_pixels}, got {self.n_max}")
+        elif self.pixelwise:
+            raise ValueError("the pixelwise edge-list mesh (thresh=-inf without "
+                             "aggregation='grid') is not ported yet")
         if self.attn_windows and self.aggregation != "pallas":
             raise ValueError("attn_windows=True needs aggregation='pallas'")
         if not self.carry_edges and self.aggregation != "pallas":
@@ -123,6 +143,10 @@ class GraphConfig:
         return (-(-self.rows // g) * g, -(-self.cols // g) * g)
 
     @property
+    def pixelwise(self) -> bool:
+        return self.thresh == NEG_INF
+
+    @property
     def edge_dim(self) -> int:
         return 2 if self.use_edge_attrs else 1
 
@@ -136,8 +160,9 @@ class ModelConfig:
 
     ``input_features`` counts raw channels only; positional encoding (2)
     and node size (1) are appended internally. The port runs the fused
-    ChebConv or TransformerConv GConvLSTM in float32 with a remesh at every
-    decoder step; :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
+    ChebConv or TransformerConv GConvLSTM in float32, with a remesh at every
+    decoder step on quadtree meshes and a fixed mesh on the pixelwise grid;
+    :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
     rejects other values of ``convolution_type``, ``rnn_type``,
     ``fused_gates``, ``remesh_every`` and ``compute_dtype``. ``dropout`` is
     the decoder head's; attention convolutions drop attention weights at

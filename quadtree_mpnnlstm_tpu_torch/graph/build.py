@@ -1,6 +1,7 @@
 """Image stacks → padded quadtree graphs, one mesh per sample.
 
-Counterpart of ``quadtree_mpnnlstm_tpu/graph/build.py`` (quadtree path).
+Counterpart of ``quadtree_mpnnlstm_tpu/graph/build.py``: the quadtree path
+and the pixelwise grid (``thresh=-inf`` with ``aggregation="grid"``).
 Incoming image stacks already carry the two positional-encoding channels
 as their last two channels.
 """
@@ -20,6 +21,7 @@ from quadtree_mpnnlstm_tpu_torch.graph.quadtree import (
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors, flatten
 from quadtree_mpnnlstm_tpu_torch.models.conv import compute_sym_norm
 from quadtree_mpnnlstm_tpu_torch.ops import attn, spmm
+from quadtree_mpnnlstm_tpu_torch.ops.grid import dir_attrs, grid_sym_coeff
 
 
 def _node_positions(data0: torch.Tensor, cfg: GraphConfig) -> torch.Tensor:
@@ -114,7 +116,8 @@ def image_to_graph(
     cfg: GraphConfig,
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[GraphTensors, torch.Tensor]:
-    """Quadtree-decompose image stacks into padded graphs.
+    """Quadtree-decompose image stacks into padded graphs (or, on the
+    pixelwise mesh, build the identity-mapped grid).
 
     Args:
       img: (B, T, rows, cols, C) with positional encoding in the last two
@@ -124,12 +127,55 @@ def image_to_graph(
 
     Returns:
       (GraphTensors, data (B, T, n_max, C+1)); the last data channel is the
-      normalised cell size ``n_pixels / (max_grid_size/2)**2``.
+      normalised cell size ``n_pixels / (max_grid_size/2)**2``
+      (``resolution**2`` on the pixelwise mesh).
     """
     if img.ndim != 5:
         raise ValueError(f"expected (B, T, rows, cols, C); got {tuple(img.shape)}")
+    if cfg.pixelwise:
+        return grid_graph(img, cfg, mask=mask)
     crit = img[..., 0].amax(dim=1)
     level = decompose_levels(crit, cfg, mask=mask)
     pixel_node, n_nodes, counts = pixel_nodes_from_levels(level, cfg, mask=mask)
     half_base = (cfg.max_grid_size / 2.0) ** 2
     return _assemble(pixel_node, n_nodes, counts, img, cfg, counts / half_base)
+
+
+def grid_graph(
+    img: torch.Tensor,
+    cfg: GraphConfig,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[GraphTensors, torch.Tensor]:
+    """Pixelwise mesh in identity-mapping stencil form
+    (``aggregation="grid"``): node id = raster pixel index, masked pixels
+    invalid, one node per kept pixel (counts 1.0), no edge list, nothing
+    to overflow. Message passing is the shift stencil of ops/grid.py; the
+    size channel is the constant ``resolution**2``, masked pixels included,
+    as in the JAX package. ``mask`` (rows, cols) is shared by every sample,
+    and so are ``grid_coeff`` and ``grid_attr``."""
+    b, t, rows, cols, _ = img.shape
+    p = rows * cols
+    dev = img.device
+    if mask is not None:
+        keep2d = ~mask.to(device=dev, dtype=torch.bool)
+    else:
+        keep2d = torch.ones((rows, cols), dtype=torch.bool, device=dev)
+    keep = keep2d.reshape(-1)
+    pixel_node = torch.where(keep, torch.arange(p, device=dev), p)
+    attrs = torch.from_numpy(dir_attrs(cfg.edges_at_corners, cfg.resolution)).to(dev)
+    if not cfg.use_edge_attrs:
+        attrs = attrs[:, 1:]  # distance only
+    graph = GraphTensors(
+        pixel_node=pixel_node.expand(b, p),
+        counts=keep.float().expand(b, p),
+        n_nodes=keep.sum().expand(b),
+        node_valid=keep.expand(b, p),
+        overflow=torch.zeros(b, dtype=torch.int64, device=dev),
+        grid_coeff=grid_sym_coeff(keep2d, cfg.edges_at_corners, cfg.resolution),
+        grid_attr=attrs,
+        agg=("grid", rows, cols, cfg.num_dirs),
+        mapping_identity=True,
+    )
+    data = flatten(img, graph)  # (B, T, P, C): reshape + mask
+    sizes = torch.full((b, t, p, 1), cfg.resolution**2, dtype=data.dtype, device=dev)
+    return graph, torch.cat([data, sizes], dim=-1)

@@ -13,8 +13,9 @@ explicitly, so each sample of a batch keeps its own mesh:
 
 ``flatten`` (pixel→node mean pooling) is one segment sum; ``unflatten``
 (node→pixel painting) is its adjoint gather. Both backwards sum in a fixed
-order, so a training step on the card is bit-reproducible. Index tensors
-are int64, torch's index type.
+order, so a training step on the card is bit-reproducible. On the
+pixelwise grid (``mapping_identity``: node id = raster pixel index) both
+are a reshape and a mask. Index tensors are int64, torch's index type.
 """
 
 from __future__ import annotations
@@ -49,8 +50,16 @@ class GraphTensors:
     agg_meta: Optional[object] = None
     # per-tile attention windows for the attention kernels (ops/attn.py AttnMeta)
     attn_meta: Optional[object] = None
-    # aggregation backend descriptor: (name, nt, eb, sw)
+    # per-direction D^-1/2 A D^-1/2 stencil planes of the grid backend
+    # (ops/grid.py), shared by every sample
+    grid_coeff: Optional[torch.Tensor] = None  # (D, rows, cols) f32
+    # per-direction constant (bearing, distance) edge attributes (grid)
+    grid_attr: Optional[torch.Tensor] = None   # (D, edge_dim) f32
+    # aggregation backend descriptor: (name, nt, eb, sw), or
+    # ("grid", rows, cols, D)
     agg: tuple = ("xla", 0, 0, 0)
+    # identity pixel↔node mapping (grid): flatten/unflatten are reshapes
+    mapping_identity: bool = False
 
     @property
     def n_max(self) -> int:
@@ -71,6 +80,9 @@ def flatten(img: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
     b, t, rows, cols, c = img.shape
     p = rows * cols
     n_max = graph.n_max
+    if graph.mapping_identity:
+        # each valid node is its pixel (count 1): a reshape and a mask
+        return torch.where(graph.node_valid[:, None, :, None], img.reshape(b, t, p, c), 0.0)
     flat = img.reshape(b, t, p, c).permute(0, 2, 1, 3).reshape(b, p, t * c)
     summed = segment_sum_nodes(flat, graph.pixel_node, n_max)
     mean = summed / graph.counts.clamp_min(1.0)[..., None]
@@ -92,7 +104,10 @@ def unflatten(
     """
     rows, cols = image_shape
     b, n_max, c = data.shape
+    fill_t = torch.full((), fill, dtype=data.dtype, device=data.device)
+    if graph.mapping_identity:
+        return torch.where(graph.node_valid[..., None], data, fill_t).reshape(b, rows, cols, c)
     img = gather_nodes(data, graph.pixel_node, n_max)
     valid = (graph.pixel_node < n_max)[..., None]
-    img = torch.where(valid, img, torch.full((), fill, dtype=data.dtype, device=data.device))
+    img = torch.where(valid, img, fill_t)
     return img.reshape(b, rows, cols, c)

@@ -2,15 +2,16 @@
 
 Counterpart of ``quadtree_mpnnlstm_tpu/models/conv.py``: the symmetric
 normalisation, the ``Â z`` dispatch, ``ChebConv`` (K=3, 'sym' laplacian,
-lambda_max=2), the attention-window branch of ``multi_stream_attention``
-and ``TransformerConv`` (heads=1, edge_dim=2, attention dropout 0.1,
-concat off in the registry). Node tensors are (B, n_max, F). Every conv
-takes ``(x, graph, generator)``; attention dropout draws its keep windows
-from ``generator`` in training mode (``module.train()``) only.
+lambda_max=2), the attention-window and grid branches of
+``multi_stream_attention`` and ``TransformerConv`` (heads=1, edge_dim=2,
+attention dropout 0.1, concat off in the registry). Node tensors are
+(B, n_max, F). Every conv takes ``(x, graph, generator)``; attention
+dropout draws its keep windows (or planes) from ``generator`` in training
+mode (``module.train()``) only.
 
-Not ported yet: the edge-list and grid branches of the attention, the
-batch-middle (shared-mesh) layout, the α side channel (``sow``),
-``MHTransformerConv``, GCN and the GAT family.
+Not ported yet: the edge-list branch of the attention, the batch-middle
+(shared-mesh) layout, the α side channel (``sow``), ``MHTransformerConv``,
+GCN and the GAT family.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 from torch import nn
 
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors
-from quadtree_mpnnlstm_tpu_torch.ops import attn, spmm
+from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn, spmm
+from quadtree_mpnnlstm_tpu_torch.ops.grid import grid_a_mul
 from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
 
 
@@ -47,8 +49,11 @@ def a_mul(z: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
 
       * ``pallas`` — the per-tile Â blocks (ops/spmm.py, kernel K2 on a CUDA
         tensor);
+      * ``grid`` — the shift stencil of the pixelwise mesh (ops/grid.py);
       * otherwise — gather → scale → scatter-add over the edge list.
     """
+    if graph.agg[0] == "grid":
+        return grid_a_mul(z, graph)
     if graph.agg[0] == "pallas":
         _, nt, _eb, sw = graph.agg
         return spmm.spmm_apply(z, graph.agg_meta, graph.n_max, nt, sw)
@@ -94,9 +99,11 @@ class ChebConv(nn.Module):
 
 def attr_dim(graph: GraphTensors) -> int:
     """Edge-attribute feature count of the mesh representation the graph
-    carries (edge list or attention windows)."""
+    carries (edge list, grid constants or attention windows)."""
     if graph.edge_attr is not None:
         return graph.edge_attr.shape[-1]
+    if graph.grid_attr is not None:
+        return graph.grid_attr.shape[-1]
     if graph.attn_meta is not None:
         return graph.attn_meta.attr.shape[-1]
     raise ValueError("graph carries no edge attributes")
@@ -112,11 +119,14 @@ def multi_stream_attention(
     TransformerConv and the fused attention gate stacks (models/fused.py),
     where the 2·G gate convolutions of a cell run as extra heads of one
     call. Runs on the graph's attention windows (``agg = "pallas_attn"``;
-    kernels K3/K4 on a CUDA tensor).
+    kernels K3/K4 on a CUDA tensor) or on the pixelwise grid (``agg =
+    "grid"``; kernels K5/K6).
 
-    Dropout is drawn per window slot and head, as the JAX package's window
-    path draws it: a (B, T, heads, EB) keep window of 1/(1 − rate) with
-    probability 1 − rate, from ``generator``, in training mode only.
+    Dropout, in training mode only, keeps an entry with probability
+    1 − rate and scales it by 1/(1 − rate), drawn from ``generator``: one
+    value per window slot and head, a (B, T, heads, EB) keep window, as the
+    JAX package's window path draws it; on the grid one per direction,
+    pixel and head, (B, D, P, heads) planes, as its grid path does.
 
     Args:
       q/k/v: (B, n_max, heads·d) projected node features.
@@ -124,23 +134,35 @@ def multi_stream_attention(
     Returns:
       (B, n_max, heads, d).
     """
-    if graph.agg[0] != "pallas_attn":
-        raise ValueError(
-            "attention runs on the attention windows only (GraphConfig.attn_windows with "
-            "aggregation='pallas'); the edge-list attention is not ported"
-        )
-    _, nt, eb, sw = graph.agg
-    meta = graph.attn_meta
     b, n = q.shape[:2]
     if we is None:
         we = q.new_zeros((attr_dim(graph), heads * d))
-    keep = None
-    if training and dropout > 0.0:
-        if generator is None:
-            raise ValueError("attention dropout in training mode needs an explicit torch.Generator")
-        shape = (b, meta.s0.shape[1], heads, eb)
+    drop = training and dropout > 0.0
+    if drop and generator is None:
+        raise ValueError("attention dropout in training mode needs an explicit torch.Generator")
+
+    def keep_planes(shape):
         u = torch.rand(shape, generator=generator, device=q.device)
-        keep = (u < 1.0 - dropout).float() / (1.0 - dropout)
+        return (u < 1.0 - dropout).float() / (1.0 - dropout)
+
+    if graph.agg[0] == "grid":
+        _, rows, cols, ndirs = graph.agg
+        # every direction's edges share one edge term (grid_attr @ Wₑ)
+        e_dir = graph.grid_attr.to(q.dtype) @ we  # (D, heads·d)
+        valid = graph.node_valid[0].to(q.dtype)   # the mask every sample shares
+        keep = keep_planes((b, ndirs, n, heads)) if drop else None
+        dims = grid_attn.GridAttnDims(rows, cols, heads, d, ndirs)
+        return grid_attn.grid_attn_apply(q, k, v, e_dir, valid, keep, dims).reshape(
+            b, n, heads, d)
+    if graph.agg[0] != "pallas_attn":
+        raise ValueError(
+            "attention runs on the attention windows (GraphConfig.attn_windows with "
+            "aggregation='pallas') or the pixelwise grid (aggregation='grid') only; the "
+            "edge-list attention is not ported"
+        )
+    _, nt, eb, sw = graph.agg
+    meta = graph.attn_meta
+    keep = keep_planes((b, meta.s0.shape[1], heads, eb)) if drop else None
     dims = attn.AttnDims(n, nt, eb, sw, heads, d)
     return attn.attn_apply(q, k, v, we, keep, meta, dims).reshape(b, n, heads, d)
 

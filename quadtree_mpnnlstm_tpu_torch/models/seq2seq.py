@@ -1,8 +1,9 @@
 """Graph seq2seq encoder–decoder with per-step remeshing.
 
 Counterpart of ``quadtree_mpnnlstm_tpu/models/seq2seq.py``: the fixed-mesh
-encoder and the decoder rollout with a remesh at every step, for
-inference and training. The JAX package runs both as ``nn.scan``s vmapped
+encoder and the decoder rollout (a remesh at every step on quadtree meshes,
+one fixed mesh on the pixelwise grid), for inference and training. The JAX
+package runs both as ``nn.scan``s vmapped
 over samples; here they are Python loops over time with an explicit batch
 axis, each sample on its own mesh.
 
@@ -15,18 +16,23 @@ Reference quirks kept from the JAX package:
     — a residual on the previous value map; the "top output" is the LSTM's
     output-gate activation;
   * decoder input is ``[value, pos_x, pos_y, node_size]`` seeded from the
-    last encoder frame, and the concat channel is the current value at
-    every step including t=0;
-  * the remesh also runs after the last decoder step, and the mesh
-    overflow is a running max over the whole rollout.
+    last encoder frame;
+  * the decoder's concat channel is the day's climatology with
+    ``use_climatology``; else, on remeshing meshes, the current value at
+    every step including t=0; else (pixelwise) there is none;
+  * on quadtree meshes the remesh also runs after the last decoder step,
+    and the mesh overflow is a running max over the whole rollout;
+  * on the pixelwise mesh the next input is ``[prediction, pos_x, pos_y,
+    node_size]`` on the same mesh, and a teacher-forced step appends the
+    *raw pixel count* as the size channel, not ``resolution**2``.
 
 Training mode (``model.train()``) turns on the decoder head's dropout and,
 with TransformerConv, the attention dropout of every encoder and decoder
 attention; ``decode`` takes a scheduled-sampling ratio. All of them draw
 from the caller's ``torch.Generator`` only, never from torch's global
 RNG, so a step is reproducible from its generator's seed.
-``remesh_input``, climatology, preset meshes and the shared-mesh batched
-layout are not ported.
+``remesh_input``, preset meshes and the shared-mesh batched layout are not
+ported.
 """
 
 from __future__ import annotations
@@ -105,9 +111,11 @@ def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
             )
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
-    if cfg.convolution_type == "TransformerConv" and not gcfg.attn_windows:
-        raise ValueError("TransformerConv runs on attention windows only (aggregation='pallas', "
-                         "attn_windows=True); the edge-list attention is not ported")
+    if (cfg.convolution_type == "TransformerConv" and not gcfg.attn_windows
+            and gcfg.aggregation != "grid"):
+        raise ValueError("TransformerConv runs on attention windows (aggregation='pallas', "
+                         "attn_windows=True) or the pixelwise grid (aggregation='grid') only; "
+                         "the edge-list attention is not ported")
 
 
 def _make_cells(module: nn.Module, cfg: ModelConfig, in_channels: int,
@@ -147,9 +155,10 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """One decoder timestep + output head."""
+    """One decoder timestep + output head. ``concat_channels`` (0 or 1) is
+    the width of the channel the head appends to the top output."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, concat_channels: int = 1):
         super().__init__()
         self.n_layers = cfg.n_layers
         self.binary = cfg.binary
@@ -160,7 +169,7 @@ class Decoder(nn.Module):
         _make_cells(self, cfg, 4, 1)
         conv_cls = CONVOLUTIONS[cfg.convolution_type]
         kwargs = CONVOLUTION_KWARGS[cfg.convolution_type]
-        self.fc_out1 = conv_cls(h + 1, h, **kwargs)  # + the concat (value) channel
+        self.fc_out1 = conv_cls(h + concat_channels, h, **kwargs)
         self.fc_out2 = conv_cls(h, 1, **kwargs)
         self.norm_o = LayerNorm(h)
         self.norm_h = LayerNorm(h)
@@ -177,7 +186,8 @@ class Decoder(nn.Module):
             hs.append(self.norm_h(h))
             cs.append(self.norm_c(c))
         output = torch.relu(self.norm_o(out))
-        output = torch.cat([output, concat], dim=-1)
+        if concat is not None:
+            output = torch.cat([output, concat], dim=-1)
         output = self.fc_out1(output, graph, generator)
         output = self.fc_out2(torch.relu(output), graph, generator)
         output = dropout(output, self.dropout, self.training, generator)
@@ -188,14 +198,19 @@ class Decoder(nn.Module):
 
 
 class Seq2Seq(nn.Module):
-    """Full forecast model: ``forward(x)`` → (B, T_out, rows, cols, 1)."""
+    """Full forecast model: ``forward(x)`` → (B, T_out, rows, cols, 1).
+    With ``use_climatology`` the decoder's concat channel is the day's
+    climatology, passed to ``decode``/``rollout`` as (B, T_out, rows,
+    cols, 1)."""
 
-    def __init__(self, cfg: ModelConfig, gcfg: GraphConfig):
+    def __init__(self, cfg: ModelConfig, gcfg: GraphConfig, use_climatology: bool = False):
         super().__init__()
         _check_supported(cfg, gcfg)
         self.cfg, self.gcfg = cfg, gcfg
+        self.use_climatology = use_climatology
+        self.remeshing = not gcfg.pixelwise
         self.encoder = Encoder(cfg)
-        self.decoder = Decoder(cfg)
+        self.decoder = Decoder(cfg, concat_channels=int(use_climatology or self.remeshing))
 
     def encode(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> Seq2SeqState:
@@ -228,13 +243,16 @@ class Seq2Seq(nn.Module):
         mask: Optional[torch.Tensor] = None,
         teacher_forcing_ratio: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        climatology: Optional[torch.Tensor] = None,
     ) -> Tuple[Seq2SeqState, torch.Tensor, torch.Tensor]:
-        """Roll out ``n_steps`` frames, remeshing after each.
+        """Roll out ``n_steps`` frames; on quadtree meshes remesh after each.
 
         Scheduled sampling: with ``teacher_forcing_ratio`` > 0, one coin per
         sample and step, drawn from ``generator``, decides whether the next
-        mesh and input are built from the true frame ``y[:, t]`` (B, n_steps,
-        rows, cols, 1) instead of the prediction.
+        input (and mesh) is built from the true frame ``y[:, t]`` (B,
+        n_steps, rows, cols, 1) instead of the prediction. ``climatology``
+        (B, n_steps, rows, cols, 1) feeds the concat channel when the model
+        uses it (zeros when None).
 
         Returns (state, y_hat (B, n_steps, rows, cols, 1), pixel_nodes
         (n_steps, B, P) — the mesh each step ran on)."""
@@ -242,41 +260,77 @@ class Seq2Seq(nn.Module):
         forcing = teacher_forcing_ratio > 0.0
         if forcing and (y is None or generator is None):
             raise ValueError("teacher forcing needs the targets y and a generator")
+        clim = None
+        if self.use_climatology:
+            b = state.x.shape[0]
+            if climatology is None:
+                climatology = state.x.new_zeros((b, n_steps) + tuple(shape) + (1,))
+            clim = climatology.to(state.x.dtype)
+            if not self.remeshing:  # fixed mesh: flatten every step's once
+                clim = flatten(clim, state.graph)
         frames, meshes = [], []
         for t in range(n_steps):
             graph = state.graph
+            if clim is None:
+                concat = state.x[..., :1] if self.remeshing else None
+            elif self.remeshing:
+                concat = flatten(clim[:, t:t + 1], graph)[:, 0]
+            else:
+                concat = clim[:, t]
             output, hidden, cell = self.decoder(
-                state.x, graph, state.x[..., :1], state.hidden, state.cell, generator
+                state.x, graph, concat, state.hidden, state.cell, generator
             )
             y_hat_t = unflatten(output, graph, shape, fill=0.0)  # (B, rows, cols, 1)
             frames.append(y_hat_t)
             meshes.append(graph.pixel_node)
 
-            base = y_hat_t
+            coin = None
             if forcing:
                 coin = torch.rand(y_hat_t.shape[0], generator=generator,
                                   device=y_hat_t.device) < teacher_forcing_ratio
-                base = torch.where(coin[:, None, None, None], y[:, t].to(y_hat_t.dtype), y_hat_t)
-            new_graph, data = image_to_graph(
-                add_positional_encoding(base[:, None]), self.gcfg, mask=mask
-            )
-            # running max overflow across the rollout
-            new_graph = new_graph.replace(
-                overflow=torch.maximum(new_graph.overflow, graph.overflow)
-            )
-            state = Seq2SeqState(
-                graph=new_graph,
-                x=data[:, 0],
-                hidden=_transfer_state(hidden, graph, new_graph, shape),
-                cell=_transfer_state(cell, graph, new_graph, shape),
-            )
+            if self.remeshing:
+                state = self._remesh(state, y_hat_t, hidden, cell, coin,
+                                     None if y is None else y[:, t], mask)
+                continue
+            x_new = torch.cat([output, state.x[..., 1:]], dim=-1)
+            if forcing:
+                # the true frame on the same mesh, with the raw pixel count
+                # (not resolution**2) as its size channel
+                teach = flatten(add_positional_encoding(y[:, t:t + 1].to(output.dtype)),
+                                graph)[:, 0]
+                x_teach = torch.cat([teach, graph.counts[..., None].to(output.dtype)], dim=-1)
+                x_new = torch.where(coin[:, None, None], x_teach, x_new)
+            state = Seq2SeqState(graph=graph, x=x_new, hidden=hidden, cell=cell)
         return state, torch.stack(frames, dim=1), torch.stack(meshes)
 
-    def rollout(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def _remesh(self, state, y_hat_t, hidden, cell, coin, y_t, mask) -> Seq2SeqState:
+        """The next state on the mesh of the prediction (or, where the coin
+        says so, of the true frame), with (H, C) carried through pixel
+        space."""
+        shape = self.gcfg.image_shape
+        graph = state.graph
+        base = y_hat_t
+        if coin is not None:
+            base = torch.where(coin[:, None, None, None], y_t.to(y_hat_t.dtype), y_hat_t)
+        new_graph, data = image_to_graph(add_positional_encoding(base[:, None]), self.gcfg,
+                                         mask=mask)
+        # running max overflow across the rollout
+        new_graph = new_graph.replace(overflow=torch.maximum(new_graph.overflow, graph.overflow))
+        return Seq2SeqState(
+            graph=new_graph,
+            x=data[:, 0],
+            hidden=_transfer_state(hidden, graph, new_graph, shape),
+            cell=_transfer_state(cell, graph, new_graph, shape),
+        )
+
+    def rollout(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                climatology: Optional[torch.Tensor] = None):
         """(y_hat, final state, per-step pixel_node maps) for inputs x."""
         state = self.encode(x, mask=mask)
-        state, y_hat, meshes = self.decode(state, self.cfg.output_timesteps, mask=mask)
+        state, y_hat, meshes = self.decode(state, self.cfg.output_timesteps, mask=mask,
+                                           climatology=climatology)
         return y_hat, state, meshes
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.rollout(x, mask=mask)[0]
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                climatology: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rollout(x, mask=mask, climatology=climatology)[0]

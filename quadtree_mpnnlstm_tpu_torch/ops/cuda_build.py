@@ -48,6 +48,13 @@ SIGNATURES = {
         # ... live, g, dq, dk_slot, dv_slot, dwe_part, B, ..., rows, scale, stream
         "qtm_attn_bwd": [_P] * 15 + [_C] * 11 + [ctypes.c_float, _P],
     },
+    "grid_attn.cu": {
+        # q, k, v, e_dir, valid, keep, out, B, rows, cols, heads, d, D, scale, stream
+        "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 6 + [ctypes.c_float, _P],
+        # q, k, v, e_dir, valid, keep, g, dq, dk, dv, dlog, used, de_part,
+        # B, rows, cols, heads, d, D, blocks, scale, stream
+        "qtm_grid_attn_bwd": [_P] * 13 + [_C] * 7 + [ctypes.c_float, _P],
+    },
 }
 
 

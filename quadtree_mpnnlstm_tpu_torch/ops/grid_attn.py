@@ -1,0 +1,232 @@
+"""Stencil attention on the pixel grid: two CUDA kernels
+(``csrc/grid_attn.cu``) and their plain PyTorch versions.
+
+Counterpart of ``quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py``. On the
+identity-mapped pixelwise mesh (``aggregation="grid"``) pixel (r, c)
+receives one edge from each of D = 4 (or 8) static directions (dr, dc),
+from the pixel (r − dr, c − dc) when that lies on the grid and both ends
+are valid; every edge of direction i carries the same edge term ``e_dir[i]
+= grid_attr[i] · Wₑ``. For every pixel p and head h (``scale = 1/√d``):
+
+    logit_i = scale · q[p]_h · (k[src_i]_h + e_dir[i]_h)
+    α       = softmax over the valid directions (an empty softmax gives 0)
+    out[p]_h = Σ_i α_i · keep[i, p, h] · (v[src_i]_h + e_dir[i]_h)
+
+``keep`` holds the dropout keep-scale of every (direction, pixel, head), or
+is None for no dropout. q, k, v carry a leading batch axis (B, P, heads·d)
+and one launch serves the batch; ``valid`` (P,) is shared by every sample,
+as the graph build's mask is.
+
+Dispatch is by device: a CUDA tensor launches the kernel, and raises if it
+cannot be built or launched or if the shape is one it does not take (H
+above :data:`MAX_H`); a CPU tensor runs the plain version. There is no
+fall back: the JAX package's VMEM and vmap gates are TPU limits. Each
+kernel launch adds one to :data:`LAUNCHES`.
+
+:class:`GridAttnApply` makes the aggregation differentiable in q, k, v and
+``e_dir`` on both devices: its backward (K6) recomputes α and gathers dk
+and dv at the opposite offsets; ``de_dir`` partials are summed in a fixed
+order, so a training step is bit-reproducible. ``valid`` and ``keep`` get
+no gradient.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from quadtree_mpnnlstm_tpu_torch.ops import spmm
+from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shift_in, shifts_for
+
+# kernel launches since the last reset_launch_counts(), by wrapper name
+LAUNCHES = {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
+
+# features per pixel the kernels take (csrc/grid_attn.cu kMaxH), and the
+# pixels of one CTA of K6's per-destination kernel (one de_dir partial
+# each, kWarps)
+MAX_H = 256
+BWD_PIXELS_PER_CTA = 8
+
+_NEG_BIG = -1e30
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class GridAttnDims(NamedTuple):
+    """Static geometry of one aggregation."""
+
+    rows: int
+    cols: int
+    heads: int
+    d: int
+    ndirs: int  # 4 or 8 (edges_at_corners)
+
+
+# ------------------------------------------------------- plain versions
+
+
+def _scale(d: int) -> float:
+    """1/√d rounded to f32, the factor both K5 and its plain version use."""
+    return float(np.float32(1.0 / math.sqrt(d)))
+
+
+def _head_sum(prod: torch.Tensor, d: int) -> torch.Tensor:
+    """Sum the last axis (a head's d features) in K5's order: a pairwise
+    tree over adjacent features when d divides 32 (the kernel's xor
+    butterfly), else in feature order."""
+    if 32 % d == 0:
+        while prod.shape[-1] > 1:
+            prod = prod[..., 0::2] + prod[..., 1::2]
+        return prod[..., 0]
+    out = prod[..., 0]
+    for x in range(1, d):
+        out = out + prod[..., x]
+    return out
+
+
+def grid_attn_plain(q, k, v, e_dir, valid, keep: Optional[torch.Tensor],
+                    dims: GridAttnDims) -> torch.Tensor:
+    """K5's function in plain PyTorch: the shift/where/softmax chain of the
+    JAX package's grid branch (``models/conv.py``), with a detached max.
+    Keeps D shifted copies of k and v. Every sum runs in the kernel's order
+    (heads as :func:`_head_sum`, directions in order), so that on the card
+    the two agree bit for bit. q, k, v: (B, P, heads·d); e_dir:
+    (D, heads·d); valid: (P,); keep: (B, D, P, heads) or None."""
+    rows, cols, heads, d, ndirs = dims
+    b = q.shape[0]
+    shifts = shifts_for(ndirs == 8)
+    qg, kg, vg = (x.reshape(b, rows, cols, heads, d) for x in (q, k, v))
+    e = e_dir.reshape(ndirs, 1, 1, 1, heads, d)
+    valid2d = (valid != 0).reshape(1, rows, cols)
+    nbv = torch.stack([neighbor_valid(valid2d, dr, dc) for dr, dc in shifts], dim=1)[..., None]
+    logits = torch.stack([_head_sum(qg * (shift_in(kg, dr, dc) + e[i]), d)
+                          for i, (dr, dc) in enumerate(shifts)], dim=1)
+    logits = torch.where(nbv, logits * _scale(d), _NEG_BIG)  # (B, D, rows, cols, heads)
+    mx = logits.amax(dim=1, keepdim=True).clamp_min(_NEG_BIG).detach()
+    ex = torch.where(nbv, torch.exp(logits - mx), 0.0)
+    den = ex[:, 0]
+    for i in range(1, ndirs):
+        den = den + ex[:, i]
+    den = den[:, None]
+    alpha = torch.where(den != 0, ex / torch.where(den != 0, den, 1.0), 0.0)
+    used = alpha if keep is None else alpha * keep.reshape(alpha.shape)
+    out = None
+    for i, (dr, dc) in enumerate(shifts):
+        term = used[:, i, ..., None] * (shift_in(vg, dr, dc) + e[i])
+        out = term if out is None else out + term
+    return out.reshape(b, rows * cols, heads * d)
+
+
+def grid_attn_bwd_plain(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
+    """K6's function in plain PyTorch: autograd through
+    :func:`grid_attn_plain`, recomputed from the saved inputs. Returns
+    (dq, dk, dv, de_dir)."""
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v, e_dir)]
+        out = grid_attn_plain(*leaves, valid, keep, dims)
+        return torch.autograd.grad(out, leaves, g)
+
+
+# ------------------------------------------------------- CUDA kernels
+
+
+def _launch_args(q, k, v, e_dir, valid, keep, dims: GridAttnDims):
+    """Check the operands of both kernels; returns (lib, pointers, ints)."""
+    from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
+
+    rows, cols, heads, d, ndirs = dims
+    b = q.shape[0]
+    p, h = rows * cols, heads * d
+    if not 1 <= h <= MAX_H or ndirs not in (4, 8):
+        raise ValueError(f"grid attention kernels take 1 ≤ heads·d ≤ {MAX_H} and D in (4, 8); "
+                         f"got heads·d={h}, D={ndirs}")
+    check = spmm._check
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        check(x, name, torch.float32, (b, p, h))
+    check(e_dir, "e_dir", torch.float32, (ndirs, h))
+    check(valid, "valid", torch.float32, (p,))
+    if keep is not None:
+        check(keep, "keep", torch.float32, (b, ndirs, p, heads))
+    ptrs = [spmm._ptr(x) for x in (q, k, v, e_dir, valid)]
+    ptrs.append(ctypes.c_void_p(None if keep is None else keep.data_ptr()))
+    return load_library("grid_attn.cu"), ptrs, (b, rows, cols, heads, d, ndirs)
+
+
+def _grid_attn_fwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims) -> torch.Tensor:
+    """Launch K5 (``qtm_grid_attn_fwd``): one warp per pixel."""
+    lib, ptrs, ints = _launch_args(q, k, v, e_dir, valid, keep, dims)
+    out = torch.empty_like(q)
+    err = lib.qtm_grid_attn_fwd(*ptrs, spmm._ptr(out), *ints, ctypes.c_float(_scale(dims.d)),
+                                spmm._stream())
+    spmm._raise_on(err, "grid_attn_apply")
+    LAUNCHES["grid_attn_apply"] += 1
+    return out
+
+
+def _grid_attn_bwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
+    """Launch K6 (``qtm_grid_attn_bwd``: its per-destination kernel, which
+    also writes the per-CTA ``de_dir`` partials, and its per-source kernel)
+    and sum the partials in a fixed order. Returns (dq, dk, dv, de_dir)."""
+    lib, ptrs, ints = _launch_args(q, k, v, e_dir, valid, keep, dims)
+    spmm._check(g, "g", torch.float32, tuple(q.shape))
+    b, p, h = q.shape
+    blocks = -(-p // BWD_PIXELS_PER_CTA)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    planes = torch.empty((2, b, dims.ndirs, p, dims.heads), dtype=torch.float32, device=q.device)
+    de_part = torch.empty((b, blocks, dims.ndirs, h), dtype=torch.float32, device=q.device)
+    err = lib.qtm_grid_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(dq), spmm._ptr(dk),
+                                spmm._ptr(dv), spmm._ptr(planes[0]), spmm._ptr(planes[1]),
+                                spmm._ptr(de_part), *ints, blocks,
+                                ctypes.c_float(_scale(dims.d)), spmm._stream())
+    spmm._raise_on(err, "grid_attn_apply_bwd")
+    LAUNCHES["grid_attn_apply_bwd"] += 1
+    return dq, dk, dv, de_part.sum(dim=(0, 1))
+
+
+# ------------------------------------------------------- dispatch
+
+
+class GridAttnApply(torch.autograd.Function):
+    """K5 forward with the K6 backward. Each direction launches its kernel
+    on a CUDA tensor and runs its plain version on a CPU tensor. Only
+    q, k, v, e_dir (and valid, keep) are saved, not α, which K6
+    recomputes; valid and keep get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, e_dir, valid, keep, dims):
+        q, k, v, e_dir = (x.contiguous() for x in (q, k, v, e_dir))
+        ctx.save_for_backward(q, k, v, e_dir, valid, keep)
+        ctx.dims = dims
+        fwd = _grid_attn_fwd_cuda if q.is_cuda else grid_attn_plain
+        return fwd(q, k, v, e_dir, valid, keep, dims)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, e_dir, valid, keep = ctx.saved_tensors
+        bwd = _grid_attn_bwd_cuda if g.is_cuda else grid_attn_bwd_plain
+        dq, dk, dv, de = bwd(q, k, v, e_dir, valid, keep, ctx.dims, g.contiguous())
+        return dq, dk, dv, de, None, None, None
+
+
+def grid_attn_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, e_dir: torch.Tensor,
+                    valid: torch.Tensor, keep: Optional[torch.Tensor],
+                    dims: GridAttnDims) -> torch.Tensor:
+    """K5: stencil attention over the pixel grid.
+
+    Replaces ``grid_attn_apply`` (``_fwd_kernel`` forward, ``_bwd_rule`` /
+    ``_bwd_kernel`` backward) of
+    ``quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py``. q, k, v: (B,
+    rows·cols, heads·d) f32; e_dir: (D, heads·d); valid: (rows·cols,) f32;
+    keep: (B, D, rows·cols, heads) keep-scale planes, or None for no
+    dropout. Returns (B, rows·cols, heads·d); differentiable in q, k, v and
+    e_dir.
+    """
+    return GridAttnApply.apply(q, k, v, e_dir, valid, keep, dims)

@@ -9,9 +9,13 @@ its own mesh. The batch loss is the mean over samples of each sample's
 loss, as the vmapped JAX loss is.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``; on
-the card the Â-block kernels (ops/spmm.py, ChebConv) or the attention
-kernels (ops/attn.py, TransformerConv) carry every aggregation and its
-backward. Dropout and scheduled sampling draw from the predictor's
+the card the Â-block kernels (ops/spmm.py, ChebConv on quadtree meshes),
+the attention-window kernels (ops/attn.py, TransformerConv on quadtree
+meshes) or the stencil attention kernels (ops/grid_attn.py, TransformerConv
+on the pixelwise grid) carry every aggregation and its backward. With
+``use_climatology`` the decoder reads the day-of-year climatology of each
+forecast day (``climatology=`` (366 or 365, rows, cols) on ``train``,
+``predict``, ``score``, ``forecast`` and ``train_step``). Dropout and scheduled sampling draw from the predictor's
 ``generator`` (a ``torch.Generator`` on its device, seeded from ``seed``),
 never from torch's global RNG.
 """
@@ -29,6 +33,7 @@ from quadtree_mpnnlstm_tpu_torch.config import NEG_INF, GraphConfig, ModelConfig
 from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
 from quadtree_mpnnlstm_tpu_torch.train.losses import LOSSES
 from quadtree_mpnnlstm_tpu_torch.train.metrics import MetricsLogger
+from quadtree_mpnnlstm_tpu_torch.utils.dates import day_of_year
 from quadtree_mpnnlstm_tpu_torch.utils.params import get_n_params
 from quadtree_mpnnlstm_tpu_torch.utils.weights import init_params, params_from_jax
 
@@ -64,6 +69,7 @@ class NextFramePredictorS2S:
         condition: str = "max_larger_than",
         binary: bool = False,
         teacher_forcing_ratio: float = 0.0,
+        use_climatology: bool = False,
         seed: Optional[int] = None,
         model_kwargs: Optional[Dict[str, Any]] = None,
         graph_kwargs: Optional[Dict[str, Any]] = None,
@@ -76,6 +82,7 @@ class NextFramePredictorS2S:
         self.binary = binary
         self.output_timesteps = output_timesteps
         self.teacher_forcing_ratio = teacher_forcing_ratio
+        self.use_climatology = use_climatology
         self.train_config = train_config
         self.run_dir = run_dir  # metrics: <run_dir>/<experiment_name>_<time>/
         self.tensorboard = tensorboard
@@ -120,8 +127,10 @@ class NextFramePredictorS2S:
             # aggregation rides the Â blocks or attention windows; the edge
             # list is dead weight
             self.gcfg = self.gcfg.replace(carry_edges=False)
+        # aggregation="grid" (the pixelwise mesh) builds no edge list and no
+        # windows: the stencil reads the identity-mapped node planes
 
-        self.model = Seq2Seq(self.cfg, self.gcfg).to(self.device).eval()
+        self.model = Seq2Seq(self.cfg, self.gcfg, use_climatology).to(self.device).eval()
         init_params(self.model, torch.Generator().manual_seed(seed))
         # dropout masks and scheduled-sampling coins of train()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -181,10 +190,35 @@ class NextFramePredictorS2S:
     def _mask(self, mask) -> Optional[torch.Tensor]:
         return None if mask is None else self._tensor(mask, torch.bool)
 
+    def _clim_batch(self, climatology, launch_dates) -> Optional[np.ndarray]:
+        """(B, T_out, rows, cols, 1) day-of-year normals of the forecast
+        days of each launch date; zeros without a climatology, and None
+        when the model reads none."""
+        if not self.use_climatology:
+            return None
+        rows, cols = self.gcfg.image_shape
+        b = len(launch_dates)
+        if climatology is None:
+            return np.zeros((b, self.output_timesteps, rows, cols, 1), np.float32)
+        clim = np.asarray(climatology)
+        if clim.ndim == 4:  # (1, 365, rows, cols)
+            clim = clim[0]
+        out = np.empty((b, self.output_timesteps, rows, cols, 1), np.float32)
+        for i, ld in enumerate(np.asarray(launch_dates).reshape(-1)):
+            doys = [day_of_year(int(ld), t) for t in range(self.output_timesteps)]
+            out[i, ..., 0] = clim[doys]
+        return out
+
+    def _clim(self, clim) -> Optional[torch.Tensor]:
+        """The batch's normals on the device, when the model reads them."""
+        return self._tensor(clim) if self.use_climatology and clim is not None else None
+
     def train_step(self, x, y, mask=None, generator: Optional[torch.Generator] = None,
-                   truncated_backprop: int = 0):
+                   truncated_backprop: int = 0, climatology=None):
         """One forward, backward and clipped Adam update on a batch x
-        (B, T_in, rows, cols, C), y (B, T_out, rows, cols, 1).
+        (B, T_in, rows, cols, C), y (B, T_out, rows, cols, 1);
+        ``climatology`` is the batch's (B, T_out, rows, cols, 1) normals
+        (``_clim_batch``), read when the model uses them.
 
         With truncated BPTT every chunk re-encodes the inputs and decodes
         its own steps from the encoder state; the loss is the sum of the
@@ -196,6 +230,7 @@ class NextFramePredictorS2S:
         model = self.model.train()
         gen = self.generator if generator is None else generator
         x, y, m = self._tensor(x), self._tensor(y), self._mask(mask)
+        clim = self._clim(climatology)
         self.optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), device=self.device)
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -204,7 +239,9 @@ class NextFramePredictorS2S:
             state = model.encode(x, mask=m, generator=gen)
             state, y_hat, _ = model.decode(state, n, y=y_c, mask=m,
                                            teacher_forcing_ratio=self.teacher_forcing_ratio,
-                                           generator=gen)
+                                           generator=gen,
+                                           climatology=None if clim is None
+                                           else clim[:, t0:t0 + n])
             loss = self.loss_func(y_hat, y_c, m).mean()
             loss.backward()
             total = total + loss.detach()
@@ -216,8 +253,8 @@ class NextFramePredictorS2S:
         return total, overflow
 
     @torch.no_grad()
-    def _eval_loss(self, x, y, mask) -> torch.Tensor:
-        y_hat, _, _ = self.forecast(x, mask=mask)
+    def _eval_loss(self, x, y, mask, climatology=None) -> torch.Tensor:
+        y_hat, _, _ = self.forecast(x, mask=mask, climatology=climatology)
         return self.loss_func(y_hat, self._tensor(y), self._mask(mask)).mean()
 
     def _drain_step_metrics(self, pending, running: float, epoch_overflow: int):
@@ -233,6 +270,7 @@ class NextFramePredictorS2S:
         self,
         loader_train,
         loader_test,
+        climatology=None,
         n_epochs: Optional[int] = None,
         lr: Optional[float] = None,
         lr_decay: Optional[float] = None,
@@ -241,7 +279,9 @@ class NextFramePredictorS2S:
         divergence_threshold: float = 4.0,
     ) -> None:
         """Train for ``n_epochs`` over ``loader_train`` and score each epoch
-        on ``loader_test`` (both yield (x, y, launch_date) numpy triplets).
+        on ``loader_test`` (both yield (x, y, launch_date) numpy triplets);
+        ``climatology`` (366 or 365, rows, cols) gives the decoder its
+        normals by launch date when the model uses them.
         Optimisation arguments default to the constructor's
         ``train_config``, else to 200 epochs, lr 0.01, γ 0.95 and full BPTT.
         Raises ``ValueError("NaN loss :(")`` on a NaN test loss and
@@ -265,9 +305,10 @@ class NextFramePredictorS2S:
             self._set_lr()
             running, steps, epoch_overflow = 0.0, 0, 0
             pending = None
-            for x, y, _launch in loader_train:
-                loss, overflow = self.train_step(x, y, mask=mask,
-                                                 truncated_backprop=truncated_backprop)
+            for x, y, launch in loader_train:
+                loss, overflow = self.train_step(
+                    x, y, mask=mask, truncated_backprop=truncated_backprop,
+                    climatology=self._clim_batch(climatology, launch))
                 if pending is not None:
                     running, epoch_overflow = self._drain_step_metrics(
                         pending, running, epoch_overflow)
@@ -281,8 +322,8 @@ class NextFramePredictorS2S:
 
             running_test, steps_test = 0.0, 0
             pending_test = None
-            for x, y, _launch in loader_test:
-                loss = self._eval_loss(x, y, mask)
+            for x, y, launch in loader_test:
+                loss = self._eval_loss(x, y, mask, self._clim_batch(climatology, launch))
                 if pending_test is not None:
                     running_test += float(pending_test)
                     steps_test += 1
@@ -320,19 +361,23 @@ class NextFramePredictorS2S:
     # ---------------------------------------------------------------- predict
 
     @torch.no_grad()
-    def forecast(self, x, mask=None):
+    def forecast(self, x, mask=None, climatology=None):
         """One batch in eval mode: x (B, T_in, rows, cols, C) array or
-        tensor → (y_hat (B, T_out, rows, cols, 1) tensor, overflow (B,),
-        per-step pixel_node maps (T_out, B, P))."""
-        y_hat, state, meshes = self.model.eval().rollout(self._tensor(x), mask=self._mask(mask))
+        tensor, ``climatology`` the batch's (B, T_out, rows, cols, 1)
+        normals (``_clim_batch``) → (y_hat (B, T_out, rows, cols, 1)
+        tensor, overflow (B,), per-step pixel_node maps (T_out, B, P))."""
+        y_hat, state, meshes = self.model.eval().rollout(
+            self._tensor(x), mask=self._mask(mask), climatology=self._clim(climatology))
         return y_hat, state.graph.overflow, meshes
 
-    def predict(self, loader, mask=None) -> np.ndarray:
+    def predict(self, loader, climatology=None, mask=None) -> np.ndarray:
         """→ (N, T_out, rows, cols, 1) for every batch of ``loader``, which
-        yields (x, y, launch_date) numpy triplets."""
+        yields (x, y, launch_date) numpy triplets; ``climatology`` (366 or
+        365, rows, cols) as in ``train``."""
         outs, worst = [], 0
-        for x, _y, _launch in loader:
-            y_hat, overflow, _ = self.forecast(x, mask=mask)
+        for x, _y, launch in loader:
+            y_hat, overflow, _ = self.forecast(
+                x, mask=mask, climatology=self._clim_batch(climatology, launch))
             outs.append(y_hat.cpu().numpy())
             worst = max(worst, int(overflow.max()))
         self.last_overflow = worst
@@ -343,9 +388,9 @@ class NextFramePredictorS2S:
             )
         return np.concatenate(outs, axis=0)
 
-    def score(self, loader, mask=None) -> Dict[str, float]:
+    def score(self, loader, climatology=None, mask=None) -> Dict[str, float]:
         """Masked MSE and RMSE of ``predict`` over a loader."""
-        y_hat = self.predict(loader, mask=mask)
+        y_hat = self.predict(loader, climatology=climatology, mask=mask)
         y = np.concatenate([y for _, y, _ in loader], axis=0)
         if mask is not None:
             diff = (y_hat - y)[:, :, ~np.asarray(mask, bool)]

@@ -1,0 +1,170 @@
+"""PyTorch port vs JAX package: the stencil attention on the pixel grid
+with its gradients (q, k, v, e_dir). The Pallas kernel runs in interpret
+mode on the CPU; the port runs its plain versions (``grid_attn_plain``
+forward, autograd through it backward), which
+tests/test_torch_kernels_cuda.py and chip_smoke.py hold the CUDA kernels
+against on the card. The 12×20 mask has an isolated valid pixel, whose
+aggregation must be exactly 0, and a masked band."""
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from quadtree_mpnnlstm_tpu.config import NEG_INF
+from quadtree_mpnnlstm_tpu.config import GraphConfig as JGraphConfig
+from quadtree_mpnnlstm_tpu.graph.build import image_to_graph as j_image_to_graph
+from quadtree_mpnnlstm_tpu.models.conv import multi_stream_attention as j_msa
+from quadtree_mpnnlstm_tpu.ops import pallas_grid_attn as jga
+from quadtree_mpnnlstm_tpu.utils.posenc import add_positional_encoding as j_posenc
+from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
+from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
+from quadtree_mpnnlstm_tpu_torch.models.conv import multi_stream_attention
+from quadtree_mpnnlstm_tpu_torch.ops import grid_attn as tga
+from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
+
+SHAPE = (12, 20)
+P = SHAPE[0] * SHAPE[1]
+B = 2
+FWD_TOL, GRAD_TOL = 1e-5, 1e-4
+ISOLATED = (5, 9)
+
+
+def _mask():
+    """True = invalid: random holes, a masked band, and one valid pixel
+    whose 8 neighbours are all masked."""
+    mask = np.random.default_rng(0).random(SHAPE) < 0.2
+    mask[:2, :] = True
+    r, c = ISOLATED
+    mask[r - 1:r + 2, c - 1:c + 2] = True
+    mask[r, c] = False
+    return mask
+
+
+def _operands(heads, d, ndirs, seed):
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    h = heads * d
+    return mk(B, P, h), mk(B, P, h), mk(B, P, h), mk(B, P, h), mk(ndirs, h)
+
+
+# each (heads, d) with D = 4 and 8, and with and without a numpy keep plane
+@pytest.mark.parametrize("heads,d,ndirs,dropout", [
+    (1, 8, 4, False), (1, 8, 8, True), (3, 8, 4, True), (3, 8, 8, False),
+    (8, 16, 4, False), (8, 16, 8, True), (1, 1, 4, True), (1, 1, 8, False)])
+def test_grid_attn_apply_and_grads_match_jax(heads, d, ndirs, dropout):
+    """Forward ≤1e-5; gradients of <out, g> in q, k, v and e_dir ≤1e-4 ×
+    max(1, max|g_jax|). The keep planes (rate 0.1) come from numpy and go
+    to both."""
+    q, k, v, g, e = _operands(heads, d, ndirs, heads * 100 + d + ndirs)
+    valid = (~_mask()).astype(np.float32).reshape(-1)
+    keep = None
+    if dropout:
+        rng = np.random.default_rng(7)
+        keep = ((rng.random((B, ndirs, P, heads)) < 0.9) / 0.9).astype(np.float32)
+    dims = tga.GridAttnDims(*SHAPE, heads, d, ndirs)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, e)]
+    out = tga.grid_attn_apply(*leaves, torch.from_numpy(valid),
+                              None if keep is None else torch.from_numpy(keep), dims)
+    assert type(out.grad_fn).__name__ == "GridAttnApplyBackward"
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+
+    jdims = jga.GridAttnDims(*SHAPE, heads, d, ndirs, dropout)
+
+    @jax.jit
+    def jax_vg(qq, kk, vv, ee, gg, kp):
+        def loss(qq, kk, vv, ee):
+            o = jga.grid_attn_apply(qq, kk, vv, ee, jnp.asarray(valid)[:, None], kp, jdims)
+            return jnp.sum(o * gg), o
+        return jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(qq, kk, vv, ee)
+
+    jde = 0.0  # de_dir sums over the batch
+    for s in range(B):
+        (_, ref), jgrads = jax_vg(q[s], k[s], v[s], e, g[s], None if keep is None else keep[s])
+        np.testing.assert_allclose(out[s].detach().numpy(), np.asarray(ref), rtol=0, atol=FWD_TOL)
+        for name, mine, jg in zip("qkv", grads[:3], jgrads[:3]):
+            jg = np.asarray(jg)
+            err = np.abs(mine[s].numpy() - jg).max()
+            assert err <= GRAD_TOL * max(1.0, np.abs(jg).max()), (name, s, err)
+        jde = jde + np.asarray(jgrads[3])
+    err = np.abs(grads[3].numpy() - jde).max()
+    assert err <= GRAD_TOL * max(1.0, np.abs(jde).max()), err
+    # the isolated valid pixel and every masked pixel aggregate exactly 0
+    out2d = out.detach().numpy().reshape(B, *SHAPE, -1)
+    assert not out2d[:, ISOLATED[0], ISOLATED[1]].any()
+    assert not out2d[:, _mask()].any()
+
+
+@pytest.mark.parametrize("corners", [False, True])
+def test_grid_branch_matches_the_jax_xla_chain(corners):
+    """The port's ``multi_stream_attention`` on a grid graph (e_dir =
+    grid_attr @ Wₑ, the shared mask) against the JAX package's XLA
+    shift/softmax chain (``grid_attn="xla"``), forward and gradients."""
+    heads, d = 2, 4
+    mask = _mask()
+    x = np.random.default_rng(3).random((B, 1, *SHAPE, 1)).astype(np.float32)
+    kw = dict(image_shape=SHAPE, thresh=NEG_INF, aggregation="grid", edges_at_corners=corners)
+    tg, _ = image_to_graph(add_positional_encoding(torch.from_numpy(x)),
+                           GraphConfig(**kw), mask=torch.from_numpy(mask))
+    jg, _ = j_image_to_graph(j_posenc(jnp.asarray(x[0])), JGraphConfig(grid_attn="xla", **kw),
+                             mask=jnp.asarray(mask))
+    assert not jg.grid_attn_fused
+    q, k, v, g, _ = _operands(heads, d, 4, 11)
+    we = np.random.default_rng(12).standard_normal((2, heads * d)).astype(np.float32)
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v, we)]
+    out = multi_stream_attention(*leaves[:3], leaves[3], tg, heads, d)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g).reshape(out.shape))
+
+    def loss(qq, kk, vv, ww, gg):
+        o, _ = j_msa(qq, kk, vv, ww, jg, heads, d)
+        return jnp.sum(o.reshape(P, -1) * gg), o
+
+    jwe = 0.0
+    for s in range(B):
+        (_, ref), jgrads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3), has_aux=True)(
+            q[s], k[s], v[s], we, g[s])
+        np.testing.assert_allclose(out[s].detach().numpy(), np.asarray(ref), rtol=0, atol=FWD_TOL)
+        for mine, jgr in zip(grads[:3], jgrads[:3]):
+            jgr = np.asarray(jgr)
+            assert np.abs(mine[s].numpy() - jgr).max() <= GRAD_TOL * max(1.0, np.abs(jgr).max())
+        jwe = jwe + np.asarray(jgrads[3])
+    assert np.abs(grads[3].numpy() - jwe).max() <= GRAD_TOL * max(1.0, np.abs(jwe).max())
+
+
+def test_cpu_tensors_never_launch_kernels():
+    dims = tga.GridAttnDims(*SHAPE, 1, 4, 4)
+    q = torch.zeros(B, P, 4, requires_grad=True)
+    tga.reset_launch_counts()
+    out = tga.grid_attn_apply(q, q, q, torch.zeros(4, 4), torch.ones(P), None, dims)
+    out.sum().backward()
+    assert tga.LAUNCHES == {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
+
+
+def test_grid_dropout_planes_come_from_the_generator(monkeypatch):
+    """In training mode a grid attention draws (B, D, P, heads) keep planes
+    from the generator: about 10 % zeros, the rest 1/0.9; the same seed
+    gives the same planes; eval mode draws none."""
+    x = torch.zeros(B, 1, *SHAPE, 1)
+    tg, _ = image_to_graph(add_positional_encoding(x),
+                           GraphConfig(image_shape=SHAPE, thresh=NEG_INF, aggregation="grid"))
+    seen = []
+    real = tga.grid_attn_apply
+    monkeypatch.setattr(tga, "grid_attn_apply", lambda *a: seen.append(a[5]) or real(*a))
+    q = torch.randn(B, P, 8 * 4, generator=torch.Generator().manual_seed(0))
+    call = lambda gen, training: multi_stream_attention(  # noqa: E731
+        q, q, q, None, tg, 8, 4, dropout=0.1, training=training, generator=gen)
+    call(torch.Generator().manual_seed(0), True)
+    call(torch.Generator().manual_seed(0), True)
+    call(torch.Generator().manual_seed(1), True)
+    call(None, False)
+    keep = seen[0]
+    assert keep.shape == (B, 4, P, 8)
+    zero, kept = keep.unique().tolist()
+    assert zero == 0.0 and kept == pytest.approx(1 / 0.9)
+    assert abs(float((keep == 0).float().mean()) - 0.1) < 0.02
+    assert torch.equal(seen[0], seen[1]) and not torch.equal(seen[0], seen[2])
+    assert seen[3] is None
+    with pytest.raises(ValueError, match="Generator"):
+        call(None, True)

@@ -34,8 +34,8 @@ def _imported_roots(path: pathlib.Path):
 
 def test_port_has_modules_to_scan():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in p.parents}
-    assert {"ops/spmm.py", "graph/build.py", "train/predictor.py",
-            "models/seq2seq.py"} <= names
+    assert {"ops/spmm.py", "ops/attn.py", "ops/grid_attn.py", "graph/build.py",
+            "train/predictor.py", "models/seq2seq.py", "data/ice_dataset.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
@@ -45,7 +45,8 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_kernel_sources_are_in_the_package():
-    assert (PORT / "csrc" / "spmm.cu").is_file()
+    for source in ("spmm.cu", "attn.cu", "grid_attn.cu"):
+        assert (PORT / "csrc" / source).is_file()
     assert (PORT / "data" / "digit_sprites.npz").is_file()
 
 

@@ -248,3 +248,96 @@ def test_attn_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError):  # keep with more rows than heads
         attn._attn_fwd_cuda(q, k, v, we, torch.ones(3, meta.s0.shape[1], 2, dims.eb,
                                                      device=card), meta, dims)
+
+
+# ---------------------------------------------------------------- grid attention
+
+
+def _grid_case(device, rows, cols, heads, d, ndirs, dropout, batch=2):
+    """Seeded operands of the stencil attention on a rows × cols grid whose
+    mask holds an isolated valid pixel (all 8 neighbours masked) and random
+    holes."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    mask = np.random.default_rng(rows * cols).random((rows, cols)) < 0.25
+    mask[2:5, 3:6] = True
+    mask[3, 4] = False  # isolated
+    gen = torch.Generator(device).manual_seed(heads * d + ndirs)
+    p, h = rows * cols, heads * d
+    qkv = [torch.randn(batch, p, h, device=device, generator=gen) for _ in range(3)]
+    e_dir = torch.randn(ndirs, h, device=device, generator=gen)
+    valid = torch.from_numpy(~mask.reshape(-1)).float().to(device)
+    keep = None
+    if dropout:
+        u = torch.rand(batch, ndirs, p, heads, device=device, generator=gen)
+        keep = (u < 0.9).float() / 0.9
+    return (*qkv, e_dir, valid, keep, grid_attn.GridAttnDims(rows, cols, heads, d, ndirs)), gen
+
+
+# (rows, cols, heads, d, D, keep): H 256 (the flagship's gate stack, 8 × 32),
+# 32 and 1 (its head convs), D 4 and 8, cols 13 (column wrap), and d = 6,
+# which takes the shared-memory head sums instead of the shuffles
+GRID_CASES = [(224, 304, 8, 32, 4, False), (224, 304, 8, 32, 4, True),
+              (224, 304, 1, 32, 4, False), (224, 304, 1, 1, 4, True),
+              (11, 13, 8, 32, 8, True), (11, 13, 1, 32, 8, False), (11, 13, 1, 1, 8, True),
+              (11, 13, 3, 6, 4, True), (11, 13, 2, 4, 8, False)]
+
+
+@pytest.mark.parametrize("rows,cols,heads,d,ndirs,dropout", GRID_CASES)
+def test_grid_attn_kernels_match_plain(card, rows, cols, heads, d, ndirs, dropout):
+    """K5 against ``grid_attn_plain`` (≤1e-5) and K6 against autograd
+    through it (≤1e-5 × max(1, max|grad|)); the isolated and the masked
+    pixels aggregate exactly 0."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    args, gen = _grid_case(card, rows, cols, heads, d, ndirs, dropout)
+    before = dict(grid_attn.LAUNCHES)
+    out = grid_attn._grid_attn_fwd_cuda(*args)
+    torch.testing.assert_close(out, grid_attn.grid_attn_plain(*args), rtol=0, atol=1e-5)
+    invalid = args[4] == 0
+    assert not out[:, invalid].any() and not out[:, 3 * cols + 4].any()
+    g = torch.randn(out.shape, device=card, generator=gen)
+    kern = grid_attn._grid_attn_bwd_cuda(*args, g)
+    plain = grid_attn.grid_attn_bwd_plain(*args, g)
+    for name, a, p in zip(("dq", "dk", "dv", "de_dir"), kern, plain):
+        err = float((a - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+    assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"] + 1
+    assert grid_attn.LAUNCHES["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + 1
+
+
+def test_grid_attn_apply_on_the_card_goes_through_the_kernels(card):
+    """A CUDA ``grid_attn_apply`` on inputs that need a gradient carries the
+    ``GridAttnApply`` node; its backward launches K6 once and no K5, and K6
+    run twice is bit-identical."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    (q, k, v, e_dir, valid, keep, dims), gen = _grid_case(card, 224, 304, 8, 32, 4, True, 1)
+    leaves = [x.requires_grad_(True) for x in (q, k, v, e_dir)]
+    out = grid_attn.grid_attn_apply(*leaves, valid, keep, dims)
+    assert type(out.grad_fn).__name__ == "GridAttnApplyBackward"
+    g = torch.randn(out.shape, device=card, generator=gen)
+    before = dict(grid_attn.LAUNCHES)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    assert grid_attn.LAUNCHES["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + 1
+    assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"]
+    again = torch.autograd.grad(out, leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+def test_grid_attn_wrappers_reject_bad_inputs(card):
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    (q, k, v, e_dir, valid, keep, dims), _ = _grid_case(card, 11, 13, 1, 8, 4, False)
+    with pytest.raises(TypeError):
+        grid_attn._grid_attn_fwd_cuda(q.double(), k, v, e_dir, valid, keep, dims)
+    with pytest.raises(ValueError):
+        grid_attn._grid_attn_fwd_cuda(q.cpu(), k, v, e_dir, valid, keep, dims)
+    with pytest.raises(ValueError):  # wider than the kernels take
+        wide = grid_attn.GridAttnDims(11, 13, 33, 8, 4)
+        z = torch.zeros(2, 143, 264, device=card)
+        grid_attn._grid_attn_fwd_cuda(z, z, z, torch.zeros(4, 264, device=card), valid, None,
+                                      wide)
+    with pytest.raises(ValueError):  # keep planes of the wrong shape
+        grid_attn._grid_attn_fwd_cuda(q, k, v, e_dir, valid, torch.ones(2, 4, 143, 2,
+                                                                        device=card), dims)
