@@ -3,19 +3,22 @@
 
     python3 chip_profile.py [--seed 0] [--reps 5] [--train] [--conv TransformerConv]
     python3 chip_profile.py --workload ice [--train]
+    python3 chip_profile.py --workload ice-xla [--train]
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
 TransformerConv`` the attention model), or with ``--workload ice`` its
 sea-ice flagship (one 224×304 pixelwise forecast of 10 → 90 days,
-TransformerConv with climatology, batch 1), under ``torch.profiler`` after
+TransformerConv with climatology, batch 1) or with ``--workload ice-xla``
+the same model on the pixelwise edge list (training with truncated BPTT
+of 30 steps), under ``torch.profiler`` after
 a warm-up: the forecast by default, and with ``--train`` the training step
 (``train_step``: fwd + bwd + clipped Adam). Prints one JSON line: wall
 time per batch, the device's busy time and idle share over the profiled
 window, the device time of the hand-written kernels, and the kernels that
 took the most device time. Wall times with the profiler off come first,
 so the profiler's overhead shows as the difference. The time of K1, K2,
-K2b, K3, K4, K5 and K6 is given apiece: their launchers run inside
+K2b, K3, K4, K5, K6 and K7 is given apiece: their launchers run inside
 ``record_function`` ranges named after their launch counters (K2 and K2b
 are one kernel, told apart by the range that launched it; K4's and K6's
 ranges also hold the fixed-order sums of their partials), which the profiler mirrors on
@@ -41,13 +44,15 @@ RANGES = {("spmm", "_build_blocks_cuda"): "spmm_build_blocks",
           ("attn", "_attn_fwd_cuda"): "attn_apply",
           ("attn", "_attn_bwd_cuda"): "attn_apply_bwd",
           ("grid_attn", "_grid_attn_fwd_cuda"): "grid_attn_apply",
-          ("grid_attn", "_grid_attn_bwd_cuda"): "grid_attn_apply_bwd"}
+          ("grid_attn", "_grid_attn_bwd_cuda"): "grid_attn_apply_bwd",
+          ("segment_sum", "_segment_sum_cuda"): "segment_sum"}
 # the port's kernels by the start of their device names (csrc/*.cu)
 KERNELS = {"build_blocks_kernel": "::build_blocks_kernel(", "apply_kernel": "::apply_kernel(",
            "attn_fwd_kernel": "::attn_fwd_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<",
            "grid_attn_fwd_kernel": "::grid_attn_fwd_kernel<",
            "grid_attn_bwd_dst_kernel": "::grid_attn_bwd_dst_kernel<",
-           "grid_attn_bwd_src_kernel": "::grid_attn_bwd_src_kernel<"}
+           "grid_attn_bwd_src_kernel": "::grid_attn_bwd_src_kernel<",
+           "segment_sum_kernel": "::segment_sum_kernel<"}
 
 
 def _in_range(fn, name):
@@ -65,9 +70,12 @@ def _workload(args, run_dir: str):
     one profiled forecast or train step of the chosen workload."""
     import torch
 
-    if args.workload == "ice":
+    if args.workload in ("ice", "ice-xla"):
+        edge_list = args.workload == "ice-xla"
         data, clim, mask = chip_smoke.ice_data(args.seed)
-        model = chip_smoke.make_ice_model(args.seed, run_dir)
+        model = chip_smoke.make_ice_model(args.seed, run_dir,
+                                          aggregation="xla" if edge_list else "grid")
+        tbptt = chip_smoke.EDGE_TBPTT if edge_list else chip_smoke.ICE_TBPTT
         windows = [(data.x[i:i + 1], data.y[i:i + 1],
                     model._clim_batch(clim, data.launch_dates[i:i + 1]))
                    for i in range(1 + args.reps)]
@@ -76,7 +84,8 @@ def _workload(args, run_dir: str):
             run = lambda: model.forecast(x0, mask=mask, climatology=c0)  # noqa: E731
             return 1, "TransformerConv", run, run
         model.initiate_training(lr=chip_smoke.LR, lr_decay=0.95)
-        step = lambda b: model.train_step(b[0], b[1], mask=mask, climatology=b[2])  # noqa: E731
+        step = lambda b: model.train_step(b[0], b[1], mask=mask, climatology=b[2],  # noqa: E731
+                                          truncated_backprop=tbptt)
         it = iter(windows[1:] * 3)
         return 1, "TransformerConv", lambda: step(windows[0]), lambda: step(next(it))
     ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
@@ -97,15 +106,15 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--train", action="store_true", help="profile train_step")
     parser.add_argument("--conv", default="ChebConv", choices=("ChebConv", "TransformerConv"))
-    parser.add_argument("--workload", default="mnist", choices=("mnist", "ice"))
+    parser.add_argument("--workload", default="mnist", choices=("mnist", "ice", "ice-xla"))
     args = parser.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn, spmm
+    from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn, segment_sum, spmm
 
-    modules = {"spmm": spmm, "attn": attn, "grid_attn": grid_attn}
+    modules = {"spmm": spmm, "attn": attn, "grid_attn": grid_attn, "segment_sum": segment_sum}
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA card")

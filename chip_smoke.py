@@ -13,7 +13,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    layers, n_max=2048, e_max=10240, node_budget=2048, NT=128,
    EB=SW=1024, f32, random weights from the seed. Checks finite outputs of
    shape (16, 10, 64, 64, 1) and zero mesh overflow; times one batch after
-   a warm-up and counts the kernel launches of that batch;
+   a warm-up and counts the kernel launches of that batch, K7's (73: node
+   counts, pooling and degrees of every mesh, the state carried across
+   each remesh) as read from the code;
 3. each kernel against its plain PyTorch version on the operands of the
    main path (the Â windows of the meshes the first decoder steps run on;
    the z of every width F the path uses): K1 exact, K2 ≤1e-5; times
@@ -28,7 +30,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    Â·z whose input requires grad must carry the K2b autograd node), then
    8 timed steps with the loss and overflow fetched one step late. Checks
    a finite loss, zero overflow and the launches per step read from the
-   code (K1 11, K2 112, K2b 110); prints steps/s, frames/s and peak memory;
+   code (K1 11, K2 112, K2b 110, K7 119); prints steps/s, frames/s and
+   peak memory;
 6. train entry: one epoch of ``train()`` over 2 training batches and 1
    test batch, then ``score()``; finite losses;
 7. gradients vs plain: K2b against its plain version on the cotangents of
@@ -42,8 +45,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    width (``bench.py --conv TransformerConv``: fused attention gate
    stacks, 8 streams × d 16 = HD 128; head convs HD 16 and 1; attention
    windows NT 128, EB = SW = 1024): finite frames of shape
-   (16, 10, 64, 64, 1), overflow 0, K3 launches as read from the code (56)
-   and no K1/K2; times one batch after a warm-up;
+   (16, 10, 64, 64, 1), overflow 0, K3 and K7 launches as read from the
+   code (56 and 62) and no K1/K2; times one batch after a warm-up;
 10. attention kernels vs plain: K3 against ``attn_plain`` on the first
    decoder step's operands at every HD of the path (≤1e-5), K4 against
    autograd through ``attn_plain`` on the cotangents of one train step at
@@ -52,8 +55,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
 11. attention train path: ``train_step`` (attention dropout 0.1 from the
    trainer's generator): a warm-up step in which every K3 output whose
    inputs need a gradient carries the ``AttnApply`` node, then 8 timed
-   steps; finite loss, overflow 0, K3 and K4 launches per step as read
-   from the code (56 each), no K1/K2; frames/s and peak memory;
+   steps; finite loss, overflow 0, K3, K4 and K7 launches per step as
+   read from the code (56, 56, 108), no K1/K2; frames/s and peak memory;
 12. attention gradients vs plain and determinism: one train step on the
    kernels and one on the plain versions from the same weights and
    generator (identical meshes, every gradient leaf ≤1e-4 ×
@@ -66,7 +69,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    convs at H 32 and 1, climatology concat, batch 1, f32; inputs are
    ``IceDataset`` June windows of synthetic 2016 fields made from
    ``--seed``. Finite frames, overflow 0, K5 launches as read from the
-   code (300 a forecast), no K1-K4; seconds per forecast after a warm-up;
+   code (300 a forecast), no K1-K4 and no K7 (the grid has no segment
+   sums); seconds per forecast after a warm-up;
 14. grid kernels vs plain: K5 against ``grid_attn_plain`` on the first
    decoder step's operands at H 256, 32 and 1, with and without a keep
    plane (≤1e-5), K6 against autograd through ``grid_attn_plain`` on the
@@ -78,14 +82,42 @@ Phases (each prints one line; any failure raises and exits non-zero):
    dropout 0.1): a warm-up step in which every K5 output whose inputs need
    a gradient carries the ``GridAttnApply`` node, then 3 timed steps;
    finite loss, K5 and K6 launches per step as read from the code (300
-   each), no K1-K4; frames/s and peak memory;
+   each), no K1-K4, no K7; frames/s and peak memory;
 17. grid gradients vs plain and 18. determinism: one train step on the
    kernels and one on the plain versions (T_out 6: the plain version keeps
    D shifted copies of k and v a call) from the same weights and
    generator, every gradient leaf ≤1e-4 × max(1, max|g|), and the kernel
    step again, bit-identical;
-19. the ``kernels`` JSON line (K1, K2, K2b, K3, K4, K5, K6), then the card
-   line and the result line.
+19. (printed last) the ``kernels`` JSON line (K1, K2, K2b, K3, K4, K5,
+   K6, K7), then the card line and the result line;
+20. edge path: the flagship on the pixelwise edge list (``bench.py
+   --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
+   272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
+   forecast), no K1-K6; seconds per forecast after a warm-up; ungated, the
+   largest difference from the grid model with the same weights over the
+   valid pixels;
+21. K7 against ``segment_sum_plain`` on the path's own operands (≤1e-6 ×
+   max(1, max|out|), with a bit-identity flag): the messages at F 256, 32
+   and 1 over the sorted edge_dst, the gather cotangents over edge_src and
+   edge_dst, the pooling and counts over pixel_node, from one forecast and
+   one T_out-6 train step; each timed beside its bound, the plain version,
+   ``index_add_`` and its CSR view's build, as the card's own time (many
+   calls captured in one CUDA graph, so the host's launch rate does not
+   enter);
+22. the 90-step edge-list forecast with K7 swapped for its plain version:
+   ≤1e-4 at every step;
+23. edge train path: ``train_step`` with truncated BPTT of 30 steps and
+   attention dropout 0.1 from the trainer's generator: a warm-up step in
+   which every K7 output that needs a gradient carries the ``SegmentSum``
+   node, then 3 timed steps; finite loss, K7 launches per step as read
+   from the code (1542), no K1-K6; frames/s and peak memory;
+24. edge gradients vs plain (a T_out-6 step on K7 and one on its plain
+   version, same weights and generator, every gradient leaf ≤1e-4 ×
+   max(1, max|g|)) and 25. determinism (the kernel step again,
+   bit-identical).
+
+Every plain run (phases 4, 7, 12, 15, 17, 22, 24) swaps each kernel it
+would launch for its plain version.
 
 It fails at once without a CUDA card, and when the port's package is not
 beside it.
@@ -146,6 +178,33 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = REPS, replays: int = 5) -> float:
+    """Mean milliseconds per call of ``fn`` on the card alone: ``reps``
+    calls captured in one CUDA graph, replayed ``replays`` times between
+    CUDA events, so that the host's launch rate does not enter."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
 
 
 def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv"):
@@ -219,9 +278,33 @@ def expected_launches(cfg) -> dict:
     step, decoder cell step (1 conv layer each) and head conv (2); K2b
     for every K2 whose input requires grad, which is all of them but the
     first conv layer of encoder layer 0 at step 0: there ``[x ‖ h]`` holds
-    the input frame and the zero initial state, and no parameter."""
+    the input frame and the zero initial state, and no parameter. K7 as
+    :func:`expected_quadtree_k7` reads it."""
     k2 = 2 * (T_IN * cfg.n_layers * cfg.n_conv_layers + T_OUT * (cfg.n_layers + 2))
-    return {"spmm_build_blocks": 1 + T_OUT, "spmm_apply": k2, "spmm_apply_bwd": k2 - 2}
+    return {"spmm_build_blocks": 1 + T_OUT, "spmm_apply": k2, "spmm_apply_bwd": k2 - 2,
+            "segment_sum": expected_quadtree_k7(cfg, 3, train=True)}
+
+
+def expected_quadtree_k7(cfg, per_mesh: int, train: bool = False) -> int:
+    """K7 launches of one forecast batch (``train``: one full-BPTT train
+    step) on the remeshing quadtree paths, read from the code: every mesh
+    (the encoder's and one remesh after each decoder step) sums its node
+    counts and pools its pixels, and the ChebConv path also sums its
+    degrees (``per_mesh`` 3, else 2); every remesh pools each layer's H
+    and C onto the new mesh. A train step's backward adds the gather of
+    every decoder step's frame and of the H and C that every remesh but
+    the last carries (the last one's feed no loss)."""
+    k7 = (1 + T_OUT) * per_mesh + T_OUT * 2 * cfg.n_layers
+    if train:
+        k7 += T_OUT + (T_OUT - 1) * 2 * cfg.n_layers
+    return k7
+
+
+def k7_plain(values, ids, n_out: int, view):
+    """K7's plain version with its launcher's signature, to swap in."""
+    from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import segment_sum_plain
+
+    return segment_sum_plain(values, ids, n_out)
 
 
 def expected_attn_launches(cfg) -> int:
@@ -422,9 +505,11 @@ ICE_TBPTT = 0        # full BPTT
 K5_TOL, K6_TOL = 1e-5, 1e-5
 
 
-def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None):
-    """The flagship forecaster (T_out ``t_out``, default 90), random weights
-    from ``seed``."""
+def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
+                   aggregation: str = "grid"):
+    """The flagship forecaster (T_out ``t_out``, default 90) on the
+    pixelwise grid or, with ``aggregation="xla"``, the pixelwise edge list;
+    random weights from ``seed``."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -434,7 +519,7 @@ def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None
         use_climatology=True, device=DEVICE, seed=seed, run_dir=run_dir,
         model_kwargs=dict(hidden_size=32, dropout=0.1, n_layers=1, n_conv_layers=3,
                           convolution_type="TransformerConv", fused_gates=True),
-        graph_kwargs=dict(aggregation="grid"),
+        graph_kwargs=dict(aggregation=aggregation),
     )
 
 
@@ -506,7 +591,7 @@ def block_diag_csr(s0, blocks, n_max, nt, sw):
         return coo.coalesce().to_sparse_csr()
 
 
-def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
+def train_phases(seed: int, card: str, spmm, segment_sum, cfg, nt: int, sw: int, n_max: int):
     """Phases 5-8 on the training path; returns the launches of the timed
     train steps and K2b's per-width measurements."""
     import torch
@@ -527,6 +612,7 @@ def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spmm.reset_launch_counts()
+    segment_sum.reset_launch_counts()
     t0 = time.perf_counter()
     losses, worst, pending = [], 0, None
     for x_b, y_b in batches[1:]:
@@ -538,7 +624,7 @@ def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
     losses.append(float(pending[0]))
     worst = max(worst, int(pending[1]))
     train_s = time.perf_counter() - t0
-    train_launches = dict(spmm.LAUNCHES)
+    train_launches = {**spmm.LAUNCHES, **segment_sum.LAUNCHES}
     per_step = {k: v / TRAIN_STEPS for k, v in train_launches.items()}
     check(bool(np.isfinite(losses).all()), f"non-finite training loss {losses}")
     check(worst == 0, f"mesh overflow {worst} in training")
@@ -598,7 +684,8 @@ def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
                                                     x_g, y_g, seed=1)
     with mock.patch.object(spmm, "_build_blocks_cuda", spmm.build_blocks_plain), \
             mock.patch.object(spmm, "_apply_cuda", spmm.apply_plain), \
-            mock.patch.object(spmm, "_apply_bwd_cuda", spmm.apply_plain):
+            mock.patch.object(spmm, "_apply_bwd_cuda", spmm.apply_plain), \
+            mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
         loss_p, _, grads_p, meshes_p = step_with_meshes(
             make_trainer(seed, run_dir.name), x_g, y_g, seed=1)
     check(torch.equal(meshes_k, meshes_p), "kernel and plain train steps ran on different meshes")
@@ -623,7 +710,7 @@ def train_phases(seed: int, card: str, spmm, cfg, nt: int, sw: int, n_max: int):
     return train_launches, bwd_widths
 
 
-def attn_phases(seed: int, card: str, spmm, attn, loader, x):
+def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
     """Phases 9-12 on the TransformerConv path; returns the forecast's and
     the timed train steps' launches and K3's and K4's per-width
     measurements."""
@@ -633,11 +720,11 @@ def attn_phases(seed: int, card: str, spmm, attn, loader, x):
     conv = "TransformerConv"
 
     def reset():
-        spmm.reset_launch_counts()
-        attn.reset_launch_counts()
+        for m in (spmm, attn, segment_sum):
+            m.reset_launch_counts()
 
     def counts():
-        return {**spmm.LAUNCHES, **attn.LAUNCHES}
+        return {**spmm.LAUNCHES, **attn.LAUNCHES, **segment_sum.LAUNCHES}
 
     # ---- phase 9: predict() on the attention path
     model = make_model(seed, run_dir.name, conv)
@@ -657,8 +744,10 @@ def attn_phases(seed: int, card: str, spmm, attn, loader, x):
     check(y.shape == (BATCH, T_OUT, *CANVAS, 1), f"attention predict shape {y.shape}")
     check(bool(np.isfinite(y).all()), "non-finite attention forecast")
     check(model.last_overflow == 0, f"attention mesh overflow {model.last_overflow}")
-    check(launches["attn_apply"] == k3 and launches["attn_apply_bwd"] == 0,
-          f"attention forecast launches {launches}, expected K3 {k3}")
+    k7 = expected_quadtree_k7(cfg, 2)
+    check(launches["attn_apply"] == k3 and launches["attn_apply_bwd"] == 0
+          and launches["segment_sum"] == k7,
+          f"attention forecast launches {launches}, expected K3 {k3}, K7 {k7}")
     check(all(launches[n] == 0 for n in spmm.LAUNCHES), f"Â-block kernels ran: {launches}")
     print(json.dumps({
         "phase": "attn_path", "card": card, "batch": BATCH, "batch_s": batch_s,
@@ -734,8 +823,10 @@ def attn_phases(seed: int, card: str, spmm, attn, loader, x):
     per_step = {k: v / TRAIN_STEPS for k, v in train_launches.items()}
     check(bool(np.isfinite(losses).all()), f"non-finite attention training loss {losses}")
     check(worst == 0, f"mesh overflow {worst} in attention training")
-    check(per_step["attn_apply"] == per_step["attn_apply_bwd"] == k3,
-          f"attention launches per step {per_step}, expected K3 = K4 = {k3}")
+    k7_step = expected_quadtree_k7(cfg, 2, train=True)
+    check(per_step["attn_apply"] == per_step["attn_apply_bwd"] == k3
+          and per_step["segment_sum"] == k7_step,
+          f"attention launches per step {per_step}, expected K3 = K4 = {k3}, K7 {k7_step}")
     check(all(train_launches[n] == 0 for n in spmm.LAUNCHES), f"Â-block kernels ran: {per_step}")
     print(json.dumps({
         "phase": "attn_train_path", "card": card, "batch": BATCH, "steps": TRAIN_STEPS,
@@ -750,7 +841,8 @@ def attn_phases(seed: int, card: str, spmm, attn, loader, x):
     loss_k, _, grads_k, meshes_k = step_with_meshes(make_trainer(seed, run_dir.name, conv),
                                                     x_g, y_g, seed=1)
     with mock.patch.object(attn, "_attn_fwd_cuda", attn.attn_plain), \
-            mock.patch.object(attn, "_attn_bwd_cuda", attn.attn_bwd_plain):
+            mock.patch.object(attn, "_attn_bwd_cuda", attn.attn_bwd_plain), \
+            mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
         loss_p, _, grads_p, meshes_p = step_with_meshes(
             make_trainer(seed, run_dir.name, conv), x_g, y_g, seed=1)
     check(torch.equal(meshes_k, meshes_p),
@@ -774,7 +866,7 @@ def attn_phases(seed: int, card: str, spmm, attn, loader, x):
     return launches, train_launches, fwd, bwd
 
 
-def grid_phases(seed: int, card: str, spmm, attn, grid_attn):
+def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
     """Phases 13-18 on the sea-ice flagship (the pixelwise grid); returns
     the forecast's and the timed train steps' launches and K5's and K6's
     per-width measurements."""
@@ -783,7 +875,7 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn):
     from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
 
     run_dir = tempfile.TemporaryDirectory()
-    modules = (spmm, attn, grid_attn)
+    modules = (spmm, attn, grid_attn, segment_sum)
 
     def reset():
         for m in modules:
@@ -819,7 +911,7 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn):
           and launches["grid_attn_apply_bwd"] == 0,
           f"grid forecast launches {launches}, expected K5 {k5} a forecast")
     others = {k: v for k, v in launches.items() if not k.startswith("grid_attn")}
-    check(not any(others.values()), f"K1-K4 ran on the grid path: {others}")
+    check(not any(others.values()), f"K1-K4 or K7 ran on the grid path: {others}")
     print(json.dumps({
         "phase": "grid_path", "card": card, "batch": 1, "forecasts": ICE_FORECASTS,
         "grid": ICE_SHAPE, "t_in": ICE_T_IN, "t_out": ICE_T_OUT, "windows": len(data),
@@ -938,7 +1030,7 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn):
     check(per_step["grid_attn_apply"] == per_step["grid_attn_apply_bwd"] == k5,
           f"grid launches per step {per_step}, expected K5 = K6 = {k5}")
     check(not any(v for k, v in per_step.items() if not k.startswith("grid_attn")),
-          f"K1-K4 ran on the grid train path: {per_step}")
+          f"K1-K4 or K7 ran on the grid train path: {per_step}")
     print(json.dumps({
         "phase": "grid_train_path", "card": card, "batch": 1, "steps": ICE_TRAIN_STEPS,
         "truncated_backprop": ICE_TBPTT, "seconds": train_s,
@@ -984,6 +1076,322 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn):
     return launches, train_launches, fwd, bwd
 
 
+# ---------------------------------------------------------------- edge list
+# The JAX package's ice-xla workload (bench.py --workload ice-xla,
+# make_ice_predictor(mesh="pixelwise-xla")): the flagship above on the
+# pixelwise edge list (aggregation="xla": n_max 68,096 raster-ordered
+# nodes, e_max 272,384 edge slots), every segment sum on K7, training by
+# the trainer's truncated BPTT.
+EDGE_TBPTT = 30  # decoder chunk of a train step (the reference's experiment 6)
+K7_TOL = 1e-6    # × max(1, max|out|)
+
+
+def _attention_calls(cfg, t_out: int) -> int:
+    """Attention calls of one encode and ``t_out`` decoder steps: one per
+    conv layer of every encoder step, one per decoder step's cell and one
+    per head conv."""
+    return ICE_T_IN * cfg.n_layers * cfg.n_conv_layers + t_out * (cfg.n_layers + 2)
+
+
+def expected_edge_launches(cfg, t_out: int, chunk: int = 0, train: bool = False) -> int:
+    """K7 launches of one edge-list forecast (``train``: one train step with
+    decoder chunks of ``chunk`` steps, 0 for full BPTT), read from the
+    code. Every encode (one per chunk in training) builds the mesh: node
+    counts, the pixel→node pooling of the inputs and the degrees of the
+    symmetric norm, one each; the decoder pools its chunk's climatology
+    once; every attention call aggregates its messages once. A train
+    step's backward adds the gathers of k and v at the sources and of q at
+    the destinations of every attention call and ``unflatten``'s gather of
+    every decoder step; the edge softmax's sums stay plain."""
+    if not train:
+        return 4 + _attention_calls(cfg, t_out)
+    chunk = chunk if 0 < chunk < t_out else t_out
+    steps = [min(chunk, t_out - t0) for t0 in range(0, t_out, chunk)]
+    return sum(4 + 4 * _attention_calls(cfg, n) + n for n in steps)
+
+
+class SegmentCapture:
+    """Wraps K7's dispatch (``ops/segment.py`` ``segment_sum``, which
+    ``segment_sum_nodes`` and the gathers' backwards call) and counts
+    its calls by operand set (ids, F): ids ``dst`` (the sorted edge_dst),
+    ``src`` (edge_src) or ``pixel`` (pixel_node). With ``keep`` it also
+    keeps the last call's operands of each set, detached."""
+
+    def __init__(self, segment, n_pixels: int, keep: bool = False):
+        self.segment, self.n_pixels, self.keep = segment, n_pixels, keep
+        self.calls, self.ops = {}, {}
+        self._fn = segment.segment_sum
+
+    def __call__(self, values, ids, n_out, view=None):
+        check(view is not None, "a segment sum on the card ran without its graph's CSR view")
+        site = ("pixel" if ids.shape[1] == self.n_pixels
+                else "dst" if view.order is None else "src")
+        key = (site, values[0, 0].numel())
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if self.keep:
+            self.ops[key] = (values.detach(), ids, n_out, view)
+        return self._fn(values, ids, n_out, view)
+
+    def __enter__(self):
+        self._patch = mock.patch.object(self.segment, "segment_sum", self)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def k7_bound_ms(ids, n_out: int, f: int):
+    """Least time for K7's work on these operands: each valid entry's F
+    values read once, the ids read once (4 B each), every output row
+    written once; one add per valid value."""
+    n_valid = int(((ids >= 0) & (ids < n_out)).sum())
+    nbytes = n_valid * f * 4 + ids.numel() * 4 + ids.shape[0] * n_out * f * 4
+    ops = n_valid * f
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), bytes_ms, ops_ms, n_valid
+
+
+def k7_measure(segment_sum, key, ops, calls):
+    """K7 against ``segment_sum_plain`` on one operand set (≤ K7_TOL ×
+    max(1, max|out|), and whether bit-identical), timed beside its bound,
+    the plain version, ``index_add_`` and the view's build, each by
+    :func:`graph_ms` (``ms_events``: K7 by CUDA events between host
+    launches, as the other kernels are timed)."""
+    import torch
+
+    values, ids, n_out, view = ops
+    b, length = ids.shape
+    flat = values.reshape(b, length, -1).contiguous()
+    f = flat.shape[-1]
+    kern = segment_sum._segment_sum_cuda(flat, ids, n_out, view)
+    plain = segment_sum.segment_sum_plain(flat, ids, n_out)
+    err = float((kern - plain).abs().max())
+    scale = max(1.0, float(plain.abs().max()))
+    check(err <= K7_TOL * scale, f"K7 differs from segment_sum_plain on {key}: {err}")
+    # the library yardstick: one index_add_ into a discard row per sample
+    valid = (ids >= 0) & (ids < n_out)
+    base = torch.arange(b, device=ids.device)[:, None] * (n_out + 1)
+    gid = (torch.where(valid, ids, n_out) + base).reshape(-1)
+    rows = flat.reshape(-1, f)
+
+    def library():
+        return torch.zeros((b * (n_out + 1), f), device=flat.device).index_add_(0, gid, rows)
+
+    lib_err = float((library().reshape(b, n_out + 1, f)[:, :n_out] - plain).abs().max())
+    bound, b_ms, o_ms, n_valid = k7_bound_ms(ids, n_out, f)
+    sorted_ids = view.order is None
+    return dict(
+        ids=key[0], F=f, calls=calls, entries=b * length, valid_entries=n_valid,
+        max_abs_err=err, err_rel_to_max=err / scale, bit_identical=bool(torch.equal(kern, plain)),
+        library_max_abs_err=lib_err,
+        ms=graph_ms(lambda: segment_sum._segment_sum_cuda(flat, ids, n_out, view)),
+        ms_events=cuda_ms(lambda: segment_sum._segment_sum_cuda(flat, ids, n_out, view)),
+        plain_ms=graph_ms(lambda: segment_sum.segment_sum_plain(flat, ids, n_out)),
+        library_ms=graph_ms(library),
+        view_ms=graph_ms(lambda: segment_sum.segment_view(ids, n_out, sorted_ids)),
+        bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
+
+
+def edge_phases(seed: int, card: str, modules, segment, segment_sum):
+    """Phases 20-25 on the flagship's pixelwise edge list; returns the
+    forecasts' and the timed train steps' launches, K7's measurements per
+    operand set and the train steps' K7 calls per operand set."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+
+    run_dir = tempfile.TemporaryDirectory()
+    p = ICE_SHAPE[0] * ICE_SHAPE[1]
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def counts():
+        return {k: v for m in modules for k, v in m.LAUNCHES.items()}
+
+    def others(launches):
+        return {k: v for k, v in launches.items() if k != "segment_sum" and v}
+
+    # ---- phase 20: the edge-list forecast through predict()
+    data, clim, mask = ice_data(seed)
+    windows = lambda i, j: ArrayDataset(data.x[i:j], data.y[i:j],  # noqa: E731
+                                        data.launch_dates[i:j])
+    model = make_ice_model(seed, run_dir.name, aggregation="xla")
+    cfg = model.cfg
+    k7 = expected_edge_launches(cfg, ICE_T_OUT)
+    check(model.gcfg.aggregation == "xla" and model.gcfg.pixelwise and model.gcfg.carry_edges
+          and (model.gcfg.n_max, model.gcfg.e_max) == (p, 4 * p),
+          f"the predictor did not configure the pixelwise edge list: {model.gcfg}")
+    model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(DataLoader(windows(0, ICE_FORECASTS)), climatology=clim, mask=mask)
+    torch.cuda.synchronize()
+    forecast_s = (time.perf_counter() - t0) / ICE_FORECASTS
+    launches = counts()
+    check(y.shape == (ICE_FORECASTS, ICE_T_OUT, *ICE_SHAPE, 1), f"edge predict shape {y.shape}")
+    check(bool(np.isfinite(y).all()), "non-finite edge-list forecast")
+    check(model.last_overflow == 0, f"edge-list mesh overflow {model.last_overflow}")
+    check(launches["segment_sum"] == k7 * ICE_FORECASTS,
+          f"edge forecast launches {launches}, expected K7 {k7} a forecast")
+    check(not others(launches), f"K1-K6 ran on the edge-list path: {others(launches)}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # ungated: the same weights on the pixelwise grid, over the valid pixels
+    x0, y0, ld0 = data.x[:1], data.y[:1], data.launch_dates[:1]
+    clim0 = model._clim_batch(clim, ld0)
+    grid = make_ice_model(seed, run_dir.name)
+    grid.model.load_state_dict(model.model.state_dict())
+    y_e = model.forecast(x0, mask=mask, climatology=clim0)[0]
+    y_g = grid.forecast(x0, mask=mask, climatology=clim0)[0]
+    valid = torch.as_tensor(~mask, device=DEVICE)
+    vs_grid = (y_e - y_g)[:, :, valid].abs().amax(dim=(0, 2, 3))  # (T_out,)
+    del grid, y_g
+    print(json.dumps({
+        "phase": "edge_path", "card": card, "batch": 1, "forecasts": ICE_FORECASTS,
+        "grid": ICE_SHAPE, "t_in": ICE_T_IN, "t_out": ICE_T_OUT,
+        "n_max": model.gcfg.n_max, "e_max": model.gcfg.e_max, "valid_pixels": int(valid.sum()),
+        "s_per_forecast": forecast_s, "frames_per_s": ICE_T_OUT / forecast_s,
+        "peak_mem_gib": peak, "overflow": model.last_overflow, "k7_per_forecast": k7,
+        "launches": launches, "max_abs_diff_vs_grid": float(vs_grid.max()),
+        "max_abs_diff_vs_grid_step1": float(vs_grid[0]),
+        "max_abs_value": float(y_e.abs().max()),
+    }), flush=True)
+
+    # ---- phase 21: K7 against its plain version on the path's operands
+    with SegmentCapture(segment, p, keep=True) as cap:
+        model.forecast(x0, mask=mask, climatology=clim0)
+    check(sum(cap.calls.values()) == k7, f"K7 capture {cap.calls}, expected {k7}")
+    short = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, aggregation="xla")
+    short.initiate_training(lr=LR, lr_decay=0.95)
+    y_s, clim_s = y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]
+    with SegmentCapture(segment, p, keep=True) as cap_t:
+        short.train_step(x0, y_s, mask=mask, climatology=clim_s, truncated_backprop=EDGE_TBPTT)
+    want_short = expected_edge_launches(short.cfg, ICE_SHORT_T_OUT, EDGE_TBPTT, train=True)
+    check(sum(cap_t.calls.values()) == want_short,
+          f"K7 calls of a short train step {cap_t.calls}, expected {want_short}")
+    sets = {**cap_t.ops, **cap.ops}  # the forecast's operands where it has the set
+    calls = {**cap_t.calls, **cap.calls}
+    k7_sets = [k7_measure(segment_sum, key, sets[key], calls[key]) for key in sorted(sets)]
+    check({"dst", "src", "pixel"} <= {w["ids"] for w in k7_sets}
+          and {256, 32, 1} <= {w["F"] for w in k7_sets if w["ids"] == "dst"},
+          f"K7 operand sets {[(w['ids'], w['F']) for w in k7_sets]}")
+    del cap, cap_t, sets, short
+    print(json.dumps({"phase": "segment_kernel_vs_plain", "card": card, "k7_by_set": k7_sets,
+                      "bit_identical": all(w["bit_identical"] for w in k7_sets)}), flush=True)
+
+    # ---- phase 22: the 90-step forecast with K7's plain version
+    y_k = model.forecast(x0, mask=mask, climatology=clim0)[0]
+    reset()
+    with mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
+        y_p = model.forecast(x0, mask=mask, climatology=clim0)[0]
+    check(counts()["segment_sum"] == 0, "K7 ran in the plain rollout")
+    step_err = (y_k - y_p).abs().amax(dim=(0, 2, 3, 4))  # (T_out,)
+    check(float(step_err.max()) <= ROLLOUT_TOL,
+          f"edge-list rollout differs from the plain one by {float(step_err.max())}")
+    print(json.dumps({"phase": "edge_rollout_vs_plain", "card": card, "steps": ICE_T_OUT,
+                      "max_abs_err": float(step_err.max()),
+                      "max_abs_err_last_step": float(step_err[-1]),
+                      "bit_identical": bool(torch.equal(y_k, y_p)),
+                      "max_abs_value": float(y_p.abs().max())}), flush=True)
+    del model, y_k, y_p, y_e
+    torch.cuda.empty_cache()
+
+    # ---- phase 23: train_step on the edge list
+    trainer = make_ice_model(seed, run_dir.name, aggregation="xla")
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    batches = [(data.x[i:i + 1], data.y[i:i + 1],
+                trainer._clim_batch(clim, data.launch_dates[i:i + 1]))
+               for i in range(ICE_TRAIN_STEPS + 1)]
+    want = expected_edge_launches(cfg, ICE_T_OUT, EDGE_TBPTT, train=True)
+    chunks = len(trainer._chunks(EDGE_TBPTT))
+    with_grad = sum(_attention_calls(cfg, n) for _, n in trainer._chunks(EDGE_TBPTT))
+
+    def step(batch):
+        x_b, y_b, c_b = batch
+        return trainer.train_step(x_b, y_b, mask=mask, climatology=c_b,
+                                  truncated_backprop=EDGE_TBPTT)
+
+    with GradFnCheck(segment, "segment_sum", "SegmentSumBackward") as gcheck:
+        loss, _ = step(batches[0])  # warm-up
+    check(float(loss) == float(loss), "edge-list warm-up loss is NaN")
+    check(not gcheck.bad and gcheck.calls == with_grad,
+          f"K7 outputs without the SegmentSum node: {gcheck.bad[:3]} "
+          f"({gcheck.calls} outputs required grad, expected {with_grad})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses, worst, pending = [], 0, None
+    with SegmentCapture(segment, p) as tally:
+        for batch in batches[1:]:
+            loss, overflow = step(batch)
+            if pending is not None:  # one step late, as train() drains
+                losses.append(float(pending[0]))
+                worst = max(worst, int(pending[1]))
+            pending = (loss, overflow)
+        losses.append(float(pending[0]))
+        worst = max(worst, int(pending[1]))
+    train_s = time.perf_counter() - t0
+    train_launches = counts()
+    per_step = {k: v / ICE_TRAIN_STEPS for k, v in train_launches.items()}
+    check(bool(np.isfinite(losses).all()), f"non-finite edge-list training loss {losses}")
+    check(worst == 0, f"mesh overflow {worst} in edge-list training")
+    check(per_step["segment_sum"] == want,
+          f"edge-list launches per step {per_step}, expected K7 {want}")
+    check(not others(train_launches), f"K1-K6 ran on the edge-list train path: {per_step}")
+    print(json.dumps({
+        "phase": "edge_train_path", "card": card, "batch": 1, "steps": ICE_TRAIN_STEPS,
+        "truncated_backprop": EDGE_TBPTT, "chunks": chunks, "seconds": train_s,
+        "steps_per_s": ICE_TRAIN_STEPS / train_s,
+        "frames_per_s": ICE_TRAIN_STEPS * ICE_T_OUT / train_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "losses": losses, "overflow": worst, "launches_per_step": per_step,
+        "k7_per_step_by_set": {f"{s}:{f}": c / ICE_TRAIN_STEPS
+                               for (s, f), c in sorted(tally.calls.items())},
+        "k7_outputs_checked": gcheck.calls,
+    }), flush=True)
+    del trainer, batches
+    torch.cuda.empty_cache()
+
+    # ---- phases 24-25: a kernel step vs a plain step (T_out 6); the
+    # kernel step again
+    def short_step():
+        tr = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, aggregation="xla")
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        gen_s = torch.Generator(device=DEVICE).manual_seed(1)
+        loss_s, _ = tr.train_step(x0, y_s, mask=mask, climatology=clim_s, generator=gen_s,
+                                  truncated_backprop=EDGE_TBPTT)
+        return loss_s, {n: q.grad.detach().clone() for n, q in tr.model.named_parameters()}
+
+    loss_k, grads_k = short_step()
+    reset()
+    with mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
+        loss_p, grads_p = short_step()
+    check(counts()["segment_sum"] == 0, "K7 ran in the plain train step")
+    leaf_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                   / max(1.0, float(grads_p[n].abs().max())) for n in grads_p)
+    check(leaf_err <= GRAD_TOL, f"edge-list gradients differ from the plain path by {leaf_err}")
+    print(json.dumps({
+        "phase": "edge_grads_vs_plain", "card": card, "t_out": ICE_SHORT_T_OUT,
+        "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+        "max_leaf_err_rel": leaf_err, "leaves": len(grads_p),
+        "bit_identical": all(torch.equal(grads_k[n], grads_p[n]) for n in grads_p),
+    }), flush=True)
+    del grads_p
+    loss_k2, grads_k2 = short_step()
+    same = torch.equal(loss_k, loss_k2) and all(torch.equal(grads_k[n], grads_k2[n])
+                                                 for n in grads_k)
+    check(same, "two identical edge-list train steps differ")
+    print(json.dumps({"phase": "edge_determinism", "card": card, "t_out": ICE_SHORT_T_OUT,
+                      "loss": float(loss_k2), "bit_identical": same}), flush=True)
+    run_dir.cleanup()
+    return launches, train_launches, k7_sets, tally.calls
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -997,7 +1405,14 @@ def main() -> int:
     try:
         from quadtree_mpnnlstm_tpu_torch.data.loader import DataLoader
         from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
-        from quadtree_mpnnlstm_tpu_torch.ops import attn, cuda_build, grid_attn, spmm
+        from quadtree_mpnnlstm_tpu_torch.ops import (
+            attn,
+            cuda_build,
+            grid_attn,
+            segment,
+            segment_sum,
+            spmm,
+        )
     except ImportError as exc:
         print(f"chip_smoke: the port's package is not beside this script ({exc})",
               file=sys.stderr)
@@ -1027,16 +1442,20 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     spmm.reset_launch_counts()
+    segment_sum.reset_launch_counts()
     t0 = time.perf_counter()
     y = model.predict(loader)
     torch.cuda.synchronize()
     batch_s = time.perf_counter() - t0
-    launches = dict(spmm.LAUNCHES)
+    launches = {**spmm.LAUNCHES, **segment_sum.LAUNCHES}
     check(y.shape == (BATCH, T_OUT, *CANVAS, 1), f"predict shape {y.shape}")
     check(bool(np.isfinite(y).all()), "non-finite forecast")
     check(model.last_overflow == 0, f"mesh overflow {model.last_overflow}")
     for name in ("spmm_build_blocks", "spmm_apply"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
+    check(launches["segment_sum"] == expected_quadtree_k7(model.cfg, 3),
+          f"main path K7 launches {launches['segment_sum']}, "
+          f"expected {expected_quadtree_k7(model.cfg, 3)}")
     print(json.dumps({
         "phase": "main_path", "card": card, "batch": BATCH, "batch_s": batch_s,
         "frames_per_s": BATCH * T_OUT / batch_s,
@@ -1094,7 +1513,8 @@ def main() -> int:
     # ---- phase 4: the rollout on the plain versions, on the card
     y_k, ovf_k, meshes_k = model.forecast(x)
     with mock.patch.object(spmm, "_build_blocks_cuda", spmm.build_blocks_plain), \
-            mock.patch.object(spmm, "_apply_cuda", spmm.apply_plain):
+            mock.patch.object(spmm, "_apply_cuda", spmm.apply_plain), \
+            mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
         y_p, ovf_p, meshes_p = model.forecast(x)
     check(torch.equal(meshes_k[0], meshes_p[0]), "first decoder step's meshes differ")
     same = (meshes_k == meshes_p).all(dim=-1)  # (T_out, B)
@@ -1112,11 +1532,14 @@ def main() -> int:
         "n_nodes_plain": nodes(meshes_p),
     }), flush=True)
 
-    train_launches, bwd_widths = train_phases(args.seed, card, spmm, cfg, nt, sw, n_max)
+    train_launches, bwd_widths = train_phases(args.seed, card, spmm, segment_sum, cfg, nt, sw,
+                                              n_max)
     attn_launches, attn_train_launches, k3_widths, k4_widths = attn_phases(
-        args.seed, card, spmm, attn, loader, x)
+        args.seed, card, spmm, attn, segment_sum, loader, x)
     grid_launches, grid_train_launches, k5_widths, k6_widths = grid_phases(
-        args.seed, card, spmm, attn, grid_attn)
+        args.seed, card, spmm, attn, grid_attn, segment_sum)
+    edge_launches, edge_train_launches, k7_sets, k7_calls = edge_phases(
+        args.seed, card, (spmm, attn, grid_attn, segment_sum), segment, segment_sum)
 
     # ---- phase 19: the kernels line
     n = sum(w["calls"] for w in widths)
@@ -1178,6 +1601,29 @@ def main() -> int:
                    [w for w in k6_widths if w["keep"]], grid_launches, grid_train_launches,
                    ICE_TRAIN_STEPS),
     ]
+    # K7: means over the operand sets phase 21 measured (the card's time,
+    # by graph_ms), weighted by the timed train steps' calls of each set
+    measured = {(w["ids"], w["F"]): w for w in k7_sets}
+    weights = {k: c for k, c in k7_calls.items() if k in measured}
+    n7 = sum(weights.values())
+    avg7 = lambda key: sum(c * measured[k][key] for k, c in weights.items()) / n7  # noqa: E731
+    kernels.append(dict(
+        name="segment_sum", route="cuda", source="quadtree_mpnnlstm_tpu_torch/csrc/segment.cu",
+        replaces="quadtree_mpnnlstm_tpu/ops/pallas_segment.py:87",
+        launches=edge_train_launches["segment_sum"],
+        max_abs_err=max(w["max_abs_err"] for w in k7_sets), ms=avg7("ms"),
+        plain_ms=avg7("plain_ms"), bound_ms=avg7("bound_ms"),
+        bound_by="bytes" if avg7("bytes_ms") >= avg7("ops_ms") else "operations",
+        library_ms=avg7("library_ms"),
+        launches_by_path={
+            "predict_batch": edge_launches["segment_sum"],
+            f"train_{ICE_TRAIN_STEPS}_steps": edge_train_launches["segment_sum"],
+            "chebconv_predict_batch": launches["segment_sum"],
+            f"chebconv_train_{TRAIN_STEPS}_steps": train_launches["segment_sum"],
+            "attention_predict_batch": attn_launches["segment_sum"],
+            f"attention_train_{TRAIN_STEPS}_steps": attn_train_launches["segment_sum"],
+            "grid_predict_batch": grid_launches["segment_sum"],
+            f"grid_train_{ICE_TRAIN_STEPS}_steps": grid_train_launches["segment_sum"]}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -48,21 +48,16 @@ class GraphConfig:
         this many nodes (None = unbounded).
       aggregation: ``"pallas"`` packs the per-tile Â blocks that the SpMM
         kernels read (the name is kept from the JAX package); ``"xla"``
-        keeps the gather → scale → scatter edge-list path; ``"grid"`` is
-        the pixelwise mesh (``thresh=-inf``) as an identity-mapped raster
-        with shift-stencil aggregation (ops/grid.py), ``n_max = rows·cols``.
+        keeps the gather → scale → scatter edge-list path (ops/segment.py;
+        on the pixelwise mesh ``thresh=-inf`` the nodes are the unmasked
+        pixels in raster order); ``"grid"`` is the pixelwise mesh as an
+        identity-mapped raster with shift-stencil aggregation
+        (ops/grid.py), ``n_max = rows·cols``.
       agg_nt / agg_eb / agg_sw: node-tile rows, edge-window slots and
         source-window rows of the Â blocks (or attention windows).
       attn_windows: with ``aggregation="pallas"``, pack the per-tile
         attention windows that the TransformerConv kernels read
         (ops/attn.py) instead of the Â blocks.
-      grid_attn: with ``aggregation="grid"``, ``"pallas"`` or ``"xla"``.
-        It selects nothing in the port: both values run the same stencil
-        attention (ops/grid_attn.py: kernel K5 on a CUDA tensor, the plain
-        shift/softmax chain on a CPU one), and no code of the port reads
-        the field. It mirrors the JAX package's field of the same name,
-        where ``"xla"`` selects the chain whose α the attention-map dump
-        reads (not ported).
       carry_edges: keep the edge list on built graphs; with Â blocks or
         attention windows the convolutions never read it after the build.
     """
@@ -83,7 +78,6 @@ class GraphConfig:
     agg_eb: int = 1024
     agg_sw: int = 512
     attn_windows: bool = False
-    grid_attn: str = "xla"
     carry_edges: bool = True
 
     def __post_init__(self):
@@ -95,8 +89,6 @@ class GraphConfig:
             raise ValueError(f"unknown condition {self.condition!r}")
         if self.aggregation not in ("xla", "pallas", "grid"):
             raise ValueError(f"unknown aggregation {self.aggregation!r}")
-        if self.grid_attn not in ("xla", "pallas"):
-            raise ValueError(f"unknown grid_attn {self.grid_attn!r}")
         if self.aggregation == "grid":
             if not self.pixelwise:
                 raise ValueError("aggregation='grid' needs the pixelwise mesh (thresh=-inf); "
@@ -104,9 +96,9 @@ class GraphConfig:
             if self.n_max not in (None, self.num_pixels):
                 raise ValueError("grid aggregation uses the identity node mapping: n_max must be "
                                  f"rows*cols={self.num_pixels}, got {self.n_max}")
-        elif self.pixelwise:
-            raise ValueError("the pixelwise edge-list mesh (thresh=-inf without "
-                             "aggregation='grid') is not ported yet")
+        elif self.pixelwise and self.aggregation == "pallas":
+            raise ValueError("the pixelwise mesh runs as an edge list (aggregation='xla') or "
+                             "a grid ('grid'); its Â blocks are not ported")
         if self.attn_windows and self.aggregation != "pallas":
             raise ValueError("attn_windows=True needs aggregation='pallas'")
         if not self.carry_edges and self.aggregation != "pallas":
@@ -161,7 +153,7 @@ class ModelConfig:
     ``input_features`` counts raw channels only; positional encoding (2)
     and node size (1) are appended internally. The port runs the fused
     ChebConv or TransformerConv GConvLSTM in float32, with a remesh at every
-    decoder step on quadtree meshes and a fixed mesh on the pixelwise grid;
+    decoder step on quadtree meshes and a fixed mesh on the pixelwise mesh;
     :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
     rejects other values of ``convolution_type``, ``rnn_type``,
     ``fused_gates``, ``remesh_every`` and ``compute_dtype``. ``dropout`` is

@@ -13,7 +13,10 @@ deduplicated after one sort per sample, and are compacted into a fixed
 
 The output stays sorted by (dst, src) with sentinel ``n_max`` padding: the
 SpMM windows (ops/spmm.py) depend on that order. A multi-pixel cell keeps
-its self-loop; a singleton cell has none.
+its self-loop; a singleton cell has none. The pixelwise mesh's pairs are
+unique (``dedup=False``): there the pairs are stable-sorted by dst alone,
+as the JAX package sorts them, so within a destination the slots keep the
+shift order and the edge list is the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ def _shifted(nid: torch.Tensor, dr: int, dc: int, sentinel: int) -> torch.Tensor
     return torch.where(ok, out, sentinel)
 
 
-def build_adjacency(node_img: torch.Tensor, node_xy: torch.Tensor, cfg: GraphConfig):
-    """Edges from (B, rows, cols) node-id images (sentinel = cfg.n_max).
+def build_adjacency(node_img: torch.Tensor, node_xy: torch.Tensor, cfg: GraphConfig,
+                    dedup: bool = True):
+    """Edges from (B, rows, cols) node-id images (sentinel = cfg.n_max);
+    ``dedup=False`` for meshes whose pairs are unique (pixelwise).
 
     Returns:
       (edge_src, edge_dst, edge_valid, edge_attr, n_edges, n_edges_raw),
@@ -56,14 +61,18 @@ def build_adjacency(node_img: torch.Tensor, node_xy: torch.Tensor, cfg: GraphCon
         dim=1,
     )
     valid = (src < n_max) & (dst < n_max)
-    # Invalid pairs sort to the end.
-    key = torch.where(valid, dst * (n_max + 2) + src, (n_max + 1) * (n_max + 3))
-    key, _ = torch.sort(key, dim=1)
-    dst_s = torch.div(key, n_max + 2, rounding_mode="floor")
-    src_s = key - dst_s * (n_max + 2)
-
-    prev = torch.cat([torch.full_like(key[:, :1], -1), key[:, :-1]], dim=1)
-    keep = (key != prev) & (dst_s < n_max)
+    if dedup:
+        # Invalid pairs sort to the end.
+        key = torch.where(valid, dst * (n_max + 2) + src, (n_max + 1) * (n_max + 3))
+        key, _ = torch.sort(key, dim=1)
+        dst_s = torch.div(key, n_max + 2, rounding_mode="floor")
+        src_s = key - dst_s * (n_max + 2)
+        prev = torch.cat([torch.full_like(key[:, :1], -1), key[:, :-1]], dim=1)
+        keep = (key != prev) & (dst_s < n_max)
+    else:
+        dst_s, perm = torch.sort(torch.where(valid, dst, n_max + 1), dim=1, stable=True)
+        src_s = torch.gather(src, 1, perm)
+        keep = dst_s < n_max
     pos = torch.cumsum(keep.long(), dim=1) - 1
     n_edges_raw = keep.sum(dim=1)
 

@@ -1,9 +1,11 @@
 """Image stacks → padded quadtree graphs, one mesh per sample.
 
-Counterpart of ``quadtree_mpnnlstm_tpu/graph/build.py``: the quadtree path
-and the pixelwise grid (``thresh=-inf`` with ``aggregation="grid"``).
-Incoming image stacks already carry the two positional-encoding channels
-as their last two channels.
+Counterpart of ``quadtree_mpnnlstm_tpu/graph/build.py``: the quadtree path,
+the pixelwise edge list (``thresh=-inf``; compact raster node ids) and the
+pixelwise grid (``thresh=-inf`` with ``aggregation="grid"``). Incoming
+image stacks already carry the two positional-encoding channels as their
+last two channels. A graph built on a CUDA card carries the CSR views of
+its id vectors that the segment-sum kernel K7 reads.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors, flatten
 from quadtree_mpnnlstm_tpu_torch.models.conv import compute_sym_norm
 from quadtree_mpnnlstm_tpu_torch.ops import attn, spmm
 from quadtree_mpnnlstm_tpu_torch.ops.grid import dir_attrs, grid_sym_coeff
+from quadtree_mpnnlstm_tpu_torch.ops.segment import segment_sum_nodes
+from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import segment_view
 
 
 def _node_positions(data0: torch.Tensor, cfg: GraphConfig) -> torch.Tensor:
@@ -39,10 +43,14 @@ def _assemble(
     img: torch.Tensor,
     cfg: GraphConfig,
     cell_size_feature: torch.Tensor,
+    dedup: bool = True,
+    pixel_view=None,
 ) -> Tuple[GraphTensors, torch.Tensor]:
     b, t = img.shape[:2]
     n_max = cfg.n_max
     dev = img.device
+    if img.is_cuda and pixel_view is None:
+        pixel_view = segment_view(pixel_node, n_max)
     node_valid = torch.arange(n_max, device=dev)[None, :] < n_nodes.clamp_max(n_max)[:, None]
     graph = GraphTensors(
         pixel_node=pixel_node,
@@ -50,6 +58,7 @@ def _assemble(
         n_nodes=n_nodes,
         node_valid=node_valid,
         overflow=torch.zeros(b, dtype=torch.int64, device=dev),
+        pixel_view=pixel_view,
     )
 
     data = flatten(img, graph)  # (B, T, n_max, C)
@@ -58,7 +67,7 @@ def _assemble(
     node_xy = _node_positions(data[:, 0].detach(), cfg)
     node_img = pixel_node.reshape((b,) + tuple(cfg.image_shape))
     edge_src, edge_dst, edge_valid, edge_attr, n_edges, n_edges_raw = build_adjacency(
-        node_img, node_xy, cfg
+        node_img, node_xy, cfg, dedup=dedup
     )
 
     # Append the normalised cell-size channel.
@@ -73,6 +82,10 @@ def _assemble(
         n_edges=n_edges,
         node_xy=node_xy,
     )
+    if img.is_cuda:
+        graph = graph.replace(dst_view=segment_view(edge_dst, n_max, sorted_ids=True))
+        if cfg.carry_edges:
+            graph = graph.replace(src_view=segment_view(edge_src, n_max))
     # attention windows read the edge attributes, not Â: skip the
     # normalisation when the edge list is dropped after the build
     if cfg.carry_edges or not cfg.attn_windows:
@@ -106,7 +119,7 @@ def _assemble(
         # they exist
         graph = graph.replace(
             edge_src=None, edge_dst=None, edge_valid=None, edge_attr=None,
-            sym_coeff=None, node_xy=None,
+            sym_coeff=None, node_xy=None, dst_view=None,
         )
     return graph, data
 
@@ -117,7 +130,7 @@ def image_to_graph(
     mask: Optional[torch.Tensor] = None,
 ) -> Tuple[GraphTensors, torch.Tensor]:
     """Quadtree-decompose image stacks into padded graphs (or, on the
-    pixelwise mesh, build the identity-mapped grid).
+    pixelwise mesh, build its edge list or the identity-mapped grid).
 
     Args:
       img: (B, T, rows, cols, C) with positional encoding in the last two
@@ -133,12 +146,49 @@ def image_to_graph(
     if img.ndim != 5:
         raise ValueError(f"expected (B, T, rows, cols, C); got {tuple(img.shape)}")
     if cfg.pixelwise:
-        return grid_graph(img, cfg, mask=mask)
+        if cfg.aggregation == "grid":
+            return grid_graph(img, cfg, mask=mask)
+        return pixelwise_graph(img, cfg, mask=mask)
     crit = img[..., 0].amax(dim=1)
     level = decompose_levels(crit, cfg, mask=mask)
     pixel_node, n_nodes, counts = pixel_nodes_from_levels(level, cfg, mask=mask)
     half_base = (cfg.max_grid_size / 2.0) ** 2
     return _assemble(pixel_node, n_nodes, counts, img, cfg, counts / half_base)
+
+
+def _keep_mask(mask: Optional[torch.Tensor], shape, device) -> torch.Tensor:
+    """(rows, cols) bool, True at the pixels the mesh keeps."""
+    if mask is None:
+        return torch.ones(tuple(shape), dtype=torch.bool, device=device)
+    return ~mask.to(device=device, dtype=torch.bool)
+
+
+def pixelwise_graph(
+    img: torch.Tensor,
+    cfg: GraphConfig,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[GraphTensors, torch.Tensor]:
+    """Every unmasked pixel is a node, as an edge list (``thresh=-inf``
+    with ``aggregation="xla"``): node ids are the kept pixels in raster
+    order (``cumsum(keep) − 1``, the sentinel ``n_max`` elsewhere), counts
+    come from a segment sum, the size channel is the constant
+    ``resolution**2``, and the candidate pairs are unique, so the
+    adjacency skips deduplication. ``mask`` (rows, cols) is shared by every
+    sample, and so is the mesh."""
+    b = img.shape[0]
+    rows, cols = cfg.image_shape
+    n_max = cfg.n_max
+    dev = img.device
+    keep = _keep_mask(mask, (rows, cols), dev).reshape(-1)
+    cum = torch.cumsum(keep.long(), dim=0)
+    pixel_node = torch.where(keep, cum - 1, n_max).clamp_max(n_max)
+    pixel_node = pixel_node.expand(b, rows * cols).contiguous()
+    view = segment_view(pixel_node, n_max) if img.is_cuda else None
+    counts = segment_sum_nodes(torch.ones(pixel_node.shape, device=dev), pixel_node, n_max,
+                               view)
+    cell_sizes = torch.full((b, n_max), cfg.resolution**2, device=dev)
+    return _assemble(pixel_node, cum[-1].expand(b), counts, img, cfg, cell_sizes,
+                     dedup=False, pixel_view=view)
 
 
 def grid_graph(
@@ -156,10 +206,7 @@ def grid_graph(
     b, t, rows, cols, _ = img.shape
     p = rows * cols
     dev = img.device
-    if mask is not None:
-        keep2d = ~mask.to(device=dev, dtype=torch.bool)
-    else:
-        keep2d = torch.ones((rows, cols), dtype=torch.bool, device=dev)
+    keep2d = _keep_mask(mask, (rows, cols), dev)
     keep = keep2d.reshape(-1)
     pixel_node = torch.where(keep, torch.arange(p, device=dev), p)
     attrs = torch.from_numpy(dir_attrs(cfg.edges_at_corners, cfg.resolution)).to(dev)

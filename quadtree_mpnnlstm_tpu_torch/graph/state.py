@@ -16,6 +16,9 @@ explicitly, so each sample of a batch keeps its own mesh:
 order, so a training step on the card is bit-reproducible. On the
 pixelwise grid (``mapping_identity``: node id = raster pixel index) both
 are a reshape and a mask. Index tensors are int64, torch's index type.
+A graph built on a CUDA card carries the CSR views of its id vectors
+(``pixel_view``, ``dst_view``, ``src_view``) that the segment-sum kernel
+K7 reads, built once per mesh.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
+from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import SegmentView
 
 
 @dataclasses.dataclass
@@ -60,6 +64,11 @@ class GraphTensors:
     agg: tuple = ("xla", 0, 0, 0)
     # identity pixel↔node mapping (grid): flatten/unflatten are reshapes
     mapping_identity: bool = False
+    # CSR views of pixel_node, edge_dst and edge_src for the segment-sum
+    # kernel (ops/segment_sum.py), built on a CUDA card
+    pixel_view: Optional[SegmentView] = None
+    dst_view: Optional[SegmentView] = None
+    src_view: Optional[SegmentView] = None
 
     @property
     def n_max(self) -> int:
@@ -84,7 +93,7 @@ def flatten(img: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
         # each valid node is its pixel (count 1): a reshape and a mask
         return torch.where(graph.node_valid[:, None, :, None], img.reshape(b, t, p, c), 0.0)
     flat = img.reshape(b, t, p, c).permute(0, 2, 1, 3).reshape(b, p, t * c)
-    summed = segment_sum_nodes(flat, graph.pixel_node, n_max)
+    summed = segment_sum_nodes(flat, graph.pixel_node, n_max, graph.pixel_view)
     mean = summed / graph.counts.clamp_min(1.0)[..., None]
     return mean.to(img.dtype).reshape(b, n_max, t, c).permute(0, 2, 1, 3)
 
@@ -107,7 +116,7 @@ def unflatten(
     fill_t = torch.full((), fill, dtype=data.dtype, device=data.device)
     if graph.mapping_identity:
         return torch.where(graph.node_valid[..., None], data, fill_t).reshape(b, rows, cols, c)
-    img = gather_nodes(data, graph.pixel_node, n_max)
+    img = gather_nodes(data, graph.pixel_node, n_max, graph.pixel_view)
     valid = (graph.pixel_node < n_max)[..., None]
     img = torch.where(valid, img, fill_t)
     return img.reshape(b, rows, cols, c)

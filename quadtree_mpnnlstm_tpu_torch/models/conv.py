@@ -2,20 +2,20 @@
 
 Counterpart of ``quadtree_mpnnlstm_tpu/models/conv.py``: the symmetric
 normalisation, the ``Â z`` dispatch, ``ChebConv`` (K=3, 'sym' laplacian,
-lambda_max=2), the attention-window and grid branches of
+lambda_max=2), the attention-window, grid and edge-list branches of
 ``multi_stream_attention`` and ``TransformerConv`` (heads=1, edge_dim=2,
 attention dropout 0.1, concat off in the registry). Node tensors are
 (B, n_max, F). Every conv takes ``(x, graph, generator)``; attention
-dropout draws its keep windows (or planes) from ``generator`` in training
-mode (``module.train()``) only.
+dropout draws its keep windows (or planes, or per-edge hashes) from
+``generator`` in training mode (``module.train()``) only.
 
-Not ported yet: the edge-list branch of the attention, the batch-middle
-(shared-mesh) layout, the α side channel (``sow``), ``MHTransformerConv``,
-GCN and the GAT family.
+Not ported yet: the batch-middle (shared-mesh) layout, the α side channel
+(``sow``), ``MHTransformerConv``, GCN and the GAT family.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -24,7 +24,13 @@ from torch import nn
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors
 from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn, spmm
 from quadtree_mpnnlstm_tpu_torch.ops.grid import grid_a_mul
-from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
+from quadtree_mpnnlstm_tpu_torch.ops.segment import (
+    aggregate_to_dst,
+    edge_softmax,
+    gather_dst,
+    gather_src,
+    segment_sum_nodes,
+)
 
 
 def compute_sym_norm(graph: GraphTensors) -> torch.Tensor:
@@ -37,7 +43,7 @@ def compute_sym_norm(graph: GraphTensors) -> torch.Tensor:
     """
     n = graph.n_max
     w = graph.edge_attr[..., -1] * graph.edge_valid
-    deg = segment_sum_nodes(w, graph.edge_dst, n)
+    deg = segment_sum_nodes(w, graph.edge_dst, n, graph.dst_view)
     dinv = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)), 0.0)
     d_dst = torch.gather(dinv, 1, graph.edge_dst.clamp_max(n - 1))
     d_src = torch.gather(dinv, 1, graph.edge_src.clamp_max(n - 1))
@@ -50,16 +56,15 @@ def a_mul(z: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
       * ``pallas`` — the per-tile Â blocks (ops/spmm.py, kernel K2 on a CUDA
         tensor);
       * ``grid`` — the shift stencil of the pixelwise mesh (ops/grid.py);
-      * otherwise — gather → scale → scatter-add over the edge list.
+      * otherwise — gather → scale → scatter-add over the edge list
+        (ops/segment.py; kernel K7 on a CUDA tensor).
     """
     if graph.agg[0] == "grid":
         return grid_a_mul(z, graph)
     if graph.agg[0] == "pallas":
         _, nt, _eb, sw = graph.agg
         return spmm.spmm_apply(z, graph.agg_meta, graph.n_max, nt, sw)
-    n = z.shape[1]
-    zs = gather_nodes(z, graph.edge_src, n)
-    return segment_sum_nodes(graph.sym_coeff[..., None].to(z.dtype) * zs, graph.edge_dst, n)
+    return aggregate_to_dst(graph.sym_coeff[..., None].to(z.dtype) * gather_src(z, graph), graph)
 
 
 class ChebConv(nn.Module):
@@ -109,6 +114,60 @@ def attr_dim(graph: GraphTensors) -> int:
     raise ValueError("graph carries no edge attributes")
 
 
+_HASH_MASK = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit xor-shift-multiply finaliser on int64 tensors holding
+    values in [0, 2**32); its multipliers stay below 2**31, so no product
+    leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _HASH_MASK
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _HASH_MASK
+    return x ^ (x >> 16)
+
+
+def edge_keep(graph: GraphTensors, heads: int, rate: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Dropout keep-scales (B, E, heads) of the edge-list attention: 0, or
+    1/(1 − rate) with probability 1 − rate. One seed per call comes from
+    ``generator``; each value is a counter-based hash of (seed, sample,
+    src, dst, head), keyed by the edge's node ids and not by its slot, so
+    the mask does not depend on the order of the slots (as the JAX
+    package keys it, with its own random bits)."""
+    dev = graph.edge_src.device
+    seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                         device=generator.device).to(dev)
+    b = graph.edge_src.shape[0]
+    h = _mix32(seed + torch.arange(b, device=dev)[:, None])
+    h = _mix32(h ^ graph.edge_src)
+    h = _mix32(h ^ graph.edge_dst)
+    h = _mix32(h[..., None] ^ torch.arange(heads, device=dev))
+    u = (h >> 8).to(torch.float32) * 2.0**-24  # uniform on [0, 1)
+    return (u < 1.0 - rate).to(torch.float32) / (1.0 - rate)
+
+
+def edge_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.Tensor,
+                   graph: GraphTensors, heads: int, d: int,
+                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The edge-list branch of :func:`multi_stream_attention`: gather k
+    and v at the sources and q at the destinations, add the edge term
+    ``edge_attr · Wₑ`` to keys and values, take per-head logits ``q·(k +
+    e)/√d``, the masked edge softmax, the keep-scales (B, E, heads) when
+    given, and sum ``α·(v + e)`` at the destinations (kernel K7 on a CUDA
+    tensor). Returns (B, n_max, heads, d)."""
+    b, n = q.shape[:2]
+    qh, kh, vh = (x.reshape(b, n, heads, d) for x in (q, k, v))
+    e = (graph.edge_attr.to(q.dtype) @ we).reshape(b, -1, heads, d)
+    kj = gather_src(kh, graph) + e
+    vj = gather_src(vh, graph) + e
+    logits = (gather_dst(qh, graph) * kj).sum(dim=-1) / math.sqrt(d)
+    alpha = edge_softmax(logits, graph.edge_dst, graph.edge_valid, n)
+    used = alpha if keep is None else alpha * keep
+    return aggregate_to_dst(used[..., None] * vj, graph)
+
+
 def multi_stream_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: Optional[torch.Tensor],
     graph: GraphTensors, heads: int, d: int, dropout: float = 0.0,
@@ -119,14 +178,16 @@ def multi_stream_attention(
     TransformerConv and the fused attention gate stacks (models/fused.py),
     where the 2·G gate convolutions of a cell run as extra heads of one
     call. Runs on the graph's attention windows (``agg = "pallas_attn"``;
-    kernels K3/K4 on a CUDA tensor) or on the pixelwise grid (``agg =
-    "grid"``; kernels K5/K6).
+    kernels K3/K4 on a CUDA tensor), on the pixelwise grid (``agg =
+    "grid"``; kernels K5/K6) or on the edge list (:func:`edge_attention`).
 
     Dropout, in training mode only, keeps an entry with probability
     1 − rate and scales it by 1/(1 − rate), drawn from ``generator``: one
     value per window slot and head, a (B, T, heads, EB) keep window, as the
     JAX package's window path draws it; on the grid one per direction,
-    pixel and head, (B, D, P, heads) planes, as its grid path does.
+    pixel and head, (B, D, P, heads) planes, as its grid path does; on the
+    edge list one per edge and head, keyed by the edge's (src, dst) node
+    ids (:func:`edge_keep`).
 
     Args:
       q/k/v: (B, n_max, heads·d) projected node features.
@@ -154,17 +215,17 @@ def multi_stream_attention(
         dims = grid_attn.GridAttnDims(rows, cols, heads, d, ndirs)
         return grid_attn.grid_attn_apply(q, k, v, e_dir, valid, keep, dims).reshape(
             b, n, heads, d)
-    if graph.agg[0] != "pallas_attn":
-        raise ValueError(
-            "attention runs on the attention windows (GraphConfig.attn_windows with "
-            "aggregation='pallas') or the pixelwise grid (aggregation='grid') only; the "
-            "edge-list attention is not ported"
-        )
-    _, nt, eb, sw = graph.agg
-    meta = graph.attn_meta
-    keep = keep_planes((b, meta.s0.shape[1], heads, eb)) if drop else None
-    dims = attn.AttnDims(n, nt, eb, sw, heads, d)
-    return attn.attn_apply(q, k, v, we, keep, meta, dims).reshape(b, n, heads, d)
+    if graph.agg[0] == "pallas_attn":
+        _, nt, eb, sw = graph.agg
+        meta = graph.attn_meta
+        keep = keep_planes((b, meta.s0.shape[1], heads, eb)) if drop else None
+        dims = attn.AttnDims(n, nt, eb, sw, heads, d)
+        return attn.attn_apply(q, k, v, we, keep, meta, dims).reshape(b, n, heads, d)
+    if graph.edge_src is None:
+        raise ValueError("attention needs attention windows, the pixelwise grid or an edge "
+                         "list; this graph dropped its edge list (carry_edges=False)")
+    keep = edge_keep(graph, heads, dropout, generator) if drop else None
+    return edge_attention(q, k, v, we, graph, heads, d, keep)
 
 
 class TransformerConv(nn.Module):

@@ -2,8 +2,8 @@
 
 Counterpart of ``quadtree_mpnnlstm_tpu/models/seq2seq.py``: the fixed-mesh
 encoder and the decoder rollout (a remesh at every step on quadtree meshes,
-one fixed mesh on the pixelwise grid), for inference and training. The JAX
-package runs both as ``nn.scan``s vmapped
+one fixed mesh when every pixel is a node, as an edge list or a grid),
+for inference and training. The JAX package runs both as ``nn.scan``s vmapped
 over samples; here they are Python loops over time with an explicit batch
 axis, each sample on its own mesh.
 
@@ -100,7 +100,7 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
+def _check_supported(cfg: ModelConfig) -> None:
     supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=("LSTM",),
                      fused_gates=(True,), remesh_every=(1,), compute_dtype=("float32",))
     for field, values in supported.items():
@@ -111,11 +111,6 @@ def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
             )
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
-    if (cfg.convolution_type == "TransformerConv" and not gcfg.attn_windows
-            and gcfg.aggregation != "grid"):
-        raise ValueError("TransformerConv runs on attention windows (aggregation='pallas', "
-                         "attn_windows=True) or the pixelwise grid (aggregation='grid') only; "
-                         "the edge-list attention is not ported")
 
 
 def _make_cells(module: nn.Module, cfg: ModelConfig, in_channels: int,
@@ -205,7 +200,7 @@ class Seq2Seq(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gcfg: GraphConfig, use_climatology: bool = False):
         super().__init__()
-        _check_supported(cfg, gcfg)
+        _check_supported(cfg)
         self.cfg, self.gcfg = cfg, gcfg
         self.use_climatology = use_climatology
         self.remeshing = not gcfg.pixelwise

@@ -38,7 +38,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from quadtree_mpnnlstm_tpu_torch.ops import spmm
-from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes, segment_sum_nodes
+from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes
+from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import segment_sum_plain
 
 # kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES = {"attn_apply": 0, "attn_apply_bwd": 0}
@@ -148,9 +149,9 @@ def attn_plain(q, k, v, we, keep: Optional[torch.Tensor], meta: AttnMeta,
     slots = dst.shape[1]
     attr = meta.attr.reshape(b, slots, -1)
     e = (attr @ we).reshape(b, slots, heads, d)
-    kj = gather_nodes(k, src, n_max).reshape(b, slots, heads, d) + e
-    vj = gather_nodes(v, src, n_max).reshape(b, slots, heads, d) + e
-    qi = gather_nodes(q, dst, n_max).reshape(b, slots, heads, d)
+    kj = gather_nodes(k, src, n_max, routed=False).reshape(b, slots, heads, d) + e
+    vj = gather_nodes(v, src, n_max, routed=False).reshape(b, slots, heads, d) + e
+    qi = gather_nodes(q, dst, n_max, routed=False).reshape(b, slots, heads, d)
     logits = (qi * kj).sum(-1) * (1.0 / float(d) ** 0.5)  # (B, slots, heads)
 
     valid = (dst >= 0)[..., None]
@@ -160,11 +161,11 @@ def attn_plain(q, k, v, we, keep: Optional[torch.Tensor], meta: AttnMeta,
         mx = mx.scatter_reduce(1, idx, torch.where(valid, logits, float("-inf")), "amax")
         mx = torch.gather(mx, 1, idx)
     ex = torch.exp(torch.where(valid, logits - mx, float("-inf")))
-    den = gather_nodes(segment_sum_nodes(ex, dst, n_max), dst, n_max)
+    den = gather_nodes(segment_sum_plain(ex, dst, n_max), dst, n_max, routed=False)
     alpha = ex / den.clamp_min(1e-30)
     if keep is not None:
         alpha = alpha * _slot_keep(keep, heads)
-    out = segment_sum_nodes(alpha[..., None] * vj, dst, n_max)  # (B, n_max, heads, d)
+    out = segment_sum_plain(alpha[..., None] * vj, dst, n_max)  # (B, n_max, heads, d)
     return out.reshape(b, n_max, heads * d)
 
 
@@ -230,7 +231,7 @@ def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims) -> torch.T
 
 def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
     """Launch K4 (``qtm_attn_bwd``) and combine its partials in a fixed
-    order: the per-slot dk/dv rows by source node (``segment_sum_nodes``,
+    order: the per-slot dk/dv rows by source node (``segment_sum_plain``,
     sort-based, no float atomics) and the per-CTA dWₑ partials by one
     ``sum``. Returns (dq, dk, dv, dwe)."""
     lib, ptrs, ints = _launch_args(q, k, v, we, keep, meta, dims)
@@ -249,8 +250,8 @@ def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
     LAUNCHES["attn_apply_bwd"] += 1
     # slots the kernel skipped hold no values; their src id is −1 (dropped)
     _, src = slot_nodes(meta, dims)
-    dk = segment_sum_nodes(dk_slot, src, dims.n_max)
-    dv = segment_sum_nodes(dv_slot, src, dims.n_max)
+    dk = segment_sum_plain(dk_slot, src, dims.n_max)
+    dv = segment_sum_plain(dv_slot, src, dims.n_max)
     return dq, dk, dv, dwe_part.sum(dim=(0, 1))
 
 

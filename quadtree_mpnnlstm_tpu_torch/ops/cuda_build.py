@@ -55,6 +55,10 @@ SIGNATURES = {
         # B, rows, cols, heads, d, D, blocks, scale, stream
         "qtm_grid_attn_bwd": [_P] * 13 + [_C] * 7 + [ctypes.c_float, _P],
     },
+    "segment.cu": {
+        # values, order (or null), offsets, out, B, n_out, F, stream
+        "qtm_segment_sum": [_P] * 4 + [_C] * 3 + [_P],
+    },
 }
 
 

@@ -1,0 +1,177 @@
+"""Segment sum: one CUDA kernel (``csrc/segment.cu``, K7) and its plain
+PyTorch version.
+
+Counterpart of ``quadtree_mpnnlstm_tpu/ops/pallas_segment.py``. For values
+(B, L, F) and ids (B, L), one mesh per sample::
+
+    out[b, n] = Σ_{e: ids[b, e] = n} values[b, e]      (n in [0, n_out))
+
+Ids outside ``[0, n_out)`` (the sentinel ``n_out`` among them) are dropped.
+Both versions sum each bucket's entries in ascending entry order, starting
+from 0, as the accumulating ``index_put_`` does on the card, so there the
+kernel and its plain version agree bit for bit.
+
+The kernel reads the ids through a CSR view (:func:`segment_view`): a
+stable order of the entries by bucket and each bucket's entry range. It is
+built with integer ops once per id vector; the graphs carry the views of
+their fixed id vectors (``GraphTensors.pixel_view``, ``dst_view``,
+``src_view``), and a call without one builds its own. ``edge_dst`` is
+sorted by construction, so its view needs only the offsets.
+
+Dispatch is by device: a CUDA tensor launches the kernel, and raises if it
+cannot be built or launched; a CPU tensor runs the plain version. Each
+kernel launch adds one to :data:`LAUNCHES`. :class:`SegmentSum` is
+differentiable in the values on both devices; its backward is the row
+gather ``d_values[b, e] = g[b, ids[b, e]]`` (0 for a dropped id), which is
+no Pallas kernel in the JAX package either.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from quadtree_mpnnlstm_tpu_torch.ops import spmm
+
+# kernel launches since the last reset_launch_counts()
+LAUNCHES = {"segment_sum": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+class SegmentView(NamedTuple):
+    """The CSR view of an id vector (B, L) over ``n_out`` buckets."""
+
+    order: Optional[torch.Tensor]  # (B·L,) int32 entries by bucket, or None: in order
+    offsets: torch.Tensor          # (B, n_out + 1) int32 entry ranges, global over B·L
+
+
+def segment_view(ids: torch.Tensor, n_out: int, sorted_ids: bool = False) -> SegmentView:
+    """The CSR view of ``ids`` (B, L): entries of bucket n of sample b are
+    ``order[offsets[b, n]:offsets[b, n + 1]]`` in ascending entry order (a
+    stable sort). With ``sorted_ids`` the caller promises ascending ids per
+    sample, the dropped ones last (the builders' ``edge_dst``), and the
+    order is the identity."""
+    b, length = ids.shape
+    key = torch.where((ids >= 0) & (ids < n_out), ids, n_out)
+    order = None
+    if not sorted_ids:
+        key, perm = torch.sort(key, dim=1, stable=True)
+        base = torch.arange(b, device=ids.device)[:, None] * length
+        order = (perm + base).to(torch.int32).reshape(-1)
+    bounds = torch.arange(n_out + 1, device=ids.device).expand(b, n_out + 1).contiguous()
+    offsets = torch.searchsorted(key.contiguous(), bounds)
+    offsets = offsets + torch.arange(b, device=ids.device)[:, None] * length
+    return SegmentView(order, offsets.to(torch.int32))
+
+
+# ------------------------------------------------------- plain version
+
+
+def segment_sum_plain(values: torch.Tensor, ids: torch.Tensor, n_out: int) -> torch.Tensor:
+    """K7's function in plain PyTorch: ``values`` (B, L, ...) summed into
+    ``n_out`` rows per sample by ``ids`` (B, L).
+
+    Dropped ids (outside ``[0, n_out)``, as JAX's ``segment_sum`` drops
+    them; torch's indexing would raise instead) each land in a scratch row
+    of their own past ``n_out`` that is sliced off. One row per dropped
+    entry, not one shared discard row, because the accumulating
+    ``index_put_`` below sums each row's entries serially, and padded edge
+    lists are mostly sentinels. On CUDA ``index_put_(accumulate=True)``
+    sorts the ids stably and sums each bucket in ascending entry order (a
+    warp reduction only at F = 1 with 32 or more entries in a bucket);
+    ``index_add_`` uses float atomics there, whose order changes from run
+    to run and, amplified through a rollout, moves frames by ~1e-4. On the
+    CPU it adds serially, in entry order, unless several threads share a
+    large input: then with atomics, unless deterministic algorithms are on.
+    """
+    b, length = ids.shape
+    rest = values.shape[2:]
+    width = n_out + length
+    scratch = n_out + torch.arange(length, device=ids.device, dtype=ids.dtype)
+    slot = torch.where((ids >= 0) & (ids < n_out), ids, scratch)
+    slot = slot + torch.arange(b, device=ids.device, dtype=ids.dtype)[:, None] * width
+    out = values.new_zeros((b * width,) + rest)
+    out.index_put_((slot.reshape(-1),), values.reshape((b * length,) + rest), accumulate=True)
+    return out.view((b, width) + rest)[:, :n_out]
+
+
+def gather_rows_plain(g: torch.Tensor, ids: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The adjoint of the segment sum: ``g[b, ids[b, e]]`` for g (B, n_out,
+    F), 0 for a dropped id."""
+    lead = ids.shape + (1,) * (g.ndim - 2)
+    idx = ids.clamp(0, n_out - 1).reshape(lead).expand(ids.shape + g.shape[2:])
+    inside = ((ids >= 0) & (ids < n_out)).reshape(lead)
+    return torch.where(inside, torch.gather(g, 1, idx), 0.0)
+
+
+# ------------------------------------------------------- CUDA kernel
+
+
+def _segment_sum_cuda(values: torch.Tensor, ids: torch.Tensor, n_out: int,
+                      view: SegmentView) -> torch.Tensor:
+    """Launch K7 (``qtm_segment_sum``) on values (B, L, F); the kernel
+    reads the ids (B, L) through their CSR ``view`` alone."""
+    from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
+
+    b, length, f = values.shape
+    spmm._check(values, "values", torch.float32, (b, length, f))
+    if tuple(ids.shape) != (b, length):
+        raise ValueError(f"ids must be {(b, length)}, got {tuple(ids.shape)}")
+    spmm._check(view.offsets, "offsets", torch.int32, (b, n_out + 1))
+    if view.order is not None:
+        spmm._check(view.order, "order", torch.int32, (b * length,))
+    if b * length >= 2**31:
+        raise ValueError(f"segment_sum takes fewer than 2**31 entries, got {b * length}")
+    out = torch.empty((b, n_out, f), dtype=torch.float32, device=values.device)
+    order = None if view.order is None else view.order.data_ptr()
+    err = load_library("segment.cu").qtm_segment_sum(
+        spmm._ptr(values), order, spmm._ptr(view.offsets), spmm._ptr(out), b, n_out, f,
+        spmm._stream())
+    spmm._raise_on(err, "segment_sum")
+    LAUNCHES["segment_sum"] += 1
+    return out
+
+
+# ------------------------------------------------------- dispatch
+
+
+class SegmentSum(torch.autograd.Function):
+    """K7 on a CUDA tensor, the plain version on a CPU one; the backward
+    is the row gather on both. Takes and returns the caller's trailing
+    feature axes, so its node is the output's own."""
+
+    @staticmethod
+    def forward(ctx, values, ids, n_out: int, view: Optional[SegmentView]):
+        ctx.save_for_backward(ids)
+        ctx.n_out = n_out
+        if not values.is_cuda:
+            return segment_sum_plain(values, ids, n_out)
+        if view is None:
+            view = segment_view(ids, n_out)
+        b, length = ids.shape
+        flat = values.reshape(b, length, -1).contiguous()
+        return _segment_sum_cuda(flat, ids, n_out, view).reshape((b, n_out) + values.shape[2:])
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        return gather_rows_plain(g, ids, ctx.n_out), None, None, None
+
+
+def segment_sum(values: torch.Tensor, ids: torch.Tensor, n_out: int,
+                view: Optional[SegmentView] = None) -> torch.Tensor:
+    """K7: ``values`` (B, L, ...) summed into (B, n_out, ...) by ``ids`` (B,
+    L); ids outside ``[0, n_out)`` are dropped.
+
+    Replaces ``segment_sum_pallas`` (``_kernel``, its VJP a row gather) of
+    ``quadtree_mpnnlstm_tpu/ops/pallas_segment.py``. ``view`` is the ids'
+    :func:`segment_view`, built here when None. Differentiable in
+    ``values``.
+    """
+    return SegmentSum.apply(values, ids, n_out, view)

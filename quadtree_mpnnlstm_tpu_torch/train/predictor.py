@@ -12,7 +12,11 @@ Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``; on
 the card the Â-block kernels (ops/spmm.py, ChebConv on quadtree meshes),
 the attention-window kernels (ops/attn.py, TransformerConv on quadtree
 meshes) or the stencil attention kernels (ops/grid_attn.py, TransformerConv
-on the pixelwise grid) carry every aggregation and its backward. With
+on the pixelwise grid) carry every aggregation and its backward; on an
+edge list (``aggregation="xla"``, the pixelwise edge-list mesh among them)
+the segment-sum kernel (ops/segment_sum.py) carries the segment sums, as
+it carries the pixel→node pooling, the node counts and the gathers'
+backwards on every mesh that is not the grid. With
 ``use_climatology`` the decoder reads the day-of-year climatology of each
 forecast day (``climatology=`` (366 or 365, rows, cols) on ``train``,
 ``predict``, ``score``, ``forecast`` and ``train_step``). Dropout and scheduled sampling draw from the predictor's
@@ -110,6 +114,9 @@ class NextFramePredictorS2S:
             raise TypeError(f"unknown model_kwargs: {sorted(mk)}")
 
         gk = dict(graph_kwargs or {})
+        # the JAX package's choice between its grid-attention kernel and
+        # chain; the port runs one grid attention (ops/grid_attn.py)
+        gk.pop("grid_attn", None)
         carry_edges_explicit = "carry_edges" in gk
         self.gcfg = GraphConfig(
             image_shape=tuple(image_shape),
@@ -128,7 +135,8 @@ class NextFramePredictorS2S:
             # list is dead weight
             self.gcfg = self.gcfg.replace(carry_edges=False)
         # aggregation="grid" (the pixelwise mesh) builds no edge list and no
-        # windows: the stencil reads the identity-mapped node planes
+        # windows: the stencil reads the identity-mapped node planes;
+        # aggregation="xla" keeps the edge list (carry_edges)
 
         self.model = Seq2Seq(self.cfg, self.gcfg, use_climatology).to(self.device).eval()
         init_params(self.model, torch.Generator().manual_seed(seed))

@@ -22,6 +22,7 @@ from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
 from quadtree_mpnnlstm_tpu_torch.graph.state import flatten, unflatten
 from quadtree_mpnnlstm_tpu_torch.models.conv import a_mul
 from quadtree_mpnnlstm_tpu_torch.ops import grid
+from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
 
 SHAPES = [(16, 24), (13, 20)]
@@ -134,8 +135,14 @@ def test_grid_config_checks():
         GraphConfig(image_shape=(8, 8), thresh=0.1, aggregation="grid")
     with pytest.raises(ValueError, match="n_max"):
         GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="grid", n_max=32)
+    edge_list = GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="xla")
+    assert (edge_list.n_max, edge_list.e_max) == (64, 256)
+    with pytest.raises(ValueError, match="aggregation"):
+        GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="cuda")
     with pytest.raises(ValueError, match="not ported"):
-        GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="xla")
-    with pytest.raises(ValueError, match="grid_attn"):
-        GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="grid", grid_attn="cuda")
+        GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="pallas")
+    # a JAX-style graph_kwargs may carry grid_attn, which the port has not
+    tp = NextFramePredictorS2S((8, 8), NEG_INF, decompose=False, device="cpu",
+                               graph_kwargs=dict(aggregation="grid", grid_attn="pallas"))
+    assert tp.gcfg.aggregation == "grid" and not hasattr(tp.gcfg, "grid_attn")
     assert GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="grid").n_max == 64

@@ -56,7 +56,7 @@ VARS = 5
 T_IN, T_OUT = 3, 4
 GRID = dict(image_shape=SHAPE, thresh=NEG_INF, aggregation="grid", use_edge_attrs=True)
 # the JAX package takes its Pallas kernel only with grid_attn="pallas"; the
-# port's grid attention is the same on either value, so its configs leave it
+# port has one grid attention and no such field
 J_GRID = dict(GRID, grid_attn="pallas")
 MODEL = dict(hidden_size=8, dropout=0.1, input_features=VARS, input_timesteps=T_IN,
              output_timesteps=T_OUT, n_layers=1, n_conv_layers=3,

@@ -341,3 +341,146 @@ def test_grid_attn_wrappers_reject_bad_inputs(card):
     with pytest.raises(ValueError):  # keep planes of the wrong shape
         grid_attn._grid_attn_fwd_cuda(q, k, v, e_dir, valid, torch.ones(2, 4, 143, 2,
                                                                         device=card), dims)
+
+
+# ---------------------------------------------------------------- segment sum
+
+
+def _segment_case(device, f, sorted_ids, batch=2, length=6000, n_out=1500, seed=0):
+    """Seeded values (B, L, F) and ids (B, L): a tenth of the entries
+    sentinels (n_out), one negative id, a band of empty buckets, and
+    buckets of 0 to ~20 entries (the pixelwise mesh has 1 to 4)."""
+    rng = np.random.default_rng(seed + f)
+    ids = rng.integers(0, n_out, (batch, length))
+    ids[(ids > 100) & (ids < 140)] -= 40
+    ids[:, ::10] = n_out
+    if sorted_ids:
+        ids = np.sort(ids, axis=1)
+    else:
+        ids[:, 7] = -1
+    values = rng.standard_normal((batch, length, f)).astype(np.float32)
+    return torch.from_numpy(values).to(device), torch.from_numpy(ids).to(device), n_out
+
+
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("f", [1, 2, 3, 17, 32, 33, 70, 256, 300])
+def test_segment_sum_kernel_matches_plain(card, f, sorted_ids):
+    """K7 against ``segment_sum_plain`` at ragged F, through the view of
+    sorted ids (offsets only) and of unsorted ones: ≤1e-6 × max(1,
+    max|out|), and bit for bit where no bucket holds 32 entries (the
+    accumulating ``index_put_`` sums in entry order there)."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    values, ids, n_out = _segment_case(card, f, sorted_ids)
+    view = segment_sum.segment_view(ids, n_out, sorted_ids=sorted_ids)
+    assert (view.order is None) == sorted_ids
+    before = segment_sum.LAUNCHES["segment_sum"]
+    out = segment_sum._segment_sum_cuda(values, ids, n_out, view)
+    torch.cuda.synchronize()
+    assert segment_sum.LAUNCHES["segment_sum"] == before + 1
+    plain = segment_sum.segment_sum_plain(values, ids, n_out)
+    err = float((out - plain).abs().max())
+    assert err <= 1e-6 * max(1.0, float(plain.abs().max())), err
+    assert not out[:, 101:140].any()
+    torch.testing.assert_close(out, plain, rtol=0, atol=0)
+
+
+def test_segment_sum_kernel_all_sentinels_and_batch(card):
+    """Ids that are all dropped give zeros; a batch of 2 is each sample's
+    own sum, as one launch."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    values, ids, n_out = _segment_case(card, 33, sorted_ids=False)
+    dropped = torch.full_like(ids, n_out)
+    out = segment_sum.segment_sum(values, dropped, n_out)
+    assert out.shape == (2, n_out, 33) and not out.any()
+    both = segment_sum.segment_sum(values, ids, n_out)
+    for b in range(2):
+        alone = segment_sum.segment_sum(values[b:b + 1], ids[b:b + 1], n_out)
+        assert torch.equal(both[b:b + 1], alone)
+
+
+def test_segment_sum_on_the_card_goes_through_the_kernel(card):
+    """A CUDA ``segment_sum`` on values that need a gradient carries the
+    ``SegmentSum`` node and launches K7 once; its backward is the row
+    gather (0 at a dropped id) and launches nothing; two launches are
+    bit-identical."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    values, ids, n_out = _segment_case(card, 256, sorted_ids=False)
+    values.requires_grad_(True)
+    before = segment_sum.LAUNCHES["segment_sum"]
+    out = segment_sum.segment_sum(values, ids, n_out)
+    assert type(out.grad_fn).__name__ == "SegmentSumBackward"
+    assert segment_sum.LAUNCHES["segment_sum"] == before + 1
+    g = torch.randn(out.shape, device=card, generator=torch.Generator(card).manual_seed(0))
+    (grad,) = torch.autograd.grad(out, values, g)
+    assert segment_sum.LAUNCHES["segment_sum"] == before + 1
+    assert torch.equal(grad, segment_sum.gather_rows_plain(g, ids, n_out))
+    assert not grad[:, ::10].any()
+    assert torch.equal(segment_sum.segment_sum(values, ids, n_out), out)
+
+
+def test_segment_backend_routes_cuda_tensors_to_the_kernel(card):
+    """On a CUDA tensor ``segment_sum_nodes`` and a gather's backward each
+    launch K7 once, and a gather with ``routed=False`` (the plain
+    references') none; the sums are the plain version's bit for bit."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment, segment_sum
+
+    values, ids, n_out = _segment_case(card, 8, sorted_ids=False)
+    nodes = values[:, :n_out].clone().requires_grad_(True)
+    plain = segment_sum.segment_sum_plain(values, ids, n_out)
+    before = segment_sum.LAUNCHES["segment_sum"]
+    s = segment.segment_sum_nodes(values, ids, n_out)
+    assert segment_sum.LAUNCHES["segment_sum"] == before + 1
+    (g,) = torch.autograd.grad(segment.gather_nodes(nodes, ids, n_out), nodes, values)
+    assert segment_sum.LAUNCHES["segment_sum"] == before + 2
+    (g_plain,) = torch.autograd.grad(segment.gather_nodes(nodes, ids, n_out, routed=False),
+                                     nodes, values)
+    assert segment_sum.LAUNCHES["segment_sum"] == before + 2
+    assert torch.equal(s, plain) and torch.equal(g, plain) and torch.equal(g_plain, plain)
+
+
+def test_graphs_built_on_the_card_carry_their_views(card):
+    """A pixelwise edge-list graph built on the card carries the CSR views
+    of pixel_node, edge_dst (offsets only: it is sorted) and edge_src, and
+    they equal the views built from the ids; a quadtree graph that drops
+    its edge list drops their views too."""
+    from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
+    from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+    from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
+
+    x = torch.rand((2, 2, 16, 16, 1), device=card, generator=torch.Generator(card).manual_seed(0))
+    img = add_positional_encoding(x)
+    graph, _ = image_to_graph(img, GraphConfig(image_shape=(16, 16), thresh=float("-inf"),
+                                               aggregation="xla"))
+    n_max = graph.n_max
+    for view, ids, sorted_ids in ((graph.pixel_view, graph.pixel_node, False),
+                                  (graph.dst_view, graph.edge_dst, True),
+                                  (graph.src_view, graph.edge_src, False)):
+        want = segment_sum.segment_view(ids, n_max, sorted_ids=sorted_ids)
+        assert (view.order is None) == sorted_ids
+        assert torch.equal(view.offsets, want.offsets)
+        assert sorted_ids or torch.equal(view.order, want.order)
+    windows, _ = image_to_graph(img, GraphConfig(image_shape=(16, 16), thresh=0.1,
+                                                 max_grid_size=8, n_max=256, e_max=1280,
+                                                 agg_nt=32, agg_eb=128, agg_sw=128,
+                                                 aggregation="pallas", carry_edges=False))
+    assert windows.pixel_view is not None
+    assert windows.dst_view is None and windows.src_view is None
+
+
+def test_segment_sum_wrapper_rejects_bad_inputs(card):
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    values, ids, n_out = _segment_case(card, 4, sorted_ids=True)
+    view = segment_sum.segment_view(ids, n_out, sorted_ids=True)
+    with pytest.raises(TypeError):
+        segment_sum._segment_sum_cuda(values.double(), ids, n_out, view)
+    with pytest.raises(ValueError):
+        segment_sum._segment_sum_cuda(values.cpu(), ids, n_out, view)
+    with pytest.raises(ValueError):  # a view of another bucket count
+        segment_sum._segment_sum_cuda(values, ids, n_out + 1, view)
+    with pytest.raises(ValueError):  # ids of another length
+        segment_sum._segment_sum_cuda(values, ids[:, 1:], n_out, view)

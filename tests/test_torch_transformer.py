@@ -279,7 +279,7 @@ def test_eval_forecast_is_deterministic(run):
 @pytest.mark.parametrize("model,graph", [
     (dict(convolution_type="MHTransformerConv"), {}),
     (dict(convolution_type="GATConv"), {}),
-    (dict(convolution_type="TransformerConv"), dict(aggregation="xla")),
+    (dict(convolution_type="GATv2Conv"), {}),
 ])
 def test_unported_attention_options_raise(model, graph):
     with pytest.raises(ValueError, match="not ported"):
