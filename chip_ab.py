@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Time the remeshing quadtree paths of one checkout of the port on one CUDA
+card: a forecast batch (``predict``) and a train step (``train_step``) of
+``bench.py``'s 64×64 Moving-MNIST model (``chip_smoke.py`` phases 2, 5, 9
+and 11: batch 16, T_in 4 → T_out 10, thresh 0.1, random weights from
+``--seed``), with ChebConv and with TransformerConv.
+
+    python3 chip_ab.py [--tree DIR] [--reps 5] [--seed 0]
+
+``--tree`` imports the port's package from another checkout, for example a
+parent commit unpacked into a git-ignored directory, so that one script
+times two versions in turns on one card (parent, change, change, parent).
+Each forecast and each step is timed alone on the host clock, after a
+warm-up, and ends in ``torch.cuda.synchronize()``. Prints one JSON line
+with every sample, its median and the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import sys
+import tempfile
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _timed(fn, reps: int) -> list:
+    import torch
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", default=HERE)
+    parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA card", file=sys.stderr)
+        return 2
+    # this checkout's model definitions, the other tree's package
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    from quadtree_mpnnlstm_tpu_torch.data.loader import DataLoader
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+
+    package = sys.modules["quadtree_mpnnlstm_tpu_torch"].__file__
+    if not package.startswith(tree):
+        raise RuntimeError(f"imported the port from {package}, not from {tree}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = ModMovingMNISTDataset(
+        cs.BATCH, input_timesteps=cs.T_IN, output_timesteps=cs.T_OUT, canvas_size=cs.CANVAS,
+        digit_size=cs.DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=args.seed,
+    )
+    loader = DataLoader(ds, batch_size=cs.BATCH)
+    _, batches = cs.train_batches(args.seed, 1)
+    x, y = batches[0]
+    run_dir = tempfile.TemporaryDirectory()
+    result = {"tree": tree, "card": cs.card_line(), "reps": args.reps}
+    for conv in ("ChebConv", "TransformerConv"):
+        model = cs.make_model(args.seed, run_dir.name, conv)
+        forecast = _timed(lambda: model.predict(loader), args.reps)
+        trainer = cs.make_trainer(args.seed, run_dir.name, conv)
+        step = _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps)
+        for name, samples in (("forecast_s", forecast), ("step_s", step)):
+            result[f"{conv}_{name}"] = samples
+            result[f"{conv}_{name}_median"] = statistics.median(samples)
+        del model, trainer
+        torch.cuda.empty_cache()
+    print(json.dumps(result), flush=True)
+    run_dir.cleanup()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

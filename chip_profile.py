@@ -23,7 +23,9 @@ K2b, K3, K4, K5, K6 and K7 is given apiece: their launchers run inside
 are one kernel, told apart by the range that launched it; K4's and K6's
 ranges also hold the fixed-order sums of their partials), which the profiler mirrors on
 the device as annotation spans; those spans, and the optimizer's, are
-kept out of the kernel sums and the busy time.
+kept out of the kernel sums and the busy time. The per-mesh views a
+remesh builds (the CSR views, K4's ``slot_view``) get ranges too, with
+their host time beside their device span.
 """
 
 from __future__ import annotations
@@ -45,22 +47,27 @@ RANGES = {("spmm", "_build_blocks_cuda"): "spmm_build_blocks",
           ("attn", "_attn_bwd_cuda"): "attn_apply_bwd",
           ("grid_attn", "_grid_attn_fwd_cuda"): "grid_attn_apply",
           ("grid_attn", "_grid_attn_bwd_cuda"): "grid_attn_apply_bwd",
-          ("segment_sum", "_segment_sum_cuda"): "segment_sum"}
+          ("segment_sum", "_segment_sum_cuda"): "segment_sum",
+          # the per-mesh views a remesh builds (integer ops, no kernel of ours):
+          # the graph build's CSR views (pixel_node's; edge_dst's and
+          # edge_src's where the edge list is built) and K4's slot view
+          ("build", "segment_view"): "csr_views",
+          ("attn", "slot_view"): "slot_view"}
 # the port's kernels by the start of their device names (csrc/*.cu)
 KERNELS = {"build_blocks_kernel": "::build_blocks_kernel(", "apply_kernel": "::apply_kernel(",
            "attn_fwd_kernel": "::attn_fwd_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<",
+           "attn_bwd_src_kernel": "::attn_bwd_src_kernel<",
            "grid_attn_fwd_kernel": "::grid_attn_fwd_kernel<",
-           "grid_attn_bwd_dst_kernel": "::grid_attn_bwd_dst_kernel<",
-           "grid_attn_bwd_src_kernel": "::grid_attn_bwd_src_kernel<",
+           "grid_attn_bwd_kernel": "::grid_attn_bwd_kernel<",
            "segment_sum_kernel": "::segment_sum_kernel<"}
 
 
 def _in_range(fn, name):
     import torch
 
-    def wrapped(*args):
+    def wrapped(*args, **kw):
         with torch.profiler.record_function(name):
-            return fn(*args)
+            return fn(*args, **kw)
 
     return wrapped
 
@@ -112,9 +119,11 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from quadtree_mpnnlstm_tpu_torch.graph import build
     from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn, segment_sum, spmm
 
-    modules = {"spmm": spmm, "attn": attn, "grid_attn": grid_attn, "segment_sum": segment_sum}
+    modules = {"spmm": spmm, "attn": attn, "grid_attn": grid_attn, "segment_sum": segment_sum,
+               "build": build}
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA card")
@@ -158,11 +167,15 @@ def main() -> int:
     port_us = sum(us for name, us in by_name.items()
                   if any(pat in name for pat in KERNELS.values()))
     per_range = {name: 0.0 for name in RANGES.values()}
+    host_range = {name: 0.0 for name in RANGES.values()}
     calls = {name: 0 for name in RANGES.values()}
     for e in device:
         if e.name in per_range:
             per_range[e.name] += e.time_range.elapsed_us()
             calls[e.name] += 1
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in host_range:
+            host_range[e.name] += e.time_range.elapsed_us()
     print(json.dumps({
         "card": chip_smoke.card_line(),
         "workload": args.workload, "path": "train_step" if args.train else "forecast",
@@ -178,6 +191,7 @@ def main() -> int:
         "port_kernel_ms_by_name": {k: sum(us for n, us in by_name.items() if pat in n) / 1e3
                                    / args.reps for k, pat in KERNELS.items()},
         "kernel_ms_per_batch": {n: us / 1e3 / args.reps for n, us in per_range.items()},
+        "range_host_ms_per_batch": {n: us / 1e3 / args.reps for n, us in host_range.items()},
         "kernel_launches_per_batch": {n: c / args.reps for n, c in calls.items()},
         "top_kernels_ms_per_batch": [[n[:90], us / 1e3 / args.reps] for n, us in top],
     }))

@@ -50,8 +50,10 @@ Phases (each prints one line; any failure raises and exits non-zero):
 10. attention kernels vs plain: K3 against ``attn_plain`` on the first
    decoder step's operands at every HD of the path (≤1e-5), K4 against
    autograd through ``attn_plain`` on the cotangents of one train step at
-   every HD (≤1e-5 × max(1, max|grad|)); both timed with CUDA events beside
-   their bounds;
+   every HD (≤1e-5 × max(1, max|grad|)), through the graph's slot view;
+   K3 timed with CUDA events, K4's whole backward (both kernels, the dWₑ
+   sum) by CUDA graph and by events, beside their bounds; the per-mesh
+   view builds (pixel view, K4's slot view) timed on a decoder mesh;
 11. attention train path: ``train_step`` (attention dropout 0.1 from the
    trainer's generator): a warm-up step in which every K3 output whose
    inputs need a gradient carries the ``AttnApply`` node, then 8 timed
@@ -61,6 +63,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
    kernels and one on the plain versions from the same weights and
    generator (identical meshes, every gradient leaf ≤1e-4 ×
    max(1, max|g|)), and the kernel step again, bit-identical;
+12b. window gate: one teacher-forced train step (ratio 1.0: every
+   decoder step remeshes on a true frame of the sprite-rendered batch) of
+   the ChebConv model and one of the TransformerConv model; every K1 call
+   exact, every K2, K2b, K3 call ≤1e-5 and every K4 call ≤1e-5 ×
+   max(1, max|grad|) against the plain versions on those near-capacity
+   meshes; prints the largest window fill (edges a tile against EB,
+   source spread against SW) and checks the overflow counter is 0;
 13. grid path: the sea-ice flagship through ``predict`` — the JAX
    package's committed config (``bench.py`` ice workload): the pixelwise
    224×304 grid (``aggregation="grid"``, the ice mask), 5 variables,
@@ -75,7 +84,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    decoder step's operands at H 256, 32 and 1, with and without a keep
    plane (≤1e-5), K6 against autograd through ``grid_attn_plain`` on the
    cotangents of one train step at each H, with and without its keep
-   planes (≤1e-5 × max(1, max|grad|)); all timed beside their bounds;
+   planes (≤1e-5 × max(1, max|grad|)); all timed beside their bounds, K6
+   by CUDA graph and by events;
 15. grid rollout vs plain: the whole 90-step forecast on the plain K5,
    ≤1e-4 at every step (the mesh is fixed);
 16. grid train path: ``train_step`` at batch 1 (full BPTT, attention
@@ -207,13 +217,15 @@ def graph_ms(fn, reps: int = REPS, replays: int = 5) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
-def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv"):
+def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
+               teacher_forcing_ratio: float = 0.0):
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
         image_shape=CANVAS, thresh=0.1,
         input_features=1, input_timesteps=T_IN, output_timesteps=T_OUT,
         device=DEVICE, seed=seed, run_dir=run_dir,
+        teacher_forcing_ratio=teacher_forcing_ratio,
         model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
                           convolution_type=conv),
         graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
@@ -264,9 +276,10 @@ class Capture:
             p.stop()
 
 
-def make_trainer(seed: int, run_dir: str, conv: str = "ChebConv"):
+def make_trainer(seed: int, run_dir: str, conv: str = "ChebConv",
+                 teacher_forcing_ratio: float = 0.0):
     """The main path's model, ready to train (Adam at lr 0.01, γ 0.95)."""
-    model = make_model(seed, run_dir, conv)
+    model = make_model(seed, run_dir, conv, teacher_forcing_ratio)
     model.initiate_training(lr=LR, lr_decay=0.95)
     return model
 
@@ -371,6 +384,28 @@ class CaptureBwd:
         self.per_width[f] = self.per_width.get(f, 0) + 1
         self.first.setdefault(f, args)
         return self._launch(*args)
+
+    def __enter__(self):
+        self._patch = mock.patch.object(self.module, self.name, self)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+class Record:
+    """Wraps a module function during a run and keeps the arguments and
+    the result of every call."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls, self.results = module, name, [], []
+        self._fn = getattr(module, name)
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        self.results.append(self._fn(*args))
+        return self.results[-1]
 
     def __enter__(self):
         self._patch = mock.patch.object(self.module, self.name, self)
@@ -787,15 +822,35 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
             rel[name] = errs[name] / max(1.0, float(p.abs().max()))
         check(max(rel.values()) <= K4_TOL, f"K4 differs from the plain backward at HD={hd}: "
               f"{rel}")
+        check(args[8] is not None, "K4 ran without the graph's slot view")
         bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=True)
+        # the whole backward: both kernels, the dWₑ sum and the allocations,
+        # on the graph's view; by graph (the card's own time) and by events
         bwd.append(dict(HD=hd, calls=cap_b.per_width[hd], abs_err=errs, err_rel_to_max=rel,
                         max_abs_err=max(errs.values()), keep=args[4] is not None,
                         live_tiles=int(args[5].live.long().sum()),
-                        ms=cuda_ms(lambda: attn._attn_bwd_cuda(*args)),
+                        ms=graph_ms(lambda: attn._attn_bwd_cuda(*args)),
+                        events_ms=cuda_ms(lambda: attn._attn_bwd_cuda(*args)),
                         plain_ms=cuda_ms(lambda: attn.attn_bwd_plain(*args)),
                         bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    # the per-mesh views a remesh builds on this path: the pixel view (K7's
+    # pooling) and K4's source-sorted slot view, timed on one decoder mesh
+    from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
+    from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
+
+    graph, _ = image_to_graph(add_positional_encoding(torch.as_tensor(y_g[:, :1],
+                                                                      device=DEVICE)),
+                              model.gcfg)
+    vdims = attn.AttnDims(model.gcfg.n_max, model.gcfg.agg_nt, model.gcfg.agg_eb,
+                          model.gcfg.agg_sw, 1, 1)
+    views = dict(pixel_view_ms=cuda_ms(lambda: segment_sum.segment_view(graph.pixel_node,
+                                                                         model.gcfg.n_max)),
+                 slot_view_ms=cuda_ms(lambda: attn.slot_view(graph.attn_meta, vdims)),
+                 meshes_per_step=1 + T_OUT)
+    views["per_step_ms"] = views["meshes_per_step"] * (views["pixel_view_ms"]
+                                                      + views["slot_view_ms"])
     print(json.dumps({"phase": "attn_kernels_vs_plain", "card": card, "k3_by_width": fwd,
-                      "k4_by_width": bwd}), flush=True)
+                      "k4_by_width": bwd, "views": views}), flush=True)
 
     # ---- phase 11: train_step on the attention path
     trainer = make_trainer(seed, run_dir.name, conv)
@@ -864,6 +919,91 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
                       "bit_identical": same}), flush=True)
     run_dir.cleanup()
     return launches, train_launches, fwd, bwd
+
+
+def window_fill(src_rel, dst_rel, live):
+    """(edges in the fullest live tile, the widest source spread of a live
+    tile): what a mesh asks of EB and SW."""
+    import torch
+
+    tile = torch.arange(src_rel.shape[1], device=src_rel.device)[None, :, None]
+    ok = (dst_rel >= 0) & (tile < live[:, None, None])
+    spread = torch.where(ok, src_rel.long(), -1).amax(dim=-1) + 1
+    return int(ok.sum(dim=-1).max()), int(spread.max())
+
+
+def capacity_phase(seed: int, card: str, spmm, attn) -> dict:
+    """Phase 12b: K1-K4 against their plain versions on near-capacity
+    windows: every call of one teacher-forced train step
+    (``teacher_forcing_ratio=1.0``, so each decoder step remeshes on a true
+    frame of the sprite-rendered batch) of the ChebConv model (K1, K2, K2b)
+    and of the TransformerConv model (K3, K4), with the windows' largest
+    fill against EB and SW and the overflow counter."""
+    import torch
+
+    run_dir = tempfile.TemporaryDirectory()
+    _, batches = train_batches(seed, 1)
+    x_g, y_g = batches[0]
+    meshes = 1 + T_OUT
+
+    trainer = make_trainer(seed, run_dir.name, "ChebConv", teacher_forcing_ratio=1.0)
+    with Record(spmm, "_build_blocks_cuda") as k1, Record(spmm, "_apply_cuda") as k2, \
+            Record(spmm, "_apply_bwd_cuda") as k2b:
+        _, overflow_c = trainer.train_step(x_g, y_g)
+    check(len(k1.calls) == meshes, f"K1 built {len(k1.calls)} meshes, expected {meshes}")
+    fills = [window_fill(a[0], a[1], a[3]) for a in k1.calls]
+    for i, a in enumerate(k1.calls):
+        check(torch.equal(spmm._build_blocks_cuda(*a), spmm.build_blocks_plain(*a)),
+              f"K1 differs from its plain version on near-capacity mesh {i}")
+    with torch.no_grad():
+        k2_err = max(float((spmm._apply_cuda(*a) - spmm.apply_plain(*a)).abs().max())
+                     for a in k2.calls)
+        k2b_err = max(float((spmm._apply_bwd_cuda(*a) - spmm.apply_plain(*a)).abs().max())
+                      for a in k2b.calls)
+    check(k2_err <= K2_TOL and k2b_err <= K2_TOL,
+          f"K2 / K2b differ from the plain product on near-capacity windows: {k2_err}, "
+          f"{k2b_err}")
+    k2_calls, k2b_calls = len(k2.calls), len(k2b.calls)
+    del trainer, k1, k2, k2b
+
+    trainer = make_trainer(seed, run_dir.name, "TransformerConv", teacher_forcing_ratio=1.0)
+    with Record(attn, "_attn_fwd_cuda") as k3, Record(attn, "_attn_bwd_cuda") as k4, \
+            Record(attn, "attn_tile_meta") as windows:
+        _, overflow_t = trainer.train_step(x_g, y_g)
+    check(len(windows.results) == meshes, f"{len(windows.results)} window builds, expected "
+          f"{meshes}")
+    # every mesh but the last remesh's (which feeds no step) runs K3
+    ran = {a[5].src_rel.data_ptr() for a in k3.calls}
+    check(len(ran) == T_OUT, f"K3 ran on {len(ran)} meshes, expected {T_OUT}")
+    k3_err, k4_rel = 0.0, 0.0
+    for a in k3.calls:
+        with torch.no_grad():
+            k3_err = max(k3_err, float((attn._attn_fwd_cuda(*a) - attn.attn_plain(*a))
+                                       .abs().max()))
+    for a in k4.calls:
+        for kern, plain in zip(attn._attn_bwd_cuda(*a), attn.attn_bwd_plain(*a)):
+            k4_rel = max(k4_rel, float((kern - plain).abs().max())
+                         / max(1.0, float(plain.abs().max())))
+    check(k3_err <= K3_TOL and k4_rel <= K4_TOL,
+          f"K3 / K4 differ from their plain versions on near-capacity windows: {k3_err}, "
+          f"{k4_rel}")
+    fills += [window_fill(m.src_rel, m.dst_rel, m.live) for m, _ in windows.results]
+    overflow = max(int(overflow_c), int(overflow_t))
+    check(overflow == 0, f"mesh overflow {overflow} on the teacher-forced meshes")
+    eb, sw = trainer.gcfg.agg_eb, trainer.gcfg.agg_sw
+    result = dict(phase="window_gate", card=card, teacher_forcing_ratio=1.0, meshes=meshes,
+                  overflow=overflow, eb=eb, sw=sw,
+                  max_edges_per_tile=max(f[0] for f in fills),
+                  max_source_spread=max(f[1] for f in fills),
+                  decoder_edges_per_tile=[f[0] for f in fills[1:meshes]],
+                  decoder_source_spread=[f[1] for f in fills[1:meshes]],
+                  k1_builds=meshes, k1_exact=True, k2_calls=k2_calls, k2_max_abs_err=k2_err,
+                  k2b_calls=k2b_calls, k2b_max_abs_err=k2b_err,
+                  k3_calls=len(k3.calls), k3_max_abs_err=k3_err,
+                  k4_calls=len(k4.calls), k4_max_err_rel=k4_rel)
+    print(json.dumps(result), flush=True)
+    run_dir.cleanup()
+    return result
 
 
 def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
@@ -968,9 +1108,13 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
             bound, b_ms, o_ms = grid_bound_ms(kargs, backward=True)
             # a flagship train step launches K6 once per K5 of its forward,
             # so it weighs the widths as the forecast does
+            # the whole backward (the kernel and the de_dir sum), by graph
+            # (the card's own time) and by events
             bwd.append(dict(H=hd, calls=cap.per_width[hd], keep=kargs[5] is not None,
                             abs_err=errs, err_rel_to_max=rel, max_abs_err=max(errs.values()),
-                            ms=cuda_ms(lambda: grid_attn._grid_attn_bwd_cuda(*kargs)),
+                            plan=grid_attn.bwd_plan(kargs[6]),
+                            ms=graph_ms(lambda: grid_attn._grid_attn_bwd_cuda(*kargs)),
+                            events_ms=cuda_ms(lambda: grid_attn._grid_attn_bwd_cuda(*kargs)),
                             plain_ms=cuda_ms(lambda: grid_attn.grid_attn_bwd_plain(*kargs)),
                             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
     del cap, cap_b, args, kargs
@@ -1536,6 +1680,7 @@ def main() -> int:
                                               n_max)
     attn_launches, attn_train_launches, k3_widths, k4_widths = attn_phases(
         args.seed, card, spmm, attn, segment_sum, loader, x)
+    capacity_phase(args.seed, card, spmm, attn)
     grid_launches, grid_train_launches, k5_widths, k6_widths = grid_phases(
         args.seed, card, spmm, attn, grid_attn, segment_sum)
     edge_launches, edge_train_launches, k7_sets, k7_calls = edge_phases(
@@ -1584,6 +1729,7 @@ def main() -> int:
             # no PyTorch call adds per-edge (or per-direction) terms to keys
             # and values
             library_ms=None,
+            **({"events_ms": avg("events_ms")} if "events_ms" in widths[0] else {}),
             launches_by_path={"predict_batch": fwd_launches[name],
                               f"train_{steps}_steps": train_launches[name]})
 

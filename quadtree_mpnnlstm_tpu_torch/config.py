@@ -168,7 +168,8 @@ class ModelConfig:
     output_timesteps: int = 5
     n_layers: int = 1
     n_conv_layers: int = 3
-    convolution_type: str = "ChebConv"
+    # the JAX package's default; not ported yet, so a model names its conv
+    convolution_type: str = "GCNConv"
     rnn_type: str = "LSTM"
     binary: bool = False
     remesh_every: int = 1

@@ -22,23 +22,27 @@
 // max, running sum and the accumulator of p * keep * (v + e)); a row with
 // no slot gives 0, as the TPU kernel's clamp of the denominator does.
 //
-// K4 recomputes the row's max and denominator and the row dot
-// sum_j alpha_j * dalpha_j in a first pass over the slots, then in a second
-// pass forms dlogit = alpha * (dalpha - rowdot) and writes
+// K4 runs in two kernels with no float atomics, so a backward is
+// bit-reproducible. The first recomputes the row's max and denominator and
+// the row dot sum_j alpha_j * dalpha_j in a first pass over the slots, then
+// in a second pass forms dlogit = alpha * (dalpha - rowdot) and writes
 //   dq[n] = sum_j dlogit_j * scale * (k + e)_j   (the warp owns the row),
-//   dk_slot[j] = dlogit_j * scale * q[n],  dv_slot[j] = alpha_j * keep_j * g[n],
-// and accumulates dWe += attr_j (x) (dk_slot + dv_slot) in registers, then
-// sums the CTA's warps in a fixed order into one dWe partial per CTA. The
-// per-slot dk/dv rows and the dWe partials are summed outside the kernel
-// in a fixed order (ops/attn.py), so no float atomic is on the path and a
-// backward is bit-reproducible.
+// parks two scalars per slot and head, dlog_j = dlogit_j * scale and
+// used_j = alpha_j * keep_j (4 bytes each, not an HD-wide row), and
+// accumulates dWe += attr_j (x) (dlog_j q[n] + used_j g[n]) in registers,
+// then sums the CTA's warps in a fixed order into one dWe partial per CTA
+// (summed outside in a fixed order). The second (attn_bwd_src_kernel) is
+// owner-computes over the source-sorted slot view that the graph builds
+// once per mesh (ops/attn.py slot_view): the lanes of source node s gather
+//   dk[s] = sum_j dlog_j q[dst_j],  dv[s] = sum_j used_j g[dst_j]
+// over its slots in ascending slot order.
 //
 // Bound: both kernels are bound by bytes. Per live slot they read a k and
-// a v row (8*HD bytes; K4 also writes 8*HD bytes of partials) against
-// about 2*A*HD + 4*HD operations (K4 about twice that), far below the
-// card's 20 operations per byte of f32. What this simple design leaves on
-// the table (16-row CTAs on few live tiles, serial per-row slot loops, idle
-// lanes at HD < 32) is a later PR's work.
+// a v row (8*HD bytes; K4 also reads q and g rows again per source slot)
+// against about 2*A*HD + 4*HD operations (K4 about twice that), far below
+// the card's 20 operations per byte of f32. What this simple design leaves
+// on the table (16-row CTAs on few live tiles, serial per-row slot loops,
+// idle lanes at HD < 32 in the first kernel) is a later PR's work.
 //
 // Slots that are dead (dst_rel = -1), in dead tiles (t >= live[b]), or that
 // reach a padding row at or past n_max are skipped; a source outside the
@@ -72,9 +76,13 @@ struct Params {
   const int* live;
   const float* g;     // K4: the cotangent
   float* out;         // K3: out; K4: dq
-  float* dk_slot;     // K4: (B, T*EB, HD)
-  float* dv_slot;
+  float* dlog;        // K4: (B, T*EB, H) dlogit * scale per slot and head
+  float* used;        // K4: (B, T*EB, H) alpha * keep per slot and head
   float* dwe_part;    // K4: (B, T*groups, A, HD)
+  const int* order;   // K4: (B*T*EB) slots by source node (the source-sorted view)
+  const int* offsets; // K4: (B, n_max + 1) slot ranges of the source nodes
+  float* dk;          // K4: (B, n_max, HD)
+  float* dv;
   int T, EB, NT, SW, n_max, H, D, A, KH, rows;
   float scale;
 };
@@ -332,7 +340,6 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
         }
       }
       head_sums(buf, head, buf2, head2, p.H, p.D, p.scale, lane);
-      const long long slot = (w + j) * HD;
 #pragma unroll
       for (int i = 0; i < FPL; ++i) {
         const int f = lane + 32 * i;
@@ -344,8 +351,10 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
           dq[i] = fmaf(dlg, kj[i], dq[i]);
           const float dks = dlg * qf[i];
           const float dvs = alpha * kp * gf[i];
-          p.dk_slot[slot + f] = dks;
-          p.dv_slot[slot + f] = dvs;
+          if (f % p.D == 0) {  // the head's first lane parks its scalars
+            p.dlog[(w + j) * p.H + h] = dlg;
+            p.used[(w + j) * p.H + h] = alpha * kp;
+          }
 #pragma unroll
           for (int a = 0; a < kMaxA; ++a) dwe[a][i] = fmaf(at[a], dks + dvs, dwe[a][i]);
         }
@@ -373,6 +382,76 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
   }
 }
 
+// K4, second kernel: the owner of source node s gathers
+//   dk[s] = sum_j dlog_j,h * q[dst_j],  dv[s] = sum_j used_j,h * g[dst_j]
+// over the slots j whose source is s, in ascending slot order, through the
+// source-sorted view. LPR lanes a row (HD rounded up to a power of two, at
+// most 32), so at HD 1 a warp owns 32 rows.
+constexpr int kSrcThreads = 256;
+constexpr int kPerLane = 4;  // features a lane accumulates per pass over a row
+
+template <int LPR>
+__global__ void __launch_bounds__(kSrcThreads) attn_bwd_src_kernel(Params p, int B) {
+  const long long thread = static_cast<long long>(blockIdx.x) * kSrcThreads + threadIdx.x;
+  const long long row = thread / LPR;
+  const int sub = static_cast<int>(thread % LPR);
+  if (row >= static_cast<long long>(B) * p.n_max) return;
+  const int b = static_cast<int>(row / p.n_max);
+  const int n = static_cast<int>(row - static_cast<long long>(b) * p.n_max);
+  const int HD = p.H * p.D;
+  const long long L = static_cast<long long>(p.T) * p.EB;
+  const int* off = p.offsets + static_cast<long long>(b) * (p.n_max + 1) + n;
+  const int start = off[0], end = off[1];
+  for (int f0 = 0; f0 < HD; f0 += LPR * kPerLane) {
+    float dk[kPerLane], dv[kPerLane];
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+    for (int j = start; j < end; ++j) {
+      const long long e = p.order[j];  // b * L + t * EB + slot
+      const int t = static_cast<int>((e - b * L) / p.EB);
+      const long long drow = (static_cast<long long>(b) * p.n_max + t * p.NT + p.dst_rel[e]) * HD;
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i) {
+        const int f = f0 + sub + i * LPR;
+        if (f < HD) {
+          const long long at = e * p.H + f / p.D;
+          dk[i] = fmaf(p.dlog[at], p.q[drow + f], dk[i]);
+          dv[i] = fmaf(p.used[at], p.g[drow + f], dv[i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int f = f0 + sub + i * LPR;
+      if (f < HD) {
+        p.dk[row * HD + f] = dk[i];
+        p.dv[row * HD + f] = dv[i];
+      }
+    }
+  }
+}
+
+template <int LPR>
+cudaError_t launch_src(const Params& p, int B, cudaStream_t stream) {
+  const long long threads = static_cast<long long>(B) * p.n_max * LPR;
+  const unsigned blocks = static_cast<unsigned>((threads + kSrcThreads - 1) / kSrcThreads);
+  attn_bwd_src_kernel<LPR><<<blocks, kSrcThreads, 0, stream>>>(p, B);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_src_width(const Params& p, int B, cudaStream_t s) {
+  const int HD = p.H * p.D;
+  if (HD >= 32) return launch_src<32>(p, B, s);
+  if (HD > 8) return launch_src<16>(p, B, s);
+  if (HD > 4) return launch_src<8>(p, B, s);
+  if (HD > 2) return launch_src<4>(p, B, s);
+  if (HD == 2) return launch_src<2>(p, B, s);
+  return launch_src<1>(p, B, s);
+}
+
 bool bad_geometry(const Params& p) {
   return p.rows < 1 || p.rows > kMaxRows || p.A < 1 || p.A > kMaxA || p.H < 1 || p.D < 1 ||
          p.KH < 0 || p.KH > p.H || (p.KH == 0) != (p.keep == nullptr) || p.NT < 1 ||
@@ -393,6 +472,9 @@ cudaError_t launch(const Params& p, int B, bool backward, cudaStream_t stream) {
       if (err != cudaSuccess) return err;
     }
     attn_bwd_kernel<FPL><<<grid, kThreads, smem, stream>>>(p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_src_width(p, B, stream);
   } else {
     const size_t smem = sizeof(float) * (p.A * HD + kWarps * (HD + p.H));
     attn_fwd_kernel<FPL><<<grid, kThreads, smem, stream>>>(p);
@@ -421,18 +503,24 @@ extern "C" int qtm_attn_fwd(const float* q, const float* k, const float* v, cons
                             const int* dst_rel, const float* attr, const int* live, float* out,
                             int B, int T, int EB, int NT, int SW, int n_max, int H, int D, int A,
                             int KH, int rows, float scale, void* stream) {
-  const Params p{q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, nullptr, out,
-                 nullptr, nullptr, nullptr, T, EB, NT, SW, n_max, H, D, A, KH, rows, scale};
+  const Params p{q,       k,       v,       we,      keep,    s0,      src_rel, dst_rel,
+                 attr,    live,    nullptr, out,     nullptr, nullptr, nullptr, nullptr,
+                 nullptr, nullptr, nullptr, T,       EB,      NT,      SW,      n_max,
+                 H,       D,       A,       KH,      rows,    scale};
   return dispatch(p, B, false, stream);
 }
 
+// order (B*T*EB) and offsets (B, n_max + 1): the source-sorted slot view
+// (ops/attn.py slot_view); dlog and used (B, T*EB, H) scratch.
 extern "C" int qtm_attn_bwd(const float* q, const float* k, const float* v, const float* we,
                             const float* keep, const int* s0, const int* src_rel,
                             const int* dst_rel, const float* attr, const int* live,
-                            const float* g, float* dq, float* dk_slot, float* dv_slot,
-                            float* dwe_part, int B, int T, int EB, int NT, int SW, int n_max,
-                            int H, int D, int A, int KH, int rows, float scale, void* stream) {
-  const Params p{q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, g, dq,
-                 dk_slot, dv_slot, dwe_part, T, EB, NT, SW, n_max, H, D, A, KH, rows, scale};
+                            const float* g, const int* order, const int* offsets, float* dq,
+                            float* dk, float* dv, float* dlog, float* used, float* dwe_part,
+                            int B, int T, int EB, int NT, int SW, int n_max, int H, int D, int A,
+                            int KH, int rows, float scale, void* stream) {
+  const Params p{q,    k,        v,     we,      keep, s0, src_rel, dst_rel, attr, live,
+                 g,    dq,       dlog,  used,    dwe_part, order, offsets, dk, dv, T,
+                 EB,   NT,       SW,    n_max,   H,    D,  A,       KH,      rows, scale};
   return dispatch(p, B, true, stream);
 }

@@ -27,29 +27,36 @@
 // products kept apart from sums: K5 and its plain version agree bit for bit
 // on the card, so a 90-step rollout does not drift between them.
 //
-// K6 runs in two kernels and uses no float atomics, so a backward is
-// bit-reproducible:
-//   1. per destination pixel (grid_attn_bwd_dst_kernel): recompute alpha as
-//      K5 does; dalpha_i = keep_i * g[p] . (v + e)_i and rowdot = sum_i
-//      alpha_i * dalpha_i; then per direction dlogit_i = alpha_i * (dalpha_i
-//      - rowdot) * scale and used_i = alpha_i * keep_i; write dq[p] =
-//      sum_i dlogit_i (k + e)_i and the small (D, heads) planes dlog and
-//      used of the pixel (zero where direction i has no edge). The CTA also
-//      writes its partial of de_i = sum over the pixels of dlog_i q +
-//      used_i g, its warps added in warp order; the wrapper sums the
-//      partials in a fixed order;
-//   2. per source pixel (grid_attn_bwd_src_kernel): gather
-//      dk[s] = sum_i dlog_i[s + off_i] q[s + off_i] and
-//      dv[s] = sum_i used_i[s + off_i] g[s + off_i] from the destinations
-//      (r + dr, c + dc) of its D out-edges, in direction order.
+// K6 is one kernel with no float atomics, so a backward is bit-reproducible.
+// Heads are independent (a head's alpha reads only its own d features), so
+// one CTA takes one 2-D pixel tile (tr x tc, sized by the host to the group
+// width) and one feature group of whole heads (up to 32 features, packing
+// several small heads; one head when d > 32), and stages in shared memory,
+// with cp.async, k and v on the tile's two-pixel halo and q and g on its
+// one-pixel ring. Then, all from shared memory:
+//   1. per (pixel, head) of the tile and its ring (LPI lanes an item, the
+//      lanes splitting the head's d features): recompute alpha as K5 does,
+//      dalpha_i = keep_i * g[p] . (v + e)_i, rowdot = sum_i alpha_i *
+//      dalpha_i, and park dlogit_i = alpha_i * (dalpha_i - rowdot) * scale
+//      and used_i = alpha_i * keep_i (zero where direction i has no edge);
+//   2. per (tile pixel, feature): dq[p] = sum_i dlogit_i(p) (k + e)_i over
+//      the in-edges, dk[p] = sum_i dlogit_i(p + off_i) q[p + off_i] and
+//      dv[p] = sum_i used_i(p + off_i) g[p + off_i] over the out-edges,
+//      whose destinations lie on the ring, in direction order;
+//   3. with 2., the tile's de_i partial, sum over its pixels of dlogit_i q
+//      + used_i g: each thread adds its pixels' terms in order, and the
+//      threads' rows are summed by a fixed pairwise tree; the wrapper sums
+//      the (tile) partials in a fixed order.
+// Each input is read from device memory about once; the halo re-reads of
+// neighbouring tiles come from L2. The ring's alphas are recomputed by the
+// tiles that share it: (tr + 2)(tc + 2) / (tr tc) of the softmax work.
 //
 // Bound: both are bound by bytes. K5 reads q, k, v once and writes out
 // (16 * H bytes a pixel) against about 6 * H * D operations; K6 reads q, k,
 // v and g and writes dq, dk and dv (28 * H bytes a pixel) against about
 // 14 * H * D operations: far below the card's 20 operations per byte of
-// f32. What this simple design leaves on the table (idle lanes at H < 32,
-// neighbour rows read once per sweep over the directions, K6's second
-// kernel reading q and g again) is a later PR's work.
+// f32. K5's lanes idle at H < 32 and it reads the neighbour rows from L2 on
+// each sweep over the directions; K5 is the next to redesign.
 //
 // Column wrap: a +-1 column shift is checked on the row and the column of
 // the source, so it never bleeds across a row end. The kernels take a
@@ -60,6 +67,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -83,13 +91,7 @@ struct Params {
   const float* e;      // (ND, H) per-direction edge terms
   const float* valid;  // (P,) 1 = valid pixel
   const float* keep;   // (B, ND, P, heads) or null (no dropout)
-  const float* g;      // K6: the cotangent (B, P, H)
-  float* out;          // K5: out; K6: dq
-  float* dk;           // K6 (B, P, H)
-  float* dv;
-  float* dlog;         // K6 scratch planes (B, ND, P, heads)
-  float* used;
-  float* de_part;      // K6 (B, blocks, ND, H)
+  float* out;          // (B, P, H)
   int rows, cols, heads, d;
   float scale;
 };
@@ -104,14 +106,6 @@ __device__ __forceinline__ int source(const Params& p, int r, int c) {
   return p.valid[src] != 0.f ? src : -1;
 }
 
-// Destination of direction i's out-edge from pixel (r, c), or -1 off the grid.
-template <int I>
-__device__ __forceinline__ int destination(const Params& p, int r, int c) {
-  const int rd = r + shift_r(I), cd = c + shift_c(I);
-  if (rd < 0 || rd >= p.rows || cd < 0 || cd >= p.cols) return -1;
-  return rd * p.cols + cd;
-}
-
 // The switches fold to one case once the loops over the directions are
 // unrolled.
 __device__ __forceinline__ int source_of(const Params& p, int dir, int r, int c) {
@@ -124,19 +118,6 @@ __device__ __forceinline__ int source_of(const Params& p, int dir, int r, int c)
     case 5: return source<5>(p, r, c);
     case 6: return source<6>(p, r, c);
     default: return source<7>(p, r, c);
-  }
-}
-
-__device__ __forceinline__ int destination_of(const Params& p, int dir, int r, int c) {
-  switch (dir) {
-    case 0: return destination<0>(p, r, c);
-    case 1: return destination<1>(p, r, c);
-    case 2: return destination<2>(p, r, c);
-    case 3: return destination<3>(p, r, c);
-    case 4: return destination<4>(p, r, c);
-    case 5: return destination<5>(p, r, c);
-    case 6: return destination<6>(p, r, c);
-    default: return destination<7>(p, r, c);
   }
 }
 
@@ -297,208 +278,325 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(Params p) {
   }
 }
 
-// K6, first kernel: one warp per destination pixel; the CTA's de_dir partial.
-template <int FPL, int ND>
-__global__ void __launch_bounds__(kThreads) grid_attn_bwd_dst_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int H = p.heads * p.d;
-  const int P = p.rows * p.cols;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y;
-  float* e_s = smem;                                  // ND * H
-  float* buf = smem + ND * H + warp * (H + p.heads);  // H + heads per warp
-  float* red = smem + ND * H + kWarps * (H + p.heads);  // kWarps * H: the warps' de terms
-  for (int x = threadIdx.x; x < ND * H; x += blockDim.x) e_s[x] = p.e[x];
-  __syncthreads();
-  const int pix = blockIdx.x * kWarps + warp;
-  // uniform across the warp; a warp past the end stays for the CTA's
-  // barriers and adds zeros to the partial
-  const bool live = pix < P;
-  const long long base = static_cast<long long>(b) * P;
-  const long long row = (base + (live ? pix : 0)) * H;
+// ---------------------------------------------------------------- K6
 
-  float qf[FPL], gf[FPL], rowdot[FPL], dq[FPL];
-#pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    qf[i] = live && f < H ? p.q[row + f] : 0.f;
-    gf[i] = live && f < H ? p.g[row + f] : 0.f;
-    rowdot[i] = 0.f;
-    dq[i] = 0.f;
-  }
-  int src[ND];
-  float alpha[ND][FPL];
-  if (live) {
-    softmax<FPL, ND>(p, b, pix, qf, e_s, buf, lane, src, alpha);
-  } else {
-#pragma unroll
-    for (int dir = 0; dir < ND; ++dir) src[dir] = -1;
-  }
-  // dalpha_i = keep_i * g . (v + e)_i, one value a head, is parked in the
-  // pixel's dlog plane until the second sweep replaces it with dlogit_i
-  // (registers would cost the kernel its second CTA an SM);
-  // rowdot = sum_i alpha_i * dalpha_i
-#pragma unroll
-  for (int dir = 0; dir < ND; ++dir) {
-    if (src[dir] < 0) continue;  // uniform across the warp
-    const long long plane = ((static_cast<long long>(b) * ND + dir) * P + pix) * p.heads;
-    float gv[FPL];
-    load_plus_e<FPL>(p.v, (base + src[dir]) * H, e_s + dir * H, H, lane, gv);
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) gv[i] = gf[i] * gv[i];
-    head_sums<FPL>(gv, buf, p, H, lane);
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      const int f = lane + 32 * i;
-      const float da = f < H ? keep_at(p, b, dir, ND, pix, f / p.d, P) * gv[i] : 0.f;
-      rowdot[i] = fmaf(alpha[dir][i], da, rowdot[i]);
-      if (f < H && f % p.d == 0) p.dlog[plane + f / p.d] = da;
+constexpr int kBwdThreads = 256;
+
+struct BwdParams {
+  const float* q;      // (B, P, H)
+  const float* k;
+  const float* v;
+  const float* e;      // (ND, H) per-direction edge terms
+  const float* valid;  // (P,) 1 = valid pixel
+  const float* keep;   // (B, ND, P, heads) or null (no dropout)
+  const float* g;      // the cotangent (B, P, H)
+  float* dq;           // (B, P, H)
+  float* dk;
+  float* dv;
+  float* de_part;      // (B, tiles, ND, H): one partial a (tile, feature group)
+  int rows, cols, heads, d;
+  int hpg;             // heads of one CTA's feature group
+  int tr, tc;          // the CTA's pixel tile
+  int vec4;            // stage rows with 16-byte copies
+  float scale;
+};
+
+// Lanes that share one (pixel, head) item of K6's softmax phase.
+__host__ __device__ constexpr int bwd_lpi(int d) { return d >= 4 ? 4 : d >= 2 ? 2 : 1; }
+
+// Row stride (floats) of a staged pixel row in shared memory: the smallest
+// s >= gw with s % (2 lpi) == lpi, so that the lpi lanes of the items of one
+// warp, each on its own pixel and reading features sub, sub + lpi, ..., hit
+// distinct banks; at lpi 4 it is a multiple of 4, so rows take 16-byte copies.
+__host__ __device__ constexpr int smem_stride(int gw, int lpi) {
+  int s = gw;
+  while (s % (2 * lpi) != lpi) ++s;
+  return s;
+}
+
+// Shared-memory floats of one K6 CTA: k and v on the tile's two-pixel halo,
+// q and g on its one-pixel ring (rows first, 16-byte aligned), the group's
+// edge terms, validity on the halo, keep, dlogit and used on the ring, and
+// the threads' de terms.
+__host__ __device__ inline long long bwd_smem_floats(int nd, int hpg, int d, int tr, int tc) {
+  const long long s = smem_stride(hpg * d, bwd_lpi(d));
+  const long long n2 = static_cast<long long>(tr + 4) * (tc + 4);
+  const long long n1 = static_cast<long long>(tr + 2) * (tc + 2);
+  return 2 * n2 * s + 2 * n1 * s + nd * hpg * d + n2 + 3LL * nd * n1 * hpg + nd * kBwdThreads;
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 4 : 0;  // 0 source bytes: zero-fill
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;  // 0 source bytes: zero-fill
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// Stage rows [f0, f0 + gw) of a and b for the w-wide pixel region with
+// origin (r0, c0) into rows of stride S; zero outside the grid. vec4: 16-byte
+// copies (gw, S, H and f0 multiples of 4, 16-byte aligned tensors).
+__device__ __forceinline__ void stage_rows(float* as, float* bs, const float* a, const float* b,
+                                           long long base, int H, int f0, int gw, int S,
+                                           int r0, int c0, int w, int n, int rows, int cols,
+                                           bool vec4) {
+  const int step = vec4 ? 4 : 1;
+  const int per = gw / step;
+  for (int x = threadIdx.x; x < n * per; x += kBwdThreads) {
+    const int px = x / per, f = (x - px * per) * step;
+    const int r = r0 + px / w, c = c0 + px % w;
+    const bool in = r >= 0 && r < rows && c >= 0 && c < cols;
+    const long long at = in ? (base + r * cols + c) * H + f0 + f : 0;
+    if (vec4) {
+      cp_async16(as + px * S + f, a + at, in);
+      cp_async16(bs + px * S + f, b + at, in);
+    } else {
+      cp_async4(as + px * S + f, a + at, in);
+      cp_async4(bs + px * S + f, b + at, in);
     }
   }
-  __syncwarp();  // the parked dalpha is visible to every lane of the warp
-  // dlogit_i = alpha_i * (dalpha_i - rowdot) * scale; dq, the planes, the
-  // CTA's de partial
-#pragma unroll
-  for (int dir = 0; dir < ND; ++dir) {
-    const long long plane = ((static_cast<long long>(b) * ND + dir) * P + pix) * p.heads;
-    float dl[FPL], us[FPL];
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      dl[i] = 0.f;
-      us[i] = 0.f;
+}
+
+// K6: one CTA per (pixel tile, feature group of whole heads, sample). LPI
+// lanes share one (pixel, head) item of the softmax phase. D, HPG, TR and
+// TC fix the head width, the heads of a group and the tile at compile time
+// for the flagship's widths, so that the index arithmetic folds; 0 reads
+// them from p (any geometry, a ragged last group included).
+template <int ND, int LPI, int D, int HPG, int TR, int TC>
+__global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p) {
+  extern __shared__ float smem[];
+  const int d = D ? D : p.d, hpg = HPG ? HPG : p.hpg;
+  const int tr = TR ? TR : p.tr, tc = TC ? TC : p.tc;
+  const int H = p.heads * d;
+  const int P = p.rows * p.cols;
+  const int b = blockIdx.z;
+  const int tiles_c = (p.cols + tc - 1) / tc;
+  const int r0 = (blockIdx.x / tiles_c) * tr, c0 = (blockIdx.x % tiles_c) * tc;
+  const int h0 = blockIdx.y * hpg;
+  const int gh = HPG ? HPG : min(hpg, p.heads - h0);  // heads of this group (the last may be ragged)
+  const int gw = gh * d, f0 = h0 * d;
+  const int S = smem_stride(gw, LPI), smax = smem_stride(hpg * d, LPI);
+  const int w2 = tc + 4, n2 = (tr + 4) * w2;  // the two-pixel halo, origin (r0-2, c0-2)
+  const int w1 = tc + 2, n1 = (tr + 2) * w1;  // the one-pixel ring, origin (r0-1, c0-1)
+  float* ks = smem;                           // n2 rows
+  float* vs = ks + n2 * smax;
+  float* qs = vs + n2 * smax;                 // n1 rows
+  float* gs = qs + n1 * smax;
+  float* e_s = gs + n1 * smax;                // ND * gw
+  float* vld = e_s + ND * hpg * d;            // n2
+  float* kps = vld + n2;                      // (ND, n1, hpg) keep
+  float* dls = kps + ND * n1 * hpg;           // (ND, n1, hpg) dlogit * scale
+  float* uss = dls + ND * n1 * hpg;           // (ND, n1, hpg) alpha * keep
+  float* red = uss + ND * n1 * hpg;           // ND * kBwdThreads: the de terms
+  const long long base = static_cast<long long>(b) * P;
+
+  // ---- stage: every operand of the tile is read from device memory once
+  stage_rows(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 2, c0 - 2, w2, n2, p.rows, p.cols,
+             p.vec4);
+  stage_rows(qs, gs, p.q, p.g, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
+             p.vec4);
+  if (p.keep != nullptr) {
+    for (int x = threadIdx.x; x < ND * n1 * gh; x += kBwdThreads) {
+      const int i = x / (n1 * gh), rest = x - i * n1 * gh, px = rest / gh, hh = rest - px * gh;
+      const int r = r0 - 1 + px / w1, c = c0 - 1 + px % w1;
+      const bool in = r >= 0 && r < p.rows && c >= 0 && c < p.cols;
+      const long long at =
+          in ? ((static_cast<long long>(b) * ND + i) * P + r * p.cols + c) * p.heads + h0 + hh : 0;
+      cp_async4(kps + (i * n1 + px) * hpg + hh, p.keep + at, in);
     }
-    if (src[dir] >= 0) {  // uniform across the warp
-      float kj[FPL];
-      load_plus_e<FPL>(p.k, (base + src[dir]) * H, e_s + dir * H, H, lane, kj);
+  }
+  for (int x = threadIdx.x; x < ND * gw; x += kBwdThreads)
+    e_s[x] = p.e[(x / gw) * H + f0 + x % gw];
+  for (int x = threadIdx.x; x < n2; x += kBwdThreads) {
+    const int r = r0 - 2 + x / w2, c = c0 - 2 + x % w2;
+    vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? p.valid[r * p.cols + c] : 0.f;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- softmax phase: alpha, dlogit and used once per (pixel, head,
+  // direction) of the tile and its ring (zero where there is no edge)
+  const int items = n1 * gh;
+  const int sub = threadIdx.x % LPI;
+  for (int it0 = 0; it0 < items; it0 += kBwdThreads / LPI) {  // uniform across the CTA
+    const int it = it0 + threadIdx.x / LPI;
+    const bool act = it < items;
+    const int px = act ? it / gh : 0, hh = act ? it - px * gh : 0;
+    const int rr = px / w1, cc = px - rr * w1;
+    const int p2 = (rr + 1) * w2 + cc + 1;
+    const bool self_ok = act && vld[p2] != 0.f;
+    float lq[ND], lg[ND];
 #pragma unroll
-      for (int i = 0; i < FPL; ++i) {
-        const int f = lane + 32 * i;
-        if (f < H) {
-          const float kp = keep_at(p, b, dir, ND, pix, f / p.d, P);
-          dl[i] = alpha[dir][i] * (p.dlog[plane + f / p.d] - rowdot[i]) * p.scale;
-          us[i] = alpha[dir][i] * kp;
-          dq[i] = fmaf(dl[i], kj[i], dq[i]);
+    for (int i = 0; i < ND; ++i) {
+      lq[i] = 0.f;
+      lg[i] = 0.f;
+    }
+    if (self_ok) {
+      const int fo = hh * d;
+#pragma unroll 4
+      for (int x = sub; x < d; x += LPI) {
+        const float fq = qs[px * S + fo + x], fg = gs[px * S + fo + x];
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          const int s2 = p2 - shift_r(i) * w2 - shift_c(i);
+          const float ek = e_s[i * gw + fo + x];
+          lq[i] = fmaf(fq, ks[s2 * S + fo + x] + ek, lq[i]);
+          lg[i] = fmaf(fg, vs[s2 * S + fo + x] + ek, lg[i]);
         }
       }
-      __syncwarp();  // every lane has read dalpha before it is overwritten
     }
-    // the lane of each head's first feature writes the planes (zero where
-    // the direction has no edge)
 #pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      const int f = lane + 32 * i;
-      if (live && f < H && f % p.d == 0) {
-        p.dlog[plane + f / p.d] = dl[i];
-        p.used[plane + f / p.d] = us[i];
+    for (int o = LPI / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        lq[i] += __shfl_xor_sync(kFull, lq[i], o);
+        lg[i] += __shfl_xor_sync(kFull, lg[i], o);
       }
-      if (f < H) red[warp * H + f] = dl[i] * qf[i] + us[i] * gf[i];
+    bool has[ND];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      has[i] = self_ok && vld[p2 - shift_r(i) * w2 - shift_c(i)] != 0.f;
+      lq[i] *= p.scale;
+      if (has[i]) mx = fmaxf(mx, lq[i]);
     }
-    __syncthreads();
-    float* part = p.de_part + ((static_cast<long long>(b) * gridDim.x + blockIdx.x) * ND + dir) * H;
-    for (int f = threadIdx.x; f < H; f += kThreads) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += red[w * H + f];
-      part[f] = s;
+    float den = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      lq[i] = has[i] ? expf(lq[i] - mx) : 0.f;
+      den += lq[i];
     }
-    __syncthreads();
-  }
-  if (!live) return;
+    float rowdot = 0.f, kp[ND];
 #pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    if (f < H) p.out[row + f] = dq[i];
-  }
-}
-
-// K6, second kernel: one warp per source pixel gathers its dk and dv from
-// the destinations of its out-edges.
-template <int FPL, int ND>
-__global__ void __launch_bounds__(kThreads) grid_attn_bwd_src_kernel(Params p) {
-  const int H = p.heads * p.d;
-  const int P = p.rows * p.cols;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.y;
-  const int pix = blockIdx.x * kWarps + warp;
-  if (pix >= P) return;
-  const long long base = static_cast<long long>(b) * P;
-  const int r = pix / p.cols, c = pix % p.cols;
-  float dk[FPL], dv[FPL];
+    for (int i = 0; i < ND; ++i) {
+      lq[i] = has[i] && den != 0.f ? lq[i] / den : 0.f;  // alpha
+      kp[i] = has[i] && p.keep != nullptr ? kps[(i * n1 + px) * hpg + hh] : 1.f;
+      lg[i] *= kp[i];  // dalpha
+      rowdot = fmaf(lq[i], lg[i], rowdot);
+    }
+    if (act && sub == 0) {
 #pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    dk[i] = 0.f;
-    dv[i] = 0.f;
-  }
-#pragma unroll
-  for (int dir = 0; dir < ND; ++dir) {
-    const int dst = destination_of(p, dir, r, c);
-    if (dst < 0) continue;  // uniform across the warp
-    // the planes are zero where the edge does not exist (either end
-    // invalid), so no validity test is needed here
-    const long long plane = ((static_cast<long long>(b) * ND + dir) * P + dst) * p.heads;
-    const long long drow = (base + dst) * H;
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      const int f = lane + 32 * i;
-      if (f < H) {
-        const int h = f / p.d;
-        dk[i] = fmaf(p.dlog[plane + h], p.q[drow + f], dk[i]);
-        dv[i] = fmaf(p.used[plane + h], p.g[drow + f], dv[i]);
+      for (int i = 0; i < ND; ++i) {
+        const int at = (i * n1 + px) * hpg + hh;
+        dls[at] = lq[i] * (lg[i] - rowdot) * p.scale;
+        uss[at] = lq[i] * kp[i];
       }
     }
   }
-  const long long row = (base + pix) * H;
+  __syncthreads();
+
+  // ---- dq, dk, dv of the tile's pixels (dq over the pixel's in-edges,
+  // dk and dv over its out-edges, whose destinations lie on the ring) and
+  // the tile's de partial: thread (g, f) keeps feature f of the pixels g,
+  // g + pstep, ... and adds their de terms in that order
+  const int n_t = tr * tc;
+  const int pstep = kBwdThreads / gw;
+  const int f = threadIdx.x % gw, g = threadIdx.x / gw, hh = f / d;
+  float de[ND];
 #pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    if (f < H) {
-      p.dk[row + f] = dk[i];
-      p.dv[row + f] = dv[i];
+  for (int i = 0; i < ND; ++i) de[i] = 0.f;
+  for (int pt = g; g < pstep && pt < n_t; pt += pstep) {
+    const int ty = pt / tc, tx = pt - ty * tc;
+    const int r = r0 + ty, c = c0 + tx;
+    if (r >= p.rows || c >= p.cols) continue;
+    const int p1 = (ty + 1) * w1 + tx + 1, p2 = (ty + 2) * w2 + tx + 2;
+    const float qf = qs[p1 * S + f], gf = gs[p1 * S + f];
+    float dq = 0.f, dk = 0.f, dv = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const int s2 = p2 - shift_r(i) * w2 - shift_c(i);
+      const int d1 = p1 + shift_r(i) * w1 + shift_c(i);
+      const float dl = dls[(i * n1 + p1) * hpg + hh];
+      dq = fmaf(dl, ks[s2 * S + f] + e_s[i * gw + f], dq);
+      dk = fmaf(dls[(i * n1 + d1) * hpg + hh], qs[d1 * S + f], dk);
+      dv = fmaf(uss[(i * n1 + d1) * hpg + hh], gs[d1 * S + f], dv);
+      de[i] = fmaf(dl, qf, fmaf(uss[(i * n1 + p1) * hpg + hh], gf, de[i]));
     }
+    const long long o = (base + r * p.cols + c) * H + f0 + f;
+    p.dq[o] = dq;
+    p.dk[o] = dk;
+    p.dv[o] = dv;
   }
+  // the pstep rows of (ND, gw) de terms, summed by a fixed pairwise tree
+  if (g < pstep) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i) red[(g * ND + i) * gw + f] = de[i];
+  }
+  __syncthreads();
+  for (int width = pstep; width > 1;) {  // uniform across the CTA
+    const int half = (width + 1) / 2;
+    for (int x = threadIdx.x; x < (width - half) * ND * gw; x += kBwdThreads)
+      red[x] += red[x + half * ND * gw];
+    width = half;
+    __syncthreads();
+  }
+  float* part = p.de_part + (static_cast<long long>(b) * gridDim.x + blockIdx.x) * ND * H;
+  for (int x = threadIdx.x; x < ND * gw; x += kBwdThreads)
+    part[(x / gw) * H + f0 + x % gw] = red[x];
 }
 
 template <int FPL, int ND>
-cudaError_t launch(const Params& p, int B, bool backward, cudaStream_t stream) {
+cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
   const int H = p.heads * p.d;
   const int P = p.rows * p.cols;
   const dim3 grid((P + kWarps - 1) / kWarps, B);
   // dynamic shared memory: the edge terms and a head-sum buffer per warp
-  // (laid out even when the butterflies leave it unused), and for K6 the
-  // warps' de terms: at most 8 * 256 + 8 * (256 + 256) + 8 * 256 floats =
-  // 32 KB, under the 48 KB default
+  // (laid out even when the butterflies leave it unused): at most
+  // 8 * 256 + 8 * (256 + 256) floats = 24 KB, under the 48 KB default
   const size_t smem = sizeof(float) * (ND * H + static_cast<size_t>(kWarps) * (H + p.heads));
-  if (!backward) {
-    grid_attn_fwd_kernel<FPL, ND><<<grid, kThreads, smem, stream>>>(p);
-    return cudaGetLastError();
-  }
-  grid_attn_bwd_dst_kernel<FPL, ND>
-      <<<grid, kThreads, smem + sizeof(float) * kWarps * H, stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  grid_attn_bwd_src_kernel<FPL, ND><<<grid, kThreads, 0, stream>>>(p);
+  grid_attn_fwd_kernel<FPL, ND><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int ND>
-cudaError_t launch_width(const Params& p, int B, bool backward, cudaStream_t s) {
+cudaError_t launch_fwd_width(const Params& p, int B, cudaStream_t s) {
   const int fpl = (p.heads * p.d + 31) / 32;
-  if (fpl <= 1) return launch<1, ND>(p, B, backward, s);
-  if (fpl <= 2) return launch<2, ND>(p, B, backward, s);
-  if (fpl <= 4) return launch<4, ND>(p, B, backward, s);
-  return launch<8, ND>(p, B, backward, s);
+  if (fpl <= 1) return launch_fwd<1, ND>(p, B, s);
+  if (fpl <= 2) return launch_fwd<2, ND>(p, B, s);
+  if (fpl <= 4) return launch_fwd<4, ND>(p, B, s);
+  return launch_fwd<8, ND>(p, B, s);
 }
 
-// blocks: K6's de partials a sample, one per CTA of its first kernel.
-int dispatch(const Params& p, int B, int nd, int blocks, bool backward, void* stream) {
-  const int P = p.rows * p.cols;
-  if (p.rows < 1 || p.cols < 1 || p.heads < 1 || p.d < 1 || p.heads * p.d > kMaxH ||
-      (nd != 4 && nd != 8) || B < 0 || (backward && blocks != (P + kWarps - 1) / kWarps))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      nd == 4 ? launch_width<4>(p, B, backward, s) : launch_width<8>(p, B, backward, s);
-  return static_cast<int>(err);
+template <int ND, int LPI, int D, int HPG, int TR, int TC>
+cudaError_t launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+  const int tiles = ((p.rows + p.tr - 1) / p.tr) * ((p.cols + p.tc - 1) / p.tc);
+  const dim3 grid(tiles, (p.heads + p.hpg - 1) / p.hpg, B);
+  const size_t smem = sizeof(float) * bwd_smem_floats(ND, p.hpg, p.d, p.tr, p.tc);
+  auto* kernel = grid_attn_bwd_kernel<ND, LPI, D, HPG, TR, TC>;
+  static size_t allowed = 48 * 1024;  // this instance's dynamic shared-memory limit so far
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  kernel<<<grid, kBwdThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The flagship's widths (d 32 one head a group on 8 x 8 tiles; d 1 one head
+// on 8 x 32 tiles) take kernels with their geometry fixed at compile time;
+// any other geometry the general one.
+template <int ND>
+cudaError_t launch_bwd_width(const BwdParams& p, int B, cudaStream_t s) {
+  if (p.d == 32 && p.hpg == 1 && p.tr == 8 && p.tc == 8)
+    return launch_bwd<ND, 4, 32, 1, 8, 8>(p, B, s);
+  if (p.d == 1 && p.hpg == 1 && p.tr == 8 && p.tc == 32)
+    return launch_bwd<ND, 1, 1, 1, 8, 32>(p, B, s);
+  switch (bwd_lpi(p.d)) {
+    case 4: return launch_bwd<ND, 4, 0, 0, 0, 0>(p, B, s);
+    case 2: return launch_bwd<ND, 2, 0, 0, 0, 0>(p, B, s);
+    default: return launch_bwd<ND, 1, 0, 0, 0, 0>(p, B, s);
+  }
+}
+
+bool bad_geometry(int rows, int cols, int heads, int d, int nd, int B) {
+  return rows < 1 || cols < 1 || heads < 1 || d < 1 || heads * d > kMaxH ||
+         (nd != 4 && nd != 8) || B < 0 || B > 65535;
 }
 
 }  // namespace
@@ -507,17 +605,29 @@ extern "C" int qtm_grid_attn_fwd(const float* q, const float* k, const float* v,
                                  const float* valid, const float* keep, float* out, int B,
                                  int rows, int cols, int heads, int d, int nd, float scale,
                                  void* stream) {
-  const Params p{q, k, v, e, valid, keep, nullptr, out, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, rows, cols, heads, d, scale};
-  return dispatch(p, B, nd, 0, false, stream);
+  if (bad_geometry(rows, cols, heads, d, nd, B)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  const Params p{q, k, v, e, valid, keep, out, rows, cols, heads, d, scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(nd == 4 ? launch_fwd_width<4>(p, B, s) : launch_fwd_width<8>(p, B, s));
 }
 
+// hpg, tr, tc: the feature group (whole heads) and pixel tile of one CTA;
+// de_part holds (B, tiles, nd, H) partials, tiles = ceil(rows/tr) * ceil(cols/tc).
 extern "C" int qtm_grid_attn_bwd(const float* q, const float* k, const float* v, const float* e,
                                  const float* valid, const float* keep, const float* g, float* dq,
-                                 float* dk, float* dv, float* dlog, float* used, float* de_part,
-                                 int B, int rows, int cols, int heads, int d, int nd, int blocks,
-                                 float scale, void* stream) {
-  const Params p{q, k, v, e, valid, keep, g, dq, dk, dv, dlog, used, de_part,
-                 rows, cols, heads, d, scale};
-  return dispatch(p, B, nd, blocks, true, stream);
+                                 float* dk, float* dv, float* de_part, int B, int rows, int cols,
+                                 int heads, int d, int nd, int hpg, int tr, int tc, float scale,
+                                 void* stream) {
+  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
+      sizeof(float) * bwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  // 16-byte row copies: whole 4-float chunks, 16-byte aligned rows
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const int vec4 = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(g);
+  const BwdParams p{q, k, v, e, valid, keep, g, dq, dk, dv, de_part,
+                    rows, cols, heads, d, hpg, tr, tc, vec4, scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(nd == 4 ? launch_bwd_width<4>(p, B, s) : launch_bwd_width<8>(p, B, s));
 }

@@ -5,7 +5,8 @@ the pixelwise edge list (``thresh=-inf``; compact raster node ids) and the
 pixelwise grid (``thresh=-inf`` with ``aggregation="grid"``). Incoming
 image stacks already carry the two positional-encoding channels as their
 last two channels. A graph built on a CUDA card carries the CSR views of
-its id vectors that the segment-sum kernel K7 reads.
+its id vectors that the segment-sum kernel K7 reads, and with attention
+windows the source-sorted view of their slots that K4 reads.
 """
 
 from __future__ import annotations
@@ -103,6 +104,12 @@ def _assemble(
             attn_meta=meta,
             agg=("pallas_attn", cfg.agg_nt, cfg.agg_eb, cfg.agg_sw),
         )
+        if img.is_cuda and torch.is_grad_enabled():
+            # K4's view, for the backward a gradient-recording forward can
+            # run (a no-grad forecast never does); it depends on the
+            # windows alone, not on the heads
+            dims = attn.AttnDims(n_max, cfg.agg_nt, cfg.agg_eb, cfg.agg_sw, 1, 1)
+            graph = graph.replace(slot_view=attn.slot_view(meta, dims))
     elif cfg.aggregation == "pallas":
         windows, window_overflow = spmm.spmm_tile_meta(
             edge_src, edge_dst, graph.sym_coeff, n_max,

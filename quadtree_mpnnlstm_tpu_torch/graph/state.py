@@ -18,7 +18,8 @@ pixelwise grid (``mapping_identity``: node id = raster pixel index) both
 are a reshape and a mask. Index tensors are int64, torch's index type.
 A graph built on a CUDA card carries the CSR views of its id vectors
 (``pixel_view``, ``dst_view``, ``src_view``) that the segment-sum kernel
-K7 reads, built once per mesh.
+K7 reads, and of its attention-window slots by source (``slot_view``)
+that K4 reads, each built once per mesh.
 """
 
 from __future__ import annotations
@@ -69,6 +70,9 @@ class GraphTensors:
     pixel_view: Optional[SegmentView] = None
     dst_view: Optional[SegmentView] = None
     src_view: Optional[SegmentView] = None
+    # the source-sorted view of the attention-window slots for K4's dk/dv
+    # gather (ops/attn.py slot_view), built on a CUDA card
+    slot_view: Optional[SegmentView] = None
 
     @property
     def n_max(self) -> int:

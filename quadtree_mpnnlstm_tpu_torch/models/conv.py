@@ -220,7 +220,8 @@ def multi_stream_attention(
         meta = graph.attn_meta
         keep = keep_planes((b, meta.s0.shape[1], heads, eb)) if drop else None
         dims = attn.AttnDims(n, nt, eb, sw, heads, d)
-        return attn.attn_apply(q, k, v, we, keep, meta, dims).reshape(b, n, heads, d)
+        return attn.attn_apply(q, k, v, we, keep, meta, dims, graph.slot_view).reshape(
+            b, n, heads, d)
     if graph.edge_src is None:
         raise ValueError("attention needs attention windows, the pixelwise grid or an edge "
                          "list; this graph dropped its edge list (carry_edges=False)")

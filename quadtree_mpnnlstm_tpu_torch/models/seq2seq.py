@@ -101,6 +101,11 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.convolution_type == "GCNConv":
+        raise ValueError(
+            "ModelConfig.convolution_type='GCNConv' (the default, as in the JAX package) is not "
+            "ported yet (ROADMAP Queue 1 item 6); name the conv, e.g. ChebConv or "
+            "TransformerConv")
     supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=("LSTM",),
                      fused_gates=(True,), remesh_every=(1,), compute_dtype=("float32",))
     for field, values in supported.items():

@@ -24,10 +24,13 @@ raises if it cannot be built or launched); a CPU tensor runs the plain
 version. Each kernel launch adds one to :data:`LAUNCHES`.
 
 :class:`AttnApply` makes the aggregation differentiable in q, k, v and Wₑ
-on both devices: its backward (K4) recomputes α (flash-style) and returns
-per-slot dk/dv partials and per-CTA dWₑ partials, which are summed in a
-fixed order outside the kernel, so a training step is bit-reproducible.
-The windows, ``keep`` and the edge attributes carry no gradient.
+on both devices: its backward (K4) recomputes α (flash-style), writes dq,
+two scalars per slot and head (dlogit·scale and α·keep) and per-CTA dWₑ
+partials, then gathers dk and dv per source node over the source-sorted
+slot view (:func:`slot_view`, built once per mesh) in a second kernel. No
+sum on the card uses float atomics, so a training step is
+bit-reproducible. The windows, ``keep`` and the edge attributes carry no
+gradient.
 """
 
 from __future__ import annotations
@@ -39,7 +42,11 @@ import torch
 
 from quadtree_mpnnlstm_tpu_torch.ops import spmm
 from quadtree_mpnnlstm_tpu_torch.ops.segment import gather_nodes
-from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import segment_sum_plain
+from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import (
+    SegmentView,
+    segment_sum_plain,
+    segment_view,
+)
 
 # kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES = {"attn_apply": 0, "attn_apply_bwd": 0}
@@ -126,6 +133,22 @@ def slot_nodes(meta: AttnMeta, dims: AttnDims) -> Tuple[torch.Tensor, torch.Tens
             torch.where(src_ok, src, -1).reshape(b, t * eb))
 
 
+def slot_view(meta: AttnMeta, dims: AttnDims) -> SegmentView:
+    """The source-sorted view of the window slots: the CSR view
+    (:func:`~quadtree_mpnnlstm_tpu_torch.ops.segment_sum.segment_view`) of
+    their source nodes, without the slots :func:`slot_nodes` drops (dead,
+    in a dead tile, or with a source outside the window). Integer ops in
+    int32 only; the graph build makes it once per mesh on a card when a
+    backward can follow."""
+    b, t, eb = meta.src_rel.shape
+    tile = torch.arange(t, dtype=torch.int32, device=meta.src_rel.device)[None, :, None]
+    src = meta.s0[..., None] + meta.src_rel
+    keep = ((meta.dst_rel >= 0) & (tile < meta.live[:, None, None])
+            & (tile * dims.nt + meta.dst_rel < dims.n_max)
+            & (meta.src_rel >= 0) & (meta.src_rel < dims.sw) & (src < dims.n_max))
+    return segment_view(torch.where(keep, src, -1).reshape(b, t * eb), dims.n_max)
+
+
 def _slot_keep(keep: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, T, KH, EB) keep windows → (B, T·EB, heads); head h reads row
     min(h, KH − 1), as the TPU kernel does."""
@@ -169,12 +192,65 @@ def attn_plain(q, k, v, we, keep: Optional[torch.Tensor], meta: AttnMeta,
     return out.reshape(b, n_max, heads * d)
 
 
-def attn_bwd_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
+def attn_bwd_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=None):
     """K4's function in plain PyTorch: autograd through :func:`attn_plain`,
-    recomputed from the saved inputs. Returns (dq, dk, dv, dwe)."""
+    recomputed from the saved inputs. Returns (dq, dk, dv, dwe). ``view``
+    (the kernel's slot view) is not needed here."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v, we)]
         return torch.autograd.grad(attn_plain(*leaves, keep, meta, dims), leaves, g)
+
+
+def attn_bwd_slots_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
+    """K4's first kernel in plain PyTorch, written out: dq, the per-slot
+    scalars dlog = dlogit·scale and used = α·keep (B, T·EB, heads; 0 where
+    a slot contributes nothing) and dWₑ. With :func:`attn_combine_plain` it
+    gives :func:`attn_bwd_plain`'s function."""
+    n_max, heads, d = dims.n_max, dims.heads, dims.d
+    b = q.shape[0]
+    scale = 1.0 / float(d) ** 0.5
+    dst, src = slot_nodes(meta, dims)
+    slots = dst.shape[1]
+    attr = meta.attr.reshape(b, slots, -1)
+    e = (attr @ we).reshape(b, slots, heads, d)
+    kj = gather_nodes(k, src, n_max, routed=False).reshape(b, slots, heads, d) + e
+    vj = gather_nodes(v, src, n_max, routed=False).reshape(b, slots, heads, d) + e
+    qi = gather_nodes(q, dst, n_max, routed=False).reshape(b, slots, heads, d)
+    gi = gather_nodes(g, dst, n_max, routed=False).reshape(b, slots, heads, d)
+    logits = (qi * kj).sum(-1) * scale
+    valid = (dst >= 0)[..., None]
+    idx = dst.clamp_min(0)[..., None].expand(b, slots, heads)
+    mx = torch.full((b, n_max, heads), float("-inf"), device=q.device)
+    mx = torch.gather(mx.scatter_reduce(1, idx, torch.where(valid, logits, float("-inf")),
+                                        "amax"), 1, idx)
+    ex = torch.exp(torch.where(valid, logits - mx, float("-inf")))
+    den = gather_nodes(segment_sum_plain(ex, dst, n_max), dst, n_max, routed=False)
+    alpha = ex / den.clamp_min(1e-30)
+    kp = torch.ones_like(alpha) if keep is None else _slot_keep(keep, heads)
+    dalpha = kp * (gi * vj).sum(-1)
+    rowdot = gather_nodes(segment_sum_plain(alpha * dalpha, dst, n_max), dst, n_max,
+                          routed=False)
+    dlog = torch.where(valid, alpha * (dalpha - rowdot) * scale, 0.0)
+    used = torch.where(valid, alpha * kp, 0.0)
+    dq = segment_sum_plain((dlog[..., None] * kj).reshape(b, slots, heads * d), dst, n_max)
+    per_slot = (dlog[..., None] * qi + used[..., None] * gi).reshape(b, slots, heads * d)
+    dwe = torch.einsum("bsa,bsf->af", attr, per_slot)
+    return dq, dlog, used, dwe
+
+
+def attn_combine_plain(dlog, used, q, g, meta: AttnMeta, dims: AttnDims):
+    """K4's second kernel in plain PyTorch: dk[s] = Σ_j dlog_j·q[dst_j] and
+    dv[s] = Σ_j used_j·g[dst_j] over the slots j whose source is s, by the
+    sort-based plain segment sum. Returns (dk, dv)."""
+    n_max, heads, d = dims.n_max, dims.heads, dims.d
+    b = q.shape[0]
+    dst, src = slot_nodes(meta, dims)
+    slots = dst.shape[1]
+    qi = gather_nodes(q, dst, n_max, routed=False).reshape(b, slots, heads, d)
+    gi = gather_nodes(g, dst, n_max, routed=False).reshape(b, slots, heads, d)
+    dk = segment_sum_plain((dlog[..., None] * qi).reshape(b, slots, heads * d), src, n_max)
+    dv = segment_sum_plain((used[..., None] * gi).reshape(b, slots, heads * d), src, n_max)
+    return dk, dv
 
 
 # ------------------------------------------------------- CUDA kernels
@@ -229,29 +305,30 @@ def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims) -> torch.T
     return out
 
 
-def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
-    """Launch K4 (``qtm_attn_bwd``) and combine its partials in a fixed
-    order: the per-slot dk/dv rows by source node (``segment_sum_plain``,
-    sort-based, no float atomics) and the per-CTA dWₑ partials by one
-    ``sum``. Returns (dq, dk, dv, dwe)."""
+def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=None):
+    """Launch K4 (``qtm_attn_bwd``: the per-destination kernel, which
+    writes dq, the per-slot scalars and the per-CTA dWₑ partials, then the
+    per-source kernel, which gathers dk and dv over ``view``, the slots'
+    :func:`slot_view`, built here when None) and sum the dWₑ partials in a
+    fixed order. Returns (dq, dk, dv, dwe)."""
     lib, ptrs, ints = _launch_args(q, k, v, we, keep, meta, dims)
     spmm._check(g, "g", torch.float32, tuple(q.shape))
     b, t, eb = meta.dst_rel.shape
     a, hd = we.shape
+    if view is None:
+        view = slot_view(meta, dims)
+    spmm._check(view.order, "view order", torch.int32, (b * t * eb,))
+    spmm._check(view.offsets, "view offsets", torch.int32, (b, dims.n_max + 1))
     groups = -(-dims.nt // ROWS_PER_CTA)
-    dq = torch.empty_like(q)
-    dk_slot = torch.empty((b, t * eb, hd), dtype=torch.float32, device=q.device)
-    dv_slot = torch.empty_like(dk_slot)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    scalars = torch.empty((2, b, t * eb, dims.heads), dtype=torch.float32, device=q.device)
     dwe_part = torch.empty((b, t * groups, a, hd), dtype=torch.float32, device=q.device)
-    err = lib.qtm_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(dq), spmm._ptr(dk_slot),
-                           spmm._ptr(dv_slot), spmm._ptr(dwe_part), *ints, _scale(dims.d),
+    err = lib.qtm_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(view.order), spmm._ptr(view.offsets),
+                           spmm._ptr(dq), spmm._ptr(dk), spmm._ptr(dv), spmm._ptr(scalars[0]),
+                           spmm._ptr(scalars[1]), spmm._ptr(dwe_part), *ints, _scale(dims.d),
                            spmm._stream())
     spmm._raise_on(err, "attn_apply_bwd")
     LAUNCHES["attn_apply_bwd"] += 1
-    # slots the kernel skipped hold no values; their src id is −1 (dropped)
-    _, src = slot_nodes(meta, dims)
-    dk = segment_sum_plain(dk_slot, src, dims.n_max)
-    dv = segment_sum_plain(dv_slot, src, dims.n_max)
     return dq, dk, dv, dwe_part.sum(dim=(0, 1))
 
 
@@ -261,13 +338,14 @@ def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
 class AttnApply(torch.autograd.Function):
     """K3 forward with the K4 backward. Each direction launches its kernel
     on a CUDA tensor and runs its plain version on a CPU tensor. Only
-    q, k, v and Wₑ are saved (not α, which K4 recomputes); keep and the
-    windows get no gradient."""
+    q, k, v and Wₑ are saved (not α, which K4 recomputes); keep, the
+    windows and the slot view get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, dims):
+    def forward(ctx, q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, order, offsets, dims):
         q, k, v, we = (x.contiguous() for x in (q, k, v, we))
-        ctx.save_for_backward(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live)
+        ctx.save_for_backward(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, order,
+                              offsets)
         ctx.dims = dims
         meta = AttnMeta(s0, src_rel, dst_rel, attr, live)
         fwd = _attn_fwd_cuda if q.is_cuda else attn_plain
@@ -276,21 +354,26 @@ class AttnApply(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v, we, keep, *meta = ctx.saved_tensors
+        q, k, v, we, keep, *meta, order, offsets = ctx.saved_tensors
+        view = None if offsets is None else SegmentView(order, offsets)
         bwd = _attn_bwd_cuda if g.is_cuda else attn_bwd_plain
-        dq, dk, dv, dwe = bwd(q, k, v, we, keep, AttnMeta(*meta), ctx.dims, g.contiguous())
-        return (dq, dk, dv, dwe) + (None,) * 7
+        dq, dk, dv, dwe = bwd(q, k, v, we, keep, AttnMeta(*meta), ctx.dims, g.contiguous(), view)
+        return (dq, dk, dv, dwe) + (None,) * 9
 
 
 def attn_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.Tensor,
-               keep: Optional[torch.Tensor], meta: AttnMeta, dims: AttnDims) -> torch.Tensor:
+               keep: Optional[torch.Tensor], meta: AttnMeta, dims: AttnDims,
+               view: Optional[SegmentView] = None) -> torch.Tensor:
     """K3: fused TransformerConv aggregation over the windows of ``meta``.
 
     Replaces ``attn_apply`` (``_attn_impl``/``_fwd_kernel`` forward,
     ``_attn_bwd``/``_bwd_kernel`` backward) of
     ``quadtree_mpnnlstm_tpu/ops/pallas_attn.py``. q, k, v: (B, n_max,
     heads·d) f32; we: (A, heads·d); keep: (B, T, KH, EB) keep-scale
-    windows, or None for no dropout. Returns (B, n_max, heads·d);
+    windows, or None for no dropout; ``view``: the windows'
+    :func:`slot_view` (the graph's ``slot_view``), which the card's
+    backward builds when None. Returns (B, n_max, heads·d);
     differentiable in q, k, v and we.
     """
-    return AttnApply.apply(q, k, v, we, keep, *meta, dims)
+    order, offsets = (None, None) if view is None else view
+    return AttnApply.apply(q, k, v, we, keep, *meta, order, offsets, dims)

@@ -45,15 +45,16 @@ SIGNATURES = {
         # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,
         # B, T, EB, NT, SW, n_max, H, D, A, KH, rows, scale, stream
         "qtm_attn_fwd": [_P] * 11 + [_C] * 11 + [ctypes.c_float, _P],
-        # ... live, g, dq, dk_slot, dv_slot, dwe_part, B, ..., rows, scale, stream
-        "qtm_attn_bwd": [_P] * 15 + [_C] * 11 + [ctypes.c_float, _P],
+        # ... live, g, view order, view offsets, dq, dk, dv, dlog, used,
+        # dwe_part, B, ..., rows, scale, stream
+        "qtm_attn_bwd": [_P] * 19 + [_C] * 11 + [ctypes.c_float, _P],
     },
     "grid_attn.cu": {
         # q, k, v, e_dir, valid, keep, out, B, rows, cols, heads, d, D, scale, stream
         "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 6 + [ctypes.c_float, _P],
-        # q, k, v, e_dir, valid, keep, g, dq, dk, dv, dlog, used, de_part,
-        # B, rows, cols, heads, d, D, blocks, scale, stream
-        "qtm_grid_attn_bwd": [_P] * 13 + [_C] * 7 + [ctypes.c_float, _P],
+        # q, k, v, e_dir, valid, keep, g, dq, dk, dv, de_part,
+        # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
+        "qtm_grid_attn_bwd": [_P] * 11 + [_C] * 9 + [ctypes.c_float, _P],
     },
     "segment.cu": {
         # values, order (or null), offsets, out, B, n_out, F, stream

@@ -24,8 +24,9 @@ fall back: the JAX package's VMEM and vmap gates are TPU limits. Each
 kernel launch adds one to :data:`LAUNCHES`.
 
 :class:`GridAttnApply` makes the aggregation differentiable in q, k, v and
-``e_dir`` on both devices: its backward (K6) recomputes α and gathers dk
-and dv at the opposite offsets; ``de_dir`` partials are summed in a fixed
+``e_dir`` on both devices: its backward (K6) recomputes α per pixel tile
+and writes dq, dk and dv (dk and dv gathered at the opposite offsets from
+the tile's ring) and one ``de_dir`` partial a tile, summed in a fixed
 order, so a training step is bit-reproducible. ``valid`` and ``keep`` get
 no gradient.
 """
@@ -45,11 +46,13 @@ from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shift_in, shift
 # kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES = {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
 
-# features per pixel the kernels take (csrc/grid_attn.cu kMaxH), and the
-# pixels of one CTA of K6's per-destination kernel (one de_dir partial
-# each, kWarps)
+# features per pixel the kernels take (csrc/grid_attn.cu kMaxH)
 MAX_H = 256
-BWD_PIXELS_PER_CTA = 8
+# K6's pixel tile (rows, cols) by the width of a CTA's feature group: the
+# largest group width each tile serves. Smaller groups take larger tiles, so
+# that a CTA has work for its 256 threads and its ring costs less.
+BWD_TILES = ((2, (8, 32)), (8, (16, 16)), (16, (8, 16)), (32, (8, 8)), (64, (4, 8)),
+             (128, (4, 4)), (256, (2, 4)))
 
 _NEG_BIG = -1e30
 
@@ -170,20 +173,27 @@ def _grid_attn_fwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims) -> torc
     return out
 
 
+def bwd_plan(dims: GridAttnDims):
+    """K6's CTA geometry: (heads a feature group, tile rows, tile cols,
+    tiles a sample). A group packs whole heads up to 32 features (one head
+    when d > 32)."""
+    hpg = min(dims.heads, max(1, 32 // dims.d))
+    tr, tc = next(tile for width, tile in BWD_TILES if hpg * dims.d <= width)
+    return hpg, tr, tc, -(-dims.rows // tr) * -(-dims.cols // tc)
+
+
 def _grid_attn_bwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
-    """Launch K6 (``qtm_grid_attn_bwd``: its per-destination kernel, which
-    also writes the per-CTA ``de_dir`` partials, and its per-source kernel)
+    """Launch K6 (``qtm_grid_attn_bwd``: one CTA per pixel tile, feature
+    group and sample, which writes dq, dk, dv and one ``de_dir`` partial)
     and sum the partials in a fixed order. Returns (dq, dk, dv, de_dir)."""
     lib, ptrs, ints = _launch_args(q, k, v, e_dir, valid, keep, dims)
     spmm._check(g, "g", torch.float32, tuple(q.shape))
-    b, p, h = q.shape
-    blocks = -(-p // BWD_PIXELS_PER_CTA)
+    b, _, h = q.shape
+    hpg, tr, tc, tiles = bwd_plan(dims)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    planes = torch.empty((2, b, dims.ndirs, p, dims.heads), dtype=torch.float32, device=q.device)
-    de_part = torch.empty((b, blocks, dims.ndirs, h), dtype=torch.float32, device=q.device)
+    de_part = torch.empty((b, tiles, dims.ndirs, h), dtype=torch.float32, device=q.device)
     err = lib.qtm_grid_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(dq), spmm._ptr(dk),
-                                spmm._ptr(dv), spmm._ptr(planes[0]), spmm._ptr(planes[1]),
-                                spmm._ptr(de_part), *ints, blocks,
+                                spmm._ptr(dv), spmm._ptr(de_part), *ints, hpg, tr, tc,
                                 ctypes.c_float(_scale(dims.d)), spmm._stream())
     spmm._raise_on(err, "grid_attn_apply_bwd")
     LAUNCHES["grid_attn_apply_bwd"] += 1

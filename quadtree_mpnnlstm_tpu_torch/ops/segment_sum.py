@@ -63,7 +63,8 @@ def segment_view(ids: torch.Tensor, n_out: int, sorted_ids: bool = False) -> Seg
         key, perm = torch.sort(key, dim=1, stable=True)
         base = torch.arange(b, device=ids.device)[:, None] * length
         order = (perm + base).to(torch.int32).reshape(-1)
-    bounds = torch.arange(n_out + 1, device=ids.device).expand(b, n_out + 1).contiguous()
+    bounds = torch.arange(n_out + 1, dtype=key.dtype, device=ids.device)
+    bounds = bounds.expand(b, n_out + 1).contiguous()
     offsets = torch.searchsorted(key.contiguous(), bounds)
     offsets = offsets + torch.arange(b, device=ids.device)[:, None] * length
     return SegmentView(order, offsets.to(torch.int32))

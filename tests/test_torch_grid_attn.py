@@ -97,6 +97,38 @@ def test_grid_attn_apply_and_grads_match_jax(heads, d, ndirs, dropout):
     assert not out2d[:, _mask()].any()
 
 
+@pytest.mark.parametrize("heads,d,ndirs,dropout", [
+    (1, 8, 4, False), (3, 8, 8, True), (8, 16, 4, True), (1, 1, 8, False)])
+def test_grid_backward_plain_matches_the_jax_bwd_rule(heads, d, ndirs, dropout):
+    """K6's plain version (``grid_attn_bwd_plain``, what K6 is held to on
+    the card) against the JAX package's ``_bwd_rule`` (its Pallas backward
+    kernel in interpret mode) on the same cotangent: dq, dk, dv and de_dir
+    within 1e-5 × max(1, max|ref|), with and without numpy keep planes."""
+    q, k, v, g, e = _operands(heads, d, ndirs, heads * 10 + d + ndirs)
+    valid = (~_mask()).astype(np.float32).reshape(-1)
+    keep = None
+    if dropout:
+        rng = np.random.default_rng(11)
+        keep = ((rng.random((B, ndirs, P, heads)) < 0.9) / 0.9).astype(np.float32)
+    dims = tga.GridAttnDims(*SHAPE, heads, d, ndirs)
+    mine = tga.grid_attn_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, e, valid)),
+                                   None if keep is None else torch.from_numpy(keep), dims,
+                                   torch.from_numpy(g))
+    jdims = jga.GridAttnDims(*SHAPE, heads, d, ndirs, dropout)
+    jde = 0.0
+    for s in range(B):
+        res = (jnp.asarray(q[s]), jnp.asarray(k[s]), jnp.asarray(v[s]), jnp.asarray(e),
+               jnp.asarray(valid)[:, None], None if keep is None else jnp.asarray(keep[s]))
+        ref = jga._bwd_rule(jdims, res, jnp.asarray(g[s]))
+        for name, a, r in zip(("dq", "dk", "dv"), mine[:3], ref[:3]):
+            r = np.asarray(r)
+            err = np.abs(a[s].numpy() - r).max()
+            assert err <= FWD_TOL * max(1.0, np.abs(r).max()), (name, s, err)
+        jde = jde + np.asarray(ref[3])
+    err = np.abs(mine[3].numpy() - jde).max()
+    assert err <= FWD_TOL * max(1.0, np.abs(jde).max()), err
+
+
 @pytest.mark.parametrize("corners", [False, True])
 def test_grid_branch_matches_the_jax_xla_chain(corners):
     """The port's ``multi_stream_attention`` on a grid graph (e_dir =

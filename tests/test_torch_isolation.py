@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of ``quadtree_mpnnlstm_tpu_torch``
-and no line of ``chip_smoke.py`` or ``chip_profile.py`` imports JAX, flax, the JAX package or
-``baselines``; ``chip_smoke.py`` fails without a CUDA card (no CPU
-fallback) and without the port's package beside it."""
+and no line of ``chip_smoke.py``, ``chip_profile.py`` or ``chip_ab.py``
+imports JAX, flax, the JAX package or ``baselines``; ``chip_smoke.py``
+fails without a CUDA card (no CPU fallback) and without the port's
+package beside it."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "quadtree_mpnnlstm_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "quadtree_mpnnlstm_tpu", "baselines")
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
+                                       ROOT / "chip_ab.py"]
 
 
 def _imported_roots(path: pathlib.Path):

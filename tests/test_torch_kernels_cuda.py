@@ -237,6 +237,88 @@ def test_attn_apply_on_the_card_goes_through_the_kernels(card):
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
 
 
+def test_attn_backward_reads_the_graphs_slot_view(card):
+    """A window graph built on the card carries the source-sorted slot
+    view; it equals ``slot_view`` of its windows, and K4 through it gives
+    the gradients K4 gives when it builds the view itself, bit for bit."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    cfg = GraphConfig(image_shape=(64, 64), max_grid_size=8, thresh=0.1, n_max=2048,
+                      e_max=10240, node_budget=2048, aggregation="pallas", attn_windows=True,
+                      carry_edges=False, agg_nt=NT, agg_eb=EB, agg_sw=SW)
+    x = np.random.default_rng(5).random((3, 1, 64, 64, 1)) ** 4
+    graph, _ = image_to_graph(add_positional_encoding(torch.from_numpy(x.astype(np.float32))
+                                                      .to(card)), cfg)
+    meta, dims = graph.attn_meta, attn.AttnDims(2048, NT, EB, SW, 8, 16)
+    want = attn.slot_view(meta, dims)
+    assert torch.equal(graph.slot_view.order, want.order)
+    assert torch.equal(graph.slot_view.offsets, want.offsets)
+    gen = torch.Generator(card).manual_seed(0)
+    q, k, v, g = (torch.randn(3, 2048, 128, device=card, generator=gen) for _ in range(4))
+    we = torch.randn(2, 128, device=card, generator=gen)
+    mine = attn._attn_bwd_cuda(q, k, v, we, None, meta, dims, g, graph.slot_view)
+    built = attn._attn_bwd_cuda(q, k, v, we, None, meta, dims, g)
+    assert all(torch.equal(a, b) for a, b in zip(mine, built))
+
+
+def _sprite_frames(card):
+    """The decoder frames (16 × 10, 64 × 64) of the Moving-MNIST batch the
+    main path trains on, rendered from the committed digit sprites: what a
+    teacher-forced decoder remeshes on."""
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+
+    ds = ModMovingMNISTDataset(16, input_timesteps=4, output_timesteps=10, canvas_size=(64, 64),
+                               digit_size=(18, 18), pixel_noise=0.02, velocity_noise=0.0, seed=0)
+    return torch.as_tensor(ds.y, device=card)
+
+
+def test_kernels_on_near_capacity_windows(card):
+    """K1-K4 against their plain versions on the meshes of true Moving-MNIST
+    frames at thresh 0.1 (the main path's graph config): windows with more
+    than half of EB's slots filled in their fullest tile, no overflow. K1
+    exact, K2 and K2b ≤1e-5 at F 16 and 32, K3 ≤1e-5 and K4 ≤1e-5 ×
+    max(1, max|grad|) at HD 1, 16 and 128 with keep windows."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    frames = _sprite_frames(card)
+    base = dict(image_shape=(64, 64), max_grid_size=8, thresh=0.1, n_max=2048, e_max=10240,
+                node_budget=2048, aggregation="pallas", agg_nt=NT, agg_eb=EB, agg_sw=SW)
+    gen = torch.Generator(card).manual_seed(0)
+    fullest = 0
+    for t in (0, 5, 9):
+        img = add_positional_encoding(frames[:, t:t + 1])
+        cheb, _ = image_to_graph(img, GraphConfig(**base, use_edge_attrs=False))
+        wins, _ = image_to_graph(img, GraphConfig(**base, attn_windows=True, carry_edges=False))
+        assert int(cheb.overflow.max()) == 0 and int(wins.overflow.max()) == 0
+        blocks = cheb.agg_meta
+        w, _ = spmm.spmm_tile_meta(cheb.edge_src, cheb.edge_dst, cheb.sym_coeff, 2048, NT, EB, SW)
+        bargs = (w.src_rel, w.dst_rel, w.coeff, blocks.live, NT, SW)
+        assert torch.equal(spmm._build_blocks_cuda(*bargs), spmm.build_blocks_plain(*bargs))
+        for f in (16, 32):
+            z = torch.randn(16, 2048, f, device=card, generator=gen)
+            args = (z, blocks.s0, blocks.blocks, blocks.live, 2048, NT, SW)
+            torch.testing.assert_close(spmm._apply_cuda(*args), spmm.apply_plain(*args),
+                                       rtol=0, atol=1e-5)
+            torch.testing.assert_close(spmm._apply_bwd_cuda(*args), spmm.apply_plain(*args),
+                                       rtol=0, atol=1e-5)
+        meta = wins.attn_meta
+        fullest = max(fullest, int((meta.dst_rel >= 0).sum(-1).max()))
+        for heads, d in ((1, 1), (1, 16), (8, 16)):
+            dims = attn.AttnDims(2048, NT, EB, SW, heads, d)
+            q, k, v, g = (torch.randn(16, 2048, heads * d, device=card, generator=gen)
+                          for _ in range(4))
+            we = torch.randn(2, heads * d, device=card, generator=gen)
+            u = torch.rand(16, meta.s0.shape[1], heads, EB, device=card, generator=gen)
+            args = (q, k, v, we, (u < 0.9).float() / 0.9, meta, dims)
+            torch.testing.assert_close(attn._attn_fwd_cuda(*args), attn.attn_plain(*args),
+                                       rtol=0, atol=1e-5)
+            kern = attn._attn_bwd_cuda(*args, g, wins.slot_view)
+            for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern, attn.attn_bwd_plain(*args, g)):
+                err = float((a - p).abs().max())
+                assert err <= 1e-5 * max(1.0, float(p.abs().max())), (t, heads * d, name, err)
+    assert fullest > EB // 2
+
+
 def test_attn_wrappers_reject_bad_inputs(card):
     from quadtree_mpnnlstm_tpu_torch.ops import attn
 
@@ -253,15 +335,17 @@ def test_attn_wrappers_reject_bad_inputs(card):
 # ---------------------------------------------------------------- grid attention
 
 
-def _grid_case(device, rows, cols, heads, d, ndirs, dropout, batch=2):
+def _grid_case(device, rows, cols, heads, d, ndirs, dropout, batch=2, dead_rows=0):
     """Seeded operands of the stencil attention on a rows × cols grid whose
     mask holds an isolated valid pixel (all 8 neighbours masked) and random
-    holes."""
+    holes; ``dead_rows`` masks the top rows whole (K6 tiles with no valid
+    pixel)."""
     from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
 
     mask = np.random.default_rng(rows * cols).random((rows, cols)) < 0.25
     mask[2:5, 3:6] = True
     mask[3, 4] = False  # isolated
+    mask[:dead_rows] = True
     gen = torch.Generator(device).manual_seed(heads * d + ndirs)
     p, h = rows * cols, heads * d
     qkv = [torch.randn(batch, p, h, device=device, generator=gen) for _ in range(3)]
@@ -275,12 +359,14 @@ def _grid_case(device, rows, cols, heads, d, ndirs, dropout, batch=2):
 
 
 # (rows, cols, heads, d, D, keep): H 256 (the flagship's gate stack, 8 × 32),
-# 32 and 1 (its head convs), D 4 and 8, cols 13 (column wrap), and d = 6,
-# which takes the shared-memory head sums instead of the shuffles
+# 32 and 1 (its head convs), D 4 and 8, cols 13 (column wrap, and not a
+# multiple of any K6 tile), d = 6, which takes K5's shared-memory head sums
+# instead of the shuffles (and K6's ragged 3-head group), and d = 64 > 32
+# (one head a K6 group, a 4 × 8 tile)
 GRID_CASES = [(224, 304, 8, 32, 4, False), (224, 304, 8, 32, 4, True),
               (224, 304, 1, 32, 4, False), (224, 304, 1, 1, 4, True),
               (11, 13, 8, 32, 8, True), (11, 13, 1, 32, 8, False), (11, 13, 1, 1, 8, True),
-              (11, 13, 3, 6, 4, True), (11, 13, 2, 4, 8, False)]
+              (11, 13, 3, 6, 4, True), (11, 13, 2, 4, 8, False), (11, 13, 2, 64, 4, True)]
 
 
 @pytest.mark.parametrize("rows,cols,heads,d,ndirs,dropout", GRID_CASES)
@@ -304,6 +390,24 @@ def test_grid_attn_kernels_match_plain(card, rows, cols, heads, d, ndirs, dropou
         assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
     assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"] + 1
     assert grid_attn.LAUNCHES["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + 1
+
+
+@pytest.mark.parametrize("heads,d,ndirs", [(8, 32, 8), (1, 32, 4), (1, 1, 8), (3, 8, 4)])
+def test_grid_attn_backward_with_dead_tiles(card, heads, d, ndirs):
+    """K6 on a 40 × 37 grid whose top 20 rows are masked: whole tiles
+    without a valid pixel (and 37 columns, no multiple of a tile) give
+    zero dq, dk, dv there and a de_dir within 1e-5 of the plain one."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    args, gen = _grid_case(card, 40, 37, heads, d, ndirs, True, dead_rows=20)
+    g = torch.randn(args[0].shape, device=card, generator=gen)
+    kern = grid_attn._grid_attn_bwd_cuda(*args, g)
+    plain = grid_attn.grid_attn_bwd_plain(*args, g)
+    for name, a, p in zip(("dq", "dk", "dv", "de_dir"), kern, plain):
+        err = float((a - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+    for a in kern[:3]:
+        assert not a[:, :19 * 37].any()  # rows 0..18 have no valid pixel within one step
 
 
 def test_grid_attn_apply_on_the_card_goes_through_the_kernels(card):

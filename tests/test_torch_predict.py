@@ -122,3 +122,17 @@ def test_unported_model_options_raise(field, value):
         NextFramePredictorS2S(SHAPE, 0.1, device="cpu",
                               model_kwargs=dict(MODEL, **{field: value}),
                               graph_kwargs=dict(GRAPH))
+
+
+def test_default_conv_is_the_jax_packages_and_not_ported_yet():
+    """Both packages' ``ModelConfig`` default to the same conv, GCNConv.
+    The port rejects it by name, pointing at ROADMAP Queue 1 item 6, so a
+    bare ``Seq2Seq(ModelConfig(), …)`` raises instead of building another
+    model than the JAX package would."""
+    from quadtree_mpnnlstm_tpu.config import ModelConfig as JModelConfig
+    from quadtree_mpnnlstm_tpu_torch.config import GraphConfig, ModelConfig
+    from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
+
+    assert ModelConfig().convolution_type == JModelConfig().convolution_type == "GCNConv"
+    with pytest.raises(ValueError, match="Queue 1 item 6"):
+        Seq2Seq(ModelConfig(), GraphConfig(image_shape=SHAPE))

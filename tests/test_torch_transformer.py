@@ -43,7 +43,7 @@ MESH = dict(image_shape=(32, 32), max_grid_size=8, thresh=0.2, n_max=N_MAX, e_ma
 
 def _blobs(seed):
     """(BATCH, 1, 32, 32, 1) frames, a blob plus faint noise each: refined
-    near the blob (493 and 277 nodes; the second mesh has a dead tile)."""
+    near the blob (487 and 274 nodes; the second mesh has a dead tile)."""
     rng = np.random.default_rng(seed)
     r, c = np.arange(32)[:, None], np.arange(32)[None, :]
     frames = []
@@ -52,6 +52,22 @@ def _blobs(seed):
         blob = np.exp(-((r - cy) ** 2 + (c - cx) ** 2) / (2 * (32 / 5) ** 2))
         frames.append(blob + 0.02 * rng.random((32, 32)))
     return np.stack(frames)[:, None, :, :, None].astype(np.float32)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Run this module's torch ops on the calling thread. torch's CPU
+    unary kernels (``sqrt``, ``exp``) hand a tensor of more than 2048
+    elements to OpenMP worker threads in chunks, MKL VML on each. In one
+    parallel test run the chunks of the fixture's second mesh came back
+    with 12-bit square roots (``x · rsqrt`` estimates, 0.25 → 0.24993896),
+    which the bit-exact distance check below and every conv fed by those
+    attributes then missed; the inputs had been asserted identical. One
+    thread takes the worker threads out of the comparison."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -63,6 +79,25 @@ def meshes():
     assert tg.agg[0] == "pallas_attn" and int(tg.overflow.max()) == 0
     assert int(tg.attn_meta.live.min()) < tg.attn_meta.s0.shape[1]  # a dead tile
     return tg, jgs
+
+
+def test_fixture_meshes_are_pinned(meshes):
+    """The fixture's meshes, pinned: 487 and 274 nodes, 1969 and 1102
+    edges in both packages, and every port edge distance the correctly
+    rounded f32 square root of its node positions' squared offset
+    (numpy). Another mesh or a misrounded distance fails here, by name,
+    and not as parity misses of every test on the fixture."""
+    tg, jgs = meshes
+    assert tg.n_nodes.tolist() == [487, 274] and tg.n_edges.tolist() == [1969, 1102]
+    assert [int(jg.n_nodes) for jg in jgs] == [487, 274]
+    assert [int(jg.n_edges) for jg in jgs] == [1969, 1102]
+    xy = np.concatenate([tg.node_xy.numpy(), np.zeros((BATCH, 1, 2), np.float32)], axis=1)
+    src, dst = tg.edge_src.numpy(), tg.edge_dst.numpy()
+    for b in range(BATCH):
+        dx, dy = (xy[b, src[b], k] - xy[b, dst[b], k] for k in (0, 1))
+        dist = np.where(tg.edge_valid[b].numpy(), np.sqrt(dx * dx + dy * dy), np.float32(0))
+        assert dist.dtype == np.float32
+        np.testing.assert_array_equal(tg.edge_attr[b, :, 1].numpy(), dist)
 
 
 def test_edge_attributes_match_jax(meshes):
@@ -93,6 +128,68 @@ def test_attention_window_misses_count_into_overflow():
     for b in range(BATCH):
         jg = j_image_to_graph(j_posenc(jnp.asarray(x[b])), JGraphConfig(**kw))[0]
         assert int(tg.overflow[b]) == int(jg.overflow)
+
+
+@pytest.mark.parametrize("windows", ["fixture", "misses"])
+def test_slot_view_is_a_stable_sort_of_the_slot_sources(meshes, windows):
+    """K4's source-sorted slot view (``attn.slot_view``) equals a numpy
+    stable argsort of every slot's source node, per sample, with the slots
+    that carry no dk/dv dropped: dead slots, slots of dead tiles (the
+    fixture's second mesh has a dead tile) and sources outside the window
+    (the too-small windows of ``misses`` have them)."""
+    nt, eb, sw = (128, 1024, 512) if windows == "fixture" else (64, 128, 64)
+    if windows == "fixture":
+        meta = meshes[0].attn_meta
+    else:
+        tg = meshes[0]
+        meta, ovf = tattn.attn_tile_meta(tg.edge_src, tg.edge_dst, tg.edge_attr, N_MAX, nt, eb,
+                                         sw, tg.n_nodes)
+        assert (ovf > 0).all()
+    view = tattn.slot_view(meta, tattn.AttnDims(N_MAX, nt, eb, sw, 1, 1))
+    s0, src_rel, dst_rel, live = (x.numpy().astype(np.int64)
+                                  for x in (meta.s0, meta.src_rel, meta.dst_rel, meta.live))
+    t = np.arange(s0.shape[1])[:, None]
+    length = s0.shape[1] * eb
+    dropped = 0
+    for b in range(BATCH):
+        src = s0[b][:, None] + src_rel[b]
+        keep = ((dst_rel[b] >= 0) & (t < live[b]) & (t * nt + dst_rel[b] < N_MAX)
+                & (src_rel[b] >= 0) & (src_rel[b] < sw) & (src < N_MAX)).reshape(-1)
+        src = np.where(keep, src.reshape(-1), N_MAX)
+        order = np.argsort(src, kind="stable")[:keep.sum()]
+        offsets = np.searchsorted(src[order], np.arange(N_MAX + 1))
+        lo, hi = view.offsets[b, 0].item(), view.offsets[b, -1].item()
+        np.testing.assert_array_equal(view.order[lo:hi].numpy() - b * length, order)
+        np.testing.assert_array_equal(view.offsets[b].numpy() - b * length, offsets)
+        dropped += int((~keep & (dst_rel[b] >= 0).reshape(-1)).sum())
+    assert (dropped > 0) == (windows == "misses")  # out-of-window sources
+
+
+@pytest.mark.parametrize("heads,d,dropout", [(8, 16, True), (1, 16, False), (1, 1, True),
+                                             (3, 8, True)])
+def test_k4_combine_plain_path_matches_the_autograd_backward(meshes, heads, d, dropout):
+    """K4's two kernels written out in plain PyTorch: dq, the per-slot
+    scalars and dWₑ (``attn_bwd_slots_plain``), then dk and dv gathered per
+    source from those scalars (``attn_combine_plain``), equal autograd
+    through ``attn_plain`` (``attn_bwd_plain``, the reference K4 is held
+    to) within 1e-5 × max(1, max|grad|), with and without numpy keep
+    windows."""
+    meta = meshes[0].attn_meta
+    dims = tattn.AttnDims(N_MAX, 128, 1024, 512, heads, d)
+    rng = np.random.default_rng(heads * d)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((BATCH, N_MAX, heads * d))
+                                   .astype(np.float32)) for _ in range(4))
+    we = torch.from_numpy(rng.standard_normal((2, heads * d)).astype(np.float32))
+    keep = None
+    if dropout:
+        shape = (BATCH, meta.s0.shape[1], heads, 1024)
+        keep = torch.from_numpy(((rng.random(shape) < 0.9) / 0.9).astype(np.float32))
+    dq, dlog, used, dwe = tattn.attn_bwd_slots_plain(q, k, v, we, keep, meta, dims, g)
+    dk, dv = tattn.attn_combine_plain(dlog, used, q, g, meta, dims)
+    ref = tattn.attn_bwd_plain(q, k, v, we, keep, meta, dims, g)
+    for name, mine, want in zip(("dq", "dk", "dv", "dwe"), (dq, dk, dv, dwe), ref):
+        err = float((mine - want).abs().max())
+        assert err <= 1e-5 * max(1.0, float(want.abs().max())), (name, err)
 
 
 def _feats(seed, width, scale=1.0):
