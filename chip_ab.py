@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Time the remeshing quadtree paths of one checkout of the port on one CUDA
-card: a forecast batch (``predict``) and a train step (``train_step``) of
-``bench.py``'s 64×64 Moving-MNIST model (``chip_smoke.py`` phases 2, 5, 9
-and 11: batch 16, T_in 4 → T_out 10, thresh 0.1, random weights from
-``--seed``), with ChebConv and with TransformerConv.
+"""Time the paths of one checkout of the port on one CUDA card: by default
+the remeshing quadtree paths, a forecast batch (``predict``) and a train
+step (``train_step``) of ``bench.py``'s 64×64 Moving-MNIST model
+(``chip_smoke.py`` phases 2, 5, 9 and 11: batch 16, T_in 4 → T_out 10,
+thresh 0.1, random weights from ``--seed``), with ChebConv and with
+TransformerConv; with ``--workload ice`` the sea-ice flagship on the
+pixelwise grid (phases 13 and 16: one 224×304 forecast of 10 → 90 days
+through ``predict``, and one full-BPTT train step, batch 1, with
+climatology).
 
-    python3 chip_ab.py [--tree DIR] [--reps 5] [--seed 0]
+    python3 chip_ab.py [--workload quadtree|ice] [--tree DIR] [--reps 5] [--seed 0]
 
 ``--tree`` imports the port's package from another checkout, for example a
 parent commit unpacked into a git-ignored directory, so that one script
@@ -45,6 +49,7 @@ def _timed(fn, reps: int) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--workload", default="quadtree", choices=("quadtree", "ice"))
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
@@ -62,13 +67,34 @@ def main() -> int:
                                                   os.path.join(HERE, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    from quadtree_mpnnlstm_tpu_torch.data.loader import DataLoader
-    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+    import quadtree_mpnnlstm_tpu_torch  # noqa: F401  (from the tree on sys.path)
 
     package = sys.modules["quadtree_mpnnlstm_tpu_torch"].__file__
     if not package.startswith(tree):
         raise RuntimeError(f"imported the port from {package}, not from {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    run_dir = tempfile.TemporaryDirectory()
+    result = {"tree": tree, "card": cs.card_line(), "workload": args.workload, "reps": args.reps}
+    if args.workload == "ice":
+        _time_ice(cs, args, run_dir.name, result)
+    else:
+        _time_quadtree(cs, args, run_dir.name, result)
+    print(json.dumps(result), flush=True)
+    run_dir.cleanup()
+    return 0
+
+
+def _record(result: dict, name: str, samples: list) -> None:
+    result[name] = samples
+    result[f"{name}_median"] = statistics.median(samples)
+
+
+def _time_quadtree(cs, args, run_dir: str, result: dict) -> None:
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import DataLoader
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+
     ds = ModMovingMNISTDataset(
         cs.BATCH, input_timesteps=cs.T_IN, output_timesteps=cs.T_OUT, canvas_size=cs.CANVAS,
         digit_size=cs.DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=args.seed,
@@ -76,21 +102,39 @@ def main() -> int:
     loader = DataLoader(ds, batch_size=cs.BATCH)
     _, batches = cs.train_batches(args.seed, 1)
     x, y = batches[0]
-    run_dir = tempfile.TemporaryDirectory()
-    result = {"tree": tree, "card": cs.card_line(), "reps": args.reps}
     for conv in ("ChebConv", "TransformerConv"):
-        model = cs.make_model(args.seed, run_dir.name, conv)
-        forecast = _timed(lambda: model.predict(loader), args.reps)
-        trainer = cs.make_trainer(args.seed, run_dir.name, conv)
-        step = _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps)
-        for name, samples in (("forecast_s", forecast), ("step_s", step)):
-            result[f"{conv}_{name}"] = samples
-            result[f"{conv}_{name}_median"] = statistics.median(samples)
+        model = cs.make_model(args.seed, run_dir, conv)
+        _record(result, f"{conv}_forecast_s", _timed(lambda: model.predict(loader), args.reps))
+        trainer = cs.make_trainer(args.seed, run_dir, conv)
+        _record(result, f"{conv}_step_s",
+                _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps))
         del model, trainer
         torch.cuda.empty_cache()
-    print(json.dumps(result), flush=True)
-    run_dir.cleanup()
-    return 0
+
+
+def _time_ice(cs, args, run_dir: str, result: dict) -> None:
+    """The flagship's forecast (one window through ``predict``) and its
+    full-BPTT train step on the first window, as phases 13 and 16 run them."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+
+    data, clim, mask = cs.ice_data(args.seed)
+    window = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
+    model = cs.make_ice_model(args.seed, run_dir)
+    _record(result, "ice_forecast_s",
+            _timed(lambda: model.predict(window, climatology=clim, mask=mask), args.reps))
+    del model
+    torch.cuda.empty_cache()
+    trainer = cs.make_ice_model(args.seed, run_dir)
+    trainer.initiate_training(lr=cs.LR, lr_decay=0.95)
+    x, y, c = data.x[:1], data.y[:1], trainer._clim_batch(clim, data.launch_dates[:1])
+    _record(result, "ice_step_s",
+            _timed(lambda: float(trainer.train_step(x, y, mask=mask, climatology=c,
+                                                    truncated_backprop=cs.ICE_TBPTT)[0]),
+                   args.reps))
+    del trainer
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -54,7 +54,7 @@ RANGES = {("spmm", "_build_blocks_cuda"): "spmm_build_blocks",
           ("build", "segment_view"): "csr_views",
           ("attn", "slot_view"): "slot_view"}
 # the port's kernels by the start of their device names (csrc/*.cu)
-KERNELS = {"build_blocks_kernel": "::build_blocks_kernel(", "apply_kernel": "::apply_kernel(",
+KERNELS = {"build_blocks_kernel": "::build_blocks_kernel(", "apply_kernel": "::apply_kernel<",
            "attn_fwd_kernel": "::attn_fwd_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<",
            "attn_bwd_src_kernel": "::attn_bwd_src_kernel<",
            "grid_attn_fwd_kernel": "::grid_attn_fwd_kernel<",

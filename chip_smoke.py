@@ -19,7 +19,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
 3. each kernel against its plain PyTorch version on the operands of the
    main path (the Â windows of the meshes the first decoder steps run on;
    the z of every width F the path uses): K1 exact, K2 ≤1e-5; times
-   kernel, plain version and library call with CUDA events;
+   each kernel by CUDA graph (``ms``: 20 calls captured in one graph, the
+   card's own time) and by CUDA events (``events_ms``: with the host's
+   launches), the plain version and the library call by events;
 4. the whole rollout again with the plain versions on the card: the first
    decoder step's meshes must be identical, and frames must agree to
    ≤1e-4 up to the first step where a sample's mesh differs (a quadtree
@@ -35,7 +37,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
 6. train entry: one epoch of ``train()`` over 2 training batches and 1
    test batch, then ``score()``; finite losses;
 7. gradients vs plain: K2b against its plain version on the cotangents of
-   every width F of one train step (≤1e-5, timed like K2), then one whole
+   every width F of one train step (≤1e-5, timed like K2: graph and
+   events), then one whole
    train step with the kernels and one with the plain versions from the
    same weights and generator: the meshes must be identical, and every
    gradient leaf must agree to ≤1e-4 × max(1, max|g|);
@@ -51,8 +54,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    decoder step's operands at every HD of the path (≤1e-5), K4 against
    autograd through ``attn_plain`` on the cotangents of one train step at
    every HD (≤1e-5 × max(1, max|grad|)), through the graph's slot view;
-   K3 timed with CUDA events, K4's whole backward (both kernels, the dWₑ
-   sum) by CUDA graph and by events, beside their bounds; the per-mesh
+   K3 and K4's whole backward (both kernels, the dWₑ sum) timed by CUDA
+   graph and by events, beside their bounds; the per-mesh
    view builds (pixel view, K4's slot view) timed on a decoder mesh;
 11. attention train path: ``train_step`` (attention dropout 0.1 from the
    trainer's generator): a warm-up step in which every K3 output whose
@@ -82,12 +85,13 @@ Phases (each prints one line; any failure raises and exits non-zero):
    sums); seconds per forecast after a warm-up;
 14. grid kernels vs plain: K5 against ``grid_attn_plain`` on the first
    decoder step's operands at H 256, 32 and 1, with and without a keep
-   plane (≤1e-5), K6 against autograd through ``grid_attn_plain`` on the
+   plane (bit-identical), K6 against autograd through ``grid_attn_plain`` on the
    cotangents of one train step at each H, with and without its keep
-   planes (≤1e-5 × max(1, max|grad|)); all timed beside their bounds, K6
-   by CUDA graph and by events;
+   planes (≤1e-5 × max(1, max|grad|)); all timed by CUDA graph and by
+   events beside their bounds;
 15. grid rollout vs plain: the whole 90-step forecast on the plain K5,
-   ≤1e-4 at every step (the mesh is fixed);
+   bit-identical to the one on K5 (the mesh is fixed, and K5 keeps every
+   sum in the plain version's order);
 16. grid train path: ``train_step`` at batch 1 (full BPTT, attention
    dropout 0.1): a warm-up step in which every K5 output whose inputs need
    a gradient carries the ``GridAttnApply`` node, then 3 timed steps;
@@ -486,13 +490,22 @@ def k1_bound_ms(src_rel, dst_rel, live, nt, sw):
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
-def k2_bound_ms(live, n_max, nt, sw, f, batch):
-    """Least time for K2's work: per live tile its Â block (NT·SW·4 B) and
-    z window (SW·F·4 B) read once, the output written once; 2·NT·SW·F
-    f32 operations a live tile."""
+def k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, batch):
+    """Least time for K2's work: per live tile its Â block (NT·SW·4 B) read
+    once, each row of z that a live tile's source window covers read once
+    (windows of one sample overlap), the output written once; one multiply
+    and add a feature for every non-zero of the live tiles' blocks (the
+    work depends on the data: a zero entry adds nothing)."""
+    import torch
+
     n_live = int(live.long().sum())
-    nbytes = n_live * (nt * sw * 4 + sw * f * 4) + batch * n_max * f * 4
-    ops = 2 * nt * sw * f * n_live
+    alive = torch.arange(blocks.shape[1], device=blocks.device)[None, :] < live[:, None]
+    rows = s0.long()[..., None] + torch.arange(sw, device=s0.device)  # (B, T, SW)
+    hit = alive[..., None] & (rows < n_max)
+    covered = torch.zeros(batch, n_max + 1, dtype=torch.bool, device=s0.device)
+    covered.scatter_(1, torch.where(hit, rows, n_max).reshape(batch, -1), True)
+    nbytes = n_live * nt * sw * 4 + int(covered[:, :n_max].sum()) * f * 4 + batch * n_max * f * 4
+    ops = 2 * f * int((blocks[alive] != 0).sum())
     bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
@@ -537,7 +550,7 @@ ICE_VARS = ["siconc", "t2m", "v10", "u10", "sshf"]
 ICE_MONTH, ICE_FORECASTS, ICE_TRAIN_STEPS = 6, 2, 3
 ICE_SHORT_T_OUT = 6  # the kernel-vs-plain step pair: plain keeps D shifted copies a call
 ICE_TBPTT = 0        # full BPTT
-K5_TOL, K6_TOL = 1e-5, 1e-5
+K6_TOL = 1e-5
 
 
 def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
@@ -705,10 +718,11 @@ def train_phases(seed: int, card: str, spmm, segment_sum, cfg, nt: int, sw: int,
         check(err <= K2_TOL, f"K2b differs from its plain version at F={f}: {err}")
         csr = block_diag_csr(s0, blocks, n_max, nt, sw)
         gf = g.reshape(-1, f)
-        bound, b_ms, o_ms = k2_bound_ms(live, n_max, nt, sw, f, g.shape[0])
+        bound, b_ms, o_ms = k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, g.shape[0])
         bwd_widths.append(dict(
             F=f, calls=cap_b.per_width[f], max_abs_err=err, live_tiles=int(live.long().sum()),
-            ms=cuda_ms(lambda: spmm._apply_bwd_cuda(*bargs)),
+            ms=graph_ms(lambda: spmm._apply_bwd_cuda(*bargs)),
+            events_ms=cuda_ms(lambda: spmm._apply_bwd_cuda(*bargs)),
             plain_ms=cuda_ms(lambda: spmm.apply_plain(*bargs)),
             library_ms=cuda_ms(lambda: torch.sparse.mm(csr, gf)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
@@ -804,7 +818,8 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
         bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=False)
         fwd.append(dict(HD=hd, calls=cap.per_width[hd], max_abs_err=err,
                         live_tiles=int(args[5].live.long().sum()),
-                        ms=cuda_ms(lambda: attn._attn_fwd_cuda(*args)),
+                        ms=graph_ms(lambda: attn._attn_fwd_cuda(*args)),
+                        events_ms=cuda_ms(lambda: attn._attn_fwd_cuda(*args)),
                         plain_ms=cuda_ms(lambda: attn.attn_plain(*args)),
                         bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
     check(sorted(w["HD"] for w in fwd) == [1, 16, 128], f"K3 widths {[w['HD'] for w in fwd]}")
@@ -1076,13 +1091,18 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
                            device=DEVICE) < 0.9).float() / 0.9
         for kargs in (args, args[:5] + (keep, dims)):
             with torch.no_grad():
-                err = float((grid_attn._grid_attn_fwd_cuda(*kargs)
-                             - grid_attn.grid_attn_plain(*kargs)).abs().max())
-            check(err <= K5_TOL, f"K5 differs from grid_attn_plain at H={hd}: {err}")
+                kern = grid_attn._grid_attn_fwd_cuda(*kargs)
+                plain = grid_attn.grid_attn_plain(*kargs)
+            err = float((kern - plain).abs().max())
+            # d divides 32 at every flagship width: K5 sums in the plain order
+            check(torch.equal(kern, plain),
+                  f"K5 is not bit-identical to grid_attn_plain at H={hd}: {err}")
             bound, b_ms, o_ms = grid_bound_ms(kargs, backward=False)
             fwd.append(dict(H=hd, heads=dims.heads, calls=cap.per_width[hd],
-                            keep=kargs[5] is not None, max_abs_err=err,
-                            ms=cuda_ms(lambda: grid_attn._grid_attn_fwd_cuda(*kargs)),
+                            keep=kargs[5] is not None, max_abs_err=err, bit_identical=True,
+                            plan=grid_attn.fwd_plan(dims),
+                            ms=graph_ms(lambda: grid_attn._grid_attn_fwd_cuda(*kargs)),
+                            events_ms=cuda_ms(lambda: grid_attn._grid_attn_fwd_cuda(*kargs)),
                             plain_ms=cuda_ms(lambda: grid_attn.grid_attn_plain(*kargs)),
                             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
     check(sorted({w["H"] for w in fwd}) == [1, 32, 256], f"K5 widths {[w['H'] for w in fwd]}")
@@ -1128,10 +1148,11 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
     step_err = (y_k - y_p).abs().amax(dim=(0, 2, 3, 4))  # (T_out,)
     check(float(step_err.max()) <= ROLLOUT_TOL,
           f"grid rollout differs from the plain one by {float(step_err.max())}")
+    # K5 keeps every sum in the plain version's order (ops/grid_attn.py)
+    check(torch.equal(y_k, y_p), "the grid rollout on K5 is not bit-identical to the plain one")
     print(json.dumps({"phase": "grid_rollout_vs_plain", "card": card, "steps": ICE_T_OUT,
                       "max_abs_err": float(step_err.max()),
-                      "max_abs_err_last_step": float(step_err[-1]),
-                      "bit_identical": bool(torch.equal(y_k, y_p)),
+                      "max_abs_err_last_step": float(step_err[-1]), "bit_identical": True,
                       "max_abs_value": float(y_p.abs().max())}), flush=True)
     del model, y_k, y_p
 
@@ -1625,7 +1646,8 @@ def main() -> int:
         check(torch.equal(kern, plain), f"K1 differs from its plain version (build {i})")
         k1_err = max(k1_err, float((kern - plain).abs().max()))
     bargs = cap.builds[0]
-    k1["ms"] = cuda_ms(lambda: spmm._build_blocks_cuda(*bargs))
+    k1["ms"] = graph_ms(lambda: spmm._build_blocks_cuda(*bargs))
+    k1["events_ms"] = cuda_ms(lambda: spmm._build_blocks_cuda(*bargs))
     k1["plain_ms"] = cuda_ms(lambda: spmm.build_blocks_plain(*bargs))
     k1["bound_ms"], k1_bytes_ms, k1_ops_ms = k1_bound_ms(bargs[0], bargs[1], bargs[3], nt, sw)
     k1["bound_by"] = "bytes" if k1_bytes_ms >= k1_ops_ms else "operations"
@@ -1640,11 +1662,12 @@ def main() -> int:
         csr = block_diag_csr(s0, blocks, n_max, nt, sw)
         zf = z.reshape(-1, f)
         lib_err = float((torch.sparse.mm(csr, zf).reshape(z.shape) - plain).abs().max())
-        bound, b_ms, o_ms = k2_bound_ms(live, n_max, nt, sw, f, z.shape[0])
+        bound, b_ms, o_ms = k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, z.shape[0])
         widths.append(dict(
             F=f, calls=cap.per_width[f], max_abs_err=err, library_max_abs_err=lib_err,
             live_tiles=int(live.long().sum()),
-            ms=cuda_ms(lambda: spmm._apply_cuda(*aargs)),
+            ms=graph_ms(lambda: spmm._apply_cuda(*aargs)),
+            events_ms=cuda_ms(lambda: spmm._apply_cuda(*aargs)),
             plain_ms=cuda_ms(lambda: spmm.apply_plain(*aargs)),
             library_ms=cuda_ms(lambda: torch.sparse.mm(csr, zf)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
@@ -1698,20 +1721,23 @@ def main() -> int:
         dict(name="spmm_build_blocks", route="cuda", source=source,
              replaces="quadtree_mpnnlstm_tpu/ops/pallas_spmm.py:249",
              launches=train_launches["spmm_build_blocks"], max_abs_err=k1_err, ms=k1["ms"],
-             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"], bound_by=k1["bound_by"],
+             events_ms=k1["events_ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"],
              library_ms=None, launches_by_path=by_path("spmm_build_blocks")),
         dict(name="spmm_apply", route="cuda", source=source,
              replaces="quadtree_mpnnlstm_tpu/ops/pallas_spmm.py:322",
              launches=train_launches["spmm_apply"],
              max_abs_err=max(w["max_abs_err"] for w in widths),
-             ms=mean("ms"), plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+             ms=mean("ms"), events_ms=mean("events_ms"), plain_ms=mean("plain_ms"),
+             bound_ms=mean("bound_ms"),
              bound_by="bytes" if mean("bytes_ms") >= mean("ops_ms") else "operations",
              library_ms=mean("library_ms"), launches_by_path=by_path("spmm_apply")),
         dict(name="spmm_apply_bwd", route="cuda", source=source,
              replaces="quadtree_mpnnlstm_tpu/ops/pallas_spmm.py:363-365",
              launches=train_launches["spmm_apply_bwd"],
              max_abs_err=max(w["max_abs_err"] for w in bwd_widths),
-             ms=mean_b("ms"), plain_ms=mean_b("plain_ms"), bound_ms=mean_b("bound_ms"),
+             ms=mean_b("ms"), events_ms=mean_b("events_ms"), plain_ms=mean_b("plain_ms"),
+             bound_ms=mean_b("bound_ms"),
              bound_by="bytes" if mean_b("bytes_ms") >= mean_b("ops_ms") else "operations",
              library_ms=mean_b("library_ms"), launches_by_path=by_path("spmm_apply_bwd")),
     ]
@@ -1729,7 +1755,7 @@ def main() -> int:
             # no PyTorch call adds per-edge (or per-direction) terms to keys
             # and values
             library_ms=None,
-            **({"events_ms": avg("events_ms")} if "events_ms" in widths[0] else {}),
+            events_ms=avg("events_ms"),
             launches_by_path={"predict_batch": fwd_launches[name],
                               f"train_{steps}_steps": train_launches[name]})
 
@@ -1758,6 +1784,7 @@ def main() -> int:
         replaces="quadtree_mpnnlstm_tpu/ops/pallas_segment.py:87",
         launches=edge_train_launches["segment_sum"],
         max_abs_err=max(w["max_abs_err"] for w in k7_sets), ms=avg7("ms"),
+        events_ms=avg7("ms_events"),
         plain_ms=avg7("plain_ms"), bound_ms=avg7("bound_ms"),
         bound_by="bytes" if avg7("bytes_ms") >= avg7("ops_ms") else "operations",
         library_ms=avg7("library_ms"),

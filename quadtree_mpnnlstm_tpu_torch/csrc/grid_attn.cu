@@ -14,18 +14,25 @@
 //   out[p]_h = sum_i alpha_i * keep_i,h * (v[src_i]_h + e_i,h)
 //
 // The TPU kernel tiles row blocks with halo strips so that VMEM holds them
-// and reduces heads with one-hot matmuls. Neither is needed here: one warp
-// serves one pixel, with the lanes over the H = heads * d features (lane l
-// holds features l, l + 32, ...; a ragged H is masked). The D neighbour
-// rows are read straight from device memory (coalesced rows; the
-// neighbouring rows of nearby pixels stay in L2, so each input is read from
-// memory about once). The per-head dot products are xor-shuffle butterflies
-// inside aligned groups of d lanes when d divides 32, else in-order sums
-// through a per-warp shared-memory buffer, so any d works, down to d = 1.
-// The softmax is two-pass in f32, with the D logits kept in registers, and
-// every sum runs in the order grid_attn_plain uses (ops/grid_attn.py), with
-// products kept apart from sums: K5 and its plain version agree bit for bit
-// on the card, so a 90-step rollout does not drift between them.
+// and reduces heads with one-hot matmuls. Here heads are independent (a
+// head's alpha reads only its own d features), so K5 takes one CTA per 2-D
+// pixel tile (8 x 8 at d 32, 8 x 32 at d 1; sized by the host to the lanes
+// a pixel takes) and one feature group of whole heads (up to 32 features,
+// packing several small heads; one head when d > 32). It stages in shared
+// memory, with 16-byte cp.async where rows allow, k and v on the tile's
+// one-pixel halo (the sources lie at offsets +-1), q and the keep values
+// of the tile, the group's slice of e and the halo's validity; rows of
+// masked pixels are not fetched. Each (pixel, head) item then takes d / RUN
+// lanes, each lane a contiguous run of RUN features (RUN = min(d, 8) when d
+// divides 32): the lane sums its run's products as a pairwise tree and an
+// xor butterfly over the item's lanes finishes the tree, which is
+// grid_attn_plain's _head_sum order; where d does not divide 32 one lane
+// sums the head in feature order, as _head_sum does then. The softmax is
+// two-pass in f32 over the D logits in registers, in direction order, and
+// each lane writes its run of the output with 16-byte stores. Products are
+// kept apart from sums (the __f*_rn intrinsics): K5 and its plain version
+// agree bit for bit on the card, so a 90-step rollout does not drift
+// between them (an online softmax once drifted 2.4e-4).
 //
 // K6 is one kernel with no float atomics, so a backward is bit-reproducible.
 // Heads are independent (a head's alpha reads only its own d features), so
@@ -55,8 +62,8 @@
 // (16 * H bytes a pixel) against about 6 * H * D operations; K6 reads q, k,
 // v and g and writes dq, dk and dv (28 * H bytes a pixel) against about
 // 14 * H * D operations: far below the card's 20 operations per byte of
-// f32. K5's lanes idle at H < 32 and it reads the neighbour rows from L2 on
-// each sweep over the directions; K5 is the next to redesign.
+// f32. Each input row is staged once a tile; the halo's re-reads of
+// neighbouring tiles' rows come from L2.
 //
 // Column wrap: a +-1 column shift is checked on the row and the column of
 // the source, so it never bleeds across a row end. The kernels take a
@@ -71,9 +78,8 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kMaxH = 256;        // features per pixel (8 per lane)
+constexpr int kThreads = 256;  // threads of a K5 or K6 CTA
+constexpr int kMaxH = 256;     // features per pixel
 constexpr unsigned kFull = 0xffffffffu;
 
 // Direction i of ops/grid.py SHIFTS_8 (the first four are SHIFTS_4).
@@ -84,7 +90,50 @@ __host__ __device__ constexpr int shift_c(int i) {
   return i < 2 ? 0 : i == 2 ? -1 : i == 3 ? 1 : i < 6 ? -1 : 1;
 }
 
-struct Params {
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 4 : 0;  // 0 source bytes: zero-fill
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 16 : 0;  // 0 source bytes: zero-fill
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+// Stage rows [f0, f0 + gw) of a (and of b, unless bs is null) for the
+// w-wide pixel region with origin (r0, c0) into rows of stride S; zero
+// outside the grid and, where vld is given, at masked pixels, whose rows
+// are then not fetched: vld holds the staged validity of a vw-wide region
+// whose origin lies voff pixels up and left of (r0, c0). vec4: 16-byte
+// copies (gw, S, H and f0 multiples of 4, 16-byte aligned tensors).
+__device__ __forceinline__ void stage_rows(float* as, float* bs, const float* a, const float* b,
+                                           long long base, int H, int f0, int gw, int S,
+                                           int r0, int c0, int w, int n, int rows, int cols,
+                                           bool vec4, const float* vld = nullptr, int vw = 0,
+                                           int voff = 0) {
+  const int step = vec4 ? 4 : 1;
+  const int per = gw / step;
+  for (int x = threadIdx.x; x < n * per; x += kThreads) {
+    const int px = x / per, f = (x - px * per) * step;
+    const int r = r0 + px / w, c = c0 + px % w;
+    const bool in = r >= 0 && r < rows && c >= 0 && c < cols &&
+                    (vld == nullptr || vld[(px / w + voff) * vw + px % w + voff] != 0.f);
+    const long long at = in ? (base + r * cols + c) * H + f0 + f : 0;
+    if (vec4) {
+      cp_async16(as + px * S + f, a + at, in);
+      if (bs != nullptr) cp_async16(bs + px * S + f, b + at, in);
+    } else {
+      cp_async4(as + px * S + f, a + at, in);
+      if (bs != nullptr) cp_async4(bs + px * S + f, b + at, in);
+    }
+  }
+}
+
+// ---------------------------------------------------------------- K5
+
+struct FwdParams {
   const float* q;      // (B, P, H)
   const float* k;
   const float* v;
@@ -93,194 +142,236 @@ struct Params {
   const float* keep;   // (B, ND, P, heads) or null (no dropout)
   float* out;          // (B, P, H)
   int rows, cols, heads, d;
+  int hpg;             // heads of one CTA's feature group
+  int tr, tc;          // the CTA's pixel tile
+  int vec4;            // stage rows with 16-byte copies
   float scale;
 };
 
-// Source of direction i at pixel (r, c), or -1 when it lies off the grid or
-// is invalid. The caller checks the pixel's own validity.
-template <int I>
-__device__ __forceinline__ int source(const Params& p, int r, int c) {
-  const int rs = r - shift_r(I), cs = c - shift_c(I);
-  if (rs < 0 || rs >= p.rows || cs < 0 || cs >= p.cols) return -1;
-  const int src = rs * p.cols + cs;
-  return p.valid[src] != 0.f ? src : -1;
+// K5's lane split of a head's d features: each of d / RUN lanes sums a
+// run of RUN contiguous features as a pairwise tree, and an xor butterfly
+// over those lanes finishes the tree; that is grid_attn_plain's _head_sum
+// order when d divides 32. RUN 0: d does not divide 32, and one lane sums
+// the d features in order, as _head_sum does then.
+__host__ __device__ constexpr int fwd_run(int d) { return 32 % d == 0 ? (d < 8 ? d : 8) : 0; }
+
+// Row stride (floats) of a staged pixel row: with runs of 4 or 8 (float4
+// reads) the smallest s >= gw with s % 8 == 4, so that the 8 lanes of a
+// quarter warp, on two neighbouring pixels, read 8 distinct 16-byte bank
+// groups; else the smallest odd s >= gw, so that lanes on neighbouring
+// pixels read distinct banks.
+__host__ __device__ constexpr int fwd_stride(int gw, int run) {
+  int s = gw;
+  while (run >= 4 ? s % 8 != 4 : s % 2 != 1) ++s;
+  return s;
 }
 
-// The switches fold to one case once the loops over the directions are
-// unrolled.
-__device__ __forceinline__ int source_of(const Params& p, int dir, int r, int c) {
-  switch (dir) {
-    case 0: return source<0>(p, r, c);
-    case 1: return source<1>(p, r, c);
-    case 2: return source<2>(p, r, c);
-    case 3: return source<3>(p, r, c);
-    case 4: return source<4>(p, r, c);
-    case 5: return source<5>(p, r, c);
-    case 6: return source<6>(p, r, c);
-    default: return source<7>(p, r, c);
-  }
+// Shared-memory floats of one K5 CTA: k and v on the tile's one-pixel
+// halo and q on the tile (rows first, 16-byte aligned), the group's edge
+// terms, validity on the halo and keep on the tile.
+__host__ __device__ inline long long fwd_smem_floats(int nd, int hpg, int d, int tr, int tc) {
+  const long long s = fwd_stride(hpg * d, fwd_run(d));
+  const long long n1 = static_cast<long long>(tr + 2) * (tc + 2);
+  const long long nt = static_cast<long long>(tr) * tc;
+  return 2 * n1 * s + nt * s + nd * hpg * d + n1 + nd * nt * hpg;
 }
 
-// s[i] (the lane's features' products) := the sum over the d features of
-// each feature's head, identical on every lane of the head. When d divides
-// 32 a head is an aligned group of d lanes of one chunk, summed by an
-// xor butterfly: a pairwise tree over adjacent features. Otherwise one lane
-// per head sums its d features in order through a per-warp shared-memory
-// buffer. ops/grid_attn.py grid_attn_plain sums in the same two orders, and
-// the __f*_rn intrinsics keep the compiler from fusing a product into a
-// sum, so that K5 and its plain version agree bit for bit.
-template <int FPL>
-__device__ __forceinline__ void head_sums(float (&s)[FPL], float* buf, const Params& p, int H,
-                                          int lane) {
-  if (32 % p.d == 0) {
-#pragma unroll
-    for (int i = 0; i < FPL; ++i)
-      for (int o = 1; o < p.d; o <<= 1) s[i] = __fadd_rn(s[i], __shfl_xor_sync(kFull, s[i], o));
-    return;
-  }
-  float* head = buf + H;
-#pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    if (f < H) buf[f] = s[i];
-  }
-  __syncwarp();
-  for (int h = lane; h < p.heads; h += 32) {
-    float t = 0.f;
-    for (int x = 0; x < p.d; ++x) t = __fadd_rn(t, buf[h * p.d + x]);
-    head[h] = t;
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    s[i] = f < H ? head[f / p.d] : 0.f;
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ float keep_at(const Params& p, int b, int i, int nd, int pix, int h,
-                                         int P) {
-  return p.keep != nullptr
-             ? p.keep[((static_cast<long long>(b) * nd + i) * P + pix) * p.heads + h]
-             : 1.f;
-}
-
-// x[i] := (a[srow + f] + e_dir[f]) for the lane's features, 0 past H.
-template <int FPL>
-__device__ __forceinline__ void load_plus_e(const float* a, long long srow, const float* e_dir,
-                                            int H, int lane, float (&x)[FPL]) {
-#pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    x[i] = f < H ? __fadd_rn(a[srow + f], e_dir[f]) : 0.f;
+// The pairwise tree over N adjacent values: (x0 + x1) + (x2 + x3), ...
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* x) {
+  if constexpr (N == 1) {
+    return x[0];
+  } else {
+    return __fadd_rn(tree_sum<N / 2>(x), tree_sum<N / 2>(x + N / 2));
   }
 }
 
-// The softmax of one pixel over its directions, as grid_attn_plain computes
-// it: logits (scale * head sums of q * (k + e)), their max, exp(logit - max)
-// and the sum of those in direction order; alpha[dir] := exp / sum (0 for a
-// direction without an edge, or when no direction has one). src[dir] is the
-// direction's source, -1 where it has no edge. Uniform across the warp.
-template <int FPL, int ND>
-__device__ __forceinline__ void softmax(const Params& p, int b, int pix, const float (&qf)[FPL],
-                                        const float* e_s, float* buf, int lane,
-                                        int (&src)[ND], float (&alpha)[ND][FPL]) {
-  const int H = p.heads * p.d;
-  const int P = p.rows * p.cols;
-  const long long base = static_cast<long long>(b) * P;
-  const int r = pix / p.cols, c = pix % p.cols;
-  const bool self_ok = p.valid[pix] != 0.f;
-  float mx[FPL], den[FPL];
+// x[0..N) := src[0..N) from shared memory; float4 reads when N % 4 == 0
+// (src 16-byte aligned then).
+template <int N>
+__device__ __forceinline__ void load_run(const float* src, float (&x)[N]) {
+  if constexpr (N % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    mx[i] = -INFINITY;
-    den[i] = 0.f;
-  }
-#pragma unroll
-  for (int dir = 0; dir < ND; ++dir) {
-    src[dir] = self_ok ? source_of(p, dir, r, c) : -1;
-    if (src[dir] < 0) continue;  // uniform across the warp
-    float s[FPL];
-    load_plus_e<FPL>(p.k, (base + src[dir]) * H, e_s + dir * H, H, lane, s);
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) s[i] = __fmul_rn(qf[i], s[i]);
-    head_sums<FPL>(s, buf, p, H, lane);
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      alpha[dir][i] = __fmul_rn(s[i], p.scale);  // the logit for now
-      mx[i] = fmaxf(mx[i], alpha[dir][i]);
+    for (int j = 0; j < N; j += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(src + j);
+      x[j] = t.x;
+      x[j + 1] = t.y;
+      x[j + 2] = t.z;
+      x[j + 3] = t.w;
     }
-  }
+  } else {
 #pragma unroll
-  for (int dir = 0; dir < ND; ++dir) {
-    if (src[dir] < 0) continue;
-#pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      alpha[dir][i] = expf(__fsub_rn(alpha[dir][i], mx[i]));
-      den[i] = __fadd_rn(den[i], alpha[dir][i]);
-    }
-  }
-#pragma unroll
-  for (int dir = 0; dir < ND; ++dir) {
-#pragma unroll
-    for (int i = 0; i < FPL; ++i)
-      alpha[dir][i] = src[dir] >= 0 && den[i] != 0.f ? __fdiv_rn(alpha[dir][i], den[i]) : 0.f;
+    for (int j = 0; j < N; ++j) x[j] = src[j];
   }
 }
 
-template <int FPL, int ND>
-__global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int H = p.heads * p.d;
+// K5: one CTA per (pixel tile, feature group of whole heads, sample). The
+// CTA stages, with cp.async, k and v on the tile's one-pixel halo, q and
+// keep on the tile, the group's edge terms and the halo's validity; rows of
+// masked pixels are not fetched (no edge reads them). Then every (pixel,
+// head) item of the tile takes d / RUN lanes (RUN of fwd_run), each lane a
+// run of RUN contiguous features: the D logits (tree over the run, then the
+// butterfly), the softmax in direction order, and the lane's run of the
+// output, written straight to device memory. Every sum runs in
+// grid_attn_plain's order and the __f*_rn intrinsics keep the compiler from
+// fusing a product into a sum, so K5 and its plain version agree bit for
+// bit. D, HPG, TR and TC fix the head width, the heads of a group and the
+// tile at compile time for the flagship's widths; 0 reads them from p.
+template <int ND, int RUN, int D, int HPG, int TR, int TC>
+__global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int d = D ? D : p.d, hpg = HPG ? HPG : p.hpg;
+  const int tr = TR ? TR : p.tr, tc = TC ? TC : p.tc;
+  const int run = RUN ? RUN : d;       // features a lane
+  const int lpi = RUN ? d / RUN : 1;   // lanes an item
+  const int H = p.heads * d;
   const int P = p.rows * p.cols;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int groups = (p.heads + hpg - 1) / hpg;
+  const int grp = blockIdx.x % groups, tile = blockIdx.x / groups;
   const int b = blockIdx.y;
-  float* e_s = smem;                                  // ND * H
-  float* buf = smem + ND * H + warp * (H + p.heads);  // H + heads per warp
-  for (int x = threadIdx.x; x < ND * H; x += blockDim.x) e_s[x] = p.e[x];
-  __syncthreads();
-  const int pix = blockIdx.x * kWarps + warp;
-  if (pix >= P) return;  // uniform across the warp; no block barrier follows
+  const int tiles_c = (p.cols + tc - 1) / tc;
+  const int r0 = (tile / tiles_c) * tr, c0 = (tile % tiles_c) * tc;
+  const int h0 = grp * hpg;
+  const int gh = HPG ? HPG : min(hpg, p.heads - h0);  // heads of this group (the last may be ragged)
+  const int gw = gh * d, f0 = h0 * d;
+  const int S = fwd_stride(hpg * d, RUN);
+  const int w1 = tc + 2, n1 = (tr + 2) * w1;  // the one-pixel halo, origin (r0-1, c0-1)
+  const int nt = tr * tc;
+  float* ks = smem;                           // n1 rows
+  float* vs = ks + n1 * S;
+  float* qs = vs + n1 * S;                    // nt rows
+  float* e_s = qs + nt * S;                   // ND * gw
+  float* vld = e_s + ND * hpg * d;            // n1
+  float* kps = vld + n1;                      // (ND, nt, hpg) keep
   const long long base = static_cast<long long>(b) * P;
-  const long long row = (base + pix) * H;
 
-  float qf[FPL], acc[FPL];
-#pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    qf[i] = f < H ? p.q[row + f] : 0.f;
-    acc[i] = 0.f;
+  // ---- stage: validity first, so that masked pixels' rows are skipped
+  for (int x = threadIdx.x; x < n1; x += kThreads) {
+    const int r = r0 - 1 + x / w1, c = c0 - 1 + x % w1;
+    vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? p.valid[r * p.cols + c] : 0.f;
   }
-  int src[ND];
-  float alpha[ND][FPL];
-  softmax<FPL, ND>(p, b, pix, qf, e_s, buf, lane, src, alpha);
-  // out = sum over the directions, in order, of alpha * keep * (v + e)
+  for (int x = threadIdx.x; x < ND * gw; x += kThreads)
+    e_s[x] = p.e[(x / gw) * H + f0 + x % gw];
+  if (p.keep != nullptr) {
+    for (int x = threadIdx.x; x < ND * nt * gh; x += kThreads) {
+      const int i = x / (nt * gh), rest = x - i * nt * gh, px = rest / gh, hh = rest - px * gh;
+      const int r = r0 + px / tc, c = c0 + px % tc;
+      const bool in = r < p.rows && c < p.cols;
+      const long long at =
+          in ? ((static_cast<long long>(b) * ND + i) * P + r * p.cols + c) * p.heads + h0 + hh : 0;
+      cp_async4(kps + (i * nt + px) * hpg + hh, p.keep + at, in);
+    }
+  }
+  __syncthreads();
+  stage_rows(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
+             p.vec4, vld, w1, 0);
+  stage_rows(qs, nullptr, p.q, nullptr, base, H, f0, gw, S, r0, c0, tc, nt, p.rows, p.cols,
+             p.vec4, vld, w1, 1);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // ---- one (pixel, head) item per lpi lanes
+  const int items = nt * gh;
+  const int sub = threadIdx.x % lpi;
+  for (int it0 = 0; it0 < items; it0 += kThreads / lpi) {  // uniform across the CTA
+    const int it = it0 + threadIdx.x / lpi;
+    const bool act = it < items;
+    const int px = act ? it / gh : 0, hh = act ? it - px * gh : 0;
+    const int ty = px / tc, tx = px - ty * tc;
+    const int r = r0 + ty, c = c0 + tx;
+    const bool on = act && r < p.rows && c < p.cols;
+    const int p1 = (ty + 1) * w1 + tx + 1;
+    const bool self_ok = on && vld[p1] != 0.f;
+    const int fo = hh * d + sub * run;  // the lane's first feature in the group
+    bool has[ND];
+    float logit[ND];
 #pragma unroll
-  for (int dir = 0; dir < ND; ++dir) {
-    if (src[dir] < 0) continue;  // uniform across the warp
-    float vj[FPL];
-    load_plus_e<FPL>(p.v, (base + src[dir]) * H, e_s + dir * H, H, lane, vj);
+    for (int i = 0; i < ND; ++i) {
+      const int s1 = p1 - shift_r(i) * w1 - shift_c(i);
+      has[i] = self_ok && vld[s1] != 0.f;
+      float s;
+      if constexpr (RUN > 0) {
+        float qv[RUN > 0 ? RUN : 1], kv[RUN > 0 ? RUN : 1], ev[RUN > 0 ? RUN : 1];
+        load_run<RUN>(qs + px * S + fo, qv);
+        load_run<RUN>(ks + s1 * S + fo, kv);
+        load_run<RUN>(e_s + i * gw + fo, ev);
 #pragma unroll
-    for (int i = 0; i < FPL; ++i) {
-      const int f = lane + 32 * i;
-      if (f < H) {
-        float used = alpha[dir][i];
-        if (p.keep != nullptr) used = __fmul_rn(used, keep_at(p, b, dir, ND, pix, f / p.d, P));
-        acc[i] = __fadd_rn(acc[i], __fmul_rn(used, vj[i]));
+        for (int j = 0; j < RUN; ++j) qv[j] = __fmul_rn(qv[j], __fadd_rn(kv[j], ev[j]));
+        s = tree_sum<RUN>(qv);
+        for (int o = 1; o < lpi; o <<= 1) s = __fadd_rn(s, __shfl_xor_sync(kFull, s, o));
+      } else {
+        s = 0.f;
+        if (has[i]) {
+          s = __fmul_rn(qs[px * S + fo], __fadd_rn(ks[s1 * S + fo], e_s[i * gw + fo]));
+          for (int x = 1; x < d; ++x)
+            s = __fadd_rn(s, __fmul_rn(qs[px * S + fo + x],
+                                       __fadd_rn(ks[s1 * S + fo + x], e_s[i * gw + fo + x])));
+        }
+      }
+      logit[i] = __fmul_rn(s, p.scale);
+    }
+    if (!on) continue;  // no shuffle follows
+    // softmax over the directions with an edge, in direction order
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+      if (has[i]) mx = fmaxf(mx, logit[i]);
+    float den = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      logit[i] = has[i] ? expf(__fsub_rn(logit[i], mx)) : 0.f;
+      den = __fadd_rn(den, logit[i]);
+    }
+    // out = sum over the directions, in order, of alpha * keep * (v + e);
+    // den >= 1 wherever a direction has an edge
+    float* o = p.out + (base + r * p.cols + c) * H + f0 + fo;
+    if constexpr (RUN > 0) {
+      float acc[RUN];
+#pragma unroll
+      for (int j = 0; j < RUN; ++j) acc[j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        if (!has[i]) continue;
+        float used = __fdiv_rn(logit[i], den);
+        if (p.keep != nullptr) used = __fmul_rn(used, kps[(i * nt + px) * hpg + hh]);
+        const int s1 = p1 - shift_r(i) * w1 - shift_c(i);
+        float vv[RUN], ev[RUN];
+        load_run<RUN>(vs + s1 * S + fo, vv);
+        load_run<RUN>(e_s + i * gw + fo, ev);
+#pragma unroll
+        for (int j = 0; j < RUN; ++j)
+          acc[j] = __fadd_rn(acc[j], __fmul_rn(used, __fadd_rn(vv[j], ev[j])));
+      }
+      if (RUN % 4 == 0 && p.vec4) {
+#pragma unroll
+        for (int j = 0; j < RUN; j += 4)
+          *reinterpret_cast<float4*>(o + j) = make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) o[j] = acc[j];
+      }
+    } else {
+      float used[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        used[i] = has[i] ? __fdiv_rn(logit[i], den) : 0.f;
+        if (has[i] && p.keep != nullptr) used[i] = __fmul_rn(used[i], kps[(i * nt + px) * hpg + hh]);
+      }
+      for (int x = 0; x < d; ++x) {
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          if (!has[i]) continue;
+          const int s1 = p1 - shift_r(i) * w1 - shift_c(i);
+          acc = __fadd_rn(acc, __fmul_rn(used[i], __fadd_rn(vs[s1 * S + fo + x], e_s[i * gw + fo + x])));
+        }
+        o[x] = acc;
       }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < FPL; ++i) {
-    const int f = lane + 32 * i;
-    if (f < H) p.out[row + f] = acc[i];
   }
 }
 
 // ---------------------------------------------------------------- K6
-
-constexpr int kBwdThreads = 256;
 
 struct BwdParams {
   const float* q;      // (B, P, H)
@@ -322,43 +413,7 @@ __host__ __device__ inline long long bwd_smem_floats(int nd, int hpg, int d, int
   const long long s = smem_stride(hpg * d, bwd_lpi(d));
   const long long n2 = static_cast<long long>(tr + 4) * (tc + 4);
   const long long n1 = static_cast<long long>(tr + 2) * (tc + 2);
-  return 2 * n2 * s + 2 * n1 * s + nd * hpg * d + n2 + 3LL * nd * n1 * hpg + nd * kBwdThreads;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 4 : 0;  // 0 source bytes: zero-fill
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0 source bytes: zero-fill
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-// Stage rows [f0, f0 + gw) of a and b for the w-wide pixel region with
-// origin (r0, c0) into rows of stride S; zero outside the grid. vec4: 16-byte
-// copies (gw, S, H and f0 multiples of 4, 16-byte aligned tensors).
-__device__ __forceinline__ void stage_rows(float* as, float* bs, const float* a, const float* b,
-                                           long long base, int H, int f0, int gw, int S,
-                                           int r0, int c0, int w, int n, int rows, int cols,
-                                           bool vec4) {
-  const int step = vec4 ? 4 : 1;
-  const int per = gw / step;
-  for (int x = threadIdx.x; x < n * per; x += kBwdThreads) {
-    const int px = x / per, f = (x - px * per) * step;
-    const int r = r0 + px / w, c = c0 + px % w;
-    const bool in = r >= 0 && r < rows && c >= 0 && c < cols;
-    const long long at = in ? (base + r * cols + c) * H + f0 + f : 0;
-    if (vec4) {
-      cp_async16(as + px * S + f, a + at, in);
-      cp_async16(bs + px * S + f, b + at, in);
-    } else {
-      cp_async4(as + px * S + f, a + at, in);
-      cp_async4(bs + px * S + f, b + at, in);
-    }
-  }
+  return 2 * n2 * s + 2 * n1 * s + nd * hpg * d + n2 + 3LL * nd * n1 * hpg + nd * kThreads;
 }
 
 // K6: one CTA per (pixel tile, feature group of whole heads, sample). LPI
@@ -367,7 +422,7 @@ __device__ __forceinline__ void stage_rows(float* as, float* bs, const float* a,
 // for the flagship's widths, so that the index arithmetic folds; 0 reads
 // them from p (any geometry, a ragged last group included).
 template <int ND, int LPI, int D, int HPG, int TR, int TC>
-__global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p) {
+__global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams p) {
   extern __shared__ float smem[];
   const int d = D ? D : p.d, hpg = HPG ? HPG : p.hpg;
   const int tr = TR ? TR : p.tr, tc = TC ? TC : p.tc;
@@ -391,7 +446,7 @@ __global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p)
   float* kps = vld + n2;                      // (ND, n1, hpg) keep
   float* dls = kps + ND * n1 * hpg;           // (ND, n1, hpg) dlogit * scale
   float* uss = dls + ND * n1 * hpg;           // (ND, n1, hpg) alpha * keep
-  float* red = uss + ND * n1 * hpg;           // ND * kBwdThreads: the de terms
+  float* red = uss + ND * n1 * hpg;           // ND * kThreads: the de terms
   const long long base = static_cast<long long>(b) * P;
 
   // ---- stage: every operand of the tile is read from device memory once
@@ -400,7 +455,7 @@ __global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p)
   stage_rows(qs, gs, p.q, p.g, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
              p.vec4);
   if (p.keep != nullptr) {
-    for (int x = threadIdx.x; x < ND * n1 * gh; x += kBwdThreads) {
+    for (int x = threadIdx.x; x < ND * n1 * gh; x += kThreads) {
       const int i = x / (n1 * gh), rest = x - i * n1 * gh, px = rest / gh, hh = rest - px * gh;
       const int r = r0 - 1 + px / w1, c = c0 - 1 + px % w1;
       const bool in = r >= 0 && r < p.rows && c >= 0 && c < p.cols;
@@ -409,9 +464,9 @@ __global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p)
       cp_async4(kps + (i * n1 + px) * hpg + hh, p.keep + at, in);
     }
   }
-  for (int x = threadIdx.x; x < ND * gw; x += kBwdThreads)
+  for (int x = threadIdx.x; x < ND * gw; x += kThreads)
     e_s[x] = p.e[(x / gw) * H + f0 + x % gw];
-  for (int x = threadIdx.x; x < n2; x += kBwdThreads) {
+  for (int x = threadIdx.x; x < n2; x += kThreads) {
     const int r = r0 - 2 + x / w2, c = c0 - 2 + x % w2;
     vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? p.valid[r * p.cols + c] : 0.f;
   }
@@ -422,7 +477,7 @@ __global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p)
   // direction) of the tile and its ring (zero where there is no edge)
   const int items = n1 * gh;
   const int sub = threadIdx.x % LPI;
-  for (int it0 = 0; it0 < items; it0 += kBwdThreads / LPI) {  // uniform across the CTA
+  for (int it0 = 0; it0 < items; it0 += kThreads / LPI) {  // uniform across the CTA
     const int it = it0 + threadIdx.x / LPI;
     const bool act = it < items;
     const int px = act ? it / gh : 0, hh = act ? it - px * gh : 0;
@@ -494,7 +549,7 @@ __global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p)
   // the tile's de partial: thread (g, f) keeps feature f of the pixels g,
   // g + pstep, ... and adds their de terms in that order
   const int n_t = tr * tc;
-  const int pstep = kBwdThreads / gw;
+  const int pstep = kThreads / gw;
   const int f = threadIdx.x % gw, g = threadIdx.x / gw, hh = f / d;
   float de[ND];
 #pragma unroll
@@ -529,36 +584,49 @@ __global__ void __launch_bounds__(kBwdThreads) grid_attn_bwd_kernel(BwdParams p)
   __syncthreads();
   for (int width = pstep; width > 1;) {  // uniform across the CTA
     const int half = (width + 1) / 2;
-    for (int x = threadIdx.x; x < (width - half) * ND * gw; x += kBwdThreads)
+    for (int x = threadIdx.x; x < (width - half) * ND * gw; x += kThreads)
       red[x] += red[x + half * ND * gw];
     width = half;
     __syncthreads();
   }
   float* part = p.de_part + (static_cast<long long>(b) * gridDim.x + blockIdx.x) * ND * H;
-  for (int x = threadIdx.x; x < ND * gw; x += kBwdThreads)
+  for (int x = threadIdx.x; x < ND * gw; x += kThreads)
     part[(x / gw) * H + f0 + x % gw] = red[x];
 }
 
-template <int FPL, int ND>
-cudaError_t launch_fwd(const Params& p, int B, cudaStream_t stream) {
-  const int H = p.heads * p.d;
-  const int P = p.rows * p.cols;
-  const dim3 grid((P + kWarps - 1) / kWarps, B);
-  // dynamic shared memory: the edge terms and a head-sum buffer per warp
-  // (laid out even when the butterflies leave it unused): at most
-  // 8 * 256 + 8 * (256 + 256) floats = 24 KB, under the 48 KB default
-  const size_t smem = sizeof(float) * (ND * H + static_cast<size_t>(kWarps) * (H + p.heads));
-  grid_attn_fwd_kernel<FPL, ND><<<grid, kThreads, smem, stream>>>(p);
+template <int ND, int RUN, int D, int HPG, int TR, int TC>
+cudaError_t launch_fwd(const FwdParams& p, int B, cudaStream_t stream) {
+  const int tiles = ((p.rows + p.tr - 1) / p.tr) * ((p.cols + p.tc - 1) / p.tc);
+  const dim3 grid(tiles * ((p.heads + p.hpg - 1) / p.hpg), B);
+  const size_t smem = sizeof(float) * fwd_smem_floats(ND, p.hpg, p.d, p.tr, p.tc);
+  auto* kernel = grid_attn_fwd_kernel<ND, RUN, D, HPG, TR, TC>;
+  static size_t allowed = 48 * 1024;  // this instance's dynamic shared-memory limit so far
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// The flagship's widths (d 32 one head a group on 8 x 8 tiles; d 1 one head
+// on 8 x 32 tiles) take kernels with their geometry fixed at compile time;
+// any other geometry the general one of its lane run.
 template <int ND>
-cudaError_t launch_fwd_width(const Params& p, int B, cudaStream_t s) {
-  const int fpl = (p.heads * p.d + 31) / 32;
-  if (fpl <= 1) return launch_fwd<1, ND>(p, B, s);
-  if (fpl <= 2) return launch_fwd<2, ND>(p, B, s);
-  if (fpl <= 4) return launch_fwd<4, ND>(p, B, s);
-  return launch_fwd<8, ND>(p, B, s);
+cudaError_t launch_fwd_width(const FwdParams& p, int B, cudaStream_t s) {
+  if (p.d == 32 && p.hpg == 1 && p.tr == 8 && p.tc == 8)
+    return launch_fwd<ND, 8, 32, 1, 8, 8>(p, B, s);
+  if (p.d == 1 && p.hpg == 1 && p.tr == 8 && p.tc == 32)
+    return launch_fwd<ND, 1, 1, 1, 8, 32>(p, B, s);
+  switch (fwd_run(p.d)) {
+    case 8: return launch_fwd<ND, 8, 0, 0, 0, 0>(p, B, s);
+    case 4: return launch_fwd<ND, 4, 0, 0, 0, 0>(p, B, s);
+    case 2: return launch_fwd<ND, 2, 0, 0, 0, 0>(p, B, s);
+    case 1: return launch_fwd<ND, 1, 0, 0, 0, 0>(p, B, s);
+    default: return launch_fwd<ND, 0, 0, 0, 0, 0>(p, B, s);
+  }
 }
 
 template <int ND, int LPI, int D, int HPG, int TR, int TC>
@@ -574,7 +642,7 @@ cudaError_t launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  kernel<<<grid, kBwdThreads, smem, stream>>>(p);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -601,13 +669,21 @@ bool bad_geometry(int rows, int cols, int heads, int d, int nd, int B) {
 
 }  // namespace
 
+// hpg, tr, tc: the feature group (whole heads) and pixel tile of one CTA.
 extern "C" int qtm_grid_attn_fwd(const float* q, const float* k, const float* v, const float* e,
                                  const float* valid, const float* keep, float* out, int B,
-                                 int rows, int cols, int heads, int d, int nd, float scale,
-                                 void* stream) {
-  if (bad_geometry(rows, cols, heads, d, nd, B)) return static_cast<int>(cudaErrorInvalidValue);
+                                 int rows, int cols, int heads, int d, int nd, int hpg, int tr,
+                                 int tc, float scale, void* stream) {
+  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
+      sizeof(float) * fwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024 ||
+      static_cast<long long>((rows + tr - 1) / tr) * ((cols + tc - 1) / tc) *
+              ((heads + hpg - 1) / hpg) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const Params p{q, k, v, e, valid, keep, out, rows, cols, heads, d, scale};
+  // 16-byte row copies and stores: runs of 4 or 8 features, aligned tensors
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const int vec4 = fwd_run(d) >= 4 && aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  const FwdParams p{q, k, v, e, valid, keep, out, rows, cols, heads, d, hpg, tr, tc, vec4, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(nd == 4 ? launch_fwd_width<4>(p, B, s) : launch_fwd_width<8>(p, B, s));
 }

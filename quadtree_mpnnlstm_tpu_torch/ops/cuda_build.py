@@ -38,8 +38,8 @@ SIGNATURES = {
     "spmm.cu": {
         # src_rel, dst_rel, coeff, live, blocks, B, T, EB, NT, SW, stream
         "qtm_spmm_build_blocks": [_P] * 5 + [_C] * 5 + [_P],
-        # z, blocks, s0, live, out, B, T, NT, SW, n_max, F, stream
-        "qtm_spmm_apply": [_P] * 5 + [_C] * 6 + [_P],
+        # z, blocks, s0, live, out, B, T, NT, SW, n_max, F, features a lane, stream
+        "qtm_spmm_apply": [_P] * 5 + [_C] * 7 + [_P],
     },
     "attn.cu": {
         # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,
@@ -50,8 +50,9 @@ SIGNATURES = {
         "qtm_attn_bwd": [_P] * 19 + [_C] * 11 + [ctypes.c_float, _P],
     },
     "grid_attn.cu": {
-        # q, k, v, e_dir, valid, keep, out, B, rows, cols, heads, d, D, scale, stream
-        "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 6 + [ctypes.c_float, _P],
+        # q, k, v, e_dir, valid, keep, out,
+        # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
+        "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 9 + [ctypes.c_float, _P],
         # q, k, v, e_dir, valid, keep, g, dq, dk, dv, de_part,
         # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
         "qtm_grid_attn_bwd": [_P] * 11 + [_C] * 9 + [ctypes.c_float, _P],

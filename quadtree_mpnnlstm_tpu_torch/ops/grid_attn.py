@@ -34,6 +34,7 @@ no gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -48,6 +49,11 @@ LAUNCHES = {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
 
 # features per pixel the kernels take (csrc/grid_attn.cu kMaxH)
 MAX_H = 256
+# K5's pixel tile (rows, cols) by the larger of the lanes a pixel takes
+# (heads of a group × lanes a head) and an eighth of the group's width: the
+# largest value each tile serves, so that a CTA has work for its 256
+# threads and its shared memory stays small.
+FWD_TILES = ((1, (8, 32)), (2, (8, 16)), (4, (8, 8)), (8, (4, 8)), (16, (4, 4)), (32, (2, 4)))
 # K6's pixel tile (rows, cols) by the width of a CTA's feature group: the
 # largest group width each tile serves. Smaller groups take larger tiles, so
 # that a CTA has work for its 256 threads and its ring costs less.
@@ -162,12 +168,51 @@ def _launch_args(q, k, v, e_dir, valid, keep, dims: GridAttnDims):
     return load_library("grid_attn.cu"), ptrs, (b, rows, cols, heads, d, ndirs)
 
 
+def fwd_lanes(d: int):
+    """K5's lane split of a head's d features: (run, lanes). Each of
+    ``lanes`` lanes sums ``run`` contiguous features as a pairwise tree and
+    an xor butterfly over the lanes finishes the tree, which is
+    :func:`_head_sum`'s order when d divides 32; else one lane sums all d
+    in order (csrc/grid_attn.cu ``fwd_run``)."""
+    if 32 % d == 0:
+        run = min(d, 8)
+        return run, d // run
+    return d, 1
+
+
+def fwd_smem_bytes(dims: GridAttnDims, hpg: int, tr: int, tc: int) -> int:
+    """Shared memory of one K5 CTA (csrc/grid_attn.cu ``fwd_smem_floats``):
+    k and v on the tile's one-pixel halo and q on the tile, in rows of the
+    padded stride, the group's edge terms, the halo's validity and the
+    tile's keep values."""
+    gw = hpg * dims.d
+    vec4 = 32 % dims.d == 0 and dims.d >= 4  # float4 runs: a stride of 4 mod 8, else odd
+    s = gw
+    while s % 8 != 4 if vec4 else s % 2 != 1:
+        s += 1
+    n1, nt = (tr + 2) * (tc + 2), tr * tc
+    return 4 * (2 * n1 * s + nt * s + dims.ndirs * gw + n1 + dims.ndirs * nt * hpg)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(dims: GridAttnDims):
+    """K5's CTA geometry: (heads a feature group, tile rows, tile cols,
+    tiles a sample). A group packs whole heads up to 32 features (one head
+    when d > 32), as K6's does; the tile follows :data:`FWD_TILES`."""
+    hpg = min(dims.heads, max(1, 32 // dims.d))
+    key = max(hpg * fwd_lanes(dims.d)[1], -(-hpg * dims.d // 8))
+    tr, tc = next(tile for width, tile in FWD_TILES if key <= width)
+    return hpg, tr, tc, -(-dims.rows // tr) * -(-dims.cols // tc)
+
+
 def _grid_attn_fwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims) -> torch.Tensor:
-    """Launch K5 (``qtm_grid_attn_fwd``): one warp per pixel."""
+    """Launch K5 (``qtm_grid_attn_fwd``): one CTA per pixel tile, feature
+    group and sample (:func:`fwd_plan`)."""
     lib, ptrs, ints = _launch_args(q, k, v, e_dir, valid, keep, dims)
     out = torch.empty_like(q)
-    err = lib.qtm_grid_attn_fwd(*ptrs, spmm._ptr(out), *ints, ctypes.c_float(_scale(dims.d)),
-                                spmm._stream())
+    hpg, tr, tc, _ = fwd_plan(dims)
+    err = lib.qtm_grid_attn_fwd(*ptrs, spmm._ptr(out), *ints, hpg, tr, tc,
+                                ctypes.c_float(_scale(dims.d)), spmm._stream())
     spmm._raise_on(err, "grid_attn_apply")
     LAUNCHES["grid_attn_apply"] += 1
     return out

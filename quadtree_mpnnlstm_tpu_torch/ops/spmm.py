@@ -31,6 +31,7 @@ gradient: the blocks are built from detached windows.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -249,9 +250,37 @@ def _build_blocks_cuda(src_rel, dst_rel, coeff, live, nt: int, sw: int) -> torch
     return blocks
 
 
+# K2's geometry (csrc/spmm.cu): Â rows a CTA (one a warp), and the columns
+# of a row that a warp reads at once (4 a lane)
+APPLY_WARPS, APPLY_CHUNK = 8, 128
+
+
+class ApplyPlan(NamedTuple):
+    """K2's launch over one tile's (NT, SW) block and F features."""
+
+    rows_per_cta: int  # one Â row a warp
+    slabs: int         # CTAs a tile: slab i takes rows [8 i, 8 i + 8)
+    col_chunks: tuple  # ((c0, c1), ...): a row's columns as a warp reads them, in this order
+    fpl: int           # output features a lane
+    f_chunks: tuple    # ((f0, f1), ...): the features of one pass over a row
+
+
+@functools.lru_cache(maxsize=None)
+def apply_plan(nt: int, sw: int, f: int) -> ApplyPlan:
+    """K2's plan: every Â row is one warp's, which adds its non-zeros
+    column chunk by column chunk in ascending order; a lane keeps ``fpl``
+    features (the fewest of 1, 2, 4, 8 that cover F, at most 8), so the
+    row is read once for F ≤ 256."""
+    fpl = next((x for x in (1, 2, 4) if f <= 32 * x), 8)
+    width = 32 * fpl
+    return ApplyPlan(APPLY_WARPS, -(-nt // APPLY_WARPS),
+                     tuple((c, min(c + APPLY_CHUNK, sw)) for c in range(0, sw, APPLY_CHUNK)),
+                     fpl, tuple((x, min(x + width, f)) for x in range(0, f, width)))
+
+
 def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: str):
-    """Launch ``qtm_spmm_apply`` (one CTA per (sample, tile, 64-row slab,
-    32-column chunk of F)) and count it under ``counter``."""
+    """Launch ``qtm_spmm_apply`` (one warp per Â row of every tile of every
+    sample, :func:`apply_plan`) and count it under ``counter``."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library()
@@ -266,7 +295,7 @@ def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: st
         return out
     err = lib.qtm_spmm_apply(
         _ptr(z), _ptr(blocks), _ptr(s0), _ptr(live), _ptr(out),
-        b, t, nt, sw, n_max, f, _stream(),
+        b, t, nt, sw, n_max, f, apply_plan(nt, sw, f).fpl, _stream(),
     )
     _raise_on(err, counter)
     LAUNCHES[counter] += 1

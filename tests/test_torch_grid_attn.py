@@ -200,3 +200,78 @@ def test_grid_dropout_planes_come_from_the_generator(monkeypatch):
     assert seen[3] is None
     with pytest.raises(ValueError, match="Generator"):
         call(None, True)
+
+
+# ---------------------------------------------------------------- K5's plan
+
+THREADS = 256  # csrc/grid_attn.cu kThreads
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory a CTA may opt into on an H100
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 8, 16, 32, 64, 256])
+def test_fwd_plan_covers_every_pixel_and_feature_once(d):
+    """K5's launch, replayed as csrc/grid_attn.cu indexes it: the CTAs'
+    (tile, feature group) pairs and each CTA's (pixel, head) items and lane
+    runs cover every (pixel, feature) of an 11 × 13 grid exactly once, for
+    every head count the wrapper accepts at this d (heads·d ≤ 256) and both
+    D; a head's lanes sit in one warp; the CTA's shared memory fits."""
+    rows, cols = 11, 13
+    for heads in range(1, tga.MAX_H // d + 1):
+        for ndirs in (4, 8):
+            dims = tga.GridAttnDims(rows, cols, heads, d, ndirs)
+            hpg, tr, tc, tiles = tga.fwd_plan(dims)
+            run, lanes = tga.fwd_lanes(d)
+            assert run * lanes == d and 32 % lanes == 0
+            assert tga.fwd_smem_bytes(dims, hpg, tr, tc) <= SMEM_LIMIT, (heads, d)
+            groups = -(-heads // hpg)
+            tiles_c = -(-cols // tc)
+            assert tiles == -(-rows // tr) * tiles_c
+            count = np.zeros((rows, cols, heads * d), dtype=np.int64)
+            for x in range(tiles * groups):
+                grp, tile = x % groups, x // groups
+                r0, c0 = (tile // tiles_c) * tr, (tile % tiles_c) * tc
+                h0 = grp * hpg
+                gh = min(hpg, heads - h0)
+                items = np.arange(tr * tc * gh)
+                px, hh = items // gh, items % gh
+                r, c = r0 + px // tc, c0 + px % tc
+                on = (r < rows) & (c < cols)
+                for sub in range(lanes):
+                    for j in range(run):
+                        f = h0 * d + hh * d + sub * run + j
+                        np.add.at(count, (r[on], c[on], f[on]), 1)
+            assert (count == 1).all(), (heads, d, ndirs)
+
+
+def _tree(x):
+    """The pairwise tree over the last axis, (x0 + x1) + (x2 + x3), ..., in f32."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+@pytest.mark.parametrize("d", [1, 2, 4, 8, 16, 32])
+def test_fwd_lane_split_reproduces_the_head_sum(d):
+    """A numpy model of K5's head sums: each of the head's lanes sums its
+    run of contiguous features as a pairwise tree, then an xor butterfly
+    over the lanes (lane l adds lane l ^ o's value, o = 1, 2, ...). Every
+    lane ends with :func:`_head_sum`'s value, bit for bit."""
+    run, lanes = tga.fwd_lanes(d)
+    prod = (np.random.default_rng(d).standard_normal((4096, d)) * 10.0 ** np.random.default_rng(
+        d + 1).integers(-6, 6, (4096, d))).astype(np.float32)
+    vals = [_tree(prod[:, j * run:(j + 1) * run]) for j in range(lanes)]
+    o = 1
+    while o < lanes:
+        vals = [vals[j] + vals[j ^ o] for j in range(lanes)]
+        o *= 2
+    ref = tga._head_sum(torch.from_numpy(prod), d).numpy()
+    for v in vals:
+        assert v.dtype == np.float32
+        np.testing.assert_array_equal(v.view(np.int32), ref.view(np.int32))
+
+
+def test_fwd_lane_split_is_one_lane_in_order_off_the_tree():
+    """Where d does not divide 32 one lane sums the head in feature order,
+    as :func:`_head_sum` does."""
+    for d in (3, 5, 6, 12, 64, 256):
+        assert tga.fwd_lanes(d) == (d, 1)

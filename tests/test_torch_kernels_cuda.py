@@ -75,6 +75,46 @@ def test_apply_kernel_dead_tiles_and_ragged_shapes(card):
                                rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("f", [1, 5, 17, 33, 128, 129])
+def test_apply_kernel_one_live_tile_and_windows_past_n_max(card, f):
+    """K2 and K2b with one live tile a sample, n_max (200) no multiple of NT
+    (64), source windows that run past n_max, and F on both sides of each
+    of the kernel's feature widths (32, 64, 128, 256 a warp); each launch
+    counts once, and a repeated launch is bit-identical."""
+    nt, sw, n_max = 64, 72, 200
+    w, _ = spmm.spmm_tile_meta(*_edges(card, n_max), n_max, nt, 256, sw)
+    live = torch.ones(3, dtype=torch.int32, device=card)
+    blocks = spmm.build_blocks_plain(w.src_rel, w.dst_rel, w.coeff, live, nt, sw)
+    # a window past n_max on the one live tile: rows there must read as zero
+    s0 = w.s0.clone()
+    s0[:, 0] = n_max - sw // 2
+    z = torch.randn(3, n_max, f, device=card, generator=torch.Generator(card).manual_seed(f))
+    args = (z, s0, blocks, live, n_max, nt, sw)
+    before = dict(spmm.LAUNCHES)
+    out = spmm._apply_cuda(*args)
+    out_b = spmm._apply_bwd_cuda(*args)
+    assert spmm.LAUNCHES["spmm_apply"] == before["spmm_apply"] + 1
+    assert spmm.LAUNCHES["spmm_apply_bwd"] == before["spmm_apply_bwd"] + 1
+    plain = spmm.apply_plain(*args)
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    torch.testing.assert_close(out_b, plain, rtol=0, atol=1e-5)
+    assert not out[:, nt:].any() and out[:, :nt].any()
+    assert torch.equal(spmm._apply_cuda(*args), out)
+
+
+def test_apply_kernel_repeats_bit_for_bit_on_the_main_paths_windows(card):
+    """K2 on the main path's window geometry (64×64 meshes, NT 128, SW
+    1024, n_max 2048, batch 16) at F 32: two launches are bit-identical,
+    and both within 1e-5 of ``apply_plain``."""
+    w, live, n_max = _windows(card, batch=16)
+    blocks = spmm._build_blocks_cuda(w.src_rel, w.dst_rel, w.coeff, live, NT, SW)
+    z = torch.randn(16, n_max, 32, device=card, generator=torch.Generator(card).manual_seed(3))
+    args = (z, w.s0, blocks, live, n_max, NT, SW)
+    first, second = spmm._apply_cuda(*args), spmm._apply_cuda(*args)
+    assert torch.equal(first, second)
+    torch.testing.assert_close(first, spmm.apply_plain(*args), rtol=0, atol=1e-5)
+
+
 def _edges(device, n_max):
     cfg = GraphConfig(image_shape=(16, 16), max_grid_size=8, thresh=0.3, n_max=n_max,
                       e_max=2048, use_edge_attrs=False)
@@ -371,15 +411,19 @@ GRID_CASES = [(224, 304, 8, 32, 4, False), (224, 304, 8, 32, 4, True),
 
 @pytest.mark.parametrize("rows,cols,heads,d,ndirs,dropout", GRID_CASES)
 def test_grid_attn_kernels_match_plain(card, rows, cols, heads, d, ndirs, dropout):
-    """K5 against ``grid_attn_plain`` (≤1e-5) and K6 against autograd
-    through it (≤1e-5 × max(1, max|grad|)); the isolated and the masked
-    pixels aggregate exactly 0."""
+    """K5 against ``grid_attn_plain`` (bit-identical where d divides 32, else
+    ≤1e-5) and K6 against autograd through it (≤1e-5 × max(1, max|grad|));
+    the isolated and the masked pixels aggregate exactly 0."""
     from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
 
     args, gen = _grid_case(card, rows, cols, heads, d, ndirs, dropout)
     before = dict(grid_attn.LAUNCHES)
     out = grid_attn._grid_attn_fwd_cuda(*args)
-    torch.testing.assert_close(out, grid_attn.grid_attn_plain(*args), rtol=0, atol=1e-5)
+    plain = grid_attn.grid_attn_plain(*args)
+    if 32 % d == 0:  # K5 sums every head in _head_sum's tree: bit for bit
+        assert torch.equal(out, plain), float((out - plain).abs().max())
+    else:
+        torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
     invalid = args[4] == 0
     assert not out[:, invalid].any() and not out[:, 3 * cols + 4].any()
     g = torch.randn(out.shape, device=card, generator=gen)
@@ -408,6 +452,32 @@ def test_grid_attn_backward_with_dead_tiles(card, heads, d, ndirs):
         assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
     for a in kern[:3]:
         assert not a[:, :19 * 37].any()  # rows 0..18 have no valid pixel within one step
+
+
+@pytest.mark.parametrize("rows,cols", [(21, 45), (16, 64), (9, 33)])
+@pytest.mark.parametrize("heads,d,ndirs,dropout", [(8, 32, 4, True), (1, 32, 8, False),
+                                                   (1, 1, 4, True), (2, 16, 8, True),
+                                                   (3, 6, 4, False)])
+def test_grid_attn_forward_on_ragged_and_masked_tiles(card, rows, cols, heads, d, ndirs, dropout):
+    """K5's tiles (8 × 8 at d 32, 8 × 32 at d 1; :func:`fwd_plan`) on grids
+    whose rows and columns are no multiple of a tile (21 × 45, 9 × 33) and
+    whose tiles end on the row's end, where a ±1 column shift must not wrap
+    to the next row (16 × 64); the top 8 rows are masked whole, so whole
+    tiles hold no valid pixel: bit-identical to ``grid_attn_plain`` where d
+    divides 32 (else ≤1e-5), and 0 at every masked pixel."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    args, _ = _grid_case(card, rows, cols, heads, d, ndirs, dropout, dead_rows=8)
+    before = grid_attn.LAUNCHES["grid_attn_apply"]
+    out = grid_attn._grid_attn_fwd_cuda(*args)
+    assert grid_attn.LAUNCHES["grid_attn_apply"] == before + 1
+    plain = grid_attn.grid_attn_plain(*args)
+    if 32 % d == 0:
+        assert torch.equal(out, plain), float((out - plain).abs().max())
+    else:
+        torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    assert not out[:, args[4] == 0].any() and not out[:, :8 * cols].any()
+    assert out[:, 8 * cols:].any()
 
 
 def test_grid_attn_apply_on_the_card_goes_through_the_kernels(card):

@@ -174,3 +174,26 @@ def test_apply_backward_matches_jax_and_the_true_transpose(n_max, thresh, f):
         ref = jax.grad(lambda zz: jnp.sum(jspmm.spmm_apply(zz, jm, n_max, NT, sw) * gb))(
             jnp.asarray(z[b]))
         np.testing.assert_allclose(dz[b].numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("nt,sw,f", [(128, 1024, 16), (128, 1024, 17), (128, 1024, 128),
+                                     (128, 1024, 129), (64, 72, 5), (64, 200, 33),
+                                     (128, 512, 300), (60, 1000, 1)])
+def test_apply_plan_covers_rows_columns_and_features(nt, sw, f):
+    """K2's plan: the row slabs hold every row of a tile once; the column
+    chunks a warp reads cover [0, SW) once, in ascending order, so that
+    every output is one sum in ascending column order; the feature chunks
+    cover [0, F) once, each within a warp's 32 · fpl lanes' features, and
+    F ≤ 256 takes one pass over the row."""
+    plan = tspmm.apply_plan(nt, sw, f)
+    rows = np.concatenate([np.arange(i * plan.rows_per_cta, (i + 1) * plan.rows_per_cta)
+                           for i in range(plan.slabs)])
+    assert np.array_equal(rows[rows < nt], np.arange(nt)) and (rows >= nt).sum() < plan.rows_per_cta
+    cols = np.concatenate([np.arange(c0, c1) for c0, c1 in plan.col_chunks])
+    assert np.array_equal(cols, np.arange(sw))
+    assert all(c1 - c0 <= 4 * 32 for c0, c1 in plan.col_chunks)
+    feats = np.concatenate([np.arange(f0, f1) for f0, f1 in plan.f_chunks])
+    assert np.array_equal(feats, np.arange(f))
+    assert all(f1 - f0 <= 32 * plan.fpl for f0, f1 in plan.f_chunks)
+    assert plan.fpl in (1, 2, 4, 8)
+    assert (len(plan.f_chunks) == 1) == (f <= 256)
