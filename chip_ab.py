@@ -4,12 +4,13 @@ the remeshing quadtree paths, a forecast batch (``predict``) and a train
 step (``train_step``) of ``bench.py``'s 64×64 Moving-MNIST model
 (``chip_smoke.py`` phases 2, 5, 9 and 11: batch 16, T_in 4 → T_out 10,
 thresh 0.1, random weights from ``--seed``), with ChebConv and with
-TransformerConv; with ``--workload ice`` the sea-ice flagship on the
-pixelwise grid (phases 13 and 16: one 224×304 forecast of 10 → 90 days
-through ``predict``, and one full-BPTT train step, batch 1, with
-climatology).
+TransformerConv (``--conv``: only one of them); with ``--workload ice``
+the sea-ice flagship on the pixelwise grid (phases 13 and 16: one
+224×304 forecast of 10 → 90 days through ``predict``, and one full-BPTT
+train step, batch 1, with climatology).
 
-    python3 chip_ab.py [--workload quadtree|ice] [--tree DIR] [--reps 5] [--seed 0]
+    python3 chip_ab.py [--workload quadtree|ice] [--conv ChebConv|TransformerConv]
+                       [--tree DIR] [--reps 5] [--seed 0]
 
 ``--tree`` imports the port's package from another checkout, for example a
 parent commit unpacked into a git-ignored directory, so that one script
@@ -50,6 +51,8 @@ def _timed(fn, reps: int) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree", choices=("quadtree", "ice"))
+    parser.add_argument("--conv", choices=("ChebConv", "TransformerConv"),
+                        help="time only this model of the quadtree paths (default: both)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
@@ -102,7 +105,7 @@ def _time_quadtree(cs, args, run_dir: str, result: dict) -> None:
     loader = DataLoader(ds, batch_size=cs.BATCH)
     _, batches = cs.train_batches(args.seed, 1)
     x, y = batches[0]
-    for conv in ("ChebConv", "TransformerConv"):
+    for conv in (args.conv,) if args.conv else ("ChebConv", "TransformerConv"):
         model = cs.make_model(args.seed, run_dir, conv)
         _record(result, f"{conv}_forecast_s", _timed(lambda: model.predict(loader), args.reps))
         trainer = cs.make_trainer(args.seed, run_dir, conv)

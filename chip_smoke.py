@@ -51,7 +51,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    (16, 10, 64, 64, 1), overflow 0, K3 and K7 launches as read from the
    code (56 and 62) and no K1/K2; times one batch after a warm-up;
 10. attention kernels vs plain: K3 against ``attn_plain`` on the first
-   decoder step's operands at every HD of the path (≤1e-5), K4 against
+   decoder step's operands at every HD of the path (≤1e-5), bit-identical
+   on a repeat, with its launch plan (``fwd_plan``) and the geometry the C
+   entry reports; K3 at 8 heads × d 32 (HD 256, the ice-quadtree width)
+   on the same windows with q, k, v, Wₑ from ``--seed`` (``k3_wide``,
+   ≤1e-5, timed beside its bound); K4 against
    autograd through ``attn_plain`` on the cotangents of one train step at
    every HD (≤1e-5 × max(1, max|grad|)), through the graph's slot view;
    K3 and K4's whole backward (both kernels, the dWₑ sum) timed by CUDA
@@ -810,19 +814,33 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
     with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
         model.forecast(x)
     check(cap.calls == k3, "attention capture run disagrees with the path")
-    fwd = []
-    for hd, args in cap.operands().items():
+
+    def k3_measure(args, calls):
+        geometry = {}
         with torch.no_grad():
-            err = float((attn._attn_fwd_cuda(*args) - attn.attn_plain(*args)).abs().max())
-        check(err <= K3_TOL, f"K3 differs from attn_plain at HD={hd}: {err}")
+            out = attn._attn_fwd_cuda(*args, geometry=geometry)
+            err = float((out - attn.attn_plain(*args)).abs().max())
+            check(torch.equal(out, attn._attn_fwd_cuda(*args)),
+                  f"K3 differs from itself on a repeat at HD={args[0].shape[-1]}")
+        check(err <= K3_TOL, f"K3 differs from attn_plain at HD={args[0].shape[-1]}: {err}")
         bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=False)
-        fwd.append(dict(HD=hd, calls=cap.per_width[hd], max_abs_err=err,
-                        live_tiles=int(args[5].live.long().sum()),
-                        ms=graph_ms(lambda: attn._attn_fwd_cuda(*args)),
-                        events_ms=cuda_ms(lambda: attn._attn_fwd_cuda(*args)),
-                        plain_ms=cuda_ms(lambda: attn.attn_plain(*args)),
-                        bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+        return dict(HD=args[0].shape[-1], calls=calls, max_abs_err=err, repeat_identical=True,
+                    live_tiles=int(args[5].live.long().sum()),
+                    plan=attn.fwd_plan(args[6])._asdict(), geometry=geometry,
+                    ms=graph_ms(lambda: attn._attn_fwd_cuda(*args)),
+                    events_ms=cuda_ms(lambda: attn._attn_fwd_cuda(*args)),
+                    plain_ms=cuda_ms(lambda: attn.attn_plain(*args)),
+                    bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
+
+    fwd = [k3_measure(args, cap.per_width[hd]) for hd, args in cap.operands().items()]
     check(sorted(w["HD"] for w in fwd) == [1, 16, 128], f"K3 widths {[w['HD'] for w in fwd]}")
+    # K3 at 8 heads × d 32 on the HD-128 call's windows, operands from the seed
+    q128, _, _, we128, _, meta, dims = cap.operands()[128]
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    wide_dims = dims._replace(heads=8, d=32)
+    qkv = [torch.randn(*q128.shape[:2], 256, device=DEVICE, generator=gen) for _ in range(3)]
+    wide = k3_measure((*qkv, torch.randn(we128.shape[0], 256, device=DEVICE, generator=gen),
+                       None, meta, wide_dims), 0)
     _, batches = train_batches(seed, TRAIN_STEPS + 1)
     x_g, y_g = batches[0]
     with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b:
@@ -865,7 +883,7 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
     views["per_step_ms"] = views["meshes_per_step"] * (views["pixel_view_ms"]
                                                       + views["slot_view_ms"])
     print(json.dumps({"phase": "attn_kernels_vs_plain", "card": card, "k3_by_width": fwd,
-                      "k4_by_width": bwd, "views": views}), flush=True)
+                      "k3_wide": wide, "k4_by_width": bwd, "views": views}), flush=True)
 
     # ---- phase 11: train_step on the attention path
     trainer = make_trainer(seed, run_dir.name, conv)
@@ -933,7 +951,7 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
     print(json.dumps({"phase": "attn_determinism", "card": card, "loss": float(loss_k2),
                       "bit_identical": same}), flush=True)
     run_dir.cleanup()
-    return launches, train_launches, fwd, bwd
+    return launches, train_launches, fwd, wide, bwd
 
 
 def window_fill(src_rel, dst_rel, live):
@@ -1701,7 +1719,7 @@ def main() -> int:
 
     train_launches, bwd_widths = train_phases(args.seed, card, spmm, segment_sum, cfg, nt, sw,
                                               n_max)
-    attn_launches, attn_train_launches, k3_widths, k4_widths = attn_phases(
+    attn_launches, attn_train_launches, k3_widths, k3_wide, k4_widths = attn_phases(
         args.seed, card, spmm, attn, segment_sum, loader, x)
     capacity_phase(args.seed, card, spmm, attn)
     grid_launches, grid_train_launches, k5_widths, k6_widths = grid_phases(
@@ -1760,9 +1778,13 @@ def main() -> int:
                               f"train_{steps}_steps": train_launches[name]})
 
     grid_src = "quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py"
+    k3_entry = attn_entry("attn_apply", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372",
+                          k3_widths, attn_launches, attn_train_launches, TRAIN_STEPS)
+    # HD 256 (8 × d 32) on the same windows; no path of this script runs it
+    k3_entry["k3_wide"] = {k: k3_wide[k] for k in ("HD", "max_abs_err", "ms", "events_ms",
+                                                   "plain_ms", "bound_ms", "plan")}
     kernels += [
-        attn_entry("attn_apply", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372",
-                   k3_widths, attn_launches, attn_train_launches, TRAIN_STEPS),
+        k3_entry,
         attn_entry("attn_apply_bwd", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:424",
                    k4_widths, attn_launches, attn_train_launches, TRAIN_STEPS),
         # the forecast runs K5 without keep planes, training K6 with them

@@ -21,7 +21,8 @@ every (slot, head) window entry, or is None for no dropout.
 Everything carries a leading batch axis (one mesh per sample, one launch
 per batch). Dispatch is by device: a CUDA tensor launches the kernel (and
 raises if it cannot be built or launched); a CPU tensor runs the plain
-version. Each kernel launch adds one to :data:`LAUNCHES`.
+version. Each kernel launch adds one to :data:`LAUNCHES`. K3's launch
+geometry is :func:`fwd_plan`'s, a pure function of the widths.
 
 :class:`AttnApply` makes the aggregation differentiable in q, k, v and Wₑ
 on both devices: its backward (K4) recomputes α (flash-style), writes dq,
@@ -36,6 +37,7 @@ gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -51,11 +53,18 @@ from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import (
 # kernel launches since the last reset_launch_counts(), by wrapper name
 LAUNCHES = {"attn_apply": 0, "attn_apply_bwd": 0}
 
-# destination rows per CTA of both kernels; feature width and attribute
-# columns they accept (csrc/attn.cu kMaxRows, 32 lanes x 16 features, kMaxA)
+# destination rows per CTA of K4's first kernel; feature width and attribute
+# columns both kernels accept (csrc/attn.cu kMaxRows, 32 lanes x 16
+# features, kMaxA)
 ROWS_PER_CTA = 16
 MAX_HD = 512
 MAX_A = 4
+# K3: the compiled (run, chunk) pairs — features a lane holds, slots it
+# holds in flight (csrc/attn.cu fwd_instance); warps a CTA at most
+# (kFwdMaxWarps); shared memory a CTA may opt into on an H100
+FWD_INSTANCES = ((1, 16), (2, 8), (4, 4), (4, 8), (8, 4), (16, 2))
+FWD_MAX_WARPS = 8
+SMEM_LIMIT = 227 * 1024
 
 
 def reset_launch_counts() -> None:
@@ -113,6 +122,82 @@ def attn_tile_meta(
         live=spmm.live_tiles(n_nodes.detach(), t, nt),
     )
     return meta, geo["overflow"]
+
+
+class FwdPlan(NamedTuple):
+    """K3's launch geometry (csrc/attn.cu ``attn_fwd_kernel``). An item is
+    a destination row's slice of ``heads_item`` heads; a warp holds
+    ``items_warp`` items at once (rows a warp when ``slices`` is 1)."""
+
+    run: int          # contiguous features a lane holds (float4s when d % 4 == 0)
+    lanes_head: int   # lanes a head: a power of two, lanes_head · run ≥ d
+    heads_item: int   # heads an item
+    lanes_item: int   # lanes an item: a power of two ≥ heads_item · lanes_head
+    slices: int       # items a row: ⌈heads / heads_item⌉
+    items_warp: int   # 32 / lanes_item
+    warps: int        # warps a CTA
+    rows_cta: int     # destination rows a CTA
+    chunk: int        # slots a lane has in flight (FWD_INSTANCES)
+    groups_sample: int  # row groups a sample (a CTA's unit): tiles × ⌈NT / rows_cta⌉
+
+
+def _pow2ceil(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _fwd_run(heads: int, d: int) -> int:
+    """The run of contiguous features a K3 lane holds: 4 (one float4)
+    where d % 4 == 0, doubled while d allows whole runs and a row's heads
+    would take a whole warp (up to 8, so that a warp holds two rows: HD 128
+    as 8 heads × 2 lanes × 8 features) or more than a warp (up to 16); else
+    the least power of two with which a head fits 32 lanes."""
+    lanes = lambda run: _pow2ceil(-(-d // run))  # noqa: E731
+    if d % 4 == 0:
+        run = 4
+        while run < 16 and d % (2 * run) == 0 and (
+                heads * lanes(run) > 32 or (run < 8 and heads * lanes(run) == 32)):
+            run *= 2
+        if lanes(run) <= 32:
+            return run
+    run = 1
+    while lanes(run) > 32:
+        run *= 2
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(dims: AttnDims) -> FwdPlan:
+    """K3's CTA geometry for these widths. A head takes ``lanes_head`` lanes
+    of ``run`` features (d 16: 4 × 4; d 32 at 8 heads: 4 × 8; d 1: one lane),
+    a row's heads share a warp where they fit (slices of heads where they do
+    not), and narrow rows pack a warp (HD 128: 2 rows, HD 16: 8, HD 1: 32).
+    A row group is 32 rows (64 at 32 rows a warp; fewer when a row takes
+    several items), so that a 128-row live tile gives 2–4 groups; a CTA
+    runs it with up to 8 warps (HD 128: 2 passes of 16 rows)."""
+    heads, d = dims.heads, dims.d
+    run = _fwd_run(heads, d)
+    lanes_head = _pow2ceil(-(-d // run))
+    heads_item = min(heads, 32 // lanes_head)
+    lanes_item = _pow2ceil(heads_item * lanes_head)
+    slices = -(-heads // heads_item)
+    items_warp = 32 // lanes_item
+    rows = min(dims.nt, max(1, max(32, 2 * items_warp) // slices))
+    warps = min(FWD_MAX_WARPS, -(-rows * slices // items_warp))
+    tiles = -(-dims.n_max // dims.nt)
+    # most rows have ~4 slots: a warp that holds one row takes 4 at a time
+    # at run 4, one that holds several takes 8 (its rows' largest count)
+    chunks = [c for r, c in FWD_INSTANCES if r == run]
+    chunk = max(chunks) if items_warp > 1 else min(chunks)
+    return FwdPlan(run, lanes_head, heads_item, lanes_item, slices, items_warp, warps, rows,
+                   chunk, tiles * -(-dims.nt // rows))
+
+
+def fwd_smem_bytes(dims: AttnDims, a: int = MAX_A) -> int:
+    """Dynamic shared memory of one K3 CTA with ``a`` attribute columns
+    (csrc/attn.cu ``fwd_smem_words``): its rows' first slots, the group's
+    slot range and the tile's dst_rel, src_rel and attributes."""
+    pad4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    return 4 * (pad4(fwd_plan(dims).rows_cta + 3) + 2 * pad4(dims.eb) + dims.eb * a)
 
 
 def slot_nodes(meta: AttnMeta, dims: AttnDims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -286,7 +371,7 @@ def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
     ptrs = [spmm._ptr(x) for x in (q, k, v, we)]
     ptrs.append(ctypes.c_void_p(None if keep is None else keep.data_ptr()))
     ptrs += [spmm._ptr(x) for x in meta]
-    ints = (b, t, eb, nt, sw, n_max, heads, d, a, kh, ROWS_PER_CTA)
+    ints = (b, t, eb, nt, sw, n_max, heads, d, a, kh)
     return load_library("attn.cu"), ptrs, ints
 
 
@@ -294,14 +379,31 @@ def _scale(d: int) -> ctypes.c_float:
     return ctypes.c_float(1.0 / float(d) ** 0.5)
 
 
-def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims) -> torch.Tensor:
-    """Launch K3 (``qtm_attn_fwd``): one CTA per (sample, tile, 16-row
-    group), one warp per destination row."""
+FWD_GEOMETRY = ("ctas", "groups", "block", "smem", "run", "chunk", "vec", "vec_win")
+
+
+def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims,
+                   plan: Optional[FwdPlan] = None, geometry: Optional[dict] = None
+                   ) -> torch.Tensor:
+    """Launch K3 (``qtm_attn_fwd``) with ``plan`` (default
+    :func:`fwd_plan`): as many CTAs as the card holds at once (at most one
+    per row group), each walking row groups of (sample, tile, rows). When
+    ``geometry`` is a dict it receives what the kernel launched
+    (:data:`FWD_GEOMETRY`: CTAs, row groups, threads a CTA, shared bytes,
+    run, chunk, and whether rows and windows moved 16 bytes a copy)."""
     lib, ptrs, ints = _launch_args(q, k, v, we, keep, meta, dims)
+    plan = fwd_plan(dims) if plan is None else plan
+    if fwd_smem_bytes(dims, meta.attr.shape[-1]) > SMEM_LIMIT:
+        raise ValueError(f"attn_apply: EB={dims.eb} needs more shared memory than a CTA has")
     out = torch.empty_like(q)
-    err = lib.qtm_attn_fwd(*ptrs, spmm._ptr(out), *ints, _scale(dims.d), spmm._stream())
+    launched = (ctypes.c_int * len(FWD_GEOMETRY))()
+    err = lib.qtm_attn_fwd(*ptrs, spmm._ptr(out), *ints, plan.run, plan.lanes_head,
+                           plan.heads_item, plan.lanes_item, plan.slices, plan.warps,
+                           plan.rows_cta, plan.chunk, _scale(dims.d), spmm._stream(), launched)
     spmm._raise_on(err, "attn_apply")
     LAUNCHES["attn_apply"] += 1
+    if geometry is not None:
+        geometry.update(zip(FWD_GEOMETRY, launched))
     return out
 
 
@@ -325,8 +427,8 @@ def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=No
     dwe_part = torch.empty((b, t * groups, a, hd), dtype=torch.float32, device=q.device)
     err = lib.qtm_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(view.order), spmm._ptr(view.offsets),
                            spmm._ptr(dq), spmm._ptr(dk), spmm._ptr(dv), spmm._ptr(scalars[0]),
-                           spmm._ptr(scalars[1]), spmm._ptr(dwe_part), *ints, _scale(dims.d),
-                           spmm._stream())
+                           spmm._ptr(scalars[1]), spmm._ptr(dwe_part), *ints, ROWS_PER_CTA,
+                           _scale(dims.d), spmm._stream())
     spmm._raise_on(err, "attn_apply_bwd")
     LAUNCHES["attn_apply_bwd"] += 1
     return dq, dk, dv, dwe_part.sum(dim=(0, 1))

@@ -43,8 +43,10 @@ SIGNATURES = {
     },
     "attn.cu": {
         # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,
-        # B, T, EB, NT, SW, n_max, H, D, A, KH, rows, scale, stream
-        "qtm_attn_fwd": [_P] * 11 + [_C] * 11 + [ctypes.c_float, _P],
+        # B, T, EB, NT, SW, n_max, H, D, A, KH, then the plan: run, lanes a
+        # head, heads an item, lanes an item, slices, warps, rows, chunk;
+        # scale, stream, geometry (host int[8] or null)
+        "qtm_attn_fwd": [_P] * 11 + [_C] * 18 + [ctypes.c_float, _P, _P],
         # ... live, g, view order, view offsets, dq, dk, dv, dlog, used,
         # dwe_part, B, ..., rows, scale, stream
         "qtm_attn_bwd": [_P] * 19 + [_C] * 11 + [ctypes.c_float, _P],

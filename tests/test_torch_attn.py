@@ -150,3 +150,205 @@ def test_cpu_tensors_never_launch_kernels(windows):
     out = tattn.attn_apply(q, q, q, torch.zeros(2, 4), None, meta, dims)
     out.sum().backward()
     assert tattn.LAUNCHES == {"attn_apply": 0, "attn_apply_bwd": 0}
+
+
+# ---------------------------------------------------------------- K3's geometry
+
+FWD_WIDTHS = [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (24, 16), (64, 1), (3, 12), (5, 33),
+              (2, 132), (1, 512)]
+
+
+@pytest.mark.parametrize("nt", [128, 64])
+@pytest.mark.parametrize("heads,d", FWD_WIDTHS)
+def test_fwd_plan_covers_every_row_and_feature_once(heads, d, nt):
+    """K3's launch, replayed as csrc/attn.cu ``attn_fwd_kernel`` indexes it
+    (tile-major row groups, each CTA's walk over them, items of a row's
+    heads, lanes of a head, runs of features): every (row, feature) below
+    n_max of two samples is written exactly once; the plan is one the
+    kernel takes and its shared memory fits at A = 4."""
+    b, n_max = 2, 3 * nt - 5  # a ragged last tile
+    dims = tattn.AttnDims(n_max, nt, 1024, 1024, heads, d)
+    p = tattn.fwd_plan(dims)
+    hd = heads * d
+    pow2 = lambda x: x & (x - 1) == 0  # noqa: E731
+    assert pow2(p.lanes_head) and p.lanes_head <= 32 and p.lanes_head * p.run >= d
+    assert pow2(p.lanes_item) and p.lanes_item <= 32
+    assert p.heads_item * p.lanes_head <= p.lanes_item and p.slices * p.heads_item >= heads
+    assert p.items_warp * p.lanes_item == 32 and p.warps <= tattn.FWD_MAX_WARPS
+    assert (p.run, p.chunk) in tattn.FWD_INSTANCES and 1 <= p.rows_cta <= nt
+    assert tattn.fwd_smem_bytes(dims) <= tattn.SMEM_LIMIT
+    groups = -(-nt // p.rows_cta)
+    assert p.groups_sample == 3 * groups
+    n_groups = b * p.groups_sample
+    for ctas in (1, 7, n_groups):  # CTA c walks groups c + k · ctas, from the last
+        walks = [range(c + (n_groups - 1 - c) // ctas * ctas, -1, -ctas) for c in range(ctas)]
+        assert sorted(g for w in walks for g in w) == list(range(n_groups))
+    count = np.zeros((b, n_max, hd), dtype=np.int64)
+    lane = np.arange(p.warps * 32)
+    warp, lane = lane // 32, lane % 32
+    sub = lane % p.lanes_item
+    hl, f0 = sub // p.lanes_head, (sub % p.lanes_head) * p.run
+    for cta in range(n_groups):
+        bt = cta // groups
+        bb, t = bt % b, bt // b
+        r0 = (cta % groups) * p.rows_cta
+        rows = min(p.rows_cta, nt - r0, n_max - t * nt - r0)
+        if rows <= 0:
+            continue
+        items = rows * p.slices
+        for i0 in range(0, items, p.warps * p.items_warp):
+            item = i0 + warp * p.items_warp + lane // p.lanes_item
+            ri, h = item // p.slices, (item % p.slices) * p.heads_item + hl
+            on = (item < items) & (hl < p.heads_item) & (h < heads) & (f0 < d)
+            for i in range(p.run):
+                f = f0 + i
+                ok = on & (f < d)
+                np.add.at(count, (bb, t * nt + r0 + ri[ok], (h * d + f)[ok]), 1)
+    assert (count == 1).all()
+
+
+def test_fwd_plan_is_valid_at_every_width():
+    """Every heads·d the wrapper accepts (≤ MAX_HD) gets a plan the kernel
+    takes: a head's lanes are a power of two that fits a warp, and a run of
+    four or more features divides d only where it is read as float4s."""
+    for d in range(1, tattn.MAX_HD + 1):
+        for heads in range(1, tattn.MAX_HD // d + 1):
+            p = tattn.fwd_plan(tattn.AttnDims(2048, 128, 1024, 1024, heads, d))
+            assert p.lanes_head & (p.lanes_head - 1) == 0 and p.lanes_head <= 32, (heads, d)
+            assert p.lanes_head * p.run >= d, (heads, d)
+            assert (p.run, p.chunk) in tattn.FWD_INSTANCES, (heads, d)
+            assert p.heads_item * p.lanes_head <= p.lanes_item <= 32, (heads, d)
+            assert p.slices * p.heads_item >= heads and p.warps >= 1, (heads, d)
+            assert p.rows_cta * p.slices <= 32 * p.warps * p.items_warp, (heads, d)
+
+
+def _k3_model(q, k, v, we, keep, meta, dims):
+    """A numpy model of csrc/attn.cu ``attn_fwd_kernel``'s arithmetic, in
+    f32. Per (row, head), with scale · log2(e) folded into q (the kernel
+    takes exp2 of logits in log2 units): each lane's run of
+    features sums q · k in feature order, adds the edge term as
+    Σ_a attr_a (q · Wₑ[a]) from its run's share of q · Wₑ[a], and an xor
+    butterfly over the head's lanes (lane l adds lane l ^ o's sum, o = 1,
+    2, ...) finishes the logit. The slots go in chunks of ``plan.chunk``:
+    per chunk one max and one rescale of the running sum, of Σ w v and of
+    Σ w attr; then the slots' weights in ascending slot order. The output
+    is (Σ w v + Σ_a (Σ w attr_a) Wₑ[a]) / Σ w."""
+    p = tattn.fwd_plan(dims)
+    heads, d, nt, n_max = dims.heads, dims.d, dims.nt, dims.n_max
+    g_, run = p.lanes_head, p.run
+    s0, src_rel, dst_rel, attr, live = (x.numpy() for x in meta)
+    a_cols = attr.shape[-1]
+    qscale = np.float32(1.0 / np.sqrt(d)) * np.float32(1.44269504)
+    feat = np.arange(g_)[:, None] * run + np.arange(run)[None, :]  # (lanes, run)
+    fmask = feat < d
+    featc = np.minimum(feat, d - 1)
+    lanes = np.arange(g_)
+
+    def runs(x):  # (heads·d,) -> (heads, lanes, run), zero past d
+        return np.where(fmask, x.reshape(heads, d)[:, featc], np.float32(0))
+
+    def run_sum(x, y):  # Σ_i x_i y_i over a run, in feature order
+        acc = np.zeros(x.shape[:-1], np.float32)
+        for i in range(run):
+            acc = acc + x[..., i] * y[..., i]
+        return acc
+
+    out = np.zeros_like(q)
+    w = np.stack([runs(we[a]) for a in range(a_cols)])  # (A, heads, lanes, run)
+    for b in range(q.shape[0]):
+        for t in range(int(live[b])):
+            key = np.where(dst_rel[b, t] >= 0, dst_rel[b, t], np.iinfo(np.int32).max)
+            for r in range(min(nt, n_max - t * nt)):
+                lo, hi = np.searchsorted(key, r), np.searchsorted(key, r + 1)
+                node = t * nt + r
+                qv = runs(q[b, node]) * qscale
+                qw = [run_sum(qv, w[a]) for a in range(a_cols)]  # (heads, lanes) each
+                m = np.full(heads, -np.inf, np.float32)
+                den = np.zeros(heads, np.float32)
+                acc = np.zeros((heads, g_, run), np.float32)
+                om = np.zeros((a_cols, heads), np.float32)
+                for jb in range(lo, hi, p.chunk):
+                    lgs, vvs, kps, ats = [], [], [], []
+                    for j in range(jb, min(jb + p.chunk, hi)):
+                        sr = int(src_rel[b, t, j])
+                        src = int(s0[b, t]) + sr
+                        ok = 0 <= sr < dims.sw and src < n_max
+                        zero = np.zeros((heads, g_, run), np.float32)
+                        part = run_sum(qv, runs(k[b, src]) if ok else zero)
+                        for a in range(a_cols):
+                            part = part + attr[b, t, j, a] * qw[a]
+                        o = 1
+                        while o < g_:
+                            part = part + part[:, lanes ^ o]
+                            o *= 2
+                        lgs.append(part[:, 0])
+                        vvs.append(runs(v[b, src]) if ok else zero)
+                        ats.append(attr[b, t, j])
+                        kps.append(np.ones(heads, np.float32) if keep is None else
+                                   keep[b, t, np.minimum(np.arange(heads), keep.shape[2] - 1), j])
+                    mn = np.maximum(m, np.max(lgs, axis=0))
+                    corr = np.exp2(m - mn)
+                    den, acc, om = den * corr, acc * corr[:, None, None], om * corr
+                    for lg, vv, kp, at in zip(lgs, vvs, kps, ats):
+                        pe = np.exp2(lg - mn)
+                        wt = pe * kp
+                        den = den + pe
+                        acc = acc + wt[:, None, None] * vv
+                        om = om + at[:, None] * wt
+                    m = mn
+                for a in range(a_cols):
+                    acc = acc + om[a][:, None, None] * w[a]
+                res = acc * (np.float32(1) / np.maximum(den, np.float32(1e-30)))[:, None, None]
+                row = np.zeros((heads, d), np.float32)
+                row[:, feat[fmask]] = res[:, fmask]
+                out[b, node] = row.reshape(-1)
+    return out
+
+
+def _star_meta():
+    """Windows (N_MAX, NT, EB, SW) of hand-made edges: node 7 receives 40
+    edges (several chunks at every run), node 9 none, and the rest a ring."""
+    n = np.array([200, 150])
+    src, dst = [], []
+    for b in range(2):
+        s = list(range(20, 60)) + [i for i in range(n[b]) if i not in (7, 9)]
+        t = [7] * 40 + [(i + 1) % n[b] for i in range(n[b]) if i not in (7, 9)]
+        t = [9 + 1 if x == 9 else x for x in t]
+        order = np.argsort(t, kind="stable")  # the graph build's edge lists are dst-sorted
+        src.append([s[i] for i in order] + [N_MAX] * (400 - len(s)))
+        dst.append([t[i] for i in order] + [N_MAX] * (400 - len(t)))
+    src, dst = np.array(src), np.array(dst)
+    attr = np.random.default_rng(3).standard_normal((2, 400, 2)).astype(np.float32)
+    meta, ovf = _port_meta(src, dst, attr, n, N_MAX, NT, EB, SW)
+    assert int(ovf.max()) == 0
+    return meta
+
+
+@pytest.mark.parametrize("mesh", ["quadtree", "star"])
+@pytest.mark.parametrize("heads,d,kh", [(8, 16, 0), (8, 16, 8), (8, 16, 3), (1, 16, 1),
+                                        (3, 8, 2), (1, 1, 0), (1, 1, 1), (8, 32, 0), (3, 12, 1)])
+def test_fwd_chunked_online_softmax_matches_attn_plain(windows, mesh, heads, d, kh):
+    """The numpy model of K3's order of sums (chunks, lane runs, the folded
+    edge term, butterfly, one rescale a chunk and head) against ``attn_plain`` within 1e-6 plus
+    1e-6 of each output's size (outputs reach |4|, a few f32 ulps), on the JAX
+    package's meshes (rows of up to 14 slots, dead tiles, isolated padding
+    rows) and on a star (one row of 40 slots); with keep windows of KH =
+    heads or KH < heads, and without."""
+    meta = windows[0] if mesh == "quadtree" else _star_meta()
+    b, t = meta.s0.shape
+    dims = tattn.AttnDims(N_MAX, NT, EB, SW, heads, d)
+    dst = meta.dst_rel.numpy()
+    slots = [np.bincount(dst[i, j][(dst[i, j] >= 0) & (j * NT + dst[i, j] < N_MAX)],
+                         minlength=NT) for i in range(b) for j in range(int(meta.live[i]))]
+    assert any((c == 0).any() for c in slots)
+    assert max(int(c.max()) for c in slots) > (8 if mesh == "quadtree" else 16)
+    rng = np.random.default_rng(heads * 10 + d + kh)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, k, v = (mk(b, N_MAX, heads * d) for _ in range(3))
+    we = mk(meta.attr.shape[-1], heads * d)
+    keep = ((rng.random((b, t, kh, EB)) < 0.9) / 0.9).astype(np.float32) if kh else None
+    want = tattn.attn_plain(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                            torch.from_numpy(we), None if keep is None else torch.from_numpy(keep),
+                            meta, dims).numpy()
+    got = _k3_model(q, k, v, we, keep, meta, dims)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -234,13 +234,14 @@ def _attn_case(device, ragged, heads, d, dropout):
 
 
 ATTN_CASES = [(1, 1, False, False), (1, 16, False, True), (8, 16, False, True),
-              (3, 8, True, True), (1, 1, True, False), (24, 16, False, False)]
+              (3, 8, True, True), (1, 1, True, False), (24, 16, False, False),
+              (8, 32, False, True), (8, 32, True, False)]
 
 
 @pytest.mark.parametrize("heads,d,ragged,dropout", ATTN_CASES)
 def test_attn_kernels_match_plain(card, heads, d, ragged, dropout):
     """K3 against ``attn_plain`` (≤1e-5) and K4 against autograd through it
-    (≤1e-5 × max(1, max|grad|)), at HD = 1, 16, 128 (and 24, 384), on
+    (≤1e-5 × max(1, max|grad|)), at HD = 1, 16, 128, 256 (and 24, 384), on
     ragged shapes with dead tiles and rows without a slot."""
     from quadtree_mpnnlstm_tpu_torch.ops import attn
 
@@ -317,7 +318,8 @@ def test_kernels_on_near_capacity_windows(card):
     frames at thresh 0.1 (the main path's graph config): windows with more
     than half of EB's slots filled in their fullest tile, no overflow. K1
     exact, K2 and K2b ≤1e-5 at F 16 and 32, K3 ≤1e-5 and K4 ≤1e-5 ×
-    max(1, max|grad|) at HD 1, 16 and 128 with keep windows."""
+    max(1, max|grad|) at HD 1, 16, 128 and 256 (8 × d 32) with keep
+    windows."""
     from quadtree_mpnnlstm_tpu_torch.ops import attn
 
     frames = _sprite_frames(card)
@@ -343,7 +345,7 @@ def test_kernels_on_near_capacity_windows(card):
                                        rtol=0, atol=1e-5)
         meta = wins.attn_meta
         fullest = max(fullest, int((meta.dst_rel >= 0).sum(-1).max()))
-        for heads, d in ((1, 1), (1, 16), (8, 16)):
+        for heads, d in ((1, 1), (1, 16), (8, 16), (8, 32)):
             dims = attn.AttnDims(2048, NT, EB, SW, heads, d)
             q, k, v, g = (torch.randn(16, 2048, heads * d, device=card, generator=gen)
                           for _ in range(4))
@@ -357,6 +359,98 @@ def test_kernels_on_near_capacity_windows(card):
                 err = float((a - p).abs().max())
                 assert err <= 1e-5 * max(1.0, float(p.abs().max())), (t, heads * d, name, err)
     assert fullest > EB // 2
+
+
+def _star_case(device, heads, d, a, dropout):
+    """Hand-made windows (n_max 300, NT 64, EB 512, SW 300) of two samples
+    with 200 and 100 nodes, so tiles past ``live`` are dead (sample 0's
+    tile 4 holds visible rows 256..299): node 7 receives 40 edges and node
+    70 33 (more than a chunk at every run), node 9 none, the rest a ring;
+    padding edges reach row n_max. Seeded q/k/v/Wₑ/attributes (A = a) and
+    keep windows of KH = heads."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    n_max, nt, eb, sw, e = 300, 64, 512, 300, 420
+    gen = torch.Generator(device).manual_seed(heads * d + a)
+    srcs, dsts = [], []
+    for n in (200, 100):
+        pairs = [(s, 7) for s in range(20, 60)] + [(s, 70) for s in range(100, 133) if s < n]
+        pairs += [(i, (i + 1) % n) for i in range(n) if (i + 1) % n not in (7, 9, 70)]
+        pairs.sort(key=lambda x: x[1])  # the graph build's edge lists are dst-sorted
+        pairs += [(n_max, n_max)] * (e - len(pairs))
+        srcs.append([x[0] for x in pairs])
+        dsts.append([x[1] for x in pairs])
+    edge_src = torch.tensor(srcs, device=device)
+    edge_dst = torch.tensor(dsts, device=device)
+    edge_attr = torch.randn(2, e, a, device=device, generator=gen)
+    meta, ovf = attn.attn_tile_meta(edge_src, edge_dst, edge_attr, n_max, nt, eb, sw,
+                                    torch.tensor([200, 100], device=device))
+    assert int(ovf.max()) == 0 and meta.live.tolist() == [4, 2]
+    hd = heads * d
+    qkv = [torch.randn(2, n_max, hd, device=device, generator=gen) for _ in range(3)]
+    we = torch.randn(a, hd, device=device, generator=gen)
+    keep = None
+    if dropout:
+        u = torch.rand(2, meta.s0.shape[1], heads, eb, device=device, generator=gen)
+        keep = (u < 0.9).float() / 0.9
+    return (*qkv, we, keep, meta, attn.AttnDims(n_max, nt, eb, sw, heads, d)), gen
+
+
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (3, 12)])
+@pytest.mark.parametrize("a,dropout", [(1, False), (4, True)])
+def test_attn_kernels_on_long_rows_and_dead_tiles(card, heads, d, a, dropout):
+    """K3 (≤1e-5) and K4 (≤1e-5 × max(1, max|grad|)) against their plain
+    versions on rows of 33 and 40 slots, an isolated row and dead tiles
+    past ``live``, at A = 1 and 4; every row of a dead tile is zero."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _star_case(card, heads, d, a, dropout)
+    out = attn._attn_fwd_cuda(*args)
+    torch.testing.assert_close(out, attn.attn_plain(*args), rtol=0, atol=1e-5)
+    assert not out[0, 256:].any() and not out[1, 128:].any() and not out[0, 9].any()
+    g = torch.randn(out.shape, device=card, generator=gen)
+    for name, k, p in zip(("dq", "dk", "dv", "dwe"), attn._attn_bwd_cuda(*args, g),
+                          attn.attn_bwd_plain(*args, g)):
+        err = float((k - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+
+
+@pytest.mark.parametrize("heads,d,dropout", [(1, 1, True), (1, 16, False), (8, 16, True),
+                                             (8, 32, False)])
+def test_attn_forward_repeats_bit_for_bit(card, heads, d, dropout):
+    """Two K3 calls on the same operands agree bit for bit (no atomics, a
+    fixed order of every sum)."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, _ = _attn_case(card, False, heads, d, dropout)
+    assert torch.equal(attn._attn_fwd_cuda(*args), attn._attn_fwd_cuda(*args))
+
+
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (24, 16)])
+def test_attn_forward_launches_its_plan(card, heads, d):
+    """K3 launches ``fwd_plan``'s geometry, as the C entry reports it back
+    through the wrapper: samples × the plan's row groups, at most one CTA
+    a group, 32 lanes a warp, ``fwd_smem_bytes``, the plan's run and chunk,
+    float4 rows where d allows. Another valid plan gives the same output
+    bit for bit (the geometry moves no sum); a plan the kernel does not
+    take raises and counts no launch."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, _ = _attn_case(card, False, heads, d, True)
+    dims, a = args[6], args[5].attr.shape[-1]
+    plan = attn.fwd_plan(dims)
+    got = {}
+    out = attn._attn_fwd_cuda(*args, geometry=got)
+    assert 1 <= got.pop("ctas") <= 3 * plan.groups_sample
+    assert got == dict(groups=3 * plan.groups_sample, block=32 * plan.warps,
+                       smem=attn.fwd_smem_bytes(dims, a), run=plan.run, chunk=plan.chunk,
+                       vec=int(plan.run % 4 == 0 and d % plan.run == 0), vec_win=1)
+    other = plan._replace(rows_cta=max(1, plan.rows_cta // 2), warps=max(1, plan.warps // 4))
+    assert torch.equal(attn._attn_fwd_cuda(*args, plan=other), out)
+    before = attn.LAUNCHES["attn_apply"]
+    with pytest.raises(RuntimeError):
+        attn._attn_fwd_cuda(*args, plan=plan._replace(chunk=plan.chunk + 1))
+    assert attn.LAUNCHES["attn_apply"] == before
 
 
 def test_attn_wrappers_reject_bad_inputs(card):
