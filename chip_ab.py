@@ -4,13 +4,15 @@ the remeshing quadtree paths, a forecast batch (``predict``) and a train
 step (``train_step``) of ``bench.py``'s 64×64 Moving-MNIST model
 (``chip_smoke.py`` phases 2, 5, 9 and 11: batch 16, T_in 4 → T_out 10,
 thresh 0.1, random weights from ``--seed``), with ChebConv and with
-TransformerConv (``--conv``: only one of them); with ``--workload ice``
+TransformerConv (``--conv``: only one of them), in f32 or, with ``--dtype
+bfloat16``, the ChebConv model in bf16 (``bench.py``'s default dtype);
+with ``--workload ice``
 the sea-ice flagship on the pixelwise grid (phases 13 and 16: one
 224×304 forecast of 10 → 90 days through ``predict``, and one full-BPTT
 train step, batch 1, with climatology).
 
     python3 chip_ab.py [--workload quadtree|ice] [--conv ChebConv|TransformerConv]
-                       [--tree DIR] [--reps 5] [--seed 0]
+                       [--dtype float32|bfloat16] [--tree DIR] [--reps 5] [--seed 0]
 
 ``--tree`` imports the port's package from another checkout, for example a
 parent commit unpacked into a git-ignored directory, so that one script
@@ -53,10 +55,14 @@ def main() -> int:
     parser.add_argument("--workload", default="quadtree", choices=("quadtree", "ice"))
     parser.add_argument("--conv", choices=("ChebConv", "TransformerConv"),
                         help="time only this model of the quadtree paths (default: both)")
+    parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                        help="compute dtype of the quadtree models (bf16: ChebConv only)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    if args.dtype != "float32" and (args.workload != "quadtree" or args.conv != "ChebConv"):
+        parser.error("--dtype bfloat16 runs the quadtree ChebConv model only (--conv ChebConv)")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
@@ -77,7 +83,8 @@ def main() -> int:
         raise RuntimeError(f"imported the port from {package}, not from {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     run_dir = tempfile.TemporaryDirectory()
-    result = {"tree": tree, "card": cs.card_line(), "workload": args.workload, "reps": args.reps}
+    result = {"tree": tree, "card": cs.card_line(), "workload": args.workload,
+              "dtype": args.dtype, "reps": args.reps}
     if args.workload == "ice":
         _time_ice(cs, args, run_dir.name, result)
     else:
@@ -106,9 +113,9 @@ def _time_quadtree(cs, args, run_dir: str, result: dict) -> None:
     _, batches = cs.train_batches(args.seed, 1)
     x, y = batches[0]
     for conv in (args.conv,) if args.conv else ("ChebConv", "TransformerConv"):
-        model = cs.make_model(args.seed, run_dir, conv)
+        model = cs.make_model(args.seed, run_dir, conv, dtype=args.dtype)
         _record(result, f"{conv}_forecast_s", _timed(lambda: model.predict(loader), args.reps))
-        trainer = cs.make_trainer(args.seed, run_dir, conv)
+        trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=args.dtype)
         _record(result, f"{conv}_step_s",
                 _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps))
         del model, trainer

@@ -2,12 +2,14 @@
 """Where the port's time goes on one CUDA card.
 
     python3 chip_profile.py [--seed 0] [--reps 5] [--train] [--conv TransformerConv]
+    python3 chip_profile.py --dtype bfloat16 [--train]
     python3 chip_profile.py --workload ice [--train]
     python3 chip_profile.py --workload ice-xla [--train]
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
-TransformerConv`` the attention model), or with ``--workload ice`` its
+TransformerConv`` the attention model; ``--dtype bfloat16`` runs the
+ChebConv model in bf16, ``bench.py``'s default), or with ``--workload ice`` its
 sea-ice flagship (one 224×304 pixelwise forecast of 10 → 90 days,
 TransformerConv with climatology, batch 1) or with ``--workload ice-xla``
 the same model on the pixelwise edge list (training with truncated BPTT
@@ -54,7 +56,7 @@ RANGES = {("spmm", "_build_blocks_cuda"): "spmm_build_blocks",
           ("build", "segment_view"): "csr_views",
           ("attn", "slot_view"): "slot_view"}
 # the port's kernels by the start of their device names (csrc/*.cu)
-KERNELS = {"build_blocks_kernel": "::build_blocks_kernel(", "apply_kernel": "::apply_kernel<",
+KERNELS = {"build_blocks_kernel": "::build_blocks_kernel<", "apply_kernel": "::apply_kernel<",
            "attn_fwd_kernel": "::attn_fwd_kernel<", "attn_bwd_kernel": "::attn_bwd_kernel<",
            "attn_bwd_src_kernel": "::attn_bwd_src_kernel<",
            "grid_attn_fwd_kernel": "::grid_attn_fwd_kernel<",
@@ -97,11 +99,11 @@ def _workload(args, run_dir: str):
         return 1, "TransformerConv", lambda: step(windows[0]), lambda: step(next(it))
     ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
     if args.train:
-        model = chip_smoke.make_trainer(args.seed, run_dir, args.conv)
+        model = chip_smoke.make_trainer(args.seed, run_dir, args.conv, dtype=args.dtype)
         it = iter(batches[1:] * 3)
         return (chip_smoke.BATCH, args.conv, lambda: model.train_step(*batches[0]),
                 lambda: model.train_step(*next(it)))
-    model = chip_smoke.make_model(args.seed, run_dir, args.conv)
+    model = chip_smoke.make_model(args.seed, run_dir, args.conv, dtype=args.dtype)
     x = torch.as_tensor(ds.x, device="cuda")
     run = lambda: model.forecast(x)  # noqa: E731
     return chip_smoke.BATCH, args.conv, run, run
@@ -114,7 +116,11 @@ def main() -> int:
     parser.add_argument("--train", action="store_true", help="profile train_step")
     parser.add_argument("--conv", default="ChebConv", choices=("ChebConv", "TransformerConv"))
     parser.add_argument("--workload", default="mnist", choices=("mnist", "ice", "ice-xla"))
+    parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
+                        help="compute dtype of the Moving-MNIST model (bf16: ChebConv only)")
     args = parser.parse_args()
+    if args.dtype != "float32" and args.workload != "mnist":
+        parser.error("--dtype bfloat16 runs the Moving-MNIST ChebConv model only")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -179,7 +185,7 @@ def main() -> int:
     print(json.dumps({
         "card": chip_smoke.card_line(),
         "workload": args.workload, "path": "train_step" if args.train else "forecast",
-        "conv": conv, "batch": batch,
+        "conv": conv, "dtype": args.dtype, "batch": batch,
         "wall_s_per_batch_median": wall[len(wall) // 2],
         "wall_s_per_batch_all": wall,
         "profiled_s_per_batch": window_s / args.reps,

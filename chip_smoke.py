@@ -107,7 +107,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    generator, every gradient leaf ≤1e-4 × max(1, max|g|), and the kernel
    step again, bit-identical;
 19. (printed last) the ``kernels`` JSON line (K1, K2, K2b, K3, K4, K5,
-   K6, K7), then the card line and the result line;
+   K6, K7 in f32, then K1, K2, K2b, K7 in bf16, each with its ``dtype``),
+   then the card line and the result line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
@@ -134,7 +135,35 @@ Phases (each prints one line; any failure raises and exits non-zero):
    max(1, max|g|)) and 25. determinism (the kernel step again,
    bit-identical).
 
-Every plain run (phases 4, 7, 12, 15, 17, 22, 24) swaps each kernel it
+26. bf16 path: ``predict`` with the main path's model in bf16
+   (``compute_dtype="bfloat16"``, ``bench.py``'s default dtype: f32 master
+   weights cast at use, f32 LayerNorm statistics, f32 predictions; no
+   remat, which ``bench.py`` turns on): finite f32 frames of shape
+   (16, 10, 64, 64, 1), overflow 0, the bf16 kernels' launches as read from
+   the code (K1 11, K2 112, K7 62; only the node counts' K7, 11, stays
+   f32); times one batch after a warm-up, peak memory;
+27. bf16 kernels vs plain: K1 bit-identical, K2 (per width F), K2b (per
+   width of one bf16 train step's cotangents) and K7 (per operand set of a
+   forecast and a train step) within one bf16 rounding (2⁻⁷ × max(1,
+   max|plain|)) of their plain versions; each timed by CUDA graph and
+   events beside its bound (2-byte operands, the bf16 rate), its plain
+   version, its library call in bf16 (``torch.sparse.mm``, ``index_add_``;
+   a refusal is printed) and the f32 kernel on the same operands in f32;
+28. bf16 train path: ``train_step`` as phase 5 in bf16: finite f32 loss,
+   overflow 0, launches per step (K1 11, K2 112, K2b 110, K7 108 in
+   bf16; K7 11 in f32), f32 masters and gradients; frames/s, peak memory;
+   one epoch of ``train()`` and ``score()`` in bf16, finite losses;
+29. bf16 gradients vs plain: one teacher-forced bf16 step (ratio 1.0, so
+   both runs share their meshes) on the kernels and one on the plain
+   versions, every gradient leaf ≤2e-2 × max(1, max|g|); every K1 call of
+   the kernel step exact and every K2/K2b call within one bf16 rounding on
+   those near-capacity windows; the kernel step again, bit-identical;
+30. bf16 vs f32: the same weights' forecasts on the card; on the samples
+   whose encoder mesh agrees (the criterion reads the bf16 frame), the
+   first decoder step's frames within 2e-2 on average (the largest
+   difference is printed: bf16 and f32 differ by more at single pixels).
+
+Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29) swaps each kernel it
 would launch for its plain version.
 
 It fails at once without a CUDA card, and when the port's package is not
@@ -155,16 +184,22 @@ from unittest import mock
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# outside the tensor cores (the kernels use no TF32)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, f32
+# outside the tensor cores (the kernels use no TF32) and dense bf16
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 DEVICE = "cuda"
 CANVAS, DIGIT = (64, 64), (18, 18)
 T_IN, T_OUT, BATCH = 4, 10, 16
 K2_TOL, ROLLOUT_TOL, GRAD_TOL = 1e-5, 1e-4, 1e-4
 K3_TOL, K4_TOL = 1e-5, 1e-5
+# bf16 (phases 26-30): kernels within one bf16 rounding of their plain
+# versions (× max(1, max|plain|)), a kernel step's gradients within 2e-2 ×
+# max(1, max|g|) of a plain step's, the first bf16 frame within 2e-2 of the
+# f32 frame on average
+BF16_TOL, BF16_GRAD_TOL, BF16_FRAME_TOL = 2.0**-7, 2e-2, 2e-2
 REPS = 20
 TRAIN_STEPS, LR = 8, 0.01
 
@@ -226,7 +261,7 @@ def graph_ms(fn, reps: int = REPS, replays: int = 5) -> float:
 
 
 def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
-               teacher_forcing_ratio: float = 0.0):
+               teacher_forcing_ratio: float = 0.0, dtype: str = "float32"):
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -235,7 +270,7 @@ def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
         device=DEVICE, seed=seed, run_dir=run_dir,
         teacher_forcing_ratio=teacher_forcing_ratio,
         model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
-                          convolution_type=conv),
+                          convolution_type=conv, compute_dtype=dtype),
         graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
                           agg_eb=1024, agg_sw=1024, aggregation="pallas"),
     )
@@ -285,9 +320,9 @@ class Capture:
 
 
 def make_trainer(seed: int, run_dir: str, conv: str = "ChebConv",
-                 teacher_forcing_ratio: float = 0.0):
+                 teacher_forcing_ratio: float = 0.0, dtype: str = "float32"):
     """The main path's model, ready to train (Adam at lr 0.01, γ 0.95)."""
-    model = make_model(seed, run_dir, conv, teacher_forcing_ratio)
+    model = make_model(seed, run_dir, conv, teacher_forcing_ratio, dtype)
     model.initiate_training(lr=LR, lr_decay=0.95)
     return model
 
@@ -479,38 +514,46 @@ def step_with_meshes(trainer, x, y, seed: int):
     return loss, overflow, grads, torch.cat(meshes)
 
 
-def k1_bound_ms(src_rel, dst_rel, live, nt, sw):
+def _peak_flops(itemsize: int) -> float:
+    """The card's peak rate for the operands' type: f32 (4 B) or bf16 (2 B)."""
+    return PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS
+
+
+def k1_bound_ms(src_rel, dst_rel, live, nt, sw, itemsize: int = 4):
     """Least time for K1's work: read the live tiles' windows (3 × 4 B a
-    slot) and write every block once (4 B an entry); one add a valid slot."""
+    slot) and write every block once (``itemsize`` B an entry: 4 in f32, 2
+    in bf16); one add a valid slot."""
     import torch
 
     b, t, eb = src_rel.shape
     n_live = int(live.long().sum())
-    nbytes = n_live * eb * 12 + b * t * nt * sw * 4
+    nbytes = n_live * eb * 12 + b * t * nt * sw * itemsize
     tile = torch.arange(t, device=src_rel.device)[None, :, None]
     valid = (src_rel >= 0) & (dst_rel >= 0) & (tile < live[:, None, None])
     ops = int(valid.sum())
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / _peak_flops(itemsize) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
 def k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, batch):
-    """Least time for K2's work: per live tile its Â block (NT·SW·4 B) read
-    once, each row of z that a live tile's source window covers read once
-    (windows of one sample overlap), the output written once; one multiply
-    and add a feature for every non-zero of the live tiles' blocks (the
-    work depends on the data: a zero entry adds nothing)."""
+    """Least time for K2's work: per live tile its Â block (NT·SW entries)
+    read once, each row of z that a live tile's source window covers read
+    once (windows of one sample overlap), the output written once, each in
+    the blocks' type (4 B in f32, 2 B in bf16); one multiply and add a
+    feature for every non-zero of the live tiles' blocks (the work depends
+    on the data: a zero entry adds nothing), at that type's peak rate."""
     import torch
 
+    size = blocks.element_size()
     n_live = int(live.long().sum())
     alive = torch.arange(blocks.shape[1], device=blocks.device)[None, :] < live[:, None]
     rows = s0.long()[..., None] + torch.arange(sw, device=s0.device)  # (B, T, SW)
     hit = alive[..., None] & (rows < n_max)
     covered = torch.zeros(batch, n_max + 1, dtype=torch.bool, device=s0.device)
     covered.scatter_(1, torch.where(hit, rows, n_max).reshape(batch, -1), True)
-    nbytes = n_live * nt * sw * 4 + int(covered[:, :n_max].sum()) * f * 4 + batch * n_max * f * 4
+    nbytes = (n_live * nt * sw + int(covered[:, :n_max].sum()) * f + batch * n_max * f) * size
     ops = 2 * f * int((blocks[alive] != 0).sum())
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / _peak_flops(size) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
@@ -1039,6 +1082,329 @@ def capacity_phase(seed: int, card: str, spmm, attn) -> dict:
     return result
 
 
+def _library_spmm(s0, blocks, n_max, nt, sw, z):
+    """``torch.sparse.mm`` of the block-diagonal CSR Â by z, as a callable,
+    or the message with which torch refuses the operands' type."""
+    import torch
+
+    csr = block_diag_csr(s0, blocks, n_max, nt, sw)
+    zf = z.reshape(-1, z.shape[-1])
+    try:
+        torch.sparse.mm(csr, zf)
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        return None, str(exc).splitlines()[0][:200]
+    return (lambda: torch.sparse.mm(csr, zf)), None
+
+
+def _spmm_width(spmm, args, calls, fn, n_max, nt, sw):
+    """K2 (or K2b, ``fn``) in bf16 against ``apply_plain`` on one width's
+    operands: within one bf16 rounding, timed by graph and events beside
+    its bound, its plain version and ``torch.sparse.mm``, and the f32
+    kernel's time on the same operands in f32 (``f32_ms``, by graph)."""
+    z, s0, blocks, live = args[:4]
+    kern, plain = fn(*args), spmm.apply_plain(*args)
+    check(kern.dtype == plain.dtype == z.dtype, f"K2 returned {kern.dtype} for {z.dtype} z")
+    err = float((kern.float() - plain.float()).abs().max())
+    scale = max(1.0, float(plain.float().abs().max()))
+    f = z.shape[-1]
+    check(err <= BF16_TOL * scale, f"bf16 K2 differs from its plain version at F={f}: {err}")
+    library, refused = _library_spmm(s0, blocks, n_max, nt, sw, z)
+    bound, b_ms, o_ms = k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, z.shape[0])
+    f32_args = (z.float(), s0, blocks.float()) + tuple(args[3:])
+    return dict(F=f, calls=calls, max_abs_err=err, err_rel_to_max=err / scale,
+                bit_identical=bool((kern == plain).all()), live_tiles=int(live.long().sum()),
+                ms=graph_ms(lambda: fn(*args)), events_ms=cuda_ms(lambda: fn(*args)),
+                f32_ms=graph_ms(lambda: fn(*f32_args)),
+                plain_ms=cuda_ms(lambda: spmm.apply_plain(*args)),
+                library_ms=None if library is None else cuda_ms(library),
+                library_refused=refused, bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
+
+
+def peak_above_start_gib(fn) -> float:
+    """Peak device memory that ``fn`` allocates above what is allocated
+    when it starts (GiB): what it needs, whatever earlier phases keep."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - start) / 2**30
+
+
+def bf16_phases(seed: int, card: str, spmm, segment, segment_sum, loader, x):
+    """Phases 26-30: the main path in bf16 (``compute_dtype="bfloat16"``,
+    ``bench.py``'s default dtype); returns the kernels line's bf16 entries
+    (K1, K2, K2b, K7)."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+
+    run_dir = tempfile.TemporaryDirectory()
+    bf16 = torch.bfloat16
+
+    def reset():
+        spmm.reset_launch_counts()
+        segment_sum.reset_launch_counts()
+
+    def counts():
+        """({bf16 kernel: launches}, {f32 kernel: launches}) since reset()."""
+        return ({**spmm.LAUNCHES_BF16, **segment_sum.LAUNCHES_BF16},
+                {**spmm.LAUNCHES, **segment_sum.LAUNCHES})
+
+    # ---- phase 26: predict() in bf16
+    model = make_model(seed, run_dir.name, dtype="bfloat16")
+    cfg, gcfg = model.cfg, model.gcfg
+    nt, sw, n_max = gcfg.agg_nt, gcfg.agg_sw, gcfg.n_max
+    model.predict(loader)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(loader)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches, f32_launches = counts()
+    # as f32's (phase 2): K1 a mesh, K2 twice a conv layer, K7 as
+    # expected_quadtree_k7 reads it; only the node counts (a sum of ones)
+    # stay f32
+    meshes = 1 + T_OUT
+    want = {"spmm_build_blocks": meshes,
+            "spmm_apply": expected_launches(cfg)["spmm_apply"], "spmm_apply_bwd": 0,
+            "segment_sum": expected_quadtree_k7(cfg, 3) - meshes}
+    want_f32 = {k: (meshes if k == "segment_sum" else 0) for k in want}
+    check(y.shape == (BATCH, T_OUT, *CANVAS, 1) and y.dtype == np.float32,
+          f"bf16 predict gave {y.shape} {y.dtype}")
+    check(bool(np.isfinite(y).all()), "non-finite bf16 forecast")
+    check(model.last_overflow == 0, f"mesh overflow {model.last_overflow} in bf16")
+    check(launches == want and f32_launches == want_f32,
+          f"bf16 main path launches {launches} (f32 {f32_launches}), expected {want} "
+          f"({want_f32})")
+    print(json.dumps({
+        "phase": "bf16_path", "card": card, "batch": BATCH, "batch_s": batch_s,
+        "frames_per_s": BATCH * T_OUT / batch_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "overflow": model.last_overflow, "launches_bf16": launches,
+        "launches_f32": f32_launches,
+    }), flush=True)
+
+    # ---- phase 27: K1, K2, K2b and K7 in bf16 against their plain versions
+    enc_calls = T_IN * cfg.n_layers * cfg.n_conv_layers * 2
+    dec_step_calls = cfg.n_layers * 2 + 2 * 2
+    p = CANVAS[0] * CANVAS[1]
+    with Capture(spmm, enc_calls, dec_step_calls) as cap, \
+            SegmentCapture(segment, p, keep=True, dtype=bf16) as seg_f:
+        model.forecast(x)
+    check(cap.calls == want["spmm_apply"], "bf16 capture run disagrees with the bf16 path")
+    n_builds = len(cap.builds)
+    for i, bargs in enumerate(cap.builds):
+        kern, plain = spmm._build_blocks_cuda(*bargs), spmm.build_blocks_plain(*bargs)
+        check(kern.dtype == bf16 and torch.equal(kern, plain),
+              f"bf16 K1 differs from its plain version (build {i})")
+    bargs = cap.builds[0]
+    k1 = dict(ms=graph_ms(lambda: spmm._build_blocks_cuda(*bargs)),
+              events_ms=cuda_ms(lambda: spmm._build_blocks_cuda(*bargs)),
+              f32_ms=graph_ms(lambda: spmm._build_blocks_cuda(*bargs[:6])),
+              plain_ms=cuda_ms(lambda: spmm.build_blocks_plain(*bargs)))
+    k1["bound_ms"], k1_b, k1_o = k1_bound_ms(bargs[0], bargs[1], bargs[3], nt, sw, 2)
+    k1["bound_by"] = "bytes" if k1_b >= k1_o else "operations"
+    widths = [_spmm_width(spmm, a, cap.per_width[f], spmm._apply_cuda, n_max, nt, sw)
+              for f, a in cap.operands().items()]
+    trainer = make_trainer(seed, run_dir.name, dtype="bfloat16")
+    _, batches = train_batches(seed, TRAIN_STEPS + 1)
+    with CaptureBwd(spmm, "_apply_bwd_cuda") as cap_b, \
+            SegmentCapture(segment, p, keep=True, dtype=bf16) as seg_t:
+        trainer.train_step(*batches[0])
+    bwd = [_spmm_width(spmm, a, cap_b.per_width[f], spmm._apply_bwd_cuda, n_max, nt, sw)
+           for f, a in sorted(cap_b.first.items())]
+    check(sum(w["calls"] for w in bwd) == expected_launches(cfg)["spmm_apply_bwd"],
+          "bf16 K2b capture disagrees with the code")
+    sets = {**seg_t.ops, **seg_f.ops}  # the forecast's operands where it has the set
+    k7_sets = [k7_measure(segment_sum, key, sets[key], seg_t.calls.get(key, 0), BF16_TOL)
+               for key in sorted(sets)]
+    for w, key in zip(k7_sets, sorted(sets)):  # the f32 kernel on the same sums
+        values, ids, n_out, view = sets[key]
+        v32 = values.reshape(ids.shape[0], ids.shape[1], -1).float()
+        w["f32_ms"] = graph_ms(lambda: segment_sum._segment_sum_cuda(v32, ids, n_out, view))
+    check(all(ops[0].dtype == bf16 for ops in sets.values()), "a K7 set is not bf16")
+    del cap, cap_b, seg_f, sets
+    print(json.dumps({"phase": "bf16_kernels_vs_plain", "card": card, "k1": k1,
+                      "k1_builds_exact": n_builds, "k2_by_width": widths, "k2b_by_width": bwd,
+                      "k7_by_set": k7_sets}), flush=True)
+
+    # ---- phase 28: train_step in bf16
+    with GradFnCheck(spmm, "spmm_apply", "SpmmApplyBackward") as gcheck:
+        loss, overflow = trainer.train_step(*batches[0])  # warm-up
+    want_step = expected_launches(cfg)
+    check(not gcheck.bad and gcheck.calls == want_step["spmm_apply_bwd"],
+          f"bf16 Â·z outputs without the K2b node: {gcheck.bad[:3]} ({gcheck.calls})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses, worst, pending = [], 0, None
+    for x_b, y_b in batches[1:]:
+        loss, overflow = trainer.train_step(x_b, y_b)
+        if pending is not None:  # one step late, as train() drains
+            losses.append(float(pending[0]))
+            worst = max(worst, int(pending[1]))
+        pending = (loss, overflow)
+    losses.append(float(pending[0]))
+    worst = max(worst, int(pending[1]))
+    train_s = time.perf_counter() - t0
+    train_launches, train_f32 = counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in train_launches.items()}
+    want_bf16 = {**want_step, "segment_sum": want_step["segment_sum"] - meshes}
+    check(loss.dtype == torch.float32 and bool(np.isfinite(losses).all()),
+          f"bf16 training loss {losses} ({loss.dtype})")
+    check(worst == 0, f"mesh overflow {worst} in bf16 training")
+    check(per_step == {k: float(v) for k, v in want_bf16.items()}
+          and train_f32 == {k: TRAIN_STEPS * v for k, v in want_f32.items()},
+          f"bf16 launches per step {per_step} (f32 {train_f32}), expected {want_bf16}")
+    check(all(q.dtype == q.grad.dtype == torch.float32 for q in trainer.model.parameters()),
+          "bf16 training left a master weight or gradient that is not float32")
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    # a step's own peak, bf16 and f32 (a fresh trainer after its warm-up)
+    # measured alike
+    step_peak = {"bfloat16": peak_above_start_gib(lambda: trainer.train_step(*batches[1]))}
+    f32_trainer = make_trainer(seed, run_dir.name)
+    f32_trainer.train_step(*batches[0])
+    step_peak["float32"] = peak_above_start_gib(lambda: f32_trainer.train_step(*batches[1]))
+    del f32_trainer
+    # the train() entry in bf16: one epoch over 2 batches, then score()
+    entry = make_trainer(seed, run_dir.name, dtype="bfloat16")
+    loaders = [DataLoader(ArrayDataset(np.concatenate([b[0] for b in bs]),
+                                       np.concatenate([b[1] for b in bs]),
+                                       np.zeros(BATCH * len(bs))), batch_size=BATCH)
+               for bs in (batches[1:3], batches[:1])]
+    entry.train(*loaders, n_epochs=1, divergence_threshold=float("inf"))
+    score = entry.score(loaders[1])
+    check(bool(np.isfinite(entry.loss["train_loss"] + entry.loss["test_loss"]).all())
+          and np.isfinite(score["MSE"]), f"bf16 train()/score() gave {entry.loss}, {score}")
+    del entry
+    print(json.dumps({
+        "phase": "bf16_train_path", "card": card, "batch": BATCH, "steps": TRAIN_STEPS,
+        "seconds": train_s, "steps_per_s": TRAIN_STEPS / train_s,
+        "frames_per_s": TRAIN_STEPS * BATCH * T_OUT / train_s,
+        "peak_mem_gib": peak_mem, "step_peak_above_start_gib": step_peak,
+        "losses": losses, "overflow": worst, "launches_per_step": per_step,
+        "f32_launches_per_step": {k: v / TRAIN_STEPS for k, v in train_f32.items()},
+        "k2_outputs_checked": gcheck.calls, "train_entry_score": score,
+    }), flush=True)
+    del trainer
+
+    # ---- phase 29: a bf16 step on the kernels vs one on the plain
+    # versions, teacher-forced (every decoder mesh from a true frame, so the
+    # two runs share their meshes); every K1, K2, K2b call of the kernel
+    # step on those near-capacity windows; the kernel step again
+    x_g, y_g = batches[0]
+    forced = lambda: make_trainer(seed, run_dir.name, teacher_forcing_ratio=1.0,  # noqa: E731
+                                  dtype="bfloat16")
+    with Record(spmm, "_build_blocks_cuda") as r1, Record(spmm, "_apply_cuda") as r2, \
+            Record(spmm, "_apply_bwd_cuda") as r2b:
+        loss_k, ovf_k, grads_k, meshes_k = step_with_meshes(forced(), x_g, y_g, seed=1)
+    for a, out in zip(r1.calls, r1.results):
+        check(torch.equal(out, spmm.build_blocks_plain(*a)),
+              "bf16 K1 differs from its plain version on a teacher-forced mesh")
+    near = 0.0
+    with torch.no_grad():
+        for rec in (r2, r2b):
+            for a, out in zip(rec.calls, rec.results):
+                plain = spmm.apply_plain(*a).float()
+                near = max(near, float((out.float() - plain).abs().max())
+                           / max(1.0, float(plain.abs().max())))
+    check(near <= BF16_TOL, f"bf16 K2 / K2b differ on the teacher-forced windows: {near}")
+    fills = [window_fill(a[0], a[1], a[3]) for a in r1.calls]
+    n_calls = (len(r1.calls), len(r2.calls), len(r2b.calls))
+    del r1, r2, r2b
+    with mock.patch.object(spmm, "_build_blocks_cuda", spmm.build_blocks_plain), \
+            mock.patch.object(spmm, "_apply_cuda", spmm.apply_plain), \
+            mock.patch.object(spmm, "_apply_bwd_cuda", spmm.apply_plain), \
+            mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
+        loss_p, _, grads_p, meshes_p = step_with_meshes(forced(), x_g, y_g, seed=1)
+    check(torch.equal(meshes_k, meshes_p), "bf16 kernel and plain steps ran on different meshes")
+    leaf_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                   / max(1.0, float(grads_p[n].abs().max())) for n in grads_p)
+    check(int(ovf_k) == 0 and leaf_err <= BF16_GRAD_TOL,
+          f"bf16 gradients differ from the plain path by {leaf_err} (overflow {int(ovf_k)})")
+    loss_k2, _, grads_k2, meshes_k2 = step_with_meshes(forced(), x_g, y_g, seed=1)
+    same = (torch.equal(loss_k, loss_k2) and torch.equal(meshes_k, meshes_k2)
+            and all(torch.equal(grads_k[n], grads_k2[n]) for n in grads_k))
+    check(same, "two identical bf16 train steps differ")
+    print(json.dumps({
+        "phase": "bf16_grads_vs_plain", "card": card, "teacher_forcing_ratio": 1.0,
+        "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+        "max_leaf_err_rel": leaf_err, "leaves": len(grads_p), "meshes_identical": True,
+        "k1_k2_k2b_calls": n_calls, "k2_k2b_max_err_rel": near,
+        "max_edges_per_tile": max(f[0] for f in fills),
+        "max_source_spread": max(f[1] for f in fills), "bit_identical_repeat": same,
+    }), flush=True)
+
+    # ---- phase 30: the bf16 forecast against the f32 one, same weights
+    f32_model = make_model(seed, run_dir.name)
+    f32_model.forecast(x)  # warm-up
+    got = {}
+    peaks = {dtype: peak_above_start_gib(lambda m=m, d=dtype: got.setdefault(d, m.forecast(x)))
+             for dtype, m in (("bfloat16", model), ("float32", f32_model))}
+    (y16, _, m16), (y32, _, m32) = got["bfloat16"], got["float32"]
+    same0 = (m16[0] == m32[0]).all(dim=-1)  # the encoder's meshes, per sample
+    check(bool(same0.any()), "no sample's encoder mesh agrees between bf16 and f32")
+    err0 = (y16[:, 0] - y32[:, 0]).abs()[same0]
+    check(float(err0.mean()) <= BF16_FRAME_TOL,
+          f"the first bf16 frame differs from f32 by {float(err0.mean())} on average")
+    err = (y16 - y32).abs()
+    print(json.dumps({
+        "phase": "bf16_vs_f32", "card": card, "samples_on_the_same_mesh": int(same0.sum()),
+        "forecast_peak_above_start_gib": peaks,
+        "first_frame_mean_abs": float(err0.mean()), "first_frame_max_abs": float(err0.max()),
+        "mean_abs_by_step": err.mean(dim=(0, 2, 3, 4)).tolist(),
+        "max_abs_by_step": err.amax(dim=(0, 2, 3, 4)).tolist(),
+    }), flush=True)
+    run_dir.cleanup()
+
+    # the kernels line's bf16 entries: launches from phase 28's steps, K2
+    # and K2b launch-weighted over their widths, K7 over its operand sets
+    # weighted by a train step's calls
+    def mean(ws, key):
+        n = sum(w["calls"] for w in ws)
+        vals = [w[key] for w in ws]
+        if any(v is None for v in vals):
+            return None
+        return sum(w["calls"] * v for w, v in zip(ws, vals)) / n
+
+    def entry(name, source, replaces, ws, **extra):
+        return dict(name=f"{name}_bf16", dtype="bfloat16", route="cuda",
+                    source=f"quadtree_mpnnlstm_tpu_torch/csrc/{source}", replaces=replaces,
+                    launches=train_launches[name],
+                    max_abs_err=max(w["max_abs_err"] for w in ws),
+                    ms=mean(ws, "ms"), events_ms=mean(ws, "events_ms" if "events_ms" in ws[0]
+                                                      else "ms_events"),
+                    f32_ms=mean(ws, "f32_ms"),
+                    plain_ms=mean(ws, "plain_ms"), bound_ms=mean(ws, "bound_ms"),
+                    bound_by="bytes" if mean(ws, "bytes_ms") >= mean(ws, "ops_ms")
+                    else "operations", library_ms=mean(ws, "library_ms"),
+                    launches_by_path={"predict_batch": launches[name],
+                                      f"train_{TRAIN_STEPS}_steps": train_launches[name]},
+                    **extra)
+
+    pallas = "quadtree_mpnnlstm_tpu/ops/pallas_spmm.py"
+    k1_entry = entry("spmm_build_blocks", "spmm.cu", f"{pallas}:249",
+                     [dict(k1, calls=1, max_abs_err=0.0, bytes_ms=k1_b, ops_ms=k1_o,
+                           library_ms=None)])
+    k7_ws = [w for w in k7_sets if w["calls"]]
+    return [k1_entry,
+            entry("spmm_apply", "spmm.cu", f"{pallas}:322", widths,
+                  library_refused=sorted({w["library_refused"] for w in widths
+                                          if w["library_refused"]})),
+            entry("spmm_apply_bwd", "spmm.cu", f"{pallas}:363-365", bwd,
+                  library_refused=sorted({w["library_refused"] for w in bwd
+                                          if w["library_refused"]})),
+            entry("segment_sum", "segment.cu", "quadtree_mpnnlstm_tpu/ops/pallas_segment.py:87",
+                  k7_ws)]
+
+
 def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
     """Phases 13-18 on the sea-ice flagship (the pixelwise grid); returns
     the forecast's and the timed train steps' launches and K5's and K6's
@@ -1298,14 +1664,17 @@ class SegmentCapture:
     ``segment_sum_nodes`` and the gathers' backwards call) and counts
     its calls by operand set (ids, F): ids ``dst`` (the sorted edge_dst),
     ``src`` (edge_src) or ``pixel`` (pixel_node). With ``keep`` it also
-    keeps the last call's operands of each set, detached."""
+    keeps the last call's operands of each set, detached; with ``dtype``
+    it sees only the calls on values of that type."""
 
-    def __init__(self, segment, n_pixels: int, keep: bool = False):
-        self.segment, self.n_pixels, self.keep = segment, n_pixels, keep
+    def __init__(self, segment, n_pixels: int, keep: bool = False, dtype=None):
+        self.segment, self.n_pixels, self.keep, self.dtype = segment, n_pixels, keep, dtype
         self.calls, self.ops = {}, {}
         self._fn = segment.segment_sum
 
     def __call__(self, values, ids, n_out, view=None):
+        if self.dtype is not None and values.dtype != self.dtype:
+            return self._fn(values, ids, n_out, view)
         check(view is not None, "a segment sum on the card ran without its graph's CSR view")
         site = ("pixel" if ids.shape[1] == self.n_pixels
                 else "dst" if view.order is None else "src")
@@ -1324,23 +1693,24 @@ class SegmentCapture:
         self._patch.stop()
 
 
-def k7_bound_ms(ids, n_out: int, f: int):
+def k7_bound_ms(ids, n_out: int, f: int, itemsize: int = 4):
     """Least time for K7's work on these operands: each valid entry's F
     values read once, the ids read once (4 B each), every output row
-    written once; one add per valid value."""
+    written once (``itemsize`` B a value: 4 in f32, 2 in bf16); one add
+    per valid value."""
     n_valid = int(((ids >= 0) & (ids < n_out)).sum())
-    nbytes = n_valid * f * 4 + ids.numel() * 4 + ids.shape[0] * n_out * f * 4
+    nbytes = n_valid * f * itemsize + ids.numel() * 4 + ids.shape[0] * n_out * f * itemsize
     ops = n_valid * f
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / _peak_flops(itemsize) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms, n_valid
 
 
-def k7_measure(segment_sum, key, ops, calls):
-    """K7 against ``segment_sum_plain`` on one operand set (≤ K7_TOL ×
+def k7_measure(segment_sum, key, ops, calls, tol: float = K7_TOL):
+    """K7 against ``segment_sum_plain`` on one operand set (≤ ``tol`` ×
     max(1, max|out|), and whether bit-identical), timed beside its bound,
-    the plain version, ``index_add_`` and the view's build, each by
-    :func:`graph_ms` (``ms_events``: K7 by CUDA events between host
-    launches, as the other kernels are timed)."""
+    the plain version, ``index_add_`` (in the values' type) and the view's
+    build, each by :func:`graph_ms` (``ms_events``: K7 by CUDA events
+    between host launches, as the other kernels are timed)."""
     import torch
 
     values, ids, n_out, view = ops
@@ -1351,7 +1721,7 @@ def k7_measure(segment_sum, key, ops, calls):
     plain = segment_sum.segment_sum_plain(flat, ids, n_out)
     err = float((kern - plain).abs().max())
     scale = max(1.0, float(plain.abs().max()))
-    check(err <= K7_TOL * scale, f"K7 differs from segment_sum_plain on {key}: {err}")
+    check(err <= tol * scale, f"K7 differs from segment_sum_plain on {key}: {err}")
     # the library yardstick: one index_add_ into a discard row per sample
     valid = (ids >= 0) & (ids < n_out)
     base = torch.arange(b, device=ids.device)[:, None] * (n_out + 1)
@@ -1359,10 +1729,11 @@ def k7_measure(segment_sum, key, ops, calls):
     rows = flat.reshape(-1, f)
 
     def library():
-        return torch.zeros((b * (n_out + 1), f), device=flat.device).index_add_(0, gid, rows)
+        return torch.zeros((b * (n_out + 1), f), dtype=flat.dtype,
+                           device=flat.device).index_add_(0, gid, rows)
 
     lib_err = float((library().reshape(b, n_out + 1, f)[:, :n_out] - plain).abs().max())
-    bound, b_ms, o_ms, n_valid = k7_bound_ms(ids, n_out, f)
+    bound, b_ms, o_ms, n_valid = k7_bound_ms(ids, n_out, f, flat.element_size())
     sorted_ids = view.order is None
     return dict(
         ids=key[0], F=f, calls=calls, entries=b * length, valid_entries=n_valid,
@@ -1719,6 +2090,7 @@ def main() -> int:
 
     train_launches, bwd_widths = train_phases(args.seed, card, spmm, segment_sum, cfg, nt, sw,
                                               n_max)
+    bf16_kernels = bf16_phases(args.seed, card, spmm, segment, segment_sum, loader, x)
     attn_launches, attn_train_launches, k3_widths, k3_wide, k4_widths = attn_phases(
         args.seed, card, spmm, attn, segment_sum, loader, x)
     capacity_phase(args.seed, card, spmm, attn)
@@ -1819,7 +2191,9 @@ def main() -> int:
             f"attention_train_{TRAIN_STEPS}_steps": attn_train_launches["segment_sum"],
             "grid_predict_batch": grid_launches["segment_sum"],
             f"grid_train_{ICE_TRAIN_STEPS}_steps": grid_train_launches["segment_sum"]}))
-    print(json.dumps({"kernels": kernels}), flush=True)
+    for k in kernels:
+        k["dtype"] = "float32"
+    print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import torch
+
 CONDITIONS = (
     "max_larger_than",
     "max_smaller_than",
@@ -152,13 +154,18 @@ class ModelConfig:
 
     ``input_features`` counts raw channels only; positional encoding (2)
     and node size (1) are appended internally. The port runs the fused
-    ChebConv or TransformerConv GConvLSTM in float32, with a remesh at every
-    decoder step on quadtree meshes and a fixed mesh on the pixelwise mesh;
+    ChebConv or TransformerConv GConvLSTM, with a remesh at every decoder
+    step on quadtree meshes and a fixed mesh on the pixelwise mesh;
     :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
     rejects other values of ``convolution_type``, ``rnn_type``,
-    ``fused_gates``, ``remesh_every`` and ``compute_dtype``. ``dropout`` is
-    the decoder head's; attention convolutions drop attention weights at
-    their own fixed rate (``models/conv.py`` ``CONVOLUTION_KWARGS``).
+    ``fused_gates`` and ``remesh_every``. ``compute_dtype="bfloat16"`` is
+    mixed precision, so far for ChebConv on quadtree meshes: the graph
+    pipeline, the convolutions and the recurrence run in bf16, the master
+    parameters stay float32 and are cast at use, and LayerNorm statistics,
+    the predictions leaving the model and the loss are float32.
+    ``dropout`` is the decoder head's; attention convolutions drop
+    attention weights at their own fixed rate (``models/conv.py``
+    ``CONVOLUTION_KWARGS``).
     """
 
     hidden_size: int = 32
@@ -175,6 +182,11 @@ class ModelConfig:
     remesh_every: int = 1
     fused_gates: bool = True
     compute_dtype: str = "float32"
+
+    @property
+    def cdtype(self) -> torch.dtype:
+        """The compute dtype as a torch dtype."""
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.compute_dtype]
 
     @property
     def node_input_features(self) -> int:
@@ -198,10 +210,13 @@ class ModelConfig:
 class TrainConfig:
     """Defaults of ``NextFramePredictorS2S.train`` when the predictor is
     given one: Adam at ``lr`` decayed by ``lr_decay`` every 3 epochs;
-    ``truncated_backprop`` is the decoder chunk length (0 = full BPTT)."""
+    ``truncated_backprop`` is the decoder chunk length (0 = full BPTT);
+    ``dtype`` is the model's compute dtype when the predictor is given no
+    ``compute_dtype`` (``"bfloat16"``: mixed precision, float32 masters)."""
 
     lr: float = 0.01
     lr_decay: float = 0.95
     n_epochs: int = 20
     truncated_backprop: int = 0
     seed: int = 21
+    dtype: str = "float32"

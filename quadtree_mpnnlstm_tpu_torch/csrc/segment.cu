@@ -26,22 +26,50 @@
 // view adds 4-8 bytes an entry. Rows of different degree share a warp only
 // at F < 32, where the pixelwise mesh's degrees differ by at most 4.
 //
+// The bf16 path (qtm_segment_sum_bf16, the TPU kernel on bf16 values) reads
+// bf16 values, adds them in f32 in the same entry order and rounds each
+// output once on the store, where the TPU kernel rounds the output at every
+// 512-entry tile. Where F is a multiple of 8 (and the values 16-byte
+// aligned) a lane reads 8 features of an entry as one 16-byte load and a row
+// takes F/8 lanes (rounded up to a power of two, at most 32); else the lanes
+// split the features as in f32.
+//
 // The kernel takes a leading batch axis (one mesh per sample) through the
 // offsets, launches on the caller's stream, does not synchronise and
 // allocates nothing; the entry point returns cudaGetLastError() so that the
 // Python wrapper raises on a refused launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kPerLane = 8;  // features a lane accumulates per pass over a row
 
-template <int LPR>
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x) {
+  if constexpr (std::is_same<T, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// VEC (bf16 only): a lane's kPerLane features are contiguous, one 16-byte
+// load an entry; else they are strided by LPR.
+template <typename T, int LPR, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-segment_sum_kernel(const float* __restrict__ values, const int* __restrict__ order,
-                   const int* __restrict__ offsets, float* __restrict__ out,
+segment_sum_kernel(const T* __restrict__ values, const int* __restrict__ order,
+                   const int* __restrict__ offsets, T* __restrict__ out,
                    long long rows, int n_out, int F) {
   const long long thread = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long row = thread / LPR;
@@ -52,36 +80,78 @@ segment_sum_kernel(const float* __restrict__ values, const int* __restrict__ ord
   const int* off = offsets + b * (n_out + 1) + n;
   const int start = off[0];
   const int end = off[1];
-  float* dst = out + row * F;
+  T* dst = out + row * F;
 
   for (int f0 = 0; f0 < F; f0 += LPR * kPerLane) {
     float acc[kPerLane];
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) acc[i] = 0.f;
-    for (int j = start; j < end; ++j) {
-      const long long e = order != nullptr ? order[j] : j;
-      const float* src = values + e * F;
+    if constexpr (VEC) {
+      const int f = f0 + sub * kPerLane;
+      if (f >= F) continue;
+      for (int j = start; j < end; ++j) {
+        const long long e = order != nullptr ? order[j] : j;
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(values + e * F + f));
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+        for (int i = 0; i < kPerLane / 2; ++i) {
+          const float2 x = __bfloat1622float2(h[i]);
+          acc[2 * i] = __fadd_rn(acc[2 * i], x.x);
+          acc[2 * i + 1] = __fadd_rn(acc[2 * i + 1], x.y);
+        }
+      }
+      uint4 packed;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&packed);
+#pragma unroll
+      for (int i = 0; i < kPerLane / 2; ++i) h[i] = __floats2bfloat162_rn(acc[2 * i], acc[2 * i + 1]);
+      *reinterpret_cast<uint4*>(dst + f) = packed;
+    } else {
+      for (int j = start; j < end; ++j) {
+        const long long e = order != nullptr ? order[j] : j;
+        const T* src = values + e * F;
+#pragma unroll
+        for (int i = 0; i < kPerLane; ++i) {
+          const int f = f0 + sub + i * LPR;
+          if (f < F) acc[i] = __fadd_rn(acc[i], to_f(src[f]));
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
         const int f = f0 + sub + i * LPR;
-        if (f < F) acc[i] = __fadd_rn(acc[i], src[f]);
+        if (f < F) dst[f] = from_f<T>(acc[i]);
       }
-    }
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int f = f0 + sub + i * LPR;
-      if (f < F) dst[f] = acc[i];
     }
   }
 }
 
-template <int LPR>
-void launch(const float* values, const int* order, const int* offsets, float* out,
-            long long rows, int n_out, int F, cudaStream_t stream) {
+template <typename T, int LPR, bool VEC>
+void launch(const T* values, const int* order, const int* offsets, T* out, long long rows,
+            int n_out, int F, cudaStream_t stream) {
   const long long threads = rows * LPR;
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  segment_sum_kernel<LPR><<<blocks, kThreads, 0, stream>>>(values, order, offsets, out, rows,
-                                                          n_out, F);
+  segment_sum_kernel<T, LPR, VEC><<<blocks, kThreads, 0, stream>>>(values, order, offsets, out,
+                                                                  rows, n_out, F);
+}
+
+// lanes a row: F (or, with VEC, F / 8 vectors) rounded up to a power of two,
+// at most 32
+template <typename T, bool VEC>
+void dispatch(const T* values, const int* order, const int* offsets, T* out, long long rows,
+              int n_out, int F, cudaStream_t stream) {
+  const int width = VEC ? F / kPerLane : F;
+  if (width >= 32) {
+    launch<T, 32, VEC>(values, order, offsets, out, rows, n_out, F, stream);
+  } else if (width > 8) {
+    launch<T, 16, VEC>(values, order, offsets, out, rows, n_out, F, stream);
+  } else if (width > 4) {
+    launch<T, 8, VEC>(values, order, offsets, out, rows, n_out, F, stream);
+  } else if (width > 2) {
+    launch<T, 4, VEC>(values, order, offsets, out, rows, n_out, F, stream);
+  } else if (width == 2) {
+    launch<T, 2, VEC>(values, order, offsets, out, rows, n_out, F, stream);
+  } else {
+    launch<T, 1, VEC>(values, order, offsets, out, rows, n_out, F, stream);
+  }
 }
 
 }  // namespace
@@ -94,19 +164,23 @@ extern "C" {
 int qtm_segment_sum(const float* values, const int* order, const int* offsets, float* out,
                     int batch, int n_out, int F, cudaStream_t stream) {
   const long long rows = static_cast<long long>(batch) * n_out;
+  if (rows > 0 && F > 0) dispatch<float, false>(values, order, offsets, out, rows, n_out, F, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the same with values and out in bf16
+int qtm_segment_sum_bf16(const void* values, const int* order, const int* offsets, void* out,
+                         int batch, int n_out, int F, cudaStream_t stream) {
+  const long long rows = static_cast<long long>(batch) * n_out;
+  const bf16* v = static_cast<const bf16*>(values);
+  bf16* o = static_cast<bf16*>(out);
+  const bool vec = F % kPerLane == 0 && reinterpret_cast<std::uintptr_t>(values) % 16 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
   if (rows > 0 && F > 0) {
-    if (F >= 32) {
-      launch<32>(values, order, offsets, out, rows, n_out, F, stream);
-    } else if (F > 8) {
-      launch<16>(values, order, offsets, out, rows, n_out, F, stream);
-    } else if (F > 4) {
-      launch<8>(values, order, offsets, out, rows, n_out, F, stream);
-    } else if (F > 2) {
-      launch<4>(values, order, offsets, out, rows, n_out, F, stream);
-    } else if (F == 2) {
-      launch<2>(values, order, offsets, out, rows, n_out, F, stream);
+    if (vec) {
+      dispatch<bf16, true>(v, order, offsets, o, rows, n_out, F, stream);
     } else {
-      launch<1>(values, order, offsets, out, rows, n_out, F, stream);
+      dispatch<bf16, false>(v, order, offsets, o, rows, n_out, F, stream);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -117,7 +117,8 @@ def _assemble(
         )
         overflow = overflow + window_overflow
         graph = graph.replace(
-            agg_meta=spmm.spmm_build_blocks(windows, cfg.agg_nt, cfg.agg_sw, n_nodes),
+            agg_meta=spmm.spmm_build_blocks(windows, cfg.agg_nt, cfg.agg_sw, n_nodes,
+                                            block_dtype=data.dtype),
             agg=("pallas", cfg.agg_nt, cfg.agg_eb, cfg.agg_sw),
         )
     graph = graph.replace(overflow=overflow)

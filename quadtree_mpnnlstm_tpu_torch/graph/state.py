@@ -88,7 +88,10 @@ def flatten(img: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
     Args:
       img: (B, T, rows, cols, C) image stacks.
     Returns:
-      (B, T, n_max, C) node features; padded node rows are exactly zero.
+      (B, T, n_max, C) node features in img's dtype; padded node rows are
+      exactly zero. A bf16 image is summed in f32 (rounded once) and
+      divided by the f32 counts before the cast back, as the JAX package
+      divides in the promoted dtype.
     """
     b, t, rows, cols, c = img.shape
     p = rows * cols

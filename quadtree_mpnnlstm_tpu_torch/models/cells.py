@@ -22,13 +22,17 @@ GATE_STACKS = {"ChebConv": FusedGateConvStack, "TransformerConv": FusedAttnGateS
 
 class GConvLSTM(nn.Module):
     """Peephole graph-conv LSTM with the fused gate stack of its
-    convolution type (ChebConv or TransformerConv)."""
+    convolution type (ChebConv or TransformerConv). ``dtype`` is the
+    ChebConv stack's compute dtype; peepholes, biases and the cell state
+    join the gates' dtype, as in the flax module."""
 
     def __init__(self, in_channels: int, out_channels: int, n_conv_layers: int = 1,
-                 convolution_type: str = "ChebConv"):
+                 convolution_type: str = "ChebConv", dtype: torch.dtype = torch.float32):
         super().__init__()
         d = out_channels
-        self.gates = GATE_STACKS[convolution_type](in_channels, d, d, n_conv_layers, 4)
+        stack = GATE_STACKS[convolution_type]
+        kw = {"dtype": dtype} if stack is FusedGateConvStack else {}
+        self.gates = stack(in_channels, d, d, n_conv_layers, 4, **kw)
         for name in ("w_c_i", "w_c_f", "w_c_o", "b_i", "b_f", "b_c", "b_o"):
             self.register_parameter(name, nn.Parameter(torch.zeros(1, d)))
 
@@ -37,10 +41,15 @@ class GConvLSTM(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         g = self.gates(x, h, graph, generator)  # (4, B, N, d) — gates i, f, c, o
-        i = torch.sigmoid(g[0] + self.w_c_i * c + self.b_i)
-        f = torch.sigmoid(g[1] + self.w_c_f * c + self.b_f)
-        t = torch.tanh(g[2] + self.b_c)
+        dt = g.dtype
+        w_ci, w_cf, w_co, b_i, b_f, b_c, b_o = (
+            p.to(dt) for p in (self.w_c_i, self.w_c_f, self.w_c_o,
+                               self.b_i, self.b_f, self.b_c, self.b_o))
+        c = c.to(dt)
+        i = torch.sigmoid(g[0] + w_ci * c + b_i)
+        f = torch.sigmoid(g[1] + w_cf * c + b_f)
+        t = torch.tanh(g[2] + b_c)
         c_new = f * c + i * t
-        o = torch.sigmoid(g[3] + self.w_c_o * c_new + self.b_o)
+        o = torch.sigmoid(g[3] + w_co * c_new + b_o)
         h_new = o * torch.tanh(c_new)
         return o, h_new, c_new

@@ -69,13 +69,16 @@ def a_mul(z: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
 
 class ChebConv(nn.Module):
     """Chebyshev spectral conv, 'sym' normalisation. Parameters follow the
-    flax module: ``lin_k`` (no bias) per tap and one ``bias``."""
+    flax module: ``lin_k`` (no bias) per tap and one ``bias``. ``dtype``
+    is the compute dtype: the input and each float32 master parameter are
+    cast to it at use, as flax's ``dtype`` does."""
 
     def __init__(self, in_channels: int, out_channels: int, K: int = 3,
-                 lambda_max: float = 2.0):
+                 lambda_max: float = 2.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.K = K
         self.lambda_max = lambda_max
+        self.dtype = dtype
         for k in range(K):
             self.add_module(f"lin_{k}", nn.Linear(in_channels, out_channels, bias=False))
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -86,20 +89,24 @@ class ChebConv(nn.Module):
     def forward(self, x: torch.Tensor, graph: GraphTensors,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         scale = 2.0 / self.lambda_max
+        x = x.to(self.dtype)
 
         def l_hat(z):
             # (2/λmax)(I - Â) - I applied to z
             return scale * (z - a_mul(z, graph)) - z
 
+        def lin(k, z):
+            return nn.functional.linear(z, self.lin(k).weight.to(self.dtype))
+
         tx_prev = x
-        out = self.lin(0)(tx_prev)
+        out = lin(0, tx_prev)
         if self.K > 1:
             tx = l_hat(x)
-            out = out + self.lin(1)(tx)
+            out = out + lin(1, tx)
             for k in range(2, self.K):
                 tx, tx_prev = 2.0 * l_hat(tx) - tx_prev, tx
-                out = out + self.lin(k)(tx)
-        return out + self.bias
+                out = out + lin(k, tx)
+        return out + self.bias.to(out.dtype)
 
 
 def attr_dim(graph: GraphTensors) -> int:

@@ -30,15 +30,18 @@ class FusedGateConvStack(nn.Module):
     """``conv_x_g(X) + conv_h_g(H)`` for ``n_gates`` gates with shared
     aggregations. Returns (n_gates, B, N, out_channels). Parameter names
     and shapes follow the flax module (``w_x_0`` (g, K, fx, d), ``w_h_0``,
-    ``b_x_0`` (g, d), ``b_h_0``, then ``w_l`` (2g, K, d, d), ``b_l``)."""
+    ``b_x_0`` (g, d), ``b_h_0``, then ``w_l`` (2g, K, d, d), ``b_l``).
+    ``dtype`` is the compute dtype: x, h and each float32 master parameter
+    are cast to it at use, as flax's ``dtype`` does."""
 
     def __init__(self, x_channels: int, h_channels: int, out_channels: int,
                  n_layers: int = 1, n_gates: int = 4, K: int = 3,
-                 lambda_max: float = 2.0):
+                 lambda_max: float = 2.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         g, d = n_gates, out_channels
         self.n_gates, self.K, self.n_layers = g, K, n_layers
         self.lambda_max = lambda_max
+        self.dtype = dtype
         self.w_x_0 = nn.Parameter(torch.zeros(g, K, x_channels, d))
         self.w_h_0 = nn.Parameter(torch.zeros(g, K, h_channels, d))
         self.b_x_0 = nn.Parameter(torch.zeros(g, d))
@@ -51,6 +54,10 @@ class FusedGateConvStack(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         g = self.n_gates
         scale = 2.0 / self.lambda_max
+        x, h = x.to(self.dtype), h.to(self.dtype)
+
+        def p(w):  # a master parameter in the compute dtype
+            return w.to(self.dtype)
 
         def l_hat(z):
             return scale * (z - a_mul(z, graph)) - z
@@ -67,16 +74,18 @@ class FusedGateConvStack(nn.Module):
         fx = x.shape[-1]
         # ---- layer 0: shared polynomials over [X ‖ H]
         t = cheb_t(torch.cat([x, h], dim=-1))  # (K, B, N, fx+fh)
-        sx = torch.einsum("kbnf,gkfo->gbno", t[..., :fx], self.w_x_0) + self.b_x_0[:, None, None]
-        sh = torch.einsum("kbnf,gkfo->gbno", t[..., fx:], self.w_h_0) + self.b_h_0[:, None, None]
+        sx = torch.einsum("kbnf,gkfo->gbno", t[..., :fx], p(self.w_x_0)) \
+            + p(self.b_x_0)[:, None, None]
+        sh = torch.einsum("kbnf,gkfo->gbno", t[..., fx:], p(self.w_h_0)) \
+            + p(self.b_h_0)[:, None, None]
         streams = torch.cat([sx, sh], dim=0)  # (2g, B, N, d)
         # ---- deeper layers: one aggregation per tap over all streams
         for layer in range(1, self.n_layers):
             s, b, n, d = streams.shape
             z = streams.permute(1, 2, 0, 3).reshape(b, n, s * d)
             t = cheb_t(z).reshape(self.K, b, n, s, d)
-            w = getattr(self, f"w_{layer}")
-            bias = getattr(self, f"b_{layer}")
+            w = p(getattr(self, f"w_{layer}"))
+            bias = p(getattr(self, f"b_{layer}"))
             streams = torch.einsum("kbnsd,skdo->sbno", t, w) + bias[:, None, None]
         return streams[:g] + streams[g:]
 

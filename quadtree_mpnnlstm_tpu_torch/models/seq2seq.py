@@ -26,6 +26,12 @@ Reference quirks kept from the JAX package:
     node_size]`` on the same mesh, and a teacher-forced step appends the
     *raw pixel count* as the size channel, not ``resolution**2``.
 
+``ModelConfig.compute_dtype="bfloat16"`` (ChebConv on quadtree meshes)
+casts the inputs to bf16 before the positional encoding, as the JAX
+package's compute boundary does; the graph build, node features and
+recurrence then run in bf16, LayerNorm normalises in f32, and ``decode``
+returns its frames in f32.
+
 Training mode (``model.train()``) turns on the decoder head's dropout and,
 with TransformerConv, the attention dropout of every encoder and decoder
 attention; ``decode`` takes a scheduled-sampling ratio. All of them draw
@@ -65,7 +71,10 @@ class LayerNorm(nn.Module):
     """LayerNorm with flax's statistics: variance as E[x²] − E[x]², clipped
     at 0 (flax's ``use_fast_variance``). Rows of near-constant hidden state
     (padding nodes, coarse cells) make the two variance formulas differ far
-    above f32 rounding once normalised, so the port uses the reference's."""
+    above f32 rounding once normalised, so the port uses the reference's.
+    As flax's ``LayerNorm(dtype=…)``, the statistics and the normalisation
+    run in float32 whatever the input's dtype, and the result is returned
+    in the input's dtype (bf16 in a bf16 model)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -74,9 +83,11 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=-1, keepdim=True)
-        var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
 
 
 def _transfer_state(hc, old_graph, new_graph, shape):
@@ -100,20 +111,33 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
     if cfg.convolution_type == "GCNConv":
         raise ValueError(
             "ModelConfig.convolution_type='GCNConv' (the default, as in the JAX package) is not "
             "ported yet (ROADMAP Queue 1 item 6); name the conv, e.g. ChebConv or "
             "TransformerConv")
     supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=("LSTM",),
-                     fused_gates=(True,), remesh_every=(1,), compute_dtype=("float32",))
+                     fused_gates=(True,), remesh_every=(1,),
+                     compute_dtype=("float32", "bfloat16"))
     for field, values in supported.items():
         if getattr(cfg, field) not in values:
             raise ValueError(
                 f"ModelConfig.{field}={getattr(cfg, field)!r} is not ported; "
                 f"this path runs {field} in {values!r}"
             )
+    if cfg.compute_dtype == "bfloat16":
+        # the bf16 paths of the attention kernels (K3/K4 on windows, the
+        # edge-list attention) and of the grid's (K5/K6) are still to port
+        if cfg.convolution_type != "ChebConv":
+            raise ValueError(
+                f"ModelConfig.compute_dtype='bfloat16' with {cfg.convolution_type} is not "
+                "ported (ROADMAP Queue 2 B: the bf16 paths of K3/K4); bf16 runs ChebConv")
+        if gcfg.pixelwise:
+            raise ValueError(
+                "ModelConfig.compute_dtype='bfloat16' on the pixelwise mesh (grid or edge "
+                "list) is not ported (ROADMAP Queue 2 B: the bf16 paths of K5/K6); bf16 runs "
+                "on quadtree meshes")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
 
@@ -124,7 +148,7 @@ def _make_cells(module: nn.Module, cfg: ModelConfig, in_channels: int,
     for i in range(cfg.n_layers):
         module.add_module(
             f"rnn_{i}", GConvLSTM(in_channels if i == 0 else hidden, hidden, n_conv_layers,
-                                  cfg.convolution_type)
+                                  cfg.convolution_type, dtype=cfg.cdtype)
         )
 
 
@@ -168,7 +192,9 @@ class Decoder(nn.Module):
         # 1 layer deep
         _make_cells(self, cfg, 4, 1)
         conv_cls = CONVOLUTIONS[cfg.convolution_type]
-        kwargs = CONVOLUTION_KWARGS[cfg.convolution_type]
+        kwargs = dict(CONVOLUTION_KWARGS[cfg.convolution_type])
+        if cfg.convolution_type == "ChebConv":
+            kwargs["dtype"] = cfg.cdtype
         self.fc_out1 = conv_cls(h + concat_channels, h, **kwargs)
         self.fc_out2 = conv_cls(h, 1, **kwargs)
         self.norm_o = LayerNorm(h)
@@ -205,7 +231,7 @@ class Seq2Seq(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gcfg: GraphConfig, use_climatology: bool = False):
         super().__init__()
-        _check_supported(cfg)
+        _check_supported(cfg, gcfg)
         self.cfg, self.gcfg = cfg, gcfg
         self.use_climatology = use_climatology
         self.remeshing = not gcfg.pixelwise
@@ -222,10 +248,12 @@ class Seq2Seq(nn.Module):
             raise ValueError(f"expected {cfg.input_timesteps} input frames, got {x.shape[1]}")
         b = x.shape[0]
         zeros = tuple(
-            torch.zeros((b, gcfg.n_max, cfg.hidden_size), device=x.device)
+            torch.zeros((b, gcfg.n_max, cfg.hidden_size), dtype=cfg.cdtype, device=x.device)
             for _ in range(cfg.n_layers)
         )
-        graph, data = image_to_graph(add_positional_encoding(x.float()), gcfg, mask=mask)
+        # the compute-dtype boundary: the graph build, the node features and
+        # the recurrence run in cfg.compute_dtype; decode() returns float32
+        graph, data = image_to_graph(add_positional_encoding(x.to(cfg.cdtype)), gcfg, mask=mask)
         hidden, cell = zeros, zeros
         for t in range(cfg.input_timesteps):
             hidden, cell = self.encoder(data[:, t], graph, hidden, cell, generator)
@@ -254,8 +282,8 @@ class Seq2Seq(nn.Module):
         (B, n_steps, rows, cols, 1) feeds the concat channel when the model
         uses it (zeros when None).
 
-        Returns (state, y_hat (B, n_steps, rows, cols, 1), pixel_nodes
-        (n_steps, B, P) — the mesh each step ran on)."""
+        Returns (state, y_hat (B, n_steps, rows, cols, 1) float32,
+        pixel_nodes (n_steps, B, P) — the mesh each step ran on)."""
         shape = self.gcfg.image_shape
         forcing = teacher_forcing_ratio > 0.0
         if forcing and (y is None or generator is None):
@@ -301,7 +329,8 @@ class Seq2Seq(nn.Module):
                 x_teach = torch.cat([teach, graph.counts[..., None].to(output.dtype)], dim=-1)
                 x_new = torch.where(coin[:, None, None], x_teach, x_new)
             state = Seq2SeqState(graph=graph, x=x_new, hidden=hidden, cell=cell)
-        return state, torch.stack(frames, dim=1), torch.stack(meshes)
+        # predictions leave the compute-dtype region in float32
+        return state, torch.stack(frames, dim=1).float(), torch.stack(meshes)
 
     def _remesh(self, state, y_hat_t, hidden, cell, coin, y_t, mask) -> Seq2SeqState:
         """The next state on the mesh of the prediction (or, where the coin

@@ -38,8 +38,10 @@ SIGNATURES = {
     "spmm.cu": {
         # src_rel, dst_rel, coeff, live, blocks, B, T, EB, NT, SW, stream
         "qtm_spmm_build_blocks": [_P] * 5 + [_C] * 5 + [_P],
+        "qtm_spmm_build_blocks_bf16": [_P] * 5 + [_C] * 5 + [_P],
         # z, blocks, s0, live, out, B, T, NT, SW, n_max, F, features a lane, stream
         "qtm_spmm_apply": [_P] * 5 + [_C] * 7 + [_P],
+        "qtm_spmm_apply_bf16": [_P] * 5 + [_C] * 7 + [_P],
     },
     "attn.cu": {
         # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,
@@ -62,6 +64,7 @@ SIGNATURES = {
     "segment.cu": {
         # values, order (or null), offsets, out, B, n_out, F, stream
         "qtm_segment_sum": [_P] * 4 + [_C] * 3 + [_P],
+        "qtm_segment_sum_bf16": [_P] * 4 + [_C] * 3 + [_P],
     },
 }
 

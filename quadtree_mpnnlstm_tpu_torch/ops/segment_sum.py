@@ -9,7 +9,9 @@ Counterpart of ``quadtree_mpnnlstm_tpu/ops/pallas_segment.py``. For values
 Ids outside ``[0, n_out)`` (the sentinel ``n_out`` among them) are dropped.
 Both versions sum each bucket's entries in ascending entry order, starting
 from 0, as the accumulating ``index_put_`` does on the card, so there the
-kernel and its plain version agree bit for bit.
+kernel and its plain version agree bit for bit. bf16 values are summed in
+f32 and each output rounded once, by the kernel and by the plain version
+(the JAX package's Pallas kernel rounds at every 512-entry tile).
 
 The kernel reads the ids through a CSR view (:func:`segment_view`): a
 stable order of the entries by bucket and each bucket's entry range. It is
@@ -20,7 +22,8 @@ sorted by construction, so its view needs only the offsets.
 
 Dispatch is by device: a CUDA tensor launches the kernel, and raises if it
 cannot be built or launched; a CPU tensor runs the plain version. Each
-kernel launch adds one to :data:`LAUNCHES`. :class:`SegmentSum` is
+kernel launch adds one to :data:`LAUNCHES` (a bf16 launch to
+:data:`LAUNCHES_BF16`). :class:`SegmentSum` is
 differentiable in the values on both devices; its backward is the row
 gather ``d_values[b, e] = g[b, ids[b, e]]`` (0 for a dropped id), which is
 no Pallas kernel in the JAX package either.
@@ -34,13 +37,16 @@ import torch
 
 from quadtree_mpnnlstm_tpu_torch.ops import spmm
 
-# kernel launches since the last reset_launch_counts()
+# kernel launches since the last reset_launch_counts(): the f32 kernel's
+# and the bf16 kernel's
 LAUNCHES = {"segment_sum": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
 
 
 class SegmentView(NamedTuple):
@@ -82,7 +88,9 @@ def segment_sum_plain(values: torch.Tensor, ids: torch.Tensor, n_out: int) -> to
     of their own past ``n_out`` that is sliced off. One row per dropped
     entry, not one shared discard row, because the accumulating
     ``index_put_`` below sums each row's entries serially, and padded edge
-    lists are mostly sentinels. On CUDA ``index_put_(accumulate=True)``
+    lists are mostly sentinels. bf16 values are summed in f32 (an
+    accumulating ``index_put_`` on bf16 would round at every add) and the
+    result rounded once to their dtype. On CUDA ``index_put_(accumulate=True)``
     sorts the ids stably and sums each bucket in ascending entry order (a
     warp reduction only at F = 1 with 32 or more entries in a bucket);
     ``index_add_`` uses float atomics there, whose order changes from run
@@ -96,9 +104,11 @@ def segment_sum_plain(values: torch.Tensor, ids: torch.Tensor, n_out: int) -> to
     scratch = n_out + torch.arange(length, device=ids.device, dtype=ids.dtype)
     slot = torch.where((ids >= 0) & (ids < n_out), ids, scratch)
     slot = slot + torch.arange(b, device=ids.device, dtype=ids.dtype)[:, None] * width
-    out = values.new_zeros((b * width,) + rest)
-    out.index_put_((slot.reshape(-1),), values.reshape((b * length,) + rest), accumulate=True)
-    return out.view((b, width) + rest)[:, :n_out]
+    acc = torch.float32 if values.dtype == torch.bfloat16 else values.dtype
+    out = values.new_zeros((b * width,) + rest, dtype=acc)
+    out.index_put_((slot.reshape(-1),), values.reshape((b * length,) + rest).to(acc),
+                   accumulate=True)
+    return out.view((b, width) + rest)[:, :n_out].to(values.dtype)
 
 
 def gather_rows_plain(g: torch.Tensor, ids: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -115,12 +125,15 @@ def gather_rows_plain(g: torch.Tensor, ids: torch.Tensor, n_out: int) -> torch.T
 
 def _segment_sum_cuda(values: torch.Tensor, ids: torch.Tensor, n_out: int,
                       view: SegmentView) -> torch.Tensor:
-    """Launch K7 (``qtm_segment_sum``) on values (B, L, F); the kernel
-    reads the ids (B, L) through their CSR ``view`` alone."""
+    """Launch K7 (``qtm_segment_sum``, or ``_bf16`` for bf16 values) on
+    values (B, L, F); the kernel reads the ids (B, L) through their CSR
+    ``view`` alone. The output takes the values' dtype."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     b, length, f = values.shape
-    spmm._check(values, "values", torch.float32, (b, length, f))
+    if values.dtype not in spmm.KERNEL_DTYPES:
+        raise TypeError(f"segment_sum takes float32 or bfloat16 values, not {values.dtype}")
+    spmm._check(values, "values", values.dtype, (b, length, f))
     if tuple(ids.shape) != (b, length):
         raise ValueError(f"ids must be {(b, length)}, got {tuple(ids.shape)}")
     spmm._check(view.offsets, "offsets", torch.int32, (b, n_out + 1))
@@ -128,13 +141,14 @@ def _segment_sum_cuda(values: torch.Tensor, ids: torch.Tensor, n_out: int,
         spmm._check(view.order, "order", torch.int32, (b * length,))
     if b * length >= 2**31:
         raise ValueError(f"segment_sum takes fewer than 2**31 entries, got {b * length}")
-    out = torch.empty((b, n_out, f), dtype=torch.float32, device=values.device)
+    out = torch.empty((b, n_out, f), dtype=values.dtype, device=values.device)
     order = None if view.order is None else view.order.data_ptr()
-    err = load_library("segment.cu").qtm_segment_sum(
+    entry = "qtm_segment_sum" + spmm.KERNEL_DTYPES[values.dtype]
+    err = getattr(load_library("segment.cu"), entry)(
         spmm._ptr(values), order, spmm._ptr(view.offsets), spmm._ptr(out), b, n_out, f,
         spmm._stream())
     spmm._raise_on(err, "segment_sum")
-    LAUNCHES["segment_sum"] += 1
+    (LAUNCHES_BF16 if values.dtype == torch.bfloat16 else LAUNCHES)["segment_sum"] += 1
     return out
 
 

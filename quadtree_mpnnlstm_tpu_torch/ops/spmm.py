@@ -19,7 +19,12 @@ or a source span wider than SW) is counted into the graph's ``overflow``.
 
 Dispatch is by device: a CUDA tensor launches the kernel (and raises if it
 cannot be built or launched); a CPU tensor runs the plain version. Each
-kernel launch adds one to :data:`LAUNCHES`.
+kernel launch adds one to :data:`LAUNCHES` (a bf16 launch to
+:data:`LAUNCHES_BF16`). Both kernels have a float32 and a bfloat16 path,
+as the JAX package's take the compute dtype: K1 stores the blocks in
+``block_dtype`` (each entry its f32 coefficient sum, rounded once), and K2
+multiplies bf16 z by bf16 blocks with an f32 accumulator and returns z's
+dtype. The plain versions compute in f32 and round once.
 
 ``spmm_apply`` is differentiable in z through :class:`SpmmApply`, whose
 backward (K2b) launches the same kernel on the cotangent: Â is symmetric
@@ -36,13 +41,20 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-# kernel launches since the last reset_launch_counts(), by wrapper name
+# kernel launches since the last reset_launch_counts(), by wrapper name:
+# the f32 kernels' and the bf16 kernels'
 LAUNCHES = {"spmm_build_blocks": 0, "spmm_apply": 0, "spmm_apply_bwd": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    (LAUNCHES_BF16 if dtype == torch.bfloat16 else LAUNCHES)[name] += 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -75,7 +87,7 @@ class SpmmBlocks(NamedTuple):
     """
 
     s0: torch.Tensor      # (B, T) int32
-    blocks: torch.Tensor  # (B, T, NT, SW) f32
+    blocks: torch.Tensor  # (B, T, NT, SW) f32 or bf16 (the compute dtype)
     live: torch.Tensor    # (B,) int32 live-tile count
 
 
@@ -165,10 +177,12 @@ def live_tiles(n_nodes: torch.Tensor, n_tiles: int, nt: int) -> torch.Tensor:
 # ------------------------------------------------------- plain versions
 
 
-def build_blocks_plain(src_rel, dst_rel, coeff, live, nt: int, sw: int) -> torch.Tensor:
+def build_blocks_plain(src_rel, dst_rel, coeff, live, nt: int, sw: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K1's function in plain PyTorch: zeros, then ``index_put_`` with
     accumulation of every slot whose source and destination fall inside
-    the window, on live tiles only."""
+    the window, on live tiles only, in f32; the blocks are returned in
+    ``dtype`` (one rounding)."""
     b, t, eb = src_rel.shape
     blocks = torch.zeros((b, t, nt, sw), dtype=torch.float32, device=src_rel.device)
     tile = torch.arange(t, device=src_rel.device)[None, :, None]
@@ -182,15 +196,20 @@ def build_blocks_plain(src_rel, dst_rel, coeff, live, nt: int, sw: int) -> torch
         coeff[bi, ti, ei],
         accumulate=True,
     )
-    return blocks
+    return blocks.to(dtype)
 
 
 def apply_plain(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tensor:
     """K2's function in plain PyTorch: gather each tile's source window of
     ``z`` (rows at or past ``n_max`` read as zero), one batched product,
-    dead tiles zeroed."""
+    dead tiles zeroed. The blocks are cast to z's dtype, as the JAX
+    package casts them; the product runs in f32 and the result is
+    returned in z's dtype (bf16: one rounding)."""
     b, t = s0.shape
     f = z.shape[-1]
+    dtype = z.dtype
+    blocks = blocks.to(dtype).float()
+    z = z.float()
     rows = s0.long()[..., None] + torch.arange(sw, device=z.device)  # (B, T, SW)
     inside = rows < n_max
     rows = rows.clamp_max(n_max - 1).reshape(b, t * sw, 1).expand(b, t * sw, f)
@@ -198,10 +217,15 @@ def apply_plain(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tens
     out = torch.bmm(blocks.reshape(b * t, nt, sw), zwin.reshape(b * t, sw, f))
     alive = torch.arange(t, device=z.device)[None, :] < live[:, None]
     out = out.reshape(b, t, nt, f) * alive[..., None, None]
-    return out.reshape(b, t * nt, f)[:, :n_max]
+    return out.reshape(b, t * nt, f)[:, :n_max].to(dtype)
 
 
 # ------------------------------------------------------- CUDA kernels
+
+
+# the storage types that the bf16-capable kernels (K1, K2, K7) take, with
+# the suffix of their C entry points
+KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 
 
 def _check(x: torch.Tensor, name: str, dtype, shape) -> None:
@@ -228,25 +252,29 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _build_blocks_cuda(src_rel, dst_rel, coeff, live, nt: int, sw: int) -> torch.Tensor:
-    """Launch K1 (``qtm_spmm_build_blocks``): one CTA per (sample, tile)."""
+def _build_blocks_cuda(src_rel, dst_rel, coeff, live, nt: int, sw: int,
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch K1 (``qtm_spmm_build_blocks``, or ``_bf16`` for bf16 blocks):
+    one CTA per (sample, tile)."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"spmm_build_blocks stores float32 or bfloat16 blocks, not {dtype}")
     lib = load_library()
     b, t, eb = src_rel.shape
     for x, name, dt in ((src_rel, "src_rel", torch.int32), (dst_rel, "dst_rel", torch.int32),
                         (coeff, "coeff", torch.float32)):
         _check(x, name, dt, (b, t, eb))
     _check(live, "live", torch.int32, (b,))
-    blocks = torch.empty((b, t, nt, sw), dtype=torch.float32, device=src_rel.device)
+    blocks = torch.empty((b, t, nt, sw), dtype=dtype, device=src_rel.device)
     if b * t == 0:
         return blocks
-    err = lib.qtm_spmm_build_blocks(
+    err = getattr(lib, "qtm_spmm_build_blocks" + KERNEL_DTYPES[dtype])(
         _ptr(src_rel), _ptr(dst_rel), _ptr(coeff), _ptr(live), _ptr(blocks),
         b, t, eb, nt, sw, _stream(),
     )
     _raise_on(err, "spmm_build_blocks")
-    LAUNCHES["spmm_build_blocks"] += 1
+    _count("spmm_build_blocks", dtype)
     return blocks
 
 
@@ -266,39 +294,45 @@ class ApplyPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def apply_plan(nt: int, sw: int, f: int) -> ApplyPlan:
-    """K2's plan: every Â row is one warp's, which adds its non-zeros
-    column chunk by column chunk in ascending order; a lane keeps ``fpl``
-    features (the fewest of 1, 2, 4, 8 that cover F, at most 8), so the
-    row is read once for F ≤ 256."""
+def apply_plan(nt: int, sw: int, f: int, itemsize: int = 4) -> ApplyPlan:
+    """K2's plan for ``itemsize``-byte elements (4: f32, 2: bf16): every Â
+    row is one warp's, which reads it 16 bytes a lane (4 f32 or 8 bf16
+    columns, a chunk of 128 or 256 columns a warp) and adds its non-zeros
+    chunk by chunk in ascending column order; a lane keeps ``fpl``
+    features (the fewest of 1, 2, 4, 8 that cover F, at most 8), so the row
+    is read once for F ≤ 256. In bf16 a lane that keeps two or more loads
+    them in pairs (4 bytes)."""
     fpl = next((x for x in (1, 2, 4) if f <= 32 * x), 8)
-    width = 32 * fpl
+    width, chunk = 32 * fpl, APPLY_CHUNK * (4 // itemsize)
     return ApplyPlan(APPLY_WARPS, -(-nt // APPLY_WARPS),
-                     tuple((c, min(c + APPLY_CHUNK, sw)) for c in range(0, sw, APPLY_CHUNK)),
+                     tuple((c, min(c + chunk, sw)) for c in range(0, sw, chunk)),
                      fpl, tuple((x, min(x + width, f)) for x in range(0, f, width)))
 
 
 def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: str):
-    """Launch ``qtm_spmm_apply`` (one warp per Â row of every tile of every
-    sample, :func:`apply_plan`) and count it under ``counter``."""
+    """Launch ``qtm_spmm_apply`` (``_bf16`` for bf16 z; one warp per Â row
+    of every tile of every sample, :func:`apply_plan`) and count it under
+    ``counter``. The blocks must be in z's dtype."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
+    if z.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"spmm_apply takes float32 or bfloat16 z, not {z.dtype}")
     lib = load_library()
     b, t = s0.shape
     f = z.shape[-1]
-    _check(z, "z", torch.float32, (b, n_max, f))
+    _check(z, "z", z.dtype, (b, n_max, f))
     _check(s0, "s0", torch.int32, (b, t))
-    _check(blocks, "blocks", torch.float32, (b, t, nt, sw))
+    _check(blocks, "blocks", z.dtype, (b, t, nt, sw))
     _check(live, "live", torch.int32, (b,))
-    out = torch.empty((b, n_max, f), dtype=torch.float32, device=z.device)
+    out = torch.empty((b, n_max, f), dtype=z.dtype, device=z.device)
     if b * t * f == 0:
         return out
-    err = lib.qtm_spmm_apply(
+    err = getattr(lib, "qtm_spmm_apply" + KERNEL_DTYPES[z.dtype])(
         _ptr(z), _ptr(blocks), _ptr(s0), _ptr(live), _ptr(out),
-        b, t, nt, sw, n_max, f, apply_plan(nt, sw, f).fpl, _stream(),
+        b, t, nt, sw, n_max, f, apply_plan(nt, sw, f, z.element_size()).fpl, _stream(),
     )
     _raise_on(err, counter)
-    LAUNCHES[counter] += 1
+    _count(counter, z.dtype)
     return out
 
 
@@ -316,20 +350,23 @@ def _apply_bwd_cuda(g, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.
 
 
 def spmm_build_blocks(
-    windows: SpmmWindows, nt: int, sw: int, n_nodes: torch.Tensor
+    windows: SpmmWindows, nt: int, sw: int, n_nodes: torch.Tensor,
+    block_dtype: torch.dtype = torch.float32,
 ) -> SpmmBlocks:
     """K1: densify each tile's edge window into an (NT, SW) Â block.
 
     Replaces ``spmm_build_blocks``/``_build_kernel`` of
     ``quadtree_mpnnlstm_tpu/ops/pallas_spmm.py``. ``n_nodes`` (B,) bounds
-    the live-tile count. Entries are exact coefficient sums. Â is not
-    differentiable: windows and node counts are detached on both paths, as
-    the JAX package stop-gradients them.
+    the live-tile count. Entries are exact coefficient sums in f32, stored
+    in ``block_dtype`` (the compute dtype, as the JAX package's
+    ``block_dtype=data.dtype``). Â is not differentiable: windows and node
+    counts are detached on both paths, as the JAX package stop-gradients
+    them.
     """
     windows = SpmmWindows(*(w.detach() for w in windows))
     t = windows.src_rel.shape[1]
     live = live_tiles(n_nodes.detach(), t, nt)
-    args = (windows.src_rel, windows.dst_rel, windows.coeff, live, nt, sw)
+    args = (windows.src_rel, windows.dst_rel, windows.coeff, live, nt, sw, block_dtype)
     if windows.src_rel.is_cuda:
         blocks = _build_blocks_cuda(*args)
     else:
@@ -364,6 +401,7 @@ def spmm_apply(z: torch.Tensor, meta: SpmmBlocks, n_max: int, nt: int, sw: int) 
 
     Replaces ``spmm_apply`` (``_spmm_impl``/``_apply_kernel`` forward,
     ``_spmm_bwd`` backward) of ``quadtree_mpnnlstm_tpu/ops/pallas_spmm.py``.
-    z: (B, n_max, F) f32; differentiable in z.
+    z: (B, n_max, F) f32 or bf16, returned in z's dtype; differentiable in
+    z.
     """
     return SpmmApply.apply(z, meta.s0, meta.blocks, meta.live, n_max, nt, sw)

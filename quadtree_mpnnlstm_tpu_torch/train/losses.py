@@ -3,7 +3,9 @@
 Counterpart of ``quadtree_mpnnlstm_tpu/train/losses.py``. The JAX package
 evaluates a loss per sample under ``vmap``; here each loss reduces over
 the trailing (T, rows, cols, 1) axes, so a batch (B, T, rows, cols, 1)
-gives one loss per sample and a single sample a scalar.
+gives one loss per sample and a single sample a scalar. Losses run in
+float32 whatever the model's compute dtype: its predictions leave it in
+float32.
 """
 
 from __future__ import annotations

@@ -9,12 +9,13 @@ its own mesh. The batch loss is the mean over samples of each sample's
 loss, as the vmapped JAX loss is.
 
 Runs on ``device="cuda"`` unless the caller passes ``device="cpu"``; on
-the card the Â-block kernels (ops/spmm.py, ChebConv on quadtree meshes),
-the attention-window kernels (ops/attn.py, TransformerConv on quadtree
-meshes) or the stencil attention kernels (ops/grid_attn.py, TransformerConv
-on the pixelwise grid) carry every aggregation and its backward; on an
-edge list (``aggregation="xla"``, the pixelwise edge-list mesh among them)
-the segment-sum kernel (ops/segment_sum.py) carries the segment sums, as
+the card the Â-block kernels (ops/spmm.py, ChebConv on quadtree meshes;
+also in bf16 with ``compute_dtype="bfloat16"``, which defaults to
+``train_config.dtype``), the attention-window kernels (ops/attn.py,
+TransformerConv on quadtree meshes) or the stencil attention kernels
+(ops/grid_attn.py, TransformerConv on the pixelwise grid) carry every
+aggregation and its backward; on an edge list (``aggregation="xla"``, the
+pixelwise edge-list mesh among them) the segment-sum kernel (ops/segment_sum.py) carries the segment sums, as
 it carries the pixel→node pooling, the node counts and the gathers'
 backwards on every mesh that is not the grid. With
 ``use_climatology`` the decoder reads the day-of-year climatology of each
@@ -108,7 +109,8 @@ class NextFramePredictorS2S:
             binary=binary,
             remesh_every=mk.pop("remesh_every", 1),
             fused_gates=mk.pop("fused_gates", True),
-            compute_dtype=mk.pop("compute_dtype", "float32"),
+            compute_dtype=mk.pop(
+                "compute_dtype", train_config.dtype if train_config is not None else "float32"),
         )
         if mk:
             raise TypeError(f"unknown model_kwargs: {sorted(mk)}")

@@ -752,3 +752,200 @@ def test_segment_sum_wrapper_rejects_bad_inputs(card):
         segment_sum._segment_sum_cuda(values, ids, n_out + 1, view)
     with pytest.raises(ValueError):  # ids of another length
         segment_sum._segment_sum_cuda(values, ids[:, 1:], n_out, view)
+
+
+# ---------------------------------------------------------------- bf16
+
+BF16_TOL = 2.0**-7  # one bf16 rounding, × max(1, max|plain|)
+
+
+def _bf16_close(kern, plain, what):
+    assert kern.dtype == plain.dtype == torch.bfloat16, (what, kern.dtype, plain.dtype)
+    err = float((kern.float() - plain.float()).abs().max())
+    assert err <= BF16_TOL * max(1.0, float(plain.float().abs().max())), (what, err)
+
+
+def _misaligned(x):
+    """A contiguous copy of x that starts one element into its storage, so
+    that no row is 4- or 16-byte aligned: the kernels' scalar paths."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_build_blocks_bf16_kernel_is_exact(card, ragged):
+    """K1 in bf16: each entry the f32 coefficient sum rounded once, bit for
+    bit the plain version's, on the main path's windows and on ragged
+    ones (NT·SW not a multiple of 8, dead tiles)."""
+    if ragged:
+        nt, sw, n_max = 64, 71, 200
+        w, _ = spmm.spmm_tile_meta(*_edges(card, n_max), n_max, nt, 256, sw)
+        live = torch.tensor([1, 2, 4], dtype=torch.int32, device=card)
+    else:
+        (w, live, _), nt, sw = _windows(card), NT, SW
+    args = (w.src_rel, w.dst_rel, w.coeff, live, nt, sw, torch.bfloat16)
+    spmm.reset_launch_counts()
+    blocks = spmm._build_blocks_cuda(*args)
+    assert spmm.LAUNCHES_BF16["spmm_build_blocks"] == 1 and spmm.LAUNCHES["spmm_build_blocks"] == 0
+    plain = spmm.build_blocks_plain(*args)
+    assert blocks.dtype == torch.bfloat16 and torch.equal(blocks, plain)
+    assert torch.equal(plain, spmm.build_blocks_plain(*args[:6]).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("f", [1, 16, 17, 20, 32, 33, 128, 129])
+def test_apply_bf16_kernel_matches_plain(card, f):
+    """K2 and K2b in bf16 (bf16 z and blocks, f32 accumulator, bf16 out)
+    against ``apply_plain`` within one bf16 rounding, at the main path's
+    widths and ragged ones; with z and out misaligned the kernel takes its
+    scalar z loads and gives the same result."""
+    w, live, n_max = _windows(card)
+    blocks = spmm.build_blocks_plain(w.src_rel, w.dst_rel, w.coeff, live, NT, SW, torch.bfloat16)
+    gen = torch.Generator(card).manual_seed(f)
+    z = torch.randn(w.s0.shape[0], n_max, f, device=card, generator=gen).to(torch.bfloat16)
+    args = (z, w.s0, blocks, live, n_max, NT, SW)
+    spmm.reset_launch_counts()
+    out = spmm._apply_cuda(*args)
+    _bf16_close(out, spmm.apply_plain(*args), f"K2 F={f}")
+    _bf16_close(spmm._apply_bwd_cuda(*args), spmm.apply_plain(*args), f"K2b F={f}")
+    assert spmm.LAUNCHES_BF16["spmm_apply"] == spmm.LAUNCHES_BF16["spmm_apply_bwd"] == 1
+    assert spmm.LAUNCHES["spmm_apply"] == 0
+    assert torch.equal(spmm._apply_cuda(_misaligned(z), *args[1:]), out)
+    assert torch.equal(spmm._apply_cuda(*args), out)  # a repeat is bit-identical
+
+
+@pytest.mark.parametrize("f", [5, 17, 128])
+def test_apply_bf16_kernel_dead_tiles_and_ragged_shapes(card, f):
+    """n_max not a multiple of NT, SW (71) not a multiple of 8 (the block
+    rows lose their 16-byte alignment), windows past n_max, dead tiles."""
+    nt, sw, n_max = 64, 71, 200
+    w, _ = spmm.spmm_tile_meta(*_edges(card, n_max), n_max, nt, 256, sw)
+    live = torch.tensor([1, 2, 4], dtype=torch.int32, device=card)
+    blocks = spmm._build_blocks_cuda(w.src_rel, w.dst_rel, w.coeff, live, nt, sw, torch.bfloat16)
+    z = torch.randn(3, n_max, f, device=card, generator=torch.Generator(card).manual_seed(f))
+    args = (z.to(torch.bfloat16), w.s0, blocks, live, n_max, nt, sw)
+    _bf16_close(spmm._apply_cuda(*args), spmm.apply_plain(*args), f"K2 F={f}")
+
+
+def test_apply_bf16_backward_through_autograd(card):
+    """A bf16 Â·z on the card carries the K2b node; its gradient is bf16 and
+    within one rounding of autograd's transpose through ``apply_plain``."""
+    meta, n_max, nt, sw = _k2b_case(card, False)
+    meta = meta._replace(blocks=meta.blocks.to(torch.bfloat16))
+    gen = torch.Generator(card).manual_seed(0)
+    b = meta.s0.shape[0]
+    z = torch.randn(b, n_max, 20, device=card, generator=gen).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(b, n_max, 20, device=card, generator=gen).to(torch.bfloat16)
+    out = spmm.spmm_apply(z, meta, n_max, nt, sw)
+    assert type(out.grad_fn).__name__ == "SpmmApplyBackward" and out.dtype == torch.bfloat16
+    (dz,) = torch.autograd.grad(out, z, g)
+    plain = spmm.apply_plain(z, meta.s0, meta.blocks, meta.live, n_max, nt, sw)
+    (dz_t,) = torch.autograd.grad(plain, z, g)
+    _bf16_close(dz, dz_t, "K2b through autograd")
+
+
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("f", [1, 3, 8, 12, 16, 17, 32, 64, 256, 300])
+def test_segment_sum_bf16_kernel_matches_plain(card, f, sorted_ids):
+    """K7 on bf16 values (f32 sums in entry order, rounded once) against
+    ``segment_sum_plain``: within one bf16 rounding, and bit for bit (the
+    plain version sums the f32 values in the same order); F a multiple of 8
+    takes 16-byte loads, misaligned values the scalar path, alike."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    values, ids, n_out = _segment_case(card, f, sorted_ids)
+    values = values.to(torch.bfloat16)
+    view = segment_sum.segment_view(ids, n_out, sorted_ids=sorted_ids)
+    segment_sum.reset_launch_counts()
+    out = segment_sum._segment_sum_cuda(values, ids, n_out, view)
+    assert segment_sum.LAUNCHES_BF16["segment_sum"] == 1 and segment_sum.LAUNCHES["segment_sum"] == 0
+    plain = segment_sum.segment_sum_plain(values, ids, n_out)
+    _bf16_close(out, plain, f"K7 F={f}")
+    assert torch.equal(out, plain)
+    assert torch.equal(segment_sum._segment_sum_cuda(_misaligned(values), ids, n_out, view), out)
+
+
+def test_bf16_wrappers_reject_mixed_or_other_types(card):
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    w, live, n_max = _windows(card)
+    blocks = spmm.build_blocks_plain(w.src_rel, w.dst_rel, w.coeff, live, NT, SW)  # f32
+    z = torch.zeros(3, n_max, 4, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # bf16 z with f32 blocks: no quiet cast
+        spmm._apply_cuda(z, w.s0, blocks, live, n_max, NT, SW)
+    with pytest.raises(TypeError):
+        spmm._apply_cuda(z.half(), w.s0, blocks.half(), live, n_max, NT, SW)
+    with pytest.raises(TypeError):
+        spmm._build_blocks_cuda(w.src_rel, w.dst_rel, w.coeff, live, NT, SW, torch.float16)
+    values, ids, n_out = _segment_case(card, 4, sorted_ids=True)
+    with pytest.raises(TypeError):
+        segment_sum._segment_sum_cuda(values.half(), ids, n_out,
+                                      segment_sum.segment_view(ids, n_out, sorted_ids=True))
+
+
+def test_bf16_kernels_on_near_capacity_windows(card):
+    """K1, K2 and K2b in bf16 on the near-capacity windows of
+    ``test_kernels_on_near_capacity_windows`` (true Moving-MNIST frames at
+    thresh 0.1), built from bf16 frames as the bf16 model builds them; K7
+    on the same meshes' bf16 pooling."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    frames = _sprite_frames(card).to(torch.bfloat16)
+    cfg = GraphConfig(image_shape=(64, 64), max_grid_size=8, thresh=0.1, n_max=2048,
+                      e_max=10240, node_budget=2048, aggregation="pallas", agg_nt=NT,
+                      agg_eb=EB, agg_sw=SW, use_edge_attrs=False)
+    gen = torch.Generator(card).manual_seed(0)
+    fullest = 0
+    for t in (0, 5, 9):
+        img = add_positional_encoding(frames[:, t:t + 1])
+        graph, data = image_to_graph(img, cfg)
+        assert int(graph.overflow.max()) == 0 and data.dtype == torch.bfloat16
+        blocks = graph.agg_meta
+        assert blocks.blocks.dtype == torch.bfloat16
+        w, _ = spmm.spmm_tile_meta(graph.edge_src, graph.edge_dst, graph.sym_coeff, 2048,
+                                   NT, EB, SW)
+        bargs = (w.src_rel, w.dst_rel, w.coeff, blocks.live, NT, SW, torch.bfloat16)
+        assert torch.equal(spmm._build_blocks_cuda(*bargs), spmm.build_blocks_plain(*bargs))
+        fullest = max(fullest, int((w.dst_rel >= 0).sum(-1).max()))
+        for f in (16, 32, 128):
+            z = torch.randn(16, 2048, f, device=card, generator=gen).to(torch.bfloat16)
+            args = (z, blocks.s0, blocks.blocks, blocks.live, 2048, NT, SW)
+            _bf16_close(spmm._apply_cuda(*args), spmm.apply_plain(*args), (t, "K2", f))
+            _bf16_close(spmm._apply_bwd_cuda(*args), spmm.apply_plain(*args), (t, "K2b", f))
+        flat = img.reshape(16, 1, 64 * 64, 3).permute(0, 2, 1, 3).reshape(16, 64 * 64, 3)
+        pooled = segment_sum._segment_sum_cuda(flat.contiguous(), graph.pixel_node, 2048,
+                                               graph.pixel_view)
+        assert torch.equal(pooled, segment_sum.segment_sum_plain(flat, graph.pixel_node, 2048))
+    assert fullest > EB // 2
+
+
+def test_bf16_model_on_the_card_goes_through_the_bf16_kernels(card):
+    """A bf16 forecast and train step on the card launch the bf16 K1, K2,
+    K2b and K7 (no f32 launch but K7's node counts), return float32 frames
+    and keep float32 masters and gradients."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+    from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
+
+    model = NextFramePredictorS2S(
+        (32, 32), 0.1, input_timesteps=3, output_timesteps=3, device="cuda", seed=0,
+        model_kwargs=dict(hidden_size=8, n_layers=2, n_conv_layers=2,
+                          convolution_type="ChebConv", compute_dtype="bfloat16"),
+        graph_kwargs=dict(max_grid_size=8, n_max=1024, e_max=8192, node_budget=1024,
+                          aggregation="pallas", agg_nt=128, agg_eb=512, agg_sw=512))
+    rng = np.random.default_rng(0)
+    x = rng.random((2, 3, 32, 32, 1)).astype(np.float32)
+    y = rng.random((2, 3, 32, 32, 1)).astype(np.float32)
+    spmm.reset_launch_counts()
+    segment_sum.reset_launch_counts()
+    y_hat, overflow, _ = model.forecast(x)
+    assert y_hat.dtype == torch.float32 and torch.isfinite(y_hat).all() and int(overflow.max()) == 0
+    assert spmm.LAUNCHES_BF16["spmm_build_blocks"] == 4 and spmm.LAUNCHES_BF16["spmm_apply"] > 0
+    assert segment_sum.LAUNCHES_BF16["segment_sum"] > 0
+    assert spmm.LAUNCHES["spmm_apply"] == spmm.LAUNCHES["spmm_build_blocks"] == 0
+    assert segment_sum.LAUNCHES["segment_sum"] == 4  # the node counts of 4 meshes
+    model.initiate_training(lr=0.01, lr_decay=0.95)
+    loss, _ = model.train_step(x, y)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert spmm.LAUNCHES_BF16["spmm_apply_bwd"] > 0
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.model.parameters())
