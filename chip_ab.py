@@ -4,12 +4,12 @@ the remeshing quadtree paths, a forecast batch (``predict``) and a train
 step (``train_step``) of ``bench.py``'s 64×64 Moving-MNIST model
 (``chip_smoke.py`` phases 2, 5, 9 and 11: batch 16, T_in 4 → T_out 10,
 thresh 0.1, random weights from ``--seed``), with ChebConv and with
-TransformerConv (``--conv``: only one of them), in f32 or, with ``--dtype
-bfloat16``, the ChebConv model in bf16 (``bench.py``'s default dtype);
-with ``--workload ice``
+TransformerConv (``--conv``: only one of them); with ``--workload ice``
 the sea-ice flagship on the pixelwise grid (phases 13 and 16: one
 224×304 forecast of 10 → 90 days through ``predict``, and one full-BPTT
-train step, batch 1, with climatology).
+train step, batch 1, with climatology). Each in f32 or, with ``--dtype
+bfloat16``, in bf16 (``bench.py``'s default dtype; phases 26, 28, 31, 33,
+35 and 37).
 
     python3 chip_ab.py [--workload quadtree|ice] [--conv ChebConv|TransformerConv]
                        [--dtype float32|bfloat16] [--tree DIR] [--reps 5] [--seed 0]
@@ -56,13 +56,11 @@ def main() -> int:
     parser.add_argument("--conv", choices=("ChebConv", "TransformerConv"),
                         help="time only this model of the quadtree paths (default: both)")
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                        help="compute dtype of the quadtree models (bf16: ChebConv only)")
+                        help="compute dtype of the models")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
-    if args.dtype != "float32" and (args.workload != "quadtree" or args.conv != "ChebConv"):
-        parser.error("--dtype bfloat16 runs the quadtree ChebConv model only (--conv ChebConv)")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
@@ -131,12 +129,12 @@ def _time_ice(cs, args, run_dir: str, result: dict) -> None:
 
     data, clim, mask = cs.ice_data(args.seed)
     window = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
-    model = cs.make_ice_model(args.seed, run_dir)
+    model = cs.make_ice_model(args.seed, run_dir, dtype=args.dtype)
     _record(result, "ice_forecast_s",
             _timed(lambda: model.predict(window, climatology=clim, mask=mask), args.reps))
     del model
     torch.cuda.empty_cache()
-    trainer = cs.make_ice_model(args.seed, run_dir)
+    trainer = cs.make_ice_model(args.seed, run_dir, dtype=args.dtype)
     trainer.initiate_training(lr=cs.LR, lr_decay=0.95)
     x, y, c = data.x[:1], data.y[:1], trainer._clim_batch(clim, data.launch_dates[:1])
     _record(result, "ice_step_s",

@@ -2,16 +2,16 @@
 """Where the port's time goes on one CUDA card.
 
     python3 chip_profile.py [--seed 0] [--reps 5] [--train] [--conv TransformerConv]
-    python3 chip_profile.py --dtype bfloat16 [--train]
-    python3 chip_profile.py --workload ice [--train]
+    python3 chip_profile.py --dtype bfloat16 [--train] [--conv TransformerConv]
+    python3 chip_profile.py --workload ice [--train] [--dtype bfloat16]
     python3 chip_profile.py --workload ice-xla [--train]
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
-TransformerConv`` the attention model; ``--dtype bfloat16`` runs the
-ChebConv model in bf16, ``bench.py``'s default), or with ``--workload ice`` its
+TransformerConv`` the attention model), or with ``--workload ice`` its
 sea-ice flagship (one 224×304 pixelwise forecast of 10 → 90 days,
-TransformerConv with climatology, batch 1) or with ``--workload ice-xla``
+TransformerConv with climatology, batch 1); ``--dtype bfloat16`` runs
+either in bf16, ``bench.py``'s default; or with ``--workload ice-xla``
 the same model on the pixelwise edge list (training with truncated BPTT
 of 30 steps), under ``torch.profiler`` after
 a warm-up: the forecast by default, and with ``--train`` the training step
@@ -83,7 +83,8 @@ def _workload(args, run_dir: str):
         edge_list = args.workload == "ice-xla"
         data, clim, mask = chip_smoke.ice_data(args.seed)
         model = chip_smoke.make_ice_model(args.seed, run_dir,
-                                          aggregation="xla" if edge_list else "grid")
+                                          aggregation="xla" if edge_list else "grid",
+                                          dtype=args.dtype)
         tbptt = chip_smoke.EDGE_TBPTT if edge_list else chip_smoke.ICE_TBPTT
         windows = [(data.x[i:i + 1], data.y[i:i + 1],
                     model._clim_batch(clim, data.launch_dates[i:i + 1]))
@@ -117,10 +118,10 @@ def main() -> int:
     parser.add_argument("--conv", default="ChebConv", choices=("ChebConv", "TransformerConv"))
     parser.add_argument("--workload", default="mnist", choices=("mnist", "ice", "ice-xla"))
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                        help="compute dtype of the Moving-MNIST model (bf16: ChebConv only)")
+                        help="compute dtype of the model (bf16: not on the edge list)")
     args = parser.parse_args()
-    if args.dtype != "float32" and args.workload != "mnist":
-        parser.error("--dtype bfloat16 runs the Moving-MNIST ChebConv model only")
+    if args.dtype != "float32" and args.workload == "ice-xla":
+        parser.error("--dtype bfloat16 does not run on the pixelwise edge list (not ported)")
 
     import torch
     from torch.profiler import ProfilerActivity, profile

@@ -107,8 +107,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    generator, every gradient leaf ≤1e-4 × max(1, max|g|), and the kernel
    step again, bit-identical;
 19. (printed last) the ``kernels`` JSON line (K1, K2, K2b, K3, K4, K5,
-   K6, K7 in f32, then K1, K2, K2b, K7 in bf16, each with its ``dtype``),
-   then the card line and the result line;
+   K6, K7 in f32, then K1, K2, K2b, K7, K3, K4, K5, K6 in bf16, each with
+   its ``dtype``), then the card line and the result line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
@@ -163,8 +163,45 @@ Phases (each prints one line; any failure raises and exits non-zero):
    first decoder step's frames within 2e-2 on average (the largest
    difference is printed: bf16 and f32 differ by more at single pixels).
 
-Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29) swaps each kernel it
-would launch for its plain version.
+31. bf16 attention path: ``predict`` with the TransformerConv model of
+   phase 9 in bf16 (``bench.py --conv TransformerConv``'s default dtype):
+   finite f32 frames, overflow 0, bf16 K3 56 and K7 51 launches, only the
+   node counts' K7 (11) in f32, nothing else; a forecast's peak memory
+   above its start, bf16 beside f32;
+32. K3 in bf16 on the first decoder step's operands at HD 128, 16 and 1,
+   K4 in bf16 on one bf16 train step's cotangents: within one bf16
+   rounding (2⁻⁷ × max(1, max|plain|)) of their plain versions, K3
+   bit-identical on a repeat; each timed by CUDA graph and events beside
+   its bound (2-byte operands), its plain version and the f32 kernel on
+   the same operands in f32;
+33. bf16 attention train path: ``train_step`` as phase 11 in bf16: K3 =
+   K4 = 56 and K7 97 bf16 launches a step (11 K7 f32), finite f32 loss,
+   f32 masters and gradients; frames/s, a step's peak above its start,
+   bf16 beside f32;
+34. a teacher-forced bf16 step (ratio 1.0: the runs share their meshes)
+   on K3/K4 against one on their plain versions: the loss within 1e-2,
+   every gradient leaf no further from the plain step's than the plain
+   step in bf16 is from the plain step in f32 (× max(1, max|g|): K3 and
+   its plain version differ by a bf16 rounding at a few outputs, which the
+   model amplifies as it amplifies bf16 against f32); K4 alone, on the
+   kernel step's forward, ≤2e-2 × max(1, max|g|); the kernel step again,
+   bit-identical;
+35. bf16 grid path: the flagship of phase 13 in bf16 (``bench.py``
+   ``measure_ice``'s default dtype): finite f32 frames, 300 bf16 K5 a
+   forecast and no other launch; a forecast's peak above its start and
+   its frames' distance from the f32 forecast, bf16 beside f32;
+36. K5 in bf16 at H 256, 32 and 1 with and without keep planes,
+   bit-identical to its plain version (the f32 sums of the plain order,
+   rounded once); K6 in bf16 on one T_out-6 bf16 step's cotangents with
+   and without keep planes, within one bf16 rounding; timed as phase 32;
+37. bf16 grid train path: full-BPTT ``train_step`` (3 timed steps):
+   K5 = K6 = 300 bf16 launches a step, finite f32 loss, f32 masters and
+   gradients; a step's peak above its start, bf16 beside f32;
+38. a bf16 T_out-6 step on K5/K6 against one on their plain versions
+   (≤2e-2 × max(1, max|g|)), and the kernel step again, bit-identical.
+
+Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38) swaps each
+kernel it would launch for its plain version.
 
 It fails at once without a CUDA card, and when the port's package is not
 beside it.
@@ -173,6 +210,7 @@ beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -195,7 +233,7 @@ CANVAS, DIGIT = (64, 64), (18, 18)
 T_IN, T_OUT, BATCH = 4, 10, 16
 K2_TOL, ROLLOUT_TOL, GRAD_TOL = 1e-5, 1e-4, 1e-4
 K3_TOL, K4_TOL = 1e-5, 1e-5
-# bf16 (phases 26-30): kernels within one bf16 rounding of their plain
+# bf16 (phases 26-38): kernels within one bf16 rounding of their plain
 # versions (× max(1, max|plain|)), a kernel step's gradients within 2e-2 ×
 # max(1, max|g|) of a plain step's, the first bf16 frame within 2e-2 of the
 # f32 frame on average
@@ -560,15 +598,17 @@ def k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, batch):
 def attn_bound_ms(attn, args, backward: bool):
     """Least time for K3's (or K4's) work on these operands: per slot that
     reaches a visible row, its indices, attributes and keep values read
-    once; each q row with a slot, each k and v row that is a source (and,
-    for K4, each g row with a slot) read once; Wₑ read once; the output
-    (K4: dq, dk, dv, dWₑ) written once. Operations per such slot: the edge
-    term, logit and weighted sum, 2·A·HD + 4·HD (K4: recompute plus
-    backward, 4·A·HD + 11·HD)."""
+    once (4 B each); each q row with a slot, each k and v row that is a
+    source (and, for K4, each g row with a slot) read once; Wₑ read once;
+    the output (K4: dq, dk, dv, dWₑ) written once, in q's type (4 B in f32,
+    2 B in bf16). Operations per such slot: the edge term, logit and
+    weighted sum, 2·A·HD + 4·HD (K4: recompute plus backward, 4·A·HD +
+    11·HD), at the peak rate of q's type."""
     import torch
 
     q, _k, _v, we, keep, meta, dims = args[:7]
     b, n_max, hd = q.shape
+    size = q.element_size()
     a = we.shape[0]
     kh = 0 if keep is None else keep.shape[2]
     dst, src = attn.slot_nodes(meta, dims)
@@ -576,13 +616,13 @@ def attn_bound_ms(attn, args, backward: bool):
     n_slots = int((dst >= 0).sum())
     rows_q = int(torch.unique((dst + base)[dst >= 0]).numel())
     rows_kv = int(torch.unique((src + base)[src >= 0]).numel())
-    nbytes = (n_slots * (8 + 4 * a + 4 * kh) + (rows_q + 2 * rows_kv) * hd * 4 + a * hd * 4
-              + b * n_max * hd * 4)
+    nbytes = (n_slots * (8 + 4 * a + 4 * kh) + (rows_q + 2 * rows_kv) * hd * size
+              + a * hd * size + b * n_max * hd * size)
     ops = n_slots * (2 * a * hd + 4 * hd)
     if backward:
-        nbytes += rows_q * hd * 4 + 2 * b * n_max * hd * 4 + a * hd * 4
+        nbytes += rows_q * hd * size + 2 * b * n_max * hd * size + a * hd * size
         ops = n_slots * (4 * a * hd + 11 * hd)
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / _peak_flops(size) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
@@ -601,10 +641,10 @@ K6_TOL = 1e-5
 
 
 def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
-                   aggregation: str = "grid"):
+                   aggregation: str = "grid", dtype: str = "float32"):
     """The flagship forecaster (T_out ``t_out``, default 90) on the
-    pixelwise grid or, with ``aggregation="xla"``, the pixelwise edge list;
-    random weights from ``seed``."""
+    pixelwise grid or, with ``aggregation="xla"``, the pixelwise edge list,
+    computing in ``dtype``; random weights from ``seed``."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -613,7 +653,8 @@ def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None
         output_timesteps=ICE_T_OUT if t_out is None else t_out,
         use_climatology=True, device=DEVICE, seed=seed, run_dir=run_dir,
         model_kwargs=dict(hidden_size=32, dropout=0.1, n_layers=1, n_conv_layers=3,
-                          convolution_type="TransformerConv", fused_gates=True),
+                          convolution_type="TransformerConv", fused_gates=True,
+                          compute_dtype=dtype),
         graph_kwargs=dict(aggregation=aggregation),
     )
 
@@ -648,25 +689,27 @@ def grid_bound_ms(args, backward: bool):
     q, k, v (K6 also g) and the keep planes at valid pixels read once (a
     masked pixel and its edges add nothing), e_dir and valid read once, the
     output (K6: dq, dk, dv, de_dir) written once at every pixel, as the
-    wrappers allocate it. Operations per edge (a valid pixel's valid
+    wrappers allocate it; rows, e_dir and valid in q's type (4 B in f32, 2 B
+    in bf16), keep 4 B. Operations per edge (a valid pixel's valid
     neighbour): the edge term, logit and weighted sum, 6·H (K6: recompute
-    plus backward, 14·H)."""
+    plus backward, 14·H), at the peak rate of q's type."""
     from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shifts_for
 
     q, _k, _v, e_dir, valid, keep, dims = args[:7]
     b, p, h = q.shape
+    size = q.element_size()
     n_valid = int((valid != 0).sum())
-    rows_in, rows_out = b * n_valid * h * 4, b * p * h * 4
-    fixed = (e_dir.numel() * 4 + valid.numel() * 4
+    rows_in, rows_out = b * n_valid * h * size, b * p * h * size
+    fixed = (e_dir.numel() * size + valid.numel() * size
              + (0 if keep is None else b * dims.ndirs * n_valid * dims.heads * 4))
     valid2d = (valid != 0).reshape(1, dims.rows, dims.cols)
     edges = b * sum(int(neighbor_valid(valid2d, dr, dc).sum())
                     for dr, dc in shifts_for(dims.ndirs == 8))
     if backward:
-        nbytes, ops = 4 * rows_in + 3 * rows_out + fixed + e_dir.numel() * 4, 14 * h * edges
+        nbytes, ops = 4 * rows_in + 3 * rows_out + fixed + e_dir.numel() * size, 14 * h * edges
     else:
         nbytes, ops = 3 * rows_in + rows_out + fixed, 6 * h * edges
-    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_FLOPS * 1e3
+    bytes_ms, ops_ms = nbytes / PEAK_BYTES_PER_S * 1e3, ops / _peak_flops(size) * 1e3
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms
 
 
@@ -1946,6 +1989,462 @@ def edge_phases(seed: int, card: str, modules, segment, segment_sum):
     return launches, train_launches, k7_sets, tally.calls
 
 
+# ---------------------------------------------------------------- bf16 attention
+# The TransformerConv model (phases 9-12) and the grid flagship (phases
+# 13-18) in bf16, bench.py's default dtype (make_predictor(conv=
+# "TransformerConv", dtype="bfloat16"), make_ice_predictor(dtype=
+# "bfloat16")): f32 masters cast at use, f32 LayerNorm statistics, keep
+# windows and planes, window attributes, loss and predictions; bf16 K3/K4
+# and K5/K6.
+
+
+def _bf16_kernel_row(measure, args, kern_fn, plain_fn, bound_fn, calls):
+    """Times of one bf16 attention launch: by CUDA graph and events, its
+    plain version by events, the f32 kernel on the same operands in f32 by
+    graph, and its bound at 2-byte operands."""
+    import torch
+
+    f32_args = tuple(x.float() if torch.is_tensor(x) and x.dtype == torch.bfloat16 else x
+                     for x in args)
+    bound, b_ms, o_ms = bound_fn(args)
+    return dict(calls=calls, **measure,
+                ms=graph_ms(lambda: kern_fn(*args)), events_ms=cuda_ms(lambda: kern_fn(*args)),
+                plain_ms=cuda_ms(lambda: plain_fn(*args)),
+                f32_ms=graph_ms(lambda: kern_fn(*f32_args)),
+                bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
+
+
+def _bf16_err(kern, plain, what: str):
+    """(max |kern − plain|, that over max(1, max|plain|)), both bf16; within
+    one bf16 rounding or the phase fails."""
+    import torch
+
+    check(kern.dtype == plain.dtype == torch.bfloat16, f"{what}: {kern.dtype}, {plain.dtype}")
+    err = float((kern.float() - plain.float()).abs().max())
+    rel = err / max(1.0, float(plain.float().abs().max()))
+    check(rel <= BF16_TOL, f"{what} differs from its plain version by {rel} (relative)")
+    return err, rel
+
+
+def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum, loader, x):
+    """Phases 31-38: the TransformerConv model on attention windows and the
+    sea-ice flagship on the grid, in bf16; returns the kernels line's bf16
+    entries of K3, K4, K5 and K6."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+
+    run_dir = tempfile.TemporaryDirectory()
+    conv, bf16 = "TransformerConv", torch.bfloat16
+    modules = (spmm, attn, grid_attn, segment_sum)
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def counts():
+        """({bf16 kernel: launches}, {f32 kernel: launches}) since reset()."""
+        return ({k: v for m in modules for k, v in m.LAUNCHES_BF16.items()},
+                {k: v for m in modules for k, v in m.LAUNCHES.items()})
+
+    def others(launches, keep):
+        return {k: v for k, v in launches.items() if k not in keep and v}
+
+    # ---- phase 31: predict() with the TransformerConv model in bf16
+    model = make_model(seed, run_dir.name, conv, dtype="bfloat16")
+    cfg = model.cfg
+    k3 = expected_attn_launches(cfg)
+    meshes = 1 + T_OUT
+    model.predict(loader)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(loader)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    launches, f32_launches = counts()
+    # as f32's (phase 9); only the node counts (a sum of ones) stay f32
+    k7 = expected_quadtree_k7(cfg, 2)
+    check(y.shape == (BATCH, T_OUT, *CANVAS, 1) and y.dtype == np.float32,
+          f"bf16 attention predict gave {y.shape} {y.dtype}")
+    check(bool(np.isfinite(y).all()) and model.last_overflow == 0,
+          f"bf16 attention forecast: finite {bool(np.isfinite(y).all())}, "
+          f"overflow {model.last_overflow}")
+    check(launches["attn_apply"] == k3 and launches["segment_sum"] == k7 - meshes
+          and f32_launches["segment_sum"] == meshes
+          and not others(launches, ("attn_apply", "segment_sum"))
+          and not others(f32_launches, ("segment_sum",)),
+          f"bf16 attention forecast launches {launches} (f32 {f32_launches}), expected "
+          f"K3 {k3}, K7 {k7 - meshes} in bf16, K7 {meshes} in f32")
+    f32_model = make_model(seed, run_dir.name, conv)
+    f32_model.forecast(x)  # warm-up
+    peaks = {d: peak_above_start_gib(lambda m=m: m.forecast(x))
+             for d, m in (("bfloat16", model), ("float32", f32_model))}
+    del f32_model
+    print(json.dumps({
+        "phase": "bf16_attn_path", "card": card, "batch": BATCH, "batch_s": batch_s,
+        "frames_per_s": BATCH * T_OUT / batch_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "forecast_peak_above_start_gib": peaks, "overflow": model.last_overflow,
+        "launches_bf16": launches, "launches_f32": f32_launches,
+    }), flush=True)
+
+    # ---- phase 32: K3 and K4 in bf16 against their plain versions
+    enc_calls = T_IN * cfg.n_layers * cfg.n_conv_layers
+    with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
+        model.forecast(x)
+    check(cap.calls == k3, "bf16 attention capture run disagrees with the path")
+    fwd = []
+    for hd, args in cap.operands().items():
+        check(args[0].dtype == args[3].dtype == bf16 and args[5].attr.dtype == torch.float32,
+              f"K3 operands at HD={hd}: {args[0].dtype}, we {args[3].dtype}")
+        with torch.no_grad():
+            kern = attn._attn_fwd_cuda(*args)
+            err, rel = _bf16_err(kern, attn.attn_plain(*args), f"bf16 K3 at HD={hd}")
+            check(torch.equal(kern, attn._attn_fwd_cuda(*args)),
+                  f"bf16 K3 differs from itself on a repeat at HD={hd}")
+        fwd.append(_bf16_kernel_row(
+            dict(HD=hd, max_abs_err=err, err_rel_to_max=rel, repeat_identical=True,
+                 plan=attn.fwd_plan(args[6], 2)._asdict()),
+            args, attn._attn_fwd_cuda, attn.attn_plain,
+            lambda a: attn_bound_ms(attn, a, backward=False), cap.per_width[hd]))
+    check(sorted(w["HD"] for w in fwd) == [1, 16, 128], f"bf16 K3 widths {fwd}")
+    del cap
+    _, batches = train_batches(seed, TRAIN_STEPS + 1)
+    x_g, y_g = batches[0]
+    trainer = make_trainer(seed, run_dir.name, conv, dtype="bfloat16")
+    with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b:
+        trainer.train_step(x_g, y_g)
+    check(sum(cap_b.per_width.values()) == k3, f"bf16 K4 calls {cap_b.per_width}")
+    bwd = []
+    for hd, args in sorted(cap_b.first.items()):
+        errs = {name: _bf16_err(a, p, f"bf16 K4 {name} at HD={hd}")
+                for name, a, p in zip(("dq", "dk", "dv", "dwe"), attn._attn_bwd_cuda(*args),
+                                      attn.attn_bwd_plain(*args))}
+        bwd.append(_bf16_kernel_row(
+            dict(HD=hd, err_rel_to_max={n: e[1] for n, e in errs.items()},
+                 max_abs_err=max(e[0] for e in errs.values()), keep=args[4] is not None),
+            args, attn._attn_bwd_cuda, attn.attn_bwd_plain,
+            lambda a: attn_bound_ms(attn, a, backward=True), cap_b.per_width[hd]))
+    del cap_b
+    print(json.dumps({"phase": "bf16_attn_kernels_vs_plain", "card": card, "k3_by_width": fwd,
+                      "k4_by_width": bwd}), flush=True)
+
+    # ---- phase 33: train_step in bf16 on the attention path
+    with GradFnCheck(attn, "attn_apply", "AttnApplyBackward") as gcheck:
+        loss, _ = trainer.train_step(x_g, y_g)  # warm-up
+    check(not gcheck.bad and gcheck.calls == k3,
+          f"bf16 K3 outputs without the AttnApply node: {gcheck.bad[:3]} ({gcheck.calls})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses, worst, pending = [], 0, None
+    for x_b, y_b in batches[1:]:
+        loss, overflow = trainer.train_step(x_b, y_b)
+        if pending is not None:  # one step late, as train() drains
+            losses.append(float(pending[0]))
+            worst = max(worst, int(pending[1]))
+        pending = (loss, overflow)
+    losses.append(float(pending[0]))
+    worst = max(worst, int(pending[1]))
+    train_s = time.perf_counter() - t0
+    train_launches, train_f32 = counts()
+    per_step = {k: v / TRAIN_STEPS for k, v in train_launches.items() if v}
+    k7_step = expected_quadtree_k7(cfg, 2, train=True)
+    want = {"attn_apply": k3, "attn_apply_bwd": k3, "segment_sum": k7_step - meshes}
+    check(loss.dtype == torch.float32 and bool(np.isfinite(losses).all()) and worst == 0,
+          f"bf16 attention training: losses {losses} ({loss.dtype}), overflow {worst}")
+    check(per_step == {k: float(v) for k, v in want.items()}
+          and {k: v for k, v in train_f32.items() if v} == {"segment_sum": TRAIN_STEPS * meshes},
+          f"bf16 attention launches per step {per_step} (f32 {train_f32}), expected {want}")
+    check(all(q.dtype == q.grad.dtype == torch.float32 for q in trainer.model.parameters()),
+          "bf16 attention training left a master weight or gradient that is not float32")
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    step_peak = {"bfloat16": peak_above_start_gib(lambda: trainer.train_step(*batches[1]))}
+    del trainer
+    f32_trainer = make_trainer(seed, run_dir.name, conv)
+    f32_trainer.train_step(*batches[0])
+    step_peak["float32"] = peak_above_start_gib(lambda: f32_trainer.train_step(*batches[1]))
+    del f32_trainer
+    print(json.dumps({
+        "phase": "bf16_attn_train_path", "card": card, "batch": BATCH, "steps": TRAIN_STEPS,
+        "seconds": train_s, "steps_per_s": TRAIN_STEPS / train_s,
+        "frames_per_s": TRAIN_STEPS * BATCH * T_OUT / train_s, "peak_mem_gib": peak_mem,
+        "step_peak_above_start_gib": step_peak, "losses": losses, "overflow": worst,
+        "launches_per_step": per_step,
+        "f32_launches_per_step": {k: v / TRAIN_STEPS for k, v in train_f32.items() if v},
+        "k3_outputs_checked": gcheck.calls,
+    }), flush=True)
+
+    # ---- phase 34: a teacher-forced bf16 step on K3/K4 vs one on their
+    # plain versions (every decoder mesh from a true frame, so the runs
+    # share their meshes); the kernel step again. K3 and attn_plain differ
+    # by a bf16 rounding at a few outputs a call, and this model amplifies
+    # such flips in its gradients about as much as it amplifies bf16 against
+    # f32 (PERF.md §6): so the whole swap is held to the plain path's own
+    # bf16-vs-f32 spread, and K4 alone, on the kernel step's forward, to
+    # BF16_GRAD_TOL.
+    def forced(dtype="bfloat16"):
+        return make_trainer(seed, run_dir.name, conv, teacher_forcing_ratio=1.0, dtype=dtype)
+
+    def plain(fwd=True):
+        stack = contextlib.ExitStack()
+        if fwd:
+            stack.enter_context(mock.patch.object(attn, "_attn_fwd_cuda", attn.attn_plain))
+            stack.enter_context(mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain))
+        stack.enter_context(mock.patch.object(attn, "_attn_bwd_cuda", attn.attn_bwd_plain))
+        return stack
+
+    def leaf_err(ga, gb):
+        return max(float((ga[n] - gb[n]).abs().max()) / max(1.0, float(gb[n].abs().max()))
+                   for n in gb)
+
+    loss_k, ovf_k, grads_k, meshes_k = step_with_meshes(forced(), x_g, y_g, seed=1)
+    with plain():
+        loss_p, _, grads_p, meshes_p = step_with_meshes(forced(), x_g, y_g, seed=1)
+    with plain():
+        loss_f, _, grads_f, meshes_f = step_with_meshes(forced("float32"), x_g, y_g, seed=1)
+    with plain(fwd=False):
+        _, _, grads_b, _ = step_with_meshes(forced(), x_g, y_g, seed=1)
+    check(torch.equal(meshes_k, meshes_p) and torch.equal(meshes_k, meshes_f),
+          "bf16 attention kernel and plain steps ran on different meshes")
+    errs = {"kernel_vs_plain": leaf_err(grads_k, grads_p),
+            "plain_bf16_vs_f32": leaf_err(grads_p, grads_f),
+            "k4_vs_plain_backward": leaf_err(grads_k, grads_b)}
+    del grads_p, grads_f, grads_b
+    check(int(ovf_k) == 0 and abs(float(loss_k) - float(loss_p)) <= 1e-2 * abs(float(loss_p)),
+          f"bf16 attention loss {float(loss_k)} against the plain path's {float(loss_p)}")
+    check(errs["kernel_vs_plain"] <= errs["plain_bf16_vs_f32"]
+          and errs["k4_vs_plain_backward"] <= BF16_GRAD_TOL,
+          f"bf16 attention gradients against the plain path: {errs}")
+    loss_k2, _, grads_k2, meshes_k2 = step_with_meshes(forced(), x_g, y_g, seed=1)
+    same = (torch.equal(loss_k, loss_k2) and torch.equal(meshes_k, meshes_k2)
+            and all(torch.equal(grads_k[n], grads_k2[n]) for n in grads_k))
+    check(same, "two identical bf16 attention train steps differ")
+    print(json.dumps({
+        "phase": "bf16_attn_grads_vs_plain", "card": card, "teacher_forcing_ratio": 1.0,
+        "loss_kernel": float(loss_k), "loss_plain": float(loss_p), "loss_plain_f32": float(loss_f),
+        "max_leaf_err_rel": errs, "leaves": len(grads_k), "meshes_identical": True,
+        "bit_identical_repeat": same,
+    }), flush=True)
+    del grads_k, grads_k2, model
+    attn_launches = (launches, train_launches)
+
+    # ---- phase 35: the flagship forecast in bf16
+    data, clim, mask = ice_data(seed)
+    windows = lambda i, j: ArrayDataset(data.x[i:j], data.y[i:j],  # noqa: E731
+                                        data.launch_dates[i:j])
+    model = make_ice_model(seed, run_dir.name, dtype="bfloat16")
+    cfg = model.cfg
+    k5 = expected_grid_launches(cfg)
+    model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(DataLoader(windows(0, ICE_FORECASTS)), climatology=clim, mask=mask)
+    torch.cuda.synchronize()
+    forecast_s = (time.perf_counter() - t0) / ICE_FORECASTS
+    launches, f32_launches = counts()
+    check(y.shape == (ICE_FORECASTS, ICE_T_OUT, *ICE_SHAPE, 1) and y.dtype == np.float32
+          and bool(np.isfinite(y).all()), f"bf16 grid forecast {y.shape} {y.dtype}")
+    check(launches["grid_attn_apply"] == k5 * ICE_FORECASTS
+          and not others(launches, ("grid_attn_apply",)) and not any(f32_launches.values()),
+          f"bf16 grid forecast launches {launches} (f32 {f32_launches}), expected K5 {k5} a "
+          "forecast")
+    x0, y0 = data.x[:1], data.y[:1]
+    clim0 = model._clim_batch(clim, data.launch_dates[:1])
+    f32_model = make_ice_model(seed, run_dir.name)
+    f32_model.forecast(x0, mask=mask, climatology=clim0)  # warm-up
+    got = {}
+    peaks = {d: peak_above_start_gib(
+        lambda m=m, d=d: got.setdefault(d, m.forecast(x0, mask=mask, climatology=clim0)[0]))
+        for d, m in (("bfloat16", model), ("float32", f32_model))}
+    err = (got["bfloat16"] - got["float32"]).abs()
+    del f32_model, got
+    print(json.dumps({
+        "phase": "bf16_grid_path", "card": card, "batch": 1, "forecasts": ICE_FORECASTS,
+        "s_per_forecast": forecast_s, "frames_per_s": ICE_T_OUT / forecast_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "forecast_peak_above_start_gib": peaks, "launches_bf16": launches,
+        "launches_f32": f32_launches, "k5_per_forecast": k5,
+        "vs_f32_mean_abs_by_step": err.mean(dim=(0, 2, 3, 4))[[0, 9, 89]].tolist(),
+    }), flush=True)
+
+    # ---- phase 36: K5 and K6 in bf16 against their plain versions
+    enc_calls = ICE_T_IN * cfg.n_layers * cfg.n_conv_layers
+    with AttnCapture(grid_attn, "_grid_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
+        model.forecast(x0, mask=mask, climatology=clim0)
+    check(cap.calls == k5, "bf16 grid capture run disagrees with the path")
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    grid_fwd = []
+    for hd, args in cap.operands().items():
+        q, dims = args[0], args[6]
+        check(q.dtype == args[3].dtype == args[4].dtype == bf16,
+              f"K5 operands at H={hd}: {q.dtype}, e_dir {args[3].dtype}, valid {args[4].dtype}")
+        keep = (torch.rand((q.shape[0], dims.ndirs, q.shape[1], dims.heads), generator=gen,
+                           device=DEVICE) < 0.9).float() / 0.9
+        for kargs in (args, args[:5] + (keep, dims)):
+            with torch.no_grad():
+                kern = grid_attn._grid_attn_fwd_cuda(*kargs)
+                plain = grid_attn.grid_attn_plain(*kargs)
+            # d divides 32 at every flagship width: the f32 sums of the
+            # plain order, rounded once
+            check(kern.dtype == bf16 and torch.equal(kern, plain),
+                  f"bf16 K5 is not bit-identical to grid_attn_plain at H={hd}")
+            grid_fwd.append(_bf16_kernel_row(
+                dict(H=hd, keep=kargs[5] is not None, max_abs_err=0.0, bit_identical=True),
+                kargs, grid_attn._grid_attn_fwd_cuda, grid_attn.grid_attn_plain,
+                lambda a: grid_bound_ms(a, backward=False),
+                cap.per_width[hd]))
+    check(sorted({w["H"] for w in grid_fwd}) == [1, 32, 256], f"bf16 K5 widths {grid_fwd}")
+    short = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, dtype="bfloat16")
+    short.initiate_training(lr=LR, lr_decay=0.95)
+    y_s, clim_s = y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]
+    with CaptureBwd(grid_attn, "_grid_attn_bwd_cuda") as cap_b:
+        short.train_step(x0, y_s, mask=mask, climatology=clim_s)
+    check(sum(cap_b.per_width.values()) == expected_grid_launches(short.cfg),
+          f"bf16 K6 calls {cap_b.per_width}")
+    grid_bwd = []
+    for hd, args in sorted(cap_b.first.items()):
+        check(args[5] is not None, "a bf16 training step's K6 operands carry no keep planes")
+        for kargs in (args, args[:5] + (None,) + args[6:]):
+            errs = {name: _bf16_err(a, p, f"bf16 K6 {name} at H={hd}")
+                    for name, a, p in zip(("dq", "dk", "dv", "de_dir"),
+                                          grid_attn._grid_attn_bwd_cuda(*kargs),
+                                          grid_attn.grid_attn_bwd_plain(*kargs))}
+            grid_bwd.append(_bf16_kernel_row(
+                dict(H=hd, keep=kargs[5] is not None,
+                     err_rel_to_max={n: e[1] for n, e in errs.items()},
+                     max_abs_err=max(e[0] for e in errs.values())),
+                kargs, grid_attn._grid_attn_bwd_cuda, grid_attn.grid_attn_bwd_plain,
+                lambda a: grid_bound_ms(a, backward=True),
+                cap.per_width[hd]))
+    del cap, cap_b, args, kargs, short
+    print(json.dumps({"phase": "bf16_grid_kernels_vs_plain", "card": card,
+                      "k5_by_width": grid_fwd, "k6_by_width": grid_bwd}), flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- phase 37: full-BPTT train_step on the flagship in bf16
+    trainer = make_ice_model(seed, run_dir.name, dtype="bfloat16")
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    batches = [(data.x[i:i + 1], data.y[i:i + 1],
+                trainer._clim_batch(clim, data.launch_dates[i:i + 1]))
+               for i in range(ICE_TRAIN_STEPS + 1)]
+
+    def step(tr, batch):
+        x_b, y_b, c_b = batch
+        return tr.train_step(x_b, y_b, mask=mask, climatology=c_b, truncated_backprop=ICE_TBPTT)
+
+    with GradFnCheck(grid_attn, "grid_attn_apply", "GridAttnApplyBackward") as gcheck:
+        step(trainer, batches[0])  # warm-up
+    check(not gcheck.bad and gcheck.calls == k5,
+          f"bf16 K5 outputs without the GridAttnApply node: {gcheck.bad[:3]} ({gcheck.calls})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    losses, pending = [], None
+    for batch in batches[1:]:
+        loss, _ = step(trainer, batch)
+        if pending is not None:  # one step late, as train() drains
+            losses.append(float(pending))
+        pending = loss
+    losses.append(float(pending))
+    train_s = time.perf_counter() - t0
+    grid_train, grid_train_f32 = counts()
+    per_step = {k: v / ICE_TRAIN_STEPS for k, v in grid_train.items() if v}
+    check(loss.dtype == torch.float32 and bool(np.isfinite(losses).all()),
+          f"bf16 grid training losses {losses} ({loss.dtype})")
+    check(per_step == {"grid_attn_apply": k5, "grid_attn_apply_bwd": k5}
+          and not any(grid_train_f32.values()),
+          f"bf16 grid launches per step {per_step} (f32 {grid_train_f32}), expected K5 = K6 = "
+          f"{k5}")
+    check(all(q.dtype == q.grad.dtype == torch.float32 for q in trainer.model.parameters()),
+          "bf16 grid training left a master weight or gradient that is not float32")
+    peak_mem = torch.cuda.max_memory_allocated() / 2**30
+    step_peak = {"bfloat16": peak_above_start_gib(lambda: step(trainer, batches[1]))}
+    del trainer
+    torch.cuda.empty_cache()
+    f32_trainer = make_ice_model(seed, run_dir.name)
+    f32_trainer.initiate_training(lr=LR, lr_decay=0.95)
+    step(f32_trainer, batches[0])
+    step_peak["float32"] = peak_above_start_gib(lambda: step(f32_trainer, batches[1]))
+    del f32_trainer
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "bf16_grid_train_path", "card": card, "batch": 1, "steps": ICE_TRAIN_STEPS,
+        "truncated_backprop": ICE_TBPTT, "seconds": train_s,
+        "steps_per_s": ICE_TRAIN_STEPS / train_s,
+        "frames_per_s": ICE_TRAIN_STEPS * ICE_T_OUT / train_s, "peak_mem_gib": peak_mem,
+        "step_peak_above_start_gib": step_peak, "losses": losses,
+        "launches_per_step": per_step, "k5_outputs_checked": gcheck.calls,
+    }), flush=True)
+
+    # ---- phase 38: a bf16 step (T_out 6) on K5/K6 vs one on their plain
+    # versions; the kernel step again
+    def short_step():
+        tr = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, dtype="bfloat16")
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        gen_s = torch.Generator(device=DEVICE).manual_seed(1)
+        loss_s, _ = tr.train_step(x0, y_s, mask=mask, climatology=clim_s, generator=gen_s)
+        return loss_s, {n: p.grad.detach().clone() for n, p in tr.model.named_parameters()}
+
+    loss_k, grads_k = short_step()
+    with mock.patch.object(grid_attn, "_grid_attn_fwd_cuda", grid_attn.grid_attn_plain), \
+            mock.patch.object(grid_attn, "_grid_attn_bwd_cuda", grid_attn.grid_attn_bwd_plain):
+        loss_p, grads_p = short_step()
+    leaf_err = max(float((grads_k[n] - grads_p[n]).abs().max())
+                   / max(1.0, float(grads_p[n].abs().max())) for n in grads_p)
+    check(leaf_err <= BF16_GRAD_TOL, f"bf16 grid gradients differ from the plain path by "
+          f"{leaf_err}")
+    del grads_p
+    torch.cuda.empty_cache()
+    loss_k2, grads_k2 = short_step()
+    same = torch.equal(loss_k, loss_k2) and all(torch.equal(grads_k[n], grads_k2[n])
+                                                 for n in grads_k)
+    check(same, "two identical bf16 grid train steps differ")
+    print(json.dumps({
+        "phase": "bf16_grid_grads_vs_plain", "card": card, "t_out": ICE_SHORT_T_OUT,
+        "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+        "max_leaf_err_rel": leaf_err, "leaves": len(grads_k), "bit_identical_repeat": same,
+    }), flush=True)
+    run_dir.cleanup()
+
+    # the kernels line's bf16 entries: launch-weighted means over the
+    # widths (K5 without keep planes, as the forecast runs it; K6 with
+    # them, as training does)
+    def entry(name, source, replaces, ws, paths):
+        n = sum(w["calls"] for w in ws)
+        avg = lambda key: sum(w["calls"] * w[key] for w in ws) / n  # noqa: E731
+        fwd_l, train_l, steps = paths
+        return dict(name=f"{name}_bf16", dtype="bfloat16", route="cuda",
+                    source=f"quadtree_mpnnlstm_tpu_torch/csrc/{source}", replaces=replaces,
+                    launches=train_l[name], max_abs_err=max(w["max_abs_err"] for w in ws),
+                    ms=avg("ms"), events_ms=avg("events_ms"), f32_ms=avg("f32_ms"),
+                    plain_ms=avg("plain_ms"), bound_ms=avg("bound_ms"),
+                    bound_by="bytes" if avg("bytes_ms") >= avg("ops_ms") else "operations",
+                    # no PyTorch call adds per-edge (or per-direction)
+                    # terms to keys and values
+                    library_ms=None,
+                    launches_by_path={"predict_batch": fwd_l[name],
+                                      f"train_{steps}_steps": train_l[name]})
+
+    windows_paths = (*attn_launches, TRAIN_STEPS)
+    grid_paths = (launches, grid_train, ICE_TRAIN_STEPS)
+    pallas, grid_src = "quadtree_mpnnlstm_tpu/ops/pallas_attn.py", \
+        "quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py"
+    return [entry("attn_apply", "attn.cu", f"{pallas}:372", fwd, windows_paths),
+            entry("attn_apply_bwd", "attn.cu", f"{pallas}:424", bwd, windows_paths),
+            entry("grid_attn_apply", "grid_attn.cu", f"{grid_src}:446",
+                  [w for w in grid_fwd if not w["keep"]], grid_paths),
+            entry("grid_attn_apply_bwd", "grid_attn.cu", f"{grid_src}:446",
+                  [w for w in grid_bwd if w["keep"]], grid_paths)]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2098,6 +2597,8 @@ def main() -> int:
         args.seed, card, spmm, attn, grid_attn, segment_sum)
     edge_launches, edge_train_launches, k7_sets, k7_calls = edge_phases(
         args.seed, card, (spmm, attn, grid_attn, segment_sum), segment, segment_sum)
+    bf16_kernels += bf16_attn_phases(args.seed, card, spmm, attn, grid_attn, segment_sum,
+                                     loader, x)
 
     # ---- phase 19: the kernels line
     n = sum(w["calls"] for w in widths)

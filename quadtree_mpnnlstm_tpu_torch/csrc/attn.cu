@@ -92,42 +92,87 @@
 // operations. What its first kernel's simple design leaves on the table
 // (16-row CTAs on few live tiles, serial per-row slot loops with one slot's
 // loads in flight, idle lanes at HD < 32) is a later PR's work.
+//
+// bf16 (qtm_attn_fwd_bf16, qtm_attn_bwd_bf16; the TPU kernels on bf16 q,
+// k, v, We and g): every kernel is templated on the storage type S of q, k,
+// v, We, g and of the outputs out, dq, dk and dv. A bf16 value is widened
+// to f32 on load, every product, sum and the softmax run in f32 in the f32
+// kernel's order, and each output is rounded to bf16 once, on store (the
+// TPU kernel computes in f32 too and casts each output once). The window
+// attributes, keep, the per-slot scalars and the dWe partials stay f32,
+// and the wrapper sums the partials in f32 before it casts dWe. K3's bf16
+// runs move run * 2 bytes a load (8 bytes at run 4, 16 at run 8). The f32
+// instances are the f32 kernels unchanged.
 
+#include <cuda_bf16.h>
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// A stored value as f32 (bf16 widens exactly), and an f32 rounded to the
+// storage type (bf16: to nearest even, once).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename S>
+__device__ __forceinline__ S from_f(float x) {
+  if constexpr (std::is_same<S, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// Read-only cached load of one stored value, as f32.
+__device__ __forceinline__ float ldg_f(const float* x) { return __ldg(x); }
+__device__ __forceinline__ float ldg_f(const bf16* x) {
+  return __uint_as_float(
+      static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(x))) << 16);
+}
+
+// The two bf16 values of a 32-bit word (the first in the low half) as f32,
+// and two f32 rounded to bf16 and packed so.
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ unsigned bf_pack(float a, float b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16);
+}
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxRows = 32;  // K4: destination rows per CTA (the wrapper passes 16)
 constexpr int kMaxA = 4;      // edge-attribute columns
 
-// K4's operands
+// K4's operands; S is the storage type of q, k, v, We, g, dq, dk and dv
+template <typename S>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* we;
+  const S* q;
+  const S* k;
+  const S* v;
+  const S* we;
   const float* keep;  // (B, T, KH, EB) or null (no dropout)
   const int* s0;
   const int* src_rel;
   const int* dst_rel;
   const float* attr;
   const int* live;
-  const float* g;     // the cotangent
-  float* out;         // dq
+  const S* g;         // the cotangent
+  S* out;             // dq
   float* dlog;        // K4: (B, T*EB, H) dlogit * scale per slot and head
   float* used;        // K4: (B, T*EB, H) alpha * keep per slot and head
   float* dwe_part;    // K4: (B, T*groups, A, HD)
   const int* order;   // K4: (B*T*EB) slots by source node (the source-sorted view)
   const int* offsets; // K4: (B, n_max + 1) slot ranges of the source nodes
-  float* dk;          // K4: (B, n_max, HD)
-  float* dv;
+  S* dk;              // K4: (B, n_max, HD)
+  S* dv;
   int T, EB, NT, SW, n_max, H, D, A, KH, rows;
   float scale;
 };
@@ -135,7 +180,8 @@ struct Params {
 // Row ranges [lo, hi) of the slots of rows r0 .. r0 + rows of one tile
 // window (dst-sorted, so each row's slots are contiguous); rows without a
 // slot keep lo = hi = 0. Ends with the CTA synchronised.
-__device__ __forceinline__ void scan_rows(const Params& p, long long w, int r0, int* lo,
+template <typename S>
+__device__ __forceinline__ void scan_rows(const Params<S>& p, long long w, int r0, int* lo,
                                           int* hi) {
   for (int i = threadIdx.x; i < p.rows; i += blockDim.x) {
     lo[i] = 0;
@@ -155,8 +201,8 @@ __device__ __forceinline__ void scan_rows(const Params& p, long long w, int r0, 
 
 // k[src] + e and v[src] + e for the lane's features of slot j, and the
 // slot's attributes.
-template <int FPL>
-__device__ __forceinline__ void load_slot(const Params& p, int b, long long w, int j, int start,
+template <typename S, int FPL>
+__device__ __forceinline__ void load_slot(const Params<S>& p, int b, long long w, int j, int start,
                                           const float* we_s, int lane, float (&kj)[FPL],
                                           float (&vj)[FPL], float (&at)[kMaxA]) {
   const int HD = p.H * p.D;
@@ -176,8 +222,8 @@ __device__ __forceinline__ void load_slot(const Params& p, int b, long long w, i
 #pragma unroll
       for (int a = 0; a < kMaxA; ++a)
         if (a < p.A) e = fmaf(at[a], we_s[a * HD + f], e);
-      kj[i] = (ok ? p.k[row + f] : 0.f) + e;
-      vj[i] = (ok ? p.v[row + f] : 0.f) + e;
+      kj[i] = (ok ? to_f(p.k[row + f]) : 0.f) + e;
+      vj[i] = (ok ? to_f(p.v[row + f]) : 0.f) + e;
     }
   }
 }
@@ -199,12 +245,13 @@ __device__ __forceinline__ void head_sums(const float* buf, float* head, const f
   __syncwarp();
 }
 
-__device__ __forceinline__ float keep_at(const Params& p, const float* keep, int h, int j) {
+template <typename S>
+__device__ __forceinline__ float keep_at(const Params<S>& p, const float* keep, int h, int j) {
   return keep != nullptr ? keep[static_cast<long long>(min(h, p.KH - 1)) * p.EB + j] : 1.f;
 }
 
-template <int FPL>
-__global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
+template <typename S, int FPL>
+__global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params<S> p) {
   extern __shared__ float smem[];
   __shared__ int lo[kMaxRows], hi[kMaxRows];
   const int groups = (p.NT + p.rows - 1) / p.rows;
@@ -221,8 +268,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
     for (int r = r0 + warp; r < r_end; r += kWarps) {
       const int node = t * p.NT + r;
       if (node >= p.n_max) break;
-      float* o = p.out + (static_cast<long long>(b) * p.n_max + node) * HD;
-      for (int f = lane; f < HD; f += 32) o[f] = 0.f;
+      S* o = p.out + (static_cast<long long>(b) * p.n_max + node) * HD;
+      for (int f = lane; f < HD; f += 32) o[f] = from_f<S>(0.f);
     }
     for (int i = threadIdx.x; i < AHD; i += blockDim.x) part[i] = 0.f;
     return;
@@ -233,7 +280,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
   float* head = buf2 + HD;                                     // H
   float* head2 = head + p.H;                                   // H
   float* red = smem + AHD + kWarps * (2 * HD + 2 * p.H);       // kWarps * A * HD
-  for (int i = threadIdx.x; i < AHD; i += blockDim.x) we_s[i] = p.we[i];
+  for (int i = threadIdx.x; i < AHD; i += blockDim.x) we_s[i] = to_f(p.we[i]);
   const long long w = (static_cast<long long>(b) * p.T + t) * p.EB;
   scan_rows(p, w, r0, lo, hi);
   const int start = p.s0[b * p.T + t];
@@ -254,8 +301,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < FPL; ++i) {
       const int f = lane + 32 * i;
-      qf[i] = f < HD ? p.q[row + f] : 0.f;
-      gf[i] = f < HD ? p.g[row + f] : 0.f;
+      qf[i] = f < HD ? to_f(p.q[row + f]) : 0.f;
+      gf[i] = f < HD ? to_f(p.g[row + f]) : 0.f;
       m[i] = -INFINITY;
       den[i] = 0.f;
       rowdot[i] = 0.f;
@@ -265,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
     // pass 1: max, denominator and sum_j p_j * dalpha_j (online)
     for (int j = j0; j < j1; ++j) {
       float kj[FPL], vj[FPL], at[kMaxA];
-      load_slot<FPL>(p, b, w, j, start, we_s, lane, kj, vj, at);
+      load_slot<S, FPL>(p, b, w, j, start, we_s, lane, kj, vj, at);
 #pragma unroll
       for (int i = 0; i < FPL; ++i) {
         const int f = lane + 32 * i;
@@ -299,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
     // pass 2: alpha, dlogit; dq, the slot partials and dWe
     for (int j = j0; j < j1; ++j) {
       float kj[FPL], vj[FPL], at[kMaxA];
-      load_slot<FPL>(p, b, w, j, start, we_s, lane, kj, vj, at);
+      load_slot<S, FPL>(p, b, w, j, start, we_s, lane, kj, vj, at);
 #pragma unroll
       for (int i = 0; i < FPL; ++i) {
         const int f = lane + 32 * i;
@@ -332,7 +379,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < FPL; ++i) {
       const int f = lane + 32 * i;
-      if (f < HD) p.out[row + f] = dq[i];
+      if (f < HD) p.out[row + f] = from_f<S>(dq[i]);
     }
   }
   // dWe: the CTA's warps summed in warp order (a fixed tree)
@@ -359,8 +406,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params p) {
 constexpr int kSrcThreads = 256;
 constexpr int kPerLane = 4;  // features a lane accumulates per pass over a row
 
-template <int LPR>
-__global__ void __launch_bounds__(kSrcThreads) attn_bwd_src_kernel(Params p, int B) {
+template <typename S, int LPR>
+__global__ void __launch_bounds__(kSrcThreads) attn_bwd_src_kernel(Params<S> p, int B) {
   const long long thread = static_cast<long long>(blockIdx.x) * kSrcThreads + threadIdx.x;
   const long long row = thread / LPR;
   const int sub = static_cast<int>(thread % LPR);
@@ -387,8 +434,8 @@ __global__ void __launch_bounds__(kSrcThreads) attn_bwd_src_kernel(Params p, int
         const int f = f0 + sub + i * LPR;
         if (f < HD) {
           const long long at = e * p.H + f / p.D;
-          dk[i] = fmaf(p.dlog[at], p.q[drow + f], dk[i]);
-          dv[i] = fmaf(p.used[at], p.g[drow + f], dv[i]);
+          dk[i] = fmaf(p.dlog[at], to_f(p.q[drow + f]), dk[i]);
+          dv[i] = fmaf(p.used[at], to_f(p.g[drow + f]), dv[i]);
         }
       }
     }
@@ -396,29 +443,30 @@ __global__ void __launch_bounds__(kSrcThreads) attn_bwd_src_kernel(Params p, int
     for (int i = 0; i < kPerLane; ++i) {
       const int f = f0 + sub + i * LPR;
       if (f < HD) {
-        p.dk[row * HD + f] = dk[i];
-        p.dv[row * HD + f] = dv[i];
+        p.dk[row * HD + f] = from_f<S>(dk[i]);
+        p.dv[row * HD + f] = from_f<S>(dv[i]);
       }
     }
   }
 }
 
-template <int LPR>
-cudaError_t launch_src(const Params& p, int B, cudaStream_t stream) {
+template <typename S, int LPR>
+cudaError_t launch_src(const Params<S>& p, int B, cudaStream_t stream) {
   const long long threads = static_cast<long long>(B) * p.n_max * LPR;
   const unsigned blocks = static_cast<unsigned>((threads + kSrcThreads - 1) / kSrcThreads);
-  attn_bwd_src_kernel<LPR><<<blocks, kSrcThreads, 0, stream>>>(p, B);
+  attn_bwd_src_kernel<S, LPR><<<blocks, kSrcThreads, 0, stream>>>(p, B);
   return cudaGetLastError();
 }
 
-cudaError_t launch_src_width(const Params& p, int B, cudaStream_t s) {
+template <typename S>
+cudaError_t launch_src_width(const Params<S>& p, int B, cudaStream_t s) {
   const int HD = p.H * p.D;
-  if (HD >= 32) return launch_src<32>(p, B, s);
-  if (HD > 8) return launch_src<16>(p, B, s);
-  if (HD > 4) return launch_src<8>(p, B, s);
-  if (HD > 2) return launch_src<4>(p, B, s);
-  if (HD == 2) return launch_src<2>(p, B, s);
-  return launch_src<1>(p, B, s);
+  if (HD >= 32) return launch_src<S, 32>(p, B, s);
+  if (HD > 8) return launch_src<S, 16>(p, B, s);
+  if (HD > 4) return launch_src<S, 8>(p, B, s);
+  if (HD > 2) return launch_src<S, 4>(p, B, s);
+  if (HD == 2) return launch_src<S, 2>(p, B, s);
+  return launch_src<S, 1>(p, B, s);
 }
 
 // ---------------------------------------------------------------- K3
@@ -445,23 +493,25 @@ __host__ __device__ constexpr int fwd_smem_words(int rows, int EB, int A) {
 // live[] of the first kFwdLive samples is kept in shared memory.
 constexpr int kFwdLive = 256;
 
+// K3's operands; S is the storage type of q, k, v, We and out
+template <typename S>
 struct FwdParams {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* we;
+  const S* q;
+  const S* k;
+  const S* v;
+  const S* we;
   const float* keep;  // (B, T, KH, EB) or null (no dropout)
   const int* s0;
   const int* src_rel;
   const int* dst_rel;
   const float* attr;
   const int* live;
-  float* out;
+  S* out;
   int B, T, EB, NT, SW, n_max, H, D, A, KH;
   // the plan: lanes a head, heads an item, lanes an item, items a row,
   // warps a CTA, rows a CTA
   int lanes_head, heads_item, lanes_item, slices, warps, rows;
-  int vec_out;  // 16-byte zero stores (HD % 4 == 0, out 16-byte aligned)
+  int vec_out;  // 16-byte zero stores (HD * sizeof(S) % 16 == 0, out 16-byte aligned)
   int vec_win;  // 16-byte window copies (EB % 4 == 0, windows 16-byte aligned)
   float scale;
 };
@@ -491,23 +541,26 @@ __device__ __forceinline__ void fwd_stage(unsigned* dst, const unsigned* src, in
   for (int i = done + threadIdx.x; i < n; i += blockDim.x) fwd_cp4(dst + i, src + i);
 }
 
-__device__ __forceinline__ void fwd_zero(float* out, long long n, bool vec) {
+template <typename S>
+__device__ __forceinline__ void fwd_zero(S* out, long long n, bool vec) {
+  constexpr long long kPer = 16 / sizeof(S);  // values a 16-byte store
   long long done = 0;
   if (vec) {
-    done = n & ~3LL;
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (long long i = threadIdx.x; i < done / 4; i += blockDim.x)
-      o4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    done = n & ~(kPer - 1);
+    uint4* o4 = reinterpret_cast<uint4*>(out);
+    for (long long i = threadIdx.x; i < done / kPer; i += blockDim.x)
+      o4[i] = make_uint4(0u, 0u, 0u, 0u);
   }
-  for (long long i = done + threadIdx.x; i < n; i += blockDim.x) out[i] = 0.f;
+  for (long long i = done + threadIdx.x; i < n; i += blockDim.x) out[i] = from_f<S>(0.f);
 }
 
-// The lane's run of F features at x (features f0 .. f0 + F of a head of
-// width D; zero where f0 + i >= D or !ok). VEC: the run lies wholly inside
-// or outside the head and x is 16-byte aligned.
-template <int F, bool VEC>
-__device__ __forceinline__ void fwd_load(const float* x, int f0, int D, bool ok, float (&r)[F]) {
-  if constexpr (VEC) {
+// The lane's run of F features at x as f32 (features f0 .. f0 + F of a head
+// of width D; zero where f0 + i >= D or !ok). VEC: the run lies wholly
+// inside or outside the head and is aligned to its size up to 16 bytes
+// (f32: float4 loads; bf16: one 8-byte load at F 4, 16-byte loads above).
+template <int F, bool VEC, typename S>
+__device__ __forceinline__ void fwd_load(const S* x, int f0, int D, bool ok, float (&r)[F]) {
+  if constexpr (VEC && std::is_same<S, float>::value) {
 #pragma unroll
     for (int i = 0; i < F; i += 4) {
       const float4 t =
@@ -517,9 +570,55 @@ __device__ __forceinline__ void fwd_load(const float* x, int f0, int D, bool ok,
       r[i + 2] = t.z;
       r[i + 3] = t.w;
     }
+  } else if constexpr (VEC && F % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < F; i += 8) {
+      const uint4 t = ok ? __ldg(reinterpret_cast<const uint4*>(x + i)) : make_uint4(0u, 0u, 0u, 0u);
+      r[i] = bf_lo(t.x);
+      r[i + 1] = bf_hi(t.x);
+      r[i + 2] = bf_lo(t.y);
+      r[i + 3] = bf_hi(t.y);
+      r[i + 4] = bf_lo(t.z);
+      r[i + 5] = bf_hi(t.z);
+      r[i + 6] = bf_lo(t.w);
+      r[i + 7] = bf_hi(t.w);
+    }
+  } else if constexpr (VEC) {
+    static_assert(F == 4, "bf16 runs load 4 values as 8 bytes, or 8 as 16");
+    const uint2 t = ok ? __ldg(reinterpret_cast<const uint2*>(x)) : make_uint2(0u, 0u);
+    r[0] = bf_lo(t.x);
+    r[1] = bf_hi(t.x);
+    r[2] = bf_lo(t.y);
+    r[3] = bf_hi(t.y);
   } else {
 #pragma unroll
-    for (int i = 0; i < F; ++i) r[i] = ok && f0 + i < D ? __ldg(x + i) : 0.f;
+    for (int i = 0; i < F; ++i) r[i] = ok && f0 + i < D ? ldg_f(x + i) : 0.f;
+  }
+}
+
+// Store the lane's run of F outputs acc * inv at o, rounded to S once. VEC
+// as for fwd_load.
+template <int F, bool VEC, typename S>
+__device__ __forceinline__ void fwd_store(S* o, const float (&acc)[F], float inv, int f0, int D) {
+  if constexpr (VEC && std::is_same<S, float>::value) {
+#pragma unroll
+    for (int i = 0; i < F; i += 4)
+      *reinterpret_cast<float4*>(o + i) =
+          make_float4(acc[i] * inv, acc[i + 1] * inv, acc[i + 2] * inv, acc[i + 3] * inv);
+  } else if constexpr (VEC && F % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < F; i += 8)
+      *reinterpret_cast<uint4*>(o + i) =
+          make_uint4(bf_pack(acc[i] * inv, acc[i + 1] * inv), bf_pack(acc[i + 2] * inv, acc[i + 3] * inv),
+                     bf_pack(acc[i + 4] * inv, acc[i + 5] * inv), bf_pack(acc[i + 6] * inv, acc[i + 7] * inv));
+  } else if constexpr (VEC) {
+    static_assert(F == 4, "bf16 runs store 4 values as 8 bytes, or 8 as 16");
+    *reinterpret_cast<uint2*>(o) =
+        make_uint2(bf_pack(acc[0] * inv, acc[1] * inv), bf_pack(acc[2] * inv, acc[3] * inv));
+  } else {
+#pragma unroll
+    for (int i = 0; i < F; ++i)
+      if (f0 + i < D) o[i] = from_f<S>(acc[i] * inv);
   }
 }
 
@@ -528,7 +627,8 @@ __device__ __forceinline__ int fwd_key(int dst) { return dst < 0 ? INT_MAX : dst
 
 // Stage tile `tile`'s window (dst_rel, src_rel, attributes) behind the
 // rows' first slots, with cp.async, and wait for it.
-__device__ __forceinline__ void stage_tile(const FwdParams& p, long long tile, unsigned* fsm) {
+template <typename S>
+__device__ __forceinline__ void stage_tile(const FwdParams<S>& p, long long tile, unsigned* fsm) {
   const auto words = [](const void* x) { return reinterpret_cast<const unsigned*>(x); };
   unsigned* base = fsm + fwd_pad4(p.rows + 3);
   fwd_stage(base, words(p.dst_rel + tile * p.EB), p.EB, p.vec_win);
@@ -554,8 +654,8 @@ __device__ __forceinline__ int fwd_lower_bound(const int* dst, int n, int r, int
 
 // One live row group of K3: rows r0 .. r0 + rows of tile t of sample b.
 // AT: the attribute columns when fixed at compile time (0: p.A).
-template <int F, int C, bool VEC, int AT>
-__device__ __forceinline__ void group_rows(const FwdParams& p, int b, int t, int r0, int rows,
+template <typename S, int F, int C, bool VEC, int AT>
+__device__ __forceinline__ void group_rows(const FwdParams<S>& p, int b, int t, int r0, int rows,
                                            long long out0, unsigned* fsm) {
   const int HD = p.H * p.D;
   constexpr int NA = AT > 0 ? AT : kMaxA;
@@ -596,8 +696,8 @@ __device__ __forceinline__ void group_rows(const FwdParams& p, int b, int t, int
   const int ipw = 32 / p.lanes_item;
   const int items = rows * p.slices;
   const float* keep = p.keep != nullptr ? p.keep + tile * p.KH * p.EB : nullptr;
-  const float* kb = p.k + static_cast<long long>(b) * p.n_max * HD;
-  const float* vb = p.v + static_cast<long long>(b) * p.n_max * HD;
+  const S* kb = p.k + static_cast<long long>(b) * p.n_max * HD;
+  const S* vb = p.v + static_cast<long long>(b) * p.n_max * HD;
   for (int i0 = 0; i0 < items; i0 += p.warps * ipw) {  // uniform across the CTA
     const int item = i0 + warp * ipw + lane / p.lanes_item;
     const int ri = item / p.slices;
@@ -696,23 +796,13 @@ __device__ __forceinline__ void group_rows(const FwdParams& p, int b, int t, int
 #pragma unroll
         for (int i = 0; i < F; ++i) acc[i] = fmaf(om[a], wr[i], acc[i]);
       }
-      float* o = p.out + orow;
-      if constexpr (VEC) {
-#pragma unroll
-        for (int i = 0; i < F; i += 4)
-          *reinterpret_cast<float4*>(o + i) =
-              make_float4(acc[i] * inv, acc[i + 1] * inv, acc[i + 2] * inv, acc[i + 3] * inv);
-      } else {
-#pragma unroll
-        for (int i = 0; i < F; ++i)
-          if (f0 + i < p.D) o[i] = acc[i] * inv;
-      }
+      fwd_store<F, VEC>(p.out + orow, acc, inv, f0, p.D);
     }
   }
 }
 
-template <int F, int C, bool VEC, int AT>
-__global__ void __launch_bounds__(kFwdMaxWarps * 32, 2) attn_fwd_kernel(FwdParams p) {
+template <typename S, int F, int C, bool VEC, int AT>
+__global__ void __launch_bounds__(kFwdMaxWarps * 32, 2) attn_fwd_kernel(FwdParams<S> p) {
   extern __shared__ __align__(16) unsigned fsm[];
   __shared__ int live_s[kFwdLive];
   for (int i = threadIdx.x; i < min(p.B, kFwdLive); i += blockDim.x) live_s[i] = __ldg(p.live + i);
@@ -735,7 +825,7 @@ __global__ void __launch_bounds__(kFwdMaxWarps * 32, 2) attn_fwd_kernel(FwdParam
       fwd_zero(p.out + out0, static_cast<long long>(rows) * HD, p.vec_out);
       continue;
     }
-    group_rows<F, C, VEC, AT>(p, b, t, r0, rows, out0, fsm);
+    group_rows<S, F, C, VEC, AT>(p, b, t, r0, rows, out0, fsm);
   }
 }
 
@@ -766,73 +856,139 @@ int fwd_resident(const void* kernel, int block, int smem) {
 
 // Launch K3 with one CTA per resident slot (at most one per row group);
 // grid[0] receives the CTA count.
-template <int F, int C, bool VEC, int AT>
-cudaError_t launch_fwd(const FwdParams& p, int n_groups, int smem, cudaStream_t stream,
+template <typename S, int F, int C, bool VEC, int AT>
+cudaError_t launch_fwd(const FwdParams<S>& p, int n_groups, int smem, cudaStream_t stream,
                        int* grid) {
-  const void* kernel = reinterpret_cast<const void*>(attn_fwd_kernel<F, C, VEC, AT>);
+  const void* kernel = reinterpret_cast<const void*>(attn_fwd_kernel<S, F, C, VEC, AT>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_fwd_kernel<F, C, VEC, AT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        attn_fwd_kernel<S, F, C, VEC, AT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const int resident = fwd_resident(kernel, 32 * p.warps, smem);
   if (resident < 1) return cudaErrorInvalidConfiguration;
   *grid = min(n_groups, resident);
-  attn_fwd_kernel<F, C, VEC, AT><<<*grid, 32 * p.warps, smem, stream>>>(p);
+  attn_fwd_kernel<S, F, C, VEC, AT><<<*grid, 32 * p.warps, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // A = 2 (the quadtree meshes' edge attributes) is compiled apart.
-template <int F, int C>
-cudaError_t launch_fwd_run(const FwdParams& p, bool vec, int n_groups, int smem,
+template <typename S, int F, int C>
+cudaError_t launch_fwd_run(const FwdParams<S>& p, bool vec, int n_groups, int smem,
                            cudaStream_t stream, int* grid) {
   if constexpr (F % 4 == 0) {
     if (vec)
-      return p.A == 2 ? launch_fwd<F, C, true, 2>(p, n_groups, smem, stream, grid)
-                      : launch_fwd<F, C, true, 0>(p, n_groups, smem, stream, grid);
+      return p.A == 2 ? launch_fwd<S, F, C, true, 2>(p, n_groups, smem, stream, grid)
+                      : launch_fwd<S, F, C, true, 0>(p, n_groups, smem, stream, grid);
   }
-  return p.A == 2 ? launch_fwd<F, C, false, 2>(p, n_groups, smem, stream, grid)
-                  : launch_fwd<F, C, false, 0>(p, n_groups, smem, stream, grid);
+  return p.A == 2 ? launch_fwd<S, F, C, false, 2>(p, n_groups, smem, stream, grid)
+                  : launch_fwd<S, F, C, false, 0>(p, n_groups, smem, stream, grid);
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
-bool bad_geometry(const Params& p) {
+template <typename S>
+bool bad_geometry(const Params<S>& p) {
   return p.rows < 1 || p.rows > kMaxRows || p.A < 1 || p.A > kMaxA || p.H < 1 || p.D < 1 ||
          p.KH < 0 || p.KH > p.H || (p.KH == 0) != (p.keep == nullptr) || p.NT < 1 ||
          p.H * p.D > 512;
 }
 
-template <int FPL>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
+template <typename S, int FPL>
+cudaError_t launch(const Params<S>& p, int B, cudaStream_t stream) {
   const int HD = p.H * p.D;
   const dim3 grid(p.T * ((p.NT + p.rows - 1) / p.rows), B);
   const size_t smem =
       sizeof(float) * (p.A * HD + kWarps * (2 * HD + 2 * p.H) + kWarps * p.A * HD);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attn_bwd_kernel<FPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        attn_bwd_kernel<S, FPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  attn_bwd_kernel<FPL><<<grid, kThreads, smem, stream>>>(p);
+  attn_bwd_kernel<S, FPL><<<grid, kThreads, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_src_width(p, B, stream);
 }
 
-int dispatch(const Params& p, int B, void* stream) {
+template <typename S>
+int dispatch(const Params<S>& p, int B, void* stream) {
   if (bad_geometry(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || p.T == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int fpl = (p.H * p.D + 31) / 32;
   cudaError_t err;
-  if (fpl <= 1) err = launch<1>(p, B, s);
-  else if (fpl <= 2) err = launch<2>(p, B, s);
-  else if (fpl <= 4) err = launch<4>(p, B, s);
-  else if (fpl <= 8) err = launch<8>(p, B, s);
-  else err = launch<16>(p, B, s);
+  if (fpl <= 1) err = launch<S, 1>(p, B, s);
+  else if (fpl <= 2) err = launch<S, 2>(p, B, s);
+  else if (fpl <= 4) err = launch<S, 4>(p, B, s);
+  else if (fpl <= 8) err = launch<S, 8>(p, B, s);
+  else err = launch<S, 16>(p, B, s);
   return static_cast<int>(err);
+}
+
+// K3 on storage type S with the plan run .. chunk (ops/attn.py fwd_plan);
+// geometry as for qtm_attn_fwd.
+template <typename S>
+int attn_fwd(const S* q, const S* k, const S* v, const S* we, const float* keep, const int* s0,
+             const int* src_rel, const int* dst_rel, const float* attr, const int* live, S* out,
+             int B, int T, int EB, int NT, int SW, int n_max, int H, int D, int A, int KH, int run,
+             int lanes_head, int heads_item, int lanes_item, int slices, int warps, int rows,
+             int chunk, float scale, void* stream, int* geometry) {
+  const long long smem = 4LL * fwd_smem_words(rows, EB, A);
+  const long long n_groups = static_cast<long long>(B) * T * ((NT + rows - 1) / max(rows, 1));
+  if (B < 0 || T < 0 || EB < 1 || NT < 1 || n_max < 1 || A < 1 || A > kMaxA || H < 1 ||
+      D < 1 || H * D > 512 || KH < 0 || KH > H || (KH == 0) != (keep == nullptr) ||
+      !fwd_instance(run, chunk) || !pow2(lanes_head) ||
+      lanes_head > 32 || lanes_head * run < D || heads_item < 1 || !pow2(lanes_item) ||
+      lanes_item > 32 || heads_item * lanes_head > lanes_item || slices < 1 ||
+      slices * heads_item < H || warps < 1 || warps > kFwdMaxWarps || rows < 1 || rows > NT ||
+      smem > 227 * 1024 || n_groups > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const bool vec = run % 4 == 0 && D % run == 0 && aligned(q) && aligned(k) && aligned(v) &&
+                   aligned(out);
+  const int vec_out = (H * D * sizeof(S)) % 16 == 0 && aligned(out);
+  const int vec_win = EB % 4 == 0 && aligned(src_rel) && aligned(dst_rel) && aligned(attr);
+  int grid = 0;
+  cudaError_t err = cudaSuccess;
+  if (n_groups > 0) {
+    const FwdParams<S> p{q,     k,          v,          we,         keep,   s0,    src_rel, dst_rel,
+                         attr,  live,       out,        B,          T,      EB,    NT,      SW,
+                         n_max, H,          D,          A,          KH,     lanes_head,
+                         heads_item,        lanes_item, slices,     warps,  rows,  vec_out, vec_win,
+                         scale};
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int g = static_cast<int>(n_groups), sm = static_cast<int>(smem);
+    switch (run) {
+      case 1: err = launch_fwd_run<S, 1, 16>(p, vec, g, sm, s, &grid); break;
+      case 2: err = launch_fwd_run<S, 2, 8>(p, vec, g, sm, s, &grid); break;
+      case 4:
+        err = chunk == 4 ? launch_fwd_run<S, 4, 4>(p, vec, g, sm, s, &grid)
+                         : launch_fwd_run<S, 4, 8>(p, vec, g, sm, s, &grid);
+        break;
+      case 8: err = launch_fwd_run<S, 8, 4>(p, vec, g, sm, s, &grid); break;
+      default: err = launch_fwd_run<S, 16, 2>(p, vec, g, sm, s, &grid); break;
+    }
+  }
+  if (geometry != nullptr) {
+    const int gm[8] = {grid, static_cast<int>(n_groups), 32 * warps, static_cast<int>(smem),
+                       run, chunk, vec, vec_win};
+    for (int i = 0; i < 8; ++i) geometry[i] = gm[i];
+  }
+  return static_cast<int>(err);
+}
+
+template <typename S>
+int attn_bwd(const S* q, const S* k, const S* v, const S* we, const float* keep, const int* s0,
+             const int* src_rel, const int* dst_rel, const float* attr, const int* live,
+             const S* g, const int* order, const int* offsets, S* dq, S* dk, S* dv, float* dlog,
+             float* used, float* dwe_part, int B, int T, int EB, int NT, int SW, int n_max, int H,
+             int D, int A, int KH, int rows, float scale, void* stream) {
+  const Params<S> p{q,    k,        v,     we,      keep, s0, src_rel, dst_rel, attr, live,
+                    g,    dq,       dlog,  used,    dwe_part, order, offsets, dk, dv, T,
+                    EB,   NT,       SW,    n_max,   H,    D,  A,       KH,      rows, scale};
+  return dispatch(p, B, stream);
 }
 
 }  // namespace
@@ -848,48 +1004,24 @@ extern "C" int qtm_attn_fwd(const float* q, const float* k, const float* v, cons
                             int KH, int run, int lanes_head, int heads_item, int lanes_item,
                             int slices, int warps, int rows, int chunk, float scale,
                             void* stream, int* geometry) {
-  const long long smem = 4LL * fwd_smem_words(rows, EB, A);
-  const long long n_groups = static_cast<long long>(B) * T * ((NT + rows - 1) / max(rows, 1));
-  if (B < 0 || T < 0 || EB < 1 || NT < 1 || n_max < 1 || A < 1 || A > kMaxA || H < 1 ||
-      D < 1 || H * D > 512 || KH < 0 || KH > H || (KH == 0) != (keep == nullptr) ||
-      !fwd_instance(run, chunk) || !pow2(lanes_head) ||
-      lanes_head > 32 || lanes_head * run < D || heads_item < 1 || !pow2(lanes_item) ||
-      lanes_item > 32 || heads_item * lanes_head > lanes_item || slices < 1 ||
-      slices * heads_item < H || warps < 1 || warps > kFwdMaxWarps || rows < 1 || rows > NT ||
-      smem > 227 * 1024 || n_groups > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
-  const bool vec = run % 4 == 0 && D % run == 0 && aligned(q) && aligned(k) && aligned(v) &&
-                   aligned(out);
-  const int vec_out = (H * D) % 4 == 0 && aligned(out);
-  const int vec_win = EB % 4 == 0 && aligned(src_rel) && aligned(dst_rel) && aligned(attr);
-  int grid = 0;
-  cudaError_t err = cudaSuccess;
-  if (n_groups > 0) {
-    const FwdParams p{q,     k,          v,          we,         keep,   s0,    src_rel, dst_rel,
-                      attr,  live,       out,        B,          T,      EB,    NT,      SW,
-                      n_max, H,          D,          A,          KH,     lanes_head,
-                      heads_item,        lanes_item, slices,     warps,  rows,  vec_out, vec_win,
-                      scale};
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int g = static_cast<int>(n_groups), sm = static_cast<int>(smem);
-    switch (run) {
-      case 1: err = launch_fwd_run<1, 16>(p, vec, g, sm, s, &grid); break;
-      case 2: err = launch_fwd_run<2, 8>(p, vec, g, sm, s, &grid); break;
-      case 4:
-        err = chunk == 4 ? launch_fwd_run<4, 4>(p, vec, g, sm, s, &grid)
-                         : launch_fwd_run<4, 8>(p, vec, g, sm, s, &grid);
-        break;
-      case 8: err = launch_fwd_run<8, 4>(p, vec, g, sm, s, &grid); break;
-      default: err = launch_fwd_run<16, 2>(p, vec, g, sm, s, &grid); break;
-    }
-  }
-  if (geometry != nullptr) {
-    const int gm[8] = {grid, static_cast<int>(n_groups), 32 * warps, static_cast<int>(smem),
-                       run, chunk, vec, vec_win};
-    for (int i = 0; i < 8; ++i) geometry[i] = gm[i];
-  }
-  return static_cast<int>(err);
+  return attn_fwd<float>(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out, B, T, EB, NT,
+                         SW, n_max, H, D, A, KH, run, lanes_head, heads_item, lanes_item, slices,
+                         warps, rows, chunk, scale, stream, geometry);
+}
+
+// the same with q, k, v, We and out in bf16 (keep and attr stay f32)
+extern "C" int qtm_attn_fwd_bf16(const void* q, const void* k, const void* v, const void* we,
+                                 const float* keep, const int* s0, const int* src_rel,
+                                 const int* dst_rel, const float* attr, const int* live, void* out,
+                                 int B, int T, int EB, int NT, int SW, int n_max, int H, int D,
+                                 int A, int KH, int run, int lanes_head, int heads_item,
+                                 int lanes_item, int slices, int warps, int rows, int chunk,
+                                 float scale, void* stream, int* geometry) {
+  return attn_fwd<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                        static_cast<const bf16*>(v), static_cast<const bf16*>(we), keep, s0,
+                        src_rel, dst_rel, attr, live, static_cast<bf16*>(out), B, T, EB, NT, SW,
+                        n_max, H, D, A, KH, run, lanes_head, heads_item, lanes_item, slices, warps,
+                        rows, chunk, scale, stream, geometry);
 }
 
 // order (B*T*EB) and offsets (B, n_max + 1): the source-sorted slot view
@@ -901,8 +1033,23 @@ extern "C" int qtm_attn_bwd(const float* q, const float* k, const float* v, cons
                             float* dk, float* dv, float* dlog, float* used, float* dwe_part,
                             int B, int T, int EB, int NT, int SW, int n_max, int H, int D, int A,
                             int KH, int rows, float scale, void* stream) {
-  const Params p{q,    k,        v,     we,      keep, s0, src_rel, dst_rel, attr, live,
-                 g,    dq,       dlog,  used,    dwe_part, order, offsets, dk, dv, T,
-                 EB,   NT,       SW,    n_max,   H,    D,  A,       KH,      rows, scale};
-  return dispatch(p, B, stream);
+  return attn_bwd<float>(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, g, order, offsets,
+                         dq, dk, dv, dlog, used, dwe_part, B, T, EB, NT, SW, n_max, H, D, A, KH,
+                         rows, scale, stream);
+}
+
+// the same with q, k, v, We, g, dq, dk and dv in bf16 (keep, attr, dlog,
+// used and the dWe partials stay f32)
+extern "C" int qtm_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* we,
+                                 const float* keep, const int* s0, const int* src_rel,
+                                 const int* dst_rel, const float* attr, const int* live,
+                                 const void* g, const int* order, const int* offsets, void* dq,
+                                 void* dk, void* dv, float* dlog, float* used, float* dwe_part,
+                                 int B, int T, int EB, int NT, int SW, int n_max, int H, int D,
+                                 int A, int KH, int rows, float scale, void* stream) {
+  const auto in = [](const void* x) { return static_cast<const bf16*>(x); };
+  const auto out = [](void* x) { return static_cast<bf16*>(x); };
+  return attn_bwd<bf16>(in(q), in(k), in(v), in(we), keep, s0, src_rel, dst_rel, attr, live,
+                        in(g), order, offsets, out(dq), out(dk), out(dv), dlog, used, dwe_part, B,
+                        T, EB, NT, SW, n_max, H, D, A, KH, rows, scale, stream);
 }

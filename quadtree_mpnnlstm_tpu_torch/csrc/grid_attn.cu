@@ -71,12 +71,53 @@
 // allocate nothing; each entry point returns cudaGetLastError() (or
 // cudaErrorInvalidValue for a geometry it does not take) so that the Python
 // wrapper raises on a refused launch.
+//
+// bf16 (qtm_grid_attn_fwd_bf16, qtm_grid_attn_bwd_bf16; the TPU kernels on
+// bf16 q, k, v, e, valid and g): both kernels are templated on the storage
+// type T of those and of the outputs out, dq, dk and dv. bf16 rows are
+// widened on load into the same f32 shared rows as the f32 kernels' (8-byte
+// loads of 4 values where the f32 path copies 16 bytes with cp.async, so
+// the strides, the tiles and the shared memory are f32's; a thread keeps
+// four loads in flight before it stores them, since one dependent load at
+// a time cost K6 1.4x f32's time), every product, sum and the softmax run
+// in f32 in the f32 kernels' order, and each output is rounded to bf16
+// once, on store, as the TPU kernel casts its f32 results once. So K5 in bf16 is the f32 result of its bf16 inputs rounded once,
+// and bit-identical to grid_attn_plain's wherever the f32 kernel is. keep
+// and the de partials stay f32. The f32 instances are the f32 kernels
+// unchanged.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// A stored value as f32 (bf16 widens exactly), and an f32 rounded to the
+// storage type (bf16: to nearest even, once).
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+template <typename S>
+__device__ __forceinline__ S from_f(float x) {
+  if constexpr (std::is_same<S, float>::value) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// The two bf16 values of a 32-bit word (the first in the low half) as f32,
+// and two f32 rounded to bf16 and packed so.
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ unsigned bf_pack(float a, float b) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(b))) << 16);
+}
 
 constexpr int kThreads = 256;  // threads of a K5 or K6 CTA
 constexpr int kMaxH = 256;     // features per pixel
@@ -102,45 +143,99 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pr
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 
+// Four bf16 values (8 bytes, 8-byte aligned) at x, or zeros when !in; a
+// lone bf16 value in the low half when !vec4.
+__device__ __forceinline__ uint2 load_bf16(const bf16* x, bool in, bool vec4) {
+  if (!in) return make_uint2(0u, 0u);
+  if (vec4) return __ldg(reinterpret_cast<const uint2*>(x));
+  return make_uint2(__ldg(reinterpret_cast<const unsigned short*>(x)), 0u);
+}
+
+// Widen what load_bf16 read into the f32 shared row at dst (16-byte aligned
+// when vec4).
+__device__ __forceinline__ void store_widened(float* dst, uint2 t, bool vec4) {
+  if (vec4)
+    *reinterpret_cast<float4*>(dst) = make_float4(bf_lo(t.x), bf_hi(t.x), bf_lo(t.y), bf_hi(t.y));
+  else
+    *dst = bf_lo(t.x);
+}
+
 // Stage rows [f0, f0 + gw) of a (and of b, unless bs is null) for the
-// w-wide pixel region with origin (r0, c0) into rows of stride S; zero
+// w-wide pixel region with origin (r0, c0) into f32 rows of stride S; zero
 // outside the grid and, where vld is given, at masked pixels, whose rows
 // are then not fetched: vld holds the staged validity of a vw-wide region
-// whose origin lies voff pixels up and left of (r0, c0). vec4: 16-byte
-// copies (gw, S, H and f0 multiples of 4, 16-byte aligned tensors).
-__device__ __forceinline__ void stage_rows(float* as, float* bs, const float* a, const float* b,
+// whose origin lies voff pixels up and left of (r0, c0). vec4: 4 values a
+// copy (gw, S, H and f0 multiples of 4, 16-byte aligned tensors). f32 rows
+// go by cp.async (16-byte copies at vec4); bf16 rows are loaded, widened
+// and stored by the threads (8-byte loads at vec4), kBf16Loads copies a
+// thread in flight before their stores.
+constexpr int kBf16Loads = 4;
+
+template <typename T>
+__device__ __forceinline__ void stage_rows(float* as, float* bs, const T* a, const T* b,
                                            long long base, int H, int f0, int gw, int S,
                                            int r0, int c0, int w, int n, int rows, int cols,
                                            bool vec4, const float* vld = nullptr, int vw = 0,
                                            int voff = 0) {
   const int step = vec4 ? 4 : 1;
   const int per = gw / step;
-  for (int x = threadIdx.x; x < n * per; x += kThreads) {
+  // copy x: its shared offset (-1 past the region) and its offset in a, b
+  const auto locate = [&](int x, int& dst, long long& at, bool& in) {
     const int px = x / per, f = (x - px * per) * step;
     const int r = r0 + px / w, c = c0 + px % w;
-    const bool in = r >= 0 && r < rows && c >= 0 && c < cols &&
-                    (vld == nullptr || vld[(px / w + voff) * vw + px % w + voff] != 0.f);
-    const long long at = in ? (base + r * cols + c) * H + f0 + f : 0;
-    if (vec4) {
-      cp_async16(as + px * S + f, a + at, in);
-      if (bs != nullptr) cp_async16(bs + px * S + f, b + at, in);
-    } else {
-      cp_async4(as + px * S + f, a + at, in);
-      if (bs != nullptr) cp_async4(bs + px * S + f, b + at, in);
+    dst = x < n * per ? px * S + f : -1;
+    in = dst >= 0 && r >= 0 && r < rows && c >= 0 && c < cols &&
+         (vld == nullptr || vld[(px / w + voff) * vw + px % w + voff] != 0.f);
+    at = in ? (base + r * cols + c) * H + f0 + f : 0;
+  };
+  if constexpr (std::is_same<T, float>::value) {
+    for (int x = threadIdx.x; x < n * per; x += kThreads) {
+      int dst;
+      long long at;
+      bool in;
+      locate(x, dst, at, in);
+      if (vec4) {
+        cp_async16(as + dst, a + at, in);
+        if (bs != nullptr) cp_async16(bs + dst, b + at, in);
+      } else {
+        cp_async4(as + dst, a + at, in);
+        if (bs != nullptr) cp_async4(bs + dst, b + at, in);
+      }
+    }
+  } else {
+    for (int x0 = threadIdx.x; x0 < n * per; x0 += kBf16Loads * kThreads) {
+      int dst[kBf16Loads];
+      uint2 ta[kBf16Loads], tb[kBf16Loads];
+#pragma unroll
+      for (int u = 0; u < kBf16Loads; ++u) {  // the loads first, all in flight
+        long long at;
+        bool in;
+        locate(x0 + u * kThreads, dst[u], at, in);
+        ta[u] = load_bf16(a + at, in, vec4);
+        tb[u] = bs != nullptr ? load_bf16(b + at, in, vec4) : make_uint2(0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kBf16Loads; ++u) {
+        if (dst[u] < 0) continue;
+        store_widened(as + dst[u], ta[u], vec4);
+        if (bs != nullptr) store_widened(bs + dst[u], tb[u], vec4);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------- K5
 
+// K5's operands; T is the storage type of q, k, v, e, valid and out
+template <typename T>
 struct FwdParams {
-  const float* q;      // (B, P, H)
-  const float* k;
-  const float* v;
-  const float* e;      // (ND, H) per-direction edge terms
-  const float* valid;  // (P,) 1 = valid pixel
+  const T* q;          // (B, P, H)
+  const T* k;
+  const T* v;
+  const T* e;          // (ND, H) per-direction edge terms
+  const T* valid;      // (P,) 1 = valid pixel
   const float* keep;   // (B, ND, P, heads) or null (no dropout)
-  float* out;          // (B, P, H)
+  T* out;              // (B, P, H)
   int rows, cols, heads, d;
   int hpg;             // heads of one CTA's feature group
   int tr, tc;          // the CTA's pixel tile
@@ -217,8 +312,8 @@ __device__ __forceinline__ void load_run(const float* src, float (&x)[N]) {
 // fusing a product into a sum, so K5 and its plain version agree bit for
 // bit. D, HPG, TR and TC fix the head width, the heads of a group and the
 // tile at compile time for the flagship's widths; 0 reads them from p.
-template <int ND, int RUN, int D, int HPG, int TR, int TC>
-__global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
+template <typename T, int ND, int RUN, int D, int HPG, int TR, int TC>
+__global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams<T> p) {
   extern __shared__ __align__(16) float smem[];
   const int d = D ? D : p.d, hpg = HPG ? HPG : p.hpg;
   const int tr = TR ? TR : p.tr, tc = TC ? TC : p.tc;
@@ -248,10 +343,10 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
   // ---- stage: validity first, so that masked pixels' rows are skipped
   for (int x = threadIdx.x; x < n1; x += kThreads) {
     const int r = r0 - 1 + x / w1, c = c0 - 1 + x % w1;
-    vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? p.valid[r * p.cols + c] : 0.f;
+    vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? to_f(p.valid[r * p.cols + c]) : 0.f;
   }
   for (int x = threadIdx.x; x < ND * gw; x += kThreads)
-    e_s[x] = p.e[(x / gw) * H + f0 + x % gw];
+    e_s[x] = to_f(p.e[(x / gw) * H + f0 + x % gw]);
   if (p.keep != nullptr) {
     for (int x = threadIdx.x; x < ND * nt * gh; x += kThreads) {
       const int i = x / (nt * gh), rest = x - i * nt * gh, px = rest / gh, hh = rest - px * gh;
@@ -263,9 +358,9 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
     }
   }
   __syncthreads();
-  stage_rows(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
+  stage_rows<T>(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
              p.vec4, vld, w1, 0);
-  stage_rows(qs, nullptr, p.q, nullptr, base, H, f0, gw, S, r0, c0, tc, nt, p.rows, p.cols,
+  stage_rows<T>(qs, nullptr, p.q, nullptr, base, H, f0, gw, S, r0, c0, tc, nt, p.rows, p.cols,
              p.vec4, vld, w1, 1);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -324,7 +419,7 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
     }
     // out = sum over the directions, in order, of alpha * keep * (v + e);
     // den >= 1 wherever a direction has an edge
-    float* o = p.out + (base + r * p.cols + c) * H + f0 + fo;
+    T* o = p.out + (base + r * p.cols + c) * H + f0 + fo;
     if constexpr (RUN > 0) {
       float acc[RUN];
 #pragma unroll
@@ -343,12 +438,19 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
           acc[j] = __fadd_rn(acc[j], __fmul_rn(used, __fadd_rn(vv[j], ev[j])));
       }
       if (RUN % 4 == 0 && p.vec4) {
+        if constexpr (std::is_same<T, float>::value) {
 #pragma unroll
-        for (int j = 0; j < RUN; j += 4)
-          *reinterpret_cast<float4*>(o + j) = make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+          for (int j = 0; j < RUN; j += 4)
+            *reinterpret_cast<float4*>(o + j) = make_float4(acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
+        } else {  // bf16: 8 bytes a store (o is aligned to the run's 8 or 16 bytes)
+#pragma unroll
+          for (int j = 0; j < RUN; j += 4)
+            *reinterpret_cast<uint2*>(o + j) =
+                make_uint2(bf_pack(acc[j], acc[j + 1]), bf_pack(acc[j + 2], acc[j + 3]));
+        }
       } else {
 #pragma unroll
-        for (int j = 0; j < RUN; ++j) o[j] = acc[j];
+        for (int j = 0; j < RUN; ++j) o[j] = from_f<T>(acc[j]);
       }
     } else {
       float used[ND];
@@ -365,7 +467,7 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
           const int s1 = p1 - shift_r(i) * w1 - shift_c(i);
           acc = __fadd_rn(acc, __fmul_rn(used[i], __fadd_rn(vs[s1 * S + fo + x], e_s[i * gw + fo + x])));
         }
-        o[x] = acc;
+        o[x] = from_f<T>(acc);
       }
     }
   }
@@ -373,17 +475,19 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams p) {
 
 // ---------------------------------------------------------------- K6
 
+// K6's operands; T is the storage type of q, k, v, e, valid, g, dq, dk and dv
+template <typename T>
 struct BwdParams {
-  const float* q;      // (B, P, H)
-  const float* k;
-  const float* v;
-  const float* e;      // (ND, H) per-direction edge terms
-  const float* valid;  // (P,) 1 = valid pixel
+  const T* q;          // (B, P, H)
+  const T* k;
+  const T* v;
+  const T* e;          // (ND, H) per-direction edge terms
+  const T* valid;      // (P,) 1 = valid pixel
   const float* keep;   // (B, ND, P, heads) or null (no dropout)
-  const float* g;      // the cotangent (B, P, H)
-  float* dq;           // (B, P, H)
-  float* dk;
-  float* dv;
+  const T* g;          // the cotangent (B, P, H)
+  T* dq;               // (B, P, H)
+  T* dk;
+  T* dv;
   float* de_part;      // (B, tiles, ND, H): one partial a (tile, feature group)
   int rows, cols, heads, d;
   int hpg;             // heads of one CTA's feature group
@@ -421,8 +525,8 @@ __host__ __device__ inline long long bwd_smem_floats(int nd, int hpg, int d, int
 // TC fix the head width, the heads of a group and the tile at compile time
 // for the flagship's widths, so that the index arithmetic folds; 0 reads
 // them from p (any geometry, a ragged last group included).
-template <int ND, int LPI, int D, int HPG, int TR, int TC>
-__global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams p) {
+template <typename T, int ND, int LPI, int D, int HPG, int TR, int TC>
+__global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams<T> p) {
   extern __shared__ float smem[];
   const int d = D ? D : p.d, hpg = HPG ? HPG : p.hpg;
   const int tr = TR ? TR : p.tr, tc = TC ? TC : p.tc;
@@ -450,9 +554,9 @@ __global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams p) {
   const long long base = static_cast<long long>(b) * P;
 
   // ---- stage: every operand of the tile is read from device memory once
-  stage_rows(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 2, c0 - 2, w2, n2, p.rows, p.cols,
+  stage_rows<T>(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 2, c0 - 2, w2, n2, p.rows, p.cols,
              p.vec4);
-  stage_rows(qs, gs, p.q, p.g, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
+  stage_rows<T>(qs, gs, p.q, p.g, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
              p.vec4);
   if (p.keep != nullptr) {
     for (int x = threadIdx.x; x < ND * n1 * gh; x += kThreads) {
@@ -465,10 +569,10 @@ __global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams p) {
     }
   }
   for (int x = threadIdx.x; x < ND * gw; x += kThreads)
-    e_s[x] = p.e[(x / gw) * H + f0 + x % gw];
+    e_s[x] = to_f(p.e[(x / gw) * H + f0 + x % gw]);
   for (int x = threadIdx.x; x < n2; x += kThreads) {
     const int r = r0 - 2 + x / w2, c = c0 - 2 + x % w2;
-    vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? p.valid[r * p.cols + c] : 0.f;
+    vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? to_f(p.valid[r * p.cols + c]) : 0.f;
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -572,9 +676,9 @@ __global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams p) {
       de[i] = fmaf(dl, qf, fmaf(uss[(i * n1 + p1) * hpg + hh], gf, de[i]));
     }
     const long long o = (base + r * p.cols + c) * H + f0 + f;
-    p.dq[o] = dq;
-    p.dk[o] = dk;
-    p.dv[o] = dv;
+    p.dq[o] = from_f<T>(dq);
+    p.dk[o] = from_f<T>(dk);
+    p.dv[o] = from_f<T>(dv);
   }
   // the pstep rows of (ND, gw) de terms, summed by a fixed pairwise tree
   if (g < pstep) {
@@ -594,12 +698,12 @@ __global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams p) {
     part[(x / gw) * H + f0 + x % gw] = red[x];
 }
 
-template <int ND, int RUN, int D, int HPG, int TR, int TC>
-cudaError_t launch_fwd(const FwdParams& p, int B, cudaStream_t stream) {
+template <typename T, int ND, int RUN, int D, int HPG, int TR, int TC>
+cudaError_t launch_fwd(const FwdParams<T>& p, int B, cudaStream_t stream) {
   const int tiles = ((p.rows + p.tr - 1) / p.tr) * ((p.cols + p.tc - 1) / p.tc);
   const dim3 grid(tiles * ((p.heads + p.hpg - 1) / p.hpg), B);
   const size_t smem = sizeof(float) * fwd_smem_floats(ND, p.hpg, p.d, p.tr, p.tc);
-  auto* kernel = grid_attn_fwd_kernel<ND, RUN, D, HPG, TR, TC>;
+  auto* kernel = grid_attn_fwd_kernel<T, ND, RUN, D, HPG, TR, TC>;
   static size_t allowed = 48 * 1024;  // this instance's dynamic shared-memory limit so far
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -614,27 +718,27 @@ cudaError_t launch_fwd(const FwdParams& p, int B, cudaStream_t stream) {
 // The flagship's widths (d 32 one head a group on 8 x 8 tiles; d 1 one head
 // on 8 x 32 tiles) take kernels with their geometry fixed at compile time;
 // any other geometry the general one of its lane run.
-template <int ND>
-cudaError_t launch_fwd_width(const FwdParams& p, int B, cudaStream_t s) {
+template <typename T, int ND>
+cudaError_t launch_fwd_width(const FwdParams<T>& p, int B, cudaStream_t s) {
   if (p.d == 32 && p.hpg == 1 && p.tr == 8 && p.tc == 8)
-    return launch_fwd<ND, 8, 32, 1, 8, 8>(p, B, s);
+    return launch_fwd<T, ND, 8, 32, 1, 8, 8>(p, B, s);
   if (p.d == 1 && p.hpg == 1 && p.tr == 8 && p.tc == 32)
-    return launch_fwd<ND, 1, 1, 1, 8, 32>(p, B, s);
+    return launch_fwd<T, ND, 1, 1, 1, 8, 32>(p, B, s);
   switch (fwd_run(p.d)) {
-    case 8: return launch_fwd<ND, 8, 0, 0, 0, 0>(p, B, s);
-    case 4: return launch_fwd<ND, 4, 0, 0, 0, 0>(p, B, s);
-    case 2: return launch_fwd<ND, 2, 0, 0, 0, 0>(p, B, s);
-    case 1: return launch_fwd<ND, 1, 0, 0, 0, 0>(p, B, s);
-    default: return launch_fwd<ND, 0, 0, 0, 0, 0>(p, B, s);
+    case 8: return launch_fwd<T, ND, 8, 0, 0, 0, 0>(p, B, s);
+    case 4: return launch_fwd<T, ND, 4, 0, 0, 0, 0>(p, B, s);
+    case 2: return launch_fwd<T, ND, 2, 0, 0, 0, 0>(p, B, s);
+    case 1: return launch_fwd<T, ND, 1, 0, 0, 0, 0>(p, B, s);
+    default: return launch_fwd<T, ND, 0, 0, 0, 0, 0>(p, B, s);
   }
 }
 
-template <int ND, int LPI, int D, int HPG, int TR, int TC>
-cudaError_t launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
+template <typename T, int ND, int LPI, int D, int HPG, int TR, int TC>
+cudaError_t launch_bwd(const BwdParams<T>& p, int B, cudaStream_t stream) {
   const int tiles = ((p.rows + p.tr - 1) / p.tr) * ((p.cols + p.tc - 1) / p.tc);
   const dim3 grid(tiles, (p.heads + p.hpg - 1) / p.hpg, B);
   const size_t smem = sizeof(float) * bwd_smem_floats(ND, p.hpg, p.d, p.tr, p.tc);
-  auto* kernel = grid_attn_bwd_kernel<ND, LPI, D, HPG, TR, TC>;
+  auto* kernel = grid_attn_bwd_kernel<T, ND, LPI, D, HPG, TR, TC>;
   static size_t allowed = 48 * 1024;  // this instance's dynamic shared-memory limit so far
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -649,16 +753,16 @@ cudaError_t launch_bwd(const BwdParams& p, int B, cudaStream_t stream) {
 // The flagship's widths (d 32 one head a group on 8 x 8 tiles; d 1 one head
 // on 8 x 32 tiles) take kernels with their geometry fixed at compile time;
 // any other geometry the general one.
-template <int ND>
-cudaError_t launch_bwd_width(const BwdParams& p, int B, cudaStream_t s) {
+template <typename T, int ND>
+cudaError_t launch_bwd_width(const BwdParams<T>& p, int B, cudaStream_t s) {
   if (p.d == 32 && p.hpg == 1 && p.tr == 8 && p.tc == 8)
-    return launch_bwd<ND, 4, 32, 1, 8, 8>(p, B, s);
+    return launch_bwd<T, ND, 4, 32, 1, 8, 8>(p, B, s);
   if (p.d == 1 && p.hpg == 1 && p.tr == 8 && p.tc == 32)
-    return launch_bwd<ND, 1, 1, 1, 8, 32>(p, B, s);
+    return launch_bwd<T, ND, 1, 1, 1, 8, 32>(p, B, s);
   switch (bwd_lpi(p.d)) {
-    case 4: return launch_bwd<ND, 4, 0, 0, 0, 0>(p, B, s);
-    case 2: return launch_bwd<ND, 2, 0, 0, 0, 0>(p, B, s);
-    default: return launch_bwd<ND, 1, 0, 0, 0, 0>(p, B, s);
+    case 4: return launch_bwd<T, ND, 4, 0, 0, 0, 0>(p, B, s);
+    case 2: return launch_bwd<T, ND, 2, 0, 0, 0, 0>(p, B, s);
+    default: return launch_bwd<T, ND, 1, 0, 0, 0, 0>(p, B, s);
   }
 }
 
@@ -667,6 +771,48 @@ bool bad_geometry(int rows, int cols, int heads, int d, int nd, int B) {
          (nd != 4 && nd != 8) || B < 0 || B > 65535;
 }
 
+template <typename T>
+int grid_attn_fwd(const T* q, const T* k, const T* v, const T* e, const T* valid,
+                  const float* keep, T* out, int B, int rows, int cols, int heads, int d, int nd,
+                  int hpg, int tr, int tc, float scale, void* stream) {
+  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
+      sizeof(float) * fwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024 ||
+      static_cast<long long>((rows + tr - 1) / tr) * ((cols + tc - 1) / tc) *
+              ((heads + hpg - 1) / hpg) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  // 4-value row copies and run stores: runs of 4 or 8 features, aligned tensors
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const int vec4 = fwd_run(d) >= 4 && aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  const FwdParams<T> p{q, k, v, e, valid, keep, out, rows, cols, heads, d, hpg, tr, tc, vec4,
+                       scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(nd == 4 ? launch_fwd_width<T, 4>(p, B, s)
+                                  : launch_fwd_width<T, 8>(p, B, s));
+}
+
+template <typename T>
+int grid_attn_bwd(const T* q, const T* k, const T* v, const T* e, const T* valid,
+                  const float* keep, const T* g, T* dq, T* dk, T* dv, float* de_part, int B,
+                  int rows, int cols, int heads, int d, int nd, int hpg, int tr, int tc,
+                  float scale, void* stream) {
+  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
+      sizeof(float) * bwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  // 4-value row copies: whole 4-value chunks, 16-byte aligned tensors
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const int vec4 = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(g);
+  const BwdParams<T> p{q, k, v, e, valid, keep, g, dq, dk, dv, de_part,
+                       rows, cols, heads, d, hpg, tr, tc, vec4, scale};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(nd == 4 ? launch_bwd_width<T, 4>(p, B, s)
+                                  : launch_bwd_width<T, 8>(p, B, s));
+}
+
+const bf16* in(const void* x) { return static_cast<const bf16*>(x); }
+bf16* out(void* x) { return static_cast<bf16*>(x); }
+
 }  // namespace
 
 // hpg, tr, tc: the feature group (whole heads) and pixel tile of one CTA.
@@ -674,18 +820,17 @@ extern "C" int qtm_grid_attn_fwd(const float* q, const float* k, const float* v,
                                  const float* valid, const float* keep, float* out, int B,
                                  int rows, int cols, int heads, int d, int nd, int hpg, int tr,
                                  int tc, float scale, void* stream) {
-  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
-      sizeof(float) * fwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024 ||
-      static_cast<long long>((rows + tr - 1) / tr) * ((cols + tc - 1) / tc) *
-              ((heads + hpg - 1) / hpg) > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  // 16-byte row copies and stores: runs of 4 or 8 features, aligned tensors
-  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
-  const int vec4 = fwd_run(d) >= 4 && aligned(q) && aligned(k) && aligned(v) && aligned(out);
-  const FwdParams p{q, k, v, e, valid, keep, out, rows, cols, heads, d, hpg, tr, tc, vec4, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(nd == 4 ? launch_fwd_width<4>(p, B, s) : launch_fwd_width<8>(p, B, s));
+  return grid_attn_fwd<float>(q, k, v, e, valid, keep, out, B, rows, cols, heads, d, nd, hpg, tr,
+                              tc, scale, stream);
+}
+
+// the same with q, k, v, e, valid and out in bf16 (keep stays f32)
+extern "C" int qtm_grid_attn_fwd_bf16(const void* q, const void* k, const void* v, const void* e,
+                                      const void* valid, const float* keep, void* o, int B,
+                                      int rows, int cols, int heads, int d, int nd, int hpg,
+                                      int tr, int tc, float scale, void* stream) {
+  return grid_attn_fwd<bf16>(in(q), in(k), in(v), in(e), in(valid), keep, out(o), B, rows, cols,
+                             heads, d, nd, hpg, tr, tc, scale, stream);
 }
 
 // hpg, tr, tc: the feature group (whole heads) and pixel tile of one CTA;
@@ -695,15 +840,18 @@ extern "C" int qtm_grid_attn_bwd(const float* q, const float* k, const float* v,
                                  float* dk, float* dv, float* de_part, int B, int rows, int cols,
                                  int heads, int d, int nd, int hpg, int tr, int tc, float scale,
                                  void* stream) {
-  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
-      sizeof(float) * bwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return 0;
-  // 16-byte row copies: whole 4-float chunks, 16-byte aligned rows
-  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
-  const int vec4 = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(g);
-  const BwdParams p{q, k, v, e, valid, keep, g, dq, dk, dv, de_part,
-                    rows, cols, heads, d, hpg, tr, tc, vec4, scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(nd == 4 ? launch_bwd_width<4>(p, B, s) : launch_bwd_width<8>(p, B, s));
+  return grid_attn_bwd<float>(q, k, v, e, valid, keep, g, dq, dk, dv, de_part, B, rows, cols,
+                              heads, d, nd, hpg, tr, tc, scale, stream);
+}
+
+// the same with q, k, v, e, valid, g, dq, dk and dv in bf16 (keep and the
+// de partials stay f32)
+extern "C" int qtm_grid_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* e,
+                                      const void* valid, const float* keep, const void* g,
+                                      void* dq, void* dk, void* dv, float* de_part, int B,
+                                      int rows, int cols, int heads, int d, int nd, int hpg,
+                                      int tr, int tc, float scale, void* stream) {
+  return grid_attn_bwd<bf16>(in(q), in(k), in(v), in(e), in(valid), keep, in(g), out(dq),
+                             out(dk), out(dv), de_part, B, rows, cols, heads, d, nd, hpg, tr, tc,
+                             scale, stream);
 }

@@ -22,17 +22,16 @@ GATE_STACKS = {"ChebConv": FusedGateConvStack, "TransformerConv": FusedAttnGateS
 
 class GConvLSTM(nn.Module):
     """Peephole graph-conv LSTM with the fused gate stack of its
-    convolution type (ChebConv or TransformerConv). ``dtype`` is the
-    ChebConv stack's compute dtype; peepholes, biases and the cell state
-    join the gates' dtype, as in the flax module."""
+    convolution type (ChebConv or TransformerConv). ``dtype`` is the gate
+    stack's compute dtype; peepholes, biases and the cell state join the
+    gates' dtype, as in the flax module."""
 
     def __init__(self, in_channels: int, out_channels: int, n_conv_layers: int = 1,
                  convolution_type: str = "ChebConv", dtype: torch.dtype = torch.float32):
         super().__init__()
         d = out_channels
-        stack = GATE_STACKS[convolution_type]
-        kw = {"dtype": dtype} if stack is FusedGateConvStack else {}
-        self.gates = stack(in_channels, d, d, n_conv_layers, 4, **kw)
+        self.gates = GATE_STACKS[convolution_type](in_channels, d, d, n_conv_layers, 4,
+                                                   dtype=dtype)
         for name in ("w_c_i", "w_c_f", "w_c_o", "b_i", "b_f", "b_c", "b_o"):
             self.register_parameter(name, nn.Parameter(torch.zeros(1, d)))
 

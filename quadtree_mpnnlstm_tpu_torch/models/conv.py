@@ -240,14 +240,19 @@ class TransformerConv(nn.Module):
     """Graph transformer (UniMP-style) attention conv. Parameters follow
     the flax module: ``lin_query``, ``lin_key``, ``lin_value`` (with
     bias), ``lin_edge`` (no bias; the edge projection Wₑ is its kernel, what
-    the flax module gets by applying it to the identity) and ``lin_skip``."""
+    the flax module gets by applying it to the identity) and ``lin_skip``.
+    ``dtype`` is the compute dtype: the input and each float32 master
+    parameter (Wₑ included) are cast to it at use, as flax's ``dtype``
+    does; the attention then runs on q, k, v and Wₑ in that dtype."""
 
     def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
                  concat: bool = True, dropout: float = 0.0, edge_dim: Optional[int] = None,
-                 root_weight: bool = True, use_bias: bool = True):
+                 root_weight: bool = True, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.heads, self.out_channels = heads, out_channels
         self.concat, self.dropout = concat, dropout
+        self.dtype = dtype
         hd = heads * out_channels
         self.lin_query = nn.Linear(in_channels, hd)
         self.lin_key = nn.Linear(in_channels, hd)
@@ -256,17 +261,23 @@ class TransformerConv(nn.Module):
         self.lin_skip = (nn.Linear(in_channels, hd if concat else out_channels, bias=use_bias)
                          if root_weight else None)
 
+    def _dense(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+        bias = None if lin.bias is None else lin.bias.to(self.dtype)
+        return nn.functional.linear(x, lin.weight.to(self.dtype), bias)
+
     def forward(self, x: torch.Tensor, graph: GraphTensors,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, d = self.heads, self.out_channels
-        we = None if self.lin_edge is None else self.lin_edge.weight.t()  # (A, h·d)
+        x = x.to(self.dtype)
+        we = None if self.lin_edge is None else self.lin_edge.weight.t().to(self.dtype)  # (A, h·d)
         out = multi_stream_attention(
-            self.lin_query(x), self.lin_key(x), self.lin_value(x), we, graph, h, d,
+            self._dense(self.lin_query, x), self._dense(self.lin_key, x),
+            self._dense(self.lin_value, x), we, graph, h, d,
             dropout=self.dropout, training=self.training, generator=generator,
         )
         out = out.reshape(out.shape[:-2] + (h * d,)) if self.concat else out.mean(dim=-2)
         if self.lin_skip is not None:
-            out = out + self.lin_skip(x)
+            out = out + self._dense(self.lin_skip, x)
         return out
 
 

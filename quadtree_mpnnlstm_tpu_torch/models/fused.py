@@ -102,14 +102,17 @@ class FusedAttnGateStack(nn.Module):
     projections ``w_e_x_0``/``w_e_h_0`` (g, A, d) and the skip
     ``w_s_{x,h}_0``/``b_s_{x,h}_0``; layer l ≥ 1 has ``w_{q,k,v,s}_l``
     (2g, d, d), ``b_{q,k,v,s}_l`` (2g, d) and ``w_e_l`` (2g, A, d).
+    ``dtype`` is the compute dtype: x, h and each float32 master parameter
+    are cast to it at use, as flax's ``dtype`` does.
     """
 
     def __init__(self, x_channels: int, h_channels: int, out_channels: int,
-                 n_layers: int = 1, n_gates: int = 4):
+                 n_layers: int = 1, n_gates: int = 4, dtype: torch.dtype = torch.float32):
         super().__init__()
         kwargs = CONVOLUTION_KWARGS["TransformerConv"]
         g, d, a = n_gates, out_channels, kwargs["edge_dim"]
         self.n_gates, self.n_layers, self.dropout = g, n_layers, kwargs["dropout"]
+        self.dtype = dtype
         for name in ("q", "k", "v", "s"):
             for side, f in (("x", x_channels), ("h", h_channels)):
                 self.register_parameter(f"w_{name}_{side}_0", nn.Parameter(torch.zeros(g, f, d)))
@@ -127,9 +130,10 @@ class FusedAttnGateStack(nn.Module):
         g = self.n_gates
         s = 2 * g
         b, n = x.shape[:2]
+        x, h = x.to(self.dtype), h.to(self.dtype)
 
-        def param(name):
-            return getattr(self, name)
+        def param(name):  # a master parameter in the compute dtype
+            return getattr(self, name).to(self.dtype)
 
         def proj0(name):  # per-gate projections of X and of H → (B, N, 2g, width)
             return torch.cat([
@@ -152,7 +156,7 @@ class FusedAttnGateStack(nn.Module):
             )
             return out  # heads = 1 per stream: the mean over heads is the identity
 
-        we0 = torch.cat([self.w_e_x_0, self.w_e_h_0], dim=0)
+        we0 = torch.cat([param("w_e_x_0"), param("w_e_h_0")], dim=0)
         streams = attend(proj0("q"), proj0("k"), proj0("v"), we0) + proj0("s")
         for layer in range(1, self.n_layers):
             streams = attend(proj("q", streams, layer), proj("k", streams, layer),

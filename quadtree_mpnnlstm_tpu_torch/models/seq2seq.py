@@ -26,11 +26,13 @@ Reference quirks kept from the JAX package:
     node_size]`` on the same mesh, and a teacher-forced step appends the
     *raw pixel count* as the size channel, not ``resolution**2``.
 
-``ModelConfig.compute_dtype="bfloat16"`` (ChebConv on quadtree meshes)
+``ModelConfig.compute_dtype="bfloat16"`` (ChebConv on quadtree meshes or
+the pixelwise grid; TransformerConv on attention windows or the grid)
 casts the inputs to bf16 before the positional encoding, as the JAX
-package's compute boundary does; the graph build, node features and
-recurrence then run in bf16, LayerNorm normalises in f32, and ``decode``
-returns its frames in f32.
+package's compute boundary does; the graph build, node features,
+convolutions, attention and recurrence then run in bf16 (f32 masters cast
+at use), LayerNorm normalises in f32, and ``decode`` returns its frames in
+f32.
 
 Training mode (``model.train()``) turns on the decoder head's dropout and,
 with TransformerConv, the attention dropout of every encoder and decoder
@@ -127,17 +129,17 @@ def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
                 f"this path runs {field} in {values!r}"
             )
     if cfg.compute_dtype == "bfloat16":
-        # the bf16 paths of the attention kernels (K3/K4 on windows, the
-        # edge-list attention) and of the grid's (K5/K6) are still to port
-        if cfg.convolution_type != "ChebConv":
+        # bf16 runs on the kernels' meshes: Â blocks or edge lists (ChebConv)
+        # and attention windows (TransformerConv) on quadtrees, the grid on
+        # the pixelwise mesh; the edge-list attention is still to port
+        edge_list = (gcfg.aggregation == "xla" if gcfg.pixelwise else
+                     cfg.convolution_type == "TransformerConv" and not gcfg.attn_windows)
+        if edge_list:
             raise ValueError(
-                f"ModelConfig.compute_dtype='bfloat16' with {cfg.convolution_type} is not "
-                "ported (ROADMAP Queue 2 B: the bf16 paths of K3/K4); bf16 runs ChebConv")
-        if gcfg.pixelwise:
-            raise ValueError(
-                "ModelConfig.compute_dtype='bfloat16' on the pixelwise mesh (grid or edge "
-                "list) is not ported (ROADMAP Queue 2 B: the bf16 paths of K5/K6); bf16 runs "
-                "on quadtree meshes")
+                f"ModelConfig.compute_dtype='bfloat16' with {cfg.convolution_type} on the "
+                f"{'pixelwise' if gcfg.pixelwise else 'quadtree'} edge list is not ported "
+                "(ROADMAP Queue 1 item 2); bf16 runs on the grid (aggregation='grid') and, "
+                "with TransformerConv, on attention windows (attn_windows=True)")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
 
@@ -192,9 +194,7 @@ class Decoder(nn.Module):
         # 1 layer deep
         _make_cells(self, cfg, 4, 1)
         conv_cls = CONVOLUTIONS[cfg.convolution_type]
-        kwargs = dict(CONVOLUTION_KWARGS[cfg.convolution_type])
-        if cfg.convolution_type == "ChebConv":
-            kwargs["dtype"] = cfg.cdtype
+        kwargs = dict(CONVOLUTION_KWARGS[cfg.convolution_type], dtype=cfg.cdtype)
         self.fc_out1 = conv_cls(h + concat_channels, h, **kwargs)
         self.fc_out2 = conv_cls(h, 1, **kwargs)
         self.norm_o = LayerNorm(h)

@@ -21,8 +21,15 @@ every (slot, head) window entry, or is None for no dropout.
 Everything carries a leading batch axis (one mesh per sample, one launch
 per batch). Dispatch is by device: a CUDA tensor launches the kernel (and
 raises if it cannot be built or launched); a CPU tensor runs the plain
-version. Each kernel launch adds one to :data:`LAUNCHES`. K3's launch
-geometry is :func:`fwd_plan`'s, a pure function of the widths.
+version. Each kernel launch adds one to :data:`LAUNCHES` (a bf16 launch to
+:data:`LAUNCHES_BF16`). K3's launch geometry is :func:`fwd_plan`'s, a pure
+function of the widths.
+
+q, k, v and Wₑ (and the cotangent) are float32 or bfloat16, all four in
+one dtype; the window attributes and ``keep`` stay float32. In bf16 both
+kernels and their plain versions widen the operands to f32, compute in f32
+and round each output (out, dq, dk, dv) to bf16 once; dWₑ is summed in f32
+and then cast to Wₑ's dtype, as the JAX package's kernels do.
 
 :class:`AttnApply` makes the aggregation differentiable in q, k, v and Wₑ
 on both devices: its backward (K4) recomputes α (flash-style), writes dq,
@@ -50,8 +57,10 @@ from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import (
     segment_view,
 )
 
-# kernel launches since the last reset_launch_counts(), by wrapper name
+# kernel launches since the last reset_launch_counts(), by wrapper name:
+# the f32 kernels' and the bf16 kernels'
 LAUNCHES = {"attn_apply": 0, "attn_apply_bwd": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
 
 # destination rows per CTA of K4's first kernel; feature width and attribute
 # columns both kernels accept (csrc/attn.cu kMaxRows, 32 lanes x 16
@@ -68,8 +77,9 @@ SMEM_LIMIT = 227 * 1024
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
 
 
 class AttnMeta(NamedTuple):
@@ -139,6 +149,7 @@ class FwdPlan(NamedTuple):
     rows_cta: int     # destination rows a CTA
     chunk: int        # slots a lane has in flight (FWD_INSTANCES)
     groups_sample: int  # row groups a sample (a CTA's unit): tiles × ⌈NT / rows_cta⌉
+    vec_bytes: int    # bytes of one load of a lane's run where runs are vectors, else 0
 
 
 def _pow2ceil(n: int) -> int:
@@ -166,14 +177,17 @@ def _fwd_run(heads: int, d: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def fwd_plan(dims: AttnDims) -> FwdPlan:
-    """K3's CTA geometry for these widths. A head takes ``lanes_head`` lanes
+def fwd_plan(dims: AttnDims, itemsize: int = 4) -> FwdPlan:
+    """K3's CTA geometry for these widths and ``itemsize``-byte operands
+    (4: f32, 2: bf16). A head takes ``lanes_head`` lanes
     of ``run`` features (d 16: 4 × 4; d 32 at 8 heads: 4 × 8; d 1: one lane),
     a row's heads share a warp where they fit (slices of heads where they do
     not), and narrow rows pack a warp (HD 128: 2 rows, HD 16: 8, HD 1: 32).
     A row group is 32 rows (64 at 32 rows a warp; fewer when a row takes
     several items), so that a 128-row live tile gives 2–4 groups; a CTA
-    runs it with up to 8 warps (HD 128: 2 passes of 16 rows)."""
+    runs it with up to 8 warps (HD 128: 2 passes of 16 rows). The geometry
+    is the same in bf16; where d % 4 == 0 a lane's run is read as vectors of
+    up to 16 bytes (``vec_bytes``: f32 16; bf16 8 at run 4, 16 above)."""
     heads, d = dims.heads, dims.d
     run = _fwd_run(heads, d)
     lanes_head = _pow2ceil(-(-d // run))
@@ -188,8 +202,9 @@ def fwd_plan(dims: AttnDims) -> FwdPlan:
     # at run 4, one that holds several takes 8 (its rows' largest count)
     chunks = [c for r, c in FWD_INSTANCES if r == run]
     chunk = max(chunks) if items_warp > 1 else min(chunks)
+    vec_bytes = min(16, run * itemsize) if run % 4 == 0 and d % run == 0 else 0
     return FwdPlan(run, lanes_head, heads_item, lanes_item, slices, items_warp, warps, rows,
-                   chunk, tiles * -(-dims.nt // rows))
+                   chunk, tiles * -(-dims.nt // rows), vec_bytes)
 
 
 def fwd_smem_bytes(dims: AttnDims, a: int = MAX_A) -> int:
@@ -250,9 +265,13 @@ def attn_plain(q, k, v, we, keep: Optional[torch.Tensor], meta: AttnMeta,
     """K3's function in plain PyTorch, over the window slots: gather k/v at
     the sources and q at the destinations, per-head logits, a softmax per
     destination with a detached max, and fixed-order segment sums. O(slots
-    · HD) memory. q, k, v: (B, n_max, heads·d); we: (A, heads·d)."""
+    · HD) memory. q, k, v: (B, n_max, heads·d); we: (A, heads·d). bf16
+    operands are widened to f32 and the output is rounded to q's dtype
+    once."""
     n_max, heads, d = dims.n_max, dims.heads, dims.d
     b = q.shape[0]
+    dtype = q.dtype
+    q, k, v, we = (x.float() for x in (q, k, v, we))
     dst, src = slot_nodes(meta, dims)
     slots = dst.shape[1]
     attr = meta.attr.reshape(b, slots, -1)
@@ -274,25 +293,29 @@ def attn_plain(q, k, v, we, keep: Optional[torch.Tensor], meta: AttnMeta,
     if keep is not None:
         alpha = alpha * _slot_keep(keep, heads)
     out = segment_sum_plain(alpha[..., None] * vj, dst, n_max)  # (B, n_max, heads, d)
-    return out.reshape(b, n_max, heads * d)
+    return out.reshape(b, n_max, heads * d).to(dtype)
 
 
 def attn_bwd_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=None):
     """K4's function in plain PyTorch: autograd through :func:`attn_plain`,
-    recomputed from the saved inputs. Returns (dq, dk, dv, dwe). ``view``
-    (the kernel's slot view) is not needed here."""
+    recomputed from the saved inputs. Returns (dq, dk, dv, dwe), each in
+    its input's dtype (bf16: the f32 gradient rounded once). ``view`` (the
+    kernel's slot view) is not needed here."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v, we)]
         return torch.autograd.grad(attn_plain(*leaves, keep, meta, dims), leaves, g)
 
 
 def attn_bwd_slots_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
-    """K4's first kernel in plain PyTorch, written out: dq, the per-slot
-    scalars dlog = dlogit·scale and used = α·keep (B, T·EB, heads; 0 where
-    a slot contributes nothing) and dWₑ. With :func:`attn_combine_plain` it
-    gives :func:`attn_bwd_plain`'s function."""
+    """K4's first kernel in plain PyTorch, written out: dq (in q's dtype),
+    the per-slot scalars dlog = dlogit·scale and used = α·keep (B, T·EB,
+    heads, f32; 0 where a slot contributes nothing) and dWₑ (summed in f32,
+    in we's dtype). With :func:`attn_combine_plain` it gives
+    :func:`attn_bwd_plain`'s function."""
     n_max, heads, d = dims.n_max, dims.heads, dims.d
     b = q.shape[0]
+    dtype, we_dtype = q.dtype, we.dtype
+    q, k, v, we, g = (x.float() for x in (q, k, v, we, g))
     scale = 1.0 / float(d) ** 0.5
     dst, src = slot_nodes(meta, dims)
     slots = dst.shape[1]
@@ -320,29 +343,33 @@ def attn_bwd_slots_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
     dq = segment_sum_plain((dlog[..., None] * kj).reshape(b, slots, heads * d), dst, n_max)
     per_slot = (dlog[..., None] * qi + used[..., None] * gi).reshape(b, slots, heads * d)
     dwe = torch.einsum("bsa,bsf->af", attr, per_slot)
-    return dq, dlog, used, dwe
+    return dq.to(dtype), dlog, used, dwe.to(we_dtype)
 
 
 def attn_combine_plain(dlog, used, q, g, meta: AttnMeta, dims: AttnDims):
     """K4's second kernel in plain PyTorch: dk[s] = Σ_j dlog_j·q[dst_j] and
     dv[s] = Σ_j used_j·g[dst_j] over the slots j whose source is s, by the
-    sort-based plain segment sum. Returns (dk, dv)."""
+    sort-based plain segment sum, in f32. Returns (dk, dv) in q's dtype."""
     n_max, heads, d = dims.n_max, dims.heads, dims.d
     b = q.shape[0]
+    dtype = q.dtype
+    q, g = q.float(), g.float()
     dst, src = slot_nodes(meta, dims)
     slots = dst.shape[1]
     qi = gather_nodes(q, dst, n_max, routed=False).reshape(b, slots, heads, d)
     gi = gather_nodes(g, dst, n_max, routed=False).reshape(b, slots, heads, d)
     dk = segment_sum_plain((dlog[..., None] * qi).reshape(b, slots, heads * d), src, n_max)
     dv = segment_sum_plain((used[..., None] * gi).reshape(b, slots, heads * d), src, n_max)
-    return dk, dv
+    return dk.to(dtype), dv.to(dtype)
 
 
 # ------------------------------------------------------- CUDA kernels
 
 
 def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
-    """Check the operands of both kernels; returns (lib, pointers, ints)."""
+    """Check the operands of both kernels: q, k, v and we in one dtype,
+    float32 or bfloat16, the windows and keep float32. Returns (lib,
+    pointers, ints, the entry points' suffix)."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     n_max, nt, eb, sw, heads, d = dims
@@ -352,10 +379,12 @@ def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
     if not 1 <= hd <= MAX_HD or not 1 <= a <= MAX_A:
         raise ValueError(f"attention kernels take 1 ≤ heads·d ≤ {MAX_HD} and 1 ≤ A ≤ {MAX_A}; "
                          f"got heads·d={hd}, A={a}")
+    if q.dtype not in spmm.KERNEL_DTYPES:
+        raise TypeError(f"attention kernels take float32 or bfloat16 q, not {q.dtype}")
     check = spmm._check
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        check(x, name, torch.float32, (b, n_max, hd))
-    check(we, "we", torch.float32, (a, hd))
+        check(x, name, q.dtype, (b, n_max, hd))
+    check(we, "we", q.dtype, (a, hd))
     check(meta.s0, "s0", torch.int32, (b, t))
     check(meta.src_rel, "src_rel", torch.int32, (b, t, eb))
     check(meta.dst_rel, "dst_rel", torch.int32, (b, t, eb))
@@ -372,7 +401,7 @@ def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
     ptrs.append(ctypes.c_void_p(None if keep is None else keep.data_ptr()))
     ptrs += [spmm._ptr(x) for x in meta]
     ints = (b, t, eb, nt, sw, n_max, heads, d, a, kh)
-    return load_library("attn.cu"), ptrs, ints
+    return load_library("attn.cu"), ptrs, ints, spmm.KERNEL_DTYPES[q.dtype]
 
 
 def _scale(d: int) -> ctypes.c_float:
@@ -385,36 +414,39 @@ FWD_GEOMETRY = ("ctas", "groups", "block", "smem", "run", "chunk", "vec", "vec_w
 def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims,
                    plan: Optional[FwdPlan] = None, geometry: Optional[dict] = None
                    ) -> torch.Tensor:
-    """Launch K3 (``qtm_attn_fwd``) with ``plan`` (default
-    :func:`fwd_plan`): as many CTAs as the card holds at once (at most one
-    per row group), each walking row groups of (sample, tile, rows). When
-    ``geometry`` is a dict it receives what the kernel launched
-    (:data:`FWD_GEOMETRY`: CTAs, row groups, threads a CTA, shared bytes,
-    run, chunk, and whether rows and windows moved 16 bytes a copy)."""
-    lib, ptrs, ints = _launch_args(q, k, v, we, keep, meta, dims)
-    plan = fwd_plan(dims) if plan is None else plan
+    """Launch K3 (``qtm_attn_fwd``, or ``_bf16`` for bf16 operands) with
+    ``plan`` (default :func:`fwd_plan`): as many CTAs as the card holds at
+    once (at most one per row group), each walking row groups of (sample,
+    tile, rows). When ``geometry`` is a dict it receives what the kernel
+    launched (:data:`FWD_GEOMETRY`: CTAs, row groups, threads a CTA, shared
+    bytes, run, chunk, and whether rows were read as vectors and windows
+    moved 16 bytes a copy)."""
+    lib, ptrs, ints, suffix = _launch_args(q, k, v, we, keep, meta, dims)
+    plan = fwd_plan(dims, q.element_size()) if plan is None else plan
     if fwd_smem_bytes(dims, meta.attr.shape[-1]) > SMEM_LIMIT:
         raise ValueError(f"attn_apply: EB={dims.eb} needs more shared memory than a CTA has")
     out = torch.empty_like(q)
     launched = (ctypes.c_int * len(FWD_GEOMETRY))()
-    err = lib.qtm_attn_fwd(*ptrs, spmm._ptr(out), *ints, plan.run, plan.lanes_head,
-                           plan.heads_item, plan.lanes_item, plan.slices, plan.warps,
-                           plan.rows_cta, plan.chunk, _scale(dims.d), spmm._stream(), launched)
+    err = getattr(lib, "qtm_attn_fwd" + suffix)(
+        *ptrs, spmm._ptr(out), *ints, plan.run, plan.lanes_head, plan.heads_item,
+        plan.lanes_item, plan.slices, plan.warps, plan.rows_cta, plan.chunk, _scale(dims.d),
+        spmm._stream(), launched)
     spmm._raise_on(err, "attn_apply")
-    LAUNCHES["attn_apply"] += 1
+    (LAUNCHES_BF16 if suffix else LAUNCHES)["attn_apply"] += 1
     if geometry is not None:
         geometry.update(zip(FWD_GEOMETRY, launched))
     return out
 
 
 def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=None):
-    """Launch K4 (``qtm_attn_bwd``: the per-destination kernel, which
-    writes dq, the per-slot scalars and the per-CTA dWₑ partials, then the
-    per-source kernel, which gathers dk and dv over ``view``, the slots'
-    :func:`slot_view`, built here when None) and sum the dWₑ partials in a
-    fixed order. Returns (dq, dk, dv, dwe)."""
-    lib, ptrs, ints = _launch_args(q, k, v, we, keep, meta, dims)
-    spmm._check(g, "g", torch.float32, tuple(q.shape))
+    """Launch K4 (``qtm_attn_bwd``, or ``_bf16`` for bf16 operands: the
+    per-destination kernel, which writes dq, the per-slot scalars and the
+    per-CTA dWₑ partials, then the per-source kernel, which gathers dk and
+    dv over ``view``, the slots' :func:`slot_view`, built here when None)
+    and sum the f32 dWₑ partials in a fixed order. Returns (dq, dk, dv, dwe)
+    in q's dtype."""
+    lib, ptrs, ints, suffix = _launch_args(q, k, v, we, keep, meta, dims)
+    spmm._check(g, "g", q.dtype, tuple(q.shape))
     b, t, eb = meta.dst_rel.shape
     a, hd = we.shape
     if view is None:
@@ -425,13 +457,13 @@ def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=No
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     scalars = torch.empty((2, b, t * eb, dims.heads), dtype=torch.float32, device=q.device)
     dwe_part = torch.empty((b, t * groups, a, hd), dtype=torch.float32, device=q.device)
-    err = lib.qtm_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(view.order), spmm._ptr(view.offsets),
-                           spmm._ptr(dq), spmm._ptr(dk), spmm._ptr(dv), spmm._ptr(scalars[0]),
-                           spmm._ptr(scalars[1]), spmm._ptr(dwe_part), *ints, ROWS_PER_CTA,
-                           _scale(dims.d), spmm._stream())
+    err = getattr(lib, "qtm_attn_bwd" + suffix)(
+        *ptrs, spmm._ptr(g), spmm._ptr(view.order), spmm._ptr(view.offsets), spmm._ptr(dq),
+        spmm._ptr(dk), spmm._ptr(dv), spmm._ptr(scalars[0]), spmm._ptr(scalars[1]),
+        spmm._ptr(dwe_part), *ints, ROWS_PER_CTA, _scale(dims.d), spmm._stream())
     spmm._raise_on(err, "attn_apply_bwd")
-    LAUNCHES["attn_apply_bwd"] += 1
-    return dq, dk, dv, dwe_part.sum(dim=(0, 1))
+    (LAUNCHES_BF16 if suffix else LAUNCHES)["attn_apply_bwd"] += 1
+    return dq, dk, dv, dwe_part.sum(dim=(0, 1)).to(we.dtype)
 
 
 # ------------------------------------------------------- dispatch
@@ -471,11 +503,11 @@ def attn_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.Tens
     Replaces ``attn_apply`` (``_attn_impl``/``_fwd_kernel`` forward,
     ``_attn_bwd``/``_bwd_kernel`` backward) of
     ``quadtree_mpnnlstm_tpu/ops/pallas_attn.py``. q, k, v: (B, n_max,
-    heads·d) f32; we: (A, heads·d); keep: (B, T, KH, EB) keep-scale
-    windows, or None for no dropout; ``view``: the windows'
-    :func:`slot_view` (the graph's ``slot_view``), which the card's
-    backward builds when None. Returns (B, n_max, heads·d);
-    differentiable in q, k, v and we.
+    heads·d) f32 or bf16; we: (A, heads·d) in q's dtype; keep: (B, T, KH,
+    EB) f32 keep-scale windows, or None for no dropout; ``view``: the
+    windows' :func:`slot_view` (the graph's ``slot_view``), which the
+    card's backward builds when None. Returns (B, n_max, heads·d) in q's
+    dtype; differentiable in q, k, v and we.
     """
     order, offsets = (None, None) if view is None else view
     return AttnApply.apply(q, k, v, we, keep, *meta, order, offsets, dims)

@@ -49,17 +49,21 @@ SIGNATURES = {
         # head, heads an item, lanes an item, slices, warps, rows, chunk;
         # scale, stream, geometry (host int[8] or null)
         "qtm_attn_fwd": [_P] * 11 + [_C] * 18 + [ctypes.c_float, _P, _P],
+        "qtm_attn_fwd_bf16": [_P] * 11 + [_C] * 18 + [ctypes.c_float, _P, _P],
         # ... live, g, view order, view offsets, dq, dk, dv, dlog, used,
         # dwe_part, B, ..., rows, scale, stream
         "qtm_attn_bwd": [_P] * 19 + [_C] * 11 + [ctypes.c_float, _P],
+        "qtm_attn_bwd_bf16": [_P] * 19 + [_C] * 11 + [ctypes.c_float, _P],
     },
     "grid_attn.cu": {
         # q, k, v, e_dir, valid, keep, out,
         # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
         "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 9 + [ctypes.c_float, _P],
+        "qtm_grid_attn_fwd_bf16": [_P] * 7 + [_C] * 9 + [ctypes.c_float, _P],
         # q, k, v, e_dir, valid, keep, g, dq, dk, dv, de_part,
         # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
         "qtm_grid_attn_bwd": [_P] * 11 + [_C] * 9 + [ctypes.c_float, _P],
+        "qtm_grid_attn_bwd_bf16": [_P] * 11 + [_C] * 9 + [ctypes.c_float, _P],
     },
     "segment.cu": {
         # values, order (or null), offsets, out, B, n_out, F, stream

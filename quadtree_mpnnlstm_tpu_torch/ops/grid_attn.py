@@ -21,7 +21,15 @@ Dispatch is by device: a CUDA tensor launches the kernel, and raises if it
 cannot be built or launched or if the shape is one it does not take (H
 above :data:`MAX_H`); a CPU tensor runs the plain version. There is no
 fall back: the JAX package's VMEM and vmap gates are TPU limits. Each
-kernel launch adds one to :data:`LAUNCHES`.
+kernel launch adds one to :data:`LAUNCHES` (a bf16 launch to
+:data:`LAUNCHES_BF16`).
+
+q, k, v, ``e_dir`` and ``valid`` (and the cotangent) are float32 or
+bfloat16, all in one dtype; ``keep`` stays float32. In bf16 both kernels
+and their plain versions widen the operands to f32, compute in f32 in the
+f32 order and round each output (out, dq, dk, dv) to bf16 once;
+``de_dir`` is summed in f32 and then cast, as the JAX package's kernels
+do (its dk/dv halos are f32 until their combine).
 
 :class:`GridAttnApply` makes the aggregation differentiable in q, k, v and
 ``e_dir`` on both devices: its backward (K6) recomputes α per pixel tile
@@ -44,8 +52,10 @@ import torch
 from quadtree_mpnnlstm_tpu_torch.ops import spmm
 from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shift_in, shifts_for
 
-# kernel launches since the last reset_launch_counts(), by wrapper name
+# kernel launches since the last reset_launch_counts(), by wrapper name:
+# the f32 kernels' and the bf16 kernels'
 LAUNCHES = {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
+LAUNCHES_BF16 = dict(LAUNCHES)
 
 # features per pixel the kernels take (csrc/grid_attn.cu kMaxH)
 MAX_H = 256
@@ -64,8 +74,9 @@ _NEG_BIG = -1e30
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for k in counts:
+            counts[k] = 0
 
 
 class GridAttnDims(NamedTuple):
@@ -107,9 +118,13 @@ def grid_attn_plain(q, k, v, e_dir, valid, keep: Optional[torch.Tensor],
     Keeps D shifted copies of k and v. Every sum runs in the kernel's order
     (heads as :func:`_head_sum`, directions in order), so that on the card
     the two agree bit for bit. q, k, v: (B, P, heads·d); e_dir:
-    (D, heads·d); valid: (P,); keep: (B, D, P, heads) or None."""
+    (D, heads·d); valid: (P,); keep: (B, D, P, heads) or None. bf16
+    operands are widened to f32 and the output is rounded to q's dtype
+    once, as the kernel rounds it."""
     rows, cols, heads, d, ndirs = dims
     b = q.shape[0]
+    dtype = q.dtype
+    q, k, v, e_dir = (x.float() for x in (q, k, v, e_dir))
     shifts = shifts_for(ndirs == 8)
     qg, kg, vg = (x.reshape(b, rows, cols, heads, d) for x in (q, k, v))
     e = e_dir.reshape(ndirs, 1, 1, 1, heads, d)
@@ -130,13 +145,14 @@ def grid_attn_plain(q, k, v, e_dir, valid, keep: Optional[torch.Tensor],
     for i, (dr, dc) in enumerate(shifts):
         term = used[:, i, ..., None] * (shift_in(vg, dr, dc) + e[i])
         out = term if out is None else out + term
-    return out.reshape(b, rows * cols, heads * d)
+    return out.reshape(b, rows * cols, heads * d).to(dtype)
 
 
 def grid_attn_bwd_plain(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
     """K6's function in plain PyTorch: autograd through
     :func:`grid_attn_plain`, recomputed from the saved inputs. Returns
-    (dq, dk, dv, de_dir)."""
+    (dq, dk, dv, de_dir), each in its input's dtype (bf16: the f32 gradient
+    rounded once)."""
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True) for x in (q, k, v, e_dir)]
         out = grid_attn_plain(*leaves, valid, keep, dims)
@@ -147,7 +163,9 @@ def grid_attn_bwd_plain(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
 
 
 def _launch_args(q, k, v, e_dir, valid, keep, dims: GridAttnDims):
-    """Check the operands of both kernels; returns (lib, pointers, ints)."""
+    """Check the operands of both kernels: q, k, v, e_dir and valid in one
+    dtype, float32 or bfloat16, keep float32. Returns (lib, pointers, ints,
+    the entry points' suffix)."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     rows, cols, heads, d, ndirs = dims
@@ -156,16 +174,19 @@ def _launch_args(q, k, v, e_dir, valid, keep, dims: GridAttnDims):
     if not 1 <= h <= MAX_H or ndirs not in (4, 8):
         raise ValueError(f"grid attention kernels take 1 ≤ heads·d ≤ {MAX_H} and D in (4, 8); "
                          f"got heads·d={h}, D={ndirs}")
+    if q.dtype not in spmm.KERNEL_DTYPES:
+        raise TypeError(f"grid attention kernels take float32 or bfloat16 q, not {q.dtype}")
     check = spmm._check
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        check(x, name, torch.float32, (b, p, h))
-    check(e_dir, "e_dir", torch.float32, (ndirs, h))
-    check(valid, "valid", torch.float32, (p,))
+        check(x, name, q.dtype, (b, p, h))
+    check(e_dir, "e_dir", q.dtype, (ndirs, h))
+    check(valid, "valid", q.dtype, (p,))
     if keep is not None:
         check(keep, "keep", torch.float32, (b, ndirs, p, heads))
     ptrs = [spmm._ptr(x) for x in (q, k, v, e_dir, valid)]
     ptrs.append(ctypes.c_void_p(None if keep is None else keep.data_ptr()))
-    return load_library("grid_attn.cu"), ptrs, (b, rows, cols, heads, d, ndirs)
+    return (load_library("grid_attn.cu"), ptrs, (b, rows, cols, heads, d, ndirs),
+            spmm.KERNEL_DTYPES[q.dtype])
 
 
 def fwd_lanes(d: int):
@@ -182,9 +203,10 @@ def fwd_lanes(d: int):
 
 def fwd_smem_bytes(dims: GridAttnDims, hpg: int, tr: int, tc: int) -> int:
     """Shared memory of one K5 CTA (csrc/grid_attn.cu ``fwd_smem_floats``):
-    k and v on the tile's one-pixel halo and q on the tile, in rows of the
-    padded stride, the group's edge terms, the halo's validity and the
-    tile's keep values."""
+    k and v on the tile's one-pixel halo and q on the tile, in f32 rows of
+    the padded stride (bf16 rows are widened as they are staged, so the
+    bytes are the same in both dtypes), the group's edge terms, the halo's
+    validity and the tile's keep values."""
     gw = hpg * dims.d
     vec4 = 32 % dims.d == 0 and dims.d >= 4  # float4 runs: a stride of 4 mod 8, else odd
     s = gw
@@ -206,15 +228,16 @@ def fwd_plan(dims: GridAttnDims):
 
 
 def _grid_attn_fwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims) -> torch.Tensor:
-    """Launch K5 (``qtm_grid_attn_fwd``): one CTA per pixel tile, feature
-    group and sample (:func:`fwd_plan`)."""
-    lib, ptrs, ints = _launch_args(q, k, v, e_dir, valid, keep, dims)
+    """Launch K5 (``qtm_grid_attn_fwd``, or ``_bf16`` for bf16 operands):
+    one CTA per pixel tile, feature group and sample (:func:`fwd_plan`)."""
+    lib, ptrs, ints, suffix = _launch_args(q, k, v, e_dir, valid, keep, dims)
     out = torch.empty_like(q)
     hpg, tr, tc, _ = fwd_plan(dims)
-    err = lib.qtm_grid_attn_fwd(*ptrs, spmm._ptr(out), *ints, hpg, tr, tc,
-                                ctypes.c_float(_scale(dims.d)), spmm._stream())
+    err = getattr(lib, "qtm_grid_attn_fwd" + suffix)(
+        *ptrs, spmm._ptr(out), *ints, hpg, tr, tc, ctypes.c_float(_scale(dims.d)),
+        spmm._stream())
     spmm._raise_on(err, "grid_attn_apply")
-    LAUNCHES["grid_attn_apply"] += 1
+    (LAUNCHES_BF16 if suffix else LAUNCHES)["grid_attn_apply"] += 1
     return out
 
 
@@ -228,21 +251,22 @@ def bwd_plan(dims: GridAttnDims):
 
 
 def _grid_attn_bwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
-    """Launch K6 (``qtm_grid_attn_bwd``: one CTA per pixel tile, feature
-    group and sample, which writes dq, dk, dv and one ``de_dir`` partial)
-    and sum the partials in a fixed order. Returns (dq, dk, dv, de_dir)."""
-    lib, ptrs, ints = _launch_args(q, k, v, e_dir, valid, keep, dims)
-    spmm._check(g, "g", torch.float32, tuple(q.shape))
+    """Launch K6 (``qtm_grid_attn_bwd``, or ``_bf16`` for bf16 operands:
+    one CTA per pixel tile, feature group and sample, which writes dq, dk,
+    dv and one f32 ``de_dir`` partial) and sum the partials in a fixed
+    order. Returns (dq, dk, dv, de_dir) in q's dtype."""
+    lib, ptrs, ints, suffix = _launch_args(q, k, v, e_dir, valid, keep, dims)
+    spmm._check(g, "g", q.dtype, tuple(q.shape))
     b, _, h = q.shape
     hpg, tr, tc, tiles = bwd_plan(dims)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     de_part = torch.empty((b, tiles, dims.ndirs, h), dtype=torch.float32, device=q.device)
-    err = lib.qtm_grid_attn_bwd(*ptrs, spmm._ptr(g), spmm._ptr(dq), spmm._ptr(dk),
-                                spmm._ptr(dv), spmm._ptr(de_part), *ints, hpg, tr, tc,
-                                ctypes.c_float(_scale(dims.d)), spmm._stream())
+    err = getattr(lib, "qtm_grid_attn_bwd" + suffix)(
+        *ptrs, spmm._ptr(g), spmm._ptr(dq), spmm._ptr(dk), spmm._ptr(dv), spmm._ptr(de_part),
+        *ints, hpg, tr, tc, ctypes.c_float(_scale(dims.d)), spmm._stream())
     spmm._raise_on(err, "grid_attn_apply_bwd")
-    LAUNCHES["grid_attn_apply_bwd"] += 1
-    return dq, dk, dv, de_part.sum(dim=(0, 1))
+    (LAUNCHES_BF16 if suffix else LAUNCHES)["grid_attn_apply_bwd"] += 1
+    return dq, dk, dv, de_part.sum(dim=(0, 1)).to(e_dir.dtype)
 
 
 # ------------------------------------------------------- dispatch
@@ -279,9 +303,9 @@ def grid_attn_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, e_dir: to
     Replaces ``grid_attn_apply`` (``_fwd_kernel`` forward, ``_bwd_rule`` /
     ``_bwd_kernel`` backward) of
     ``quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py``. q, k, v: (B,
-    rows·cols, heads·d) f32; e_dir: (D, heads·d); valid: (rows·cols,) f32;
-    keep: (B, D, rows·cols, heads) keep-scale planes, or None for no
-    dropout. Returns (B, rows·cols, heads·d); differentiable in q, k, v and
-    e_dir.
+    rows·cols, heads·d) f32 or bf16; e_dir: (D, heads·d) and valid:
+    (rows·cols,) in q's dtype; keep: (B, D, rows·cols, heads) f32 keep-scale
+    planes, or None for no dropout. Returns (B, rows·cols, heads·d) in q's
+    dtype; differentiable in q, k, v and e_dir.
     """
     return GridAttnApply.apply(q, k, v, e_dir, valid, keep, dims)

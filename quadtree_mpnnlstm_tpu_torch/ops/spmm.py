@@ -223,7 +223,7 @@ def apply_plain(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tens
 # ------------------------------------------------------- CUDA kernels
 
 
-# the storage types that the bf16-capable kernels (K1, K2, K7) take, with
+# the storage types of the compute dtype that the kernels (K1–K7) take, with
 # the suffix of their C entry points
 KERNEL_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 

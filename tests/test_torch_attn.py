@@ -17,6 +17,7 @@ from quadtree_mpnnlstm_tpu.graph.build import image_to_graph as j_image_to_graph
 from quadtree_mpnnlstm_tpu.ops import pallas_attn as jattn
 from quadtree_mpnnlstm_tpu.utils.posenc import add_positional_encoding as j_posenc
 from quadtree_mpnnlstm_tpu_torch.ops import attn as tattn
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SHAPE = (32, 32)
 FWD_TOL, GRAD_TOL = 1e-5, 1e-4
@@ -158,17 +159,15 @@ FWD_WIDTHS = [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (24, 16), (64, 1), (3, 
               (2, 132), (1, 512)]
 
 
-@pytest.mark.parametrize("nt", [128, 64])
-@pytest.mark.parametrize("heads,d", FWD_WIDTHS)
-def test_fwd_plan_covers_every_row_and_feature_once(heads, d, nt):
+def _replay_fwd_plan(heads, d, nt, itemsize):
     """K3's launch, replayed as csrc/attn.cu ``attn_fwd_kernel`` indexes it
-    (tile-major row groups, each CTA's walk over them, items of a row's
-    heads, lanes of a head, runs of features): every (row, feature) below
-    n_max of two samples is written exactly once; the plan is one the
-    kernel takes and its shared memory fits at A = 4."""
+    for ``itemsize``-byte operands: returns how often each (sample, row,
+    feature) below n_max of two samples is written, after checking that the
+    plan is one the kernel takes, that its shared memory fits at A = 4 and
+    that the CTAs' walks cover every row group once."""
     b, n_max = 2, 3 * nt - 5  # a ragged last tile
     dims = tattn.AttnDims(n_max, nt, 1024, 1024, heads, d)
-    p = tattn.fwd_plan(dims)
+    p = tattn.fwd_plan(dims, itemsize)
     hd = heads * d
     pow2 = lambda x: x & (x - 1) == 0  # noqa: E731
     assert pow2(p.lanes_head) and p.lanes_head <= 32 and p.lanes_head * p.run >= d
@@ -204,7 +203,35 @@ def test_fwd_plan_covers_every_row_and_feature_once(heads, d, nt):
                 f = f0 + i
                 ok = on & (f < d)
                 np.add.at(count, (bb, t * nt + r0 + ri[ok], (h * d + f)[ok]), 1)
+    return count, p
+
+
+@pytest.mark.parametrize("nt", [128, 64])
+@pytest.mark.parametrize("heads,d", FWD_WIDTHS)
+def test_fwd_plan_covers_every_row_and_feature_once(heads, d, nt):
+    """K3's launch, replayed as csrc/attn.cu ``attn_fwd_kernel`` indexes it
+    (tile-major row groups, each CTA's walk over them, items of a row's
+    heads, lanes of a head, runs of features): every (row, feature) below
+    n_max of two samples is written exactly once; the plan is one the
+    kernel takes and its shared memory fits at A = 4."""
+    count, _ = _replay_fwd_plan(heads, d, nt, 4)
     assert (count == 1).all()
+
+
+@pytest.mark.parametrize("nt", [128, 64])
+@pytest.mark.parametrize("heads,d", FWD_WIDTHS)
+def test_fwd_plan_bf16_covers_every_row_and_feature_once(heads, d, nt):
+    """K3's bf16 plan: the f32 geometry (every (row, feature) written once),
+    with a lane's run read as vectors of run × 2 bytes up to 16 (8 at run
+    4, 16 at run 8 and, in two loads, 16) where f32 reads run × 4 in
+    16-byte loads, and one value at a time where the run is no vector."""
+    count, p = _replay_fwd_plan(heads, d, nt, 2)
+    assert (count == 1).all()
+    p32 = tattn.fwd_plan(tattn.AttnDims(3 * nt - 5, nt, 1024, 1024, heads, d))
+    assert p._replace(vec_bytes=0) == p32._replace(vec_bytes=0)
+    vector = p.run % 4 == 0 and d % p.run == 0
+    assert p.vec_bytes == (min(16, 2 * p.run) if vector else 0)
+    assert p32.vec_bytes == (16 if vector else 0)
 
 
 def test_fwd_plan_is_valid_at_every_width():

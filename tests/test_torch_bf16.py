@@ -46,6 +46,7 @@ from quadtree_mpnnlstm_tpu_torch.ops import spmm as tspmm
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding as t_posenc
 from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 BF16 = torch.bfloat16
 ULP = 2.0**-7  # one bf16 rounding, relative

@@ -37,6 +37,7 @@ from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
 from quadtree_mpnnlstm_tpu_torch.models import conv as tconv
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding as t_posenc
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SHAPE = (24, 32)
 B = 2

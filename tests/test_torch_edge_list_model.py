@@ -43,6 +43,7 @@ from quadtree_mpnnlstm_tpu_torch.models import conv as tconv
 from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SHAPE = (24, 32)
 B, VARS, T_IN, T_OUT = 2, 5, 3, 4

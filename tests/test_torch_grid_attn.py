@@ -24,6 +24,7 @@ from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
 from quadtree_mpnnlstm_tpu_torch.models.conv import multi_stream_attention
 from quadtree_mpnnlstm_tpu_torch.ops import grid_attn as tga
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SHAPE = (12, 20)
 P = SHAPE[0] * SHAPE[1]
@@ -241,6 +242,49 @@ def test_fwd_plan_covers_every_pixel_and_feature_once(d):
                         f = h0 * d + hh * d + sub * run + j
                         np.add.at(count, (r[on], c[on], f[on]), 1)
             assert (count == 1).all(), (heads, d, ndirs)
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 8, 16, 32, 64, 256])
+def test_fwd_plan_bf16_stages_every_row_once(d):
+    """K5 in bf16 keeps its f32 plan and f32 shared rows: bf16 rows are
+    loaded, widened and stored by the threads (csrc/grid_attn.cu
+    ``stage_rows``), 4 values a load where the f32 kernel copies 16 bytes
+    (runs of 4 or 8 features) and 1 value a load elsewhere. Replayed over
+    the k/v halo and the q tile of every CTA of an 11 × 13 grid: each
+    staged (pixel, feature) is written once, every 4-value load reads 8
+    aligned bytes of the bf16 tensor and stores 16 aligned bytes of a
+    shared row, and the shared memory is f32's."""
+    rows, cols = 11, 13
+    for heads in range(1, tga.MAX_H // d + 1):
+        dims = tga.GridAttnDims(rows, cols, heads, d, 8)
+        hpg, tr, tc, tiles = tga.fwd_plan(dims)
+        run, _ = tga.fwd_lanes(d)
+        vec4 = 32 % d == 0 and run >= 4
+        step = 4 if vec4 else 1
+        gw_full, h = hpg * d, heads * d
+        stride = gw_full
+        while stride % 8 != 4 if vec4 else stride % 2 != 1:
+            stride += 1
+        assert tga.fwd_smem_bytes(dims, hpg, tr, tc) <= SMEM_LIMIT
+        groups, tiles_c = -(-heads // hpg), -(-cols // tc)
+        for x in range(tiles * groups):
+            grp, tile = x % groups, x // groups
+            r0, c0 = (tile // tiles_c) * tr, (tile % tiles_c) * tc
+            f0 = grp * hpg * d
+            gw = min(hpg, heads - grp * hpg) * d
+            for w, n, org in ((tc + 2, (tr + 2) * (tc + 2), (r0 - 1, c0 - 1)),
+                              (tc, tr * tc, (r0, c0))):
+                i = np.arange(n * (gw // step))  # the copies, as the kernel's loop numbers them
+                px, f = i // (gw // step), (i % (gw // step)) * step
+                written = np.zeros((n, gw), dtype=np.int64)
+                np.add.at(written, (px[:, None], f[:, None] + np.arange(step)), 1)
+                assert (written == 1).all(), (heads, d)
+                if vec4:
+                    r, c = org[0] + px // w, org[1] + px % w
+                    inside = (r >= 0) & (r < rows) & (c >= 0) & (c < cols)
+                    assert ((px * stride + f) % 4 == 0).all()  # a float4 of the shared row
+                    at = (r * cols + c) * h + f0 + f
+                    assert (at[inside] % 4 == 0).all()  # 8 aligned bytes of the bf16 rows
 
 
 def _tree(x):

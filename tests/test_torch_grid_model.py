@@ -48,6 +48,7 @@ from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding as t_posenc
 from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax, state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SHAPE = (12, 20)
 P = SHAPE[0] * SHAPE[1]

@@ -29,6 +29,7 @@ from quadtree_mpnnlstm_tpu.train.losses import LOSSES as J_LOSSES
 from quadtree_mpnnlstm_tpu_torch.models import conv as tconv
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SHAPE = (12, 20)
 T_IN, T_OUT, VARS, B = 3, 4, 5, 2

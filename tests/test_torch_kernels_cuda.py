@@ -949,3 +949,191 @@ def test_bf16_model_on_the_card_goes_through_the_bf16_kernels(card):
     assert loss.dtype == torch.float32 and torch.isfinite(loss)
     assert spmm.LAUNCHES_BF16["spmm_apply_bwd"] > 0
     assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.model.parameters())
+
+
+# ---------------------------------------------------------------- bf16 attention
+
+
+def _bf16_args(args):
+    """The float operands of an attention case in bf16 (the windows, the
+    attributes and keep stay f32)."""
+    return tuple(x.to(torch.bfloat16) if torch.is_tensor(x) and x.dtype == torch.float32
+                 and x.dim() >= 1 and i < 4 else x for i, x in enumerate(args))
+
+
+@pytest.mark.parametrize("heads,d,ragged,dropout", ATTN_CASES)
+def test_attn_bf16_kernels_match_plain(card, heads, d, ragged, dropout):
+    """K3 and K4 in bf16 (bf16 q, k, v, Wₑ and cotangent; f32 arithmetic;
+    each output rounded once) against ``attn_plain`` and autograd through
+    it, within one bf16 rounding × max(1, max|plain|), at HD 1, 16, 128 and
+    256 (and 24, 384) on ragged windows with dead tiles and rows without a
+    slot. Misaligned q, k, v and out take K3's scalar loads and give the
+    same output bit for bit; a repeat is bit-identical; the launches count
+    as bf16."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _attn_case(card, ragged, heads, d, dropout)
+    args = _bf16_args(args)
+    attn.reset_launch_counts()
+    out = attn._attn_fwd_cuda(*args)
+    _bf16_close(out, attn.attn_plain(*args), f"K3 {heads}x{d}")
+    assert torch.equal(attn._attn_fwd_cuda(*args), out)
+    mis = tuple(_misaligned(x) for x in args[:3]) + args[3:]
+    got = {}
+    assert torch.equal(attn._attn_fwd_cuda(*mis, geometry=got), out) and got["vec"] == 0
+    g = torch.randn(out.shape, device=card, generator=gen).to(torch.bfloat16)
+    kern = attn._attn_bwd_cuda(*args, g)
+    for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern, attn.attn_bwd_plain(*args, g)):
+        _bf16_close(a, p, f"K4 {name} {heads}x{d}")
+    assert attn.LAUNCHES_BF16 == {"attn_apply": 3, "attn_apply_bwd": 1}
+    assert attn.LAUNCHES == {"attn_apply": 0, "attn_apply_bwd": 0}
+
+
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (3, 12)])
+@pytest.mark.parametrize("a,dropout", [(1, False), (4, True)])
+def test_attn_bf16_kernels_on_long_rows_and_dead_tiles(card, heads, d, a, dropout):
+    """K3 and K4 in bf16 on rows of 33 and 40 slots, an isolated row and
+    dead tiles past ``live``, at A = 1 and 4: within one bf16 rounding of
+    their plain versions, and every row of a dead tile exactly zero."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _star_case(card, heads, d, a, dropout)
+    args = _bf16_args(args)
+    out = attn._attn_fwd_cuda(*args)
+    _bf16_close(out, attn.attn_plain(*args), f"K3 {heads}x{d} A={a}")
+    assert not out[0, 256:].any() and not out[1, 128:].any() and not out[0, 9].any()
+    g = torch.randn(out.shape, device=card, generator=gen).to(torch.bfloat16)
+    for name, k, p in zip(("dq", "dk", "dv", "dwe"), attn._attn_bwd_cuda(*args, g),
+                          attn.attn_bwd_plain(*args, g)):
+        _bf16_close(k, p, f"K4 {name} {heads}x{d} A={a}")
+
+
+def test_attn_bf16_apply_through_autograd(card):
+    """A bf16 ``attn_apply`` on the card carries the ``AttnApply`` node, and
+    its gradients are bf16 and bit-identical on a repeat."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    (q, k, v, we, keep, meta, dims), gen = _attn_case(card, False, 8, 16, True)
+    leaves = [x.to(torch.bfloat16).requires_grad_(True) for x in (q, k, v, we)]
+    out = attn.attn_apply(*leaves, keep, meta, dims)
+    assert type(out.grad_fn).__name__ == "AttnApplyBackward" and out.dtype == torch.bfloat16
+    g = torch.randn(out.shape, device=card, generator=gen).to(torch.bfloat16)
+    grads = torch.autograd.grad(out, leaves, g, retain_graph=True)
+    assert all(x.dtype == torch.bfloat16 for x in grads)
+    again = torch.autograd.grad(out, leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("rows,cols,heads,d,ndirs,dropout", GRID_CASES)
+def test_grid_attn_bf16_kernels_match_plain(card, rows, cols, heads, d, ndirs, dropout):
+    """K5 and K6 in bf16 (bf16 q, k, v, e_dir, valid and cotangent; f32
+    arithmetic in the f32 kernels' order; each output rounded once): K5
+    bit-identical to ``grid_attn_plain`` where d divides 32 (else within one
+    bf16 rounding × max(1, max|plain|)), K6 within one rounding of autograd
+    through it; the isolated and masked pixels aggregate 0. Misaligned q,
+    k, v and out take the scalar staging and give the same output bit for
+    bit; a repeat is bit-identical; the launches count as bf16."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    args, gen = _grid_case(card, rows, cols, heads, d, ndirs, dropout)
+    args = tuple(x.to(torch.bfloat16) if i < 5 else x for i, x in enumerate(args))
+    grid_attn.reset_launch_counts()
+    out = grid_attn._grid_attn_fwd_cuda(*args)
+    plain = grid_attn.grid_attn_plain(*args)
+    if 32 % d == 0:
+        assert torch.equal(out, plain), float((out.float() - plain.float()).abs().max())
+    _bf16_close(out, plain, f"K5 {heads}x{d}")
+    invalid = args[4] == 0
+    assert not out[:, invalid].any() and not out[:, 3 * cols + 4].any()
+    assert torch.equal(grid_attn._grid_attn_fwd_cuda(*args), out)
+    mis = tuple(_misaligned(x) for x in args[:3]) + args[3:]
+    assert torch.equal(grid_attn._grid_attn_fwd_cuda(*mis), out)
+    g = torch.randn(out.shape, device=card, generator=gen).to(torch.bfloat16)
+    kern = grid_attn._grid_attn_bwd_cuda(*args, g)
+    for name, a, p in zip(("dq", "dk", "dv", "de_dir"), kern,
+                          grid_attn.grid_attn_bwd_plain(*args, g)):
+        _bf16_close(a, p, f"K6 {name} {heads}x{d}")
+    assert all(torch.equal(a, b) for a, b in zip(grid_attn._grid_attn_bwd_cuda(*mis, g), kern))
+    assert grid_attn.LAUNCHES_BF16 == {"grid_attn_apply": 3, "grid_attn_apply_bwd": 2}
+    assert grid_attn.LAUNCHES == {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
+
+
+@pytest.mark.parametrize("rows,cols", [(21, 45), (9, 33)])
+@pytest.mark.parametrize("heads,d,ndirs,dropout", [(8, 32, 4, True), (1, 32, 8, False),
+                                                   (1, 1, 4, True), (3, 6, 4, False)])
+def test_grid_attn_bf16_on_ragged_and_masked_tiles(card, rows, cols, heads, d, ndirs, dropout):
+    """K5 and K6 in bf16 on grids that are no multiple of a tile, whose top
+    8 rows are masked whole (tiles without a valid pixel): K5 bit-identical
+    to its plain version where d divides 32 and 0 at every masked pixel, K6
+    within one bf16 rounding."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    args, gen = _grid_case(card, rows, cols, heads, d, ndirs, dropout, dead_rows=8)
+    args = tuple(x.to(torch.bfloat16) if i < 5 else x for i, x in enumerate(args))
+    out = grid_attn._grid_attn_fwd_cuda(*args)
+    plain = grid_attn.grid_attn_plain(*args)
+    if 32 % d == 0:
+        assert torch.equal(out, plain)
+    _bf16_close(out, plain, f"K5 {rows}x{cols} {heads}x{d}")
+    assert not out[:, args[4] == 0].any() and not out[:, :8 * cols].any()
+    g = torch.randn(out.shape, device=card, generator=gen).to(torch.bfloat16)
+    for name, a, p in zip(("dq", "dk", "dv", "de_dir"), grid_attn._grid_attn_bwd_cuda(*args, g),
+                          grid_attn.grid_attn_bwd_plain(*args, g)):
+        _bf16_close(a, p, f"K6 {name} {rows}x{cols} {heads}x{d}")
+
+
+def test_bf16_attention_wrappers_reject_mixed_types(card):
+    """bf16 q with f32 Wₑ (or e_dir, or valid) raises: no quiet cast; f16
+    raises too."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn
+
+    (q, k, v, we, keep, meta, dims), _ = _attn_case(card, True, 1, 16, False)
+    bq, bk, bv = (x.to(torch.bfloat16) for x in (q, k, v))
+    with pytest.raises(TypeError):
+        attn._attn_fwd_cuda(bq, bk, bv, we, keep, meta, dims)
+    with pytest.raises(TypeError):
+        attn._attn_fwd_cuda(q.half(), k.half(), v.half(), we.half(), keep, meta, dims)
+    with pytest.raises(TypeError):  # an f32 cotangent of bf16 operands
+        attn._attn_bwd_cuda(bq, bk, bv, we.to(torch.bfloat16), keep, meta, dims, q)
+    (q, k, v, e_dir, valid, keep, dims), _ = _grid_case(card, 11, 13, 1, 8, 4, False)
+    bq, bk, bv, be = (x.to(torch.bfloat16) for x in (q, k, v, e_dir))
+    with pytest.raises(TypeError):
+        grid_attn._grid_attn_fwd_cuda(bq, bk, bv, be, valid, keep, dims)
+    with pytest.raises(TypeError):
+        grid_attn._grid_attn_fwd_cuda(bq, bk, bv, e_dir, valid.to(torch.bfloat16), keep, dims)
+
+
+@pytest.mark.parametrize("mesh", ["windows", "grid"])
+def test_bf16_attention_model_on_the_card_goes_through_the_bf16_kernels(card, mesh):
+    """A bf16 TransformerConv forecast and train step on the card, on
+    attention windows (K3/K4) or on the pixelwise grid with climatology
+    (K5/K6), launch only the bf16 attention kernels, return float32
+    frames and keep float32 masters and gradients."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn
+    from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
+
+    model = dict(hidden_size=8, n_layers=2, n_conv_layers=2, convolution_type="TransformerConv",
+                 compute_dtype="bfloat16")
+    if mesh == "windows":
+        graph, thresh, clim, ops = dict(max_grid_size=8, n_max=1024, e_max=8192,
+                                        node_budget=1024, aggregation="pallas", agg_nt=128,
+                                        agg_eb=1024, agg_sw=1024), 0.1, False, attn
+    else:
+        graph, thresh, clim, ops = dict(aggregation="grid"), float("-inf"), True, grid_attn
+    tp = NextFramePredictorS2S((32, 32), thresh, input_timesteps=3, output_timesteps=3,
+                               device="cuda", seed=0, use_climatology=clim,
+                               model_kwargs=model, graph_kwargs=graph)
+    rng = np.random.default_rng(0)
+    x = rng.random((2, 3, 32, 32, 1)).astype(np.float32)
+    y = rng.random((2, 3, 32, 32, 1)).astype(np.float32)
+    climatology = rng.random((2, 3, 32, 32, 1)).astype(np.float32) if clim else None
+    ops.reset_launch_counts()
+    y_hat, overflow, _ = tp.forecast(x, climatology=climatology)
+    assert y_hat.dtype == torch.float32 and torch.isfinite(y_hat).all() and int(overflow.max()) == 0
+    fwd, bwd = list(ops.LAUNCHES_BF16)
+    assert ops.LAUNCHES_BF16[fwd] > 0 and set(ops.LAUNCHES.values()) == {0}
+    tp.initiate_training(lr=0.01, lr_decay=0.95)
+    loss, _ = tp.train_step(x, y, climatology=climatology)
+    assert loss.dtype == torch.float32 and torch.isfinite(loss)
+    assert ops.LAUNCHES_BF16[bwd] > 0 and set(ops.LAUNCHES.values()) == {0}
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in tp.model.parameters())

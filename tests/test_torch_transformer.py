@@ -34,6 +34,7 @@ from quadtree_mpnnlstm_tpu_torch.ops import attn as tattn
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding as t_posenc
 from quadtree_mpnnlstm_tpu_torch.utils.weights import state_dict_from_flax
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 N_MAX = 512
 BATCH = 2
@@ -52,22 +53,6 @@ def _blobs(seed):
         blob = np.exp(-((r - cy) ** 2 + (c - cx) ** 2) / (2 * (32 / 5) ** 2))
         frames.append(blob + 0.02 * rng.random((32, 32)))
     return np.stack(frames)[:, None, :, :, None].astype(np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """Run this module's torch ops on the calling thread. torch's CPU
-    unary kernels (``sqrt``, ``exp``) hand a tensor of more than 2048
-    elements to OpenMP worker threads in chunks, MKL VML on each. In one
-    parallel test run the chunks of the fixture's second mesh came back
-    with 12-bit square roots (``x · rsqrt`` estimates, 0.25 → 0.24993896),
-    which the bit-exact distance check below and every conv fed by those
-    attributes then missed; the inputs had been asserted identical. One
-    thread takes the worker threads out of the comparison."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

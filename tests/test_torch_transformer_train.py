@@ -31,6 +31,7 @@ from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
 from quadtree_mpnnlstm_tpu_torch.models import conv as tconv
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401  (torch on one thread)
 
 SHAPE = (16, 16)
 T_IN = T_OUT = 3
