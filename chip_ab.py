@@ -9,9 +9,16 @@ the sea-ice flagship on the pixelwise grid (phases 13 and 16: one
 224×304 forecast of 10 → 90 days through ``predict``, and one full-BPTT
 train step, batch 1, with climatology). Each in f32 or, with ``--dtype
 bfloat16``, in bf16 (``bench.py``'s default dtype; phases 26, 28, 31, 33,
-35 and 37).
+35 and 37). With ``--workload k7`` the segment-sum kernel K7 alone: on
+the operand sets of a forecast and a train step of the ChebConv and the
+TransformerConv model, each in f32 and bf16 (as ``chip_smoke.py`` phases
+10, 27 and 32 capture them), and on the pixel views of coarse to fine
+quadtree meshes built from the Moving-MNIST frames (phase 27b,
+``k7_mesh_sets``: F 1, 3, 16 in f32 and bf16); each set bit-identical to
+the entry-ordered sum, timed by CUDA graph and by events beside its bound
+and ``index_add_`` (``k7_measure``).
 
-    python3 chip_ab.py [--workload quadtree|ice] [--conv ChebConv|TransformerConv]
+    python3 chip_ab.py [--workload quadtree|ice|k7] [--conv ChebConv|TransformerConv]
                        [--dtype float32|bfloat16] [--tree DIR] [--reps 5] [--seed 0]
 
 ``--tree`` imports the port's package from another checkout, for example a
@@ -52,7 +59,7 @@ def _timed(fn, reps: int) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--workload", default="quadtree", choices=("quadtree", "ice"))
+    parser.add_argument("--workload", default="quadtree", choices=("quadtree", "ice", "k7"))
     parser.add_argument("--conv", choices=("ChebConv", "TransformerConv"),
                         help="time only this model of the quadtree paths (default: both)")
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
@@ -85,6 +92,8 @@ def main() -> int:
               "dtype": args.dtype, "reps": args.reps}
     if args.workload == "ice":
         _time_ice(cs, args, run_dir.name, result)
+    elif args.workload == "k7":
+        _time_k7(cs, args, run_dir.name, result)
     else:
         _time_quadtree(cs, args, run_dir.name, result)
     print(json.dumps(result), flush=True)
@@ -118,6 +127,40 @@ def _time_quadtree(cs, args, run_dir: str, result: dict) -> None:
                 _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps))
         del model, trainer
         torch.cuda.empty_cache()
+
+
+def _time_k7(cs, args, run_dir: str, result: dict) -> None:
+    """K7 per operand set: each path's sets (``k7_by_path``, keyed by conv
+    and dtype) and the mesh densities' (``k7_mesh_sets``)."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+    from quadtree_mpnnlstm_tpu_torch.ops import segment, segment_sum
+
+    ds = ModMovingMNISTDataset(
+        cs.BATCH, input_timesteps=cs.T_IN, output_timesteps=cs.T_OUT, canvas_size=cs.CANVAS,
+        digit_size=cs.DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=args.seed)
+    x = torch.as_tensor(ds.x, device=cs.DEVICE)
+    _, batches = cs.train_batches(args.seed, 1)
+    p = cs.CANVAS[0] * cs.CANVAS[1]
+    result["k7_by_path"] = {}
+    for conv in ("ChebConv", "TransformerConv"):
+        for dtype in ("float32", "bfloat16"):
+            model = cs.make_model(args.seed, run_dir, conv, dtype=dtype)
+            trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=dtype)
+            with cs.SegmentCapture(segment, p, keep=True, counts=True) as seg_f:
+                model.forecast(x)
+            with cs.SegmentCapture(segment, p, keep=True, counts=True) as seg_t:
+                trainer.train_step(*batches[0])
+            sets = {**seg_t.ops, **seg_f.ops}
+            result["k7_by_path"][f"{conv}_{dtype}"] = [
+                cs.k7_measure(segment_sum, key, sets[key], seg_t.calls.get(key, 0),
+                              cs.BF16_TOL if sets[key][0].dtype == torch.bfloat16
+                              else cs.K7_TOL)
+                for key in sorted(sets)]
+            del model, trainer, seg_f, seg_t, sets
+            torch.cuda.empty_cache()
+    result["k7_mesh_sets"] = cs.k7_mesh_sets(segment_sum, x, args.seed)
 
 
 def _time_ice(cs, args, run_dir: str, result: dict) -> None:

@@ -60,7 +60,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    every HD (≤1e-5 × max(1, max|grad|)), through the graph's slot view;
    K3 and K4's whole backward (both kernels, the dWₑ sum) timed by CUDA
    graph and by events, beside their bounds; the per-mesh
-   view builds (pixel view, K4's slot view) timed on a decoder mesh;
+   view builds (pixel view, K4's slot view) timed on a decoder mesh; K7
+   on this path's own operand sets (a forecast's and a train step's, the
+   node counts apart) as in phase 21 (``k7_by_set``);
 11. attention train path: ``train_step`` (attention dropout 0.1 from the
    trainer's generator): a warm-up step in which every K3 output whose
    inputs need a gradient carries the ``AttnApply`` node, then 8 timed
@@ -108,21 +110,26 @@ Phases (each prints one line; any failure raises and exits non-zero):
    step again, bit-identical;
 19. (printed last) the ``kernels`` JSON line (K1, K2, K2b, K3, K4, K5,
    K6, K7 in f32, then K1, K2, K2b, K7, K3, K4, K5, K6 in bf16, each with
-   its ``dtype``), then the card line and the result line;
+   its ``dtype``; K7's entries add ``by_operand_set``, every set of phases
+   10, 21, 27, 27b and 32 with its path, and ``ms_by_path``, the
+   launch-weighted means of the main path, TransformerConv and the edge
+   list, each over its own sets), then the card line and the result line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
    forecast), no K1-K6; seconds per forecast after a warm-up; ungated, the
    largest difference from the grid model with the same weights over the
    valid pixels;
-21. K7 against ``segment_sum_plain`` on the path's own operands (≤1e-6 ×
-   max(1, max|out|), with a bit-identity flag): the messages at F 256, 32
-   and 1 over the sorted edge_dst, the gather cotangents over edge_src and
-   edge_dst, the pooling and counts over pixel_node, from one forecast and
-   one T_out-6 train step; each timed beside its bound, the plain version,
-   ``index_add_`` and its CSR view's build, as the card's own time (many
-   calls captured in one CUDA graph, so the host's launch rate does not
-   enter);
+21. K7 on the path's own operands, bit-identical to the entry-ordered sum
+   (``segment_sum_plain`` on the CPU, torch on one thread) or the phase
+   fails, and within 1e-6 × max(1, max|out|) of ``segment_sum_plain`` on
+   the card: the messages at F 256, 32 and 1 over the sorted edge_dst, the
+   gather cotangents over edge_src and edge_dst, the pooling and counts
+   over pixel_node, from one forecast and one T_out-6 train step; each with
+   its launch plan (``segment_plan``) and its launches in the train step,
+   timed beside its bound, the plain version, ``index_add_`` and its CSR
+   view's build, as the card's own time (many calls captured in one CUDA
+   graph, so the host's launch rate does not enter) and by CUDA events;
 22. the 90-step edge-list forecast with K7 swapped for its plain version:
    ≤1e-4 at every step;
 23. edge train path: ``train_step`` with truncated BPTT of 30 steps and
@@ -144,11 +151,19 @@ Phases (each prints one line; any failure raises and exits non-zero):
    f32); times one batch after a warm-up, peak memory;
 27. bf16 kernels vs plain: K1 bit-identical, K2 (per width F), K2b (per
    width of one bf16 train step's cotangents) and K7 (per operand set of a
-   forecast and a train step) within one bf16 rounding (2⁻⁷ × max(1,
-   max|plain|)) of their plain versions; each timed by CUDA graph and
-   events beside its bound (2-byte operands, the bf16 rate), its plain
-   version, its library call in bf16 (``torch.sparse.mm``, ``index_add_``;
-   a refusal is printed) and the f32 kernel on the same operands in f32;
+   forecast and a train step: pooling, degrees, the gathers' cotangents)
+   within one bf16 rounding (2⁻⁷ × max(1, max|plain|)) of their plain
+   versions, K7 also bit-identical to the CPU's entry-ordered sum as in
+   phase 21; each timed by CUDA graph and events beside its bound (2-byte
+   operands, the bf16 rate), its plain version, its library call in bf16
+   (``torch.sparse.mm``, ``index_add_``; a refusal is printed) and the f32
+   kernel on the same operands in f32; K7's f32 sets (the same sums in
+   f32 and the node counts, which stay f32) are measured as in phase 21,
+   the main path's K7 in f32 (``k7_f32_by_set``);
+27b. K7 on the pixel views of quadtree meshes of three densities built
+   from the phase-2 frames (``K7_MESH_THRESHOLDS``: 64 nodes of 64
+   pixels, ~430 and ~1400 nodes of 1-64 pixels) at F 1, 3 and 16 in f32
+   and bf16, measured as in phase 21;
 28. bf16 train path: ``train_step`` as phase 5 in bf16: finite f32 loss,
    overflow 0, launches per step (K1 11, K2 112, K2b 110, K7 108 in
    bf16; K7 11 in f32), f32 masters and gradients; frames/s, peak memory;
@@ -173,7 +188,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
    rounding (2⁻⁷ × max(1, max|plain|)) of their plain versions, K3
    bit-identical on a repeat; each timed by CUDA graph and events beside
    its bound (2-byte operands), its plain version and the f32 kernel on
-   the same operands in f32;
+   the same operands in f32; K7's bf16 sets of this path as in phase 27;
 33. bf16 attention train path: ``train_step`` as phase 11 in bf16: K3 =
    K4 = 56 and K7 97 bf16 launches a step (11 K7 f32), finite f32 loss,
    f32 masters and gradients; frames/s, a step's peak above its start,
@@ -849,10 +864,10 @@ def train_phases(seed: int, card: str, spmm, segment_sum, cfg, nt: int, sw: int,
     return train_launches, bwd_widths
 
 
-def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
+def attn_phases(seed: int, card: str, spmm, attn, segment, segment_sum, loader, x):
     """Phases 9-12 on the TransformerConv path; returns the forecast's and
-    the timed train steps' launches and K3's and K4's per-width
-    measurements."""
+    the timed train steps' launches, K3's and K4's per-width measurements
+    and K7's per operand set of this path."""
     import torch
 
     run_dir = tempfile.TemporaryDirectory()
@@ -897,7 +912,9 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
 
     # ---- phase 10: K3 and K4 against their plain versions
     enc_calls = T_IN * cfg.n_layers * cfg.n_conv_layers
-    with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
+    p = CANVAS[0] * CANVAS[1]
+    with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap, \
+            SegmentCapture(segment, p, keep=True, counts=True) as seg_f:
         model.forecast(x)
     check(cap.calls == k3, "attention capture run disagrees with the path")
 
@@ -929,9 +946,19 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
                        None, meta, wide_dims), 0)
     _, batches = train_batches(seed, TRAIN_STEPS + 1)
     x_g, y_g = batches[0]
-    with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b:
+    segment_sum.reset_launch_counts()
+    with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b, \
+            SegmentCapture(segment, p, keep=True, counts=True) as seg_t:
         make_trainer(seed, run_dir.name, conv).train_step(x_g, y_g)
     check(sum(cap_b.per_width.values()) == k3, f"K4 calls {cap_b.per_width}, expected {k3}")
+    check(sum(seg_t.calls.values()) == segment_sum.LAUNCHES["segment_sum"],
+          f"K7 capture {seg_t.calls} disagrees with the step's launches")
+    # K7 on this path's own operands: each set of the train step, with the
+    # forecast's operands where it has the set
+    sets = {**seg_t.ops, **seg_f.ops}
+    k7_sets = [k7_measure(segment_sum, key, sets[key], seg_t.calls.get(key, 0))
+               for key in sorted(sets)]
+    del seg_f, seg_t, sets
     bwd = []
     for hd, args in sorted(cap_b.first.items()):
         errs, rel = {}, {}
@@ -969,7 +996,8 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
     views["per_step_ms"] = views["meshes_per_step"] * (views["pixel_view_ms"]
                                                       + views["slot_view_ms"])
     print(json.dumps({"phase": "attn_kernels_vs_plain", "card": card, "k3_by_width": fwd,
-                      "k3_wide": wide, "k4_by_width": bwd, "views": views}), flush=True)
+                      "k3_wide": wide, "k4_by_width": bwd, "views": views,
+                      "k7_by_set": k7_sets}), flush=True)
 
     # ---- phase 11: train_step on the attention path
     trainer = make_trainer(seed, run_dir.name, conv)
@@ -1037,7 +1065,7 @@ def attn_phases(seed: int, card: str, spmm, attn, segment_sum, loader, x):
     print(json.dumps({"phase": "attn_determinism", "card": card, "loss": float(loss_k2),
                       "bit_identical": same}), flush=True)
     run_dir.cleanup()
-    return launches, train_launches, fwd, wide, bwd
+    return launches, train_launches, fwd, wide, bwd, k7_sets
 
 
 def window_fill(src_rel, dst_rel, live):
@@ -1180,7 +1208,8 @@ def peak_above_start_gib(fn) -> float:
 def bf16_phases(seed: int, card: str, spmm, segment, segment_sum, loader, x):
     """Phases 26-30: the main path in bf16 (``compute_dtype="bfloat16"``,
     ``bench.py``'s default dtype); returns the kernels line's bf16 entries
-    (K1, K2, K2b, K7)."""
+    (K1, K2, K2b, K7) and the f32 K7's measurements on the same sums and the
+    node counts."""
     import torch
 
     from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
@@ -1238,6 +1267,7 @@ def bf16_phases(seed: int, card: str, spmm, segment, segment_sum, loader, x):
     dec_step_calls = cfg.n_layers * 2 + 2 * 2
     p = CANVAS[0] * CANVAS[1]
     with Capture(spmm, enc_calls, dec_step_calls) as cap, \
+            SegmentCapture(segment, p, keep=True, dtype=torch.float32, counts=True) as seg_c, \
             SegmentCapture(segment, p, keep=True, dtype=bf16) as seg_f:
         model.forecast(x)
     check(cap.calls == want["spmm_apply"], "bf16 capture run disagrees with the bf16 path")
@@ -1267,15 +1297,23 @@ def bf16_phases(seed: int, card: str, spmm, segment, segment_sum, loader, x):
     sets = {**seg_t.ops, **seg_f.ops}  # the forecast's operands where it has the set
     k7_sets = [k7_measure(segment_sum, key, sets[key], seg_t.calls.get(key, 0), BF16_TOL)
                for key in sorted(sets)]
-    for w, key in zip(k7_sets, sorted(sets)):  # the f32 kernel on the same sums
+    # the f32 kernel on the same sums (f32_ms), measured in full beside the
+    # f32 node counts (pixel ids, F 1), which the bf16 path keeps in f32
+    k7_f32_sets = []
+    for w, key in zip(k7_sets, sorted(sets)):
         values, ids, n_out, view = sets[key]
-        v32 = values.reshape(ids.shape[0], ids.shape[1], -1).float()
-        w["f32_ms"] = graph_ms(lambda: segment_sum._segment_sum_cuda(v32, ids, n_out, view))
+        w32 = k7_measure(segment_sum, key, (values.float(), ids, n_out, view), w["calls"])
+        w["f32_ms"] = w32["ms"]
+        k7_f32_sets.append(w32)
+    k7_f32_sets += [k7_measure(segment_sum, key, seg_c.ops[key], seg_c.calls[key])
+                    for key in sorted(seg_c.ops)]
     check(all(ops[0].dtype == bf16 for ops in sets.values()), "a K7 set is not bf16")
-    del cap, cap_b, seg_f, sets
+    check(list(seg_c.calls) == [("counts", 1)] and seg_c.calls[("counts", 1)] == meshes,
+          f"the bf16 forecast's f32 sums {seg_c.calls}, expected the {meshes} node counts")
+    del cap, cap_b, seg_f, seg_c, sets
     print(json.dumps({"phase": "bf16_kernels_vs_plain", "card": card, "k1": k1,
                       "k1_builds_exact": n_builds, "k2_by_width": widths, "k2b_by_width": bwd,
-                      "k7_by_set": k7_sets}), flush=True)
+                      "k7_by_set": k7_sets, "k7_f32_by_set": k7_f32_sets}), flush=True)
 
     # ---- phase 28: train_step in bf16
     with GradFnCheck(spmm, "spmm_apply", "SpmmApplyBackward") as gcheck:
@@ -1445,7 +1483,8 @@ def bf16_phases(seed: int, card: str, spmm, segment, segment_sum, loader, x):
                   library_refused=sorted({w["library_refused"] for w in bwd
                                           if w["library_refused"]})),
             entry("segment_sum", "segment.cu", "quadtree_mpnnlstm_tpu/ops/pallas_segment.py:87",
-                  k7_ws)]
+                  k7_ws, by_operand_set=[dict(w, path="main") for w in k7_sets],
+                  ms_by_path={"main": k7_path_means(k7_sets)})], k7_f32_sets
 
 
 def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
@@ -1708,23 +1747,38 @@ class SegmentCapture:
     its calls by operand set (ids, F): ids ``dst`` (the sorted edge_dst),
     ``src`` (edge_src) or ``pixel`` (pixel_node). With ``keep`` it also
     keeps the last call's operands of each set, detached; with ``dtype``
-    it sees only the calls on values of that type."""
+    it sees only the calls on values of that type. Every call must carry
+    its graph's CSR view, but with ``counts`` the quadtree build's node
+    counts (f32 ones over the pixels, summed before their graph and its
+    view exist), keyed ``("counts", 1)``."""
 
-    def __init__(self, segment, n_pixels: int, keep: bool = False, dtype=None):
+    def __init__(self, segment, n_pixels: int, keep: bool = False, dtype=None,
+                 counts: bool = False):
         self.segment, self.n_pixels, self.keep, self.dtype = segment, n_pixels, keep, dtype
+        self.counts = counts
         self.calls, self.ops = {}, {}
         self._fn = segment.segment_sum
 
     def __call__(self, values, ids, n_out, view=None):
+        import torch
+
         if self.dtype is not None and values.dtype != self.dtype:
             return self._fn(values, ids, n_out, view)
-        check(view is not None, "a segment sum on the card ran without its graph's CSR view")
-        site = ("pixel" if ids.shape[1] == self.n_pixels
-                else "dst" if view.order is None else "src")
-        key = (site, values[0, 0].numel())
+        if view is None:
+            check(self.counts and ids.shape[1] == self.n_pixels and values.ndim == 2
+                  and values.dtype == torch.float32,
+                  "a segment sum on the card ran without its graph's CSR view")
+            key = ("counts", 1)
+        else:
+            site = ("pixel" if ids.shape[1] == self.n_pixels
+                    else "dst" if view.order is None else "src")
+            key = (site, values[0, 0].numel())
         self.calls[key] = self.calls.get(key, 0) + 1
         if self.keep:
-            self.ops[key] = (values.detach(), ids, n_out, view)
+            from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import segment_view
+
+            kept = view if view is not None else segment_view(ids, n_out)
+            self.ops[key] = (values.detach(), ids, n_out, kept)
         return self._fn(values, ids, n_out, view)
 
     def __enter__(self):
@@ -1748,12 +1802,30 @@ def k7_bound_ms(ids, n_out: int, f: int, itemsize: int = 4):
     return max(bytes_ms, ops_ms), bytes_ms, ops_ms, n_valid
 
 
+def entry_ordered_sum(segment_sum, values, ids, n_out: int):
+    """The sequential, entry-ordered segment sum: ``segment_sum_plain`` on
+    the CPU with torch on one thread (its accumulating ``index_put_`` adds
+    serially there; on the card it reduces a bucket of 32 or more entries
+    at F 1 by warps), returned on the CPU."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return segment_sum.segment_sum_plain(values.cpu(), ids.cpu(), n_out)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def k7_measure(segment_sum, key, ops, calls, tol: float = K7_TOL):
-    """K7 against ``segment_sum_plain`` on one operand set (≤ ``tol`` ×
-    max(1, max|out|), and whether bit-identical), timed beside its bound,
-    the plain version, ``index_add_`` (in the values' type) and the view's
-    build, each by :func:`graph_ms` (``ms_events``: K7 by CUDA events
-    between host launches, as the other kernels are timed)."""
+    """K7 on one operand set: bit-identical to the entry-ordered sum on the
+    CPU (:func:`entry_ordered_sum`) or the phase fails, and against
+    ``segment_sum_plain`` on the card (≤ ``tol`` × max(1, max|out|));
+    its plan (``segment_plan``); ``calls``: its launches in one train step
+    (0: the forecast's alone). Timed beside its bound, the plain version,
+    ``index_add_`` (in the values' type) and the view's build, each by
+    :func:`graph_ms` (``ms_events``: K7 by CUDA events between host
+    launches, as the other kernels are timed)."""
     import torch
 
     values, ids, n_out, view = ops
@@ -1761,10 +1833,16 @@ def k7_measure(segment_sum, key, ops, calls, tol: float = K7_TOL):
     flat = values.reshape(b, length, -1).contiguous()
     f = flat.shape[-1]
     kern = segment_sum._segment_sum_cuda(flat, ids, n_out, view)
+    exact = torch.equal(kern.cpu(), entry_ordered_sum(segment_sum, flat, ids, n_out))
+    check(exact, f"K7 is not the entry-ordered sum on {key} ({flat.dtype})")
     plain = segment_sum.segment_sum_plain(flat, ids, n_out)
     err = float((kern - plain).abs().max())
     scale = max(1.0, float(plain.abs().max()))
     check(err <= tol * scale, f"K7 differs from segment_sum_plain on {key}: {err}")
+    plan = None  # a checkout from before K7's plans (chip_ab.py --tree) has none
+    if hasattr(segment_sum, "segment_plan"):
+        plan = segment_sum.segment_plan(f, flat.element_size(), n_out, view.order is None,
+                                        segment_sum._alignment(flat))._asdict()
     # the library yardstick: one index_add_ into a discard row per sample
     valid = (ids >= 0) & (ids < n_out)
     base = torch.arange(b, device=ids.device)[:, None] * (n_out + 1)
@@ -1779,8 +1857,9 @@ def k7_measure(segment_sum, key, ops, calls, tol: float = K7_TOL):
     bound, b_ms, o_ms, n_valid = k7_bound_ms(ids, n_out, f, flat.element_size())
     sorted_ids = view.order is None
     return dict(
-        ids=key[0], F=f, calls=calls, entries=b * length, valid_entries=n_valid,
-        max_abs_err=err, err_rel_to_max=err / scale, bit_identical=bool(torch.equal(kern, plain)),
+        ids=key[0], F=f, dtype=str(flat.dtype).replace("torch.", ""), calls=calls,
+        entries=b * length, valid_entries=n_valid, plan=plan,
+        max_abs_err=err, err_rel_to_max=err / scale, bit_identical=exact,
         library_max_abs_err=lib_err,
         ms=graph_ms(lambda: segment_sum._segment_sum_cuda(flat, ids, n_out, view)),
         ms_events=cuda_ms(lambda: segment_sum._segment_sum_cuda(flat, ids, n_out, view)),
@@ -1788,6 +1867,57 @@ def k7_measure(segment_sum, key, ops, calls, tol: float = K7_TOL):
         library_ms=graph_ms(library),
         view_ms=graph_ms(lambda: segment_sum.segment_view(ids, n_out, sorted_ids)),
         bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
+
+
+# split thresholds of K7's mesh-density sets on the Moving-MNIST frames: 1e9
+# splits nothing (64 nodes of 64 pixels, the mesh random weights coarsen every
+# decoder step to), the path's own 0.1 (the encoder's input mesh, ~430
+# nodes of 1-64 pixels) and 0.05 (~1400 nodes, mostly single pixels and a
+# few 8 × 8 leaves, as a detailed frame gives)
+K7_MESH_THRESHOLDS = (1e9, 0.1, 0.05)
+
+
+def k7_mesh_sets(segment_sum, x, seed: int) -> list:
+    """K7 on the pixel views of quadtree meshes of three densities
+    (``K7_MESH_THRESHOLDS``) built from the frames ``x`` (B, T, rows, cols,
+    1) as the main path builds them (n_max 2048, 8 × 8 largest cells): the
+    pooling at F 1, 3 and 16 in f32 and bf16, values from ``seed``, each
+    measured as :func:`k7_measure` does (bit-identical to the entry-ordered
+    sum or the phase fails; timed beside its bound and ``index_add_``)."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
+    from quadtree_mpnnlstm_tpu_torch.graph.quadtree import (decompose_levels,
+                                                            pixel_nodes_from_levels)
+
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    out = []
+    for thresh in K7_MESH_THRESHOLDS:
+        gcfg = GraphConfig(image_shape=CANVAS, thresh=thresh, max_grid_size=8, n_max=2048,
+                           e_max=10240)
+        level = decompose_levels(x[..., 0].amax(dim=1), gcfg)
+        ids, n_nodes, _ = pixel_nodes_from_levels(level, gcfg)
+        check(int(n_nodes.max()) <= gcfg.n_max, f"mesh overflow at thresh {thresh}")
+        view = segment_sum.segment_view(ids, gcfg.n_max)
+        for f in (1, 3, 16):
+            values = torch.randn((*ids.shape, f), generator=gen, device=x.device)
+            for dtype, tol in ((torch.float32, K7_TOL), (torch.bfloat16, BF16_TOL)):
+                w = k7_measure(segment_sum, ("pixel", f), (values.to(dtype), ids, gcfg.n_max,
+                                                           view), 0, tol)
+                w.update(thresh=thresh, nodes_mean=float(n_nodes.float().mean()),
+                         nodes_max=int(n_nodes.max()))
+                out.append(w)
+    return out
+
+
+def k7_path_means(ws) -> dict:
+    """K7's per-set numbers (:func:`k7_measure`) averaged over the sets a
+    train step launches, weighted by its launches of each."""
+    ws = [w for w in ws if w["calls"]]
+    n = sum(w["calls"] for w in ws)
+    means = {k: sum(w["calls"] * w[k] for w in ws) / n
+             for k in ("ms", "ms_events", "plain_ms", "library_ms", "bound_ms")}
+    return dict(means, launches_per_step=n)
 
 
 def edge_phases(seed: int, card: str, modules, segment, segment_sum):
@@ -2026,10 +2156,12 @@ def _bf16_err(kern, plain, what: str):
     return err, rel
 
 
-def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum, loader, x):
+def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
+                     loader, x):
     """Phases 31-38: the TransformerConv model on attention windows and the
     sea-ice flagship on the grid, in bf16; returns the kernels line's bf16
-    entries of K3, K4, K5 and K6."""
+    entries of K3, K4, K5 and K6, and K7's bf16 measurements per operand set
+    of the TransformerConv path."""
     import torch
 
     from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
@@ -2092,7 +2224,9 @@ def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum, l
 
     # ---- phase 32: K3 and K4 in bf16 against their plain versions
     enc_calls = T_IN * cfg.n_layers * cfg.n_conv_layers
-    with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
+    p = CANVAS[0] * CANVAS[1]
+    with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap, \
+            SegmentCapture(segment, p, keep=True, dtype=bf16) as seg_f:
         model.forecast(x)
     check(cap.calls == k3, "bf16 attention capture run disagrees with the path")
     fwd = []
@@ -2114,9 +2248,18 @@ def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum, l
     _, batches = train_batches(seed, TRAIN_STEPS + 1)
     x_g, y_g = batches[0]
     trainer = make_trainer(seed, run_dir.name, conv, dtype="bfloat16")
-    with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b:
+    segment_sum.reset_launch_counts()
+    with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b, \
+            SegmentCapture(segment, p, keep=True, dtype=bf16) as seg_t:
         trainer.train_step(x_g, y_g)
     check(sum(cap_b.per_width.values()) == k3, f"bf16 K4 calls {cap_b.per_width}")
+    check(sum(seg_t.calls.values()) == segment_sum.LAUNCHES_BF16["segment_sum"],
+          f"bf16 K7 capture {seg_t.calls} disagrees with the step's launches")
+    sets = {**seg_t.ops, **seg_f.ops}
+    k7_sets = [k7_measure(segment_sum, key, sets[key], seg_t.calls.get(key, 0), BF16_TOL)
+               for key in sorted(sets)]
+    check(all(ops[0].dtype == bf16 for ops in sets.values()), "a K7 set is not bf16")
+    del seg_f, seg_t, sets
     bwd = []
     for hd, args in sorted(cap_b.first.items()):
         errs = {name: _bf16_err(a, p, f"bf16 K4 {name} at HD={hd}")
@@ -2129,7 +2272,7 @@ def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum, l
             lambda a: attn_bound_ms(attn, a, backward=True), cap_b.per_width[hd]))
     del cap_b
     print(json.dumps({"phase": "bf16_attn_kernels_vs_plain", "card": card, "k3_by_width": fwd,
-                      "k4_by_width": bwd}), flush=True)
+                      "k4_by_width": bwd, "k7_by_set": k7_sets}), flush=True)
 
     # ---- phase 33: train_step in bf16 on the attention path
     with GradFnCheck(attn, "attn_apply", "AttnApplyBackward") as gcheck:
@@ -2442,7 +2585,7 @@ def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum, l
             entry("grid_attn_apply", "grid_attn.cu", f"{grid_src}:446",
                   [w for w in grid_fwd if not w["keep"]], grid_paths),
             entry("grid_attn_apply_bwd", "grid_attn.cu", f"{grid_src}:446",
-                  [w for w in grid_bwd if w["keep"]], grid_paths)]
+                  [w for w in grid_bwd if w["keep"]], grid_paths)], k7_sets
 
 
 def main() -> int:
@@ -2589,16 +2732,27 @@ def main() -> int:
 
     train_launches, bwd_widths = train_phases(args.seed, card, spmm, segment_sum, cfg, nt, sw,
                                               n_max)
-    bf16_kernels = bf16_phases(args.seed, card, spmm, segment, segment_sum, loader, x)
-    attn_launches, attn_train_launches, k3_widths, k3_wide, k4_widths = attn_phases(
-        args.seed, card, spmm, attn, segment_sum, loader, x)
+    bf16_kernels, k7_main_sets = bf16_phases(args.seed, card, spmm, segment, segment_sum,
+                                             loader, x)
+    # ---- phase 27b: K7 on the pixel views of coarse to fine meshes
+    k7_mesh = k7_mesh_sets(segment_sum, x, args.seed)
+    print(json.dumps({"phase": "k7_mesh_density", "card": card, "k7_by_set": k7_mesh}),
+          flush=True)
+    attn_launches, attn_train_launches, k3_widths, k3_wide, k4_widths, k7_attn_sets = \
+        attn_phases(args.seed, card, spmm, attn, segment, segment_sum, loader, x)
     capacity_phase(args.seed, card, spmm, attn)
     grid_launches, grid_train_launches, k5_widths, k6_widths = grid_phases(
         args.seed, card, spmm, attn, grid_attn, segment_sum)
     edge_launches, edge_train_launches, k7_sets, k7_calls = edge_phases(
         args.seed, card, (spmm, attn, grid_attn, segment_sum), segment, segment_sum)
-    bf16_kernels += bf16_attn_phases(args.seed, card, spmm, attn, grid_attn, segment_sum,
-                                     loader, x)
+    bf16_attn_kernels, k7_attn_bf16_sets = bf16_attn_phases(
+        args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
+    k7_bf16 = next(k for k in bf16_kernels if k["name"] == "segment_sum_bf16")
+    k7_bf16["by_operand_set"] += (
+        [dict(w, path="transformer_conv") for w in k7_attn_bf16_sets]
+        + [dict(w, path="mesh_density") for w in k7_mesh if w["dtype"] == "bfloat16"])
+    k7_bf16["ms_by_path"]["transformer_conv"] = k7_path_means(k7_attn_bf16_sets)
+    bf16_kernels += bf16_attn_kernels
 
     # ---- phase 19: the kernels line
     n = sum(w["calls"] for w in widths)
@@ -2683,6 +2837,20 @@ def main() -> int:
         plain_ms=avg7("plain_ms"), bound_ms=avg7("bound_ms"),
         bound_by="bytes" if avg7("bytes_ms") >= avg7("ops_ms") else "operations",
         library_ms=avg7("library_ms"),
+        # every operand set: the edge list's (phase 21), the main path's in
+        # f32 (phase 27), the TransformerConv path's (phase 10) and the
+        # mesh densities' (phase 27b), with the launch-weighted means of
+        # each path
+        by_operand_set=([dict(w, path="edge_list") for w in k7_sets]
+                        + [dict(w, path="main") for w in k7_main_sets]
+                        + [dict(w, path="transformer_conv") for w in k7_attn_sets]
+                        + [dict(w, path="mesh_density") for w in k7_mesh
+                           if w["dtype"] == "float32"]),
+        ms_by_path={"edge_list": dict(k7_path_means(
+                        [dict(measured[k], calls=c) for k, c in weights.items()]),
+                        launches_per_step=edge_train_launches["segment_sum"] / ICE_TRAIN_STEPS),
+                    "main": k7_path_means(k7_main_sets),
+                    "transformer_conv": k7_path_means(k7_attn_sets)},
         launches_by_path={
             "predict_batch": edge_launches["segment_sum"],
             f"train_{ICE_TRAIN_STEPS}_steps": edge_train_launches["segment_sum"],

@@ -159,10 +159,13 @@ class ModelConfig:
     :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
     rejects other values of ``convolution_type``, ``rnn_type``,
     ``fused_gates`` and ``remesh_every``. ``compute_dtype="bfloat16"`` is
-    mixed precision, so far for ChebConv on quadtree meshes: the graph
-    pipeline, the convolutions and the recurrence run in bf16, the master
-    parameters stay float32 and are cast at use, and LayerNorm statistics,
-    the predictions leaving the model and the loss are float32.
+    mixed precision: the graph pipeline, the convolutions and the
+    recurrence run in bf16, the master parameters stay float32 and are cast
+    at use, and LayerNorm statistics, the predictions leaving the model and
+    the loss are float32. It runs ChebConv on quadtree meshes (Â blocks or
+    an edge list), TransformerConv on quadtree attention windows, and both
+    convs on the pixelwise grid; it is not ported on the pixelwise edge
+    list or for TransformerConv on an edge list, which Seq2Seq rejects.
     ``dropout`` is the decoder head's; attention convolutions drop
     attention weights at their own fixed rate (``models/conv.py``
     ``CONVOLUTION_KWARGS``).

@@ -66,9 +66,10 @@ SIGNATURES = {
         "qtm_grid_attn_bwd_bf16": [_P] * 11 + [_C] * 9 + [ctypes.c_float, _P],
     },
     "segment.cu": {
-        # values, order (or null), offsets, out, B, n_out, F, stream
-        "qtm_segment_sum": [_P] * 4 + [_C] * 3 + [_P],
-        "qtm_segment_sum_bf16": [_P] * 4 + [_C] * 3 + [_P],
+        # values, order (or null), offsets, out, B, L, n_out, F, then the plan:
+        # route, vec, span, lanes; stream
+        "qtm_segment_sum": [_P] * 4 + [_C] * 8 + [_P],
+        "qtm_segment_sum_bf16": [_P] * 4 + [_C] * 8 + [_P],
     },
 }
 

@@ -18,7 +18,9 @@ stable order of the entries by bucket and each bucket's entry range. It is
 built with integer ops once per id vector; the graphs carry the views of
 their fixed id vectors (``GraphTensors.pixel_view``, ``dst_view``,
 ``src_view``), and a call without one builds its own. ``edge_dst`` is
-sorted by construction, so its view needs only the offsets.
+sorted by construction, so its view needs only the offsets. Its launch
+geometry is :func:`segment_plan`'s, from F, the dtype, the view's kind,
+the row count and the values' alignment (no degree is read on the host).
 
 Dispatch is by device: a CUDA tensor launches the kernel, and raises if it
 cannot be built or launched; a CPU tensor runs the plain version. Each
@@ -120,14 +122,83 @@ def gather_rows_plain(g: torch.Tensor, ids: torch.Tensor, n_out: int) -> torch.T
     return torch.where(inside, torch.gather(g, 1, idx), 0.0)
 
 
+# ------------------------------------------------------- launch plan
+
+# csrc/segment.cu's limits on a plan (the kernel refuses any other)
+SPANS_MAX_F = 16      # kSpanMaxF: the spans layout's widest F
+SPANS_MAX_N = 8192    # kSpanMaxN: its most rows a sample (their offsets are staged)
+SPAN_PAIRS = 4096     # kSpanCap: a span's entries times F, at most
+SPAN_LOADS = 2048     # kSpanThreads · kSpanLoads: a CTA's round of value loads
+LANES_PER_LANE = 8    # kPerLane: features a lane of the lanes layout keeps a pass
+
+
+class SegmentPlan(NamedTuple):
+    """K7's launch geometry (``csrc/segment.cu``), as the kernel takes it."""
+
+    route: str  # "spans" (F ≤ 16) or "lanes"
+    vec: int    # values a load: spans up to 16 bytes; lanes 8 (bf16) or 1
+    span: int   # spans: CSR positions a CTA owns the rows of; lanes: 0
+    lanes: int  # lanes: lanes a row; spans: 0
+
+
+def segment_plan(f: int, itemsize: int, n_out: int, sorted_ids: bool,
+                 align: int = 16) -> SegmentPlan:
+    """K7's layout for F features of ``itemsize`` bytes (4: f32, 2: bf16)
+    over ``n_out`` rows a sample, ids read through a sorted view (no order)
+    or not, values (and output) at addresses that are multiples of
+    ``align`` (a power of two, at most 16).
+
+    The spans layout takes F ≤ 16 over an unsorted view of at most
+    ``SPANS_MAX_N`` rows a sample: a quadtree's pixel→node views, whose
+    rows hold 1-64 pixels in an order that depends on the image. Each CTA
+    owns the non-empty rows whose entries start in its ``span`` CSR
+    positions of a sample, so the work is spread by entries, not rows, on
+    any mesh. Its loads take ``vec`` values (the widest power of two of at
+    most 16 bytes that divides F and the alignment); ``span`` is the
+    largest power of two, at most 1024, whose value loads fit one round of
+    ``SPAN_LOADS`` and whose (row, feature) pairs fit ``SPAN_PAIRS``. The
+    kernel finds its rows in the offsets on the card; the plan reads no
+    degree.
+
+    Every other sum takes the lanes layout: ``lanes`` lanes a row (F, or
+    F / 8 with 16-byte bf16 loads, rounded up to a power of two, at most
+    32), which walk its entries. Its rows are node degrees (sorted edge
+    lists, the degree sums), the pixelwise mesh's rows (one a pixel, at
+    most 4 entries), where it runs near the launch floor, or wide (F > 16)
+    rows that already give a warp 32 lanes of loads."""
+    if f <= SPANS_MAX_F and not sorted_ids and n_out <= SPANS_MAX_N:
+        vec = 16 // itemsize
+        while f % vec or align % (vec * itemsize):
+            vec //= 2
+        span = 1024
+        while span * (f // vec) > SPAN_LOADS or span * f > SPAN_PAIRS:
+            span //= 2
+        return SegmentPlan("spans", vec, span, 0)
+    vec = LANES_PER_LANE if itemsize == 2 and f % LANES_PER_LANE == 0 and align >= 16 else 1
+    width = f // vec
+    lanes = (32 if width >= 32 else 16 if width > 8 else 8 if width > 4 else 4 if width > 2
+             else width)
+    return SegmentPlan("lanes", vec, 0, lanes)
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two, at most 16, that divides every address."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
+
+
 # ------------------------------------------------------- CUDA kernel
 
 
 def _segment_sum_cuda(values: torch.Tensor, ids: torch.Tensor, n_out: int,
                       view: SegmentView) -> torch.Tensor:
     """Launch K7 (``qtm_segment_sum``, or ``_bf16`` for bf16 values) on
-    values (B, L, F); the kernel reads the ids (B, L) through their CSR
-    ``view`` alone. The output takes the values' dtype."""
+    values (B, L, F) in :func:`segment_plan`'s layout; the kernel reads the
+    ids (B, L) through their CSR ``view`` alone. The output takes the
+    values' dtype."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     b, length, f = values.shape
@@ -142,11 +213,13 @@ def _segment_sum_cuda(values: torch.Tensor, ids: torch.Tensor, n_out: int,
     if b * length >= 2**31:
         raise ValueError(f"segment_sum takes fewer than 2**31 entries, got {b * length}")
     out = torch.empty((b, n_out, f), dtype=values.dtype, device=values.device)
+    plan = segment_plan(f, values.element_size(), n_out, view.order is None,
+                        _alignment(values, out))
     order = None if view.order is None else view.order.data_ptr()
     entry = "qtm_segment_sum" + spmm.KERNEL_DTYPES[values.dtype]
     err = getattr(load_library("segment.cu"), entry)(
-        spmm._ptr(values), order, spmm._ptr(view.offsets), spmm._ptr(out), b, n_out, f,
-        spmm._stream())
+        spmm._ptr(values), order, spmm._ptr(view.offsets), spmm._ptr(out), b, length, n_out,
+        f, int(plan.route == "spans"), plan.vec, plan.span, plan.lanes, spmm._stream())
     spmm._raise_on(err, "segment_sum")
     (LAUNCHES_BF16 if values.dtype == torch.bfloat16 else LAUNCHES)["segment_sum"] += 1
     return out

@@ -1137,3 +1137,110 @@ def test_bf16_attention_model_on_the_card_goes_through_the_bf16_kernels(card, me
     assert loss.dtype == torch.float32 and torch.isfinite(loss)
     assert ops.LAUNCHES_BF16[bwd] > 0 and set(ops.LAUNCHES.values()) == {0}
     assert all(p.dtype == p.grad.dtype == torch.float32 for p in tp.model.parameters())
+
+
+# ---------------------------------------------------------------- K7 on the main path's shapes
+
+
+def _pooling_ids(kind, seed=0):
+    """Ids (B, L = 4096) over n_out 2048 rows as the main path's pixel view
+    meets them: compact node ids (a mesh's valid rows first), each row 1-64
+    pixels, most rows empty, the pixels in no order (the view is unsorted).
+    ``pooling``: 16 samples of 64 to 1500 nodes; ``fine``: 16 samples of
+    1400 nodes, mostly single pixels and 42 leaves of 64 among them, as a
+    detailed frame's mesh; ``long``: one bucket of 1500 entries, longer
+    than any batch the kernel stages; ``empty``: a sample whose ids are all
+    dropped beside a pooling sample."""
+    rng = np.random.default_rng(seed)
+    length, n_out = 4096, 2048
+    batch = 16 if kind in ("pooling", "fine") else 2
+    ids = np.full((batch, length), n_out)
+    for b in range(batch):
+        nodes = [64, 1500, 300, 16][b % 4] if kind == "pooling" else 200
+        sizes = rng.integers(1, 65, nodes)
+        if kind == "fine":
+            nodes, sizes = 1400, np.ones(1400, np.int64)
+            sizes[rng.choice(nodes, 42, replace=False)] = 64
+        cells = np.repeat(np.arange(nodes), sizes)[:length]
+        ids[b, :len(cells)] = cells
+        ids[b] = rng.permutation(ids[b])
+    if kind == "long":
+        ids[0, rng.permutation(length)[:1500]] = 5
+    elif kind == "empty":
+        ids[1] = n_out
+    return torch.from_numpy(ids), n_out
+
+
+@pytest.mark.parametrize("kind", ["pooling", "fine", "long", "empty"])
+@pytest.mark.parametrize("f", [1, 4, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_on_the_main_paths_shapes(card, dtype, f, kind):
+    """K7 on the pixel view's shapes (``_pooling_ids``) is bit for bit the
+    entry-ordered sum: ``segment_sum_plain`` on the CPU with torch on one
+    thread (on the card, the accumulating ``index_put_`` reduces a bucket
+    of 32 or more entries at F 1 by warps, out of entry order), rounded
+    once in bf16. A repeat and misaligned values (the scalar loads) give
+    the same bits; empty rows are zeros."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    ids, n_out = _pooling_ids(kind)
+    rng = np.random.default_rng(f)
+    values = torch.from_numpy(rng.standard_normal((*ids.shape, f)).astype(np.float32)).to(dtype)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = segment_sum.segment_sum_plain(values, ids, n_out)
+    finally:
+        torch.set_num_threads(threads)
+    ids_c, values_c = ids.to(card), values.to(card)
+    view = segment_sum.segment_view(ids_c, n_out)
+    segment_sum.reset_launch_counts()
+    out = segment_sum._segment_sum_cuda(values_c, ids_c, n_out, view)
+    torch.cuda.synchronize()
+    counts = segment_sum.LAUNCHES_BF16 if dtype == torch.bfloat16 else segment_sum.LAUNCHES
+    assert counts["segment_sum"] == 1
+    assert out.dtype == dtype and torch.equal(out.cpu(), want)
+    assert torch.equal(segment_sum._segment_sum_cuda(values_c, ids_c, n_out, view), out)
+    assert torch.equal(segment_sum._segment_sum_cuda(_misaligned(values_c), ids_c, n_out, view),
+                       out)
+    empty = (view.offsets[:, 1:] == view.offsets[:, :-1]).cpu()
+    assert not out.cpu()[empty].any()
+    if kind == "empty":
+        assert not out[1].any()
+
+
+def test_segment_sum_kernel_launches_its_plan(card):
+    """The wrapper launches ``segment_plan``'s layout: on a pixel view, the
+    spans layout at F ≤ 16 and the lanes layout above, each bit for bit the
+    CPU's entry-ordered sum on the same ids; a plan the kernel does not
+    take (spans at F 17, a span whose pairs exceed the threads' registers,
+    16-byte loads of 8 f32 values, lanes of 3 lanes) is refused."""
+    import ctypes
+
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+    from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
+
+    ids, n_out = _pooling_ids("empty")
+    ids_c = ids.to(card)
+    view = segment_sum.segment_view(ids_c, n_out)
+    threads = torch.get_num_threads()
+    for f, route in ((16, "spans"), (17, "lanes")):
+        assert segment_sum.segment_plan(f, 4, n_out, False).route == route
+        values = torch.randn((*ids.shape, f), generator=torch.Generator().manual_seed(f))
+        torch.set_num_threads(1)
+        try:
+            want = segment_sum.segment_sum_plain(values, ids, n_out)
+        finally:
+            torch.set_num_threads(threads)
+        got = segment_sum._segment_sum_cuda(values.to(card), ids_c, n_out, view)
+        assert torch.equal(got.cpu(), want)
+    lib = load_library("segment.cu")
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for f, plan in ((17, (1, 1, 128, 0)), (17, (0, 1, 0, 3)), (16, (1, 4, 512, 0)),
+                    (16, (1, 8, 256, 0))):
+        values = torch.zeros((*ids.shape, f), device=card)
+        out = torch.empty((2, n_out, f), device=card)
+        err = lib.qtm_segment_sum(ptr(values), ptr(view.order), ptr(view.offsets), ptr(out),
+                                  2, ids.shape[1], n_out, f, *plan, stream)
+        assert err != 0, (f, plan)
