@@ -7,9 +7,17 @@ thresh 0.1, random weights from ``--seed``), with ChebConv and with
 TransformerConv (``--conv``: only one of them); with ``--workload ice``
 the sea-ice flagship on the pixelwise grid (phases 13 and 16: one
 224×304 forecast of 10 → 90 days through ``predict``, and one full-BPTT
-train step, batch 1, with climatology). Each in f32 or, with ``--dtype
-bfloat16``, in bf16 (``bench.py``'s default dtype; phases 26, 28, 31, 33,
-35 and 37). With ``--workload k7`` the segment-sum kernel K7 alone: on
+train step, batch 1, with climatology); with ``--workload ice-quadtree``
+``bench.py``'s ice-quadtree model (phase 42: remeshing quadtree meshes
+of the transformed criterion on attention windows, a forecast and a
+full-BPTT step). Each in f32 or, with ``--dtype bfloat16``, in bf16
+(``bench.py``'s default dtype; phases 26, 28, 31, 33, 35 and 37).
+``--remat`` sets the per-step remat of the train steps (default
+``none``, as the numbers before it were taken; ``bench.py`` trains with
+``full``) and ``--per-gate`` the per-gate gate stacks of the flagship
+(``bench.py``'s default on the pixelwise meshes), so that
+``--workload ice --dtype bfloat16 --remat full --per-gate`` times
+``bench.py --workload ice`` as it configures it. With ``--workload k7`` the segment-sum kernel K7 alone: on
 the operand sets of a forecast and a train step of the ChebConv and the
 TransformerConv model, each in f32 and bf16 (as ``chip_smoke.py`` phases
 10, 27 and 32 capture them), and on the pixel views of coarse to fine
@@ -18,12 +26,16 @@ quadtree meshes built from the Moving-MNIST frames (phase 27b,
 the entry-ordered sum, timed by CUDA graph and by events beside its bound
 and ``index_add_`` (``k7_measure``).
 
-    python3 chip_ab.py [--workload quadtree|ice|k7] [--conv ChebConv|TransformerConv]
-                       [--dtype float32|bfloat16] [--tree DIR] [--reps 5] [--seed 0]
+    python3 chip_ab.py [--workload quadtree|ice|ice-quadtree|k7]
+                       [--conv ChebConv|TransformerConv] [--dtype float32|bfloat16]
+                       [--remat none|full|mesh|dots] [--per-gate]
+                       [--tree DIR] [--reps 5] [--seed 0]
 
 ``--tree`` imports the port's package from another checkout, for example a
 parent commit unpacked into a git-ignored directory, so that one script
-times two versions in turns on one card (parent, change, change, parent).
+times two versions in turns on one card (parent, change, change, parent);
+this checkout's model factories pass ``remat``, so the other tree's
+predictor must take it.
 Each forecast and each step is timed alone on the host clock, after a
 warm-up, and ends in ``torch.cuda.synchronize()``. Prints one JSON line
 with every sample, its median and the card's name and power limit.
@@ -59,15 +71,22 @@ def _timed(fn, reps: int) -> list:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--workload", default="quadtree", choices=("quadtree", "ice", "k7"))
+    parser.add_argument("--workload", default="quadtree",
+                        choices=("quadtree", "ice", "ice-quadtree", "k7"))
     parser.add_argument("--conv", choices=("ChebConv", "TransformerConv"),
                         help="time only this model of the quadtree paths (default: both)")
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                         help="compute dtype of the models")
+    parser.add_argument("--remat", default="none", choices=("none", "full", "mesh", "dots"),
+                        help="per-step remat of the train steps (bench.py: full)")
+    parser.add_argument("--per-gate", action="store_true",
+                        help="per-gate gate stacks of the flagship (--workload ice)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    if args.per_gate and args.workload != "ice":
+        parser.error("--per-gate is bench.py's default on the pixelwise meshes (--workload ice)")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
@@ -89,8 +108,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     run_dir = tempfile.TemporaryDirectory()
     result = {"tree": tree, "card": cs.card_line(), "workload": args.workload,
-              "dtype": args.dtype, "reps": args.reps}
-    if args.workload == "ice":
+              "dtype": args.dtype, "remat": args.remat, "fused_gates": not args.per_gate,
+              "reps": args.reps}
+    if args.workload in ("ice", "ice-quadtree"):
         _time_ice(cs, args, run_dir.name, result)
     elif args.workload == "k7":
         _time_k7(cs, args, run_dir.name, result)
@@ -122,7 +142,7 @@ def _time_quadtree(cs, args, run_dir: str, result: dict) -> None:
     for conv in (args.conv,) if args.conv else ("ChebConv", "TransformerConv"):
         model = cs.make_model(args.seed, run_dir, conv, dtype=args.dtype)
         _record(result, f"{conv}_forecast_s", _timed(lambda: model.predict(loader), args.reps))
-        trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=args.dtype)
+        trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=args.dtype, remat=args.remat)
         _record(result, f"{conv}_step_s",
                 _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps))
         del model, trainer
@@ -165,19 +185,27 @@ def _time_k7(cs, args, run_dir: str, result: dict) -> None:
 
 def _time_ice(cs, args, run_dir: str, result: dict) -> None:
     """The flagship's forecast (one window through ``predict``) and its
-    full-BPTT train step on the first window, as phases 13 and 16 run them."""
+    full-BPTT train step on the first window, as phases 13 and 16 run them
+    (``--workload ice``), or the ice-quadtree model's, as phase 42 does."""
     import torch
 
     from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
 
+    def make():
+        if args.workload == "ice-quadtree":
+            return cs.make_ice_quadtree_model(args.seed, run_dir, dtype=args.dtype,
+                                              remat=args.remat)
+        return cs.make_ice_model(args.seed, run_dir, dtype=args.dtype, remat=args.remat,
+                                 fused_gates=not args.per_gate)
+
     data, clim, mask = cs.ice_data(args.seed)
     window = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
-    model = cs.make_ice_model(args.seed, run_dir, dtype=args.dtype)
+    model = make()
     _record(result, "ice_forecast_s",
             _timed(lambda: model.predict(window, climatology=clim, mask=mask), args.reps))
     del model
     torch.cuda.empty_cache()
-    trainer = cs.make_ice_model(args.seed, run_dir, dtype=args.dtype)
+    trainer = make()
     trainer.initiate_training(lr=cs.LR, lr_decay=0.95)
     x, y, c = data.x[:1], data.y[:1], trainer._clim_batch(clim, data.launch_dates[:1])
     _record(result, "ice_step_s",

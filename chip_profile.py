@@ -5,6 +5,8 @@
     python3 chip_profile.py --dtype bfloat16 [--train] [--conv TransformerConv]
     python3 chip_profile.py --workload ice [--train] [--dtype bfloat16]
     python3 chip_profile.py --workload ice-xla [--train]
+    python3 chip_profile.py --workload ice-quadtree --dtype bfloat16 --remat full [--train]
+    python3 chip_profile.py --workload ice --dtype bfloat16 --per-gate --remat full --train
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
@@ -13,12 +15,18 @@ sea-ice flagship (one 224×304 pixelwise forecast of 10 → 90 days,
 TransformerConv with climatology, batch 1); ``--dtype bfloat16`` runs
 either in bf16, ``bench.py``'s default; or with ``--workload ice-xla``
 the same model on the pixelwise edge list (training with truncated BPTT
-of 30 steps), under ``torch.profiler`` after
+of 30 steps, full BPTT under ``--remat``), or with ``--workload
+ice-quadtree`` ``bench.py``'s ice-quadtree model (``chip_smoke.py``
+``make_ice_quadtree_model``: remeshing quadtree meshes of the transformed
+criterion, attention windows), under ``torch.profiler`` after
 a warm-up: the forecast by default, and with ``--train`` the training step
 (``train_step``: fwd + bwd + clipped Adam). Prints one JSON line: wall
 time per batch, the device's busy time and idle share over the profiled
 window, the device time of the hand-written kernels, and the kernels that
-took the most device time. Wall times with the profiler off come first,
+took the most device time. ``--remat`` sets the model's per-step remat
+(default ``none``, as the numbers before it were taken; ``bench.py``
+trains with ``full``) and ``--per-gate`` the per-gate gate layout
+(``bench.py``'s default on the pixelwise meshes). Wall times with the profiler off come first,
 so the profiler's overhead shows as the difference. The time of K1, K2,
 K2b, K3, K4, K5, K6 and K7 is given apiece: their launchers run inside
 ``record_function`` ranges named after their launch counters (K2 and K2b
@@ -79,13 +87,20 @@ def _workload(args, run_dir: str):
     one profiled forecast or train step of the chosen workload."""
     import torch
 
-    if args.workload in ("ice", "ice-xla"):
+    if args.workload in ("ice", "ice-xla", "ice-quadtree"):
         edge_list = args.workload == "ice-xla"
         data, clim, mask = chip_smoke.ice_data(args.seed)
-        model = chip_smoke.make_ice_model(args.seed, run_dir,
-                                          aggregation="xla" if edge_list else "grid",
-                                          dtype=args.dtype)
-        tbptt = chip_smoke.EDGE_TBPTT if edge_list else chip_smoke.ICE_TBPTT
+        if args.workload == "ice-quadtree":
+            model = chip_smoke.make_ice_quadtree_model(args.seed, run_dir, dtype=args.dtype,
+                                                       remat=args.remat)
+        else:
+            model = chip_smoke.make_ice_model(args.seed, run_dir,
+                                              aggregation="xla" if edge_list else "grid",
+                                              dtype=args.dtype, remat=args.remat,
+                                              fused_gates=not args.per_gate)
+        # the edge list keeps ≈ 100 GB of activations at full BPTT without remat
+        tbptt = (chip_smoke.EDGE_TBPTT if edge_list and args.remat == "none"
+                 else chip_smoke.ICE_TBPTT)
         windows = [(data.x[i:i + 1], data.y[i:i + 1],
                     model._clim_batch(clim, data.launch_dates[i:i + 1]))
                    for i in range(1 + args.reps)]
@@ -100,11 +115,13 @@ def _workload(args, run_dir: str):
         return 1, "TransformerConv", lambda: step(windows[0]), lambda: step(next(it))
     ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
     if args.train:
-        model = chip_smoke.make_trainer(args.seed, run_dir, args.conv, dtype=args.dtype)
+        model = chip_smoke.make_trainer(args.seed, run_dir, args.conv, dtype=args.dtype,
+                                        remat=args.remat)
         it = iter(batches[1:] * 3)
         return (chip_smoke.BATCH, args.conv, lambda: model.train_step(*batches[0]),
                 lambda: model.train_step(*next(it)))
-    model = chip_smoke.make_model(args.seed, run_dir, args.conv, dtype=args.dtype)
+    model = chip_smoke.make_model(args.seed, run_dir, args.conv, dtype=args.dtype,
+                                  remat=args.remat)
     x = torch.as_tensor(ds.x, device="cuda")
     run = lambda: model.forecast(x)  # noqa: E731
     return chip_smoke.BATCH, args.conv, run, run
@@ -116,10 +133,18 @@ def main() -> int:
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--train", action="store_true", help="profile train_step")
     parser.add_argument("--conv", default="ChebConv", choices=("ChebConv", "TransformerConv"))
-    parser.add_argument("--workload", default="mnist", choices=("mnist", "ice", "ice-xla"))
+    parser.add_argument("--workload", default="mnist",
+                        choices=("mnist", "ice", "ice-xla", "ice-quadtree"))
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                         help="compute dtype of the model (bf16: not on the edge list)")
+    parser.add_argument("--remat", default="none", choices=("none", "full", "mesh", "dots"),
+                        help="per-step remat of the training rollout (bench.py: full)")
+    parser.add_argument("--per-gate", action="store_true",
+                        help="per-gate gate stacks (fused_gates=False), --workload ice|ice-xla")
     args = parser.parse_args()
+    if args.per_gate and args.workload not in ("ice", "ice-xla"):
+        parser.error("--per-gate is bench.py's default on the pixelwise meshes only "
+                     "(--workload ice or ice-xla)")
     if args.dtype != "float32" and args.workload == "ice-xla":
         parser.error("--dtype bfloat16 does not run on the pixelwise edge list (not ported)")
 
@@ -186,7 +211,8 @@ def main() -> int:
     print(json.dumps({
         "card": chip_smoke.card_line(),
         "workload": args.workload, "path": "train_step" if args.train else "forecast",
-        "conv": conv, "dtype": args.dtype, "batch": batch,
+        "conv": conv, "dtype": args.dtype, "batch": batch, "remat": args.remat,
+        "fused_gates": not args.per_gate,
         "wall_s_per_batch_median": wall[len(wall) // 2],
         "wall_s_per_batch_all": wall,
         "profiled_s_per_batch": window_s / args.reps,

@@ -215,6 +215,39 @@ Phases (each prints one line; any failure raises and exits non-zero):
 38. a bf16 T_out-6 step on K5/K6 against one on their plain versions
    (≤2e-2 × max(1, max|g|)), and the kernel step again, bit-identical.
 
+``bench.py``'s workloads as it configures them (phases 39-42; every
+phase above runs ``remat=False``, so its numbers stay comparable with
+earlier runs):
+
+39. main path under remat (``bench.py`` ``measure()``'s default:
+   ChebConv, batch 16, bf16, ``--remat full``): one ``train_step`` with
+   remat "none", "full" and "mesh" from the same weights and generator
+   (dropout 0.1, teacher forcing 0.5): loss and every gradient leaf
+   bit-identical, the generator where "none" leaves it; K1, K2, K2b and K7
+   launches a step as read from the code (a replay launches its step's
+   forward again: K2 224 in every remat mode, "full" also K1 21 and K7
+   189, "mesh" K1 11 and K7 119); each mode's step peak above its start
+   and time;
+40. the flagship at ``bench.py --workload ice`` defaults: the grid,
+   bf16, per-gate stacks (``fused_gates=False``), remat full, T_out 90,
+   full BPTT: ``predict`` (300 K5) and 3 timed ``train_step`` s (600 K5 with
+   the replays, 300 K6), finite, overflow 0; K5 (bit-identical) and K6
+   (one bf16 rounding) against their plain versions on this path's
+   operands, timed; a step's peak beside the same step without remat; the
+   per-gate step's gradients against the fused model's on weights stacked
+   by ``fuse_attn_gates`` (≤2e-2 × max(1, max|g|), phase 34's K4 gate);
+41. the flagship on the pixelwise edge list, f32, full BPTT under remat
+   full (``bench.py --workload ice-xla --dtype float32``): finite loss,
+   overflow 0, K7 1594 a step as read from the code, its peak; at T_out 6
+   remat full against "none": bit-identical loss and gradients;
+42. ice-quadtree at its defaults (``bench.py --workload ice-quadtree``:
+   ``make_ice_quadtree_model``, bf16, remat full): ``predict`` (K3 300,
+   K7 452) and 2 timed ``train_step`` s (K3 600, K4 300, K7 1080), finite,
+   overflow 0; K3 and K4 at HD 256 (8 streams × d 32) against their plain
+   versions on this path's first decoder windows and one step's
+   cotangents, in bf16 and f32, timed by CUDA graph beside their bounds;
+   the fullest window against EB and SW.
+
 Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38) swaps each
 kernel it would launch for its plain version.
 
@@ -314,7 +347,10 @@ def graph_ms(fn, reps: int = REPS, replays: int = 5) -> float:
 
 
 def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
-               teacher_forcing_ratio: float = 0.0, dtype: str = "float32"):
+               teacher_forcing_ratio: float = 0.0, dtype: str = "float32", remat=False):
+    """``bench.py``'s 64×64 Moving-MNIST model; ``remat`` is the per-step
+    remat mode (False for the phases that predate it, so their numbers
+    stay comparable)."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -323,7 +359,7 @@ def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
         device=DEVICE, seed=seed, run_dir=run_dir,
         teacher_forcing_ratio=teacher_forcing_ratio,
         model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
-                          convolution_type=conv, compute_dtype=dtype),
+                          convolution_type=conv, compute_dtype=dtype, remat=remat),
         graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
                           agg_eb=1024, agg_sw=1024, aggregation="pallas"),
     )
@@ -373,9 +409,9 @@ class Capture:
 
 
 def make_trainer(seed: int, run_dir: str, conv: str = "ChebConv",
-                 teacher_forcing_ratio: float = 0.0, dtype: str = "float32"):
+                 teacher_forcing_ratio: float = 0.0, dtype: str = "float32", remat=False):
     """The main path's model, ready to train (Adam at lr 0.01, γ 0.95)."""
-    model = make_model(seed, run_dir, conv, teacher_forcing_ratio, dtype)
+    model = make_model(seed, run_dir, conv, teacher_forcing_ratio, dtype, remat)
     model.initiate_training(lr=LR, lr_decay=0.95)
     return model
 
@@ -656,10 +692,12 @@ K6_TOL = 1e-5
 
 
 def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
-                   aggregation: str = "grid", dtype: str = "float32"):
+                   aggregation: str = "grid", dtype: str = "float32", remat=False,
+                   fused_gates: bool = True):
     """The flagship forecaster (T_out ``t_out``, default 90) on the
     pixelwise grid or, with ``aggregation="xla"``, the pixelwise edge list,
-    computing in ``dtype``; random weights from ``seed``."""
+    computing in ``dtype``, with per-step ``remat`` and the fused or
+    per-gate gate layout; random weights from ``seed``."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -668,9 +706,40 @@ def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None
         output_timesteps=ICE_T_OUT if t_out is None else t_out,
         use_climatology=True, device=DEVICE, seed=seed, run_dir=run_dir,
         model_kwargs=dict(hidden_size=32, dropout=0.1, n_layers=1, n_conv_layers=3,
-                          convolution_type="TransformerConv", fused_gates=True,
-                          compute_dtype=dtype),
+                          convolution_type="TransformerConv", fused_gates=fused_gates,
+                          compute_dtype=dtype, remat=remat),
         graph_kwargs=dict(aggregation=aggregation),
+    )
+
+
+# bench.py make_ice_predictor(mesh="quadtree") at its defaults (:343-357,
+# :376-388): the flagship's model on quadtree meshes of the transformed
+# criterion, remeshed every decoder step, on attention windows
+ICE_QUAD_BUDGET = 16384
+
+
+def make_ice_quadtree_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
+                            dtype: str = "bfloat16", remat=True):
+    """The ice-quadtree forecaster (``bench.py --workload ice-quadtree``):
+    thresh 0.15 on ``dist_from_05`` of the criterion, max_grid_size 8,
+    n_max = node_budget 16384, e_max 8 × 16384, attention windows NT 128,
+    EB = SW = 1024, the "sort" adjacency; TransformerConv with fused gates
+    (8 streams × d 32 = HD 256), hidden 32, 1 × 3 layers, climatology,
+    bf16 and full remat by default; random weights from ``seed``."""
+    from quadtree_mpnnlstm_tpu_torch.graph.quadtree import dist_from_05
+    from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
+
+    return NextFramePredictorS2S(
+        image_shape=ICE_SHAPE, thresh=0.15, decompose=True, transform_func=dist_from_05,
+        input_features=len(ICE_VARS), input_timesteps=ICE_T_IN,
+        output_timesteps=ICE_T_OUT if t_out is None else t_out,
+        use_climatology=True, device=DEVICE, seed=seed, run_dir=run_dir,
+        model_kwargs=dict(hidden_size=32, dropout=0.1, n_layers=1, n_conv_layers=3,
+                          convolution_type="TransformerConv", fused_gates=True,
+                          compute_dtype=dtype, remat=remat),
+        graph_kwargs=dict(max_grid_size=8, n_max=ICE_QUAD_BUDGET, e_max=8 * ICE_QUAD_BUDGET,
+                          node_budget=ICE_QUAD_BUDGET, aggregation="pallas", agg_nt=128,
+                          agg_eb=1024, agg_sw=1024, adjacency="sort"),
     )
 
 
@@ -2587,6 +2656,439 @@ def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segme
             entry("grid_attn_apply_bwd", "grid_attn.cu", f"{grid_src}:446",
                   [w for w in grid_bwd if w["keep"]], grid_paths)], k7_sets
 
+# ---------------------------------------------------------------- bench.py's defaults
+# Phases 39-42: per-step remat (bench.py --remat, default full), the
+# per-gate stacks measure_ice takes on pixelwise meshes, and the
+# ice-quadtree workload.
+REMAT_MODES = ("none", "full", "mesh")
+ICE_QUAD_TRAIN_STEPS = 2
+
+
+def launch_totals(modules) -> dict:
+    """Each kernel's launches, f32 and bf16 together."""
+    out = {}
+    for m in modules:
+        for counts in (m.LAUNCHES, m.LAUNCHES_BF16):
+            for k, v in counts.items():
+                out[k] = out.get(k, 0) + v
+    return out
+
+
+def expected_remat_launches(cfg, mode: str) -> dict:
+    """Launches of one full-BPTT ChebConv train step (phase 5's) under
+    per-step remat, read from the code: a replay launches its step's
+    forward again. Every K2 runs inside an encoder or decoder step, so
+    every mode but "none" launches each twice; "full" also replays every
+    decoder step's remesh (K1, then K7 for the new mesh's node counts,
+    pooling and degrees and for each layer's H and C carried onto it);
+    "mesh" builds each mesh once, outside the replayed cell."""
+    want = expected_launches(cfg)
+    if mode != "none":
+        want["spmm_apply"] *= 2
+    if mode == "full":
+        want["spmm_build_blocks"] += T_OUT
+        want["segment_sum"] += T_OUT * (3 + 2 * cfg.n_layers)
+    return want
+
+
+def expected_ice_quadtree_launches(cfg, train: bool) -> dict:
+    """K3, K4 and K7 launches of one ice-quadtree forecast (or full-BPTT
+    train step under remat full), read from the code: one attention call
+    per conv layer of every encoder step and per cell and head conv of
+    every decoder step (K3; a train step replays each, and K4 runs once
+    per call); K7 for every mesh's node counts and pooling, each layer's H
+    and C carried onto each remesh and each decoder step's climatology
+    pooled onto its mesh; a train step's backward adds the gather of every
+    frame and of the H and C of every remesh but the last, and the replay
+    repeats every decoder step's remesh (counts, pooling, H and C)."""
+    k3 = _attention_calls(cfg, cfg.output_timesteps)
+    t_out, per_remesh = cfg.output_timesteps, 2 + 2 * cfg.n_layers
+    k7 = 2 * (1 + t_out) + 2 * cfg.n_layers * t_out + t_out
+    if not train:
+        return {"attn_apply": k3, "attn_apply_bwd": 0, "segment_sum": k7}
+    k7 += t_out + (t_out - 1) * 2 * cfg.n_layers + t_out * per_remesh
+    return {"attn_apply": 2 * k3, "attn_apply_bwd": k3, "segment_sum": k7}
+
+
+def _stacked_grads(per_gate_model):
+    """A per-gate model's gradients in the fused layout (stacked by
+    ``fuse_attn_gates``), by parameter name."""
+    from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax, params_to_jax
+
+    grads = {n: p.grad for n, p in per_gate_model.named_parameters()}
+    return params_from_jax(params_to_jax(grads), fuse_gates=True)
+
+
+def _leaf_err(ga, gb) -> float:
+    return max(float((ga[n].cpu() - gb[n].cpu()).abs().max())
+               / max(1.0, float(gb[n].abs().max())) for n in gb)
+
+
+def bench_default_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum) -> dict:
+    """Phases 39-42; returns what the kernels line adds: K5/K6 rows of the
+    per-gate flagship and K3/K4 rows at HD 256 on the ice-quadtree
+    windows, with the launches of those paths."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn, segment_sum)
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def grads_of(trainer):
+        return {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    # ---- phase 39: the main path under remat none / full / mesh
+    _, batches = train_batches(seed, 1)
+    x_b, y_b = batches[0]
+    modes = {}
+    for mode in REMAT_MODES:
+        trainer = make_trainer(seed, run_dir.name, teacher_forcing_ratio=0.5, dtype="bfloat16",
+                               remat=mode)
+        check(trainer.model.remat == mode, f"remat {trainer.model.remat}, asked {mode}")
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        out = {}
+        reset()
+        peak = peak_above_start_gib(
+            lambda: out.update(step=trainer.train_step(x_b, y_b, generator=gen)))
+        launches = launch_totals(modules)
+        grads = grads_of(trainer)
+        t0 = time.perf_counter()
+        float(trainer.train_step(x_b, y_b)[0])
+        modes[mode] = dict(loss=out["step"][0], overflow=int(out["step"][1]), grads=grads,
+                           generator=gen.get_state(), launches=launches, peak_gib=peak,
+                           step_s=time.perf_counter() - t0)
+        want = expected_remat_launches(trainer.cfg, mode)
+        got = {k: launches[k] for k in want}
+        check(got == want, f"remat {mode}: launches a step {got}, expected {want}")
+        del trainer
+    ref = modes["none"]
+    for mode, r in modes.items():
+        check(bool(torch.isfinite(r["loss"])) and r["overflow"] == 0,
+              f"remat {mode}: loss {float(r['loss'])}, overflow {r['overflow']}")
+        same = (torch.equal(r["loss"], ref["loss"]) and torch.equal(r["generator"],
+                                                                    ref["generator"])
+                and all(torch.equal(r["grads"][n], g) for n, g in ref["grads"].items()))
+        check(same, f"remat {mode}: the step is not bit-identical to remat none")
+    print(json.dumps({
+        "phase": "remat_main_path", "card": card, "batch": BATCH, "dtype": "bfloat16",
+        "dropout": 0.1, "teacher_forcing_ratio": 0.5, "bit_identical": True,
+        "leaves": len(ref["grads"]),
+        "modes": {m: {"loss": float(r["loss"]), "step_s": r["step_s"],
+                      "step_peak_above_start_gib": r["peak_gib"],
+                      "launches_per_step": {k: v for k, v in r["launches"].items() if v}}
+                  for m, r in modes.items()},
+    }), flush=True)
+    del modes, ref
+    torch.cuda.empty_cache()
+
+    # ---- phase 40: the flagship at bench.py --workload ice defaults
+    data, clim, mask = ice_data(seed)
+    windows = lambda i, j: ArrayDataset(data.x[i:j], data.y[i:j],  # noqa: E731
+                                        data.launch_dates[i:j])
+    x0, y0 = data.x[:1], data.y[:1]
+    model = make_ice_model(seed, run_dir.name, dtype="bfloat16", remat=True, fused_gates=False)
+    cfg = model.cfg
+    check(not cfg.fused_gates and model.model.remat == "full", f"ice defaults: {cfg}")
+    clim0 = model._clim_batch(clim, data.launch_dates[:1])
+    k5 = expected_grid_launches(cfg)
+    model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)
+    torch.cuda.synchronize()
+    forecast_s = time.perf_counter() - t0
+    fwd_launches = launch_totals(modules)
+    check(bool(np.isfinite(y).all()) and model.last_overflow == 0,
+          f"per-gate bf16 grid forecast: finite {bool(np.isfinite(y).all())}, "
+          f"overflow {model.last_overflow}")
+    check({k: v for k, v in fwd_launches.items() if v} == {"grid_attn_apply": k5},
+          f"per-gate grid forecast launches {fwd_launches}, expected K5 {k5}")
+    enc_calls = ICE_T_IN * cfg.n_layers * cfg.n_conv_layers
+    with AttnCapture(grid_attn, "_grid_attn_fwd_cuda", enc_calls, cfg.n_layers + 2) as cap:
+        model.forecast(x0, mask=mask, climatology=clim0)
+    k5_rows = []
+    for hd, args in cap.operands().items():
+        with torch.no_grad():
+            kern = grid_attn._grid_attn_fwd_cuda(*args)
+            plain = grid_attn.grid_attn_plain(*args)
+        check(kern.dtype == torch.bfloat16 and torch.equal(kern, plain),
+              f"per-gate bf16 K5 is not bit-identical to its plain version at H={hd}")
+        k5_rows.append(_bf16_kernel_row(
+            dict(H=hd, keep=False, max_abs_err=0.0, bit_identical=True), args,
+            grid_attn._grid_attn_fwd_cuda, grid_attn.grid_attn_plain,
+            lambda a: grid_bound_ms(a, backward=False), cap.per_width[hd]))
+    del model, cap
+    short = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, dtype="bfloat16",
+                           remat=True, fused_gates=False)
+    short.initiate_training(lr=LR, lr_decay=0.95)
+    y_s, clim_s = y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]
+    with CaptureBwd(grid_attn, "_grid_attn_bwd_cuda") as cap_b:
+        short.train_step(x0, y_s, mask=mask, climatology=clim_s)
+    k6_rows = []
+    for hd, args in sorted(cap_b.first.items()):
+        errs = {name: _bf16_err(a, p, f"per-gate bf16 K6 {name} at H={hd}")
+                for name, a, p in zip(("dq", "dk", "dv", "de_dir"),
+                                      grid_attn._grid_attn_bwd_cuda(*args),
+                                      grid_attn.grid_attn_bwd_plain(*args))}
+        k6_rows.append(_bf16_kernel_row(
+            dict(H=hd, keep=args[5] is not None,
+                 err_rel_to_max={n: e[1] for n, e in errs.items()},
+                 max_abs_err=max(e[0] for e in errs.values())),
+            args, grid_attn._grid_attn_bwd_cuda, grid_attn.grid_attn_bwd_plain,
+            lambda a: grid_bound_ms(a, backward=True), cap_b.per_width[hd]))
+    del short, cap_b, args
+    torch.cuda.empty_cache()
+
+    def ice_step(tr, batch, gen=None, truncated=ICE_TBPTT):
+        x_i, y_i, c_i = batch
+        return tr.train_step(x_i, y_i, mask=mask, climatology=c_i, generator=gen,
+                             truncated_backprop=truncated)
+
+    def timed_steps(tr, steps):
+        """(seconds, losses, worst overflow) of ``steps`` train steps, each
+        step's loss and overflow fetched one step late, as train() does."""
+        t0 = time.perf_counter()
+        losses, worst, pending = [], 0, None
+        for batch in steps:
+            loss, overflow = ice_step(tr, batch)
+            if pending is not None:
+                losses.append(float(pending[0]))
+                worst = max(worst, int(pending[1]))
+            pending = (loss, overflow)
+        losses.append(float(pending[0]))
+        worst = max(worst, int(pending[1]))
+        return time.perf_counter() - t0, losses, worst
+
+    trainer = make_ice_model(seed, run_dir.name, dtype="bfloat16", remat=True, fused_gates=False)
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    ice_batches = [(data.x[i:i + 1], data.y[i:i + 1],
+                    trainer._clim_batch(clim, data.launch_dates[i:i + 1]))
+                   for i in range(ICE_TRAIN_STEPS + 1)]
+    ice_step(trainer, ice_batches[0])  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    train_s, losses, worst = timed_steps(trainer, ice_batches[1:])
+    grid_train = {k: v / ICE_TRAIN_STEPS for k, v in launch_totals(modules).items() if v}
+    check(bool(np.isfinite(losses).all()) and worst == 0,
+          f"per-gate bf16 grid training: losses {losses}, overflow {worst}")
+    check(grid_train == {"grid_attn_apply": 2 * k5, "grid_attn_apply_bwd": k5},
+          f"per-gate grid launches a step {grid_train}, expected K5 {2 * k5} (with the "
+          f"replays), K6 {k5}")
+    peaks = {"full": peak_above_start_gib(lambda: ice_step(trainer, ice_batches[1]))}
+    del trainer
+    torch.cuda.empty_cache()
+    no_remat = make_ice_model(seed, run_dir.name, dtype="bfloat16", remat=False,
+                              fused_gates=False)
+    no_remat.initiate_training(lr=LR, lr_decay=0.95)
+    ice_step(no_remat, ice_batches[0])
+    peaks["none"] = peak_above_start_gib(lambda: ice_step(no_remat, ice_batches[1]))
+    del no_remat
+    torch.cuda.empty_cache()
+    # the per-gate step against the fused model on the same weights,
+    # stacked by fuse_attn_gates, from the same generator
+    from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax, params_to_jax
+
+    per_gate = make_ice_model(seed, run_dir.name, dtype="bfloat16", remat=True,
+                              fused_gates=False)
+    fused = make_ice_model(seed, run_dir.name, dtype="bfloat16", remat=True)
+    fused.model.load_state_dict(params_from_jax(params_to_jax(per_gate.model.state_dict()),
+                                                fuse_gates=True))
+    steps = {}
+    for name, tr in (("per_gate", per_gate), ("fused", fused)):
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        loss, _ = ice_step(tr, ice_batches[0], torch.Generator(device=DEVICE).manual_seed(1))
+        steps[name] = (loss, _stacked_grads(tr.model) if name == "per_gate"
+                       else grads_of(tr))
+    layout_err = _leaf_err(steps["per_gate"][1], steps["fused"][1])
+    layout_same = (torch.equal(steps["per_gate"][0], steps["fused"][0])
+                   and all(torch.equal(steps["per_gate"][1][n].to(DEVICE), g)
+                           for n, g in steps["fused"][1].items()))
+    check(layout_err <= BF16_GRAD_TOL,
+          f"per-gate gradients differ from the fused model's by {layout_err}")
+    del per_gate, fused, steps
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "ice_defaults", "card": card, "mesh": "grid", "dtype": "bfloat16",
+        "fused_gates": False, "remat": "full", "t_out": ICE_T_OUT, "truncated_backprop": 0,
+        "s_per_forecast": forecast_s, "forecast_launches": fwd_launches, "overflow": worst,
+        "train_steps": ICE_TRAIN_STEPS, "seconds": train_s,
+        "steps_per_s": ICE_TRAIN_STEPS / train_s,
+        "frames_per_s": ICE_TRAIN_STEPS * ICE_T_OUT / train_s, "losses": losses,
+        "launches_per_step": grid_train, "step_peak_above_start_gib": peaks,
+        "per_gate_vs_fused": {"max_leaf_err_rel": layout_err, "bit_identical": layout_same},
+        "k5_by_width": k5_rows, "k6_by_width": k6_rows,
+    }), flush=True)
+
+    # ---- phase 41: the edge list, f32, full BPTT under remat full
+    edge = make_ice_model(seed, run_dir.name, aggregation="xla", remat=True)
+    edge.initiate_training(lr=LR, lr_decay=0.95)
+    edge_batch = (x0, y0, edge._clim_batch(clim, data.launch_dates[:1]))
+    reset()
+    out = {}
+    t0 = time.perf_counter()
+    edge_peak = peak_above_start_gib(lambda: out.update(step=ice_step(edge, edge_batch)))
+    edge_s = time.perf_counter() - t0
+    edge_launches = launch_totals(modules)
+    k7_edge = expected_edge_launches(edge.cfg, ICE_T_OUT, train=True) \
+        + _attention_calls(edge.cfg, ICE_T_OUT)  # the replays' aggregations
+    check(bool(torch.isfinite(out["step"][0])) and int(out["step"][1]) == 0,
+          f"edge-list full-BPTT step: loss {float(out['step'][0])}, "
+          f"overflow {int(out['step'][1])}")
+    check({k: v for k, v in edge_launches.items() if v} == {"segment_sum": k7_edge},
+          f"edge-list full-BPTT launches {edge_launches}, expected K7 {k7_edge}")
+    edge_loss = float(out["step"][0])
+    del edge, out
+    torch.cuda.empty_cache()
+
+    def short_edge(mode):
+        tr = make_ice_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, aggregation="xla",
+                            remat=mode)
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        loss, _ = ice_step(tr, (x0, y_s, clim_s), gen)
+        return loss, grads_of(tr), gen.get_state()
+
+    full, none = short_edge("full"), short_edge("none")
+    same = (torch.equal(full[0], none[0]) and torch.equal(full[2], none[2])
+            and all(torch.equal(full[1][n], g) for n, g in none[1].items()))
+    check(same, "edge-list remat full step differs from remat none")
+    del full, none
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "edge_full_bptt", "card": card, "dtype": "float32", "remat": "full",
+        "t_out": ICE_T_OUT, "truncated_backprop": 0, "loss": edge_loss, "overflow": 0,
+        "step_s": edge_s, "step_peak_above_start_gib": edge_peak,
+        "launches_per_step": {k: v for k, v in edge_launches.items() if v},
+        "short_t_out": ICE_SHORT_T_OUT, "remat_full_vs_none_bit_identical": same,
+    }), flush=True)
+
+    # ---- phase 42: ice-quadtree at its defaults
+    quad = make_ice_quadtree_model(seed, run_dir.name)
+    qcfg, gcfg = quad.cfg, quad.gcfg
+    check(gcfg.attn_windows and not gcfg.carry_edges and gcfg.adjacency == "sort"
+          and quad.model.remat == "full" and qcfg.compute_dtype == "bfloat16",
+          f"ice-quadtree configuration: {qcfg}, {gcfg}")
+    quad.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    with Record(attn, "attn_tile_meta") as built:
+        y = quad.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)
+    torch.cuda.synchronize()
+    quad_forecast_s = time.perf_counter() - t0
+    quad_fwd = launch_totals(modules)
+    want = expected_ice_quadtree_launches(qcfg, train=False)
+    check(bool(np.isfinite(y).all()) and quad.last_overflow == 0,
+          f"ice-quadtree forecast: finite {bool(np.isfinite(y).all())}, "
+          f"overflow {quad.last_overflow}")
+    check({k: v for k, v in quad_fwd.items() if v} == {k: v for k, v in want.items() if v},
+          f"ice-quadtree forecast launches {quad_fwd}, expected {want}")
+    fills = [window_fill(m.src_rel, m.dst_rel, m.live) for m, _ in built.results]
+    max_nodes = max(int(a[7].max()) for a in built.calls)  # attn_tile_meta's n_nodes
+    del built
+    enc_calls = ICE_T_IN * qcfg.n_layers * qcfg.n_conv_layers
+    with AttnCapture(attn, "_attn_fwd_cuda", enc_calls, qcfg.n_layers + 2) as cap:
+        quad.forecast(x0, mask=mask, climatology=clim0)
+    fwd_args = cap.operands()[256]
+    del cap
+
+    def as_f32(args):
+        return tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+                     for a in args)
+
+    def k3_row(args, dtype):
+        with torch.no_grad():
+            kern = attn._attn_fwd_cuda(*args)
+            plain = attn.attn_plain(*args)
+            check(torch.equal(kern, attn._attn_fwd_cuda(*args)),
+                  f"K3 at HD 256 differs from itself on a repeat ({dtype})")
+        if dtype == "bfloat16":
+            err = _bf16_err(kern, plain, "K3 at HD 256")[0]
+        else:
+            err = float((kern - plain).abs().max())
+            check(err <= K3_TOL, f"K3 differs from attn_plain at HD 256 (f32): {err}")
+        bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=False)
+        return dict(HD=256, dtype=dtype, max_abs_err=err, repeat_identical=True,
+                    live_tiles=int(args[5].live.long().sum()),
+                    ms=graph_ms(lambda: attn._attn_fwd_cuda(*args)),
+                    events_ms=cuda_ms(lambda: attn._attn_fwd_cuda(*args)),
+                    plain_ms=cuda_ms(lambda: attn.attn_plain(*args)),
+                    bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
+
+    k3_256 = [k3_row(fwd_args, "bfloat16"), k3_row(as_f32(fwd_args), "float32")]
+    del quad, fwd_args
+    torch.cuda.empty_cache()
+
+    trainer = make_ice_quadtree_model(seed, run_dir.name)
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b:
+        ice_step(trainer, ice_batches[0])  # warm-up
+    bwd_args = cap_b.first[256]
+    k4_calls = cap_b.per_width[256]
+    del cap_b
+    torch.cuda.synchronize()
+    reset()
+    quad_train_s, quad_losses, quad_worst = timed_steps(
+        trainer, ice_batches[1:1 + ICE_QUAD_TRAIN_STEPS])
+    quad_train = {k: v / ICE_QUAD_TRAIN_STEPS for k, v in launch_totals(modules).items() if v}
+    want = expected_ice_quadtree_launches(qcfg, train=True)
+    check(bool(np.isfinite(quad_losses).all()) and quad_worst == 0,
+          f"ice-quadtree training: losses {quad_losses}, overflow {quad_worst}")
+    check(quad_train == want, f"ice-quadtree launches a step {quad_train}, expected {want}")
+    quad_peak = peak_above_start_gib(lambda: ice_step(trainer, ice_batches[1]))
+    del trainer
+    torch.cuda.empty_cache()
+
+    def k4_row(args, dtype):
+        kern = attn._attn_bwd_cuda(*args)
+        plain = attn.attn_bwd_plain(*args)
+        if dtype == "bfloat16":
+            errs = {n: _bf16_err(a, p, f"K4 {n} at HD 256")
+                    for n, a, p in zip(("dq", "dk", "dv", "dwe"), kern, plain)}
+        else:
+            errs = {}
+            for n, a, p in zip(("dq", "dk", "dv", "dwe"), kern, plain):
+                err = float((a - p).abs().max())
+                errs[n] = (err, err / max(1.0, float(p.abs().max())))
+            check(max(e[1] for e in errs.values()) <= K4_TOL,
+                  f"K4 differs from its plain backward at HD 256 (f32): {errs}")
+        bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=True)
+        return dict(HD=256, dtype=dtype, calls=k4_calls,
+                    err_rel_to_max={n: e[1] for n, e in errs.items()},
+                    max_abs_err=max(e[0] for e in errs.values()),
+                    keep=args[4] is not None, live_tiles=int(args[5].live.long().sum()),
+                    ms=graph_ms(lambda: attn._attn_bwd_cuda(*args)),
+                    events_ms=cuda_ms(lambda: attn._attn_bwd_cuda(*args)),
+                    plain_ms=cuda_ms(lambda: attn.attn_bwd_plain(*args)),
+                    bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
+
+    k4_256 = [k4_row(bwd_args, "bfloat16"), k4_row(as_f32(bwd_args), "float32")]
+    del bwd_args
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "ice_quadtree", "card": card, "dtype": "bfloat16", "remat": "full",
+        "thresh": 0.15, "transform": "dist_from_05", "n_max": gcfg.n_max, "e_max": gcfg.e_max,
+        "eb": gcfg.agg_eb, "sw": gcfg.agg_sw, "s_per_forecast": quad_forecast_s,
+        "forecast_launches": {k: v for k, v in quad_fwd.items() if v},
+        "mesh_builds": len(fills), "max_edges_per_tile": max(f[0] for f in fills),
+        "max_source_spread": max(f[1] for f in fills), "max_nodes": max_nodes,
+        "overflow": quad_worst, "train_steps": ICE_QUAD_TRAIN_STEPS, "seconds": quad_train_s,
+        "steps_per_s": ICE_QUAD_TRAIN_STEPS / quad_train_s,
+        "frames_per_s": ICE_QUAD_TRAIN_STEPS * ICE_T_OUT / quad_train_s,
+        "losses": quad_losses, "launches_per_step": quad_train,
+        "step_peak_above_start_gib": quad_peak, "k3_hd256": k3_256, "k4_hd256": k4_256,
+    }), flush=True)
+    run_dir.cleanup()
+    return {"k5_per_gate": k5_rows, "k6_per_gate": k6_rows, "grid_per_gate_train": grid_train,
+            "grid_per_gate_forecast": fwd_launches, "k3_hd256": k3_256, "k4_hd256": k4_256,
+            "quadtree_forecast": quad_fwd, "quadtree_train": quad_train}
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2747,6 +3249,16 @@ def main() -> int:
         args.seed, card, (spmm, attn, grid_attn, segment_sum), segment, segment_sum)
     bf16_attn_kernels, k7_attn_bf16_sets = bf16_attn_phases(
         args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
+    bench = bench_default_phases(args.seed, card, spmm, attn, grid_attn, segment_sum)
+    for k in bf16_attn_kernels:  # the per-gate flagship's K5/K6 (phase 40)
+        name = k["name"].removesuffix("_bf16")
+        if name.startswith("grid_attn"):
+            k["per_gate_by_width"] = bench["k5_per_gate" if name == "grid_attn_apply"
+                                           else "k6_per_gate"]
+            k["launches_by_path"]["per_gate_remat_predict"] = \
+                bench["grid_per_gate_forecast"][name]
+            k["launches_by_path"]["per_gate_remat_train_step"] = \
+                bench["grid_per_gate_train"][name]
     k7_bf16 = next(k for k in bf16_kernels if k["name"] == "segment_sum_bf16")
     k7_bf16["by_operand_set"] += (
         [dict(w, path="transformer_conv") for w in k7_attn_bf16_sets]
@@ -2807,13 +3319,23 @@ def main() -> int:
     grid_src = "quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py"
     k3_entry = attn_entry("attn_apply", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372",
                           k3_widths, attn_launches, attn_train_launches, TRAIN_STEPS)
-    # HD 256 (8 × d 32) on the same windows; no path of this script runs it
+    # HD 256 (8 × d 32) on the same windows; the ice-quadtree path's own
+    # windows are in ice_quadtree_hd256 (phase 42)
     k3_entry["k3_wide"] = {k: k3_wide[k] for k in ("HD", "max_abs_err", "ms", "events_ms",
                                                    "plain_ms", "bound_ms", "plan")}
+    k4_entry = attn_entry("attn_apply_bwd", "attn.cu",
+                          "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:424",
+                          k4_widths, attn_launches, attn_train_launches, TRAIN_STEPS)
+    # the ice-quadtree path (phase 42): HD 256 on its own windows, bf16 and f32
+    for entry, rows in ((k3_entry, bench["k3_hd256"]), (k4_entry, bench["k4_hd256"])):
+        entry["ice_quadtree_hd256"] = rows
+        entry["launches_by_path"]["ice_quadtree_predict"] = \
+            bench["quadtree_forecast"].get(entry["name"], 0)
+        entry["launches_by_path"]["ice_quadtree_train_step"] = \
+            bench["quadtree_train"][entry["name"]]
     kernels += [
         k3_entry,
-        attn_entry("attn_apply_bwd", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:424",
-                   k4_widths, attn_launches, attn_train_launches, TRAIN_STEPS),
+        k4_entry,
         # the forecast runs K5 without keep planes, training K6 with them
         attn_entry("grid_attn_apply", "grid_attn.cu", f"{grid_src}:446",
                    [w for w in k5_widths if not w["keep"]], grid_launches,
@@ -2859,7 +3381,9 @@ def main() -> int:
             "attention_predict_batch": attn_launches["segment_sum"],
             f"attention_train_{TRAIN_STEPS}_steps": attn_train_launches["segment_sum"],
             "grid_predict_batch": grid_launches["segment_sum"],
-            f"grid_train_{ICE_TRAIN_STEPS}_steps": grid_train_launches["segment_sum"]}))
+            f"grid_train_{ICE_TRAIN_STEPS}_steps": grid_train_launches["segment_sum"],
+            "ice_quadtree_predict": bench["quadtree_forecast"]["segment_sum"],
+            "ice_quadtree_train_step": bench["quadtree_train"]["segment_sum"]}))
     for k in kernels:
         k["dtype"] = "float32"
     print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)

@@ -2,8 +2,10 @@
 
 Own copy of the fields of ``quadtree_mpnnlstm_tpu/config.py`` that the
 forecast and training paths read; knobs of other paths (CSR degree caps,
-bf16 messages, csum adjacency, debug hooks, remat, shared meshes) are left
-out until a slice needs them.
+bf16 messages, debug hooks, shared meshes) are left out until a slice
+needs them, and ``GraphConfig.adjacency="csum"`` raises. Per-step remat is
+not a config field here either: as in the JAX package it is an argument
+of ``Seq2Seq`` (``remat=``, ``model_kwargs["remat"]`` on the predictor).
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ class GraphConfig:
         (ops/attn.py) instead of the Â blocks.
       carry_edges: keep the edge list on built graphs; with Â blocks or
         attention windows the convolutions never read it after the build.
+      adjacency: the adjacency builder, ``"sort"`` (the JAX package's
+        default, ``graph/adjacency.py``); its ``"csum"`` builder is not
+        ported.
     """
 
     image_shape: Tuple[int, int]
@@ -81,6 +86,7 @@ class GraphConfig:
     agg_sw: int = 512
     attn_windows: bool = False
     carry_edges: bool = True
+    adjacency: str = "sort"
 
     def __post_init__(self):
         if not _is_power_of_two(self.max_grid_size):
@@ -101,6 +107,12 @@ class GraphConfig:
         elif self.pixelwise and self.aggregation == "pallas":
             raise ValueError("the pixelwise mesh runs as an edge list (aggregation='xla') or "
                              "a grid ('grid'); its Â blocks are not ported")
+        if self.adjacency == "csum":
+            raise ValueError("GraphConfig.adjacency='csum' (the JAX package's "
+                             "build_adjacency_canonical) is not ported (ROADMAP Queue 1 item 9); "
+                             "the port builds the adjacency with 'sort'")
+        if self.adjacency != "sort":
+            raise ValueError(f"unknown adjacency {self.adjacency!r}")
         if self.attn_windows and self.aggregation != "pallas":
             raise ValueError("attn_windows=True needs aggregation='pallas'")
         if not self.carry_edges and self.aggregation != "pallas":
@@ -153,12 +165,14 @@ class ModelConfig:
     """Seq2Seq architecture hyper-parameters.
 
     ``input_features`` counts raw channels only; positional encoding (2)
-    and node size (1) are appended internally. The port runs the fused
+    and node size (1) are appended internally. The port runs the
     ChebConv or TransformerConv GConvLSTM, with a remesh at every decoder
     step on quadtree meshes and a fixed mesh on the pixelwise mesh;
+    ``fused_gates=False`` keeps the JAX package's per-gate parameter
+    layout (``models/fused.py``);
     :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
-    rejects other values of ``convolution_type``, ``rnn_type``,
-    ``fused_gates`` and ``remesh_every``. ``compute_dtype="bfloat16"`` is
+    rejects other values of ``convolution_type``, ``rnn_type`` and
+    ``remesh_every``. ``compute_dtype="bfloat16"`` is
     mixed precision: the graph pipeline, the convolutions and the
     recurrence run in bf16, the master parameters stay float32 and are cast
     at use, and LayerNorm statistics, the predictions leaving the model and

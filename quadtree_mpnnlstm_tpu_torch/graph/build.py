@@ -11,7 +11,7 @@ windows the source-sorted view of their slots that K4 reads.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -136,6 +136,8 @@ def image_to_graph(
     img: torch.Tensor,
     cfg: GraphConfig,
     mask: Optional[torch.Tensor] = None,
+    high_interest_region: Optional[torch.Tensor] = None,
+    transform_func: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[GraphTensors, torch.Tensor]:
     """Quadtree-decompose image stacks into padded graphs (or, on the
     pixelwise mesh, build its edge list or the identity-mapped grid).
@@ -145,6 +147,11 @@ def image_to_graph(
         channels; channel 0, max over T, drives each sample's
         decomposition.
       mask: optional (rows, cols) bool, True = invalid pixel.
+      high_interest_region: optional (rows, cols) bool, True = always
+        split; quadtree meshes only, as in the JAX package.
+      transform_func: the split criterion's transform
+        (:func:`~quadtree_mpnnlstm_tpu_torch.graph.quadtree.decompose_levels`);
+        quadtree meshes only.
 
     Returns:
       (GraphTensors, data (B, T, n_max, C+1)); the last data channel is the
@@ -158,7 +165,8 @@ def image_to_graph(
             return grid_graph(img, cfg, mask=mask)
         return pixelwise_graph(img, cfg, mask=mask)
     crit = img[..., 0].amax(dim=1)
-    level = decompose_levels(crit, cfg, mask=mask)
+    level = decompose_levels(crit, cfg, mask=mask, high_interest_region=high_interest_region,
+                             transform_func=transform_func)
     pixel_node, n_nodes, counts = pixel_nodes_from_levels(level, cfg, mask=mask)
     half_base = (cfg.max_grid_size / 2.0) ** 2
     return _assemble(pixel_node, n_nodes, counts, img, cfg, counts / half_base)

@@ -17,7 +17,7 @@ bit-identical to the JAX package's.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,16 +60,29 @@ def _upsample(cells: torch.Tensor, size: int) -> torch.Tensor:
     return cells.repeat_interleave(size, dim=-2).repeat_interleave(size, dim=-1)
 
 
+def dist_from_05(arr: torch.Tensor) -> torch.Tensor:
+    """Split-criterion transform of the sea-ice quadtree meshes,
+    ``|(|arr − 0.5|) − 0.5|``: 0 at fields of 0 and 1, largest at 0.5, so
+    cells where the ice fraction is neither 0 nor 1 split. The port's copy
+    of the JAX package's ``cli/ice_exp.py`` ``dist_from_05``."""
+    return abs(abs(arr - 0.5) - 0.5)
+
+
 def decompose_levels(
     img: torch.Tensor,
     cfg: GraphConfig,
     mask: Optional[torch.Tensor] = None,
+    high_interest_region: Optional[torch.Tensor] = None,
+    transform_func: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Per-pixel quadtree level.
 
     Args:
       img: (B, rows, cols) float field driving the split criterion.
       mask: (rows, cols) bool, True = invalid pixel (always split to 1).
+      high_interest_region: (rows, cols) bool, True = always split.
+      transform_func: applied to the edge-padded criterion image in its
+        own dtype, before the cast to float32, as in the JAX package.
 
     Returns:
       (B, rows, cols) int64 in [0, depth]; ``depth`` means a 1-pixel cell.
@@ -79,10 +92,17 @@ def decompose_levels(
     hp, wp = cfg.padded_shape
     g = cfg.max_grid_size
 
+    # replicate-padding is exact in float32, so padding there and casting
+    # back gives the padded image in its own dtype
     imgp = F.pad(img[:, None].float(), (0, wp - cols, 0, hp - rows), mode="replicate")[:, 0]
+    if transform_func is not None:
+        imgp = transform_func(imgp.to(img.dtype)).float()
     maskp = None
     if mask is not None:
         maskp = F.pad(mask.float(), (0, wp - cols, 0, hp - rows))[None]
+    hirp = None
+    if high_interest_region is not None:
+        hirp = F.pad(high_interest_region.float(), (0, wp - cols, 0, hp - rows))[None]
 
     depth = cfg.depth
     level = torch.full((b, hp, wp), depth, dtype=torch.int64, device=img.device)
@@ -95,6 +115,8 @@ def decompose_levels(
         split = _split_criterion(cell, cell, cfg.thresh, cfg.condition)
         if maskp is not None:
             split = split | _window_reduce(maskp, size, cfg.padding, "any")
+        if hirp is not None:
+            split = split | _window_reduce(hirp, size, cfg.padding, "any")
         level = torch.where(_upsample(split, size), level, lvl)
 
     level = level[:, :rows, :cols]

@@ -39,6 +39,26 @@ with TransformerConv, the attention dropout of every encoder and decoder
 attention; ``decode`` takes a scheduled-sampling ratio. All of them draw
 from the caller's ``torch.Generator`` only, never from torch's global
 RNG, so a step is reproducible from its generator's seed.
+
+Per-step remat (``remat``, the JAX package's ``Seq2Seq.remat`` and its
+default): while gradients are recorded, every encoder step and every
+decoder step (the cell and head, ``unflatten``, the coin and the remesh
+with its state transfer) runs under non-reentrant
+``torch.utils.checkpoint``, so a rollout keeps each step's inputs and not
+its activations, and the backward replays the step. ``"mesh"`` checkpoints
+only the decoder's cell and head: the next mesh, its pooled node features
+and the state transfer are built once, outside, and their autograd
+history (indices only) is kept, so the backward replays no mesh build
+(``save_only_these_names("mesh")`` in the JAX package); their gradients
+still flow into the prediction the mesh was built from. ``"dots"`` saves
+the outputs of the matrix products (``aten.mm``/``addmm``/``bmm``/
+``baddbmm``) in a selective checkpoint and replays the rest, the hand-
+written kernels included (``dots_saveable``). A replay draws its dropout
+masks and coins from a copy of the caller's generator set to the state
+the forward started from, so it sees the forward's masks, and the
+caller's generator advances only once. The replay launches the step's
+kernels again (their launch counters count it) and repeats no host
+synchronisation: the mesh build has none on a CUDA tensor.
 ``remesh_input``, preset meshes and the shared-mesh batched layout are not
 ported.
 """
@@ -46,10 +66,12 @@ ported.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from functools import partial
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from quadtree_mpnnlstm_tpu_torch.config import GraphConfig, ModelConfig
 from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
@@ -113,6 +135,42 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
+# the matrix products a "dots" replay keeps (jax.checkpoint_policies.dots_saveable)
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default]
+
+
+def remat_mode(remat) -> str:
+    """``"full"``, ``"mesh"``, ``"dots"`` or ``"none"`` for a value of the
+    JAX package's ``remat`` (True and False are ``"full"`` and
+    ``"none"``)."""
+    if isinstance(remat, bool):
+        return "full" if remat else "none"
+    if remat in ("full", "mesh", "dots", "none"):
+        return remat
+    raise ValueError(f"remat={remat!r}: expected one of True, False, 'full', 'mesh', 'dots', "
+                     "'none'")
+
+
+class _Replay:
+    """The generator a checkpointed step draws from: the caller's on the
+    forward, and on every recomputation a fresh generator set to the state
+    the forward started from, so a replay draws the same masks and coins
+    and leaves the caller's generator where the forward left it."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator, self.calls = generator, 0
+        self.state = None if generator is None else generator.get_state()
+
+    def __call__(self) -> Optional[torch.Generator]:
+        self.calls += 1
+        if self.generator is None or self.calls == 1:
+            return self.generator
+        replay = torch.Generator(device=self.generator.device)
+        replay.set_state(self.state)
+        return replay
+
+
 def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
     if cfg.convolution_type == "GCNConv":
         raise ValueError(
@@ -120,7 +178,7 @@ def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
             "ported yet (ROADMAP Queue 1 item 6); name the conv, e.g. ChebConv or "
             "TransformerConv")
     supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=("LSTM",),
-                     fused_gates=(True,), remesh_every=(1,),
+                     fused_gates=(True, False), remesh_every=(1,),
                      compute_dtype=("float32", "bfloat16"))
     for field, values in supported.items():
         if getattr(cfg, field) not in values:
@@ -150,7 +208,8 @@ def _make_cells(module: nn.Module, cfg: ModelConfig, in_channels: int,
     for i in range(cfg.n_layers):
         module.add_module(
             f"rnn_{i}", GConvLSTM(in_channels if i == 0 else hidden, hidden, n_conv_layers,
-                                  cfg.convolution_type, dtype=cfg.cdtype)
+                                  cfg.convolution_type, dtype=cfg.cdtype,
+                                  fused_gates=cfg.fused_gates)
         )
 
 
@@ -227,13 +286,18 @@ class Seq2Seq(nn.Module):
     """Full forecast model: ``forward(x)`` → (B, T_out, rows, cols, 1).
     With ``use_climatology`` the decoder's concat channel is the day's
     climatology, passed to ``decode``/``rollout`` as (B, T_out, rows,
-    cols, 1)."""
+    cols, 1). ``remat`` is the per-step remat mode (module docstring);
+    ``transform_func`` transforms every mesh's split criterion
+    (``graph/quadtree.py`` ``decompose_levels``)."""
 
-    def __init__(self, cfg: ModelConfig, gcfg: GraphConfig, use_climatology: bool = False):
+    def __init__(self, cfg: ModelConfig, gcfg: GraphConfig, use_climatology: bool = False,
+                 remat=True, transform_func: Optional[Callable] = None):
         super().__init__()
         _check_supported(cfg, gcfg)
         self.cfg, self.gcfg = cfg, gcfg
         self.use_climatology = use_climatology
+        self.remat = remat_mode(remat)
+        self.transform_func = transform_func
         self.remeshing = not gcfg.pixelwise
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg, concat_channels=int(use_climatology or self.remeshing))
@@ -253,10 +317,12 @@ class Seq2Seq(nn.Module):
         )
         # the compute-dtype boundary: the graph build, the node features and
         # the recurrence run in cfg.compute_dtype; decode() returns float32
-        graph, data = image_to_graph(add_positional_encoding(x.to(cfg.cdtype)), gcfg, mask=mask)
+        graph, data = image_to_graph(add_positional_encoding(x.to(cfg.cdtype)), gcfg, mask=mask,
+                                     transform_func=self.transform_func)
         hidden, cell = zeros, zeros
         for t in range(cfg.input_timesteps):
-            hidden, cell = self.encoder(data[:, t], graph, hidden, cell, generator)
+            hidden, cell = self._step(self._encoder_step, generator, data[:, t], graph, hidden,
+                                      cell)
         # decoder seed [value, pos_x, pos_y, node_size]: slices, not an index
         # list, whose backward would scatter
         last = data[:, -1]
@@ -305,32 +371,65 @@ class Seq2Seq(nn.Module):
                 concat = flatten(clim[:, t:t + 1], graph)[:, 0]
             else:
                 concat = clim[:, t]
-            output, hidden, cell = self.decoder(
-                state.x, graph, concat, state.hidden, state.cell, generator
-            )
-            y_hat_t = unflatten(output, graph, shape, fill=0.0)  # (B, rows, cols, 1)
+            y_t = None if y is None else y[:, t]
+            if self.remat == "mesh":
+                output, hidden, cell = self._step(self._decoder_cell, generator, state, concat)
+                state, y_hat_t = self._advance(generator, state, output, hidden, cell, y_t, mask,
+                                               teacher_forcing_ratio)
+            else:
+                state, y_hat_t = self._step(self._decoder_step, generator, state, concat, y_t,
+                                            mask, teacher_forcing_ratio)
             frames.append(y_hat_t)
             meshes.append(graph.pixel_node)
-
-            coin = None
-            if forcing:
-                coin = torch.rand(y_hat_t.shape[0], generator=generator,
-                                  device=y_hat_t.device) < teacher_forcing_ratio
-            if self.remeshing:
-                state = self._remesh(state, y_hat_t, hidden, cell, coin,
-                                     None if y is None else y[:, t], mask)
-                continue
-            x_new = torch.cat([output, state.x[..., 1:]], dim=-1)
-            if forcing:
-                # the true frame on the same mesh, with the raw pixel count
-                # (not resolution**2) as its size channel
-                teach = flatten(add_positional_encoding(y[:, t:t + 1].to(output.dtype)),
-                                graph)[:, 0]
-                x_teach = torch.cat([teach, graph.counts[..., None].to(output.dtype)], dim=-1)
-                x_new = torch.where(coin[:, None, None], x_teach, x_new)
-            state = Seq2SeqState(graph=graph, x=x_new, hidden=hidden, cell=cell)
         # predictions leave the compute-dtype region in float32
         return state, torch.stack(frames, dim=1).float(), torch.stack(meshes)
+
+    def _step(self, fn, generator, *args):
+        """``fn(generator, *args)``: one encoder or decoder step, under
+        per-step remat while gradients are recorded."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn(generator, *args)
+        replay = _Replay(generator)
+        kw = {}
+        if self.remat == "dots":
+            kw["context_fn"] = partial(create_selective_checkpoint_contexts, _DOTS)
+        # no draw comes from torch's global generators
+        return checkpoint(lambda *a: fn(replay(), *a), *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    def _encoder_step(self, generator, x_t, graph, hidden, cell):
+        return self.encoder(x_t, graph, hidden, cell, generator)
+
+    def _decoder_cell(self, generator, state, concat):
+        """(output, hidden, cell) of the decoder's cells and head."""
+        return self.decoder(state.x, state.graph, concat, state.hidden, state.cell, generator)
+
+    def _decoder_step(self, generator, state, concat, y_t, mask, teacher_forcing_ratio):
+        return self._advance(generator, state, *self._decoder_cell(generator, state, concat),
+                             y_t, mask, teacher_forcing_ratio)
+
+    def _advance(self, generator, state, output, hidden, cell, y_t, mask,
+                 teacher_forcing_ratio) -> Tuple[Seq2SeqState, torch.Tensor]:
+        """(next state, the frame (B, rows, cols, 1)) from a decoder
+        output: on quadtree meshes the remesh, else the next input on the
+        same mesh; with scheduled sampling, one coin per sample from
+        ``generator`` picks the true frame ``y_t`` instead."""
+        graph = state.graph
+        y_hat_t = unflatten(output, graph, self.gcfg.image_shape, fill=0.0)
+        coin = None
+        if teacher_forcing_ratio > 0.0:
+            coin = torch.rand(y_hat_t.shape[0], generator=generator,
+                              device=y_hat_t.device) < teacher_forcing_ratio
+        if self.remeshing:
+            return self._remesh(state, y_hat_t, hidden, cell, coin, y_t, mask), y_hat_t
+        x_new = torch.cat([output, state.x[..., 1:]], dim=-1)
+        if coin is not None:
+            # the true frame on the same mesh, with the raw pixel count
+            # (not resolution**2) as its size channel
+            teach = flatten(add_positional_encoding(y_t[:, None].to(output.dtype)), graph)[:, 0]
+            x_teach = torch.cat([teach, graph.counts[..., None].to(output.dtype)], dim=-1)
+            x_new = torch.where(coin[:, None, None], x_teach, x_new)
+        return Seq2SeqState(graph=graph, x=x_new, hidden=hidden, cell=cell), y_hat_t
 
     def _remesh(self, state, y_hat_t, hidden, cell, coin, y_t, mask) -> Seq2SeqState:
         """The next state on the mesh of the prediction (or, where the coin
@@ -342,7 +441,7 @@ class Seq2Seq(nn.Module):
         if coin is not None:
             base = torch.where(coin[:, None, None, None], y_t.to(y_hat_t.dtype), y_hat_t)
         new_graph, data = image_to_graph(add_positional_encoding(base[:, None]), self.gcfg,
-                                         mask=mask)
+                                         mask=mask, transform_func=self.transform_func)
         # running max overflow across the rollout
         new_graph = new_graph.replace(overflow=torch.maximum(new_graph.overflow, graph.overflow))
         return Seq2SeqState(

@@ -20,7 +20,13 @@ it carries the pixel→node pooling, the node counts and the gathers'
 backwards on every mesh that is not the grid. With
 ``use_climatology`` the decoder reads the day-of-year climatology of each
 forecast day (``climatology=`` (366 or 365, rows, cols) on ``train``,
-``predict``, ``score``, ``forecast`` and ``train_step``). Dropout and scheduled sampling draw from the predictor's
+``predict``, ``score``, ``forecast`` and ``train_step``).
+``model_kwargs["remat"]`` (default True, the JAX package's) is the model's
+per-step remat while training (``models/seq2seq.py``),
+``model_kwargs["fused_gates"]=False`` keeps the per-gate parameter layout
+(``models/fused.py``), and ``transform_func`` transforms the quadtree
+split criterion (``graph/quadtree.py`` ``dist_from_05`` for the sea-ice
+quadtree). Dropout and scheduled sampling draw from the predictor's
 ``generator`` (a ``torch.Generator`` on its device, seeded from ``seed``),
 never from torch's global RNG.
 """
@@ -73,6 +79,7 @@ class NextFramePredictorS2S:
         device: str = "cuda",
         condition: str = "max_larger_than",
         binary: bool = False,
+        transform_func=None,
         teacher_forcing_ratio: float = 0.0,
         use_climatology: bool = False,
         seed: Optional[int] = None,
@@ -112,6 +119,9 @@ class NextFramePredictorS2S:
             compute_dtype=mk.pop(
                 "compute_dtype", train_config.dtype if train_config is not None else "float32"),
         )
+        # per-step remat of the training rollout (models/seq2seq.py), the
+        # JAX package's default: full
+        remat = mk.pop("remat", True)
         if mk:
             raise TypeError(f"unknown model_kwargs: {sorted(mk)}")
 
@@ -140,7 +150,8 @@ class NextFramePredictorS2S:
         # windows: the stencil reads the identity-mapped node planes;
         # aggregation="xla" keeps the edge list (carry_edges)
 
-        self.model = Seq2Seq(self.cfg, self.gcfg, use_climatology).to(self.device).eval()
+        self.model = Seq2Seq(self.cfg, self.gcfg, use_climatology, remat=remat,
+                             transform_func=transform_func).to(self.device).eval()
         init_params(self.model, torch.Generator().manual_seed(seed))
         # dropout masks and scheduled-sampling coins of train()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -152,8 +163,10 @@ class NextFramePredictorS2S:
         self.loss = None  # {"train_loss", "test_loss"} after train()
 
     def load_jax_params(self, tree) -> None:
-        """Load a flax parameter tree (numpy leaves) of the JAX package."""
-        self.model.load_state_dict(params_from_jax(tree))
+        """Load a flax parameter tree (numpy leaves) of the JAX package; a
+        per-gate TransformerConv tree loads into a fused model stacked
+        into its layout."""
+        self.model.load_state_dict(params_from_jax(tree, fuse_gates=self.cfg.fused_gates))
 
     def get_n_params(self) -> int:
         return get_n_params(self.model)
@@ -233,8 +246,11 @@ class NextFramePredictorS2S:
         With truncated BPTT every chunk re-encodes the inputs and decodes
         its own steps from the encoder state; the loss is the sum of the
         chunk means, and each chunk's backward runs as soon as its loss is
-        known. Returns (loss, mesh overflow) as device tensors, with no
-        host sync. ``generator`` defaults to the predictor's own."""
+        known, so a chunk's activations are freed before the next chunk
+        runs (the JAX package rematerialises each chunk for that). Under
+        the model's per-step remat each step of a chunk is checkpointed.
+        Returns (loss, mesh overflow) as device tensors, with no host
+        sync. ``generator`` defaults to the predictor's own."""
         if not self.training_initiated:
             raise RuntimeError("call initiate_training() before train_step()")
         model = self.model.train()

@@ -1,19 +1,25 @@
-"""Parameters: the port's seeded init and the bridge from flax trees.
+"""Parameters: the port's seeded init and the bridge to and from flax trees.
 
 ``params_from_jax`` maps the flax parameter tree of the JAX package's
 ``Seq2Seq`` (nested dicts of numpy arrays, e.g. ``params/enc/encoder/
-rnn_0/gates/w_x_0``) onto this package's ``Seq2Seq`` ``state_dict``. It
-reads numpy arrays only. A TransformerConv cell in the per-gate layout
-(``fused_gates=False``: vmapped ``conv_x``/``conv_h`` stacks, as the
-JAX package's sea-ice experiments train pixelwise meshes) is stacked into
-the fused gate layout that the port runs (:func:`fuse_attn_gates`).
+rnn_0/gates/w_x_0``) onto this package's ``Seq2Seq`` ``state_dict`` leaf
+for leaf, in the fused or the per-gate gate layout alike (``fused_gates=
+False``: vmapped ``conv_x``/``conv_h`` stacks, every leaf with a leading
+gate axis, as the JAX package's sea-ice experiments train pixelwise
+meshes); ``params_to_jax`` is its inverse, so a port checkpoint loads
+into the JAX package's model of the same layout. ``fuse_attn_gates``
+stacks a per-gate TransformerConv cell into the fused layout, for loading
+a per-gate tree into a fused model (``params_from_jax(..., fuse_gates=
+True)``). They read numpy arrays only.
 
 ``init_params`` is the port's own init with the JAX package's rules:
 glorot-uniform with fan-in/fan-out on the last two axes of the stacked
 gate weights (Chebyshev ``w_x_0``…, attention ``w_q_x_0``, ``w_e_1``…;
 leading axes are batch axes, as ``_glorot_batched``) and on (in, out) of
-every Dense kernel (``lin_0``…, ``lin_query``, ``lin_edge``, ``lin_skip``…);
-zero biases and peepholes; LayerNorm scale 1, bias 0. It draws from the caller's ``torch.Generator``.
+every Dense kernel (``lin_0``…, ``lin_query``, ``lin_edge``, ``lin_skip``…,
+per gate slice in the per-gate layout, as the flax vmap initialises each
+gate); zero biases and peepholes; LayerNorm scale 1, bias 0. It draws from
+the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
     for name, p in model.named_parameters():
         if _GATE_WEIGHT.search(name):
             _glorot_(p, p.shape[-2], p.shape[-1], gen)
-        elif _LIN_WEIGHT.search(name):  # torch (out, in) layout
-            _glorot_(p, p.shape[1], p.shape[0], gen)
+        elif _LIN_WEIGHT.search(name):  # torch (…, out, in) layout
+            _glorot_(p, p.shape[-1], p.shape[-2], gen)
         elif _NORM_WEIGHT.search(name):
             p.fill_(1.0)
         else:
@@ -64,15 +70,15 @@ def _flat(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
 
 def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Any flax sub-tree of the ported modules → the matching torch
-    state_dict: ``kernel`` (in, out) → ``weight`` (out, in), LayerNorm
+    state_dict: ``kernel`` (…, in, out) → ``weight`` (…, out, in), LayerNorm
     ``scale`` → ``weight``, every other leaf by its own name."""
     out = {}
     for path, arr in _flat(tree).items():
         value = torch.from_numpy(np.array(arr, dtype=np.float32))
         names = list(path)
-        if names[-1] == "kernel":  # Dense (in, out) → nn.Linear (out, in)
+        if names[-1] == "kernel":  # Dense (…, in, out) → nn.Linear (…, out, in)
             names[-1] = "weight"
-            value = value.T.contiguous()
+            value = value.transpose(-1, -2).contiguous()
         elif names[-1] == "scale":
             names[-1] = "weight"
         out[".".join(names)] = value
@@ -91,8 +97,9 @@ def fuse_attn_gates(cell: Mapping) -> Dict:
     Peepholes and gate biases pass through."""
     cx, ch = cell["conv_x"], cell["conv_h"]
     if "lin_query" not in cx["conv_0"]:
-        raise ValueError("only TransformerConv per-gate cells are converted; other per-gate "
-                         "convolutions are not ported")
+        raise ValueError("fuse_attn_gates converts TransformerConv cells; a per-gate cell of "
+                         "another convolution loads as it is into a fused_gates=False model "
+                         "(params_from_jax)")
     fused = {}
     for short, lin in _ATTN_LINEARS:
         for side, tree in (("x", cx), ("h", ch)):
@@ -122,16 +129,47 @@ def _fused_layout(tree: Mapping) -> Dict:
             for k, v in tree.items()}
 
 
-def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """flax ``Seq2Seq`` variables (or their ``params`` sub-tree), in the
-    fused or the per-gate TransformerConv gate layout → port ``Seq2Seq``
-    state_dict (f32 CPU tensors)."""
+_SCANS = (("enc", "encoder"), ("dec", "decoder"))
+
+
+def params_from_jax(tree: Mapping, fuse_gates: bool = False) -> Dict[str, torch.Tensor]:
+    """flax ``Seq2Seq`` variables (or their ``params`` sub-tree) → port
+    ``Seq2Seq`` state_dict (f32 CPU tensors), leaf for leaf in the tree's
+    gate layout; with ``fuse_gates`` every per-gate TransformerConv cell
+    is stacked into the fused layout (:func:`fuse_attn_gates`), for a
+    fused model."""
     if "params" in tree:
         tree = tree["params"]
     if set(tree) != {"enc", "dec"}:
         raise KeyError(f"expected a Seq2Seq tree with enc/dec, got {sorted(tree)}")
     out = {}
-    for scan, inner, name in (("enc", "encoder", "encoder"), ("dec", "decoder", "decoder")):
-        for key, value in state_dict_from_flax(_fused_layout(tree[scan][inner])).items():
+    for scan, name in _SCANS:
+        inner = tree[scan][name]
+        if fuse_gates:
+            inner = _fused_layout(inner)
+        for key, value in state_dict_from_flax(inner).items():
             out[f"{name}.{key}"] = value
     return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Port ``Seq2Seq`` state_dict → the flax variables ``{"params": {"enc":
+    {"encoder": …}, "dec": {"decoder": …}}}`` of the JAX package's model
+    in the same gate layout (numpy f32 leaves): ``weight`` → ``kernel``
+    with its last two axes swapped, LayerNorm ``weight`` → ``scale``, every
+    other leaf by its own name. The inverse of :func:`params_from_jax`."""
+    scans = dict((name, scan) for scan, name in _SCANS)
+    params: Dict = {}
+    for key, value in state_dict.items():
+        names = key.split(".")
+        arr = value.detach().float().cpu()
+        if names[-1] == "weight" and names[-2].startswith("norm_"):
+            names[-1] = "scale"
+        elif names[-1] == "weight":
+            names[-1] = "kernel"
+            arr = arr.transpose(-1, -2)
+        node = params.setdefault(scans[names[0]], {}).setdefault(names[0], {})
+        for part in names[1:-1]:
+            node = node.setdefault(part, {})
+        node[names[-1]] = arr.contiguous().numpy()
+    return {"params": params}

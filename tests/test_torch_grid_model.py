@@ -167,9 +167,9 @@ def _jax_model(fused_gates=True, **kw):
     return JSeq2Seq(cfg, JGraphConfig(**J_GRID), use_climatology=True, **kw)
 
 
-def _port_model(weights):
+def _port_model(weights, fuse_gates=False):
     model = Seq2Seq(ModelConfig(**MODEL), GraphConfig(**GRID), use_climatology=True).eval()
-    model.load_state_dict(params_from_jax(weights))
+    model.load_state_dict(params_from_jax(weights, fuse_gates=fuse_gates))
     return model
 
 
@@ -224,12 +224,13 @@ def test_teacher_forcing_on_the_fixed_mesh_matches_jax(inputs):
 def test_per_gate_tree_loads_into_the_fused_layout(inputs):
     """The flagship's per-gate (``fused_gates=False``) checkpoint layout:
     vmapped ``conv_x``/``conv_h`` TransformerConv stacks, stacked into the
-    fused gate layout; the rollout matches the JAX per-gate model."""
+    fused gate layout (``params_from_jax(..., fuse_gates=True)``); the
+    rollout matches the JAX per-gate model."""
     x, _, clim, mask = inputs
     jm = _jax_model(fused_gates=False)
     weights = _jax_weights(jm, inputs, 4)
     assert "conv_x" in weights["params"]["enc"]["encoder"]["rnn_0"]
-    model = _port_model(weights)
+    model = _port_model(weights, fuse_gates=True)
     n_jax = sum(np.asarray(v).size for v in jax.tree.leaves(weights))
     assert n_jax == sum(p.numel() for p in model.parameters())
     with torch.no_grad():

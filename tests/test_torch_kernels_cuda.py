@@ -1244,3 +1244,100 @@ def test_segment_sum_kernel_launches_its_plan(card):
         err = lib.qtm_segment_sum(ptr(values), ptr(view.order), ptr(view.offsets), ptr(out),
                                   2, ids.shape[1], n_out, f, *plan, stream)
         assert err != 0, (f, plan)
+
+
+# ---------------------------------------------------------------- bench.py's defaults
+
+
+def _ice_quadtree_case(device, seed=0):
+    """The ice-quadtree workload's windows (224×304, thresh 0.15 on
+    ``dist_from_05`` of a smooth field with values near 0, near 1 and in
+    between, node budget 16384, NT 128, EB = SW = 1024) and seeded q, k, v,
+    Wₑ and keep planes at 8 heads × d 32 (HD 256: the fused gate stack's 8
+    streams of hidden 32)."""
+    from quadtree_mpnnlstm_tpu_torch.graph.quadtree import dist_from_05
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    shape, budget, heads, d = (224, 304), 16384, 8, 32
+    rng = np.random.default_rng(seed)
+    coarse = rng.choice([0.0, 0.05, 0.3, 0.5, 0.95, 1.0], size=(1, 1, 28, 38, 1))
+    x = np.clip(np.kron(coarse, np.ones((1, 1, 8, 8, 1))) + 0.03 * rng.standard_normal(
+        (1, 1, *shape, 1)), 0.0, 1.0).astype(np.float32)
+    cfg = GraphConfig(image_shape=shape, max_grid_size=8, thresh=0.15, n_max=budget,
+                      e_max=8 * budget, node_budget=budget, aggregation="pallas",
+                      attn_windows=True, agg_nt=NT, agg_eb=EB, agg_sw=SW)
+    g, _ = image_to_graph(add_positional_encoding(torch.from_numpy(x).to(device)), cfg,
+                          transform_func=dist_from_05)
+    assert int(g.overflow.max()) == 0 and int(g.n_nodes.max()) > 4 * NT
+    gen = torch.Generator(device).manual_seed(seed)
+    hd = heads * d
+    qkv = [torch.randn(1, budget, hd, device=device, generator=gen) for _ in range(3)]
+    we = torch.randn(2, hd, device=device, generator=gen)
+    meta = g.attn_meta
+    keep = (torch.rand(1, meta.s0.shape[1], heads, EB, device=device, generator=gen)
+            < 0.9).float() / 0.9
+    dims = attn.AttnDims(budget, NT, EB, SW, heads, d)
+    return (*qkv, we, keep, meta, dims), g.slot_view, gen
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attn_kernels_at_hd256_on_ice_quadtree_windows(card, dtype):
+    """K3 and K4 at HD 256 on the ice-quadtree workload's own windows,
+    against their plain versions: f32 K3 ≤1e-5 and K4 ≤1e-5 × max(1,
+    max|grad|), bf16 within one bf16 rounding; K4 through the graph's slot
+    view, as the train step runs it."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, view, gen = _ice_quadtree_case(card)
+    if dtype == "bfloat16":
+        args = _bf16_args(args)
+    out = attn._attn_fwd_cuda(*args)
+    g = torch.randn(out.shape, device=card, generator=gen).to(out.dtype)
+    kern = attn._attn_bwd_cuda(*args, g, view)
+    plain = attn.attn_bwd_plain(*args, g)
+    if dtype == "bfloat16":
+        _bf16_close(out, attn.attn_plain(*args), "K3 HD 256")
+        for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern, plain):
+            _bf16_close(a, p, f"K4 {name} HD 256")
+        return
+    torch.testing.assert_close(out, attn.attn_plain(*args), rtol=0, atol=1e-5)
+    for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern, plain):
+        err = float((a - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+
+
+@pytest.mark.parametrize("conv,dtype", [("ChebConv", "float32"),
+                                        ("TransformerConv", "bfloat16")])
+def test_remat_full_step_is_bit_identical_on_the_card(card, conv, dtype, tmp_path):
+    """One train step with per-step remat full and one without, from the
+    same weights, inputs and generator (dropout 0.1, teacher forcing 0.5),
+    on the kernels: the same loss, gradients and generator state bit for
+    bit, and the replay launches the forward's K2 (or K3) again."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+    from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
+
+    rng = np.random.default_rng(1)
+    x = (rng.random((2, 3, 32, 32, 1)) ** 4).astype(np.float32)
+    y = (rng.random((2, 3, 32, 32, 1)) ** 4).astype(np.float32)
+    out = {}
+    for remat in ("none", "full"):
+        tp = NextFramePredictorS2S(
+            (32, 32), 0.1, input_timesteps=3, output_timesteps=3, device="cuda", seed=2,
+            teacher_forcing_ratio=0.5, run_dir=str(tmp_path),
+            model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
+                              convolution_type=conv, compute_dtype=dtype, remat=remat),
+            graph_kwargs=dict(max_grid_size=8, n_max=1024, e_max=5120, node_budget=1024,
+                              aggregation="pallas", agg_eb=1024, agg_sw=1024))
+        tp.initiate_training(lr=0.0, lr_decay=0.95)
+        gen = torch.Generator(card).manual_seed(3)
+        spmm.reset_launch_counts()
+        attn.reset_launch_counts()
+        loss, _ = tp.train_step(x, y, generator=gen)
+        fwd = (spmm.LAUNCHES["spmm_apply"] + spmm.LAUNCHES_BF16["spmm_apply"]
+               + attn.LAUNCHES["attn_apply"] + attn.LAUNCHES_BF16["attn_apply"])
+        out[remat] = (loss, {n: p.grad for n, p in tp.model.named_parameters()},
+                      gen.get_state(), fwd)
+    (loss_n, g_n, s_n, fwd_n), (loss_f, g_f, s_f, fwd_f) = out["none"], out["full"]
+    assert torch.equal(loss_n, loss_f) and torch.equal(s_n, s_f)
+    assert all(torch.equal(g_f[n], g) for n, g in g_n.items())
+    assert fwd_f == 2 * fwd_n > 0
