@@ -4,10 +4,13 @@ the remeshing quadtree paths, a forecast batch (``predict``) and a train
 step (``train_step``) of ``bench.py``'s 64×64 Moving-MNIST model
 (``chip_smoke.py`` phases 2, 5, 9 and 11: batch 16, T_in 4 → T_out 10,
 thresh 0.1, random weights from ``--seed``), with ChebConv and with
-TransformerConv (``--conv``: only one of them); with ``--workload ice``
-the sea-ice flagship on the pixelwise grid (phases 13 and 16: one
-224×304 forecast of 10 → 90 days through ``predict``, and one full-BPTT
-train step, batch 1, with climatology); with ``--workload ice-quadtree``
+TransformerConv (``--conv``: only one of them, or GCNConv, phase 43);
+with ``--workload ice`` the sea-ice flagship on the pixelwise grid
+(phases 13 and 16: one 224×304 forecast of 10 → 90 days through
+``predict``, and one full-BPTT train step, batch 1, with climatology;
+``--conv GCNConv`` is the JAX package's experiment 1, phase 44), with
+``--workload ice-xla`` the same flagship on the pixelwise edge list
+(phases 20, 41 and 45); with ``--workload ice-quadtree``
 ``bench.py``'s ice-quadtree model (phase 42: remeshing quadtree meshes
 of the transformed criterion on attention windows, a forecast and a
 full-BPTT step). Each in f32 or, with ``--dtype bfloat16``, in bf16
@@ -16,8 +19,8 @@ full-BPTT step). Each in f32 or, with ``--dtype bfloat16``, in bf16
 ``none``, as the numbers before it were taken; ``bench.py`` trains with
 ``full``) and ``--per-gate`` the per-gate gate stacks of the flagship
 (``bench.py``'s default on the pixelwise meshes), so that
-``--workload ice --dtype bfloat16 --remat full --per-gate`` times
-``bench.py --workload ice`` as it configures it. With ``--workload k7`` the segment-sum kernel K7 alone: on
+``--workload ice|ice-xla --dtype bfloat16 --remat full --per-gate``
+times ``bench.py --workload ice|ice-xla`` as it configures it. With ``--workload k7`` the segment-sum kernel K7 alone: on
 the operand sets of a forecast and a train step of the ChebConv and the
 TransformerConv model, each in f32 and bf16 (as ``chip_smoke.py`` phases
 10, 27 and 32 capture them), and on the pixel views of coarse to fine
@@ -26,8 +29,9 @@ quadtree meshes built from the Moving-MNIST frames (phase 27b,
 the entry-ordered sum, timed by CUDA graph and by events beside its bound
 and ``index_add_`` (``k7_measure``).
 
-    python3 chip_ab.py [--workload quadtree|ice|ice-quadtree|k7]
-                       [--conv ChebConv|TransformerConv] [--dtype float32|bfloat16]
+    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7]
+                       [--conv GCNConv|ChebConv|TransformerConv]
+                       [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
                        [--tree DIR] [--reps 5] [--seed 0]
 
@@ -72,21 +76,26 @@ def _timed(fn, reps: int) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree",
-                        choices=("quadtree", "ice", "ice-quadtree", "k7"))
-    parser.add_argument("--conv", choices=("ChebConv", "TransformerConv"),
-                        help="time only this model of the quadtree paths (default: both)")
+                        choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7"))
+    parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv"),
+                        help="time only this model of the quadtree paths (default: ChebConv "
+                             "and TransformerConv), or the flagship's conv (--workload "
+                             "ice|ice-xla; default TransformerConv)")
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                         help="compute dtype of the models")
     parser.add_argument("--remat", default="none", choices=("none", "full", "mesh", "dots"),
                         help="per-step remat of the train steps (bench.py: full)")
     parser.add_argument("--per-gate", action="store_true",
-                        help="per-gate gate stacks of the flagship (--workload ice)")
+                        help="per-gate gate stacks of the flagship (--workload ice|ice-xla)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
-    if args.per_gate and args.workload != "ice":
-        parser.error("--per-gate is bench.py's default on the pixelwise meshes (--workload ice)")
+    if args.per_gate and args.workload not in ("ice", "ice-xla"):
+        parser.error("--per-gate is bench.py's default on the pixelwise meshes "
+                     "(--workload ice|ice-xla)")
+    if args.conv and args.workload in ("ice-quadtree", "k7"):
+        parser.error(f"--workload {args.workload} has its own convolutions")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
@@ -108,9 +117,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     run_dir = tempfile.TemporaryDirectory()
     result = {"tree": tree, "card": cs.card_line(), "workload": args.workload,
-              "dtype": args.dtype, "remat": args.remat, "fused_gates": not args.per_gate,
-              "reps": args.reps}
-    if args.workload in ("ice", "ice-quadtree"):
+              "conv": args.conv, "dtype": args.dtype, "remat": args.remat,
+              "fused_gates": not args.per_gate, "reps": args.reps}
+    if args.workload in ("ice", "ice-xla", "ice-quadtree"):
         _time_ice(cs, args, run_dir.name, result)
     elif args.workload == "k7":
         _time_k7(cs, args, run_dir.name, result)
@@ -186,7 +195,8 @@ def _time_k7(cs, args, run_dir: str, result: dict) -> None:
 def _time_ice(cs, args, run_dir: str, result: dict) -> None:
     """The flagship's forecast (one window through ``predict``) and its
     full-BPTT train step on the first window, as phases 13 and 16 run them
-    (``--workload ice``), or the ice-quadtree model's, as phase 42 does."""
+    on the grid (``--workload ice``) and phases 41 and 45 on the edge list
+    (``ice-xla``), or the ice-quadtree model's, as phase 42 does."""
     import torch
 
     from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
@@ -196,7 +206,9 @@ def _time_ice(cs, args, run_dir: str, result: dict) -> None:
             return cs.make_ice_quadtree_model(args.seed, run_dir, dtype=args.dtype,
                                               remat=args.remat)
         return cs.make_ice_model(args.seed, run_dir, dtype=args.dtype, remat=args.remat,
-                                 fused_gates=not args.per_gate)
+                                 fused_gates=not args.per_gate,
+                                 aggregation="xla" if args.workload == "ice-xla" else "grid",
+                                 conv=args.conv or "TransformerConv")
 
     data, clim, mask = cs.ice_data(args.seed)
     window = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
@@ -207,10 +219,13 @@ def _time_ice(cs, args, run_dir: str, result: dict) -> None:
     torch.cuda.empty_cache()
     trainer = make()
     trainer.initiate_training(lr=cs.LR, lr_decay=0.95)
+    # the edge list keeps ≈ 100 GB of activations at full BPTT without remat
+    tbptt = cs.EDGE_TBPTT if args.workload == "ice-xla" and args.remat == "none" else cs.ICE_TBPTT
+    result["truncated_backprop"] = tbptt
     x, y, c = data.x[:1], data.y[:1], trainer._clim_batch(clim, data.launch_dates[:1])
     _record(result, "ice_step_s",
             _timed(lambda: float(trainer.train_step(x, y, mask=mask, climatology=c,
-                                                    truncated_backprop=cs.ICE_TBPTT)[0]),
+                                                    truncated_backprop=tbptt)[0]),
                    args.reps))
     del trainer
     torch.cuda.empty_cache()

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Where the port's time goes on one CUDA card.
 
-    python3 chip_profile.py [--seed 0] [--reps 5] [--train] [--conv TransformerConv]
-    python3 chip_profile.py --dtype bfloat16 [--train] [--conv TransformerConv]
-    python3 chip_profile.py --workload ice [--train] [--dtype bfloat16]
+    python3 chip_profile.py [--seed 0] [--reps 5] [--train] [--conv GCNConv|TransformerConv]
+    python3 chip_profile.py --dtype bfloat16 [--train] [--conv GCNConv|TransformerConv]
+    python3 chip_profile.py --workload ice [--train] [--dtype bfloat16] [--conv GCNConv]
     python3 chip_profile.py --workload ice-xla [--train]
+    python3 chip_profile.py --workload ice-xla --dtype bfloat16 --per-gate --remat full --train
     python3 chip_profile.py --workload ice-quadtree --dtype bfloat16 --remat full [--train]
     python3 chip_profile.py --workload ice --dtype bfloat16 --per-gate --remat full --train
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
-TransformerConv`` the attention model), or with ``--workload ice`` its
-sea-ice flagship (one 224×304 pixelwise forecast of 10 → 90 days,
-TransformerConv with climatology, batch 1); ``--dtype bfloat16`` runs
-either in bf16, ``bench.py``'s default; or with ``--workload ice-xla``
-the same model on the pixelwise edge list (training with truncated BPTT
-of 30 steps, full BPTT under ``--remat``), or with ``--workload
+TransformerConv`` the attention model, with ``--conv GCNConv`` the JAX
+package's default conv), or with ``--workload ice`` its sea-ice flagship
+(one 224×304 pixelwise forecast of 10 → 90 days, TransformerConv, or
+with ``--conv GCNConv`` the JAX package's experiment 1, with climatology,
+batch 1); ``--dtype bfloat16`` runs any of them in bf16, ``bench.py``'s
+default; or with ``--workload ice-xla`` the same model on the pixelwise
+edge list (training with truncated BPTT of 30 steps, full BPTT under
+``--remat``), or with ``--workload
 ice-quadtree`` ``bench.py``'s ice-quadtree model (``chip_smoke.py``
 ``make_ice_quadtree_model``: remeshing quadtree meshes of the transformed
 criterion, attention windows), under ``torch.profiler`` after
@@ -90,6 +93,7 @@ def _workload(args, run_dir: str):
     if args.workload in ("ice", "ice-xla", "ice-quadtree"):
         edge_list = args.workload == "ice-xla"
         data, clim, mask = chip_smoke.ice_data(args.seed)
+        conv = args.conv or "TransformerConv"
         if args.workload == "ice-quadtree":
             model = chip_smoke.make_ice_quadtree_model(args.seed, run_dir, dtype=args.dtype,
                                                        remat=args.remat)
@@ -97,7 +101,7 @@ def _workload(args, run_dir: str):
             model = chip_smoke.make_ice_model(args.seed, run_dir,
                                               aggregation="xla" if edge_list else "grid",
                                               dtype=args.dtype, remat=args.remat,
-                                              fused_gates=not args.per_gate)
+                                              fused_gates=not args.per_gate, conv=conv)
         # the edge list keeps ≈ 100 GB of activations at full BPTT without remat
         tbptt = (chip_smoke.EDGE_TBPTT if edge_list and args.remat == "none"
                  else chip_smoke.ICE_TBPTT)
@@ -107,24 +111,25 @@ def _workload(args, run_dir: str):
         if not args.train:
             x0, _, c0 = windows[0]
             run = lambda: model.forecast(x0, mask=mask, climatology=c0)  # noqa: E731
-            return 1, "TransformerConv", run, run
+            return 1, conv, run, run
         model.initiate_training(lr=chip_smoke.LR, lr_decay=0.95)
         step = lambda b: model.train_step(b[0], b[1], mask=mask, climatology=b[2],  # noqa: E731
                                           truncated_backprop=tbptt)
         it = iter(windows[1:] * 3)
-        return 1, "TransformerConv", lambda: step(windows[0]), lambda: step(next(it))
+        return 1, conv, lambda: step(windows[0]), lambda: step(next(it))
+    conv = args.conv or "ChebConv"
     ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
     if args.train:
-        model = chip_smoke.make_trainer(args.seed, run_dir, args.conv, dtype=args.dtype,
+        model = chip_smoke.make_trainer(args.seed, run_dir, conv, dtype=args.dtype,
                                         remat=args.remat)
         it = iter(batches[1:] * 3)
-        return (chip_smoke.BATCH, args.conv, lambda: model.train_step(*batches[0]),
+        return (chip_smoke.BATCH, conv, lambda: model.train_step(*batches[0]),
                 lambda: model.train_step(*next(it)))
-    model = chip_smoke.make_model(args.seed, run_dir, args.conv, dtype=args.dtype,
+    model = chip_smoke.make_model(args.seed, run_dir, conv, dtype=args.dtype,
                                   remat=args.remat)
     x = torch.as_tensor(ds.x, device="cuda")
     run = lambda: model.forecast(x)  # noqa: E731
-    return chip_smoke.BATCH, args.conv, run, run
+    return chip_smoke.BATCH, conv, run, run
 
 
 def main() -> int:
@@ -132,11 +137,13 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--train", action="store_true", help="profile train_step")
-    parser.add_argument("--conv", default="ChebConv", choices=("ChebConv", "TransformerConv"))
+    parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv"),
+                        help="the model's conv (default: ChebConv; TransformerConv on "
+                             "--workload ice|ice-xla)")
     parser.add_argument("--workload", default="mnist",
                         choices=("mnist", "ice", "ice-xla", "ice-quadtree"))
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
-                        help="compute dtype of the model (bf16: not on the edge list)")
+                        help="compute dtype of the model")
     parser.add_argument("--remat", default="none", choices=("none", "full", "mesh", "dots"),
                         help="per-step remat of the training rollout (bench.py: full)")
     parser.add_argument("--per-gate", action="store_true",
@@ -145,8 +152,8 @@ def main() -> int:
     if args.per_gate and args.workload not in ("ice", "ice-xla"):
         parser.error("--per-gate is bench.py's default on the pixelwise meshes only "
                      "(--workload ice or ice-xla)")
-    if args.dtype != "float32" and args.workload == "ice-xla":
-        parser.error("--dtype bfloat16 does not run on the pixelwise edge list (not ported)")
+    if args.conv and args.workload == "ice-quadtree":
+        parser.error("--workload ice-quadtree has its own convolution (TransformerConv)")
 
     import torch
     from torch.profiler import ProfilerActivity, profile

@@ -111,9 +111,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
 19. (printed last) the ``kernels`` JSON line (K1, K2, K2b, K3, K4, K5,
    K6, K7 in f32, then K1, K2, K2b, K7, K3, K4, K5, K6 in bf16, each with
    its ``dtype``; K7's entries add ``by_operand_set``, every set of phases
-   10, 21, 27, 27b and 32 with its path, and ``ms_by_path``, the
+   10, 21, 27, 27b, 32 and 45 with its path, and ``ms_by_path``, the
    launch-weighted means of the main path, TransformerConv and the edge
-   list, each over its own sets), then the card line and the result line;
+   list, each over its own sets; K2's and K2b's add ``gcn_by_width``,
+   phase 43's rows, and K1, K2, K2b and K7 the GCN path's launches), then
+   the card line and the result line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
@@ -248,8 +250,43 @@ earlier runs):
    cotangents, in bf16 and f32, timed by CUDA graph beside their bounds;
    the fullest window against EB and SW.
 
-Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38) swaps each
-kernel it would launch for its plain version.
+GCNConv, the JAX package's default conv, and bf16 on the edge list
+(phases 43-45):
+
+43. the main path with ``--conv GCNConv`` (``bench.py``'s model, GCN
+   gate stacks applying each stream's weights first and aggregating all
+   2·G streams in one Â·z of width 2·G·d = 128, GCN head convs): a
+   forecast (``predict``) in f32 and bf16, finite, overflow 0, K1 11, K2
+   56 and K7 73 launches (bf16: only the node counts' 11 K7 in f32); K2
+   at every width of the first decoder step (F 128, 16, 1) against its
+   plain version (≤1e-5 in f32, one bf16 rounding in bf16) and K2b on one
+   step's cotangents, timed by CUDA graph and events beside the bound,
+   the plain version and ``torch.sparse.mm``; a ``train_step`` in each
+   dtype under remat none and full (dropout 0.1, teacher forcing 0.5):
+   launches K1 11 / 21, K2 56 / 112, K2b 56, K7 119 / 189, every K2
+   output carrying the K2b node, "full" bit-identical to "none"; a
+   teacher-forced f32 step against one on the plain versions (identical
+   meshes, every leaf ≤1e-4 × max(1, max|g|)) and the kernel step again,
+   bit-identical;
+44. the JAX package's experiment 1 (``cli/ice_exp.py``): GCNConv on the
+   flagship's 224×304 grid, per-gate, f32, remat full: ``predict`` and a
+   full-BPTT ``train_step``, finite, overflow 0, no kernel launched (Â·z
+   is the grid's plain shift stencil), the step's peak and time; the
+   per-gate step's gradients against the fused model's on weights stacked
+   by ``fuse_gcn_gates`` (≤1e-4 × max(1, max|g|));
+45. ``bench.py --workload ice-xla`` at its defaults (the pixelwise edge
+   list, bf16, per-gate, remat full): ``predict`` and a full-BPTT
+   ``train_step``, finite, overflow 0, K7 launches as read from the code
+   (all bf16 but the node counts), peaks and times; K7 in bf16 on the edge
+   list's sets (messages at F 256, 32, 1, the gathers' cotangents, the
+   pooling) bit-identical to the entry-ordered f32 sum rounded once, timed
+   beside its bound, plain version and ``index_add_`` in bf16; a T_out-6
+   bf16 step against an f32 step from the same weights, each on K7 and on
+   its plain version, gated by the plain path's own bf16-vs-f32 spread as
+   phase 34 gates.
+
+Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38, 43, 45)
+swaps each kernel it would launch for its plain version.
 
 It fails at once without a CUDA card, and when the port's package is not
 beside it.
@@ -693,11 +730,13 @@ K6_TOL = 1e-5
 
 def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
                    aggregation: str = "grid", dtype: str = "float32", remat=False,
-                   fused_gates: bool = True):
+                   fused_gates: bool = True, conv: str = "TransformerConv"):
     """The flagship forecaster (T_out ``t_out``, default 90) on the
     pixelwise grid or, with ``aggregation="xla"``, the pixelwise edge list,
-    computing in ``dtype``, with per-step ``remat`` and the fused or
-    per-gate gate layout; random weights from ``seed``."""
+    computing in ``dtype``, with per-step ``remat``, the fused or
+    per-gate gate layout and the convolution ``conv`` (GCNConv: the JAX
+    package's experiment 1, ``cli/ice_exp.py``); random weights from
+    ``seed``."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -706,7 +745,7 @@ def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None
         output_timesteps=ICE_T_OUT if t_out is None else t_out,
         use_climatology=True, device=DEVICE, seed=seed, run_dir=run_dir,
         model_kwargs=dict(hidden_size=32, dropout=0.1, n_layers=1, n_conv_layers=3,
-                          convolution_type="TransformerConv", fused_gates=fused_gates,
+                          convolution_type=conv, fused_gates=fused_gates,
                           compute_dtype=dtype, remat=remat),
         graph_kwargs=dict(aggregation=aggregation),
     )
@@ -1238,24 +1277,29 @@ def _library_spmm(s0, blocks, n_max, nt, sw, z):
 
 
 def _spmm_width(spmm, args, calls, fn, n_max, nt, sw):
-    """K2 (or K2b, ``fn``) in bf16 against ``apply_plain`` on one width's
-    operands: within one bf16 rounding, timed by graph and events beside
-    its bound, its plain version and ``torch.sparse.mm``, and the f32
-    kernel's time on the same operands in f32 (``f32_ms``, by graph)."""
+    """K2 (or K2b, ``fn``) against ``apply_plain`` on one width's operands:
+    in bf16 within one bf16 rounding, in f32 within ``K2_TOL``; timed by
+    graph and events beside its bound, its plain version and
+    ``torch.sparse.mm``, and in bf16 the f32 kernel's time on the same
+    operands in f32 (``f32_ms``, by graph)."""
+    import torch
+
     z, s0, blocks, live = args[:4]
     kern, plain = fn(*args), spmm.apply_plain(*args)
     check(kern.dtype == plain.dtype == z.dtype, f"K2 returned {kern.dtype} for {z.dtype} z")
     err = float((kern.float() - plain.float()).abs().max())
     scale = max(1.0, float(plain.float().abs().max()))
     f = z.shape[-1]
-    check(err <= BF16_TOL * scale, f"bf16 K2 differs from its plain version at F={f}: {err}")
+    bf16 = z.dtype == torch.bfloat16
+    check(err <= (BF16_TOL * scale if bf16 else K2_TOL),
+          f"{z.dtype} K2 differs from its plain version at F={f}: {err}")
     library, refused = _library_spmm(s0, blocks, n_max, nt, sw, z)
     bound, b_ms, o_ms = k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, z.shape[0])
     f32_args = (z.float(), s0, blocks.float()) + tuple(args[3:])
     return dict(F=f, calls=calls, max_abs_err=err, err_rel_to_max=err / scale,
                 bit_identical=bool((kern == plain).all()), live_tiles=int(live.long().sum()),
                 ms=graph_ms(lambda: fn(*args)), events_ms=cuda_ms(lambda: fn(*args)),
-                f32_ms=graph_ms(lambda: fn(*f32_args)),
+                f32_ms=graph_ms(lambda: fn(*f32_args)) if bf16 else None,
                 plain_ms=cuda_ms(lambda: spmm.apply_plain(*args)),
                 library_ms=None if library is None else cuda_ms(library),
                 library_refused=refused, bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
@@ -3090,6 +3134,423 @@ def bench_default_phases(seed: int, card: str, spmm, attn, grid_attn, segment_su
             "quadtree_forecast": quad_fwd, "quadtree_train": quad_train}
 
 
+# ---------------------------------------------------------------- GCN, bf16 edge lists
+# Phases 43-45: GCNConv, the JAX package's default conv (ModelConfig.
+# convolution_type), on the main path's Â blocks (bench.py --conv GCNConv)
+# and on the flagship's grid (the JAX package's experiment 1,
+# cli/ice_exp.py:54-55, per-gate); then bench.py --workload ice-xla at its
+# defaults (bf16, per-gate, remat full on the pixelwise edge list).
+GCN_REMAT_MODES = ("none", "full")
+
+
+def expected_gcn_launches(cfg, mode: str = "none", train: bool = True) -> dict:
+    """Launches of one full-BPTT train step (``train`` False: one forecast)
+    of the main path's model with GCNConv, read from the code. K1 and K7
+    as ChebConv's (:func:`expected_launches`): the meshes and their sums do
+    not depend on the conv. K2 once per GCN layer, where ChebConv takes K −
+    1 = 2: the fused stack applies each stream's weights first and
+    aggregates all 2·G streams in one Â·z, for every encoder cell step's
+    conv layers, every decoder cell step (1 layer each) and each head conv
+    (2). K2b once per K2: every Â·z input is a product with a weight, the
+    first encoder step's too (ChebConv's takes the frame and the zero
+    state, with no parameter). Remat "full" replays every K2 and every
+    decoder step's remesh (K1, K7), as :func:`expected_remat_launches`
+    reads it."""
+    k2 = T_IN * cfg.n_layers * cfg.n_conv_layers + T_OUT * (cfg.n_layers + 2)
+    if not train:
+        return {"spmm_build_blocks": 1 + T_OUT, "spmm_apply": k2,
+                "segment_sum": expected_quadtree_k7(cfg, 3)}
+    want = {"spmm_build_blocks": 1 + T_OUT, "spmm_apply": k2, "spmm_apply_bwd": k2,
+            "segment_sum": expected_quadtree_k7(cfg, 3, train=True)}
+    if mode == "full":
+        want["spmm_apply"] *= 2
+        want["spmm_build_blocks"] += T_OUT
+        want["segment_sum"] += T_OUT * (3 + 2 * cfg.n_layers)
+    return want
+
+
+def gcn_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
+               loader, x) -> dict:
+    """Phases 43-45; returns what the kernels line adds: K2/K2b rows at
+    GCN's widths (f32 and bf16) with the GCN path's launches, and K7's
+    bf16 rows on the edge list's sets with the ice-xla path's launches."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+    from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax, params_to_jax
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn, segment_sum)
+    bf16 = torch.bfloat16
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def f32_launches():
+        return {k: v for m in modules for k, v in m.LAUNCHES.items() if v}
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    def grads_of(trainer):
+        return {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    def same_step(a, b):
+        return (torch.equal(a["loss"], b["loss"]) and torch.equal(a["generator"], b["generator"])
+                and all(torch.equal(a["grads"][n], g) for n, g in b["grads"].items()))
+
+    # ---- phase 43: the main path with GCNConv, f32 and bf16, remat none/full
+    out43 = {"forecast": {}, "k2": {}, "k2b": {}, "steps": {}}
+    for dtype in ("float32", "bfloat16"):
+        model = make_model(seed, run_dir.name, "GCNConv", dtype=dtype)
+        cfg, gcfg = model.cfg, model.gcfg
+        nt, sw, n_max = gcfg.agg_nt, gcfg.agg_sw, gcfg.n_max
+        check(cfg.convolution_type == "GCNConv" and gcfg.aggregation == "pallas"
+              and not gcfg.carry_edges and not gcfg.attn_windows,
+              f"GCN main path configuration: {cfg}, {gcfg}")
+        model.predict(loader)  # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        y = model.predict(loader)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        launches, f32 = nonzero(launch_totals(modules)), f32_launches()
+        want = expected_gcn_launches(cfg, train=False)
+        check(y.shape == (BATCH, T_OUT, *CANVAS, 1) and bool(np.isfinite(y).all())
+              and model.last_overflow == 0,
+              f"GCN {dtype} forecast: {y.shape}, finite {bool(np.isfinite(y).all())}, "
+              f"overflow {model.last_overflow}")
+        check(launches == want, f"GCN {dtype} forecast launches {launches}, expected {want}")
+        if dtype == "bfloat16":  # only the node counts (a sum of ones) stay f32
+            check(f32 == {"segment_sum": 1 + T_OUT}, f"GCN bf16 forecast's f32 launches {f32}")
+        # K2 at each width on the first decoder step's operands (2·G·d = 128
+        # on the gate stacks, 16 and 1 on the head convs)
+        with Capture(spmm, T_IN * cfg.n_layers * cfg.n_conv_layers, cfg.n_layers + 2) as cap:
+            model.forecast(x)
+        check(cap.calls == want["spmm_apply"], "GCN capture run disagrees with the forecast")
+        k2 = [_spmm_width(spmm, a, cap.per_width[f], spmm._apply_cuda, n_max, nt, sw)
+              for f, a in cap.operands().items()]
+        check(128 in cap.per_width, f"GCN K2 widths {sorted(cap.per_width)}: no F 128")
+        out43["forecast"][dtype] = dict(batch_s=batch_s, frames_per_s=BATCH * T_OUT / batch_s,
+                                        launches=launches, f32_launches=f32)
+        out43["k2"][dtype] = k2
+        del model, cap
+
+    _, batches = train_batches(seed, 2)
+    x_b, y_b = batches[0]
+    for dtype in ("float32", "bfloat16"):
+        runs = {}
+        for mode in GCN_REMAT_MODES:
+            trainer = make_trainer(seed, run_dir.name, "GCNConv", teacher_forcing_ratio=0.5,
+                                   dtype=dtype, remat=mode)
+            check(trainer.model.remat == mode, f"remat {trainer.model.remat}, asked {mode}")
+            gen = torch.Generator(device=DEVICE).manual_seed(1)
+            step = {}
+            reset()
+            with CaptureBwd(spmm, "_apply_bwd_cuda") as cap_b, \
+                    GradFnCheck(spmm, "spmm_apply", "SpmmApplyBackward") as gcheck:
+                peak = peak_above_start_gib(
+                    lambda: step.update(out=trainer.train_step(x_b, y_b, generator=gen)))
+            launches, f32 = nonzero(launch_totals(modules)), f32_launches()
+            want = expected_gcn_launches(cfg, mode)
+            check(launches == want, f"GCN {dtype} remat {mode}: launches a step {launches}, "
+                  f"expected {want}")
+            check(not gcheck.bad and gcheck.calls == want["spmm_apply"],
+                  f"GCN Â·z outputs without the K2b node: {gcheck.bad[:3]} ({gcheck.calls})")
+            if dtype == "bfloat16":
+                # the node counts of every mesh and of every replayed remesh
+                counts = 1 + T_OUT + (T_OUT if mode == "full" else 0)
+                check(f32 == {"segment_sum": counts}, f"GCN bf16 step's f32 launches {f32}")
+            loss, overflow = step["out"]
+            check(bool(torch.isfinite(loss)) and int(overflow) == 0,
+                  f"GCN {dtype} remat {mode}: loss {float(loss)}, overflow {int(overflow)}")
+            check(all(q.dtype == q.grad.dtype == torch.float32
+                      for q in trainer.model.parameters()),
+                  "a GCN master weight or gradient is not float32")
+            runs[mode] = dict(loss=loss, generator=gen.get_state(), grads=grads_of(trainer),
+                              launches=launches, f32_launches=f32, peak_gib=peak)
+            t0 = time.perf_counter()
+            float(trainer.train_step(*batches[1])[0])
+            runs[mode]["step_s"] = time.perf_counter() - t0
+            if mode == "none":
+                out43["k2b"][dtype] = [
+                    _spmm_width(spmm, a, cap_b.per_width[f], spmm._apply_bwd_cuda, n_max, nt, sw)
+                    for f, a in sorted(cap_b.first.items())]
+                check(sum(w["calls"] for w in out43["k2b"][dtype]) == want["spmm_apply_bwd"],
+                      "GCN K2b capture disagrees with the code")
+            del trainer, cap_b
+        check(same_step(runs["full"], runs["none"]),
+              f"GCN {dtype}: the remat full step is not bit-identical to remat none")
+        out43["steps"][dtype] = {
+            m: {"loss": float(r["loss"]), "step_s": r["step_s"],
+                "step_peak_above_start_gib": r["peak_gib"], "launches_per_step": r["launches"],
+                "f32_launches_per_step": r["f32_launches"]} for m, r in runs.items()}
+        del runs
+        torch.cuda.empty_cache()
+    # a whole f32 step on the kernels against one on the plain versions,
+    # teacher-forced (every decoder mesh from a true frame, so both run on
+    # the same meshes); the kernel step again, bit-identical
+    forced = lambda: make_trainer(seed, run_dir.name, "GCNConv",  # noqa: E731
+                                  teacher_forcing_ratio=1.0)
+    loss_k, _, grads_k, meshes_k = step_with_meshes(forced(), x_b, y_b, seed=1)
+    with mock.patch.object(spmm, "_build_blocks_cuda", spmm.build_blocks_plain), \
+            mock.patch.object(spmm, "_apply_cuda", spmm.apply_plain), \
+            mock.patch.object(spmm, "_apply_bwd_cuda", spmm.apply_plain), \
+            mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
+        loss_p, _, grads_p, meshes_p = step_with_meshes(forced(), x_b, y_b, seed=1)
+    check(torch.equal(meshes_k, meshes_p), "GCN kernel and plain steps ran on different meshes")
+    grad_err = _leaf_err(grads_k, grads_p)
+    check(grad_err <= GRAD_TOL, f"GCN gradients differ from the plain path by {grad_err}")
+    loss_k2, _, grads_k2, meshes_k2 = step_with_meshes(forced(), x_b, y_b, seed=1)
+    repeat = (torch.equal(loss_k, loss_k2) and torch.equal(meshes_k, meshes_k2)
+              and all(torch.equal(grads_k[n], grads_k2[n]) for n in grads_k))
+    check(repeat, "two identical GCN train steps differ")
+    del grads_p, grads_k2
+    print(json.dumps({
+        "phase": "gcn_main_path", "card": card, "conv": "GCNConv", "batch": BATCH,
+        "forecast": out43["forecast"], "train_steps": out43["steps"],
+        "remat_full_vs_none_bit_identical": True,
+        "k2_by_width": out43["k2"], "k2b_by_width": out43["k2b"],
+        "grads_vs_plain": {"teacher_forcing_ratio": 1.0, "loss_kernel": float(loss_k),
+                           "loss_plain": float(loss_p), "max_leaf_err_rel": grad_err,
+                           "leaves": len(grads_k), "meshes_identical": True},
+        "bit_identical_repeat": repeat,
+    }), flush=True)
+    del grads_k
+    torch.cuda.empty_cache()
+
+    # ---- phase 44: experiment 1 on the grid (GCN, per-gate, f32, remat full)
+    data, clim, mask = ice_data(seed)
+    windows = lambda i, j: ArrayDataset(data.x[i:j], data.y[i:j],  # noqa: E731
+                                        data.launch_dates[i:j])
+    x0, y0 = data.x[:1], data.y[:1]
+
+    def ice_step(tr, batch, gen=None):
+        x_i, y_i, c_i = batch
+        return tr.train_step(x_i, y_i, mask=mask, climatology=c_i, generator=gen,
+                             truncated_backprop=ICE_TBPTT)
+
+    def exp1(**kw):
+        return make_ice_model(seed, run_dir.name, conv="GCNConv", remat=True, **kw)
+
+    model = exp1(fused_gates=False)
+    cfg = model.cfg
+    check(cfg.convolution_type == "GCNConv" and not cfg.fused_gates
+          and model.model.remat == "full" and model.gcfg.aggregation == "grid",
+          f"experiment 1 configuration: {cfg}, {model.gcfg}")
+    batch0 = (x0, y0, model._clim_batch(clim, data.launch_dates[:1]))
+    model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    y = model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)
+    torch.cuda.synchronize()
+    forecast_s = time.perf_counter() - t0
+    grid_fwd = nonzero(launch_totals(modules))
+    check(y.shape == (1, ICE_T_OUT, *ICE_SHAPE, 1) and bool(np.isfinite(y).all())
+          and model.last_overflow == 0,
+          f"experiment 1 forecast: {y.shape}, finite {bool(np.isfinite(y).all())}, "
+          f"overflow {model.last_overflow}")
+    # Â·z on the grid is grid_a_mul's shift stencil (plain on both devices,
+    # as the JAX package's is XLA); the grid has no segment sum
+    check(not grid_fwd, f"experiment 1 forecast launched {grid_fwd}")
+    max_abs = float(np.abs(y).max())
+    del model
+    trainer = exp1(fused_gates=False)
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    ice_step(trainer, batch0)  # warm-up
+    batch1 = (data.x[1:2], data.y[1:2], trainer._clim_batch(clim, data.launch_dates[1:2]))
+    torch.cuda.synchronize()
+    reset()
+    step = {}
+    t0 = time.perf_counter()
+    grid_peak = peak_above_start_gib(lambda: step.update(out=ice_step(trainer, batch1)))
+    grid_step_s = time.perf_counter() - t0
+    grid_train = nonzero(launch_totals(modules))
+    check(bool(torch.isfinite(step["out"][0])) and int(step["out"][1]) == 0 and not grid_train
+          and grid_peak > 0,
+          f"experiment 1 step: loss {float(step['out'][0])}, overflow {int(step['out'][1])}, "
+          f"launches {grid_train}, peak {grid_peak}")
+    grid_loss = float(step["out"][0])
+    del trainer, step
+    torch.cuda.empty_cache()
+    # the per-gate step against the fused model on the same weights,
+    # stacked by fuse_gcn_gates, from the same generator
+    per_gate, fused = exp1(fused_gates=False), exp1()
+    fused.model.load_state_dict(params_from_jax(params_to_jax(per_gate.model.state_dict()),
+                                                fuse_gates=True))
+    steps = {}
+    for name, tr in (("per_gate", per_gate), ("fused", fused)):
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        loss, _ = ice_step(tr, batch0, torch.Generator(device=DEVICE).manual_seed(1))
+        steps[name] = (loss, _stacked_grads(tr.model) if name == "per_gate" else grads_of(tr))
+    layout_err = _leaf_err(steps["per_gate"][1], steps["fused"][1])
+    layout_same = (torch.equal(steps["per_gate"][0], steps["fused"][0])
+                   and all(torch.equal(steps["per_gate"][1][n].to(DEVICE), g)
+                           for n, g in steps["fused"][1].items()))
+    check(layout_err <= GRAD_TOL,
+          f"experiment 1: per-gate gradients differ from the fused model's by {layout_err}")
+    del per_gate, fused, steps
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "gcn_grid_experiment_1", "card": card, "conv": "GCNConv", "mesh": "grid",
+        "dtype": "float32", "fused_gates": False, "remat": "full", "t_out": ICE_T_OUT,
+        "truncated_backprop": 0, "s_per_forecast": forecast_s, "forecast_launches": grid_fwd,
+        "max_abs_value": max_abs, "step_s": grid_step_s, "loss": grid_loss, "overflow": 0,
+        "step_peak_above_start_gib": grid_peak, "train_launches": grid_train,
+        "per_gate_vs_fused": {"max_leaf_err_rel": layout_err, "bit_identical": layout_same},
+    }), flush=True)
+
+    # ---- phase 45: bench.py --workload ice-xla at its defaults
+    p = ICE_SHAPE[0] * ICE_SHAPE[1]
+
+    def ice_xla(**kw):
+        return make_ice_model(seed, run_dir.name, aggregation="xla", fused_gates=False,
+                              remat=True, **{"dtype": "bfloat16", **kw})
+
+    model = ice_xla()
+    cfg, gcfg = model.cfg, model.gcfg
+    check(cfg.compute_dtype == "bfloat16" and not cfg.fused_gates and model.model.remat == "full"
+          and gcfg.aggregation == "xla" and gcfg.pixelwise and gcfg.carry_edges
+          and (gcfg.n_max, gcfg.e_max) == (p, 4 * p),
+          f"ice-xla configuration: {cfg}, {gcfg}")
+    clim0 = model._clim_batch(clim, data.launch_dates[:1])
+    model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    got = {}
+    t0 = time.perf_counter()
+    edge_fwd_peak = peak_above_start_gib(lambda: got.update(
+        y=model.predict(DataLoader(windows(0, 1)), climatology=clim, mask=mask)))
+    edge_forecast_s = time.perf_counter() - t0
+    edge_fwd, edge_fwd_f32 = nonzero(launch_totals(modules)), f32_launches()
+    k7_fwd = expected_edge_launches(cfg, ICE_T_OUT)
+    check(bool(np.isfinite(got["y"]).all()) and model.last_overflow == 0,
+          f"ice-xla forecast: finite {bool(np.isfinite(got['y']).all())}, "
+          f"overflow {model.last_overflow}")
+    # K7 only; in bf16 but the node counts, a sum of f32 ones
+    check(edge_fwd == {"segment_sum": k7_fwd} and edge_fwd_f32 == {"segment_sum": 1},
+          f"ice-xla forecast launches {edge_fwd} (f32 {edge_fwd_f32}), expected K7 {k7_fwd}")
+    # K7 in bf16 on the edge list's sets: a forecast's, a short step's
+    with SegmentCapture(segment, p, keep=True, dtype=bf16) as cap:
+        model.forecast(x0, mask=mask, climatology=clim0)
+    del model, got
+    short = ice_xla(t_out=ICE_SHORT_T_OUT)
+    short.initiate_training(lr=LR, lr_decay=0.95)
+    y_s, clim_s = y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]
+    with SegmentCapture(segment, p, keep=True, dtype=bf16) as cap_t:
+        ice_step(short, (x0, y_s, clim_s))
+    del short
+    sets = {**cap_t.ops, **cap.ops}  # the forecast's operands where it has the set
+    k7_rows = [k7_measure(segment_sum, key, sets[key], cap_t.calls.get(key, 0), BF16_TOL)
+               for key in sorted(sets)]
+    check({"dst", "src", "pixel"} <= {w["ids"] for w in k7_rows}
+          and {256, 32, 1} <= {w["F"] for w in k7_rows if w["ids"] == "dst"}
+          and all(w["dtype"] == "bfloat16" for w in k7_rows),
+          f"K7 bf16 operand sets {[(w['ids'], w['F'], w['dtype']) for w in k7_rows]}")
+    del cap, cap_t, sets
+    torch.cuda.empty_cache()
+    # one full-BPTT step (T_out 90) at the defaults: launches, peak, time
+    trainer = ice_xla()
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    reset()
+    step = {}
+    t0 = time.perf_counter()
+    edge_peak = peak_above_start_gib(lambda: step.update(out=ice_step(trainer, batch0)))
+    edge_step_s = time.perf_counter() - t0
+    edge_train, edge_train_f32 = nonzero(launch_totals(modules)), f32_launches()
+    k7_train = expected_edge_launches(cfg, ICE_T_OUT, train=True) \
+        + _attention_calls(cfg, ICE_T_OUT)  # the replays' aggregations
+    check(bool(torch.isfinite(step["out"][0])) and int(step["out"][1]) == 0,
+          f"ice-xla step: loss {float(step['out'][0])}, overflow {int(step['out'][1])}")
+    check(edge_train == {"segment_sum": k7_train} and edge_train_f32 == {"segment_sum": 1},
+          f"ice-xla step launches {edge_train} (f32 {edge_train_f32}), expected K7 {k7_train}")
+    check(all(q.dtype == q.grad.dtype == torch.float32 for q in trainer.model.parameters()),
+          "an ice-xla master weight or gradient is not float32")
+    edge_loss = float(step["out"][0])
+    t0 = time.perf_counter()
+    float(ice_step(trainer, batch1)[0])
+    edge_step2_s = time.perf_counter() - t0
+    del trainer, step
+    torch.cuda.empty_cache()
+    # a bf16 step against an f32 step from the same weights and generator
+    # (T_out 6), each on K7 and on its plain version. Gated by the plain
+    # path's own bf16-vs-f32 spread, as phase 34 gates: the bf16 kernel step
+    # no further from the bf16 plain step than that spread, and no further
+    # from the f32 kernel step than twice it; the bf16 losses of the kernel
+    # and the plain step within 1e-2 of each other
+    short_batch = (x0, y_s, clim_s)
+
+    def short_step(dtype, plain):
+        tr = ice_xla(t_out=ICE_SHORT_T_OUT, dtype=dtype)
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        ctx = (mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain) if plain
+               else contextlib.nullcontext())
+        with ctx:
+            loss, _ = ice_step(tr, short_batch, torch.Generator(device=DEVICE).manual_seed(1))
+        return float(loss), grads_of(tr)
+
+    pair = {(d, plain): short_step(d, plain) for d in ("bfloat16", "float32")
+            for plain in (False, True)}
+    spread = {"kernel_vs_plain_bf16": _leaf_err(pair["bfloat16", False][1],
+                                                pair["bfloat16", True][1]),
+              "plain_bf16_vs_f32": _leaf_err(pair["bfloat16", True][1],
+                                             pair["float32", True][1]),
+              "kernel_bf16_vs_f32": _leaf_err(pair["bfloat16", False][1],
+                                              pair["float32", False][1]),
+              "kernel_vs_plain_f32": _leaf_err(pair["float32", False][1],
+                                               pair["float32", True][1])}
+    losses = {f"{d}_{'plain' if plain else 'kernel'}": v[0] for (d, plain), v in pair.items()}
+    del pair
+    check(spread["kernel_vs_plain_bf16"] <= spread["plain_bf16_vs_f32"]
+          and spread["kernel_bf16_vs_f32"] <= 2 * spread["plain_bf16_vs_f32"]
+          and abs(losses["bfloat16_kernel"] - losses["bfloat16_plain"])
+          <= 1e-2 * abs(losses["bfloat16_plain"]),
+          f"ice-xla bf16 step against f32: {spread}, losses {losses}")
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "ice_xla_defaults", "card": card, "mesh": "edge_list", "dtype": "bfloat16",
+        "fused_gates": False, "remat": "full", "t_out": ICE_T_OUT, "truncated_backprop": 0,
+        "n_max": gcfg.n_max, "e_max": gcfg.e_max, "s_per_forecast": edge_forecast_s,
+        "forecast_peak_above_start_gib": edge_fwd_peak, "forecast_launches": edge_fwd,
+        "forecast_f32_launches": edge_fwd_f32, "loss": edge_loss, "overflow": 0,
+        "step_s": [edge_step_s, edge_step2_s], "step_peak_above_start_gib": edge_peak,
+        "launches_per_step": edge_train, "f32_launches_per_step": edge_train_f32,
+        "k7_bf16_by_set": k7_rows, "bf16_vs_f32": {"t_out": ICE_SHORT_T_OUT,
+                                                   "max_leaf_err_rel": spread,
+                                                   "losses": losses},
+    }), flush=True)
+    run_dir.cleanup()
+    return {"gcn_forecast": out43["forecast"], "gcn_steps": out43["steps"],
+            "k2_gcn": out43["k2"], "k2b_gcn": out43["k2b"], "k7_edge_bf16": k7_rows,
+            "edge_bf16_forecast": edge_fwd, "edge_bf16_train": edge_train}
+
+
+def add_gcn_paths(entries, gcn: dict, dtype: str) -> None:
+    """Adds the GCN main path (phase 43) to the kernels line's K1, K2, K2b
+    and K7 entries of ``dtype``: its launches a forecast batch and a train
+    step (remat none; bf16 entries count their bf16 launches, which are
+    all but K7's node counts), and K2's and K2b's rows at GCN's widths
+    (``gcn_by_width``)."""
+    forecast = gcn["gcn_forecast"][dtype]
+    step = gcn["gcn_steps"][dtype]["none"]
+    rows = {"spmm_apply": gcn["k2_gcn"][dtype], "spmm_apply_bwd": gcn["k2b_gcn"][dtype]}
+    for entry in entries:
+        name = entry["name"].removesuffix("_bf16")
+        if name not in ("spmm_build_blocks", "spmm_apply", "spmm_apply_bwd", "segment_sum"):
+            continue
+        for path, counts, f32 in (("gcn_predict_batch", forecast["launches"],
+                                   forecast["f32_launches"]),
+                                  ("gcn_train_step", step["launches_per_step"],
+                                   step["f32_launches_per_step"])):
+            n = counts.get(name, 0)
+            entry["launches_by_path"][path] = n - f32.get(name, 0) if dtype == "bfloat16" else n
+        if name in rows:
+            entry["gcn_by_width"] = rows[name]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3250,6 +3711,7 @@ def main() -> int:
     bf16_attn_kernels, k7_attn_bf16_sets = bf16_attn_phases(
         args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     bench = bench_default_phases(args.seed, card, spmm, attn, grid_attn, segment_sum)
+    gcn = gcn_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     for k in bf16_attn_kernels:  # the per-gate flagship's K5/K6 (phase 40)
         name = k["name"].removesuffix("_bf16")
         if name.startswith("grid_attn"):
@@ -3264,6 +3726,14 @@ def main() -> int:
         [dict(w, path="transformer_conv") for w in k7_attn_bf16_sets]
         + [dict(w, path="mesh_density") for w in k7_mesh if w["dtype"] == "bfloat16"])
     k7_bf16["ms_by_path"]["transformer_conv"] = k7_path_means(k7_attn_bf16_sets)
+    # the ice-xla path at bench.py's defaults (phase 45): K7 in bf16 on the
+    # edge list's sets; its node counts (1 a forecast and a step) stay f32
+    k7_bf16["by_operand_set"] += [dict(w, path="edge_list") for w in gcn["k7_edge_bf16"]]
+    k7_bf16["ms_by_path"]["edge_list"] = k7_path_means(gcn["k7_edge_bf16"])
+    k7_bf16["launches_by_path"]["ice_xla_predict"] = \
+        gcn["edge_bf16_forecast"]["segment_sum"] - 1
+    k7_bf16["launches_by_path"]["ice_xla_train_step"] = gcn["edge_bf16_train"]["segment_sum"] - 1
+    add_gcn_paths(bf16_kernels, gcn, "bfloat16")
     bf16_kernels += bf16_attn_kernels
 
     # ---- phase 19: the kernels line
@@ -3384,6 +3854,7 @@ def main() -> int:
             f"grid_train_{ICE_TRAIN_STEPS}_steps": grid_train_launches["segment_sum"],
             "ice_quadtree_predict": bench["quadtree_forecast"]["segment_sum"],
             "ice_quadtree_train_step": bench["quadtree_train"]["segment_sum"]}))
+    add_gcn_paths(kernels, gcn, "float32")
     for k in kernels:
         k["dtype"] = "float32"
     print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)

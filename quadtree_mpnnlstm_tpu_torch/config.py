@@ -166,20 +166,21 @@ class ModelConfig:
 
     ``input_features`` counts raw channels only; positional encoding (2)
     and node size (1) are appended internally. The port runs the
-    ChebConv or TransformerConv GConvLSTM, with a remesh at every decoder
-    step on quadtree meshes and a fixed mesh on the pixelwise mesh;
+    GCNConv, ChebConv or TransformerConv GConvLSTM, with a remesh at every
+    decoder step on quadtree meshes and a fixed mesh on the pixelwise mesh;
     ``fused_gates=False`` keeps the JAX package's per-gate parameter
     layout (``models/fused.py``);
     :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
     rejects other values of ``convolution_type``, ``rnn_type`` and
-    ``remesh_every``. ``compute_dtype="bfloat16"`` is
-    mixed precision: the graph pipeline, the convolutions and the
-    recurrence run in bf16, the master parameters stay float32 and are cast
-    at use, and LayerNorm statistics, the predictions leaving the model and
-    the loss are float32. It runs ChebConv on quadtree meshes (Â blocks or
-    an edge list), TransformerConv on quadtree attention windows, and both
-    convs on the pixelwise grid; it is not ported on the pixelwise edge
-    list or for TransformerConv on an edge list, which Seq2Seq rejects.
+    ``remesh_every``. GCNConv and ChebConv run on quadtree Â blocks
+    (``aggregation="pallas"``), quadtree or pixelwise edge lists
+    (``"xla"``) and the pixelwise grid (``"grid"``); TransformerConv on
+    quadtree attention windows (``"pallas"``), edge lists and the grid.
+    ``compute_dtype="bfloat16"`` is mixed precision: the graph pipeline,
+    the convolutions and the recurrence run in bf16, the master parameters
+    stay float32 and are cast at use, and LayerNorm statistics, the
+    predictions leaving the model and the loss are float32. It runs every
+    one of those convs on every one of those meshes, fused or per-gate.
     ``dropout`` is the decoder head's; attention convolutions drop
     attention weights at their own fixed rate (``models/conv.py``
     ``CONVOLUTION_KWARGS``).
@@ -192,8 +193,7 @@ class ModelConfig:
     output_timesteps: int = 5
     n_layers: int = 1
     n_conv_layers: int = 3
-    # the JAX package's default; not ported yet, so a model names its conv
-    convolution_type: str = "GCNConv"
+    convolution_type: str = "GCNConv"  # the JAX package's default
     rnn_type: str = "LSTM"
     binary: bool = False
     remesh_every: int = 1

@@ -10,6 +10,7 @@ activation is the cell's "output", read by the decoder head.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import torch
@@ -24,14 +25,16 @@ from quadtree_mpnnlstm_tpu_torch.models.fused import (
     attn_gate_streams,
     cheb_gate_streams,
     fused_from_per_gate,
+    gcn_gate_streams,
 )
 
-GATE_STACKS = {"ChebConv": FusedGateConvStack, "TransformerConv": FusedAttnGateStack}
+GATE_STACKS = {"GCNConv": partial(FusedGateConvStack, convolution_type="GCNConv"),
+               "ChebConv": FusedGateConvStack, "TransformerConv": FusedAttnGateStack}
 
 
 class GConvLSTM(nn.Module):
     """Peephole graph-conv LSTM with the fused gate stack of its
-    convolution type (ChebConv or TransformerConv), or with
+    convolution type (GCNConv, ChebConv or TransformerConv), or with
     ``fused_gates=False`` the JAX package's per-gate parameters
     (``conv_x``/``conv_h``, :class:`PerGateStack`) run through the same
     fused arithmetic. ``dtype`` is the gate stack's compute dtype;
@@ -80,6 +83,8 @@ class GConvLSTM(nn.Module):
         if self.fused_gates:
             return self.gates(x, h, graph, generator)
         params = fused_from_per_gate(self.conv_x, self.conv_h, self.convolution_type).__getitem__
+        if self.convolution_type == "GCNConv":
+            return gcn_gate_streams(x, h, graph, params, 4, self.n_conv_layers, self.dtype)
         if self.convolution_type == "ChebConv":
             kw = CONVOLUTION_KWARGS["ChebConv"]
             return cheb_gate_streams(x, h, graph, params, 4, kw["K"], 2.0,  # ChebConv's λmax

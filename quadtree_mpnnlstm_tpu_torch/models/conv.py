@@ -1,21 +1,23 @@
 """Graph convolutions over per-sample padded meshes.
 
 Counterpart of ``quadtree_mpnnlstm_tpu/models/conv.py``: the symmetric
-normalisation, the ``Â z`` dispatch, ``ChebConv`` (K=3, 'sym' laplacian,
-lambda_max=2), the attention-window, grid and edge-list branches of
-``multi_stream_attention`` and ``TransformerConv`` (heads=1, edge_dim=2,
-attention dropout 0.1, concat off in the registry). Node tensors are
-(B, n_max, F). Every conv takes ``(x, graph, generator)``; attention
-dropout draws its keep windows (or planes, or per-edge hashes) from
-``generator`` in training mode (``module.train()``) only.
+normalisation, the ``Â z`` dispatch, ``GCNConv`` (no self-loops, the
+symmetric degree norm with the distance column as edge weight),
+``ChebConv`` (K=3, 'sym' laplacian, lambda_max=2), the attention-window,
+grid and edge-list branches of ``multi_stream_attention`` and
+``TransformerConv`` (heads=1, edge_dim=2, attention dropout 0.1, concat
+off in the registry). Node tensors are (B, n_max, F). Every conv takes
+``(x, graph, generator)``; attention dropout draws its keep windows (or
+planes, or per-edge hashes) from ``generator`` in training mode
+(``module.train()``) only. Every conv and every branch runs in the
+compute dtype it is given (f32 or bf16).
 
 Not ported yet: the batch-middle (shared-mesh) layout, the α side channel
-(``sow``), ``MHTransformerConv``, GCN and the GAT family.
+(``sow``), ``MHTransformerConv`` and the GAT family.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
@@ -65,6 +67,28 @@ def a_mul(z: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
         _, nt, _eb, sw = graph.agg
         return spmm.spmm_apply(z, graph.agg_meta, graph.n_max, nt, sw)
     return aggregate_to_dst(graph.sym_coeff[..., None].to(z.dtype) * gather_src(z, graph), graph)
+
+
+class GCNConv(nn.Module):
+    """Kipf-Welling GCN layer without self-loop insertion: ``Â (x W) +
+    b``, with Â the symmetric-normalised adjacency of :func:`a_mul` (the
+    Â blocks, the grid's stencil or the edge list). Parameters follow the
+    flax module: ``lin`` (no bias) and ``bias``. ``dtype`` is the compute
+    dtype: the input and each float32 master parameter are cast to it at
+    use, as flax's ``dtype`` does."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.lin = nn.Linear(in_channels, out_channels, bias=False)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def forward(self, x: torch.Tensor, graph: GraphTensors,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = nn.functional.linear(x.to(self.dtype), self.lin.weight.to(self.dtype))
+        out = a_mul(h, graph)
+        return out + self.bias.to(out.dtype)
 
 
 class ChebConv(nn.Module):
@@ -163,15 +187,19 @@ def edge_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.
     ``edge_attr · Wₑ`` to keys and values, take per-head logits ``q·(k +
     e)/√d``, the masked edge softmax, the keep-scales (B, E, heads) when
     given, and sum ``α·(v + e)`` at the destinations (kernel K7 on a CUDA
-    tensor). Returns (B, n_max, heads, d)."""
+    tensor). Everything runs in q's dtype: the keep-scales are cast to it,
+    as the JAX package casts them to α's, so a bf16 call keeps its
+    messages and their sum in bf16. Returns (B, n_max, heads, d)."""
     b, n = q.shape[:2]
     qh, kh, vh = (x.reshape(b, n, heads, d) for x in (q, k, v))
     e = (graph.edge_attr.to(q.dtype) @ we).reshape(b, -1, heads, d)
     kj = gather_src(kh, graph) + e
     vj = gather_src(vh, graph) + e
-    logits = (gather_dst(qh, graph) * kj).sum(dim=-1) / math.sqrt(d)
+    # √d in q's dtype, as the JAX branch takes it (jnp.sqrt of d in that dtype)
+    root_d = float(torch.tensor(float(d), dtype=q.dtype).sqrt())
+    logits = (gather_dst(qh, graph) * kj).sum(dim=-1) / root_d
     alpha = edge_softmax(logits, graph.edge_dst, graph.edge_valid, n)
-    used = alpha if keep is None else alpha * keep
+    used = alpha if keep is None else alpha * keep.to(alpha.dtype)
     return aggregate_to_dst(used[..., None] * vj, graph)
 
 
@@ -282,8 +310,9 @@ class TransformerConv(nn.Module):
 
 
 # registry (parity: the JAX package's CONVOLUTIONS / CONVOLUTION_KWARGS)
-CONVOLUTIONS = {"ChebConv": ChebConv, "TransformerConv": TransformerConv}
+CONVOLUTIONS = {"GCNConv": GCNConv, "ChebConv": ChebConv, "TransformerConv": TransformerConv}
 CONVOLUTION_KWARGS = {
+    "GCNConv": {},
     "ChebConv": dict(K=3),
     "TransformerConv": dict(heads=1, edge_dim=2, dropout=0.1, concat=False),
 }

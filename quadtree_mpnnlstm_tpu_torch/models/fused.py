@@ -1,22 +1,25 @@
 """Fused multi-gate graph convolutions.
 
-Counterpart of ``FusedGateConvStack`` (ChebConv branch) and
-``FusedAttnGateStack`` (TransformerConv branch) in
+Counterpart of ``FusedGateConvStack`` (GCNConv and ChebConv branches)
+and ``FusedAttnGateStack`` (TransformerConv branch) in
 ``quadtree_mpnnlstm_tpu/models/fused.py``. A GConvLSTM evaluates
-``conv_x_g(X) + conv_h_g(H)`` for four gates. The Chebyshev polynomials
-depend only on the stack input, so layer 0 computes the K tensors once on
-``[X ‖ H]`` for all gates and both sides and applies per-gate weights as
-einsums, and deeper layers aggregate once per tap over all 2·G streams.
-Attention coefficients depend on each stream, so there the 2·G streams run
-as extra heads of one attention call per conv layer.
+``conv_x_g(X) + conv_h_g(H)`` for four gates. The aggregation Â·z is
+weight-free and feature-wise linear, so parallel streams share it by
+feature concatenation. The Chebyshev polynomials depend only on the stack
+input, so layer 0 computes the K tensors once on ``[X ‖ H]`` for all gates
+and both sides and applies per-gate weights as einsums, and deeper layers
+aggregate once per tap over all 2·G streams. GCN applies each stream's
+weights first and then aggregates all 2·G streams in one Â·z per conv
+layer. Attention coefficients depend on each stream, so there the 2·G
+streams run as extra heads of one attention call per conv layer.
 
 The per-gate layout (``fused_gates=False``: the JAX package's vmapped
 ``conv_x``/``conv_h`` stacks of ``models/cells.py`` ``gate_conv_module``,
 each leaf with a leading gate axis) keeps its own parameters
 (:class:`PerGateStack`) and runs through the same arithmetic: its weights
 are stacked into the fused layout at every call (:func:`fused_from_per_gate`),
-so a cell launches one Â·z per Chebyshev tap or one attention call per
-conv layer for all gates, not one per gate. The JAX package's
+so a cell launches one Â·z per Chebyshev tap or GCN layer, or one
+attention call per conv layer, for all gates, not one per gate. The JAX package's
 ``tests/test_fused.py`` proves the two layouts equal by transplanting
 weights.
 """
@@ -81,6 +84,37 @@ def cheb_gate_streams(x: torch.Tensor, h: torch.Tensor, graph: GraphTensors,
     return streams[:g] + streams[g:]
 
 
+def gcn_gate_streams(x: torch.Tensor, h: torch.Tensor, graph: GraphTensors,
+                     param: Callable[[str], torch.Tensor], n_gates: int, n_layers: int,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``conv_x_g(X) + conv_h_g(H)`` for ``n_gates`` GCNConv gate stacks:
+    each stream's weights first, then one Â·z over all 2·G streams side by
+    side (width 2·G·d) per conv layer, from the fused-layout parameters
+    that ``param(name)`` returns (``w_x_0`` (g, fx, d), ``w_h_0`` (g, fh,
+    d), ``b_x_0`` (g, d), ``b_h_0``, then ``w_l`` (2g, d, d), ``b_l`` (2g,
+    d)). x, h and every parameter are cast to ``dtype`` at use. Returns
+    (n_gates, B, N, d)."""
+    g = n_gates
+    b, n = x.shape[:2]
+    x, h = x.to(dtype), h.to(dtype)
+
+    def p(name):  # a master parameter in the compute dtype
+        return param(name).to(dtype)
+
+    def aggregate(u, bias):  # (B, N, s, d) → Â per stream + bias, (s, B, N, d)
+        s, d = u.shape[2:]
+        return a_mul(u.reshape(b, n, s * d), graph).reshape(b, n, s, d).permute(2, 0, 1, 3) \
+            + bias[:, None, None]
+
+    u = torch.cat([torch.einsum("bnf,gfo->bngo", x, p("w_x_0")),
+                   torch.einsum("bnf,gfo->bngo", h, p("w_h_0"))], dim=2)  # (B, N, 2g, d)
+    streams = aggregate(u, torch.cat([p("b_x_0"), p("b_h_0")]))
+    for layer in range(1, n_layers):
+        u = torch.einsum("sbnd,sdo->bnso", streams, p(f"w_{layer}"))
+        streams = aggregate(u, p(f"b_{layer}"))
+    return streams[:g] + streams[g:]
+
+
 def attn_gate_streams(x: torch.Tensor, h: torch.Tensor, graph: GraphTensors,
                       param: Callable[[str], torch.Tensor], n_gates: int, n_layers: int,
                       dropout: float, training: bool, generator: Optional[torch.Generator],
@@ -136,31 +170,42 @@ def attn_gate_streams(x: torch.Tensor, h: torch.Tensor, graph: GraphTensors,
 
 class FusedGateConvStack(nn.Module):
     """``conv_x_g(X) + conv_h_g(H)`` for ``n_gates`` gates with shared
-    aggregations (:func:`cheb_gate_streams`). Returns (n_gates, B, N,
-    out_channels). Parameter names and shapes follow the flax module
-    (``w_x_0`` (g, K, fx, d), ``w_h_0``, ``b_x_0`` (g, d), ``b_h_0``, then
-    ``w_l`` (2g, K, d, d), ``b_l``). ``dtype`` is the compute dtype: x, h
-    and each float32 master parameter are cast to it at use, as flax's
-    ``dtype`` does."""
+    aggregations, ChebConv (:func:`cheb_gate_streams`) or GCNConv
+    (:func:`gcn_gate_streams`, ``convolution_type="GCNConv"``). Returns
+    (n_gates, B, N, out_channels). Parameter names and shapes follow the
+    flax module: ChebConv ``w_x_0`` (g, K, fx, d), ``w_h_0``, ``b_x_0`` (g,
+    d), ``b_h_0``, then ``w_l`` (2g, K, d, d), ``b_l``; GCNConv the same
+    without the tap axis K. ``dtype`` is the compute dtype: x, h and each
+    float32 master parameter are cast to it at use, as flax's ``dtype``
+    does."""
 
     def __init__(self, x_channels: int, h_channels: int, out_channels: int,
                  n_layers: int = 1, n_gates: int = 4, K: int = 3,
-                 lambda_max: float = 2.0, dtype: torch.dtype = torch.float32):
+                 lambda_max: float = 2.0, dtype: torch.dtype = torch.float32,
+                 convolution_type: str = "ChebConv"):
         super().__init__()
+        if convolution_type not in ("GCNConv", "ChebConv"):
+            raise ValueError(f"FusedGateConvStack runs GCNConv or ChebConv, not "
+                             f"{convolution_type!r}")
         g, d = n_gates, out_channels
+        self.convolution_type = convolution_type
         self.n_gates, self.K, self.n_layers = g, K, n_layers
         self.lambda_max = lambda_max
         self.dtype = dtype
-        self.w_x_0 = nn.Parameter(torch.zeros(g, K, x_channels, d))
-        self.w_h_0 = nn.Parameter(torch.zeros(g, K, h_channels, d))
+        taps = (K,) if convolution_type == "ChebConv" else ()
+        self.w_x_0 = nn.Parameter(torch.zeros(g, *taps, x_channels, d))
+        self.w_h_0 = nn.Parameter(torch.zeros(g, *taps, h_channels, d))
         self.b_x_0 = nn.Parameter(torch.zeros(g, d))
         self.b_h_0 = nn.Parameter(torch.zeros(g, d))
         for layer in range(1, n_layers):
-            self.register_parameter(f"w_{layer}", nn.Parameter(torch.zeros(2 * g, K, d, d)))
+            self.register_parameter(f"w_{layer}", nn.Parameter(torch.zeros(2 * g, *taps, d, d)))
             self.register_parameter(f"b_{layer}", nn.Parameter(torch.zeros(2 * g, d)))
 
     def forward(self, x: torch.Tensor, h: torch.Tensor, graph: GraphTensors,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.convolution_type == "GCNConv":
+            return gcn_gate_streams(x, h, graph, partial(getattr, self), self.n_gates,
+                                    self.n_layers, self.dtype)
         return cheb_gate_streams(x, h, graph, partial(getattr, self), self.n_gates, self.K,
                                  self.lambda_max, self.n_layers, self.dtype)
 
@@ -224,14 +269,17 @@ class GateLinear(nn.Module):
 
 class _PerGateLayer(nn.Module):
     """One conv layer of a per-gate stack: the flax conv's parameters with
-    a leading gate axis. ChebConv: ``lin_0`` … ``lin_{K-1}`` (no bias) and
-    ``bias`` (g, d); TransformerConv: ``lin_query``, ``lin_key``,
-    ``lin_value``, ``lin_skip`` (with bias) and ``lin_edge`` (A → d, no
-    bias)."""
+    a leading gate axis. GCNConv: ``lin`` (no bias) and ``bias`` (g, d);
+    ChebConv: ``lin_0`` … ``lin_{K-1}`` (no bias) and ``bias`` (g, d);
+    TransformerConv: ``lin_query``, ``lin_key``, ``lin_value``,
+    ``lin_skip`` (with bias) and ``lin_edge`` (A → d, no bias)."""
 
     def __init__(self, convolution_type: str, n_gates: int, in_channels: int, d: int):
         super().__init__()
-        if convolution_type == "ChebConv":
+        if convolution_type == "GCNConv":
+            self.lin = GateLinear(n_gates, in_channels, d, bias=False)
+            self.bias = nn.Parameter(torch.zeros(n_gates, d))
+        elif convolution_type == "ChebConv":
             for k in range(CONVOLUTION_KWARGS["ChebConv"]["K"]):
                 self.add_module(f"lin_{k}", GateLinear(n_gates, in_channels, d, bias=False))
             self.bias = nn.Parameter(torch.zeros(n_gates, d))
@@ -276,17 +324,20 @@ def fused_from_per_gate(conv_x: PerGateStack, conv_h: PerGateStack,
     ``tests/test_fused.py`` transplant)."""
     out = {}
     sides = (("x", conv_x), ("h", conv_h))
-    if convolution_type == "ChebConv":
+    if convolution_type in ("GCNConv", "ChebConv"):
         k_taps = CONVOLUTION_KWARGS["ChebConv"]["K"]
 
-        def taps(layer):  # (g, K, in, d)
+        def weight(layer):  # GCN (g, in, d); Chebyshev (g, K, in, d)
+            if convolution_type == "GCNConv":
+                return layer.lin.kernel()
             return torch.stack([getattr(layer, f"lin_{k}").kernel() for k in range(k_taps)], 1)
 
         for side, stack in sides:
-            out[f"w_{side}_0"] = taps(stack.conv(0))
+            out[f"w_{side}_0"] = weight(stack.conv(0))
             out[f"b_{side}_0"] = stack.conv(0).bias
         for layer in range(1, conv_x.n_layers):
-            out[f"w_{layer}"] = torch.cat([taps(conv_x.conv(layer)), taps(conv_h.conv(layer))])
+            out[f"w_{layer}"] = torch.cat([weight(conv_x.conv(layer)),
+                                           weight(conv_h.conv(layer))])
             out[f"b_{layer}"] = torch.cat([conv_x.conv(layer).bias, conv_h.conv(layer).bias])
         return out
     for short, lin in _ATTN_LINEARS:

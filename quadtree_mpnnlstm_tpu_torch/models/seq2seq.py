@@ -26,10 +26,10 @@ Reference quirks kept from the JAX package:
     node_size]`` on the same mesh, and a teacher-forced step appends the
     *raw pixel count* as the size channel, not ``resolution**2``.
 
-``ModelConfig.compute_dtype="bfloat16"`` (ChebConv on quadtree meshes or
-the pixelwise grid; TransformerConv on attention windows or the grid)
-casts the inputs to bf16 before the positional encoding, as the JAX
-package's compute boundary does; the graph build, node features,
+``ModelConfig.compute_dtype="bfloat16"`` (every ported conv on every
+mesh: Â blocks, attention windows, edge lists and the grid) casts the
+inputs to bf16 before the positional encoding, as the JAX package's
+compute boundary does; the graph build, node features,
 convolutions, attention and recurrence then run in bf16 (f32 masters cast
 at use), LayerNorm normalises in f32, and ``decode`` returns its frames in
 f32.
@@ -171,33 +171,19 @@ class _Replay:
         return replay
 
 
-def _check_supported(cfg: ModelConfig, gcfg: GraphConfig) -> None:
-    if cfg.convolution_type == "GCNConv":
-        raise ValueError(
-            "ModelConfig.convolution_type='GCNConv' (the default, as in the JAX package) is not "
-            "ported yet (ROADMAP Queue 1 item 6); name the conv, e.g. ChebConv or "
-            "TransformerConv")
+def _check_supported(cfg: ModelConfig) -> None:
     supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=("LSTM",),
                      fused_gates=(True, False), remesh_every=(1,),
                      compute_dtype=("float32", "bfloat16"))
+    # the ROADMAP Queue 1 item that ports the other values
+    item = dict(convolution_type=7, rnn_type=7, remesh_every=8)
     for field, values in supported.items():
         if getattr(cfg, field) not in values:
             raise ValueError(
-                f"ModelConfig.{field}={getattr(cfg, field)!r} is not ported; "
-                f"this path runs {field} in {values!r}"
+                f"ModelConfig.{field}={getattr(cfg, field)!r} is not ported"
+                + (f" (ROADMAP Queue 1 item {item[field]})" if field in item else "")
+                + f"; this path runs {field} in {values!r}"
             )
-    if cfg.compute_dtype == "bfloat16":
-        # bf16 runs on the kernels' meshes: Â blocks or edge lists (ChebConv)
-        # and attention windows (TransformerConv) on quadtrees, the grid on
-        # the pixelwise mesh; the edge-list attention is still to port
-        edge_list = (gcfg.aggregation == "xla" if gcfg.pixelwise else
-                     cfg.convolution_type == "TransformerConv" and not gcfg.attn_windows)
-        if edge_list:
-            raise ValueError(
-                f"ModelConfig.compute_dtype='bfloat16' with {cfg.convolution_type} on the "
-                f"{'pixelwise' if gcfg.pixelwise else 'quadtree'} edge list is not ported "
-                "(ROADMAP Queue 1 item 2); bf16 runs on the grid (aggregation='grid') and, "
-                "with TransformerConv, on attention windows (attn_windows=True)")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
 
@@ -293,7 +279,7 @@ class Seq2Seq(nn.Module):
     def __init__(self, cfg: ModelConfig, gcfg: GraphConfig, use_climatology: bool = False,
                  remat=True, transform_func: Optional[Callable] = None):
         super().__init__()
-        _check_supported(cfg, gcfg)
+        _check_supported(cfg)
         self.cfg, self.gcfg = cfg, gcfg
         self.use_climatology = use_climatology
         self.remat = remat_mode(remat)

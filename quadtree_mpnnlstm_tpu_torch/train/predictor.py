@@ -140,11 +140,12 @@ class NextFramePredictorS2S:
         )
         if self.gcfg.aggregation == "pallas" and self.cfg.convolution_type == "TransformerConv":
             # attention convs ride the attention windows (ops/attn.py), not
-            # the Cheb Â blocks
+            # the GCN/Cheb Â blocks
             self.gcfg = self.gcfg.replace(attn_windows=True)
-        if not carry_edges_explicit and self.gcfg.aggregation == "pallas":
+        if (not carry_edges_explicit and self.gcfg.aggregation == "pallas"
+                and self.cfg.convolution_type in ("GCNConv", "ChebConv", "TransformerConv")):
             # aggregation rides the Â blocks or attention windows; the edge
-            # list is dead weight
+            # list is dead weight (the JAX predictor's list of such convs)
             self.gcfg = self.gcfg.replace(carry_edges=False)
         # aggregation="grid" (the pixelwise mesh) builds no edge list and no
         # windows: the stencil reads the identity-mapped node planes;
@@ -164,8 +165,7 @@ class NextFramePredictorS2S:
 
     def load_jax_params(self, tree) -> None:
         """Load a flax parameter tree (numpy leaves) of the JAX package; a
-        per-gate TransformerConv tree loads into a fused model stacked
-        into its layout."""
+        per-gate tree loads into a fused model stacked into its layout."""
         self.model.load_state_dict(params_from_jax(tree, fuse_gates=self.cfg.fused_gates))
 
     def get_n_params(self) -> int:

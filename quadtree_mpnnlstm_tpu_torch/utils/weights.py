@@ -8,18 +8,19 @@ False``: vmapped ``conv_x``/``conv_h`` stacks, every leaf with a leading
 gate axis, as the JAX package's sea-ice experiments train pixelwise
 meshes); ``params_to_jax`` is its inverse, so a port checkpoint loads
 into the JAX package's model of the same layout. ``fuse_attn_gates``
-stacks a per-gate TransformerConv cell into the fused layout, for loading
-a per-gate tree into a fused model (``params_from_jax(..., fuse_gates=
+stacks a per-gate TransformerConv cell into the fused layout and
+``fuse_gcn_gates`` a per-gate GCNConv cell, for loading a per-gate tree
+into a fused model (``params_from_jax(..., fuse_gates=
 True)``). They read numpy arrays only.
 
 ``init_params`` is the port's own init with the JAX package's rules:
 glorot-uniform with fan-in/fan-out on the last two axes of the stacked
-gate weights (Chebyshev ``w_x_0``…, attention ``w_q_x_0``, ``w_e_1``…;
-leading axes are batch axes, as ``_glorot_batched``) and on (in, out) of
-every Dense kernel (``lin_0``…, ``lin_query``, ``lin_edge``, ``lin_skip``…,
-per gate slice in the per-gate layout, as the flax vmap initialises each
-gate); zero biases and peepholes; LayerNorm scale 1, bias 0. It draws from
-the caller's ``torch.Generator``.
+gate weights (GCN and Chebyshev ``w_x_0``…, attention ``w_q_x_0``,
+``w_e_1``…; leading axes are batch axes, as ``_glorot_batched``) and on
+(in, out) of every Dense kernel (GCN's ``lin``, ``lin_0``…, ``lin_query``,
+``lin_edge``, ``lin_skip``…, per gate slice in the per-gate layout, as the
+flax vmap initialises each gate); zero biases and peepholes; LayerNorm
+scale 1, bias 0. It draws from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from torch import nn
 
 _GATE_WEIGHT = re.compile(r"\.gates\.w_[a-z0-9_]+$")
-_LIN_WEIGHT = re.compile(r"\.lin_[a-z0-9]+\.weight$")
+_LIN_WEIGHT = re.compile(r"\.lin(_[a-z0-9]+)?\.weight$")
 _NORM_WEIGHT = re.compile(r"norm_[a-z]+\.weight$")
 
 
@@ -97,9 +98,9 @@ def fuse_attn_gates(cell: Mapping) -> Dict:
     Peepholes and gate biases pass through."""
     cx, ch = cell["conv_x"], cell["conv_h"]
     if "lin_query" not in cx["conv_0"]:
-        raise ValueError("fuse_attn_gates converts TransformerConv cells; a per-gate cell of "
-                         "another convolution loads as it is into a fused_gates=False model "
-                         "(params_from_jax)")
+        raise ValueError("fuse_attn_gates converts TransformerConv cells (fuse_gcn_gates "
+                         "GCNConv cells); a per-gate cell of another convolution loads as it is "
+                         "into a fused_gates=False model (params_from_jax)")
     fused = {}
     for short, lin in _ATTN_LINEARS:
         for side, tree in (("x", cx), ("h", ch)):
@@ -122,10 +123,45 @@ def fuse_attn_gates(cell: Mapping) -> Dict:
     return out
 
 
+def fuse_gcn_gates(cell: Mapping) -> Dict:
+    """A per-gate GCNConv ``GConvLSTM`` tree (``conv_x``/``conv_h``:
+    ``conv_l/lin/kernel`` (4, in, d) and ``conv_l/bias`` (4, d)) → the
+    fused ``gates`` layout of ``FusedGateConvStack``, as the JAX package's
+    ``tests/test_fused.py`` transplants it: ``w_x_0`` (4, fx, d),
+    ``b_x_0``, the same for H, and deeper layers with the X streams before
+    the H streams (``w_l`` (8, d, d), ``b_l``). Peepholes and gate biases
+    pass through."""
+    cx, ch = cell["conv_x"], cell["conv_h"]
+    if "lin" not in cx["conv_0"]:
+        raise ValueError("fuse_gcn_gates converts GCNConv cells; a per-gate TransformerConv "
+                         "cell is stacked by fuse_attn_gates")
+    fused = {}
+    for side, tree in (("x", cx), ("h", ch)):
+        fused[f"w_{side}_0"] = np.asarray(tree["conv_0"]["lin"]["kernel"])
+        fused[f"b_{side}_0"] = np.asarray(tree["conv_0"]["bias"])
+    layer = 1
+    while f"conv_{layer}" in cx:
+        lx, lh = cx[f"conv_{layer}"], ch[f"conv_{layer}"]
+        fused[f"w_{layer}"] = np.concatenate([np.asarray(lx["lin"]["kernel"]),
+                                              np.asarray(lh["lin"]["kernel"])], 0)
+        fused[f"b_{layer}"] = np.concatenate([np.asarray(lx["bias"]), np.asarray(lh["bias"])], 0)
+        layer += 1
+    out = {k: v for k, v in cell.items() if k not in ("conv_x", "conv_h")}
+    out["gates"] = fused
+    return out
+
+
+def _fuse_cell(cell: Mapping) -> Dict:
+    if "lin" in cell["conv_x"]["conv_0"]:
+        return fuse_gcn_gates(cell)
+    return fuse_attn_gates(cell)
+
+
 def _fused_layout(tree: Mapping) -> Dict:
     """``tree`` with every per-gate cell (``rnn_i`` holding ``conv_x``)
-    converted by :func:`fuse_attn_gates`."""
-    return {k: (fuse_attn_gates(v) if k.startswith("rnn_") and "conv_x" in v else v)
+    stacked into the fused layout (:func:`fuse_attn_gates`,
+    :func:`fuse_gcn_gates`)."""
+    return {k: (_fuse_cell(v) if k.startswith("rnn_") and "conv_x" in v else v)
             for k, v in tree.items()}
 
 
@@ -135,9 +171,9 @@ _SCANS = (("enc", "encoder"), ("dec", "decoder"))
 def params_from_jax(tree: Mapping, fuse_gates: bool = False) -> Dict[str, torch.Tensor]:
     """flax ``Seq2Seq`` variables (or their ``params`` sub-tree) → port
     ``Seq2Seq`` state_dict (f32 CPU tensors), leaf for leaf in the tree's
-    gate layout; with ``fuse_gates`` every per-gate TransformerConv cell
-    is stacked into the fused layout (:func:`fuse_attn_gates`), for a
-    fused model."""
+    gate layout; with ``fuse_gates`` every per-gate cell is stacked into
+    the fused layout (:func:`fuse_attn_gates`, :func:`fuse_gcn_gates`),
+    for a fused model."""
     if "params" in tree:
         tree = tree["params"]
     if set(tree) != {"enc", "dec"}:

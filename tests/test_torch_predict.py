@@ -3,6 +3,8 @@
 at every step, Â-block aggregation) in f32, deterministic, with the JAX
 weights carried over; ≤1e-4 max per pixel."""
 
+import re
+
 import numpy as np
 import pytest
 
@@ -115,31 +117,35 @@ def test_init_params_is_seeded():
 
 
 @pytest.mark.parametrize("model,graph,thresh,ported", [
-    (dict(convolution_type="GCNConv"), {}, 0.1, False),
+    (dict(convolution_type="GCNConv"), {}, 0.1, True),
     (dict(rnn_type="GRU"), {}, 0.1, False),
     (dict(remesh_every=2), {}, 0.1, False),
-    # bf16 runs TransformerConv on attention windows and both convs on the
-    # grid; the edge-list attention is still to port
     (dict(compute_dtype="bfloat16", convolution_type="TransformerConv"), {}, 0.1, True),
     (dict(compute_dtype="bfloat16"), dict(aggregation="grid", n_max=None, e_max=None,
                                           node_budget=None), float("-inf"), True),
     (dict(compute_dtype="bfloat16"), dict(aggregation="xla", n_max=None, e_max=None,
-                                          node_budget=None), float("-inf"), False),
+                                          node_budget=None), float("-inf"), True),
+    (dict(convolution_type="GATConv"), {}, 0.1, False),
 ], ids=["convolution_type-GCNConv", "rnn_type-GRU", "remesh_every-2",
         "compute_dtype-bfloat16-TransformerConv", "compute_dtype-bfloat16-grid",
-        "compute_dtype-bfloat16-edge-list"])
+        "compute_dtype-bfloat16-edge-list", "convolution_type-GATConv"])
 def test_unported_model_options_raise(model, graph, thresh, ported):
-    """Options the port does not run raise "not ported" by name. The two
-    bf16 options that ran into this check before (TransformerConv on
-    attention windows, ChebConv on the grid) are ported now: the predictor
-    builds and one forecast step on the CPU gives finite f32 frames."""
+    """Options the port does not run raise "not ported" by name, and a
+    conv names the ROADMAP item that ports it (Queue 1 item 7: GAT, GATv2,
+    MHTransformerConv). The options that ran into this check before and
+    are ported now (GCNConv, bf16 TransformerConv on attention windows,
+    bf16 on the grid and on the pixelwise edge list) build, and one
+    forecast step on the CPU gives finite f32 frames."""
     kw = dict(device="cpu", model_kwargs=dict(MODEL, **model), graph_kwargs=dict(GRAPH, **graph))
     if not ported:
-        with pytest.raises(ValueError, match="not ported"):
+        match = "not ported (ROADMAP Queue 1 item 7)" if "convolution_type" in model \
+            else "not ported"
+        with pytest.raises(ValueError, match=re.escape(match)):
             NextFramePredictorS2S(SHAPE, thresh, **kw)
         return
     tp = NextFramePredictorS2S(SHAPE, thresh, input_timesteps=2, output_timesteps=1, **kw)
-    assert tp.cfg.compute_dtype == "bfloat16"
+    for field, value in model.items():
+        assert getattr(tp.cfg, field) == value, field
     x = np.random.default_rng(0).random((1, 2, *SHAPE, 1)).astype(np.float32)
     y, _, _ = tp.forecast(x)
     assert y.dtype == torch.float32 and y.shape == (1, 1, *SHAPE, 1)
@@ -147,14 +153,28 @@ def test_unported_model_options_raise(model, graph, thresh, ported):
 
 
 def test_default_conv_is_the_jax_packages_and_not_ported_yet():
-    """Both packages' ``ModelConfig`` default to the same conv, GCNConv.
-    The port rejects it by name, pointing at ROADMAP Queue 1 item 6, so a
-    bare ``Seq2Seq(ModelConfig(), …)`` raises instead of building another
-    model than the JAX package would."""
+    """Both packages' ``ModelConfig`` default to the same conv, GCNConv
+    (ported since ROADMAP Queue 1 item 6, whatever this test's name says),
+    so a bare ``Seq2Seq(ModelConfig(), …)`` builds the same model in both
+    packages: GCN gate stacks in every cell and GCN head convs, with the
+    same parameter names and shapes."""
+    import jax.numpy as jnp
+
+    from quadtree_mpnnlstm_tpu.config import GraphConfig as JGraphConfig
     from quadtree_mpnnlstm_tpu.config import ModelConfig as JModelConfig
+    from quadtree_mpnnlstm_tpu.models.seq2seq import Seq2Seq as JSeq2Seq
     from quadtree_mpnnlstm_tpu_torch.config import GraphConfig, ModelConfig
+    from quadtree_mpnnlstm_tpu_torch.models.conv import GCNConv
     from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
+    from quadtree_mpnnlstm_tpu_torch.utils.weights import params_to_jax
 
     assert ModelConfig().convolution_type == JModelConfig().convolution_type == "GCNConv"
-    with pytest.raises(ValueError, match="Queue 1 item 6"):
-        Seq2Seq(ModelConfig(), GraphConfig(image_shape=SHAPE))
+    shape = (16, 16)
+    model = Seq2Seq(ModelConfig(), GraphConfig(image_shape=shape))
+    assert model.encoder.rnn_0.gates.convolution_type == "GCNConv"
+    assert isinstance(model.decoder.fc_out1, GCNConv) and isinstance(model.decoder.fc_out2, GCNConv)
+    jm = JSeq2Seq(JModelConfig(), JGraphConfig(image_shape=shape))
+    jparams = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
+                                             jnp.zeros((3, *shape, 1), jnp.float32)))
+    mine = params_to_jax(model.state_dict())
+    assert jax.tree.map(np.shape, mine) == jax.tree.map(lambda a: a.shape, jparams)
