@@ -4,7 +4,8 @@ the remeshing quadtree paths, a forecast batch (``predict``) and a train
 step (``train_step``) of ``bench.py``'s 64×64 Moving-MNIST model
 (``chip_smoke.py`` phases 2, 5, 9 and 11: batch 16, T_in 4 → T_out 10,
 thresh 0.1, random weights from ``--seed``), with ChebConv and with
-TransformerConv (``--conv``: only one of them, or GCNConv, phase 43);
+TransformerConv (``--conv``: only one of them, or GCNConv, phase 43, or
+MHTransformerConv, GATConv or GATv2Conv, phases 46-47);
 with ``--workload ice`` the sea-ice flagship on the pixelwise grid
 (phases 13 and 16: one 224×304 forecast of 10 → 90 days through
 ``predict``, and one full-BPTT train step, batch 1, with climatology;
@@ -30,7 +31,7 @@ the entry-ordered sum, timed by CUDA graph and by events beside its bound
 and ``index_add_`` (``k7_measure``).
 
     python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7]
-                       [--conv GCNConv|ChebConv|TransformerConv]
+                       [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
                        [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
                        [--tree DIR] [--reps 5] [--seed 0]
@@ -77,7 +78,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree",
                         choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7"))
-    parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv"),
+    parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv",
+                                               "MHTransformerConv", "GATConv", "GATv2Conv"),
                         help="time only this model of the quadtree paths (default: ChebConv "
                              "and TransformerConv), or the flagship's conv (--workload "
                              "ice|ice-xla; default TransformerConv)")

@@ -2,6 +2,8 @@
 """Where the port's time goes on one CUDA card.
 
     python3 chip_profile.py [--seed 0] [--reps 5] [--train] [--conv GCNConv|TransformerConv]
+    python3 chip_profile.py --conv MHTransformerConv|GATConv|GATv2Conv [--train] [--dtype bfloat16]
+    python3 chip_profile.py --workload ice --conv MHTransformerConv --dtype bfloat16 --per-gate --remat full --train
     python3 chip_profile.py --dtype bfloat16 [--train] [--conv GCNConv|TransformerConv]
     python3 chip_profile.py --workload ice [--train] [--dtype bfloat16] [--conv GCNConv]
     python3 chip_profile.py --workload ice-xla [--train]
@@ -12,9 +14,11 @@
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
 TransformerConv`` the attention model, with ``--conv GCNConv`` the JAX
-package's default conv), or with ``--workload ice`` its sea-ice flagship
+package's default conv, with ``--conv MHTransformerConv``, ``GATConv`` or
+``GATv2Conv`` those convs), or with ``--workload ice`` its sea-ice flagship
 (one 224×304 pixelwise forecast of 10 → 90 days, TransformerConv, or
-with ``--conv GCNConv`` the JAX package's experiment 1, with climatology,
+with ``--conv GCNConv`` the JAX package's experiment 1, with ``--conv
+MHTransformerConv`` the attention kernels by head groups, with climatology,
 batch 1); ``--dtype bfloat16`` runs any of them in bf16, ``bench.py``'s
 default; or with ``--workload ice-xla`` the same model on the pixelwise
 edge list (training with truncated BPTT of 30 steps, full BPTT under
@@ -137,7 +141,8 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--train", action="store_true", help="profile train_step")
-    parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv"),
+    parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv",
+                                               "MHTransformerConv", "GATConv", "GATv2Conv"),
                         help="the model's conv (default: ChebConv; TransformerConv on "
                              "--workload ice|ice-xla)")
     parser.add_argument("--workload", default="mnist",

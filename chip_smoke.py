@@ -285,8 +285,53 @@ GCNConv, the JAX package's default conv, and bf16 on the edge list
    its plain version, gated by the plain path's own bf16-vs-f32 spread as
    phase 34 gates.
 
-Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38, 43, 45)
-swaps each kernel it would launch for its plain version.
+The convs and cells of ROADMAP Queue 1 item 7 (phases 46-49), each
+kernel's launches as read from the code (``expected_*_launches``):
+
+46. ``--conv MHTransformerConv`` (3 heads concatenated and mixed back
+   down; the fused gate stacks' 2·G streams × 3 heads × d 16 = HD 384 in
+   one attention call, the head convs HD 48 and 3) on the attention
+   windows: a forecast in f32 and bf16 (finite, overflow 0, K3 56 and K7
+   62, no K1/K2 as on the TransformerConv path); K3 at HD 384, 48 and 3
+   against its plain version (≤1e-5 in f32, one rounding in bf16,
+   bit-identical on a repeat) and K4 on one step's cotangents (≤1e-5 ×
+   max(1, max|g|), one rounding in bf16), timed by CUDA graph and events
+   beside their bounds and plain versions; a train step in each dtype
+   under remat none and full (dropout 0.1, teacher forcing 0.5), "full"
+   bit-identical to "none"; a teacher-forced f32 step against one on the
+   plain versions (≤1e-4 × max(1, max|g|)) and again, bit-identical;
+47. ``--conv GATConv`` and ``--conv GATv2Conv``: the quadtree keeps its
+   edge list beside its Â blocks, and every GAT pass (the 2·G gate
+   streams of a cell layer as the heads of one pass) sums over the mesh's
+   self-loop list on K7 once; a forecast and a train step in f32 and
+   bf16 (K1 11, no K2, K7 as read from the code), the step again,
+   bit-identical; K7 on the self-loop sets (the messages over their dst
+   view, the gathers' cotangents over both views) bit-identical to the
+   entry-ordered sum on the CPU (bf16: that f32 sum rounded once), timed
+   beside its bound, plain version and ``index_add_``; f32 gradients
+   against the plain path's;
+48. the cells with ChebConv: the fused and per-gate GRU, the shared-conv
+   LSTM, the split LSTM (``torch.nn.LSTM`` along the node axis, cuDNN's
+   deterministic settings) and ``dummy=True``: a forecast and a train step
+   each in f32 (finite, overflow 0, K1, K2, K2b and K7 as read from the
+   code), the step again, bit-identical; the GRU in bf16 under remat full
+   against remat none, bit-identical; the per-gate GRU's gradients against
+   the fused GRU's on weights stacked by ``fuse_cell_gates`` (≤1e-6 ×
+   max(1, max|g|));
+49. ``bench.py --workload ice --conv MHTransformerConv`` at its defaults
+   (the 224×304 grid, bf16, per-gate, remat full, hidden 32: 24 heads ×
+   d 32 = H 768 a cell call, 3 head groups of 256): a forecast and a
+   full-BPTT step (finite, K5/K6 launches as read from the code, peaks
+   and times); K5 at H 768 by groups bit-identical to its plain version
+   at that width (bf16 and f32), K6 on a T_out-6 step's cotangents (one
+   bf16 rounding; ≤1e-5 × max(1, max|g|) in f32), 3 launches a call;
+   K3/K4 at HD 768 (24 heads × 32 in 2 groups) on one ice-quadtree mesh
+   with operands, keep windows and a cotangent from ``--seed``, ≤1e-5
+   (one rounding in bf16), 2 launches a call; all timed beside their
+   bounds and plain versions.
+
+Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38, 43, 45, 46,
+47) swaps each kernel it would launch for its plain version.
 
 It fails at once without a CUDA card, and when the port's package is not
 beside it.
@@ -575,6 +620,29 @@ class Record:
         self.calls.append(args)
         self.results.append(self._fn(*args))
         return self.results[-1]
+
+    def __enter__(self):
+        self._patch = mock.patch.object(self.module, self.name, self)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+class FirstAtWidth:
+    """Wraps a function during a run and keeps the arguments of its first
+    call whose second argument is ``width`` wide (detached, the function
+    itself dropped), passing every call through."""
+
+    def __init__(self, module, name: str, width: int):
+        self.module, self.name, self.width, self.args = module, name, width, None
+        self._fn = getattr(module, name)
+
+    def __call__(self, *args):
+        if self.args is None and args[1].shape[-1] == self.width:
+            self.args = tuple(a.detach() if hasattr(a, "detach") else a for a in args[1:])
+        return self._fn(*args)
 
     def __enter__(self):
         self._patch = mock.patch.object(self.module, self.name, self)
@@ -1863,12 +1931,14 @@ class SegmentCapture:
     it sees only the calls on values of that type. Every call must carry
     its graph's CSR view, but with ``counts`` the quadtree build's node
     counts (f32 ones over the pixels, summed before their graph and its
-    view exist), keyed ``("counts", 1)``."""
+    view exist), keyed ``("counts", 1)``. With ``loops`` (a mesh's e_max)
+    the GAT self-loop lists (e_max + n_max entries) are ``loops_dst`` (its
+    edge part sorted) and ``loops_src``."""
 
     def __init__(self, segment, n_pixels: int, keep: bool = False, dtype=None,
-                 counts: bool = False):
+                 counts: bool = False, loops: int = 0):
         self.segment, self.n_pixels, self.keep, self.dtype = segment, n_pixels, keep, dtype
-        self.counts = counts
+        self.counts, self.loops = counts, loops
         self.calls, self.ops = {}, {}
         self._fn = segment.segment_sum
 
@@ -1882,6 +1952,10 @@ class SegmentCapture:
                   and values.dtype == torch.float32,
                   "a segment sum on the card ran without its graph's CSR view")
             key = ("counts", 1)
+        elif self.loops and ids.shape[1] > self.loops and ids.shape[1] != self.n_pixels:
+            edges = ids[:, :self.loops]
+            site = "loops_dst" if bool((edges[:, 1:] >= edges[:, :-1]).all()) else "loops_src"
+            key = (site, values[0, 0].numel())
         else:
             site = ("pixel" if ids.shape[1] == self.n_pixels
                     else "dst" if view.order is None else "src")
@@ -3551,6 +3625,742 @@ def add_gcn_paths(entries, gcn: dict, dtype: str) -> None:
             entry["gcn_by_width"] = rows[name]
 
 
+# ---------------------------------------------------------------- Queue 1 item 7
+# Phases 46-49: the convs and cells the port runs since ROADMAP Queue 1 item
+# 7, on bench.py's model (--conv MHTransformerConv, GATConv, GATv2Conv; the
+# GRU, shared-conv, split and dummy cells with ChebConv), then
+# MHTransformerConv at the sea-ice widths (bench.py --workload ice --conv
+# MHTransformerConv), where the attention kernels run by head groups.
+MH_REMAT_MODES = ("none", "full")
+CELL_VARIANTS = {"GRU": dict(rnn_type="GRU"),
+                 "GRU-per_gate": dict(rnn_type="GRU", fused_gates=False),
+                 "SimpleLSTM": dict(rnn_type="SimpleLSTM"),
+                 "SplitLSTM": dict(rnn_type="SplitLSTM"),
+                 "dummy": dict(dummy=True)}
+GRU_LAYOUT_TOL = 1e-6  # per-gate GRU against the fused GRU, × max(1, max|g|)
+
+
+def make_variant(seed: int, run_dir: str, teacher_forcing_ratio: float = 0.0,
+                 dtype: str = "float32", remat=False, train: bool = True, **model):
+    """``bench.py``'s model with ``model`` overriding its model kwargs
+    (``rnn_type``, ``fused_gates``, ``dummy``), ready to train (Adam at lr
+    0.01) unless ``train`` is False."""
+    from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
+
+    predictor = NextFramePredictorS2S(
+        image_shape=CANVAS, thresh=0.1,
+        input_features=1, input_timesteps=T_IN, output_timesteps=T_OUT,
+        device=DEVICE, seed=seed, run_dir=run_dir,
+        teacher_forcing_ratio=teacher_forcing_ratio,
+        model_kwargs=dict(dict(hidden_size=16, n_layers=2, n_conv_layers=2,
+                               convolution_type="ChebConv", compute_dtype=dtype, remat=remat),
+                          **model),
+        graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
+                          agg_eb=1024, agg_sw=1024, aggregation="pallas"),
+    )
+    if train:
+        predictor.initiate_training(lr=LR, lr_decay=0.95)
+    return predictor
+
+
+def expected_gat_launches(cfg, train: bool) -> dict:
+    """Launches of one GAT forecast (or full-BPTT train step, remat none),
+    read from the code. The quadtree keeps its edge list beside its Â
+    blocks (GAT is not among the predictor's convs that drop it): K1 once a
+    mesh, no K2, and K7 as ChebConv's (:func:`expected_quadtree_k7`: node
+    counts, pooling and degrees a mesh, the state carried across each
+    remesh). Every GAT pass (one per conv layer of every encoder cell step,
+    the 2·G gate streams of both sides as its heads; one per decoder cell
+    step and head conv) sums Σ α·x[src] over the mesh's self-loop list
+    once; a train step's backward adds K7 for each of the pass's three
+    gathers (GATConv: x·att_src at the sources, x·att_dst at the
+    destinations, x at the sources; GATv2Conv: x_l and x_r for the logits,
+    x_l for the messages)."""
+    passes = expected_attn_launches(cfg)
+    k7 = expected_quadtree_k7(cfg, 3, train) + passes * (4 if train else 1)
+    return {"spmm_build_blocks": 1 + T_OUT, "segment_sum": k7}
+
+
+def _cell_conv_calls(cfg, n_conv_layers: int) -> int:
+    """Â·z of one cell call on ChebConv (K = 3: two a conv layer): a fused
+    LSTM stack 2 a layer; a GRU's two stacks (or its per-gate streams and
+    ``conv_h_candidate``) and the shared-conv LSTM's two ``GraphConv``
+    stacks 4; the split LSTM's one ``GraphConv`` 2; a dummy model none."""
+    per_layer = {"LSTM": 2, "GRU": 4, "SimpleLSTM": 4, "SplitLSTM": 2}[cfg.rnn_type]
+    return 0 if cfg.dummy else per_layer * n_conv_layers
+
+
+def expected_cell_launches(cfg, train: bool, mode: str = "none") -> dict:
+    """Launches of one forecast (or full-BPTT train step without teacher
+    forcing) of ``bench.py``'s ChebConv model with the cell of ``cfg``,
+    read from the code. K1 once a mesh; K2 per cell call
+    (:func:`_cell_conv_calls`) of every encoder and decoder step and 2 per
+    head conv; K2b for every K2 whose input needs a gradient, which is all
+    but those on the data and on the zero state: the first conv layer of
+    encoder layer 0 at step 0 ([x ‖ h] of the frame and the zero state) for
+    the fused and per-gate stacks; for the shared-conv LSTM, ``conv_x`` on
+    every input frame, ``conv_h`` on the zero state (layer 0 at step 0, and
+    every upper layer at every encoder step) and ``conv_x`` on the first
+    decoder input; for the split LSTM its conv on every input frame and on
+    the first decoder input; for the dummy model the first head conv on
+    the first decoder input and its concat. K7 as
+    :func:`expected_quadtree_k7` reads it, less the backward gathers of
+    state that never needs a gradient (a GRU's C, which passes through; a
+    dummy model's H and C; the shared-conv LSTM's top-layer C carried into
+    the last decoder step, which reaches no loss, its output gate reading
+    no C). Remat "full" replays every K2 and every decoder step's remesh
+    (K1, and K7 for its counts, pooling, degrees and the state that needs
+    a gradient: the replay stops after the last value the backward saves,
+    and a GRU's C, carried last, saves none)."""
+    L, C = cfg.n_layers, cfg.n_conv_layers
+    k2 = T_IN * L * _cell_conv_calls(cfg, C) + T_OUT * (L * _cell_conv_calls(cfg, 1) + 4)
+    if not train:
+        return {"spmm_build_blocks": 1 + T_OUT, "spmm_apply": k2,
+                "segment_sum": expected_quadtree_k7(cfg, 3)}
+    no_grad = {"LSTM": 2, "GRU": 2, "SimpleLSTM": 2 * T_IN * L + 4,
+               "SplitLSTM": 2 * T_IN + 2}[cfg.rnn_type]
+    stateless = {"GRU": L, "LSTM": 0}.get(cfg.rnn_type, 0)
+    if cfg.dummy:
+        no_grad, stateless = 2, 2 * L
+    dead = 1 if cfg.rnn_type == "SimpleLSTM" and not cfg.dummy else 0
+    want = {"spmm_build_blocks": 1 + T_OUT, "spmm_apply": k2, "spmm_apply_bwd": k2 - no_grad,
+            "segment_sum": expected_quadtree_k7(cfg, 3, train=True) - (T_OUT - 1) * stateless
+            - dead}
+    if mode == "full":
+        want["spmm_apply"] *= 2
+        want["spmm_build_blocks"] += T_OUT
+        want["segment_sum"] += T_OUT * (3 + 2 * L - stateless)
+    return want
+
+
+def expected_ice_mh_launches(cfg, groups: int, train: bool) -> dict:
+    """K5 (and K6) launches of one flagship forecast (or full-BPTT step
+    under remat full) with MHTransformerConv, read from the code: each
+    attention call of a cell (2·G streams × 3 heads × d 32 = 768 features)
+    runs in ``groups`` head groups, each of the two head convs (3 × 32 and
+    3 × 1) in one; a train step replays every forward call and runs K6 once
+    a forward call."""
+    cells = ICE_T_IN * cfg.n_layers * cfg.n_conv_layers + cfg.output_timesteps * cfg.n_layers
+    k5 = groups * cells + 2 * cfg.output_timesteps
+    if not train:
+        return {"grid_attn_apply": k5}
+    return {"grid_attn_apply": 2 * k5, "grid_attn_apply_bwd": k5}
+
+
+def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
+                 loader, x) -> dict:
+    """Phases 46-49; returns what the kernels line adds: K3/K4 rows at the
+    MH widths and at HD 768 by head groups, K5/K6 rows at H 768 by head
+    groups, K7 rows on GAT's self-loop sets, and each new path's
+    launches."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+    from quadtree_mpnnlstm_tpu_torch.utils.weights import params_from_jax, params_to_jax
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn, segment_sum)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    def f32_launches():
+        return nonzero({k: v for m in modules for k, v in m.LAUNCHES.items()})
+
+    def grads_of(trainer):
+        return {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    def same_step(a, b):
+        return (torch.equal(a["loss"], b["loss"]) and torch.equal(a["generator"], b["generator"])
+                and all(torch.equal(a["grads"][n], g) for n, g in b["grads"].items()))
+
+    def timed_forecast(model):
+        """(seconds, launches, f32 launches, frames) of one timed predict()
+        after a warm-up."""
+        model.predict(loader)
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        y = model.predict(loader)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, nonzero(launch_totals(modules)), f32_launches(), y
+
+    def check_forecast(name, model, y):
+        check(y.shape == (BATCH, T_OUT, *CANVAS, 1) and bool(np.isfinite(y).all())
+              and model.last_overflow == 0,
+              f"{name} forecast: {y.shape}, finite {bool(np.isfinite(y).all())}, "
+              f"overflow {model.last_overflow}")
+
+    def one_step(trainer, batch, gen_seed=1):
+        """A train step from a generator of ``gen_seed``: its loss,
+        overflow, gradients, the generator's state after it, launches and
+        peak above its start."""
+        gen = torch.Generator(device=DEVICE).manual_seed(gen_seed)
+        got = {}
+        reset()
+        peak = peak_above_start_gib(
+            lambda: got.update(out=trainer.train_step(*batch, generator=gen)))
+        loss, overflow = got["out"]
+        check(bool(torch.isfinite(loss)) and int(overflow) == 0,
+              f"train step: loss {float(loss)}, overflow {int(overflow)}")
+        check(all(q.dtype == q.grad.dtype == torch.float32 for q in trainer.model.parameters()),
+              "a master weight or gradient is not float32")
+        return dict(loss=loss, grads=grads_of(trainer), generator=gen.get_state(),
+                    launches=nonzero(launch_totals(modules)), f32_launches=f32_launches(),
+                    peak_gib=peak)
+
+    def step_time(trainer, batch):
+        t0 = time.perf_counter()
+        float(trainer.train_step(*batch)[0])
+        return time.perf_counter() - t0
+
+    def vs_plain(factory, patches):
+        """A teacher-forced f32 step (every decoder mesh from a true frame)
+        on the kernels and one with ``patches`` (launcher, plain version)
+        swapped in, from the same weights and generator; the kernel step
+        again. Returns (max leaf error relative to max(1, max|g|), the
+        losses, bit-identical repeat)."""
+        loss_k, _, grads_k, meshes_k = step_with_meshes(factory(), x_b, y_b, seed=1)
+        with contextlib.ExitStack() as stack:
+            for module, name, plain in patches:
+                stack.enter_context(mock.patch.object(module, name, plain))
+            loss_p, _, grads_p, meshes_p = step_with_meshes(factory(), x_b, y_b, seed=1)
+        check(torch.equal(meshes_k, meshes_p), "kernel and plain steps ran on different meshes")
+        err = _leaf_err(grads_k, grads_p)
+        check(err <= GRAD_TOL, f"gradients differ from the plain path's by {err}")
+        loss_k2, _, grads_k2, meshes_k2 = step_with_meshes(factory(), x_b, y_b, seed=1)
+        repeat = (torch.equal(loss_k, loss_k2) and torch.equal(meshes_k, meshes_k2)
+                  and all(torch.equal(grads_k[n], grads_k2[n]) for n in grads_k))
+        check(repeat, "two identical train steps differ")
+        return err, (float(loss_k), float(loss_p)), repeat
+
+    plain_attn = [(attn, "_attn_fwd_cuda", attn.attn_plain),
+                  (attn, "_attn_bwd_cuda", attn.attn_bwd_plain),
+                  (segment_sum, "_segment_sum_cuda", k7_plain)]
+    plain_blocks = [(spmm, "_build_blocks_cuda", spmm.build_blocks_plain),
+                    (spmm, "_apply_cuda", spmm.apply_plain),
+                    (spmm, "_apply_bwd_cuda", spmm.apply_plain),
+                    (segment_sum, "_segment_sum_cuda", k7_plain)]
+    _, batches = train_batches(seed, 2)
+    x_b, y_b = batches[0]
+    p = CANVAS[0] * CANVAS[1]
+
+    # ---- phase 46: MHTransformerConv on attention windows
+    conv = "MHTransformerConv"
+    mh = {"forecast": {}, "steps": {}, "k3": {}, "k4": {}}
+    for dtype in ("float32", "bfloat16"):
+        model = make_model(seed, run_dir.name, conv, dtype=dtype)
+        cfg, gcfg = model.cfg, model.gcfg
+        check(gcfg.attn_windows and not gcfg.carry_edges,
+              f"the MH predictor did not ride the attention windows: {gcfg}")
+        k3 = expected_attn_launches(cfg)
+        batch_s, launches, f32, y = timed_forecast(model)
+        check_forecast(f"MH {dtype}", model, y)
+        k7 = expected_quadtree_k7(cfg, 2)
+        check(launches == {"attn_apply": k3, "segment_sum": k7},
+              f"MH {dtype} forecast launches {launches}, expected K3 {k3}, K7 {k7}")
+        if dtype == "bfloat16":
+            check(f32 == {"segment_sum": 1 + T_OUT}, f"MH bf16 forecast's f32 launches {f32}")
+        with AttnCapture(attn, "_attn_fwd_cuda", T_IN * cfg.n_layers * cfg.n_conv_layers,
+                         cfg.n_layers + 2) as cap:
+            model.forecast(x)
+        check(sorted(cap.per_width) == [3, 48, 384], f"MH K3 widths {sorted(cap.per_width)}")
+        rows = []
+        for hd, args in cap.operands().items():
+            with torch.no_grad():
+                kern, plain = attn._attn_fwd_cuda(*args), attn.attn_plain(*args)
+                check(torch.equal(kern, attn._attn_fwd_cuda(*args)),
+                      f"MH K3 differs from itself on a repeat at HD {hd}")
+            if dtype == "bfloat16":
+                err = _bf16_err(kern, plain, f"MH K3 at HD {hd}")[0]
+            else:
+                err = float((kern - plain).abs().max())
+                check(err <= K3_TOL, f"MH K3 differs from attn_plain at HD {hd}: {err}")
+            bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=False)
+            rows.append(dict(HD=hd, heads=args[6].heads, d=args[6].d, dtype=dtype,
+                             calls=cap.per_width[hd], max_abs_err=err, repeat_identical=True,
+                             ms=graph_ms(lambda: attn._attn_fwd_cuda(*args)),
+                             events_ms=cuda_ms(lambda: attn._attn_fwd_cuda(*args)),
+                             plain_ms=cuda_ms(lambda: attn.attn_plain(*args)),
+                             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+        mh["forecast"][dtype] = dict(batch_s=batch_s, frames_per_s=BATCH * T_OUT / batch_s,
+                                     launches=launches, f32_launches=f32)
+        mh["k3"][dtype] = rows
+        del model, cap
+        runs = {}
+        for mode in MH_REMAT_MODES:
+            trainer = make_trainer(seed, run_dir.name, conv, teacher_forcing_ratio=0.5,
+                                   dtype=dtype, remat=mode)
+            if mode == "none":
+                with CaptureBwd(attn, "_attn_bwd_cuda") as cap_b:
+                    runs[mode] = one_step(trainer, (x_b, y_b))
+            else:
+                runs[mode] = one_step(trainer, (x_b, y_b))
+            k7 = expected_quadtree_k7(cfg, 2, train=True)
+            want = {"attn_apply": k3, "attn_apply_bwd": k3, "segment_sum": k7}
+            if mode == "full":
+                want["attn_apply"] *= 2
+                want["segment_sum"] += T_OUT * (2 + 2 * cfg.n_layers)
+            check(runs[mode]["launches"] == want, f"MH {dtype} remat {mode}: launches a step "
+                  f"{runs[mode]['launches']}, expected {want}")
+            runs[mode]["step_s"] = step_time(trainer, batches[1])
+            del trainer
+        check(same_step(runs["full"], runs["none"]),
+              f"MH {dtype}: the remat full step is not bit-identical to remat none")
+        rows = []
+        for hd, args in sorted(cap_b.first.items()):
+            kern, plain = attn._attn_bwd_cuda(*args), attn.attn_bwd_plain(*args)
+            if dtype == "bfloat16":
+                errs = {n: _bf16_err(a, b, f"MH K4 {n} at HD {hd}")
+                        for n, a, b in zip(("dq", "dk", "dv", "dwe"), kern, plain)}
+            else:
+                errs = {}
+                for n, a, b in zip(("dq", "dk", "dv", "dwe"), kern, plain):
+                    e = float((a - b).abs().max())
+                    errs[n] = (e, e / max(1.0, float(b.abs().max())))
+                check(max(e[1] for e in errs.values()) <= K4_TOL,
+                      f"MH K4 differs from its plain backward at HD {hd}: {errs}")
+            bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=True)
+            rows.append(dict(HD=hd, dtype=dtype, calls=cap_b.per_width[hd],
+                             err_rel_to_max={n: e[1] for n, e in errs.items()},
+                             max_abs_err=max(e[0] for e in errs.values()),
+                             keep=args[4] is not None,
+                             ms=graph_ms(lambda: attn._attn_bwd_cuda(*args)),
+                             events_ms=cuda_ms(lambda: attn._attn_bwd_cuda(*args)),
+                             plain_ms=cuda_ms(lambda: attn.attn_bwd_plain(*args)),
+                             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+        check(sorted(r["HD"] for r in rows) == [3, 48, 384], f"MH K4 widths {rows}")
+        mh["k4"][dtype] = rows
+        mh["steps"][dtype] = {
+            m: {"loss": float(r["loss"]), "step_s": r["step_s"],
+                "step_peak_above_start_gib": r["peak_gib"], "launches_per_step": r["launches"],
+                "f32_launches_per_step": r["f32_launches"]} for m, r in runs.items()}
+        del runs, cap_b
+        torch.cuda.empty_cache()
+    mh_err, mh_losses, mh_repeat = vs_plain(
+        lambda: make_trainer(seed, run_dir.name, conv, teacher_forcing_ratio=1.0), plain_attn)
+    print(json.dumps({
+        "phase": "mh_windows", "card": card, "conv": conv, "batch": BATCH,
+        "forecast": mh["forecast"], "train_steps": mh["steps"],
+        "remat_full_vs_none_bit_identical": True, "k3_by_width": mh["k3"],
+        "k4_by_width": mh["k4"],
+        "grads_vs_plain": {"teacher_forcing_ratio": 1.0, "max_leaf_err_rel": mh_err,
+                           "losses_kernel_plain": mh_losses, "meshes_identical": True},
+        "bit_identical_repeat": mh_repeat,
+    }), flush=True)
+    out["mh"] = mh
+    torch.cuda.empty_cache()
+
+    # ---- phase 47: GATConv and GATv2Conv on the quadtree's edge list
+    gat = {"forecast": {}, "steps": {}, "k7": []}
+    for conv in ("GATConv", "GATv2Conv"):
+        for dtype in ("float32", "bfloat16"):
+            model = make_model(seed, run_dir.name, conv, dtype=dtype)
+            cfg, gcfg = model.cfg, model.gcfg
+            check(gcfg.carry_edges and not gcfg.attn_windows and gcfg.aggregation == "pallas"
+                  and gcfg.use_edge_attrs == (conv == "GATConv"),
+                  f"{conv} configuration: {cfg}, {gcfg}")
+            batch_s, launches, f32, y = timed_forecast(model)
+            check_forecast(f"{conv} {dtype}", model, y)
+            want = expected_gat_launches(cfg, train=False)
+            check(launches == want, f"{conv} {dtype} forecast launches {launches}, "
+                  f"expected {want}")
+            if dtype == "bfloat16":  # the node counts (a sum of f32 ones) stay f32
+                check(f32 == {"segment_sum": 1 + T_OUT},
+                      f"{conv} bf16 forecast's f32 launches {f32}")
+            loops = gcfg.e_max + gcfg.n_max
+            with SegmentCapture(segment, p, keep=True, counts=True, loops=gcfg.e_max) as cap:
+                model.forecast(x)
+            passes = {k: v for k, v in cap.calls.items() if k[0].startswith("loops")}
+            check(sum(passes.values()) == expected_attn_launches(cfg)
+                  and all(k[0] == "loops_dst" for k in passes),
+                  f"{conv} {dtype}: self-loop sums {passes}, expected one a GAT pass "
+                  f"({expected_attn_launches(cfg)})")
+            gat["forecast"][f"{conv}-{dtype}"] = dict(
+                batch_s=batch_s, frames_per_s=BATCH * T_OUT / batch_s, launches=launches,
+                f32_launches=f32)
+            del model
+            trainer = make_trainer(seed, run_dir.name, conv, dtype=dtype)
+            with SegmentCapture(segment, p, keep=True, counts=True, loops=gcfg.e_max) as cap_t:
+                step = one_step(trainer, (x_b, y_b))
+            want = expected_gat_launches(cfg, train=True)
+            check(step["launches"] == want,
+                  f"{conv} {dtype} step launches {step['launches']}, expected {want}")
+            step["step_s"] = step_time(trainer, batches[1])
+            del trainer
+            again = one_step(make_trainer(seed, run_dir.name, conv, dtype=dtype), (x_b, y_b))
+            check(same_step(step, again), f"{conv} {dtype}: two identical train steps differ")
+            sets = {**cap_t.ops, **cap.ops}
+            for key in sorted(k for k in sets if k[0].startswith("loops")):
+                check(sets[key][1].shape[1] == loops, f"{conv} self-loop set {key}")
+                row = k7_measure(segment_sum, key, sets[key], cap_t.calls.get(key, 0),
+                                 K7_TOL if dtype == "float32" else BF16_TOL)
+                gat["k7"].append(dict(row, conv=conv))
+            gat["steps"][f"{conv}-{dtype}"] = {
+                "loss": float(step["loss"]), "step_s": step["step_s"],
+                "step_peak_above_start_gib": step["peak_gib"],
+                "launches_per_step": step["launches"],
+                "f32_launches_per_step": step["f32_launches"], "bit_identical_repeat": True}
+            del cap, cap_t, sets, step, again
+            torch.cuda.empty_cache()
+        gat[f"{conv}_grads_vs_plain"] = vs_plain(
+            lambda: make_trainer(seed, run_dir.name, conv, teacher_forcing_ratio=1.0),
+            plain_blocks)
+    check({(r["ids"], r["dtype"]) for r in gat["k7"]}
+          >= {("loops_dst", "float32"), ("loops_src", "float32"), ("loops_dst", "bfloat16")},
+          f"K7 self-loop sets {[(r['ids'], r['F'], r['dtype']) for r in gat['k7']]}")
+    print(json.dumps({
+        "phase": "gat_edge_list", "card": card, "batch": BATCH, "forecast": gat["forecast"],
+        "train_steps": gat["steps"], "k7_by_self_loop_set": gat["k7"],
+        "grads_vs_plain": {c: {"max_leaf_err_rel": gat[f"{c}_grads_vs_plain"][0],
+                               "losses_kernel_plain": gat[f"{c}_grads_vs_plain"][1],
+                               "bit_identical_repeat": gat[f"{c}_grads_vs_plain"][2]}
+                           for c in ("GATConv", "GATv2Conv")},
+    }), flush=True)
+    out["gat"] = gat
+    torch.cuda.empty_cache()
+
+    # ---- phase 48: the GRU, shared-conv, split and dummy cells (ChebConv)
+    cells = {"forecast": {}, "steps": {}}
+    for name, variant in CELL_VARIANTS.items():
+        model = make_variant(seed, run_dir.name, train=False, **variant)
+        cfg = model.cfg
+        batch_s, launches, _, y = timed_forecast(model)
+        check_forecast(name, model, y)
+        want = expected_cell_launches(cfg, train=False)
+        check(launches == nonzero(want), f"{name} forecast launches {launches}, expected {want}")
+        cells["forecast"][name] = dict(batch_s=batch_s, frames_per_s=BATCH * T_OUT / batch_s,
+                                       launches=launches)
+        del model
+        step = one_step(make_variant(seed, run_dir.name, **variant), (x_b, y_b))
+        want = expected_cell_launches(cfg, train=True)
+        check(step["launches"] == nonzero(want),
+              f"{name} step launches {step['launches']}, expected {want}")
+        trainer = make_variant(seed, run_dir.name, **variant)
+        again = one_step(trainer, (x_b, y_b))
+        repeat = same_step(step, again)
+        check(repeat, f"{name}: two identical train steps differ")
+        cells["steps"][name] = {"loss": float(step["loss"]), "step_s": step_time(trainer,
+                                                                                  batches[1]),
+                                "step_peak_above_start_gib": step["peak_gib"],
+                                "launches_per_step": step["launches"],
+                                "bit_identical_repeat": repeat}
+        del step, again, trainer
+        torch.cuda.empty_cache()
+    # the GRU in bf16 under remat full (bench.py's defaults), against remat none
+    gru = {}
+    for mode in MH_REMAT_MODES:
+        trainer = make_variant(seed, run_dir.name, teacher_forcing_ratio=0.5, dtype="bfloat16",
+                               remat=mode, rnn_type="GRU")
+        gru[mode] = one_step(trainer, (x_b, y_b))
+        want = expected_cell_launches(trainer.cfg, train=True, mode=mode)
+        got = {k: gru[mode]["launches"].get(k, 0) for k in want}
+        check(got == want, f"GRU bf16 remat {mode}: launches a step {got}, expected {want}")
+        # the node counts of every mesh and of every replayed remesh stay f32
+        counts = 1 + T_OUT + (T_OUT if mode == "full" else 0)
+        check(gru[mode]["f32_launches"] == {"segment_sum": counts},
+              f"GRU bf16 remat {mode}: f32 launches {gru[mode]['f32_launches']}")
+        gru[mode]["step_s"] = step_time(trainer, batches[1])
+        del trainer
+    check(same_step(gru["full"], gru["none"]), "GRU bf16: remat full differs from remat none")
+    model = make_variant(seed, run_dir.name, dtype="bfloat16", remat="full", train=False,
+                         rnn_type="GRU")
+    batch_s, launches, f32, y = timed_forecast(model)
+    check_forecast("GRU bf16", model, y)
+    cells["gru_bf16"] = {
+        "forecast": dict(batch_s=batch_s, frames_per_s=BATCH * T_OUT / batch_s,
+                         launches=launches, f32_launches=f32),
+        "steps": {m: {"loss": float(r["loss"]), "step_s": r["step_s"],
+                      "step_peak_above_start_gib": r["peak_gib"],
+                      "launches_per_step": r["launches"],
+                      "f32_launches_per_step": r["f32_launches"]} for m, r in gru.items()},
+        "remat_full_vs_none_bit_identical": True}
+    del model, gru
+    # per-gate GRU gradients against the fused GRU's, the per-gate weights
+    # stacked into the fused layout (fuse_cell_gates)
+    per_gate = make_variant(seed, run_dir.name, teacher_forcing_ratio=1.0, train=False,
+                            rnn_type="GRU", fused_gates=False)
+    fused = make_variant(seed, run_dir.name, teacher_forcing_ratio=1.0, train=False,
+                         rnn_type="GRU")
+    fused.model.load_state_dict(params_from_jax(params_to_jax(per_gate.model.state_dict()),
+                                                fuse_gates=True))
+    steps = {}
+    for name, tr in (("per_gate", per_gate), ("fused", fused)):
+        tr.initiate_training(lr=LR, lr_decay=0.95)
+        loss, _ = tr.train_step(x_b, y_b, generator=torch.Generator(device=DEVICE).manual_seed(1))
+        steps[name] = (loss, _stacked_grads(tr.model) if name == "per_gate" else grads_of(tr))
+    layout_err = _leaf_err(steps["per_gate"][1], steps["fused"][1])
+    check(layout_err <= GRU_LAYOUT_TOL,
+          f"per-gate GRU gradients differ from the fused GRU's by {layout_err}")
+    cells["gru_per_gate_vs_fused"] = {
+        "max_leaf_err_rel": layout_err,
+        "losses": [float(steps["per_gate"][0]), float(steps["fused"][0])],
+        "bit_identical": all(torch.equal(steps["per_gate"][1][n].to(DEVICE), g)
+                             for n, g in steps["fused"][1].items())}
+    del per_gate, fused, steps
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "cells", "card": card, "conv": "ChebConv", "batch": BATCH,
+                      **cells}), flush=True)
+    out["cells"] = cells
+
+    # ---- phase 49: MHTransformerConv at the sea-ice widths
+    data, clim, mask = ice_data(seed)
+    x0, y0 = data.x[:1], data.y[:1]
+
+    def ice_mh(**kw):
+        return make_ice_model(seed, run_dir.name, dtype="bfloat16", remat=True,
+                              fused_gates=False, conv="MHTransformerConv", **kw)
+
+    model = ice_mh()
+    cfg = model.cfg
+    check(not cfg.fused_gates and model.model.remat == "full"
+          and model.gcfg.aggregation == "grid", f"ice MH configuration: {cfg}, {model.gcfg}")
+    groups = len(attn.head_groups(8 * 3, cfg.hidden_size, grid_attn.MAX_H))
+    check(groups == 3, f"H 768 runs in {groups} head groups, expected 3")
+    clim0 = model._clim_batch(clim, data.launch_dates[:1])
+    loader0 = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
+    model.predict(loader0, climatology=clim, mask=mask)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    got = {}
+    t0 = time.perf_counter()
+    fwd_peak = peak_above_start_gib(lambda: got.update(
+        y=model.predict(loader0, climatology=clim, mask=mask)))
+    forecast_s = time.perf_counter() - t0
+    fwd = nonzero(launch_totals(modules))
+    check(bool(np.isfinite(got["y"]).all()) and model.last_overflow == 0,
+          f"ice MH forecast: finite {bool(np.isfinite(got['y']).all())}")
+    want = expected_ice_mh_launches(cfg, groups, train=False)
+    check(fwd == want, f"ice MH forecast launches {fwd}, expected {want}")
+    with FirstAtWidth(grid_attn, "grid_fwd_by_groups", 768) as cap:
+        model.forecast(x0, mask=mask, climatology=clim0)
+    wide = cap.args
+    del cap, model, got
+    k5_rows = []
+    for dtype, args in (("bfloat16", wide), ("float32", tuple(
+            a.float() if torch.is_tensor(a) and a.dtype == bf16 else a for a in wide))):
+        reset()
+        with torch.no_grad():
+            kern = grid_attn.grid_fwd_by_groups(grid_attn._grid_attn_fwd_cuda, *args)
+        launched = launch_totals(modules)["grid_attn_apply"]
+        check(launched == groups, f"K5 at H 768 ({dtype}) launched {launched}, not {groups}")
+        plain = grid_attn.grid_attn_plain(*args)
+        check(torch.equal(kern, plain), f"K5 at H 768 by groups ({dtype}) is not bit-identical "
+              "to its plain version")
+        bound, b_ms, o_ms = grid_bound_ms(args, backward=False)
+        k5_rows.append(dict(
+            H=768, groups=groups, dtype=dtype, keep=args[5] is not None, max_abs_err=0.0,
+            bit_identical=True, launches_per_call=launched,
+            ms=graph_ms(lambda: grid_attn.grid_fwd_by_groups(grid_attn._grid_attn_fwd_cuda,
+                                                             *args)),
+            events_ms=cuda_ms(lambda: grid_attn.grid_fwd_by_groups(
+                grid_attn._grid_attn_fwd_cuda, *args)),
+            plain_ms=cuda_ms(lambda: grid_attn.grid_attn_plain(*args)),
+            bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    del wide
+    # a full-BPTT step at the defaults: launches, peak, time
+    trainer = ice_mh()
+    trainer.initiate_training(lr=LR, lr_decay=0.95)
+    batch0 = (x0, y0, clim0)
+
+    def ice_step(tr, batch):
+        return tr.train_step(batch[0], batch[1], mask=mask, climatology=batch[2],
+                             truncated_backprop=ICE_TBPTT)
+
+    reset()
+    step = {}
+    t0 = time.perf_counter()
+    step_peak = peak_above_start_gib(lambda: step.update(out=ice_step(trainer, batch0)))
+    step_s = time.perf_counter() - t0
+    train = nonzero(launch_totals(modules))
+    check(bool(torch.isfinite(step["out"][0])) and int(step["out"][1]) == 0 and step_peak > 0,
+          f"ice MH step: loss {float(step['out'][0])}, peak {step_peak}")
+    want = expected_ice_mh_launches(cfg, groups, train=True)
+    check(train == want, f"ice MH step launches {train}, expected {want}")
+    loss49 = float(step["out"][0])
+    del trainer, step
+    torch.cuda.empty_cache()
+    # K6 at H 768 on a short step's cotangents (with its keep planes)
+    short = ice_mh(t_out=ICE_SHORT_T_OUT)
+    short.initiate_training(lr=LR, lr_decay=0.95)
+    with FirstAtWidth(grid_attn, "grid_bwd_by_groups", 768) as cap:
+        ice_step(short, (x0, y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]))
+    bwd_args = cap.args
+    del cap, short
+    k6_rows = []
+    for dtype in ("bfloat16", "float32"):
+        args = bwd_args if dtype == "bfloat16" else tuple(
+            a.float() if torch.is_tensor(a) and a.dtype == bf16 else a for a in bwd_args)
+        reset()
+        kern = grid_attn.grid_bwd_by_groups(grid_attn._grid_attn_bwd_cuda, *args)
+        launched = launch_totals(modules)["grid_attn_apply_bwd"]
+        check(launched == groups, f"K6 at H 768 ({dtype}) launched {launched}, not {groups}")
+        plain = grid_attn.grid_attn_bwd_plain(*args)
+        if dtype == "bfloat16":
+            errs = {n: _bf16_err(a, b, f"K6 {n} at H 768")
+                    for n, a, b in zip(("dq", "dk", "dv", "de_dir"), kern, plain)}
+        else:
+            errs = {}
+            for n, a, b in zip(("dq", "dk", "dv", "de_dir"), kern, plain):
+                e = float((a - b).abs().max())
+                errs[n] = (e, e / max(1.0, float(b.abs().max())))
+            check(max(e[1] for e in errs.values()) <= K6_TOL,
+                  f"K6 at H 768 by groups differs from its plain version: {errs}")
+        bound, b_ms, o_ms = grid_bound_ms(args, backward=True)
+        k6_rows.append(dict(
+            H=768, groups=groups, dtype=dtype, keep=args[5] is not None,
+            err_rel_to_max={n: e[1] for n, e in errs.items()},
+            max_abs_err=max(e[0] for e in errs.values()), launches_per_call=launched,
+            ms=graph_ms(lambda: grid_attn.grid_bwd_by_groups(grid_attn._grid_attn_bwd_cuda,
+                                                             *args)),
+            events_ms=cuda_ms(lambda: grid_attn.grid_bwd_by_groups(
+                grid_attn._grid_attn_bwd_cuda, *args)),
+            plain_ms=cuda_ms(lambda: grid_attn.grid_attn_bwd_plain(*args)),
+            bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    del bwd_args
+    torch.cuda.empty_cache()
+    # K3/K4 at HD 768 (24 heads × d 32 in 2 groups of whole heads) on one
+    # ice-quadtree mesh, operands and cotangent from the seed
+    quad = make_ice_quadtree_model(seed, run_dir.name)
+    graph, _ = quad.model._graph(torch.as_tensor(x0, device=DEVICE).to(bf16),
+                                 torch.as_tensor(mask, device=DEVICE))
+    g = quad.gcfg
+    del quad
+    hd_groups = len(attn.head_groups(24, 32, attn.MAX_HD))
+    check(hd_groups == 2, f"HD 768 runs in {hd_groups} head groups, expected 2")
+    dims = attn.AttnDims(g.n_max, g.agg_nt, g.agg_eb, g.agg_sw, 24, 32)
+    meta = graph.attn_meta
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    qkv = [torch.randn(1, g.n_max, 768, device=DEVICE, generator=gen) for _ in range(4)]
+    we = torch.randn(meta.attr.shape[-1], 768, device=DEVICE, generator=gen)
+    keep = ((torch.rand(1, meta.s0.shape[1], 24, g.agg_eb, device=DEVICE, generator=gen)
+             < 0.9).float() / 0.9)
+    k34_rows = []
+    for dtype in ("float32", "bfloat16"):
+        cast = (lambda t: t.to(bf16)) if dtype == "bfloat16" else (lambda t: t)
+        q, k, v, cot = (cast(t) for t in qkv)
+        fargs = (q, k, v, cast(we), keep, meta, dims)
+        reset()
+        with torch.no_grad():
+            kern = attn.attn_fwd_by_groups(attn._attn_fwd_cuda, *fargs)
+        launched = launch_totals(modules)["attn_apply"]
+        check(launched == hd_groups, f"K3 at HD 768 launched {launched}, not {hd_groups}")
+        plain = attn.attn_plain(*fargs)
+        if dtype == "bfloat16":
+            err = _bf16_err(kern, plain, "K3 at HD 768")[0]
+        else:
+            err = float((kern - plain).abs().max())
+            check(err <= K3_TOL, f"K3 at HD 768 by groups differs from attn_plain: {err}")
+        bound, b_ms, o_ms = attn_bound_ms(attn, fargs, backward=False)
+        k34_rows.append(dict(
+            kernel="attn_apply", HD=768, groups=hd_groups, dtype=dtype, keep=True,
+            max_abs_err=err, launches_per_call=launched,
+            live_tiles=int(meta.live.long().sum()),
+            ms=graph_ms(lambda: attn.attn_fwd_by_groups(attn._attn_fwd_cuda, *fargs)),
+            events_ms=cuda_ms(lambda: attn.attn_fwd_by_groups(attn._attn_fwd_cuda, *fargs)),
+            plain_ms=cuda_ms(lambda: attn.attn_plain(*fargs)),
+            bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+        bargs = fargs + (cot, graph.slot_view)
+        reset()
+        kern = attn.attn_bwd_by_groups(attn._attn_bwd_cuda, *bargs)
+        launched = launch_totals(modules)["attn_apply_bwd"]
+        check(launched == hd_groups, f"K4 at HD 768 launched {launched}, not {hd_groups}")
+        plain = attn.attn_bwd_plain(*bargs)
+        if dtype == "bfloat16":
+            errs = {n: _bf16_err(a, b, f"K4 {n} at HD 768")
+                    for n, a, b in zip(("dq", "dk", "dv", "dwe"), kern, plain)}
+        else:
+            errs = {}
+            for n, a, b in zip(("dq", "dk", "dv", "dwe"), kern, plain):
+                e = float((a - b).abs().max())
+                errs[n] = (e, e / max(1.0, float(b.abs().max())))
+            check(max(e[1] for e in errs.values()) <= K4_TOL,
+                  f"K4 at HD 768 by groups differs from its plain backward: {errs}")
+        bound, b_ms, o_ms = attn_bound_ms(attn, bargs, backward=True)
+        k34_rows.append(dict(
+            kernel="attn_apply_bwd", HD=768, groups=hd_groups, dtype=dtype, keep=True,
+            err_rel_to_max={n: e[1] for n, e in errs.items()},
+            max_abs_err=max(e[0] for e in errs.values()), launches_per_call=launched,
+            ms=graph_ms(lambda: attn.attn_bwd_by_groups(attn._attn_bwd_cuda, *bargs)),
+            events_ms=cuda_ms(lambda: attn.attn_bwd_by_groups(attn._attn_bwd_cuda, *bargs)),
+            plain_ms=cuda_ms(lambda: attn.attn_bwd_plain(*bargs)),
+            bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    del graph, meta, qkv, we, keep
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "ice_mh", "card": card, "conv": "MHTransformerConv", "mesh": "grid",
+        "dtype": "bfloat16", "fused_gates": False, "remat": "full", "t_out": ICE_T_OUT,
+        "truncated_backprop": 0, "head_groups": groups, "s_per_forecast": forecast_s,
+        "forecast_peak_above_start_gib": fwd_peak, "forecast_launches": fwd,
+        "loss": loss49, "overflow": 0, "step_s": step_s, "step_peak_above_start_gib": step_peak,
+        "launches_per_step": train, "k5_hd768": k5_rows, "k6_hd768": k6_rows,
+        "quadtree_hd768": k34_rows,
+    }), flush=True)
+    out["ice_mh"] = dict(forecast=fwd, train=train, k5=k5_rows, k6=k6_rows, k34=k34_rows)
+    run_dir.cleanup()
+    return out
+
+
+def add_item7_paths(f32_entries, bf16_entries, item7: dict) -> None:
+    """Adds phases 46-49 to the kernels line: each kernel's launches on the
+    new paths (a forecast batch and a train step, remat none; bf16 entries
+    count their bf16 launches), K3's and K4's rows at the MH widths
+    (``mh_by_width``) and at HD 768 by head groups (``hd768_by_groups``),
+    K5's and K6's at H 768 (``hd768_by_groups``) and K7's on GAT's
+    self-loop sets (``by_operand_set``, path ``gat``)."""
+    mh, gat, cells, ice = item7["mh"], item7["gat"], item7["cells"], item7["ice_mh"]
+    for dtype, entries in (("float32", f32_entries), ("bfloat16", bf16_entries)):
+        for entry in entries:
+            name = entry["name"].removesuffix("_bf16")
+            paths = entry["launches_by_path"]
+
+            def add(path, counts, f32=None):
+                n = counts.get(name, 0)
+                if dtype == "bfloat16" and f32 is not None:
+                    n -= f32.get(name, 0)
+                if n:
+                    paths[path] = n
+
+            add("mh_predict_batch", mh["forecast"][dtype]["launches"],
+                mh["forecast"][dtype]["f32_launches"])
+            add("mh_train_step", mh["steps"][dtype]["none"]["launches_per_step"],
+                mh["steps"][dtype]["none"]["f32_launches_per_step"])
+            for conv in ("GATConv", "GATv2Conv"):
+                key = f"{conv}-{dtype}"
+                add(f"{conv.lower()}_predict_batch", gat["forecast"][key]["launches"],
+                    gat["forecast"][key]["f32_launches"])
+                add(f"{conv.lower()}_train_step", gat["steps"][key]["launches_per_step"],
+                    gat["steps"][key]["f32_launches_per_step"])
+            if dtype == "float32":
+                for variant, step in cells["steps"].items():
+                    add(f"{variant.lower()}_train_step", step["launches_per_step"])
+            else:
+                gru = cells["gru_bf16"]
+                add("gru_remat_full_predict_batch", gru["forecast"]["launches"],
+                    gru["forecast"]["f32_launches"])
+                add("gru_remat_full_train_step", gru["steps"]["full"]["launches_per_step"],
+                    gru["steps"]["full"]["f32_launches_per_step"])
+                add("ice_mh_predict", ice["forecast"])
+                add("ice_mh_train_step", ice["train"])
+            if name in ("attn_apply", "attn_apply_bwd"):
+                entry["mh_by_width"] = mh["k3" if name == "attn_apply" else "k4"][dtype]
+                entry["hd768_by_groups"] = [r for r in ice["k34"]
+                                            if r["kernel"] == name and r["dtype"] == dtype]
+            if name in ("grid_attn_apply", "grid_attn_apply_bwd"):
+                entry["hd768_by_groups"] = [r for r in ice["k5" if name == "grid_attn_apply"
+                                                          else "k6"] if r["dtype"] == dtype]
+            if name == "segment_sum":
+                rows = [r for r in gat["k7"] if r["dtype"] == dtype]
+                entry["by_operand_set"] += [dict(r, path="gat") for r in rows]
+                entry["ms_by_path"]["gat"] = k7_path_means(rows)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3712,6 +4522,7 @@ def main() -> int:
         args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     bench = bench_default_phases(args.seed, card, spmm, attn, grid_attn, segment_sum)
     gcn = gcn_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
+    item7 = item7_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     for k in bf16_attn_kernels:  # the per-gate flagship's K5/K6 (phase 40)
         name = k["name"].removesuffix("_bf16")
         if name.startswith("grid_attn"):
@@ -3855,6 +4666,7 @@ def main() -> int:
             "ice_quadtree_predict": bench["quadtree_forecast"]["segment_sum"],
             "ice_quadtree_train_step": bench["quadtree_train"]["segment_sum"]}))
     add_gcn_paths(kernels, gcn, "float32")
+    add_item7_paths(kernels, bf16_kernels, item7)
     for k in kernels:
         k["dtype"] = "float32"
     print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)

@@ -165,24 +165,31 @@ class ModelConfig:
     """Seq2Seq architecture hyper-parameters.
 
     ``input_features`` counts raw channels only; positional encoding (2)
-    and node size (1) are appended internally. The port runs the
-    GCNConv, ChebConv or TransformerConv GConvLSTM, with a remesh at every
-    decoder step on quadtree meshes and a fixed mesh on the pixelwise mesh;
-    ``fused_gates=False`` keeps the JAX package's per-gate parameter
-    layout (``models/fused.py``);
-    :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq`
-    rejects other values of ``convolution_type``, ``rnn_type`` and
-    ``remesh_every``. GCNConv and ChebConv run on quadtree Â blocks
+    and node size (1) are appended internally. The port runs every conv
+    of the JAX package's registry (``models/conv.py`` ``CONVOLUTIONS``)
+    and every cell (``rnn_type``: LSTM, GRU, SimpleLSTM, SplitLSTM,
+    Dummy), with a remesh at every decoder step on quadtree meshes and a
+    fixed mesh on the pixelwise mesh; ``dummy=True`` skips the recurrence
+    (the decoder runs only its head). LSTM and GRU take ``fused_gates``:
+    False keeps the JAX package's per-gate parameter layout
+    (``models/fused.py``); GATConv and GATv2Conv always take it.
+    :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq` rejects
+    ``remesh_every`` > 1 (ROADMAP Queue 1 item 8) and a ``Dummy`` conv,
+    whose identity head gives no one-channel frame (the JAX package's
+    Seq2Seq fails on it too). GCNConv and ChebConv run on quadtree Â blocks
     (``aggregation="pallas"``), quadtree or pixelwise edge lists
-    (``"xla"``) and the pixelwise grid (``"grid"``); TransformerConv on
-    quadtree attention windows (``"pallas"``), edge lists and the grid.
+    (``"xla"``) and the pixelwise grid (``"grid"``); TransformerConv and
+    MHTransformerConv on quadtree attention windows (``"pallas"``), edge
+    lists and the grid; GATConv and GATv2Conv on edge lists only (with
+    ``"pallas"`` the quadtree keeps its edge list; the predictor takes
+    ``"grid"`` to ``"xla"``, as the JAX predictor does).
     ``compute_dtype="bfloat16"`` is mixed precision: the graph pipeline,
     the convolutions and the recurrence run in bf16, the master parameters
     stay float32 and are cast at use, and LayerNorm statistics, the
     predictions leaving the model and the loss are float32. It runs every
-    one of those convs on every one of those meshes, fused or per-gate.
-    ``dropout`` is the decoder head's; attention convolutions drop
-    attention weights at their own fixed rate (``models/conv.py``
+    one of those convs and cells on every one of those meshes, fused or
+    per-gate. ``dropout`` is the decoder head's; attention convolutions
+    drop attention weights at their own fixed rate (``models/conv.py``
     ``CONVOLUTION_KWARGS``).
     """
 
@@ -196,6 +203,7 @@ class ModelConfig:
     convolution_type: str = "GCNConv"  # the JAX package's default
     rnn_type: str = "LSTM"
     binary: bool = False
+    dummy: bool = False
     remesh_every: int = 1
     fused_gates: bool = True
     compute_dtype: str = "float32"

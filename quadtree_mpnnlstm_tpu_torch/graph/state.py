@@ -73,6 +73,9 @@ class GraphTensors:
     # the source-sorted view of the attention-window slots for K4's dk/dv
     # gather (ops/attn.py slot_view), built on a CUDA card
     slot_view: Optional[SegmentView] = None
+    # the edge list with a self-edge per node for the GAT convolutions
+    # (models/conv.py SelfLoops), built once per mesh by the model
+    self_loops: Optional[object] = None
 
     @property
     def n_max(self) -> int:

@@ -4,22 +4,27 @@ Counterpart of ``quadtree_mpnnlstm_tpu/models/conv.py``: the symmetric
 normalisation, the ``Â z`` dispatch, ``GCNConv`` (no self-loops, the
 symmetric degree norm with the distance column as edge weight),
 ``ChebConv`` (K=3, 'sym' laplacian, lambda_max=2), the attention-window,
-grid and edge-list branches of ``multi_stream_attention`` and
+grid and edge-list branches of ``multi_stream_attention``,
 ``TransformerConv`` (heads=1, edge_dim=2, attention dropout 0.1, concat
-off in the registry). Node tensors are (B, n_max, F). Every conv takes
-``(x, graph, generator)``; attention dropout draws its keep windows (or
-planes, or per-edge hashes) from ``generator`` in training mode
+off in the registry), ``MHTransformerConv`` (3 concatenated heads mixed
+back down by a Dense layer), ``GATConv``/``GATv2Conv`` (one head, edge
+features, a self-loop per valid node with the mean edge attributes, on
+edge lists only), ``GraphConv`` (a stack of one conv type; ``Dummy`` is
+the identity) and the α side channel (``attention_map``,
+``dump_attention_map``). Node tensors are (B, n_max, F). Every conv
+takes ``(x, graph, generator)``; attention dropout draws its keep windows
+(or planes, or per-edge hashes) from ``generator`` in training mode
 (``module.train()``) only. Every conv and every branch runs in the
 compute dtype it is given (f32 or bf16).
 
-Not ported yet: the batch-middle (shared-mesh) layout, the α side channel
-(``sow``), ``MHTransformerConv`` and the GAT family.
+Not ported: the batch-middle (shared-mesh) layout.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -30,9 +35,12 @@ from quadtree_mpnnlstm_tpu_torch.ops.segment import (
     aggregate_to_dst,
     edge_softmax,
     gather_dst,
+    gather_nodes,
     gather_src,
+    safe_div,
     segment_sum_nodes,
 )
+from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import SegmentView, segment_view
 
 
 def compute_sym_norm(graph: GraphTensors) -> torch.Tensor:
@@ -181,7 +189,8 @@ def edge_keep(graph: GraphTensors, heads: int, rate: float,
 
 def edge_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.Tensor,
                    graph: GraphTensors, heads: int, d: int,
-                   keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   keep: Optional[torch.Tensor] = None,
+                   intermediates: Optional[Dict] = None) -> torch.Tensor:
     """The edge-list branch of :func:`multi_stream_attention`: gather k
     and v at the sources and q at the destinations, add the edge term
     ``edge_attr · Wₑ`` to keys and values, take per-head logits ``q·(k +
@@ -189,7 +198,9 @@ def edge_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.
     given, and sum ``α·(v + e)`` at the destinations (kernel K7 on a CUDA
     tensor). Everything runs in q's dtype: the keep-scales are cast to it,
     as the JAX package casts them to α's, so a bf16 call keeps its
-    messages and their sum in bf16. Returns (B, n_max, heads, d)."""
+    messages and their sum in bf16. With ``intermediates`` (a dict) α
+    (B, E, heads) is appended to its ``"alpha"`` list, detached. Returns
+    (B, n_max, heads, d)."""
     b, n = q.shape[:2]
     qh, kh, vh = (x.reshape(b, n, heads, d) for x in (q, k, v))
     e = (graph.edge_attr.to(q.dtype) @ we).reshape(b, -1, heads, d)
@@ -199,14 +210,23 @@ def edge_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.
     root_d = float(torch.tensor(float(d), dtype=q.dtype).sqrt())
     logits = (gather_dst(qh, graph) * kj).sum(dim=-1) / root_d
     alpha = edge_softmax(logits, graph.edge_dst, graph.edge_valid, n)
+    sow(intermediates, alpha)
     used = alpha if keep is None else alpha * keep.to(alpha.dtype)
     return aggregate_to_dst(used[..., None] * vj, graph)
+
+
+def sow(intermediates: Optional[Dict], alpha: torch.Tensor) -> None:
+    """Append α, detached, to ``intermediates["alpha"]`` when the caller
+    passed a dict (the JAX package's ``sow("intermediates", "alpha")``)."""
+    if intermediates is not None:
+        intermediates.setdefault("alpha", []).append(alpha.detach())
 
 
 def multi_stream_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: Optional[torch.Tensor],
     graph: GraphTensors, heads: int, d: int, dropout: float = 0.0,
     training: bool = False, generator: Optional[torch.Generator] = None,
+    intermediates: Optional[Dict] = None,
 ) -> torch.Tensor:
     """Destination-aggregated edge attention for ``heads`` independent
     streams packed on the feature axis: the implementation behind
@@ -227,6 +247,11 @@ def multi_stream_attention(
     Args:
       q/k/v: (B, n_max, heads·d) projected node features.
       we: (A, heads·d) edge-projection weights, or None for no edge term.
+      intermediates: a dict that receives α in its ``"alpha"`` list
+        (:func:`sow`): (B, E, heads) on the edge list, (B, D, rows, cols,
+        heads) on the grid, where K5 returns none and the plain stencil
+        softmax computes it for this debug channel; the attention windows
+        give none, as in the JAX package.
     Returns:
       (B, n_max, heads, d).
     """
@@ -248,6 +273,9 @@ def multi_stream_attention(
         valid = graph.node_valid[0].to(q.dtype)   # the mask every sample shares
         keep = keep_planes((b, ndirs, n, heads)) if drop else None
         dims = grid_attn.GridAttnDims(rows, cols, heads, d, ndirs)
+        if intermediates is not None:
+            with torch.no_grad():
+                sow(intermediates, grid_attn.grid_alpha(q, k, e_dir, valid, dims))
         return grid_attn.grid_attn_apply(q, k, v, e_dir, valid, keep, dims).reshape(
             b, n, heads, d)
     if graph.agg[0] == "pallas_attn":
@@ -261,7 +289,14 @@ def multi_stream_attention(
         raise ValueError("attention needs attention windows, the pixelwise grid or an edge "
                          "list; this graph dropped its edge list (carry_edges=False)")
     keep = edge_keep(graph, heads, dropout, generator) if drop else None
-    return edge_attention(q, k, v, we, graph, heads, d, keep)
+    return edge_attention(q, k, v, we, graph, heads, d, keep, intermediates)
+
+
+def dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``lin`` applied to x with its f32 master weight and bias cast to
+    ``dtype`` at use, as flax's ``Dense(dtype=…)``."""
+    bias = None if lin.bias is None else lin.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), lin.weight.to(dtype), bias)
 
 
 class TransformerConv(nn.Module):
@@ -289,30 +324,293 @@ class TransformerConv(nn.Module):
         self.lin_skip = (nn.Linear(in_channels, hd if concat else out_channels, bias=use_bias)
                          if root_weight else None)
 
-    def _dense(self, lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-        bias = None if lin.bias is None else lin.bias.to(self.dtype)
-        return nn.functional.linear(x, lin.weight.to(self.dtype), bias)
-
     def forward(self, x: torch.Tensor, graph: GraphTensors,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                intermediates: Optional[Dict] = None) -> torch.Tensor:
+        """``intermediates``: a dict that receives this call's α
+        (:func:`multi_stream_attention`)."""
         h, d = self.heads, self.out_channels
         x = x.to(self.dtype)
         we = None if self.lin_edge is None else self.lin_edge.weight.t().to(self.dtype)  # (A, h·d)
         out = multi_stream_attention(
-            self._dense(self.lin_query, x), self._dense(self.lin_key, x),
-            self._dense(self.lin_value, x), we, graph, h, d,
+            dense(self.lin_query, x, self.dtype), dense(self.lin_key, x, self.dtype),
+            dense(self.lin_value, x, self.dtype), we, graph, h, d,
             dropout=self.dropout, training=self.training, generator=generator,
+            intermediates=intermediates,
         )
         out = out.reshape(out.shape[:-2] + (h * d,)) if self.concat else out.mean(dim=-2)
         if self.lin_skip is not None:
-            out = out + self._dense(self.lin_skip, x)
+            out = out + dense(self.lin_skip, x, self.dtype)
         return out
 
 
-# registry (parity: the JAX package's CONVOLUTIONS / CONVOLUTION_KWARGS)
-CONVOLUTIONS = {"GCNConv": GCNConv, "ChebConv": ChebConv, "TransformerConv": TransformerConv}
+class MHTransformerConv(nn.Module):
+    """TransformerConv with concatenated heads mixed back down by a Dense
+    layer: a :class:`TransformerConv` named ``conv`` (``heads`` heads,
+    ``concat=True``) and ``lin`` (heads·d → d, with bias), as the flax
+    module. ``dtype`` is the compute dtype."""
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int = 3,
+                 dropout: float = 0.0, edge_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.conv = TransformerConv(in_channels, out_channels, heads=heads, concat=True,
+                                    dropout=dropout, edge_dim=edge_dim, dtype=dtype)
+        self.lin = nn.Linear(heads * out_channels, out_channels)
+
+    def forward(self, x: torch.Tensor, graph: GraphTensors,
+                generator: Optional[torch.Generator] = None,
+                intermediates: Optional[Dict] = None) -> torch.Tensor:
+        return dense(self.lin, self.conv(x, graph, generator, intermediates), self.dtype)
+
+
+class SelfLoops(NamedTuple):
+    """A mesh's edge list with one self-edge per node appended (B, e_max +
+    n_max): the GAT convolutions' index set. An invalid node's self-edge
+    carries the sentinel ``n_max`` and is dropped. The CSR views of src and
+    dst (the list is not sorted by dst) are built on a CUDA card, for K7."""
+
+    src: torch.Tensor    # (B, L) int64
+    dst: torch.Tensor    # (B, L) int64
+    valid: torch.Tensor  # (B, L) bool
+    attr: torch.Tensor   # (B, L, A) f32
+    src_view: Optional[SegmentView] = None
+    dst_view: Optional[SegmentView] = None
+
+
+def with_self_loops(graph: GraphTensors) -> SelfLoops:
+    """Append one self-edge per valid node (PyG's ``add_self_loops`` with
+    ``fill_value='mean'``, the JAX package's ``_with_self_loops``): its
+    attributes are the mean of the sample's valid edge attributes, their
+    sum (rounded once to f32) divided by ``max(n_edges, 1)``. Detached: the list is a constant of
+    the mesh, built once per mesh (``models/seq2seq.py``)."""
+    if graph.edge_src is None:
+        raise ValueError("GAT convolutions need the mesh's edge list; this graph dropped it "
+                         "(carry_edges=False)")
+    n = graph.n_max
+    idx = torch.arange(n, device=graph.edge_src.device)
+    self_idx = torch.where(graph.node_valid, idx, n)
+    src = torch.cat([graph.edge_src, self_idx], dim=1)
+    dst = torch.cat([graph.edge_dst, self_idx], dim=1)
+    valid = torch.cat([graph.edge_valid, graph.node_valid], dim=1)
+    attr = graph.edge_attr.detach()
+    # summed in f64 and rounded once: the correctly rounded sum, which XLA's
+    # reduction gives on the meshes the tests compare
+    attr_sum = (attr.double() * graph.edge_valid[..., None]).sum(dim=1).float()  # (B, A)
+    mean = safe_div(attr_sum, graph.n_edges.clamp_min(1)[:, None].to(attr_sum.dtype))
+    attr = torch.cat([attr, mean[:, None].expand(-1, n, -1)], dim=1)
+    views = (segment_view(src, n), segment_view(dst, n)) if src.is_cuda else (None, None)
+    return SelfLoops(src, dst, valid, attr, *views)
+
+
+def gat_attend(loops: SelfLoops, n_max: int, src_feat: torch.Tensor, logits: torch.Tensor
+               ) -> torch.Tensor:
+    """Σ α · src_feat[src] into dst over the self-loop list: α is the
+    masked edge softmax of ``logits`` (B, L, H) (its segment max and sum
+    plain), the sum K7 on a CUDA tensor over the list's dst view. src_feat:
+    (B, n_max, H, d). Returns (B, n_max, H, d)."""
+    alpha = edge_softmax(logits, loops.dst, loops.valid, n_max)
+    msg = alpha[..., None] * gather_nodes(src_feat, loops.src, n_max, loops.src_view)
+    return segment_sum_nodes(msg, loops.dst, n_max, loops.dst_view)
+
+
+def gat_logits(loops: SelfLoops, n_max: int, v2: bool, slope: float, x_l: torch.Tensor,
+               x_r: Optional[torch.Tensor], e: Optional[torch.Tensor], att: torch.Tensor,
+               att_dst: Optional[torch.Tensor], att_edge: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    """Per-edge logits (B, L, H) over the self-loop list for H heads of d
+    features. GATConv: ``leaky_relu(x_l·att_src [src] + x_l·att_dst [dst]
+    + e·att_edge)``; GATv2Conv: ``Σ att · leaky_relu(x_l[src] + x_r[dst] +
+    e)``. x_l, x_r: (B, n_max, H, d); e: (B, L, H, d) edge terms or None;
+    att, att_dst, att_edge: (H, d)."""
+    def gather(t, ids, view):
+        return gather_nodes(t, ids, n_max, view)
+
+    if v2:
+        feat = gather(x_l, loops.src, loops.src_view) + gather(x_r, loops.dst, loops.dst_view)
+        if e is not None:
+            feat = feat + e
+        return (att * nn.functional.leaky_relu(feat, slope)).sum(dim=-1)
+    a = (gather((x_l * att).sum(dim=-1), loops.src, loops.src_view)
+         + gather((x_l * att_dst).sum(dim=-1), loops.dst, loops.dst_view))
+    if e is not None:
+        a = a + (e * att_edge).sum(dim=-1)
+    return nn.functional.leaky_relu(a, slope)
+
+
+def check_edge_mesh(graph: GraphTensors) -> None:
+    """Raise the JAX package's error for a GAT conv on the grid, which has
+    no edge list."""
+    if graph.agg[0] == "grid":
+        raise ValueError("GAT convolutions need an edge-list mesh (self-loop insertion); build "
+                         "the pixelwise graph with aggregation='xla' instead of 'grid'")
+
+
+class GATConv(nn.Module):
+    """Graph attention (GAT, and with ``v2`` GATv2) over the mesh's edge
+    list with a self-loop per valid node (:func:`with_self_loops`).
+    Parameters follow the flax modules: GATConv ``lin`` (no bias),
+    ``att_src`` and ``att_dst`` (1, heads, d), with edge features
+    ``lin_edge`` (no bias) and ``att_edge``; GATv2Conv ``lin_l`` and
+    ``lin_r`` (with bias), ``lin_edge`` and ``att``; both ``bias``. Logits
+    are ``leaky_relu(…, 0.2)`` (:func:`gat_logits`), α their edge softmax,
+    and the output ``Σ α · x[src]`` (K7 on a CUDA tensor) concatenated over
+    heads (or their mean) plus ``bias``. ``edge_dim`` is the graph's
+    attribute width (2, or 1 where the config uses no edge attributes).
+    The grid has no edge list: a grid graph raises, as in the JAX
+    package. ``dtype`` is the compute dtype."""
+
+    v2 = False
+
+    def __init__(self, in_channels: int, out_channels: int, heads: int = 1,
+                 concat: bool = True, negative_slope: float = 0.2,
+                 edge_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.heads, self.out_channels, self.concat = heads, out_channels, concat
+        self.negative_slope, self.dtype = negative_slope, dtype
+        hd = heads * out_channels
+        if self.v2:
+            self.lin_l = nn.Linear(in_channels, hd)
+            self.lin_r = nn.Linear(in_channels, hd)
+            self.att = nn.Parameter(torch.zeros(1, heads, out_channels))
+        else:
+            self.lin = nn.Linear(in_channels, hd, bias=False)
+            self.att_src = nn.Parameter(torch.zeros(1, heads, out_channels))
+            self.att_dst = nn.Parameter(torch.zeros(1, heads, out_channels))
+        self.lin_edge = nn.Linear(edge_dim, hd, bias=False) if edge_dim is not None else None
+        if edge_dim is not None and not self.v2:
+            self.att_edge = nn.Parameter(torch.zeros(1, heads, out_channels))
+        self.bias = nn.Parameter(torch.zeros(hd if concat else out_channels))
+
+    def forward(self, x: torch.Tensor, graph: GraphTensors,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        check_edge_mesh(graph)
+        h, d, dt = self.heads, self.out_channels, self.dtype
+        b, n = x.shape[:2]
+        loops = graph.self_loops if graph.self_loops is not None else with_self_loops(graph)
+
+        def heads_view(t):
+            return t.reshape(t.shape[:-1] + (h, d))
+
+        def param(p):
+            return p.to(dt)[0]
+
+        e = None
+        if self.lin_edge is not None:
+            e = heads_view(dense(self.lin_edge, loops.attr, dt))
+        if self.v2:
+            x_l = heads_view(dense(self.lin_l, x, dt))
+            logits = gat_logits(loops, n, True, self.negative_slope, x_l,
+                                heads_view(dense(self.lin_r, x, dt)), e, param(self.att),
+                                None, None)
+        else:
+            x_l = heads_view(dense(self.lin, x, dt))
+            logits = gat_logits(loops, n, False, self.negative_slope, x_l, None, e,
+                                param(self.att_src), param(self.att_dst),
+                                None if e is None else param(self.att_edge))
+        out = gat_attend(loops, n, x_l, logits)
+        out = out.reshape(b, n, h * d) if self.concat else out.mean(dim=-2)
+        return out + self.bias.to(out.dtype)
+
+
+class GATv2Conv(GATConv):
+    """GATv2 (:class:`GATConv` with ``v2``): dynamic attention with
+    ``lin_l``/``lin_r`` and one ``att`` vector."""
+
+    v2 = True
+
+
+# registry (parity: the JAX package's CONVOLUTIONS / CONVOLUTION_KWARGS);
+# "Dummy" is the identity (GraphConv)
+CONVOLUTIONS = {"GCNConv": GCNConv, "ChebConv": ChebConv, "TransformerConv": TransformerConv,
+                "MHTransformerConv": MHTransformerConv, "GATConv": GATConv,
+                "GATv2Conv": GATv2Conv, "Dummy": None}
 CONVOLUTION_KWARGS = {
     "GCNConv": {},
     "ChebConv": dict(K=3),
     "TransformerConv": dict(heads=1, edge_dim=2, dropout=0.1, concat=False),
+    "MHTransformerConv": dict(heads=3, edge_dim=2, dropout=0.1),
+    "GATConv": dict(heads=1, edge_dim=2),
+    "GATv2Conv": dict(heads=1, edge_dim=2),
+    "Dummy": {},
 }
+
+
+def conv_kwargs(convolution_type: str, attr_dim: int) -> dict:
+    """The registry's kwargs of a conv with ``edge_dim`` set to the graph's
+    attribute width ``attr_dim`` (the flax modules infer it from the graph:
+    2, or 1 for GATv2Conv, whose config uses no edge attributes)."""
+    kw = dict(CONVOLUTION_KWARGS[convolution_type])
+    if "edge_dim" in kw:
+        kw["edge_dim"] = attr_dim
+    return kw
+
+
+def make_conv(convolution_type: str, in_channels: int, out_channels: int, attr_dim: int,
+              dtype: torch.dtype = torch.float32) -> nn.Module:
+    """One conv of the registry with its kwargs (:func:`conv_kwargs`)."""
+    return CONVOLUTIONS[convolution_type](in_channels, out_channels,
+                                          **conv_kwargs(convolution_type, attr_dim), dtype=dtype)
+
+
+_SOWS = (TransformerConv, MHTransformerConv)
+
+
+class GraphConv(nn.Module):
+    """A stack of ``n_layers`` convolutions of one type, ``conv_0`` …, with
+    no nonlinearity between them; ``"Dummy"`` is the identity, with no
+    parameters. ``attr_dim`` is the graph's edge-attribute width."""
+
+    def __init__(self, convolution_type: str, in_channels: int, out_channels: int,
+                 n_layers: int = 1, attr_dim: int = 2, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.n_layers = 0 if convolution_type == "Dummy" else n_layers
+        for i in range(self.n_layers):
+            self.add_module(f"conv_{i}", make_conv(convolution_type,
+                                                   in_channels if i == 0 else out_channels,
+                                                   out_channels, attr_dim, dtype))
+
+    def forward(self, x: torch.Tensor, graph: GraphTensors,
+                generator: Optional[torch.Generator] = None,
+                intermediates: Optional[Dict] = None) -> torch.Tensor:
+        """``intermediates``: a dict that receives the α of every attention
+        conv of the stack, in order (:func:`multi_stream_attention`)."""
+        for i in range(self.n_layers):
+            conv = getattr(self, f"conv_{i}")
+            kw = dict(intermediates=intermediates) if isinstance(conv, _SOWS) else {}
+            x = conv(x, graph, generator, **kw)
+        return x
+
+
+def attention_map(intermediates: Dict, graph: GraphTensors) -> torch.Tensor:
+    """The first sown α reduced to a per-node map (B, n_max, 1): the max
+    over each node's incoming edges and heads (on the grid, over its
+    directions and heads), 0 at invalid nodes and nodes with no incoming
+    edge. ``intermediates`` is the dict passed to an attention conv
+    (:func:`multi_stream_attention`)."""
+    alphas = intermediates.get("alpha")
+    if not alphas:
+        raise ValueError("no sown 'alpha' — run an attention conv on an edge list or the grid "
+                         "with an intermediates dict")
+    alpha = alphas[0]
+    if alpha.dim() == 5:  # the grid: (B, D, rows, cols, heads)
+        att = alpha.amax(dim=(1, -1)).reshape(alpha.shape[0], -1)
+        return torch.where(graph.node_valid, att, 0.0)[..., None]
+    b = alpha.shape[0]
+    n = graph.n_max
+    per_edge = torch.where(graph.edge_valid, alpha.amax(dim=-1), float("-inf"))
+    att = per_edge.new_full((b, n + 1), float("-inf")).scatter_reduce(
+        1, graph.edge_dst.clamp(0, n), per_edge, "amax")[:, :n]
+    return torch.where(torch.isfinite(att), att, 0.0)[..., None]
+
+
+def dump_attention_map(path, x, att_map) -> None:
+    """Write (x, att_map) as two stacked ``np.save`` records (the JAX
+    package's format)."""
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    with open(path, "wb") as f:
+        np.save(f, host(x))
+        np.save(f, host(att_map))

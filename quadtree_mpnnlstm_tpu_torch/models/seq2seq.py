@@ -59,8 +59,17 @@ the forward started from, so it sees the forward's masks, and the
 caller's generator advances only once. The replay launches the step's
 kernels again (their launch counters count it) and repeats no host
 synchronisation: the mesh build has none on a CUDA tensor.
-``remesh_input``, preset meshes and the shared-mesh batched layout are not
-ported.
+Cells: ``rnn_type`` picks ``models/cells.py`` ``RNN_CELLS`` (LSTM, GRU,
+SimpleLSTM, SplitLSTM, Dummy); only LSTM and GRU take ``fused_gates``, and
+the GRU's state has no cell norm (its C passes through). ``dummy=True``
+(the JAX package's ablation) skips the recurrence: the encoder returns
+the state it was given and the decoder runs only its head on ``[x ‖
+concat]``, with no tanh and no residual. On an edge-list mesh the GAT
+convolutions' self-loop list (``models/conv.py`` ``with_self_loops``) is
+built once per mesh, with the mesh.
+
+``remesh_input``, ``remesh_every > 1``, preset meshes and the shared-mesh
+batched layout are not ported.
 """
 
 from __future__ import annotations
@@ -76,8 +85,8 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from quadtree_mpnnlstm_tpu_torch.config import GraphConfig, ModelConfig
 from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors, flatten, unflatten
-from quadtree_mpnnlstm_tpu_torch.models.cells import GConvLSTM
-from quadtree_mpnnlstm_tpu_torch.models.conv import CONVOLUTION_KWARGS, CONVOLUTIONS
+from quadtree_mpnnlstm_tpu_torch.models.cells import RNN_CELLS
+from quadtree_mpnnlstm_tpu_torch.models.conv import CONVOLUTIONS, make_conv, with_self_loops
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
 
 
@@ -171,12 +180,15 @@ class _Replay:
         return replay
 
 
+GAT_CONVS = ("GATConv", "GATv2Conv")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=("LSTM",),
+    supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=tuple(RNN_CELLS),
                      fused_gates=(True, False), remesh_every=(1,),
                      compute_dtype=("float32", "bfloat16"))
     # the ROADMAP Queue 1 item that ports the other values
-    item = dict(convolution_type=7, rnn_type=7, remesh_every=8)
+    item = dict(remesh_every=8)
     for field, values in supported.items():
         if getattr(cfg, field) not in values:
             raise ValueError(
@@ -184,84 +196,123 @@ def _check_supported(cfg: ModelConfig) -> None:
                 + (f" (ROADMAP Queue 1 item {item[field]})" if field in item else "")
                 + f"; this path runs {field} in {values!r}"
             )
+    if cfg.convolution_type == "Dummy":
+        raise ValueError("ModelConfig.convolution_type='Dummy' makes every conv the identity: "
+                         "the gates then need inputs as wide as the hidden state and the head "
+                         "returns hidden_size + 1 channels, not one frame (the JAX package's "
+                         "Seq2Seq fails on it too); GraphConv('Dummy') runs inside cells")
     if not 0.0 <= cfg.dropout < 1.0:
         raise ValueError(f"ModelConfig.dropout={cfg.dropout!r} must lie in [0, 1)")
 
 
-def _make_cells(module: nn.Module, cfg: ModelConfig, in_channels: int,
-                n_conv_layers: int) -> None:
+def _make_cells(module: nn.Module, cfg: ModelConfig, in_channels: int, n_conv_layers: int,
+                attr_dim: int) -> None:
     hidden = cfg.hidden_size
+    kw = dict(fused_gates=cfg.fused_gates) if cfg.rnn_type in ("LSTM", "GRU") else {}
     for i in range(cfg.n_layers):
         module.add_module(
-            f"rnn_{i}", GConvLSTM(in_channels if i == 0 else hidden, hidden, n_conv_layers,
-                                  cfg.convolution_type, dtype=cfg.cdtype,
-                                  fused_gates=cfg.fused_gates)
+            f"rnn_{i}", RNN_CELLS[cfg.rnn_type](in_channels if i == 0 else hidden, hidden,
+                                                n_conv_layers, cfg.convolution_type,
+                                                dtype=cfg.cdtype, attr_dim=attr_dim, **kw)
         )
 
 
 class Encoder(nn.Module):
-    """One encoder timestep over stacked cells."""
+    """One encoder timestep over stacked cells; with ``dummy`` the identity
+    on the state (no cells, no norms)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, attr_dim: int = 2):
         super().__init__()
-        self.n_layers = cfg.n_layers
+        self.n_layers, self.dummy = cfg.n_layers, cfg.dummy
+        self.norm_cell = cfg.rnn_type != "GRU"  # a GRU's C passes through unnormalised
+        if cfg.dummy:
+            return
         h = cfg.hidden_size
-        _make_cells(self, cfg, cfg.node_input_features, cfg.n_conv_layers)
+        _make_cells(self, cfg, cfg.node_input_features, cfg.n_conv_layers, attr_dim)
         self.norm_h = LayerNorm(h)
-        self.norm_c = LayerNorm(h)
+        if self.norm_cell:
+            self.norm_c = LayerNorm(h)
 
-    def rnn(self, i: int) -> GConvLSTM:
+    def rnn(self, i: int) -> nn.Module:
         return getattr(self, f"rnn_{i}")
 
+    def _norm(self, h, c):
+        return self.norm_h(h), (self.norm_c(c) if self.norm_cell else c)
+
     def forward(self, x_t, graph, prev_hidden, prev_cell, generator=None):
+        if self.dummy:
+            return prev_hidden, prev_cell
         # Layer 0 consumes the previous timestep's TOP layer state.
         _, h, c = self.rnn(0)(x_t, graph, prev_hidden[-1], prev_cell[-1], generator)
-        hs, cs = [self.norm_h(h)], [self.norm_c(c)]
+        h, c = self._norm(h, c)
+        hs, cs = [h], [c]
         zero = torch.zeros_like(hs[0])
         for i in range(1, self.n_layers):
             _, h, c = self.rnn(i)(hs[-1], graph, zero, zero, generator)
-            hs.append(self.norm_h(h))
-            cs.append(self.norm_c(c))
+            h, c = self._norm(h, c)
+            hs.append(h)
+            cs.append(c)
         return tuple(hs), tuple(cs)
 
 
 class Decoder(nn.Module):
     """One decoder timestep + output head. ``concat_channels`` (0 or 1) is
-    the width of the channel the head appends to the top output."""
+    the width of the channel the head appends to the top output. With
+    ``dummy`` only the head runs, on ``[x ‖ concat]``, with no tanh and no
+    residual."""
 
-    def __init__(self, cfg: ModelConfig, concat_channels: int = 1):
+    def __init__(self, cfg: ModelConfig, concat_channels: int = 1, attr_dim: int = 2):
         super().__init__()
         self.n_layers = cfg.n_layers
-        self.binary = cfg.binary
+        self.binary, self.dummy = cfg.binary, cfg.dummy
         self.dropout = cfg.dropout
+        self.norm_cell = cfg.rnn_type != "GRU"
         h = cfg.hidden_size
         # decoder input is [value, pos_x, pos_y, node_size]; conv stacks are
-        # 1 layer deep
-        _make_cells(self, cfg, 4, 1)
-        conv_cls = CONVOLUTIONS[cfg.convolution_type]
-        kwargs = dict(CONVOLUTION_KWARGS[cfg.convolution_type], dtype=cfg.cdtype)
-        self.fc_out1 = conv_cls(h + concat_channels, h, **kwargs)
-        self.fc_out2 = conv_cls(h, 1, **kwargs)
-        self.norm_o = LayerNorm(h)
-        self.norm_h = LayerNorm(h)
-        self.norm_c = LayerNorm(h)
+        # 1 layer deep. The top output is the cells' (hidden wide), or the
+        # input itself where one Dummy cell passes it through.
+        x_width = 4
+        out_width = x_width if cfg.rnn_type == "Dummy" and cfg.n_layers == 1 else h
+        if cfg.dummy:
+            out_width = x_width
+        else:
+            _make_cells(self, cfg, x_width, 1, attr_dim)
+        head = partial(make_conv, cfg.convolution_type, attr_dim=attr_dim, dtype=cfg.cdtype)
+        self.fc_out1 = head(out_width + concat_channels, h)
+        self.fc_out2 = head(h, 1)
+        if not cfg.dummy:
+            self.norm_o = LayerNorm(out_width)
+            self.norm_h = LayerNorm(h)
+            if self.norm_cell:
+                self.norm_c = LayerNorm(h)
 
-    def rnn(self, i: int) -> GConvLSTM:
+    def rnn(self, i: int) -> nn.Module:
         return getattr(self, f"rnn_{i}")
 
+    def _norm(self, h, c):
+        return self.norm_h(h), (self.norm_c(c) if self.norm_cell else c)
+
+    def _head(self, output, graph, generator):
+        output = self.fc_out1(output, graph, generator)
+        output = self.fc_out2(torch.relu(output), graph, generator)
+        return dropout(output, self.dropout, self.training, generator)
+
     def forward(self, x, graph, concat, hidden, cell, generator=None):
+        if self.dummy:
+            inp = x if concat is None else torch.cat([x, concat.to(x.dtype)], dim=-1)
+            return self._head(inp, graph, generator), hidden, cell
         out, h, c = self.rnn(0)(x, graph, hidden[0], cell[0], generator)
-        hs, cs = [self.norm_h(h)], [self.norm_c(c)]
+        h, c = self._norm(h, c)
+        hs, cs = [h], [c]
         for i in range(1, self.n_layers):
             out, h, c = self.rnn(i)(hs[-1], graph, hidden[i], cell[i], generator)
-            hs.append(self.norm_h(h))
-            cs.append(self.norm_c(c))
+            h, c = self._norm(h, c)
+            hs.append(h)
+            cs.append(c)
         output = torch.relu(self.norm_o(out))
         if concat is not None:
             output = torch.cat([output, concat], dim=-1)
-        output = self.fc_out1(output, graph, generator)
-        output = self.fc_out2(torch.relu(output), graph, generator)
-        output = dropout(output, self.dropout, self.training, generator)
+        output = self._head(output, graph, generator)
         output = torch.tanh(output) + x[..., :1]  # residual on previous value
         if self.binary:
             output = torch.sigmoid(output)
@@ -285,8 +336,19 @@ class Seq2Seq(nn.Module):
         self.remat = remat_mode(remat)
         self.transform_func = transform_func
         self.remeshing = not gcfg.pixelwise
-        self.encoder = Encoder(cfg)
-        self.decoder = Decoder(cfg, concat_channels=int(use_climatology or self.remeshing))
+        self.self_loops = cfg.convolution_type in GAT_CONVS and gcfg.aggregation != "grid"
+        self.encoder = Encoder(cfg, gcfg.edge_dim)
+        self.decoder = Decoder(cfg, concat_channels=int(use_climatology or self.remeshing),
+                               attr_dim=gcfg.edge_dim)
+
+    def _graph(self, frames: torch.Tensor, mask: Optional[torch.Tensor]):
+        """(graph, node features) of ``frames`` (B, T, rows, cols, C), with
+        the GAT convolutions' self-loop list where the model has them."""
+        graph, data = image_to_graph(add_positional_encoding(frames), self.gcfg, mask=mask,
+                                     transform_func=self.transform_func)
+        if self.self_loops:
+            graph = graph.replace(self_loops=with_self_loops(graph))
+        return graph, data
 
     def encode(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None) -> Seq2SeqState:
@@ -303,8 +365,7 @@ class Seq2Seq(nn.Module):
         )
         # the compute-dtype boundary: the graph build, the node features and
         # the recurrence run in cfg.compute_dtype; decode() returns float32
-        graph, data = image_to_graph(add_positional_encoding(x.to(cfg.cdtype)), gcfg, mask=mask,
-                                     transform_func=self.transform_func)
+        graph, data = self._graph(x.to(cfg.cdtype), mask)
         hidden, cell = zeros, zeros
         for t in range(cfg.input_timesteps):
             hidden, cell = self._step(self._encoder_step, generator, data[:, t], graph, hidden,
@@ -426,8 +487,7 @@ class Seq2Seq(nn.Module):
         base = y_hat_t
         if coin is not None:
             base = torch.where(coin[:, None, None, None], y_t.to(y_hat_t.dtype), y_hat_t)
-        new_graph, data = image_to_graph(add_positional_encoding(base[:, None]), self.gcfg,
-                                         mask=mask, transform_func=self.transform_func)
+        new_graph, data = self._graph(base[:, None], mask)
         # running max overflow across the rollout
         new_graph = new_graph.replace(overflow=torch.maximum(new_graph.overflow, graph.overflow))
         return Seq2SeqState(

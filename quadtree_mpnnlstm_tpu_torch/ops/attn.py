@@ -21,9 +21,12 @@ every (slot, head) window entry, or is None for no dropout.
 Everything carries a leading batch axis (one mesh per sample, one launch
 per batch). Dispatch is by device: a CUDA tensor launches the kernel (and
 raises if it cannot be built or launched); a CPU tensor runs the plain
-version. Each kernel launch adds one to :data:`LAUNCHES` (a bf16 launch to
-:data:`LAUNCHES_BF16`). K3's launch geometry is :func:`fwd_plan`'s, a pure
-function of the widths.
+version. Above :data:`MAX_HD` features the kernels run once per group of
+whole heads (:func:`head_groups`: the fewest groups that fit, each on its
+heads' columns); heads are independent, so the groups' outputs side by
+side are the call's. Each kernel launch, each group's too, adds one to
+:data:`LAUNCHES` (a bf16 launch to :data:`LAUNCHES_BF16`). K3's launch
+geometry is :func:`fwd_plan`'s, a pure function of the widths.
 
 q, k, v and Wₑ (and the cotangent) are float32 or bfloat16, all four in
 one dtype; the window attributes and ``keep`` stay float32. In bf16 both
@@ -466,6 +469,70 @@ def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=No
     return dq, dk, dv, dwe_part.sum(dim=(0, 1)).to(we.dtype)
 
 
+# ------------------------------------------------------- head groups
+
+
+def head_groups(heads: int, d: int, limit: int) -> Tuple[Tuple[int, int], ...]:
+    """The fewest groups of whole heads whose width (heads · d) is at most
+    ``limit``, as even as the count allows, as (first head, end) pairs in
+    head order: one group, (0, heads), where heads·d fits. A head wider
+    than ``limit`` raises."""
+    if not 1 <= d <= limit:
+        raise ValueError(f"a head of d={d} features is wider than the kernels' {limit}")
+    n = -(-heads // (limit // d))
+    size, extra = divmod(heads, n)
+    ends = [(i + 1) * size + min(i + 1, extra) for i in range(n)]
+    return tuple(zip([0] + ends[:-1], ends))
+
+
+def _group(x: Optional[torch.Tensor], h0: int, h1: int, d: int) -> Optional[torch.Tensor]:
+    """Columns [h0·d, h1·d) of x's last axis, contiguous."""
+    return None if x is None else x[..., h0 * d:h1 * d].contiguous()
+
+
+def _group_keep(keep: Optional[torch.Tensor], h0: int, h1: int) -> Optional[torch.Tensor]:
+    """The keep windows (B, T, KH, EB) of heads [h0, h1): shared when KH =
+    1, else the rows those heads read (:func:`_slot_keep`)."""
+    if keep is None or keep.shape[2] == 1:
+        return keep
+    rows = torch.arange(h0, h1, device=keep.device).clamp_max(keep.shape[2] - 1)
+    return keep[:, :, rows].contiguous()
+
+
+def attn_fwd_by_groups(fwd, q, k, v, we, keep, meta: AttnMeta, dims: AttnDims,
+                       limit: int = MAX_HD) -> torch.Tensor:
+    """``fwd`` (K3's launcher, or a plain version) on the fewest groups of
+    whole heads of at most ``limit`` features (:func:`head_groups`), each
+    on its heads' columns of q, k, v and Wₑ and its keep rows; the outputs
+    side by side. Heads are independent, so this is the one call's
+    result. One group is the one call, with the operands as given."""
+    groups = head_groups(dims.heads, dims.d, limit)
+    if len(groups) == 1:
+        return fwd(q, k, v, we, keep, meta, dims)
+    d = dims.d
+    return torch.cat([fwd(*(_group(x, h0, h1, d) for x in (q, k, v, we)),
+                          _group_keep(keep, h0, h1), meta, dims._replace(heads=h1 - h0))
+                      for h0, h1 in groups], dim=-1)
+
+
+def attn_bwd_by_groups(bwd, q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g,
+                       view: Optional[SegmentView] = None, limit: int = MAX_HD):
+    """``bwd`` (K4's launcher, or a plain version) by the head groups of
+    :func:`attn_fwd_by_groups`, on each group's columns of the cotangent
+    too; dq, dk, dv and dWₑ are the groups' side by side. The slot view
+    does not depend on the heads: it is built once for all groups."""
+    groups = head_groups(dims.heads, dims.d, limit)
+    if len(groups) == 1:
+        return bwd(q, k, v, we, keep, meta, dims, g, view)
+    if view is None and q.is_cuda:
+        view = slot_view(meta, dims)
+    d = dims.d
+    parts = [bwd(*(_group(x, h0, h1, d) for x in (q, k, v, we)), _group_keep(keep, h0, h1),
+                 meta, dims._replace(heads=h1 - h0), _group(g, h0, h1, d), view)
+             for h0, h1 in groups]
+    return tuple(torch.cat(grads, dim=-1) for grads in zip(*parts))
+
+
 # ------------------------------------------------------- dispatch
 
 
@@ -482,16 +549,20 @@ class AttnApply(torch.autograd.Function):
                               offsets)
         ctx.dims = dims
         meta = AttnMeta(s0, src_rel, dst_rel, attr, live)
-        fwd = _attn_fwd_cuda if q.is_cuda else attn_plain
-        return fwd(q, k, v, we, keep, meta, dims)
+        if q.is_cuda:
+            return attn_fwd_by_groups(_attn_fwd_cuda, q, k, v, we, keep, meta, dims)
+        return attn_plain(q, k, v, we, keep, meta, dims)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         q, k, v, we, keep, *meta, order, offsets = ctx.saved_tensors
         view = None if offsets is None else SegmentView(order, offsets)
-        bwd = _attn_bwd_cuda if g.is_cuda else attn_bwd_plain
-        dq, dk, dv, dwe = bwd(q, k, v, we, keep, AttnMeta(*meta), ctx.dims, g.contiguous(), view)
+        args = (q, k, v, we, keep, AttnMeta(*meta), ctx.dims, g.contiguous(), view)
+        if g.is_cuda:
+            dq, dk, dv, dwe = attn_bwd_by_groups(_attn_bwd_cuda, *args)
+        else:
+            dq, dk, dv, dwe = attn_bwd_plain(*args)
         return (dq, dk, dv, dwe) + (None,) * 9
 
 

@@ -18,11 +18,14 @@ and one launch serves the batch; ``valid`` (P,) is shared by every sample,
 as the graph build's mask is.
 
 Dispatch is by device: a CUDA tensor launches the kernel, and raises if it
-cannot be built or launched or if the shape is one it does not take (H
-above :data:`MAX_H`); a CPU tensor runs the plain version. There is no
-fall back: the JAX package's VMEM and vmap gates are TPU limits. Each
-kernel launch adds one to :data:`LAUNCHES` (a bf16 launch to
-:data:`LAUNCHES_BF16`).
+cannot be built or launched or if the shape is one it does not take (a
+head wider than :data:`MAX_H`); a CPU tensor runs the plain version. Above
+:data:`MAX_H` features the kernels run once per group of whole heads
+(``ops/attn.py`` :func:`head_groups`), each on its heads' columns and keep
+planes; heads are independent, so the groups' outputs side by side are
+the call's. There is no fall back: the JAX package's VMEM and vmap gates
+are TPU limits. Each kernel launch, each group's too, adds one to
+:data:`LAUNCHES` (a bf16 launch to :data:`LAUNCHES_BF16`).
 
 q, k, v, ``e_dir`` and ``valid`` (and the cotangent) are float32 or
 bfloat16, all in one dtype; ``keep`` stays float32. In bf16 both kernels
@@ -50,6 +53,7 @@ import numpy as np
 import torch
 
 from quadtree_mpnnlstm_tpu_torch.ops import spmm
+from quadtree_mpnnlstm_tpu_torch.ops.attn import head_groups
 from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shift_in, shifts_for
 
 # kernel launches since the last reset_launch_counts(), by wrapper name:
@@ -111,6 +115,31 @@ def _head_sum(prod: torch.Tensor, d: int) -> torch.Tensor:
     return out
 
 
+def grid_alpha(q, k, e_dir, valid, dims: GridAttnDims) -> torch.Tensor:
+    """The stencil softmax α (B, D, rows, cols, heads) in f32: per pixel
+    and head, over the valid directions (0 where none is), with K5's sums
+    in K5's order. q, k: (B, P, heads·d); e_dir: (D, heads·d); valid:
+    (P,). Differentiable; the max is detached."""
+    rows, cols, heads, d, ndirs = dims
+    b = q.shape[0]
+    q, k, e_dir = (x.float() for x in (q, k, e_dir))
+    shifts = shifts_for(ndirs == 8)
+    qg, kg = (x.reshape(b, rows, cols, heads, d) for x in (q, k))
+    e = e_dir.reshape(ndirs, 1, 1, 1, heads, d)
+    valid2d = (valid != 0).reshape(1, rows, cols)
+    nbv = torch.stack([neighbor_valid(valid2d, dr, dc) for dr, dc in shifts], dim=1)[..., None]
+    logits = torch.stack([_head_sum(qg * (shift_in(kg, dr, dc) + e[i]), d)
+                          for i, (dr, dc) in enumerate(shifts)], dim=1)
+    logits = torch.where(nbv, logits * _scale(d), _NEG_BIG)  # (B, D, rows, cols, heads)
+    mx = logits.amax(dim=1, keepdim=True).clamp_min(_NEG_BIG).detach()
+    ex = torch.where(nbv, torch.exp(logits - mx), 0.0)
+    den = ex[:, 0]
+    for i in range(1, ndirs):
+        den = den + ex[:, i]
+    den = den[:, None]
+    return torch.where(den != 0, ex / torch.where(den != 0, den, 1.0), 0.0)
+
+
 def grid_attn_plain(q, k, v, e_dir, valid, keep: Optional[torch.Tensor],
                     dims: GridAttnDims) -> torch.Tensor:
     """K5's function in plain PyTorch: the shift/where/softmax chain of the
@@ -126,20 +155,9 @@ def grid_attn_plain(q, k, v, e_dir, valid, keep: Optional[torch.Tensor],
     dtype = q.dtype
     q, k, v, e_dir = (x.float() for x in (q, k, v, e_dir))
     shifts = shifts_for(ndirs == 8)
-    qg, kg, vg = (x.reshape(b, rows, cols, heads, d) for x in (q, k, v))
+    vg = v.reshape(b, rows, cols, heads, d)
     e = e_dir.reshape(ndirs, 1, 1, 1, heads, d)
-    valid2d = (valid != 0).reshape(1, rows, cols)
-    nbv = torch.stack([neighbor_valid(valid2d, dr, dc) for dr, dc in shifts], dim=1)[..., None]
-    logits = torch.stack([_head_sum(qg * (shift_in(kg, dr, dc) + e[i]), d)
-                          for i, (dr, dc) in enumerate(shifts)], dim=1)
-    logits = torch.where(nbv, logits * _scale(d), _NEG_BIG)  # (B, D, rows, cols, heads)
-    mx = logits.amax(dim=1, keepdim=True).clamp_min(_NEG_BIG).detach()
-    ex = torch.where(nbv, torch.exp(logits - mx), 0.0)
-    den = ex[:, 0]
-    for i in range(1, ndirs):
-        den = den + ex[:, i]
-    den = den[:, None]
-    alpha = torch.where(den != 0, ex / torch.where(den != 0, den, 1.0), 0.0)
+    alpha = grid_alpha(q, k, e_dir, valid, dims)
     used = alpha if keep is None else alpha * keep.reshape(alpha.shape)
     out = None
     for i, (dr, dc) in enumerate(shifts):
@@ -269,6 +287,45 @@ def _grid_attn_bwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
     return dq, dk, dv, de_part.sum(dim=(0, 1)).to(e_dir.dtype)
 
 
+# ------------------------------------------------------- head groups
+
+
+def _group_keep(keep: Optional[torch.Tensor], h0: int, h1: int) -> Optional[torch.Tensor]:
+    return None if keep is None else keep[..., h0:h1].contiguous()
+
+
+def grid_fwd_by_groups(fwd, q, k, v, e_dir, valid, keep, dims: GridAttnDims,
+                       limit: int = MAX_H) -> torch.Tensor:
+    """``fwd`` (K5's launcher, or the plain version) on the fewest groups of
+    whole heads of at most ``limit`` features (``ops/attn.py``
+    :func:`head_groups`), each on its heads' columns of q, k, v and
+    ``e_dir`` and its keep planes; the outputs side by side. One group is
+    the one call, with the operands as given."""
+    groups = head_groups(dims.heads, dims.d, limit)
+    if len(groups) == 1:
+        return fwd(q, k, v, e_dir, valid, keep, dims)
+    d = dims.d
+    return torch.cat([fwd(*(x[..., h0 * d:h1 * d].contiguous() for x in (q, k, v, e_dir)),
+                          valid, _group_keep(keep, h0, h1), dims._replace(heads=h1 - h0))
+                      for h0, h1 in groups], dim=-1)
+
+
+def grid_bwd_by_groups(bwd, q, k, v, e_dir, valid, keep, dims: GridAttnDims, g,
+                       limit: int = MAX_H):
+    """``bwd`` (K6's launcher, or the plain version) by the head groups of
+    :func:`grid_fwd_by_groups`, on each group's columns of the cotangent
+    too; dq, dk, dv and ``de_dir`` are the groups' side by side."""
+    groups = head_groups(dims.heads, dims.d, limit)
+    if len(groups) == 1:
+        return bwd(q, k, v, e_dir, valid, keep, dims, g)
+    d = dims.d
+    parts = [bwd(*(x[..., h0 * d:h1 * d].contiguous() for x in (q, k, v, e_dir)), valid,
+                 _group_keep(keep, h0, h1), dims._replace(heads=h1 - h0),
+                 g[..., h0 * d:h1 * d].contiguous())
+             for h0, h1 in groups]
+    return tuple(torch.cat(grads, dim=-1) for grads in zip(*parts))
+
+
 # ------------------------------------------------------- dispatch
 
 
@@ -283,15 +340,19 @@ class GridAttnApply(torch.autograd.Function):
         q, k, v, e_dir = (x.contiguous() for x in (q, k, v, e_dir))
         ctx.save_for_backward(q, k, v, e_dir, valid, keep)
         ctx.dims = dims
-        fwd = _grid_attn_fwd_cuda if q.is_cuda else grid_attn_plain
-        return fwd(q, k, v, e_dir, valid, keep, dims)
+        if q.is_cuda:
+            return grid_fwd_by_groups(_grid_attn_fwd_cuda, q, k, v, e_dir, valid, keep, dims)
+        return grid_attn_plain(q, k, v, e_dir, valid, keep, dims)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         q, k, v, e_dir, valid, keep = ctx.saved_tensors
-        bwd = _grid_attn_bwd_cuda if g.is_cuda else grid_attn_bwd_plain
-        dq, dk, dv, de = bwd(q, k, v, e_dir, valid, keep, ctx.dims, g.contiguous())
+        args = (q, k, v, e_dir, valid, keep, ctx.dims, g.contiguous())
+        if g.is_cuda:
+            dq, dk, dv, de = grid_bwd_by_groups(_grid_attn_bwd_cuda, *args)
+        else:
+            dq, dk, dv, de = grid_attn_bwd_plain(*args)
         return dq, dk, dv, de, None, None, None
 
 

@@ -24,9 +24,14 @@ forecast day (``climatology=`` (366 or 365, rows, cols) on ``train``,
 ``model_kwargs["remat"]`` (default True, the JAX package's) is the model's
 per-step remat while training (``models/seq2seq.py``),
 ``model_kwargs["fused_gates"]=False`` keeps the per-gate parameter layout
-(``models/fused.py``), and ``transform_func`` transforms the quadtree
-split criterion (``graph/quadtree.py`` ``dist_from_05`` for the sea-ice
-quadtree). Dropout and scheduled sampling draw from the predictor's
+(``models/fused.py``), ``model_kwargs["rnn_type"]`` picks the cell and
+``model_kwargs["dummy"]`` the JAX package's dummy mode. As the JAX
+predictor does, MHTransformerConv rides the attention windows on
+``aggregation="pallas"`` (TransformerConv's kernels), and GATConv or
+GATv2Conv on ``aggregation="grid"`` falls back to ``"xla"`` (GAT needs
+the edge list; its sums run on the segment-sum kernel).
+``transform_func`` transforms the quadtree split criterion
+(``graph/quadtree.py`` ``dist_from_05`` for the sea-ice quadtree). Dropout and scheduled sampling draw from the predictor's
 ``generator`` (a ``torch.Generator`` on its device, seeded from ``seed``),
 never from torch's global RNG.
 """
@@ -114,6 +119,7 @@ class NextFramePredictorS2S:
             convolution_type=mk.pop("convolution_type", "ChebConv"),
             rnn_type=mk.pop("rnn_type", "LSTM"),
             binary=binary,
+            dummy=mk.pop("dummy", False),
             remesh_every=mk.pop("remesh_every", 1),
             fused_gates=mk.pop("fused_gates", True),
             compute_dtype=mk.pop(
@@ -138,12 +144,20 @@ class NextFramePredictorS2S:
             use_edge_attrs=self.cfg.uses_edge_attrs,
             **gk,
         )
-        if self.gcfg.aggregation == "pallas" and self.cfg.convolution_type == "TransformerConv":
+        if (self.gcfg.aggregation == "grid"
+                and self.cfg.convolution_type in ("GATConv", "GATv2Conv")):
+            # GAT needs an edge-list mesh (self-loop insertion): the JAX
+            # predictor's fallback
+            print(f"{self.cfg.convolution_type} is unsupported on the dense grid stencil "
+                  "backend; falling back to aggregation='xla'")
+            self.gcfg = self.gcfg.replace(aggregation="xla")
+        attention = ("TransformerConv", "MHTransformerConv")
+        if self.gcfg.aggregation == "pallas" and self.cfg.convolution_type in attention:
             # attention convs ride the attention windows (ops/attn.py), not
             # the GCN/Cheb Â blocks
             self.gcfg = self.gcfg.replace(attn_windows=True)
         if (not carry_edges_explicit and self.gcfg.aggregation == "pallas"
-                and self.cfg.convolution_type in ("GCNConv", "ChebConv", "TransformerConv")):
+                and self.cfg.convolution_type in ("GCNConv", "ChebConv") + attention):
             # aggregation rides the Â blocks or attention windows; the edge
             # list is dead weight (the JAX predictor's list of such convs)
             self.gcfg = self.gcfg.replace(carry_edges=False)

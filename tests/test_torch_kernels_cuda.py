@@ -453,6 +453,31 @@ def test_attn_forward_launches_its_plan(card, heads, d):
     assert attn.LAUNCHES["attn_apply"] == before
 
 
+@pytest.mark.parametrize("heads,d,dropout", [(48, 16, True), (24, 32, False)])
+def test_attn_apply_takes_any_width_by_head_groups(card, heads, d, dropout):
+    """``attn_apply`` at HD 768 (above the kernels' 512): K3 and K4 launch
+    once per group of whole heads (2 here), and the result is the plain
+    version's at the full width, ≤1e-5 (gradients ≤1e-5 × max(1,
+    max|g|)), with keep rows a head."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    (q, k, v, we, keep, meta, dims), gen = _attn_case(card, False, heads, d, dropout)
+    groups = len(attn.head_groups(heads, d, attn.MAX_HD))
+    assert groups == 2
+    leaves = [x.requires_grad_(True) for x in (q, k, v, we)]
+    before = dict(attn.LAUNCHES)
+    out = attn.attn_apply(*leaves, keep, meta, dims)
+    assert attn.LAUNCHES["attn_apply"] == before["attn_apply"] + groups
+    plain_args = [x.detach() for x in leaves] + [keep, meta, dims]
+    torch.testing.assert_close(out.detach(), attn.attn_plain(*plain_args), rtol=0, atol=1e-5)
+    g = torch.randn(out.shape, device=card, generator=gen)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert attn.LAUNCHES["attn_apply_bwd"] == before["attn_apply_bwd"] + groups
+    for name, a, p in zip(("dq", "dk", "dv", "dwe"), grads, attn.attn_bwd_plain(*plain_args, g)):
+        err = float((a - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+
+
 def test_attn_wrappers_reject_bad_inputs(card):
     from quadtree_mpnnlstm_tpu_torch.ops import attn
 
@@ -591,6 +616,32 @@ def test_grid_attn_apply_on_the_card_goes_through_the_kernels(card):
     assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"]
     again = torch.autograd.grad(out, leaves, g)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("dropout", [False, True])
+def test_grid_attn_apply_takes_any_width_by_head_groups(card, dropout):
+    """``grid_attn_apply`` at H 768 (24 heads × 32, above the kernels'
+    256): K5 and K6 launch once per group of whole heads (3), K5's output
+    bit-identical to the plain version's at the full width, K6 ≤1e-5 ×
+    max(1, max|g|), with and without keep planes."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn
+
+    (q, k, v, e_dir, valid, keep, dims), gen = _grid_case(card, 11, 13, 24, 32, 4, dropout)
+    groups = len(attn.head_groups(24, 32, grid_attn.MAX_H))
+    assert groups == 3
+    leaves = [x.requires_grad_(True) for x in (q, k, v, e_dir)]
+    before = dict(grid_attn.LAUNCHES)
+    out = grid_attn.grid_attn_apply(*leaves, valid, keep, dims)
+    assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"] + groups
+    plain_args = [x.detach() for x in leaves] + [valid, keep, dims]
+    assert torch.equal(out.detach(), grid_attn.grid_attn_plain(*plain_args))
+    g = torch.randn(out.shape, device=card, generator=gen)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert grid_attn.LAUNCHES["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + groups
+    for name, a, p in zip(("dq", "dk", "dv", "de_dir"), grads,
+                          grid_attn.grid_attn_bwd_plain(*plain_args, g)):
+        err = float((a - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
 
 
 def test_grid_attn_wrappers_reject_bad_inputs(card):

@@ -118,29 +118,27 @@ def test_init_params_is_seeded():
 
 @pytest.mark.parametrize("model,graph,thresh,ported", [
     (dict(convolution_type="GCNConv"), {}, 0.1, True),
-    (dict(rnn_type="GRU"), {}, 0.1, False),
+    (dict(rnn_type="GRU"), {}, 0.1, True),
     (dict(remesh_every=2), {}, 0.1, False),
     (dict(compute_dtype="bfloat16", convolution_type="TransformerConv"), {}, 0.1, True),
     (dict(compute_dtype="bfloat16"), dict(aggregation="grid", n_max=None, e_max=None,
                                           node_budget=None), float("-inf"), True),
     (dict(compute_dtype="bfloat16"), dict(aggregation="xla", n_max=None, e_max=None,
                                           node_budget=None), float("-inf"), True),
-    (dict(convolution_type="GATConv"), {}, 0.1, False),
+    (dict(convolution_type="GATConv"), {}, 0.1, True),
 ], ids=["convolution_type-GCNConv", "rnn_type-GRU", "remesh_every-2",
         "compute_dtype-bfloat16-TransformerConv", "compute_dtype-bfloat16-grid",
         "compute_dtype-bfloat16-edge-list", "convolution_type-GATConv"])
 def test_unported_model_options_raise(model, graph, thresh, ported):
-    """Options the port does not run raise "not ported" by name, and a
-    conv names the ROADMAP item that ports it (Queue 1 item 7: GAT, GATv2,
-    MHTransformerConv). The options that ran into this check before and
-    are ported now (GCNConv, bf16 TransformerConv on attention windows,
-    bf16 on the grid and on the pixelwise edge list) build, and one
-    forecast step on the CPU gives finite f32 frames."""
+    """Options the port does not run raise "not ported" by name, with the
+    ROADMAP item that ports them (Queue 1 item 8: ``remesh_every``). The
+    options that ran into this check before and are ported now (GCNConv,
+    bf16 TransformerConv on attention windows, bf16 on the grid and on the
+    pixelwise edge list, the GRU cell and GATConv) build, and one forecast
+    step on the CPU gives finite f32 frames."""
     kw = dict(device="cpu", model_kwargs=dict(MODEL, **model), graph_kwargs=dict(GRAPH, **graph))
     if not ported:
-        match = "not ported (ROADMAP Queue 1 item 7)" if "convolution_type" in model \
-            else "not ported"
-        with pytest.raises(ValueError, match=re.escape(match)):
+        with pytest.raises(ValueError, match=re.escape("not ported (ROADMAP Queue 1 item 8)")):
             NextFramePredictorS2S(SHAPE, thresh, **kw)
         return
     tp = NextFramePredictorS2S(SHAPE, thresh, input_timesteps=2, output_timesteps=1, **kw)

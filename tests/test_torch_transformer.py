@@ -364,6 +364,16 @@ def test_eval_forecast_is_deterministic(run):
     (dict(convolution_type="GATv2Conv"), {}),
 ])
 def test_unported_attention_options_raise(model, graph):
-    with pytest.raises(ValueError, match="not ported"):
-        NextFramePredictorS2S(SHAPE, 0.1, device="cpu", model_kwargs=dict(MODEL, **model),
-                              graph_kwargs=dict(GRAPH, **graph))
+    """The attention convs this check rejected before (ROADMAP Queue 1
+    item 7, whatever this test's name says) build, keep the predictor's
+    mesh choices (MHTransformerConv on the attention windows without the
+    edge list, GAT on the quadtree's edge list beside its Â blocks) and
+    give one finite CPU forecast."""
+    tp = NextFramePredictorS2S(SHAPE, 0.1, device="cpu", input_timesteps=2, output_timesteps=1,
+                               model_kwargs=dict(MODEL, **model),
+                               graph_kwargs=dict(GRAPH, **graph))
+    mh = model["convolution_type"] == "MHTransformerConv"
+    assert (tp.gcfg.attn_windows, tp.gcfg.carry_edges) == (mh, not mh)
+    x = np.random.default_rng(0).random((1, 2, *SHAPE, 1)).astype(np.float32)
+    y, overflow, _ = tp.forecast(x)
+    assert y.shape == (1, 1, *SHAPE, 1) and torch.isfinite(y).all() and int(overflow.max()) == 0
