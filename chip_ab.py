@@ -17,8 +17,8 @@ of the transformed criterion on attention windows, a forecast and a
 full-BPTT step). Each in f32 or, with ``--dtype bfloat16``, in bf16
 (``bench.py``'s default dtype; phases 26, 28, 31, 33, 35 and 37).
 ``--remat`` sets the per-step remat of the train steps (default
-``none``, as the numbers before it were taken; ``bench.py`` trains with
-``full``) and ``--per-gate`` the per-gate gate stacks of the flagship
+``none``, as the numbers before it were taken, and ``full`` with
+``--preset``; ``bench.py`` trains with ``full``) and ``--per-gate`` the per-gate gate stacks of the flagship
 (``bench.py``'s default on the pixelwise meshes), so that
 ``--workload ice|ice-xla --dtype bfloat16 --remat full --per-gate``
 times ``bench.py --workload ice|ice-xla`` as it configures it. With ``--workload k7`` the segment-sum kernel K7 alone: on
@@ -28,19 +28,27 @@ TransformerConv model, each in f32 and bf16 (as ``chip_smoke.py`` phases
 quadtree meshes built from the Moving-MNIST frames (phase 27b,
 ``k7_mesh_sets``: F 1, 3, 16 in f32 and bf16); each set bit-identical to
 the entry-ordered sum, timed by CUDA graph and by events beside its bound
-and ``index_add_`` (``k7_measure``).
+and ``index_add_`` (``k7_measure``). With ``--preset heterogeneous`` or
+``homogeneous`` the JAX package's sea-ice experiment 9 or 10 (phases
+50-51: the flagship's model on that preset mesh, a forecast and a
+full-BPTT step under remat full unless ``--remat`` says otherwise), and
+with ``--remesh-input`` or ``--remesh-every N`` the quadtree paths in
+those remeshing modes (phase 52).
 
     python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7]
                        [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
                        [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
+                       [--preset heterogeneous|homogeneous]
+                       [--remesh-input] [--remesh-every N]
                        [--tree DIR] [--reps 5] [--seed 0]
 
 ``--tree`` imports the port's package from another checkout, for example a
 parent commit unpacked into a git-ignored directory, so that one script
 times two versions in turns on one card (parent, change, change, parent);
-this checkout's model factories pass ``remat``, so the other tree's
-predictor must take it.
+this checkout's model factories pass ``remat`` (and ``remesh_every``),
+so the other tree's predictor must take them; ``--preset`` and the
+remeshing modes need a tree that has them.
 Each forecast and each step is timed alone on the host clock, after a
 warm-up, and ends in ``torch.cuda.synchronize()``. Prints one JSON line
 with every sample, its median and the card's name and power limit.
@@ -85,19 +93,34 @@ def main() -> int:
                              "ice|ice-xla; default TransformerConv)")
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                         help="compute dtype of the models")
-    parser.add_argument("--remat", default="none", choices=("none", "full", "mesh", "dots"),
-                        help="per-step remat of the train steps (bench.py: full)")
+    parser.add_argument("--remat", choices=("none", "full", "mesh", "dots"),
+                        help="per-step remat of the train steps (default: full with "
+                             "--preset, else none; bench.py: full)")
     parser.add_argument("--per-gate", action="store_true",
                         help="per-gate gate stacks of the flagship (--workload ice|ice-xla)")
+    parser.add_argument("--preset", choices=("heterogeneous", "homogeneous"),
+                        help="the sea-ice experiment 9 or 10 on its preset mesh")
+    parser.add_argument("--remesh-input", action="store_true",
+                        help="remesh the encoder onto each input frame (--workload quadtree)")
+    parser.add_argument("--remesh-every", type=int, default=1,
+                        help="remesh the decoder every N steps (--workload quadtree)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    if args.remat is None:  # the presets train at full BPTT: remat full
+        args.remat = "full" if args.preset else "none"
     if args.per_gate and args.workload not in ("ice", "ice-xla"):
         parser.error("--per-gate is bench.py's default on the pixelwise meshes "
                      "(--workload ice|ice-xla)")
     if args.conv and args.workload in ("ice-quadtree", "k7"):
         parser.error(f"--workload {args.workload} has its own convolutions")
+    if args.preset and (args.workload != "quadtree" or args.conv or args.per_gate):
+        parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
+                     "the pixelwise edge list)")
+    if (args.remesh_input or args.remesh_every != 1) and (args.workload != "quadtree"
+                                                          or args.preset):
+        parser.error("--remesh-input and --remesh-every apply to --workload quadtree")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
@@ -118,10 +141,14 @@ def main() -> int:
         raise RuntimeError(f"imported the port from {package}, not from {tree}")
     torch.backends.cuda.matmul.allow_tf32 = False
     run_dir = tempfile.TemporaryDirectory()
-    result = {"tree": tree, "card": cs.card_line(), "workload": args.workload,
+    result = {"tree": tree, "card": cs.card_line(),
+              "workload": f"preset-{args.preset}" if args.preset else args.workload,
               "conv": args.conv, "dtype": args.dtype, "remat": args.remat,
-              "fused_gates": not args.per_gate, "reps": args.reps}
-    if args.workload in ("ice", "ice-xla", "ice-quadtree"):
+              "fused_gates": not args.per_gate, "remesh_input": args.remesh_input,
+              "remesh_every": args.remesh_every, "reps": args.reps}
+    if args.preset:
+        _time_preset(cs, args, run_dir.name, result)
+    elif args.workload in ("ice", "ice-xla", "ice-quadtree"):
         _time_ice(cs, args, run_dir.name, result)
     elif args.workload == "k7":
         _time_k7(cs, args, run_dir.name, result)
@@ -150,10 +177,16 @@ def _time_quadtree(cs, args, run_dir: str, result: dict) -> None:
     loader = DataLoader(ds, batch_size=cs.BATCH)
     _, batches = cs.train_batches(args.seed, 1)
     x, y = batches[0]
+    remesh = {}
+    if args.remesh_input:
+        remesh["remesh_input"] = True
+    if args.remesh_every != 1:
+        remesh["remesh_every"] = args.remesh_every
     for conv in (args.conv,) if args.conv else ("ChebConv", "TransformerConv"):
-        model = cs.make_model(args.seed, run_dir, conv, dtype=args.dtype)
+        model = cs.make_model(args.seed, run_dir, conv, dtype=args.dtype, **remesh)
         _record(result, f"{conv}_forecast_s", _timed(lambda: model.predict(loader), args.reps))
-        trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=args.dtype, remat=args.remat)
+        trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=args.dtype, remat=args.remat,
+                                  **remesh)
         _record(result, f"{conv}_step_s",
                 _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps))
         del model, trainer
@@ -230,6 +263,32 @@ def _time_ice(cs, args, run_dir: str, result: dict) -> None:
                                                     truncated_backprop=tbptt)[0]),
                    args.reps))
     del trainer
+    torch.cuda.empty_cache()
+
+
+
+def _time_preset(cs, args, run_dir: str, result: dict) -> None:
+    """Experiment 9 or 10 (``--preset``): a forecast of one window through
+    ``predict`` and a full-BPTT train step on the first window, on the
+    preset mesh built once, as phases 50 and 51 run them."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+
+    data, clim, mask = cs.ice_data(args.seed)
+    mesh = dict(graph_structure=cs.make_preset(args.preset, mask),
+                high_interest_region=cs.synthetic_hir(cs.ICE_SHAPE))
+    window = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
+    model = cs.make_preset_model(args.seed, run_dir, dtype=args.dtype, remat=args.remat)
+    _record(result, "ice_forecast_s",
+            _timed(lambda: model.predict(window, climatology=clim, mask=mask, **mesh),
+                   args.reps))
+    model.initiate_training(lr=cs.LR, lr_decay=0.95)
+    x, y, c = data.x[:1], data.y[:1], model._clim_batch(clim, data.launch_dates[:1])
+    _record(result, "ice_step_s",
+            _timed(lambda: float(model.train_step(x, y, mask=mask, climatology=c, **mesh)[0]),
+                   args.reps))
+    del model
     torch.cuda.empty_cache()
 
 

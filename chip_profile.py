@@ -10,6 +10,8 @@
     python3 chip_profile.py --workload ice-xla --dtype bfloat16 --per-gate --remat full --train
     python3 chip_profile.py --workload ice-quadtree --dtype bfloat16 --remat full [--train]
     python3 chip_profile.py --workload ice --dtype bfloat16 --per-gate --remat full --train
+    python3 chip_profile.py --preset heterogeneous|homogeneous [--dtype bfloat16] [--train]
+    python3 chip_profile.py --remesh-input|--remesh-every 2 [--dtype bfloat16] [--train]
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
@@ -25,15 +27,21 @@ edge list (training with truncated BPTT of 30 steps, full BPTT under
 ``--remat``), or with ``--workload
 ice-quadtree`` ``bench.py``'s ice-quadtree model (``chip_smoke.py``
 ``make_ice_quadtree_model``: remeshing quadtree meshes of the transformed
-criterion, attention windows), under ``torch.profiler`` after
+criterion, attention windows), or with ``--preset heterogeneous`` or
+``homogeneous`` the JAX package's sea-ice experiment 9 or 10 (the
+flagship's model on that preset mesh of its mask, ``chip_smoke.py``
+``make_preset_model``/``make_preset``, remat full unless ``--remat``
+says otherwise: full BPTT), under ``torch.profiler`` after
 a warm-up: the forecast by default, and with ``--train`` the training step
 (``train_step``: fwd + bwd + clipped Adam). Prints one JSON line: wall
 time per batch, the device's busy time and idle share over the profiled
 window, the device time of the hand-written kernels, and the kernels that
 took the most device time. ``--remat`` sets the model's per-step remat
-(default ``none``, as the numbers before it were taken; ``bench.py``
-trains with ``full``) and ``--per-gate`` the per-gate gate layout
-(``bench.py``'s default on the pixelwise meshes). Wall times with the profiler off come first,
+(default ``none``, as the numbers before it were taken, and ``full``
+with ``--preset``; ``bench.py`` trains with ``full``) and ``--per-gate`` the per-gate gate layout
+(``bench.py``'s default on the pixelwise meshes); ``--remesh-input`` and
+``--remesh-every N`` put the main path's model in those remeshing modes
+(``chip_smoke.py`` phase 52). Wall times with the profiler off come first,
 so the profiler's overhead shows as the difference. The time of K1, K2,
 K2b, K3, K4, K5, K6 and K7 is given apiece: their launchers run inside
 ``record_function`` ranges named after their launch counters (K2 and K2b
@@ -94,6 +102,24 @@ def _workload(args, run_dir: str):
     one profiled forecast or train step of the chosen workload."""
     import torch
 
+    if args.preset:
+        data, clim, mask = chip_smoke.ice_data(args.seed)
+        model = chip_smoke.make_preset_model(args.seed, run_dir, dtype=args.dtype,
+                                             remat=args.remat)
+        mesh = dict(graph_structure=chip_smoke.make_preset(args.preset, mask),
+                    high_interest_region=chip_smoke.synthetic_hir(chip_smoke.ICE_SHAPE))
+        windows = [(data.x[i:i + 1], data.y[i:i + 1],
+                    model._clim_batch(clim, data.launch_dates[i:i + 1]))
+                   for i in range(1 + args.reps)]
+        if not args.train:
+            x0, _, c0 = windows[0]
+            run = lambda: model.forecast(x0, mask=mask, climatology=c0, **mesh)  # noqa: E731
+            return 1, "TransformerConv", run, run
+        model.initiate_training(lr=chip_smoke.LR, lr_decay=0.95)
+        step = lambda b: model.train_step(b[0], b[1], mask=mask,  # noqa: E731
+                                          climatology=b[2], **mesh)
+        it = iter(windows[1:] * 3)
+        return 1, "TransformerConv", lambda: step(windows[0]), lambda: step(next(it))
     if args.workload in ("ice", "ice-xla", "ice-quadtree"):
         edge_list = args.workload == "ice-xla"
         data, clim, mask = chip_smoke.ice_data(args.seed)
@@ -123,14 +149,15 @@ def _workload(args, run_dir: str):
         return 1, conv, lambda: step(windows[0]), lambda: step(next(it))
     conv = args.conv or "ChebConv"
     ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
+    remesh = dict(remesh_input=args.remesh_input, remesh_every=args.remesh_every)
     if args.train:
         model = chip_smoke.make_trainer(args.seed, run_dir, conv, dtype=args.dtype,
-                                        remat=args.remat)
+                                        remat=args.remat, **remesh)
         it = iter(batches[1:] * 3)
         return (chip_smoke.BATCH, conv, lambda: model.train_step(*batches[0]),
                 lambda: model.train_step(*next(it)))
     model = chip_smoke.make_model(args.seed, run_dir, conv, dtype=args.dtype,
-                                  remat=args.remat)
+                                  remat=args.remat, **remesh)
     x = torch.as_tensor(ds.x, device="cuda")
     run = lambda: model.forecast(x)  # noqa: E731
     return chip_smoke.BATCH, conv, run, run
@@ -149,11 +176,26 @@ def main() -> int:
                         choices=("mnist", "ice", "ice-xla", "ice-quadtree"))
     parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"),
                         help="compute dtype of the model")
-    parser.add_argument("--remat", default="none", choices=("none", "full", "mesh", "dots"),
-                        help="per-step remat of the training rollout (bench.py: full)")
+    parser.add_argument("--remat", choices=("none", "full", "mesh", "dots"),
+                        help="per-step remat of the training rollout (default: full with "
+                             "--preset, else none; bench.py: full)")
     parser.add_argument("--per-gate", action="store_true",
                         help="per-gate gate stacks (fused_gates=False), --workload ice|ice-xla")
+    parser.add_argument("--preset", choices=("heterogeneous", "homogeneous"),
+                        help="the sea-ice experiment 9 or 10 on its preset mesh")
+    parser.add_argument("--remesh-input", action="store_true",
+                        help="remesh the encoder onto each input frame (the main path)")
+    parser.add_argument("--remesh-every", type=int, default=1,
+                        help="remesh the decoder every N steps (the main path)")
     args = parser.parse_args()
+    if args.remat is None:  # the presets train at full BPTT: remat full
+        args.remat = "full" if args.preset else "none"
+    if args.preset and (args.workload != "mnist" or args.conv or args.per_gate):
+        parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
+                     "the pixelwise edge list)")
+    if (args.remesh_input or args.remesh_every != 1) and (args.workload != "mnist"
+                                                          or args.preset):
+        parser.error("--remesh-input and --remesh-every apply to the main path's model")
     if args.per_gate and args.workload not in ("ice", "ice-xla"):
         parser.error("--per-gate is bench.py's default on the pixelwise meshes only "
                      "(--workload ice or ice-xla)")
@@ -222,7 +264,9 @@ def main() -> int:
             host_range[e.name] += e.time_range.elapsed_us()
     print(json.dumps({
         "card": chip_smoke.card_line(),
-        "workload": args.workload, "path": "train_step" if args.train else "forecast",
+        "workload": f"preset-{args.preset}" if args.preset else args.workload,
+        "path": "train_step" if args.train else "forecast",
+        "remesh_input": args.remesh_input, "remesh_every": args.remesh_every,
         "conv": conv, "dtype": args.dtype, "batch": batch, "remat": args.remat,
         "fused_gates": not args.per_gate,
         "wall_s_per_batch_median": wall[len(wall) // 2],

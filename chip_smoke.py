@@ -114,8 +114,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    10, 21, 27, 27b, 32 and 45 with its path, and ``ms_by_path``, the
    launch-weighted means of the main path, TransformerConv and the edge
    list, each over its own sets; K2's and K2b's add ``gcn_by_width``,
-   phase 43's rows, and K1, K2, K2b and K7 the GCN path's launches), then
-   the card line and the result line;
+   phase 43's rows, and K1, K2, K2b and K7 the GCN path's launches; K7's
+   also the preset meshes' sets of phases 50-51 and every kernel the
+   launches of phases 50-53), then the card line and the result line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
@@ -330,8 +331,45 @@ kernel's launches as read from the code (``expected_*_launches``):
    (one rounding in bf16), 2 launches a call; all timed beside their
    bounds and plain versions.
 
+ROADMAP Queue 1 item 8 and the baselines (phases 50-54), each kernel's
+launches as read from the code (``expected_preset_launches``,
+``expected_remesh_launches``, ``expected_baseline_launches``):
+
+50. the JAX package's sea-ice experiment 9 (``cli/ice_exp.py``): the
+   heterogeneous preset mesh of the flagship's 224×304 mask
+   (``graph/static.py``, ``max_grid_size=4``, ``resolution=1/12``, built
+   once on the card: live nodes and edges beside n_max 68,096 and e_max
+   272,384, overflow 0), the flagship model on it (TransformerConv, fused
+   gates, hidden 32, 1 × 3 layers, climatology, ``dist_from_05``, the
+   synthetic corridor as high-interest region, remat full): a forecast at
+   T_out 90 (every step on the preset, K7 only), ``predict`` over two
+   windows as one batch riding the preset as views (window 0 ≤1e-4 from
+   its forecast alone), K7 on the preset's sets (the sorted edge_dst,
+   edge_src, the pixel map at every F of a forecast and a T_out-6 step)
+   bit-identical to the CPU's entry-ordered sum, timed beside its bound,
+   plain version and ``index_add_``; a full-BPTT step (K7 as read); at
+   T_out 6 a step on K7 against one on its plain version (≤1e-4 ×
+   max(1, max|g|)) and remat full against none, bit for bit; a bf16
+   forecast and full-BPTT step (every K7 in bf16), its K7 sets as above;
+51. the same for experiment 10 (the homogeneous preset mesh);
+52. ``remesh_input`` and ``remesh_every=2`` on ``bench.py``'s model (batch
+   16, ChebConv on Â blocks) in f32 and bf16: a forecast and a train step
+   each (K1, K2, K2b, K7 as read; bf16: only each mesh's node counts in
+   f32), overflow 0; remat full against none (teacher forcing 0.5), bit
+   for bit; a teacher-forced step on the kernels against one on the plain
+   versions (identical meshes; ≤1e-4 × max(1, max|g|), bf16 2e-2);
+53. ``MPNNLSTM`` and ``MPNNLSTMI`` forwards at hidden 32 in f32 and bf16
+   on the flagship's pixelwise edge list (T_in 10, batch 1; K7) and on a
+   ``bench.py`` quadtree mesh's Â blocks (K2), each against the same
+   forward on the plain versions (≤1e-4, bf16 2e-2);
+54. the debug modes: a NaN in a decoder (encoder) weight raises the error
+   that names the decoder step t=0 (the encoder); a clean debug step
+   equals the plain step bit for bit (loss, gradients, updated weights,
+   generator); ``debug_overflow`` raises on an undersized build and is
+   silent on the main path's.
+
 Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38, 43, 45, 46,
-47) swaps each kernel it would launch for its plain version.
+47, 50-53) swaps each kernel it would launch for its plain version.
 
 It fails at once without a CUDA card, and when the port's package is not
 beside it.
@@ -429,19 +467,22 @@ def graph_ms(fn, reps: int = REPS, replays: int = 5) -> float:
 
 
 def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
-               teacher_forcing_ratio: float = 0.0, dtype: str = "float32", remat=False):
+               teacher_forcing_ratio: float = 0.0, dtype: str = "float32", remat=False,
+               remesh_every: int = 1, **extra):
     """``bench.py``'s 64×64 Moving-MNIST model; ``remat`` is the per-step
     remat mode (False for the phases that predate it, so their numbers
-    stay comparable)."""
+    stay comparable); ``extra`` goes to the predictor (``remesh_input``,
+    ``debug``)."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
         image_shape=CANVAS, thresh=0.1,
         input_features=1, input_timesteps=T_IN, output_timesteps=T_OUT,
         device=DEVICE, seed=seed, run_dir=run_dir,
-        teacher_forcing_ratio=teacher_forcing_ratio,
+        teacher_forcing_ratio=teacher_forcing_ratio, **extra,
         model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
-                          convolution_type=conv, compute_dtype=dtype, remat=remat),
+                          convolution_type=conv, compute_dtype=dtype, remat=remat,
+                          remesh_every=remesh_every),
         graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
                           agg_eb=1024, agg_sw=1024, aggregation="pallas"),
     )
@@ -491,9 +532,11 @@ class Capture:
 
 
 def make_trainer(seed: int, run_dir: str, conv: str = "ChebConv",
-                 teacher_forcing_ratio: float = 0.0, dtype: str = "float32", remat=False):
-    """The main path's model, ready to train (Adam at lr 0.01, γ 0.95)."""
-    model = make_model(seed, run_dir, conv, teacher_forcing_ratio, dtype, remat)
+                 teacher_forcing_ratio: float = 0.0, dtype: str = "float32", remat=False,
+                 **extra):
+    """The main path's model, ready to train (Adam at lr 0.01, γ 0.95);
+    ``extra`` as :func:`make_model` takes it."""
+    model = make_model(seed, run_dir, conv, teacher_forcing_ratio, dtype, remat, **extra)
     model.initiate_training(lr=LR, lr_decay=0.95)
     return model
 
@@ -798,19 +841,23 @@ K6_TOL = 1e-5
 
 def make_ice_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
                    aggregation: str = "grid", dtype: str = "float32", remat=False,
-                   fused_gates: bool = True, conv: str = "TransformerConv"):
+                   fused_gates: bool = True, conv: str = "TransformerConv",
+                   transform_func=None):
     """The flagship forecaster (T_out ``t_out``, default 90) on the
     pixelwise grid or, with ``aggregation="xla"``, the pixelwise edge list,
     computing in ``dtype``, with per-step ``remat``, the fused or
-    per-gate gate layout and the convolution ``conv`` (GCNConv: the JAX
-    package's experiment 1, ``cli/ice_exp.py``); random weights from
-    ``seed``."""
+    per-gate gate layout, the convolution ``conv`` (GCNConv: the JAX
+    package's experiment 1, ``cli/ice_exp.py``) and the predictor's
+    ``transform_func``; random weights from ``seed``. Experiments 9 and
+    10 (``ice_exp.py`` :333-366) are this model on the edge list with
+    remat and ``dist_from_05`` (:func:`make_preset_model`)."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
         image_shape=ICE_SHAPE, thresh=float("-inf"), decompose=False,
         input_features=len(ICE_VARS), input_timesteps=ICE_T_IN,
         output_timesteps=ICE_T_OUT if t_out is None else t_out,
+        transform_func=transform_func,
         use_climatology=True, device=DEVICE, seed=seed, run_dir=run_dir,
         model_kwargs=dict(hidden_size=32, dropout=0.1, n_layers=1, n_conv_layers=3,
                           convolution_type=conv, fused_gates=fused_gates,
@@ -4361,6 +4408,544 @@ def add_item7_paths(f32_entries, bf16_entries, item7: dict) -> None:
                 entry["ms_by_path"]["gat"] = k7_path_means(rows)
 
 
+# ROADMAP Queue 1 item 8 and item 7's last part (phases 50-54): the sea-ice
+# experiments 9 and 10 on their preset meshes (cli/ice_exp.py :70-75,
+# :317-366, :425-453), the remeshing modes of bench.py's model, the
+# MPNNLSTM/MPNNLSTMI baselines and the debug modes.
+PRESET_KINDS = {"heterogeneous": 9, "homogeneous": 10}
+PRESET_GRID, PRESET_RESOLUTION = 4, 1 / 12  # ice_exp.py's preset GraphConfig
+REMESH_MODES = {"remesh_input": dict(remesh_input=True), "remesh_every_2": dict(remesh_every=2)}
+BASELINE_HIDDEN = 32
+
+
+def synthetic_hir(shape):
+    """The JAX package's synthetic shipping corridor (``cli/ice_exp.py``
+    ``synthetic_hir``): a diagonal band across the grid."""
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    return np.abs(yy / shape[0] - xx / shape[1]) < 0.08
+
+
+def make_preset_model(seed: int, run_dir: str = "runs", **kw):
+    """The model of experiments 9 and 10: :func:`make_ice_model` on the
+    pixelwise edge list (no graph_kwargs: ``aggregation="xla"``) with
+    ``dist_from_05`` and remat at the predictor's default (full); ``kw``
+    as there."""
+    from quadtree_mpnnlstm_tpu_torch.graph.quadtree import dist_from_05
+
+    return make_ice_model(seed, run_dir, **{"aggregation": "xla", "remat": True,
+                                             "transform_func": dist_from_05, **kw})
+
+
+def make_preset(kind: str, mask):
+    """Experiment 9's (``heterogeneous``) or 10's (``homogeneous``) preset
+    mesh of the 224×304 mask, built once on the card."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
+    from quadtree_mpnnlstm_tpu_torch.graph import static
+
+    cfg = GraphConfig(image_shape=ICE_SHAPE, max_grid_size=PRESET_GRID,
+                      resolution=PRESET_RESOLUTION, use_edge_attrs=True)
+    mask_t = torch.as_tensor(mask, device=DEVICE)
+    if kind == "heterogeneous":
+        return static.create_static_heterogeneous_graph(cfg, mask=mask_t, device=DEVICE)
+    return static.create_static_homogeneous_graph(cfg, mask_t, device=DEVICE)
+
+
+def expected_preset_launches(cfg, t_out: int, train: bool = False) -> int:
+    """K7 launches of one forecast on a preset mesh (``train``: one
+    full-BPTT step under remat full), read from the code: as on the
+    pixelwise edge list (:func:`expected_edge_launches`) but for the mesh
+    build, which the preset did once: an encode pools the inputs and no
+    node counts or degrees. A train step's replays repeat every attention
+    call's aggregation."""
+    k7 = expected_edge_launches(cfg, t_out, train=train) - 2
+    if train:
+        k7 += _attention_calls(cfg, t_out)
+    return k7
+
+
+def expected_remesh_launches(cfg, train: bool = False) -> dict:
+    """K1, K2, K2b and K7 launches of one forecast batch (``train``: one
+    full-BPTT train step without remat) of ``bench.py``'s ChebConv model
+    under ``remesh_input`` or ``remesh_every``, read from the code. K1 once
+    a mesh: the encoder's (with ``remesh_input`` the first frame's and one
+    for each later input frame) and one after each decoder step t with (t
+    + 1) % remesh_every == 0. K2 as with a remesh every step (a step that
+    keeps its mesh runs its cells and head all the same), K2b for all of
+    them but encoder step 0's first conv layer (:func:`expected_launches`).
+    K7 three times a mesh (node counts, pooling, degrees) and once for
+    each layer's H and C carried onto a new mesh; a train step's backward
+    adds the gather of every decoder frame and of each carried H and C
+    that reaches the loss: an encoder step reads only the top layer's
+    state of the step before it (the reference's quirk), the decoder every
+    layer's, and a remesh after the last step feeds nothing."""
+    enc_meshes = cfg.input_timesteps if cfg.remesh_input else 1
+    remeshes = sum((t + 1) % cfg.remesh_every == 0 for t in range(cfg.output_timesteps))
+    carried = 2 * cfg.n_layers * (enc_meshes - 1 + remeshes)
+    k2 = 2 * (cfg.input_timesteps * cfg.n_layers * cfg.n_conv_layers
+              + cfg.output_timesteps * (cfg.n_layers + 2))
+    want = {"spmm_build_blocks": enc_meshes + remeshes, "spmm_apply": k2,
+            "segment_sum": 3 * (enc_meshes + remeshes) + carried}
+    if train:
+        last = 1 if cfg.output_timesteps % cfg.remesh_every == 0 else 0
+        want["spmm_apply_bwd"] = k2 - 2
+        want["segment_sum"] += (cfg.output_timesteps + 2 * (enc_meshes - 1)
+                                + 2 * cfg.n_layers * (remeshes - last))
+    return want
+
+
+def expected_baseline_launches(kind: str, t_in: int, n_layers: int = 2) -> int:
+    """Aggregations (K7 on an edge list, K2 on Â blocks) of one forward,
+    read from the code: ``MPNNLSTM``'s three GCN blocks aggregate every
+    frame in one Â·z each; each ``MPNNLSTMI`` GCN cell once a frame (its
+    fused stack aggregates all its gate streams at once)."""
+    return 3 if kind == "MPNNLSTM" else t_in * n_layers
+
+
+def item8_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
+                 loader, x) -> dict:
+    """Phases 50-54; returns what the kernels line adds: K7's rows on the
+    preset meshes' sets in f32 and bf16, and each new path's launches."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
+    from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
+    from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph, pixelwise_graph
+    from quadtree_mpnnlstm_tpu_torch.models.mpnnlstm import MPNNLSTM, MPNNLSTMI
+    from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
+    from quadtree_mpnnlstm_tpu_torch.utils.weights import init_params
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn, segment_sum)
+    bf16 = torch.bfloat16
+    out = {"preset": {}, "remesh": {}, "baselines": {}}
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    def f32_launches():
+        return nonzero({k: v for m in modules for k, v in m.LAUNCHES.items()})
+
+    def bf16_launches():
+        return nonzero({k: v for m in modules for k, v in m.LAUNCHES_BF16.items()})
+
+    def grads_of(trainer):
+        return {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    plain_k7 = [(segment_sum, "_segment_sum_cuda", k7_plain)]
+    plain_blocks = [(spmm, "_build_blocks_cuda", spmm.build_blocks_plain),
+                    (spmm, "_apply_cuda", spmm.apply_plain),
+                    (spmm, "_apply_bwd_cuda", spmm.apply_plain)] + plain_k7
+
+    def plain(patches):
+        stack = contextlib.ExitStack()
+        for module, name, fn in patches:
+            stack.enter_context(mock.patch.object(module, name, fn))
+        return stack
+
+    # ---- phases 50 and 51: experiments 9 and 10 on their preset meshes
+    data, clim, mask = ice_data(seed)
+    hir = synthetic_hir(ICE_SHAPE)
+    x0, y0, ld0 = data.x[:1], data.y[:1], data.launch_dates[:1]
+    p = ICE_SHAPE[0] * ICE_SHAPE[1]
+    windows = ArrayDataset(data.x[:2], data.y[:2], data.launch_dates[:2])
+    k7_rows = {"float32": [], "bfloat16": []}
+    for kind, exp in PRESET_KINDS.items():
+        t0 = time.perf_counter()
+        preset = make_preset(kind, mask)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        live = {"nodes": int(preset.n_nodes[0]), "edges": int(preset.n_edges[0])}
+        check(int(preset.overflow.max()) == 0 and preset.n_max == p
+              and preset.edge_src.shape[1] == 4 * p
+              and None not in (preset.pixel_view, preset.dst_view, preset.src_view),
+              f"experiment {exp} preset: overflow {int(preset.overflow.max())}, capacities "
+              f"{preset.n_max}/{preset.edge_src.shape[1]}, views")
+        model = make_preset_model(seed, run_dir.name)
+        cfg = model.cfg
+        check(model.gcfg.aggregation == "xla" and model.gcfg.pixelwise
+              and model.model.remat == "full" and cfg.fused_gates
+              and (model.gcfg.n_max, model.gcfg.e_max) == (p, 4 * p),
+              f"experiment {exp} configuration: {cfg}, {model.gcfg}")
+        clim0 = model._clim_batch(clim, ld0)
+        mesh = dict(high_interest_region=hir, graph_structure=preset)
+        model.forecast(x0, mask=mask, climatology=clim0, **mesh)  # warm-up
+        torch.cuda.synchronize()
+        reset()
+        got = {}
+        t0 = time.perf_counter()
+        fwd_peak = peak_above_start_gib(lambda: got.update(
+            y=model.forecast(x0, mask=mask, climatology=clim0, **mesh)))
+        forecast_s = time.perf_counter() - t0
+        fwd = nonzero(launch_totals(modules))
+        y_f, ovf, meshes = got["y"]
+        k7_fwd = expected_preset_launches(cfg, ICE_T_OUT)
+        check(bool(torch.isfinite(y_f).all()) and int(ovf.max()) == 0
+              and bool((meshes == preset.pixel_node[0]).all()),
+              f"experiment {exp} forecast: finite {bool(torch.isfinite(y_f).all())}, overflow "
+              f"{int(ovf.max())}, every step on the preset")
+        check(fwd == {"segment_sum": k7_fwd},
+              f"experiment {exp} forecast launches {fwd}, expected K7 {k7_fwd}")
+        # predict over two windows, the batch riding the preset as views
+        reset()
+        y2 = model.predict(DataLoader(windows, batch_size=2), climatology=clim, mask=mask, **mesh)
+        check(y2.shape == (2, ICE_T_OUT, *ICE_SHAPE, 1) and bool(np.isfinite(y2).all())
+              and model.last_overflow == 0
+              and model.model._preset_cache[1] == 2
+              and model.model._preset_cache[2].edge_src.stride(0) == 0,
+              f"experiment {exp} predict over 2 windows: {y2.shape}")
+        check(nonzero(launch_totals(modules)) == {"segment_sum": k7_fwd},
+              f"experiment {exp} predict launches {nonzero(launch_totals(modules))}")
+        first = float(np.abs(y2[0] - y_f[0].cpu().numpy()).max())
+        check(first <= ROLLOUT_TOL, f"experiment {exp}: window 0 alone and in a batch of 2 "
+              f"differ by {first}")
+        del got, y_f, y2
+        # the K7 sets of a forecast and a T_out-6 step, measured as phase 21
+        short = make_preset_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT)
+        short.initiate_training(lr=LR, lr_decay=0.95)
+        y_s, clim_s = y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]
+        with SegmentCapture(segment, p, keep=True) as cap:
+            model.forecast(x0, mask=mask, climatology=clim0, **mesh)
+        with SegmentCapture(segment, p, keep=True) as cap_t:
+            short.train_step(x0, y_s, mask=mask, climatology=clim_s, **mesh)
+        sets = {**cap_t.ops, **cap.ops}
+        rows = [dict(k7_measure(segment_sum, key, sets[key], cap_t.calls.get(key, 0)),
+                     path=f"preset_{kind}", live_edges=live["edges"])
+                for key in sorted(sets)]
+        check({"dst", "src", "pixel"} <= {w["ids"] for w in rows},
+              f"experiment {exp} K7 sets {[(w['ids'], w['F']) for w in rows]}")
+        k7_rows["float32"] += rows
+        del cap, cap_t, sets, short
+        torch.cuda.empty_cache()
+        # one full-BPTT step at full width (remat full)
+        model.initiate_training(lr=LR, lr_decay=0.95)
+        batch = (x0, y0)
+        reset()
+        step = {}
+        t0 = time.perf_counter()
+        step_peak = peak_above_start_gib(lambda: step.update(out=model.train_step(
+            *batch, mask=mask, climatology=clim0, **mesh)))
+        step_s = time.perf_counter() - t0
+        train = nonzero(launch_totals(modules))
+        k7_step = expected_preset_launches(cfg, ICE_T_OUT, train=True)
+        check(bool(torch.isfinite(step["out"][0])) and int(step["out"][1]) == 0,
+              f"experiment {exp} step: loss {float(step['out'][0])}")
+        check(train == {"segment_sum": k7_step},
+              f"experiment {exp} step launches {train}, expected K7 {k7_step}")
+        loss = float(step["out"][0])
+        del model, step
+        torch.cuda.empty_cache()
+
+        # a T_out-6 step on K7 against one on its plain version; remat full
+        # against none, bit for bit
+        def short_step(remat="full", patches=(), dtype="float32"):
+            tr = make_preset_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, remat=remat,
+                                   dtype=dtype)
+            tr.initiate_training(lr=LR, lr_decay=0.95)
+            gen = torch.Generator(device=DEVICE).manual_seed(1)
+            with plain(patches):
+                loss_, _ = tr.train_step(x0, y_s, mask=mask, climatology=clim_s, generator=gen,
+                                         **mesh)
+            return loss_, grads_of(tr), gen.get_state()
+
+        kern, none = short_step(), short_step("none")
+        same = (torch.equal(kern[0], none[0]) and torch.equal(kern[2], none[2])
+                and all(torch.equal(kern[1][n], g) for n, g in none[1].items()))
+        check(same, f"experiment {exp}: remat full step differs from remat none")
+        vs_plain = _leaf_err(kern[1], short_step(patches=plain_k7)[1])
+        check(vs_plain <= GRAD_TOL, f"experiment {exp}: K7 step vs plain {vs_plain}")
+        del kern, none
+        torch.cuda.empty_cache()
+        # bf16: a forecast and a full-BPTT step at full width, and K7's bf16
+        # sets of a forecast and a T_out-6 step
+        model = make_preset_model(seed, run_dir.name, dtype="bfloat16")
+        model.forecast(x0, mask=mask, climatology=clim0, **mesh)  # warm-up
+        torch.cuda.synchronize()
+        reset()
+        got = {}
+        t0 = time.perf_counter()
+        bf16_fwd_peak = peak_above_start_gib(lambda: got.update(
+            y=model.forecast(x0, mask=mask, climatology=clim0, **mesh)))
+        bf16_forecast_s = time.perf_counter() - t0
+        bf16_fwd, bf16_fwd_f32 = nonzero(launch_totals(modules)), f32_launches()
+        check(bool(torch.isfinite(got["y"][0]).all())
+              and bf16_fwd == {"segment_sum": k7_fwd} and not bf16_fwd_f32,
+              f"experiment {exp} bf16 forecast launches {bf16_fwd} (f32 {bf16_fwd_f32})")
+        with SegmentCapture(segment, p, keep=True, dtype=bf16) as cap:
+            model.forecast(x0, mask=mask, climatology=clim0, **mesh)
+        del got
+        short = make_preset_model(seed, run_dir.name, t_out=ICE_SHORT_T_OUT, dtype="bfloat16")
+        short.initiate_training(lr=LR, lr_decay=0.95)
+        with SegmentCapture(segment, p, keep=True, dtype=bf16) as cap_t:
+            short.train_step(x0, y_s, mask=mask, climatology=clim_s, **mesh)
+        sets = {**cap_t.ops, **cap.ops}
+        k7_rows["bfloat16"] += [dict(k7_measure(segment_sum, key, sets[key],
+                                                cap_t.calls.get(key, 0), BF16_TOL),
+                                     path=f"preset_{kind}", live_edges=live["edges"])
+                                for key in sorted(sets)]
+        del cap, cap_t, sets, short
+        model.initiate_training(lr=LR, lr_decay=0.95)
+        reset()
+        step = {}
+        t0 = time.perf_counter()
+        bf16_step_peak = peak_above_start_gib(lambda: step.update(out=model.train_step(
+            *batch, mask=mask, climatology=clim0, **mesh)))
+        bf16_step_s = time.perf_counter() - t0
+        bf16_train, bf16_train_f32 = nonzero(launch_totals(modules)), f32_launches()
+        check(bool(torch.isfinite(step["out"][0])) and int(step["out"][1]) == 0
+              and bf16_train == {"segment_sum": k7_step} and not bf16_train_f32,
+              f"experiment {exp} bf16 step: loss {float(step['out'][0])}, launches "
+              f"{bf16_train} (f32 {bf16_train_f32})")
+        check(all(q.dtype == q.grad.dtype == torch.float32 for q in model.model.parameters()),
+              f"experiment {exp}: a bf16 master weight or gradient is not float32")
+        bf16_loss = float(step["out"][0])
+        del model, step, preset
+        torch.cuda.empty_cache()
+        out["preset"][kind] = dict(forecast=fwd, train=train, bf16_forecast=bf16_fwd,
+                                   bf16_train=bf16_train)
+        print(json.dumps({
+            "phase": f"experiment_{exp}_{kind}", "card": card, "mesh": "edge_list",
+            "n_max": p, "e_max": 4 * p, "live_nodes": live["nodes"],
+            "live_edges": live["edges"], "live_edge_share": live["edges"] / (4 * p),
+            "overflow": 0, "build_s": build_s, "t_out": ICE_T_OUT, "truncated_backprop": 0,
+            "remat": "full", "s_per_forecast": forecast_s,
+            "forecast_peak_above_start_gib": fwd_peak, "forecast_launches": fwd,
+            "loss": loss, "step_s": step_s, "step_peak_above_start_gib": step_peak,
+            "launches_per_step": train, "short_t_out": ICE_SHORT_T_OUT,
+            "remat_full_vs_none_bit_identical": same, "k7_vs_plain_max_leaf_err_rel": vs_plain,
+            "bf16": {"s_per_forecast": bf16_forecast_s, "forecast_launches": bf16_fwd,
+                     "forecast_peak_above_start_gib": bf16_fwd_peak, "loss": bf16_loss,
+                     "step_s": bf16_step_s, "launches_per_step": bf16_train,
+                     "step_peak_above_start_gib": bf16_step_peak},
+            "k7_by_set": [w for w in k7_rows["float32"] if w["path"] == f"preset_{kind}"],
+            "k7_bf16_by_set": [w for w in k7_rows["bfloat16"] if w["path"] == f"preset_{kind}"],
+        }), flush=True)
+    out["k7"] = k7_rows
+    del clim, windows
+
+    # ---- phase 52: remesh_input and remesh_every=2 on bench.py's model
+    _, batches = train_batches(seed, 1)
+    x_b, y_b = batches[0]
+    rows52 = {}
+    for name, kw in REMESH_MODES.items():
+        for dtype in ("float32", "bfloat16"):
+            model = make_model(seed, run_dir.name, dtype=dtype, **kw)
+            cfg = model.cfg
+            model.predict(loader)  # warm-up
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            y = model.predict(loader)
+            torch.cuda.synchronize()
+            forecast_s = time.perf_counter() - t0
+            fwd, fwd_f32 = nonzero(launch_totals(modules)), f32_launches()
+            want = expected_remesh_launches(cfg)
+            meshes = want["spmm_build_blocks"]
+            check(y.shape == (BATCH, T_OUT, *CANVAS, 1) and bool(np.isfinite(y).all())
+                  and model.last_overflow == 0,
+                  f"{name} {dtype} forecast: finite {bool(np.isfinite(y).all())}, overflow "
+                  f"{model.last_overflow}")
+            check(fwd == want and (dtype == "float32" or fwd_f32 == {"segment_sum": meshes}),
+                  f"{name} {dtype} forecast launches {fwd} (f32 {fwd_f32}), expected {want}")
+            trainer = make_model(seed, run_dir.name, dtype=dtype, **kw)
+            trainer.initiate_training(lr=LR, lr_decay=0.95)
+            reset()
+            t0 = time.perf_counter()
+            loss, overflow = trainer.train_step(x_b, y_b)
+            check(bool(torch.isfinite(loss)) and int(overflow) == 0,
+                  f"{name} {dtype} step: loss {float(loss)}, overflow {int(overflow)}")
+            step_s = time.perf_counter() - t0
+            train, train_f32 = nonzero(launch_totals(modules)), f32_launches()
+            want_t = expected_remesh_launches(cfg, train=True)
+            check(train == want_t and (dtype == "float32"
+                                       or train_f32 == {"segment_sum": meshes}),
+                  f"{name} {dtype} step launches {train} (f32 {train_f32}), expected {want_t}")
+
+            # remat full against none; a teacher-forced step (every decoder
+            # mesh from a true frame) on the kernels against the plain
+            # versions
+            def step_of(remat=False, patches=(), tf=0.0):
+                tr = make_model(seed, run_dir.name, dtype=dtype, remat=remat,
+                                teacher_forcing_ratio=tf, **kw)
+                tr.initiate_training(lr=LR, lr_decay=0.95)
+                with plain(patches):
+                    loss_, _, grads, meshes_ = step_with_meshes(tr, x_b, y_b, seed=1)
+                return loss_, grads, meshes_
+
+            full, none = step_of("full", tf=0.5), step_of(False, tf=0.5)
+            same = (torch.equal(full[0], none[0]) and torch.equal(full[2], none[2])
+                    and all(torch.equal(full[1][n], g) for n, g in none[1].items()))
+            check(same, f"{name} {dtype}: remat full step differs from remat none")
+            kern, ref = step_of(tf=1.0), step_of(patches=plain_blocks, tf=1.0)
+            check(torch.equal(kern[2], ref[2]), f"{name} {dtype}: kernel and plain steps ran "
+                  "on different meshes")
+            err = _leaf_err(kern[1], ref[1])
+            tol = GRAD_TOL if dtype == "float32" else BF16_GRAD_TOL
+            check(err <= tol, f"{name} {dtype}: step vs plain versions {err}")
+            rows52[name, dtype] = dict(
+                mode=name, dtype=dtype, batch_s=forecast_s, forecast_launches=fwd,
+                forecast_f32_launches=fwd_f32, loss=float(loss), step_s=step_s,
+                launches_per_step=train, f32_launches_per_step=train_f32,
+                remat_full_vs_none_bit_identical=same, vs_plain_max_leaf_err_rel=err)
+            del model, trainer, full, none, kern, ref
+            torch.cuda.empty_cache()
+    out["remesh"] = rows52
+    print(json.dumps({"phase": "remesh_modes", "card": card, "batch": BATCH,
+                      "rows": list(rows52.values())}), flush=True)
+
+    # ---- phase 53: MPNNLSTM and MPNNLSTMI forwards
+    ice_x = torch.as_tensor(data.x[:1], device=DEVICE)
+    ice_mask_t = torch.as_tensor(mask, device=DEVICE)
+    edge_cfg = GraphConfig(image_shape=ICE_SHAPE, thresh=float("-inf"))
+    quad_cfg = make_model(seed, run_dir.name).gcfg
+    rows53 = []
+    for dtype in (torch.float32, bf16):
+        graphs = {"edge_list": pixelwise_graph(add_positional_encoding(ice_x.to(dtype)),
+                                               edge_cfg, mask=ice_mask_t),
+                  "blocks": image_to_graph(add_positional_encoding(x[:1].to(dtype)), quad_cfg)}
+        for mesh_name, (graph, data_) in graphs.items():
+            frames = data_[0]
+            t_in, features = frames.shape[0], frames.shape[-1]
+            for kind, cls, kw in (("MPNNLSTM", MPNNLSTM, dict(input_timesteps=t_in)),
+                                  ("MPNNLSTMI", MPNNLSTMI, dict(n_layers=2))):
+                model = cls(features, BASELINE_HIDDEN, dtype=dtype, **kw).to(DEVICE).eval()
+                init_params(model, torch.Generator().manual_seed(seed))
+                with torch.no_grad():
+                    model(frames, graph)  # warm-up
+                    torch.cuda.synchronize()
+                    reset()
+                    t0 = time.perf_counter()
+                    y = model(frames, graph)
+                    torch.cuda.synchronize()
+                    forward_s = time.perf_counter() - t0
+                    # the run's dtype counts its launches; the other dtype
+                    # must have launched nothing
+                    launches, other = f32_launches(), bf16_launches()
+                    if dtype == bf16:
+                        launches, other = other, launches
+                    with plain(plain_blocks):
+                        y_plain = model(frames, graph)
+                n_agg = expected_baseline_launches(kind, t_in)
+                want = ({"segment_sum": n_agg} if mesh_name == "edge_list"
+                        else {"spmm_apply": n_agg})
+                err = float((y - y_plain).abs().max())
+                tol = ROLLOUT_TOL if dtype == torch.float32 else BF16_FRAME_TOL
+                check(y.shape == (graph.n_max, 1) and y.dtype == torch.float32
+                      and bool(torch.isfinite(y).all()) and launches == want and not other
+                      and err <= tol,
+                      f"{kind} on {mesh_name} ({dtype}): shape {tuple(y.shape)}, launches "
+                      f"{launches} (other dtype {other}), expected {want}, vs plain {err}")
+                rows53.append(dict(model=kind, mesh=mesh_name, dtype=str(dtype)[6:],
+                                   n_max=graph.n_max, t_in=t_in, forward_s=forward_s,
+                                   launches=launches, vs_plain_max_abs_err=err))
+                del model
+        del graphs
+    out["baselines"] = rows53
+    print(json.dumps({"phase": "mpnnlstm_baselines", "card": card, "hidden": BASELINE_HIDDEN,
+                      "rows": rows53}), flush=True)
+    del data, ice_x
+    torch.cuda.empty_cache()
+
+    # ---- phase 54: the debug modes
+    debug_rows = {}
+    for needle, message in (("decoder", "non-finite output in module=decoder at rollout step "
+                                        "t=0"),
+                            ("encoder", "non-finite hidden state in module=encoder "
+                                        "(fixed-mesh scan step)")):
+        trainer = make_model(seed, run_dir.name, debug=True)
+        trainer.initiate_training(lr=LR, lr_decay=0.95)
+        with torch.no_grad():
+            for n, q in trainer.model.named_parameters():
+                if n.startswith(needle + "."):
+                    q.fill_(float("nan"))
+        try:
+            trainer.train_step(x_b, y_b)
+            raised = None
+        except ValueError as exc:
+            raised = str(exc)
+        check(raised is not None and message in raised,
+              f"a NaN {needle} weight raised {raised!r}, not {message!r}")
+        debug_rows[needle] = raised
+        del trainer
+    steps = {}
+    for debug in (False, True):
+        trainer = make_model(seed, run_dir.name, debug=debug, teacher_forcing_ratio=0.5)
+        trainer.initiate_training(lr=LR, lr_decay=0.95)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        loss, _ = trainer.train_step(x_b, y_b, generator=gen)
+        steps[debug] = (loss, grads_of(trainer), gen.get_state(),
+                        {n: q.detach().clone() for n, q in trainer.model.named_parameters()})
+        del trainer
+    clean = (torch.equal(steps[True][0], steps[False][0])
+             and torch.equal(steps[True][2], steps[False][2])
+             and all(torch.equal(steps[True][k][n], v) for k in (1, 3)
+                     for n, v in steps[False][k].items()))
+    check(clean, "a clean debug step differs from the plain step")
+    frames = add_positional_encoding(x[:2])
+    overflow_cfg = quad_cfg.replace(debug_overflow=True)
+    graph, _ = image_to_graph(frames, overflow_cfg)
+    try:
+        image_to_graph(frames, overflow_cfg.replace(n_max=64, e_max=256, node_budget=None,
+                                                    aggregation="xla", carry_edges=True))
+        overflow_raised = None
+    except RuntimeError as exc:
+        overflow_raised = str(exc)
+    check(int(graph.overflow.max()) == 0 and overflow_raised is not None
+          and "graph capacity overflow" in overflow_raised,
+          f"debug_overflow: silent build overflow {int(graph.overflow.max())}, undersized "
+          f"build raised {overflow_raised!r}")
+    print(json.dumps({"phase": "debug_modes", "card": card, "nan_messages": debug_rows,
+                      "clean_debug_step_bit_identical": clean,
+                      "overflow_message": overflow_raised}), flush=True)
+    run_dir.cleanup()
+    return out
+
+
+def add_item8_paths(f32_entries, bf16_entries, item8: dict) -> None:
+    """Adds phases 50-53 to the kernels line: K7's rows on the preset
+    meshes' sets (``by_operand_set``, paths ``preset_heterogeneous`` and
+    ``preset_homogeneous``, with their launch-weighted means), and each
+    kernel's launches on the new paths (a forecast and a full-BPTT step of
+    each experiment, a forecast batch and a train step of each remesh mode
+    and a forward of each baseline; bf16 entries count their bf16
+    launches)."""
+    for dtype, entries in (("float32", f32_entries), ("bfloat16", bf16_entries)):
+        for entry in entries:
+            name = entry["name"].removesuffix("_bf16")
+            paths = entry["launches_by_path"]
+
+            def add(path, counts, f32=None):
+                n = counts.get(name, 0) - ((f32 or {}).get(name, 0) if dtype != "float32"
+                                           else 0)
+                if n:
+                    paths[path] = n
+
+            for kind, runs in item8["preset"].items():
+                prefix = "" if dtype == "float32" else "bf16_"
+                add(f"preset_{kind}_predict", runs[prefix + "forecast"])
+                add(f"preset_{kind}_train_step", runs[prefix + "train"])
+            for (mode, run_dtype), row in item8["remesh"].items():
+                if run_dtype == dtype:
+                    add(f"{mode}_predict_batch", row["forecast_launches"],
+                        row["forecast_f32_launches"])
+                    add(f"{mode}_train_step", row["launches_per_step"],
+                        row["f32_launches_per_step"])
+            for row in item8["baselines"]:
+                if row["dtype"] == dtype:
+                    add(f"{row['model'].lower()}_{row['mesh']}_forward", row["launches"])
+            if name == "segment_sum":
+                rows = item8["k7"][dtype]
+                entry["by_operand_set"] += rows
+                for kind in PRESET_KINDS:
+                    entry["ms_by_path"][f"preset_{kind}"] = k7_path_means(
+                        [r for r in rows if r["path"] == f"preset_{kind}"])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4523,6 +5108,7 @@ def main() -> int:
     bench = bench_default_phases(args.seed, card, spmm, attn, grid_attn, segment_sum)
     gcn = gcn_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     item7 = item7_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
+    item8 = item8_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     for k in bf16_attn_kernels:  # the per-gate flagship's K5/K6 (phase 40)
         name = k["name"].removesuffix("_bf16")
         if name.startswith("grid_attn"):
@@ -4667,6 +5253,7 @@ def main() -> int:
             "ice_quadtree_train_step": bench["quadtree_train"]["segment_sum"]}))
     add_gcn_paths(kernels, gcn, "float32")
     add_item7_paths(kernels, bf16_kernels, item7)
+    add_item8_paths(kernels, bf16_kernels, item8)
     for k in kernels:
         k["dtype"] = "float32"
     print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)

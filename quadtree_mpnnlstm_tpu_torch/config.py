@@ -1,8 +1,9 @@
 """Configuration dataclasses (PyTorch port).
 
 Own copy of the fields of ``quadtree_mpnnlstm_tpu/config.py`` that the
-forecast and training paths read; knobs of other paths (CSR degree caps,
-bf16 messages, debug hooks, shared meshes) are left out until a slice
+forecast and training paths read, the debug hooks (``ModelConfig.debug_nan``,
+``GraphConfig.debug_overflow``) among them; knobs of other paths (CSR
+degree caps, bf16 messages, shared meshes) are left out until a slice
 needs them, and ``GraphConfig.adjacency="csum"`` raises. Per-step remat is
 not a config field here either: as in the JAX package it is an argument
 of ``Seq2Seq`` (``remat=``, ``model_kwargs["remat"]`` on the predictor).
@@ -67,6 +68,9 @@ class GraphConfig:
       adjacency: the adjacency builder, ``"sort"`` (the JAX package's
         default, ``graph/adjacency.py``); its ``"csum"`` builder is not
         ported.
+      debug_overflow: raise ``RuntimeError`` from the build when a mesh
+        dropped nodes, edges or window slots; it reads the overflow
+        counter on the host, so only a build with the flag on syncs.
     """
 
     image_shape: Tuple[int, int]
@@ -87,6 +91,7 @@ class GraphConfig:
     attn_windows: bool = False
     carry_edges: bool = True
     adjacency: str = "sort"
+    debug_overflow: bool = False
 
     def __post_init__(self):
         if not _is_power_of_two(self.max_grid_size):
@@ -168,16 +173,19 @@ class ModelConfig:
     and node size (1) are appended internally. The port runs every conv
     of the JAX package's registry (``models/conv.py`` ``CONVOLUTIONS``)
     and every cell (``rnn_type``: LSTM, GRU, SimpleLSTM, SplitLSTM,
-    Dummy), with a remesh at every decoder step on quadtree meshes and a
-    fixed mesh on the pixelwise mesh; ``dummy=True`` skips the recurrence
+    Dummy). On quadtree meshes the decoder remeshes after every
+    ``remesh_every``-th step and ``remesh_input`` remeshes the encoder onto
+    each input frame; the pixelwise mesh and a preset mesh stay fixed.
+    ``debug_nan`` raises ``ValueError`` naming the module (and decoder
+    step) whose output first went non-finite, with a host sync at each
+    check. ``dummy=True`` skips the recurrence
     (the decoder runs only its head). LSTM and GRU take ``fused_gates``:
     False keeps the JAX package's per-gate parameter layout
     (``models/fused.py``); GATConv and GATv2Conv always take it.
     :class:`~quadtree_mpnnlstm_tpu_torch.models.seq2seq.Seq2Seq` rejects
-    ``remesh_every`` > 1 (ROADMAP Queue 1 item 8) and a ``Dummy`` conv,
-    whose identity head gives no one-channel frame (the JAX package's
-    Seq2Seq fails on it too). GCNConv and ChebConv run on quadtree Â blocks
-    (``aggregation="pallas"``), quadtree or pixelwise edge lists
+    a ``Dummy`` conv, whose identity head gives no one-channel frame (the
+    JAX package's Seq2Seq fails on it too). GCNConv and ChebConv run on
+    quadtree Â blocks (``aggregation="pallas"``), quadtree or pixelwise edge lists
     (``"xla"``) and the pixelwise grid (``"grid"``); TransformerConv and
     MHTransformerConv on quadtree attention windows (``"pallas"``), edge
     lists and the grid; GATConv and GATv2Conv on edge lists only (with
@@ -204,9 +212,17 @@ class ModelConfig:
     rnn_type: str = "LSTM"
     binary: bool = False
     dummy: bool = False
+    remesh_input: bool = False
     remesh_every: int = 1
     fused_gates: bool = True
+    debug_nan: bool = False
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if (isinstance(self.remesh_every, bool) or not isinstance(self.remesh_every, int)
+                or self.remesh_every < 1):
+            raise ValueError(f"ModelConfig.remesh_every must be a positive int, got "
+                             f"{self.remesh_every!r}")
 
     @property
     def cdtype(self) -> torch.dtype:

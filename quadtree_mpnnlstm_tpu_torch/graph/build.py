@@ -6,7 +6,8 @@ pixelwise grid (``thresh=-inf`` with ``aggregation="grid"``). Incoming
 image stacks already carry the two positional-encoding channels as their
 last two channels. A graph built on a CUDA card carries the CSR views of
 its id vectors that the segment-sum kernel K7 reads, and with attention
-windows the source-sorted view of their slots that K4 reads.
+windows the source-sorted view of their slots that K4 reads. With
+``GraphConfig.debug_overflow`` a build that dropped content raises.
 """
 
 from __future__ import annotations
@@ -122,6 +123,8 @@ def _assemble(
             agg=("pallas", cfg.agg_nt, cfg.agg_eb, cfg.agg_sw),
         )
     graph = graph.replace(overflow=overflow)
+    if cfg.debug_overflow:
+        raise_on_overflow(overflow)
     if not cfg.carry_edges:
         # convolutions read only the Â blocks or attention windows once
         # they exist
@@ -130,6 +133,18 @@ def _assemble(
             sym_coeff=None, node_xy=None, dst_view=None,
         )
     return graph, data
+
+
+def raise_on_overflow(overflow: torch.Tensor) -> None:
+    """``GraphConfig.debug_overflow``: raise when any mesh of the batch
+    dropped content. It reads the counter on the host (a sync)."""
+    worst = int(overflow.max())
+    if worst > 0:
+        raise RuntimeError(
+            f"graph capacity overflow: {worst} dropped "
+            "nodes/edges/window slots — raise n_max/e_max/agg_* caps "
+            "(GraphConfig.debug_overflow=True turns this check on)"
+        )
 
 
 def image_to_graph(

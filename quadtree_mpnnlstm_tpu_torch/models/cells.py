@@ -174,6 +174,30 @@ class GConvLSTMSimple(nn.Module):
         return o, o * torch.tanh(c_new), c_new
 
 
+def flax_lstm(d: int, batch_first: bool) -> nn.LSTM:
+    """A one-layer ``torch.nn.LSTM`` of width ``d`` laid out as the flax
+    ``OptimizedLSTMCell``: its ``bias_ih_l0`` is a zero buffer, not a
+    parameter, the flax cell having only the recurrent bias."""
+    lstm = nn.LSTM(d, d, batch_first=batch_first)
+    del lstm.bias_ih_l0
+    lstm.register_buffer("bias_ih_l0", torch.zeros(4 * d))
+    lstm._init_flat_weights()
+    return lstm
+
+
+def run_lstm(lstm: nn.LSTM, x: torch.Tensor, carry, dtype: torch.dtype):
+    """``lstm(x, carry)`` in ``dtype`` (its float32 weights cast at use in
+    a bf16 model), with cuDNN's deterministic settings on a CUDA card."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                     allow_tf32=cudnn.allow_tf32):
+        if dtype == torch.float32:
+            return lstm(x, carry)
+        weights = {name: t.to(dtype) for name, t in
+                   [*lstm.named_parameters(), *lstm.named_buffers()]}
+        return torch.func.functional_call(lstm, weights, (x, carry))
+
+
 class SplitGConvLSTM(nn.Module):
     """A :class:`GraphConv` ``conv`` feeding a standard LSTM ``lstm`` (the
     flax ``OptimizedLSTMCell``, scanned) along the **node** axis: each
@@ -193,24 +217,13 @@ class SplitGConvLSTM(nn.Module):
         d = out_channels
         self.dtype = dtype
         self.conv = GraphConv(convolution_type, in_channels, d, n_conv_layers, attr_dim, dtype)
-        self.lstm = nn.LSTM(d, d, batch_first=True)
-        del self.lstm.bias_ih_l0
-        self.lstm.register_buffer("bias_ih_l0", torch.zeros(4 * d))
-        self.lstm._init_flat_weights()
+        self.lstm = flax_lstm(d, batch_first=True)
 
     def forward(self, x, graph, h, c, generator=None):
         xc = self.conv(x, graph, generator).to(self.dtype)
         carry = (h[:, 0].to(self.dtype)[None].contiguous(),
                  c[:, 0].to(self.dtype)[None].contiguous())
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
-                         allow_tf32=cudnn.allow_tf32):
-            if self.dtype == torch.float32:
-                out, (h_fin, c_fin) = self.lstm(xc, carry)
-            else:
-                weights = {name: t.to(self.dtype) for name, t in
-                           [*self.lstm.named_parameters(), *self.lstm.named_buffers()]}
-                out, (h_fin, c_fin) = torch.func.functional_call(self.lstm, weights, (xc, carry))
+        out, (h_fin, c_fin) = run_lstm(self.lstm, xc, carry, self.dtype)
         return (out, h_fin[0, :, None].expand_as(out).contiguous(),
                 c_fin[0, :, None].expand_as(out).contiguous())
 

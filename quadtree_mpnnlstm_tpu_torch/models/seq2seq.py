@@ -1,9 +1,10 @@
 """Graph seq2seq encoder–decoder with per-step remeshing.
 
 Counterpart of ``quadtree_mpnnlstm_tpu/models/seq2seq.py``: the fixed-mesh
-encoder and the decoder rollout (a remesh at every step on quadtree meshes,
-one fixed mesh when every pixel is a node, as an edge list or a grid),
-for inference and training. The JAX package runs both as ``nn.scan``s vmapped
+encoder and the decoder rollout (a remesh every ``remesh_every`` steps on
+quadtree meshes, one fixed mesh when every pixel is a node, as an edge
+list or a grid, or when a preset mesh is given), the ``remesh_input``
+encoder, for inference and training. The JAX package runs both as ``nn.scan``s vmapped
 over samples; here they are Python loops over time with an explicit batch
 axis, each sample on its own mesh.
 
@@ -20,11 +21,12 @@ Reference quirks kept from the JAX package:
   * the decoder's concat channel is the day's climatology with
     ``use_climatology``; else, on remeshing meshes, the current value at
     every step including t=0; else (pixelwise) there is none;
-  * on quadtree meshes the remesh also runs after the last decoder step,
+  * on quadtree meshes a remesh due after the last decoder step runs too,
     and the mesh overflow is a running max over the whole rollout;
-  * on the pixelwise mesh the next input is ``[prediction, pos_x, pos_y,
+  * on a mesh a step keeps (the pixelwise mesh, a preset, a quadtree step
+    between remeshes) the next input is ``[prediction, pos_x, pos_y,
     node_size]`` on the same mesh, and a teacher-forced step appends the
-    *raw pixel count* as the size channel, not ``resolution**2``.
+    *raw pixel count* as the size channel, not the mesh's own.
 
 ``ModelConfig.compute_dtype="bfloat16"`` (every ported conv on every
 mesh: Â blocks, attention windows, edge lists and the grid) casts the
@@ -68,8 +70,31 @@ concat]``, with no tanh and no residual. On an edge-list mesh the GAT
 convolutions' self-loop list (``models/conv.py`` ``with_self_loops``) is
 built once per mesh, with the mesh.
 
-``remesh_input``, ``remesh_every > 1``, preset meshes and the shared-mesh
-batched layout are not ported.
+Remeshing modes: the decoder remeshes after step ``t`` (global, from
+``decode``'s ``t0``) when ``(t + 1) % remesh_every == 0``; on the other
+steps it keeps the mesh and takes ``[prediction, pos_x, pos_y,
+node_size]`` (a teacher-forced step the true frame with the raw pixel
+count) as its next input, with the current value as the concat channel.
+``remesh_input`` builds the first encoder mesh from input frame 0 alone;
+each encoder step then remeshes onto the next frame and carries (H, C)
+through pixel space, and the last step keeps its mesh (the JAX package's
+documented deviation: the reference reads one frame past the end). The
+overflow is a running max. Under ``"mesh"`` remat the encoder's new
+meshes are built outside the replay, as the decoder's are. A preset mesh
+(``graph_structure``: one mesh, ``graph/static.py``) replaces the
+encoder's mesh for every sample; its size channel is ``counts /
+(PRESET_NODE_SIZE_BASE / 2)²`` = ``counts / 4``, not the builder's (the
+reference hard-codes the base cell 4), and its tensors ride
+the batch as views (``expand_graph``, once per preset and batch size).
+``high_interest_region`` reaches every mesh build.
+
+``ModelConfig.debug_nan`` (``check_finite``) checks the encoder input,
+every encoder step's hidden state and every decoder step's output and
+raises ``ValueError`` naming the module (and the step ``t``), with the
+JAX package's messages; each check syncs with the host, and without the
+flag nothing is checked.
+
+The shared-mesh batched layout is not ported.
 """
 
 from __future__ import annotations
@@ -85,6 +110,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from quadtree_mpnnlstm_tpu_torch.config import GraphConfig, ModelConfig
 from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors, flatten, unflatten
+from quadtree_mpnnlstm_tpu_torch.graph.static import expand_graph
 from quadtree_mpnnlstm_tpu_torch.models.cells import RNN_CELLS
 from quadtree_mpnnlstm_tpu_torch.models.conv import CONVOLUTIONS, make_conv, with_self_loops
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
@@ -181,20 +207,17 @@ class _Replay:
 
 
 GAT_CONVS = ("GATConv", "GATv2Conv")
+PRESET_NODE_SIZE_BASE = 4  # the base cell a preset mesh's size channel divides by
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     supported = dict(convolution_type=tuple(CONVOLUTIONS), rnn_type=tuple(RNN_CELLS),
-                     fused_gates=(True, False), remesh_every=(1,),
-                     compute_dtype=("float32", "bfloat16"))
-    # the ROADMAP Queue 1 item that ports the other values
-    item = dict(remesh_every=8)
+                     fused_gates=(True, False), compute_dtype=("float32", "bfloat16"))
     for field, values in supported.items():
         if getattr(cfg, field) not in values:
             raise ValueError(
                 f"ModelConfig.{field}={getattr(cfg, field)!r} is not ported"
-                + (f" (ROADMAP Queue 1 item {item[field]})" if field in item else "")
-                + f"; this path runs {field} in {values!r}"
+                f"; this path runs {field} in {values!r}"
             )
     if cfg.convolution_type == "Dummy":
         raise ValueError("ModelConfig.convolution_type='Dummy' makes every conv the identity: "
@@ -325,7 +348,8 @@ class Seq2Seq(nn.Module):
     climatology, passed to ``decode``/``rollout`` as (B, T_out, rows,
     cols, 1). ``remat`` is the per-step remat mode (module docstring);
     ``transform_func`` transforms every mesh's split criterion
-    (``graph/quadtree.py`` ``decompose_levels``)."""
+    (``graph/quadtree.py`` ``decompose_levels``). ``check_finite``
+    (``cfg.debug_nan`` unless set) turns the NaN checks on."""
 
     def __init__(self, cfg: ModelConfig, gcfg: GraphConfig, use_climatology: bool = False,
                  remat=True, transform_func: Optional[Callable] = None):
@@ -335,25 +359,66 @@ class Seq2Seq(nn.Module):
         self.use_climatology = use_climatology
         self.remat = remat_mode(remat)
         self.transform_func = transform_func
+        self.check_finite = cfg.debug_nan
         self.remeshing = not gcfg.pixelwise
         self.self_loops = cfg.convolution_type in GAT_CONVS and gcfg.aggregation != "grid"
         self.encoder = Encoder(cfg, gcfg.edge_dim)
         self.decoder = Decoder(cfg, concat_channels=int(use_climatology or self.remeshing),
                                attr_dim=gcfg.edge_dim)
+        # (preset graph, batch size, its graph for that batch)
+        self._preset_cache = None
 
-    def _graph(self, frames: torch.Tensor, mask: Optional[torch.Tensor]):
+    def _graph(self, frames: torch.Tensor, mask: Optional[torch.Tensor],
+               hir: Optional[torch.Tensor] = None):
         """(graph, node features) of ``frames`` (B, T, rows, cols, C), with
         the GAT convolutions' self-loop list where the model has them."""
         graph, data = image_to_graph(add_positional_encoding(frames), self.gcfg, mask=mask,
+                                     high_interest_region=hir,
                                      transform_func=self.transform_func)
         if self.self_loops:
             graph = graph.replace(self_loops=with_self_loops(graph))
         return graph, data
 
+    def _preset(self, graph_structure: GraphTensors, b: int, device) -> GraphTensors:
+        """The preset mesh as the graph of a batch of ``b`` (views of its
+        tensors), with its self-loop list where the model has one; built
+        once per preset and batch size."""
+        cached = self._preset_cache
+        if cached is not None and cached[0] is graph_structure and cached[1] == b:
+            return cached[2]
+        gcfg = self.gcfg
+        e_max = None if graph_structure.edge_src is None else graph_structure.edge_src.shape[-1]
+        if graph_structure.n_max != gcfg.n_max or e_max not in (None, gcfg.e_max):
+            raise ValueError(f"the preset mesh has n_max={graph_structure.n_max}, "
+                             f"e_max={e_max}; the model's GraphConfig has n_max={gcfg.n_max}, "
+                             f"e_max={gcfg.e_max}: build the preset with the model's capacities")
+        if graph_structure.pixel_node.shape[-1] != gcfg.num_pixels:
+            raise ValueError(f"the preset mesh maps {graph_structure.pixel_node.shape[-1]} "
+                             f"pixels; the model's image has {gcfg.num_pixels}")
+        if graph_structure.pixel_node.device != torch.device(device):
+            raise ValueError(f"the preset mesh lives on {graph_structure.pixel_node.device}, "
+                             f"the inputs on {device}: build it on the model's device")
+        graph = expand_graph(graph_structure, b)
+        if self.self_loops:
+            graph = graph.replace(self_loops=with_self_loops(graph))
+        self._preset_cache = (graph_structure, b, graph)
+        return graph
+
+    def _check(self, tensors, message: str) -> None:
+        """``debug_nan``: raise ``message`` unless every tensor is finite
+        (one host sync)."""
+        if self.check_finite and not bool(torch.stack([torch.isfinite(t).all()
+                                                       for t in tensors]).all()):
+            raise ValueError(message)
+
     def encode(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None) -> Seq2SeqState:
+               generator: Optional[torch.Generator] = None,
+               high_interest_region: Optional[torch.Tensor] = None,
+               graph_structure: Optional[GraphTensors] = None) -> Seq2SeqState:
         """x: (B, T_in, rows, cols, C) → state after the last input frame,
-        on the mesh of the inputs (criterion: max over the input frames).
+        on the mesh of the inputs (criterion: max over the input frames),
+        on the preset ``graph_structure`` (one mesh for every sample), or
+        with ``remesh_input`` on the mesh of the last frame.
         ``generator`` feeds the attention dropout in training mode."""
         cfg, gcfg = self.cfg, self.gcfg
         if x.shape[1] != cfg.input_timesteps:
@@ -363,18 +428,42 @@ class Seq2Seq(nn.Module):
             torch.zeros((b, gcfg.n_max, cfg.hidden_size), dtype=cfg.cdtype, device=x.device)
             for _ in range(cfg.n_layers)
         )
+        self._check([x], "NaN in graph input x (module=encode; ref graph_functions.py:626)")
         # the compute-dtype boundary: the graph build, the node features and
         # the recurrence run in cfg.compute_dtype; decode() returns float32
-        graph, data = self._graph(x.to(cfg.cdtype), mask)
-        hidden, cell = zeros, zeros
-        for t in range(cfg.input_timesteps):
-            hidden, cell = self._step(self._encoder_step, generator, data[:, t], graph, hidden,
-                                      cell)
-        # decoder seed [value, pos_x, pos_y, node_size]: slices, not an index
-        # list, whose backward would scatter
-        last = data[:, -1]
-        return Seq2SeqState(graph=graph, x=torch.cat([last[..., :1], last[..., -3:]], dim=-1),
-                            hidden=hidden, cell=cell)
+        xc = x.to(cfg.cdtype)
+        hir = high_interest_region
+        if graph_structure is None and cfg.remesh_input:
+            graph, data = self._graph(xc[:, :1], mask, hir)
+            state = Seq2SeqState(graph=graph, x=data[:, 0], hidden=zeros, cell=zeros)
+            for t in range(cfg.input_timesteps):
+                # frame t's step remeshes onto frame t + 1; the last keeps its mesh
+                nxt = None if t == cfg.input_timesteps - 1 else xc[:, t + 1:t + 2]
+                if self.remat == "mesh" and torch.is_grad_enabled():
+                    hidden, cell = self._step(self._encoder_step, generator, state.x,
+                                              state.graph, state.hidden, state.cell, True)
+                    state = self._remesh_input(state, hidden, cell, nxt, mask, hir)
+                else:
+                    state = self._step(self._encoder_remesh_step, generator, state, nxt, mask,
+                                       hir)
+        else:
+            if graph_structure is not None:
+                graph = self._preset(graph_structure, b, x.device)
+                flat = flatten(add_positional_encoding(xc), graph)  # (B, T, n_max, C + 2)
+                sizes = graph.counts / ((PRESET_NODE_SIZE_BASE / 2.0) ** 2)
+                sizes = sizes[:, None, :, None].expand(flat.shape[:-1] + (1,))
+                data = torch.cat([flat, sizes.to(flat.dtype)], dim=-1)
+            else:
+                graph, data = self._graph(xc, mask, hir)
+            hidden, cell = zeros, zeros
+            for t in range(cfg.input_timesteps):
+                hidden, cell = self._step(self._encoder_step, generator, data[:, t], graph,
+                                          hidden, cell)
+            state = Seq2SeqState(graph=graph, x=data[:, -1], hidden=hidden, cell=cell)
+        # decoder seed [value, pos_x, pos_y, node_size] of the last frame:
+        # slices, not an index list, whose backward would scatter
+        last = state.x
+        return dataclasses.replace(state, x=torch.cat([last[..., :1], last[..., -3:]], dim=-1))
 
     def decode(
         self,
@@ -385,8 +474,13 @@ class Seq2Seq(nn.Module):
         teacher_forcing_ratio: float = 0.0,
         generator: Optional[torch.Generator] = None,
         climatology: Optional[torch.Tensor] = None,
+        t0: int = 0,
+        high_interest_region: Optional[torch.Tensor] = None,
     ) -> Tuple[Seq2SeqState, torch.Tensor, torch.Tensor]:
-        """Roll out ``n_steps`` frames; on quadtree meshes remesh after each.
+        """Roll out ``n_steps`` frames, steps ``t0`` … ``t0 + n_steps − 1``
+        of the forecast (a truncated-BPTT chunk starts past 0); on quadtree
+        meshes remesh after each step ``t`` with ``(t + 1) % remesh_every
+        == 0``.
 
         Scheduled sampling: with ``teacher_forcing_ratio`` > 0, one coin per
         sample and step, drawn from ``generator``, decides whether the next
@@ -410,22 +504,26 @@ class Seq2Seq(nn.Module):
             if not self.remeshing:  # fixed mesh: flatten every step's once
                 clim = flatten(clim, state.graph)
         frames, meshes = [], []
-        for t in range(n_steps):
+        every = self.cfg.remesh_every
+        for i in range(n_steps):
+            t = t0 + i
             graph = state.graph
             if clim is None:
                 concat = state.x[..., :1] if self.remeshing else None
             elif self.remeshing:
-                concat = flatten(clim[:, t:t + 1], graph)[:, 0]
+                concat = flatten(clim[:, i:i + 1], graph)[:, 0]
             else:
-                concat = clim[:, t]
-            y_t = None if y is None else y[:, t]
+                concat = clim[:, i]
+            y_t = None if y is None else y[:, i]
+            remesh = self.remeshing and (t + 1) % every == 0
+            step = (y_t, mask, teacher_forcing_ratio, remesh, high_interest_region)
             if self.remat == "mesh":
-                output, hidden, cell = self._step(self._decoder_cell, generator, state, concat)
-                state, y_hat_t = self._advance(generator, state, output, hidden, cell, y_t, mask,
-                                               teacher_forcing_ratio)
+                output, hidden, cell = self._step(self._decoder_cell, generator, state, concat,
+                                                  t)
+                state, y_hat_t = self._advance(generator, state, output, hidden, cell, *step)
             else:
-                state, y_hat_t = self._step(self._decoder_step, generator, state, concat, y_t,
-                                            mask, teacher_forcing_ratio)
+                state, y_hat_t = self._step(self._decoder_step, generator, state, concat, t,
+                                            *step)
             frames.append(y_hat_t)
             meshes.append(graph.pixel_node)
         # predictions leave the compute-dtype region in float32
@@ -444,41 +542,68 @@ class Seq2Seq(nn.Module):
         return checkpoint(lambda *a: fn(replay(), *a), *args, use_reentrant=False,
                           preserve_rng_state=False, **kw)
 
-    def _encoder_step(self, generator, x_t, graph, hidden, cell):
-        return self.encoder(x_t, graph, hidden, cell, generator)
+    def _encoder_step(self, generator, x_t, graph, hidden, cell, remesh_input=False):
+        hidden, cell = self.encoder(x_t, graph, hidden, cell, generator)
+        self._check(hidden, "non-finite hidden state in module=encoder ("
+                    + ("remesh_input" if remesh_input else "fixed-mesh")
+                    + " scan step); inputs or encoder weights went NaN")
+        return hidden, cell
 
-    def _decoder_cell(self, generator, state, concat):
-        """(output, hidden, cell) of the decoder's cells and head."""
-        return self.decoder(state.x, state.graph, concat, state.hidden, state.cell, generator)
+    def _encoder_remesh_step(self, generator, state, nxt, mask, hir) -> Seq2SeqState:
+        """A ``remesh_input`` encoder step: the cells on the current frame's
+        mesh, then the next frame's mesh (none after the last frame)."""
+        hidden, cell = self._encoder_step(generator, state.x, state.graph, state.hidden,
+                                          state.cell, True)
+        return self._remesh_input(state, hidden, cell, nxt, mask, hir)
 
-    def _decoder_step(self, generator, state, concat, y_t, mask, teacher_forcing_ratio):
-        return self._advance(generator, state, *self._decoder_cell(generator, state, concat),
-                             y_t, mask, teacher_forcing_ratio)
+    def _remesh_input(self, state, hidden, cell, nxt, mask, hir) -> Seq2SeqState:
+        """The state on the mesh of the next input frame ``nxt`` (B, 1,
+        rows, cols, C), (H, C) carried through pixel space; the current
+        mesh when there is no next frame."""
+        if nxt is None:
+            return Seq2SeqState(graph=state.graph, x=state.x, hidden=hidden, cell=cell)
+        shape = self.gcfg.image_shape
+        new_graph, data = self._graph(nxt, mask, hir)
+        new_graph = new_graph.replace(overflow=torch.maximum(new_graph.overflow,
+                                                             state.graph.overflow))
+        return Seq2SeqState(graph=new_graph, x=data[:, 0],
+                            hidden=_transfer_state(hidden, state.graph, new_graph, shape),
+                            cell=_transfer_state(cell, state.graph, new_graph, shape))
+
+    def _decoder_cell(self, generator, state, concat, t):
+        """(output, hidden, cell) of the decoder's cells and head at step ``t``."""
+        out = self.decoder(state.x, state.graph, concat, state.hidden, state.cell, generator)
+        self._check([out[0]], f"non-finite output in module=decoder at rollout step t={t}")
+        return out
+
+    def _decoder_step(self, generator, state, concat, t, *step):
+        return self._advance(generator, state, *self._decoder_cell(generator, state, concat, t),
+                             *step)
 
     def _advance(self, generator, state, output, hidden, cell, y_t, mask,
-                 teacher_forcing_ratio) -> Tuple[Seq2SeqState, torch.Tensor]:
+                 teacher_forcing_ratio, remesh, hir) -> Tuple[Seq2SeqState, torch.Tensor]:
         """(next state, the frame (B, rows, cols, 1)) from a decoder
-        output: on quadtree meshes the remesh, else the next input on the
-        same mesh; with scheduled sampling, one coin per sample from
-        ``generator`` picks the true frame ``y_t`` instead."""
+        output: with ``remesh`` the state on a new mesh, else the next
+        input on the same mesh; with scheduled sampling, one coin per sample
+        from ``generator`` picks the true frame ``y_t`` instead."""
         graph = state.graph
         y_hat_t = unflatten(output, graph, self.gcfg.image_shape, fill=0.0)
         coin = None
         if teacher_forcing_ratio > 0.0:
             coin = torch.rand(y_hat_t.shape[0], generator=generator,
                               device=y_hat_t.device) < teacher_forcing_ratio
-        if self.remeshing:
-            return self._remesh(state, y_hat_t, hidden, cell, coin, y_t, mask), y_hat_t
+        if remesh:
+            return self._remesh(state, y_hat_t, hidden, cell, coin, y_t, mask, hir), y_hat_t
         x_new = torch.cat([output, state.x[..., 1:]], dim=-1)
         if coin is not None:
             # the true frame on the same mesh, with the raw pixel count
-            # (not resolution**2) as its size channel
+            # (not the mesh's size channel) as its size channel
             teach = flatten(add_positional_encoding(y_t[:, None].to(output.dtype)), graph)[:, 0]
             x_teach = torch.cat([teach, graph.counts[..., None].to(output.dtype)], dim=-1)
             x_new = torch.where(coin[:, None, None], x_teach, x_new)
         return Seq2SeqState(graph=graph, x=x_new, hidden=hidden, cell=cell), y_hat_t
 
-    def _remesh(self, state, y_hat_t, hidden, cell, coin, y_t, mask) -> Seq2SeqState:
+    def _remesh(self, state, y_hat_t, hidden, cell, coin, y_t, mask, hir) -> Seq2SeqState:
         """The next state on the mesh of the prediction (or, where the coin
         says so, of the true frame), with (H, C) carried through pixel
         space."""
@@ -487,7 +612,7 @@ class Seq2Seq(nn.Module):
         base = y_hat_t
         if coin is not None:
             base = torch.where(coin[:, None, None, None], y_t.to(y_hat_t.dtype), y_hat_t)
-        new_graph, data = self._graph(base[:, None], mask)
+        new_graph, data = self._graph(base[:, None], mask, hir)
         # running max overflow across the rollout
         new_graph = new_graph.replace(overflow=torch.maximum(new_graph.overflow, graph.overflow))
         return Seq2SeqState(
@@ -498,13 +623,21 @@ class Seq2Seq(nn.Module):
         )
 
     def rollout(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                climatology: Optional[torch.Tensor] = None):
+                climatology: Optional[torch.Tensor] = None,
+                high_interest_region: Optional[torch.Tensor] = None,
+                graph_structure: Optional[GraphTensors] = None):
         """(y_hat, final state, per-step pixel_node maps) for inputs x."""
-        state = self.encode(x, mask=mask)
+        state = self.encode(x, mask=mask, high_interest_region=high_interest_region,
+                            graph_structure=graph_structure)
         state, y_hat, meshes = self.decode(state, self.cfg.output_timesteps, mask=mask,
-                                           climatology=climatology)
+                                           climatology=climatology,
+                                           high_interest_region=high_interest_region)
         return y_hat, state, meshes
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                climatology: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.rollout(x, mask=mask, climatology=climatology)[0]
+                climatology: Optional[torch.Tensor] = None,
+                high_interest_region: Optional[torch.Tensor] = None,
+                graph_structure: Optional[GraphTensors] = None) -> torch.Tensor:
+        return self.rollout(x, mask=mask, climatology=climatology,
+                            high_interest_region=high_interest_region,
+                            graph_structure=graph_structure)[0]

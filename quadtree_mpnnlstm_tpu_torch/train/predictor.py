@@ -34,6 +34,21 @@ the edge list; its sums run on the segment-sum kernel).
 (``graph/quadtree.py`` ``dist_from_05`` for the sea-ice quadtree). Dropout and scheduled sampling draw from the predictor's
 ``generator`` (a ``torch.Generator`` on its device, seeded from ``seed``),
 never from torch's global RNG.
+
+``train``, ``train_step``, ``forecast``, ``predict`` and ``score`` take
+``high_interest_region`` (rows, cols) bool, which reaches every mesh
+build, and ``graph_structure``, a preset mesh (``graph/static.py``, built
+on the predictor's device with its ``n_max``/``e_max``) that replaces the
+encoder's mesh for every sample, as the sea-ice experiments 9 and 10 run.
+``remesh_input=True`` remeshes the encoder onto each input frame, and
+``model_kwargs["remesh_every"]`` spaces the decoder's remeshes
+(``models/seq2seq.py``). ``debug=True`` (``ModelConfig.debug_nan``) logs
+the encoder's and decoder's gradient norms each step and, when a step's
+loss comes back non-finite, replays its forward with the NaN checks on
+before the update, from the step's generator state, so the error names
+the module and decoder step that first went non-finite; it reads the loss
+on the host every step, and without it ``train_step`` syncs nothing.
+``test_threshold`` draws the mesh a threshold gives.
 """
 
 from __future__ import annotations
@@ -46,11 +61,14 @@ import numpy as np
 import torch
 
 from quadtree_mpnnlstm_tpu_torch.config import NEG_INF, GraphConfig, ModelConfig, TrainConfig
+from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
+from quadtree_mpnnlstm_tpu_torch.graph.state import unflatten
 from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
 from quadtree_mpnnlstm_tpu_torch.train.losses import LOSSES
 from quadtree_mpnnlstm_tpu_torch.train.metrics import MetricsLogger
 from quadtree_mpnnlstm_tpu_torch.utils.dates import day_of_year
 from quadtree_mpnnlstm_tpu_torch.utils.params import get_n_params
+from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
 from quadtree_mpnnlstm_tpu_torch.utils.weights import init_params, params_from_jax
 
 CLIP_NORM = 10.0
@@ -85,6 +103,8 @@ class NextFramePredictorS2S:
         condition: str = "max_larger_than",
         binary: bool = False,
         transform_func=None,
+        remesh_input: bool = False,
+        debug: bool = False,
         teacher_forcing_ratio: float = 0.0,
         use_climatology: bool = False,
         seed: Optional[int] = None,
@@ -97,6 +117,8 @@ class NextFramePredictorS2S:
         self.experiment_name = experiment_name
         self.thresh = thresh if decompose else NEG_INF
         self.binary = binary
+        self.debug = debug
+        self.transform_func = transform_func
         self.output_timesteps = output_timesteps
         self.teacher_forcing_ratio = teacher_forcing_ratio
         self.use_climatology = use_climatology
@@ -120,8 +142,10 @@ class NextFramePredictorS2S:
             rnn_type=mk.pop("rnn_type", "LSTM"),
             binary=binary,
             dummy=mk.pop("dummy", False),
+            remesh_input=remesh_input,
             remesh_every=mk.pop("remesh_every", 1),
             fused_gates=mk.pop("fused_gates", True),
+            debug_nan=mk.pop("debug_nan", debug),
             compute_dtype=mk.pop(
                 "compute_dtype", train_config.dtype if train_config is not None else "float32"),
         )
@@ -167,6 +191,8 @@ class NextFramePredictorS2S:
 
         self.model = Seq2Seq(self.cfg, self.gcfg, use_climatology, remat=remat,
                              transform_func=transform_func).to(self.device).eval()
+        # the NaN checks run only in the debug replay of a non-finite step
+        self.model.check_finite = False
         init_params(self.model, torch.Generator().manual_seed(seed))
         # dropout masks and scheduled-sampling coins of train()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -250,12 +276,31 @@ class NextFramePredictorS2S:
         """The batch's normals on the device, when the model reads them."""
         return self._tensor(clim) if self.use_climatology and clim is not None else None
 
+    def _chunk_losses(self, model, x, y, m, clim, gen, truncated_backprop, hir, gs):
+        """Yield (loss, final state) of each decoder chunk of a batch: one
+        for full BPTT, else one a chunk of ``truncated_backprop`` steps,
+        each re-encoding the inputs and decoding its steps from the encoder
+        state, with its global step index ``t0``."""
+        for t0, n in self._chunks(truncated_backprop):
+            y_c = y[:, t0:t0 + n]
+            state = model.encode(x, mask=m, generator=gen, high_interest_region=hir,
+                                 graph_structure=gs)
+            state, y_hat, _ = model.decode(state, n, y=y_c, mask=m,
+                                           teacher_forcing_ratio=self.teacher_forcing_ratio,
+                                           generator=gen,
+                                           climatology=None if clim is None
+                                           else clim[:, t0:t0 + n],
+                                           t0=t0, high_interest_region=hir)
+            yield self.loss_func(y_hat, y_c, m).mean(), state
+
     def train_step(self, x, y, mask=None, generator: Optional[torch.Generator] = None,
-                   truncated_backprop: int = 0, climatology=None):
+                   truncated_backprop: int = 0, climatology=None, high_interest_region=None,
+                   graph_structure=None):
         """One forward, backward and clipped Adam update on a batch x
         (B, T_in, rows, cols, C), y (B, T_out, rows, cols, 1);
         ``climatology`` is the batch's (B, T_out, rows, cols, 1) normals
-        (``_clim_batch``), read when the model uses them.
+        (``_clim_batch``), read when the model uses them;
+        ``high_interest_region`` and ``graph_structure`` as in ``train``.
 
         With truncated BPTT every chunk re-encodes the inputs and decodes
         its own steps from the encoder state; the loss is the sum of the
@@ -264,28 +309,33 @@ class NextFramePredictorS2S:
         runs (the JAX package rematerialises each chunk for that). Under
         the model's per-step remat each step of a chunk is checkpointed.
         Returns (loss, mesh overflow) as device tensors, with no host
-        sync. ``generator`` defaults to the predictor's own."""
+        sync unless the predictor was built with ``debug``. ``generator``
+        defaults to the predictor's own."""
         if not self.training_initiated:
             raise RuntimeError("call initiate_training() before train_step()")
         model = self.model.train()
         gen = self.generator if generator is None else generator
+        start = gen.get_state() if self.debug else None
         x, y, m = self._tensor(x), self._tensor(y), self._mask(mask)
+        hir = self._mask(high_interest_region)
         clim = self._clim(climatology)
         self.optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), device=self.device)
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
-        for t0, n in self._chunks(truncated_backprop):
-            y_c = y[:, t0:t0 + n]
-            state = model.encode(x, mask=m, generator=gen)
-            state, y_hat, _ = model.decode(state, n, y=y_c, mask=m,
-                                           teacher_forcing_ratio=self.teacher_forcing_ratio,
-                                           generator=gen,
-                                           climatology=None if clim is None
-                                           else clim[:, t0:t0 + n])
-            loss = self.loss_func(y_hat, y_c, m).mean()
+        rest = (truncated_backprop, hir, graph_structure)
+        for loss, state in self._chunk_losses(model, x, y, m, clim, gen, *rest):
             loss.backward()
             total = total + loss.detach()
             overflow = torch.maximum(overflow, state.graph.overflow.max())
+        if self.debug:
+            # the encoder's and decoder's gradient norms before the clip
+            self.last_grad_norms = {
+                side: sum((p.grad.float().square().sum() for name, p in model.named_parameters()
+                           if name.startswith(side + ".") and p.grad is not None),
+                          torch.zeros((), device=self.device)).sqrt()
+                for side in ("encoder", "decoder")}
+            if not bool(torch.isfinite(total)):
+                self._localise_nan(model, start, x, y, m, clim, *rest)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         # the global norm before the clip, a device tensor
         self.last_grad_norm = clip_by_global_norm_(grads, CLIP_NORM)
@@ -293,17 +343,39 @@ class NextFramePredictorS2S:
         return total, overflow
 
     @torch.no_grad()
-    def _eval_loss(self, x, y, mask, climatology=None) -> torch.Tensor:
-        y_hat, _, _ = self.forecast(x, mask=mask, climatology=climatology)
+    def _localise_nan(self, model, gen_state, x, y, m, clim, truncated_backprop, hir, gs):
+        """``debug``: replay a step whose loss was non-finite, forward only,
+        from the generator state it started from (so it draws the same
+        masks and coins) with the model's NaN checks on; the first check
+        that fails raises, naming its module and step. The weights are the
+        step's own: the update has not run."""
+        gen = torch.Generator(device=self.device)
+        gen.set_state(gen_state)
+        model.check_finite = True
+        try:
+            for _ in self._chunk_losses(model, x, y, m, clim, gen, truncated_backprop, hir, gs):
+                pass
+        finally:
+            model.check_finite = False
+        raise ValueError("non-finite loss but all forward checks passed across 1 shard "
+                         "replay(s) — the NaN arose in the backward pass or the optimizer "
+                         "update")
+
+    @torch.no_grad()
+    def _eval_loss(self, x, y, mask, climatology=None, **mesh) -> torch.Tensor:
+        y_hat, _, _ = self.forecast(x, mask=mask, climatology=climatology, **mesh)
         return self.loss_func(y_hat, self._tensor(y), self._mask(mask)).mean()
 
     def _drain_step_metrics(self, pending, running: float, epoch_overflow: int):
-        """Fetch and log one train step's device scalars; called one step
-        late so that the fetch waits on a step the device has finished
-        while the next one is already queued."""
-        loss_d, overflow_d, step_idx = pending
+        """Fetch and log one train step's device scalars (with ``debug``
+        the encoder's and decoder's gradient norms); called one step late
+        so that the fetch waits on a step the device has finished while
+        the next one is already queued."""
+        loss_d, overflow_d, step_idx, grad_norms = pending
         loss = float(loss_d)
         self.writer.scalar("Loss/train", loss, step_idx)
+        for side, norm in (grad_norms or {}).items():
+            self.writer.scalar(f"Grad/{side}/grad_norms", float(norm), step_idx)
         return running + loss, max(epoch_overflow, int(overflow_d))
 
     def train(
@@ -315,13 +387,18 @@ class NextFramePredictorS2S:
         lr: Optional[float] = None,
         lr_decay: Optional[float] = None,
         mask=None,
+        high_interest_region=None,
         truncated_backprop: Optional[int] = None,
+        graph_structure=None,
         divergence_threshold: float = 4.0,
     ) -> None:
         """Train for ``n_epochs`` over ``loader_train`` and score each epoch
         on ``loader_test`` (both yield (x, y, launch_date) numpy triplets);
         ``climatology`` (366 or 365, rows, cols) gives the decoder its
-        normals by launch date when the model uses them.
+        normals by launch date when the model uses them;
+        ``high_interest_region`` (rows, cols) bool always splits its cells
+        in every mesh; ``graph_structure`` is a preset mesh
+        (``graph/static.py``) for every sample.
         Optimisation arguments default to the constructor's
         ``train_config``, else to 200 epochs, lr 0.01, γ 0.95 and full BPTT.
         Raises ``ValueError("NaN loss :(")`` on a NaN test loss and
@@ -339,6 +416,7 @@ class NextFramePredictorS2S:
         if not self.training_initiated:
             self.initiate_training(lr, lr_decay)
 
+        mesh = dict(high_interest_region=high_interest_region, graph_structure=graph_structure)
         st = time.time()
         batch_step = 0
         for epoch in range(n_epochs):
@@ -348,12 +426,13 @@ class NextFramePredictorS2S:
             for x, y, launch in loader_train:
                 loss, overflow = self.train_step(
                     x, y, mask=mask, truncated_backprop=truncated_backprop,
-                    climatology=self._clim_batch(climatology, launch))
+                    climatology=self._clim_batch(climatology, launch), **mesh)
                 if pending is not None:
                     running, epoch_overflow = self._drain_step_metrics(
                         pending, running, epoch_overflow)
                     steps += 1
-                pending = (loss, overflow, batch_step)
+                pending = (loss, overflow, batch_step,
+                           self.last_grad_norms if self.debug else None)
                 batch_step += 1
             if pending is not None:
                 running, epoch_overflow = self._drain_step_metrics(
@@ -363,7 +442,7 @@ class NextFramePredictorS2S:
             running_test, steps_test = 0.0, 0
             pending_test = None
             for x, y, launch in loader_test:
-                loss = self._eval_loss(x, y, mask, self._clim_batch(climatology, launch))
+                loss = self._eval_loss(x, y, mask, self._clim_batch(climatology, launch), **mesh)
                 if pending_test is not None:
                     running_test += float(pending_test)
                     steps_test += 1
@@ -401,23 +480,30 @@ class NextFramePredictorS2S:
     # ---------------------------------------------------------------- predict
 
     @torch.no_grad()
-    def forecast(self, x, mask=None, climatology=None):
+    def forecast(self, x, mask=None, climatology=None, high_interest_region=None,
+                 graph_structure=None):
         """One batch in eval mode: x (B, T_in, rows, cols, C) array or
         tensor, ``climatology`` the batch's (B, T_out, rows, cols, 1)
-        normals (``_clim_batch``) → (y_hat (B, T_out, rows, cols, 1)
-        tensor, overflow (B,), per-step pixel_node maps (T_out, B, P))."""
+        normals (``_clim_batch``), ``high_interest_region`` and
+        ``graph_structure`` as in ``train`` → (y_hat (B, T_out, rows, cols,
+        1) tensor, overflow (B,), per-step pixel_node maps (T_out, B, P))."""
         y_hat, state, meshes = self.model.eval().rollout(
-            self._tensor(x), mask=self._mask(mask), climatology=self._clim(climatology))
+            self._tensor(x), mask=self._mask(mask), climatology=self._clim(climatology),
+            high_interest_region=self._mask(high_interest_region),
+            graph_structure=graph_structure)
         return y_hat, state.graph.overflow, meshes
 
-    def predict(self, loader, climatology=None, mask=None) -> np.ndarray:
+    def predict(self, loader, climatology=None, mask=None, high_interest_region=None,
+                graph_structure=None) -> np.ndarray:
         """→ (N, T_out, rows, cols, 1) for every batch of ``loader``, which
         yields (x, y, launch_date) numpy triplets; ``climatology`` (366 or
-        365, rows, cols) as in ``train``."""
+        365, rows, cols), ``high_interest_region`` and ``graph_structure``
+        as in ``train``."""
         outs, worst = [], 0
         for x, _y, launch in loader:
             y_hat, overflow, _ = self.forecast(
-                x, mask=mask, climatology=self._clim_batch(climatology, launch))
+                x, mask=mask, climatology=self._clim_batch(climatology, launch),
+                high_interest_region=high_interest_region, graph_structure=graph_structure)
             outs.append(y_hat.cpu().numpy())
             worst = max(worst, int(overflow.max()))
         self.last_overflow = worst
@@ -428,9 +514,10 @@ class NextFramePredictorS2S:
             )
         return np.concatenate(outs, axis=0)
 
-    def score(self, loader, climatology=None, mask=None) -> Dict[str, float]:
-        """Masked MSE and RMSE of ``predict`` over a loader."""
-        y_hat = self.predict(loader, climatology=climatology, mask=mask)
+    def score(self, loader, climatology=None, mask=None, **kw) -> Dict[str, float]:
+        """Masked MSE and RMSE of ``predict`` over a loader (``kw``:
+        ``high_interest_region``, ``graph_structure``)."""
+        y_hat = self.predict(loader, climatology=climatology, mask=mask, **kw)
         y = np.concatenate([y for _, y, _ in loader], axis=0)
         if mask is not None:
             diff = (y_hat - y)[:, :, ~np.asarray(mask, bool)]
@@ -473,3 +560,50 @@ class NextFramePredictorS2S:
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         self._epoch = int(state["epoch"])
+
+    # ------------------------------------------------------------ diagnostics
+
+    @torch.no_grad()
+    def test_threshold(self, x, thresh, mask=None, high_interest_region=None, contours=True):
+        """The mesh a split threshold gives: one graph built at ``thresh``
+        from x (T, rows, cols, C) (criterion: channel 0, max over T), each
+        frame painted back through it. Returns (fig, axes), one panel a
+        frame with the cells' outlines, when matplotlib is there, else
+        (reconstruction (T, rows, cols, 1), labels (rows, cols): each
+        pixel's node, −1 where masked) as numpy arrays. The grid backend
+        builds only the pixelwise mesh, so a quadtree threshold takes the
+        edge list (``"xla"``), as the JAX package does."""
+        x = self._tensor(x)
+        shape = self.gcfg.image_shape
+        kw = dict(thresh=float(thresh))
+        if self.gcfg.aggregation == "grid" and float(thresh) != NEG_INF:
+            kw.update(aggregation="xla", attn_windows=False)
+        gcfg = self.gcfg.replace(**kw)
+        graph, data = image_to_graph(add_positional_encoding(x)[None], gcfg,
+                                     mask=self._mask(mask),
+                                     high_interest_region=self._mask(high_interest_region),
+                                     transform_func=self.transform_func)
+        recon = torch.cat([unflatten(data[:, t, :, :1], graph, shape)
+                           for t in range(x.shape[0])]).cpu().numpy()
+        labels = graph.pixel_node[0].reshape(shape).cpu().numpy()
+        labels = np.where(labels >= gcfg.n_max, -1, labels)
+        num_nodes = int(graph.n_nodes[0])
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            return recon, labels
+        from quadtree_mpnnlstm_tpu_torch.eval.plotting import plot_contours
+
+        n_sample = x.shape[0]
+        fig, axs = plt.subplots(1, n_sample, figsize=(5 * n_sample, 4), squeeze=False)
+        axs = axs[0]
+        for i in range(n_sample):
+            axs[i].imshow(recon[i, ..., 0])
+            if contours:
+                plot_contours(axs[i], labels)
+        fig.suptitle(f"Threshold: {thresh} | Num. nodes: {num_nodes}")
+        return fig, axs
+

@@ -16,7 +16,11 @@ per-gate LSTM or GRU cell of GCNConv, ChebConv, TransformerConv or
 MHTransformerConv into the fused layout (``fuse_attn_gates`` and
 ``fuse_gcn_gates`` are its LSTM cases), for loading a per-gate tree into a
 fused model (``params_from_jax(..., fuse_gates=True)``). They read numpy
-arrays only.
+arrays only. The baselines' trees (``models/mpnnlstm.py``: ``MPNNLSTM``'s
+``convolution{i}``, ``bn{i}``, ``lstm{layer}``, ``lin1``, ``lin2``;
+``MPNNLSTMI``'s ``recurrent{i}``, ``bn1``, ``lin1``, ``lin2``) map leaf for
+leaf without the scans; a flax ``BatchNorm``'s ``batch_stats`` (no
+running statistics are kept) is not read.
 
 ``init_params`` is the port's own init with the JAX package's rules:
 glorot-uniform with fan-in/fan-out on the last two axes of the stacked
@@ -26,9 +30,10 @@ gate weights (GCN and Chebyshev ``w_x_0``…, attention ``w_q_x_0``,
 ``lin_0``…, ``lin_query``, ``lin_edge``, ``lin_skip``, ``lin_l``…, per gate
 slice in the per-gate layout, as the flax vmap initialises each gate) and
 on (heads, d) of GAT's ``att`` vectors; an LSTM's input kernels
-lecun-normal and its recurrent kernels orthogonal, per gate; zero biases
-and peepholes; LayerNorm scale 1, bias 0. It draws from the caller's
-``torch.Generator``.
+lecun-normal and its recurrent kernels orthogonal, per gate; the
+baselines' ``lin1``/``lin2`` (flax ``Dense``'s default) lecun-normal;
+zero biases and peepholes; LayerNorm and BatchNorm scale 1, bias 0. It
+draws from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ from torch import nn
 _GATE_WEIGHT = re.compile(r"\.(gates|gates_zr|gate_candidate)\.w_[a-z0-9_]+$")
 _LIN_WEIGHT = re.compile(r"\.lin(_[a-z0-9]+)?\.weight$")
 _ATT = re.compile(r"\.att(_src|_dst|_edge)?$")
-_NORM_WEIGHT = re.compile(r"norm_[a-z]+\.weight$")
+_NORM_WEIGHT = re.compile(r"(^|\.)(norm_[a-z]+|bn\d+)\.weight$")  # LayerNorm / BatchNorm
+_HEAD_WEIGHT = re.compile(r"^lin\d+\.weight$")  # the baselines' flax Dense
+_LSTM = re.compile(r"^lstm\d*$")  # an OptimizedLSTMCell's module name
 _LSTM_GATES = "ifgo"  # flax OptimizedLSTMCell and torch.nn.LSTM: i, f, g, o
 
 
@@ -52,6 +59,15 @@ def _glorot_(p: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator) -
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     u = torch.rand(p.shape, generator=gen, dtype=torch.float32)
     p.copy_((2.0 * u - 1.0) * limit)
+
+
+def _lecun_normal_(p: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's lecun-normal: a normal truncated at ±2σ, rescaled to the
+    variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    cpu = torch.empty(p.shape)
+    nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std, generator=gen)
+    p.copy_(cpu)
 
 
 @torch.no_grad()
@@ -62,10 +78,9 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
         if _GATE_WEIGHT.search(name) or _ATT.search(name):
             _glorot_(p, p.shape[-2], p.shape[-1], gen)
         elif name.endswith(".weight_ih_l0"):  # lecun-normal, per gate (4d, in)
-            std = math.sqrt(1.0 / p.shape[-1]) / 0.87962566103423978
-            cpu = torch.empty(p.shape)
-            nn.init.trunc_normal_(cpu, std=std, a=-2 * std, b=2 * std, generator=gen)
-            p.copy_(cpu)
+            _lecun_normal_(p, p.shape[-1], gen)
+        elif _HEAD_WEIGHT.search(name):  # torch (out, in) layout
+            _lecun_normal_(p, p.shape[-1], gen)
         elif name.endswith(".weight_hh_l0"):  # orthogonal, per gate (d, d)
             cpu = torch.empty(p.shape)
             for gate in cpu.chunk(4):
@@ -100,7 +115,7 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     leaves, every other leaf by its own name."""
     out = {}
     for path, arr in _flat(tree).items():
-        if len(path) >= 3 and path[-3] == "lstm":  # lstm/{ii…ho}/{kernel,bias}
+        if len(path) >= 3 and _LSTM.match(path[-3]):  # lstm/{ii…ho}/{kernel,bias}
             continue
         value = _tensor(arr)
         names = list(path)
@@ -126,8 +141,8 @@ def _lstm_cells(tree: Mapping, prefix: str = ""):
     for k, v in tree.items():
         if not isinstance(v, Mapping):
             continue
-        if k == "lstm" and "ii" in v:
-            yield f"{prefix}lstm.", v
+        if _LSTM.match(k) and "ii" in v:
+            yield f"{prefix}{k}.", v
         else:
             yield from _lstm_cells(v, f"{prefix}{k}.")
 
@@ -265,14 +280,22 @@ def _fused_layout(tree: Mapping) -> Dict:
 _SCANS = (("enc", "encoder"), ("dec", "decoder"))
 
 
+def _is_baseline(tree: Mapping) -> bool:
+    """An ``MPNNLSTM`` or ``MPNNLSTMI`` tree (no encoder/decoder scans)."""
+    return "lin1" in tree and "lin2" in tree
+
+
 def params_from_jax(tree: Mapping, fuse_gates: bool = False) -> Dict[str, torch.Tensor]:
     """flax ``Seq2Seq`` variables (or their ``params`` sub-tree) → port
     ``Seq2Seq`` state_dict (f32 CPU tensors), leaf for leaf in the tree's
     gate layout; with ``fuse_gates`` every per-gate cell is stacked into
     the fused layout (:func:`fuse_attn_gates`, :func:`fuse_gcn_gates`),
-    for a fused model."""
+    for a fused model. An ``MPNNLSTM`` or ``MPNNLSTMI`` tree maps onto
+    the port's model of the same name."""
     if "params" in tree:
         tree = tree["params"]
+    if _is_baseline(tree):
+        return state_dict_from_flax(tree)
     # a dummy model's encoder has no parameters, and flax leaves it out
     if "dec" not in tree or not set(tree) <= {"enc", "dec"}:
         raise KeyError(f"expected a Seq2Seq tree with enc/dec, got {sorted(tree)}")
@@ -288,24 +311,24 @@ def params_from_jax(tree: Mapping, fuse_gates: bool = False) -> Dict[str, torch.
     return out
 
 
-def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
-    """Port ``Seq2Seq`` state_dict → the flax variables ``{"params": {"enc":
-    {"encoder": …}, "dec": {"decoder": …}}}`` of the JAX package's model
-    in the same gate layout (numpy f32 leaves): ``weight`` → ``kernel``
-    with its last two axes swapped, LayerNorm ``weight`` → ``scale``, every
-    other leaf by its own name. The inverse of :func:`params_from_jax`."""
-    scans = dict((name, scan) for scan, name in _SCANS)
-    params: Dict = {}
-    lstm = {k: v.detach().float().cpu() for k, v in state_dict.items() if ".lstm." in k}
+def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`state_dict_from_flax`: ``weight`` →
+    ``kernel`` with its last two axes swapped, a LayerNorm's or
+    BatchNorm's ``weight`` → ``scale``, ``torch.nn.LSTM`` leaves → the
+    flax cell's (one bias: ``bias_hh`` + ``bias_ih``), every other leaf by
+    its own name (numpy f32 leaves)."""
+    tree: Dict = {}
+    lstm = {k: v.detach().float().cpu() for k, v in state_dict.items()
+            if len(k.split(".")) >= 2 and _LSTM.match(k.split(".")[-2])}
     for key, value in state_dict.items():
         names = key.split(".")
         arr = value.detach().float().cpu()
-        if names[-2] == "lstm":
+        node = tree
+        for part in names[:-1]:
+            node = node.setdefault(part, {})
+        if key in lstm:
             if names[-1] != "weight_ih_l0":
                 continue
-            node = params.setdefault(scans[names[0]], {}).setdefault(names[0], {})
-            for part in names[1:-1]:
-                node = node.setdefault(part, {})
             prefix = key.removesuffix("weight_ih_l0")
             w_ih, w_hh = arr.chunk(4), lstm[prefix + "weight_hh_l0"].chunk(4)
             # the flax cell has one bias, on the recurrent side
@@ -315,13 +338,24 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
                 node[f"h{g}"] = {"kernel": wh.t().contiguous().numpy(),
                                  "bias": bh.contiguous().numpy()}
             continue
-        if names[-1] == "weight" and names[-2].startswith("norm_"):
+        if _NORM_WEIGHT.search(key):
             names[-1] = "scale"
         elif names[-1] == "weight":
             names[-1] = "kernel"
             arr = arr.transpose(-1, -2)
-        node = params.setdefault(scans[names[0]], {}).setdefault(names[0], {})
-        for part in names[1:-1]:
-            node = node.setdefault(part, {})
         node[names[-1]] = arr.contiguous().numpy()
-    return {"params": params}
+    return tree
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """Port ``Seq2Seq`` state_dict → the flax variables ``{"params": {"enc":
+    {"encoder": …}, "dec": {"decoder": …}}}`` of the JAX package's model
+    in the same gate layout (numpy f32 leaves), leaf by leaf as
+    :func:`flax_from_state_dict`; an ``MPNNLSTM`` or ``MPNNLSTMI``
+    state_dict → ``{"params": …}`` of the JAX model of the same name. The
+    inverse of :func:`params_from_jax`."""
+    scans = dict((name, scan) for scan, name in _SCANS)
+    flat = flax_from_state_dict(state_dict)
+    if _is_baseline(flat):
+        return {"params": flat}
+    return {"params": {scans[name]: {name: inner} for name, inner in flat.items()}}

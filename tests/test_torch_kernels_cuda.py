@@ -1392,3 +1392,64 @@ def test_remat_full_step_is_bit_identical_on_the_card(card, conv, dtype, tmp_pat
     assert torch.equal(loss_n, loss_f) and torch.equal(s_n, s_f)
     assert all(torch.equal(g_f[n], g) for n, g in g_n.items())
     assert fwd_f == 2 * fwd_n > 0
+
+
+def _preset_sets(device, kind):
+    """The id sets K7 sums over on a preset mesh of the sea-ice
+    experiments 9 (``heterogeneous``) and 10 (``homogeneous``), at 96×128
+    with a masked coast and ``max_grid_size=4``, ridden by a batch of 2 as
+    views (``expand_graph``): the sorted edge_dst, edge_src and the pixel
+    map, each with the CSR view the preset carries, rebased for the
+    batch. Most slots are sentinels, as on the flagship's presets."""
+    from quadtree_mpnnlstm_tpu_torch.graph import static
+
+    shape = (96, 128)
+    rng = np.random.default_rng(0)
+    mask = rng.random(shape) < 0.05
+    mask[:30, :50] = True
+    mask[60:, 90:] = True
+    cfg = GraphConfig(image_shape=shape, max_grid_size=4, resolution=1 / 12)
+    mask_t = torch.from_numpy(mask).to(device)
+    if kind == "heterogeneous":
+        preset = static.create_static_heterogeneous_graph(cfg, mask=mask_t, device=device)
+    else:
+        preset = static.create_static_homogeneous_graph(cfg, mask_t, device=device)
+    graph = static.expand_graph(preset, 2)
+    assert int(preset.n_edges[0]) < 0.5 * cfg.e_max
+    return cfg.n_max, {"dst": (graph.edge_dst, graph.dst_view, True),
+                       "src": (graph.edge_src, graph.src_view, False),
+                       "pixel": (graph.pixel_node, graph.pixel_view, False)}
+
+
+@pytest.mark.parametrize("kind", ["heterogeneous", "homogeneous"])
+@pytest.mark.parametrize("ids_name", ["dst", "src", "pixel"])
+@pytest.mark.parametrize("f", [1, 32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_segment_sum_kernel_on_the_preset_lists(card, dtype, f, ids_name, kind):
+    """K7 on a preset mesh's mostly-sentinel sets, through the views the
+    preset carries rebased for a batch of 2: the rebased view is the view
+    of the batch's ids, and K7 is bit for bit the entry-ordered sum
+    (``segment_sum_plain`` on the CPU, torch on one thread; bf16 rounded
+    once)."""
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum
+
+    n_max, sets = _preset_sets(card, kind)
+    ids, view, sorted_ids = sets[ids_name]
+    want_view = segment_sum.segment_view(ids.contiguous(), n_max, sorted_ids=sorted_ids)
+    assert torch.equal(view.offsets, want_view.offsets)
+    assert (view.order is None) == sorted_ids
+    if not sorted_ids:
+        assert torch.equal(view.order, want_view.order)
+    rng = np.random.default_rng(f)
+    values = torch.from_numpy(rng.standard_normal((*ids.shape, f)).astype(np.float32)).to(dtype)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = segment_sum.segment_sum_plain(values, ids.cpu(), n_max)
+    finally:
+        torch.set_num_threads(threads)
+    segment_sum.reset_launch_counts()
+    out = segment_sum._segment_sum_cuda(values.to(card), ids, n_max, view)
+    counts = segment_sum.LAUNCHES_BF16 if dtype == torch.bfloat16 else segment_sum.LAUNCHES
+    assert counts["segment_sum"] == 1
+    assert out.dtype == dtype and torch.equal(out.cpu(), want)

@@ -3,8 +3,6 @@
 at every step, Â-block aggregation) in f32, deterministic, with the JAX
 weights carried over; ≤1e-4 max per pixel."""
 
-import re
-
 import numpy as np
 import pytest
 
@@ -116,38 +114,36 @@ def test_init_params_is_seeded():
     assert not all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
 
 
-@pytest.mark.parametrize("model,graph,thresh,ported", [
-    (dict(convolution_type="GCNConv"), {}, 0.1, True),
-    (dict(rnn_type="GRU"), {}, 0.1, True),
-    (dict(remesh_every=2), {}, 0.1, False),
-    (dict(compute_dtype="bfloat16", convolution_type="TransformerConv"), {}, 0.1, True),
+@pytest.mark.parametrize("model,graph,thresh", [
+    (dict(convolution_type="GCNConv"), {}, 0.1),
+    (dict(rnn_type="GRU"), {}, 0.1),
+    (dict(remesh_every=2), {}, 0.1),
+    (dict(compute_dtype="bfloat16", convolution_type="TransformerConv"), {}, 0.1),
     (dict(compute_dtype="bfloat16"), dict(aggregation="grid", n_max=None, e_max=None,
-                                          node_budget=None), float("-inf"), True),
+                                          node_budget=None), float("-inf")),
     (dict(compute_dtype="bfloat16"), dict(aggregation="xla", n_max=None, e_max=None,
-                                          node_budget=None), float("-inf"), True),
-    (dict(convolution_type="GATConv"), {}, 0.1, True),
+                                          node_budget=None), float("-inf")),
+    (dict(convolution_type="GATConv"), {}, 0.1),
 ], ids=["convolution_type-GCNConv", "rnn_type-GRU", "remesh_every-2",
         "compute_dtype-bfloat16-TransformerConv", "compute_dtype-bfloat16-grid",
         "compute_dtype-bfloat16-edge-list", "convolution_type-GATConv"])
-def test_unported_model_options_raise(model, graph, thresh, ported):
-    """Options the port does not run raise "not ported" by name, with the
-    ROADMAP item that ports them (Queue 1 item 8: ``remesh_every``). The
-    options that ran into this check before and are ported now (GCNConv,
+def test_unported_model_options_raise(model, graph, thresh):
+    """The options that once raised "not ported" are ported now (GCNConv,
     bf16 TransformerConv on attention windows, bf16 on the grid and on the
-    pixelwise edge list, the GRU cell and GATConv) build, and one forecast
-    step on the CPU gives finite f32 frames."""
+    pixelwise edge list, the GRU cell, GATConv and, since ROADMAP Queue 1
+    item 8, ``remesh_every`` > 1): each builds, and a forecast on the CPU
+    gives finite f32 frames (two steps: with ``remesh_every=2`` the first
+    keeps its mesh, the second remeshes)."""
     kw = dict(device="cpu", model_kwargs=dict(MODEL, **model), graph_kwargs=dict(GRAPH, **graph))
-    if not ported:
-        with pytest.raises(ValueError, match=re.escape("not ported (ROADMAP Queue 1 item 8)")):
-            NextFramePredictorS2S(SHAPE, thresh, **kw)
-        return
-    tp = NextFramePredictorS2S(SHAPE, thresh, input_timesteps=2, output_timesteps=1, **kw)
+    tp = NextFramePredictorS2S(SHAPE, thresh, input_timesteps=2, output_timesteps=2, **kw)
     for field, value in model.items():
         assert getattr(tp.cfg, field) == value, field
     x = np.random.default_rng(0).random((1, 2, *SHAPE, 1)).astype(np.float32)
-    y, _, _ = tp.forecast(x)
-    assert y.dtype == torch.float32 and y.shape == (1, 1, *SHAPE, 1)
+    y, _, meshes = tp.forecast(x)
+    assert y.dtype == torch.float32 and y.shape == (1, 2, *SHAPE, 1)
     assert torch.isfinite(y).all()
+    if model.get("remesh_every") == 2:
+        assert torch.equal(meshes[0], meshes[1])
 
 
 def test_default_conv_is_the_jax_packages_and_not_ported_yet():
