@@ -33,7 +33,13 @@ and ``index_add_`` (``k7_measure``). With ``--preset heterogeneous`` or
 50-51: the flagship's model on that preset mesh, a forecast and a
 full-BPTT step under remat full unless ``--remat`` says otherwise), and
 with ``--remesh-input`` or ``--remesh-every N`` the quadtree paths in
-those remeshing modes (phase 52).
+those remeshing modes (phase 52). ``--batch N`` sets the quadtree paths'
+batch (default 16), ``--shared-mesh`` trains it on one mesh a step
+(``bench.py --shared-mesh``; phase 55: ``--dtype bfloat16 --remat full
+--shared-mesh --batch 8`` or ``32`` are ``bench.py --full``'s
+``pallas_bf16_shared_b8``/``_b32`` rows), and ``--adjacency csum``
+builds the quadtree paths' and the ice-quadtree model's edge lists
+without a sort (``bench.py --adjacency csum``; phase 56).
 
     python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7]
                        [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
@@ -41,14 +47,16 @@ those remeshing modes (phase 52).
                        [--remat none|full|mesh|dots] [--per-gate]
                        [--preset heterogeneous|homogeneous]
                        [--remesh-input] [--remesh-every N]
+                       [--batch N] [--shared-mesh] [--adjacency sort|csum]
                        [--tree DIR] [--reps 5] [--seed 0]
 
 ``--tree`` imports the port's package from another checkout, for example a
 parent commit unpacked into a git-ignored directory, so that one script
 times two versions in turns on one card (parent, change, change, parent);
 this checkout's model factories pass ``remat`` (and ``remesh_every``),
-so the other tree's predictor must take them; ``--preset`` and the
-remeshing modes need a tree that has them.
+so the other tree's predictor must take them; ``--preset``, the
+remeshing modes, ``--shared-mesh`` and ``--adjacency csum`` need a tree
+that has them.
 Each forecast and each step is timed alone on the host clock, after a
 warm-up, and ends in ``torch.cuda.synchronize()``. Prints one JSON line
 with every sample, its median and the card's name and power limit.
@@ -104,6 +112,13 @@ def main() -> int:
                         help="remesh the encoder onto each input frame (--workload quadtree)")
     parser.add_argument("--remesh-every", type=int, default=1,
                         help="remesh the decoder every N steps (--workload quadtree)")
+    parser.add_argument("--batch", type=int,
+                        help="batch of the quadtree paths (--workload quadtree; default 16)")
+    parser.add_argument("--shared-mesh", action="store_true",
+                        help="train the quadtree paths on one mesh a step for the batch")
+    parser.add_argument("--adjacency", default="sort", choices=("sort", "csum"),
+                        help="edge-list builder of the quadtree meshes (--workload "
+                             "quadtree|ice-quadtree)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
@@ -118,9 +133,14 @@ def main() -> int:
     if args.preset and (args.workload != "quadtree" or args.conv or args.per_gate):
         parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
                      "the pixelwise edge list)")
-    if (args.remesh_input or args.remesh_every != 1) and (args.workload != "quadtree"
-                                                          or args.preset):
-        parser.error("--remesh-input and --remesh-every apply to --workload quadtree")
+    if (args.remesh_input or args.remesh_every != 1 or args.batch or args.shared_mesh) and (
+            args.workload != "quadtree" or args.preset):
+        parser.error("--remesh-input, --remesh-every, --batch and --shared-mesh apply to "
+                     "--workload quadtree")
+    if args.adjacency == "csum" and (args.workload not in ("quadtree", "ice-quadtree")
+                                     or args.preset):
+        parser.error("--adjacency csum builds the quadtree meshes (--workload "
+                     "quadtree|ice-quadtree)")
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
 
@@ -145,7 +165,8 @@ def main() -> int:
               "workload": f"preset-{args.preset}" if args.preset else args.workload,
               "conv": args.conv, "dtype": args.dtype, "remat": args.remat,
               "fused_gates": not args.per_gate, "remesh_input": args.remesh_input,
-              "remesh_every": args.remesh_every, "reps": args.reps}
+              "remesh_every": args.remesh_every, "batch": args.batch,
+              "shared_mesh": args.shared_mesh, "adjacency": args.adjacency, "reps": args.reps}
     if args.preset:
         _time_preset(cs, args, run_dir.name, result)
     elif args.workload in ("ice", "ice-xla", "ice-quadtree"):
@@ -170,23 +191,30 @@ def _time_quadtree(cs, args, run_dir: str, result: dict) -> None:
     from quadtree_mpnnlstm_tpu_torch.data.loader import DataLoader
     from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
 
+    batch = args.batch or cs.BATCH
     ds = ModMovingMNISTDataset(
-        cs.BATCH, input_timesteps=cs.T_IN, output_timesteps=cs.T_OUT, canvas_size=cs.CANVAS,
+        batch, input_timesteps=cs.T_IN, output_timesteps=cs.T_OUT, canvas_size=cs.CANVAS,
         digit_size=cs.DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=args.seed,
     )
-    loader = DataLoader(ds, batch_size=cs.BATCH)
-    _, batches = cs.train_batches(args.seed, 1)
+    loader = DataLoader(ds, batch_size=batch)
+    if batch == cs.BATCH:
+        _, batches = cs.train_batches(args.seed, 1)
+    else:
+        batches = cs.shared_batches(args.seed, batch, 1)
     x, y = batches[0]
     remesh = {}
     if args.remesh_input:
         remesh["remesh_input"] = True
     if args.remesh_every != 1:
         remesh["remesh_every"] = args.remesh_every
+    if args.adjacency != "sort":
+        remesh["graph_extra"] = dict(adjacency=args.adjacency)
+    shared = dict(shared_mesh=True) if args.shared_mesh else {}
     for conv in (args.conv,) if args.conv else ("ChebConv", "TransformerConv"):
         model = cs.make_model(args.seed, run_dir, conv, dtype=args.dtype, **remesh)
         _record(result, f"{conv}_forecast_s", _timed(lambda: model.predict(loader), args.reps))
         trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=args.dtype, remat=args.remat,
-                                  **remesh)
+                                  **remesh, **shared)
         _record(result, f"{conv}_step_s",
                 _timed(lambda: float(trainer.train_step(x, y)[0]), args.reps))
         del model, trainer
@@ -238,8 +266,9 @@ def _time_ice(cs, args, run_dir: str, result: dict) -> None:
 
     def make():
         if args.workload == "ice-quadtree":
+            csum = dict(adjacency="csum") if args.adjacency == "csum" else {}
             return cs.make_ice_quadtree_model(args.seed, run_dir, dtype=args.dtype,
-                                              remat=args.remat)
+                                              remat=args.remat, **csum)
         return cs.make_ice_model(args.seed, run_dir, dtype=args.dtype, remat=args.remat,
                                  fused_gates=not args.per_gate,
                                  aggregation="xla" if args.workload == "ice-xla" else "grid",

@@ -12,6 +12,8 @@
     python3 chip_profile.py --workload ice --dtype bfloat16 --per-gate --remat full --train
     python3 chip_profile.py --preset heterogeneous|homogeneous [--dtype bfloat16] [--train]
     python3 chip_profile.py --remesh-input|--remesh-every 2 [--dtype bfloat16] [--train]
+    python3 chip_profile.py --shared-mesh --batch 8|16|32 --dtype bfloat16 --remat full --train
+    python3 chip_profile.py [--workload ice-quadtree] --adjacency csum [--train]
 
 Runs the main path of ``chip_smoke.py`` (16 Moving-MNIST 64×64 videos,
 4 → 10 frames, remesh every step; ChebConv, or with ``--conv
@@ -41,7 +43,11 @@ took the most device time. ``--remat`` sets the model's per-step remat
 with ``--preset``; ``bench.py`` trains with ``full``) and ``--per-gate`` the per-gate gate layout
 (``bench.py``'s default on the pixelwise meshes); ``--remesh-input`` and
 ``--remesh-every N`` put the main path's model in those remeshing modes
-(``chip_smoke.py`` phase 52). Wall times with the profiler off come first,
+(``chip_smoke.py`` phase 52); ``--batch N`` sets the main path's batch
+(default 16), ``--shared-mesh`` trains it on one mesh a step (phase 55;
+``bench.py --shared-mesh``) and ``--adjacency csum`` builds the main
+path's or the ice-quadtree model's edge lists without a sort (phase 56).
+Wall times with the profiler off come first,
 so the profiler's overhead shows as the difference. The time of K1, K2,
 K2b, K3, K4, K5, K6 and K7 is given apiece: their launchers run inside
 ``record_function`` ranges named after their launch counters (K2 and K2b
@@ -84,7 +90,8 @@ KERNELS = {"build_blocks_kernel": "::build_blocks_kernel<", "apply_kernel": "::a
            "attn_bwd_src_kernel": "::attn_bwd_src_kernel<",
            "grid_attn_fwd_kernel": "::grid_attn_fwd_kernel<",
            "grid_attn_bwd_kernel": "::grid_attn_bwd_kernel<",
-           "segment_sum_kernel": "::segment_sum_kernel<"}
+           "segment_sum_kernel": "::segment_sum_kernel<",
+           "segment_spans_kernel": "::segment_spans_kernel<"}
 
 
 def _in_range(fn, name):
@@ -126,7 +133,8 @@ def _workload(args, run_dir: str):
         conv = args.conv or "TransformerConv"
         if args.workload == "ice-quadtree":
             model = chip_smoke.make_ice_quadtree_model(args.seed, run_dir, dtype=args.dtype,
-                                                       remat=args.remat)
+                                                       remat=args.remat,
+                                                       adjacency=args.adjacency)
         else:
             model = chip_smoke.make_ice_model(args.seed, run_dir,
                                               aggregation="xla" if edge_list else "grid",
@@ -148,19 +156,23 @@ def _workload(args, run_dir: str):
         it = iter(windows[1:] * 3)
         return 1, conv, lambda: step(windows[0]), lambda: step(next(it))
     conv = args.conv or "ChebConv"
-    ds, batches = chip_smoke.train_batches(args.seed, 1 + (args.reps if args.train else 0))
+    batch = args.batch or chip_smoke.BATCH
+    batches = chip_smoke.shared_batches(args.seed, batch, 1 + (args.reps if args.train else 0))
     remesh = dict(remesh_input=args.remesh_input, remesh_every=args.remesh_every)
+    if args.adjacency != "sort":
+        remesh["graph_extra"] = dict(adjacency=args.adjacency)
     if args.train:
+        shared = dict(shared_mesh=True) if args.shared_mesh else {}
         model = chip_smoke.make_trainer(args.seed, run_dir, conv, dtype=args.dtype,
-                                        remat=args.remat, **remesh)
+                                        remat=args.remat, **remesh, **shared)
         it = iter(batches[1:] * 3)
-        return (chip_smoke.BATCH, conv, lambda: model.train_step(*batches[0]),
+        return (batch, conv, lambda: model.train_step(*batches[0]),
                 lambda: model.train_step(*next(it)))
     model = chip_smoke.make_model(args.seed, run_dir, conv, dtype=args.dtype,
                                   remat=args.remat, **remesh)
-    x = torch.as_tensor(ds.x, device="cuda")
+    x = torch.as_tensor(batches[0][0], device="cuda")
     run = lambda: model.forecast(x)  # noqa: E731
-    return chip_smoke.BATCH, conv, run, run
+    return batch, conv, run, run
 
 
 def main() -> int:
@@ -187,15 +199,28 @@ def main() -> int:
                         help="remesh the encoder onto each input frame (the main path)")
     parser.add_argument("--remesh-every", type=int, default=1,
                         help="remesh the decoder every N steps (the main path)")
+    parser.add_argument("--batch", type=int, help="the main path's batch (default 16)")
+    parser.add_argument("--shared-mesh", action="store_true",
+                        help="train the main path on one mesh a step for the batch (--train)")
+    parser.add_argument("--adjacency", default="sort", choices=("sort", "csum"),
+                        help="edge-list builder of the quadtree meshes (the main path, "
+                             "--workload ice-quadtree)")
     args = parser.parse_args()
     if args.remat is None:  # the presets train at full BPTT: remat full
         args.remat = "full" if args.preset else "none"
     if args.preset and (args.workload != "mnist" or args.conv or args.per_gate):
         parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
                      "the pixelwise edge list)")
-    if (args.remesh_input or args.remesh_every != 1) and (args.workload != "mnist"
-                                                          or args.preset):
-        parser.error("--remesh-input and --remesh-every apply to the main path's model")
+    if (args.remesh_input or args.remesh_every != 1 or args.batch or args.shared_mesh) and (
+            args.workload != "mnist" or args.preset):
+        parser.error("--remesh-input, --remesh-every, --batch and --shared-mesh apply to the "
+                     "main path's model")
+    if args.shared_mesh and not args.train:
+        parser.error("--shared-mesh is for training (--train); forecasts stay per-sample")
+    if args.adjacency == "csum" and (args.workload not in ("mnist", "ice-quadtree")
+                                     or args.preset):
+        parser.error("--adjacency csum builds the quadtree meshes (the main path, --workload "
+                     "ice-quadtree)")
     if args.per_gate and args.workload not in ("ice", "ice-xla"):
         parser.error("--per-gate is bench.py's default on the pixelwise meshes only "
                      "(--workload ice or ice-xla)")
@@ -267,6 +292,7 @@ def main() -> int:
         "workload": f"preset-{args.preset}" if args.preset else args.workload,
         "path": "train_step" if args.train else "forecast",
         "remesh_input": args.remesh_input, "remesh_every": args.remesh_every,
+        "shared_mesh": args.shared_mesh, "adjacency": args.adjacency,
         "conv": conv, "dtype": args.dtype, "batch": batch, "remat": args.remat,
         "fused_gates": not args.per_gate,
         "wall_s_per_batch_median": wall[len(wall) // 2],

@@ -116,7 +116,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    list, each over its own sets; K2's and K2b's add ``gcn_by_width``,
    phase 43's rows, and K1, K2, K2b and K7 the GCN path's launches; K7's
    also the preset meshes' sets of phases 50-51 and every kernel the
-   launches of phases 50-53), then the card line and the result line;
+   launches of phases 50-53 and 55-58, K1 on a shared mesh (``shared_mesh``), K2, K2b,
+   K3 and K4 on shared meshes (``shared_by_width``), K7 on capped views and
+   bf16 messages), then the card line and the result line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
@@ -366,7 +368,38 @@ launches as read from the code (``expected_preset_launches``,
    that names the decoder step t=0 (the encoder); a clean debug step
    equals the plain step bit for bit (loss, gradients, updated weights,
    generator); ``debug_overflow`` raises on an undersized build and is
-   silent on the main path's.
+   silent on the main path's;
+55. shared-mesh batched training (``TrainConfig.shared_mesh``) at
+   ``bench.py``'s model under remat full: bf16 at batch 8 and 32 (``bench.py
+   --full``'s ``pallas_bf16_shared_b8``/``_b32``) and f32 at batch 16, each
+   beside the per-sample path at the same batch: finite losses, overflow
+   0, launches a step as the per-sample path's (read from the code), every
+   K1 build of batch 1 (once a mesh, not B times); B identical samples
+   through the shared mesh bit-identical to the per-sample path (ChebConv:
+   forecast and a train step without dropout; TransformerConv: forecast);
+   K1 on a shared mesh beside a per-sample build, timed; K2 and K2b on a
+   shared mesh's blocks (batch 1) for the batch at every width (f32 batch
+   16 ≤1e-5, bf16 batch 32 within one rounding), and K3 and K4 on its
+   windows at every HD (TransformerConv, batch 16, ≤1e-5, K4 ≤1e-5 ×
+   max(1, max|grad|)) against their plain versions, timed beside their
+   bounds, the plain versions and ``torch.sparse.mm`` on the batch folded
+   into the features;
+56. the csum adjacency: ``bench.py --workload ice-quadtree --adjacency
+   csum`` (bf16, batch 1): the card's csum list of an input mesh equal to
+   the CPU's element for element and to the sort list as a set, a forecast
+   and a full-BPTT step with overflow 0 and the launches of phase 42; the
+   Moving-MNIST model on csum Â blocks: the first build's blocks within
+   1e-6 of the sort build's, its forecast on the kernels within 1e-4 of
+   the one on their plain versions until a mesh flips (the sort model's
+   forecast beside it, ungated: the degree sums' order differs);
+57. bf16 messages (``GraphConfig.message_dtype``) in the f32 Moving-MNIST
+   model on the quadtree edge list: 112 bf16 K7 launches a forecast and a
+   step (one an aggregation), the rest f32; K7's bf16 sets bit-identical
+   to the entry-ordered sum;
+58. the CSR degree cap (``GraphConfig.max_degree``) on that model: a cap
+   at the degree bound gives the uncapped forecast and step bit for bit;
+   a cap of 4 counts overflow > 0, and K7 on the capped views (F 1 and 16)
+   is the entry-ordered capped sum bit for bit, timed.
 
 Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38, 43, 45, 46,
 47, 50-53) swaps each kernel it would launch for its plain version.
@@ -468,11 +501,13 @@ def graph_ms(fn, reps: int = REPS, replays: int = 5) -> float:
 
 def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
                teacher_forcing_ratio: float = 0.0, dtype: str = "float32", remat=False,
-               remesh_every: int = 1, **extra):
+               remesh_every: int = 1, graph_extra: Optional[dict] = None, **extra):
     """``bench.py``'s 64×64 Moving-MNIST model; ``remat`` is the per-step
     remat mode (False for the phases that predate it, so their numbers
-    stay comparable); ``extra`` goes to the predictor (``remesh_input``,
-    ``debug``)."""
+    stay comparable); ``graph_extra`` overrides its ``graph_kwargs``
+    (``adjacency``, ``aggregation``, ``message_dtype``, ``max_degree``);
+    ``extra`` goes to the predictor (``remesh_input``, ``debug``,
+    ``shared_mesh``)."""
     from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 
     return NextFramePredictorS2S(
@@ -483,8 +518,9 @@ def make_model(seed: int, run_dir: str = "runs", conv: str = "ChebConv",
         model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
                           convolution_type=conv, compute_dtype=dtype, remat=remat,
                           remesh_every=remesh_every),
-        graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
-                          agg_eb=1024, agg_sw=1024, aggregation="pallas"),
+        graph_kwargs=dict(dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
+                               agg_eb=1024, agg_sw=1024, aggregation="pallas"),
+                          **(graph_extra or {})),
     )
 
 
@@ -873,11 +909,12 @@ ICE_QUAD_BUDGET = 16384
 
 
 def make_ice_quadtree_model(seed: int, run_dir: str = "runs", t_out: Optional[int] = None,
-                            dtype: str = "bfloat16", remat=True):
+                            dtype: str = "bfloat16", remat=True, adjacency: str = "sort"):
     """The ice-quadtree forecaster (``bench.py --workload ice-quadtree``):
     thresh 0.15 on ``dist_from_05`` of the criterion, max_grid_size 8,
     n_max = node_budget 16384, e_max 8 × 16384, attention windows NT 128,
-    EB = SW = 1024, the "sort" adjacency; TransformerConv with fused gates
+    EB = SW = 1024, the "sort" adjacency (``adjacency``: ``bench.py
+    --adjacency``); TransformerConv with fused gates
     (8 streams × d 32 = HD 256), hidden 32, 1 × 3 layers, climatology,
     bf16 and full remat by default; random weights from ``seed``."""
     from quadtree_mpnnlstm_tpu_torch.graph.quadtree import dist_from_05
@@ -893,7 +930,7 @@ def make_ice_quadtree_model(seed: int, run_dir: str = "runs", t_out: Optional[in
                           compute_dtype=dtype, remat=remat),
         graph_kwargs=dict(max_grid_size=8, n_max=ICE_QUAD_BUDGET, e_max=8 * ICE_QUAD_BUDGET,
                           node_budget=ICE_QUAD_BUDGET, aggregation="pallas", agg_nt=128,
-                          agg_eb=1024, agg_sw=1024, adjacency="sort"),
+                          agg_eb=1024, agg_sw=1024, adjacency=adjacency),
     )
 
 
@@ -1989,11 +2026,11 @@ class SegmentCapture:
         self.calls, self.ops = {}, {}
         self._fn = segment.segment_sum
 
-    def __call__(self, values, ids, n_out, view=None):
+    def __call__(self, values, ids, n_out, view=None, grad_ids=None):
         import torch
 
         if self.dtype is not None and values.dtype != self.dtype:
-            return self._fn(values, ids, n_out, view)
+            return self._fn(values, ids, n_out, view, grad_ids)
         if view is None:
             check(self.counts and ids.shape[1] == self.n_pixels and values.ndim == 2
                   and values.dtype == torch.float32,
@@ -2013,7 +2050,7 @@ class SegmentCapture:
 
             kept = view if view is not None else segment_view(ids, n_out)
             self.ops[key] = (values.detach(), ids, n_out, kept)
-        return self._fn(values, ids, n_out, view)
+        return self._fn(values, ids, n_out, view, grad_ids)
 
     def __enter__(self):
         self._patch = mock.patch.object(self.segment, "segment_sum", self)
@@ -4946,6 +4983,510 @@ def add_item8_paths(f32_entries, bf16_entries, item8: dict) -> None:
                         [r for r in rows if r["path"] == f"preset_{kind}"])
 
 
+# ---------------------------------------------------------------- item 9
+# Phases 55-58: the alternative backends (ROADMAP Queue 1 item 9) at
+# bench.py's model (make_model): shared-mesh batched training (bench.py
+# --shared-mesh and the --full rows pallas_bf16_shared_b8/_b32, plus f32 at
+# batch 16), the csum adjacency (bench.py --adjacency csum), bf16 messages
+# and the CSR degree cap.
+SHARED_RUNS = (("bfloat16", 8), ("bfloat16", 32), ("float32", 16))
+SHARED_STEPS = 2
+CAP_BELOW = 4  # below the quadtree meshes' node degrees: truncates
+
+
+def shared_batches(seed: int, batch: int, n: int):
+    """``n`` batches of ``batch`` videos made as ``bench.py`` ``measure``
+    makes them."""
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+
+    ds = ModMovingMNISTDataset(
+        batch * n, input_timesteps=T_IN, output_timesteps=T_OUT, canvas_size=CANVAS,
+        digit_size=DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=seed,
+    )
+    return [(ds.x[i * batch:(i + 1) * batch], ds.y[i * batch:(i + 1) * batch])
+            for i in range(n)]
+
+
+def k2_shared_bound_ms(s0, blocks, live, n_max, nt, sw, f, batch):
+    """Least time for K2's (or K2b's) work on one mesh's blocks for
+    ``batch`` samples: the blocks read once (the mesh is shared), each
+    sample's covered z rows read and its output written once, and each
+    sample's multiply-adds; :func:`k2_bound_ms` for one sample, scaled."""
+    bound, b_ms, o_ms = k2_bound_ms(s0, blocks, live, n_max, nt, sw, f, 1)
+    size = blocks.element_size()
+    block_ms = int(live.long().sum()) * nt * sw * size / PEAK_BYTES_PER_S * 1e3
+    b_ms = block_ms + (b_ms - block_ms) * batch
+    o_ms *= batch
+    return max(b_ms, o_ms), b_ms, o_ms
+
+
+def attn_shared_bound_ms(attn, args, backward: bool):
+    """:func:`attn_bound_ms` on a shared mesh's windows (batch 1) for a
+    batch of B: each sample's rows and operations, the windows' indices and
+    attributes read once, not B times."""
+    q, meta, dims = args[0], args[5], args[6]
+    b = q.shape[0]
+    _, b_ms, o_ms = attn_bound_ms(attn, args[:5] + (attn.for_batch(meta, b),) + args[6:],
+                                  backward)
+    n_slots = int((attn.slot_nodes(meta, dims)[0] >= 0).sum())
+    b_ms -= (b - 1) * n_slots * (8 + 4 * args[3].shape[0]) / PEAK_BYTES_PER_S * 1e3
+    return max(b_ms, o_ms), b_ms, o_ms
+
+
+def item9_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
+                 loader, x) -> dict:
+    """Phases 55-58; returns what the kernels line adds: K1, K2, K2b, K3
+    and K4 on shared meshes and K7 on capped views and bf16 messages, with
+    each new path's launches."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
+    from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
+    from quadtree_mpnnlstm_tpu_torch.graph.quadtree import dist_from_05
+    from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn, segment_sum)
+    out = {"paths": {}, "rows": {}}
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def nonzero(d):
+        return {k: v for k, v in d.items() if v}
+
+    def by_dtype(per: int = 1):
+        """(f32 launches, bf16 launches) since the last reset, over ``per``."""
+        return tuple({k: v / per for m in modules for k, v in getattr(m, table).items() if v}
+                     for table in ("LAUNCHES", "LAUNCHES_BF16"))
+
+    def grads_of(trainer):
+        return {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()}
+
+    def steps(trainer, batches):
+        """(seconds, losses, worst overflow) of one train step a batch, the
+        loss and overflow fetched one step late, as train() does."""
+        t0 = time.perf_counter()
+        losses, worst, pending = [], 0, None
+        for xb, yb in batches:
+            loss, overflow = trainer.train_step(xb, yb)
+            if pending is not None:
+                losses.append(float(pending[0]))
+                worst = max(worst, int(pending[1]))
+            pending = (loss, overflow)
+        losses.append(float(pending[0]))
+        worst = max(worst, int(pending[1]))
+        return time.perf_counter() - t0, losses, worst
+
+    # ---- phase 55: shared-mesh batched training at bench.py's model
+    runs = []
+    k1_batches = []
+    for dtype, batch in SHARED_RUNS:
+        batches = shared_batches(seed, batch, SHARED_STEPS + 1)
+        row = dict(dtype=dtype, batch=batch, remat="full")
+        for shared in (True, False):
+            trainer = make_trainer(seed, run_dir.name, dtype=dtype, remat="full",
+                                   shared_mesh=shared)
+            check(trainer.shared_mesh == shared and trainer.model.remat == "full",
+                  f"shared_mesh {trainer.shared_mesh}, remat {trainer.model.remat}")
+            trainer.train_step(*batches[0])  # warm-up
+            torch.cuda.synchronize()
+            reset()
+            with Record(spmm, "_build_blocks_cuda") as built:
+                seconds, losses, worst = steps(trainer, batches[1:])
+            launches = {k: v / SHARED_STEPS for k, v in nonzero(launch_totals(modules)).items()}
+            split = by_dtype(SHARED_STEPS)
+            key = "shared" if shared else "per_sample"
+            check(bool(np.isfinite(losses).all()) and worst == 0,
+                  f"{key} {dtype} batch {batch}: losses {losses}, overflow {worst}")
+            want = expected_remat_launches(trainer.cfg, "full")
+            check({k: launches.get(k, 0) for k in want} == want,
+                  f"{key} {dtype} batch {batch}: launches a step {launches}, expected {want}")
+            build_batches = sorted({int(a[0].shape[0]) for a in built.calls})
+            check(build_batches == ([1] if shared else [batch]),
+                  f"{key} {dtype} batch {batch}: K1 built batches of {build_batches}")
+            k1_batches.append(built.calls[0])
+            peak = peak_above_start_gib(lambda: trainer.train_step(*batches[1]))
+            row[key] = dict(seconds=seconds, steps=SHARED_STEPS,
+                            steps_per_s=SHARED_STEPS / seconds,
+                            frames_per_s=SHARED_STEPS * batch * T_OUT / seconds,
+                            losses=losses, overflow=worst, launches_per_step=launches,
+                            k1_batch=build_batches[0], step_peak_above_start_gib=peak)
+            if shared:
+                out["paths"][f"shared_{dtype}_b{batch}_train_step"] = split
+            del trainer, built
+            torch.cuda.empty_cache()
+        runs.append(row)
+
+    # B identical samples: the shared mesh is each sample's own, so the
+    # forecast (eval) and a train step without dropout are the per-sample
+    # path's bit for bit
+    x1, y1 = shared_batches(seed, 1, 1)[0]
+    xs, ys = np.repeat(x1, BATCH, 0), np.repeat(y1, BATCH, 0)
+    same = {}
+    for conv in ("ChebConv", "TransformerConv"):
+        got = []
+        for shared in (False, True):
+            trainer = make_trainer(seed, run_dir.name, conv=conv, shared_mesh=shared)
+            model = trainer.model.eval()
+            with torch.no_grad():
+                state = model.encode(torch.as_tensor(xs, device=DEVICE), shared_mesh=shared)
+                _, y_hat, meshes = model.decode(state, T_OUT)
+            step = None
+            if conv == "ChebConv":
+                model.decoder.dropout = 0.0
+                gen = torch.Generator(device=DEVICE).manual_seed(1)
+                loss, _ = trainer.train_step(xs, ys, generator=gen)
+                step = (loss, grads_of(trainer))
+            got.append((y_hat, meshes, step))
+            del trainer
+        (ya, ma, sa), (yb, mb, sb) = got
+        ok = torch.equal(ya, yb) and torch.equal(ma, mb)
+        if sa is not None:
+            ok = ok and torch.equal(sa[0], sb[0]) and all(torch.equal(g, sb[1][n])
+                                                          for n, g in sa[1].items())
+        check(ok, f"{conv}: B identical samples on the shared mesh differ from the "
+              "per-sample path")
+        same[conv] = True
+    torch.cuda.empty_cache()
+
+    # K1 once a mesh: one build of a shared step against one of a
+    # per-sample step, each timed (the f32 batch-16 run's)
+    k1_rows = []
+    for args, kind in zip(k1_batches[-2:], ("shared", "per_sample")):
+        bound, b_ms, o_ms = k1_bound_ms(args[0], args[1], args[3], args[4], args[5])
+        k1_rows.append(dict(kind=kind, batch=int(args[0].shape[0]),
+                            ms=graph_ms(lambda: spmm._build_blocks_cuda(*args)),
+                            events_ms=cuda_ms(lambda: spmm._build_blocks_cuda(*args)),
+                            plain_ms=cuda_ms(lambda: spmm.build_blocks_plain(*args)),
+                            bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
+                            bound_by="bytes" if b_ms >= o_ms else "operations",
+                            max_abs_err=float((spmm._build_blocks_cuda(*args)
+                                               - spmm.build_blocks_plain(*args)).abs().max())))
+        check(k1_rows[-1]["max_abs_err"] == 0.0, f"K1 ({kind}) differs from its plain version")
+
+    # K2 and K2b on a shared mesh's blocks (batch 1) for the batch, per
+    # width, against their plain versions (f32, batch 16; bf16, batch 32)
+    k2_rows = []
+    for dtype, batch in (("float32", BATCH), ("bfloat16", 32)):
+        trainer = make_trainer(seed, run_dir.name, dtype=dtype, remat="full", shared_mesh=True)
+        xb, yb = shared_batches(seed, batch, 1)[0]
+        with CaptureBwd(spmm, "_apply_cuda") as fwd, CaptureBwd(spmm, "_apply_bwd_cuda") as bwd:
+            trainer.train_step(xb, yb)
+        for name, cap, launch in (("spmm_apply", fwd, spmm._apply_cuda),
+                                  ("spmm_apply_bwd", bwd, spmm._apply_bwd_cuda)):
+            for f, args in sorted(cap.first.items()):
+                z, s0, blocks, live, n_max, nt, sw = args
+                check(s0.shape[0] == 1 and z.shape[0] == batch,
+                      f"{name} ran on blocks of batch {s0.shape[0]} for {z.shape[0]} samples")
+                with torch.no_grad():
+                    kern, plain = launch(*args), spmm.apply_plain(*args)
+                err = float((kern.float() - plain.float()).abs().max())
+                tol = K2_TOL if dtype == "float32" else BF16_TOL * max(
+                    1.0, float(plain.float().abs().max()))
+                check(err <= tol, f"{name} on shared blocks differs from its plain version "
+                      f"at F={f} ({dtype}): {err}")
+                # the library yardstick: Â as one CSR matrix times the
+                # batch folded into the features, (n, B·F), as the JAX
+                # package folds it
+                folded = z.permute(1, 0, 2).reshape(1, n_max, batch * f).contiguous()
+                library, refused = _library_spmm(s0, blocks, n_max, nt, sw, folded)
+                bound, b_ms, o_ms = k2_shared_bound_ms(s0, blocks, live, n_max, nt, sw, f,
+                                                       batch)
+                k2_rows.append(dict(
+                    name=name, dtype=dtype, batch=batch, F=f, folded_width=batch * f,
+                    calls=cap.per_width[f], max_abs_err=err,
+                    ms=graph_ms(lambda: launch(*args)), events_ms=cuda_ms(lambda: launch(*args)),
+                    plain_ms=cuda_ms(lambda: spmm.apply_plain(*args)),
+                    library_ms=None if library is None else cuda_ms(library),
+                    library_refused=refused, bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+        del trainer, fwd, bwd
+        torch.cuda.empty_cache()
+
+    # K3 and K4 on a shared mesh's windows: one TransformerConv step at
+    # bench.py's width, batch 16, f32, every width
+    trainer = make_trainer(seed, run_dir.name, conv="TransformerConv", shared_mesh=True)
+    xb, yb = shared_batches(seed, BATCH, 1)[0]
+    trainer.train_step(xb, yb)  # warm-up
+    reset()
+    with CaptureBwd(attn, "_attn_fwd_cuda") as fwd, CaptureBwd(attn, "_attn_bwd_cuda") as bwd:
+        loss, overflow = trainer.train_step(xb, yb)
+    attn_step = nonzero(launch_totals(modules))
+    out["paths"]["shared_transformer_train_step"] = by_dtype()
+    k3 = expected_attn_launches(trainer.cfg)
+    want = {"attn_apply": k3, "attn_apply_bwd": k3,
+            "segment_sum": expected_quadtree_k7(trainer.cfg, 2, train=True)}
+    check(bool(torch.isfinite(loss)) and int(overflow) == 0 and attn_step == want,
+          f"shared TransformerConv step: loss {float(loss)}, overflow {int(overflow)}, "
+          f"launches {attn_step}, expected {want}")
+    attn_rows = []
+    for name, cap, launch in (("attn_apply", fwd, attn._attn_fwd_cuda),
+                              ("attn_apply_bwd", bwd, attn._attn_bwd_cuda)):
+        for hd, args in sorted(cap.first.items()):
+            meta = args[5]
+            check(meta.s0.shape[0] == 1 and args[0].shape[0] == BATCH,
+                  f"{name} ran on windows of batch {meta.s0.shape[0]}")
+            if name == "attn_apply":
+                with torch.no_grad():
+                    kern, plain = launch(*args), attn.attn_plain(*args)
+                err = float((kern - plain).abs().max())
+                rel = err
+                check(err <= K3_TOL, f"K3 on shared windows differs at HD {hd}: {err}")
+                plain_fn = attn.attn_plain
+            else:
+                kern, plain = launch(*args), attn.attn_bwd_plain(*args)
+                err = max(float((a - p).abs().max()) for a, p in zip(kern, plain))
+                rel = max(float((a - p).abs().max()) / max(1.0, float(p.abs().max()))
+                          for a, p in zip(kern, plain))
+                check(rel <= K4_TOL, f"K4 on shared windows differs at HD {hd}: {rel}")
+                plain_fn = attn.attn_bwd_plain
+            bound, b_ms, o_ms = attn_shared_bound_ms(attn, args, name == "attn_apply_bwd")
+            attn_rows.append(dict(
+                name=name, HD=hd, batch=BATCH, calls=cap.per_width[hd], max_abs_err=err,
+                err_rel_to_max=rel, ms=graph_ms(lambda: launch(*args)),
+                events_ms=cuda_ms(lambda: launch(*args)),
+                plain_ms=cuda_ms(lambda: plain_fn(*args)), library_ms=None,
+                bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
+    del trainer, fwd, bwd
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "shared_mesh", "card": card, "runs": runs,
+        "identical_samples_bit_identical": same, "k1": k1_rows, "k2": k2_rows,
+        "k3_k4": attn_rows,
+    }), flush=True)
+    out["rows"].update(k1=k1_rows, k2=k2_rows, k3_k4=attn_rows)
+
+    # ---- phase 56: the csum adjacency
+    # (a) bench.py --workload ice-quadtree --adjacency csum: a forecast and
+    # a full-BPTT step, bf16, batch 1
+    data, clim, mask = ice_data(seed)
+    quad = make_ice_quadtree_model(seed, run_dir.name, adjacency="csum")
+    qcfg, qg = quad.cfg, quad.gcfg
+    check(qg.adjacency == "csum" and qg.attn_windows and qcfg.compute_dtype == "bfloat16",
+          f"ice-quadtree csum configuration: {qg}")
+    x0, y0 = data.x[:1], data.y[:1]
+    clim0 = quad._clim_batch(clim, data.launch_dates[:1])
+    # the card's csum list of the first input mesh against the CPU's
+    frames = torch.as_tensor(x0, device=DEVICE)[..., :1]
+    cfg_ice = qg.replace(carry_edges=True, attn_windows=False, aggregation="xla")
+    mask_t = torch.as_tensor(mask, device=DEVICE)
+    card_g, _ = image_to_graph(add_positional_encoding(frames), cfg_ice, mask=mask_t,
+                               transform_func=dist_from_05)
+    cpu_g, _ = image_to_graph(add_positional_encoding(frames.cpu()), cfg_ice,
+                              mask=mask_t.cpu(), transform_func=dist_from_05)
+    sort_g, _ = image_to_graph(add_positional_encoding(frames.cpu()),
+                               cfg_ice.replace(adjacency="sort"), mask=mask_t.cpu(),
+                               transform_func=dist_from_05)
+    same_list = all(torch.equal(getattr(card_g, n).cpu(), getattr(cpu_g, n))
+                    for n in ("edge_src", "edge_dst", "edge_valid", "n_edges"))
+    v = cpu_g.edge_valid[0]
+    pairs = lambda g: set(zip(g.edge_src[0][g.edge_valid[0]].tolist(),  # noqa: E731
+                              g.edge_dst[0][g.edge_valid[0]].tolist()))
+    check(same_list and pairs(cpu_g) == pairs(sort_g) and int(v.sum()) > 0
+          and not torch.equal(cpu_g.edge_src, sort_g.edge_src),
+          "the card's csum list differs from the CPU's, or its edge set from the sort list's")
+    quad.forecast(x0, mask=mask, climatology=clim0)  # warm-up
+    torch.cuda.synchronize()
+    reset()
+    t0 = time.perf_counter()
+    y_q, ovf_q, _ = quad.forecast(x0, mask=mask, climatology=clim0)
+    torch.cuda.synchronize()
+    quad_s = time.perf_counter() - t0
+    quad_fwd = nonzero(launch_totals(modules))
+    out["paths"]["ice_quadtree_csum_predict"] = by_dtype()
+    want = nonzero(expected_ice_quadtree_launches(qcfg, train=False))
+    check(bool(torch.isfinite(y_q).all()) and int(ovf_q.max()) == 0 and quad_fwd == want,
+          f"ice-quadtree csum forecast: overflow {int(ovf_q.max())}, launches {quad_fwd}, "
+          f"expected {want}")
+    del y_q
+    quad.initiate_training(lr=LR, lr_decay=0.95)
+    reset()
+    t0 = time.perf_counter()
+    q_loss, q_ovf = quad.train_step(x0, y0, mask=mask, climatology=clim0)
+    q_loss = float(q_loss)
+    quad_step_s = time.perf_counter() - t0
+    quad_train = nonzero(launch_totals(modules))
+    out["paths"]["ice_quadtree_csum_train_step"] = by_dtype()
+    want = nonzero(expected_ice_quadtree_launches(qcfg, train=True))
+    check(np.isfinite(q_loss) and int(q_ovf) == 0 and quad_train == want,
+          f"ice-quadtree csum step: loss {q_loss}, overflow {int(q_ovf)}, launches "
+          f"{quad_train}, expected {want}")
+    del quad
+    torch.cuda.empty_cache()
+    # (b) the Moving-MNIST model of phase 55 with csum on Â blocks: its
+    # forecast on the kernels against one on their plain versions; the sort
+    # model's forecast beside it, ungated (the degree sums add the same
+    # weights in another order, so Â differs in its last bits)
+    csum = make_model(seed, run_dir.name, graph_extra=dict(adjacency="csum"))
+    sort = make_model(seed, run_dir.name)
+    xt = torch.as_tensor(x, device=DEVICE)
+    csum.forecast(xt)  # warm-up
+    reset()
+    with Record(spmm, "_build_blocks_cuda") as built:
+        y_c, ovf_c, m_c = csum.forecast(xt)
+    mm_fwd = nonzero(launch_totals(modules))
+    out["paths"]["csum_predict_batch"] = by_dtype()
+    with mock.patch.object(spmm, "_build_blocks_cuda", spmm.build_blocks_plain), \
+            mock.patch.object(spmm, "_apply_cuda", spmm.apply_plain), \
+            mock.patch.object(segment_sum, "_segment_sum_cuda", k7_plain):
+        y_p, _, m_p = csum.forecast(xt)
+    with Record(spmm, "_build_blocks_cuda") as built_s:
+        y_s, _, m_s = sort.forecast(xt)
+    want = {"spmm_build_blocks": 1 + T_OUT,
+            "spmm_apply": 2 * (T_IN * csum.cfg.n_layers * csum.cfg.n_conv_layers
+                               + T_OUT * (csum.cfg.n_layers + 2)),
+            "segment_sum": expected_quadtree_k7(csum.cfg, 3)}
+    blocks_diff = float((built.results[0] - built_s.results[0]).abs().max())
+    check(bool(torch.isfinite(y_c).all()) and int(ovf_c.max()) == 0 and mm_fwd == want
+          and blocks_diff <= 1e-6 and torch.equal(m_c[0], m_p[0]) and torch.equal(m_c[0], m_s[0]),
+          f"Moving-MNIST csum forecast: overflow {int(ovf_c.max())}, launches {mm_fwd} "
+          f"(expected {want}), first blocks differ from the sort build's by {blocks_diff}")
+
+    def before_flip(y_a, m_a, y_b, m_b):
+        same_mesh = (m_a == m_b).all(dim=-1)
+        first_ = [int(torch.nonzero(~same_mesh[:, i])[0]) if not same_mesh[:, i].all()
+                  else T_OUT for i in range(same_mesh.shape[1])]
+        return first_, max((float((y_a[i, :f_] - y_b[i, :f_]).abs().max())
+                            for i, f_ in enumerate(first_) if f_ > 0), default=0.0)
+
+    first, agree = before_flip(y_c, m_c, y_p, m_p)
+    check(agree <= ROLLOUT_TOL, f"csum forecast on the kernels and on the plain versions "
+          f"differ by {agree} before a flip")
+    first_sort, vs_sort = before_flip(y_c, m_c, y_s, m_s)
+    del csum, sort, built, built_s
+    torch.cuda.empty_cache()
+    print(json.dumps({
+        "phase": "csum_adjacency", "card": card,
+        "ice_quadtree": dict(card_list_equals_cpu_list=same_list,
+                             edges=int(v.sum()), s_per_forecast=quad_s,
+                             forecast_launches=quad_fwd, step_s=quad_step_s, loss=q_loss,
+                             overflow=0, launches_per_step=quad_train),
+        "moving_mnist": dict(forecast_launches=mm_fwd, first_blocks_max_abs_diff=blocks_diff,
+                             first_mesh_flip_step=first, max_abs_err_before_flip=agree,
+                             vs_sort_first_flip_step=first_sort,
+                             vs_sort_max_abs_diff_before_flip=vs_sort),
+    }), flush=True)
+
+    # ---- phase 57: bf16 messages (message_dtype) in an f32 model: bench.py's
+    # model on the quadtree edge list
+    edge = dict(aggregation="xla")
+    msg = make_trainer(seed, run_dir.name, graph_extra=dict(edge, message_dtype="bfloat16"))
+    f32m = make_trainer(seed, run_dir.name, graph_extra=edge)
+    cfg = msg.cfg
+    check(msg.gcfg.message_dtype == "bfloat16" and cfg.compute_dtype == "float32"
+          and msg.gcfg.carry_edges, f"bf16 messages configuration: {msg.gcfg}")
+    aggregations = 2 * (T_IN * cfg.n_layers * cfg.n_conv_layers + T_OUT * (cfg.n_layers + 2))
+    msg.forecast(xt)  # warm-up
+    reset()
+    y_m, ovf_m, _ = msg.forecast(xt)
+    msg_fwd = out["paths"]["bf16_messages_predict_batch"] = by_dtype()
+    y_f, _, _ = f32m.forecast(xt)
+    check(bool(torch.isfinite(y_m).all()) and int(ovf_m.max()) == 0
+          and msg_fwd[1] == {"segment_sum": aggregations} and msg_fwd[0].get("segment_sum"),
+          f"bf16-message forecast: launches f32 {msg_fwd[0]}, bf16 {msg_fwd[1]}, expected "
+          f"{aggregations} bf16")
+    xb, yb = shared_batches(seed, BATCH, 1)[0]
+    reset()
+    m_loss, m_ovf = msg.train_step(xb, yb)
+    msg_step = out["paths"]["bf16_messages_train_step"] = by_dtype()
+    check(bool(torch.isfinite(m_loss)) and int(m_ovf) == 0
+          and msg_step[1] == {"segment_sum": aggregations},
+          f"bf16-message step: loss {float(m_loss)}, launches bf16 {msg_step[1]}")
+    with SegmentCapture(segment, CANVAS[0] * CANVAS[1], keep=True, dtype=torch.bfloat16,
+                        counts=True) as cap:
+        msg.forecast(xt)
+    msg_rows = [dict(k7_measure(segment_sum, key, cap.ops[key], 0, BF16_TOL), path="bf16_messages")
+                for key in sorted(cap.ops)]
+    check(msg_rows and all(w["dtype"] == "bfloat16" for w in msg_rows),
+          f"bf16-message K7 sets {[(w['ids'], w['dtype']) for w in msg_rows]}")
+    out["rows"]["k7_bf16_messages"] = msg_rows
+    print(json.dumps({
+        "phase": "bf16_messages", "card": card, "compute_dtype": "float32",
+        "message_dtype": "bfloat16", "forecast_k7_f32": msg_fwd[0], "forecast_k7_bf16": msg_fwd[1],
+        "step_k7_f32": msg_step[0], "step_k7_bf16": msg_step[1], "loss": float(m_loss),
+        "first_frame_max_abs_diff_from_f32_messages": float((y_m[:, 0] - y_f[:, 0]).abs().max()),
+        "max_abs_diff_from_f32_messages": float((y_m - y_f).abs().max()),
+        "k7_by_set": msg_rows,
+    }), flush=True)
+    del msg, f32m, cap
+    torch.cuda.empty_cache()
+
+    # ---- phase 58: the CSR degree cap on the same edge-list model
+    bound = GraphConfig(image_shape=CANVAS, max_grid_size=8, n_max=2048, e_max=10240).degree_bound
+
+    def capped_run(cap_):
+        tr = make_trainer(seed, run_dir.name, graph_extra=dict(edge, max_degree=cap_))
+        y_, ovf_, meshes_ = tr.forecast(xt)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        loss_, ovf_s = tr.train_step(xb, yb, generator=gen)
+        return y_, int(ovf_.max()), meshes_, loss_, int(ovf_s), grads_of(tr)
+
+    uncapped, above = capped_run(0), capped_run(bound)
+    same_cap = (torch.equal(uncapped[0], above[0]) and torch.equal(uncapped[2], above[2])
+                and torch.equal(uncapped[3], above[3])
+                and all(torch.equal(g, above[5][n]) for n, g in uncapped[5].items()))
+    check(same_cap and above[1] == 0 and above[4] == 0,
+          f"max_degree {bound} (above every degree) is not the uncapped run bit for bit")
+    below = make_trainer(seed, run_dir.name, graph_extra=dict(edge, max_degree=CAP_BELOW))
+    reset()
+    y_b, ovf_b, _ = below.forecast(xt)
+    cap_fwd = nonzero(launch_totals(modules))
+    out["paths"]["capped_predict_batch"] = by_dtype()
+    check(bool(torch.isfinite(y_b).all()) and int(ovf_b.min()) > 0,
+          f"max_degree {CAP_BELOW}: finite {bool(torch.isfinite(y_b).all())}, overflow "
+          f"{ovf_b.tolist()}")
+    # K7 on the capped views of one mesh, against the entry-ordered capped sum
+    g_cap, _ = image_to_graph(add_positional_encoding(xt), below.gcfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    cap_rows = []
+    for ids, view, name in ((g_cap.edge_dst_cap, g_cap.dst_cap_view, "dst_capped"),
+                            (g_cap.edge_src_cap, g_cap.src_cap_view, "src_capped")):
+        for f in (1, 16):
+            values = torch.randn((*ids.shape, f), generator=gen, device=DEVICE)
+            cap_rows.append(dict(k7_measure(segment_sum, (name, f),
+                                            (values, ids, g_cap.n_max, view), 0),
+                                 path="capped_views", max_degree=CAP_BELOW))
+    out["rows"]["k7_capped"] = cap_rows
+    print(json.dumps({
+        "phase": "degree_cap", "card": card, "degree_bound": bound,
+        "above_bit_identical_to_uncapped": same_cap, "below": CAP_BELOW,
+        "below_overflow": ovf_b.tolist(), "below_forecast_launches": cap_fwd,
+        "k7_by_set": cap_rows,
+    }), flush=True)
+    del below, g_cap
+    torch.cuda.empty_cache()
+    run_dir.cleanup()
+    return out
+
+
+def add_item9_paths(f32_entries, bf16_entries, item9: dict) -> None:
+    """Adds phases 55-58 to the kernels line: each kernel's launches on
+    the new paths (f32 entries their f32 launches, bf16 entries their bf16
+    ones); K1 on a shared mesh beside a per-sample build
+    (``shared_mesh``), K2, K2b, K3 and K4 on shared meshes per width
+    (``shared_by_width``), and K7's rows on capped views (f32) and bf16
+    messages (bf16) in ``by_operand_set``."""
+    rows = item9["rows"]
+    for dtype, entries in (("float32", f32_entries), ("bfloat16", bf16_entries)):
+        for entry in entries:
+            name = entry["name"].removesuffix("_bf16")
+            for path, (f32, bf16) in item9["paths"].items():
+                n = (f32 if dtype == "float32" else bf16).get(name, 0)
+                if n:
+                    entry["launches_by_path"][path] = n
+            if name == "spmm_build_blocks" and dtype == "float32":
+                entry["shared_mesh"] = rows["k1"]
+            if name in ("spmm_apply", "spmm_apply_bwd"):
+                entry["shared_by_width"] = [r for r in rows["k2"]
+                                            if r["name"] == name and r["dtype"] == dtype]
+            if name in ("attn_apply", "attn_apply_bwd") and dtype == "float32":
+                entry["shared_by_width"] = [r for r in rows["k3_k4"] if r["name"] == name]
+            if name == "segment_sum":
+                entry["by_operand_set"] += (rows["k7_capped"] if dtype == "float32"
+                                            else rows["k7_bf16_messages"])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5109,6 +5650,7 @@ def main() -> int:
     gcn = gcn_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     item7 = item7_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     item8 = item8_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
+    item9 = item9_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     for k in bf16_attn_kernels:  # the per-gate flagship's K5/K6 (phase 40)
         name = k["name"].removesuffix("_bf16")
         if name.startswith("grid_attn"):
@@ -5254,6 +5796,7 @@ def main() -> int:
     add_gcn_paths(kernels, gcn, "float32")
     add_item7_paths(kernels, bf16_kernels, item7)
     add_item8_paths(kernels, bf16_kernels, item8)
+    add_item9_paths(kernels, bf16_kernels, item9)
     for k in kernels:
         k["dtype"] = "float32"
     print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)

@@ -1,12 +1,19 @@
 """Configuration dataclasses (PyTorch port).
 
-Own copy of the fields of ``quadtree_mpnnlstm_tpu/config.py`` that the
-forecast and training paths read, the debug hooks (``ModelConfig.debug_nan``,
-``GraphConfig.debug_overflow``) among them; knobs of other paths (CSR
-degree caps, bf16 messages, shared meshes) are left out until a slice
-needs them, and ``GraphConfig.adjacency="csum"`` raises. Per-step remat is
-not a config field here either: as in the JAX package it is an argument
-of ``Seq2Seq`` (``remat=``, ``model_kwargs["remat"]`` on the predictor).
+Own copy of ``quadtree_mpnnlstm_tpu/config.py``: every field of its three
+dataclasses, with the JAX package's defaults and meanings
+(``tests/test_torch_config_fields.py`` holds them field for field). The
+backend knobs run in the port too: the ``"csum"`` adjacency, the CSR
+degree cap ``max_degree``, bf16 aggregation messages (``message_dtype``)
+and shared-mesh batched training (``TrainConfig.shared_mesh``);
+``grid_attn`` is checked and the port launches its grid attention kernels
+for either value. ``ModelConfig.concat_layers_dim`` and
+``TrainConfig.lr_decay_every_epochs``, ``clip_norm`` and
+``teacher_forcing_ratio`` are read by neither package's predictor (which
+keep StepLR every 3 epochs, a clip at 10 and their own
+``teacher_forcing_ratio`` argument). Per-step remat is not a config field
+either: as in the JAX package it is an argument of ``Seq2Seq``
+(``remat=``, ``model_kwargs["remat"]`` on the predictor).
 """
 
 from __future__ import annotations
@@ -65,9 +72,27 @@ class GraphConfig:
         (ops/attn.py) instead of the Â blocks.
       carry_edges: keep the edge list on built graphs; with Â blocks or
         attention windows the convolutions never read it after the build.
-      adjacency: the adjacency builder, ``"sort"`` (the JAX package's
-        default, ``graph/adjacency.py``); its ``"csum"`` builder is not
-        ported.
+      max_degree: the CSR degree cap of the edge-list aggregation (the
+        JAX package's ``ops/csr.py`` backend): 0 (the default, None) is
+        off; above 0 each node sums at most its first ``max_degree``
+        incoming edges (and a gather's backward its first ``max_degree``
+        outgoing ones, in source-sorted order), and the edges ranked past
+        the cap on the worse side are counted into ``overflow``
+        (``graph/build.py``, ``ops/segment.py``).
+      grid_attn: ``"xla"`` or ``"pallas"``, the JAX package's choice of
+        its grid-attention chain or kernel; the port launches its grid
+        attention kernels (ops/grid_attn.py) for either value.
+      message_dtype: ``"float32"`` or ``"bfloat16"``: with bf16 the
+        per-edge messages of the edge-list ``Â z`` (GCN/Cheb on
+        ``aggregation="xla"``) are cast to bf16, summed (kernel K7's bf16
+        instance on a card: f32 sums, each output rounded once) and cast
+        back to the compute dtype.
+      adjacency: the adjacency builder, ``"sort"`` (the default, a sort
+        of the shifted pixel pairs) or ``"csum"`` (sort-free: each cell
+        pair emitted once from a canonical boundary pixel and packed by a
+        counting scatter, ``graph/adjacency.py``
+        ``build_adjacency_canonical``; quadtree meshes with 4-neighbour
+        edges only, else the build takes ``"sort"``).
       debug_overflow: raise ``RuntimeError`` from the build when a mesh
         dropped nodes, edges or window slots; it reads the overflow
         counter on the host, so only a build with the flag on syncs.
@@ -83,15 +108,18 @@ class GraphConfig:
     resolution: float = 0.25
     n_max: Optional[int] = None
     e_max: Optional[int] = None
+    max_degree: Optional[int] = None
     node_budget: Optional[int] = None
     aggregation: str = "xla"
     agg_nt: int = 128
     agg_eb: int = 1024
     agg_sw: int = 512
     attn_windows: bool = False
+    grid_attn: str = "xla"
+    message_dtype: str = "float32"
+    debug_overflow: bool = False
     carry_edges: bool = True
     adjacency: str = "sort"
-    debug_overflow: bool = False
 
     def __post_init__(self):
         if not _is_power_of_two(self.max_grid_size):
@@ -102,6 +130,11 @@ class GraphConfig:
             raise ValueError(f"unknown condition {self.condition!r}")
         if self.aggregation not in ("xla", "pallas", "grid"):
             raise ValueError(f"unknown aggregation {self.aggregation!r}")
+        if self.grid_attn not in ("xla", "pallas"):
+            raise ValueError(f"unknown grid_attn {self.grid_attn!r}; expected 'xla' or 'pallas'")
+        if self.message_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"unknown message_dtype {self.message_dtype!r}; expected "
+                             "'float32' or 'bfloat16'")
         if self.aggregation == "grid":
             if not self.pixelwise:
                 raise ValueError("aggregation='grid' needs the pixelwise mesh (thresh=-inf); "
@@ -112,11 +145,7 @@ class GraphConfig:
         elif self.pixelwise and self.aggregation == "pallas":
             raise ValueError("the pixelwise mesh runs as an edge list (aggregation='xla') or "
                              "a grid ('grid'); its Â blocks are not ported")
-        if self.adjacency == "csum":
-            raise ValueError("GraphConfig.adjacency='csum' (the JAX package's "
-                             "build_adjacency_canonical) is not ported (ROADMAP Queue 1 item 9); "
-                             "the port builds the adjacency with 'sort'")
-        if self.adjacency != "sort":
+        if self.adjacency not in ("sort", "csum"):
             raise ValueError(f"unknown adjacency {self.adjacency!r}")
         if self.attn_windows and self.aggregation != "pallas":
             raise ValueError("attn_windows=True needs aggregation='pallas'")
@@ -126,6 +155,11 @@ class GraphConfig:
             object.__setattr__(self, "n_max", self.num_pixels)
         if self.e_max is None:
             object.__setattr__(self, "e_max", self.num_pixels * self.num_dirs)
+        if self.max_degree is None:  # the CSR cap is opt-in, as in the JAX package
+            object.__setattr__(self, "max_degree", 0)
+        if (isinstance(self.max_degree, bool) or not isinstance(self.max_degree, int)
+                or self.max_degree < 0):
+            raise ValueError(f"max_degree must be an int >= 0, got {self.max_degree!r}")
 
     @property
     def rows(self) -> int:
@@ -156,6 +190,19 @@ class GraphConfig:
     @property
     def pixelwise(self) -> bool:
         return self.thresh == NEG_INF
+
+    @property
+    def degree_bound(self) -> int:
+        """Provable per-node degree bound: a size-s cell has at most s
+        neighbours a side (+ its self-loop, + corner cells with 8-neighbour
+        edges); the pixelwise mesh has degree 4 (8 with corners)."""
+        if self.pixelwise:
+            deg = 8 if self.edges_at_corners else 4
+        else:
+            deg = 4 * self.max_grid_size + 5
+            if self.edges_at_corners:
+                deg += 4
+        return min(deg, self.e_max)
 
     @property
     def edge_dim(self) -> int:
@@ -214,6 +261,7 @@ class ModelConfig:
     dummy: bool = False
     remesh_input: bool = False
     remesh_every: int = 1
+    concat_layers_dim: int = 1  # read by neither package's model
     fused_gates: bool = True
     debug_nan: bool = False
     compute_dtype: str = "float32"
@@ -253,11 +301,27 @@ class TrainConfig:
     given one: Adam at ``lr`` decayed by ``lr_decay`` every 3 epochs;
     ``truncated_backprop`` is the decoder chunk length (0 = full BPTT);
     ``dtype`` is the model's compute dtype when the predictor is given no
-    ``compute_dtype`` (``"bfloat16"``: mixed precision, float32 masters)."""
+    ``compute_dtype`` (``"bfloat16"``: mixed precision, float32 masters).
+
+    ``shared_mesh`` (read by the predictor unless its ``shared_mesh``
+    argument says otherwise): the whole batch of a training step rides one
+    mesh per step, built from the max over the batch of the split
+    criterion (over the batch and the input frames in the encoder); the
+    batch draws one scheduled-sampling coin a step. Eval and ``predict``
+    stay per-sample (``models/seq2seq.py``). ``lr_decay_every_epochs``,
+    ``clip_norm`` and ``teacher_forcing_ratio`` carry the JAX package's
+    values and are read by neither package's predictor."""
 
     lr: float = 0.01
     lr_decay: float = 0.95
+    lr_decay_every_epochs: int = 3
     n_epochs: int = 20
+    clip_norm: float = 10.0
+    teacher_forcing_ratio: float = 0.0
     truncated_backprop: int = 0
     seed: int = 21
     dtype: str = "float32"
+    shared_mesh: bool = False
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

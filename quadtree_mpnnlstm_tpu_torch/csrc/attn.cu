@@ -19,7 +19,11 @@
 // reach a padding row at or past n_max are skipped; a source outside the
 // window or past n_max reads a zero k/v row but still adds its edge term,
 // as in the TPU kernel; a row with no slot gives 0. Every output row below
-// n_max is written. Both kernels take a leading batch axis, launch on the
+// n_max is written. Both kernels take a leading batch axis, and windows of
+// one mesh for the whole batch (a shared mesh, TrainConfig.shared_mesh:
+// meta_b = 1, a metadata batch stride of 0; every sample's sums are those
+// of a mesh of its own, which the JAX package's fold of the samples into
+// heads equals). They launch on the
 // caller's stream, do not synchronise, allocate nothing and use no float
 // atomics, so a repeated call is bit-identical; each entry point returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a geometry it does not
@@ -175,20 +179,22 @@ struct Params {
   S* dv;
   int T, EB, NT, SW, n_max, H, D, A, KH, rows;
   float scale;
+  int mstride;        // 1: a mesh a sample; 0: one mesh (windows, view) for the batch
 };
 
 // Row ranges [lo, hi) of the slots of rows r0 .. r0 + rows of one tile
-// window (dst-sorted, so each row's slots are contiguous); rows without a
-// slot keep lo = hi = 0. Ends with the CTA synchronised.
+// window, at slot wm of the windows (dst-sorted, so each row's slots are
+// contiguous); rows without a slot keep lo = hi = 0. Ends with the CTA
+// synchronised.
 template <typename S>
-__device__ __forceinline__ void scan_rows(const Params<S>& p, long long w, int r0, int* lo,
+__device__ __forceinline__ void scan_rows(const Params<S>& p, long long wm, int r0, int* lo,
                                           int* hi) {
   for (int i = threadIdx.x; i < p.rows; i += blockDim.x) {
     lo[i] = 0;
     hi[i] = 0;
   }
   __syncthreads();
-  const int* dst = p.dst_rel + w;
+  const int* dst = p.dst_rel + wm;
   for (int j = threadIdx.x; j < p.EB; j += blockDim.x) {
     const int d = dst[j];
     if (d >= r0 && d < r0 + p.rows) {
@@ -199,19 +205,20 @@ __device__ __forceinline__ void scan_rows(const Params<S>& p, long long w, int r
   __syncthreads();
 }
 
-// k[src] + e and v[src] + e for the lane's features of slot j, and the
-// slot's attributes.
+// k[src] + e and v[src] + e for the lane's features of slot j of sample b
+// (the tile's window at slot wm), and the slot's attributes.
 template <typename S, int FPL>
-__device__ __forceinline__ void load_slot(const Params<S>& p, int b, long long w, int j, int start,
-                                          const float* we_s, int lane, float (&kj)[FPL],
-                                          float (&vj)[FPL], float (&at)[kMaxA]) {
+__device__ __forceinline__ void load_slot(const Params<S>& p, int b, long long wm, int j,
+                                          int start, const float* we_s, int lane,
+                                          float (&kj)[FPL], float (&vj)[FPL],
+                                          float (&at)[kMaxA]) {
   const int HD = p.H * p.D;
-  const int sr = p.src_rel[w + j];
+  const int sr = p.src_rel[wm + j];
   const int src = start + sr;
   const bool ok = sr >= 0 && sr < p.SW && src < p.n_max;
   const long long row = (static_cast<long long>(b) * p.n_max + (ok ? src : 0)) * HD;
 #pragma unroll
-  for (int a = 0; a < kMaxA; ++a) at[a] = a < p.A ? p.attr[(w + j) * p.A + a] : 0.f;
+  for (int a = 0; a < kMaxA; ++a) at[a] = a < p.A ? p.attr[(wm + j) * p.A + a] : 0.f;
 #pragma unroll
   for (int i = 0; i < FPL; ++i) {
     const int f = lane + 32 * i;
@@ -258,13 +265,14 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params<S> p) {
   const int t = blockIdx.x / groups;
   const int r0 = (blockIdx.x % groups) * p.rows;
   const int b = blockIdx.y;
+  const int mb = b * p.mstride;  // the sample's mesh
   const int HD = p.H * p.D;
   const int AHD = p.A * HD;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r_end = min(r0 + p.rows, p.NT);
   float* part = p.dwe_part + (static_cast<long long>(b) * gridDim.x + blockIdx.x) * AHD;
 
-  if (t >= p.live[b]) {  // dead tile: zero dq rows and this CTA's dWe partial
+  if (t >= p.live[mb]) {  // dead tile: zero dq rows and this CTA's dWe partial
     for (int r = r0 + warp; r < r_end; r += kWarps) {
       const int node = t * p.NT + r;
       if (node >= p.n_max) break;
@@ -281,9 +289,10 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params<S> p) {
   float* head2 = head + p.H;                                   // H
   float* red = smem + AHD + kWarps * (2 * HD + 2 * p.H);       // kWarps * A * HD
   for (int i = threadIdx.x; i < AHD; i += blockDim.x) we_s[i] = to_f(p.we[i]);
-  const long long w = (static_cast<long long>(b) * p.T + t) * p.EB;
-  scan_rows(p, w, r0, lo, hi);
-  const int start = p.s0[b * p.T + t];
+  const long long w = (static_cast<long long>(b) * p.T + t) * p.EB;    // the sample's slots
+  const long long wm = (static_cast<long long>(mb) * p.T + t) * p.EB;  // its mesh's window
+  scan_rows(p, wm, r0, lo, hi);
+  const int start = p.s0[mb * p.T + t];
   const float* keep =
       p.keep != nullptr ? p.keep + (static_cast<long long>(b) * p.T + t) * p.KH * p.EB : nullptr;
 
@@ -312,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params<S> p) {
     // pass 1: max, denominator and sum_j p_j * dalpha_j (online)
     for (int j = j0; j < j1; ++j) {
       float kj[FPL], vj[FPL], at[kMaxA];
-      load_slot<S, FPL>(p, b, w, j, start, we_s, lane, kj, vj, at);
+      load_slot<S, FPL>(p, b, wm, j, start, we_s, lane, kj, vj, at);
 #pragma unroll
       for (int i = 0; i < FPL; ++i) {
         const int f = lane + 32 * i;
@@ -346,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params<S> p) {
     // pass 2: alpha, dlogit; dq, the slot partials and dWe
     for (int j = j0; j < j1; ++j) {
       float kj[FPL], vj[FPL], at[kMaxA];
-      load_slot<S, FPL>(p, b, w, j, start, we_s, lane, kj, vj, at);
+      load_slot<S, FPL>(p, b, wm, j, start, we_s, lane, kj, vj, at);
 #pragma unroll
       for (int i = 0; i < FPL; ++i) {
         const int f = lane + 32 * i;
@@ -401,8 +410,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(Params<S> p) {
 // K4, second kernel: the owner of source node s gathers
 //   dk[s] = sum_j dlog_j,h * q[dst_j],  dv[s] = sum_j used_j,h * g[dst_j]
 // over the slots j whose source is s, in ascending slot order, through the
-// source-sorted view. LPR lanes a row (HD rounded up to a power of two, at
-// most 32), so at HD 1 a warp owns 32 rows.
+// source-sorted view (of the sample's mesh: one view for the batch on a
+// shared mesh). LPR lanes a row (HD rounded up to a power of two, at most
+// 32), so at HD 1 a warp owns 32 rows.
 constexpr int kSrcThreads = 256;
 constexpr int kPerLane = 4;  // features a lane accumulates per pass over a row
 
@@ -413,10 +423,11 @@ __global__ void __launch_bounds__(kSrcThreads) attn_bwd_src_kernel(Params<S> p, 
   const int sub = static_cast<int>(thread % LPR);
   if (row >= static_cast<long long>(B) * p.n_max) return;
   const int b = static_cast<int>(row / p.n_max);
+  const int mb = b * p.mstride;
   const int n = static_cast<int>(row - static_cast<long long>(b) * p.n_max);
   const int HD = p.H * p.D;
   const long long L = static_cast<long long>(p.T) * p.EB;
-  const int* off = p.offsets + static_cast<long long>(b) * (p.n_max + 1) + n;
+  const int* off = p.offsets + static_cast<long long>(mb) * (p.n_max + 1) + n;
   const int start = off[0], end = off[1];
   for (int f0 = 0; f0 < HD; f0 += LPR * kPerLane) {
     float dk[kPerLane], dv[kPerLane];
@@ -426,14 +437,15 @@ __global__ void __launch_bounds__(kSrcThreads) attn_bwd_src_kernel(Params<S> p, 
       dv[i] = 0.f;
     }
     for (int j = start; j < end; ++j) {
-      const long long e = p.order[j];  // b * L + t * EB + slot
-      const int t = static_cast<int>((e - b * L) / p.EB);
+      const long long e = p.order[j];  // mb * L + t * EB + slot
+      const long long slot = e - mb * L;
+      const int t = static_cast<int>(slot / p.EB);
       const long long drow = (static_cast<long long>(b) * p.n_max + t * p.NT + p.dst_rel[e]) * HD;
 #pragma unroll
       for (int i = 0; i < kPerLane; ++i) {
         const int f = f0 + sub + i * LPR;
         if (f < HD) {
-          const long long at = e * p.H + f / p.D;
+          const long long at = (b * L + slot) * p.H + f / p.D;
           dk[i] = fmaf(p.dlog[at], to_f(p.q[drow + f]), dk[i]);
           dv[i] = fmaf(p.used[at], to_f(p.g[drow + f]), dv[i]);
         }
@@ -514,6 +526,7 @@ struct FwdParams {
   int vec_out;  // 16-byte zero stores (HD * sizeof(S) % 16 == 0, out 16-byte aligned)
   int vec_win;  // 16-byte window copies (EB % 4 == 0, windows 16-byte aligned)
   float scale;
+  int mstride;  // 1: a mesh a sample; 0: one mesh (windows) for the batch
 };
 
 __device__ __forceinline__ void fwd_cp4(void* dst, const void* src) {
@@ -661,15 +674,16 @@ __device__ __forceinline__ void group_rows(const FwdParams<S>& p, int b, int t, 
   constexpr int NA = AT > 0 ? AT : kMaxA;
   const int A = AT > 0 ? AT : p.A;
   const float qscale = p.scale * 1.44269504f;  // logits in log2 units: exp2f
-  const long long tile = static_cast<long long>(b) * p.T + t;
+  const long long tile = static_cast<long long>(b) * p.T + t;                // the keep window
+  const long long mtile = static_cast<long long>(b * p.mstride) * p.T + t;  // the mesh's
   int* start = reinterpret_cast<int*>(fsm);  // rows + 1, then the group's slot range
   const int* dst = reinterpret_cast<const int*>(fsm + fwd_pad4(p.rows + 3));
   const int* src = dst + fwd_pad4(p.EB);
   const float* at = reinterpret_cast<const float*>(src + fwd_pad4(p.EB));  // EB * A
   __syncthreads();  // the previous group's readers of shared memory are done
   // 1. the tile's window in one round trip
-  const int first = __ldg(p.s0 + tile);
-  stage_tile(p, tile, fsm);
+  const int first = __ldg(p.s0 + mtile);
+  stage_tile(p, mtile, fsm);
   __syncthreads();
   // 2. start[i]: the first slot whose destination is at or past row r0 + i;
   // warp 0 (and 1) find the group's range, then the CTA scans only that
@@ -805,7 +819,8 @@ template <typename S, int F, int C, bool VEC, int AT>
 __global__ void __launch_bounds__(kFwdMaxWarps * 32, 2) attn_fwd_kernel(FwdParams<S> p) {
   extern __shared__ __align__(16) unsigned fsm[];
   __shared__ int live_s[kFwdLive];
-  for (int i = threadIdx.x; i < min(p.B, kFwdLive); i += blockDim.x) live_s[i] = __ldg(p.live + i);
+  const int meshes = p.mstride ? p.B : 1;
+  for (int i = threadIdx.x; i < min(meshes, kFwdLive); i += blockDim.x) live_s[i] = __ldg(p.live + i);
   __syncthreads();
   const int HD = p.H * p.D;
   const int groups = (p.NT + p.rows - 1) / p.rows;
@@ -821,7 +836,8 @@ __global__ void __launch_bounds__(kFwdMaxWarps * 32, 2) attn_fwd_kernel(FwdParam
     const int rows = min(min(p.rows, p.NT - r0), p.n_max - node0);
     if (rows <= 0) continue;
     const long long out0 = (static_cast<long long>(b) * p.n_max + node0) * HD;
-    if (t >= (b < kFwdLive ? live_s[b] : __ldg(p.live + b))) {  // dead tile: zero rows
+    const int mb = b * p.mstride;
+    if (t >= (mb < kFwdLive ? live_s[mb] : __ldg(p.live + mb))) {  // dead tile: zero rows
       fwd_zero(p.out + out0, static_cast<long long>(rows) * HD, p.vec_out);
       continue;
     }
@@ -932,12 +948,13 @@ int dispatch(const Params<S>& p, int B, void* stream) {
 template <typename S>
 int attn_fwd(const S* q, const S* k, const S* v, const S* we, const float* keep, const int* s0,
              const int* src_rel, const int* dst_rel, const float* attr, const int* live, S* out,
-             int B, int T, int EB, int NT, int SW, int n_max, int H, int D, int A, int KH, int run,
-             int lanes_head, int heads_item, int lanes_item, int slices, int warps, int rows,
-             int chunk, float scale, void* stream, int* geometry) {
+             int B, int meta_b, int T, int EB, int NT, int SW, int n_max, int H, int D, int A,
+             int KH, int run, int lanes_head, int heads_item, int lanes_item, int slices,
+             int warps, int rows, int chunk, float scale, void* stream, int* geometry) {
   const long long smem = 4LL * fwd_smem_words(rows, EB, A);
   const long long n_groups = static_cast<long long>(B) * T * ((NT + rows - 1) / max(rows, 1));
-  if (B < 0 || T < 0 || EB < 1 || NT < 1 || n_max < 1 || A < 1 || A > kMaxA || H < 1 ||
+  if (B < 0 || (meta_b != B && meta_b != 1) || T < 0 || EB < 1 || NT < 1 || n_max < 1 ||
+      A < 1 || A > kMaxA || H < 1 ||
       D < 1 || H * D > 512 || KH < 0 || KH > H || (KH == 0) != (keep == nullptr) ||
       !fwd_instance(run, chunk) || !pow2(lanes_head) ||
       lanes_head > 32 || lanes_head * run < D || heads_item < 1 || !pow2(lanes_item) ||
@@ -957,7 +974,7 @@ int attn_fwd(const S* q, const S* k, const S* v, const S* we, const float* keep,
                          attr,  live,       out,        B,          T,      EB,    NT,      SW,
                          n_max, H,          D,          A,          KH,     lanes_head,
                          heads_item,        lanes_item, slices,     warps,  rows,  vec_out, vec_win,
-                         scale};
+                         scale, meta_b == B ? 1 : 0};
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int g = static_cast<int>(n_groups), sm = static_cast<int>(smem);
     switch (run) {
@@ -983,11 +1000,13 @@ template <typename S>
 int attn_bwd(const S* q, const S* k, const S* v, const S* we, const float* keep, const int* s0,
              const int* src_rel, const int* dst_rel, const float* attr, const int* live,
              const S* g, const int* order, const int* offsets, S* dq, S* dk, S* dv, float* dlog,
-             float* used, float* dwe_part, int B, int T, int EB, int NT, int SW, int n_max, int H,
-             int D, int A, int KH, int rows, float scale, void* stream) {
+             float* used, float* dwe_part, int B, int meta_b, int T, int EB, int NT, int SW,
+             int n_max, int H, int D, int A, int KH, int rows, float scale, void* stream) {
+  if (meta_b != B && meta_b != 1) return static_cast<int>(cudaErrorInvalidValue);
   const Params<S> p{q,    k,        v,     we,      keep, s0, src_rel, dst_rel, attr, live,
                     g,    dq,       dlog,  used,    dwe_part, order, offsets, dk, dv, T,
-                    EB,   NT,       SW,    n_max,   H,    D,  A,       KH,      rows, scale};
+                    EB,   NT,       SW,    n_max,   H,    D,  A,       KH,      rows, scale,
+                    meta_b == B ? 1 : 0};
   return dispatch(p, B, stream);
 }
 
@@ -1000,42 +1019,43 @@ int attn_bwd(const S* q, const S* k, const S* v, const S* we, const float* keep,
 extern "C" int qtm_attn_fwd(const float* q, const float* k, const float* v, const float* we,
                             const float* keep, const int* s0, const int* src_rel,
                             const int* dst_rel, const float* attr, const int* live, float* out,
-                            int B, int T, int EB, int NT, int SW, int n_max, int H, int D, int A,
-                            int KH, int run, int lanes_head, int heads_item, int lanes_item,
-                            int slices, int warps, int rows, int chunk, float scale,
-                            void* stream, int* geometry) {
-  return attn_fwd<float>(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out, B, T, EB, NT,
-                         SW, n_max, H, D, A, KH, run, lanes_head, heads_item, lanes_item, slices,
-                         warps, rows, chunk, scale, stream, geometry);
+                            int B, int meta_b, int T, int EB, int NT, int SW, int n_max, int H,
+                            int D, int A, int KH, int run, int lanes_head, int heads_item,
+                            int lanes_item, int slices, int warps, int rows, int chunk,
+                            float scale, void* stream, int* geometry) {
+  return attn_fwd<float>(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out, B, meta_b, T,
+                         EB, NT, SW, n_max, H, D, A, KH, run, lanes_head, heads_item, lanes_item,
+                         slices, warps, rows, chunk, scale, stream, geometry);
 }
 
 // the same with q, k, v, We and out in bf16 (keep and attr stay f32)
 extern "C" int qtm_attn_fwd_bf16(const void* q, const void* k, const void* v, const void* we,
                                  const float* keep, const int* s0, const int* src_rel,
                                  const int* dst_rel, const float* attr, const int* live, void* out,
-                                 int B, int T, int EB, int NT, int SW, int n_max, int H, int D,
-                                 int A, int KH, int run, int lanes_head, int heads_item,
-                                 int lanes_item, int slices, int warps, int rows, int chunk,
-                                 float scale, void* stream, int* geometry) {
+                                 int B, int meta_b, int T, int EB, int NT, int SW, int n_max,
+                                 int H, int D, int A, int KH, int run, int lanes_head,
+                                 int heads_item, int lanes_item, int slices, int warps, int rows,
+                                 int chunk, float scale, void* stream, int* geometry) {
   return attn_fwd<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                         static_cast<const bf16*>(v), static_cast<const bf16*>(we), keep, s0,
-                        src_rel, dst_rel, attr, live, static_cast<bf16*>(out), B, T, EB, NT, SW,
-                        n_max, H, D, A, KH, run, lanes_head, heads_item, lanes_item, slices, warps,
-                        rows, chunk, scale, stream, geometry);
+                        src_rel, dst_rel, attr, live, static_cast<bf16*>(out), B, meta_b, T, EB,
+                        NT, SW, n_max, H, D, A, KH, run, lanes_head, heads_item, lanes_item,
+                        slices, warps, rows, chunk, scale, stream, geometry);
 }
 
-// order (B*T*EB) and offsets (B, n_max + 1): the source-sorted slot view
-// (ops/attn.py slot_view); dlog and used (B, T*EB, H) scratch.
+// order (M*T*EB) and offsets (M, n_max + 1): the source-sorted slot view
+// (ops/attn.py slot_view) of the M = meta_b meshes (B, or 1 for a shared
+// mesh, as the windows); dlog and used (B, T*EB, H) scratch.
 extern "C" int qtm_attn_bwd(const float* q, const float* k, const float* v, const float* we,
                             const float* keep, const int* s0, const int* src_rel,
                             const int* dst_rel, const float* attr, const int* live,
                             const float* g, const int* order, const int* offsets, float* dq,
                             float* dk, float* dv, float* dlog, float* used, float* dwe_part,
-                            int B, int T, int EB, int NT, int SW, int n_max, int H, int D, int A,
-                            int KH, int rows, float scale, void* stream) {
+                            int B, int meta_b, int T, int EB, int NT, int SW, int n_max, int H,
+                            int D, int A, int KH, int rows, float scale, void* stream) {
   return attn_bwd<float>(q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, g, order, offsets,
-                         dq, dk, dv, dlog, used, dwe_part, B, T, EB, NT, SW, n_max, H, D, A, KH,
-                         rows, scale, stream);
+                         dq, dk, dv, dlog, used, dwe_part, B, meta_b, T, EB, NT, SW, n_max, H, D,
+                         A, KH, rows, scale, stream);
 }
 
 // the same with q, k, v, We, g, dq, dk and dv in bf16 (keep, attr, dlog,
@@ -1045,11 +1065,12 @@ extern "C" int qtm_attn_bwd_bf16(const void* q, const void* k, const void* v, co
                                  const int* dst_rel, const float* attr, const int* live,
                                  const void* g, const int* order, const int* offsets, void* dq,
                                  void* dk, void* dv, float* dlog, float* used, float* dwe_part,
-                                 int B, int T, int EB, int NT, int SW, int n_max, int H, int D,
-                                 int A, int KH, int rows, float scale, void* stream) {
+                                 int B, int meta_b, int T, int EB, int NT, int SW, int n_max,
+                                 int H, int D, int A, int KH, int rows, float scale,
+                                 void* stream) {
   const auto in = [](const void* x) { return static_cast<const bf16*>(x); };
   const auto out = [](void* x) { return static_cast<bf16*>(x); };
   return attn_bwd<bf16>(in(q), in(k), in(v), in(we), keep, s0, src_rel, dst_rel, attr, live,
                         in(g), order, offsets, out(dq), out(dk), out(dv), dlog, used, dwe_part, B,
-                        T, EB, NT, SW, n_max, H, D, A, KH, rows, scale, stream);
+                        meta_b, T, EB, NT, SW, n_max, H, D, A, KH, rows, scale, stream);
 }

@@ -36,7 +36,12 @@
 // store.
 //
 // Both kernels take a leading batch axis, one mesh per sample, so one
-// launch serves a whole batch. They launch on the caller's stream, do not
+// launch serves a whole batch. K2 also takes one mesh for the whole batch
+// (a shared mesh, TrainConfig.shared_mesh): its blocks, s0 and live then
+// have a batch axis of 1, which every sample reads (a metadata batch
+// stride of 0). Each sample's outputs are the same fmaf chains as on a
+// mesh of its own, so the result equals the JAX package's fold of the
+// batch into the feature axis. They launch on the caller's stream, do not
 // synchronise and allocate nothing; each entry point returns
 // cudaGetLastError() so that the Python wrapper raises on a refused launch.
 
@@ -161,11 +166,12 @@ constexpr unsigned kFull = 0xffffffffu;
 template <typename T>
 struct ApplyParams {
   const T* z;        // (B, n_max, F)
-  const T* blocks;   // (B, T, NT, SW)
-  const int* s0;     // (B, T) source-window starts
-  const int* live;   // (B,) live tiles
+  const T* blocks;   // (M, T, NT, SW), M = B or 1 (a shared mesh)
+  const int* s0;     // (M, T) source-window starts
+  const int* live;   // (M,) live tiles
   T* out;            // (B, n_max, F)
   int tiles, NT, SW, n_max, F;
+  int mstride;       // 1: a mesh a sample; 0: one mesh for the batch
   bool vec;          // SW a multiple of kVec and the blocks 16-byte aligned
   bool pairs;        // bf16: F even and z, out 4-byte aligned
 };
@@ -218,16 +224,17 @@ __global__ void __launch_bounds__(kApplyThreads) apply_kernel(ApplyParams<T> p) 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = blockIdx.x * kApplyWarps + warp;
   const int t = blockIdx.y, b = blockIdx.z;
+  const int mb = b * p.mstride;  // the sample's mesh
   const int gr = t * NT + r;
   if (r >= NT || gr >= n_max) return;  // uniform across the warp; no block barrier
   T* orow = p.out + (static_cast<long long>(b) * n_max + gr) * F;
-  if (t >= p.live[b]) {
+  if (t >= p.live[mb]) {
     for (int f = lane; f < F; f += 32) orow[f] = E::from_f(0.f);
     return;
   }
-  const T* arow = p.blocks + ((static_cast<long long>(b) * T_ + t) * NT + r) * SW;
+  const T* arow = p.blocks + ((static_cast<long long>(mb) * T_ + t) * NT + r) * SW;
   const T* Z = p.z + static_cast<long long>(b) * n_max * F;
-  const int start = p.s0[b * T_ + t];
+  const int start = p.s0[mb * T_ + t];
   int* ls = list_s[warp];
   float* la = list_a[warp];
 
@@ -339,15 +346,17 @@ int build_blocks(const int* src_rel, const int* dst_rel, const float* coeff, con
 }
 
 template <typename T>
-int apply(const T* z, const T* blocks, const int* s0, const int* live, T* out, int B, int T_,
-          int NT, int SW, int n_max, int F, int fpl, void* stream) {
-  if (B < 0 || B > 65535 || T_ < 0 || T_ > 65535 || NT < 1 || SW < 1 || F < 1)
+int apply(const T* z, const T* blocks, const int* s0, const int* live, T* out, int B,
+          int meta_b, int T_, int NT, int SW, int n_max, int F, int fpl, void* stream) {
+  if (B < 0 || B > 65535 || T_ < 0 || T_ > 65535 || NT < 1 || SW < 1 || F < 1 ||
+      (meta_b != B && meta_b != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T_ == 0) return 0;
   constexpr int V = Elem<T>::kVec;
   const bool vec = SW % V == 0 && aligned(blocks, 16);
   const bool pairs = F % 2 == 0 && aligned(z, 4) && aligned(out, 4);
-  const ApplyParams<T> p{z, blocks, s0, live, out, T_, NT, SW, n_max, F, vec, pairs};
+  const int mstride = meta_b == B ? 1 : 0;
+  const ApplyParams<T> p{z, blocks, s0, live, out, T_, NT, SW, n_max, F, mstride, vec, pairs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (fpl) {
     case 1: return static_cast<int>(launch_apply<T, 1>(p, B, s));
@@ -374,16 +383,17 @@ extern "C" int qtm_spmm_build_blocks_bf16(const int* src_rel, const int* dst_rel
 }
 
 // fpl: output features a lane (1, 2, 4 or 8); F wider than 32 fpl takes one
-// pass over the row a chunk of 32 fpl features.
+// pass over the row a chunk of 32 fpl features. meta_b: the batch axis of
+// blocks, s0 and live, B (a mesh a sample) or 1 (one mesh for the batch).
 extern "C" int qtm_spmm_apply(const float* z, const float* blocks, const int* s0,
-                              const int* live, float* out, int B, int T, int NT, int SW,
-                              int n_max, int F, int fpl, void* stream) {
-  return apply<float>(z, blocks, s0, live, out, B, T, NT, SW, n_max, F, fpl, stream);
+                              const int* live, float* out, int B, int meta_b, int T, int NT,
+                              int SW, int n_max, int F, int fpl, void* stream) {
+  return apply<float>(z, blocks, s0, live, out, B, meta_b, T, NT, SW, n_max, F, fpl, stream);
 }
 
 extern "C" int qtm_spmm_apply_bf16(const void* z, const void* blocks, const int* s0,
-                                   const int* live, void* out, int B, int T, int NT, int SW,
-                                   int n_max, int F, int fpl, void* stream) {
+                                   const int* live, void* out, int B, int meta_b, int T, int NT,
+                                   int SW, int n_max, int F, int fpl, void* stream) {
   return apply<bf16>(static_cast<const bf16*>(z), static_cast<const bf16*>(blocks), s0, live,
-                     static_cast<bf16*>(out), B, T, NT, SW, n_max, F, fpl, stream);
+                     static_cast<bf16*>(out), B, meta_b, T, NT, SW, n_max, F, fpl, stream);
 }

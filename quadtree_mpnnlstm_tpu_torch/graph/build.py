@@ -8,6 +8,13 @@ last two channels. A graph built on a CUDA card carries the CSR views of
 its id vectors that the segment-sum kernel K7 reads, and with attention
 windows the source-sorted view of their slots that K4 reads. With
 ``GraphConfig.debug_overflow`` a build that dropped content raises.
+
+``GraphConfig.adjacency="csum"`` builds quadtree edge lists with the
+sort-free builder (``graph/adjacency.py`` ``build_adjacency_canonical``),
+as the JAX package does: not with ``edges_at_corners`` and not on the
+pixelwise mesh, which take the sort. ``GraphConfig.max_degree`` > 0 gives
+the graph its capped id vectors and their CSR views (:func:`degree_cap`)
+and counts the edges past the cap into ``overflow``.
 """
 
 from __future__ import annotations
@@ -17,7 +24,10 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
-from quadtree_mpnnlstm_tpu_torch.graph.adjacency import build_adjacency
+from quadtree_mpnnlstm_tpu_torch.graph.adjacency import (
+    build_adjacency,
+    build_adjacency_canonical,
+)
 from quadtree_mpnnlstm_tpu_torch.graph.quadtree import (
     decompose_levels,
     pixel_nodes_from_levels,
@@ -47,6 +57,7 @@ def _assemble(
     cell_size_feature: torch.Tensor,
     dedup: bool = True,
     pixel_view=None,
+    level: Optional[torch.Tensor] = None,
 ) -> Tuple[GraphTensors, torch.Tensor]:
     b, t = img.shape[:2]
     n_max = cfg.n_max
@@ -61,6 +72,7 @@ def _assemble(
         node_valid=node_valid,
         overflow=torch.zeros(b, dtype=torch.int64, device=dev),
         pixel_view=pixel_view,
+        msg_dtype=cfg.message_dtype,
     )
 
     data = flatten(img, graph)  # (B, T, n_max, C)
@@ -68,9 +80,11 @@ def _assemble(
     # the edge attributes carry no gradient
     node_xy = _node_positions(data[:, 0].detach(), cfg)
     node_img = pixel_node.reshape((b,) + tuple(cfg.image_shape))
-    edge_src, edge_dst, edge_valid, edge_attr, n_edges, n_edges_raw = build_adjacency(
-        node_img, node_xy, cfg, dedup=dedup
-    )
+    if cfg.adjacency == "csum" and dedup and level is not None and not cfg.edges_at_corners:
+        adjacency = build_adjacency_canonical(node_img, level, node_xy, cfg)
+    else:
+        adjacency = build_adjacency(node_img, node_xy, cfg, dedup=dedup)
+    edge_src, edge_dst, edge_valid, edge_attr, n_edges, n_edges_raw = adjacency
 
     # Append the normalised cell-size channel.
     sizes = cell_size_feature[:, None, :, None].expand(b, t, n_max, 1)
@@ -88,13 +102,17 @@ def _assemble(
         graph = graph.replace(dst_view=segment_view(edge_dst, n_max, sorted_ids=True))
         if cfg.carry_edges:
             graph = graph.replace(src_view=segment_view(edge_src, n_max))
+    dropped = 0  # edges past the degree cap, on the worse side
+    if cfg.max_degree > 0:
+        graph, dropped = degree_cap(graph, cfg.max_degree)
     # attention windows read the edge attributes, not Â: skip the
     # normalisation when the edge list is dropped after the build
     if cfg.carry_edges or not cfg.attn_windows:
         graph = graph.replace(sym_coeff=compute_sym_norm(graph))
 
     # -- capacity-overflow accounting (dropped nodes/edges/window misses)
-    overflow = (n_nodes - n_max).clamp_min(0) + (n_edges_raw - cfg.e_max).clamp_min(0)
+    overflow = ((n_nodes - n_max).clamp_min(0) + (n_edges_raw - cfg.e_max).clamp_min(0)
+                + dropped)
     if cfg.attn_windows:
         meta, window_overflow = attn.attn_tile_meta(
             edge_src, edge_dst, edge_attr, n_max,
@@ -130,9 +148,38 @@ def _assemble(
         # they exist
         graph = graph.replace(
             edge_src=None, edge_dst=None, edge_valid=None, edge_attr=None,
-            sym_coeff=None, node_xy=None, dst_view=None,
+            sym_coeff=None, node_xy=None, dst_view=None, max_degree=0, edge_dst_cap=None,
+            edge_src_cap=None, dst_cap_view=None, src_cap_view=None,
         )
     return graph, data
+
+
+def degree_cap(graph: GraphTensors, cap: int) -> Tuple[GraphTensors, torch.Tensor]:
+    """The CSR degree cap of the JAX package's ``ops/csr.py`` backend
+    (``GraphConfig.max_degree``) on a dst-sorted edge list: each edge's
+    rank among its destination's edges (their order in the list) and among
+    its source's edges (their order in the stable source-sorted view, the
+    JAX package's ``src_perm``). Returns the graph with ``max_degree`` set,
+    the capped id vectors ``edge_dst_cap`` / ``edge_src_cap`` (the
+    sentinel ``n_max`` where the rank reaches the cap) and, on a CUDA card,
+    their CSR views, which kernel K7 reads as it reads any view; and the
+    edges ranked past the cap, on the worse of the two sides, (B,), which
+    the build counts into ``overflow``. Integer work, no host sync."""
+    src, dst, n_max = graph.edge_src, graph.edge_dst, graph.n_max
+    iota = torch.arange(dst.shape[1], device=dst.device).expand_as(dst)
+    rank_dst = iota - torch.searchsorted(dst.contiguous(), dst.contiguous())
+    src_sorted, src_perm = torch.sort(src, dim=1, stable=True)
+    rank_sorted = iota - torch.searchsorted(src_sorted, src_sorted)
+    rank_src = torch.empty_like(rank_sorted).scatter_(1, src_perm, rank_sorted)
+    drop_dst = (graph.edge_valid & (rank_dst >= cap)).sum(dim=1)
+    drop_src = ((src_sorted < n_max) & (rank_sorted >= cap)).sum(dim=1)
+    dst_cap = torch.where(rank_dst < cap, dst, n_max)
+    src_cap = torch.where(rank_src < cap, src, n_max)
+    graph = graph.replace(max_degree=cap, edge_dst_cap=dst_cap, edge_src_cap=src_cap)
+    if dst.is_cuda:
+        graph = graph.replace(dst_cap_view=segment_view(dst_cap, n_max),
+                              src_cap_view=segment_view(src_cap, n_max))
+    return graph, torch.maximum(drop_dst, drop_src)
 
 
 def raise_on_overflow(overflow: torch.Tensor) -> None:
@@ -184,7 +231,7 @@ def image_to_graph(
                              transform_func=transform_func)
     pixel_node, n_nodes, counts = pixel_nodes_from_levels(level, cfg, mask=mask)
     half_base = (cfg.max_grid_size / 2.0) ** 2
-    return _assemble(pixel_node, n_nodes, counts, img, cfg, counts / half_base)
+    return _assemble(pixel_node, n_nodes, counts, img, cfg, counts / half_base, level=level)
 
 
 def _keep_mask(mask: Optional[torch.Tensor], shape, device) -> torch.Tensor:

@@ -76,6 +76,17 @@ class GraphTensors:
     # the edge list with a self-edge per node for the GAT convolutions
     # (models/conv.py SelfLoops), built once per mesh by the model
     self_loops: Optional[object] = None
+    # the dtype of the edge-list Â·z messages (GraphConfig.message_dtype)
+    msg_dtype: str = "float32"
+    # GraphConfig.max_degree (0: off) and, with a cap, the id vectors with
+    # the sentinel n_max where an edge's rank among its destination's (its
+    # source's) edges reaches it, and their CSR views on a card
+    # (graph/build.py degree_cap; ops/segment.py dispatchers)
+    max_degree: int = 0
+    edge_dst_cap: Optional[torch.Tensor] = None  # (B, e_max) int64
+    edge_src_cap: Optional[torch.Tensor] = None  # (B, e_max) int64
+    dst_cap_view: Optional[SegmentView] = None
+    src_cap_view: Optional[SegmentView] = None
 
     @property
     def n_max(self) -> int:

@@ -6,7 +6,9 @@ mask (and a high-interest region) before training and hand it to
 ``train``/``predict`` as ``graph_structure``. A preset graph holds one
 mesh (batch axis 1); :func:`expand_graph` stands it in for a batch of B
 samples as views of its tensors, with the CSR views that K7 reads
-rebased once for B.
+rebased once for B. The shared meshes of batched training
+(``TrainConfig.shared_mesh``, ``models/seq2seq.py``) ride their batch the
+same way.
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ import torch
 
 from quadtree_mpnnlstm_tpu_torch.config import GraphConfig
 from quadtree_mpnnlstm_tpu_torch.graph.adjacency import edge_attributes
-from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
+from quadtree_mpnnlstm_tpu_torch.graph.build import degree_cap, image_to_graph
 from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors
-from quadtree_mpnnlstm_tpu_torch.models.conv import compute_sym_norm
+from quadtree_mpnnlstm_tpu_torch.models.conv import SelfLoops, compute_sym_norm
 from quadtree_mpnnlstm_tpu_torch.ops.segment import segment_sum_nodes
 from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import SegmentView, segment_view
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
@@ -74,7 +76,9 @@ def create_static_homogeneous_graph(
     pixels mapped to its node. One mesh (batch axis 1) on ``device``
     (:func:`preset_device`: by default the mask's device, else the card),
     its edge list sorted by (dst, src) with the sentinels last; no Â
-    blocks."""
+    blocks. With ``cfg.max_degree`` its edge list carries the degree cap
+    (``graph/build.py`` ``degree_cap``; the JAX package counts no
+    overflow for it here) and, as in the JAX package, f32 messages."""
     device = preset_device(device, mask)
     base = create_static_heterogeneous_graph(cfg, mask=None, device=device)
     n_max = cfg.n_max
@@ -137,6 +141,8 @@ def create_static_homogeneous_graph(
             dst_view=segment_view(graph.edge_dst, n_max, sorted_ids=True),
             src_view=segment_view(graph.edge_src, n_max),
         )
+    if cfg.max_degree > 0:
+        graph, _ = degree_cap(graph, cfg.max_degree)
     return graph.replace(sym_coeff=compute_sym_norm(graph))
 
 
@@ -150,29 +156,42 @@ def _expand_view(view: Optional[SegmentView], b: int, length: int) -> Optional[S
     return SegmentView(order, view.offsets + base)
 
 
+# per-sample tensors of a graph, and the CSR views with the ids they index
+_TENSORS = ("pixel_node", "counts", "n_nodes", "node_valid", "overflow", "edge_src",
+            "edge_dst", "edge_valid", "edge_attr", "n_edges", "node_xy", "sym_coeff",
+            "edge_dst_cap", "edge_src_cap")
+_VIEWS = (("pixel_view", "pixel_node"), ("dst_view", "edge_dst"), ("src_view", "edge_src"),
+          ("dst_cap_view", "edge_dst_cap"), ("src_cap_view", "edge_src_cap"))
+
+
+def _expand(t: Optional[torch.Tensor], b: int) -> Optional[torch.Tensor]:
+    return None if t is None else t.expand((b,) + t.shape[1:])
+
+
 def expand_graph(graph: GraphTensors, b: int) -> GraphTensors:
     """A one-mesh graph (batch axis 1) as the graph of a batch of ``b``
-    samples that all ride it: every tensor field an expanded view, the CSR
-    views rebased for ``b`` (``order`` and ``offsets`` are global over the
-    batch). A graph of batch ``b`` is returned as it is."""
+    samples that all ride it: every per-sample tensor an expanded view, the
+    CSR views rebased for ``b`` (``order`` and ``offsets`` are global over
+    the batch), the GAT self-loop list likewise. The Â blocks, the
+    attention windows and their slot view keep their batch axis of 1: the
+    kernels (K2/K2b, K3/K4) and their plain versions read one mesh's
+    metadata for every sample. A graph of batch ``b`` is returned as it
+    is."""
     n = graph.counts.shape[0]
     if n == b:
         return graph
     if n != 1:
-        raise ValueError(f"a graph of {n} meshes cannot ride a batch of {b}; a preset graph "
-                         "holds one mesh")
-    fields = {}
-    for name in ("pixel_node", "counts", "n_nodes", "node_valid", "overflow", "edge_src",
-                 "edge_dst", "edge_valid", "edge_attr", "n_edges", "node_xy", "sym_coeff"):
-        t = getattr(graph, name)
-        if t is not None:
-            fields[name] = t.expand((b,) + t.shape[1:])
-    for name, ids in (("pixel_view", graph.pixel_node), ("dst_view", graph.edge_dst),
-                      ("src_view", graph.edge_src)):
-        view = getattr(graph, name)
-        if view is not None:
-            fields[name] = _expand_view(view, b, ids.shape[1])
-    if graph.agg_meta is not None or graph.attn_meta is not None or graph.self_loops is not None:
-        raise ValueError("expand_graph takes edge-list presets (aggregation='xla'); Â blocks, "
-                         "attention windows and self-loop lists are built per batch")
+        raise ValueError(f"a graph of {n} meshes cannot ride a batch of {b}; a preset or "
+                         "shared graph holds one mesh")
+    fields = {name: _expand(getattr(graph, name), b) for name in _TENSORS}
+    for name, ids in _VIEWS:
+        ids = getattr(graph, ids)
+        if getattr(graph, name) is not None:
+            fields[name] = _expand_view(getattr(graph, name), b, ids.shape[1])
+    loops = graph.self_loops
+    if loops is not None:
+        length = loops.src.shape[1]
+        fields["self_loops"] = SelfLoops(
+            *(_expand(t, b) for t in (loops.src, loops.dst, loops.valid, loops.attr)),
+            _expand_view(loops.src_view, b, length), _expand_view(loops.dst_view, b, length))
     return graph.replace(**fields)

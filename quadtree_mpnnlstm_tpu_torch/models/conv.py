@@ -17,7 +17,14 @@ takes ``(x, graph, generator)``; attention dropout draws its keep windows
 (``module.train()``) only. Every conv and every branch runs in the
 compute dtype it is given (f32 or bf16).
 
-Not ported: the batch-middle (shared-mesh) layout.
+A shared mesh (``TrainConfig.shared_mesh``) keeps this (B, n_max, F)
+layout: its graph holds one mesh for the batch (``graph/static.py``
+``expand_graph``), whose Â blocks and attention windows the kernels read
+for every sample, so each conv runs as on per-sample meshes. The JAX
+package folds the batch into the feature axis (Â) or the heads
+(attention) instead; each sample's columns add the same terms in the same
+order either way. The edge-list ``Â z`` honours the graph's message dtype
+and degree cap (``GraphConfig.message_dtype``, ``max_degree``).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from quadtree_mpnnlstm_tpu_torch.ops.grid import grid_a_mul
 from quadtree_mpnnlstm_tpu_torch.ops.segment import (
     aggregate_to_dst,
     edge_softmax,
+    edge_softmax_graph,
     gather_dst,
     gather_nodes,
     gather_src,
@@ -46,6 +54,8 @@ from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import SegmentView, segment_vie
 def compute_sym_norm(graph: GraphTensors) -> torch.Tensor:
     """D^{-1/2} A D^{-1/2} coefficient per edge (B, e_max); the scalar edge
     weight is the last edge-attribute column (distance), 0 where invalid.
+    With a degree cap the degree sums each node's first ``max_degree``
+    edges, as the JAX package's CSR sum does.
 
     ``dinv`` is indexed with the clamped edge ids: the sentinel ``n_max``
     would be out of range (JAX clamps it silently; torch raises), and its
@@ -53,7 +63,10 @@ def compute_sym_norm(graph: GraphTensors) -> torch.Tensor:
     """
     n = graph.n_max
     w = graph.edge_attr[..., -1] * graph.edge_valid
-    deg = segment_sum_nodes(w, graph.edge_dst, n, graph.dst_view)
+    if graph.max_degree > 0:
+        deg = segment_sum_nodes(w, graph.edge_dst_cap, n, graph.dst_cap_view)
+    else:
+        deg = segment_sum_nodes(w, graph.edge_dst, n, graph.dst_view)
     dinv = torch.where(deg > 0, torch.rsqrt(deg.clamp_min(1e-12)), 0.0)
     d_dst = torch.gather(dinv, 1, graph.edge_dst.clamp_max(n - 1))
     d_src = torch.gather(dinv, 1, graph.edge_src.clamp_max(n - 1))
@@ -67,14 +80,20 @@ def a_mul(z: torch.Tensor, graph: GraphTensors) -> torch.Tensor:
         tensor);
       * ``grid`` — the shift stencil of the pixelwise mesh (ops/grid.py);
       * otherwise — gather → scale → scatter-add over the edge list
-        (ops/segment.py; kernel K7 on a CUDA tensor).
+        (ops/segment.py; kernel K7 on a CUDA tensor). With
+        ``msg_dtype="bfloat16"`` (``GraphConfig.message_dtype``) the
+        messages are cast to bf16, summed (K7's bf16 instance on a card)
+        and the sum cast back to z's dtype.
     """
     if graph.agg[0] == "grid":
         return grid_a_mul(z, graph)
     if graph.agg[0] == "pallas":
         _, nt, _eb, sw = graph.agg
         return spmm.spmm_apply(z, graph.agg_meta, graph.n_max, nt, sw)
-    return aggregate_to_dst(graph.sym_coeff[..., None].to(z.dtype) * gather_src(z, graph), graph)
+    msg = graph.sym_coeff[..., None].to(z.dtype) * gather_src(z, graph)
+    if graph.msg_dtype == "bfloat16":
+        return aggregate_to_dst(msg.to(torch.bfloat16), graph).to(z.dtype)
+    return aggregate_to_dst(msg, graph)
 
 
 class GCNConv(nn.Module):
@@ -209,7 +228,7 @@ def edge_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.
     # √d in q's dtype, as the JAX branch takes it (jnp.sqrt of d in that dtype)
     root_d = float(torch.tensor(float(d), dtype=q.dtype).sqrt())
     logits = (gather_dst(qh, graph) * kj).sum(dim=-1) / root_d
-    alpha = edge_softmax(logits, graph.edge_dst, graph.edge_valid, n)
+    alpha = edge_softmax_graph(logits, graph)
     sow(intermediates, alpha)
     used = alpha if keep is None else alpha * keep.to(alpha.dtype)
     return aggregate_to_dst(used[..., None] * vj, graph)

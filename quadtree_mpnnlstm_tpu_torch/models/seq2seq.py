@@ -6,7 +6,8 @@ quadtree meshes, one fixed mesh when every pixel is a node, as an edge
 list or a grid, or when a preset mesh is given), the ``remesh_input``
 encoder, for inference and training. The JAX package runs both as ``nn.scan``s vmapped
 over samples; here they are Python loops over time with an explicit batch
-axis, each sample on its own mesh.
+axis, each sample on its own mesh, or, with a shared mesh, the whole batch
+on one.
 
 Reference quirks kept from the JAX package:
   * encoder layer 0 receives the *top* layer's (H, C) from the previous
@@ -94,7 +95,23 @@ raises ``ValueError`` naming the module (and the step ``t``), with the
 JAX package's messages; each check syncs with the host, and without the
 flag nothing is checked.
 
-The shared-mesh batched layout is not ported.
+Shared mesh (``encode(..., shared_mesh=True)``, the JAX package's
+``TrainConfig.shared_mesh``; the predictor turns it on for training only):
+the whole batch rides one mesh a step. The encoder builds it from the max
+of the split criterion over every sample and input frame (the JAX
+package's batch of T·B frames), each ``remesh_input`` step from the next
+frame of every sample, and each decoder remesh from the B frames of the
+step; a preset mesh is one mesh anyway. The batch draws one
+scheduled-sampling coin a step, so the frame a mesh is built from is the
+batch's. The mesh is built once (kernel K1 once a build, not B times) as
+a graph of batch 1 and then stands in for the batch as views
+(``graph/static.py`` ``expand_graph``): node tensors keep the (B, n_max,
+F) layout, and the Â-block and attention kernels read the one mesh's
+metadata for every sample. The JAX package moves node tensors to a
+batch-middle (n_max, B, F) layout and folds the batch into the features
+or heads of each aggregation; each sample's results are the same sums in
+the same order. Every remat mode, TBPTT chunk, remesh mode, region and
+debug mode composes with it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -124,6 +141,7 @@ class Seq2SeqState:
     x: torch.Tensor                   # (B, n_max, F) current node input
     hidden: Tuple[torch.Tensor, ...]  # n_layers × (B, n_max, hidden)
     cell: Tuple[torch.Tensor, ...]    # n_layers × (B, n_max, hidden)
+    shared: bool = False              # one mesh for the whole batch
 
 
 class LayerNorm(nn.Module):
@@ -369,14 +387,23 @@ class Seq2Seq(nn.Module):
         self._preset_cache = None
 
     def _graph(self, frames: torch.Tensor, mask: Optional[torch.Tensor],
-               hir: Optional[torch.Tensor] = None):
-        """(graph, node features) of ``frames`` (B, T, rows, cols, C), with
-        the GAT convolutions' self-loop list where the model has them."""
+               hir: Optional[torch.Tensor] = None, shared: bool = False):
+        """(graph, node features (B, T, n_max, C + 1)) of ``frames`` (B, T,
+        rows, cols, C), with the GAT convolutions' self-loop list where the
+        model has them. ``shared``: one mesh from the B·T frames (the
+        criterion's max over all of them), built as a graph of batch 1 and
+        expanded to the batch."""
+        b, t = frames.shape[:2]
+        if shared:
+            frames = frames.reshape((1, b * t) + frames.shape[2:])
         graph, data = image_to_graph(add_positional_encoding(frames), self.gcfg, mask=mask,
                                      high_interest_region=hir,
                                      transform_func=self.transform_func)
         if self.self_loops:
             graph = graph.replace(self_loops=with_self_loops(graph))
+        if shared:
+            graph = expand_graph(graph, b)
+            data = data.reshape((b, t) + data.shape[2:])
         return graph, data
 
     def _preset(self, graph_structure: GraphTensors, b: int, device) -> GraphTensors:
@@ -414,12 +441,15 @@ class Seq2Seq(nn.Module):
     def encode(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                high_interest_region: Optional[torch.Tensor] = None,
-               graph_structure: Optional[GraphTensors] = None) -> Seq2SeqState:
+               graph_structure: Optional[GraphTensors] = None,
+               shared_mesh: bool = False) -> Seq2SeqState:
         """x: (B, T_in, rows, cols, C) → state after the last input frame,
         on the mesh of the inputs (criterion: max over the input frames),
         on the preset ``graph_structure`` (one mesh for every sample), or
         with ``remesh_input`` on the mesh of the last frame.
-        ``generator`` feeds the attention dropout in training mode."""
+        ``generator`` feeds the attention dropout in training mode.
+        ``shared_mesh``: one mesh for the whole batch at every step (module
+        docstring); the state carries the choice to ``decode``."""
         cfg, gcfg = self.cfg, self.gcfg
         if x.shape[1] != cfg.input_timesteps:
             raise ValueError(f"expected {cfg.input_timesteps} input frames, got {x.shape[1]}")
@@ -434,8 +464,9 @@ class Seq2Seq(nn.Module):
         xc = x.to(cfg.cdtype)
         hir = high_interest_region
         if graph_structure is None and cfg.remesh_input:
-            graph, data = self._graph(xc[:, :1], mask, hir)
-            state = Seq2SeqState(graph=graph, x=data[:, 0], hidden=zeros, cell=zeros)
+            graph, data = self._graph(xc[:, :1], mask, hir, shared_mesh)
+            state = Seq2SeqState(graph=graph, x=data[:, 0], hidden=zeros, cell=zeros,
+                                 shared=shared_mesh)
             for t in range(cfg.input_timesteps):
                 # frame t's step remeshes onto frame t + 1; the last keeps its mesh
                 nxt = None if t == cfg.input_timesteps - 1 else xc[:, t + 1:t + 2]
@@ -454,12 +485,13 @@ class Seq2Seq(nn.Module):
                 sizes = sizes[:, None, :, None].expand(flat.shape[:-1] + (1,))
                 data = torch.cat([flat, sizes.to(flat.dtype)], dim=-1)
             else:
-                graph, data = self._graph(xc, mask, hir)
+                graph, data = self._graph(xc, mask, hir, shared_mesh)
             hidden, cell = zeros, zeros
             for t in range(cfg.input_timesteps):
                 hidden, cell = self._step(self._encoder_step, generator, data[:, t], graph,
                                           hidden, cell)
-            state = Seq2SeqState(graph=graph, x=data[:, -1], hidden=hidden, cell=cell)
+            state = Seq2SeqState(graph=graph, x=data[:, -1], hidden=hidden, cell=cell,
+                                 shared=shared_mesh)
         # decoder seed [value, pos_x, pos_y, node_size] of the last frame:
         # slices, not an index list, whose backward would scatter
         last = state.x
@@ -483,7 +515,8 @@ class Seq2Seq(nn.Module):
         == 0``.
 
         Scheduled sampling: with ``teacher_forcing_ratio`` > 0, one coin per
-        sample and step, drawn from ``generator``, decides whether the next
+        sample and step (one per step for the batch on a shared mesh),
+        drawn from ``generator``, decides whether the next
         input (and mesh) is built from the true frame ``y[:, t]`` (B,
         n_steps, rows, cols, 1) instead of the prediction. ``climatology``
         (B, n_steps, rows, cols, 1) feeds the concat channel when the model
@@ -561,14 +594,15 @@ class Seq2Seq(nn.Module):
         rows, cols, C), (H, C) carried through pixel space; the current
         mesh when there is no next frame."""
         if nxt is None:
-            return Seq2SeqState(graph=state.graph, x=state.x, hidden=hidden, cell=cell)
+            return dataclasses.replace(state, hidden=hidden, cell=cell)
         shape = self.gcfg.image_shape
-        new_graph, data = self._graph(nxt, mask, hir)
+        new_graph, data = self._graph(nxt, mask, hir, state.shared)
         new_graph = new_graph.replace(overflow=torch.maximum(new_graph.overflow,
                                                              state.graph.overflow))
         return Seq2SeqState(graph=new_graph, x=data[:, 0],
                             hidden=_transfer_state(hidden, state.graph, new_graph, shape),
-                            cell=_transfer_state(cell, state.graph, new_graph, shape))
+                            cell=_transfer_state(cell, state.graph, new_graph, shape),
+                            shared=state.shared)
 
     def _decoder_cell(self, generator, state, concat, t):
         """(output, hidden, cell) of the decoder's cells and head at step ``t``."""
@@ -585,12 +619,14 @@ class Seq2Seq(nn.Module):
         """(next state, the frame (B, rows, cols, 1)) from a decoder
         output: with ``remesh`` the state on a new mesh, else the next
         input on the same mesh; with scheduled sampling, one coin per sample
-        from ``generator`` picks the true frame ``y_t`` instead."""
+        (per batch on a shared mesh) from ``generator`` picks the true frame
+        ``y_t`` instead."""
         graph = state.graph
         y_hat_t = unflatten(output, graph, self.gcfg.image_shape, fill=0.0)
         coin = None
         if teacher_forcing_ratio > 0.0:
-            coin = torch.rand(y_hat_t.shape[0], generator=generator,
+            coins = 1 if state.shared else y_hat_t.shape[0]
+            coin = torch.rand(coins, generator=generator,
                               device=y_hat_t.device) < teacher_forcing_ratio
         if remesh:
             return self._remesh(state, y_hat_t, hidden, cell, coin, y_t, mask, hir), y_hat_t
@@ -601,7 +637,7 @@ class Seq2Seq(nn.Module):
             teach = flatten(add_positional_encoding(y_t[:, None].to(output.dtype)), graph)[:, 0]
             x_teach = torch.cat([teach, graph.counts[..., None].to(output.dtype)], dim=-1)
             x_new = torch.where(coin[:, None, None], x_teach, x_new)
-        return Seq2SeqState(graph=graph, x=x_new, hidden=hidden, cell=cell), y_hat_t
+        return dataclasses.replace(state, x=x_new, hidden=hidden, cell=cell), y_hat_t
 
     def _remesh(self, state, y_hat_t, hidden, cell, coin, y_t, mask, hir) -> Seq2SeqState:
         """The next state on the mesh of the prediction (or, where the coin
@@ -612,7 +648,7 @@ class Seq2Seq(nn.Module):
         base = y_hat_t
         if coin is not None:
             base = torch.where(coin[:, None, None, None], y_t.to(y_hat_t.dtype), y_hat_t)
-        new_graph, data = self._graph(base[:, None], mask, hir)
+        new_graph, data = self._graph(base[:, None], mask, hir, state.shared)
         # running max overflow across the rollout
         new_graph = new_graph.replace(overflow=torch.maximum(new_graph.overflow, graph.overflow))
         return Seq2SeqState(
@@ -620,6 +656,7 @@ class Seq2Seq(nn.Module):
             x=data[:, 0],
             hidden=_transfer_state(hidden, graph, new_graph, shape),
             cell=_transfer_state(cell, graph, new_graph, shape),
+            shared=state.shared,
         )
 
     def rollout(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,

@@ -19,7 +19,10 @@ Rows with no slot, and every row of a dead tile (at or past
 every (slot, head) window entry, or is None for no dropout.
 
 Everything carries a leading batch axis (one mesh per sample, one launch
-per batch). Dispatch is by device: a CUDA tensor launches the kernel (and
+per batch). A shared mesh (``TrainConfig.shared_mesh``) has windows of
+batch 1 for q, k, v of batch B: both kernels read them, and their slot
+view, for every sample (a metadata batch stride of 0, no copy), and the
+plain versions expand them. Dispatch is by device: a CUDA tensor launches the kernel (and
 raises if it cannot be built or launched); a CPU tensor runs the plain
 version. Above :data:`MAX_HD` features the kernels run once per group of
 whole heads (:func:`head_groups`: the fewest groups that fit, each on its
@@ -252,6 +255,14 @@ def slot_view(meta: AttnMeta, dims: AttnDims) -> SegmentView:
     return segment_view(torch.where(keep, src, -1).reshape(b, t * eb), dims.n_max)
 
 
+def for_batch(meta: AttnMeta, b: int) -> AttnMeta:
+    """``meta`` for a batch of ``b``: as it is, or a shared mesh's windows
+    (batch 1) expanded as views."""
+    if meta.s0.shape[0] == b:
+        return meta
+    return AttnMeta(*(x.expand((b,) + x.shape[1:]) for x in meta))
+
+
 def _slot_keep(keep: torch.Tensor, heads: int) -> torch.Tensor:
     """(B, T, KH, EB) keep windows → (B, T·EB, heads); head h reads row
     min(h, KH − 1), as the TPU kernel does."""
@@ -270,9 +281,10 @@ def attn_plain(q, k, v, we, keep: Optional[torch.Tensor], meta: AttnMeta,
     destination with a detached max, and fixed-order segment sums. O(slots
     · HD) memory. q, k, v: (B, n_max, heads·d); we: (A, heads·d). bf16
     operands are widened to f32 and the output is rounded to q's dtype
-    once."""
+    once. Windows of batch 1 serve every sample."""
     n_max, heads, d = dims.n_max, dims.heads, dims.d
     b = q.shape[0]
+    meta = for_batch(meta, b)
     dtype = q.dtype
     q, k, v, we = (x.float() for x in (q, k, v, we))
     dst, src = slot_nodes(meta, dims)
@@ -317,6 +329,7 @@ def attn_bwd_slots_plain(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g):
     :func:`attn_bwd_plain`'s function."""
     n_max, heads, d = dims.n_max, dims.heads, dims.d
     b = q.shape[0]
+    meta = for_batch(meta, b)
     dtype, we_dtype = q.dtype, we.dtype
     q, k, v, we, g = (x.float() for x in (q, k, v, we, g))
     scale = 1.0 / float(d) ** 0.5
@@ -355,6 +368,7 @@ def attn_combine_plain(dlog, used, q, g, meta: AttnMeta, dims: AttnDims):
     sort-based plain segment sum, in f32. Returns (dk, dv) in q's dtype."""
     n_max, heads, d = dims.n_max, dims.heads, dims.d
     b = q.shape[0]
+    meta = for_batch(meta, b)
     dtype = q.dtype
     q, g = q.float(), g.float()
     dst, src = slot_nodes(meta, dims)
@@ -371,12 +385,15 @@ def attn_combine_plain(dlog, used, q, g, meta: AttnMeta, dims: AttnDims):
 
 def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
     """Check the operands of both kernels: q, k, v and we in one dtype,
-    float32 or bfloat16, the windows and keep float32. Returns (lib,
-    pointers, ints, the entry points' suffix)."""
+    float32 or bfloat16, the windows and keep float32; windows of batch 1
+    (a shared mesh) serve every sample. Returns (lib, pointers, ints, the
+    entry points' suffix)."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     n_max, nt, eb, sw, heads, d = dims
-    b, t = meta.s0.shape
+    b = q.shape[0]
+    bm, t = meta.s0.shape
+    spmm.check_meta_batch(bm, b)
     a = meta.attr.shape[-1]
     hd = heads * d
     if not 1 <= hd <= MAX_HD or not 1 <= a <= MAX_A:
@@ -388,11 +405,11 @@ def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
         check(x, name, q.dtype, (b, n_max, hd))
     check(we, "we", q.dtype, (a, hd))
-    check(meta.s0, "s0", torch.int32, (b, t))
-    check(meta.src_rel, "src_rel", torch.int32, (b, t, eb))
-    check(meta.dst_rel, "dst_rel", torch.int32, (b, t, eb))
-    check(meta.attr, "attr", torch.float32, (b, t, eb, a))
-    check(meta.live, "live", torch.int32, (b,))
+    check(meta.s0, "s0", torch.int32, (bm, t))
+    check(meta.src_rel, "src_rel", torch.int32, (bm, t, eb))
+    check(meta.dst_rel, "dst_rel", torch.int32, (bm, t, eb))
+    check(meta.attr, "attr", torch.float32, (bm, t, eb, a))
+    check(meta.live, "live", torch.int32, (bm,))
     kh = 0
     if keep is not None:
         if keep.dim() != 4 or not 1 <= keep.shape[2] <= heads:
@@ -403,7 +420,7 @@ def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
     ptrs = [spmm._ptr(x) for x in (q, k, v, we)]
     ptrs.append(ctypes.c_void_p(None if keep is None else keep.data_ptr()))
     ptrs += [spmm._ptr(x) for x in meta]
-    ints = (b, t, eb, nt, sw, n_max, heads, d, a, kh)
+    ints = (b, bm, t, eb, nt, sw, n_max, heads, d, a, kh)
     return load_library("attn.cu"), ptrs, ints, spmm.KERNEL_DTYPES[q.dtype]
 
 
@@ -450,12 +467,13 @@ def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=No
     in q's dtype."""
     lib, ptrs, ints, suffix = _launch_args(q, k, v, we, keep, meta, dims)
     spmm._check(g, "g", q.dtype, tuple(q.shape))
-    b, t, eb = meta.dst_rel.shape
+    bm, t, eb = meta.dst_rel.shape
+    b = q.shape[0]
     a, hd = we.shape
     if view is None:
         view = slot_view(meta, dims)
-    spmm._check(view.order, "view order", torch.int32, (b * t * eb,))
-    spmm._check(view.offsets, "view offsets", torch.int32, (b, dims.n_max + 1))
+    spmm._check(view.order, "view order", torch.int32, (bm * t * eb,))
+    spmm._check(view.offsets, "view offsets", torch.int32, (bm, dims.n_max + 1))
     groups = -(-dims.nt // ROWS_PER_CTA)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     scalars = torch.empty((2, b, t * eb, dims.heads), dtype=torch.float32, device=q.device)
@@ -577,8 +595,9 @@ def attn_apply(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, we: torch.Tens
     heads·d) f32 or bf16; we: (A, heads·d) in q's dtype; keep: (B, T, KH,
     EB) f32 keep-scale windows, or None for no dropout; ``view``: the
     windows' :func:`slot_view` (the graph's ``slot_view``), which the
-    card's backward builds when None. Returns (B, n_max, heads·d) in q's
-    dtype; differentiable in q, k, v and we.
+    card's backward builds when None. ``meta`` (and ``view``) hold B
+    meshes, or one that every sample rides. Returns (B, n_max, heads·d)
+    in q's dtype; differentiable in q, k, v and we.
     """
     order, offsets = (None, None) if view is None else view
     return AttnApply.apply(q, k, v, we, keep, *meta, order, offsets, dims)

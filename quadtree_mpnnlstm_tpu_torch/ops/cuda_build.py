@@ -39,21 +39,22 @@ SIGNATURES = {
         # src_rel, dst_rel, coeff, live, blocks, B, T, EB, NT, SW, stream
         "qtm_spmm_build_blocks": [_P] * 5 + [_C] * 5 + [_P],
         "qtm_spmm_build_blocks_bf16": [_P] * 5 + [_C] * 5 + [_P],
-        # z, blocks, s0, live, out, B, T, NT, SW, n_max, F, features a lane, stream
-        "qtm_spmm_apply": [_P] * 5 + [_C] * 7 + [_P],
-        "qtm_spmm_apply_bf16": [_P] * 5 + [_C] * 7 + [_P],
+        # z, blocks, s0, live, out, B, metadata batch (B or 1), T, NT, SW,
+        # n_max, F, features a lane, stream
+        "qtm_spmm_apply": [_P] * 5 + [_C] * 8 + [_P],
+        "qtm_spmm_apply_bf16": [_P] * 5 + [_C] * 8 + [_P],
     },
     "attn.cu": {
         # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,
-        # B, T, EB, NT, SW, n_max, H, D, A, KH, then the plan: run, lanes a
-        # head, heads an item, lanes an item, slices, warps, rows, chunk;
-        # scale, stream, geometry (host int[8] or null)
-        "qtm_attn_fwd": [_P] * 11 + [_C] * 18 + [ctypes.c_float, _P, _P],
-        "qtm_attn_fwd_bf16": [_P] * 11 + [_C] * 18 + [ctypes.c_float, _P, _P],
+        # B, metadata batch (B or 1), T, EB, NT, SW, n_max, H, D, A, KH, then
+        # the plan: run, lanes a head, heads an item, lanes an item, slices,
+        # warps, rows, chunk; scale, stream, geometry (host int[8] or null)
+        "qtm_attn_fwd": [_P] * 11 + [_C] * 19 + [ctypes.c_float, _P, _P],
+        "qtm_attn_fwd_bf16": [_P] * 11 + [_C] * 19 + [ctypes.c_float, _P, _P],
         # ... live, g, view order, view offsets, dq, dk, dv, dlog, used,
-        # dwe_part, B, ..., rows, scale, stream
-        "qtm_attn_bwd": [_P] * 19 + [_C] * 11 + [ctypes.c_float, _P],
-        "qtm_attn_bwd_bf16": [_P] * 19 + [_C] * 11 + [ctypes.c_float, _P],
+        # dwe_part, B, metadata batch, T, ..., rows, scale, stream
+        "qtm_attn_bwd": [_P] * 19 + [_C] * 12 + [ctypes.c_float, _P],
+        "qtm_attn_bwd_bf16": [_P] * 19 + [_C] * 12 + [ctypes.c_float, _P],
     },
     "grid_attn.cu": {
         # q, k, v, e_dir, valid, keep, out,

@@ -230,12 +230,15 @@ def _segment_sum_cuda(values: torch.Tensor, ids: torch.Tensor, n_out: int,
 
 class SegmentSum(torch.autograd.Function):
     """K7 on a CUDA tensor, the plain version on a CPU one; the backward
-    is the row gather on both. Takes and returns the caller's trailing
+    is the row gather on both, by ``grad_ids`` when given (the capped sums
+    of ``ops/segment.py``: a truncated entry still takes its row's
+    cotangent), else by ``ids``. Takes and returns the caller's trailing
     feature axes, so its node is the output's own."""
 
     @staticmethod
-    def forward(ctx, values, ids, n_out: int, view: Optional[SegmentView]):
-        ctx.save_for_backward(ids)
+    def forward(ctx, values, ids, n_out: int, view: Optional[SegmentView],
+                grad_ids: Optional[torch.Tensor] = None):
+        ctx.save_for_backward(ids if grad_ids is None else grad_ids)
         ctx.n_out = n_out
         if not values.is_cuda:
             return segment_sum_plain(values, ids, n_out)
@@ -249,17 +252,19 @@ class SegmentSum(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return gather_rows_plain(g, ids, ctx.n_out), None, None, None
+        return gather_rows_plain(g, ids, ctx.n_out), None, None, None, None
 
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor, n_out: int,
-                view: Optional[SegmentView] = None) -> torch.Tensor:
+                view: Optional[SegmentView] = None,
+                grad_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7: ``values`` (B, L, ...) summed into (B, n_out, ...) by ``ids`` (B,
     L); ids outside ``[0, n_out)`` are dropped.
 
     Replaces ``segment_sum_pallas`` (``_kernel``, its VJP a row gather) of
     ``quadtree_mpnnlstm_tpu/ops/pallas_segment.py``. ``view`` is the ids'
     :func:`segment_view`, built here when None. Differentiable in
-    ``values``.
+    ``values``; the backward gathers the cotangent by ``grad_ids`` (B, L)
+    when given, else by ``ids``.
     """
-    return SegmentSum.apply(values, ids, n_out, view)
+    return SegmentSum.apply(values, ids, n_out, view, grad_ids)

@@ -14,7 +14,10 @@ every ``Â z`` of that mesh is then one small dense product per live tile
 
 Everything carries a leading batch axis: each sample has its own mesh, and
 one launch serves the whole batch (the JAX package vmaps the
-``pallas_call`` instead). Window overflow (a tile with more than EB edges,
+``pallas_call`` instead). A shared mesh (``TrainConfig.shared_mesh``) has
+blocks of batch 1 for a z of batch B: K1 builds them once, and K2/K2b and
+:func:`apply_plain` read them for every sample (the kernel's metadata
+batch stride is 0, no copy). Window overflow (a tile with more than EB edges,
 or a source span wider than SW) is counted into the graph's ``overflow``.
 
 Dispatch is by device: a CUDA tensor launches the kernel (and raises if it
@@ -204,9 +207,12 @@ def apply_plain(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tens
     ``z`` (rows at or past ``n_max`` read as zero), one batched product,
     dead tiles zeroed. The blocks are cast to z's dtype, as the JAX
     package casts them; the product runs in f32 and the result is
-    returned in z's dtype (bf16: one rounding)."""
-    b, t = s0.shape
-    f = z.shape[-1]
+    returned in z's dtype (bf16: one rounding). Blocks of batch 1 (a
+    shared mesh) serve every sample of z."""
+    b, f = z.shape[0], z.shape[-1]
+    if s0.shape[0] != b:
+        s0, blocks, live = (x.expand((b,) + x.shape[1:]) for x in (s0, blocks, live))
+    t = s0.shape[1]
     dtype = z.dtype
     blocks = blocks.to(dtype).float()
     z = z.float()
@@ -309,27 +315,36 @@ def apply_plan(nt: int, sw: int, f: int, itemsize: int = 4) -> ApplyPlan:
                      fpl, tuple((x, min(x + width, f)) for x in range(0, f, width)))
 
 
+def check_meta_batch(meta_b: int, b: int) -> None:
+    """Raise unless a launch's mesh metadata has batch ``b`` (a mesh a
+    sample) or 1 (one mesh for the batch, read with a batch stride of 0)."""
+    if meta_b not in (1, b):
+        raise ValueError(f"mesh metadata of batch {meta_b} cannot serve a batch of {b}")
+
+
 def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: str):
     """Launch ``qtm_spmm_apply`` (``_bf16`` for bf16 z; one warp per Â row
     of every tile of every sample, :func:`apply_plan`) and count it under
-    ``counter``. The blocks must be in z's dtype."""
+    ``counter``. The blocks must be in z's dtype; blocks of batch 1 serve
+    every sample."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     if z.dtype not in KERNEL_DTYPES:
         raise TypeError(f"spmm_apply takes float32 or bfloat16 z, not {z.dtype}")
     lib = load_library()
-    b, t = s0.shape
-    f = z.shape[-1]
+    b, f = z.shape[0], z.shape[-1]
+    bm, t = s0.shape
+    check_meta_batch(bm, b)
     _check(z, "z", z.dtype, (b, n_max, f))
-    _check(s0, "s0", torch.int32, (b, t))
-    _check(blocks, "blocks", z.dtype, (b, t, nt, sw))
-    _check(live, "live", torch.int32, (b,))
+    _check(s0, "s0", torch.int32, (bm, t))
+    _check(blocks, "blocks", z.dtype, (bm, t, nt, sw))
+    _check(live, "live", torch.int32, (bm,))
     out = torch.empty((b, n_max, f), dtype=z.dtype, device=z.device)
     if b * t * f == 0:
         return out
     err = getattr(lib, "qtm_spmm_apply" + KERNEL_DTYPES[z.dtype])(
         _ptr(z), _ptr(blocks), _ptr(s0), _ptr(live), _ptr(out),
-        b, t, nt, sw, n_max, f, apply_plan(nt, sw, f, z.element_size()).fpl, _stream(),
+        b, bm, t, nt, sw, n_max, f, apply_plan(nt, sw, f, z.element_size()).fpl, _stream(),
     )
     _raise_on(err, counter)
     _count(counter, z.dtype)

@@ -49,6 +49,15 @@ before the update, from the step's generator state, so the error names
 the module and decoder step that first went non-finite; it reads the loss
 on the host every step, and without it ``train_step`` syncs nothing.
 ``test_threshold`` draws the mesh a threshold gives.
+
+``shared_mesh`` (explicit argument, else ``train_config.shared_mesh``,
+else off, as the JAX predictor resolves it) trains every batch on one mesh
+a step, built from the max of the criterion over the batch, with one
+scheduled-sampling coin a step for the batch (``models/seq2seq.py``);
+``forecast``, ``predict`` and ``score`` stay per-sample. The loss is the
+same mean over samples. ``graph_kwargs`` take every ``GraphConfig`` field
+of the JAX package (``grid_attn``, ``message_dtype``, ``max_degree``,
+``adjacency="csum"`` among them).
 """
 
 from __future__ import annotations
@@ -113,6 +122,7 @@ class NextFramePredictorS2S:
         train_config: Optional[TrainConfig] = None,
         run_dir: str = "runs",
         tensorboard: bool = False,
+        shared_mesh: Optional[bool] = None,
     ):
         self.experiment_name = experiment_name
         self.thresh = thresh if decompose else NEG_INF
@@ -128,6 +138,9 @@ class NextFramePredictorS2S:
         self.device = torch.device(device)
         if seed is None:  # explicit seed > train_config.seed > 21
             seed = train_config.seed if train_config is not None else 21
+        if shared_mesh is None:  # explicit > train_config.shared_mesh > off
+            shared_mesh = bool(train_config.shared_mesh) if train_config is not None else False
+        self.shared_mesh = shared_mesh
 
         mk = dict(model_kwargs or {})
         self.cfg = ModelConfig(
@@ -156,9 +169,6 @@ class NextFramePredictorS2S:
             raise TypeError(f"unknown model_kwargs: {sorted(mk)}")
 
         gk = dict(graph_kwargs or {})
-        # the JAX package's choice between its grid-attention kernel and
-        # chain; the port runs one grid attention (ops/grid_attn.py)
-        gk.pop("grid_attn", None)
         carry_edges_explicit = "carry_edges" in gk
         self.gcfg = GraphConfig(
             image_shape=tuple(image_shape),
@@ -181,6 +191,7 @@ class NextFramePredictorS2S:
             # the GCN/Cheb Â blocks
             self.gcfg = self.gcfg.replace(attn_windows=True)
         if (not carry_edges_explicit and self.gcfg.aggregation == "pallas"
+                and self.gcfg.max_degree == 0
                 and self.cfg.convolution_type in ("GCNConv", "ChebConv") + attention):
             # aggregation rides the Â blocks or attention windows; the edge
             # list is dead weight (the JAX predictor's list of such convs)
@@ -284,7 +295,7 @@ class NextFramePredictorS2S:
         for t0, n in self._chunks(truncated_backprop):
             y_c = y[:, t0:t0 + n]
             state = model.encode(x, mask=m, generator=gen, high_interest_region=hir,
-                                 graph_structure=gs)
+                                 graph_structure=gs, shared_mesh=self.shared_mesh)
             state, y_hat, _ = model.decode(state, n, y=y_c, mask=m,
                                            teacher_forcing_ratio=self.teacher_forcing_ratio,
                                            generator=gen,
@@ -301,6 +312,7 @@ class NextFramePredictorS2S:
         ``climatology`` is the batch's (B, T_out, rows, cols, 1) normals
         (``_clim_batch``), read when the model uses them;
         ``high_interest_region`` and ``graph_structure`` as in ``train``.
+        With ``shared_mesh`` the batch rides one mesh a step.
 
         With truncated BPTT every chunk re-encodes the inputs and decodes
         its own steps from the encoder state; the loss is the sum of the

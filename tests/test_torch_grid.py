@@ -141,8 +141,11 @@ def test_grid_config_checks():
         GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="cuda")
     with pytest.raises(ValueError, match="not ported"):
         GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="pallas")
-    # a JAX-style graph_kwargs may carry grid_attn, which the port has not
+    # a JAX-style graph_kwargs may carry grid_attn, which the port keeps
+    # (it launches its grid attention kernels for either value)
     tp = NextFramePredictorS2S((8, 8), NEG_INF, decompose=False, device="cpu",
                                graph_kwargs=dict(aggregation="grid", grid_attn="pallas"))
-    assert tp.gcfg.aggregation == "grid" and not hasattr(tp.gcfg, "grid_attn")
+    assert tp.gcfg.aggregation == "grid" and tp.gcfg.grid_attn == "pallas"
+    with pytest.raises(ValueError, match="grid_attn"):
+        GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="grid", grid_attn="fused")
     assert GraphConfig(image_shape=(8, 8), thresh=NEG_INF, aggregation="grid").n_max == 64

@@ -13,7 +13,8 @@ scaled-down ice-quadtree forecaster (32×48, 5 variables, climatology,
 TransformerConv on attention windows) runs its every decoder step on the
 mesh the JAX package builds with the same transform and forecasts within
 1e-4 per pixel. ``GraphConfig.adjacency``: ``"sort"`` runs,
-``"csum"`` raises naming ROADMAP Queue 1 item 9.
+``"csum"`` builds (its lists are held to the JAX package's in
+``tests/test_torch_adjacency_csum.py``), any other value raises.
 """
 
 import numpy as np
@@ -139,16 +140,17 @@ def test_high_interest_region_refines_the_corridor():
 
 
 def test_adjacency_sort_runs_and_csum_is_not_ported():
+    """The name predates the csum port: ``"csum"`` now builds, on the
+    config and through the ice-quadtree predictor's ``graph_kwargs``."""
     cfg = GraphConfig(image_shape=SHAPE, adjacency="sort")
     assert cfg.adjacency == "sort"
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        GraphConfig(image_shape=SHAPE, adjacency="csum")
+    assert GraphConfig(image_shape=SHAPE, adjacency="csum").adjacency == "csum"
     with pytest.raises(ValueError, match="adjacency"):
         GraphConfig(image_shape=SHAPE, adjacency="dense")
-    with pytest.raises(ValueError, match="Queue 1 item 9"):
-        NextFramePredictorS2S(SHAPE, 0.15, device="cpu",
-                              model_kwargs=dict(convolution_type="TransformerConv"),
-                              graph_kwargs=dict(GRAPH, adjacency="csum"))
+    tp = NextFramePredictorS2S(SHAPE, 0.15, device="cpu",
+                               model_kwargs=dict(convolution_type="TransformerConv"),
+                               graph_kwargs=dict(GRAPH, adjacency="csum"))
+    assert tp.gcfg.adjacency == "csum" and tp.gcfg.attn_windows
 
 
 MODEL = dict(hidden_size=8, dropout=0.1, n_layers=1, n_conv_layers=3,

@@ -1453,3 +1453,55 @@ def test_segment_sum_kernel_on_the_preset_lists(card, dtype, f, ids_name, kind):
     counts = segment_sum.LAUNCHES_BF16 if dtype == torch.bfloat16 else segment_sum.LAUNCHES
     assert counts["segment_sum"] == 1
     assert out.dtype == dtype and torch.equal(out.cpu(), want)
+
+
+# ---------------------------------------------------------------- shared meshes
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [1, 16, 128])
+def test_apply_kernel_on_a_shared_mesh(card, f, dtype):
+    """K2 (and K2b) on one mesh's blocks (batch 1) for a batch of 5: equal
+    to its plain version (f32 ≤1e-5, bf16 within one rounding) and bit for
+    bit to the kernel on the blocks copied for every sample."""
+    w, live, n_max = _windows(card)
+    blocks = spmm.build_blocks_plain(w.src_rel, w.dst_rel, w.coeff, live, NT, SW, dtype)
+    one = (w.s0[:1], blocks[:1], live[:1])
+    copied = tuple(t[:1].expand((5,) + t.shape[1:]).contiguous() for t in (w.s0, blocks, live))
+    z = torch.randn(5, n_max, f, device=card, generator=torch.Generator(card).manual_seed(f))
+    z = z.to(dtype)
+    shared = spmm._apply_cuda(z, *one, n_max, NT, SW)
+    assert torch.equal(shared, spmm._apply_cuda(z, *copied, n_max, NT, SW))
+    assert torch.equal(spmm._apply_bwd_cuda(z, *one, n_max, NT, SW), shared)
+    plain = spmm.apply_plain(z, *one, n_max, NT, SW)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * max(1.0, float(plain.float().abs().max()))
+    assert float((shared.float() - plain.float()).abs().max()) <= tol
+    with pytest.raises(ValueError, match="metadata of batch"):
+        spmm._apply_cuda(z, w.s0[:2], blocks[:2], live[:2], n_max, NT, SW)
+
+
+@pytest.mark.parametrize("heads,d,ragged,dropout", [(8, 16, False, True), (1, 1, True, False),
+                                                    (8, 32, False, False)])
+def test_attn_kernels_on_a_shared_mesh(card, heads, d, ragged, dropout):
+    """K3 and K4 on one mesh's windows (batch 1) for the batch of 3: within
+    their tolerances of the plain versions, and bit for bit the kernels on
+    the windows copied for every sample (K4 also through the batch-1 slot
+    view)."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _attn_case(card, ragged, heads, d, dropout)
+    q, k, v, we, keep, meta, dims = args
+    one = attn.AttnMeta(*(t[:1] for t in meta))
+    copied = attn.AttnMeta(*(t[:1].expand((3,) + t.shape[1:]).contiguous() for t in meta))
+    out = attn._attn_fwd_cuda(q, k, v, we, keep, one, dims)
+    assert torch.equal(out, attn._attn_fwd_cuda(q, k, v, we, keep, copied, dims))
+    torch.testing.assert_close(out, attn.attn_plain(q, k, v, we, keep, one, dims), rtol=0,
+                               atol=1e-5)
+    g = torch.randn(out.shape, device=card, generator=gen)
+    kern = attn._attn_bwd_cuda(q, k, v, we, keep, one, dims, g, attn.slot_view(one, dims))
+    for a, b in zip(kern, attn._attn_bwd_cuda(q, k, v, we, keep, copied, dims, g)):
+        assert torch.equal(a, b)
+    for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern,
+                          attn.attn_bwd_plain(q, k, v, we, keep, one, dims, g)):
+        err = float((a - p).abs().max())
+        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
