@@ -118,7 +118,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    also the preset meshes' sets of phases 50-51 and every kernel the
    launches of phases 50-53 and 55-58, K1 on a shared mesh (``shared_mesh``), K2, K2b,
    K3 and K4 on shared meshes (``shared_by_width``), K7 on capped views and
-   bf16 messages), then the card line and the result line;
+   bf16 messages; K7 on the mesh-design sets of phase 61 and every kernel's
+   launches in phase 63's profiled run), then the card line and the result
+   line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
@@ -401,6 +403,44 @@ launches as read from the code (``expected_preset_launches``,
    a cap of 4 counts overflow > 0, and K7 on the capped views (F 1 and 16)
    is the entry-ordered capped sum bit for bit, timed.
 
+ROADMAP Queue 1 items 10 (data and eval) and 11 (the CNN-LSTM baseline
+family), phases 59-63:
+
+59. ``NextFramePredictorCNNLSTM`` at ``cli/ice_exp_cnnlstm.py`` experiment
+   0's widths (hidden 32, 2 layers, kernel 3, dropout 0.1, lr 1e-3, T_in
+   10 → T_out 90, batch 1) on the flagship's 224×304 synthetic fields and
+   mask, with one input channel and no climatology (the JAX package fails
+   on that CLI's five x_vars and on climatology; the port raises): a
+   forecast and three train steps in f32 and in bf16, finite, masked
+   pixels 0, times and peaks above their start; no graph kernel launched;
+   at 16×16, hidden 4, T_out 3 (dropout 0, teacher forcing 1) the card's
+   forecast ≤1e-4 and one training forward's gradients ≤1e-4 ×
+   max(1, max|g|) and running statistics ≤1e-5 against the port on the
+   CPU (TF32 off);
+60. one epoch of that trainer (2 training windows, 1 test window) fed
+   through ``prefetch_to_device`` equals the epoch fed by the plain loader
+   bit for bit (losses, weights, running statistics, generator); the
+   prefetched x and y are CUDA tensors, the launch dates host numpy;
+61. ``eval/mesh_design`` at 224×304: ``sweep_meshes`` over the June
+   ``seasonal_variance`` of the synthetic siconc at four thresholds with
+   the ice mask; node counts and reconstructions (≤1e-6) equal the CPU's
+   (a mesh that differs prints the differing cell's criterion on both
+   devices); K7 launches as read from the code (3 a mesh:
+   ``expected_mesh_design_k7``), and K7 on one design's sets (node
+   counts, pooling, degrees) bit-identical to the entry-ordered sum,
+   timed beside its bound, plain version and ``index_add_``;
+62. ``eval/results``: f32 CNN-LSTM forecasts of two launch months (June,
+   September) through ``create_heatmap``, ``persistence_heatmap``,
+   ``climatology_heatmap`` and ``full_report`` (the CSV path where
+   matplotlib is absent): ``heatmap.csv`` and ``heatmap_clim.csv`` finite
+   in the launch months' rows only;
+63. ``eval/trace_summary``: one forecast and one train step of
+   ``bench.py``'s model (ChebConv, f32, batch 16, remat none) under
+   ``torch.profiler`` with CUDA activity, written by
+   ``tensorboard_trace_handler`` and summarised: the trace's
+   ``build_blocks_kernel``, ``apply_kernel`` and ``segment_*_kernel`` rows
+   count the K1, K2 + K2b and K7 launch counters of the same run.
+
 Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38, 43, 45, 46,
 47, 50-53) swaps each kernel it would launch for its plain version.
 
@@ -413,6 +453,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -5487,6 +5529,397 @@ def add_item9_paths(f32_entries, bf16_entries, item9: dict) -> None:
                                             else rows["k7_bf16_messages"])
 
 
+# ---------------------------------------------------------------- data, eval, CNN-LSTM
+# Phases 59-63: ROADMAP Queue 1 items 10 (data and eval) and 11 (the
+# CNN-LSTM baseline family). The CNN-LSTM runs cli/ice_exp_cnnlstm.py
+# experiment 0's widths (:25-45) on the flagship's 224×304 synthetic
+# fields, but with one input channel and no climatology: the JAX package
+# raises flax's ScopeParamShapeError at that CLI's five x_vars and with
+# use_climatology=True (models/cnnlstm.py:197-207,
+# train/cnn_predictor.py:86-93), and so does the port (a ValueError).
+CNN_HIDDEN, CNN_LAYERS, CNN_KERNEL, CNN_DROPOUT, CNN_LR = 32, 2, 3, 0.1, 1e-3
+CNN_TRAIN_STEPS = 3
+CNN_SMALL = dict(shape=(16, 16), hidden=4, t_out=3)  # the card-vs-CPU parity size
+CNN_WINDOWS = 3       # phase 60: 2 training windows and 1 test window
+CNN_EVAL_MONTHS = (6, 9)  # phase 62: one IceDataset a launch month
+CNN_EVAL_WINDOWS = 2  # forecasts a month
+# phase 61: split thresholds on the June variance map of the synthetic siconc
+# (0.004-0.026 over the valid pixels; 3e-2 splits no base cell)
+MESH_THRESHOLDS = (5e-3, 1e-2, 2e-2, 3e-2)
+MESH_RECON_TOL = 1e-6
+# the kernel function names a torch.profiler trace shows for K1, K2/K2b
+# (one kernel) and K7; the look-behind keeps PyTorch's
+# multi_tensor_apply_kernel (Adam) out of apply_kernel
+TRACE_KERNELS = {
+    "spmm_build_blocks": r"(?<![A-Za-z_])build_blocks_kernel",
+    "spmm_apply+spmm_apply_bwd": r"(?<![A-Za-z_])apply_kernel",
+    "segment_sum": r"(?<![A-Za-z_])segment_(spans|sum)_kernel",
+}
+
+
+def make_cnn_model(seed: int, run_dir: str = "runs", dtype: str = "float32", shape=None,
+                   hidden: int = CNN_HIDDEN, t_out: Optional[int] = None,
+                   dropout: float = CNN_DROPOUT, teacher_forcing_ratio: float = 0.5,
+                   device: Optional[str] = None):
+    """The CNN-LSTM forecaster of ``cli/ice_exp_cnnlstm.py`` experiment 0
+    (hidden 32, 2 layers, kernel 3, dropout 0.1, T_in 10 → T_out 90,
+    teacher forcing 0.5) on one input channel (siconc), without
+    climatology; random weights from ``seed``."""
+    from quadtree_mpnnlstm_tpu_torch.train.cnn_predictor import NextFramePredictorCNNLSTM
+
+    return NextFramePredictorCNNLSTM(
+        image_shape=ICE_SHAPE if shape is None else shape, experiment_name="cnnlstm",
+        input_features=1, hidden_size=hidden, input_timesteps=ICE_T_IN,
+        output_timesteps=ICE_T_OUT if t_out is None else t_out, n_layers=CNN_LAYERS,
+        dropout=dropout, kernel_size=CNN_KERNEL, teacher_forcing_ratio=teacher_forcing_ratio,
+        device=DEVICE if device is None else device, use_climatology=False, seed=seed,
+        compute_dtype=dtype, run_dir=run_dir)
+
+
+def cnn_ice_data(seed: int, month: int = ICE_MONTH):
+    """(IceDataset test windows of ``month`` with siconc as the only input
+    and output, the synthetic GriddedDataset, mask) from the synthetic
+    fields of 2016 and the ice mask, as :func:`ice_data` makes them."""
+    from quadtree_mpnnlstm_tpu_torch.data.ice_dataset import (
+        IceDataset,
+        ice_mask,
+        synthetic_dataset,
+    )
+
+    ds, band = synthetic_dataset(shape=ICE_SHAPE, years=(2016, 2017), seed=seed)
+    data = IceDataset(ds, [2016], month, ICE_T_IN, ICE_T_OUT, ["siconc"], ["siconc"])
+    return data, ds, ice_mask(ICE_SHAPE, seed) | band
+
+
+def expected_mesh_design_k7(n_meshes: int) -> int:
+    """K7 launches of ``n_meshes`` ``design_mesh`` calls, read from the
+    code: each edge-list quadtree build sums its node counts, pools the
+    map (and the positional channels) onto the nodes and sums its
+    degrees (``compute_sym_norm``); the reconstruction's ``unflatten`` is a
+    gather, whose backward alone would sum."""
+    return 3 * n_meshes
+
+
+def item10_11_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
+                     loader, x) -> dict:
+    """Phases 59-63; returns what the kernels line adds: K7's rows on the
+    mesh-design sets and its launches there, and each kernel's launches in
+    the profiled step of phase 63."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.loader import (ArrayDataset, DataLoader,
+                                                         prefetch_to_device)
+    from quadtree_mpnnlstm_tpu_torch.data.ice_dataset import IceDataset, climatology_from_dataset
+    from quadtree_mpnnlstm_tpu_torch.eval import mesh_design, results, trace_summary
+    from quadtree_mpnnlstm_tpu_torch.models.cells import deterministic_cudnn
+    from quadtree_mpnnlstm_tpu_torch.train.losses import masked_mse
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn, segment_sum)
+    out = {}
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def launched():
+        return {k: v for k, v in launch_totals(modules).items() if v}
+
+    # ---- phase 59: the CNN-LSTM at experiment 0's widths, f32 and bf16
+    data, ds, mask = cnn_ice_data(seed)
+    x0, y0 = data.x[:1], data.y[:1]
+    m_dev = torch.as_tensor(mask, device=DEVICE)
+    reset()
+    runs = {}
+    for dtype in ("float32", "bfloat16"):
+        trainer = make_cnn_model(seed, run_dir.name, dtype)
+        trainer.forecast(x0, mask)  # warm-up (cuDNN's first calls, the allocator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        y_hat = trainer.forecast(x0, mask)
+        torch.cuda.synchronize()
+        forecast_s = time.perf_counter() - t0
+        forecast_peak = (torch.cuda.max_memory_allocated() - start) / 2**30
+        check(y_hat.shape == (1, ICE_T_OUT, *ICE_SHAPE, 1) and y_hat.dtype == torch.float32,
+              f"CNN-LSTM {dtype} forecast {tuple(y_hat.shape)} {y_hat.dtype}")
+        check(bool(torch.isfinite(y_hat).all()), f"non-finite CNN-LSTM {dtype} forecast")
+        check(bool((y_hat[:, :, m_dev] == 0).all()), "masked pixels are not 0")
+        trainer.initiate_training(CNN_LR, 0.95)
+        trainer.train_step(x0, y0, mask)  # warm-up
+        peak = peak_above_start_gib(lambda: trainer.train_step(x0, y0, mask))
+        t0 = time.perf_counter()
+        losses, pending = [], None
+        for _ in range(CNN_TRAIN_STEPS):
+            loss = trainer.train_step(x0, y0, mask)
+            if pending is not None:
+                losses.append(float(pending))
+            pending = loss
+        losses.append(float(pending))
+        step_s = (time.perf_counter() - t0) / CNN_TRAIN_STEPS
+        check(bool(np.isfinite(losses).all()), f"CNN-LSTM {dtype} losses {losses}")
+        check(all(p.dtype == torch.float32 for p in trainer.model.parameters()),
+              "the CNN-LSTM's masters are not f32")
+        runs[dtype] = dict(s_per_forecast=forecast_s, forecast_peak_above_start_gib=forecast_peak,
+                           s_per_train_step=step_s, train_steps=CNN_TRAIN_STEPS,
+                           step_peak_above_start_gib=peak, losses=losses,
+                           n_params=trainer.get_n_params())
+        del trainer, y_hat
+        torch.cuda.empty_cache()
+    big = launched()
+    check(not big, f"the CNN-LSTM launched graph kernels: {big}")
+
+    # the card against the port on the CPU at a small size (TF32 is off)
+    rows, cols = CNN_SMALL["shape"]
+    small = dict(shape=CNN_SMALL["shape"], hidden=CNN_SMALL["hidden"], t_out=CNN_SMALL["t_out"],
+                 dropout=0.0, teacher_forcing_ratio=1.0)
+    r0, c0 = (ICE_SHAPE[0] - rows) // 2, (ICE_SHAPE[1] - cols) // 2
+    crop = (slice(r0, r0 + rows), slice(c0, c0 + cols))
+    xs = np.ascontiguousarray(data.x[:2, :, crop[0], crop[1]])
+    ys = np.ascontiguousarray(data.y[:2, :CNN_SMALL["t_out"], crop[0], crop[1]])
+    ms = mask[crop]
+    pair = [make_cnn_model(seed, run_dir.name, device=dev, **small) for dev in (DEVICE, "cpu")]
+    f_card, f_cpu = (p.forecast(xs, ms).cpu() for p in pair)
+    forecast_err = float((f_card - f_cpu).abs().max())
+    check(forecast_err <= ROLLOUT_TOL, f"CNN-LSTM forecast: card vs CPU {forecast_err}")
+    grads = []
+    for p in pair:
+        model = p.model.train()
+        with deterministic_cudnn():
+            y_hat = model(p._tensor(xs), p._tensor(ys), None, p._mask(ms), p.generator)
+            loss = masked_mse(y_hat, p._tensor(ys), p._mask(ms)).mean()
+            loss.backward()
+        grads.append({n: q.grad.detach().cpu() for n, q in model.named_parameters()})
+        grads[-1].update({n: b.detach().cpu() for n, b in model.named_buffers()
+                          if n.endswith((".mean", ".var"))})
+    scale = max(1.0, max(float(g.abs().max()) for n, g in grads[1].items()
+                         if not n.endswith((".mean", ".var"))))
+    grad_err = max(float((grads[0][n] - grads[1][n]).abs().max()) for n in grads[1]
+                   if not n.endswith((".mean", ".var")))
+    stats_err = max(float((grads[0][n] - grads[1][n]).abs().max()) for n in grads[1]
+                    if n.endswith((".mean", ".var")))
+    check(grad_err <= GRAD_TOL * scale, f"CNN-LSTM gradients: card vs CPU {grad_err}")
+    check(stats_err <= K2_TOL, f"CNN-LSTM running statistics: card vs CPU {stats_err}")
+    del pair
+    check(not launched(), f"the CNN-LSTM launched graph kernels: {launched()}")
+    print(json.dumps({
+        "phase": "cnnlstm", "card": card, "grid": ICE_SHAPE, "t_in": ICE_T_IN,
+        "t_out": ICE_T_OUT, "batch": 1, "hidden": CNN_HIDDEN, "n_layers": CNN_LAYERS,
+        "kernel_size": CNN_KERNEL, "dropout": CNN_DROPOUT, "lr": CNN_LR,
+        "differs_from_ice_exp_cnnlstm": "x_vars ['siconc'] (one input channel) and "
+        "use_climatology=False: the JAX package raises ScopeParamShapeError on the CLI's "
+        "five x_vars and with climatology, and the port raises ValueError",
+        "runs": runs, "graph_kernel_launches": big,
+        "small_vs_cpu": dict(CNN_SMALL, forecast_max_abs_err=forecast_err,
+                             grad_max_abs_err=grad_err, grad_scale=scale,
+                             running_stats_max_abs_err=stats_err),
+    }), flush=True)
+
+    # ---- phase 60: prefetch_to_device feeds the trainer as the plain loader does
+    windows = ArrayDataset(data.x[:CNN_WINDOWS], data.y[:CNN_WINDOWS],
+                           data.launch_dates[:CNN_WINDOWS])
+    train_set = ArrayDataset(windows.x[:2], windows.y[:2], windows.launch_dates[:2])
+    test_set = ArrayDataset(windows.x[2:], windows.y[2:], windows.launch_dates[2:])
+    fed = list(prefetch_to_device(DataLoader(windows), device=DEVICE))
+    check(len(fed) == CNN_WINDOWS and all(a.is_cuda and b.is_cuda and isinstance(c, np.ndarray)
+                                          for a, b, c in fed),
+          "prefetch_to_device did not yield CUDA x, y and host launch dates")
+    check(all(np.array_equal(a.cpu().numpy(), windows.x[i:i + 1])
+              and np.array_equal(b.cpu().numpy(), windows.y[i:i + 1])
+              for i, (a, b, _) in enumerate(fed)), "prefetched batches differ from the loader's")
+    del fed
+    epochs = []
+    for fetch in (False, True):
+        trainer = make_cnn_model(seed, run_dir.name)
+        start_state = trainer.generator.get_state()
+        train_l, test_l = DataLoader(train_set), DataLoader(test_set)
+        if fetch:
+            train_l = prefetch_to_device(train_l, device=DEVICE)
+            test_l = prefetch_to_device(test_l, device=DEVICE)
+        t0 = time.perf_counter()
+        trainer.train(train_l, test_l, n_epochs=1, lr=CNN_LR, mask=mask)
+        torch.cuda.synchronize()
+        epochs.append(dict(seconds=time.perf_counter() - t0, train_loss=trainer.train_loss,
+                           test_loss=trainer.test_loss, start=start_state,
+                           end=trainer.generator.get_state(),
+                           state={k: v.detach().clone() for k, v in
+                                  trainer.model.state_dict().items()}))
+        del trainer
+    same = (epochs[0]["train_loss"] == epochs[1]["train_loss"]
+            and epochs[0]["test_loss"] == epochs[1]["test_loss"]
+            and torch.equal(epochs[0]["start"], epochs[1]["start"])
+            and torch.equal(epochs[0]["end"], epochs[1]["end"])
+            and all(torch.equal(v, epochs[1]["state"][k]) for k, v in epochs[0]["state"].items()))
+    check(same, "an epoch through prefetch_to_device differs from the plain loader's")
+    check(not launched(), f"the CNN-LSTM launched graph kernels: {launched()}")
+    print(json.dumps({
+        "phase": "prefetch_to_device", "card": card, "train_windows": 2, "test_windows": 1,
+        "bit_identical": same, "train_loss": epochs[0]["train_loss"],
+        "test_loss": epochs[0]["test_loss"],
+        "epoch_s": {"plain": epochs[0]["seconds"], "prefetch": epochs[1]["seconds"]},
+    }), flush=True)
+    del epochs
+    torch.cuda.empty_cache()
+
+    # ---- phase 61: mesh design at 224×304 on the card
+    varmap = mesh_design.seasonal_variance(ds.variables["siconc"], ds.times, ICE_MONTH)
+    reset()
+    t0 = time.perf_counter()
+    table = mesh_design.sweep_meshes(varmap, mask, MESH_THRESHOLDS, device=DEVICE)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_launches = launched()
+    want_k7 = expected_mesh_design_k7(len(MESH_THRESHOLDS))
+    check(sweep_launches == {"segment_sum": want_k7},
+          f"mesh design launches {sweep_launches}, expected K7 {want_k7}")
+    designs, flips = [], []
+    for thresh in MESH_THRESHOLDS:
+        g_card, r_card, n_card = mesh_design.design_mesh(varmap, mask, thresh, device=DEVICE)
+        g_cpu, r_cpu, n_cpu = mesh_design.design_mesh(varmap, mask, thresh, device="cpu")
+        same_mesh = torch.equal(g_card.pixel_node.cpu(), g_cpu.pixel_node)
+        if not same_mesh:
+            # a cell that flips: its criterion (the cell's max) on both devices
+            diff = (g_card.pixel_node.cpu() != g_cpu.pixel_node)[0].reshape(ICE_SHAPE)
+            i, j = (int(v) for v in torch.nonzero(diff)[0])
+            base = 4
+            cell = varmap[i // base * base:(i // base + 1) * base,
+                          j // base * base:(j // base + 1) * base]
+            flips.append(dict(thresh=thresh, pixel=[i, j], cell_max=float(cell.max()),
+                              n_nodes=[n_card, n_cpu]))
+            print(json.dumps({"phase": "mesh_design_flip", "card": card, **flips[-1]}),
+                  flush=True)
+            continue
+        err = float(np.abs(r_card - r_cpu).max())
+        check(n_card == n_cpu == table[thresh] and err <= MESH_RECON_TOL,
+              f"mesh design at {thresh}: nodes {n_card} / {n_cpu} / {table[thresh]}, "
+              f"reconstruction {err}")
+        designs.append(dict(thresh=thresh, n_nodes=n_card, recon_max_abs_err=err))
+    check(all(abs(f["cell_max"] - f["thresh"]) <= 1e-7 for f in flips),
+          f"meshes differ away from the split threshold: {flips}")
+    check(len({d["n_nodes"] for d in designs}) > 1, f"the thresholds give one mesh: {designs}")
+    # K7 on one design's sets (node counts, pooling, degrees), timed
+    cap = SegmentCapture(segment, ICE_SHAPE[0] * ICE_SHAPE[1], keep=True, counts=True)
+    with cap:
+        mesh_design.design_mesh(varmap, mask, MESH_THRESHOLDS[1], device=DEVICE)
+    k7_rows = [dict(k7_measure(segment_sum, key, ops, cap.calls[key]),
+                    thresh=MESH_THRESHOLDS[1]) for key, ops in sorted(cap.ops.items())]
+    check(sum(cap.calls.values()) == expected_mesh_design_k7(1),
+          f"one design's K7 calls {cap.calls}")
+    out["mesh_design"] = dict(rows=k7_rows, launches=sweep_launches["segment_sum"])
+    print(json.dumps({
+        "phase": "mesh_design", "card": card, "grid": ICE_SHAPE, "month": ICE_MONTH,
+        "thresholds": list(MESH_THRESHOLDS), "n_nodes": {str(k): v for k, v in table.items()},
+        "designs_vs_cpu": designs, "flips": flips, "sweep_s": sweep_s,
+        "launches": sweep_launches, "k7_by_set": k7_rows,
+    }), flush=True)
+
+    # ---- phase 62: eval of f32 forecasts of two launch months
+    trainer = make_cnn_model(seed, run_dir.name)
+    y_hat, y_true, lds = [], [], []
+    for month in CNN_EVAL_MONTHS:
+        month_data = IceDataset(ds, [2016], month, ICE_T_IN, ICE_T_OUT, ["siconc"], ["siconc"])
+        check(len(month_data) >= 10 + CNN_EVAL_WINDOWS, f"month {month}: {len(month_data)} windows")
+        # mid-month windows: a launch date's month reads local time
+        pick = slice(10, 10 + CNN_EVAL_WINDOWS)
+        sub = ArrayDataset(month_data.x[pick], month_data.y[pick], month_data.launch_dates[pick])
+        y_hat.append(trainer.predict(DataLoader(sub), mask=mask))
+        y_true.append(sub.y)
+        lds.append(sub.launch_dates)
+    y_hat, y_true, lds = (np.concatenate(a) for a in (y_hat, y_true, lds))
+    del trainer
+    clim = climatology_from_dataset(ds, "siconc")
+    t0 = time.perf_counter()
+    heat = results.create_heatmap(y_hat, y_true, lds, mask)
+    pers = results.persistence_heatmap(y_true, lds, mask)
+    clim_heat = results.climatology_heatmap(y_true, lds, clim, mask)
+    report_dir = tempfile.TemporaryDirectory()
+    report = results.full_report(y_hat, y_true, lds, mask, clim, report_dir.name)
+    eval_s = time.perf_counter() - t0
+    rows_of = sorted({m - 1 for m in CNN_EVAL_MONTHS})
+    others = [r for r in range(12) if r not in rows_of]
+    written = sorted(os.listdir(report_dir.name))
+    for name in ("heatmap.csv", "heatmap_clim.csv"):
+        check(name in written, f"full_report wrote no {name}: {written}")
+        csv = np.loadtxt(os.path.join(report_dir.name, name), delimiter=",")
+        check(csv.shape == (12, ICE_T_OUT) and np.isfinite(csv[rows_of]).all()
+              and np.isnan(csv[others]).all(),
+              f"{name}: finite rows {np.nonzero(np.isfinite(csv).all(1))[0].tolist()}")
+    check(np.array_equal(report, heat, equal_nan=True), "full_report's heatmap differs")
+    for h in (pers, clim_heat):
+        check(np.isfinite(h[rows_of]).all() and np.isnan(h[others]).all(),
+              "a baseline heatmap's finite rows are not the launch months'")
+    print(json.dumps({
+        "phase": "eval_report", "card": card, "months": list(CNN_EVAL_MONTHS),
+        "forecasts": int(len(y_hat)), "files": written, "eval_s": eval_s,
+        "rmse_mean": {"model": float(np.nanmean(heat)), "persistence": float(np.nanmean(pers)),
+                      "climatology": float(np.nanmean(clim_heat))},
+    }), flush=True)
+    report_dir.cleanup()
+    del y_hat, y_true
+
+    # ---- phase 63: trace_summary of a profiled forecast and train step
+    trainer = make_trainer(seed, run_dir.name)
+    _, batches = train_batches(seed, 1)
+    xb, yb = batches[0]
+    trainer.forecast(x)  # warm-up
+    trainer.train_step(xb, yb)
+    torch.cuda.synchronize()
+    trace_dir = tempfile.TemporaryDirectory()
+    reset()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(trace_dir.name)):
+        trainer.forecast(x)
+        trainer.train_step(xb, yb)
+        torch.cuda.synchronize()
+    traced_s = time.perf_counter() - t0
+    counters = launched()
+    rows = trace_summary.summarize_trace(trace_dir.name, top=10**9)
+    check(rows and all(r.plane == "kernel" for r in rows), "the trace holds no device kernel")
+    traced = {key: sum(r.count for r in rows if re.search(pattern, r.name))
+              for key, pattern in TRACE_KERNELS.items()}
+    want = {"spmm_build_blocks": counters.get("spmm_build_blocks", 0),
+            "spmm_apply+spmm_apply_bwd": counters.get("spmm_apply", 0)
+            + counters.get("spmm_apply_bwd", 0),
+            "segment_sum": counters.get("segment_sum", 0)}
+    check(traced == want and all(want.values()),
+          f"trace rows {traced} against the launch counters {counters}")
+    out["traced"] = {k: counters.get(k, 0) for k in ("spmm_build_blocks", "spmm_apply",
+                                                     "spmm_apply_bwd", "segment_sum")}
+    print(json.dumps({
+        "phase": "trace_summary", "card": card, "path": "ChebConv f32 batch 16, remat none: "
+        "one forecast and one train step", "traced_s": traced_s, "trace_rows": traced,
+        "counters": counters,
+        # K2 and K2b are one kernel: the counters split its trace rows
+        "k2_from_trace": traced["spmm_apply+spmm_apply_bwd"] - counters.get("spmm_apply_bwd", 0),
+        "kernels": len(rows), "kernel_launches": sum(r.count for r in rows),
+        "busy_ms": sum(r.total_ms for r in rows),
+        "top": [r._asdict() for r in rows[:8]],
+    }), flush=True)
+    trace_dir.cleanup()
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def add_item10_11_paths(f32_entries, item10: dict) -> None:
+    """Adds phases 61 and 63 to the kernels line: K7's mesh-design sets in
+    ``by_operand_set`` and its launches on the sweep, and each kernel's
+    launches in the profiled forecast and step (``launches_by_path``)."""
+    for entry in f32_entries:
+        name = entry["name"]
+        if name == "segment_sum":
+            entry["by_operand_set"] += [dict(w, path="mesh_design")
+                                        for w in item10["mesh_design"]["rows"]]
+            entry["launches_by_path"]["mesh_design_sweep"] = item10["mesh_design"]["launches"]
+            entry["ms_by_path"]["mesh_design"] = k7_path_means(item10["mesh_design"]["rows"])
+        if name in item10["traced"]:
+            entry["launches_by_path"]["profiled_forecast_and_step"] = item10["traced"][name]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5651,6 +6084,8 @@ def main() -> int:
     item7 = item7_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     item8 = item8_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     item9 = item9_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
+    item10 = item10_11_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum,
+                              loader, x)
     for k in bf16_attn_kernels:  # the per-gate flagship's K5/K6 (phase 40)
         name = k["name"].removesuffix("_bf16")
         if name.startswith("grid_attn"):
@@ -5797,6 +6232,7 @@ def main() -> int:
     add_item7_paths(kernels, bf16_kernels, item7)
     add_item8_paths(kernels, bf16_kernels, item8)
     add_item9_paths(kernels, bf16_kernels, item9)
+    add_item10_11_paths(kernels, item10)
     for k in kernels:
         k["dtype"] = "float32"
     print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)

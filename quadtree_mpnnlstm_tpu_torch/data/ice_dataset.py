@@ -1,9 +1,8 @@
 """Sea-ice dataset windowing, climatology and synthetic inputs (numpy).
 
-Own copy of ``quadtree_mpnnlstm_tpu/data/ice_dataset.py`` (without
-``GriddedDataset.from_xarray``), of ``synthetic_dataset`` of
-``quadtree_mpnnlstm_tpu/cli/ice_exp.py`` and of ``ice_mask`` of
-``bench.py``. ``IceDataset`` cuts per year×month windows:
+Own copy of ``quadtree_mpnnlstm_tpu/data/ice_dataset.py``, of
+``synthetic_dataset`` of ``quadtree_mpnnlstm_tpu/cli/ice_exp.py`` and of
+``ice_mask`` of ``bench.py``. ``IceDataset`` cuts per year×month windows:
 
   * train mode widens the month to ±1 month;
   * input/output timestep buffers around the month;
@@ -55,6 +54,14 @@ class GriddedDataset:
     @property
     def image_shape(self):
         return next(iter(self.variables.values())).shape[1:]
+
+    @classmethod
+    def from_xarray(cls, ds, data_vars: Optional[Sequence[str]] = None) -> "GriddedDataset":
+        """An ``xarray.Dataset`` (or anything with its ``data_vars``,
+        ``ds[name].values`` and ``ds.time.values``) → a GriddedDataset of
+        ``data_vars`` (default: all of them); xarray is not imported."""
+        names = data_vars or list(ds.data_vars)
+        return cls({n: np.asarray(ds[n].values) for n in names}, np.asarray(ds.time.values))
 
 
 class IceDataset(ArrayDataset):

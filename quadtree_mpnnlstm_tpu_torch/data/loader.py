@@ -1,10 +1,14 @@
-"""Minimal host-side dataset/loader yielding numpy batches."""
+"""Minimal host-side dataset and loader yielding numpy batches, and
+``prefetch_to_device``, which keeps the next batches' copies to the card
+in flight while the consumer computes."""
 
 from __future__ import annotations
 
+import collections
 from typing import Iterator, Tuple
 
 import numpy as np
+import torch
 
 
 class ArrayDataset:
@@ -62,3 +66,53 @@ class DataLoader:
                 self.dataset.y[idx],
                 self.dataset.launch_dates[idx],
             )
+
+
+def prefetch_to_device(loader, size: int = 2, device="cuda"):
+    """Yield ``loader``'s (x, y, launch_dates) batches in order with x and
+    y as tensors on ``device``, keeping ``size`` batches in flight ahead of
+    the consumer; launch dates stay host numpy (the climatology lookup is
+    host math).
+
+    On a CUDA device each x and y is copied into pinned host memory and
+    sent with a ``non_blocking`` copy on a side stream, so the transfer
+    overlaps the consumer's kernels; before a batch is yielded the
+    consumer's stream waits on its copy's event, and ``record_stream``
+    keeps the caching allocator from reusing its memory while the
+    consumer's stream may still read it. On the CPU the tensors share the
+    numpy arrays' memory."""
+    device = torch.device(device)
+    queue = collections.deque()
+    it = iter(loader)
+    side = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def enqueue():
+        x, y, launch = next(it)
+        if side is None:
+            queue.append((torch.as_tensor(x, device=device),
+                          torch.as_tensor(y, device=device), launch, None))
+            return
+        host = [torch.as_tensor(a).pin_memory() for a in (x, y)]
+        with torch.cuda.stream(side):
+            xd, yd = (h.to(device, non_blocking=True) for h in host)
+            done = torch.cuda.Event()
+            done.record(side)
+        queue.append((xd, yd, launch, done))
+
+    try:
+        for _ in range(max(size, 1)):
+            enqueue()
+    except StopIteration:
+        pass
+    while queue:
+        x, y, launch, done = queue.popleft()
+        if done is not None:
+            consumer = torch.cuda.current_stream(device)
+            consumer.wait_event(done)
+            x.record_stream(consumer)
+            y.record_stream(consumer)
+        try:
+            enqueue()
+        except StopIteration:
+            pass
+        yield x, y, launch

@@ -174,23 +174,31 @@ class GConvLSTMSimple(nn.Module):
         return o, o * torch.tanh(c_new), c_new
 
 
-def flax_lstm(d: int, batch_first: bool) -> nn.LSTM:
-    """A one-layer ``torch.nn.LSTM`` of width ``d`` laid out as the flax
+def flax_lstm(d: int, batch_first: bool, input_size: Optional[int] = None) -> nn.LSTM:
+    """A one-layer ``torch.nn.LSTM`` of width ``d`` (inputs of
+    ``input_size``, default ``d``) laid out as the flax
     ``OptimizedLSTMCell``: its ``bias_ih_l0`` is a zero buffer, not a
     parameter, the flax cell having only the recurrent bias."""
-    lstm = nn.LSTM(d, d, batch_first=batch_first)
+    lstm = nn.LSTM(d if input_size is None else input_size, d, batch_first=batch_first)
     del lstm.bias_ih_l0
     lstm.register_buffer("bias_ih_l0", torch.zeros(4 * d))
     lstm._init_flat_weights()
     return lstm
 
 
+def deterministic_cudnn():
+    """A context with cuDNN's deterministic algorithms and no autotuning
+    (its other settings kept). cuDNN reads the flags when each call runs,
+    so a backward needs them too to run deterministically."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                       allow_tf32=cudnn.allow_tf32)
+
+
 def run_lstm(lstm: nn.LSTM, x: torch.Tensor, carry, dtype: torch.dtype):
     """``lstm(x, carry)`` in ``dtype`` (its float32 weights cast at use in
     a bf16 model), with cuDNN's deterministic settings on a CUDA card."""
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
-                     allow_tf32=cudnn.allow_tf32):
+    with deterministic_cudnn():
         if dtype == torch.float32:
             return lstm(x, carry)
         weights = {name: t.to(dtype) for name, t in

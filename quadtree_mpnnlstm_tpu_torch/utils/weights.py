@@ -20,7 +20,14 @@ arrays only. The baselines' trees (``models/mpnnlstm.py``: ``MPNNLSTM``'s
 ``convolution{i}``, ``bn{i}``, ``lstm{layer}``, ``lin1``, ``lin2``;
 ``MPNNLSTMI``'s ``recurrent{i}``, ``bn1``, ``lin1``, ``lin2``) map leaf for
 leaf without the scans; a flax ``BatchNorm``'s ``batch_stats`` (no
-running statistics are kept) is not read.
+running statistics are kept) is not read. The CNN-LSTM family's variables
+(``models/cnnlstm.py``: ``CNNLSTMSeq2Seq``'s ``encoder``, ``decoder``,
+``encoder_lstm``, ``decoder_lstm``; ``CNNLSTM``'s ``encoder``, ``lstm``,
+``decoder``) map both ways with their ``batch_stats``
+(:func:`cnnlstm_state_dict_from_jax`, :func:`cnnlstm_variables_to_jax`):
+a conv's HWIO ``kernel`` is the OIHW ``weight``, each BatchNorm's running
+``mean``/``var`` are its buffers of the same names, and the position
+LSTMs' ``OptimizedLSTMCell`` s map as above.
 
 ``init_params`` is the port's own init with the JAX package's rules:
 glorot-uniform with fan-in/fan-out on the last two axes of the stacked
@@ -31,8 +38,9 @@ gate weights (GCN and Chebyshev ``w_x_0``…, attention ``w_q_x_0``,
 slice in the per-gate layout, as the flax vmap initialises each gate) and
 on (heads, d) of GAT's ``att`` vectors; an LSTM's input kernels
 lecun-normal and its recurrent kernels orthogonal, per gate; the
-baselines' ``lin1``/``lin2`` (flax ``Dense``'s default) lecun-normal;
-zero biases and peepholes; LayerNorm and BatchNorm scale 1, bias 0. It
+baselines' ``lin1``/``lin2`` (flax ``Dense``'s default) and the CNN
+family's conv kernels (fan-in in · kh · kw) lecun-normal; zero biases and
+peepholes; LayerNorm and BatchNorm scale 1, bias 0. It
 draws from the caller's ``torch.Generator``.
 """
 
@@ -52,6 +60,8 @@ _ATT = re.compile(r"\.att(_src|_dst|_edge)?$")
 _NORM_WEIGHT = re.compile(r"(^|\.)(norm_[a-z]+|bn\d+)\.weight$")  # LayerNorm / BatchNorm
 _HEAD_WEIGHT = re.compile(r"^lin\d+\.weight$")  # the baselines' flax Dense
 _LSTM = re.compile(r"^lstm\d*$")  # an OptimizedLSTMCell's module name
+_CONV = re.compile(r"^conv\d+$")  # a flax Conv of the CNN-LSTM family
+_CONV_WEIGHT = re.compile(r"(^|\.)conv\d+\.weight$")
 _LSTM_GATES = "ifgo"  # flax OptimizedLSTMCell and torch.nn.LSTM: i, f, g, o
 
 
@@ -81,6 +91,8 @@ def init_params(model: nn.Module, gen: torch.Generator) -> None:
             _lecun_normal_(p, p.shape[-1], gen)
         elif _HEAD_WEIGHT.search(name):  # torch (out, in) layout
             _lecun_normal_(p, p.shape[-1], gen)
+        elif _CONV_WEIGHT.search(name) and p.ndim == 4:  # OIHW, fan-in I·kh·kw
+            _lecun_normal_(p, p[0].numel(), gen)
         elif name.endswith(".weight_hh_l0"):  # orthogonal, per gate (d, d)
             cpu = torch.empty(p.shape)
             for gate in cpu.chunk(4):
@@ -119,7 +131,10 @@ def state_dict_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
             continue
         value = _tensor(arr)
         names = list(path)
-        if names[-1] == "kernel":  # Dense (…, in, out) → nn.Linear (…, out, in)
+        if names[-1] == "kernel" and value.ndim == 4 and _CONV.match(names[-2]):
+            names[-1] = "weight"  # Conv HWIO → nn.Conv2d OIHW
+            value = value.permute(3, 2, 0, 1).contiguous()
+        elif names[-1] == "kernel":  # Dense (…, in, out) → nn.Linear (…, out, in)
             names[-1] = "weight"
             value = value.transpose(-1, -2).contiguous()
         elif names[-1] == "scale":
@@ -340,6 +355,9 @@ def flax_from_state_dict(state_dict: Mapping[str, torch.Tensor]) -> Dict:
             continue
         if _NORM_WEIGHT.search(key):
             names[-1] = "scale"
+        elif names[-1] == "weight" and arr.ndim == 4 and _CONV.match(names[-2]):
+            names[-1] = "kernel"  # nn.Conv2d OIHW → Conv HWIO
+            arr = arr.permute(2, 3, 1, 0)
         elif names[-1] == "weight":
             names[-1] = "kernel"
             arr = arr.transpose(-1, -2)
@@ -359,3 +377,33 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
     if _is_baseline(flat):
         return {"params": flat}
     return {"params": {scans[name]: {name: inner} for name, inner in flat.items()}}
+
+
+_RUNNING = ("mean", "var")  # a RunningBatchNorm's buffers, flax's batch_stats
+
+
+def cnnlstm_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables of the JAX package's ``CNNLSTMSeq2Seq`` or
+    ``CNNLSTM`` (``{"params": …, "batch_stats": …}``) → the port model's
+    state_dict, parameters and running statistics (f32 CPU tensors)."""
+    out = state_dict_from_flax(variables["params"])
+    for path, arr in _flat(variables.get("batch_stats", {})).items():
+        out[".".join(path)] = _tensor(arr)
+    return out
+
+
+def cnnlstm_variables_to_jax(state_dict: Mapping[str, torch.Tensor]) -> Dict:
+    """The inverse of :func:`cnnlstm_state_dict_from_jax`: a port
+    CNN-LSTM state_dict → ``{"params": …, "batch_stats": …}`` of the JAX
+    model (numpy f32 leaves)."""
+    params = {k: v for k, v in state_dict.items() if k.split(".")[-1] not in _RUNNING}
+    stats: Dict = {}
+    for key, value in state_dict.items():
+        names = key.split(".")
+        if names[-1] not in _RUNNING:
+            continue
+        node = stats
+        for part in names[:-1]:
+            node = node.setdefault(part, {})
+        node[names[-1]] = value.detach().float().cpu().numpy()
+    return {"params": flax_from_state_dict(params), "batch_stats": stats}

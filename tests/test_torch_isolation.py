@@ -38,7 +38,25 @@ def test_port_has_modules_to_scan():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in p.parents}
     assert {"ops/spmm.py", "ops/attn.py", "ops/grid_attn.py", "graph/build.py",
             "train/predictor.py", "models/seq2seq.py", "data/ice_dataset.py",
-            "graph/static.py", "models/mpnnlstm.py", "eval/plotting.py"} <= names
+            "graph/static.py", "models/mpnnlstm.py", "eval/plotting.py",
+            "utils/normalize.py", "data/netcdf_io.py", "data/loader.py", "eval/results.py",
+            "eval/ports.py", "eval/mesh_design.py", "eval/trace_summary.py",
+            "models/cnnlstm.py", "train/cnn_predictor.py"} <= names
+
+
+def test_chip_scripts_import_no_optional_packages_at_the_top():
+    """The card's machine has no h5py, matplotlib, PIL or xarray: the chip
+    scripts import none of them at module level (the netCDF reader and the
+    plots import theirs when called)."""
+    for name in ("chip_smoke.py", "chip_profile.py", "chip_ab.py"):
+        tree = ast.parse((ROOT / name).read_text())
+        top = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                top.add(node.module.split(".")[0])
+        assert not top & {"h5py", "matplotlib", "PIL", "xarray"}, (name, top)
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(ROOT).as_posix())
