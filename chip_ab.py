@@ -302,11 +302,12 @@ def _time_preset(cs, args, run_dir: str, result: dict) -> None:
     preset mesh built once, as phases 50 and 51 run them."""
     import torch
 
+    from quadtree_mpnnlstm_tpu_torch.cli.ice_exp import synthetic_hir
     from quadtree_mpnnlstm_tpu_torch.data.loader import ArrayDataset, DataLoader
 
     data, clim, mask = cs.ice_data(args.seed)
     mesh = dict(graph_structure=cs.make_preset(args.preset, mask),
-                high_interest_region=cs.synthetic_hir(cs.ICE_SHAPE))
+                high_interest_region=synthetic_hir(cs.ICE_SHAPE))
     window = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
     model = cs.make_preset_model(args.seed, run_dir, dtype=args.dtype, remat=args.remat)
     _record(result, "ice_forecast_s",

@@ -110,11 +110,13 @@ def _workload(args, run_dir: str):
     import torch
 
     if args.preset:
+        from quadtree_mpnnlstm_tpu_torch.cli.ice_exp import synthetic_hir
+
         data, clim, mask = chip_smoke.ice_data(args.seed)
         model = chip_smoke.make_preset_model(args.seed, run_dir, dtype=args.dtype,
                                              remat=args.remat)
         mesh = dict(graph_structure=chip_smoke.make_preset(args.preset, mask),
-                    high_interest_region=chip_smoke.synthetic_hir(chip_smoke.ICE_SHAPE))
+                    high_interest_region=synthetic_hir(chip_smoke.ICE_SHAPE))
         windows = [(data.x[i:i + 1], data.y[i:i + 1],
                     model._clim_batch(clim, data.launch_dates[i:i + 1]))
                    for i in range(1 + args.reps)]

@@ -119,8 +119,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    launches of phases 50-53 and 55-58, K1 on a shared mesh (``shared_mesh``), K2, K2b,
    K3 and K4 on shared meshes (``shared_by_width``), K7 on capped views and
    bf16 messages; K7 on the mesh-design sets of phase 61 and every kernel's
-   launches in phase 63's profiled run), then the card line and the result
-   line;
+   launches in phase 63's profiled run; the launches of a data-parallel
+   rank's step and of every CLI run of phases 66-72), then the card line
+   and the result line;
 20. edge path: the flagship on the pixelwise edge list (``bench.py
    --workload ice-xla``: ``aggregation="xla"``, n_max 68,096, e_max
    272,384) through ``predict``: finite frames, overflow 0, K7 launches as read from the code (304 a
@@ -440,6 +441,50 @@ family), phases 59-63:
    ``tensorboard_trace_handler`` and summarised: the trace's
    ``build_blocks_kernel``, ``apply_kernel`` and ``segment_*_kernel`` rows
    count the K1, K2 + K2b and K7 launch counters of the same run.
+
+ROADMAP Queue 1 items 12 (data parallelism) and 13 (the CLIs and the
+native host toolkit), phases 64-73, each through its entry point:
+
+64. ``NextFramePredictorS2S(dp_devices=2)`` on ``bench.py``'s model
+   (ChebConv, f32, no remat, global batch 16) in two ranks that
+   ``parallel/dp.py`` ``launch`` spawns over gloo, sharing the card (8
+   samples each), 2 steps at dropout 0 and 0.1 against the one-process
+   steps on the same batches: losses within 1e-5, each step's gradients
+   within 1e-4 × max(1, max|g|) and the first step's per parameter
+   tensor within 1e-4 of its largest (2⁻²³ of the step's largest at
+   least), weights within 1e-4 / 1e-6 plus twice Adam's first-order
+   response to the gradient difference, the ranks' weights equal; K1 11, K2 112, K2b 110 and K7 119 launches a rank step, as the
+   one-process step's, and each held against its plain version on the
+   rank's shard (batch 8); each
+   step's s and each all-reduce's ms (CUDA events) and bytes; each rank's
+   draws are the global batch's rows of its shard, and the two differ;
+65. one NCCL rank: bit for bit the one-process step; its all-reduce's ms;
+66. ``cli/ice_exp.py -e 0`` at the flagship's widths (224×304 synthetic
+   fields, 5 variables, hidden 32, 1 × 3 layers, per-gate stacks,
+   climatology, remat full; T_out 10, 2 synthetic years, 1 epoch, batch
+   8): the loss JSON, the weights and the validation predictions written,
+   finite; K5 and K6 launches as read from the code;
+67. ``cli/ice_inf.py`` on those weights: the validation predictions bit
+   for bit ``ice_exp``'s, K5 as read;
+68. ``ice_exp -e 9`` at the same size (batch 12): the multires curriculum
+   (5 epochs on the 112×152 grid, K5/K6) into the heterogeneous preset
+   mesh on the edge list (K7), launches as read; its peak;
+69. ``cli/ice_exp_nwt.py`` (seed 7's 32×32 fields, no climatology, the
+   pixelwise edge list, batch 64): K7 as read;
+70. ``cli/ice_exp_cnnlstm.py`` raises the ``ValueError`` that the port's
+   trainer raises where the JAX CLI fails;
+71. ``cli/ice_profile.py --trace-dir --trace-summary``: the trace's K7 rows
+   count the K7 launches of the traced ``train()``;
+72. ``cli/mnist_demo.py`` on 16 videos (T_out 3): finite scores, K7 only;
+73. ``native_ext.py`` built with g++ on this machine: the
+   ``backend="native"`` Moving-MNIST videos repeat under their seed.
+
+The CLI runs lift the divergence guard (``--max-loss``): random weights
+are not trained to its bound. Phases 64-69, 71 and 72 keep the
+operands of each kernel's first call at every width and grid of their
+run and hold the kernel against its plain version on them (K1 bit for
+bit, K2/K2b ≤1e-5, K5/K6 ≤1e-5 and K7 ≤1e-6, each × max(1, max|plain|)),
+at the batch and the grid the entry point gave it.
 
 Every plain run (phases 4, 7, 12, 15, 17, 22, 24, 29, 34, 38, 43, 45, 46,
 47, 50-53) swaps each kernel it would launch for its plain version.
@@ -803,6 +848,76 @@ class AttnCapture:
 
     def __exit__(self, *exc):
         self._patch.stop()
+
+
+def held_launchers(spmm, grid_attn, segment_sum):
+    """Every f32 kernel launcher an entry point's run may reach, with its
+    plain version and its tolerance × max(1, max|plain|) (0: bit for
+    bit): (kernel, module, launcher, plain)."""
+    return [("spmm_build_blocks", spmm, "_build_blocks_cuda", spmm.build_blocks_plain, 0.0),
+            ("spmm_apply", spmm, "_apply_cuda", spmm.apply_plain, K2_TOL),
+            ("spmm_apply_bwd", spmm, "_apply_bwd_cuda", spmm.apply_plain, K2_TOL),
+            ("grid_attn_apply", grid_attn, "_grid_attn_fwd_cuda", grid_attn.grid_attn_plain,
+             K6_TOL),
+            ("grid_attn_apply_bwd", grid_attn, "_grid_attn_bwd_cuda",
+             grid_attn.grid_attn_bwd_plain, K6_TOL),
+            ("segment_sum", segment_sum, "_segment_sum_cuda", k7_plain, K7_TOL)]
+
+
+class HoldCapture:
+    """Wraps the launchers of :func:`held_launchers` during an entry
+    point's run and keeps the operands of each kernel's first call at
+    every operand shape but the batch (a width, a grid, an edge count),
+    passing every call through; :meth:`hold` then holds each kernel
+    against its plain version on those operands, at the batch and the
+    grid the run gave it."""
+
+    def __init__(self, launchers):
+        self.launchers, self.first, self._patches = launchers, {}, []
+
+    def _wrap(self, kernel, launch):
+        def call(*args, **kw):
+            self.first.setdefault((kernel, tuple(args[0].shape[1:])), (args, kw))
+            return launch(*args, **kw)
+        return call
+
+    def __enter__(self):
+        for kernel, module, name, _, _ in self.launchers:
+            patch = mock.patch.object(module, name, self._wrap(kernel, getattr(module, name)))
+            patch.start()
+            self._patches.append(patch)
+        return self
+
+    def __exit__(self, *exc):
+        for patch in reversed(self._patches):
+            patch.stop()
+
+    def hold(self, what: str) -> list:
+        """Each kept call again, on the kernel and on its plain version:
+        one row per (kernel, shape) with the batch, the shape and the
+        error; fails the phase when a kernel disagrees. The operands are
+        dropped afterwards."""
+        import torch
+
+        rows = []
+        for (kernel, shape), (args, kw) in sorted(self.first.items(), key=str):
+            _, module, name, plain, tol = next(h for h in self.launchers if h[0] == kernel)
+            with torch.no_grad():
+                got, want = getattr(module, name)(*args, **kw), plain(*args, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+                    for a, b in zip(got, want)]
+            rel = max(e / max(1.0, float(b.abs().max()) if b.numel() else 1.0)
+                      for e, b in zip(errs, want))
+            check(rel <= tol, f"{what}: {kernel} differs from its plain version at batch "
+                              f"{args[0].shape[0]}, operand {tuple(args[0].shape)}: {rel}")
+            rows.append(dict(kernel=kernel, batch=int(args[0].shape[0]),
+                             operand=list(args[0].shape), max_abs_err=max(errs),
+                             err_rel_to_max=rel, tol=tol,
+                             bit_identical=all(torch.equal(a, b) for a, b in zip(got, want))))
+        self.first.clear()
+        return rows
 
 
 def step_with_meshes(trainer, x, y, seed: int):
@@ -4497,13 +4612,6 @@ REMESH_MODES = {"remesh_input": dict(remesh_input=True), "remesh_every_2": dict(
 BASELINE_HIDDEN = 32
 
 
-def synthetic_hir(shape):
-    """The JAX package's synthetic shipping corridor (``cli/ice_exp.py``
-    ``synthetic_hir``): a diagonal band across the grid."""
-    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
-    return np.abs(yy / shape[0] - xx / shape[1]) < 0.08
-
-
 def make_preset_model(seed: int, run_dir: str = "runs", **kw):
     """The model of experiments 9 and 10: :func:`make_ice_model` on the
     pixelwise edge list (no graph_kwargs: ``aggregation="xla"``) with
@@ -4628,6 +4736,8 @@ def item8_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
         return stack
 
     # ---- phases 50 and 51: experiments 9 and 10 on their preset meshes
+    from quadtree_mpnnlstm_tpu_torch.cli.ice_exp import synthetic_hir
+
     data, clim, mask = ice_data(seed)
     hir = synthetic_hir(ICE_SHAPE)
     x0, y0, ld0 = data.x[:1], data.y[:1], data.launch_dates[:1]
@@ -5920,6 +6030,538 @@ def add_item10_11_paths(f32_entries, item10: dict) -> None:
             entry["launches_by_path"]["profiled_forecast_and_step"] = item10["traced"][name]
 
 
+# ---------------------------------------------------------------- items 12-13
+# Data parallelism (phases 64-65) on bench.py's model, and the CLIs and the
+# native host toolkit (phases 66-73), each through its entry point.
+DP_WORLD, DP_STEPS = 2, 2  # two gloo ranks sharing the card, 8 samples each
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-5, 1e-4, 1e-6  # tests/test_parallel.py
+DP_GRAD_RTOL = 1e-4  # × each parameter tensor's largest gradient
+CLI_MONTH, CLI_T_OUT, CLI_YEARS = 6, 10, 2
+# batches: the flagship's 92 training windows of a month in 12 and 8 steps
+CLI_BATCH, CLI_PRESET_BATCH, NWT_BATCH, PROFILE_BATCH = 8, 12, 64, 16
+# T_out 3: random weights' longer rollouts trip the demo's divergence guard
+MNIST_DEMO = ["--canvas", "64", "--digit", "18", "--train-samples", "16", "--epochs", "1",
+              "--batch-size", "16", "--t-out", "3", "--sweep-thresholds"]
+
+
+def make_dp_model(seed: int, run_dir: str, dropout: float, dp_devices: int = 1,
+                  device: Optional[str] = None):
+    """:func:`make_model`'s configuration (``bench.py``'s model, f32, no
+    remat) with attention-free ChebConv, ``dropout`` and ``dp_devices``."""
+    from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
+
+    return NextFramePredictorS2S(
+        image_shape=CANVAS, thresh=0.1, input_features=1, input_timesteps=T_IN,
+        output_timesteps=T_OUT, device=device or DEVICE, seed=seed, run_dir=run_dir,
+        dp_devices=dp_devices,
+        model_kwargs=dict(hidden_size=16, n_layers=2, n_conv_layers=2,
+                          convolution_type="ChebConv", dropout=dropout, remat=False),
+        graph_kwargs=dict(max_grid_size=8, n_max=2048, e_max=10240, node_budget=2048,
+                          agg_eb=1024, agg_sw=1024, aggregation="pallas"))
+
+
+def dp_steps(model, batches) -> dict:
+    """``train_step`` on each global batch: the losses, each step's
+    clipped gradients and the final weights (host arrays), each step's s
+    (synced), the last step's kernel launches, and each all-reduce's ms
+    (CUDA events around ``parallel/dp.py`` ``all_reduce_step``) and bytes."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.ops import segment_sum, spmm
+    from quadtree_mpnnlstm_tpu_torch.parallel import dp
+
+    reduce_ms, reduce_bytes = [], []
+    real = dp.all_reduce_step
+
+    def timed(params, loss, overflow):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(params, loss, overflow)
+        end.record()
+        end.synchronize()
+        reduce_ms.append(start.elapsed_time(end))
+        reduce_bytes.append(4 * (sum(p.grad.numel() for p in params if p.grad is not None) + 1))
+        return out
+
+    losses, grads, step_s = [], [], []
+    with mock.patch.object(dp, "all_reduce_step", timed):
+        for xb, yb in batches:
+            spmm.reset_launch_counts()
+            segment_sum.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, overflow = model.train_step(xb, yb)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            check(int(overflow) == 0, f"data-parallel step overflow {int(overflow)}")
+            losses.append(float(loss))
+            grads.append(torch.cat([p.grad.reshape(-1) for p in model.model.parameters()])
+                         .cpu().numpy())
+    launches = {k: v for k, v in {**spmm.LAUNCHES, **segment_sum.LAUNCHES}.items() if v}
+    params = torch.cat([p.detach().reshape(-1) for p in model.model.parameters()]).cpu().numpy()
+    return dict(losses=losses, grads=grads, params=params, step_s=step_s, launches=launches,
+                reduce_ms=reduce_ms, reduce_bytes=reduce_bytes,
+                sizes=[p.numel() for p in model.model.parameters()])
+
+
+def dp_rank(rank: int, device, seed: int, run_dir: str, dropouts) -> dict:
+    """One data-parallel rank (``parallel/dp.py`` ``launch``): bench.py's
+    model with ``dp_devices`` the group's size, two steps of the global
+    batches at each dropout rate, each kernel held against its plain
+    version on the rank's shard; whether every rank ends with rank 0's
+    weights; and every rank's first draw for its shard from ``seed``."""
+    import torch
+    import torch.distributed as dist
+
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn, segment_sum, spmm
+    from quadtree_mpnnlstm_tpu_torch.utils import draws
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = dist.get_world_size()
+    _, batches = train_batches(seed, DP_STEPS)
+    out = {}
+    for dropout in dropouts:
+        model = make_dp_model(seed, run_dir, dropout, world, str(device))
+        model.initiate_training(lr=LR, lr_decay=0.95)
+        with HoldCapture(held_launchers(spmm, grid_attn, segment_sum)) as held:
+            run = dp_steps(model, batches)
+        # each kernel on the rank's shard, after the steps' launches were read
+        run["held"] = held.hold(f"rank {rank}")
+        mine = torch.as_tensor(run["params"], device=device)
+        theirs = [torch.empty_like(mine) for _ in range(world)]
+        dist.all_gather(theirs, mine)
+        run["replicas_equal"] = all(torch.equal(theirs[0], t) for t in theirs)
+        out[dropout] = run
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with draws.batch_shard(rank, world):
+        u = draws.uniform((BATCH // world, 64), gen, device)
+    us = [torch.empty_like(u) for _ in range(world)]
+    dist.all_gather(us, u)
+    out["draws"] = [t.cpu().numpy() for t in us]
+    return out
+
+
+def dp_compare(got: dict, ref: dict) -> dict:
+    """A data-parallel run against the one-process run: the losses within
+    ``tests/test_parallel.py``'s rtol 1e-5; each step's gradients at the
+    port's gradient tolerance (≤1e-4 × max(1, max|g|)), and the first
+    step's, where both runs start from the same weights and differ only
+    in the order of their sums, per parameter tensor within 1e-4 of the
+    tensor's largest (never tighter than 2⁻²³ of the step's largest, the
+    f32 rounding of its sums: a tensor whose gradient is zero but for
+    rounding); every weight within that file's rtol 1e-4 / atol 1e-6 plus
+    twice Adam's first-order response to the measured gradient difference
+    (:func:`adam_response`), since Adam divides each entry's step by the
+    entry's own gradient and so passes a rounding of a small gradient on
+    as a share of lr."""
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got["losses"], ref["losses"]))
+    g, r = np.asarray(got["grads"], np.float64), np.asarray(ref["grads"], np.float64)
+    gp, rp = got["params"], ref["params"]
+    grad_ratio, start = 0.0, 0
+    for n in ref["sizes"]:
+        allow = max(DP_GRAD_RTOL * np.abs(r[0, start:start + n]).max(),
+                    2.0**-23 * np.abs(r[0]).max())
+        diff = np.abs(g[0, start:start + n] - r[0, start:start + n]).max()
+        grad_ratio, start = max(grad_ratio, float(diff / allow)), start + n
+    response = adam_response(g, r, LR)
+    err = np.abs(gp - rp)
+    param_ratio = float((err / (DP_PARAM_ATOL + DP_PARAM_RTOL * np.abs(rp)
+                                + 2 * response)).max())
+    out = dict(loss_max_rel_err=loss_err, grad_max_abs_err=float(np.abs(g - r).max()),
+               first_grad_err_over_tol=grad_ratio, param_max_abs_err=float(err.max()),
+               param_err_over_tol=param_ratio,
+               adam_response_max=float(response.max()),
+               entries_beyond_rtol_atol=int((err > DP_PARAM_ATOL
+                                             + DP_PARAM_RTOL * np.abs(rp)).sum()),
+               entries=int(err.size))
+    check(loss_err <= DP_LOSS_RTOL, f"data-parallel loss {got['losses']} vs {ref['losses']}")
+    for step, (gs, rs) in enumerate(zip(g, r)):
+        step_err = float(np.abs(gs - rs).max())
+        check(step_err <= GRAD_TOL * max(1.0, float(np.abs(rs).max())),
+              f"data-parallel gradients off by {step_err} at step {step}")
+    check(grad_ratio <= 1, f"data-parallel first gradients off: {out}")
+    check(param_ratio <= 1, f"data-parallel weights off: {out}")
+    return out
+
+
+def adam_response(g, r, lr: float, eps: float = 1e-8):
+    """Adam's first-order response to the gradients ``g`` in place of
+    ``r`` (steps × entries, β 0.9/0.999): step t's update m̂/(√v̂ + ε)
+    moves by at most about Σ_{s≤t} |g_s − r_s| / (√v̂_t + ε), for m̂ is a
+    weighted mean of the gradients so far and √v̂ their weighted root mean
+    square; lr times the sum over the steps."""
+    diff = np.abs(np.asarray(g, np.float64) - np.asarray(r, np.float64))
+    v = np.zeros(diff.shape[1])
+    acc, out = np.zeros_like(v), np.zeros_like(v)
+    for t, rt in enumerate(np.asarray(r, np.float64)):
+        v = 0.999 * v + 0.001 * rt ** 2
+        acc += diff[t]
+        out += lr * acc / (np.sqrt(v / (1 - 0.999 ** (t + 1))) + eps)
+    return out
+
+
+def _window_batches(years, month: int, t_in: int, t_out: int, batch: int, train: bool = False,
+                    data_years: int = CLI_YEARS):
+    """Batches of an IceDataset of ``years`` × ``month`` at ``batch`` over
+    ``data_years`` synthetic years from 2007: the window count depends on
+    the dates alone, so a 2×2 field gives it."""
+    from quadtree_mpnnlstm_tpu_torch.data.ice_dataset import IceDataset, synthetic_dataset
+
+    ds, _ = synthetic_dataset(shape=(2, 2), years=(2007, 2007 + data_years))
+    n = len(IceDataset(ds, years, month, t_in, t_out, ["siconc"], ["siconc"], train=train))
+    return -(-n // batch)
+
+
+def item12_13_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum) -> dict:
+    """Phases 64-73; returns each kernel's launches on the new paths for
+    the kernels line."""
+    import types
+
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.cli import (
+        ice_exp,
+        ice_exp_cnnlstm,
+        ice_exp_nwt,
+        ice_inf,
+        ice_profile,
+        mnist_demo,
+    )
+    from quadtree_mpnnlstm_tpu_torch.data.ice_dataset import synthetic_dataset
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+    from quadtree_mpnnlstm_tpu_torch.eval import trace_summary
+    from quadtree_mpnnlstm_tpu_torch.parallel import dp
+
+    run_dir = tempfile.TemporaryDirectory()
+    modules = (spmm, attn, grid_attn, segment_sum)
+    launchers = held_launchers(spmm, grid_attn, segment_sum)
+    out = {}
+
+    def reset():
+        for m in modules:
+            m.reset_launch_counts()
+
+    def launched():
+        return {k: v for k, v in launch_totals(modules).items() if v}
+
+    # ---- phase 64: two gloo ranks on the card against one process
+    _, batches = train_batches(seed, DP_STEPS)
+    ref = {}
+    for dropout in (0.0, 0.1):
+        model = make_dp_model(seed, run_dir.name, dropout)
+        model.initiate_training(lr=LR, lr_decay=0.95)
+        ref[dropout] = dp_steps(model, batches)
+        want = expected_launches(model.cfg)
+        check(ref[dropout]["launches"] == want,
+              f"one-process step launches {ref[dropout]['launches']}, expected {want}")
+        del model
+    t0 = time.perf_counter()
+    ranks = dp.launch(dp_rank, DP_WORLD, backend="gloo", device="cuda:0",
+                      args=(seed, run_dir.name, (0.0, 0.1)), timeout=600)
+    gloo_s = time.perf_counter() - t0
+    rows = {}
+    for dropout in (0.0, 0.1):
+        got = ranks[dropout]
+        check(got["replicas_equal"], f"the ranks' weights differ (dropout {dropout})")
+        check(got["launches"] == want,
+              f"a rank's step launches {got['launches']}, expected {want}")
+        rows[str(dropout)] = dict(dp_compare(got, ref[dropout]), held_rank0=got["held"],
+                                  rank_step_s=got["step_s"],
+                                  one_process_step_s=ref[dropout]["step_s"],
+                                  allreduce_ms=got["reduce_ms"],
+                                  allreduce_bytes=got["reduce_bytes"][0])
+    # each rank draws the global batch's rows of its shard, no two alike
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    u = torch.rand((BATCH, 64), generator=gen, device=DEVICE).cpu().numpy()
+    per = BATCH // DP_WORLD
+    for r, drawn in enumerate(ranks["draws"]):
+        check(np.array_equal(drawn, u[r * per:(r + 1) * per]),
+              f"rank {r}'s draws are not the global batch's rows")
+    check(not np.array_equal(ranks["draws"][0], ranks["draws"][1]), "the ranks share a mask")
+    out["dp_rank_step"] = want
+    print(json.dumps({
+        "phase": "dp_gloo", "card": card, "world": DP_WORLD, "backend": "gloo",
+        "global_batch": BATCH, "steps": DP_STEPS, "by_dropout": rows,
+        "rank_launches_a_step": want, "launch_s": gloo_s,
+        "masks": "each rank's draws are the global batch's rows of its shard",
+    }), flush=True)
+
+    # ---- phase 65: one NCCL rank, bit for bit the one-process step
+    t0 = time.perf_counter()
+    nccl = dp.launch(dp_rank, 1, backend="nccl", args=(seed, run_dir.name, (0.0,)), timeout=600)
+    nccl_s = time.perf_counter() - t0
+    got = nccl[0.0]
+    check(got["losses"] == ref[0.0]["losses"]
+          and all(np.array_equal(a, b) for a, b in zip(got["grads"], ref[0.0]["grads"]))
+          and np.array_equal(got["params"], ref[0.0]["params"]),
+          "one NCCL rank differs from the one-process step")
+    check(got["launches"] == want, f"NCCL rank launches {got['launches']}")
+    print(json.dumps({
+        "phase": "dp_nccl", "card": card, "world": 1, "backend": "nccl",
+        "bit_identical": True, "rank_step_s": got["step_s"],
+        "one_process_step_s": ref[0.0]["step_s"], "allreduce_ms": got["reduce_ms"],
+        "allreduce_bytes": got["reduce_bytes"][0], "launch_s": nccl_s, "held": got["held"],
+    }), flush=True)
+    del ref, ranks, nccl
+    torch.cuda.empty_cache()
+
+    # ---- phase 66: ice_exp experiment 0 at the flagship's widths
+    res0 = tempfile.TemporaryDirectory()
+    data_args = ["--synthetic", "--shape", *map(str, ICE_SHAPE), "--t-out", str(CLI_T_OUT),
+                 "--synthetic-years", str(CLI_YEARS), "--batch-size", str(CLI_BATCH),
+                 "--device", DEVICE]
+    # random weights: the divergence guard's default bound (4) does not apply
+    argv = ["-m", str(CLI_MONTH), "-e", "0", *data_args, "--epochs", "1",
+            "--max-loss", "1e30", "--results-dir", res0.name]
+    cfg0 = ice_exp.experiment_config(0)
+    years = range(2007, 2007 + CLI_YEARS - 1)  # the CLI's clamp at 2 synthetic years
+    name = ice_exp.experiment_name(CLI_MONTH, years, cfg0["input_timesteps"], CLI_T_OUT)
+    t_in = cfg0["input_timesteps"]
+    windows = _window_batches([years[-1] + 1], CLI_MONTH, t_in, CLI_T_OUT, 1)
+    nb = dict(train=_window_batches(years, CLI_MONTH, t_in, CLI_T_OUT, CLI_BATCH, train=True),
+              test=_window_batches([years[-1] + 1], CLI_MONTH, t_in, CLI_T_OUT, CLI_BATCH),
+              val=_window_batches([years[-1] + 1], CLI_MONTH, t_in, CLI_T_OUT, CLI_BATCH))
+    per = expected_grid_launches(types.SimpleNamespace(n_layers=1, n_conv_layers=3,
+                                                       output_timesteps=CLI_T_OUT))
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with HoldCapture(launchers) as held:
+        run0 = ice_exp.main(argv)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    got = launched()
+    peak0 = torch.cuda.max_memory_allocated() / 2**30
+    # remat (the predictor's default) replays a step's forward: 2 K5 a call
+    want0 = {"grid_attn_apply": per * (2 * nb["train"] + nb["test"] + nb["val"]),
+             "grid_attn_apply_bwd": per * nb["train"]}
+    check(got == want0, f"ice_exp -e 0 launches {got}, expected {want0}")
+    files = sorted(os.listdir(res0.name))
+    check(files == sorted([f"{name}.pt", f"loss_{name}.json", f"valpredictions_{name}.npz"]),
+          f"ice_exp -e 0 wrote {files}")
+    loss = json.load(open(os.path.join(res0.name, f"loss_{name}.json")))
+    check(np.isfinite(loss["train_loss"]).all() and np.isfinite(loss["test_loss"]).all(),
+          f"ice_exp -e 0 loss {loss}")
+    saved = dict(np.load(run0["predictions"]))
+    check(saved["y_hat"].shape == (windows, CLI_T_OUT, *ICE_SHAPE, 1)
+          and np.isfinite(saved["y_hat"]).all(), "ice_exp -e 0 predictions")
+    out["ice_exp_e0"] = got
+    print(json.dumps({
+        "phase": "cli_ice_exp_e0", "card": card, "argv": argv[:-1], "wall_s": wall0,
+        "batch": CLI_BATCH,
+        "batches": nb, "launches": got, "files": files, "loss": loss,
+        "peak_gib": peak0, "held": held.hold("ice_exp -e 0"),
+    }), flush=True)
+
+    # ---- phase 67: ice_inf on those weights, bit for bit
+    reset()
+    t0 = time.perf_counter()
+    with HoldCapture(launchers) as held:
+        inf = ice_inf.main(["-m", str(CLI_MONTH), "-e", "0", *data_args,
+                            "--results-dir", res0.name])
+    torch.cuda.synchronize()
+    wall_inf = time.perf_counter() - t0
+    check(np.array_equal(inf["val_predictions"], saved["y_hat"]),
+          "ice_inf's predictions differ from ice_exp's")
+    again = np.load(inf["predictions"])
+    check(all(np.array_equal(again[k], saved[k]) for k in saved), "ice_inf's file differs")
+    got = launched()
+    check(got == {"grid_attn_apply": per * nb["val"]}, f"ice_inf launches {got}")
+    out["ice_inf"] = got
+    print(json.dumps({"phase": "cli_ice_inf", "card": card, "wall_s": wall_inf,
+                      "bit_identical": True, "launches": got,
+                      "held": held.hold("ice_inf")}), flush=True)
+    res0.cleanup()
+    del run0, inf, saved
+
+    # ---- phase 68: experiment 9, the multires curriculum into the preset
+    cfg9 = ice_exp.experiment_config(9)
+    _, band = synthetic_dataset(shape=ICE_SHAPE, years=(2007, 2007))  # the mask alone
+    reset()
+    ice_exp.preset_mesh(cfg9, ICE_SHAPE, band, DEVICE)
+    build = launched().get("segment_sum", 0)
+    b9 = CLI_PRESET_BATCH
+    nb9 = dict(train=_window_batches(years, CLI_MONTH, t_in, CLI_T_OUT, b9, train=True),
+               test=_window_batches([years[-1] + 1], CLI_MONTH, t_in, CLI_T_OUT, b9),
+               val=_window_batches([years[-1] + 1], CLI_MONTH, t_in, CLI_T_OUT, b9))
+    cfg_edge = types.SimpleNamespace(n_layers=1, n_conv_layers=3)
+    want9 = {"grid_attn_apply": ice_exp.HALF_EPOCHS * per * (2 * nb9["train"] + nb9["test"]),
+             "grid_attn_apply_bwd": ice_exp.HALF_EPOCHS * per * nb9["train"],
+             "segment_sum": build
+             + nb9["train"] * expected_preset_launches(cfg_edge, CLI_T_OUT, train=True)
+             + (nb9["test"] + nb9["val"]) * expected_preset_launches(cfg_edge, CLI_T_OUT)}
+    res9 = tempfile.TemporaryDirectory()
+    reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with HoldCapture(launchers) as held:
+        run9 = ice_exp.main(["-m", str(CLI_MONTH), "-e", "9", *data_args, "--epochs", "1",
+                             "--batch-size", str(b9), "--max-loss", "1e30",
+                             "--results-dir", res9.name])
+    torch.cuda.synchronize()
+    wall9 = time.perf_counter() - t0
+    got = launched()
+    peak9 = torch.cuda.max_memory_allocated() / 2**30
+    check(got == want9, f"ice_exp -e 9 launches {got}, expected {want9}")
+    check(np.isfinite(run9["loss"]["train_loss"]).all()
+          and np.isfinite(run9["val_predictions"]).all(), "ice_exp -e 9 not finite")
+    out["ice_exp_e9"] = got
+    print(json.dumps({
+        "phase": "cli_ice_exp_e9", "card": card, "batch": b9, "wall_s": wall9,
+        "batches": nb9, "preset_build_k7": build, "launches": got, "loss": run9["loss"],
+        "peak_gib": peak9, "held": held.hold("ice_exp -e 9"),
+    }), flush=True)
+    res9.cleanup()
+    del run9
+    torch.cuda.empty_cache()
+
+    # ---- phase 69: ice_exp_nwt (seed 7's 32×32 fields, no climatology)
+    resn = tempfile.TemporaryDirectory()
+    reset()
+    t0 = time.perf_counter()
+    with HoldCapture(launchers) as held:
+        nwt = ice_exp_nwt.main(["-m", str(CLI_MONTH), "--synthetic", "--epochs", "1",
+                                "--batch-size", str(NWT_BATCH), "--max-loss", "1e30",
+                                "--results-dir", resn.name, "--device", DEVICE])
+    torch.cuda.synchronize()
+    wall_nwt = time.perf_counter() - t0
+    got = launched()
+    # the pixelwise edge list without climatology: no climatology pooling
+    # (one K7 fewer an encode than expected_edge_launches counts); remat
+    # replays every attention call's aggregation in a step
+    nwt_years = range(2007, 2013)
+    nbn = dict(train=_window_batches(nwt_years, CLI_MONTH, t_in, CLI_T_OUT, NWT_BATCH,
+                                     train=True, data_years=11),
+               test=_window_batches([2013], CLI_MONTH, t_in, CLI_T_OUT, NWT_BATCH,
+                                    data_years=11),
+               val=_window_batches(range(2014, 2018), CLI_MONTH, t_in, CLI_T_OUT, NWT_BATCH,
+                                   data_years=11))
+    step_k7 = (expected_edge_launches(cfg_edge, CLI_T_OUT, train=True) - 1
+               + _attention_calls(cfg_edge, CLI_T_OUT))
+    fwd_k7 = expected_edge_launches(cfg_edge, CLI_T_OUT) - 1
+    want_nwt = {"segment_sum": nbn["train"] * step_k7 + (nbn["test"] + nbn["val"]) * fwd_k7}
+    check(got == want_nwt and np.isfinite(nwt["loss"]["train_loss"]).all()
+          and np.isfinite(nwt["val_predictions"]).all(),
+          f"ice_exp_nwt launches {got}, expected {want_nwt}")
+    out["ice_exp_nwt"] = got
+    print(json.dumps({"phase": "cli_ice_exp_nwt", "card": card, "wall_s": wall_nwt,
+                      "batch": NWT_BATCH, "batches": nbn, "launches": got, "loss": nwt["loss"],
+                      "files": sorted(os.listdir(resn.name)),
+                      "held": held.hold("ice_exp_nwt")}), flush=True)
+    resn.cleanup()
+    del nwt
+
+    # ---- phase 70: ice_exp_cnnlstm raises where the JAX CLI fails
+    try:
+        ice_exp_cnnlstm.main(["-m", str(CLI_MONTH), "--synthetic", "--epochs", "1",
+                              "--device", DEVICE])
+        raised = None
+    except ValueError as exc:
+        raised = str(exc)
+    check(raised is not None and "use_climatology=True" in raised,
+          f"ice_exp_cnnlstm did not raise its ValueError: {raised}")
+    print(json.dumps({"phase": "cli_ice_exp_cnnlstm", "card": card, "raised": raised[:160]}),
+          flush=True)
+
+    # ---- phase 71: ice_profile --trace-dir: trace rows = launch counters
+    trace_dir = tempfile.TemporaryDirectory()
+    counted = {}
+    train = ice_profile.NextFramePredictorS2S.train
+
+    def counted_train(self, *a, **kw):  # the traced span is train() itself
+        reset()
+        try:
+            return train(self, *a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            counted.update(launched())
+
+    reset()
+    t0 = time.perf_counter()
+    with mock.patch.object(ice_profile.NextFramePredictorS2S, "train", counted_train), \
+            HoldCapture(launchers) as held:
+        ice_profile.main(["--epochs", "1", "--batch-size", str(PROFILE_BATCH),
+                          "--trace-dir", trace_dir.name, "--trace-summary",
+                          "--device", DEVICE])
+    wall_prof = time.perf_counter() - t0
+    rows = trace_summary.summarize_trace(trace_dir.name, top=10**9)
+    check(rows and all(r.plane == "kernel" for r in rows), "the ice_profile trace has no kernel")
+    traced = {key: sum(r.count for r in rows if re.search(pattern, r.name))
+              for key, pattern in TRACE_KERNELS.items()}
+    want_t = {"spmm_build_blocks": counted.get("spmm_build_blocks", 0),
+              "spmm_apply+spmm_apply_bwd": counted.get("spmm_apply", 0)
+              + counted.get("spmm_apply_bwd", 0),
+              "segment_sum": counted.get("segment_sum", 0)}
+    check(traced == want_t and want_t["segment_sum"] > 0,
+          f"ice_profile trace rows {traced} against the counters {counted}")
+    out["ice_profile_train"] = counted
+    print(json.dumps({"phase": "cli_ice_profile", "card": card, "wall_s": wall_prof,
+                      "trace_rows": traced, "counters": counted,
+                      "busy_ms": sum(r.total_ms for r in rows),
+                      "held": held.hold("ice_profile")}), flush=True)
+    trace_dir.cleanup()
+
+    # ---- phase 72: mnist_demo on a few videos
+    demo_dir = tempfile.TemporaryDirectory()
+    cwd = os.getcwd()
+    reset()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(demo_dir.name)  # the sweep writes its PNGs to the working directory
+        with HoldCapture(launchers) as held:
+            scores = mnist_demo.main(MNIST_DEMO + ["--device", DEVICE])
+    finally:
+        os.chdir(cwd)
+    torch.cuda.synchronize()
+    wall_demo = time.perf_counter() - t0
+    got = launched()
+    check(np.isfinite(scores["RMSE"]) and set(got) == {"segment_sum"},
+          f"mnist_demo: scores {scores}, launches {got}")
+    out["mnist_demo"] = got
+    print(json.dumps({"phase": "cli_mnist_demo", "card": card, "argv": MNIST_DEMO,
+                      "wall_s": wall_demo, "scores": scores, "launches": got,
+                      "held": held.hold("mnist_demo")}), flush=True)
+    demo_dir.cleanup()
+
+    # ---- phase 73: the native host toolkit built here, deterministic
+    from quadtree_mpnnlstm_tpu_torch import native_ext
+
+    t0 = time.perf_counter()
+    lib = native_ext.build()
+    build_s = time.perf_counter() - t0
+    kw = dict(input_timesteps=T_IN, output_timesteps=T_OUT, canvas_size=CANVAS,
+              digit_size=DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=seed)
+    t0 = time.perf_counter()
+    native = ModMovingMNISTDataset(BATCH, backend="native", **kw)
+    native_s = time.perf_counter() - t0
+    again = ModMovingMNISTDataset(BATCH, backend="native", **kw)
+    t0 = time.perf_counter()
+    ModMovingMNISTDataset(BATCH, **kw)
+    numpy_s = time.perf_counter() - t0
+    check(np.array_equal(native.x, again.x) and np.array_equal(native.y, again.y),
+          "the native generator is not deterministic under its seed")
+    check(native.x.shape == (BATCH, T_IN, *CANVAS, 1) and np.isfinite(native.x).all(),
+          f"native videos {native.x.shape}")
+    print(json.dumps({"phase": "native_host", "card": card, "library": lib.name,
+                      "build_s": build_s, "native_s": native_s, "numpy_s": numpy_s,
+                      "videos": BATCH, "deterministic": True}), flush=True)
+    run_dir.cleanup()
+    return out
+
+
+def add_item12_13_paths(f32_entries, item12: dict) -> None:
+    """Adds phases 64-72's launches to the kernels line
+    (``launches_by_path``): a data-parallel rank's train step and every
+    CLI run's totals."""
+    for entry in f32_entries:
+        for path in ("dp_rank_step", "ice_exp_e0", "ice_inf", "ice_exp_e9", "ice_exp_nwt",
+                     "ice_profile_train", "mnist_demo"):
+            if entry["name"] in item12[path]:
+                entry["launches_by_path"][path] = item12[path][entry["name"]]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6086,6 +6728,7 @@ def main() -> int:
     item9 = item9_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum, loader, x)
     item10 = item10_11_phases(args.seed, card, spmm, attn, grid_attn, segment, segment_sum,
                               loader, x)
+    item12 = item12_13_phases(args.seed, card, spmm, attn, grid_attn, segment_sum)
     for k in bf16_attn_kernels:  # the per-gate flagship's K5/K6 (phase 40)
         name = k["name"].removesuffix("_bf16")
         if name.startswith("grid_attn"):
@@ -6233,6 +6876,7 @@ def main() -> int:
     add_item8_paths(kernels, bf16_kernels, item8)
     add_item9_paths(kernels, bf16_kernels, item9)
     add_item10_11_paths(kernels, item10)
+    add_item12_13_paths(kernels, item12)
     for k in kernels:
         k["dtype"] = "float32"
     print(json.dumps({"kernels": kernels + bf16_kernels}), flush=True)

@@ -6,7 +6,9 @@ y (N, T_out, w, h, 1). The default sprites are the committed set of real
 handwritten digits in ``digit_sprites.npz`` (50 digits, 5 per class,
 28×28); ``sprites="font"`` selects a 5×7 bitmap font. Same generator and
 random stream as ``quadtree_mpnnlstm_tpu/data/moving_mnist.py``, so one
-seed gives the same videos in both packages.
+seed gives the same videos in both packages; ``backend="native"`` renders
+through the port's C++ generator (``native_ext.py``), as the JAX
+package's native backend renders through its own.
 """
 
 from __future__ import annotations
@@ -148,9 +150,32 @@ class ModMovingMNIST:
         output_timesteps: int = 1,
         n_digits: int = 1,
         gap: int = 0,
+        backend: str = "numpy",
     ):
-        """(x, y) videos with additive white noise."""
+        """(x, y) videos with additive white noise.
+
+        ``backend="native"`` renders through the C++ generator
+        (``native_ext.py``, ``csrc/qtm_host.cpp``): the same dynamics, a
+        different random stream, as the JAX package's native backend."""
         t_total = input_timesteps + output_timesteps + gap
+        if backend == "native":
+            from quadtree_mpnnlstm_tpu_torch import native_ext
+
+            if self.canvas_size[0] != self.canvas_size[1]:
+                raise ValueError(f"the native generator draws square canvases, not "
+                                 f"{tuple(self.canvas_size)}")
+            resize = _resize_bilinear if self._smooth else _resize_nearest
+            sprites = np.stack([resize(s, self.digit_size) for s in self.sprites])
+            vids = native_ext.moving_sprites(
+                sprites, num_samples, t_total, self.canvas_size[0], n_digits=n_digits,
+                pixel_noise=self.pixel_noise, velocity_noise=self.velocity_noise,
+                seed=int(self.rng.integers(2**63)))
+            vids = np.swapaxes(vids, 2, 3)
+            x = vids[:, :input_timesteps, :, :, None]
+            y = vids[:, t_total - output_timesteps:, :, :, None]
+            return x, y
+        if backend != "numpy":
+            raise ValueError(f"backend={backend!r}: expected 'numpy' or 'native'")
         xs, ys = [], []
         for _ in range(num_samples):
             vid = self.generate_moving_digits(t_total, n_digits)
@@ -182,13 +207,14 @@ class ModMovingMNISTDataset(ArrayDataset):
         velocity_noise: float = 0.25,
         seed: int = 0,
         sprites=None,
+        backend: str = "numpy",
     ):
         gen = ModMovingMNIST(
             canvas_size, digit_size, pixel_noise, velocity_noise,
             sprites=sprites, seed=seed,
         )
         x, y = gen.create_dataset(
-            n_samples, input_timesteps, output_timesteps, n_digits, gap
+            n_samples, input_timesteps, output_timesteps, n_digits, gap, backend=backend
         )
         frame_id = np.arange(len(y), dtype=np.int64)
         super().__init__(x, y, frame_id)

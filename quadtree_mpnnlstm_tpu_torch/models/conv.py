@@ -49,6 +49,7 @@ from quadtree_mpnnlstm_tpu_torch.ops.segment import (
     segment_sum_nodes,
 )
 from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import SegmentView, segment_view
+from quadtree_mpnnlstm_tpu_torch.utils.draws import sample_offset, uniform
 
 
 def compute_sym_norm(graph: GraphTensors) -> torch.Tensor:
@@ -193,12 +194,13 @@ def edge_keep(graph: GraphTensors, heads: int, rate: float,
     ``generator``; each value is a counter-based hash of (seed, sample,
     src, dst, head), keyed by the edge's node ids and not by its slot, so
     the mask does not depend on the order of the slots (as the JAX
-    package keys it, with its own random bits)."""
+    package keys it, with its own random bits). The sample is its index
+    in the global batch under data parallelism (``utils/draws.py``)."""
     dev = graph.edge_src.device
     seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
                          device=generator.device).to(dev)
     b = graph.edge_src.shape[0]
-    h = _mix32(seed + torch.arange(b, device=dev)[:, None])
+    h = _mix32(seed + (torch.arange(b, device=dev) + sample_offset(b))[:, None])
     h = _mix32(h ^ graph.edge_src)
     h = _mix32(h ^ graph.edge_dst)
     h = _mix32(h[..., None] ^ torch.arange(heads, device=dev))
@@ -282,7 +284,7 @@ def multi_stream_attention(
         raise ValueError("attention dropout in training mode needs an explicit torch.Generator")
 
     def keep_planes(shape):
-        u = torch.rand(shape, generator=generator, device=q.device)
+        u = uniform(shape, generator, q.device)
         return (u < 1.0 - dropout).float() / (1.0 - dropout)
 
     if graph.agg[0] == "grid":

@@ -130,6 +130,7 @@ from quadtree_mpnnlstm_tpu_torch.graph.state import GraphTensors, flatten, unfla
 from quadtree_mpnnlstm_tpu_torch.graph.static import expand_graph
 from quadtree_mpnnlstm_tpu_torch.models.cells import RNN_CELLS
 from quadtree_mpnnlstm_tpu_torch.models.conv import CONVOLUTIONS, make_conv, with_self_loops
+from quadtree_mpnnlstm_tpu_torch.utils.draws import uniform
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
 
 
@@ -179,12 +180,13 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: keep each entry with probability 1 − rate and
     scale it by 1/(1 − rate); the identity outside training or at rate 0.
-    The mask is drawn from ``generator``, on ``x``'s device."""
+    The mask is drawn from ``generator``, on ``x``'s device
+    (``utils/draws.py``: x's batch axis first)."""
     if not training or rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training mode needs an explicit torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = uniform(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -626,8 +628,7 @@ class Seq2Seq(nn.Module):
         coin = None
         if teacher_forcing_ratio > 0.0:
             coins = 1 if state.shared else y_hat_t.shape[0]
-            coin = torch.rand(coins, generator=generator,
-                              device=y_hat_t.device) < teacher_forcing_ratio
+            coin = uniform((coins,), generator, y_hat_t.device) < teacher_forcing_ratio
         if remesh:
             return self._remesh(state, y_hat_t, hidden, cell, coin, y_t, mask, hir), y_hat_t
         x_new = torch.cat([output, state.x[..., 1:]], dim=-1)

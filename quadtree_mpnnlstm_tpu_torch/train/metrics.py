@@ -47,3 +47,16 @@ class MetricsLogger:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullLogger:
+    """A logger that writes nothing: the data-parallel ranks but rank 0."""
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass

@@ -58,24 +58,40 @@ scheduled-sampling coin a step for the batch (``models/seq2seq.py``);
 same mean over samples. ``graph_kwargs`` take every ``GraphConfig`` field
 of the JAX package (``grid_attn``, ``message_dtype``, ``max_degree``,
 ``adjacency="csum"`` among them).
+
+``dp_devices`` N > 1 trains data-parallel, as the JAX predictor's
+``dp_devices`` does: the predictor runs in one process of a
+``torch.distributed`` group of N ranks (``parallel/dp.py`` ``launch``),
+every rank's loader yields the same global batches, and each
+``train_step`` runs the rank's contiguous rows of the batch, draws what
+one device draws for those rows (``utils/draws.py``) and averages the
+gradients and the loss over the ranks before one identical clip and
+update on every rank. With ``shared_mesh`` each rank's shard builds its
+own mesh, as each shard does under the JAX package's ``shard_map``.
+``forecast``, ``predict`` and ``score`` run on every rank unsharded, and
+only rank 0 writes metrics, weights and checkpoints.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from quadtree_mpnnlstm_tpu_torch.config import NEG_INF, GraphConfig, ModelConfig, TrainConfig
 from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph
 from quadtree_mpnnlstm_tpu_torch.graph.state import unflatten
 from quadtree_mpnnlstm_tpu_torch.models.seq2seq import Seq2Seq
+from quadtree_mpnnlstm_tpu_torch.parallel import dp
 from quadtree_mpnnlstm_tpu_torch.train.losses import LOSSES
-from quadtree_mpnnlstm_tpu_torch.train.metrics import MetricsLogger
+from quadtree_mpnnlstm_tpu_torch.train.metrics import MetricsLogger, NullLogger
 from quadtree_mpnnlstm_tpu_torch.utils.dates import day_of_year
+from quadtree_mpnnlstm_tpu_torch.utils.draws import batch_shard
 from quadtree_mpnnlstm_tpu_torch.utils.params import get_n_params
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding
 from quadtree_mpnnlstm_tpu_torch.utils.weights import init_params, params_from_jax
@@ -123,6 +139,7 @@ class NextFramePredictorS2S:
         run_dir: str = "runs",
         tensorboard: bool = False,
         shared_mesh: Optional[bool] = None,
+        dp_devices: int = 1,
     ):
         self.experiment_name = experiment_name
         self.thresh = thresh if decompose else NEG_INF
@@ -141,6 +158,20 @@ class NextFramePredictorS2S:
         if shared_mesh is None:  # explicit > train_config.shared_mesh > off
             shared_mesh = bool(train_config.shared_mesh) if train_config is not None else False
         self.shared_mesh = shared_mesh
+        self.dp_devices = int(dp_devices)
+        if self.dp_devices < 1:
+            raise ValueError(f"dp_devices={dp_devices}: expected at least 1")
+        # the data-parallel step runs in a group of dp_devices ranks (a
+        # group of 1 too: its reductions leave every value as it is)
+        self.data_parallel = (dist.is_available() and dist.is_initialized()
+                              and dist.get_world_size() == self.dp_devices)
+        if self.dp_devices > 1 and not self.data_parallel:
+            raise RuntimeError(
+                f"dp_devices={self.dp_devices} needs an initialised torch.distributed group "
+                f"of {self.dp_devices} ranks, one process a rank: run the predictor under "
+                "quadtree_mpnnlstm_tpu_torch.parallel.dp.launch")
+        self.dp_rank = dist.get_rank() if self.data_parallel else 0
+        self.is_writer = self.dp_rank == 0  # only rank 0 writes files
 
         mk = dict(model_kwargs or {})
         self.cfg = ModelConfig(
@@ -233,7 +264,8 @@ class NextFramePredictorS2S:
         self._lr_decay = lr_decay
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr,
                                           betas=(0.9, 0.999), eps=1e-8)
-        self.writer = MetricsLogger(self.run_dir, self.experiment_name, self.tensorboard)
+        self.writer = (MetricsLogger(self.run_dir, self.experiment_name, self.tensorboard)
+                       if self.is_writer else NullLogger())
         self.train_loss, self.test_loss = [], []
         self._epoch = 0
         self.training_initiated = True
@@ -304,6 +336,19 @@ class NextFramePredictorS2S:
                                            t0=t0, high_interest_region=hir)
             yield self.loss_func(y_hat, y_c, m).mean(), state
 
+    def _shard(self, rank: int, x, y, climatology):
+        """Shard ``rank``'s rows of a global batch on the device (the whole
+        batch without data parallelism)."""
+        if self.data_parallel:
+            x, y, climatology = dp.shard_batch((x, y, climatology), rank, self.dp_devices)
+        return self._tensor(x), self._tensor(y), self._clim(climatology)
+
+    def _draws(self, rank: int):
+        """Draw as shard ``rank`` of the global batch (``utils/draws.py``)."""
+        if self.data_parallel:
+            return batch_shard(rank, self.dp_devices)
+        return contextlib.nullcontext()
+
     def train_step(self, x, y, mask=None, generator: Optional[torch.Generator] = None,
                    truncated_backprop: int = 0, climatology=None, high_interest_region=None,
                    graph_structure=None):
@@ -320,6 +365,11 @@ class NextFramePredictorS2S:
         known, so a chunk's activations are freed before the next chunk
         runs (the JAX package rematerialises each chunk for that). Under
         the model's per-step remat each step of a chunk is checkpointed.
+        With ``dp_devices`` N > 1 every rank passes the same global batch
+        (B divisible by N, else the JAX predictor's ``ValueError``) and runs
+        its own rows; after the last chunk's backward the gradients and the
+        loss are averaged and the overflow maximised over the ranks
+        (``parallel/dp.py`` ``all_reduce_step``).
         Returns (loss, mesh overflow) as device tensors, with no host
         sync unless the predictor was built with ``debug``. ``generator``
         defaults to the predictor's own."""
@@ -328,17 +378,20 @@ class NextFramePredictorS2S:
         model = self.model.train()
         gen = self.generator if generator is None else generator
         start = gen.get_state() if self.debug else None
-        x, y, m = self._tensor(x), self._tensor(y), self._mask(mask)
+        m = self._mask(mask)
         hir = self._mask(high_interest_region)
-        clim = self._clim(climatology)
+        xs, ys, clim = self._shard(self.dp_rank, x, y, climatology)
         self.optimizer.zero_grad(set_to_none=True)
         total = torch.zeros((), device=self.device)
         overflow = torch.zeros((), dtype=torch.int64, device=self.device)
         rest = (truncated_backprop, hir, graph_structure)
-        for loss, state in self._chunk_losses(model, x, y, m, clim, gen, *rest):
-            loss.backward()
-            total = total + loss.detach()
-            overflow = torch.maximum(overflow, state.graph.overflow.max())
+        with self._draws(self.dp_rank):
+            for loss, state in self._chunk_losses(model, xs, ys, m, clim, gen, *rest):
+                loss.backward()
+                total = total + loss.detach()
+                overflow = torch.maximum(overflow, state.graph.overflow.max())
+        if self.data_parallel:
+            total, overflow = dp.all_reduce_step(list(model.parameters()), total, overflow)
         if self.debug:
             # the encoder's and decoder's gradient norms before the clip
             self.last_grad_norms = {
@@ -347,7 +400,7 @@ class NextFramePredictorS2S:
                           torch.zeros((), device=self.device)).sqrt()
                 for side in ("encoder", "decoder")}
             if not bool(torch.isfinite(total)):
-                self._localise_nan(model, start, x, y, m, clim, *rest)
+                self._localise_nan(model, start, x, y, m, climatology, *rest)
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         # the global norm before the clip, a device tensor
         self.last_grad_norm = clip_by_global_norm_(grads, CLIP_NORM)
@@ -355,22 +408,29 @@ class NextFramePredictorS2S:
         return total, overflow
 
     @torch.no_grad()
-    def _localise_nan(self, model, gen_state, x, y, m, clim, truncated_backprop, hir, gs):
+    def _localise_nan(self, model, gen_state, x, y, m, climatology, truncated_backprop, hir, gs):
         """``debug``: replay a step whose loss was non-finite, forward only,
         from the generator state it started from (so it draws the same
         masks and coins) with the model's NaN checks on; the first check
         that fails raises, naming its module and step. The weights are the
-        step's own: the update has not run."""
-        gen = torch.Generator(device=self.device)
-        gen.set_state(gen_state)
+        step's own: the update has not run. Under data parallelism every
+        rank replays every shard of the global batch in rank order, each
+        with its own draws, so all ranks raise alike (the JAX predictor
+        replays per shard too)."""
         model.check_finite = True
         try:
-            for _ in self._chunk_losses(model, x, y, m, clim, gen, truncated_backprop, hir, gs):
-                pass
+            for rank in range(self.dp_devices):
+                gen = torch.Generator(device=self.device)
+                gen.set_state(gen_state)
+                xs, ys, clim = self._shard(rank, x, y, climatology)
+                with self._draws(rank):
+                    for _ in self._chunk_losses(model, xs, ys, m, clim, gen, truncated_backprop,
+                                                hir, gs):
+                        pass
         finally:
             model.check_finite = False
-        raise ValueError("non-finite loss but all forward checks passed across 1 shard "
-                         "replay(s) — the NaN arose in the backward pass or the optimizer "
+        raise ValueError(f"non-finite loss but all forward checks passed across {self.dp_devices} "
+                         "shard replay(s) — the NaN arose in the backward pass or the optimizer "
                          "update")
 
     @torch.no_grad()
@@ -472,20 +532,22 @@ class NextFramePredictorS2S:
 
             self.writer.scalar("Loss/test", running_test, epoch)
             self.writer.scalar("Mesh/overflow_max", epoch_overflow, epoch)
-            if epoch_overflow > 0:
+            if epoch_overflow > 0 and self.is_writer:
                 print(f"WARNING: mesh capacity overflow ({epoch_overflow} dropped slots at the "
                       "worst step) — raise n_max/e_max/agg_* (GraphConfig)")
             self._epoch += 1
             self.train_loss.append(running)
             self.test_loss.append(running_test)
-            print(
-                f"{self.experiment_name} | Epoch {epoch} train {self.loss_func_name}: "
-                f"{running:.4f}, test {self.loss_func_name}: {running_test:.4f}, "
-                f"lr: {self._current_lr():.4f}, "
-                f"time_per_epoch: {(time.time() - st) / (epoch + 1):.1f}"
-            )
+            if self.is_writer:
+                print(
+                    f"{self.experiment_name} | Epoch {epoch} train {self.loss_func_name}: "
+                    f"{running:.4f}, test {self.loss_func_name}: {running_test:.4f}, "
+                    f"lr: {self._current_lr():.4f}, "
+                    f"time_per_epoch: {(time.time() - st) / (epoch + 1):.1f}"
+                )
 
-        print(f"Finished in {(time.time() - st) / 60} minutes")
+        if self.is_writer:
+            print(f"Finished in {(time.time() - st) / 60} minutes")
         self.writer.flush()
         self.loss = {"train_loss": list(self.train_loss), "test_loss": list(self.test_loss)}
 
@@ -545,9 +607,11 @@ class NextFramePredictorS2S:
         return os.path.join(directory, f"{self.experiment_name}{suffix}")
 
     def save(self, directory: str) -> str:
-        """Weights only, ``<directory>/<experiment_name>.pt``."""
+        """Weights only, ``<directory>/<experiment_name>.pt`` (written by
+        rank 0 alone under data parallelism)."""
         path = self._path(directory, ".pt")
-        torch.save(self.model.state_dict(), path)
+        if self.is_writer:
+            torch.save(self.model.state_dict(), path)
         return path
 
     def load(self, directory: str) -> None:
@@ -557,8 +621,11 @@ class NextFramePredictorS2S:
 
     def save_checkpoint(self, directory: str) -> str:
         """Resume state: weights, optimizer state and epoch,
-        ``<directory>/<experiment_name>_ckpt.pt``."""
+        ``<directory>/<experiment_name>_ckpt.pt`` (rank 0 alone under data
+        parallelism)."""
         path = self._path(directory, "_ckpt.pt")
+        if not self.is_writer:
+            return path
         torch.save({"model": self.model.state_dict(),
                     "optimizer": self.optimizer.state_dict(),
                     "epoch": self._epoch}, path)

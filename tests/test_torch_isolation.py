@@ -41,7 +41,10 @@ def test_port_has_modules_to_scan():
             "graph/static.py", "models/mpnnlstm.py", "eval/plotting.py",
             "utils/normalize.py", "data/netcdf_io.py", "data/loader.py", "eval/results.py",
             "eval/ports.py", "eval/mesh_design.py", "eval/trace_summary.py",
-            "models/cnnlstm.py", "train/cnn_predictor.py"} <= names
+            "models/cnnlstm.py", "train/cnn_predictor.py", "parallel/mesh.py",
+            "parallel/dp.py", "parallel/sweep.py", "cli/ice_exp.py", "cli/ice_exp_nwt.py",
+            "cli/ice_exp_cnnlstm.py", "cli/ice_inf.py", "cli/ice_profile.py",
+            "cli/mnist_demo.py", "native_ext.py", "utils/draws.py"} <= names
 
 
 def test_chip_scripts_import_no_optional_packages_at_the_top():
@@ -66,7 +69,7 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_kernel_sources_are_in_the_package():
-    for source in ("spmm.cu", "attn.cu", "grid_attn.cu"):
+    for source in ("spmm.cu", "attn.cu", "grid_attn.cu", "segment.cu", "qtm_host.cpp"):
         assert (PORT / "csrc" / source).is_file()
     assert (PORT / "data" / "digit_sprites.npz").is_file()
 

@@ -1505,3 +1505,39 @@ def test_attn_kernels_on_a_shared_mesh(card, heads, d, ragged, dropout):
                           attn.attn_bwd_plain(q, k, v, we, keep, one, dims, g)):
         err = float((a - p).abs().max())
         assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_data_parallel_step_on_the_card(card, tmp_path, backend, world):
+    """``NextFramePredictorS2S(dp_devices=N)`` on the card
+    (``tests/test_torch_parallel.py``'s scenarios with attention dropout on
+    the windows and without dropout): two gloo ranks sharing the card
+    within that file's tolerances of the one-process step on the card (the
+    gradients also at the port's gradient tolerance, ≤1e-4 × max(1,
+    max|g|)), and one NCCL rank bit for bit."""
+    import torch_dp_workers as w
+    from quadtree_mpnnlstm_tpu_torch.parallel import dp
+
+    names = ["full_bptt", "dropout_windows"]
+    got = dp.launch(w.card_worker, world, backend=backend,
+                    device="cuda:0" if backend == "gloo" else None,
+                    args=(names, str(tmp_path)), timeout=600)
+    for name in names:
+        pred = w.make_predictor(name, str(tmp_path / "one"), 1, "cuda:0")
+        pred.initiate_training(lr=0.01, lr_decay=0.95)
+        grads, losses = [], []
+        for x, y in w.batches():
+            loss, _ = pred.train_step(x, y, **w.SCENARIOS[name][3])
+            losses.append(float(loss))
+            grads.append(w.flat_grads(pred).cpu().numpy())
+        params = w.flat_params(pred).cpu().numpy()
+        g = got[name]
+        assert g["replicas_equal"]
+        if world == 1:
+            assert g["losses"] == losses
+            assert np.array_equal(g["params"], params)
+            continue
+        np.testing.assert_allclose(g["losses"], losses, rtol=1e-5)
+        for a, b in zip(g["grads"], grads):  # the port's gradient tolerance
+            assert np.abs(a - b).max() <= 1e-4 * max(1.0, np.abs(b).max())
+        w.hold_to_one_process(g, grads, params, [p.numel() for p in pred.model.parameters()])
