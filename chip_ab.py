@@ -28,7 +28,20 @@ TransformerConv model, each in f32 and bf16 (as ``chip_smoke.py`` phases
 quadtree meshes built from the Moving-MNIST frames (phase 27b,
 ``k7_mesh_sets``: F 1, 3, 16 in f32 and bf16); each set bit-identical to
 the entry-ordered sum, timed by CUDA graph and by events beside its bound
-and ``index_add_`` (``k7_measure``). With ``--preset heterogeneous`` or
+and ``index_add_`` (``k7_measure``). With ``--workload k2`` the block
+product K2 and its backward K2b alone (``k2_sets``): on the operands of a
+forecast (K2 at each width of the first decoder step) and a train step
+(K2b at each width) of the ChebConv and the GCNConv model in f32 and bf16
+(phases 3, 7, 27 and 43), and of a shared-mesh train step in f32 at batch
+16 and bf16 at batch 32 (phase 55); each set timed by CUDA graph and by
+events beside its bound, ``torch.sparse.mm`` (by graph), in bf16 the f32
+kernel on the same operands, and, where the tree has it, the row-a-warp
+yardstick kernel, which it must equal bit for bit; each set's inputs and
+output digested (sha256), so that ``--against FILE`` (an earlier run's
+output) holds this run's outputs to that run's bit for bit, set by set
+(exit 1 if any differ). ``k2_means`` averages each path's sets, weighted
+by their calls; ``--summarize RUN.json ...`` prints them for earlier runs
+side by side, without a card. With ``--preset heterogeneous`` or
 ``homogeneous`` the JAX package's sea-ice experiment 9 or 10 (phases
 50-51: the flagship's model on that preset mesh, a forecast and a
 full-BPTT step under remat full unless ``--remat`` says otherwise), and
@@ -41,14 +54,15 @@ batch (default 16), ``--shared-mesh`` trains it on one mesh a step
 builds the quadtree paths' and the ice-quadtree model's edge lists
 without a sort (``bench.py --adjacency csum``; phase 56).
 
-    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7]
+    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2]
                        [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
                        [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
                        [--preset heterogeneous|homogeneous]
                        [--remesh-input] [--remesh-every N]
                        [--batch N] [--shared-mesh] [--adjacency sort|csum]
-                       [--tree DIR] [--reps 5] [--seed 0]
+                       [--tree DIR] [--against FILE] [--reps 5] [--seed 0]
+    python3 chip_ab.py --summarize RUN.json [RUN.json ...]
 
 ``--tree`` imports the port's package from another checkout, for example a
 parent commit unpacked into a git-ignored directory, so that one script
@@ -93,7 +107,7 @@ def _timed(fn, reps: int) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree",
-                        choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7"))
+                        choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7", "k2"))
     parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv",
                                                "MHTransformerConv", "GATConv", "GATv2Conv"),
                         help="time only this model of the quadtree paths (default: ChebConv "
@@ -120,15 +134,25 @@ def main() -> int:
                         help="edge-list builder of the quadtree meshes (--workload "
                              "quadtree|ice-quadtree)")
     parser.add_argument("--tree", default=HERE)
+    parser.add_argument("--summarize", nargs="+", metavar="RUN",
+                        help="print the k2_means of earlier --workload k2 runs and exit")
+    parser.add_argument("--against",
+                        help="an earlier --workload k2 run's output: hold this run's K2 and K2b "
+                             "outputs to it bit for bit")
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
+    if args.summarize:
+        print(json.dumps({run: k2_means(_last_k2_run(run)["k2_sets"]) for run in args.summarize}))
+        return 0
     if args.remat is None:  # the presets train at full BPTT: remat full
         args.remat = "full" if args.preset else "none"
     if args.per_gate and args.workload not in ("ice", "ice-xla"):
         parser.error("--per-gate is bench.py's default on the pixelwise meshes "
                      "(--workload ice|ice-xla)")
-    if args.conv and args.workload in ("ice-quadtree", "k7"):
+    if args.against and args.workload != "k2":
+        parser.error("--against compares --workload k2 runs")
+    if args.conv and args.workload in ("ice-quadtree", "k7", "k2"):
         parser.error(f"--workload {args.workload} has its own convolutions")
     if args.preset and (args.workload != "quadtree" or args.conv or args.per_gate):
         parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
@@ -173,11 +197,13 @@ def main() -> int:
         _time_ice(cs, args, run_dir.name, result)
     elif args.workload == "k7":
         _time_k7(cs, args, run_dir.name, result)
+    elif args.workload == "k2":
+        _time_k2(cs, args, run_dir.name, result)
     else:
         _time_quadtree(cs, args, run_dir.name, result)
     print(json.dumps(result), flush=True)
     run_dir.cleanup()
-    return 0
+    return 1 if result.get("against", {}).get("bit_identical") is False else 0
 
 
 def _record(result: dict, name: str, samples: list) -> None:
@@ -253,6 +279,148 @@ def _time_k7(cs, args, run_dir: str, result: dict) -> None:
             del model, trainer, seg_f, seg_t, sets
             torch.cuda.empty_cache()
     result["k7_mesh_sets"] = cs.k7_mesh_sets(segment_sum, x, args.seed)
+
+
+def _digest(*xs) -> str:
+    """sha256 of the tensors' bytes (the first 32 hex digits)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for x in xs:
+        h.update(x.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:32]
+
+
+def k2_measure(cs, spmm, name: str, kernel: str, calls: int, args) -> dict:
+    """One K2 (``kernel`` "spmm_apply") or K2b ("spmm_apply_bwd") operand
+    set: the kernel against ``apply_plain`` (f32 within ``K2_TOL``, bf16
+    within one rounding), repeated bit for bit and, where the tree has the
+    row-a-warp yardstick, equal to it bit for bit; graph and event times
+    beside the bound (``k2_shared_bound_ms`` on a shared mesh),
+    ``torch.sparse.mm`` of Â by z (on a shared mesh by the batch folded
+    into the features), in bf16 the f32 kernel on the same operands; the
+    digests of the inputs and the output."""
+    import torch
+
+    z, s0, blocks, live, n_max, nt, sw = args
+    b, f = z.shape[0], z.shape[-1]
+    launch = spmm._apply_cuda if kernel == "spmm_apply" else spmm._apply_bwd_cuda
+    with torch.no_grad():
+        out, plain = launch(*args), spmm.apply_plain(*args)
+        again = launch(*args)
+    err = float((out.float() - plain.float()).abs().max())
+    scale = max(1.0, float(plain.float().abs().max()))
+    bf16 = z.dtype == torch.bfloat16
+    cs.check(err <= (cs.BF16_TOL * scale if bf16 else cs.K2_TOL),
+             f"{name}: {kernel} differs from its plain version by {err}")
+    shared = s0.shape[0] == 1 and b > 1
+    bound_fn = cs.k2_shared_bound_ms if shared else cs.k2_bound_ms
+    bound, b_ms, o_ms = bound_fn(s0, blocks, live, n_max, nt, sw, f, b)
+    folded = z.permute(1, 0, 2).reshape(1, n_max, b * f).contiguous() if shared else z
+    library, refused = cs._library_spmm(s0, blocks, n_max, nt, sw, folded)
+    row = dict(set=name, kernel=kernel, dtype=str(z.dtype).replace("torch.", ""), batch=b, F=f,
+               shared_mesh=shared, calls=calls, live_tiles=int(live.long().sum()),
+               max_abs_err=err, err_rel_to_max=err / scale,
+               repeat_bit_identical=bool(torch.equal(out, again)),
+               ms=cs.graph_ms(lambda: launch(*args)), events_ms=cs.cuda_ms(lambda: launch(*args)),
+               bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
+               bound_by="bytes" if b_ms >= o_ms else "operations", library_refused=refused,
+               input_sha=_digest(z, s0, blocks, live), output_sha=_digest(out))
+    if library is not None:
+        row.update(cs.library_times(library))
+    if bf16:
+        f32_args = (z.float(), s0, blocks.float()) + tuple(args[3:])
+        row["f32_ms"] = cs.graph_ms(lambda: launch(*f32_args))
+    if hasattr(spmm, "_apply_rowwarp_cuda"):
+        row.update(cs.rowwarp_times(spmm, args, out, f"{name} {kernel}"))
+    cs.check(row["repeat_bit_identical"], f"{name}: two launches of {kernel} differ")
+    return row
+
+
+def _last_k2_run(path: str) -> dict:
+    """The last JSON line with ``k2_sets`` of a ``--workload k2`` run's output."""
+    with open(path) as fh:
+        return next(json.loads(ln) for ln in reversed(fh.read().splitlines())
+                    if ln.startswith("{") and "k2_sets" in ln)
+
+
+def k2_means(rows: list) -> dict:
+    """Per path (a set's name without its width) and kernel, each number of
+    its sets averaged with the sets' calls as weights: graph and event
+    times, the bound, the library call, the f32 kernel on the same operands
+    and the row-a-warp kernel, where the sets have them."""
+    groups = {}
+    for r in rows:
+        groups.setdefault(f"{r['set'].rsplit('_F', 1)[0]} {r['kernel']}", []).append(r)
+    out = {}
+    for key, rs in groups.items():
+        n = sum(r["calls"] for r in rs)
+        out[key] = {"calls": n, "widths": [r["F"] for r in rs]}
+        for k in ("ms", "events_ms", "bound_ms", "library_ms", "library_events_ms", "f32_ms",
+                  "rowwarp_ms", "rowwarp_events_ms"):
+            if all(r.get(k) is not None for r in rs):
+                out[key][k] = sum(r["calls"] * r[k] for r in rs) / n
+    return out
+
+
+def _time_k2(cs, args, run_dir: str, result: dict) -> None:
+    """K2 and K2b per operand set (``k2_sets``), then ``--against``."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+    from quadtree_mpnnlstm_tpu_torch.ops import spmm
+
+    ds = ModMovingMNISTDataset(
+        cs.BATCH, input_timesteps=cs.T_IN, output_timesteps=cs.T_OUT, canvas_size=cs.CANVAS,
+        digit_size=cs.DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=args.seed)
+    x = torch.as_tensor(ds.x, device=cs.DEVICE)
+    _, batches = cs.train_batches(args.seed, 1)
+    rows = []
+    for conv in ("ChebConv", "GCNConv"):
+        for dtype in ("float32", "bfloat16"):
+            model = cs.make_model(args.seed, run_dir, conv, dtype=dtype)
+            cfg = model.cfg
+            k = 2 if conv == "ChebConv" else 1  # Â·z a conv layer (ChebConv: K = 3 taps)
+            with cs.Capture(spmm, cs.T_IN * cfg.n_layers * cfg.n_conv_layers * k,
+                            (cfg.n_layers + 2) * k) as cap:
+                model.forecast(x)
+            trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=dtype)
+            with cs.CaptureBwd(spmm, "_apply_bwd_cuda") as cap_b:
+                trainer.train_step(*batches[0])
+            path = f"{conv}_{dtype}"
+            rows += [k2_measure(cs, spmm, f"{path}_F{f}", "spmm_apply", cap.per_width[f], a)
+                     for f, a in cap.operands().items()]
+            rows += [k2_measure(cs, spmm, f"{path}_F{f}", "spmm_apply_bwd", cap_b.per_width[f], a)
+                     for f, a in sorted(cap_b.first.items())]
+            del model, trainer, cap, cap_b
+            torch.cuda.empty_cache()
+    for dtype, batch in (("float32", cs.BATCH), ("bfloat16", 32)):
+        trainer = cs.make_trainer(args.seed, run_dir, dtype=dtype, remat="full",
+                                  shared_mesh=True)
+        xb, yb = cs.shared_batches(args.seed, batch, 1)[0]
+        with cs.CaptureBwd(spmm, "_apply_cuda") as fwd, \
+                cs.CaptureBwd(spmm, "_apply_bwd_cuda") as bwd:
+            trainer.train_step(xb, yb)
+        for kernel, cap in (("spmm_apply", fwd), ("spmm_apply_bwd", bwd)):
+            rows += [k2_measure(cs, spmm, f"shared_{dtype}_b{batch}_F{f}", kernel,
+                                cap.per_width[f], a) for f, a in sorted(cap.first.items())]
+        del trainer, fwd, bwd
+        torch.cuda.empty_cache()
+    result["k2_sets"] = rows
+    result["k2_means"] = k2_means(rows)
+    if args.against:
+        other = _last_k2_run(args.against)
+        theirs = {(r["set"], r["kernel"]): r for r in other["k2_sets"]}
+        keys = [(r["set"], r["kernel"]) for r in rows]
+        inputs = all(k in theirs and theirs[k]["input_sha"] == r["input_sha"]
+                     for k, r in zip(keys, rows))
+        differ = [k for k, r in zip(keys, rows)
+                  if k not in theirs or theirs[k]["output_sha"] != r["output_sha"]]
+        result["against"] = dict(file=args.against, tree=other.get("tree"), sets=len(rows),
+                                 inputs_identical=inputs, bit_identical=inputs and not differ,
+                                 differing=differ)
 
 
 def _time_ice(cs, args, run_dir: str, result: dict) -> None:

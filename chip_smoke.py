@@ -21,7 +21,11 @@ Phases (each prints one line; any failure raises and exits non-zero):
    the z of every width F the path uses): K1 exact, K2 ≤1e-5; times
    each kernel by CUDA graph (``ms``: 20 calls captured in one graph, the
    card's own time) and by CUDA events (``events_ms``: with the host's
-   launches), the plain version and the library call by events;
+   launches), the plain version by events and the library call by graph
+   where torch lets it be captured (``library_timing`` says how). K2 and
+   K2b (here and in phases 7, 12b, 27, 43 and 55) must also equal the
+   row-a-warp kernel they replaced (``csrc/spmm_rowwarp.cu``) bit for bit,
+   whose times stand beside theirs (``rowwarp_ms``);
 4. the whole rollout again with the plain versions on the card: the first
    decoder step's meshes must be identical, and frames must agree to
    ≤1e-4 up to the first step where a sample's mesh differs (a quadtree
@@ -1245,8 +1249,9 @@ def train_phases(seed: int, card: str, spmm, segment_sum, cfg, nt: int, sw: int,
             F=f, calls=cap_b.per_width[f], max_abs_err=err, live_tiles=int(live.long().sum()),
             ms=graph_ms(lambda: spmm._apply_bwd_cuda(*bargs)),
             events_ms=cuda_ms(lambda: spmm._apply_bwd_cuda(*bargs)),
+            **rowwarp_times(spmm, bargs, kern, f"K2b at F={f}"),
             plain_ms=cuda_ms(lambda: spmm.apply_plain(*bargs)),
-            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, gf)),
+            **library_times(lambda: torch.sparse.mm(csr, gf)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
         ))
     check(sum(w["calls"] for w in bwd_widths) == want["spmm_apply_bwd"],
@@ -1519,14 +1524,20 @@ def capacity_phase(seed: int, card: str, spmm, attn) -> dict:
     for i, a in enumerate(k1.calls):
         check(torch.equal(spmm._build_blocks_cuda(*a), spmm.build_blocks_plain(*a)),
               f"K1 differs from its plain version on near-capacity mesh {i}")
+    errs, rowwarp_same = {}, True
     with torch.no_grad():
-        k2_err = max(float((spmm._apply_cuda(*a) - spmm.apply_plain(*a)).abs().max())
-                     for a in k2.calls)
-        k2b_err = max(float((spmm._apply_bwd_cuda(*a) - spmm.apply_plain(*a)).abs().max())
-                      for a in k2b.calls)
+        for name, rec, launch in (("k2", k2, spmm._apply_cuda),
+                                  ("k2b", k2b, spmm._apply_bwd_cuda)):
+            errs[name] = 0.0
+            for a in rec.calls:
+                out = launch(*a)
+                errs[name] = max(errs[name], float((out - spmm.apply_plain(*a)).abs().max()))
+                rowwarp_same &= torch.equal(out, spmm._apply_rowwarp_cuda(*a))
+    k2_err, k2b_err = errs["k2"], errs["k2b"]
     check(k2_err <= K2_TOL and k2b_err <= K2_TOL,
           f"K2 / K2b differ from the plain product on near-capacity windows: {k2_err}, "
           f"{k2b_err}")
+    check(rowwarp_same, "K2 / K2b differ from the row-a-warp kernel on near-capacity windows")
     k2_calls, k2b_calls = len(k2.calls), len(k2b.calls)
     del trainer, k1, k2, k2b
 
@@ -1563,6 +1574,7 @@ def capacity_phase(seed: int, card: str, spmm, attn) -> dict:
                   decoder_source_spread=[f[1] for f in fills[1:meshes]],
                   k1_builds=meshes, k1_exact=True, k2_calls=k2_calls, k2_max_abs_err=k2_err,
                   k2b_calls=k2b_calls, k2b_max_abs_err=k2b_err,
+                  k2_k2b_rowwarp_bit_identical=rowwarp_same,
                   k3_calls=len(k3.calls), k3_max_abs_err=k3_err,
                   k4_calls=len(k4.calls), k4_max_err_rel=k4_rel)
     print(json.dumps(result), flush=True)
@@ -1585,12 +1597,44 @@ def _library_spmm(s0, blocks, n_max, nt, sw, z):
     return (lambda: torch.sparse.mm(csr, zf)), None
 
 
+def library_times(fn) -> dict:
+    """A PyTorch call's time (the library yardstick), by CUDA graph as the
+    kernels are timed where torch lets the call be captured, and by
+    events; where capture is refused, ``library_ms`` is the events' time
+    and ``library_timing`` says why."""
+    import torch
+
+    events = cuda_ms(fn)
+    try:
+        return dict(library_ms=graph_ms(fn), library_events_ms=events, library_timing="graph")
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        return dict(library_ms=events, library_events_ms=events,
+                    library_timing="events; capture refused: " + str(exc).splitlines()[0][:160])
+
+
+def rowwarp_times(spmm, args, out, what: str) -> dict:
+    """The row-a-warp K2 that the staged kernel replaced
+    (``spmm._apply_rowwarp_cuda``, its yardstick) on the same operands:
+    checks that ``out`` equals its output bit for bit, and times it by
+    graph and events."""
+    import torch
+
+    with torch.no_grad():
+        same = torch.equal(out, spmm._apply_rowwarp_cuda(*args))
+    check(same, f"{what} differs from the row-a-warp kernel's output")
+    return dict(rowwarp_ms=graph_ms(lambda: spmm._apply_rowwarp_cuda(*args)),
+                rowwarp_events_ms=cuda_ms(lambda: spmm._apply_rowwarp_cuda(*args)),
+                rowwarp_bit_identical=same)
+
+
 def _spmm_width(spmm, args, calls, fn, n_max, nt, sw):
     """K2 (or K2b, ``fn``) against ``apply_plain`` on one width's operands:
-    in bf16 within one bf16 rounding, in f32 within ``K2_TOL``; timed by
-    graph and events beside its bound, its plain version and
-    ``torch.sparse.mm``, and in bf16 the f32 kernel's time on the same
-    operands in f32 (``f32_ms``, by graph)."""
+    in bf16 within one bf16 rounding, in f32 within ``K2_TOL``, and bit
+    for bit the row-a-warp kernel; timed by graph and events beside its
+    bound, its plain version, ``torch.sparse.mm`` (:func:`library_times`),
+    the row-a-warp kernel (:func:`rowwarp_times`) and in bf16 the f32
+    kernel's time on the same operands in f32 (``f32_ms``, by graph)."""
     import torch
 
     z, s0, blocks, live = args[:4]
@@ -1608,9 +1652,11 @@ def _spmm_width(spmm, args, calls, fn, n_max, nt, sw):
     return dict(F=f, calls=calls, max_abs_err=err, err_rel_to_max=err / scale,
                 bit_identical=bool((kern == plain).all()), live_tiles=int(live.long().sum()),
                 ms=graph_ms(lambda: fn(*args)), events_ms=cuda_ms(lambda: fn(*args)),
+                **rowwarp_times(spmm, args, kern, f"{z.dtype} K2 at F={f}"),
                 f32_ms=graph_ms(lambda: fn(*f32_args)) if bf16 else None,
                 plain_ms=cuda_ms(lambda: spmm.apply_plain(*args)),
-                library_ms=None if library is None else cuda_ms(library),
+                **(library_times(library) if library is not None else
+                   dict(library_ms=None, library_events_ms=None, library_timing=None)),
                 library_refused=refused, bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms)
 
 
@@ -1899,9 +1945,11 @@ def bf16_phases(seed: int, card: str, spmm, segment, segment_sum, loader, x):
     k7_ws = [w for w in k7_sets if w["calls"]]
     return [k1_entry,
             entry("spmm_apply", "spmm.cu", f"{pallas}:322", widths,
+                  rowwarp_ms=mean(widths, "rowwarp_ms"),
                   library_refused=sorted({w["library_refused"] for w in widths
                                           if w["library_refused"]})),
             entry("spmm_apply_bwd", "spmm.cu", f"{pallas}:363-365", bwd,
+                  rowwarp_ms=mean(bwd, "rowwarp_ms"),
                   library_refused=sorted({w["library_refused"] for w in bwd
                                           if w["library_refused"]})),
             entry("segment_sum", "segment.cu", "quadtree_mpnnlstm_tpu/ops/pallas_segment.py:87",
@@ -5350,8 +5398,10 @@ def item9_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
                     name=name, dtype=dtype, batch=batch, F=f, folded_width=batch * f,
                     calls=cap.per_width[f], max_abs_err=err,
                     ms=graph_ms(lambda: launch(*args)), events_ms=cuda_ms(lambda: launch(*args)),
+                    **rowwarp_times(spmm, args, kern, f"{name} on shared blocks at F={f}"),
                     plain_ms=cuda_ms(lambda: spmm.apply_plain(*args)),
-                    library_ms=None if library is None else cuda_ms(library),
+                    **(library_times(library) if library is not None else
+                       dict(library_ms=None, library_events_ms=None, library_timing=None)),
                     library_refused=refused, bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
         del trainer, fwd, bwd
         torch.cuda.empty_cache()
@@ -6673,8 +6723,9 @@ def main() -> int:
             live_tiles=int(live.long().sum()),
             ms=graph_ms(lambda: spmm._apply_cuda(*aargs)),
             events_ms=cuda_ms(lambda: spmm._apply_cuda(*aargs)),
+            **rowwarp_times(spmm, aargs, kern, f"K2 at F={f}"),
             plain_ms=cuda_ms(lambda: spmm.apply_plain(*aargs)),
-            library_ms=cuda_ms(lambda: torch.sparse.mm(csr, zf)),
+            **library_times(lambda: torch.sparse.mm(csr, zf)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
         ))
     check(sorted(w["F"] for w in widths) == sorted(cap.per_width), "a width was not checked")
@@ -6772,16 +6823,16 @@ def main() -> int:
              replaces="quadtree_mpnnlstm_tpu/ops/pallas_spmm.py:322",
              launches=train_launches["spmm_apply"],
              max_abs_err=max(w["max_abs_err"] for w in widths),
-             ms=mean("ms"), events_ms=mean("events_ms"), plain_ms=mean("plain_ms"),
-             bound_ms=mean("bound_ms"),
+             ms=mean("ms"), events_ms=mean("events_ms"), rowwarp_ms=mean("rowwarp_ms"),
+             plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
              bound_by="bytes" if mean("bytes_ms") >= mean("ops_ms") else "operations",
              library_ms=mean("library_ms"), launches_by_path=by_path("spmm_apply")),
         dict(name="spmm_apply_bwd", route="cuda", source=source,
              replaces="quadtree_mpnnlstm_tpu/ops/pallas_spmm.py:363-365",
              launches=train_launches["spmm_apply_bwd"],
              max_abs_err=max(w["max_abs_err"] for w in bwd_widths),
-             ms=mean_b("ms"), events_ms=mean_b("events_ms"), plain_ms=mean_b("plain_ms"),
-             bound_ms=mean_b("bound_ms"),
+             ms=mean_b("ms"), events_ms=mean_b("events_ms"), rowwarp_ms=mean_b("rowwarp_ms"),
+             plain_ms=mean_b("plain_ms"), bound_ms=mean_b("bound_ms"),
              bound_by="bytes" if mean_b("bytes_ms") >= mean_b("ops_ms") else "operations",
              library_ms=mean_b("library_ms"), launches_by_path=by_path("spmm_apply_bwd")),
     ]

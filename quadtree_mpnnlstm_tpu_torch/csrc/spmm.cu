@@ -16,34 +16,61 @@
 // same source in slot order and stores the sum; no bf16 atomics.
 //
 // K2 qtm_spmm_apply replaces the forward of spmm_apply (_spmm_impl /
-// _apply_kernel), and K2b launches it on the cotangent (Â is symmetric).
-// out[t*NT + r, f] = sum_s blocks[t][r][s] * z[s0[t] + s, f], accumulated in
-// f32 with no TF32, as the TPU kernel runs f32 at Precision.HIGHEST. The
-// TPU densifies Â so that its MXU can take the product; here an Â row holds
-// a handful of non-zeros among SW = 1024 columns, so the kernel streams the
-// block (the bytes that bound it) and does only the non-zeros' FMAs. One
-// warp takes one row: 8 warps a CTA, so the 64 live tiles of the main path
-// give 8192 warps, each with its row's 1024 columns in flight as 16-byte
-// loads (4 KiB in f32, 2 KiB in bf16). Rows of the source window at or past
-// n_max read as zero, so z is not padded. Bound: the bytes of the Â blocks
-// of the live tiles. Dead tiles write zeros without reading the block. The
-// bf16 path (qtm_spmm_apply_bf16) takes bf16 blocks and z, as the TPU
-// kernel's bf16 operands, reads the block as 8 values in 16 bytes and z as
-// bf16 pairs in 4 bytes where a lane keeps two or more features (one bf16
-// at F <= 32, as in f32: a lane's pair there left three quarters of the
-// warp idle and took 1.3x the f32 kernel's time), multiplies and adds in
-// f32 (a bf16 product is exact in f32) and rounds each output once on the
-// store.
+// _apply_kernel), and K2b launches it on the cotangent (Â is symmetric):
+// out[b, t*NT + r, f] = sum_s blocks[m, t, r, s] * z[b, s0[m, t] + s, f],
+// accumulated in f32 with no TF32, as the TPU kernel runs f32 at
+// Precision.HIGHEST; m = b on a mesh a sample, m = 0 on a shared mesh
+// (TrainConfig.shared_mesh: blocks, s0 and live of batch 1). The TPU
+// densifies Â so that its MXU can take the product; here an Â row holds a
+// handful of non-zeros among SW = 1024 columns, so the kernel streams the
+// blocks (the bytes that bound it) and does only the non-zeros' FMAs.
+//
+// One CTA of 8 warps takes a unit: a slab of R rows of a tile, with every
+// output column those rows feed: the F features of its sample on a mesh
+// a sample, and on a shared mesh all B*F columns of the batch folded into
+// the features (column j is sample j / F, feature j mod F, as the JAX
+// package folds the batch), z and out addressed in place through their
+// batch stride. So each Â row is read once a call, whatever the width,
+// the type or the batch's mesh sharing. The CTA
+//  1. stages its R rows in shared memory with one bulk asynchronous copy
+//     (cp.async.bulk, completing on an mbarrier): the bytes in flight are
+//     a CTA's (R*SW*size, at most 32 KiB), not a warp's registers;
+//  2. compacts each row once (a warp a row), in ascending column order,
+//     into (column, value) entries in its share of a pool of 512 entries
+//     (64 a row at R = 8; a warp scan a chunk of 32 16-byte vectors, the
+//     chunks without a non-zero skipped by a ballot);
+//  3. walks the lists for every output column: a thread takes one row's
+//     VZ consecutive columns (one load of z of up to 16 bytes a list
+//     entry, 8 entries' loads in flight), a row's columns on consecutive
+//     threads, so narrow widths fill a warp with rows and no lane idles.
+//     Each output is one fmaf chain over the row's non-zeros in ascending
+//     column order, as a dense sweep's: a zero entry would add a * z = +-0
+//     and change nothing (for finite z), so skipping it keeps the dense
+//     result bit for bit. bf16 values are widened exactly and each output
+//     rounded once on the store.
+// R is at most 8 rows (a warp a row in step 2) and no more rows than the
+// 256 threads walk at once in step 3, so a unit's latency is one copy, one
+// pass over the staged rows, one barrier and one walk; at the main path's
+// widths that is 8 rows, and on a shared mesh at batch 16-32 1 to 4 rows
+// of 256-4096 columns.
+// A row whose list does not fit its share is walked from its staged copy
+// instead, in the same order (slower: a quadtree node of the configured
+// meshes, max_grid_size 8, has at most 36 neighbours). Where a row's outputs take 512 bytes or more (f32 at F 128, a
+// shared mesh's fold), z and out are large next to the blocks, and the bulk
+// copy asks the L2 to give the blocks' lines up first, as they are read
+// once, so that the gathered z rows stay; at narrow widths it does not, so
+// that a mesh's blocks stay for the next Â·z of the step. Rows whose
+// bytes are not whole 16-byte vectors are staged by the threads instead
+// of the bulk copy. Dead tiles (t >= live) write zeros without reading
+// their block; source rows at or past n_max read as zero, so z is not
+// padded. Bound: the bytes of the live tiles' blocks, and at wide folded
+// widths the outputs'.
 //
 // Both kernels take a leading batch axis, one mesh per sample, so one
-// launch serves a whole batch. K2 also takes one mesh for the whole batch
-// (a shared mesh, TrainConfig.shared_mesh): its blocks, s0 and live then
-// have a batch axis of 1, which every sample reads (a metadata batch
-// stride of 0). Each sample's outputs are the same fmaf chains as on a
-// mesh of its own, so the result equals the JAX package's fold of the
-// batch into the feature axis. They launch on the caller's stream, do not
-// synchronise and allocate nothing; each entry point returns
-// cudaGetLastError() so that the Python wrapper raises on a refused launch.
+// launch serves a whole batch; K1 builds a shared mesh's blocks once
+// (batch 1). They launch on the caller's stream, do not synchronise and
+// allocate nothing; each entry point returns cudaGetLastError() so that
+// the Python wrapper raises on a refused launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,13 +92,11 @@ struct Elem<float> {
   static constexpr int kVec = 4;
   static __device__ __forceinline__ float to_f(float x) { return x; }
   static __device__ __forceinline__ float from_f(float x) { return x; }
-  // the kVec values of the 16 bytes at p, streamed (evict first)
-  static __device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
-    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
-    v[0] = a.x;
-    v[1] = a.y;
-    v[2] = a.z;
-    v[3] = a.w;
+  static __device__ __forceinline__ void unpack(const uint4& a, float (&v)[4]) {
+    v[0] = __uint_as_float(a.x);
+    v[1] = __uint_as_float(a.y);
+    v[2] = __uint_as_float(a.z);
+    v[3] = __uint_as_float(a.w);
   }
 };
 
@@ -80,8 +105,7 @@ struct Elem<bf16> {
   static constexpr int kVec = 8;
   static __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
   static __device__ __forceinline__ bf16 from_f(float x) { return __float2bfloat16_rn(x); }
-  static __device__ __forceinline__ void load_vec(const bf16* p, float (&v)[8]) {
-    const uint4 a = __ldcs(reinterpret_cast<const uint4*>(p));
+  static __device__ __forceinline__ void unpack(const uint4& a, float (&v)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&a);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -143,191 +167,286 @@ build_blocks_kernel(const int* __restrict__ src_rel, const int* __restrict__ dst
   }
 }
 
-constexpr int kApplyWarps = 8;  // Â rows a CTA, one a warp
-constexpr int kApplyThreads = 32 * kApplyWarps;
-constexpr int kRowInFlight = 1024;  // columns of a row loaded before any is used
+constexpr int kApplyThreads = 256;  // 8 warps a CTA
+constexpr int kApplyWarps = kApplyThreads / 32;
+constexpr int kMaxRows = 32;  // rows a CTA
+constexpr int kPool = 512;    // list entries a CTA
 constexpr unsigned kFull = 0xffffffffu;
+// K2's dynamic shared memory: the mbarrier, the rows' counts and list
+// offsets, the pool's columns and values, then the staged rows (128-byte
+// aligned). ops/spmm.py apply_plan computes the same layout.
+constexpr int kCountsAt = 16;
+constexpr int kColsAt = kCountsAt + 2 * 4 * kMaxRows;
+constexpr int kValsAt = kColsAt + 4 * kPool;
+constexpr int kStageAt = (kValsAt + 4 * kPool + 127) / 128 * 128;
+constexpr int kMaxSmem = 227 * 1024;  // a CTA's shared memory on sm_90
 
-// K2: one warp per Â row r of a tile (t, sample b). The warp streams the
-// row with 16-byte evict-first loads, kInFlight chunks of 32 kVec columns at
-// a time, and compacts each chunk's non-zeros in ascending column order
-// into a list in shared memory (a warp scan of the lanes' counts); each
-// lane then keeps FPL output features and adds a * z[s0 + s, f] for the
-// list's entries in order, gathering the z rows U at a time so that their
-// loads overlap. A lane's features are f0 + lane + 32 i, except in bf16
-// with FPL >= 2, where they come in pairs, f0 + 2 lane + 64 i + {0, 1},
-// one 4-byte load each (scalar loads when F is odd). Every output is one fmaf chain in
-// ascending column order, as a dense sweep's: a zero entry would add
-// a * z = +-0 and change nothing (for finite z), so skipping it keeps the
-// dense result bit for bit. The row is read once for all of F up to 32 FPL
-// features; wider F takes one pass a chunk of 32 FPL features. Dead tiles
-// (t >= live[b]) write zeros without reading the block; source rows at or
-// past n_max read as zero.
-template <typename T>
-struct ApplyParams {
-  const T* z;        // (B, n_max, F)
-  const T* blocks;   // (M, T, NT, SW), M = B or 1 (a shared mesh)
-  const int* s0;     // (M, T) source-window starts
-  const int* live;   // (M,) live tiles
-  T* out;            // (B, n_max, F)
-  int tiles, NT, SW, n_max, F;
-  int mstride;       // 1: a mesh a sample; 0: one mesh for the batch
-  bool vec;          // SW a multiple of kVec and the blocks 16-byte aligned
-  bool pairs;        // bf16: F even and z, out 4-byte aligned
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one thread: arrive on bar expecting `bytes`, and copy them from global to
+// shared memory, completing on bar (both 16-byte aligned, bytes % 16 == 0);
+// with evict_first the L2 gives the copied lines up before others
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar, bool evict_first) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  if (evict_first) {
+    uint64_t policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(policy));
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+        " [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+        "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned phase) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(phase)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+template <int Bytes>
+struct RawOf;
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned int;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<16> {
+  using type = uint4;
 };
 
-// the P features of a z row starting at f (f < F checked here): one, or a
-// bf16 pair
-template <typename T, int P>
-__device__ __forceinline__ void load_z(const T* zrow, int f, int F, bool in, bool pairs,
-                                       float* v) {
-  if constexpr (P == 1) {
-    v[0] = in && f < F ? Elem<T>::to_f(__ldg(zrow + f)) : 0.f;
-  } else {
-    if (pairs) {
-      float2 x = make_float2(0.f, 0.f);
-      if (in && f < F) x = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(zrow + f)));
-      v[0] = x.x;
-      v[1] = x.y;
-    } else {
-      v[0] = in && f < F ? __bfloat162float(__ldg(zrow + f)) : 0.f;
-      v[1] = in && f + 1 < F ? __bfloat162float(__ldg(zrow + f + 1)) : 0.f;
-    }
+// VZ consecutive values of T, moved as one load or store
+template <typename T, int VZ>
+struct Pack {
+  using Raw = typename RawOf<static_cast<int>(VZ * sizeof(T))>::type;
+  Raw raw;
+  __device__ __forceinline__ void load(const T* p) { raw = __ldg(reinterpret_cast<const Raw*>(p)); }
+  __device__ __forceinline__ float get(int i) const {
+    return Elem<T>::to_f(reinterpret_cast<const T*>(&raw)[i]);
   }
-}
-
-template <typename T, int P>
-__device__ __forceinline__ void store_out(T* orow, int f, int F, bool pairs, const float* v) {
-  if constexpr (P == 1) {
-    if (f < F) orow[f] = Elem<T>::from_f(v[0]);
-  } else {
-    if (pairs) {
-      if (f < F) *reinterpret_cast<__nv_bfloat162*>(orow + f) = __floats2bfloat162_rn(v[0], v[1]);
-    } else {
-      if (f < F) orow[f] = __float2bfloat16_rn(v[0]);
-      if (f + 1 < F) orow[f + 1] = __float2bfloat16_rn(v[1]);
-    }
+  static __device__ __forceinline__ void store(T* p, const float (&v)[VZ]) {
+    alignas(16) T e[VZ];
+#pragma unroll
+    for (int i = 0; i < VZ; ++i) e[i] = Elem<T>::from_f(v[i]);
+    *reinterpret_cast<Raw*>(p) = *reinterpret_cast<const Raw*>(e);
   }
-}
+};
 
-template <typename T, int FPL>
-__global__ void __launch_bounds__(kApplyThreads) apply_kernel(ApplyParams<T> p) {
+template <typename T>
+struct ApplyParams {
+  const T* z;       // (B, n_max, F)
+  const T* blocks;  // (M, T, NT, SW), M = B or 1 (a shared mesh)
+  const int* s0;    // (M, T) source-window starts
+  const int* live;  // (M,) live tiles
+  T* out;           // (B, n_max, F)
+  int tiles, NT, SW, n_max, F;
+  int mstride;  // 1: a mesh a sample (grid z: the sample); 0: one mesh for the batch
+  int fold;     // samples in a unit's columns: B on a shared mesh, else 1
+  int rows;     // R, the Â rows of a unit
+  int stride;   // a staged row's length: SW rounded up to whole 16-byte vectors
+  bool bulk;    // one bulk copy stages the rows (stride == SW, blocks 16-byte aligned)
+  bool wide;    // a row's outputs take 512 bytes or more: the blocks' lines go first
+};
+
+// One CTA a unit: rows [R x, R x + R) of tile y, for sample z (a mesh a
+// sample) or for the whole batch (a shared mesh, grid z = 1).
+template <typename T, int VZ>
+__global__ void __launch_bounds__(kApplyThreads) apply_kernel(const ApplyParams<T> p) {
   using E = Elem<T>;
+  using P = Pack<T, VZ>;
   constexpr int V = E::kVec;
-  constexpr int P = sizeof(T) == 2 && FPL >= 2 ? 2 : 1;  // features a lane loads at once
-  constexpr int kChunk = 32 * V;  // columns of a row a warp reads at once
-  constexpr int kInFlight = kRowInFlight / kChunk;
-  const int T_ = p.tiles, NT = p.NT, SW = p.SW, n_max = p.n_max, F = p.F;
-  constexpr int U = FPL <= 4 ? 8 : 4;  // z rows gathered together
-  __shared__ int list_s[kApplyWarps][kChunk];
-  __shared__ float list_a[kApplyWarps][kChunk];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = blockIdx.x * kApplyWarps + warp;
-  const int t = blockIdx.y, b = blockIdx.z;
-  const int mb = b * p.mstride;  // the sample's mesh
-  const int gr = t * NT + r;
-  if (r >= NT || gr >= n_max) return;  // uniform across the warp; no block barrier
-  T* orow = p.out + (static_cast<long long>(b) * n_max + gr) * F;
-  if (t >= p.live[mb]) {
-    for (int f = lane; f < F; f += 32) orow[f] = E::from_f(0.f);
+  // z loads in flight a thread: 4 at 16-byte bf16 vectors, whose widening
+  // costs registers, else 8
+  constexpr int kGather = sizeof(T) == 2 && VZ == 8 ? 4 : 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  int* cnt = reinterpret_cast<int*>(smem + kCountsAt);  // a row's non-zeros
+  int* off = cnt + kMaxRows;  // a row's first pool entry; -1: its list does not fit
+  int* lcol = reinterpret_cast<int*>(smem + kColsAt);
+  float* lval = reinterpret_cast<float*>(smem + kValsAt);
+  T* stage = reinterpret_cast<T*>(smem + kStageAt);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int NT = p.NT, SW = p.SW, n_max = p.n_max, F = p.F, W = p.fold * F;
+  const int t = blockIdx.y, mb = blockIdx.z * p.mstride, b0 = blockIdx.z * p.fold;
+  const int r0 = blockIdx.x * p.rows, g0 = t * NT + r0;
+  const int nr = min(p.rows, min(NT - r0, n_max - g0));  // rows with outputs
+  if (nr <= 0) return;  // uniform across the CTA, as every branch below
+  const long long bs = static_cast<long long>(n_max) * F;  // batch stride of z and out
+  T* const out = p.out + b0 * bs + static_cast<long long>(g0) * F;
+  const int start = p.s0[mb * p.tiles + t];  // loaded beside live, used in step 3
+  if (t >= p.live[mb]) {  // a dead tile: zeros, its block unread
+    const int per = nr * F / VZ;  // vectors a sample
+    for (int i = tid; i < p.fold * per; i += kApplyThreads) {
+      const int s = i / per;
+      *reinterpret_cast<typename P::Raw*>(out + s * bs + static_cast<long long>(i - s * per) * VZ) =
+          typename P::Raw{};
+    }
     return;
   }
-  const T* arow = p.blocks + ((static_cast<long long>(mb) * T_ + t) * NT + r) * SW;
-  const T* Z = p.z + static_cast<long long>(b) * n_max * F;
-  const int start = p.s0[mb * T_ + t];
-  int* ls = list_s[warp];
-  float* la = list_a[warp];
 
-  for (int f0 = 0; f0 < F; f0 += 32 * FPL) {
-    float acc[FPL];
+  // 1. stage the unit's rows
+  const int stride = p.stride;
+  const long long row0 = (static_cast<long long>(mb) * p.tiles + t) * NT + r0;
+  const T* src = p.blocks + row0 * SW;
+  if (p.bulk) {
+    if (tid == 0) {
+      mbar_init(bar, 1);
+      bulk_load(stage, src, static_cast<unsigned>(nr * SW * sizeof(T)), bar, p.wide);
+    }
+    __syncthreads();  // the barrier is initialised before anyone waits on it
+    mbar_wait(bar, 0);
+  } else {
+    for (int i = tid; i < nr * stride; i += kApplyThreads) {
+      const int r = i / stride, c = i - r * stride;
+      stage[i] = c < SW ? src[static_cast<long long>(r) * SW + c] : E::from_f(0.f);
+    }
+    __syncthreads();
+  }
+
+  // 2. compact each row once (a warp a row) into its share of the pool
+  const int nvec = stride / V;
+  const int seg = kPool / nr;  // a row's share of the pool
+  for (int r = warp; r < nr; r += kApplyWarps) {
+    const uint4* row = reinterpret_cast<const uint4*>(stage + r * stride);
+    int n = 0;
+    bool over = false;
+    for (int v0 = 0; v0 < nvec; v0 += 32) {
+      const int v = v0 + lane;
+      float a[V];
+      if (v < nvec) {
+        E::unpack(row[v], a);
+      } else {
 #pragma unroll
-    for (int i = 0; i < FPL; ++i) acc[i] = 0.f;
-    int n = 0;  // entries in the list, uniform across the warp
-    // acc += the list's terms in order; empties the list
-    const auto flush = [&]() {
-      __syncwarp();
-      for (int k0 = 0; k0 < n; k0 += U) {
-        float zv[U][FPL], av[U];
+        for (int i = 0; i < V; ++i) a[i] = 0.f;
+      }
+      int c = 0;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const bool ok = k0 + u < n;
-          av[u] = ok ? la[k0 + u] : 0.f;
-          const int zr = start + (ok ? ls[k0 + u] : 0);
-          const bool in = ok && zr < n_max;
-          const T* zrow = Z + static_cast<long long>(zr) * F;
+      for (int i = 0; i < V; ++i) c += a[i] != 0.f;
+      if (__ballot_sync(kFull, c != 0) == 0) continue;
+      const int inc = warp_inclusive_scan(c, lane);
+      const int total = __shfl_sync(kFull, inc, 31);
+      if (n + total > seg) {  // walked from its staged copy below
+        over = true;
+        break;
+      }
+      int pos = r * seg + n + inc - c;
 #pragma unroll
-          for (int i = 0; i < FPL; i += P) {
-            load_z<T, P>(zrow, f0 + P * lane + 32 * i, F, in, p.pairs, &zv[u][i]);
-          }
+      for (int i = 0; i < V; ++i) {
+        if (a[i] != 0.f) {
+          lcol[pos] = v * V + i;
+          lval[pos] = a[i];
+          ++pos;
+        }
+      }
+      n += total;
+    }
+    if (lane == 0) {
+      cnt[r] = n;
+      off[r] = over ? -1 : r * seg;
+    }
+  }
+  __syncthreads();
+
+  // 3. walk the lists: a thread a (row, VZ consecutive columns), the
+  // columns of a row on consecutive threads
+  const int per_row = W / VZ;  // vectors of a row
+  for (int it = tid; it < nr * per_row; it += kApplyThreads) {
+    const int r = it / per_row;
+    const int j = (it - r * per_row) * VZ;  // the thread's first column
+    const int s = j / F, f = j - s * F;
+    const T* zc = p.z + (b0 + s) * bs + f;
+    float acc[VZ];
+#pragma unroll
+    for (int i = 0; i < VZ; ++i) acc[i] = 0.f;
+    const int o = off[r];
+    if (o >= 0) {
+      const int e = o + cnt[r];
+      for (int k0 = o; k0 < e; k0 += kGather) {
+        P zv[kGather];
+        float av[kGather];
+#pragma unroll
+        for (int q = 0; q < kGather; ++q) {
+          const bool ok = k0 + q < e;
+          av[q] = ok ? lval[k0 + q] : 0.f;
+          const int zr = start + (ok ? lcol[k0 + q] : 0);
+          zv[q].raw = typename P::Raw{};
+          if (ok && zr < n_max) zv[q].load(zc + static_cast<long long>(zr) * F);
         }
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          if (k0 + u < n) {
+        for (int q = 0; q < kGather; ++q) {
+          if (k0 + q < e) {
 #pragma unroll
-            for (int i = 0; i < FPL; ++i) acc[i] = fmaf(av[u], zv[u][i], acc[i]);
+            for (int i = 0; i < VZ; ++i) acc[i] = fmaf(av[q], zv[q].get(i), acc[i]);
           }
         }
       }
-      __syncwarp();
-      n = 0;
-    };
-    for (int c0 = 0; c0 < SW; c0 += kChunk * kInFlight) {
-      float a[kInFlight][V];
+    } else {
+      const T* row = stage + r * stride;
+      for (int c = 0; c < SW; ++c) {
+        const float a = E::to_f(row[c]);
+        if (a == 0.f) continue;
+        const int zr = start + c;
+        P zv;
+        zv.raw = typename P::Raw{};
+        if (zr < n_max) zv.load(zc + static_cast<long long>(zr) * F);
 #pragma unroll
-      for (int j = 0; j < kInFlight; ++j) {
-        const int col = c0 + j * kChunk + V * lane;
-        if (p.vec) {
-          if (col < SW) {
-            E::load_vec(arow + col, a[j]);
-          } else {
-#pragma unroll
-            for (int c = 0; c < V; ++c) a[j][c] = 0.f;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < V; ++c) a[j][c] = col + c < SW ? E::to_f(arow[col + c]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kInFlight; ++j) {
-        const int cb = c0 + j * kChunk;
-        if (cb >= SW) break;  // uniform across the warp
-        int cnt = 0;
-#pragma unroll
-        for (int c = 0; c < V; ++c) cnt += a[j][c] != 0.f;
-        int inc = cnt;  // inclusive scan of the lanes' counts
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int x = __shfl_up_sync(kFull, inc, o);
-          if (lane >= o) inc += x;
-        }
-        const int total = __shfl_sync(kFull, inc, 31);
-        if (total == 0) continue;  // uniform across the warp
-        if (n + total > kChunk) flush();
-        int pos = n + inc - cnt;
-#pragma unroll
-        for (int c = 0; c < V; ++c) {
-          if (a[j][c] != 0.f) {
-            ls[pos] = cb + V * lane + c;
-            la[pos] = a[j][c];
-            ++pos;
-          }
-        }
-        n += total;
+        for (int i = 0; i < VZ; ++i) acc[i] = fmaf(a, zv.get(i), acc[i]);
       }
     }
-    flush();
-#pragma unroll
-    for (int i = 0; i < FPL; i += P) {
-      store_out<T, P>(orow, f0 + P * lane + 32 * i, F, p.pairs, &acc[i]);
-    }
+    P::store(out + s * bs + static_cast<long long>(r) * F + f, acc);
   }
 }
 
-template <typename T, int FPL>
-cudaError_t launch_apply(const ApplyParams<T>& p, int B, cudaStream_t stream) {
-  const dim3 grid((p.NT + kApplyWarps - 1) / kApplyWarps, p.tiles, B);
-  apply_kernel<T, FPL><<<grid, kApplyThreads, 0, stream>>>(p);
+template <typename T, int VZ>
+cudaError_t launch_apply(const ApplyParams<T>& p, dim3 grid, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        apply_kernel<T, VZ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  apply_kernel<T, VZ><<<grid, kApplyThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -347,23 +466,34 @@ int build_blocks(const int* src_rel, const int* dst_rel, const float* coeff, con
 
 template <typename T>
 int apply(const T* z, const T* blocks, const int* s0, const int* live, T* out, int B,
-          int meta_b, int T_, int NT, int SW, int n_max, int F, int fpl, void* stream) {
+          int meta_b, int T_, int NT, int SW, int n_max, int F, int rows, int vz, void* stream) {
+  const unsigned vbytes = static_cast<unsigned>(vz) * sizeof(T);
   if (B < 0 || B > 65535 || T_ < 0 || T_ > 65535 || NT < 1 || SW < 1 || F < 1 ||
-      (meta_b != B && meta_b != 1))
+      (meta_b != B && meta_b != 1) || rows < 1 || rows > kMaxRows ||
+      (vz != 1 && vz != 2 && vz != 4 && vz != 8) || vbytes > 16 || F % vz != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T_ == 0) return 0;
+  if (!aligned(z, vbytes) || !aligned(out, vbytes))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   constexpr int V = Elem<T>::kVec;
-  const bool vec = SW % V == 0 && aligned(blocks, 16);
-  const bool pairs = F % 2 == 0 && aligned(z, 4) && aligned(out, 4);
-  const int mstride = meta_b == B ? 1 : 0;
-  const ApplyParams<T> p{z, blocks, s0, live, out, T_, NT, SW, n_max, F, mstride, vec, pairs};
+  const int stride = (SW + V - 1) / V * V;
+  const long long smem = kStageAt + static_cast<long long>(rows) * stride * sizeof(T);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int fold = B / meta_b;  // B meshes of a sample, or one mesh of B
+  const bool bulk = stride == SW && aligned(blocks, 16);
+  const bool wide = static_cast<long long>(fold) * F * sizeof(T) >= 512;
+  const ApplyParams<T> p{z, blocks, s0, live, out, T_, NT, SW, n_max, F,
+                         meta_b == B ? 1 : 0, fold, rows, stride, bulk, wide};
+  const dim3 grid((NT + rows - 1) / rows, T_, meta_b);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (fpl) {
-    case 1: return static_cast<int>(launch_apply<T, 1>(p, B, s));
-    case 2: return static_cast<int>(launch_apply<T, 2>(p, B, s));
-    case 4: return static_cast<int>(launch_apply<T, 4>(p, B, s));
-    case 8: return static_cast<int>(launch_apply<T, 8>(p, B, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = static_cast<int>(smem);
+  switch (vz) {
+    case 1: return static_cast<int>(launch_apply<T, 1>(p, grid, bytes, s));
+    case 2: return static_cast<int>(launch_apply<T, 2>(p, grid, bytes, s));
+    case 4: return static_cast<int>(launch_apply<T, 4>(p, grid, bytes, s));
+    default:
+      if constexpr (sizeof(T) == 2) return static_cast<int>(launch_apply<T, 8>(p, grid, bytes, s));
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -382,18 +512,20 @@ extern "C" int qtm_spmm_build_blocks_bf16(const int* src_rel, const int* dst_rel
                             NT, SW, stream);
 }
 
-// fpl: output features a lane (1, 2, 4 or 8); F wider than 32 fpl takes one
-// pass over the row a chunk of 32 fpl features. meta_b: the batch axis of
-// blocks, s0 and live, B (a mesh a sample) or 1 (one mesh for the batch).
+// The plan (ops/spmm.py apply_plan): rows, the Â rows a CTA stages (1 to
+// 32); vz, the consecutive output columns a thread keeps (1, 2, 4 or 8, F
+// % vz == 0, vz * the element size at most 16 bytes, z and out aligned to
+// it). meta_b: the batch axis of blocks, s0 and live, B (a mesh a sample)
+// or 1 (one mesh for the batch, whose B*F columns one CTA computes).
 extern "C" int qtm_spmm_apply(const float* z, const float* blocks, const int* s0,
                               const int* live, float* out, int B, int meta_b, int T, int NT,
-                              int SW, int n_max, int F, int fpl, void* stream) {
-  return apply<float>(z, blocks, s0, live, out, B, meta_b, T, NT, SW, n_max, F, fpl, stream);
+                              int SW, int n_max, int F, int rows, int vz, void* stream) {
+  return apply<float>(z, blocks, s0, live, out, B, meta_b, T, NT, SW, n_max, F, rows, vz, stream);
 }
 
 extern "C" int qtm_spmm_apply_bf16(const void* z, const void* blocks, const int* s0,
                                    const int* live, void* out, int B, int meta_b, int T, int NT,
-                                   int SW, int n_max, int F, int fpl, void* stream) {
+                                   int SW, int n_max, int F, int rows, int vz, void* stream) {
   return apply<bf16>(static_cast<const bf16*>(z), static_cast<const bf16*>(blocks), s0, live,
-                     static_cast<bf16*>(out), B, meta_b, T, NT, SW, n_max, F, fpl, stream);
+                     static_cast<bf16*>(out), B, meta_b, T, NT, SW, n_max, F, rows, vz, stream);
 }

@@ -40,9 +40,15 @@ SIGNATURES = {
         "qtm_spmm_build_blocks": [_P] * 5 + [_C] * 5 + [_P],
         "qtm_spmm_build_blocks_bf16": [_P] * 5 + [_C] * 5 + [_P],
         # z, blocks, s0, live, out, B, metadata batch (B or 1), T, NT, SW,
-        # n_max, F, features a lane, stream
-        "qtm_spmm_apply": [_P] * 5 + [_C] * 8 + [_P],
-        "qtm_spmm_apply_bf16": [_P] * 5 + [_C] * 8 + [_P],
+        # n_max, F, then the plan: rows a CTA, columns a thread; stream
+        "qtm_spmm_apply": [_P] * 5 + [_C] * 9 + [_P],
+        "qtm_spmm_apply_bf16": [_P] * 5 + [_C] * 9 + [_P],
+    },
+    "spmm_rowwarp.cu": {
+        # z, blocks, s0, live, out, B, metadata batch, T, NT, SW, n_max, F,
+        # features a lane, stream
+        "qtm_spmm_apply_rowwarp": [_P] * 5 + [_C] * 8 + [_P],
+        "qtm_spmm_apply_rowwarp_bf16": [_P] * 5 + [_C] * 8 + [_P],
     },
     "attn.cu": {
         # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,

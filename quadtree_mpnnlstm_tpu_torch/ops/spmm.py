@@ -15,9 +15,10 @@ every ``Â z`` of that mesh is then one small dense product per live tile
 Everything carries a leading batch axis: each sample has its own mesh, and
 one launch serves the whole batch (the JAX package vmaps the
 ``pallas_call`` instead). A shared mesh (``TrainConfig.shared_mesh``) has
-blocks of batch 1 for a z of batch B: K1 builds them once, and K2/K2b and
-:func:`apply_plain` read them for every sample (the kernel's metadata
-batch stride is 0, no copy). Window overflow (a tile with more than EB edges,
+blocks of batch 1 for a z of batch B: K1 builds them once, K2/K2b read
+each Â row once for the B·F columns of the batch folded into the
+features (z and out in place, no copy), and :func:`apply_plain` reads
+them for every sample. Window overflow (a tile with more than EB edges,
 or a source span wider than SW) is counted into the graph's ``overflow``.
 
 Dispatch is by device: a CUDA tensor launches the kernel (and raises if it
@@ -284,35 +285,52 @@ def _build_blocks_cuda(src_rel, dst_rel, coeff, live, nt: int, sw: int,
     return blocks
 
 
-# K2's geometry (csrc/spmm.cu): Â rows a CTA (one a warp), and the columns
-# of a row that a warp reads at once (4 a lane)
-APPLY_WARPS, APPLY_CHUNK = 8, 128
+# K2's geometry (csrc/spmm.cu): threads and warps a CTA, the bytes of Â
+# rows a CTA stages at most, the list entries of its pool, and where the
+# staged rows start in its shared memory (after the mbarrier, 32 rows'
+# counts and offsets and the pool), up to a CTA's 227 KiB
+APPLY_THREADS, APPLY_WARPS, APPLY_STAGE_BYTES, APPLY_POOL = 256, 8, 32 * 1024, 512
+APPLY_STAGE_AT = _round_up(16 + 8 * 32 + 8 * APPLY_POOL, 128)
+APPLY_MAX_SMEM = 227 * 1024
 
 
 class ApplyPlan(NamedTuple):
-    """K2's launch over one tile's (NT, SW) block and F features."""
+    """K2's work on one tile's (NT, SW) block and the columns it feeds."""
 
-    rows_per_cta: int  # one Â row a warp
-    slabs: int         # CTAs a tile: slab i takes rows [8 i, 8 i + 8)
-    col_chunks: tuple  # ((c0, c1), ...): a row's columns as a warp reads them, in this order
-    fpl: int           # output features a lane
-    f_chunks: tuple    # ((f0, f1), ...): the features of one pass over a row
+    rows_per_unit: int  # R: a CTA (a unit) takes rows [R i, R i + R) of a tile
+    slabs: int          # units a tile and mesh
+    samples_per_unit: int  # samples whose F columns a unit computes: B on a shared mesh, else 1
+    row_stride: int     # a staged row's length: SW rounded up to whole 16-byte vectors
+    col_chunks: tuple   # ((c0, c1), ...): a row's columns as one warp compacts them, in order
+    vz: int             # consecutive output columns a thread keeps (one load of z)
+    per_row: int        # a row's vectors of vz columns, on consecutive threads
+    smem_bytes: int     # dynamic shared memory a CTA
 
 
 @functools.lru_cache(maxsize=None)
-def apply_plan(nt: int, sw: int, f: int, itemsize: int = 4) -> ApplyPlan:
-    """K2's plan for ``itemsize``-byte elements (4: f32, 2: bf16): every Â
-    row is one warp's, which reads it 16 bytes a lane (4 f32 or 8 bf16
-    columns, a chunk of 128 or 256 columns a warp) and adds its non-zeros
-    chunk by chunk in ascending column order; a lane keeps ``fpl``
-    features (the fewest of 1, 2, 4, 8 that cover F, at most 8), so the row
-    is read once for F ≤ 256. In bf16 a lane that keeps two or more loads
-    them in pairs (4 bytes)."""
-    fpl = next((x for x in (1, 2, 4) if f <= 32 * x), 8)
-    width, chunk = 32 * fpl, APPLY_CHUNK * (4 // itemsize)
-    return ApplyPlan(APPLY_WARPS, -(-nt // APPLY_WARPS),
-                     tuple((c, min(c + chunk, sw)) for c in range(0, sw, chunk)),
-                     fpl, tuple((x, min(x + width, f)) for x in range(0, f, width)))
+def apply_plan(nt: int, sw: int, f: int, itemsize: int = 4, fold: int = 1,
+               align: int = 16) -> ApplyPlan:
+    """K2's plan for ``itemsize``-byte elements (4: f32, 2: bf16) and
+    ``fold`` samples a unit (the batch on a shared mesh, whose B·F columns,
+    column j = (sample j // F, feature j % F), one unit computes; 1 on a
+    mesh a sample), with z and out aligned to ``align`` bytes. A thread
+    keeps ``vz`` consecutive columns of one row: the widest load (up to 16
+    bytes) that divides F and the alignment and still spreads a row over
+    8 threads, else one column. A unit takes up to 8 rows (a warp a row
+    when they are compacted, 32 16-byte vectors at a time, in ascending
+    column order), no more than ``APPLY_STAGE_BYTES`` of them and no more
+    than its 256 threads walk at once."""
+    vec = 16 // itemsize
+    stride = _round_up(sw, vec)
+    width = fold * f
+    vz = next((v for v in (8, 4, 2) if v * itemsize <= min(16, align) and f % v == 0
+               and width // v >= 8), 1)
+    per_row = width // vz
+    rows = max(1, min(APPLY_WARPS, nt, APPLY_STAGE_BYTES // (stride * itemsize),
+                      APPLY_THREADS // per_row))
+    return ApplyPlan(rows, -(-nt // rows), fold, stride,
+                     tuple((c, min(c + 32 * vec, sw)) for c in range(0, sw, 32 * vec)),
+                     vz, per_row, APPLY_STAGE_AT + rows * stride * itemsize)
 
 
 def check_meta_batch(meta_b: int, b: int) -> None:
@@ -322,16 +340,19 @@ def check_meta_batch(meta_b: int, b: int) -> None:
         raise ValueError(f"mesh metadata of batch {meta_b} cannot serve a batch of {b}")
 
 
-def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: str):
-    """Launch ``qtm_spmm_apply`` (``_bf16`` for bf16 z; one warp per Â row
-    of every tile of every sample, :func:`apply_plan`) and count it under
-    ``counter``. The blocks must be in z's dtype; blocks of batch 1 serve
-    every sample."""
-    from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
+def _alignment(*xs: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every address."""
+    a = 16
+    while any(x.data_ptr() % a for x in xs):
+        a //= 2
+    return a
 
+
+def _apply_operands(z, s0, blocks, live, n_max: int, nt: int, sw: int):
+    """Check K2's operands; returns (B, metadata batch, tiles, F, the
+    output allocated)."""
     if z.dtype not in KERNEL_DTYPES:
         raise TypeError(f"spmm_apply takes float32 or bfloat16 z, not {z.dtype}")
-    lib = load_library()
     b, f = z.shape[0], z.shape[-1]
     bm, t = s0.shape
     check_meta_batch(bm, b)
@@ -339,15 +360,48 @@ def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: st
     _check(s0, "s0", torch.int32, (bm, t))
     _check(blocks, "blocks", z.dtype, (bm, t, nt, sw))
     _check(live, "live", torch.int32, (bm,))
-    out = torch.empty((b, n_max, f), dtype=z.dtype, device=z.device)
+    return b, bm, t, f, torch.empty((b, n_max, f), dtype=z.dtype, device=z.device)
+
+
+def _launch_apply(z, s0, blocks, live, n_max: int, nt: int, sw: int, counter: str):
+    """Launch ``qtm_spmm_apply`` (``_bf16`` for bf16 z) by :func:`apply_plan`:
+    a CTA a slab of rows of a tile, of one sample or, on a shared mesh
+    (blocks of batch 1), of the batch folded into the columns; count it
+    under ``counter``. The blocks must be in z's dtype."""
+    from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
+
+    b, bm, t, f, out = _apply_operands(z, s0, blocks, live, n_max, nt, sw)
     if b * t * f == 0:
         return out
-    err = getattr(lib, "qtm_spmm_apply" + KERNEL_DTYPES[z.dtype])(
+    plan = apply_plan(nt, sw, f, z.element_size(), b if bm == 1 else 1, _alignment(z, out))
+    if plan.smem_bytes > APPLY_MAX_SMEM:
+        raise ValueError(f"spmm_apply stages whole Â rows: SW {sw} needs {plan.smem_bytes} "
+                         f"bytes of shared memory a CTA, above {APPLY_MAX_SMEM}")
+    err = getattr(load_library(), "qtm_spmm_apply" + KERNEL_DTYPES[z.dtype])(
         _ptr(z), _ptr(blocks), _ptr(s0), _ptr(live), _ptr(out),
-        b, bm, t, nt, sw, n_max, f, apply_plan(nt, sw, f, z.element_size()).fpl, _stream(),
+        b, bm, t, nt, sw, n_max, f, plan.rows_per_unit, plan.vz, _stream(),
     )
     _raise_on(err, counter)
     _count(counter, z.dtype)
+    return out
+
+
+def _apply_rowwarp_cuda(z, s0, blocks, live, n_max: int, nt: int, sw: int) -> torch.Tensor:
+    """The earlier row-a-warp K2 (``csrc/spmm_rowwarp.cu``): the yardstick
+    that the staged kernel is timed against and held to bit for bit. No
+    path of the port launches it, and it counts no launch."""
+    from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
+
+    b, bm, t, f, out = _apply_operands(z, s0, blocks, live, n_max, nt, sw)
+    if b * t * f == 0:
+        return out
+    fpl = next((x for x in (1, 2, 4) if f <= 32 * x), 8)  # output features a lane
+    err = getattr(load_library("spmm_rowwarp.cu"),
+                  "qtm_spmm_apply_rowwarp" + KERNEL_DTYPES[z.dtype])(
+        _ptr(z), _ptr(blocks), _ptr(s0), _ptr(live), _ptr(out),
+        b, bm, t, nt, sw, n_max, f, fpl, _stream(),
+    )
+    _raise_on(err, "spmm_apply_rowwarp")
     return out
 
 

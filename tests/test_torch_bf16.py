@@ -188,18 +188,20 @@ def test_cpu_bf16_tensors_never_launch_kernels():
 
 @pytest.mark.parametrize("f", [16, 17, 20, 32, 64, 65, 128, 129, 300])
 def test_apply_plan_bf16_covers_columns_and_features(f):
-    """K2's bf16 plan: a warp reads 256 columns at once (8 a lane, 16
-    bytes), in ascending order over [0, SW); the features a lane keeps are
-    f32's (1, 2, 4 or 8), and F ≤ 256 takes one pass over the row."""
+    """K2's bf16 plan: a warp compacts 256 columns at once (8 a lane, 16
+    bytes), in ascending order over [0, SW); a thread keeps up to 8
+    consecutive features (16 bytes) where a row still spreads over 8
+    threads, and a row's vectors cover [0, F); a unit takes f32's rows (8
+    at the main path's widths), half the bytes."""
     plan = tspmm.apply_plan(128, 1024, f, 2)
+    f32 = tspmm.apply_plan(128, 1024, f)
     cols = np.concatenate([np.arange(c0, c1) for c0, c1 in plan.col_chunks])
     assert np.array_equal(cols, np.arange(1024))
     assert all(c1 - c0 == 8 * 32 for c0, c1 in plan.col_chunks)
-    feats = np.concatenate([np.arange(f0, f1) for f0, f1 in plan.f_chunks])
-    assert np.array_equal(feats, np.arange(f))
-    assert all(f1 - f0 <= 32 * plan.fpl for f0, f1 in plan.f_chunks)
-    assert (len(plan.f_chunks) == 1) == (f <= 256)
-    assert plan.fpl == tspmm.apply_plan(128, 1024, f).fpl
+    assert f % plan.vz == 0 and plan.vz * plan.per_row == f and plan.vz >= f32.vz
+    assert plan.vz == 1 or plan.per_row >= 8
+    assert plan.rows_per_unit == f32.rows_per_unit == max(1, min(8, 256 // f32.per_row))
+    assert plan.smem_bytes - tspmm.APPLY_STAGE_AT == (f32.smem_bytes - tspmm.APPLY_STAGE_AT) // 2
 
 
 # ---------------------------------------------------------------- cell

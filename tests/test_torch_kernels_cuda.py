@@ -1459,25 +1459,58 @@ def test_segment_sum_kernel_on_the_preset_lists(card, dtype, f, ids_name, kind):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("f", [1, 16, 128])
-def test_apply_kernel_on_a_shared_mesh(card, f, dtype):
-    """K2 (and K2b) on one mesh's blocks (batch 1) for a batch of 5: equal
-    to its plain version (f32 ≤1e-5, bf16 within one rounding) and bit for
-    bit to the kernel on the blocks copied for every sample."""
+@pytest.mark.parametrize("batch,f", [(5, 1), (5, 16), (5, 128), (16, 1), (16, 16), (16, 128),
+                                     (32, 16), (32, 33), (32, 128)])
+def test_apply_kernel_on_a_shared_mesh(card, batch, f, dtype):
+    """K2 (and K2b) on one mesh's blocks (batch 1) for a batch of 5, 16 or
+    32, folded widths B·F up to 4096: equal to its plain version (f32
+    ≤1e-5, bf16 within one rounding), bit for bit to the kernel on the
+    blocks copied for every sample and to the row-a-warp kernel, and two
+    launches bit for bit."""
     w, live, n_max = _windows(card)
     blocks = spmm.build_blocks_plain(w.src_rel, w.dst_rel, w.coeff, live, NT, SW, dtype)
     one = (w.s0[:1], blocks[:1], live[:1])
-    copied = tuple(t[:1].expand((5,) + t.shape[1:]).contiguous() for t in (w.s0, blocks, live))
-    z = torch.randn(5, n_max, f, device=card, generator=torch.Generator(card).manual_seed(f))
+    copied = tuple(t[:1].expand((batch,) + t.shape[1:]).contiguous()
+                   for t in (w.s0, blocks, live))
+    z = torch.randn(batch, n_max, f, device=card, generator=torch.Generator(card).manual_seed(f))
     z = z.to(dtype)
     shared = spmm._apply_cuda(z, *one, n_max, NT, SW)
+    assert torch.equal(shared, spmm._apply_cuda(z, *one, n_max, NT, SW))
     assert torch.equal(shared, spmm._apply_cuda(z, *copied, n_max, NT, SW))
+    assert torch.equal(shared, spmm._apply_rowwarp_cuda(z, *one, n_max, NT, SW))
     assert torch.equal(spmm._apply_bwd_cuda(z, *one, n_max, NT, SW), shared)
     plain = spmm.apply_plain(z, *one, n_max, NT, SW)
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * max(1.0, float(plain.float().abs().max()))
     assert float((shared.float() - plain.float()).abs().max()) <= tol
     with pytest.raises(ValueError, match="metadata of batch"):
         spmm._apply_cuda(z, w.s0[:2], blocks[:2], live[:2], n_max, NT, SW)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("meta_batch", [3, 1])
+def test_apply_kernel_rows_past_the_list_pool(card, dtype, meta_batch):
+    """Rows with more non-zeros than their share of a CTA's list pool
+    holds (SW 2048, some rows dense) beside sparse ones, on meshes a sample
+    and on a shared mesh: K2 equal to ``apply_plain`` (f32 ≤1e-5, bf16 within one
+    rounding), bit for bit to the row-a-warp kernel, and two launches bit
+    for bit; rows of the windows past n_max read as zero."""
+    nt, sw, t, n_max, f = 64, 2048, 3, 150, 24
+    rng = np.random.default_rng(7)
+    dense = (rng.standard_normal((meta_batch, t, nt, sw)) / 64).astype(np.float32)
+    keep = rng.random((meta_batch, t, nt, sw)) < 0.01
+    keep[:, :, [3, 5, 40], :] = True  # dense rows: 2048 non-zeros each
+    blocks = torch.from_numpy(np.where(keep, dense, 0.0)).to(card, dtype)
+    s0 = torch.tensor([[0, 16, 32]] * meta_batch, dtype=torch.int32, device=card)
+    live = torch.full((meta_batch,), 2, dtype=torch.int32, device=card)
+    z = torch.randn(3, n_max, f, device=card, generator=torch.Generator(card).manual_seed(1))
+    args = (z.to(dtype), s0, blocks, live, n_max, nt, sw)
+    out = spmm._apply_cuda(*args)
+    assert torch.equal(out, spmm._apply_cuda(*args))
+    assert torch.equal(out, spmm._apply_rowwarp_cuda(*args))
+    plain = spmm.apply_plain(*args)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7 * max(1.0, float(plain.float().abs().max()))
+    assert float((out.float() - plain.float()).abs().max()) <= tol
+    assert not out[:, 2 * nt:].any()
 
 
 @pytest.mark.parametrize("heads,d,ragged,dropout", [(8, 16, False, True), (1, 1, True, False),

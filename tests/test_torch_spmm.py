@@ -180,20 +180,108 @@ def test_apply_backward_matches_jax_and_the_true_transpose(n_max, thresh, f):
                                      (128, 1024, 129), (64, 72, 5), (64, 200, 33),
                                      (128, 512, 300), (60, 1000, 1)])
 def test_apply_plan_covers_rows_columns_and_features(nt, sw, f):
-    """K2's plan: the row slabs hold every row of a tile once; the column
-    chunks a warp reads cover [0, SW) once, in ascending order, so that
-    every output is one sum in ascending column order; the feature chunks
-    cover [0, F) once, each within a warp's 32 · fpl lanes' features, and
-    F ≤ 256 takes one pass over the row."""
+    """K2's plan on a mesh a sample: the units' row slabs hold every row of
+    a tile once; the chunks a warp compacts cover [0, SW) once, in
+    ascending order, 32 16-byte vectors each, so that every output is one
+    sum in ascending column order; a thread's vector of vz columns divides
+    F, and a row's vectors cover [0, F); a unit is at most 8 rows (a warp
+    a row), no more than its threads walk at once, and fits the stage and
+    the CTA's shared memory."""
     plan = tspmm.apply_plan(nt, sw, f)
-    rows = np.concatenate([np.arange(i * plan.rows_per_cta, (i + 1) * plan.rows_per_cta)
+    rows = np.concatenate([np.arange(i * plan.rows_per_unit, (i + 1) * plan.rows_per_unit)
                            for i in range(plan.slabs)])
-    assert np.array_equal(rows[rows < nt], np.arange(nt)) and (rows >= nt).sum() < plan.rows_per_cta
+    assert np.array_equal(rows[rows < nt], np.arange(nt))
+    assert (rows >= nt).sum() < plan.rows_per_unit
     cols = np.concatenate([np.arange(c0, c1) for c0, c1 in plan.col_chunks])
     assert np.array_equal(cols, np.arange(sw))
     assert all(c1 - c0 <= 4 * 32 for c0, c1 in plan.col_chunks)
-    feats = np.concatenate([np.arange(f0, f1) for f0, f1 in plan.f_chunks])
-    assert np.array_equal(feats, np.arange(f))
-    assert all(f1 - f0 <= 32 * plan.fpl for f0, f1 in plan.f_chunks)
-    assert plan.fpl in (1, 2, 4, 8)
-    assert (len(plan.f_chunks) == 1) == (f <= 256)
+    assert plan.vz in (1, 2, 4) and f % plan.vz == 0 and plan.per_row * plan.vz == f
+    assert plan.samples_per_unit == 1 and (plan.vz == 1 or plan.per_row >= 8)
+    assert plan.row_stride % 4 == 0 and sw <= plan.row_stride < sw + 4
+    assert 1 <= plan.rows_per_unit <= tspmm.APPLY_WARPS
+    assert plan.rows_per_unit == 1 or (
+        plan.rows_per_unit * plan.row_stride * 4 <= tspmm.APPLY_STAGE_BYTES
+        and plan.rows_per_unit * plan.per_row <= tspmm.APPLY_THREADS)
+    assert plan.smem_bytes == tspmm.APPLY_STAGE_AT + plan.rows_per_unit * plan.row_stride * 4
+    assert plan.smem_bytes <= tspmm.APPLY_MAX_SMEM
+
+
+def _emulate_apply(z, s0, blocks, live, n_max, nt, sw, itemsize=4, align=16):
+    """K2 as its plan launches it, in numpy: a CTA a unit (slab, tile,
+    sample, or the whole batch on a shared mesh); a dead unit zeroes its
+    outputs, a live one stages its rows (counted) and, thread by thread,
+    walks a row's non-zeros in ascending column order for the thread's vz
+    columns; returns the output in f32, how often each (mesh, tile, row)
+    was read and how often each output element was written."""
+    b, _, f = z.shape
+    meshes, t = s0.shape
+    fold = b // meshes
+    plan = tspmm.apply_plan(nt, sw, f, itemsize, fold, align)
+    # every thread's vector of vz consecutive folded columns
+    vecs = np.arange(plan.per_row)[:, None] * plan.vz + np.arange(plan.vz)
+    assert vecs.max() == fold * f - 1
+    smp, feat = vecs // f, vecs % f
+    assert (smp == smp[:, :1]).all(), "a thread's vector spans two samples"
+    out = np.full((b, n_max, f), np.nan, np.float32)
+    reads, writes = np.zeros((meshes, t, nt), int), np.zeros((b, n_max, f), int)
+    zf, bf = z.astype(np.float32), blocks.astype(np.float32)
+    for x in range(plan.slabs):
+        for ti in range(t):
+            for mb in range(meshes):
+                b0, r0 = mb * fold, x * plan.rows_per_unit
+                g0 = ti * nt + r0
+                nr = min(plan.rows_per_unit, nt - r0, n_max - g0)
+                if nr <= 0:
+                    continue
+                if ti >= live[mb]:
+                    out[b0:b0 + fold, g0:g0 + nr] = 0.0
+                    writes[b0:b0 + fold, g0:g0 + nr] += 1
+                    continue
+                reads[mb, ti, r0:r0 + nr] += 1
+                for r in range(nr):
+                    acc = np.zeros(vecs.shape, np.float32)
+                    for c in np.flatnonzero(bf[mb, ti, r0 + r]):  # ascending columns
+                        zr = s0[mb, ti] + c
+                        zv = zf[b0 + smp, zr, feat] if zr < n_max else 0.0
+                        acc = (acc + bf[mb, ti, r0 + r, c] * zv).astype(np.float32)
+                    np.add.at(writes, (b0 + smp, g0 + r, feat), 1)
+                    out[b0 + smp, g0 + r, feat] = acc
+    return out, reads, writes
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("b,f,align", [(16, 1, 16), (16, 3, 16), (16, 16, 16), (16, 128, 16),
+                                       (32, 16, 16), (32, 128, 16), (5, 6, 4), (4, 16, 2)])
+def test_apply_plan_reads_each_row_once_on_a_shared_mesh(itemsize, b, f, align):
+    """K2's plan on a shared mesh (blocks of batch 1 for B samples), f32
+    and bf16: one CTA a slab computes all B·F columns of the batch folded
+    into the features, so each Â row is read once a call; every (sample,
+    feature) column of the fold is written once, column j = (sample j //
+    F, feature j % F), a thread's vector within one sample and aligned as
+    z is; the output equals ``apply_plain``. On the per-sample blocks of the
+    same mesh each (sample, row) is read once. Pure shapes and numpy, no
+    kernel."""
+    nt, sw, t, n_max = 16, 64, 3, 40
+    align = max(align, itemsize)  # a tensor is aligned to its element at least
+    rng = np.random.default_rng(b * 1000 + f)
+    blocks = np.where(rng.random((1, t, nt, sw)) < 0.1, rng.standard_normal((1, t, nt, sw)),
+                      0.0).astype(np.float32)
+    s0 = np.array([[0, 8, 16]], np.int32)
+    live = np.array([2], np.int32)  # tile 2 is dead
+    z = rng.standard_normal((b, n_max, f)).astype(np.float32)
+    plan = tspmm.apply_plan(nt, sw, f, itemsize, b, align)
+    assert plan.samples_per_unit == b and plan.vz * itemsize <= align and f % plan.vz == 0
+    out, reads, writes = _emulate_apply(z, s0, blocks, live, n_max, nt, sw, itemsize, align)
+    alive = np.arange(t)[:, None] < live[0]
+    rows_live = np.broadcast_to(alive & (np.arange(t)[:, None] * nt + np.arange(nt) < n_max),
+                                (t, nt))
+    assert np.array_equal(reads[0], rows_live.astype(int))  # once, and never for a dead tile
+    assert (writes == 1).all()
+    want = tspmm.apply_plain(torch.from_numpy(z), torch.from_numpy(s0), torch.from_numpy(blocks),
+                             torch.from_numpy(live), n_max, nt, sw).numpy()
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=1e-5)
+    # the same mesh copied for every sample: a CTA a (slab, tile, sample)
+    copied = [np.repeat(a, b, axis=0) for a in (s0, blocks, live)]
+    out_c, reads_c, writes_c = _emulate_apply(z, *copied, n_max, nt, sw, itemsize, align)
+    assert (reads_c == rows_live.astype(int)).all() and (writes_c == 1).all()
+    np.testing.assert_array_equal(out_c, out)
