@@ -41,7 +41,18 @@ output digested (sha256), so that ``--against FILE`` (an earlier run's
 output) holds this run's outputs to that run's bit for bit, set by set
 (exit 1 if any differ). ``k2_means`` averages each path's sets, weighted
 by their calls; ``--summarize RUN.json ...`` prints them for earlier runs
-side by side, without a card. With ``--preset heterogeneous`` or
+side by side, without a card. With ``--workload k4`` the attention
+backward K4 alone (``k4_sets``): on the operands of a TransformerConv train
+step in f32 and bf16 (phases 10 and 32: HD 128, 16, 1), of the
+ice-quadtree model's full-BPTT bf16 step (phase 42: HD 256, and 32 and
+1), of a MHTransformerConv step in f32 and bf16 (phase 46: HD 384, 48, 3)
+and of a shared-mesh TransformerConv step (phase 55, f32, batch 16), each
+captured as that phase captures it; each set
+against its plain version, repeated bit for bit, timed by CUDA graph and
+by events beside its bound, in bf16 the f32 kernel on the same operands,
+and split between K4's two kernels and the rest of the call by one
+``torch.profiler`` pass (``k4_measure``); ``k4_means`` averages each
+path's sets by their calls, and ``--summarize`` prints them too. With ``--preset heterogeneous`` or
 ``homogeneous`` the JAX package's sea-ice experiment 9 or 10 (phases
 50-51: the flagship's model on that preset mesh, a forecast and a
 full-BPTT step under remat full unless ``--remat`` says otherwise), and
@@ -54,7 +65,7 @@ batch (default 16), ``--shared-mesh`` trains it on one mesh a step
 builds the quadtree paths' and the ice-quadtree model's edge lists
 without a sort (``bench.py --adjacency csum``; phase 56).
 
-    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2]
+    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2|k4]
                        [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
                        [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
@@ -107,7 +118,8 @@ def _timed(fn, reps: int) -> list:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree",
-                        choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7", "k2"))
+                        choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7", "k2",
+                                 "k4"))
     parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv",
                                                "MHTransformerConv", "GATConv", "GATv2Conv"),
                         help="time only this model of the quadtree paths (default: ChebConv "
@@ -135,7 +147,8 @@ def main() -> int:
                              "quadtree|ice-quadtree)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--summarize", nargs="+", metavar="RUN",
-                        help="print the k2_means of earlier --workload k2 runs and exit")
+                        help="print the k2_means or k4_means of earlier --workload k2 or k4 "
+                             "runs and exit")
     parser.add_argument("--against",
                         help="an earlier --workload k2 run's output: hold this run's K2 and K2b "
                              "outputs to it bit for bit")
@@ -143,7 +156,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args()
     if args.summarize:
-        print(json.dumps({run: k2_means(_last_k2_run(run)["k2_sets"]) for run in args.summarize}))
+        print(json.dumps({run: _means(_last_run(run)) for run in args.summarize}))
         return 0
     if args.remat is None:  # the presets train at full BPTT: remat full
         args.remat = "full" if args.preset else "none"
@@ -152,7 +165,7 @@ def main() -> int:
                      "(--workload ice|ice-xla)")
     if args.against and args.workload != "k2":
         parser.error("--against compares --workload k2 runs")
-    if args.conv and args.workload in ("ice-quadtree", "k7", "k2"):
+    if args.conv and args.workload in ("ice-quadtree", "k7", "k2", "k4"):
         parser.error(f"--workload {args.workload} has its own convolutions")
     if args.preset and (args.workload != "quadtree" or args.conv or args.per_gate):
         parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
@@ -199,6 +212,8 @@ def main() -> int:
         _time_k7(cs, args, run_dir.name, result)
     elif args.workload == "k2":
         _time_k2(cs, args, run_dir.name, result)
+    elif args.workload == "k4":
+        _time_k4(cs, args, run_dir.name, result)
     else:
         _time_quadtree(cs, args, run_dir.name, result)
     print(json.dumps(result), flush=True)
@@ -339,11 +354,17 @@ def k2_measure(cs, spmm, name: str, kernel: str, calls: int, args) -> dict:
     return row
 
 
-def _last_k2_run(path: str) -> dict:
-    """The last JSON line with ``k2_sets`` of a ``--workload k2`` run's output."""
+def _last_run(path: str) -> dict:
+    """The last JSON line with ``k2_sets`` or ``k4_sets`` of a ``--workload
+    k2`` or ``k4`` run's output."""
     with open(path) as fh:
         return next(json.loads(ln) for ln in reversed(fh.read().splitlines())
-                    if ln.startswith("{") and "k2_sets" in ln)
+                    if ln.startswith("{") and ("k2_sets" in ln or "k4_sets" in ln))
+
+
+def _means(run: dict) -> dict:
+    """A run's launch-weighted means: ``k2_means`` or ``k4_means``."""
+    return k2_means(run["k2_sets"]) if "k2_sets" in run else k4_means(run["k4_sets"])
 
 
 def k2_means(rows: list) -> dict:
@@ -411,7 +432,7 @@ def _time_k2(cs, args, run_dir: str, result: dict) -> None:
     result["k2_sets"] = rows
     result["k2_means"] = k2_means(rows)
     if args.against:
-        other = _last_k2_run(args.against)
+        other = _last_run(args.against)
         theirs = {(r["set"], r["kernel"]): r for r in other["k2_sets"]}
         keys = [(r["set"], r["kernel"]) for r in rows]
         inputs = all(k in theirs and theirs[k]["input_sha"] == r["input_sha"]
@@ -421,6 +442,139 @@ def _time_k2(cs, args, run_dir: str, result: dict) -> None:
         result["against"] = dict(file=args.against, tree=other.get("tree"), sets=len(rows),
                                  inputs_identical=inputs, bit_identical=inputs and not differ,
                                  differing=differ)
+
+
+def _k4_split(attn, args, reps: int = 5) -> dict:
+    """ms per call of K4's first kernel (per destination), its second (per
+    source) and every other device kernel of the call (the dWₑ sum, the
+    cast), from one ``torch.profiler`` pass over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    attn._attn_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            attn._attn_bwd_cuda(*args)
+        torch.cuda.synchronize()
+    split = {"first_ms": 0.0, "second_ms": 0.0, "other_ms": 0.0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation",
+                                                                      False):
+            continue
+        key = ("first_ms" if "attn_bwd_kernel" in e.name else
+               "second_ms" if "attn_bwd_src_kernel" in e.name else "other_ms")
+        split[key] += e.time_range.elapsed_us() / 1e3 / reps
+    return split
+
+
+def k4_measure(cs, attn, name: str, calls: int, args) -> dict:
+    """One K4 operand set: the kernel against ``attn_bwd_plain`` (f32 within
+    ``K4_TOL`` × max(1, max|grad|), bf16 within one rounding), repeated bit
+    for bit; graph and event times beside the bound (the shared-window
+    bound on a shared mesh), in bf16 the f32 kernel on the same operands,
+    the split between K4's kernels (:func:`_k4_split`), the plan where the
+    tree has one, and the digest of the inputs."""
+    import torch
+
+    q, meta, dims = args[0], args[5], args[6]
+    bf16 = q.dtype == torch.bfloat16
+    kern, plain = attn._attn_bwd_cuda(*args), attn.attn_bwd_plain(*args)
+    again = attn._attn_bwd_cuda(*args)
+    err = {n: float((a.float() - p.float()).abs().max()) for n, a, p in
+           zip(("dq", "dk", "dv", "dwe"), kern, plain)}
+    rel = {n: err[n] / max(1.0, float(p.float().abs().max())) for n, p in
+           zip(("dq", "dk", "dv", "dwe"), plain)}
+    cs.check(max(rel.values()) <= (cs.BF16_TOL if bf16 else cs.K4_TOL),
+             f"{name}: K4 differs from its plain version: {rel}")
+    repeat = all(torch.equal(a, b) for a, b in zip(kern, again))
+    cs.check(repeat, f"{name}: two K4 launches differ")
+    shared = meta.s0.shape[0] == 1 and q.shape[0] > 1
+    bound_fn = cs.attn_shared_bound_ms if shared else cs.attn_bound_ms
+    bound, b_ms, o_ms = bound_fn(attn, args, True)
+    row = dict(set=name, dtype=str(q.dtype).replace("torch.", ""), batch=q.shape[0],
+               HD=q.shape[-1], heads=dims.heads, d=dims.d, shared_mesh=shared, calls=calls,
+               keep=args[4] is not None, live_tiles=int(meta.live.long().sum()),
+               max_abs_err=max(err.values()), err_rel_to_max=rel, repeat_bit_identical=repeat,
+               ms=cs.graph_ms(lambda: attn._attn_bwd_cuda(*args)),
+               events_ms=cs.cuda_ms(lambda: attn._attn_bwd_cuda(*args)),
+               bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
+               bound_by="bytes" if b_ms >= o_ms else "operations", split=_k4_split(attn, args),
+               plan=attn.bwd_plan(dims, q.element_size())._asdict()
+               if hasattr(attn, "bwd_plan") else None,
+               input_sha=_digest(*(x for x in args if torch.is_tensor(x)), *meta))
+    if bf16:
+        f32_args = tuple(x.float() if torch.is_tensor(x) and x.dtype == torch.bfloat16 else x
+                         for x in args)
+        row["f32_ms"] = cs.graph_ms(lambda: attn._attn_bwd_cuda(*f32_args))
+    return row
+
+
+def k4_means(rows: list) -> dict:
+    """Per path (a set's name without its width), each number of its sets
+    averaged with the sets' calls as weights: graph and event times, the
+    bound, the f32 kernel on the same operands and the split, where the
+    sets have them."""
+    groups = {}
+    for r in rows:
+        groups.setdefault(r["set"].rsplit("_HD", 1)[0], []).append(r)
+    out = {}
+    for key, rs in groups.items():
+        n = sum(r["calls"] for r in rs)
+        out[key] = {"calls": n, "widths": [r["HD"] for r in rs]}
+        for k in ("ms", "events_ms", "bound_ms", "f32_ms"):
+            if all(r.get(k) is not None for r in rs):
+                out[key][k] = sum(r["calls"] * r[k] for r in rs) / n
+        out[key]["split"] = {k: sum(r["calls"] * r["split"][k] for r in rs) / n
+                             for k in rs[0]["split"]}
+    return out
+
+
+def _time_k4(cs, args, run_dir: str, result: dict) -> None:
+    """K4 per operand set (``k4_sets``): the first call at each width of
+    the train steps that ``chip_smoke.py`` captures K4 in: TransformerConv
+    in f32 and bf16 on phase 10's batch, MHTransformerConv in f32 and bf16
+    with phase 46's teacher forcing and batch, the ice-quadtree model's
+    full-BPTT step (phase 42) and a shared-mesh step after a warm-up step
+    (phase 55)."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    rows = []
+
+    def capture(path, trainer, step):
+        with cs.CaptureBwd(attn, "_attn_bwd_cuda") as cap:
+            step(trainer)
+        del trainer
+        out = [k4_measure(cs, attn, f"{path}_HD{hd}", cap.per_width[hd], a)
+               for hd, a in sorted(cap.first.items())]
+        del cap
+        torch.cuda.empty_cache()
+        return out
+
+    for conv, n, forcing in (("TransformerConv", cs.TRAIN_STEPS + 1, 0.0),
+                             ("MHTransformerConv", 2, 0.5)):
+        batch = cs.train_batches(args.seed, n)[1][0]
+        for dtype in ("float32", "bfloat16"):
+            rows += capture(f"{conv}_{dtype}",
+                            cs.make_trainer(args.seed, run_dir, conv, dtype=dtype,
+                                            teacher_forcing_ratio=forcing),
+                            lambda tr: tr.train_step(*batch))
+    data, clim, mask = cs.ice_data(args.seed)
+    trainer = cs.make_ice_quadtree_model(args.seed, run_dir)
+    trainer.initiate_training(lr=cs.LR, lr_decay=0.95)
+    c = trainer._clim_batch(clim, data.launch_dates[:1])
+    rows += capture("ice_quadtree_bfloat16", trainer,
+                    lambda tr: tr.train_step(data.x[:1], data.y[:1], mask=mask, climatology=c,
+                                             truncated_backprop=cs.ICE_TBPTT))
+    del trainer, data, clim, mask, c
+    xb, yb = cs.shared_batches(args.seed, cs.BATCH, 1)[0]
+    trainer = cs.make_trainer(args.seed, run_dir, conv="TransformerConv", shared_mesh=True)
+    trainer.train_step(xb, yb)  # warm-up
+    rows += capture(f"shared_float32_b{cs.BATCH}", trainer, lambda tr: tr.train_step(xb, yb))
+    result["k4_sets"] = rows
+    result["k4_means"] = k4_means(rows)
 
 
 def _time_ice(cs, args, run_dir: str, result: dict) -> None:

@@ -61,7 +61,9 @@ Phases (each prints one line; any failure raises and exits non-zero):
    on the same windows with q, k, v, Wₑ from ``--seed`` (``k3_wide``,
    ≤1e-5, timed beside its bound); K4 against
    autograd through ``attn_plain`` on the cotangents of one train step at
-   every HD (≤1e-5 × max(1, max|grad|)), through the graph's slot view;
+   every HD (≤1e-5 × max(1, max|grad|)), through the graph's slot view,
+   bit-identical on a repeat, with its plan (``bwd_plan``) and the
+   geometry the C entry reports;
    K3 and K4's whole backward (both kernels, the dWₑ sum) timed by CUDA
    graph and by events, beside their bounds; the per-mesh
    view builds (pixel view, K4's slot view) timed on a decoder mesh; K7
@@ -1383,20 +1385,23 @@ def attn_phases(seed: int, card: str, spmm, attn, segment, segment_sum, loader, 
     del seg_f, seg_t, sets
     bwd = []
     for hd, args in sorted(cap_b.first.items()):
-        errs, rel = {}, {}
-        for name, a, p in zip(("dq", "dk", "dv", "dwe"), attn._attn_bwd_cuda(*args),
-                              attn.attn_bwd_plain(*args)):
+        errs, rel, geometry = {}, {}, {}
+        kern = attn._attn_bwd_cuda(*args, geometry=geometry)
+        for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern, attn.attn_bwd_plain(*args)):
             errs[name] = float((a - p).abs().max())
             rel[name] = errs[name] / max(1.0, float(p.abs().max()))
         check(max(rel.values()) <= K4_TOL, f"K4 differs from the plain backward at HD={hd}: "
               f"{rel}")
+        check(all(torch.equal(a, b) for a, b in zip(kern, attn._attn_bwd_cuda(*args))),
+              f"K4 differs from itself on a repeat at HD={hd}")
         check(args[8] is not None, "K4 ran without the graph's slot view")
         bound, b_ms, o_ms = attn_bound_ms(attn, args, backward=True)
         # the whole backward: both kernels, the dWₑ sum and the allocations,
         # on the graph's view; by graph (the card's own time) and by events
         bwd.append(dict(HD=hd, calls=cap_b.per_width[hd], abs_err=errs, err_rel_to_max=rel,
                         max_abs_err=max(errs.values()), keep=args[4] is not None,
-                        live_tiles=int(args[5].live.long().sum()),
+                        live_tiles=int(args[5].live.long().sum()), repeat_identical=True,
+                        plan=attn.bwd_plan(args[6])._asdict(), geometry=geometry,
                         ms=graph_ms(lambda: attn._attn_bwd_cuda(*args)),
                         events_ms=cuda_ms(lambda: attn._attn_bwd_cuda(*args)),
                         plain_ms=cuda_ms(lambda: attn.attn_bwd_plain(*args)),
@@ -3056,8 +3061,8 @@ def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segme
     grid_paths = (launches, grid_train, ICE_TRAIN_STEPS)
     pallas, grid_src = "quadtree_mpnnlstm_tpu/ops/pallas_attn.py", \
         "quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py"
-    return [entry("attn_apply", "attn.cu", f"{pallas}:372", fwd, windows_paths),
-            entry("attn_apply_bwd", "attn.cu", f"{pallas}:424", bwd, windows_paths),
+    return [entry("attn_apply", "attn.cuh", f"{pallas}:372", fwd, windows_paths),
+            entry("attn_apply_bwd", "attn_bwd.cuh", f"{pallas}:424", bwd, windows_paths),
             entry("grid_attn_apply", "grid_attn.cu", f"{grid_src}:446",
                   [w for w in grid_fwd if not w["keep"]], grid_paths),
             entry("grid_attn_apply_bwd", "grid_attn.cu", f"{grid_src}:446",
@@ -6855,13 +6860,13 @@ def main() -> int:
                               f"train_{steps}_steps": train_launches[name]})
 
     grid_src = "quadtree_mpnnlstm_tpu/ops/pallas_grid_attn.py"
-    k3_entry = attn_entry("attn_apply", "attn.cu", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372",
+    k3_entry = attn_entry("attn_apply", "attn.cuh", "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:372",
                           k3_widths, attn_launches, attn_train_launches, TRAIN_STEPS)
     # HD 256 (8 × d 32) on the same windows; the ice-quadtree path's own
     # windows are in ice_quadtree_hd256 (phase 42)
     k3_entry["k3_wide"] = {k: k3_wide[k] for k in ("HD", "max_abs_err", "ms", "events_ms",
                                                    "plain_ms", "bound_ms", "plan")}
-    k4_entry = attn_entry("attn_apply_bwd", "attn.cu",
+    k4_entry = attn_entry("attn_apply_bwd", "attn_bwd.cuh",
                           "quadtree_mpnnlstm_tpu/ops/pallas_attn.py:424",
                           k4_widths, attn_launches, attn_train_launches, TRAIN_STEPS)
     # the ice-quadtree path (phase 42): HD 256 on its own windows, bf16 and f32

@@ -1,6 +1,6 @@
 """Fused TransformerConv aggregation over dst-sorted edge windows: window
-metadata, two CUDA kernels (``csrc/attn.cu``) and their plain PyTorch
-versions.
+metadata, two CUDA kernels (K3 ``csrc/attn.cuh``, K4 ``csrc/attn_bwd.cuh``,
+built a dtype a source) and their plain PyTorch versions.
 
 Counterpart of ``quadtree_mpnnlstm_tpu/ops/pallas_attn.py``. The windows
 are the SpMM's (:func:`~quadtree_mpnnlstm_tpu_torch.ops.spmm.window_geometry`):
@@ -29,7 +29,8 @@ whole heads (:func:`head_groups`: the fewest groups that fit, each on its
 heads' columns); heads are independent, so the groups' outputs side by
 side are the call's. Each kernel launch, each group's too, adds one to
 :data:`LAUNCHES` (a bf16 launch to :data:`LAUNCHES_BF16`). K3's launch
-geometry is :func:`fwd_plan`'s, a pure function of the widths.
+geometry is :func:`fwd_plan`'s and K4's :func:`bwd_plan`'s, pure functions
+of the widths.
 
 q, k, v and Wₑ (and the cotangent) are float32 or bfloat16, all four in
 one dtype; the window attributes and ``keep`` stay float32. In bf16 both
@@ -38,10 +39,11 @@ and round each output (out, dq, dk, dv) to bf16 once; dWₑ is summed in f32
 and then cast to Wₑ's dtype, as the JAX package's kernels do.
 
 :class:`AttnApply` makes the aggregation differentiable in q, k, v and Wₑ
-on both devices: its backward (K4) recomputes α (flash-style), writes dq,
-two scalars per slot and head (dlogit·scale and α·keep) and per-CTA dWₑ
-partials, then gathers dk and dv per source node over the source-sorted
-slot view (:func:`slot_view`, built once per mesh) in a second kernel. No
+on both devices: its backward (K4) recomputes α (flash-style) from one
+read of each slot's k and v, writes dq, two scalars per slot and head
+(dlogit·scale and α·keep) and one dWₑ partial a CTA, then gathers dk and dv
+per source node over the source-sorted slot view (:func:`slot_view`, built
+once per mesh) in a second kernel. No
 sum on the card uses float atomics, so a training step is
 bit-reproducible. The windows, ``keep`` and the edge attributes carry no
 gradient.
@@ -68,14 +70,12 @@ from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import (
 LAUNCHES = {"attn_apply": 0, "attn_apply_bwd": 0}
 LAUNCHES_BF16 = dict(LAUNCHES)
 
-# destination rows per CTA of K4's first kernel; feature width and attribute
-# columns both kernels accept (csrc/attn.cu kMaxRows, 32 lanes x 16
-# features, kMaxA)
-ROWS_PER_CTA = 16
+# feature width and attribute columns both kernels accept (csrc/attn.cuh:
+# H * D <= 512, kMaxA)
 MAX_HD = 512
 MAX_A = 4
-# K3: the compiled (run, chunk) pairs — features a lane holds, slots it
-# holds in flight (csrc/attn.cu fwd_instance); warps a CTA at most
+# K3 and K4: the compiled (run, chunk) pairs — features a lane holds, slots
+# it holds in flight (csrc/attn.cuh fwd_instance); warps a CTA at most
 # (kFwdMaxWarps); shared memory a CTA may opt into on an H100
 FWD_INSTANCES = ((1, 16), (2, 8), (4, 4), (4, 8), (8, 4), (16, 2))
 FWD_MAX_WARPS = 8
@@ -141,7 +141,7 @@ def attn_tile_meta(
 
 
 class FwdPlan(NamedTuple):
-    """K3's launch geometry (csrc/attn.cu ``attn_fwd_kernel``). An item is
+    """K3's launch geometry (csrc/attn.cuh ``attn_fwd_kernel``). An item is
     a destination row's slice of ``heads_item`` heads; a warp holds
     ``items_warp`` items at once (rows a warp when ``slices`` is 1)."""
 
@@ -215,10 +215,69 @@ def fwd_plan(dims: AttnDims, itemsize: int = 4) -> FwdPlan:
 
 def fwd_smem_bytes(dims: AttnDims, a: int = MAX_A) -> int:
     """Dynamic shared memory of one K3 CTA with ``a`` attribute columns
-    (csrc/attn.cu ``fwd_smem_words``): its rows' first slots, the group's
+    (csrc/attn.cuh ``fwd_smem_words``): its rows' first slots, the group's
     slot range and the tile's dst_rel, src_rel and attributes."""
     pad4 = lambda n: -(-n // 4) * 4  # noqa: E731
     return 4 * (pad4(fwd_plan(dims).rows_cta + 3) + 2 * pad4(dims.eb) + dims.eb * a)
+
+
+def _bwd_run(heads: int, d: int, itemsize: int) -> int:
+    """The run of contiguous features a K4 lane holds: K3's rule
+    (:func:`_fwd_run`), but starting from a 16-byte vector, 8 features in
+    bf16 where d % 8 == 0, so that bf16 rows load 16 bytes a lane as f32
+    ones do; then, where a row's heads fill a warp, a run twice as long
+    where d allows it, so that two rows share a warp (8 heads × d 32: runs
+    of 16, 16 lanes a row), or, where runs of 16 leave a warp to several
+    heads of one lane each, runs of 8 with four slots in flight and the
+    heads in slices (24 heads × d 16: two slices of 16 heads)."""
+    run = _fwd_run(heads, d)
+    lanes = lambda r: _pow2ceil(-(-d // r))  # noqa: E731
+    if itemsize == 2 and run == 4 and d % 8 == 0 and lanes(8) <= 32:
+        run = 8
+    if run % 4 == 0 and d % run == 0:
+        if run < 16 and d % (2 * run) == 0 and heads * lanes(run) == 32:
+            return 2 * run
+        if run == 16 and heads > 1 and heads * lanes(16) > 16 and lanes(8) <= 16:
+            return 8
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(dims: AttnDims, itemsize: int = 4) -> FwdPlan:
+    """K4's CTA geometry (csrc/attn_bwd.cuh ``attn_bwd_kernel`` and
+    ``attn_bwd_src_kernel``) for these widths and ``itemsize``-byte
+    operands, in :class:`FwdPlan`'s fields. K3's lane layout (a head takes
+    ``lanes_head`` lanes of ``run`` features, narrow rows pack a warp), with
+    bf16 runs of 8 where d allows (:func:`_bwd_run`: HD 16 packs 16 rows a
+    warp in bf16, 8 in f32). A unit of the first kernel is a 32-row group
+    (64 at 32 rows a warp) and one slice of heads: a CTA serves one slice,
+    so that a lane's dWₑ columns stay fixed, and ``groups_sample`` counts
+    row groups (the units are ``groups_sample · slices`` a sample). The
+    second kernel takes the same layout over source rows, 8 warps a CTA."""
+    heads, d = dims.heads, dims.d
+    run = _bwd_run(heads, d, itemsize)
+    lanes_head = _pow2ceil(-(-d // run))
+    heads_item = min(heads, 32 // lanes_head)
+    lanes_item = _pow2ceil(heads_item * lanes_head)
+    slices = -(-heads // heads_item)
+    items_warp = 32 // lanes_item
+    rows = min(dims.nt, max(32, 2 * items_warp))
+    warps = min(FWD_MAX_WARPS, -(-rows // items_warp))
+    tiles = -(-dims.n_max // dims.nt)
+    chunks = [c for r, c in FWD_INSTANCES if r == run]
+    chunk = max(chunks) if items_warp > 1 else min(chunks)
+    vec_bytes = min(16, run * itemsize) if run % 4 == 0 and d % run == 0 else 0
+    return FwdPlan(run, lanes_head, heads_item, lanes_item, slices, items_warp, warps, rows,
+                   chunk, tiles * -(-dims.nt // rows), vec_bytes)
+
+
+def bwd_smem_bytes(dims: AttnDims, a: int = MAX_A, itemsize: int = 4) -> int:
+    """Dynamic shared memory of one CTA of K4's first kernel (csrc/attn_bwd.cuh
+    ``bwd_smem_words``): K3's staging of its plan's rows, or the dWₑ
+    reduction's warps · 32 · run words, whichever is more."""
+    p = bwd_plan(dims, itemsize)
+    pad4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    return 4 * max(pad4(p.rows_cta + 3) + 2 * pad4(dims.eb) + dims.eb * a, 32 * p.warps * p.run)
 
 
 def slot_nodes(meta: AttnMeta, dims: AttnDims) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -383,11 +442,12 @@ def attn_combine_plain(dlog, used, q, g, meta: AttnMeta, dims: AttnDims):
 # ------------------------------------------------------- CUDA kernels
 
 
-def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
+def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, source: str):
     """Check the operands of both kernels: q, k, v and we in one dtype,
     float32 or bfloat16, the windows and keep float32; windows of batch 1
-    (a shared mesh) serve every sample. Returns (lib, pointers, ints, the
-    entry points' suffix)."""
+    (a shared mesh) serve every sample. Returns (the library of
+    ``csrc/<source>.cu``, or ``<source>_bf16.cu`` for bf16 operands,
+    pointers, ints, the entry points' suffix)."""
     from quadtree_mpnnlstm_tpu_torch.ops.cuda_build import load_library
 
     n_max, nt, eb, sw, heads, d = dims
@@ -421,7 +481,8 @@ def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims):
     ptrs.append(ctypes.c_void_p(None if keep is None else keep.data_ptr()))
     ptrs += [spmm._ptr(x) for x in meta]
     ints = (b, bm, t, eb, nt, sw, n_max, heads, d, a, kh)
-    return load_library("attn.cu"), ptrs, ints, spmm.KERNEL_DTYPES[q.dtype]
+    suffix = spmm.KERNEL_DTYPES[q.dtype]
+    return load_library(f"{source}{suffix}.cu"), ptrs, ints, suffix
 
 
 def _scale(d: int) -> ctypes.c_float:
@@ -441,7 +502,7 @@ def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims,
     launched (:data:`FWD_GEOMETRY`: CTAs, row groups, threads a CTA, shared
     bytes, run, chunk, and whether rows were read as vectors and windows
     moved 16 bytes a copy)."""
-    lib, ptrs, ints, suffix = _launch_args(q, k, v, we, keep, meta, dims)
+    lib, ptrs, ints, suffix = _launch_args(q, k, v, we, keep, meta, dims, "attn")
     plan = fwd_plan(dims, q.element_size()) if plan is None else plan
     if fwd_smem_bytes(dims, meta.attr.shape[-1]) > SMEM_LIMIT:
         raise ValueError(f"attn_apply: EB={dims.eb} needs more shared memory than a CTA has")
@@ -458,33 +519,47 @@ def _attn_fwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims,
     return out
 
 
-def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=None):
-    """Launch K4 (``qtm_attn_bwd``, or ``_bf16`` for bf16 operands: the
-    per-destination kernel, which writes dq, the per-slot scalars and the
-    per-CTA dWₑ partials, then the per-source kernel, which gathers dk and
-    dv over ``view``, the slots' :func:`slot_view`, built here when None)
-    and sum the f32 dWₑ partials in a fixed order. Returns (dq, dk, dv, dwe)
-    in q's dtype."""
-    lib, ptrs, ints, suffix = _launch_args(q, k, v, we, keep, meta, dims)
+BWD_GEOMETRY = ("ctas", "units", "block", "smem", "run", "chunk", "vec", "vec_win", "src_ctas")
+
+
+def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=None,
+                   plan: Optional[FwdPlan] = None, geometry: Optional[dict] = None):
+    """Launch K4 (``qtm_attn_bwd``, or ``_bf16`` for bf16 operands) with
+    ``plan`` (default :func:`bwd_plan`): the per-destination kernel, which
+    writes dq, the per-slot scalars and one f32 dWₑ partial a CTA, then the
+    per-source kernel, which gathers dk and dv over ``view``, the slots'
+    :func:`slot_view` (built here when None), and sums the partials in CTA
+    order. When ``geometry`` is a dict it receives what was launched
+    (:data:`BWD_GEOMETRY`). Returns (dq, dk, dv, dwe) in q's dtype."""
+    lib, ptrs, ints, suffix = _launch_args(q, k, v, we, keep, meta, dims, "attn_bwd")
     spmm._check(g, "g", q.dtype, tuple(q.shape))
     bm, t, eb = meta.dst_rel.shape
     b = q.shape[0]
     a, hd = we.shape
+    plan = bwd_plan(dims, q.element_size()) if plan is None else plan
+    if bwd_smem_bytes(dims, a, q.element_size()) > SMEM_LIMIT:
+        raise ValueError(f"attn_apply_bwd: EB={dims.eb} needs more shared memory than a CTA has")
     if view is None:
         view = slot_view(meta, dims)
     spmm._check(view.order, "view order", torch.int32, (bm * t * eb,))
     spmm._check(view.offsets, "view offsets", torch.int32, (bm, dims.n_max + 1))
-    groups = -(-dims.nt // ROWS_PER_CTA)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     scalars = torch.empty((2, b, t * eb, dims.heads), dtype=torch.float32, device=q.device)
-    dwe_part = torch.empty((b, t * groups, a, hd), dtype=torch.float32, device=q.device)
+    units = b * t * -(-dims.nt // plan.rows_cta) * plan.slices
+    dwe_part = torch.empty((units, a, hd), dtype=torch.float32, device=q.device)
+    dwe = (torch.empty if units else torch.zeros)((a, hd), dtype=we.dtype, device=q.device)
+    launched = (ctypes.c_int * len(BWD_GEOMETRY))()
     err = getattr(lib, "qtm_attn_bwd" + suffix)(
         *ptrs, spmm._ptr(g), spmm._ptr(view.order), spmm._ptr(view.offsets), spmm._ptr(dq),
         spmm._ptr(dk), spmm._ptr(dv), spmm._ptr(scalars[0]), spmm._ptr(scalars[1]),
-        spmm._ptr(dwe_part), *ints, ROWS_PER_CTA, _scale(dims.d), spmm._stream())
+        spmm._ptr(dwe_part), spmm._ptr(dwe), *ints, plan.run, plan.lanes_head, plan.heads_item,
+        plan.lanes_item, plan.slices, plan.warps, plan.rows_cta, plan.chunk, units,
+        _scale(dims.d), spmm._stream(), launched)
     spmm._raise_on(err, "attn_apply_bwd")
     (LAUNCHES_BF16 if suffix else LAUNCHES)["attn_apply_bwd"] += 1
-    return dq, dk, dv, dwe_part.sum(dim=(0, 1)).to(we.dtype)
+    if geometry is not None:
+        geometry.update(zip(BWD_GEOMETRY, launched))
+    return dq, dk, dv, dwe
 
 
 # ------------------------------------------------------- head groups

@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` (H100)
 into a shared library with a plain C interface, bound with ``ctypes``. The
 build runs at first use into ``build/cuda/`` at the root of the checkout
-(listed in ``.gitignore``) and is keyed by a hash of the source and flags,
-so an edited kernel is rebuilt. ``nvcc``'s register/shared-memory report
+(listed in ``.gitignore``) and is keyed by a hash of the source, the
+headers beside it (``csrc/*.cuh``, shared by several sources) and the
+flags, so an edited kernel is rebuilt. ``nvcc``'s register/shared-memory report
 (``-Xptxas -v``) is kept beside each library as ``<name>.log``.
 """
 
@@ -50,18 +51,20 @@ SIGNATURES = {
         "qtm_spmm_apply_rowwarp": [_P] * 5 + [_C] * 8 + [_P],
         "qtm_spmm_apply_rowwarp_bf16": [_P] * 5 + [_C] * 8 + [_P],
     },
-    "attn.cu": {
-        # q, k, v, we, keep, s0, src_rel, dst_rel, attr, live, out,
-        # B, metadata batch (B or 1), T, EB, NT, SW, n_max, H, D, A, KH, then
-        # the plan: run, lanes a head, heads an item, lanes an item, slices,
-        # warps, rows, chunk; scale, stream, geometry (host int[8] or null)
-        "qtm_attn_fwd": [_P] * 11 + [_C] * 19 + [ctypes.c_float, _P, _P],
-        "qtm_attn_fwd_bf16": [_P] * 11 + [_C] * 19 + [ctypes.c_float, _P, _P],
-        # ... live, g, view order, view offsets, dq, dk, dv, dlog, used,
-        # dwe_part, B, metadata batch, T, ..., rows, scale, stream
-        "qtm_attn_bwd": [_P] * 19 + [_C] * 12 + [ctypes.c_float, _P],
-        "qtm_attn_bwd_bf16": [_P] * 19 + [_C] * 12 + [ctypes.c_float, _P],
-    },
+    # K3 and K4, each dtype a source of its own (templates in attn.cuh,
+    # attn_bwd.cuh): q, k, v, we, keep, s0, src_rel, dst_rel, attr, live,
+    # out, B, metadata batch (B or 1), T, EB, NT, SW, n_max, H, D, A, KH,
+    # then the plan: run, lanes a head, heads an item, lanes an item,
+    # slices, warps, rows, chunk; scale, stream, geometry (host int[8] or
+    # null)
+    "attn.cu": {"qtm_attn_fwd": [_P] * 11 + [_C] * 19 + [ctypes.c_float, _P, _P]},
+    "attn_bf16.cu": {"qtm_attn_fwd_bf16": [_P] * 11 + [_C] * 19 + [ctypes.c_float, _P, _P]},
+    # ... live, g, view order, view offsets, dq, dk, dv, dlog, used,
+    # dwe_part, dwe, B, metadata batch, T, ..., KH, the plan (as the
+    # forward's), units (dwe_part's room); scale, stream, geometry (host
+    # int[9] or null)
+    "attn_bwd.cu": {"qtm_attn_bwd": [_P] * 20 + [_C] * 20 + [ctypes.c_float, _P, _P]},
+    "attn_bwd_bf16.cu": {"qtm_attn_bwd_bf16": [_P] * 20 + [_C] * 20 + [ctypes.c_float, _P, _P]},
     "grid_attn.cu": {
         # q, k, v, e_dir, valid, keep, out,
         # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
@@ -93,8 +96,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library of ``csrc/<source>``, keyed by the source, the headers it
+    may include (``csrc/*.cuh``) and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    text = (CSRC / source).read_bytes() + headers
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 
 

@@ -160,7 +160,7 @@ FWD_WIDTHS = [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (24, 16), (64, 1), (3, 
 
 
 def _replay_fwd_plan(heads, d, nt, itemsize):
-    """K3's launch, replayed as csrc/attn.cu ``attn_fwd_kernel`` indexes it
+    """K3's launch, replayed as csrc/attn.cuh ``attn_fwd_kernel`` indexes it
     for ``itemsize``-byte operands: returns how often each (sample, row,
     feature) below n_max of two samples is written, after checking that the
     plan is one the kernel takes, that its shared memory fits at A = 4 and
@@ -209,7 +209,7 @@ def _replay_fwd_plan(heads, d, nt, itemsize):
 @pytest.mark.parametrize("nt", [128, 64])
 @pytest.mark.parametrize("heads,d", FWD_WIDTHS)
 def test_fwd_plan_covers_every_row_and_feature_once(heads, d, nt):
-    """K3's launch, replayed as csrc/attn.cu ``attn_fwd_kernel`` indexes it
+    """K3's launch, replayed as csrc/attn.cuh ``attn_fwd_kernel`` indexes it
     (tile-major row groups, each CTA's walk over them, items of a row's
     heads, lanes of a head, runs of features): every (row, feature) below
     n_max of two samples is written exactly once; the plan is one the
@@ -250,7 +250,7 @@ def test_fwd_plan_is_valid_at_every_width():
 
 
 def _k3_model(q, k, v, we, keep, meta, dims):
-    """A numpy model of csrc/attn.cu ``attn_fwd_kernel``'s arithmetic, in
+    """A numpy model of csrc/attn.cuh ``attn_fwd_kernel``'s arithmetic, in
     f32. Per (row, head), with scale · log2(e) folded into q (the kernel
     takes exp2 of logits in log2 units): each lane's run of
     features sums q · k in feature order, adds the edge term as
@@ -379,3 +379,349 @@ def test_fwd_chunked_online_softmax_matches_attn_plain(windows, mesh, heads, d, 
                             meta, dims).numpy()
     got = _k3_model(q, k, v, we, keep, meta, dims)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- K4's geometry
+
+# the widths the paths launch K4 at (HD 1, 3, 16, 48, 128, 256, 384 as 24
+# × 16 and 12 × 32, 512) and two whose heads take several slices
+BWD_WIDTHS = [(1, 1), (3, 1), (1, 16), (3, 16), (8, 16), (8, 32), (24, 16), (12, 32),
+              (16, 32), (1, 512), (5, 33), (3, 132)]
+
+
+def _lane_layout(p, warps):
+    """Per thread of a CTA of ``warps`` warps: warp, item within the warp,
+    head within the slice, first feature within the head."""
+    lane = np.arange(warps * 32)
+    warp, lane = lane // 32, lane % 32
+    sub = lane % p.lanes_item
+    return warp, lane // p.lanes_item, sub // p.lanes_head, (sub % p.lanes_head) * p.run
+
+
+def _replay_bwd_plan(heads, d, nt, itemsize, ctas):
+    """K4's two kernels, replayed as csrc/attn_bwd.cuh indexes them on two
+    samples of three tiles (sample 1's last tile dead) with a grid of at
+    most ``ctas`` first-kernel CTAs: returns how often each (sample, row,
+    feature) of dq is written, each (source row, feature) of dk/dv, and
+    each dWₑ column by a CTA's reduction, after checking that the plan is
+    one the kernels take and that its shared memory fits at A = 4."""
+    b, n_max, live = 2, 3 * nt - 5, (3, 2)
+    dims = tattn.AttnDims(n_max, nt, 1024, 1024, heads, d)
+    p = tattn.bwd_plan(dims, itemsize)
+    hd = heads * d
+    pow2 = lambda x: x & (x - 1) == 0  # noqa: E731
+    assert pow2(p.lanes_head) and p.lanes_head <= 32 and p.lanes_head * p.run >= d
+    assert pow2(p.lanes_item) and p.lanes_item <= 32 and p.items_warp * p.lanes_item == 32
+    assert p.heads_item * p.lanes_head <= p.lanes_item and p.slices * p.heads_item >= heads
+    assert p.slices == 1 or p.lanes_item == 32  # a slice's CTA: one item a warp
+    assert (p.run, p.chunk) in tattn.FWD_INSTANCES and 1 <= p.rows_cta <= nt
+    assert 1 <= p.warps <= tattn.FWD_MAX_WARPS
+    assert tattn.bwd_smem_bytes(dims, 4, itemsize) <= tattn.SMEM_LIMIT
+    if p.vec_bytes:  # 16-byte loads where d takes them
+        assert p.vec_bytes == min(16, p.run * itemsize) and d % p.run == 0
+    groups = -(-nt // p.rows_cta)
+    assert p.groups_sample == 3 * groups
+    n_groups = b * p.groups_sample
+    units = n_groups * p.slices
+    grid = min(units, max(1, ctas // p.slices) * p.slices)
+    walkers = grid // p.slices
+    warp, k, hl, f0 = _lane_layout(p, p.warps)
+    per_pass = p.warps * p.items_warp
+    dq = np.zeros((b, n_max, hd), np.int64)
+    for cta in range(grid):
+        sl = cta % p.slices
+        h = sl * p.heads_item + hl
+        for g in range(cta // p.slices, n_groups, walkers):
+            bt = g // groups
+            bb, t = bt % b, bt // b
+            r0 = (g % groups) * p.rows_cta
+            rows = min(p.rows_cta, nt - r0, n_max - t * nt - r0)
+            if rows <= 0:
+                continue
+            if t >= live[bb]:  # a dead tile's rows: zero stores by slice 0
+                dq[bb, t * nt + r0:t * nt + r0 + rows] += sl == 0
+                continue
+            for i0 in range(0, rows, per_pass):
+                item = i0 + warp * p.items_warp + k
+                on = (item < rows) & (hl < p.heads_item) & (h < heads) & (f0 < d)
+                for i in range(p.run):
+                    ok = on & (f0 + i < d)
+                    np.add.at(dq, (bb, t * nt + r0 + item[ok], (h * d + f0 + i)[ok]), 1)
+    # a CTA's dWₑ reduction: column c of its slice, summed over the lanes
+    # whose run holds it
+    dwe = np.zeros(hd, np.int64)
+    for sl in range(p.slices):
+        c = np.arange(hd)
+        hlc = c // d - sl * p.heads_item
+        mine = (hlc >= 0) & (hlc < p.heads_item)
+        sub = (hlc * p.lanes_head + (c % d) // p.run)[mine]
+        first = (sub % p.lanes_head) * p.run
+        assert (sub < p.lanes_item).all() and (sub // p.lanes_head == hlc[mine]).all()
+        assert ((first <= c[mine] % d) & (c[mine] % d < first + p.run)).all()
+        dwe += mine
+    # the second kernel: 8 warps a CTA, items (source row, slice)
+    items = b * n_max * p.slices
+    warp, k, hl, f0 = _lane_layout(p, 8)
+    src_ctas = -(-items // (8 * p.items_warp))
+    item = ((np.arange(src_ctas)[:, None] * 8 + warp[None]) * p.items_warp + k[None]).ravel()
+    hl, f0 = np.tile(hl, src_ctas), np.tile(f0, src_ctas)
+    row, h = item // p.slices, (item % p.slices) * p.heads_item + hl
+    on = (row < b * n_max) & (hl < p.heads_item) & (h < heads) & (f0 < d)
+    dk = np.zeros((b * n_max, hd), np.int64)
+    for i in range(p.run):
+        ok = on & (f0 + i < d)
+        np.add.at(dk, (row[ok], (h * d + f0 + i)[ok]), 1)
+    return dq, dk, dwe, p
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("heads,d", BWD_WIDTHS)
+def test_bwd_plan_covers_every_row_and_feature_once(heads, d, itemsize):
+    """K4's launch, replayed as csrc/attn_bwd.cuh ``attn_bwd_kernel`` and
+    ``attn_bwd_src_kernel`` index it, in f32 and bf16 at every width the
+    paths use, with a grid of 1, 7 or every unit: every (row, feature) of
+    dq below n_max of two samples written once (live rows by their lanes,
+    dead tiles' rows by the zero stores), every (source row, feature) of dk
+    and dv once, every dWₑ column by one CTA slice's reduction; bf16 runs
+    are 16-byte loads where d % 8 == 0, and HD 16 and HD 1 pack rows into a
+    warp."""
+    for ctas in (1, 7, 10 ** 6):
+        dq, dk, dwe, p = _replay_bwd_plan(heads, d, 128, itemsize, ctas)
+        assert (dq == 1).all() and (dk == 1).all() and (dwe == 1).all(), ctas
+    if d % 8 == 0 and p.lanes_head * p.run == d:
+        assert p.vec_bytes == 16
+    if heads * d in (1, 16):
+        assert p.items_warp >= 8
+
+
+def test_bwd_plan_is_valid_at_every_width():
+    """Every heads·d the wrapper accepts (≤ MAX_HD) gets a K4 plan the
+    kernels take in both dtypes, with at most one item a warp where a row's
+    heads take several slices."""
+    for itemsize in (4, 2):
+        for d in range(1, tattn.MAX_HD + 1):
+            for heads in range(1, tattn.MAX_HD // d + 1):
+                p = tattn.bwd_plan(tattn.AttnDims(2048, 128, 1024, 1024, heads, d), itemsize)
+                assert p.lanes_head & (p.lanes_head - 1) == 0 and p.lanes_head <= 32
+                assert p.lanes_head * p.run >= d and (p.run, p.chunk) in tattn.FWD_INSTANCES
+                assert p.heads_item * p.lanes_head <= p.lanes_item <= 32, (heads, d)
+                assert p.slices * p.heads_item >= heads and p.slices <= 32, (heads, d)
+                assert p.slices == 1 or p.lanes_item == 32, (heads, d)
+
+
+def _k4_model(q, k, v, we, keep, meta, dims, g, ctas=7):
+    """A numpy model of csrc/attn_bwd.cuh K4 in f32, in its order of sums. Per
+    (row, head), K3's lane runs (:func:`tattn.bwd_plan`): each chunk of
+    ``plan.chunk`` slots reads its k and v runs once, forms each lane's
+    share of q · k + Σ_a attr_a (q · Wₑ[a]) and g · v + Σ_a attr_a (g ·
+    Wₑ[a]), finishes both by the xor butterfly, and takes the logit in
+    log2 units (× scale · log2 e) and dα = keep · g · (v + e); pass 1 runs
+    the max, denominator and rowdot online over the chunks with exp2; pass 2
+    forms α, dlog = α (dα − rowdot) · scale and used = α · keep in ascending
+    slot order, dq = Σ dlog k + Σ_a (Σ dlog attr_a) Wₑ[a] and the row's dWₑ
+    terms q · Σ dlog attr_a + g · Σ used attr_a. dWₑ: each unit walker's
+    lanes (as ``attn_bwd_kernel`` walks the row groups with ``ctas`` CTAs)
+    accumulate their rows' terms, a walker sums its lanes in (warp, item)
+    order, and the walkers are summed in order. dk, dv: Σ dlog q[dst] and
+    Σ used g[dst] over the slot view in ascending slot order. Pass 2 takes
+    the warp's last chunk first (a warp holds ``plan.items_warp``
+    consecutive rows and runs its longest row's chunk count), then the
+    row's earlier chunks in order."""
+    p = tattn.bwd_plan(dims)
+    heads, d, nt, n_max = dims.heads, dims.d, dims.nt, dims.n_max
+    g_, run, chunk = p.lanes_head, p.run, p.chunk
+    s0, src_rel, dst_rel, attr, live = (x.numpy() for x in meta)
+    bsz, t_all, eb = dst_rel.shape
+    a_cols = attr.shape[-1]
+    f32 = np.float32
+    scale = f32(1.0 / np.sqrt(d))
+    qscale = scale * f32(1.44269504)
+    feat = np.arange(g_)[:, None] * run + np.arange(run)[None, :]  # (lanes, run)
+    fmask = feat < d
+    featc = np.minimum(feat, d - 1)
+    lanes = np.arange(g_)
+
+    def runs(x):  # (heads·d,) -> (heads, lanes, run), zero past d
+        return np.where(fmask, x.reshape(heads, d)[:, featc], f32(0))
+
+    def run_sum(x, y):
+        acc = np.zeros(x.shape[:-1], f32)
+        for i in range(run):
+            acc = acc + x[..., i] * y[..., i]
+        return acc
+
+    def butterfly(x):  # (heads, lanes) -> every lane the head's sum
+        o = 1
+        while o < g_:
+            x = x + x[:, lanes ^ o]
+            o *= 2
+        return x[:, 0]
+
+    def unruns(x):  # (heads, lanes, run) -> (heads·d,)
+        row = np.zeros((heads, d), f32)
+        row[:, feat[fmask]] = x[:, fmask]
+        return row.reshape(-1)
+
+    w = np.stack([runs(we[a]) for a in range(a_cols)])  # (A, heads, lanes, run)
+    zero = np.zeros((heads, g_, run), f32)
+    dq = np.zeros_like(q)
+    dlog = np.zeros((bsz, t_all * eb, heads), f32)
+    used = np.zeros_like(dlog)
+    groups = -(-nt // p.rows_cta)
+    n_groups = bsz * t_all * groups
+    walkers = max(1, min(n_groups, ctas // p.slices))
+    per_pass = p.warps * p.items_warp
+    acc = {}  # (walker, lane position) -> (A, heads, lanes, run)
+    for gi in range(n_groups):
+        bt = gi // groups
+        b, t = bt % bsz, bt // bsz
+        r0 = (gi % groups) * p.rows_cta
+        if t >= int(live[b]):
+            continue
+        key = np.where(dst_rel[b, t] >= 0, dst_rel[b, t], np.iinfo(np.int32).max)
+        rows = range(r0, min(r0 + p.rows_cta, nt, n_max - t * nt))
+        bounds = [(np.searchsorted(key, r), np.searchsorted(key, r + 1)) for r in rows]
+        chunks = [-(-(hi - lo) // chunk) for lo, hi in bounds]
+        for r, (lo, hi) in zip(rows, bounds):
+            i = r - r0  # a warp holds items_warp consecutive rows: the chunk count is its most
+            nch = max(chunks[i - i % p.items_warp:i - i % p.items_warp + p.items_warp])
+            node = t * nt + r
+            qv, gv = runs(q[b, node]), runs(g[b, node])
+            qw = [run_sum(qv, w[a]) for a in range(a_cols)]
+            gw = [run_sum(gv, w[a]) for a in range(a_cols)]
+
+            def chunk_of(jb):
+                out = []
+                for j in range(jb, min(jb + chunk, hi)):
+                    sr = int(src_rel[b, t, j])
+                    src = int(s0[b, t]) + sr
+                    ok = 0 <= sr < dims.sw and src < n_max
+                    kr = runs(k[b, src]) if ok else zero
+                    vr = runs(v[b, src]) if ok else zero
+                    s1, s2 = run_sum(qv, kr), run_sum(gv, vr)
+                    for a in range(a_cols):
+                        s1 = s1 + attr[b, t, j, a] * qw[a]
+                        s2 = s2 + attr[b, t, j, a] * gw[a]
+                    kp = (np.ones(heads, f32) if keep is None else
+                          keep[b, t, np.minimum(np.arange(heads), keep.shape[2] - 1), j])
+                    out.append((j, kr, butterfly(s1) * qscale, kp * butterfly(s2), kp))
+                return out
+
+            m = np.full(heads, -np.inf, f32)
+            den = np.zeros(heads, f32)
+            rd = np.zeros(heads, f32)
+            for jb in range(lo, hi, chunk):  # pass 1: one read of each slot
+                ch = chunk_of(jb)
+                mn = np.maximum(m, np.max([c[2] for c in ch], axis=0))
+                corr = np.exp2(m - mn)
+                den, rd = den * corr, rd * corr
+                for _, _, lg, da, _ in ch:
+                    pe = np.exp2(lg - mn)
+                    den = den + pe
+                    rd = rd + pe * da
+                m = mn
+            inv = f32(1) / np.maximum(den, f32(1e-30))
+            rowdot = rd * inv
+            dqa = np.zeros((heads, g_, run), f32)
+            ad = np.zeros((a_cols, heads), f32)
+            au = np.zeros((a_cols, heads), f32)
+            # pass 2: the warp's last chunk first (from registers), then the
+            # row's earlier chunks again, in order
+            for c in ([nch - 1] + list(range(nch - 1))) if nch else []:
+                for j, kr, lg, da, kp in chunk_of(lo + c * chunk):
+                    al = np.exp2(lg - m) * inv
+                    dl = al * (da - rowdot) * scale
+                    us = al * kp
+                    dqa = dqa + dl[:, None, None] * kr
+                    ad = ad + dl[None] * attr[b, t, j][:, None]
+                    au = au + us[None] * attr[b, t, j][:, None]
+                    dlog[b, t * eb + j], used[b, t * eb + j] = dl, us
+            for a in range(a_cols):
+                dqa = dqa + ad[a][:, None, None] * w[a]
+            dq[b, node] = unruns(dqa)
+            slot = gi % walkers, (r - r0) % per_pass
+            terms = np.stack([qv * ad[a][:, None, None] + gv * au[a][:, None, None]
+                              for a in range(a_cols)])
+            acc[slot] = acc.get(slot, np.zeros_like(terms)) + terms
+    dwe = np.zeros((a_cols, heads, g_, run), f32)
+    for wk in range(walkers):
+        part = np.zeros_like(dwe)
+        for pos in range(per_pass):
+            if (wk, pos) in acc:
+                part = part + acc[(wk, pos)]
+        dwe = dwe + part
+    dwe = np.stack([unruns(dwe[a]) for a in range(a_cols)])
+    # the second kernel, over the source-sorted view
+    view = tattn.slot_view(meta, dims)
+    order, offsets = view.order.numpy(), view.offsets.numpy()
+    dk, dv = np.zeros_like(q), np.zeros_like(q)
+    hidx = np.repeat(np.arange(heads), d)
+    for b in range(bsz):
+        for n in range(n_max):
+            for e in order[offsets[b, n]:offsets[b, n + 1]]:
+                slot = int(e) - b * t_all * eb
+                dst = slot // eb * nt + int(dst_rel[b, slot // eb, slot % eb])
+                dk[b, n] = dk[b, n] + dlog[b, slot][hidx] * q[b, dst]
+                dv[b, n] = dv[b, n] + used[b, slot][hidx] * g[b, dst]
+    return dq, dk, dv, dwe
+
+
+@pytest.mark.parametrize("mesh", ["quadtree", "star"])
+@pytest.mark.parametrize("heads,d,kh", [(8, 16, 8), (8, 16, 0), (1, 16, 1), (3, 8, 2),
+                                        (1, 1, 1), (8, 32, 0), (3, 12, 3)])
+def test_bwd_one_read_model_matches_attn_bwd_plain(windows, mesh, heads, d, kh):
+    """The numpy model of K4's order of sums (chunks read once, exp2 in log2
+    units, the dq and dWₑ folds, per-CTA dWₑ partials, the source gather in
+    slot order) against ``attn_bwd_plain`` within 1e-5 × max(1, max|grad|),
+    on the JAX package's meshes (dead tiles, isolated padding rows, rows of
+    up to 14 slots) and on a star (one row of 40 slots, more than a chunk
+    at every run), with keep rows a head, fewer keep rows, or none."""
+    meta = windows[0] if mesh == "quadtree" else _star_meta()
+    b, t = meta.s0.shape
+    dims = tattn.AttnDims(N_MAX, NT, EB, SW, heads, d)
+    rng = np.random.default_rng(heads * 10 + d + kh + 7)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, k, v, g = (mk(b, N_MAX, heads * d) for _ in range(4))
+    we = mk(meta.attr.shape[-1], heads * d)
+    keep = ((rng.random((b, t, kh, EB)) < 0.9) / 0.9).astype(np.float32) if kh else None
+    plain = tattn.attn_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, we)),
+                                 None if keep is None else torch.from_numpy(keep), meta, dims,
+                                 torch.from_numpy(g))
+    for name, mine, want in zip(("dq", "dk", "dv", "dwe"), _k4_model(q, k, v, we, keep, meta,
+                                                                       dims, g), plain):
+        want = want.numpy()
+        err = np.abs(mine - want).max()
+        assert err <= 1e-5 * max(1.0, np.abs(want).max()), (name, err)
+
+
+@pytest.mark.parametrize("heads,d,dropout", [(8, 16, True), (1, 1, False)])
+def test_bwd_one_read_model_matches_jax_vjp(windows, heads, d, dropout):
+    """The numpy model of K4 against the JAX package's ``attn_apply`` VJP
+    (its Pallas backward in interpret mode) on its own meshes, with keep
+    rows a head from numpy or none: dq, dk, dv per sample and dWₑ summed
+    over the batch within 1e-5 × max(1, max|grad|)."""
+    meta, jmetas = windows
+    b, t = meta.s0.shape
+    hd = heads * d
+    rng = np.random.default_rng(heads * 100 + d + 1)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    q, k, v, g = (mk(b, N_MAX, hd) for _ in range(4))
+    we = mk(2, hd)
+    keep = ((rng.random((b, t, heads, EB)) < 0.9) / 0.9).astype(np.float32) if dropout else None
+    dims = tattn.AttnDims(N_MAX, NT, EB, SW, heads, d)
+    mine = _k4_model(q, k, v, we, keep, meta, dims, g)
+    jdims = jattn.AttnDims(N_MAX, NT, EB, SW, heads, d)
+    jwe = 0.0
+    for s, jm in enumerate(jmetas):
+        jkeep = jnp.asarray(keep[s]) if dropout else jnp.ones((t, EB), jnp.float32)
+        _, vjp = jax.vjp(lambda qq, kk, vv, ww, jm=jm, jkeep=jkeep:
+                         jattn.attn_apply(qq, kk, vv, ww, jkeep, jm, jdims),
+                         jnp.asarray(q[s]), jnp.asarray(k[s]), jnp.asarray(v[s]),
+                         jnp.asarray(we))
+        jgrads = [np.asarray(x) for x in vjp(jnp.asarray(g[s]))]
+        for name, x, jg in zip("qkv", mine[:3], jgrads[:3]):
+            err = np.abs(x[s] - jg).max()
+            assert err <= 1e-5 * max(1.0, np.abs(jg).max()), (name, s, err)
+        jwe = jwe + jgrads[3]
+    err = np.abs(mine[3] - jwe).max()
+    assert err <= 1e-5 * max(1.0, np.abs(jwe).max()), err

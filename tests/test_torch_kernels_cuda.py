@@ -1540,6 +1540,146 @@ def test_attn_kernels_on_a_shared_mesh(card, heads, d, ragged, dropout):
         assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
 
 
+# ---------------------------------------------------------------- K4's plan
+
+# every (heads, d) the model paths launch K4 at: TransformerConv HD 1, 16,
+# 128; MH 3, 48, 384; ice-quadtree 256; the HD 768 groups (12 × 32) and 512
+K4_WIDTHS = [(1, 1), (3, 1), (1, 16), (3, 16), (8, 16), (8, 32), (24, 16), (12, 32), (16, 32),
+             (1, 512)]
+K4_DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _k4_close(kern, plain, what):
+    """K4's outputs against its plain version: f32 ≤1e-5 × max(1, max|grad|),
+    bf16 within one rounding."""
+    for name, a, p in zip(("dq", "dk", "dv", "dwe"), kern, plain):
+        if p.dtype == torch.bfloat16:
+            _bf16_close(a, p, f"{what} {name}")
+        else:
+            err = float((a - p).abs().max())
+            assert err <= 1e-5 * max(1.0, float(p.abs().max())), (what, name, err)
+
+
+def _k4_launch(attn, args, g, view=None):
+    """K4 once with its geometry: checks that it launched ``bwd_plan``'s
+    plan and counted one launch in its dtype's counter; returns the
+    outputs."""
+    q, dims, a = args[0], args[6], args[5].attr.shape[-1]
+    counts = attn.LAUNCHES_BF16 if q.dtype == torch.bfloat16 else attn.LAUNCHES
+    before = dict(counts)
+    got = {}
+    out = attn._attn_bwd_cuda(*args, g, view, geometry=got)
+    assert counts["attn_apply_bwd"] == before["attn_apply_bwd"] + 1
+    assert counts["attn_apply"] == before["attn_apply"]
+    plan = attn.bwd_plan(dims, q.element_size())
+    units = q.shape[0] * plan.groups_sample * plan.slices
+    assert got["units"] == units and 1 <= got["ctas"] <= units and got["ctas"] % plan.slices == 0
+    assert got["block"] == 32 * plan.warps and got["run"] == plan.run
+    assert got["chunk"] == plan.chunk and got["smem"] == attn.bwd_smem_bytes(dims, a,
+                                                                             q.element_size())
+    assert got["vec"] == int(plan.vec_bytes > 0) and got["src_ctas"] >= 1
+    return out
+
+
+@pytest.mark.parametrize("dtype", K4_DTYPES)
+@pytest.mark.parametrize("heads,d", K4_WIDTHS)
+@pytest.mark.parametrize("a,kh", [(2, "heads"), (4, 1), (2, 0)])
+def test_attn_backward_on_long_rows_at_every_width(card, heads, d, a, kh, dtype):
+    """K4 at every width the paths use, in f32 and bf16, on rows of 33 and
+    40 slots (longer than a chunk at every run), an isolated row and dead
+    tiles, at A = 2 and 4, with keep rows a head, one keep row, or none:
+    within its tolerance of the plain version, dq zero on dead tiles and
+    the isolated row, a repeat bit-identical, one launch of the plan."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _star_case(card, heads, d, a, False)
+    q, k, v, we, _, meta, dims = args
+    rows = heads if kh == "heads" else kh
+    keep = None
+    if rows:
+        u = torch.rand(2, meta.s0.shape[1], rows, dims.eb, device=card, generator=gen)
+        keep = (u < 0.9).float() / 0.9
+    args = (*(x.to(dtype) for x in (q, k, v, we)), keep, meta, dims)
+    g = torch.randn(q.shape, device=card, generator=gen).to(dtype)
+    kern = _k4_launch(attn, args, g)
+    _k4_close(kern, attn.attn_bwd_plain(*args, g), f"K4 {heads}x{d} A={a} KH={kh} {dtype}")
+    dq = kern[0]
+    assert not dq[0, 256:].any() and not dq[1, 128:].any() and not dq[0, 9].any()
+    assert all(torch.equal(x, y) for x, y in zip(kern, attn._attn_bwd_cuda(*args, g)))
+
+
+@pytest.mark.parametrize("dtype", K4_DTYPES)
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 16), (8, 16), (8, 32), (24, 16)])
+def test_attn_backward_on_near_capacity_windows(card, heads, d, dtype):
+    """K4 on the near-capacity windows of true Moving-MNIST frames (more
+    than half of EB's slots filled in the fullest tile), with keep rows a
+    head, through the graph's slot view; misaligned q, k, v and g take the
+    kernels' scalar loads and give the same gradients bit for bit."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    frames = _sprite_frames(card)
+    cfg = GraphConfig(image_shape=(64, 64), max_grid_size=8, thresh=0.1, n_max=2048,
+                      e_max=10240, node_budget=2048, aggregation="pallas", agg_nt=NT,
+                      agg_eb=EB, agg_sw=SW, attn_windows=True, carry_edges=False)
+    wins, _ = image_to_graph(add_positional_encoding(frames[:, 9:10]), cfg)
+    meta = wins.attn_meta
+    assert int((meta.dst_rel >= 0).sum(-1).max()) > EB // 2
+    dims = attn.AttnDims(2048, NT, EB, SW, heads, d)
+    gen = torch.Generator(card).manual_seed(heads * d)
+    q, k, v, g = (torch.randn(16, 2048, heads * d, device=card, generator=gen).to(dtype)
+                  for _ in range(4))
+    we = torch.randn(2, heads * d, device=card, generator=gen).to(dtype)
+    u = torch.rand(16, meta.s0.shape[1], heads, EB, device=card, generator=gen)
+    args = (q, k, v, we, (u < 0.9).float() / 0.9, meta, dims)
+    kern = _k4_launch(attn, args, g, wins.slot_view)
+    _k4_close(kern, attn.attn_bwd_plain(*args, g), f"K4 near capacity {heads}x{d} {dtype}")
+    mis = tuple(_misaligned(x) for x in (q, k, v)) + args[3:]
+    got = {}
+    again = attn._attn_bwd_cuda(*mis, _misaligned(g), wins.slot_view, geometry=got)
+    assert got["vec"] == 0
+    assert all(torch.equal(x, y) for x, y in zip(kern, again))
+
+
+@pytest.mark.parametrize("dtype", K4_DTYPES)
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 16), (8, 16), (8, 32)])
+def test_attn_backward_on_a_shared_mesh_in_both_dtypes(card, heads, d, dtype):
+    """K4 on one mesh's windows (``meta_b`` = 1) for a batch of 3, through
+    the batch-1 slot view: bit for bit K4 on the windows copied for every
+    sample, and within its tolerance of the plain version."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _attn_case(card, False, heads, d, True)
+    q, k, v, we, keep, meta, dims = args
+    q, k, v, we = (x.to(dtype) for x in (q, k, v, we))
+    one = attn.AttnMeta(*(t[:1] for t in meta))
+    copied = attn.AttnMeta(*(t[:1].expand((3,) + t.shape[1:]).contiguous() for t in meta))
+    g = torch.randn(q.shape, device=card, generator=gen).to(dtype)
+    shared = (q, k, v, we, keep, one, dims)
+    kern = _k4_launch(attn, shared, g, attn.slot_view(one, dims))
+    for a, b in zip(kern, attn._attn_bwd_cuda(q, k, v, we, keep, copied, dims, g)):
+        assert torch.equal(a, b)
+    _k4_close(kern, attn.attn_bwd_plain(*shared, g), f"K4 shared {heads}x{d} {dtype}")
+
+
+def test_attn_backward_rejects_a_plan_it_does_not_take(card):
+    """A K4 plan the kernels do not take (a chunk not compiled for its run)
+    raises and counts no launch; another valid plan gives the same dq, dk
+    and dv bit for bit (the geometry moves no sum of theirs)."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    args, gen = _attn_case(card, False, 8, 16, True)
+    g = torch.randn(args[0].shape, device=card, generator=gen)
+    plan = attn.bwd_plan(args[6])
+    out = attn._attn_bwd_cuda(*args, g)
+    other = plan._replace(warps=max(1, plan.warps // 2))
+    for x, y in zip(out[:3], attn._attn_bwd_cuda(*args, g, plan=other)):
+        assert torch.equal(x, y)
+    before = attn.LAUNCHES["attn_apply_bwd"]
+    with pytest.raises(RuntimeError):
+        attn._attn_bwd_cuda(*args, g, plan=plan._replace(chunk=plan.chunk + 1))
+    assert attn.LAUNCHES["attn_apply_bwd"] == before
+
+
 @pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
 def test_data_parallel_step_on_the_card(card, tmp_path, backend, world):
     """``NextFramePredictorS2S(dp_devices=N)`` on the card
