@@ -52,7 +52,18 @@ against its plain version, repeated bit for bit, timed by CUDA graph and
 by events beside its bound, in bf16 the f32 kernel on the same operands,
 and split between K4's two kernels and the rest of the call by one
 ``torch.profiler`` pass (``k4_measure``); ``k4_means`` averages each
-path's sets by their calls, and ``--summarize`` prints them too. With ``--preset heterogeneous`` or
+path's sets by their calls, and ``--summarize`` prints them too. With ``--workload
+k6`` the grid-attention backward K6 alone (``k6_sets``): on the operands of
+the sea-ice flagship's train steps as ``chip_smoke.py`` captures them (T_out
+6, with the dropout keep planes): the fused gate stacks in f32 (phase 14:
+H 256, 32 and 1) and bf16 (phase 36), the per-gate stacks in bf16 under
+remat full (``bench.py``'s default, phase 39) and
+MHTransformerConv in bf16 (phase 49: H 768, 96 and 3); each set against
+``grid_attn_bwd_plain``, repeated bit for bit, timed by CUDA graph and by
+events beside its bound, in bf16 the f32 kernel on the same operands, with
+the calls of a full (T_out 90) step as its weight (a forecast's K5 calls
+at that width) and a tree's head-group dispatch where it has one
+(``k6_measure``); ``k6_means`` averages each path's sets by their calls. With ``--preset heterogeneous`` or
 ``homogeneous`` the JAX package's sea-ice experiment 9 or 10 (phases
 50-51: the flagship's model on that preset mesh, a forecast and a
 full-BPTT step under remat full unless ``--remat`` says otherwise), and
@@ -65,7 +76,7 @@ batch (default 16), ``--shared-mesh`` trains it on one mesh a step
 builds the quadtree paths' and the ice-quadtree model's edge lists
 without a sort (``bench.py --adjacency csum``; phase 56).
 
-    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2|k4]
+    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2|k4|k6]
                        [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
                        [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
@@ -97,6 +108,7 @@ import statistics
 import sys
 import tempfile
 import time
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -119,7 +131,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree",
                         choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7", "k2",
-                                 "k4"))
+                                 "k4", "k6"))
     parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv",
                                                "MHTransformerConv", "GATConv", "GATv2Conv"),
                         help="time only this model of the quadtree paths (default: ChebConv "
@@ -147,8 +159,8 @@ def main() -> int:
                              "quadtree|ice-quadtree)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--summarize", nargs="+", metavar="RUN",
-                        help="print the k2_means or k4_means of earlier --workload k2 or k4 "
-                             "runs and exit")
+                        help="print the k2_means, k4_means or k6_means of earlier "
+                             "--workload k2, k4 or k6 runs and exit")
     parser.add_argument("--against",
                         help="an earlier --workload k2 run's output: hold this run's K2 and K2b "
                              "outputs to it bit for bit")
@@ -165,7 +177,7 @@ def main() -> int:
                      "(--workload ice|ice-xla)")
     if args.against and args.workload != "k2":
         parser.error("--against compares --workload k2 runs")
-    if args.conv and args.workload in ("ice-quadtree", "k7", "k2", "k4"):
+    if args.conv and args.workload in ("ice-quadtree", "k7", "k2", "k4", "k6"):
         parser.error(f"--workload {args.workload} has its own convolutions")
     if args.preset and (args.workload != "quadtree" or args.conv or args.per_gate):
         parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
@@ -214,6 +226,8 @@ def main() -> int:
         _time_k2(cs, args, run_dir.name, result)
     elif args.workload == "k4":
         _time_k4(cs, args, run_dir.name, result)
+    elif args.workload == "k6":
+        _time_k6(cs, args, run_dir.name, result)
     else:
         _time_quadtree(cs, args, run_dir.name, result)
     print(json.dumps(result), flush=True)
@@ -355,16 +369,19 @@ def k2_measure(cs, spmm, name: str, kernel: str, calls: int, args) -> dict:
 
 
 def _last_run(path: str) -> dict:
-    """The last JSON line with ``k2_sets`` or ``k4_sets`` of a ``--workload
-    k2`` or ``k4`` run's output."""
+    """The last JSON line with ``k2_sets``, ``k4_sets`` or ``k6_sets`` of a
+    ``--workload k2``, ``k4`` or ``k6`` run's output."""
     with open(path) as fh:
         return next(json.loads(ln) for ln in reversed(fh.read().splitlines())
-                    if ln.startswith("{") and ("k2_sets" in ln or "k4_sets" in ln))
+                    if ln.startswith("{") and any(f'"{k}_sets"' in ln for k in ("k2", "k4", "k6")))
 
 
 def _means(run: dict) -> dict:
-    """A run's launch-weighted means: ``k2_means`` or ``k4_means``."""
-    return k2_means(run["k2_sets"]) if "k2_sets" in run else k4_means(run["k4_sets"])
+    """A run's launch-weighted means: ``k2_means``, ``k4_means`` or
+    ``k6_means``."""
+    if "k2_sets" in run:
+        return k2_means(run["k2_sets"])
+    return k4_means(run["k4_sets"]) if "k4_sets" in run else k6_means(run["k6_sets"])
 
 
 def k2_means(rows: list) -> dict:
@@ -576,6 +593,143 @@ def _time_k4(cs, args, run_dir: str, result: dict) -> None:
     result["k4_sets"] = rows
     result["k4_means"] = k4_means(rows)
 
+
+
+def _k6_full_width(grid_attn):
+    """K6 on a call's whole width, as the tree's ``GridAttnApply`` runs it:
+    one launch, or a tree's head-group dispatch (one launch a group on
+    column copies) where it has one."""
+    if hasattr(grid_attn, "grid_bwd_by_groups"):
+        return lambda *a: grid_attn.grid_bwd_by_groups(grid_attn._grid_attn_bwd_cuda, *a)
+    return grid_attn._grid_attn_bwd_cuda
+
+
+class _K6Capture:
+    """Wraps the launcher ``GridAttnApply.backward`` calls (the head-group
+    dispatch where the tree has one) during a train step and keeps the
+    first call's operands at each width H."""
+
+    def __init__(self, grid_attn):
+        self.grouped = hasattr(grid_attn, "grid_bwd_by_groups")
+        self.name = "grid_bwd_by_groups" if self.grouped else "_grid_attn_bwd_cuda"
+        self.module, self.first = grid_attn, {}
+        self._launch = getattr(grid_attn, self.name)
+
+    def __call__(self, *args):
+        ops = args[1:] if self.grouped else args
+        self.first.setdefault(ops[0].shape[-1], ops)
+        return self._launch(*args)
+
+    def __enter__(self):
+        self._patch = mock.patch.object(self.module, self.name, self)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def k6_measure(cs, grid_attn, name: str, calls: int, args) -> dict:
+    """One K6 operand set: the backward at the call's width (one launch, or
+    the tree's head groups) against ``grid_attn_bwd_plain`` (f32 within
+    ``K6_TOL`` × max(1, max|grad|), bf16 within one rounding), repeated bit
+    for bit; graph and event times beside the bound, in bf16 the f32 kernel
+    on the same operands, the plan where the tree has one, and the digest
+    of the inputs."""
+    import torch
+
+    q, dims = args[0], args[6]
+    bf16 = q.dtype == torch.bfloat16
+    bwd = _k6_full_width(grid_attn)
+    kern, plain = bwd(*args), grid_attn.grid_attn_bwd_plain(*args)
+    again = bwd(*args)
+    names = ("dq", "dk", "dv", "de_dir")
+    err = {n: float((a.float() - p.float()).abs().max()) for n, a, p in zip(names, kern, plain)}
+    rel = {n: err[n] / max(1.0, float(p.float().abs().max())) for n, p in zip(names, plain)}
+    cs.check(max(rel.values()) <= (cs.BF16_TOL if bf16 else cs.K6_TOL),
+             f"{name}: K6 differs from its plain version: {rel}")
+    repeat = all(torch.equal(a, b) for a, b in zip(kern, again))
+    cs.check(repeat, f"{name}: two K6 launches differ")
+    bound, b_ms, o_ms = cs.grid_bound_ms(args, backward=True)
+    plan = None
+    if hasattr(grid_attn, "BwdPlan"):
+        plan = grid_attn.bwd_plan(dims, q.element_size(), q.shape[0])._asdict()
+    row = dict(set=name, dtype=str(q.dtype).replace("torch.", ""), batch=q.shape[0],
+               H=q.shape[-1], heads=dims.heads, d=dims.d, ndirs=dims.ndirs, calls=calls,
+               keep=args[5] is not None, max_abs_err=max(err.values()), err_rel_to_max=rel,
+               repeat_bit_identical=repeat, ms=cs.graph_ms(lambda: bwd(*args)),
+               events_ms=cs.cuda_ms(lambda: bwd(*args)), bound_ms=bound, bytes_ms=b_ms,
+               ops_ms=o_ms, bound_by="bytes" if b_ms >= o_ms else "operations", plan=plan,
+               input_sha=_digest(*(x for x in args if torch.is_tensor(x))))
+    if bf16:
+        f32_args = tuple(x.float() if torch.is_tensor(x) and x.dtype == torch.bfloat16 else x
+                         for x in args)
+        row["f32_ms"] = cs.graph_ms(lambda: bwd(*f32_args))
+    return row
+
+
+def k6_means(rows: list) -> dict:
+    """Per path (a set's name without its width), each number of its sets
+    averaged with the sets' calls as weights: graph and event times, the
+    bound and the f32 kernel on the same operands, where the sets have
+    them."""
+    groups = {}
+    for r in rows:
+        groups.setdefault(r["set"].rsplit("_H", 1)[0], []).append(r)
+    out = {}
+    for key, rs in groups.items():
+        n = sum(r["calls"] for r in rs)
+        out[key] = {"calls": n, "widths": [r["H"] for r in rs]}
+        for k in ("ms", "events_ms", "bound_ms", "f32_ms"):
+            if all(r.get(k) is not None for r in rs):
+                out[key][k] = sum(r["calls"] * r[k] for r in rs) / n
+    return out
+
+
+def _time_k6(cs, args, run_dir: str, result: dict) -> None:
+    """K6 per operand set (``k6_sets``): the first call at each width of a
+    T_out-6 train step of the flagship on the grid, fused in f32 and bf16,
+    per-gate in bf16 under remat full and MHTransformerConv in bf16 under
+    remat full, weighted by the calls at that width of a full step (the
+    ``grid_attn_apply`` calls of a T_out-90 forecast)."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    data, clim, mask = cs.ice_data(args.seed)
+    x0, y0 = data.x[:1], data.y[:1]
+    paths = (("fused_float32", dict()), ("fused_bfloat16", dict(dtype="bfloat16")),
+             ("per_gate_bfloat16", dict(dtype="bfloat16", remat=True, fused_gates=False)),
+             ("mh_bfloat16", dict(dtype="bfloat16", remat=True, fused_gates=False,
+                                  conv="MHTransformerConv")))
+    rows = []
+    for path, kw in paths:
+        model = cs.make_ice_model(args.seed, run_dir, **kw)
+        clim0 = model._clim_batch(clim, data.launch_dates[:1])
+        calls = {}
+        apply = grid_attn.grid_attn_apply
+
+        def count(*a, _apply=apply):  # a call at its whole width, by head groups or not
+            calls[a[0].shape[-1]] = calls.get(a[0].shape[-1], 0) + 1
+            return _apply(*a)
+
+        with mock.patch.object(grid_attn, "grid_attn_apply", count):
+            model.forecast(x0, mask=mask, climatology=clim0)
+        del model
+        short = cs.make_ice_model(args.seed, run_dir, t_out=cs.ICE_SHORT_T_OUT, **kw)
+        short.initiate_training(lr=cs.LR, lr_decay=0.95)
+        with _K6Capture(grid_attn) as cap:
+            short.train_step(x0, y0[:, :cs.ICE_SHORT_T_OUT], mask=mask,
+                             climatology=clim0[:, :cs.ICE_SHORT_T_OUT],
+                             truncated_backprop=cs.ICE_TBPTT)
+        del short
+        for h, a in sorted(cap.first.items()):
+            rows.append(k6_measure(cs, grid_attn, f"{path}_H{h}", calls[h], a))
+            print(json.dumps(rows[-1]), flush=True)
+        del cap
+        torch.cuda.empty_cache()
+    result["k6_sets"] = rows
+    result["k6_means"] = k6_means(rows)
 
 def _time_ice(cs, args, run_dir: str, result: dict) -> None:
     """The flagship's forecast (one window through ``predict``) and its

@@ -332,11 +332,12 @@ kernel's launches as read from the code (``expected_*_launches``):
    max(1, max|g|));
 49. ``bench.py --workload ice --conv MHTransformerConv`` at its defaults
    (the 224×304 grid, bf16, per-gate, remat full, hidden 32: 24 heads ×
-   d 32 = H 768 a cell call, 3 head groups of 256): a forecast and a
+   d 32 = H 768 a cell call, one launch of K5 and of K6): a forecast and a
    full-BPTT step (finite, K5/K6 launches as read from the code, peaks
-   and times); K5 at H 768 by groups bit-identical to its plain version
-   at that width (bf16 and f32), K6 on a T_out-6 step's cotangents (one
-   bf16 rounding; ≤1e-5 × max(1, max|g|) in f32), 3 launches a call;
+   and times); K5 at H 768 bit-identical to its plain version at that
+   width (bf16 and f32), K6 on a T_out-6 step's cotangents (one bf16
+   rounding; ≤1e-5 × max(1, max|g|) in f32), bit-identical on a repeat,
+   one launch a call each;
    K3/K4 at HD 768 (24 heads × 32 in 2 groups) on one ice-quadtree mesh
    with operands, keep windows and a cotangent from ``--seed``, ≤1e-5
    (one rounding in bf16), 2 launches a call; all timed beside their
@@ -803,17 +804,17 @@ class Record:
 
 
 class FirstAtWidth:
-    """Wraps a function during a run and keeps the arguments of its first
-    call whose second argument is ``width`` wide (detached, the function
-    itself dropped), passing every call through."""
+    """Wraps a launcher during a run and keeps the arguments of its first
+    call whose first argument is ``width`` wide (detached), passing every
+    call through."""
 
     def __init__(self, module, name: str, width: int):
         self.module, self.name, self.width, self.args = module, name, width, None
         self._fn = getattr(module, name)
 
     def __call__(self, *args):
-        if self.args is None and args[1].shape[-1] == self.width:
-            self.args = tuple(a.detach() if hasattr(a, "detach") else a for a in args[1:])
+        if self.args is None and args[0].shape[-1] == self.width:
+            self.args = tuple(a.detach() if hasattr(a, "detach") else a for a in args)
         return self._fn(*args)
 
     def __enter__(self):
@@ -2073,7 +2074,7 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
             # (the card's own time) and by events
             bwd.append(dict(H=hd, calls=cap.per_width[hd], keep=kargs[5] is not None,
                             abs_err=errs, err_rel_to_max=rel, max_abs_err=max(errs.values()),
-                            plan=grid_attn.bwd_plan(kargs[6]),
+                            plan=grid_attn.bwd_plan(kargs[6], 4, 1)._asdict(),
                             ms=graph_ms(lambda: grid_attn._grid_attn_bwd_cuda(*kargs)),
                             events_ms=cuda_ms(lambda: grid_attn._grid_attn_bwd_cuda(*kargs)),
                             plain_ms=cuda_ms(lambda: grid_attn.grid_attn_bwd_plain(*kargs)),
@@ -3924,7 +3925,8 @@ def add_gcn_paths(entries, gcn: dict, dtype: str) -> None:
 # 7, on bench.py's model (--conv MHTransformerConv, GATConv, GATv2Conv; the
 # GRU, shared-conv, split and dummy cells with ChebConv), then
 # MHTransformerConv at the sea-ice widths (bench.py --workload ice --conv
-# MHTransformerConv), where the attention kernels run by head groups.
+# MHTransformerConv), where K3/K4 run by head groups and K5/K6 take H 768
+# in one launch.
 MH_REMAT_MODES = ("none", "full")
 CELL_VARIANTS = {"GRU": dict(rnn_type="GRU"),
                  "GRU-per_gate": dict(rnn_type="GRU", fused_gates=False),
@@ -4027,15 +4029,14 @@ def expected_cell_launches(cfg, train: bool, mode: str = "none") -> dict:
     return want
 
 
-def expected_ice_mh_launches(cfg, groups: int, train: bool) -> dict:
+def expected_ice_mh_launches(cfg, train: bool) -> dict:
     """K5 (and K6) launches of one flagship forecast (or full-BPTT step
-    under remat full) with MHTransformerConv, read from the code: each
-    attention call of a cell (2·G streams × 3 heads × d 32 = 768 features)
-    runs in ``groups`` head groups, each of the two head convs (3 × 32 and
-    3 × 1) in one; a train step replays every forward call and runs K6 once
-    a forward call."""
+    under remat full) with MHTransformerConv, read from the code: one a
+    cell's attention call (2·G streams × 3 heads × d 32 = 768 features, in
+    one launch) and one a head conv (3 × 32 and 3 × 1); a train step
+    replays every forward call and runs K6 once a forward call."""
     cells = ICE_T_IN * cfg.n_layers * cfg.n_conv_layers + cfg.output_timesteps * cfg.n_layers
-    k5 = groups * cells + 2 * cfg.output_timesteps
+    k5 = cells + 2 * cfg.output_timesteps
     if not train:
         return {"grid_attn_apply": k5}
     return {"grid_attn_apply": 2 * k5, "grid_attn_apply_bwd": k5}
@@ -4044,8 +4045,8 @@ def expected_ice_mh_launches(cfg, groups: int, train: bool) -> dict:
 def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
                  loader, x) -> dict:
     """Phases 46-49; returns what the kernels line adds: K3/K4 rows at the
-    MH widths and at HD 768 by head groups, K5/K6 rows at H 768 by head
-    groups, K7 rows on GAT's self-loop sets, and each new path's
+    MH widths and at HD 768 by head groups, K5/K6 rows at H 768 (one
+    launch), K7 rows on GAT's self-loop sets, and each new path's
     launches."""
     import torch
 
@@ -4415,8 +4416,6 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
     cfg = model.cfg
     check(not cfg.fused_gates and model.model.remat == "full"
           and model.gcfg.aggregation == "grid", f"ice MH configuration: {cfg}, {model.gcfg}")
-    groups = len(attn.head_groups(8 * 3, cfg.hidden_size, grid_attn.MAX_H))
-    check(groups == 3, f"H 768 runs in {groups} head groups, expected 3")
     clim0 = model._clim_batch(clim, data.launch_dates[:1])
     loader0 = DataLoader(ArrayDataset(data.x[:1], data.y[:1], data.launch_dates[:1]))
     model.predict(loader0, climatology=clim, mask=mask)  # warm-up
@@ -4430,9 +4429,9 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
     fwd = nonzero(launch_totals(modules))
     check(bool(np.isfinite(got["y"]).all()) and model.last_overflow == 0,
           f"ice MH forecast: finite {bool(np.isfinite(got['y']).all())}")
-    want = expected_ice_mh_launches(cfg, groups, train=False)
+    want = expected_ice_mh_launches(cfg, train=False)
     check(fwd == want, f"ice MH forecast launches {fwd}, expected {want}")
-    with FirstAtWidth(grid_attn, "grid_fwd_by_groups", 768) as cap:
+    with FirstAtWidth(grid_attn, "_grid_attn_fwd_cuda", 768) as cap:
         model.forecast(x0, mask=mask, climatology=clim0)
     wide = cap.args
     del cap, model, got
@@ -4441,20 +4440,18 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
             a.float() if torch.is_tensor(a) and a.dtype == bf16 else a for a in wide))):
         reset()
         with torch.no_grad():
-            kern = grid_attn.grid_fwd_by_groups(grid_attn._grid_attn_fwd_cuda, *args)
+            kern = grid_attn._grid_attn_fwd_cuda(*args)
         launched = launch_totals(modules)["grid_attn_apply"]
-        check(launched == groups, f"K5 at H 768 ({dtype}) launched {launched}, not {groups}")
+        check(launched == 1, f"K5 at H 768 ({dtype}) launched {launched}, not once")
         plain = grid_attn.grid_attn_plain(*args)
-        check(torch.equal(kern, plain), f"K5 at H 768 by groups ({dtype}) is not bit-identical "
+        check(torch.equal(kern, plain), f"K5 at H 768 ({dtype}) is not bit-identical "
               "to its plain version")
         bound, b_ms, o_ms = grid_bound_ms(args, backward=False)
         k5_rows.append(dict(
-            H=768, groups=groups, dtype=dtype, keep=args[5] is not None, max_abs_err=0.0,
+            H=768, dtype=dtype, keep=args[5] is not None, max_abs_err=0.0,
             bit_identical=True, launches_per_call=launched,
-            ms=graph_ms(lambda: grid_attn.grid_fwd_by_groups(grid_attn._grid_attn_fwd_cuda,
-                                                             *args)),
-            events_ms=cuda_ms(lambda: grid_attn.grid_fwd_by_groups(
-                grid_attn._grid_attn_fwd_cuda, *args)),
+            ms=graph_ms(lambda: grid_attn._grid_attn_fwd_cuda(*args)),
+            events_ms=cuda_ms(lambda: grid_attn._grid_attn_fwd_cuda(*args)),
             plain_ms=cuda_ms(lambda: grid_attn.grid_attn_plain(*args)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
     del wide
@@ -4475,7 +4472,7 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
     train = nonzero(launch_totals(modules))
     check(bool(torch.isfinite(step["out"][0])) and int(step["out"][1]) == 0 and step_peak > 0,
           f"ice MH step: loss {float(step['out'][0])}, peak {step_peak}")
-    want = expected_ice_mh_launches(cfg, groups, train=True)
+    want = expected_ice_mh_launches(cfg, train=True)
     check(train == want, f"ice MH step launches {train}, expected {want}")
     loss49 = float(step["out"][0])
     del trainer, step
@@ -4483,7 +4480,7 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
     # K6 at H 768 on a short step's cotangents (with its keep planes)
     short = ice_mh(t_out=ICE_SHORT_T_OUT)
     short.initiate_training(lr=LR, lr_decay=0.95)
-    with FirstAtWidth(grid_attn, "grid_bwd_by_groups", 768) as cap:
+    with FirstAtWidth(grid_attn, "_grid_attn_bwd_cuda", 768) as cap:
         ice_step(short, (x0, y0[:, :ICE_SHORT_T_OUT], clim0[:, :ICE_SHORT_T_OUT]))
     bwd_args = cap.args
     del cap, short
@@ -4492,9 +4489,11 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
         args = bwd_args if dtype == "bfloat16" else tuple(
             a.float() if torch.is_tensor(a) and a.dtype == bf16 else a for a in bwd_args)
         reset()
-        kern = grid_attn.grid_bwd_by_groups(grid_attn._grid_attn_bwd_cuda, *args)
+        kern = grid_attn._grid_attn_bwd_cuda(*args)
         launched = launch_totals(modules)["grid_attn_apply_bwd"]
-        check(launched == groups, f"K6 at H 768 ({dtype}) launched {launched}, not {groups}")
+        check(launched == 1, f"K6 at H 768 ({dtype}) launched {launched}, not once")
+        check(all(torch.equal(a, b) for a, b in zip(grid_attn._grid_attn_bwd_cuda(*args), kern)),
+              f"two launches of K6 at H 768 ({dtype}) differ")
         plain = grid_attn.grid_attn_bwd_plain(*args)
         if dtype == "bfloat16":
             errs = {n: _bf16_err(a, b, f"K6 {n} at H 768")
@@ -4505,16 +4504,17 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
                 e = float((a - b).abs().max())
                 errs[n] = (e, e / max(1.0, float(b.abs().max())))
             check(max(e[1] for e in errs.values()) <= K6_TOL,
-                  f"K6 at H 768 by groups differs from its plain version: {errs}")
+                  f"K6 at H 768 differs from its plain version: {errs}")
         bound, b_ms, o_ms = grid_bound_ms(args, backward=True)
         k6_rows.append(dict(
-            H=768, groups=groups, dtype=dtype, keep=args[5] is not None,
+            H=768, dtype=dtype, keep=args[5] is not None,
             err_rel_to_max={n: e[1] for n, e in errs.items()},
             max_abs_err=max(e[0] for e in errs.values()), launches_per_call=launched,
-            ms=graph_ms(lambda: grid_attn.grid_bwd_by_groups(grid_attn._grid_attn_bwd_cuda,
-                                                             *args)),
-            events_ms=cuda_ms(lambda: grid_attn.grid_bwd_by_groups(
-                grid_attn._grid_attn_bwd_cuda, *args)),
+            repeat_bit_identical=True,
+            plan=grid_attn.bwd_plan(args[6], args[0].element_size(),
+                                    args[0].shape[0])._asdict(),
+            ms=graph_ms(lambda: grid_attn._grid_attn_bwd_cuda(*args)),
+            events_ms=cuda_ms(lambda: grid_attn._grid_attn_bwd_cuda(*args)),
             plain_ms=cuda_ms(lambda: grid_attn.grid_attn_bwd_plain(*args)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
     del bwd_args
@@ -4590,7 +4590,7 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
     print(json.dumps({
         "phase": "ice_mh", "card": card, "conv": "MHTransformerConv", "mesh": "grid",
         "dtype": "bfloat16", "fused_gates": False, "remat": "full", "t_out": ICE_T_OUT,
-        "truncated_backprop": 0, "head_groups": groups, "s_per_forecast": forecast_s,
+        "truncated_backprop": 0, "s_per_forecast": forecast_s,
         "forecast_peak_above_start_gib": fwd_peak, "forecast_launches": fwd,
         "loss": loss49, "overflow": 0, "step_s": step_s, "step_peak_above_start_gib": step_peak,
         "launches_per_step": train, "k5_hd768": k5_rows, "k6_hd768": k6_rows,
@@ -4606,7 +4606,7 @@ def add_item7_paths(f32_entries, bf16_entries, item7: dict) -> None:
     new paths (a forecast batch and a train step, remat none; bf16 entries
     count their bf16 launches), K3's and K4's rows at the MH widths
     (``mh_by_width``) and at HD 768 by head groups (``hd768_by_groups``),
-    K5's and K6's at H 768 (``hd768_by_groups``) and K7's on GAT's
+    K5's and K6's at H 768 in one launch (``hd768``) and K7's on GAT's
     self-loop sets (``by_operand_set``, path ``gat``)."""
     mh, gat, cells, ice = item7["mh"], item7["gat"], item7["cells"], item7["ice_mh"]
     for dtype, entries in (("float32", f32_entries), ("bfloat16", bf16_entries)):
@@ -4647,8 +4647,8 @@ def add_item7_paths(f32_entries, bf16_entries, item7: dict) -> None:
                 entry["hd768_by_groups"] = [r for r in ice["k34"]
                                             if r["kernel"] == name and r["dtype"] == dtype]
             if name in ("grid_attn_apply", "grid_attn_apply_bwd"):
-                entry["hd768_by_groups"] = [r for r in ice["k5" if name == "grid_attn_apply"
-                                                          else "k6"] if r["dtype"] == dtype]
+                entry["hd768"] = [r for r in ice["k5" if name == "grid_attn_apply" else "k6"]
+                                  if r["dtype"] == dtype]
             if name == "segment_sum":
                 rows = [r for r in gat["k7"] if r["dtype"] == dtype]
                 entry["by_operand_set"] += [dict(r, path="gat") for r in rows]

@@ -34,57 +34,85 @@
 // agree bit for bit on the card, so a 90-step rollout does not drift
 // between them (an online softmax once drifted 2.4e-4).
 //
-// K6 is one kernel with no float atomics, so a backward is bit-reproducible.
-// Heads are independent (a head's alpha reads only its own d features), so
-// one CTA takes one 2-D pixel tile (tr x tc, sized by the host to the group
-// width) and one feature group of whole heads (up to 32 features, packing
-// several small heads; one head when d > 32), and stages in shared memory,
-// with cp.async, k and v on the tile's two-pixel halo and q and g on its
-// one-pixel ring. Then, all from shared memory:
-//   1. per (pixel, head) of the tile and its ring (LPI lanes an item, the
-//      lanes splitting the head's d features): recompute alpha as K5 does,
-//      dalpha_i = keep_i * g[p] . (v + e)_i, rowdot = sum_i alpha_i *
-//      dalpha_i, and park dlogit_i = alpha_i * (dalpha_i - rowdot) * scale
-//      and used_i = alpha_i * keep_i (zero where direction i has no edge);
-//   2. per (tile pixel, feature): dq[p] = sum_i dlogit_i(p) (k + e)_i over
-//      the in-edges, dk[p] = sum_i dlogit_i(p + off_i) q[p + off_i] and
-//      dv[p] = sum_i used_i(p + off_i) g[p + off_i] over the out-edges,
-//      whose destinations lie on the ring, in direction order;
-//   3. with 2., the tile's de_i partial, sum over its pixels of dlogit_i q
-//      + used_i g: each thread adds its pixels' terms in order, and the
-//      threads' rows are summed by a fixed pairwise tree; the wrapper sums
-//      the (tile) partials in a fixed order.
-// Each input is read from device memory about once; the halo re-reads of
-// neighbouring tiles come from L2. The ring's alphas are recomputed by the
-// tiles that share it: (tr + 2)(tc + 2) / (tr tc) of the softmax work.
+// K6 (qtm_grid_attn_bwd) walks row bands, as the TPU kernel walks row
+// blocks. Heads are independent (a head's alpha reads only its own d
+// features), so a CTA owns a strip of W pixel columns, a band of BH rows
+// and one feature group of whole heads (up to 32 features, packing several
+// small heads; one head when d > 32), and walks the band's rows top to
+// bottom. Rings in shared memory hold k and v on rows r-1..r+2 (the strip
+// and two side columns each way) and q, g and the keep planes on rows
+// r-1..r+1 (one side column each way), in their storage type; the copies
+// of the next kStages rows are in flight (cp.async groups) while a row
+// computes. Iteration j:
+//   1. the softmax of row j + 1, once per (pixel, head) of the strip and
+//      its side columns: a thread sums its run of R features' products in
+//      feature order and an xor butterfly over the head's d / R lanes
+//      finishes the logit and dalpha_i = keep_i g . (v + e)_i; the lanes
+//      share the directions' exponentials and divisions, and the pair
+//      (dlogit_i = alpha_i (dalpha_i - rowdot) scale, used_i = alpha_i
+//      keep_i) goes to a three-row ring, where rows j - 1..j + 1 are what
+//      the outputs of row j read;
+//   2. dq, dk, dv of row j: thread (column, run) sums, in direction order,
+//      dlogit_i(p) (k + e)_i over the pixel's in-edges and dlogit_i q,
+//      used_i g at the destinations of its out-edges, stores its three
+//      runs with 16-byte stores and adds the pixel's de terms dlogit_i q +
+//      used_i g to its registers.
+// A thread's indices (its copies' column and run, its softmax item, its
+// output column) are fixed for the walk and computed once. At the end the
+// de terms are summed over the strip's columns by a fixed halving tree into
+// one partial a CTA, and the last CTA of each feature group to finish (an
+// integer counter a group) sums the group's partials in chunks of
+// consecutive CTAs, each in order, then the chunks in order: no float
+// atomics, so a backward is bit-reproducible, and one launch a call. With single features (d not
+// a power-of-two multiple of R, or operands not 16-byte aligned) R is 1,
+// one thread takes a (pixel, head) of the softmax, summing its d features
+// in order, and one a (pixel, feature) of the outputs.
 //
-// Bound: both are bound by bytes. K5 reads q, k, v once and writes out
-// (16 * H bytes a pixel) against about 6 * H * D operations; K6 reads q, k,
-// v and g and writes dq, dk and dv (28 * H bytes a pixel) against about
-// 14 * H * D operations: far below the card's 20 operations per byte of
-// f32. Each input row is staged once a tile; the halo's re-reads of
-// neighbouring tiles' rows come from L2.
+// Order of sums against PR 6's tiles: dq, dk and dv still sum over the
+// directions in order; a head's dot products now sum a run in feature
+// order before the butterfly (before: strided lanes); de sums a thread's
+// rows in order, then the strip's columns, then the CTAs' partials (before:
+// a tile's pixels, then the tiles by torch.sum). Products are rounded
+// apart from sums (the __f*_rn intrinsics; PR 6 fused them).
+//
+// Bound and design. K6 reads q, k, v and g and writes dq, dk and dv (28 H
+// bytes a pixel in f32, 14 H in bf16) against about 14 H D operations: far
+// below the card's operations a byte, so its bound is bytes. PR 6's tiles
+// missed it for six reasons, and the walk answers each: staging then
+// computing in turn (the rings keep kStages rows in flight while a row
+// computes); bf16 widened into f32 shared rows (the rings keep bf16, half
+// the room, widened in registers); the softmax recomputed on a 1.56x ring
+// (once a pixel, again only on the strip's two side columns and the band's
+// two edge rows); masked pixels fetched (zero-filled copies, and rows and
+// bands without a valid pixel skip their arithmetic and store zeros);
+// scalar stores (16-byte runs); a partial a tile (one a CTA, summed by the
+// group's last CTA). What bounds the walk on the card is not bytes but issue
+// and latency: a CTA's rows follow one another through two barriers a row,
+// and each (pixel, feature) costs about 68 f32 instructions with products
+// rounded apart. ops/grid_attn.py bwd_plan sizes the strip to 128 threads
+// (four CTAs a multiprocessor at <= 128 registers) and the bands to one
+// wave of the card.
 //
 // Column wrap: a +-1 column shift is checked on the row and the column of
 // the source, so it never bleeds across a row end. The kernels take a
-// leading batch axis, launch on the caller's stream, do not synchronise and
-// allocate nothing; each entry point returns cudaGetLastError() (or
-// cudaErrorInvalidValue for a geometry it does not take) so that the Python
-// wrapper raises on a refused launch.
+// leading batch axis and any heads * d (a head at most kMaxD wide), launch
+// on the caller's stream, do not synchronise and allocate nothing; each
+// entry point returns cudaGetLastError() (or cudaErrorInvalidValue for a
+// geometry it does not take) so that the Python wrapper raises on a
+// refused launch.
 //
 // bf16 (qtm_grid_attn_fwd_bf16, qtm_grid_attn_bwd_bf16; the TPU kernels on
 // bf16 q, k, v, e, valid and g): both kernels are templated on the storage
-// type T of those and of the outputs out, dq, dk and dv. bf16 rows are
-// widened on load into the same f32 shared rows as the f32 kernels' (8-byte
-// loads of 4 values where the f32 path copies 16 bytes with cp.async, so
-// the strides, the tiles and the shared memory are f32's; a thread keeps
-// four loads in flight before it stores them, since one dependent load at
-// a time cost K6 1.4x f32's time), every product, sum and the softmax run
-// in f32 in the f32 kernels' order, and each output is rounded to bf16
-// once, on store, as the TPU kernel casts its f32 results once. So K5 in bf16 is the f32 result of its bf16 inputs rounded once,
-// and bit-identical to grid_attn_plain's wherever the f32 kernel is. keep
-// and the de partials stay f32. The f32 instances are the f32 kernels
-// unchanged.
+// type T of those and of the outputs out, dq, dk and dv. K5 widens bf16
+// rows on load into the same f32 shared rows as the f32 kernel's (8-byte
+// loads of 4 values, four in flight a thread), so its strides, tiles and
+// shared memory are f32's; K6 keeps bf16 rows as bf16 (16-byte runs of 8
+// features). Every product, sum and the softmax run in f32 in the f32
+// kernels' order, and each output is rounded to bf16 once, on store, as
+// the TPU kernel casts its f32 results once. So K5 in bf16 is the f32
+// result of its bf16 inputs rounded once, and bit-identical to
+// grid_attn_plain's wherever the f32 kernel is. keep and the de partials
+// stay f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,7 +148,7 @@ __device__ __forceinline__ unsigned bf_pack(float a, float b) {
 }
 
 constexpr int kThreads = 256;  // threads of a K5 or K6 CTA
-constexpr int kMaxH = 256;     // features per pixel
+constexpr int kMaxD = 256;     // features of a head
 constexpr unsigned kFull = 0xffffffffu;
 
 // Direction i of ops/grid.py SHIFTS_8 (the first four are SHIFTS_4).
@@ -488,214 +516,566 @@ struct BwdParams {
   T* dq;               // (B, P, H)
   T* dk;
   T* dv;
-  float* de_part;      // (B, tiles, ND, H): one partial a (tile, feature group)
+  float* de_part;      // (B, strips * bands, ND, H): one partial a CTA
+  T* de;               // (ND, H): the partials' sum
+  int* done;           // a counter of finished CTAs a feature group, 0 at rest
   int rows, cols, heads, d;
   int hpg;             // heads of one CTA's feature group
-  int tr, tc;          // the CTA's pixel tile
-  int vec4;            // stage rows with 16-byte copies
+  int strip, band;     // the CTA's columns (W) and rows (BH)
+  int strips, bands;
   float scale;
 };
 
-// Lanes that share one (pixel, head) item of K6's softmax phase.
-__host__ __device__ constexpr int bwd_lpi(int d) { return d >= 4 ? 4 : d >= 2 ? 2 : 1; }
+constexpr int kStages = 2;             // row copies in flight beyond the rows in use
+constexpr int kKvSlots = kStages + 4;  // k, v: rows j-1..j+2 in use at iteration j
+constexpr int kQgSlots = kStages + 3;  // q, g, keep: rows j-1..j+1 in use
+constexpr int kDlSlots = 3;            // (dlogit, used): rows j-1..j+1
+constexpr int kVldLoads = 8;           // validity loads a thread keeps in flight
 
-// Row stride (floats) of a staged pixel row in shared memory: the smallest
-// s >= gw with s % (2 lpi) == lpi, so that the lpi lanes of the items of one
-// warp, each on its own pixel and reading features sub, sub + lpi, ..., hit
-// distinct banks; at lpi 4 it is a multiple of 4, so rows take 16-byte copies.
-__host__ __device__ constexpr int smem_stride(int gw, int lpi) {
-  int s = gw;
-  while (s % (2 * lpi) != lpi) ++s;
-  return s;
+// Elements of a staged pixel row: the group's width; odd for f32 rows of
+// single features, so that threads on neighbouring pixels read distinct
+// banks (16-byte runs need no pad: a quarter warp reads 128 contiguous
+// bytes).
+__host__ __device__ inline int bwd_stride(int gw, int run, int itemsize) {
+  return run == 1 && itemsize == 4 ? (gw | 1) : gw;
 }
 
-// Shared-memory floats of one K6 CTA: k and v on the tile's two-pixel halo,
-// q and g on its one-pixel ring (rows first, 16-byte aligned), the group's
-// edge terms, validity on the halo, keep, dlogit and used on the ring, and
-// the threads' de terms.
-__host__ __device__ inline long long bwd_smem_floats(int nd, int hpg, int d, int tr, int tc) {
-  const long long s = smem_stride(hpg * d, bwd_lpi(d));
-  const long long n2 = static_cast<long long>(tr + 4) * (tc + 4);
-  const long long n1 = static_cast<long long>(tr + 2) * (tc + 2);
-  return 2 * n2 * s + 2 * n1 * s + nd * hpg * d + n2 + 3LL * nd * n1 * hpg + nd * kThreads;
+__host__ __device__ inline long long up16(long long x) { return (x + 15) / 16 * 16; }
+
+// Byte offsets of one K6 CTA's shared memory (ops/grid_attn.py
+// bwd_smem_bytes mirrors it): the k/v and q/g row rings (their room reused
+// at the end for the de reduction, W x ND x gw f32), the keep ring, the
+// group's edge terms (f32), the (dlogit, used) ring, the band's validity
+// and its rows' flags, and the de sum's chunks (and the last-CTA flag).
+struct BwdLayout {
+  long long qg, kp, e, dlu, vl, fl, ch, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int nd, int hpg, int d, int run, int itemsize,
+                                                int w, int bh) {
+  const int gw = hpg * d;
+  const long long s = static_cast<long long>(bwd_stride(gw, run, itemsize)) * itemsize;
+  BwdLayout l;
+  l.qg = up16(2LL * kKvSlots * (w + 4) * s);
+  long long at = l.qg + up16(2LL * kQgSlots * (w + 2) * s);
+  at = at > up16(4LL * w * nd * gw) ? at : up16(4LL * w * nd * gw);
+  l.kp = at;
+  at += up16(4LL * kQgSlots * nd * (w + 2) * hpg);
+  l.e = at;
+  at += up16(4LL * nd * gw);
+  l.dlu = at;
+  at += up16(8LL * kDlSlots * (w + 2) * hpg * nd);
+  l.vl = at;
+  at += up16(static_cast<long long>(bh + 4) * (w + 4));
+  l.fl = at;
+  at += up16(2LL * (bh + 4));
+  l.ch = at;
+  at += 4LL * kThreads + 16;
+  l.total = at;
+  return l;
 }
 
-// K6: one CTA per (pixel tile, feature group of whole heads, sample). LPI
-// lanes share one (pixel, head) item of the softmax phase. D, HPG, TR and
-// TC fix the head width, the heads of a group and the tile at compile time
-// for the flagship's widths, so that the index arithmetic folds; 0 reads
-// them from p (any geometry, a ragged last group included).
-template <typename T, int ND, int LPI, int D, int HPG, int TR, int TC>
-__global__ void __launch_bounds__(kThreads) grid_attn_bwd_kernel(BwdParams<T> p) {
-  extern __shared__ float smem[];
-  const int d = D ? D : p.d, hpg = HPG ? HPG : p.hpg;
-  const int tr = TR ? TR : p.tr, tc = TC ? TC : p.tc;
-  const int H = p.heads * d;
-  const int P = p.rows * p.cols;
+// A run of R stored values (16 bytes when R > 1) as f32, and R f32 values
+// rounded to T and stored as one run.
+template <typename T, int R>
+__device__ __forceinline__ void load_t(const T* src, float (&x)[R]) {
+  if constexpr (R == 1) {
+    x[0] = to_f(*src);
+  } else if constexpr (std::is_same<T, float>::value) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else {
+    const uint4 t = *reinterpret_cast<const uint4*>(src);
+    x[0] = bf_lo(t.x), x[1] = bf_hi(t.x), x[2] = bf_lo(t.y), x[3] = bf_hi(t.y);
+    x[4] = bf_lo(t.z), x[5] = bf_hi(t.z), x[6] = bf_lo(t.w), x[7] = bf_hi(t.w);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void load_f(const float* src, float (&x)[R]) {
+  if constexpr (R % 4 == 0) {
+    load_run<R>(src, x);
+  } else {
+#pragma unroll
+    for (int j = 0; j < R; ++j) x[j] = src[j];
+  }
+}
+
+// VG: 16-byte device-memory accesses (the tensors are 16-byte aligned);
+// else one value at a time, in the same order of sums.
+template <typename T, int R, bool VG>
+__device__ __forceinline__ void store_t(T* dst, const float (&x)[R]) {
+  if constexpr (R == 1 || !VG) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) dst[j] = from_f<T>(x[j]);
+  } else if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+    *reinterpret_cast<uint4*>(dst) = make_uint4(bf_pack(x[0], x[1]), bf_pack(x[2], x[3]),
+                                                bf_pack(x[4], x[5]), bf_pack(x[6], x[7]));
+  }
+}
+
+// Copy one run of R values from device memory into shared memory, or zeros
+// when !in: 16-byte runs (VG) and f32 values by cp.async (0 source bytes
+// zero-fill); bf16 values one at a time by the thread, its loads first.
+template <typename T, int R, bool VG>
+__host__ __device__ constexpr bool copy_async() {
+  return (VG && R * sizeof(T) == 16) || std::is_same<T, float>::value;
+}
+
+template <typename T, int R, bool VG>
+__device__ __forceinline__ void copy_run(T* dst, const T* src, bool in) {
+  if constexpr (VG && R * sizeof(T) == 16) {
+    cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), in);
+  } else if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) cp_async4(dst + j, src + j, in);
+  } else {
+    T t[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) t[j] = in ? src[j] : __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int j = 0; j < R; ++j) dst[j] = t[j];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// K6: one CTA per (strip of W columns and band of BH rows, feature group
+// of whole heads, sample); R features a thread (16 bytes, or 1). Iteration
+// j of the row walk takes the softmax of row j + 1 and the outputs of row
+// j, with the rows of iterations j + 1 .. j + kStages in flight. Every
+// per-thread index (a copy's column and run, a softmax item, an output
+// column and run) is fixed for the walk and computed once.
+template <typename T, int ND, int R, bool VG>
+__global__ void __launch_bounds__(kThreads, 2) grid_attn_bwd_kernel(BwdParams<T> p) {
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  unsigned char* smem = bwd_smem;
+  const int d = p.d, hpg = p.hpg, W = p.strip, BH = p.band;
+  const int H = p.heads * d, P = p.rows * p.cols;
   const int b = blockIdx.z;
-  const int tiles_c = (p.cols + tc - 1) / tc;
-  const int r0 = (blockIdx.x / tiles_c) * tr, c0 = (blockIdx.x % tiles_c) * tc;
   const int h0 = blockIdx.y * hpg;
-  const int gh = HPG ? HPG : min(hpg, p.heads - h0);  // heads of this group (the last may be ragged)
+  const int gh = min(hpg, p.heads - h0);  // heads of this group (the last may be ragged)
   const int gw = gh * d, f0 = h0 * d;
-  const int S = smem_stride(gw, LPI), smax = smem_stride(hpg * d, LPI);
-  const int w2 = tc + 4, n2 = (tr + 4) * w2;  // the two-pixel halo, origin (r0-2, c0-2)
-  const int w1 = tc + 2, n1 = (tr + 2) * w1;  // the one-pixel ring, origin (r0-1, c0-1)
-  float* ks = smem;                           // n2 rows
-  float* vs = ks + n2 * smax;
-  float* qs = vs + n2 * smax;                 // n1 rows
-  float* gs = qs + n1 * smax;
-  float* e_s = gs + n1 * smax;                // ND * gw
-  float* vld = e_s + ND * hpg * d;            // n2
-  float* kps = vld + n2;                      // (ND, n1, hpg) keep
-  float* dls = kps + ND * n1 * hpg;           // (ND, n1, hpg) dlogit * scale
-  float* uss = dls + ND * n1 * hpg;           // (ND, n1, hpg) alpha * keep
-  float* red = uss + ND * n1 * hpg;           // ND * kThreads: the de terms
+  const int C0 = (blockIdx.x % p.strips) * W, R0 = (blockIdx.x / p.strips) * BH;
+  const int R1 = min(R0 + BH, p.rows);
+  const BwdLayout lay = bwd_layout(ND, hpg, d, R, sizeof(T), W, BH);
+  const int S = bwd_stride(hpg * d, R, sizeof(T));
+  const int W2 = W + 2, W4 = W + 4;
+  T* ks = reinterpret_cast<T*>(smem);  // [kKvSlots][W4][S], columns from C0 - 2
+  T* vs = ks + kKvSlots * W4 * S;
+  T* qs = reinterpret_cast<T*>(smem + lay.qg);  // [kQgSlots][W2][S], columns from C0 - 1
+  T* gs = qs + kQgSlots * W2 * S;
+  float* kps = reinterpret_cast<float*>(smem + lay.kp);  // [kQgSlots][ND][W2][hpg]
+  float* es = reinterpret_cast<float*>(smem + lay.e);    // [ND][gw]
+  float2* dlu = reinterpret_cast<float2*>(smem + lay.dlu);  // [kDlSlots][W2][hpg][ND]
+  unsigned char* vl = smem + lay.vl;  // [R1 - R0 + 4][W4]: rows from R0 - 2, columns from C0 - 2
+  unsigned char* fsm = smem + lay.fl;  // softmax rows R0-1..R1: a valid pixel in C0-1..C0+W
+  unsigned char* fout = fsm + BH + 2;  // output rows R0..R1-1: a valid pixel in C0..C0+W-1
+  float* red = reinterpret_cast<float*>(smem);  // [W][ND][gw], after the walk
   const long long base = static_cast<long long>(b) * P;
+  const int tid = threadIdx.x, nt = blockDim.x;
 
-  // ---- stage: every operand of the tile is read from device memory once
-  stage_rows<T>(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 2, c0 - 2, w2, n2, p.rows, p.cols,
-             p.vec4);
-  stage_rows<T>(qs, gs, p.q, p.g, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
-             p.vec4);
-  if (p.keep != nullptr) {
-    for (int x = threadIdx.x; x < ND * n1 * gh; x += kThreads) {
-      const int i = x / (n1 * gh), rest = x - i * n1 * gh, px = rest / gh, hh = rest - px * gh;
-      const int r = r0 - 1 + px / w1, c = c0 - 1 + px % w1;
-      const bool in = r >= 0 && r < p.rows && c >= 0 && c < p.cols;
-      const long long at =
-          in ? ((static_cast<long long>(b) * ND + i) * P + r * p.cols + c) * p.heads + h0 + hh : 0;
-      cp_async4(kps + (i * n1 + px) * hpg + hh, p.keep + at, in);
-    }
-  }
-  for (int x = threadIdx.x; x < ND * gw; x += kThreads)
-    e_s[x] = to_f(p.e[(x / gw) * H + f0 + x % gw]);
-  for (int x = threadIdx.x; x < n2; x += kThreads) {
-    const int r = r0 - 2 + x / w2, c = c0 - 2 + x % w2;
-    vld[x] = r >= 0 && r < p.rows && c >= 0 && c < p.cols ? to_f(p.valid[r * p.cols + c]) : 0.f;
-  }
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  // ---- the band's validity (0 off the grid; kVldLoads loads a thread in
+  // flight), its rows' flags (set by every thread that finds a valid
+  // pixel: one value, so no atomics) and the edge terms
+  for (int x = tid; x < 2 * (BH + 4); x += nt) fsm[x] = 0;
   __syncthreads();
-
-  // ---- softmax phase: alpha, dlogit and used once per (pixel, head,
-  // direction) of the tile and its ring (zero where there is no edge)
-  const int items = n1 * gh;
-  const int sub = threadIdx.x % LPI;
-  for (int it0 = 0; it0 < items; it0 += kThreads / LPI) {  // uniform across the CTA
-    const int it = it0 + threadIdx.x / LPI;
-    const bool act = it < items;
-    const int px = act ? it / gh : 0, hh = act ? it - px * gh : 0;
-    const int rr = px / w1, cc = px - rr * w1;
-    const int p2 = (rr + 1) * w2 + cc + 1;
-    const bool self_ok = act && vld[p2] != 0.f;
-    float lq[ND], lg[ND];
+  const int nv = (R1 - R0 + 4) * W4;
+  int any_out = 0;
+  for (int x0 = tid; x0 < nv; x0 += kVldLoads * nt) {
+    float val[kVldLoads];
 #pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      lq[i] = 0.f;
-      lg[i] = 0.f;
+    for (int u = 0; u < kVldLoads; ++u) {
+      const int x = x0 + u * nt;
+      const int r = R0 - 2 + x / W4, c = C0 - 2 + x % W4;
+      val[u] = x < nv && r >= 0 && r < p.rows && c >= 0 && c < p.cols
+                   ? to_f(p.valid[r * p.cols + c]) : 0.f;
     }
-    if (self_ok) {
-      const int fo = hh * d;
-#pragma unroll 4
-      for (int x = sub; x < d; x += LPI) {
-        const float fq = qs[px * S + fo + x], fg = gs[px * S + fo + x];
 #pragma unroll
-        for (int i = 0; i < ND; ++i) {
-          const int s2 = p2 - shift_r(i) * w2 - shift_c(i);
-          const float ek = e_s[i * gw + fo + x];
-          lq[i] = fmaf(fq, ks[s2 * S + fo + x] + ek, lq[i]);
-          lg[i] = fmaf(fg, vs[s2 * S + fo + x] + ek, lg[i]);
+    for (int u = 0; u < kVldLoads; ++u) {
+      const int x = x0 + u * nt;
+      if (x >= nv) continue;
+      const int rr = x / W4, cc = x % W4;  // row R0 - 2 + rr, column C0 - 2 + cc
+      vl[x] = val[u] != 0.f;
+      if (val[u] == 0.f) continue;
+      if (rr >= 1 && rr <= R1 - R0 + 2 && cc >= 1 && cc <= W + 2) fsm[rr - 1] = 1;
+      if (rr >= 2 && rr < R1 - R0 + 2 && cc >= 2 && cc < W + 2) fout[rr - 2] = 1, any_out = 1;
+    }
+  }
+  for (int x = tid; x < ND * gw; x += nt) es[x] = to_f(p.e[(x / gw) * H + f0 + x % gw]);
+  // a thread's (column, run) of the group's pixel rows: the outputs take
+  // columns 0..W-1, the copies and the softmax every column of a row, by
+  // steps of cstep columns
+  const int runs = gw / R;
+  const int cj = tid % runs, cc0 = tid / runs, cstep = nt / runs;
+  const bool cact = cc0 < cstep;
+  const bool oact = tid < W * runs && C0 + cc0 < p.cols;
+  const int ohh = cj * R / d, ofo = cj * R;
+  const auto zero_row = [&](int s) {
+    if (!oact) return;
+    float z[R];
+#pragma unroll
+    for (int x = 0; x < R; ++x) z[x] = 0.f;
+    const long long o = (base + s * p.cols + C0 + cc0) * H + f0 + ofo;
+    store_t<T, R, VG>(p.dq + o, z);
+    store_t<T, R, VG>(p.dk + o, z);
+    store_t<T, R, VG>(p.dv + o, z);
+  };
+  float* part = p.de_part + (static_cast<long long>(b) * gridDim.x + blockIdx.x) * ND * H;
+  // d e_dir: the last CTA of the group to finish sums the group's partials
+  // in a fixed order (chunks of consecutive CTAs (sample, band, strip),
+  // each in order, then the chunks in order) and rounds them once; no
+  // float atomics, so a backward is bit-reproducible
+  float* chs = reinterpret_cast<float*>(smem + lay.ch);  // kThreads chunk sums
+  int* last = reinterpret_cast<int*>(chs + kThreads);
+  const auto finish_de = [&]() {
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *last = atomicAdd(p.done + blockIdx.y, 1) == gridDim.x * gridDim.z - 1;
+    __syncthreads();
+    if (!*last) return;
+    __threadfence();
+    const int C = ND * gw, n = gridDim.x * gridDim.z;
+    const int chunks = C >= nt ? 1 : nt / C, per = (n + chunks - 1) / chunks;
+    for (int c0 = 0; c0 < C; c0 += chunks == 1 ? nt : C) {  // uniform across the CTA
+      const int c = c0 + (chunks == 1 ? tid : tid % C), k = chunks == 1 ? 0 : tid / C;
+      const long long col = (c / gw) * H + f0 + c % gw;
+      float acc = 0.f;
+      if (c < C && k < chunks) {
+        const int end = min(n, (k + 1) * per);
+        for (int u = k * per; u < end; ++u)
+          acc = __fadd_rn(acc, __ldcg(p.de_part + static_cast<long long>(u) * ND * H + col));
+      }
+      if (chunks == 1) {
+        if (c < C) p.de[col] = from_f<T>(acc);
+        continue;
+      }
+      chs[tid] = acc;
+      __syncthreads();
+      if (k == 0) {
+        float total = chs[c];
+        for (int kk = 1; kk < chunks; ++kk) total = __fadd_rn(total, chs[kk * C + c]);
+        p.de[col] = from_f<T>(total);
+      }
+    }
+    if (tid == 0) p.done[blockIdx.y] = 0;  // at rest for the next launch
+  };
+  if (!__syncthreads_or(any_out)) {  // no valid pixel: zero gradients, a zero de partial
+    for (int s = R0; s < R1; ++s) zero_row(s);
+    for (int x = tid; x < ND * gw; x += nt) part[(x / gw) * H + f0 + x % gw] = 0.f;
+    finish_de();
+    return;
+  }
+
+  // ---- the row copies: stage j brings k, v row j + 2 (the first stage
+  // rows R0 - 2 .. R0) and q, g and keep row j + 1; masked pixels and
+  // pixels off the grid are zero-filled, not fetched
+  const auto stage_pair = [&](const T* a, const T* bb, int r, int c_lo, int n, T* ring_a,
+                              T* ring_b) {
+    const unsigned char* vrow = vl + (r - R0 + 2) * W4 + c_lo - (C0 - 2);
+    const long long rowat = (base + r * p.cols + c_lo) * H + f0 + cj * R;
+    if constexpr (copy_async<T, R, VG>() || R > 1) {
+      for (int px = cc0; cact && px < n; px += cstep) {
+        const bool in = vrow[px] != 0;
+        const long long at = in ? rowat + static_cast<long long>(px) * H : 0;
+        copy_run<T, R, VG>(ring_a + px * S + cj * R, a + at, in);
+        copy_run<T, R, VG>(ring_b + px * S + cj * R, bb + at, in);
+      }
+    } else {  // single bf16 values: kBf16Loads copies' loads in flight, then their stores
+      for (int px0 = cc0; cact && px0 < n; px0 += kBf16Loads * cstep) {
+        T ta[kBf16Loads], tb[kBf16Loads];
+#pragma unroll
+        for (int u = 0; u < kBf16Loads; ++u) {
+          const int px = px0 + u * cstep;
+          const bool in = px < n && vrow[px] != 0;
+          const long long at = in ? rowat + static_cast<long long>(px) * H : 0;
+          ta[u] = in ? a[at] : __float2bfloat16_rn(0.f);
+          tb[u] = in ? bb[at] : __float2bfloat16_rn(0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kBf16Loads; ++u) {
+          const int px = px0 + u * cstep;
+          if (px < n) ring_a[px * S + cj] = ta[u], ring_b[px * S + cj] = tb[u];
         }
       }
     }
-#pragma unroll
-    for (int o = LPI / 2; o > 0; o >>= 1)
+  };
+  const int kh = tid % gh, kc0 = tid / gh, kstep = nt / gh;  // keep: (column, head)
+  const auto issue = [&](int j) {
+    for (int r = j == R0 - 2 ? R0 - 2 : j + 2; r <= j + 2; ++r) {
+      const int sl = (r + 2) % kKvSlots;
+      stage_pair(p.k, p.v, r, C0 - 2, W4, ks + sl * W4 * S, vs + sl * W4 * S);
+    }
+    const int r = j + 1, sl = (r + 1) % kQgSlots;
+    stage_pair(p.q, p.g, r, C0 - 1, W2, qs + sl * W2 * S, gs + sl * W2 * S);
+    if (p.keep != nullptr && kc0 < kstep) {
+      float* ring = kps + sl * ND * W2 * hpg + kh;
+      const unsigned char* vrow = vl + (r - R0 + 2) * W4 + 1;  // column C0 - 1
+      const long long rowat =
+          (static_cast<long long>(b) * ND * P + r * p.cols + C0 - 1) * p.heads + h0 + kh;
 #pragma unroll
       for (int i = 0; i < ND; ++i) {
-        lq[i] += __shfl_xor_sync(kFull, lq[i], o);
-        lg[i] += __shfl_xor_sync(kFull, lg[i], o);
+        for (int px = kc0; px < W2; px += kstep) {
+          const bool in = vrow[px] != 0;
+          const long long at = in ? rowat + (static_cast<long long>(i) * P + px) * p.heads : 0;
+          cp_async4(ring + (i * W2 + px) * hpg, p.keep + at, in);
+        }
       }
+    }
+  };
+
+  // ---- the softmax of row r once per (pixel, head) of columns C0-1..C0+W.
+  // With 16-byte runs a thread takes a run, a head's d / R lanes finish its
+  // sums by the xor butterfly and share its directions' exponentials and
+  // divisions. With single features one thread takes a (pixel, head).
+  const int lanes = R > 1 ? d / R : 1;
+  const int sub = cj % lanes, shh = R > 1 ? cj / lanes : kh;
+  const int sc0 = R > 1 ? cc0 : kc0, sstep = R > 1 ? cstep : kstep;
+  const bool sact0 = R > 1 ? cact : kc0 < kstep;
+  const int sfo = R > 1 ? cj * R : kh * d;  // the thread's first feature
+  const int seg = R > 1 ? R : d;
+  const auto finish = [&](int r, int cc, int hh, float (&lq)[ND], float (&lg)[ND],
+                          const float* krow, float2* out) {
+    const unsigned char* vrow = vl + (r - R0 + 2) * W4 + cc + 1;  // column C0 - 1 + cc
+    if (*vrow == 0) {
+#pragma unroll
+      for (int i = 0; i < ND; ++i) out[i] = make_float2(0.f, 0.f);
+      return;
+    }
     bool has[ND];
     float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
-      has[i] = self_ok && vld[p2 - shift_r(i) * w2 - shift_c(i)] != 0.f;
-      lq[i] *= p.scale;
+      has[i] = vrow[-shift_r(i) * W4 - shift_c(i)] != 0;
+      lq[i] = __fmul_rn(lq[i], p.scale);
       if (has[i]) mx = fmaxf(mx, lq[i]);
     }
     float den = 0.f;
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
-      lq[i] = has[i] ? expf(lq[i] - mx) : 0.f;
-      den += lq[i];
+      lq[i] = has[i] ? expf(__fsub_rn(lq[i], mx)) : 0.f;
+      den = __fadd_rn(den, lq[i]);
     }
     float rowdot = 0.f, kp[ND];
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
-      lq[i] = has[i] && den != 0.f ? lq[i] / den : 0.f;  // alpha
-      kp[i] = has[i] && p.keep != nullptr ? kps[(i * n1 + px) * hpg + hh] : 1.f;
-      lg[i] *= kp[i];  // dalpha
-      rowdot = fmaf(lq[i], lg[i], rowdot);
+      lq[i] = has[i] ? __fdiv_rn(lq[i], den) : 0.f;  // alpha; den >= 1 where an edge is
+      kp[i] = has[i] && p.keep != nullptr ? krow[(i * W2 + cc) * hpg + hh] : 1.f;
+      lg[i] = __fmul_rn(lg[i], kp[i]);  // dalpha
+      rowdot = __fadd_rn(rowdot, __fmul_rn(lq[i], lg[i]));
     }
-    if (act && sub == 0) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+      out[i] = make_float2(__fmul_rn(__fmul_rn(lq[i], __fsub_rn(lg[i], rowdot)), p.scale),
+                           __fmul_rn(lq[i], kp[i]));
+  };
+  const auto softmax_row = [&](int r) {
+    float2* dl_row = dlu + ((r + 1) % kDlSlots) * W2 * hpg * ND;
+    if (r >= p.rows || !fsm[r - R0 + 1]) {  // uniform: no valid pixel on the row
+      for (int x = tid; x < W2 * hpg * ND; x += nt) dl_row[x] = make_float2(0.f, 0.f);
+      return;
+    }
+    const int qsl = (r + 1) % kQgSlots;
+    const T* qrow = qs + qsl * W2 * S;
+    const T* grow = gs + qsl * W2 * S;
+    const float* krow = kps + qsl * ND * W2 * hpg;
+    const unsigned char* vrow = vl + (r - R0 + 2) * W4 + 1;  // column C0 - 1
+    const T* krows[3];
+    const T* vrows[3];
+#pragma unroll
+    for (int dr = -1; dr <= 1; ++dr) {  // k, v rows r - dr, from column C0 - 2
+      const int sl = (r - dr + 2) % kKvSlots;
+      krows[dr + 1] = ks + sl * W4 * S;
+      vrows[dr + 1] = vs + sl * W4 * S;
+    }
+    for (int c00 = 0; c00 < W2; c00 += sstep) {  // uniform across the CTA
+      const int cc = c00 + sc0;
+      const bool act = sact0 && cc < W2;
+      const bool self_ok = act && vrow[cc] != 0;
+      float lq[ND], lg[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) lq[i] = lg[i] = 0.f;
+      if (self_ok) {
+        for (int x0 = 0; x0 < seg; x0 += R) {
+          float qv[R], gv[R];
+          load_t<T, R>(qrow + cc * S + sfo + x0, qv);
+          load_t<T, R>(grow + cc * S + sfo + x0, gv);
+#pragma unroll
+          for (int i = 0; i < ND; ++i) {
+            const int at = (cc + 1 - shift_c(i)) * S + sfo + x0;  // source column
+            float kv[R], vv[R], ev[R];
+            load_t<T, R>(krows[shift_r(i) + 1] + at, kv);
+            load_t<T, R>(vrows[shift_r(i) + 1] + at, vv);
+            load_f<R>(es + i * gw + sfo + x0, ev);
+#pragma unroll
+            for (int x = 0; x < R; ++x) {
+              lq[i] = __fadd_rn(lq[i], __fmul_rn(qv[x], __fadd_rn(kv[x], ev[x])));
+              lg[i] = __fadd_rn(lg[i], __fmul_rn(gv[x], __fadd_rn(vv[x], ev[x])));
+            }
+          }
+        }
+      }
+      if (lanes == 1) {  // the thread holds the head's sums
+        if (act) finish(r, cc, shh, lq, lg, krow, dl_row + (cc * hpg + shh) * ND);
+        continue;
+      }
+      for (int o = 1; o < lanes; o <<= 1) {
+#pragma unroll
+        for (int i = 0; i < ND; ++i) {
+          lq[i] = __fadd_rn(lq[i], __shfl_xor_sync(kFull, lq[i], o));
+          lg[i] = __fadd_rn(lg[i], __shfl_xor_sync(kFull, lg[i], o));
+        }
+      }
+      // the head's lanes share the softmax: lane sub takes the directions
+      // i = sub, sub + lanes, ... and the shuffles gather what every lane
+      // needs, so that the denominator and rowdot sum in direction order
+      const int lead = (tid & 31) - sub;  // the head's first lane
+      const unsigned char* vcell = vrow + cc;
+      bool has[ND];
+      float mx = -INFINITY;
 #pragma unroll
       for (int i = 0; i < ND; ++i) {
-        const int at = (i * n1 + px) * hpg + hh;
-        dls[at] = lq[i] * (lg[i] - rowdot) * p.scale;
-        uss[at] = lq[i] * kp[i];
+        has[i] = self_ok && vcell[-shift_r(i) * W4 - shift_c(i)] != 0;
+        lq[i] = __fmul_rn(lq[i], p.scale);
+        if (has[i]) mx = fmaxf(mx, lq[i]);
+      }
+      float ex[ND], den = 0.f;
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        ex[i] = i % lanes == sub && has[i] ? expf(__fsub_rn(lq[i], mx)) : 0.f;
+        ex[i] = __shfl_sync(kFull, ex[i], lead + i % lanes);
+        den = __fadd_rn(den, ex[i]);
+      }
+      float rowdot = 0.f, kp[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        kp[i] = 1.f;
+        float prod = 0.f;
+        if (i % lanes == sub && has[i]) {
+          ex[i] = __fdiv_rn(ex[i], den);  // alpha; den >= 1 where an edge is
+          if (p.keep != nullptr) kp[i] = krow[(i * W2 + cc) * hpg + shh];
+          lg[i] = __fmul_rn(lg[i], kp[i]);  // dalpha
+          prod = __fmul_rn(ex[i], lg[i]);
+        }
+        rowdot = __fadd_rn(rowdot, __shfl_sync(kFull, prod, lead + i % lanes));
+      }
+      if (!act) continue;
+      float2* out = dl_row + (cc * hpg + shh) * ND;
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        if (i % lanes != sub) continue;
+        out[i] = has[i] ? make_float2(__fmul_rn(__fmul_rn(ex[i], __fsub_rn(lg[i], rowdot)),
+                                                p.scale),
+                                      __fmul_rn(ex[i], kp[i]))
+                        : make_float2(0.f, 0.f);
       }
     }
-  }
-  __syncthreads();
+  };
 
-  // ---- dq, dk, dv of the tile's pixels (dq over the pixel's in-edges,
-  // dk and dv over its out-edges, whose destinations lie on the ring) and
-  // the tile's de partial: thread (g, f) keeps feature f of the pixels g,
-  // g + pstep, ... and adds their de terms in that order
-  const int n_t = tr * tc;
-  const int pstep = kThreads / gw;
-  const int f = threadIdx.x % gw, g = threadIdx.x / gw, hh = f / d;
-  float de[ND];
+  // ---- dq, dk, dv of row s: thread (cc0, cj), the directions in order;
+  // the pixel's de terms into the thread's registers
+  float de[ND][R];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) de[i] = 0.f;
-  for (int pt = g; g < pstep && pt < n_t; pt += pstep) {
-    const int ty = pt / tc, tx = pt - ty * tc;
-    const int r = r0 + ty, c = c0 + tx;
-    if (r >= p.rows || c >= p.cols) continue;
-    const int p1 = (ty + 1) * w1 + tx + 1, p2 = (ty + 2) * w2 + tx + 2;
-    const float qf = qs[p1 * S + f], gf = gs[p1 * S + f];
-    float dq = 0.f, dk = 0.f, dv = 0.f;
+  for (int i = 0; i < ND; ++i)
+#pragma unroll
+    for (int x = 0; x < R; ++x) de[i][x] = 0.f;
+  const int oc = cc0;
+  const auto outputs_row = [&](int s) {
+    if (!oact) return;
+    if (!fout[s - R0] || vl[(s - R0 + 2) * W4 + oc + 2] == 0) {  // a masked pixel has no edge
+      zero_row(s);
+      return;
+    }
+    const T* qrows[3];
+    const T* grows[3];
+    const T* krows[3];
+    const float2* drows[3];
+#pragma unroll
+    for (int dr = -1; dr <= 1; ++dr) {
+      const int qsl = (s + dr + 1) % kQgSlots;  // q, g, (dlogit, used) row s + dr
+      qrows[dr + 1] = qs + qsl * W2 * S + ofo;
+      grows[dr + 1] = gs + qsl * W2 * S + ofo;
+      drows[dr + 1] = dlu + (((s + dr + 1) % kDlSlots) * W2 * hpg + ohh) * ND;
+      krows[dr + 1] = ks + ((s - dr + 2) % kKvSlots) * W4 * S + ofo;  // k row s - dr
+    }
+    float qv[R], gv[R];
+    load_t<T, R>(qrows[1] + (oc + 1) * S, qv);
+    load_t<T, R>(grows[1] + (oc + 1) * S, gv);
+    const float2* mine = drows[1] + (oc + 1) * hpg * ND;
+    float dq[R], dk[R], dv[R];
+#pragma unroll
+    for (int x = 0; x < R; ++x) dq[x] = dk[x] = dv[x] = 0.f;
 #pragma unroll
     for (int i = 0; i < ND; ++i) {
-      const int s2 = p2 - shift_r(i) * w2 - shift_c(i);
-      const int d1 = p1 + shift_r(i) * w1 + shift_c(i);
-      const float dl = dls[(i * n1 + p1) * hpg + hh];
-      dq = fmaf(dl, ks[s2 * S + f] + e_s[i * gw + f], dq);
-      dk = fmaf(dls[(i * n1 + d1) * hpg + hh], qs[d1 * S + f], dk);
-      dv = fmaf(uss[(i * n1 + d1) * hpg + hh], gs[d1 * S + f], dv);
-      de[i] = fmaf(dl, qf, fmaf(uss[(i * n1 + p1) * hpg + hh], gf, de[i]));
-    }
-    const long long o = (base + r * p.cols + c) * H + f0 + f;
-    p.dq[o] = from_f<T>(dq);
-    p.dk[o] = from_f<T>(dk);
-    p.dv[o] = from_f<T>(dv);
-  }
-  // the pstep rows of (ND, gw) de terms, summed by a fixed pairwise tree
-  if (g < pstep) {
+      const int dr = shift_r(i), dc = shift_c(i);
+      const float2 me = mine[i];
+      float kv[R], ev[R], qd[R], gd[R];
+      load_t<T, R>(krows[dr + 1] + (oc + 2 - dc) * S, kv);  // the source (s - dr, c - dc)
+      load_f<R>(es + i * gw + ofo, ev);
+      const int dcol = oc + 1 + dc;  // the destination (s + dr, c + dc)
+      load_t<T, R>(qrows[dr + 1] + dcol * S, qd);
+      load_t<T, R>(grows[dr + 1] + dcol * S, gd);
+      const float2 dst = drows[dr + 1][dcol * hpg * ND + i];
 #pragma unroll
-    for (int i = 0; i < ND; ++i) red[(g * ND + i) * gw + f] = de[i];
+      for (int x = 0; x < R; ++x) {
+        dq[x] = __fadd_rn(dq[x], __fmul_rn(me.x, __fadd_rn(kv[x], ev[x])));
+        dk[x] = __fadd_rn(dk[x], __fmul_rn(dst.x, qd[x]));
+        dv[x] = __fadd_rn(dv[x], __fmul_rn(dst.y, gd[x]));
+        de[i][x] = __fadd_rn(de[i][x], __fadd_rn(__fmul_rn(me.x, qv[x]), __fmul_rn(me.y, gv[x])));
+      }
+    }
+    const long long o = (base + s * p.cols + C0 + oc) * H + f0 + ofo;
+    store_t<T, R, VG>(p.dq + o, dq);
+    store_t<T, R, VG>(p.dk + o, dk);
+    store_t<T, R, VG>(p.dv + o, dv);
+  };
+
+  // ---- the walk: the empty rings take stages R0 - 2 .. R0 + 1 at once
+  // (k, v rows R0 - 2 .. R0 + 3: every slot); then iteration j waits for
+  // stage j and issues stage j + kStages
+#pragma unroll 1
+  for (int st = 0; st < kStages + 2; ++st) {
+    if (R0 - 2 + st <= R1 - 1) issue(R0 - 2 + st);
+    cp_async_commit();
+  }
+  for (int j = R0 - 2; j < R1; ++j) {
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // stage j landed; every thread is done with iteration j - 1
+    if (j + kStages > R0 + 1 && j + kStages <= R1 - 1) issue(j + kStages);
+    cp_async_commit();
+    softmax_row(j + 1);
+    __syncthreads();  // row j + 1's (dlogit, used) parked
+    if (j >= R0) outputs_row(j);
+  }
+
+  // ---- de: the threads' terms summed over the strip's columns by a
+  // fixed pairwise tree, one partial a CTA
+  cp_async_wait<0>();
+  __syncthreads();
+  if (tid < W * runs) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i)
+#pragma unroll
+      for (int x = 0; x < R; ++x) red[(oc * ND + i) * gw + ofo + x] = de[i][x];
   }
   __syncthreads();
-  for (int width = pstep; width > 1;) {  // uniform across the CTA
+  for (int width = W; width > 1;) {  // uniform across the CTA
     const int half = (width + 1) / 2;
-    for (int x = threadIdx.x; x < (width - half) * ND * gw; x += kThreads)
-      red[x] += red[x + half * ND * gw];
+    for (int x = tid; x < (width - half) * ND * gw; x += nt) red[x] += red[x + half * ND * gw];
     width = half;
     __syncthreads();
   }
-  float* part = p.de_part + (static_cast<long long>(b) * gridDim.x + blockIdx.x) * ND * H;
-  for (int x = threadIdx.x; x < ND * gw; x += kThreads)
-    part[(x / gw) * H + f0 + x % gw] = red[x];
+  for (int x = tid; x < ND * gw; x += nt) part[(x / gw) * H + f0 + x % gw] = red[x];
+  finish_de();
 }
 
 template <typename T, int ND, int RUN, int D, int HPG, int TR, int TC>
@@ -733,12 +1113,11 @@ cudaError_t launch_fwd_width(const FwdParams<T>& p, int B, cudaStream_t s) {
   }
 }
 
-template <typename T, int ND, int LPI, int D, int HPG, int TR, int TC>
-cudaError_t launch_bwd(const BwdParams<T>& p, int B, cudaStream_t stream) {
-  const int tiles = ((p.rows + p.tr - 1) / p.tr) * ((p.cols + p.tc - 1) / p.tc);
-  const dim3 grid(tiles, (p.heads + p.hpg - 1) / p.hpg, B);
-  const size_t smem = sizeof(float) * bwd_smem_floats(ND, p.hpg, p.d, p.tr, p.tc);
-  auto* kernel = grid_attn_bwd_kernel<T, ND, LPI, D, HPG, TR, TC>;
+template <typename T, int ND, int R, bool VG>
+cudaError_t launch_bwd(const BwdParams<T>& p, int B, int threads, cudaStream_t stream) {
+  const dim3 grid(p.strips * p.bands, (p.heads + p.hpg - 1) / p.hpg, B);
+  const size_t smem = bwd_layout(ND, p.hpg, p.d, R, sizeof(T), p.strip, p.band).total;
+  auto* kernel = grid_attn_bwd_kernel<T, ND, R, VG>;
   static size_t allowed = 48 * 1024;  // this instance's dynamic shared-memory limit so far
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -746,28 +1125,13 @@ cudaError_t launch_bwd(const BwdParams<T>& p, int B, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
     allowed = smem;
   }
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// The flagship's widths (d 32 one head a group on 8 x 8 tiles; d 1 one head
-// on 8 x 32 tiles) take kernels with their geometry fixed at compile time;
-// any other geometry the general one.
-template <typename T, int ND>
-cudaError_t launch_bwd_width(const BwdParams<T>& p, int B, cudaStream_t s) {
-  if (p.d == 32 && p.hpg == 1 && p.tr == 8 && p.tc == 8)
-    return launch_bwd<T, ND, 4, 32, 1, 8, 8>(p, B, s);
-  if (p.d == 1 && p.hpg == 1 && p.tr == 8 && p.tc == 32)
-    return launch_bwd<T, ND, 1, 1, 1, 8, 32>(p, B, s);
-  switch (bwd_lpi(p.d)) {
-    case 4: return launch_bwd<T, ND, 4, 0, 0, 0, 0>(p, B, s);
-    case 2: return launch_bwd<T, ND, 2, 0, 0, 0, 0>(p, B, s);
-    default: return launch_bwd<T, ND, 1, 0, 0, 0, 0>(p, B, s);
-  }
-}
-
 bool bad_geometry(int rows, int cols, int heads, int d, int nd, int B) {
-  return rows < 1 || cols < 1 || heads < 1 || d < 1 || heads * d > kMaxH ||
+  return rows < 1 || cols < 1 || heads < 1 || d < 1 || d > kMaxD ||
+         static_cast<long long>(rows) * cols * heads * d > 0x7fffffffLL ||
          (nd != 4 && nd != 8) || B < 0 || B > 65535;
 }
 
@@ -793,21 +1157,42 @@ int grid_attn_fwd(const T* q, const T* k, const T* v, const T* e, const T* valid
 
 template <typename T>
 int grid_attn_bwd(const T* q, const T* k, const T* v, const T* e, const T* valid,
-                  const float* keep, const T* g, T* dq, T* dk, T* dv, float* de_part, int B,
-                  int rows, int cols, int heads, int d, int nd, int hpg, int tr, int tc,
-                  float scale, void* stream) {
-  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
-      sizeof(float) * bwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024)
+                  const float* keep, const T* g, T* dq, T* dk, T* dv, float* de_part, T* de,
+                  int* done, int B, int rows, int cols, int heads, int d, int nd, int hpg, int run,
+                  int strip, int band, int threads, float scale, void* stream) {
+  // run: 16 bytes of features a thread where d takes whole runs and a power
+  // of two of them a head, else 1; 16-byte device-memory accesses where
+  // every row tensor is 16-byte aligned (the same order of sums either way)
+  const int vec = 16 / static_cast<int>(sizeof(T)), lanes = d / vec;
+  const bool vec_ok = d % vec == 0 && (lanes & (lanes - 1)) == 0 && lanes <= 32;
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const bool vg = aligned(q) && aligned(k) && aligned(v) && aligned(g) && aligned(dq) &&
+                  aligned(dk) && aligned(dv);
+  const int gw = hpg * d;
+  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads ||
+      !(run == 1 || (run == vec && vec_ok)) || strip < 1 || band < 1 || threads < 32 ||
+      threads > kThreads || threads % 32 != 0 || strip * (gw / run) > threads ||
+      bwd_layout(nd, hpg, d, run, sizeof(T), strip, band).total > 227 * 1024 ||
+      (heads + hpg - 1) / hpg > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  // 4-value row copies: whole 4-value chunks, 16-byte aligned tensors
-  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
-  const int vec4 = d % 4 == 0 && aligned(q) && aligned(k) && aligned(v) && aligned(g);
-  const BwdParams<T> p{q, k, v, e, valid, keep, g, dq, dk, dv, de_part,
-                       rows, cols, heads, d, hpg, tr, tc, vec4, scale};
+  const int strips = (cols + strip - 1) / strip, bands = (rows + band - 1) / band;
+  const BwdParams<T> p{q,  k,  v,       e,  valid, keep, g,    dq,   dk,    dv,     de_part,
+                       de, done, rows, cols, heads, d, hpg, strip, band, strips, bands,
+                       scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(nd == 4 ? launch_bwd_width<T, 4>(p, B, s)
-                                  : launch_bwd_width<T, 8>(p, B, s));
+  constexpr int V = 16 / sizeof(T);
+  cudaError_t err;
+  if (run == 1)
+    err = nd == 4 ? launch_bwd<T, 4, 1, false>(p, B, threads, s)
+                  : launch_bwd<T, 8, 1, false>(p, B, threads, s);
+  else if (vg)
+    err = nd == 4 ? launch_bwd<T, 4, V, true>(p, B, threads, s)
+                  : launch_bwd<T, 8, V, true>(p, B, threads, s);
+  else
+    err = nd == 4 ? launch_bwd<T, 4, V, false>(p, B, threads, s)
+                  : launch_bwd<T, 8, V, false>(p, B, threads, s);
+  return static_cast<int>(err);
 }
 
 const bf16* in(const void* x) { return static_cast<const bf16*>(x); }
@@ -833,25 +1218,29 @@ extern "C" int qtm_grid_attn_fwd_bf16(const void* q, const void* k, const void* 
                              heads, d, nd, hpg, tr, tc, scale, stream);
 }
 
-// hpg, tr, tc: the feature group (whole heads) and pixel tile of one CTA;
-// de_part holds (B, tiles, nd, H) partials, tiles = ceil(rows/tr) * ceil(cols/tc).
+// hpg: the heads of a CTA's feature group; run, strip, band, threads: its
+// features a thread (16 bytes' worth or 1), columns, rows and threads (the
+// plan of ops/grid_attn.py bwd_plan); de_part: room for (B, strips *
+// bands, nd, H) partials; de: (nd, H), their sum; done: one int a feature
+// group, zero, which the kernel leaves zero.
 extern "C" int qtm_grid_attn_bwd(const float* q, const float* k, const float* v, const float* e,
                                  const float* valid, const float* keep, const float* g, float* dq,
-                                 float* dk, float* dv, float* de_part, int B, int rows, int cols,
-                                 int heads, int d, int nd, int hpg, int tr, int tc, float scale,
-                                 void* stream) {
-  return grid_attn_bwd<float>(q, k, v, e, valid, keep, g, dq, dk, dv, de_part, B, rows, cols,
-                              heads, d, nd, hpg, tr, tc, scale, stream);
+                                 float* dk, float* dv, float* de_part, float* de, int* done, int B,
+                                 int rows, int cols, int heads, int d, int nd, int hpg, int run,
+                                 int strip, int band, int threads, float scale, void* stream) {
+  return grid_attn_bwd<float>(q, k, v, e, valid, keep, g, dq, dk, dv, de_part, de, done, B, rows,
+                              cols, heads, d, nd, hpg, run, strip, band, threads, scale, stream);
 }
 
-// the same with q, k, v, e, valid, g, dq, dk and dv in bf16 (keep and the
-// de partials stay f32)
+// the same with q, k, v, e, valid, g, dq, dk, dv and de in bf16 (keep and
+// the de partials stay f32)
 extern "C" int qtm_grid_attn_bwd_bf16(const void* q, const void* k, const void* v, const void* e,
                                       const void* valid, const float* keep, const void* g,
-                                      void* dq, void* dk, void* dv, float* de_part, int B,
-                                      int rows, int cols, int heads, int d, int nd, int hpg,
-                                      int tr, int tc, float scale, void* stream) {
+                                      void* dq, void* dk, void* dv, float* de_part, void* de,
+                                      int* done, int B, int rows, int cols, int heads, int d,
+                                      int nd, int hpg, int run, int strip, int band, int threads,
+                                      float scale, void* stream) {
   return grid_attn_bwd<bf16>(in(q), in(k), in(v), in(e), in(valid), keep, in(g), out(dq),
-                             out(dk), out(dv), de_part, B, rows, cols, heads, d, nd, hpg, tr, tc,
-                             scale, stream);
+                             out(dk), out(dv), de_part, out(de), done, B, rows, cols, heads, d,
+                             nd, hpg, run, strip, band, threads, scale, stream);
 }

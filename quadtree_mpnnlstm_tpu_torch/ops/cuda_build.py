@@ -70,10 +70,11 @@ SIGNATURES = {
         # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
         "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 9 + [ctypes.c_float, _P],
         "qtm_grid_attn_fwd_bf16": [_P] * 7 + [_C] * 9 + [ctypes.c_float, _P],
-        # q, k, v, e_dir, valid, keep, g, dq, dk, dv, de_part,
-        # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
-        "qtm_grid_attn_bwd": [_P] * 11 + [_C] * 9 + [ctypes.c_float, _P],
-        "qtm_grid_attn_bwd_bf16": [_P] * 11 + [_C] * 9 + [ctypes.c_float, _P],
+        # q, k, v, e_dir, valid, keep, g, dq, dk, dv, de_part, de, done,
+        # B, rows, cols, heads, d, D, then the plan: hpg, run, strip, band,
+        # threads; scale, stream
+        "qtm_grid_attn_bwd": [_P] * 13 + [_C] * 11 + [ctypes.c_float, _P],
+        "qtm_grid_attn_bwd_bf16": [_P] * 13 + [_C] * 11 + [ctypes.c_float, _P],
     },
     "segment.cu": {
         # values, order (or null), offsets, out, B, L, n_out, F, then the plan:

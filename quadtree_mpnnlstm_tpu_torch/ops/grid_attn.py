@@ -19,13 +19,11 @@ as the graph build's mask is.
 
 Dispatch is by device: a CUDA tensor launches the kernel, and raises if it
 cannot be built or launched or if the shape is one it does not take (a
-head wider than :data:`MAX_H`); a CPU tensor runs the plain version. Above
-:data:`MAX_H` features the kernels run once per group of whole heads
-(``ops/attn.py`` :func:`head_groups`), each on its heads' columns and keep
-planes; heads are independent, so the groups' outputs side by side are
-the call's. There is no fall back: the JAX package's VMEM and vmap gates
-are TPU limits. Each kernel launch, each group's too, adds one to
-:data:`LAUNCHES` (a bf16 launch to :data:`LAUNCHES_BF16`).
+head wider than :data:`MAX_D`); a CPU tensor runs the plain version. Any
+heads·d runs in one launch of each kernel: a CTA takes one feature group
+of whole heads, and heads are independent. There is no fall back: the JAX
+package's VMEM and vmap gates are TPU limits. Each kernel launch adds one
+to :data:`LAUNCHES` (a bf16 launch to :data:`LAUNCHES_BF16`).
 
 q, k, v, ``e_dir`` and ``valid`` (and the cotangent) are float32 or
 bfloat16, all in one dtype; ``keep`` stays float32. In bf16 both kernels
@@ -35,11 +33,11 @@ f32 order and round each output (out, dq, dk, dv) to bf16 once;
 do (its dk/dv halos are f32 until their combine).
 
 :class:`GridAttnApply` makes the aggregation differentiable in q, k, v and
-``e_dir`` on both devices: its backward (K6) recomputes α per pixel tile
-and writes dq, dk and dv (dk and dv gathered at the opposite offsets from
-the tile's ring) and one ``de_dir`` partial a tile, summed in a fixed
-order, so a training step is bit-reproducible. ``valid`` and ``keep`` get
-no gradient.
+``e_dir`` on both devices: its backward (K6) walks row bands of column
+strips (:func:`bwd_plan`), computes each pixel's α once, writes dq, dk and
+dv (dk and dv gathered at the opposite offsets) and one ``de_dir`` partial
+a CTA, which the last CTA of each feature group sums in a fixed order, so
+a training step is bit-reproducible. ``valid`` and ``keep`` get no gradient.
 """
 
 from __future__ import annotations
@@ -53,7 +51,6 @@ import numpy as np
 import torch
 
 from quadtree_mpnnlstm_tpu_torch.ops import spmm
-from quadtree_mpnnlstm_tpu_torch.ops.attn import head_groups
 from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shift_in, shifts_for
 
 # kernel launches since the last reset_launch_counts(), by wrapper name:
@@ -61,18 +58,23 @@ from quadtree_mpnnlstm_tpu_torch.ops.grid import neighbor_valid, shift_in, shift
 LAUNCHES = {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
 LAUNCHES_BF16 = dict(LAUNCHES)
 
-# features per pixel the kernels take (csrc/grid_attn.cu kMaxH)
-MAX_H = 256
+# the widest head the kernels take (csrc/grid_attn.cu kMaxD); heads·d is
+# not bounded: a launch takes every feature group
+MAX_D = 256
 # K5's pixel tile (rows, cols) by the larger of the lanes a pixel takes
 # (heads of a group × lanes a head) and an eighth of the group's width: the
 # largest value each tile serves, so that a CTA has work for its 256
 # threads and its shared memory stays small.
 FWD_TILES = ((1, (8, 32)), (2, (8, 16)), (4, (8, 8)), (8, (4, 8)), (16, (4, 4)), (32, (2, 4)))
-# K6's pixel tile (rows, cols) by the width of a CTA's feature group: the
-# largest group width each tile serves. Smaller groups take larger tiles, so
-# that a CTA has work for its 256 threads and its ring costs less.
-BWD_TILES = ((2, (8, 32)), (8, (16, 16)), (16, (8, 16)), (32, (8, 8)), (64, (4, 8)),
-             (128, (4, 4)), (256, (2, 4)))
+# K6 (csrc/grid_attn.cu): rows in flight beyond the rows in use (kStages),
+# ring slots of k/v, q/g/keep and (dlogit, used) rows; the threads a strip
+# is sized for, a CTA's threads at most and a thread's registers at most
+# (``__launch_bounds__(256, 2)``); and the card it is sized for: an H100's
+# multiprocessors and the shared memory of one and of one CTA.
+BWD_STAGES = 2
+BWD_KV_SLOTS, BWD_QG_SLOTS, BWD_DL_SLOTS = BWD_STAGES + 4, BWD_STAGES + 3, 3
+BWD_THREADS, BWD_MAX_THREADS, BWD_REGS = 128, 256, 128
+SMS, SM_SMEM, SMEM_LIMIT = 132, 228 * 1024, 227 * 1024
 
 _NEG_BIG = -1e30
 
@@ -189,9 +191,9 @@ def _launch_args(q, k, v, e_dir, valid, keep, dims: GridAttnDims):
     rows, cols, heads, d, ndirs = dims
     b = q.shape[0]
     p, h = rows * cols, heads * d
-    if not 1 <= h <= MAX_H or ndirs not in (4, 8):
-        raise ValueError(f"grid attention kernels take 1 ≤ heads·d ≤ {MAX_H} and D in (4, 8); "
-                         f"got heads·d={h}, D={ndirs}")
+    if heads < 1 or not 1 <= d <= MAX_D or ndirs not in (4, 8):
+        raise ValueError(f"grid attention kernels take heads ≥ 1, 1 ≤ d ≤ {MAX_D} and D in "
+                         f"(4, 8); got heads={heads}, d={d}, D={ndirs}")
     if q.dtype not in spmm.KERNEL_DTYPES:
         raise TypeError(f"grid attention kernels take float32 or bfloat16 q, not {q.dtype}")
     check = spmm._check
@@ -259,71 +261,129 @@ def _grid_attn_fwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims) -> torc
     return out
 
 
-def bwd_plan(dims: GridAttnDims):
-    """K6's CTA geometry: (heads a feature group, tile rows, tile cols,
-    tiles a sample). A group packs whole heads up to 32 features (one head
-    when d > 32)."""
-    hpg = min(dims.heads, max(1, 32 // dims.d))
-    tr, tc = next(tile for width, tile in BWD_TILES if hpg * dims.d <= width)
-    return hpg, tr, tc, -(-dims.rows // tr) * -(-dims.cols // tc)
+class BwdPlan(NamedTuple):
+    """K6's launch: a CTA takes ``strip`` columns and ``band`` rows of the
+    grid and one feature group of ``hpg`` whole heads, ``run`` features a
+    thread, with ``threads`` threads and ``smem`` bytes of shared memory;
+    ``strips`` × ``bands`` CTAs a group and sample."""
+
+    hpg: int
+    run: int
+    strip: int
+    band: int
+    strips: int
+    bands: int
+    threads: int
+    smem: int
+
+
+def bwd_run(d: int, itemsize: int) -> int:
+    """K6's features a thread: a 16-byte run (4 f32 or 8 bf16 features)
+    where d takes whole runs and a power of two of them (≤ 32) a head; else
+    1. Unaligned operands keep the run (and so the order of sums), read and
+    written a value at a time."""
+    run = 16 // itemsize
+    lanes = d // run
+    return run if d % run == 0 and lanes & (lanes - 1) == 0 and lanes <= 32 else 1
+
+
+def bwd_smem_bytes(ndirs: int, hpg: int, d: int, run: int, itemsize: int, strip: int,
+                   band: int) -> int:
+    """Shared memory of one K6 CTA (csrc/grid_attn.cu ``bwd_layout``): the
+    k/v rings (rows of strip + 4 pixels) and q/g rings (strip + 2) in the
+    storage type, whose room the de reduction (strip × D × group width,
+    f32) reuses; the keep ring, the group's edge terms, the (dlogit, used)
+    ring, the band's validity and its row flags, the de sum's chunks; each
+    region 16-byte aligned."""
+    def up16(x):
+        return -(-x // 16) * 16
+
+    gw = hpg * d
+    stride = (gw | 1 if run == 1 and itemsize == 4 else gw) * itemsize
+    at = up16(2 * BWD_KV_SLOTS * (strip + 4) * stride)
+    at = max(at + up16(2 * BWD_QG_SLOTS * (strip + 2) * stride), up16(4 * strip * ndirs * gw))
+    at += up16(4 * BWD_QG_SLOTS * ndirs * (strip + 2) * hpg) + up16(4 * ndirs * gw)
+    at += up16(8 * BWD_DL_SLOTS * (strip + 2) * hpg * ndirs)
+    at += up16((band + 4) * (strip + 4)) + up16(2 * (band + 4))
+    return at + 4 * BWD_MAX_THREADS + 16
+
+
+def _bwd_threads(strip: int, hpg: int, d: int, run: int) -> int:
+    """Threads of a K6 CTA: one a (column, run) of a row, side columns
+    included (the copies and the softmax), whole warps, at most 256."""
+    return min(BWD_MAX_THREADS, -(-(strip + 2) * (hpg * d // run) // 32) * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(dims: GridAttnDims, itemsize: int = 4, batch: int = 1) -> BwdPlan:
+    """K6's CTA geometry for a ``batch``-sample launch in f32 (``itemsize``
+    4) or bf16 (2). A group packs whole heads up to 32 features (one head
+    when d > 32). The strip is as wide as 128 threads (one a column and
+    run, side columns included) and the shared memory allow, evened over
+    the columns: a multiprocessor then holds four CTAs (its registers, at
+    128 a thread). The bands split the rows so that the launch's CTAs, as
+    many as the card holds at once at that CTA's threads, registers and
+    shared memory (one wave), each walk one band: few band edges, whose
+    rows are staged and whose softmax is computed twice, and no second
+    wave's tail."""
+    rows, cols, heads, d, ndirs = dims
+    hpg = min(heads, max(1, 32 // d))
+    runs = hpg * d // bwd_run(d, itemsize)
+    run = hpg * d // runs
+    strip = min(cols, max(1, BWD_THREADS // runs - 2))
+    while strip > 1 and bwd_smem_bytes(ndirs, hpg, d, run, itemsize, strip, rows) > SMEM_LIMIT:
+        strip -= 1
+    strips = -(-cols // strip)
+    strip = -(-cols // strips)
+    threads = _bwd_threads(strip, hpg, d, run)
+    base = strips * -(-heads // hpg) * batch  # CTAs a band
+    band = rows
+    for _ in range(2):  # the shared memory depends on the band a little
+        smem = bwd_smem_bytes(ndirs, hpg, d, run, itemsize, strip, band)
+        slots = max(1, min(2048 // threads, 65536 // (threads * BWD_REGS),
+                           SM_SMEM // (smem + 1024), 32))
+        band = max(2, -(-rows // max(1, SMS * slots // base)))
+    bands = -(-rows // band)
+    band = -(-rows // bands)
+    return BwdPlan(hpg, run, strip, band, strips, bands, threads,
+                   bwd_smem_bytes(ndirs, hpg, d, run, itemsize, strip, band))
+
+
+_DONE = {}  # device -> int32 counters, one a K6 feature group, zero at rest
+
+
+def _done_counters(device, groups: int) -> torch.Tensor:
+    """K6's counters of finished CTAs, one a feature group: zero, and left
+    zero by each launch's last CTA of the group (csrc/grid_attn.cu)."""
+    buf = _DONE.get(device)
+    if buf is None or buf.numel() < groups:
+        buf = _DONE[device] = torch.zeros(max(groups, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def _grid_attn_bwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims, g):
-    """Launch K6 (``qtm_grid_attn_bwd``, or ``_bf16`` for bf16 operands:
-    one CTA per pixel tile, feature group and sample, which writes dq, dk,
-    dv and one f32 ``de_dir`` partial) and sum the partials in a fixed
-    order. Returns (dq, dk, dv, de_dir) in q's dtype."""
+    """Launch K6 (``qtm_grid_attn_bwd``, or ``_bf16`` for bf16 operands):
+    one CTA per (strip × band of pixels, feature group, sample) by
+    :func:`bwd_plan`, at any heads·d; the kernel writes dq, dk, dv and one
+    f32 ``de_dir`` partial a CTA, and the last CTA of each feature group
+    sums the group's partials in a fixed order and rounds them once.
+    Returns (dq, dk, dv, de_dir) in q's dtype."""
     lib, ptrs, ints, suffix = _launch_args(q, k, v, e_dir, valid, keep, dims)
     spmm._check(g, "g", q.dtype, tuple(q.shape))
     b, _, h = q.shape
-    hpg, tr, tc, tiles = bwd_plan(dims)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    de_part = torch.empty((b, tiles, dims.ndirs, h), dtype=torch.float32, device=q.device)
+    plan = bwd_plan(dims, q.element_size(), b)
+    de_part = torch.empty((b, plan.strips * plan.bands, dims.ndirs, h), dtype=torch.float32,
+                          device=q.device)
+    de = torch.empty((dims.ndirs, h), dtype=q.dtype, device=q.device)
     err = getattr(lib, "qtm_grid_attn_bwd" + suffix)(
         *ptrs, spmm._ptr(g), spmm._ptr(dq), spmm._ptr(dk), spmm._ptr(dv), spmm._ptr(de_part),
-        *ints, hpg, tr, tc, ctypes.c_float(_scale(dims.d)), spmm._stream())
+        spmm._ptr(de), spmm._ptr(_done_counters(q.device, -(-dims.heads // plan.hpg))),
+        *ints, plan.hpg, plan.run, plan.strip, plan.band, plan.threads,
+        ctypes.c_float(_scale(dims.d)), spmm._stream())
     spmm._raise_on(err, "grid_attn_apply_bwd")
     (LAUNCHES_BF16 if suffix else LAUNCHES)["grid_attn_apply_bwd"] += 1
-    return dq, dk, dv, de_part.sum(dim=(0, 1)).to(e_dir.dtype)
-
-
-# ------------------------------------------------------- head groups
-
-
-def _group_keep(keep: Optional[torch.Tensor], h0: int, h1: int) -> Optional[torch.Tensor]:
-    return None if keep is None else keep[..., h0:h1].contiguous()
-
-
-def grid_fwd_by_groups(fwd, q, k, v, e_dir, valid, keep, dims: GridAttnDims,
-                       limit: int = MAX_H) -> torch.Tensor:
-    """``fwd`` (K5's launcher, or the plain version) on the fewest groups of
-    whole heads of at most ``limit`` features (``ops/attn.py``
-    :func:`head_groups`), each on its heads' columns of q, k, v and
-    ``e_dir`` and its keep planes; the outputs side by side. One group is
-    the one call, with the operands as given."""
-    groups = head_groups(dims.heads, dims.d, limit)
-    if len(groups) == 1:
-        return fwd(q, k, v, e_dir, valid, keep, dims)
-    d = dims.d
-    return torch.cat([fwd(*(x[..., h0 * d:h1 * d].contiguous() for x in (q, k, v, e_dir)),
-                          valid, _group_keep(keep, h0, h1), dims._replace(heads=h1 - h0))
-                      for h0, h1 in groups], dim=-1)
-
-
-def grid_bwd_by_groups(bwd, q, k, v, e_dir, valid, keep, dims: GridAttnDims, g,
-                       limit: int = MAX_H):
-    """``bwd`` (K6's launcher, or the plain version) by the head groups of
-    :func:`grid_fwd_by_groups`, on each group's columns of the cotangent
-    too; dq, dk, dv and ``de_dir`` are the groups' side by side."""
-    groups = head_groups(dims.heads, dims.d, limit)
-    if len(groups) == 1:
-        return bwd(q, k, v, e_dir, valid, keep, dims, g)
-    d = dims.d
-    parts = [bwd(*(x[..., h0 * d:h1 * d].contiguous() for x in (q, k, v, e_dir)), valid,
-                 _group_keep(keep, h0, h1), dims._replace(heads=h1 - h0),
-                 g[..., h0 * d:h1 * d].contiguous())
-             for h0, h1 in groups]
-    return tuple(torch.cat(grads, dim=-1) for grads in zip(*parts))
+    return dq, dk, dv, de
 
 
 # ------------------------------------------------------- dispatch
@@ -341,7 +401,7 @@ class GridAttnApply(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, e_dir, valid, keep)
         ctx.dims = dims
         if q.is_cuda:
-            return grid_fwd_by_groups(_grid_attn_fwd_cuda, q, k, v, e_dir, valid, keep, dims)
+            return _grid_attn_fwd_cuda(q, k, v, e_dir, valid, keep, dims)
         return grid_attn_plain(q, k, v, e_dir, valid, keep, dims)
 
     @staticmethod
@@ -350,7 +410,7 @@ class GridAttnApply(torch.autograd.Function):
         q, k, v, e_dir, valid, keep = ctx.saved_tensors
         args = (q, k, v, e_dir, valid, keep, ctx.dims, g.contiguous())
         if g.is_cuda:
-            dq, dk, dv, de = grid_bwd_by_groups(_grid_attn_bwd_cuda, *args)
+            dq, dk, dv, de = _grid_attn_bwd_cuda(*args)
         else:
             dq, dk, dv, de = grid_attn_bwd_plain(*args)
         return dq, dk, dv, de, None, None, None

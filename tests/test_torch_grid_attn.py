@@ -209,15 +209,22 @@ THREADS = 256  # csrc/grid_attn.cu kThreads
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a CTA may opt into on an H100
 
 
+def _head_counts(d):
+    """Every head count up to heads·d 256, and H 768 (the sea-ice MH cells'
+    width) where d divides it."""
+    return [*range(1, 256 // d + 1), *([768 // d] if 768 % d == 0 else [])]
+
+
 @pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 8, 16, 32, 64, 256])
 def test_fwd_plan_covers_every_pixel_and_feature_once(d):
     """K5's launch, replayed as csrc/grid_attn.cu indexes it: the CTAs'
     (tile, feature group) pairs and each CTA's (pixel, head) items and lane
     runs cover every (pixel, feature) of an 11 × 13 grid exactly once, for
-    every head count the wrapper accepts at this d (heads·d ≤ 256) and both
-    D; a head's lanes sit in one warp; the CTA's shared memory fits."""
+    every head count at this d up to heads·d 256 and at H 768 (one launch
+    at any width) and both D; a head's lanes sit in one warp; the CTA's
+    shared memory fits."""
     rows, cols = 11, 13
-    for heads in range(1, tga.MAX_H // d + 1):
+    for heads in _head_counts(d):
         for ndirs in (4, 8):
             dims = tga.GridAttnDims(rows, cols, heads, d, ndirs)
             hpg, tr, tc, tiles = tga.fwd_plan(dims)
@@ -253,9 +260,10 @@ def test_fwd_plan_bf16_stages_every_row_once(d):
     the k/v halo and the q tile of every CTA of an 11 × 13 grid: each
     staged (pixel, feature) is written once, every 4-value load reads 8
     aligned bytes of the bf16 tensor and stores 16 aligned bytes of a
-    shared row, and the shared memory is f32's."""
+    shared row, and the shared memory is f32's; up to heads·d 256 and at H
+    768."""
     rows, cols = 11, 13
-    for heads in range(1, tga.MAX_H // d + 1):
+    for heads in _head_counts(d):
         dims = tga.GridAttnDims(rows, cols, heads, d, 8)
         hpg, tr, tc, tiles = tga.fwd_plan(dims)
         run, _ = tga.fwd_lanes(d)
@@ -319,3 +327,337 @@ def test_fwd_lane_split_is_one_lane_in_order_off_the_tree():
     as :func:`_head_sum` does."""
     for d in (3, 5, 6, 12, 64, 256):
         assert tga.fwd_lanes(d) == (d, 1)
+
+
+# ---------------------------------------------------------------- K6's plan
+
+KV_SLOTS, QG_SLOTS, STAGES = tga.BWD_KV_SLOTS, tga.BWD_QG_SLOTS, tga.BWD_STAGES
+
+
+def _check_bwd_plan(p, dims, itemsize):
+    """The plan is one csrc/grid_attn.cu ``grid_attn_bwd`` takes: whole
+    warps, at most 256 threads, one thread a (column, run) of the outputs,
+    16-byte runs only where d takes a power of two of them, and shared
+    memory within an H100 CTA's 227 KB."""
+    rows, cols, heads, d, ndirs = dims
+    assert p.threads % 32 == 0 and 32 <= p.threads <= THREADS
+    assert p.run in (1, 16 // itemsize) and p.hpg == min(heads, max(1, 32 // d))
+    if p.run > 1:
+        lanes = d // p.run
+        assert d % p.run == 0 and lanes & (lanes - 1) == 0 and lanes <= 32
+    assert p.strip * p.hpg * d // p.run <= p.threads
+    assert p.smem == tga.bwd_smem_bytes(ndirs, p.hpg, d, p.run, itemsize, p.strip, p.band)
+    assert p.smem <= SMEM_LIMIT
+    assert p.strips == -(-cols // p.strip) and p.bands == -(-rows // p.band)
+    assert p.strip <= cols and 1 <= p.band <= rows
+
+
+def _replay_bwd_plan(rows, cols, heads, d, ndirs, itemsize, batch):
+    """K6's launch, replayed as csrc/grid_attn.cu ``grid_attn_bwd_kernel``
+    indexes it: returns how often each (sample, pixel, feature) of dq, dk
+    and dv is written, and per pixel how often its k/v and q/g rows are
+    staged and its softmax computed (over the CTAs of a group), after
+    walking every CTA's row rings: a stage lands before a row is read, and
+    a copy never replaces a row still in use."""
+    dims = tga.GridAttnDims(rows, cols, heads, d, ndirs)
+    p = tga.bwd_plan(dims, itemsize, batch)
+    _check_bwd_plan(p, dims, itemsize)
+    w, bh, run, hpg = p.strip, p.band, p.run, p.hpg
+    groups = -(-heads // hpg)
+    out = np.zeros((batch, rows, cols, heads * d), np.int64)
+    kv_n, qg_n = np.zeros((rows, cols), np.int64), np.zeros((rows, cols), np.int64)
+    soft = np.zeros((rows, cols, heads), np.int64)
+    tid = np.arange(p.threads)
+    for b in range(batch):
+        for grp in range(groups):
+            h0 = grp * hpg
+            gh = min(hpg, heads - h0)
+            runs = gh * d // run
+            lanes = d // run if run > 1 else 1
+            for unit in range(p.strips * p.bands):
+                c0, r0 = (unit % p.strips) * w, (unit // p.strips) * bh
+                r1 = min(r0 + bh, rows)
+                c, jr = tid // runs, tid % runs
+                act = (tid < w * runs) & (c0 + c < cols)
+                for s in range(r0, r1):
+                    for x in range(run):
+                        np.add.at(out, (b, s, c0 + c[act], h0 * d + jr[act] * run + x), 1)
+                if b:
+                    continue
+                # the softmax items: one (column, head) each with sub 0, a
+                # head's lanes aligned in one warp
+                items = (w + 2) * gh * lanes
+                it = np.arange(-(-items // p.threads) * p.threads)
+                on = it < items
+                cc, hh, sub = it // (gh * lanes), (it // lanes) % gh, it % lanes
+                assert ((it // lanes) * lanes // 32 == it // 32)[on].all()
+                first = on & (sub == 0)
+                assert len(set(zip(cc[first], hh[first]))) == first.sum() == (w + 2) * gh
+                # the walk: stage j brings k/v row j + 2 (the first stage
+                # R0-2..R0) and q/g row j + 1; the empty rings take stages
+                # R0-2..R0+1 at once, then iteration j waits for stage j,
+                # issues stage j + STAGES, takes the softmax of row j + 1
+                # and the outputs of row j (rows from j - 1 on in use)
+                kv_slot, qg_slot, done, kv_rows, qg_rows = {}, {}, set(), [], []
+
+                def issue(j, now):
+                    for r in range(r0 - 2 if j == r0 - 2 else j + 2, j + 3):
+                        old = kv_slot.get((r + 2) % KV_SLOTS)
+                        assert old is None or old < now - 1, (r, old, now)
+                        kv_slot[(r + 2) % KV_SLOTS] = r
+                        kv_rows.append(r)
+                    old = qg_slot.get((j + 2) % QG_SLOTS)
+                    assert old is None or old < now - 1, (j + 1, old, now)
+                    qg_slot[(j + 2) % QG_SLOTS] = j + 1
+                    qg_rows.append(j + 1)
+
+                for st in range(STAGES + 2):
+                    if r0 - 2 + st <= r1 - 1:
+                        issue(r0 - 2 + st, r0 - 3)
+                for j in range(r0 - 2, r1):
+                    done.add(j)
+                    if r0 + 1 < j + STAGES <= r1 - 1:
+                        issue(j + STAGES, j)
+                    last = set(range(j - 1, j + 2)) if j >= r0 else set()  # outputs of row j
+                    used_kv = set(range(j, j + 3)) | last
+                    used_qg = {j + 1} | last
+                    for r in used_kv:
+                        assert kv_slot[(r + 2) % KV_SLOTS] == r and max(r - 2, r0 - 2) in done
+                    for r in used_qg:
+                        assert qg_slot[(r + 1) % QG_SLOTS] == r and r - 1 in done
+                    r = j + 1  # this iteration's softmax row
+                    if 0 <= r < rows:
+                        cs = c0 - 1 + cc[first]
+                        ok = (cs >= 0) & (cs < cols)
+                        np.add.at(soft, (r, cs[ok], h0 + hh[first][ok]), 1)
+                assert kv_rows == list(range(r0 - 2, r1 + 2))  # each row once, halo included
+                assert qg_rows == list(range(r0 - 1, r1 + 1))
+                if grp == 0:
+                    for n, rr, halo in ((kv_n, kv_rows, 2), (qg_n, qg_rows, 1)):
+                        rr = np.array([r for r in rr if 0 <= r < rows])
+                        cs = np.arange(max(0, c0 - halo), min(cols, c0 + w + halo))
+                        np.add.at(n, (rr[:, None], cs[None, :]), 1)
+    return out, kv_n, qg_n, soft, p
+
+
+def _covers(n, size, lo, hi):
+    """Per index of an axis of ``n``, how many of the ``size``-wide blocks
+    extended by ``lo`` before and ``hi`` after hold it."""
+    return np.array([sum(s - lo <= x < min(s + size, n) + hi for s in range(0, n, size))
+                     for x in range(n)])
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("ndirs", [4, 8])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8, 16, 32, 64])
+def test_bwd_plan_writes_every_output_once_and_stages_each_row_once(d, ndirs, itemsize):
+    """K6 (csrc/grid_attn.cu), replayed by :func:`_replay_bwd_plan` on an
+    11 × 13 grid at batch 2 and a 40 × 37 grid at batch 1, at one head, a
+    full feature group
+    and H 768 (one launch at any width), in f32 and bf16: every (pixel,
+    feature) of dq, dk and dv written once; every k/v row staged once a
+    strip with its two rows and columns of halo, every q/g row with one;
+    every pixel's softmax computed once, twice on the rows and columns
+    where strips and bands meet; the ring never reads a row before it lands
+    or replaces one in use; shared memory ≤ 227 KB."""
+    for rows, cols, batch in ((11, 13, 2), (40, 37, 1)):
+        for heads in sorted({1, max(1, 32 // d), 768 // d}):
+            out, kv_n, qg_n, soft, p = _replay_bwd_plan(rows, cols, heads, d, ndirs, itemsize,
+                                                        batch)
+            assert (out == 1).all(), (rows, heads, p)
+            assert (p.run > 1) == (d * itemsize % 16 == 0
+                                   and (d * itemsize // 16) in (1, 2, 4, 8, 16, 32))
+            r2, c2 = _covers(rows, p.band, 2, 2), _covers(cols, p.strip, 2, 2)
+            np.testing.assert_array_equal(kv_n, np.outer(r2, c2))
+            r1, c1 = _covers(rows, p.band, 1, 1), _covers(cols, p.strip, 1, 1)
+            np.testing.assert_array_equal(qg_n, np.outer(r1, c1))
+            np.testing.assert_array_equal(soft, np.outer(r1, c1)[..., None] + 0 * soft)
+
+
+@pytest.mark.parametrize("ndirs", [4, 8])
+def test_bwd_plan_fills_the_card_on_the_flagship_grid(ndirs):
+    """On the flagship's 224 × 304 grid at batch 1, at every path width
+    (H 1, 32, 256, and 768 in one launch) in f32 and bf16, K6's plan is one
+    the kernel takes, with 16-byte runs where d is 32, and fills the H100
+    in one wave: at least one CTA a multiprocessor (132), and where the
+    rows are split into bands at most as many as the multiprocessors hold
+    at once (four CTAs of 128 threads of at most 128 registers, fewer where
+    their shared memory takes more than a quarter of a multiprocessor's)."""
+    for heads, d in ((1, 1), (1, 32), (8, 32), (24, 32)):
+        for itemsize in (4, 2):
+            dims = tga.GridAttnDims(224, 304, heads, d, ndirs)
+            p = tga.bwd_plan(dims, itemsize)
+            _check_bwd_plan(p, dims, itemsize)
+            ctas = p.strips * p.bands * -(-heads // p.hpg)
+            slots = min(4, tga.SM_SMEM // (p.smem + 1024))
+            assert tga.SMS <= ctas and p.threads <= 128, p
+            assert p.bands == 1 or ctas <= slots * tga.SMS, p
+            assert p.run == (16 // itemsize if d == 32 else 1)
+
+
+def _k6_model(q, k, v, g, e, valid, keep, dims, plan):
+    """A numpy model of csrc/grid_attn.cu K6 in f32, in its order of sums.
+    Per (pixel, head): each run of ``plan.run`` features sums its products
+    in feature order and an xor butterfly over the head's runs finishes the
+    logit and dα sums (single features: the head in order); the softmax in
+    direction order; dq, dk, dv over the directions in order; de: each
+    (column, feature) thread adds its band's pixels in row order, the
+    strip's columns are summed by the kernel's halving tree, and the CTAs'
+    partials, in (sample, band, strip) order, by the group's last CTA:
+    chunks of consecutive partials each in order, then the chunks in order.
+    Masked pixels and pixels off the grid read as zero (the kernel
+    zero-fills their rows)."""
+    rows, cols, heads, d, ndirs = dims
+    f32 = np.float32
+    b = q.shape[0]
+    scale = f32(tga._scale(d))
+    shifts = [(-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (1, -1), (-1, 1), (1, 1)][:ndirs]
+    ok = valid.reshape(rows, cols) != 0
+    q, k, v, g = (np.where(ok[None, ..., None], x.reshape(b, rows, cols, heads * d), f32(0))
+                  for x in (q, k, v, g))
+
+    def shift(x, dr, dc, fill=0):  # x[r - dr, c - dc], fill off the grid
+        out = np.full_like(x, fill)
+        rs, cs = slice(max(dr, 0), rows + min(dr, 0)), slice(max(dc, 0), cols + min(dc, 0))
+        rd, cd = slice(max(-dr, 0), rows + min(-dr, 0)), slice(max(-dc, 0), cols + min(-dc, 0))
+        out[..., rs, cs, :] = x[..., rd, cd, :]
+        return out
+
+    run = plan.run if plan.run > 1 else d
+    lanes = d // run
+
+    def head_dot(a, bb):  # (b, rows, cols, heads·d) x 2 -> (b, rows, cols, heads)
+        prod = (a * bb).reshape(b, rows, cols, heads, lanes, run)
+        acc = prod[..., 0]
+        for x in range(1, run):
+            acc = acc + prod[..., x]
+        o = 1
+        while o < lanes:
+            acc = acc + acc[..., np.arange(lanes) ^ o]
+            o *= 2
+        return acc[..., 0]
+
+    okf = ok[None, ..., None]
+    has, lq, lg = [], [], []
+    for i, (dr, dc) in enumerate(shifts):
+        has.append(okf & (shift(ok[None, ..., None].astype(f32), dr, dc) != 0))
+        ei = e[i][None, None, None, :]
+        lq.append(head_dot(q, shift(k, dr, dc) + ei) * scale)
+        lg.append(head_dot(g, shift(v, dr, dc) + ei))
+    mx = np.max([np.where(h, x, -np.inf) for h, x in zip(has, lq)], axis=0)
+    ex = [np.where(h, np.exp(np.where(h, x - mx, 0)), f32(0)).astype(f32) for h, x in zip(has, lq)]
+    den = ex[0]
+    for x in ex[1:]:
+        den = den + x
+    kp = [np.ones((b, rows, cols, heads), f32) if keep is None else
+          keep[:, i].reshape(b, rows, cols, heads) for i in range(ndirs)]
+    alpha = [np.where(h, x / np.where(h, den, 1), f32(0)) for h, x in zip(has, ex)]
+    kp = [np.where(h, x, f32(1)) for h, x in zip(has, kp)]
+    dal = [x * y for x, y in zip(lg, kp)]
+    rowdot = alpha[0] * dal[0]
+    for a, da in zip(alpha[1:], dal[1:]):
+        rowdot = rowdot + a * da
+    dl = [(a * (da - rowdot)) * scale for a, da in zip(alpha, dal)]
+    used = [a * x for a, x in zip(alpha, kp)]
+    rep = lambda x: np.repeat(x, d, axis=-1)  # noqa: E731  (a head's value on its features)
+    dq = dk = dv = np.zeros_like(q)
+    for i, (dr, dc) in enumerate(shifts):
+        dq = dq + rep(dl[i]) * (shift(k, dr, dc) + e[i])
+        dk = dk + shift(rep(dl[i]), -dr, -dc) * shift(q, -dr, -dc)
+        dv = dv + shift(rep(used[i]), -dr, -dc) * shift(g, -dr, -dc)
+    terms = np.stack([rep(dl[i]) * q + rep(used[i]) * g for i in range(ndirs)], axis=3)
+    w, bh = plan.strip, plan.band
+    parts = []
+    for s in range(b):
+        for unit in range(plan.strips * plan.bands):
+            c0, r0 = (unit % plan.strips) * w, (unit // plan.strips) * bh
+            red = np.zeros((w, ndirs, heads * d), f32)
+            for r in range(r0, min(r0 + bh, rows)):
+                red[:min(w, cols - c0)] = red[:min(w, cols - c0)] + terms[s, r, c0:c0 + w]
+            width = w
+            while width > 1:
+                half = (width + 1) // 2
+                red[:width - half] = red[:width - half] + red[half:width]
+                width = half
+            parts.append(red[0])
+    # each group's last CTA: C = D × group width columns; with fewer
+    # columns than threads, chunks of consecutive partials each in order,
+    # then the chunks in order
+    de = np.zeros((ndirs, heads * d), f32)
+    for h0 in range(0, heads, plan.hpg):
+        grp = slice(h0 * d, min(heads, h0 + plan.hpg) * d)
+        c = ndirs * (grp.stop - grp.start)
+        chunks = 1 if c >= plan.threads else plan.threads // c
+        per = -(-len(parts) // chunks)
+        for k in range(chunks):
+            acc = np.zeros((ndirs, grp.stop - grp.start), f32)
+            for u in range(k * per, min(len(parts), (k + 1) * per)):
+                acc = acc + parts[u][:, grp]
+            de[:, grp] = acc if k == 0 else de[:, grp] + acc
+    flat = lambda x: x.reshape(b, rows * cols, heads * d)  # noqa: E731
+    return flat(dq), flat(dk), flat(dv), de
+
+
+@pytest.mark.parametrize("heads,d,ndirs,dropout", [
+    (8, 32, 4, True), (1, 32, 8, False), (1, 1, 4, True), (3, 6, 8, True), (2, 16, 4, False),
+    (24, 32, 4, True)])
+def test_k6_order_model_matches_the_plain_backward(heads, d, ndirs, dropout):
+    """:func:`_k6_model` (K6's order of sums: runs then butterfly, the
+    directions in order, de by thread rows, column tree and CTA partials)
+    on the 12 × 20 mask at batch 2 against ``grid_attn_bwd_plain``: dq,
+    dk, dv and de_dir within 1e-5 × max(1, max|plain|), the tolerance K6
+    is held to on the card; masked pixels exactly 0."""
+    q, k, v, g, e = _operands(heads, d, ndirs, heads * 7 + d + ndirs)
+    valid = (~_mask()).astype(np.float32).reshape(-1)
+    keep = None
+    if dropout:
+        rng = np.random.default_rng(5)
+        keep = ((rng.random((B, ndirs, P, heads)) < 0.9) / 0.9).astype(np.float32)
+    dims = tga.GridAttnDims(*SHAPE, heads, d, ndirs)
+    plan = tga.bwd_plan(dims, 4, B)
+    mine = _k6_model(q, k, v, g, e, valid, keep, dims, plan)
+    ref = tga.grid_attn_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, e, valid)),
+                                  None if keep is None else torch.from_numpy(keep), dims,
+                                  torch.from_numpy(g))
+    for name, a, r in zip(("dq", "dk", "dv", "de_dir"), mine, ref):
+        r = r.numpy()
+        assert a.dtype == np.float32
+        err = np.abs(a - r).max()
+        assert err <= 1e-5 * max(1.0, np.abs(r).max()), (name, err)
+    for a in mine[:3]:
+        assert not a[:, valid == 0].any()
+
+
+def test_grid_attn_apply_at_h768_is_one_call(monkeypatch):
+    """``GridAttnApply`` at H 768 (24 heads × d 32, the sea-ice MH cells)
+    calls the plain forward and backward once each on the CPU, on the whole
+    width, bit-identical to them (the CUDA path launches K5 and K6 once
+    each the same way: tests/test_torch_kernels_cuda.py); the module has no head-group dispatch
+    left and never splits heads (``head_groups`` is not reached)."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn as tattn
+
+    assert not any(hasattr(tga, n) for n in ("grid_fwd_by_groups", "grid_bwd_by_groups",
+                                             "MAX_H", "head_groups"))
+    monkeypatch.setattr(tattn, "head_groups", lambda *a: pytest.fail("heads split"))
+    calls = []
+    for name in ("grid_attn_plain", "grid_attn_bwd_plain"):
+        real = getattr(tga, name)
+        monkeypatch.setattr(tga, name, lambda *a, _r=real, _n=name: calls.append(
+            (_n, a[0].shape[-1])) or _r(*a))
+    heads, d, ndirs = 24, 32, 4
+    q, k, v, g, e = _operands(heads, d, ndirs, 768)
+    valid = torch.from_numpy((~_mask()).astype(np.float32).reshape(-1))
+    keep = torch.from_numpy(((np.random.default_rng(9).random((B, ndirs, P, heads)) < 0.9)
+                             / 0.9).astype(np.float32))
+    dims = tga.GridAttnDims(*SHAPE, heads, d, ndirs)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v, e)]
+    out = tga.grid_attn_apply(*leaves, valid, keep, dims)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    # the plain backward recomputes through the plain forward, at full width
+    assert calls == [("grid_attn_plain", 768), ("grid_attn_bwd_plain", 768),
+                     ("grid_attn_plain", 768)]
+    plain = [torch.from_numpy(x) for x in (q, k, v, e)]
+    assert torch.equal(out.detach(), tga.grid_attn_plain(*plain, valid, keep, dims))
+    for a, b in zip(grads, tga.grid_attn_bwd_plain(*plain, valid, keep, dims,
+                                                   torch.from_numpy(g))):
+        assert torch.equal(a, b)

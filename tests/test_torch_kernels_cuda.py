@@ -599,6 +599,55 @@ def test_grid_attn_forward_on_ragged_and_masked_tiles(card, rows, cols, heads, d
     assert out[:, 8 * cols:].any()
 
 
+# K6 at every path width (H 1 and 32, the head convs; 256, the gate stack;
+# 768, the MH cells in one launch) in f32 and bf16, with and without keep
+# planes, D 4 and 8
+K6_WIDTHS = [(1, 1), (1, 32), (8, 32), (24, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ndirs,dropout", [(4, True), (4, False), (8, True), (8, False)])
+@pytest.mark.parametrize("heads,d", K6_WIDTHS)
+def test_k6_row_bands_match_plain(card, heads, d, ndirs, dropout, dtype):
+    """K6's row bands (:func:`bwd_plan`) against ``grid_attn_bwd_plain`` on a
+    37 × 45 grid (no multiple of a strip or a band) whose top 12 rows are
+    masked whole (bands with no valid pixel) and which holds an isolated
+    valid pixel, at batch 3: f32 within 1e-5 × max(1, max|plain|), bf16
+    within one rounding; masked pixels' gradients exactly 0; a repeat, and
+    operands and a cotangent at an odd offset (read and written a value at
+    a time, in the same order of sums), give the same bits; one launch a
+    call."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    args, gen = _grid_case(card, 37, 45, heads, d, ndirs, dropout, batch=3, dead_rows=12)
+    valid = args[4].clone().view(37, 45)
+    valid[20:23, 30:33] = 0
+    valid[21, 31] = 1  # isolated: no edge, zero gradients, its softmax empty
+    args = args[:4] + (valid.view(-1),) + args[5:]
+    dt = getattr(torch, dtype)
+    args = tuple(x.to(dt) if i < 5 else x for i, x in enumerate(args))
+    g = torch.randn(args[0].shape, device=card, generator=gen).to(dt)
+    before = dict(grid_attn.LAUNCHES_BF16 if dt == torch.bfloat16 else grid_attn.LAUNCHES)
+    kern = grid_attn._grid_attn_bwd_cuda(*args, g)
+    after = grid_attn.LAUNCHES_BF16 if dt == torch.bfloat16 else grid_attn.LAUNCHES
+    assert after["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + 1
+    plain = grid_attn.grid_attn_bwd_plain(*args, g)
+    for name, a, p in zip(("dq", "dk", "dv", "de_dir"), kern, plain):
+        if dt == torch.bfloat16:
+            _bf16_close(a, p, f"K6 {name} {heads}x{d}")
+        else:
+            err = float((a - p).abs().max())
+            assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+    invalid = args[4] == 0
+    for a in kern[:3]:
+        assert not a[:, invalid].any() and not a[:, :11 * 45].any()
+        assert not a[:, 21 * 45 + 31].any()
+    assert all(torch.equal(a, b) for a, b in zip(grid_attn._grid_attn_bwd_cuda(*args, g), kern))
+    mis = tuple(_misaligned(x) for x in args[:3]) + args[3:]
+    odd = grid_attn._grid_attn_bwd_cuda(*mis, _misaligned(g))
+    assert all(torch.equal(a, b) for a, b in zip(odd, kern))
+
+
 def test_grid_attn_apply_on_the_card_goes_through_the_kernels(card):
     """A CUDA ``grid_attn_apply`` on inputs that need a gradient carries the
     ``GridAttnApply`` node; its backward launches K6 once and no K5, and K6
@@ -620,24 +669,23 @@ def test_grid_attn_apply_on_the_card_goes_through_the_kernels(card):
 
 @pytest.mark.parametrize("dropout", [False, True])
 def test_grid_attn_apply_takes_any_width_by_head_groups(card, dropout):
-    """``grid_attn_apply`` at H 768 (24 heads × 32, above the kernels'
-    256): K5 and K6 launch once per group of whole heads (3), K5's output
-    bit-identical to the plain version's at the full width, K6 ≤1e-5 ×
+    """``grid_attn_apply`` at H 768 (24 heads × 32, three times the
+    kernels' old 256): K5 and K6 launch once a call, each over all 24
+    feature groups (one CTA a group of whole heads), with no column copies;
+    K5's output bit-identical to the plain version's, K6 ≤1e-5 ×
     max(1, max|g|), with and without keep planes."""
-    from quadtree_mpnnlstm_tpu_torch.ops import attn, grid_attn
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
 
     (q, k, v, e_dir, valid, keep, dims), gen = _grid_case(card, 11, 13, 24, 32, 4, dropout)
-    groups = len(attn.head_groups(24, 32, grid_attn.MAX_H))
-    assert groups == 3
     leaves = [x.requires_grad_(True) for x in (q, k, v, e_dir)]
     before = dict(grid_attn.LAUNCHES)
     out = grid_attn.grid_attn_apply(*leaves, valid, keep, dims)
-    assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"] + groups
+    assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"] + 1
     plain_args = [x.detach() for x in leaves] + [valid, keep, dims]
     assert torch.equal(out.detach(), grid_attn.grid_attn_plain(*plain_args))
     g = torch.randn(out.shape, device=card, generator=gen)
     grads = torch.autograd.grad(out, leaves, g)
-    assert grid_attn.LAUNCHES["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + groups
+    assert grid_attn.LAUNCHES["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + 1
     for name, a, p in zip(("dq", "dk", "dv", "de_dir"), grads,
                           grid_attn.grid_attn_bwd_plain(*plain_args, g)):
         err = float((a - p).abs().max())
@@ -652,11 +700,14 @@ def test_grid_attn_wrappers_reject_bad_inputs(card):
         grid_attn._grid_attn_fwd_cuda(q.double(), k, v, e_dir, valid, keep, dims)
     with pytest.raises(ValueError):
         grid_attn._grid_attn_fwd_cuda(q.cpu(), k, v, e_dir, valid, keep, dims)
-    with pytest.raises(ValueError):  # wider than the kernels take
-        wide = grid_attn.GridAttnDims(11, 13, 33, 8, 4)
+    with pytest.raises(ValueError):  # a head wider than the kernels take
+        wide = grid_attn.GridAttnDims(11, 13, 1, 264, 4)
         z = torch.zeros(2, 143, 264, device=card)
         grid_attn._grid_attn_fwd_cuda(z, z, z, torch.zeros(4, 264, device=card), valid, None,
                                       wide)
+    with pytest.raises(ValueError):  # K6 too
+        grid_attn._grid_attn_bwd_cuda(z, z, z, torch.zeros(4, 264, device=card), valid, None,
+                                      wide, z)
     with pytest.raises(ValueError):  # keep planes of the wrong shape
         grid_attn._grid_attn_fwd_cuda(q, k, v, e_dir, valid, torch.ones(2, 4, 143, 2,
                                                                         device=card), dims)

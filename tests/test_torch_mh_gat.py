@@ -40,7 +40,6 @@ from quadtree_mpnnlstm_tpu_torch.models import conv as tconv
 from quadtree_mpnnlstm_tpu_torch.models.cells import GConvLSTM as TGConvLSTM
 from quadtree_mpnnlstm_tpu_torch.models.fused import FusedAttnGateStack as TFusedAttn
 from quadtree_mpnnlstm_tpu_torch.ops import attn as tattn
-from quadtree_mpnnlstm_tpu_torch.ops import grid_attn as tgrid
 from quadtree_mpnnlstm_tpu_torch.train.predictor import NextFramePredictorS2S
 from quadtree_mpnnlstm_tpu_torch.utils.posenc import add_positional_encoding as t_posenc
 from quadtree_mpnnlstm_tpu_torch.utils.weights import state_dict_from_flax
@@ -198,32 +197,6 @@ def test_grouped_window_attention_is_bit_equal_to_one_call(kh):
     got = tattn.attn_bwd_by_groups(tattn.attn_bwd_plain, q, k, v, we, keep, meta, dims, g,
                                    limit=8)
     for name, a, b in zip(("dq", "dk", "dv", "dwe"), got, ref):
-        assert torch.equal(a, b), name
-
-
-@pytest.mark.parametrize("keep", [False, True])
-def test_grouped_grid_attention_is_bit_equal_to_one_call(keep):
-    """K5's and K6's plain versions by head groups of at most 8 features
-    (6 heads × d 4 → 3 groups) against one call, with and without keep
-    planes: the output and dq, dk, dv, d``e_dir`` bit for bit."""
-    tg, _ = _mesh("grid")
-    _, rows, cols, ndirs = tg.agg
-    heads, d = 6, 4
-    dims = tgrid.GridAttnDims(rows, cols, heads, d, ndirs)
-    q, k, v, e_dir, g = _qkv(rows * cols, heads, d, ndirs, 3, [(B, rows * cols, heads * d)])
-    valid = tg.node_valid[0].float()
-    planes = None
-    if keep:
-        u = torch.from_numpy(np.random.default_rng(4).random((B, ndirs, rows * cols, heads)))
-        planes = ((u < 0.9).float() / 0.9).float()
-    one = tgrid.grid_attn_plain(q, k, v, e_dir, valid, planes, dims)
-    grouped = tgrid.grid_fwd_by_groups(tgrid.grid_attn_plain, q, k, v, e_dir, valid, planes,
-                                       dims, limit=8)
-    assert torch.equal(one, grouped)
-    ref = tgrid.grid_attn_bwd_plain(q, k, v, e_dir, valid, planes, dims, g)
-    got = tgrid.grid_bwd_by_groups(tgrid.grid_attn_bwd_plain, q, k, v, e_dir, valid, planes,
-                                   dims, g, limit=8)
-    for name, a, b in zip(("dq", "dk", "dv", "de_dir"), got, ref):
         assert torch.equal(a, b), name
 
 
