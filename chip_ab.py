@@ -63,7 +63,15 @@ MHTransformerConv in bf16 (phase 49: H 768, 96 and 3); each set against
 events beside its bound, in bf16 the f32 kernel on the same operands, with
 the calls of a full (T_out 90) step as its weight (a forecast's K5 calls
 at that width) and a tree's head-group dispatch where it has one
-(``k6_measure``); ``k6_means`` averages each path's sets by their calls. With ``--preset heterogeneous`` or
+(``k6_measure``); ``k6_means`` averages each path's sets by their calls. With
+``--workload k5`` the grid-attention forward K5 alone (``k5_sets``): on the
+same four paths' operands, the first call at each width of a T_out-90
+forecast (no keep planes) and of a T_out-6 train step (with them); each set
+bit-identical to ``grid_attn_plain`` and on a repeat, timed by CUDA graph
+and by events beside its bound and the plain version, in bf16 the f32
+kernel on the same operands, with the forecast's calls at that width as its
+weight (``k5_measure``); ``k5_means`` averages each path's forecast and
+train sets by their calls. With ``--preset heterogeneous`` or
 ``homogeneous`` the JAX package's sea-ice experiment 9 or 10 (phases
 50-51: the flagship's model on that preset mesh, a forecast and a
 full-BPTT step under remat full unless ``--remat`` says otherwise), and
@@ -76,7 +84,7 @@ batch (default 16), ``--shared-mesh`` trains it on one mesh a step
 builds the quadtree paths' and the ice-quadtree model's edge lists
 without a sort (``bench.py --adjacency csum``; phase 56).
 
-    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2|k4|k6]
+    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2|k4|k5|k6]
                        [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
                        [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
@@ -131,7 +139,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree",
                         choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7", "k2",
-                                 "k4", "k6"))
+                                 "k4", "k5", "k6"))
     parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv",
                                                "MHTransformerConv", "GATConv", "GATv2Conv"),
                         help="time only this model of the quadtree paths (default: ChebConv "
@@ -159,8 +167,8 @@ def main() -> int:
                              "quadtree|ice-quadtree)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--summarize", nargs="+", metavar="RUN",
-                        help="print the k2_means, k4_means or k6_means of earlier "
-                             "--workload k2, k4 or k6 runs and exit")
+                        help="print the k2_means, k4_means, k5_means or k6_means of "
+                             "earlier --workload k2, k4, k5 or k6 runs and exit")
     parser.add_argument("--against",
                         help="an earlier --workload k2 run's output: hold this run's K2 and K2b "
                              "outputs to it bit for bit")
@@ -177,7 +185,7 @@ def main() -> int:
                      "(--workload ice|ice-xla)")
     if args.against and args.workload != "k2":
         parser.error("--against compares --workload k2 runs")
-    if args.conv and args.workload in ("ice-quadtree", "k7", "k2", "k4", "k6"):
+    if args.conv and args.workload in ("ice-quadtree", "k7", "k2", "k4", "k5", "k6"):
         parser.error(f"--workload {args.workload} has its own convolutions")
     if args.preset and (args.workload != "quadtree" or args.conv or args.per_gate):
         parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
@@ -226,6 +234,8 @@ def main() -> int:
         _time_k2(cs, args, run_dir.name, result)
     elif args.workload == "k4":
         _time_k4(cs, args, run_dir.name, result)
+    elif args.workload == "k5":
+        _time_k5(cs, args, run_dir.name, result)
     elif args.workload == "k6":
         _time_k6(cs, args, run_dir.name, result)
     else:
@@ -369,19 +379,23 @@ def k2_measure(cs, spmm, name: str, kernel: str, calls: int, args) -> dict:
 
 
 def _last_run(path: str) -> dict:
-    """The last JSON line with ``k2_sets``, ``k4_sets`` or ``k6_sets`` of a
-    ``--workload k2``, ``k4`` or ``k6`` run's output."""
+    """The last JSON line with ``k2_sets``, ``k4_sets``, ``k5_sets`` or
+    ``k6_sets`` of a ``--workload k2``, ``k4``, ``k5`` or ``k6`` run's
+    output."""
     with open(path) as fh:
         return next(json.loads(ln) for ln in reversed(fh.read().splitlines())
-                    if ln.startswith("{") and any(f'"{k}_sets"' in ln for k in ("k2", "k4", "k6")))
+                    if ln.startswith("{")
+                    and any(f'"{k}_sets"' in ln for k in ("k2", "k4", "k5", "k6")))
 
 
 def _means(run: dict) -> dict:
-    """A run's launch-weighted means: ``k2_means``, ``k4_means`` or
-    ``k6_means``."""
+    """A run's launch-weighted means: ``k2_means``, ``k4_means``,
+    ``k5_means`` (by ``k6_means``) or ``k6_means``."""
     if "k2_sets" in run:
         return k2_means(run["k2_sets"])
-    return k4_means(run["k4_sets"]) if "k4_sets" in run else k6_means(run["k6_sets"])
+    if "k4_sets" in run:
+        return k4_means(run["k4_sets"])
+    return k6_means(run["k5_sets"] if "k5_sets" in run else run["k6_sets"])
 
 
 def k2_means(rows: list) -> dict:
@@ -539,7 +553,7 @@ def k4_means(rows: list) -> dict:
     for key, rs in groups.items():
         n = sum(r["calls"] for r in rs)
         out[key] = {"calls": n, "widths": [r["HD"] for r in rs]}
-        for k in ("ms", "events_ms", "bound_ms", "f32_ms"):
+        for k in ("ms", "events_ms", "bound_ms", "plain_ms", "f32_ms"):
             if all(r.get(k) is not None for r in rs):
                 out[key][k] = sum(r["calls"] * r[k] for r in rs) / n
         out[key]["split"] = {k: sum(r["calls"] * r["split"][k] for r in rs) / n
@@ -669,10 +683,10 @@ def k6_measure(cs, grid_attn, name: str, calls: int, args) -> dict:
 
 
 def k6_means(rows: list) -> dict:
-    """Per path (a set's name without its width), each number of its sets
-    averaged with the sets' calls as weights: graph and event times, the
-    bound and the f32 kernel on the same operands, where the sets have
-    them."""
+    """Per path (a set's name without its width; K5's: with forecast or
+    train), each number of its sets averaged with the sets' calls as
+    weights: graph and event times, the bound and the f32 kernel on the
+    same operands, where the sets have them."""
     groups = {}
     for r in rows:
         groups.setdefault(r["set"].rsplit("_H", 1)[0], []).append(r)
@@ -680,7 +694,7 @@ def k6_means(rows: list) -> dict:
     for key, rs in groups.items():
         n = sum(r["calls"] for r in rs)
         out[key] = {"calls": n, "widths": [r["H"] for r in rs]}
-        for k in ("ms", "events_ms", "bound_ms", "f32_ms"):
+        for k in ("ms", "events_ms", "bound_ms", "plain_ms", "f32_ms"):
             if all(r.get(k) is not None for r in rs):
                 out[key][k] = sum(r["calls"] * r[k] for r in rs) / n
     return out
@@ -698,12 +712,8 @@ def _time_k6(cs, args, run_dir: str, result: dict) -> None:
 
     data, clim, mask = cs.ice_data(args.seed)
     x0, y0 = data.x[:1], data.y[:1]
-    paths = (("fused_float32", dict()), ("fused_bfloat16", dict(dtype="bfloat16")),
-             ("per_gate_bfloat16", dict(dtype="bfloat16", remat=True, fused_gates=False)),
-             ("mh_bfloat16", dict(dtype="bfloat16", remat=True, fused_gates=False,
-                                  conv="MHTransformerConv")))
     rows = []
-    for path, kw in paths:
+    for path, kw in K5_PATHS:
         model = cs.make_ice_model(args.seed, run_dir, **kw)
         clim0 = model._clim_batch(clim, data.launch_dates[:1])
         calls = {}
@@ -730,6 +740,121 @@ def _time_k6(cs, args, run_dir: str, result: dict) -> None:
         torch.cuda.empty_cache()
     result["k6_sets"] = rows
     result["k6_means"] = k6_means(rows)
+
+class _K5Capture:
+    """Wraps the launcher ``_grid_attn_fwd_cuda`` while a forecast or a
+    train step runs and keeps the first call's operands at each width H."""
+
+    def __init__(self, grid_attn):
+        self.module, self.first = grid_attn, {}
+        self._launch = grid_attn._grid_attn_fwd_cuda
+
+    def __call__(self, *args):
+        self.first.setdefault(args[0].shape[-1], args)
+        return self._launch(*args)
+
+    def __enter__(self):
+        self._patch = mock.patch.object(self.module, "_grid_attn_fwd_cuda", self)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def k5_measure(cs, grid_attn, name: str, calls: int, args) -> dict:
+    """One K5 operand set: the forward against ``grid_attn_plain`` (bit for
+    bit, or the run fails), repeated bit for bit; graph and event times
+    beside the bound and the plain version's time, in bf16 the f32 kernel
+    on the same operands, the plan (where the tree has ``FwdPlan``) and
+    the digest of the inputs."""
+    import torch
+
+    q, dims = args[0], args[6]
+    fwd = grid_attn._grid_attn_fwd_cuda
+    with torch.no_grad():
+        kern, plain, again = fwd(*args), grid_attn.grid_attn_plain(*args), fwd(*args)
+    err = float((kern.float() - plain.float()).abs().max())
+    cs.check(torch.equal(kern, plain),
+             f"{name}: K5 is not bit-identical to its plain version: {err}")
+    repeat = torch.equal(kern, again)
+    cs.check(repeat, f"{name}: two K5 launches differ")
+    bound, b_ms, o_ms = cs.grid_bound_ms(args, backward=False)
+    if hasattr(grid_attn, "FwdPlan"):
+        plan = grid_attn.fwd_plan(dims, q.element_size(), q.shape[0])._asdict()
+    else:
+        plan = list(grid_attn.fwd_plan(dims))
+    row = dict(set=name, dtype=str(q.dtype).replace("torch.", ""), batch=q.shape[0],
+               H=q.shape[-1], heads=dims.heads, d=dims.d, ndirs=dims.ndirs, calls=calls,
+               keep=args[5] is not None, max_abs_err=err, bit_identical=True,
+               repeat_bit_identical=repeat, ms=cs.graph_ms(lambda: fwd(*args)),
+               events_ms=cs.cuda_ms(lambda: fwd(*args)),
+               plain_ms=cs.cuda_ms(lambda: grid_attn.grid_attn_plain(*args)), bound_ms=bound,
+               bytes_ms=b_ms, ops_ms=o_ms, bound_by="bytes" if b_ms >= o_ms else "operations",
+               plan=plan, input_sha=_digest(*(x for x in args if torch.is_tensor(x))))
+    if q.dtype == torch.bfloat16:
+        f32_args = tuple(x.float() if torch.is_tensor(x) and x.dtype == torch.bfloat16 else x
+                         for x in args)
+        row["f32_ms"] = cs.graph_ms(lambda: fwd(*f32_args))
+    return row
+
+
+def _time_k5(cs, args, run_dir: str, result: dict) -> None:
+    """K5 per operand set (``k5_sets``): the first call at each width of a
+    T_out-90 forecast (no keep planes) and of a T_out-6 train step (with the
+    dropout keep planes) of the flagship on the grid, fused in f32 and
+    bf16, per-gate in bf16 under remat full and MHTransformerConv in bf16
+    under remat full, each weighted by the calls at that width of the
+    forecast."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    data, clim, mask = cs.ice_data(args.seed)
+    x0, y0 = data.x[:1], data.y[:1]
+    rows = []
+    for path, kw in K5_PATHS:
+        model = cs.make_ice_model(args.seed, run_dir, **kw)
+        clim0 = model._clim_batch(clim, data.launch_dates[:1])
+        calls = {}
+        apply = grid_attn.grid_attn_apply
+
+        def count(*a, _apply=apply):
+            calls[a[0].shape[-1]] = calls.get(a[0].shape[-1], 0) + 1
+            return _apply(*a)
+
+        with mock.patch.object(grid_attn, "grid_attn_apply", count), _K5Capture(grid_attn) as cap:
+            model.forecast(x0, mask=mask, climatology=clim0)
+        sets = {"forecast": cap.first}
+        del model
+        short = cs.make_ice_model(args.seed, run_dir, t_out=cs.ICE_SHORT_T_OUT, **kw)
+        short.initiate_training(lr=cs.LR, lr_decay=0.95)
+        with _K5Capture(grid_attn) as cap:
+            short.train_step(x0, y0[:, :cs.ICE_SHORT_T_OUT], mask=mask,
+                             climatology=clim0[:, :cs.ICE_SHORT_T_OUT],
+                             truncated_backprop=cs.ICE_TBPTT)
+        sets["train"] = cap.first
+        del short
+        for kind, first in sets.items():
+            for h, a in sorted(first.items()):
+                cs.check((a[5] is not None) == (kind == "train"),
+                         f"{path} {kind} H {h}: keep planes {a[5] is not None}")
+                rows.append(k5_measure(cs, grid_attn, f"{path}_{kind}_H{h}", calls[h], a))
+                print(json.dumps(rows[-1]), flush=True)
+        del sets, cap
+        torch.cuda.empty_cache()
+    result["k5_sets"] = rows
+    result["k5_means"] = k6_means(rows)
+
+
+# the paths --workload k5 and k6 time: chip_smoke.py phases 13-14 (fused
+# f32), 35-36 (fused bf16), 39-40 (per-gate bf16, remat full) and 49 (MH
+# bf16, remat full: H 768, 96 and 3)
+K5_PATHS = (("fused_float32", dict()), ("fused_bfloat16", dict(dtype="bfloat16")),
+            ("per_gate_bfloat16", dict(dtype="bfloat16", remat=True, fused_gates=False)),
+            ("mh_bfloat16", dict(dtype="bfloat16", remat=True, fused_gates=False,
+                                 conv="MHTransformerConv")))
+
 
 def _time_ice(cs, args, run_dir: str, result: dict) -> None:
     """The flagship's forecast (one window through ``predict``) and its

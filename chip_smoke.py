@@ -97,7 +97,8 @@ Phases (each prints one line; any failure raises and exits non-zero):
    sums); seconds per forecast after a warm-up;
 14. grid kernels vs plain: K5 against ``grid_attn_plain`` on the first
    decoder step's operands at H 256, 32 and 1, with and without a keep
-   plane (bit-identical), K6 against autograd through ``grid_attn_plain`` on the
+   plane (bit-identical; with its plan, ``fwd_plan``: row bands at H 256
+   and 32, tiles at H 1), K6 against autograd through ``grid_attn_plain`` on the
    cotangents of one train step at each H, with and without its keep
    planes (≤1e-5 × max(1, max|grad|)); all timed by CUDA graph and by
    events beside their bounds;
@@ -221,7 +222,7 @@ Phases (each prints one line; any failure raises and exits non-zero):
    its frames' distance from the f32 forecast, bf16 beside f32;
 36. K5 in bf16 at H 256, 32 and 1 with and without keep planes,
    bit-identical to its plain version (the f32 sums of the plain order,
-   rounded once); K6 in bf16 on one T_out-6 bf16 step's cotangents with
+   rounded once), with its plan; K6 in bf16 on one T_out-6 bf16 step's cotangents with
    and without keep planes, within one bf16 rounding; timed as phase 32;
 37. bf16 grid train path: full-BPTT ``train_step`` (3 timed steps):
    K5 = K6 = 300 bf16 launches a step, finite f32 loss, f32 masters and
@@ -2042,7 +2043,7 @@ def grid_phases(seed: int, card: str, spmm, attn, grid_attn, segment_sum):
             bound, b_ms, o_ms = grid_bound_ms(kargs, backward=False)
             fwd.append(dict(H=hd, heads=dims.heads, calls=cap.per_width[hd],
                             keep=kargs[5] is not None, max_abs_err=err, bit_identical=True,
-                            plan=grid_attn.fwd_plan(dims),
+                            plan=grid_attn.fwd_plan(dims, 4, q.shape[0])._asdict(),
                             ms=graph_ms(lambda: grid_attn._grid_attn_fwd_cuda(*kargs)),
                             events_ms=cuda_ms(lambda: grid_attn._grid_attn_fwd_cuda(*kargs)),
                             plain_ms=cuda_ms(lambda: grid_attn.grid_attn_plain(*kargs)),
@@ -2920,7 +2921,8 @@ def bf16_attn_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segme
             check(kern.dtype == bf16 and torch.equal(kern, plain),
                   f"bf16 K5 is not bit-identical to grid_attn_plain at H={hd}")
             grid_fwd.append(_bf16_kernel_row(
-                dict(H=hd, keep=kargs[5] is not None, max_abs_err=0.0, bit_identical=True),
+                dict(H=hd, keep=kargs[5] is not None, max_abs_err=0.0, bit_identical=True,
+                     plan=grid_attn.fwd_plan(dims, 2, q.shape[0])._asdict()),
                 kargs, grid_attn._grid_attn_fwd_cuda, grid_attn.grid_attn_plain,
                 lambda a: grid_bound_ms(a, backward=False),
                 cap.per_width[hd]))
@@ -3233,7 +3235,8 @@ def bench_default_phases(seed: int, card: str, spmm, attn, grid_attn, segment_su
         check(kern.dtype == torch.bfloat16 and torch.equal(kern, plain),
               f"per-gate bf16 K5 is not bit-identical to its plain version at H={hd}")
         k5_rows.append(_bf16_kernel_row(
-            dict(H=hd, keep=False, max_abs_err=0.0, bit_identical=True), args,
+            dict(H=hd, keep=False, max_abs_err=0.0, bit_identical=True,
+                 plan=grid_attn.fwd_plan(args[6], 2, args[0].shape[0])._asdict()), args,
             grid_attn._grid_attn_fwd_cuda, grid_attn.grid_attn_plain,
             lambda a: grid_bound_ms(a, backward=False), cap.per_width[hd]))
     del model, cap
@@ -4450,6 +4453,7 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
         k5_rows.append(dict(
             H=768, dtype=dtype, keep=args[5] is not None, max_abs_err=0.0,
             bit_identical=True, launches_per_call=launched,
+            plan=grid_attn.fwd_plan(args[6], args[0].element_size(), args[0].shape[0])._asdict(),
             ms=graph_ms(lambda: grid_attn._grid_attn_fwd_cuda(*args)),
             events_ms=cuda_ms(lambda: grid_attn._grid_attn_fwd_cuda(*args)),
             plain_ms=cuda_ms(lambda: grid_attn.grid_attn_plain(*args)),

@@ -15,24 +15,70 @@
 //
 // The TPU kernel tiles row blocks with halo strips so that VMEM holds them
 // and reduces heads with one-hot matmuls. Here heads are independent (a
-// head's alpha reads only its own d features), so K5 takes one CTA per 2-D
-// pixel tile (8 x 8 at d 32, 8 x 32 at d 1; sized by the host to the lanes
-// a pixel takes) and one feature group of whole heads (up to 32 features,
-// packing several small heads; one head when d > 32). It stages in shared
-// memory, with 16-byte cp.async where rows allow, k and v on the tile's
-// one-pixel halo (the sources lie at offsets +-1), q and the keep values
-// of the tile, the group's slice of e and the halo's validity; rows of
-// masked pixels are not fetched. Each (pixel, head) item then takes d / RUN
-// lanes, each lane a contiguous run of RUN features (RUN = min(d, 8) when d
-// divides 32): the lane sums its run's products as a pairwise tree and an
-// xor butterfly over the item's lanes finishes the tree, which is
-// grid_attn_plain's _head_sum order; where d does not divide 32 one lane
-// sums the head in feature order, as _head_sum does then. The softmax is
-// two-pass in f32 over the D logits in registers, in direction order, and
-// each lane writes its run of the output with 16-byte stores. Products are
-// kept apart from sums (the __f*_rn intrinsics): K5 and its plain version
-// agree bit for bit on the card, so a 90-step rollout does not drift
-// between them (an online softmax once drifted 2.4e-4).
+// head's alpha reads only its own d features), so a CTA takes one feature
+// group of whole heads (up to 32 features, packing several small heads;
+// one head when d > 32) and K5 has two layouts, chosen by the host's plan
+// (ops/grid_attn.py fwd_plan) by shape:
+//
+// K5 row bands (grid_attn_walk_kernel, at d 32: every head of the flagship
+// and the MH cells but their 1-feature head convs, H 32, 96, 256 and 768;
+// one head a CTA's feature group). A CTA owns a
+// strip of W pixel columns and a band of BH rows and walks the band's rows
+// top to bottom, as K6 does. Rings in shared memory hold, in their storage
+// type, k and v on rows r-1..r+1 (the strip and one side column each way)
+// and q on row r; the copies of row r + 1 are in flight (16-byte cp.async,
+// zero-filled, not fetched, at masked pixels) while row r computes. A
+// thread takes a (column, run of R features) for the whole walk: two
+// 16-byte chunks (8 f32 or 16 bf16 features, 4 or 2 lanes a head), its
+// copies' addresses computed once. The two chunks of a
+// run are stored swapped at every other group of ring columns, so that a
+// quarter warp's 16-byte reads fall on distinct bank groups. The edge terms
+// are widened once (registers where a thread's D runs fit in 32, else
+// shared memory) and the keep values of the directions a thread owns are
+// loaded a row ahead into registers. Per row a thread sums its run's
+// products of q . (k + e) as a pairwise tree for each direction and an xor
+// butterfly over the head's d / R lanes finishes the tree (grid_attn_plain's
+// _head_sum order where d divides 32); the lanes share the softmax (lane
+// i % lanes takes direction i's exponential and division, shuffles pass
+// them on, the denominator sums in direction order); the output sums over
+// the directions in order, one 16-byte store a chunk. The sums take every
+// direction without a branch: a direction without an edge adds 0 times a
+// finite value (its source row is zero-filled), which leaves each sum as
+// it was. A band, a row or a warp with no valid pixel stores zeros and does
+// no arithmetic. Each k, v and q row is fetched once a band; only the band's
+// two edge rows and the strip's two side columns are fetched twice.
+//
+// K5 pixel tiles (grid_attn_fwd_kernel: every d but 32; the port's paths
+// run them at d 1). One CTA per 2-D pixel tile (8 x 32 at d 1; sized by
+// the host to the lanes a pixel takes) stages k and v on the tile's
+// one-pixel halo, q and keep on the tile, the group's e and the halo's
+// validity into f32 shared rows (bf16 rows: loaded, widened and stored by
+// the threads, k, v and q in one pass), then each (pixel, head) item takes
+// d / RUN lanes (RUN = min(d, 8) where d divides 32; else one lane sums the
+// head in feature order, as _head_sum does then). Keeping the tiles at d 1
+// is inferred from K6, not measured on K5: at a few features a pixel K6's
+// walk lost to its tiles at H 1 (PERF.md), its chain of dependent round
+// trips (the band's validity, then the rows it lets through, row after row)
+// costing more than one tile's single staging; no K5 walk at d 1 was built.
+//
+// Both layouts run the softmax two-pass in f32 over the D logits in
+// registers, in direction order, and keep products apart from sums (the
+// __f*_rn intrinsics): K5 and its plain version agree bit for bit on the
+// card, so a 90-step rollout does not drift between them (an online
+// softmax once drifted 2.4e-4).
+//
+// Bound. K5 reads q, k and v at the valid pixels and writes out at every
+// pixel (at H 256 on the flagship's grid 212 MB in f32, 106 MB in bf16:
+// 0.0634 / 0.0317 ms at 3.35 TB/s) against about 6 D f32 operations a
+// (pixel, feature): its bound is bytes. In f32 the walk stays close to its
+// bytes: at H 256 its plan reads each k and v row 1.12 times (the band's
+// and the strip's halo), q once. In bf16 it is bound by instruction issue
+// and latency, not bytes: each (pixel, feature) costs about 25 f32
+// operations with products rounded apart and 9 bf16 widenings (q, and k
+// and v once a direction), and a variant without the row copies kept most
+// of its time (PERF.md). ops/grid_attn.py fwd_plan sizes the strip
+// to 128 threads (four CTAs a multiprocessor at <= 128 registers) and the
+// bands to one wave of the card; one row in flight beat two to four.
 //
 // K6 (qtm_grid_attn_bwd) walks row bands, as the TPU kernel walks row
 // blocks. Heads are independent (a head's alpha reads only its own d
@@ -102,14 +148,14 @@
 // refused launch.
 //
 // bf16 (qtm_grid_attn_fwd_bf16, qtm_grid_attn_bwd_bf16; the TPU kernels on
-// bf16 q, k, v, e, valid and g): both kernels are templated on the storage
-// type T of those and of the outputs out, dq, dk and dv. K5 widens bf16
-// rows on load into the same f32 shared rows as the f32 kernel's (8-byte
-// loads of 4 values, four in flight a thread), so its strides, tiles and
-// shared memory are f32's; K6 keeps bf16 rows as bf16 (16-byte runs of 8
-// features). Every product, sum and the softmax run in f32 in the f32
-// kernels' order, and each output is rounded to bf16 once, on store, as
-// the TPU kernel casts its f32 results once. So K5 in bf16 is the f32
+// bf16 q, k, v, e, valid and g): the kernels are templated on the storage
+// type T of those and of the outputs out, dq, dk and dv. The K5 and K6
+// walks keep bf16 rows as bf16 (widened in registers: half f32's shared
+// memory); K5's tiles widen bf16 rows on load
+// into the f32 kernel's f32 shared rows (8-byte loads of 4 values, four in
+// flight a thread). Every product, sum and the softmax run in f32 in the
+// f32 kernels' order, and each output is rounded to bf16 once, on store,
+// as the TPU kernel casts its f32 results once. So K5 in bf16 is the f32
 // result of its bf16 inputs rounded once, and bit-identical to
 // grid_attn_plain's wherever the f32 kernel is. keep and the de partials
 // stay f32.
@@ -165,6 +211,10 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pre
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 
+__device__ __forceinline__ unsigned smem_u32(const void* x) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(x));
+}
+
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int n = pred ? 16 : 0;  // 0 source bytes: zero-fill
@@ -188,65 +238,83 @@ __device__ __forceinline__ void store_widened(float* dst, uint2 t, bool vec4) {
     *dst = bf_lo(t.x);
 }
 
-// Stage rows [f0, f0 + gw) of a (and of b, unless bs is null) for the
-// w-wide pixel region with origin (r0, c0) into f32 rows of stride S; zero
-// outside the grid and, where vld is given, at masked pixels, whose rows
-// are then not fetched: vld holds the staged validity of a vw-wide region
-// whose origin lies voff pixels up and left of (r0, c0). vec4: 4 values a
-// copy (gw, S, H and f0 multiples of 4, 16-byte aligned tensors). f32 rows
-// go by cp.async (16-byte copies at vec4); bf16 rows are loaded, widened
-// and stored by the threads (8-byte loads at vec4), kBf16Loads copies a
-// thread in flight before their stores.
+// Stage K5 tile's rows [f0, f0 + gw) of k and v on the tw-wide halo region
+// (n1 pixels, origin (r0 - 1, c0 - 1)) and of q on the tile (nt pixels,
+// tc wide, origin (r0, c0)) into f32 rows of stride S; zero outside the
+// grid and at masked pixels, whose rows are then not fetched (vld: the
+// halo's staged validity). vec4: 4 values a copy (gw, S, H and f0
+// multiples of 4, 16-byte aligned tensors). f32 rows go by cp.async
+// (16-byte copies at vec4); bf16 rows are loaded, widened and stored by
+// the threads (8-byte loads at vec4), the k, v and q copies in one pass
+// (one round trip, not two), kBf16Loads copies a thread in flight before
+// their stores.
 constexpr int kBf16Loads = 4;
 
 template <typename T>
-__device__ __forceinline__ void stage_rows(float* as, float* bs, const T* a, const T* b,
-                                           long long base, int H, int f0, int gw, int S,
-                                           int r0, int c0, int w, int n, int rows, int cols,
-                                           bool vec4, const float* vld = nullptr, int vw = 0,
-                                           int voff = 0) {
+__device__ __forceinline__ void stage_tile(float* ks, float* vs, float* qs, const T* k,
+                                           const T* v, const T* q, long long base, int H, int f0,
+                                           int gw, int S, int r0, int c0, int tw, int n1, int tc,
+                                           int nt, int rows, int cols, bool vec4,
+                                           const float* vld) {
   const int step = vec4 ? 4 : 1;
   const int per = gw / step;
-  // copy x: its shared offset (-1 past the region) and its offset in a, b
-  const auto locate = [&](int x, int& dst, long long& at, bool& in) {
-    const int px = x / per, f = (x - px * per) * step;
-    const int r = r0 + px / w, c = c0 + px % w;
-    dst = x < n * per ? px * S + f : -1;
+  // copy x (k and v on the halo, then, isq, q on the tile): its shared
+  // offset (-1 past the regions) and its offset in the tensors
+  const auto locate = [&](int x, bool isq, int& dst, long long& at, bool& in) {
+    const int y = isq ? x - n1 * per : x;
+    const int w = isq ? tc : tw, voff = isq ? 1 : 0;
+    const int px = y / per, f = (y - px * per) * step;
+    const int r = r0 - 1 + voff + px / w, c = c0 - 1 + voff + px % w;
+    dst = y < (isq ? nt : n1) * per ? px * S + f : -1;
     in = dst >= 0 && r >= 0 && r < rows && c >= 0 && c < cols &&
-         (vld == nullptr || vld[(px / w + voff) * vw + px % w + voff] != 0.f);
+         vld[(px / w + voff) * tw + px % w + voff] != 0.f;
     at = in ? (base + r * cols + c) * H + f0 + f : 0;
   };
+  const int total = (n1 + nt) * per;
   if constexpr (std::is_same<T, float>::value) {
-    for (int x = threadIdx.x; x < n * per; x += kThreads) {
+    for (int x = threadIdx.x; x < n1 * per; x += kThreads) {  // k and v, then q
       int dst;
-      long long at;
       bool in;
-      locate(x, dst, at, in);
+      long long at;
+      locate(x, false, dst, at, in);
       if (vec4) {
-        cp_async16(as + dst, a + at, in);
-        if (bs != nullptr) cp_async16(bs + dst, b + at, in);
+        cp_async16(ks + dst, k + at, in);
+        cp_async16(vs + dst, v + at, in);
       } else {
-        cp_async4(as + dst, a + at, in);
-        if (bs != nullptr) cp_async4(bs + dst, b + at, in);
+        cp_async4(ks + dst, k + at, in);
+        cp_async4(vs + dst, v + at, in);
       }
     }
+    for (int x = n1 * per + threadIdx.x; x < total; x += kThreads) {
+      int dst;
+      bool in;
+      long long at;
+      locate(x, true, dst, at, in);
+      if (vec4)
+        cp_async16(qs + dst, q + at, in);
+      else
+        cp_async4(qs + dst, q + at, in);
+    }
   } else {
-    for (int x0 = threadIdx.x; x0 < n * per; x0 += kBf16Loads * kThreads) {
+    for (int x0 = threadIdx.x; x0 < total; x0 += kBf16Loads * kThreads) {
       int dst[kBf16Loads];
+      bool isq[kBf16Loads];
       uint2 ta[kBf16Loads], tb[kBf16Loads];
 #pragma unroll
       for (int u = 0; u < kBf16Loads; ++u) {  // the loads first, all in flight
         long long at;
         bool in;
-        locate(x0 + u * kThreads, dst[u], at, in);
-        ta[u] = load_bf16(a + at, in, vec4);
-        tb[u] = bs != nullptr ? load_bf16(b + at, in, vec4) : make_uint2(0u, 0u);
+        const int x = x0 + u * kThreads;
+        isq[u] = x >= n1 * per;
+        locate(x, isq[u], dst[u], at, in);
+        ta[u] = load_bf16((isq[u] ? q : k) + at, in, vec4);
+        tb[u] = load_bf16(v + at, in && !isq[u], vec4);
       }
 #pragma unroll
       for (int u = 0; u < kBf16Loads; ++u) {
         if (dst[u] < 0) continue;
-        store_widened(as + dst[u], ta[u], vec4);
-        if (bs != nullptr) store_widened(bs + dst[u], tb[u], vec4);
+        store_widened((isq[u] ? qs : ks) + dst[u], ta[u], vec4);
+        if (!isq[u]) store_widened(vs + dst[u], tb[u], vec4);
       }
     }
   }
@@ -266,8 +334,10 @@ struct FwdParams {
   T* out;              // (B, P, H)
   int rows, cols, heads, d;
   int hpg;             // heads of one CTA's feature group
-  int tr, tc;          // the CTA's pixel tile
-  int vec4;            // stage rows with 16-byte copies
+  int tr, tc;          // tiles: the CTA's pixel tile
+  int vec4;            // tiles: stage rows with 16-byte copies
+  int strip, band;     // row bands: the CTA's columns (W) and rows (BH)
+  int strips;
   float scale;
 };
 
@@ -386,10 +456,8 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams<T> p)
     }
   }
   __syncthreads();
-  stage_rows<T>(ks, vs, p.k, p.v, base, H, f0, gw, S, r0 - 1, c0 - 1, w1, n1, p.rows, p.cols,
-             p.vec4, vld, w1, 0);
-  stage_rows<T>(qs, nullptr, p.q, nullptr, base, H, f0, gw, S, r0, c0, tc, nt, p.rows, p.cols,
-             p.vec4, vld, w1, 1);
+  stage_tile<T>(ks, vs, qs, p.k, p.v, p.q, base, H, f0, gw, S, r0, c0, w1, n1, tc, nt, p.rows,
+                p.cols, p.vec4, vld);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
@@ -501,84 +569,19 @@ __global__ void __launch_bounds__(kThreads) grid_attn_fwd_kernel(FwdParams<T> p)
   }
 }
 
-// ---------------------------------------------------------------- K6
+// ---------------------------------------------------------------- row walks
 
-// K6's operands; T is the storage type of q, k, v, e, valid, g, dq, dk and dv
-template <typename T>
-struct BwdParams {
-  const T* q;          // (B, P, H)
-  const T* k;
-  const T* v;
-  const T* e;          // (ND, H) per-direction edge terms
-  const T* valid;      // (P,) 1 = valid pixel
-  const float* keep;   // (B, ND, P, heads) or null (no dropout)
-  const T* g;          // the cotangent (B, P, H)
-  T* dq;               // (B, P, H)
-  T* dk;
-  T* dv;
-  float* de_part;      // (B, strips * bands, ND, H): one partial a CTA
-  T* de;               // (ND, H): the partials' sum
-  int* done;           // a counter of finished CTAs a feature group, 0 at rest
-  int rows, cols, heads, d;
-  int hpg;             // heads of one CTA's feature group
-  int strip, band;     // the CTA's columns (W) and rows (BH)
-  int strips, bands;
-  float scale;
-};
-
-constexpr int kStages = 2;             // row copies in flight beyond the rows in use
-constexpr int kKvSlots = kStages + 4;  // k, v: rows j-1..j+2 in use at iteration j
-constexpr int kQgSlots = kStages + 3;  // q, g, keep: rows j-1..j+1 in use
-constexpr int kDlSlots = 3;            // (dlogit, used): rows j-1..j+1
-constexpr int kVldLoads = 8;           // validity loads a thread keeps in flight
-
-// Elements of a staged pixel row: the group's width; odd for f32 rows of
-// single features, so that threads on neighbouring pixels read distinct
-// banks (16-byte runs need no pad: a quarter warp reads 128 contiguous
-// bytes).
-__host__ __device__ inline int bwd_stride(int gw, int run, int itemsize) {
-  return run == 1 && itemsize == 4 ? (gw | 1) : gw;
-}
+// What the K5 and K6 walks share: shared-memory offsets and a run of R
+// values read, written and copied.
 
 __host__ __device__ inline long long up16(long long x) { return (x + 15) / 16 * 16; }
 
-// Byte offsets of one K6 CTA's shared memory (ops/grid_attn.py
-// bwd_smem_bytes mirrors it): the k/v and q/g row rings (their room reused
-// at the end for the de reduction, W x ND x gw f32), the keep ring, the
-// group's edge terms (f32), the (dlogit, used) ring, the band's validity
-// and its rows' flags, and the de sum's chunks (and the last-CTA flag).
-struct BwdLayout {
-  long long qg, kp, e, dlu, vl, fl, ch, total;
-};
-
-__host__ __device__ inline BwdLayout bwd_layout(int nd, int hpg, int d, int run, int itemsize,
-                                                int w, int bh) {
-  const int gw = hpg * d;
-  const long long s = static_cast<long long>(bwd_stride(gw, run, itemsize)) * itemsize;
-  BwdLayout l;
-  l.qg = up16(2LL * kKvSlots * (w + 4) * s);
-  long long at = l.qg + up16(2LL * kQgSlots * (w + 2) * s);
-  at = at > up16(4LL * w * nd * gw) ? at : up16(4LL * w * nd * gw);
-  l.kp = at;
-  at += up16(4LL * kQgSlots * nd * (w + 2) * hpg);
-  l.e = at;
-  at += up16(4LL * nd * gw);
-  l.dlu = at;
-  at += up16(8LL * kDlSlots * (w + 2) * hpg * nd);
-  l.vl = at;
-  at += up16(static_cast<long long>(bh + 4) * (w + 4));
-  l.fl = at;
-  at += up16(2LL * (bh + 4));
-  l.ch = at;
-  at += 4LL * kThreads + 16;
-  l.total = at;
-  return l;
-}
+constexpr int kVldLoads = 8;  // validity loads a thread keeps in flight
 
 // A run of R stored values (16 bytes when R > 1) as f32, and R f32 values
 // rounded to T and stored as one run.
 template <typename T, int R>
-__device__ __forceinline__ void load_t(const T* src, float (&x)[R]) {
+__device__ __forceinline__ void load_t(const T* src, float* x) {
   if constexpr (R == 1) {
     x[0] = to_f(*src);
   } else if constexpr (std::is_same<T, float>::value) {
@@ -604,7 +607,7 @@ __device__ __forceinline__ void load_f(const float* src, float (&x)[R]) {
 // VG: 16-byte device-memory accesses (the tensors are 16-byte aligned);
 // else one value at a time, in the same order of sums.
 template <typename T, int R, bool VG>
-__device__ __forceinline__ void store_t(T* dst, const float (&x)[R]) {
+__device__ __forceinline__ void store_t(T* dst, const float* x) {
   if constexpr (R == 1 || !VG) {
 #pragma unroll
     for (int j = 0; j < R; ++j) dst[j] = from_f<T>(x[j]);
@@ -647,6 +650,448 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- K5 row bands
+
+constexpr int kFwdStages = 1;               // row copies in flight beyond the rows in use
+constexpr int kFwdKvSlots = kFwdStages + 3;  // k, v: rows j-1..j+1 in use at row j
+constexpr int kFwdQSlots = kFwdStages + 1;   // q: row j
+
+// Byte offsets of one K5 walk CTA's shared memory (ops/grid_attn.py
+// walk_smem_bytes mirrors it): the k and v rings (rows of W + 2 pixels) and
+// the q ring (W pixels) in the storage type, the group's edge terms (f32),
+// the band's validity with its halo and its rows' flags.
+struct WalkLayout {
+  long long q, e, vl, fl, total;
+};
+
+__host__ __device__ inline WalkLayout walk_layout(int nd, int hpg, int d, int itemsize, int w,
+                                                  int bh) {
+  const long long s = static_cast<long long>(hpg) * d;  // a staged pixel row's values
+  WalkLayout l;
+  l.q = up16(2LL * kFwdKvSlots * (w + 2) * s * itemsize);
+  l.e = l.q + up16(kFwdQSlots * w * s * itemsize);
+  l.vl = l.e + up16(4LL * nd * s);
+  l.fl = l.vl + up16((bh + 2LL) * (w + 2));
+  l.total = l.fl + up16(bh);
+  return l;
+}
+
+// K5 as a row walk at d 32: one CTA per (strip of W columns and band of BH
+// rows, head, sample); a thread takes one (column, run of R features) of the
+// strip, a run of two 16-byte chunks (8 f32 or 16 bf16 features), so that a
+// head's LANES = 32 / R lanes (4 or 2) sit in one warp and share the
+// softmax, lane i % LANES taking direction i. Row j computes with k and v
+// rows j - 1 .. j + 1 and q row j in the rings while the rows of j + 1 ..
+// j + kFwdStages are in flight. VG: 16-byte device-memory accesses; else
+// one value at a time, in the same order of sums.
+//
+// A run's two chunks are stored in the rings swapped at
+// every ring column whose bit fb is set (fb: log2 of the pixels a 128-byte
+// bank window holds), so that the eight 16-byte reads of a quarter warp,
+// one chunk of each thread's run at neighbouring pixels, fall on eight
+// distinct bank groups.
+template <typename T, int ND, bool VG>
+__global__ void __launch_bounds__(kThreads, 2) grid_attn_walk_kernel(FwdParams<T> p) {
+  constexpr int V = 16 / sizeof(T), RC = 2, R = RC * V, LANES = 32 / R;
+  extern __shared__ __align__(16) unsigned char walk_smem[];
+  unsigned char* smem = walk_smem;
+  const int d = p.d, hpg = p.hpg, W = p.strip, BH = p.band;
+  const int H = p.heads * d, P = p.rows * p.cols;
+  const int b = blockIdx.z, h0 = blockIdx.y * hpg;
+  const int gh = min(hpg, p.heads - h0);  // heads of this group (the last may be ragged)
+  const int gw = gh * d, f0 = h0 * d;
+  const int C0 = (blockIdx.x % p.strips) * W, R0 = (blockIdx.x / p.strips) * BH;
+  const int R1 = min(R0 + BH, p.rows);
+  const WalkLayout lay = walk_layout(ND, hpg, d, sizeof(T), W, BH);
+  const int S = hpg * d, W2 = W + 2;
+  T* ks = reinterpret_cast<T*>(smem);  // [kFwdKvSlots][W2][S], columns from C0 - 1
+  T* vs = ks + kFwdKvSlots * W2 * S;
+  T* qs = reinterpret_cast<T*>(smem + lay.q);  // [kFwdQSlots][W][S], columns from C0
+  float* es = reinterpret_cast<float*>(smem + lay.e);  // [ND][S]
+  unsigned char* vl = smem + lay.vl;  // [R1 - R0 + 2][W2]: rows from R0 - 1, columns from C0 - 1
+  unsigned char* fl = smem + lay.fl;  // rows R0..R1-1: a valid pixel in C0..C0+W-1
+  const long long base = static_cast<long long>(b) * P;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // the swizzle of a two-chunk run at ring column col
+  const int fb = S * static_cast<int>(sizeof(T)) >= 128 ? 0 : S * sizeof(T) == 64 ? 1
+               : S * sizeof(T) == 32 ? 2 : 3;
+  const auto sw = [&](int col) { return VG ? (col >> fb) & 1 : 0; };
+
+  // ---- the band's validity (0 off the grid; kVldLoads loads a thread in
+  // flight), its rows' flags (set by every thread that finds a valid pixel:
+  // one value, so no atomics) and the group's edge terms, widened once
+  for (int x = tid; x < BH; x += nt) fl[x] = 0;
+  for (int x = tid; x < ND * gw; x += nt)
+    es[(x / gw) * S + x % gw] = to_f(p.e[(x / gw) * H + f0 + x % gw]);
+  __syncthreads();
+  const int nv = (R1 - R0 + 2) * W2;
+  int any = 0;
+  for (int x0 = tid; x0 < nv; x0 += kVldLoads * nt) {
+    float val[kVldLoads];
+#pragma unroll
+    for (int u = 0; u < kVldLoads; ++u) {
+      const int x = x0 + u * nt;
+      const int r = R0 - 1 + x / W2, c = C0 - 1 + x % W2;
+      val[u] = x < nv && r >= 0 && r < p.rows && c >= 0 && c < p.cols
+                   ? to_f(p.valid[r * p.cols + c]) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kVldLoads; ++u) {
+      const int x = x0 + u * nt;
+      if (x >= nv) continue;
+      const int rr = x / W2, cc = x % W2;  // row R0 - 1 + rr, column C0 - 1 + cc
+      vl[x] = val[u] != 0.f;
+      if (val[u] != 0.f && rr >= 1 && rr <= R1 - R0 && cc >= 1 && cc <= W) fl[rr - 1] = 1, any = 1;
+    }
+  }
+  // a thread's (column, run) of the group's pixel rows: the outputs take
+  // columns 0..W-1, the copies every column of a row, by steps of cstep
+  const int runs = gw / R;
+  const int cj = tid % runs, cc0 = tid / runs, cstep = nt / runs;
+  const bool cact = cc0 < cstep;
+  const bool oact = tid < W * runs && C0 + cc0 < p.cols;
+  const int fo = cj * R;  // the thread's first feature in the group
+  T* const out = p.out + (base + C0 + cc0) * H + f0 + fo;  // row 0 of the thread's column
+  const auto store_run = [&](T* o, const float (&x)[R]) {
+    if constexpr (VG) {
+#pragma unroll
+      for (int h = 0; h < RC; ++h) store_t<T, V, true>(o + h * V, x + h * V);
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) o[j] = from_f<T>(x[j]);
+    }
+  };
+  const auto zero_row = [&](int s) {
+    if (!oact) return;
+    float z[R];
+#pragma unroll
+    for (int x = 0; x < R; ++x) z[x] = 0.f;
+    store_run(out + static_cast<long long>(s) * p.cols * H, z);
+  };
+  if (!__syncthreads_or(any)) {  // no valid pixel: zeros
+    for (int s = R0; s < R1; ++s) zero_row(s);
+    return;
+  }
+
+  // ---- the row copies: stage r brings q row r and k, v row r + 1 (the
+  // first stage rows R0 - 1 .. R0 + 1). With 16-byte accesses (VG) a
+  // thread's copies are fixed for the walk, their addresses computed once:
+  // the chunks of its run at columns cc0 and cc0 + cstep of a k, v ring row
+  // (from C0 - 1) and at column cc0 of a q ring row (from C0), swizzled by
+  // ring column; else copy_cols copies value by value.
+  const bool ka = cact && cc0 < W2, kb = cact && cc0 + cstep < W2, qa = cact && cc0 < W;
+  const unsigned ska = smem_u32(ks + cc0 * S + fo), skb = smem_u32(ks + (cc0 + cstep) * S + fo);
+  const unsigned sqa = smem_u32(qs + cc0 * S + fo), vby = smem_u32(vs) - smem_u32(ks);
+  const unsigned kvslot_by = W2 * S * sizeof(T), qslot_by = W * S * sizeof(T);
+  const long long gka = (base + C0 - 1 + cc0) * H + f0 + fo, gqa = (base + C0 + cc0) * H + f0 + fo;
+  const long long gstep = static_cast<long long>(cstep) * H;
+  const long long grow = static_cast<long long>(p.cols) * H;
+  const int swa = sw(cc0) * 16, swb = sw(cc0 + cstep) * 16;  // a chunk's byte offset, swapped
+  const auto copy16 = [](unsigned dst, const T* src, bool in) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(in ? 16 : 0));
+  };
+  // the RC chunks of a run: chunk h to byte (h * 16) ^ swz of the run
+  const auto copy_run2 = [&](unsigned dst, const T* src, bool in, int swz) {
+#pragma unroll
+    for (int h = 0; h < RC; ++h) copy16(dst + ((h * 16) ^ swz), src + (in ? h * V : 0), in);
+  };
+  // !VG: the thread's run at columns cc0, cc0 + cstep, ... < n of one pixel
+  // row (rowat: the offset of column 0's run in src) into a ring row
+  const auto copy_cols = [&](T* ring, const T* src, const unsigned char* vrow, long long rowat,
+                             int n) {
+    for (int px = cc0; cact && px < n; px += cstep) {
+      const bool in = vrow[px] != 0;
+      copy_run<T, R, false>(ring + px * S + fo,
+                            src + (in ? rowat + static_cast<long long>(px) * H : 0), in);
+    }
+  };
+  const auto issue = [&](int r) {
+    for (int rr = r == R0 ? R0 - 1 : r + 1; rr <= r + 1; ++rr) {
+      const int sl = (rr + 1) % kFwdKvSlots;
+      const unsigned char* vrow = vl + (rr - R0 + 1) * W2;
+      if constexpr (VG) {
+        const long long g = rr * grow;
+        if (ka) {
+          const bool in = vrow[cc0] != 0;
+          const long long at = in ? gka + g : 0;
+          copy_run2(ska + sl * kvslot_by, p.k + at, in, swa);
+          copy_run2(ska + sl * kvslot_by + vby, p.v + at, in, swa);
+        }
+        if (kb) {
+          const bool in = vrow[cc0 + cstep] != 0;
+          const long long at = in ? gka + gstep + g : 0;
+          copy_run2(skb + sl * kvslot_by, p.k + at, in, swb);
+          copy_run2(skb + sl * kvslot_by + vby, p.v + at, in, swb);
+        }
+      } else {
+        const long long at = (base + rr * p.cols + C0 - 1) * H + f0 + fo;
+        copy_cols(ks + sl * W2 * S, p.k, vrow, at, W2);
+        copy_cols(vs + sl * W2 * S, p.v, vrow, at, W2);
+      }
+    }
+    if (!fl[r - R0]) return;  // the row stores zeros
+    const int sl = r % kFwdQSlots;
+    const unsigned char* vrow = vl + (r - R0 + 1) * W2 + 1;  // column C0
+    if constexpr (VG) {
+      if (qa) {
+        const bool in = vrow[cc0] != 0;
+        copy_run2(sqa + sl * qslot_by, p.q + (in ? gqa + r * grow : 0), in, sw(cc0) * 16);
+      }
+    } else {
+      copy_cols(qs + sl * W * S, p.q, vrow, (base + r * p.cols + C0) * H + f0 + fo, W);
+    }
+  };
+
+  // ---- a thread's constants for the walk: its head's lanes, its column's
+  // offsets in the rings (column 0 for a thread without an output column)
+  // and their swizzles, and the edge terms of its run, widened once, in
+  // registers where they fit
+  const int sub = cj & (LANES - 1), hh = cj / LANES;
+  const int lead = (tid & 31) - sub;  // the head's first lane
+  const int ocol = oact ? cc0 : 0;
+  const int kvcol = (ocol + 1) * S + fo, qcol = ocol * S + fo;
+  const int kvslot = W2 * S, qslot = W * S;
+  // a run's chunk h of ring column col + 1 - dc (k, v) or col (q) lies at
+  // chunk h ^ swizzle; here the swizzles of columns ocol .. ocol + 2
+  int swc[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) swc[c] = sw(ocol + c);
+  const int swq = sw(ocol);
+  const auto load_run2 = [&](const T* src, int swz, float (&x)[R]) {
+#pragma unroll
+    for (int h = 0; h < RC; ++h) load_t<T, V>(src + (h ^ swz) * V, x + h * V);
+  };
+  // the keep values of the directions the thread owns in the softmax (the
+  // lane's i = t LANES + sub), loaded a row ahead into registers: at a
+  // valid pixel, 1 elsewhere
+  constexpr int KT = (ND + LANES - 1) / LANES;
+  const float* kpix = p.keep == nullptr ? nullptr
+      : p.keep + (static_cast<long long>(b) * ND * P + C0 + ocol) * p.heads + h0 + hh;
+  const auto load_keep = [&](int r, float (&kv)[KT]) {
+    const bool in = kpix != nullptr && r < R1 && vl[(r - R0 + 1) * W2 + ocol + 1] != 0;
+#pragma unroll
+    for (int t = 0; t < KT; ++t) {
+      const int i = t * LANES + sub;
+      kv[t] = in && i < ND ? __ldg(kpix + (static_cast<long long>(i) * P + r * p.cols) * p.heads)
+                           : 1.f;
+    }
+  };
+  constexpr bool kEReg = ND * R <= 32;
+  float ev[kEReg ? ND : 1][R];
+  if constexpr (kEReg) {
+#pragma unroll
+    for (int i = 0; i < ND; ++i) load_run<R>(es + i * S + fo, ev[i]);
+  }
+  const auto e_run = [&](int i, float (&e)[R]) {
+    if constexpr (kEReg) {
+#pragma unroll
+      for (int x = 0; x < R; ++x) e[x] = ev[i][x];
+    } else {
+      load_run<R>(es + i * S + fo, e);
+    }
+  };
+
+  // ---- row j of the thread's column, from k, v rows j - 1 .. j + 1 at
+  // kr[0..2], vr[0..2], q at qp, its keep values kp and the validity at vc.
+  // Rows are zero-filled at masked pixels and off the grid, so every
+  // direction is summed without a branch: a direction without an edge adds
+  // used_i = 0 times a finite value, which leaves every sum as it was. The
+  // logits (a tree over the run, then the butterfly over the head's lanes),
+  // the softmax, the run of the output over the directions in order.
+  const auto compute_row = [&](int j, const T* const (&kr)[3], const T* const (&vr)[3],
+                               const T* qp, const float (&kp)[KT], const unsigned char* vc) {
+    const bool self_ok = oact && *vc != 0;
+    T* const o = out + static_cast<long long>(j) * p.cols * H;
+    if (!__any_sync(kFull, self_ok)) {  // the warp's pixels are masked
+      if (oact) {
+        float z[R];
+#pragma unroll
+        for (int x = 0; x < R; ++x) z[x] = 0.f;
+        store_run(o, z);
+      }
+      return;
+    }
+    bool has[ND];
+    float lg[ND], qv[R];
+    load_run2(qp, swq, qv);
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const int dr = shift_r(i), dc = shift_c(i);
+      has[i] = self_ok && vc[-dr * W2 - dc] != 0;
+      float kv[R], e[R];
+      load_run2(kr[1 - dr] - dc * S, swc[1 - dc], kv);  // the source (j - dr, c - dc)
+      e_run(i, e);
+#pragma unroll
+      for (int x = 0; x < R; ++x) kv[x] = __fmul_rn(qv[x], __fadd_rn(kv[x], e[x]));
+      lg[i] = tree_sum<R>(kv);
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < LANES; o2 <<= 1) {
+#pragma unroll
+      for (int i = 0; i < ND; ++i) lg[i] = __fadd_rn(lg[i], __shfl_xor_sync(kFull, lg[i], o2));
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      lg[i] = __fmul_rn(lg[i], p.scale);
+      if (has[i]) mx = fmaxf(mx, lg[i]);
+    }
+    // used_i = alpha_i keep_i (0 without an edge); the denominator sums in
+    // direction order and is >= 1 wherever a direction has an edge
+    float used[ND], den = 0.f;
+    // lane sub takes the directions i = sub + t LANES: one exponential and
+    // one division a lane for up to LANES directions, passed on to the
+    // head's lanes by shuffles
+    constexpr int T_ = (ND + LANES - 1) / LANES;
+    float ex[T_];
+    bool own[T_];
+#pragma unroll
+    for (int t = 0; t < T_; ++t) {
+      float x = 0.f;
+      own[t] = false;
+#pragma unroll
+      for (int i = t * LANES; i < ND && i < (t + 1) * LANES; ++i)
+        if (sub == i - t * LANES) x = lg[i], own[t] = has[i];
+      ex[t] = own[t] ? expf(__fsub_rn(x, mx)) : 0.f;
+#pragma unroll
+      for (int i = t * LANES; i < ND && i < (t + 1) * LANES; ++i)
+        den = __fadd_rn(den, __shfl_sync(kFull, ex[t], lead + i - t * LANES));
+    }
+#pragma unroll
+    for (int t = 0; t < T_; ++t) {
+      float u = 0.f;
+      if (own[t]) {
+        u = __fdiv_rn(ex[t], den);
+        if (p.keep != nullptr) u = __fmul_rn(u, kp[t]);
+      }
+#pragma unroll
+      for (int i = t * LANES; i < ND && i < (t + 1) * LANES; ++i)
+        used[i] = __shfl_sync(kFull, u, lead + i - t * LANES);
+    }
+    if (!oact) return;
+    float acc[R];
+#pragma unroll
+    for (int x = 0; x < R; ++x) acc[x] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      float vv[R], e[R];
+      load_run2(vr[1 - shift_r(i)] - shift_c(i) * S, swc[1 - shift_c(i)], vv);
+      e_run(i, e);
+#pragma unroll
+      for (int x = 0; x < R; ++x)
+        acc[x] = __fadd_rn(acc[x], __fmul_rn(used[i], __fadd_rn(vv[x], e[x])));
+    }
+    store_run(o, acc);
+  };
+
+  // ---- the walk: the empty rings take stages R0 .. R0 + kFwdStages - 1 at
+  // once; then row j waits for stage j and issues stage j + kFwdStages. The
+  // slots of rows j - 1 .. j + 1 (k, v) and j (q) turn with j.
+#pragma unroll 1
+  for (int st = 0; st < kFwdStages; ++st) {
+    if (R0 + st < R1) issue(R0 + st);
+    cp_async_commit();
+  }
+  int s0 = R0 % kFwdKvSlots, s1 = (R0 + 1) % kFwdKvSlots, s2 = (R0 + 2) % kFwdKvSlots;
+  int sq = R0 % kFwdQSlots;
+  float kcur[KT], knext[KT];
+  load_keep(R0, kcur);
+#pragma unroll 1
+  for (int j = R0; j < R1; ++j) {
+    cp_async_wait<kFwdStages - 1>();
+    __syncthreads();  // stage j landed; every thread is done with row j - 1
+    if (j + kFwdStages < R1) issue(j + kFwdStages);
+    cp_async_commit();
+    load_keep(j + 1, knext);
+    if (fl[j - R0]) {  // uniform across the CTA
+      const T* const kr[3] = {ks + s0 * kvslot + kvcol, ks + s1 * kvslot + kvcol,
+                              ks + s2 * kvslot + kvcol};
+      const T* const vr[3] = {vs + s0 * kvslot + kvcol, vs + s1 * kvslot + kvcol,
+                              vs + s2 * kvslot + kvcol};
+      compute_row(j, kr, vr, qs + sq * qslot + qcol, kcur, vl + (j - R0 + 1) * W2 + ocol + 1);
+    } else {
+      zero_row(j);
+    }
+#pragma unroll
+    for (int t = 0; t < KT; ++t) kcur[t] = knext[t];
+    s0 = s1, s1 = s2, s2 = s2 + 1 == kFwdKvSlots ? 0 : s2 + 1;
+    sq = sq + 1 == kFwdQSlots ? 0 : sq + 1;
+  }
+  cp_async_wait<0>();
+}
+
+// ---------------------------------------------------------------- K6
+
+// K6's operands; T is the storage type of q, k, v, e, valid, g, dq, dk and dv
+template <typename T>
+struct BwdParams {
+  const T* q;          // (B, P, H)
+  const T* k;
+  const T* v;
+  const T* e;          // (ND, H) per-direction edge terms
+  const T* valid;      // (P,) 1 = valid pixel
+  const float* keep;   // (B, ND, P, heads) or null (no dropout)
+  const T* g;          // the cotangent (B, P, H)
+  T* dq;               // (B, P, H)
+  T* dk;
+  T* dv;
+  float* de_part;      // (B, strips * bands, ND, H): one partial a CTA
+  T* de;               // (ND, H): the partials' sum
+  int* done;           // a counter of finished CTAs a feature group, 0 at rest
+  int rows, cols, heads, d;
+  int hpg;             // heads of one CTA's feature group
+  int strip, band;     // the CTA's columns (W) and rows (BH)
+  int strips, bands;
+  float scale;
+};
+
+constexpr int kStages = 2;             // row copies in flight beyond the rows in use
+constexpr int kKvSlots = kStages + 4;  // k, v: rows j-1..j+2 in use at iteration j
+constexpr int kQgSlots = kStages + 3;  // q, g, keep: rows j-1..j+1 in use
+constexpr int kDlSlots = 3;            // (dlogit, used): rows j-1..j+1
+
+// Elements of a staged pixel row: the group's width; odd for f32 rows of
+// single features, so that threads on neighbouring pixels read distinct
+// banks (16-byte runs need no pad: a quarter warp reads 128 contiguous
+// bytes).
+__host__ __device__ inline int bwd_stride(int gw, int run, int itemsize) {
+  return run == 1 && itemsize == 4 ? (gw | 1) : gw;
+}
+
+// Byte offsets of one K6 CTA's shared memory (ops/grid_attn.py
+// bwd_smem_bytes mirrors it): the k/v and q/g row rings (their room reused
+// at the end for the de reduction, W x ND x gw f32), the keep ring, the
+// group's edge terms (f32), the (dlogit, used) ring, the band's validity
+// and its rows' flags, and the de sum's chunks (and the last-CTA flag).
+struct BwdLayout {
+  long long qg, kp, e, dlu, vl, fl, ch, total;
+};
+
+__host__ __device__ inline BwdLayout bwd_layout(int nd, int hpg, int d, int run, int itemsize,
+                                                int w, int bh) {
+  const int gw = hpg * d;
+  const long long s = static_cast<long long>(bwd_stride(gw, run, itemsize)) * itemsize;
+  BwdLayout l;
+  l.qg = up16(2LL * kKvSlots * (w + 4) * s);
+  long long at = l.qg + up16(2LL * kQgSlots * (w + 2) * s);
+  at = at > up16(4LL * w * nd * gw) ? at : up16(4LL * w * nd * gw);
+  l.kp = at;
+  at += up16(4LL * kQgSlots * nd * (w + 2) * hpg);
+  l.e = at;
+  at += up16(4LL * nd * gw);
+  l.dlu = at;
+  at += up16(8LL * kDlSlots * (w + 2) * hpg * nd);
+  l.vl = at;
+  at += up16(static_cast<long long>(bh + 4) * (w + 4));
+  l.fl = at;
+  at += up16(2LL * (bh + 4));
+  l.ch = at;
+  at += 4LL * kThreads + 16;
+  l.total = at;
+  return l;
 }
 
 // K6: one CTA per (strip of W columns and band of BH rows, feature group
@@ -778,7 +1223,9 @@ __global__ void __launch_bounds__(kThreads, 2) grid_attn_bwd_kernel(BwdParams<T>
 
   // ---- the row copies: stage j brings k, v row j + 2 (the first stage
   // rows R0 - 2 .. R0) and q, g and keep row j + 1; masked pixels and
-  // pixels off the grid are zero-filled, not fetched
+  // pixels off the grid are zero-filled, not fetched. K5's walk copies its
+  // rows by its own code: this lambda as a helper shared with it made K6
+  // spill more and run 4 % slower in f32 on an H100.
   const auto stage_pair = [&](const T* a, const T* bb, int r, int c_lo, int n, T* ring_a,
                               T* ring_b) {
     const unsigned char* vrow = vl + (r - R0 + 2) * W4 + c_lo - (C0 - 2);
@@ -1135,22 +1582,68 @@ bool bad_geometry(int rows, int cols, int heads, int d, int nd, int B) {
          (nd != 4 && nd != 8) || B < 0 || B > 65535;
 }
 
+template <typename T, int ND, bool VG>
+cudaError_t launch_walk(const FwdParams<T>& p, int B, int bands, int threads,
+                        cudaStream_t stream) {
+  const dim3 grid(p.strips * bands, (p.heads + p.hpg - 1) / p.hpg, B);
+  const size_t smem = walk_layout(ND, p.hpg, p.d, sizeof(T), p.strip, p.band).total;
+  auto* kernel = grid_attn_walk_kernel<T, ND, VG>;
+  static size_t allowed = 48 * 1024;  // this instance's dynamic shared-memory limit so far
+  if (smem > allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    allowed = smem;
+  }
+  kernel<<<grid, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// walk: K5's row bands (strip, band: a CTA's columns and rows; threads) or
+// its pixel tiles (strip, band: the tile's columns and rows; kThreads).
 template <typename T>
 int grid_attn_fwd(const T* q, const T* k, const T* v, const T* e, const T* valid,
                   const float* keep, T* out, int B, int rows, int cols, int heads, int d, int nd,
-                  int hpg, int tr, int tc, float scale, void* stream) {
-  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || tr < 1 || tc < 1 ||
-      sizeof(float) * fwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024 ||
-      static_cast<long long>((rows + tr - 1) / tr) * ((cols + tc - 1) / tc) *
-              ((heads + hpg - 1) / hpg) > 0x7fffffffLL)
+                  int walk, int hpg, int strip, int band, int threads, float scale,
+                  void* stream) {
+  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
+  const bool vg = aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long groups = (heads + hpg - 1) / hpg;
+  if (bad_geometry(rows, cols, heads, d, nd, B) || hpg < 1 || hpg > heads || strip < 1 ||
+      band < 1 || groups > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (walk) {
+    // d 32, one head a group, runs of two 16-byte chunks
+    const int R = 32 / static_cast<int>(sizeof(T));
+    const int strips = (cols + strip - 1) / strip, bands = (rows + band - 1) / band;
+    if (d != 32 || hpg != 1 || threads < 32 || threads > kThreads ||
+        threads % 32 != 0 || strip * (hpg * d / R) > threads ||
+        walk_layout(nd, hpg, d, sizeof(T), strip, band).total > 227 * 1024 ||
+        static_cast<long long>(strips) * bands > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (B == 0) return 0;
+    FwdParams<T> p{q, k, v, e, valid, keep, out, rows, cols, heads, d, hpg, 0, 0, 0,
+                   strip, band, strips, scale};
+    cudaError_t err;
+    if (vg)
+      err = nd == 4 ? launch_walk<T, 4, true>(p, B, bands, threads, s)
+                    : launch_walk<T, 8, true>(p, B, bands, threads, s);
+    else
+      err = nd == 4 ? launch_walk<T, 4, false>(p, B, bands, threads, s)
+                    : launch_walk<T, 8, false>(p, B, bands, threads, s);
+    return static_cast<int>(err);
+  }
+  const int tr = band, tc = strip;
+  if (threads != kThreads || sizeof(float) * fwd_smem_floats(nd, hpg, d, tr, tc) > 227 * 1024 ||
+      static_cast<long long>((rows + tr - 1) / tr) * ((cols + tc - 1) / tc) * groups >
+          0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   // 4-value row copies and run stores: runs of 4 or 8 features, aligned tensors
-  const auto aligned = [](const void* x) { return reinterpret_cast<uintptr_t>(x) % 16 == 0; };
-  const int vec4 = fwd_run(d) >= 4 && aligned(q) && aligned(k) && aligned(v) && aligned(out);
+  const int vec4 = fwd_run(d) >= 4 && vg;
   const FwdParams<T> p{q, k, v, e, valid, keep, out, rows, cols, heads, d, hpg, tr, tc, vec4,
-                       scale};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+                       0, 0, 0, scale};
   return static_cast<int>(nd == 4 ? launch_fwd_width<T, 4>(p, B, s)
                                   : launch_fwd_width<T, 8>(p, B, s));
 }
@@ -1200,22 +1693,25 @@ bf16* out(void* x) { return static_cast<bf16*>(x); }
 
 }  // namespace
 
-// hpg, tr, tc: the feature group (whole heads) and pixel tile of one CTA.
+// walk, hpg, strip, band, threads: K5's plan (ops/grid_attn.py fwd_plan):
+// row bands (walk 1) or pixel tiles (0), the heads of a CTA's feature
+// group, its columns and rows (a tile's, for tiles) and its threads.
 extern "C" int qtm_grid_attn_fwd(const float* q, const float* k, const float* v, const float* e,
                                  const float* valid, const float* keep, float* out, int B,
-                                 int rows, int cols, int heads, int d, int nd, int hpg, int tr,
-                                 int tc, float scale, void* stream) {
-  return grid_attn_fwd<float>(q, k, v, e, valid, keep, out, B, rows, cols, heads, d, nd, hpg, tr,
-                              tc, scale, stream);
+                                 int rows, int cols, int heads, int d, int nd, int walk, int hpg,
+                                 int strip, int band, int threads, float scale, void* stream) {
+  return grid_attn_fwd<float>(q, k, v, e, valid, keep, out, B, rows, cols, heads, d, nd, walk,
+                              hpg, strip, band, threads, scale, stream);
 }
 
 // the same with q, k, v, e, valid and out in bf16 (keep stays f32)
 extern "C" int qtm_grid_attn_fwd_bf16(const void* q, const void* k, const void* v, const void* e,
                                       const void* valid, const float* keep, void* o, int B,
-                                      int rows, int cols, int heads, int d, int nd, int hpg,
-                                      int tr, int tc, float scale, void* stream) {
+                                      int rows, int cols, int heads, int d, int nd, int walk,
+                                      int hpg, int strip, int band, int threads, float scale,
+                                      void* stream) {
   return grid_attn_fwd<bf16>(in(q), in(k), in(v), in(e), in(valid), keep, out(o), B, rows, cols,
-                             heads, d, nd, hpg, tr, tc, scale, stream);
+                             heads, d, nd, walk, hpg, strip, band, threads, scale, stream);
 }
 
 // hpg: the heads of a CTA's feature group; run, strip, band, threads: its

@@ -67,9 +67,10 @@ SIGNATURES = {
     "attn_bwd_bf16.cu": {"qtm_attn_bwd_bf16": [_P] * 20 + [_C] * 20 + [ctypes.c_float, _P, _P]},
     "grid_attn.cu": {
         # q, k, v, e_dir, valid, keep, out,
-        # B, rows, cols, heads, d, D, hpg, tile rows, tile cols, scale, stream
-        "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 9 + [ctypes.c_float, _P],
-        "qtm_grid_attn_fwd_bf16": [_P] * 7 + [_C] * 9 + [ctypes.c_float, _P],
+        # B, rows, cols, heads, d, D, then the plan: walk (row bands) or
+        # tiles, hpg, strip, band, threads; scale, stream
+        "qtm_grid_attn_fwd": [_P] * 7 + [_C] * 11 + [ctypes.c_float, _P],
+        "qtm_grid_attn_fwd_bf16": [_P] * 7 + [_C] * 11 + [ctypes.c_float, _P],
         # q, k, v, e_dir, valid, keep, g, dq, dk, dv, de_part, de, done,
         # B, rows, cols, heads, d, D, then the plan: hpg, run, strip, band,
         # threads; scale, stream

@@ -32,6 +32,11 @@ f32 order and round each output (out, dq, dk, dv) to bf16 once;
 ``de_dir`` is summed in f32 and then cast, as the JAX package's kernels
 do (its dk/dv halos are f32 until their combine).
 
+The forward (K5) takes the layout of :func:`fwd_plan`, by shape: row
+bands of column strips at d 32 (:func:`fwd_walks`), each k, v and q row
+staged once a band in its storage type while the row before it computes;
+or pixel tiles staged in f32 at every other d (the port's paths: d 1).
+
 :class:`GridAttnApply` makes the aggregation differentiable in q, k, v and
 ``e_dir`` on both devices: its backward (K6) walks row bands of column
 strips (:func:`bwd_plan`), computes each pixel's α once, writes dq, dk and
@@ -66,14 +71,23 @@ MAX_D = 256
 # largest value each tile serves, so that a CTA has work for its 256
 # threads and its shared memory stays small.
 FWD_TILES = ((1, (8, 32)), (2, (8, 16)), (4, (8, 8)), (8, (4, 8)), (16, (4, 4)), (32, (2, 4)))
+# K5's row walk (csrc/grid_attn.cu): rows in flight beyond the rows in use
+# (kFwdStages), ring slots of k/v and q rows, and the threads a strip
+# is sized for
+FWD_STAGES = 1
+FWD_KV_SLOTS, FWD_Q_SLOTS = FWD_STAGES + 3, FWD_STAGES + 1
+FWD_THREADS = 128
 # K6 (csrc/grid_attn.cu): rows in flight beyond the rows in use (kStages),
-# ring slots of k/v, q/g/keep and (dlogit, used) rows; the threads a strip
-# is sized for, a CTA's threads at most and a thread's registers at most
-# (``__launch_bounds__(256, 2)``); and the card it is sized for: an H100's
-# multiprocessors and the shared memory of one and of one CTA.
+# ring slots of k/v, q/g/keep and (dlogit, used) rows, and the threads a
+# strip is sized for
 BWD_STAGES = 2
 BWD_KV_SLOTS, BWD_QG_SLOTS, BWD_DL_SLOTS = BWD_STAGES + 4, BWD_STAGES + 3, 3
-BWD_THREADS, BWD_MAX_THREADS, BWD_REGS = 128, 256, 128
+BWD_THREADS = 128
+# a K5 or K6 CTA's threads at most (kThreads) and a walk's registers a
+# thread at most (``__launch_bounds__(256, 2)``); the card the walks are
+# sized for: an H100's multiprocessors and the shared memory of one and of
+# one CTA
+MAX_THREADS, KERNEL_REGS = 256, 128
 SMS, SM_SMEM, SMEM_LIMIT = 132, 228 * 1024, 227 * 1024
 
 _NEG_BIG = -1e30
@@ -210,7 +224,7 @@ def _launch_args(q, k, v, e_dir, valid, keep, dims: GridAttnDims):
 
 
 def fwd_lanes(d: int):
-    """K5's lane split of a head's d features: (run, lanes). Each of
+    """K5's tile lane split of a head's d features: (run, lanes). Each of
     ``lanes`` lanes sums ``run`` contiguous features as a pairwise tree and
     an xor butterfly over the lanes finishes the tree, which is
     :func:`_head_sum`'s order when d divides 32; else one lane sums all d
@@ -222,11 +236,11 @@ def fwd_lanes(d: int):
 
 
 def fwd_smem_bytes(dims: GridAttnDims, hpg: int, tr: int, tc: int) -> int:
-    """Shared memory of one K5 CTA (csrc/grid_attn.cu ``fwd_smem_floats``):
-    k and v on the tile's one-pixel halo and q on the tile, in f32 rows of
-    the padded stride (bf16 rows are widened as they are staged, so the
-    bytes are the same in both dtypes), the group's edge terms, the halo's
-    validity and the tile's keep values."""
+    """Shared memory of one K5 tile CTA (csrc/grid_attn.cu
+    ``fwd_smem_floats``): k and v on the tile's one-pixel halo and q on the
+    tile, in f32 rows of the padded stride (bf16 rows are widened as they
+    are staged, so a tile's bytes are the same in both dtypes), the group's
+    edge terms, the halo's validity and the tile's keep values."""
     gw = hpg * dims.d
     vec4 = 32 % dims.d == 0 and dims.d >= 4  # float4 runs: a stride of 4 mod 8, else odd
     s = gw
@@ -236,26 +250,103 @@ def fwd_smem_bytes(dims: GridAttnDims, hpg: int, tr: int, tc: int) -> int:
     return 4 * (2 * n1 * s + nt * s + dims.ndirs * gw + n1 + dims.ndirs * nt * hpg)
 
 
+def walk_smem_bytes(ndirs: int, hpg: int, d: int, itemsize: int, strip: int, band: int) -> int:
+    """Shared memory of one K5 row-walk CTA (csrc/grid_attn.cu
+    ``walk_layout``): the k and v rings (rows of strip + 2 pixels) and the
+    q ring (strip pixels) in the storage type, so a bf16 CTA takes half an
+    f32 one's rows; the group's edge terms (f32), the band's validity with
+    its halo and its rows' flags; each region 16-byte aligned (the keep
+    values go to registers a row ahead)."""
+    def up16(x):
+        return -(-x // 16) * 16
+
+    row = hpg * d
+    at = up16(2 * FWD_KV_SLOTS * (strip + 2) * row * itemsize)
+    at += up16(FWD_Q_SLOTS * strip * row * itemsize) + up16(4 * ndirs * row)
+    return at + up16((band + 2) * (strip + 2)) + up16(band)
+
+
+class FwdPlan(NamedTuple):
+    """K5's launch: row bands (``walk``) or pixel tiles. A CTA takes
+    ``strip`` columns and ``band`` rows of the grid (a tile's, for tiles)
+    and one feature group of ``hpg`` whole heads, ``run`` features a thread
+    (a lane, for tiles), with ``threads`` threads and ``smem`` bytes of
+    shared memory; ``strips`` × ``bands`` CTAs a group and sample."""
+
+    walk: bool
+    hpg: int
+    run: int
+    strip: int
+    band: int
+    strips: int
+    bands: int
+    threads: int
+    smem: int
+
+
+def fwd_walks(d: int) -> bool:
+    """Whether K5 takes row bands at head width d: at d 32, the width of
+    every head on the port's grid paths but the 1-feature head convs. A
+    1-feature head keeps the tiles, and so does every other d. That choice
+    at d 1 is inferred from K6, whose walk lost to its tiles at H 1 (a
+    chain of dependent round trips at a few features a pixel); no K5 walk
+    at d 1 was built or timed."""
+    return d == 32
+
+
+def _band_for(rows: int, threads: int, smem_of, base: int) -> int:
+    """Rows a band, so that the launch's CTAs (``base`` a band), as many as
+    the card holds at once at that CTA's threads, registers and shared
+    memory (one wave), each walk one band; ``smem_of(band)`` is a CTA's
+    shared memory."""
+    band = rows
+    for _ in range(2):  # the shared memory depends on the band a little
+        slots = max(1, min(2048 // threads, 65536 // (threads * KERNEL_REGS),
+                           SM_SMEM // (smem_of(band) + 1024), 32))
+        band = max(2, -(-rows // max(1, SMS * slots // base)))
+    return -(-rows // -(-rows // band))
+
+
 @functools.lru_cache(maxsize=None)
-def fwd_plan(dims: GridAttnDims):
-    """K5's CTA geometry: (heads a feature group, tile rows, tile cols,
-    tiles a sample). A group packs whole heads up to 32 features (one head
-    when d > 32), as K6's does; the tile follows :data:`FWD_TILES`."""
-    hpg = min(dims.heads, max(1, 32 // dims.d))
-    key = max(hpg * fwd_lanes(dims.d)[1], -(-hpg * dims.d // 8))
-    tr, tc = next(tile for width, tile in FWD_TILES if key <= width)
-    return hpg, tr, tc, -(-dims.rows // tr) * -(-dims.cols // tc)
+def fwd_plan(dims: GridAttnDims, itemsize: int = 4, batch: int = 1) -> FwdPlan:
+    """K5's CTA geometry for a ``batch``-sample launch in f32 (``itemsize``
+    4) or bf16 (2). A group packs whole heads up to 32 features (one head
+    when d > 32), as K6's does. Where :func:`fwd_walks`, the strip is as
+    wide as :data:`FWD_THREADS` threads (one a column and run of 8 f32 or
+    16 bf16 features), evened over the columns, and the bands fill one wave
+    of the card as :func:`bwd_plan`'s do; else the tile follows
+    :data:`FWD_TILES`."""
+    rows, cols, heads, d, ndirs = dims
+    hpg = min(heads, max(1, 32 // d))
+    groups = -(-heads // hpg)
+    if not fwd_walks(d):
+        run, lanes = fwd_lanes(d)
+        key = max(hpg * lanes, -(-hpg * d // 8))
+        tr, tc = next(tile for width, tile in FWD_TILES if key <= width)
+        return FwdPlan(False, hpg, run, tc, tr, -(-cols // tc), -(-rows // tr), MAX_THREADS,
+                       fwd_smem_bytes(dims, hpg, tr, tc))
+    run = 32 // itemsize  # two 16-byte chunks a thread: 4 f32 or 2 bf16 lanes a head
+    runs = hpg * d // run
+    strips = -(-cols // min(cols, max(1, FWD_THREADS // runs)))
+    strip = -(-cols // strips)
+    threads = -(-strip * runs // 32) * 32
+    band = _band_for(rows, threads,
+                     lambda bh: walk_smem_bytes(ndirs, hpg, d, itemsize, strip, bh),
+                     strips * groups * batch)
+    return FwdPlan(True, hpg, run, strip, band, strips, -(-rows // band), threads,
+                   walk_smem_bytes(ndirs, hpg, d, itemsize, strip, band))
 
 
 def _grid_attn_fwd_cuda(q, k, v, e_dir, valid, keep, dims: GridAttnDims) -> torch.Tensor:
     """Launch K5 (``qtm_grid_attn_fwd``, or ``_bf16`` for bf16 operands):
-    one CTA per pixel tile, feature group and sample (:func:`fwd_plan`)."""
+    one CTA per (strip × band of pixels, or pixel tile, feature group,
+    sample) by :func:`fwd_plan`."""
     lib, ptrs, ints, suffix = _launch_args(q, k, v, e_dir, valid, keep, dims)
     out = torch.empty_like(q)
-    hpg, tr, tc, _ = fwd_plan(dims)
+    plan = fwd_plan(dims, q.element_size(), q.shape[0])
     err = getattr(lib, "qtm_grid_attn_fwd" + suffix)(
-        *ptrs, spmm._ptr(out), *ints, hpg, tr, tc, ctypes.c_float(_scale(dims.d)),
-        spmm._stream())
+        *ptrs, spmm._ptr(out), *ints, int(plan.walk), plan.hpg, plan.strip, plan.band,
+        plan.threads, ctypes.c_float(_scale(dims.d)), spmm._stream())
     spmm._raise_on(err, "grid_attn_apply")
     (LAUNCHES_BF16 if suffix else LAUNCHES)["grid_attn_apply"] += 1
     return out
@@ -305,13 +396,13 @@ def bwd_smem_bytes(ndirs: int, hpg: int, d: int, run: int, itemsize: int, strip:
     at += up16(4 * BWD_QG_SLOTS * ndirs * (strip + 2) * hpg) + up16(4 * ndirs * gw)
     at += up16(8 * BWD_DL_SLOTS * (strip + 2) * hpg * ndirs)
     at += up16((band + 4) * (strip + 4)) + up16(2 * (band + 4))
-    return at + 4 * BWD_MAX_THREADS + 16
+    return at + 4 * MAX_THREADS + 16
 
 
 def _bwd_threads(strip: int, hpg: int, d: int, run: int) -> int:
     """Threads of a K6 CTA: one a (column, run) of a row, side columns
     included (the copies and the softmax), whole warps, at most 256."""
-    return min(BWD_MAX_THREADS, -(-(strip + 2) * (hpg * d // run) // 32) * 32)
+    return min(MAX_THREADS, -(-(strip + 2) * (hpg * d // run) // 32) * 32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -336,15 +427,10 @@ def bwd_plan(dims: GridAttnDims, itemsize: int = 4, batch: int = 1) -> BwdPlan:
     strips = -(-cols // strip)
     strip = -(-cols // strips)
     threads = _bwd_threads(strip, hpg, d, run)
-    base = strips * -(-heads // hpg) * batch  # CTAs a band
-    band = rows
-    for _ in range(2):  # the shared memory depends on the band a little
-        smem = bwd_smem_bytes(ndirs, hpg, d, run, itemsize, strip, band)
-        slots = max(1, min(2048 // threads, 65536 // (threads * BWD_REGS),
-                           SM_SMEM // (smem + 1024), 32))
-        band = max(2, -(-rows // max(1, SMS * slots // base)))
+    band = _band_for(rows, threads,
+                     lambda bh: bwd_smem_bytes(ndirs, hpg, d, run, itemsize, strip, bh),
+                     strips * -(-heads // hpg) * batch)
     bands = -(-rows // band)
-    band = -(-rows // bands)
     return BwdPlan(hpg, run, strip, band, strips, bands, threads,
                    bwd_smem_bytes(ndirs, hpg, d, run, itemsize, strip, band))
 

@@ -207,6 +207,7 @@ def test_grid_dropout_planes_come_from_the_generator(monkeypatch):
 
 THREADS = 256  # csrc/grid_attn.cu kThreads
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory a CTA may opt into on an H100
+KV_SLOTS_F, Q_SLOTS_F, STAGES_F = tga.FWD_KV_SLOTS, tga.FWD_Q_SLOTS, tga.FWD_STAGES
 
 
 def _head_counts(d):
@@ -215,84 +216,319 @@ def _head_counts(d):
     return [*range(1, 256 // d + 1), *([768 // d] if 768 % d == 0 else [])]
 
 
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 8, 16, 32, 64, 256])
-def test_fwd_plan_covers_every_pixel_and_feature_once(d):
-    """K5's launch, replayed as csrc/grid_attn.cu indexes it: the CTAs'
-    (tile, feature group) pairs and each CTA's (pixel, head) items and lane
-    runs cover every (pixel, feature) of an 11 × 13 grid exactly once, for
-    every head count at this d up to heads·d 256 and at H 768 (one launch
-    at any width) and both D; a head's lanes sit in one warp; the CTA's
-    shared memory fits."""
-    rows, cols = 11, 13
-    for heads in _head_counts(d):
-        for ndirs in (4, 8):
-            dims = tga.GridAttnDims(rows, cols, heads, d, ndirs)
-            hpg, tr, tc, tiles = tga.fwd_plan(dims)
+def _few_head_counts(d):
+    """A few head counts at head width d: 1, 2, 3, a full feature group,
+    heads·d 256, and H 768 where d divides it."""
+    return sorted({1, 2, 3, max(1, 32 // d), max(1, 256 // d),
+                   *([768 // d] if 768 % d == 0 else [])})
+
+
+def _covers(n, size, lo, hi):
+    """Per index of an axis of ``n``, how many of the ``size``-wide blocks
+    extended by ``lo`` before and ``hi`` after hold it."""
+    return np.array([sum(s - lo <= x < min(s + size, n) + hi for s in range(0, n, size))
+                     for x in range(n)])
+
+
+def _check_fwd_plan(p, dims, itemsize):
+    """The plan is one csrc/grid_attn.cu ``grid_attn_fwd`` takes: row bands
+    exactly at d 32 (:func:`fwd_walks`), one head a group, whole warps of
+    at most 256 threads, one thread a (column, run of two 16-byte chunks);
+    tiles of 256 threads by :data:`FWD_TILES` elsewhere; shared memory
+    within an H100 CTA's 227 KB."""
+    rows, cols, heads, d, ndirs = dims
+    assert p.hpg == min(heads, max(1, 32 // d))
+    assert p.walk == tga.fwd_walks(d) == (d == 32)
+    assert p.strips == -(-cols // p.strip) and p.bands == -(-rows // p.band)
+    assert p.smem <= SMEM_LIMIT
+    if p.walk:
+        assert p.hpg == 1 and p.run == 32 // itemsize
+        assert p.threads % 32 == 0 and 32 <= p.threads <= THREADS
+        assert p.strip * p.hpg * d // p.run <= p.threads and p.strip <= cols
+        assert p.smem == tga.walk_smem_bytes(ndirs, p.hpg, d, itemsize, p.strip, p.band)
+    else:
+        run, lanes = tga.fwd_lanes(d)
+        key = max(p.hpg * lanes, -(-p.hpg * d // 8))
+        assert (p.band, p.strip) == next(t for width, t in tga.FWD_TILES if key <= width)
+        assert p.run == run and p.threads == THREADS
+        assert p.smem == tga.fwd_smem_bytes(dims, p.hpg, p.band, p.strip)
+
+
+def _replay_fwd_plan(rows, cols, heads, d, ndirs, itemsize, batch):
+    """K5's launch, replayed as csrc/grid_attn.cu indexes it: returns how
+    often each (sample, pixel, feature) of the output is written and the
+    plan. Row bands: every CTA's threads (column, run of the group), and
+    the copies of a ring row (k and v: the strip and a side column each
+    way; q: the strip), each (column, run) by exactly one thread; tiles:
+    every CTA's (pixel, head) items and lane runs. Also checks that a
+    head's lanes sit in one warp."""
+    dims = tga.GridAttnDims(rows, cols, heads, d, ndirs)
+    p = tga.fwd_plan(dims, itemsize, batch)
+    _check_fwd_plan(p, dims, itemsize)
+    groups = -(-heads // p.hpg)
+    out = np.zeros((batch, rows, cols, heads * d), np.int64)
+    for grp in range(groups):
+        h0 = grp * p.hpg
+        gh = min(p.hpg, heads - h0)
+        if p.walk:
+            runs, lanes = gh * d // p.run, d // p.run
+            tid = np.arange(p.threads)
+            cj, cc0, cstep = tid % runs, tid // runs, p.threads // runs
+            sub = cj % lanes
+            assert ((tid - sub) // 32 == (tid - sub + lanes - 1) // 32).all()
+            for n in (p.strip + 2, p.strip):  # a k/v ring row, a q ring row
+                copies = np.zeros((n, runs), np.int64)
+                for px in (cc0, cc0 + cstep):
+                    m = (cc0 < cstep) & (px < n)
+                    np.add.at(copies, (px[m], cj[m]), 1)
+                assert (copies == 1).all(), (n, p)
+            oact = tid < p.strip * runs
+            for unit in range(p.strips * p.bands):
+                c0, r0 = (unit % p.strips) * p.strip, (unit // p.strips) * p.band
+                on = oact & (c0 + cc0 < cols)
+                for r in range(r0, min(r0 + p.band, rows)):
+                    for x in range(p.run):
+                        f = h0 * d + cj[on] * p.run + x
+                        np.add.at(out, (slice(None), r, c0 + cc0[on], f), 1)
+        else:
             run, lanes = tga.fwd_lanes(d)
-            assert run * lanes == d and 32 % lanes == 0
-            assert tga.fwd_smem_bytes(dims, hpg, tr, tc) <= SMEM_LIMIT, (heads, d)
-            groups = -(-heads // hpg)
-            tiles_c = -(-cols // tc)
-            assert tiles == -(-rows // tr) * tiles_c
-            count = np.zeros((rows, cols, heads * d), dtype=np.int64)
-            for x in range(tiles * groups):
-                grp, tile = x % groups, x // groups
-                r0, c0 = (tile // tiles_c) * tr, (tile % tiles_c) * tc
-                h0 = grp * hpg
-                gh = min(hpg, heads - h0)
-                items = np.arange(tr * tc * gh)
-                px, hh = items // gh, items % gh
+            tr, tc = p.band, p.strip
+            items = np.arange(tr * tc * gh)
+            px, hh = items // gh, items % gh
+            for tile in range(p.strips * p.bands):
+                r0, c0 = (tile // p.strips) * tr, (tile % p.strips) * tc
                 r, c = r0 + px // tc, c0 + px % tc
                 on = (r < rows) & (c < cols)
                 for sub in range(lanes):
                     for j in range(run):
                         f = h0 * d + hh * d + sub * run + j
-                        np.add.at(count, (r[on], c[on], f[on]), 1)
-            assert (count == 1).all(), (heads, d, ndirs)
+                        np.add.at(out, (slice(None), r[on], c[on], f[on]), 1)
+    return out, p
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 8, 16, 32, 64, 256])
+def test_fwd_plan_covers_every_pixel_and_feature_once(d, itemsize):
+    """K5's launch in f32 and bf16 (:func:`_replay_fwd_plan`: row bands at d
+    32, tiles elsewhere) on an 11 × 13 grid at batch 2 at every head count
+    up to heads·d 256 and at H 768 (one launch at any width; ragged last
+    groups), and on a 40 × 37 grid at batch 1 at a few head counts, both
+    D: every (pixel, feature) of the output written exactly once; every
+    (column, run) of a ring row copied by one thread; a head's lanes in one
+    warp; shared memory ≤ 227 KB."""
+    for rows, cols, batch, counts in ((11, 13, 2, _head_counts(d)),
+                                      (40, 37, 1, _few_head_counts(d))):
+        for heads in counts:
+            for ndirs in (4, 8):
+                out, p = _replay_fwd_plan(rows, cols, heads, d, ndirs, itemsize, batch)
+                assert (out == 1).all(), (rows, heads, ndirs, p)
+
+
+def _replay_fwd_walk_rings(rows, cols, heads, d, ndirs, itemsize):
+    """K5's row walk (csrc/grid_attn.cu ``grid_attn_walk_kernel``) over
+    every CTA of a feature group, its stages replayed: the empty rings take
+    stages R0 .. R0 + STAGES - 1 at once (stage r: q row r and k, v row r +
+    1, the first stage also rows R0 - 1 and R0), then row j waits for
+    stage j and issues stage j + STAGES; row j reads k, v rows j - 1 .. j +
+    1 and q row j. Checks that a row has landed before it is read and that
+    a copy never replaces a row in use or in flight; returns per pixel how
+    often its k/v and its q row are staged."""
+    p = tga.fwd_plan(tga.GridAttnDims(rows, cols, heads, d, ndirs), itemsize)
+    assert p.walk
+    kv_n, q_n = np.zeros((rows, cols), np.int64), np.zeros((rows, cols), np.int64)
+    for unit in range(p.strips * p.bands):
+        c0, r0 = (unit % p.strips) * p.strip, (unit // p.strips) * p.band
+        r1 = min(r0 + p.band, rows)
+        kv_slot, q_slot, landed, kv_rows, q_rows = {}, {}, {}, [], []
+
+        def issue(r, now):
+            for rr in range(r0 - 1, r0 + 2) if r == r0 else [r + 1]:
+                old = kv_slot.get((rr + 1) % KV_SLOTS_F)
+                assert old is None or old < now - 1, (rr, old, now)
+                kv_slot[(rr + 1) % KV_SLOTS_F] = rr
+                landed[("kv", rr)] = r
+                kv_rows.append(rr)
+            old = q_slot.get(r % Q_SLOTS_F)
+            assert old is None or old < now, (r, old, now)
+            q_slot[r % Q_SLOTS_F] = r
+            landed[("q", r)] = r
+            q_rows.append(r)
+
+        for st in range(STAGES_F):
+            if r0 + st < r1:
+                issue(r0 + st, r0 - 1)
+        for j in range(r0, r1):
+            if j + STAGES_F < r1:
+                issue(j + STAGES_F, j)
+            for r in (j - 1, j, j + 1):
+                assert kv_slot[(r + 1) % KV_SLOTS_F] == r and landed[("kv", r)] <= j
+            assert q_slot[j % Q_SLOTS_F] == j and landed[("q", j)] <= j
+        assert kv_rows == list(range(r0 - 1, r1 + 1)) and q_rows == list(range(r0, r1))
+        for n, rr, halo in ((kv_n, kv_rows, 1), (q_n, q_rows, 0)):
+            rr = np.array([r for r in rr if 0 <= r < rows])
+            cs = np.arange(max(0, c0 - halo), min(cols, c0 + p.strip + halo))
+            np.add.at(n, (rr[:, None], cs[None, :]), 1)
+    return kv_n, q_n, p
+
+
+K_BF16_LOADS = 4  # csrc/grid_attn.cu kBf16Loads
+
+
+def _stage_tile_copies(n1, nt, per, itemsize):
+    """The copies csrc/grid_attn.cu ``stage_tile`` makes in one K5 tile CTA,
+    as its loops number them (k and v on the n1-pixel halo, then q on the
+    nt-pixel tile, ``per`` copies a pixel row): f32 by cp.async, thread t
+    taking copies t, t + 256, ... of k and v, then of q; bf16 in one pass,
+    thread t taking kBf16Loads copies x0 + u·256 at a time (x0 = t, t +
+    kBf16Loads·256, ...), its loads first, a copy past the end storing
+    nothing."""
+    total, nkv = (n1 + nt) * per, n1 * per
+    tid = np.arange(THREADS)[:, None]
+    if itemsize == 4:
+        kv = (tid + THREADS * np.arange(-(-nkv // THREADS))).ravel()
+        q = (nkv + tid + THREADS * np.arange(-(-(total - nkv) // THREADS))).ravel()
+        return np.concatenate([kv[kv < nkv], q[q < total]])
+    x0 = (tid + K_BF16_LOADS * THREADS * np.arange(-(-total // (K_BF16_LOADS * THREADS)))).ravel()
+    x = (x0[x0 < total][:, None] + THREADS * np.arange(K_BF16_LOADS)).ravel()
+    return x[x < total]
+
+
+def _replay_stage_tile(rows, cols, heads, d, itemsize, aligned, valid):
+    """K5's tile staging (csrc/grid_attn.cu ``stage_tile``) over every CTA
+    of an f32 (itemsize 4) or bf16 (2) launch: each staged (pixel, feature)
+    of the k and v halo rows and of the q tile rows written once, the
+    padding of a row never; a copy fetches exactly the valid pixels on the
+    grid, its validity read at its own pixel; with 4-value copies (runs of
+    4 or 8 features, aligned tensors) every copy reads 16 (f32) or 8
+    (bf16) aligned bytes and writes 16 aligned bytes of a shared row. The
+    rows are f32 of stride ≥ the group's width (4 mod 8 with 4-value runs,
+    else odd) in both dtypes, so a bf16 CTA takes f32's shared memory."""
+    dims = tga.GridAttnDims(rows, cols, heads, d, 8)
+    p = tga.fwd_plan(dims, itemsize)
+    assert not p.walk and p.smem == tga.fwd_plan(dims, 4).smem
+    tr, tc, hpg, H = p.band, p.strip, p.hpg, heads * d
+    run, _ = tga.fwd_lanes(d)
+    vec4 = 32 % d == 0 and run >= 4 and aligned
+    step = 4 if vec4 else 1
+    S = hpg * d
+    while S % 8 != 4 if 32 % d == 0 and run >= 4 else S % 2 != 1:
+        S += 1
+    tw, n1, nt = tc + 2, (tr + 2) * (tc + 2), tr * tc
+    assert p.smem == 4 * (2 * n1 * S + nt * S + 8 * hpg * d + n1 + 8 * nt * hpg)
+    for grp in range(-(-heads // hpg)):
+        f0, gw = grp * hpg * d, min(hpg, heads - grp * hpg) * d
+        per = gw // step
+        x = _stage_tile_copies(n1, nt, per, itemsize)
+        assert len(np.unique(x)) == len(x) == (n1 + nt) * per
+        isq = x >= n1 * per
+        y = np.where(isq, x - n1 * per, x)
+        w, voff = np.where(isq, tc, tw), isq.astype(np.int64)
+        px, f = y // per, (y % per) * step
+        dst = px * S + f
+        vi = (px // w + voff) * tw + px % w + voff  # the copy's entry of the halo's validity
+        if vec4:
+            assert (dst % 4 == 0).all() and (n1 * S) % 4 == 0
+        for tile in range(p.strips * p.bands):
+            r0, c0 = (tile // p.strips) * tr, (tile % p.strips) * tc
+            r, c = r0 - 1 + voff + px // w, c0 - 1 + voff + px % w
+            assert (r0 - 1 + vi // tw == r).all() and (c0 - 1 + vi % tw == c).all()
+            on = (r >= 0) & (r < rows) & (c >= 0) & (c < cols)
+            fetch = on & valid[np.where(on, r, 0), np.where(on, c, 0)]
+            at = (r * cols + c) * H + f0 + f
+            if vec4:
+                assert (at[fetch] % 4 == 0).all()
+            for region, n, sel in (("kv", n1, ~isq), ("q", nt, isq)):
+                written = np.zeros((n, S), np.int64)
+                np.add.at(written, (px[sel][:, None], f[sel][:, None] + np.arange(step)), 1)
+                assert (written[:, :gw] == 1).all() and not written[:, gw:].any(), (region, p)
 
 
 @pytest.mark.parametrize("d", [1, 2, 3, 4, 6, 8, 16, 32, 64, 256])
 def test_fwd_plan_bf16_stages_every_row_once(d):
-    """K5 in bf16 keeps its f32 plan and f32 shared rows: bf16 rows are
-    loaded, widened and stored by the threads (csrc/grid_attn.cu
-    ``stage_rows``), 4 values a load where the f32 kernel copies 16 bytes
-    (runs of 4 or 8 features) and 1 value a load elsewhere. Replayed over
-    the k/v halo and the q tile of every CTA of an 11 × 13 grid: each
-    staged (pixel, feature) is written once, every 4-value load reads 8
-    aligned bytes of the bf16 tensor and stores 16 aligned bytes of a
-    shared row, and the shared memory is f32's; up to heads·d 256 and at H
-    768."""
+    """K5's staging at head width d, in bf16 and f32. Tiles (every d but 32,
+    :func:`_replay_stage_tile`): on an 11 × 13 grid with a masked band, at
+    every head count up to heads·d 256 and at H 768, aligned and (where
+    copies take 4 values) misaligned tensors, each staged (pixel, feature)
+    written once, only valid pixels fetched, 4-value copies aligned, f32
+    rows of the padded stride in both dtypes. Row bands (d 32,
+    :func:`_check_walk_rings`): on the 11 × 13 grid at H 32, 256 and 768,
+    every k, v and q row staged once a band."""
     rows, cols = 11, 13
+    valid = np.ones((rows, cols), bool)
+    valid[4:6, 2:9] = False
     for heads in _head_counts(d):
-        dims = tga.GridAttnDims(rows, cols, heads, d, 8)
-        hpg, tr, tc, tiles = tga.fwd_plan(dims)
-        run, _ = tga.fwd_lanes(d)
-        vec4 = 32 % d == 0 and run >= 4
-        step = 4 if vec4 else 1
-        gw_full, h = hpg * d, heads * d
-        stride = gw_full
-        while stride % 8 != 4 if vec4 else stride % 2 != 1:
-            stride += 1
-        assert tga.fwd_smem_bytes(dims, hpg, tr, tc) <= SMEM_LIMIT
-        groups, tiles_c = -(-heads // hpg), -(-cols // tc)
-        for x in range(tiles * groups):
-            grp, tile = x % groups, x // groups
-            r0, c0 = (tile // tiles_c) * tr, (tile % tiles_c) * tc
-            f0 = grp * hpg * d
-            gw = min(hpg, heads - grp * hpg) * d
-            for w, n, org in ((tc + 2, (tr + 2) * (tc + 2), (r0 - 1, c0 - 1)),
-                              (tc, tr * tc, (r0, c0))):
-                i = np.arange(n * (gw // step))  # the copies, as the kernel's loop numbers them
-                px, f = i // (gw // step), (i % (gw // step)) * step
-                written = np.zeros((n, gw), dtype=np.int64)
-                np.add.at(written, (px[:, None], f[:, None] + np.arange(step)), 1)
-                assert (written == 1).all(), (heads, d)
-                if vec4:
-                    r, c = org[0] + px // w, org[1] + px % w
-                    inside = (r >= 0) & (r < rows) & (c >= 0) & (c < cols)
-                    assert ((px * stride + f) % 4 == 0).all()  # a float4 of the shared row
-                    at = (r * cols + c) * h + f0 + f
-                    assert (at[inside] % 4 == 0).all()  # 8 aligned bytes of the bf16 rows
+        for itemsize in (4, 2):
+            if tga.fwd_walks(d):
+                if heads in (1, 8, 24):
+                    _check_walk_rings(rows, cols, heads, 8, itemsize)
+                continue
+            for aligned in (True, False) if d in (4, 8, 16) else (True,):
+                _replay_stage_tile(rows, cols, heads, d, itemsize, aligned, valid)
+
+
+def _check_walk_rings(rows, cols, heads, ndirs, itemsize):
+    """K5's row walk at d 32 (:func:`_replay_fwd_walk_rings`): every k and v
+    row staged once a band with one row and column of halo each way (twice
+    only on the rows and columns where bands and strips meet), every q row
+    once; bf16 rings take half an f32 CTA's ring bytes."""
+    d = 32
+    kv_n, q_n, p = _replay_fwd_walk_rings(rows, cols, heads, d, ndirs, itemsize)
+    np.testing.assert_array_equal(
+        kv_n, np.outer(_covers(rows, p.band, 1, 1), _covers(cols, p.strip, 1, 1)))
+    assert (q_n == 1).all()
+    f32 = tga.walk_smem_bytes(ndirs, p.hpg, d, 4, p.strip, p.band)
+    ring = (2 * KV_SLOTS_F * (p.strip + 2) + Q_SLOTS_F * p.strip) * p.hpg * d
+    assert f32 - p.smem == (2 * ring if itemsize == 2 else 0)
+
+
+@pytest.mark.parametrize("rows,cols", [(11, 13), (40, 37), (224, 304)])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("ndirs", [4, 8])
+def test_fwd_walk_stages_every_row_once_a_band(ndirs, itemsize, rows, cols):
+    """K5's row walk in bf16 and f32 (:func:`_check_walk_rings`) at d 32 on
+    an 11 × 13, a 40 × 37 and the flagship's 224 × 304 grid, at H 32, 256
+    and 768: every k and v row staged once a band with its halo, every q
+    row once; a row lands before it is read, and no copy replaces a row in
+    use or in flight. bf16 rows stay bf16."""
+    for heads in (1, 8, 24):
+        _check_walk_rings(rows, cols, heads, ndirs, itemsize)
+
+
+def test_fwd_plan_keeps_the_tiles_where_the_walk_does_not_run():
+    """K5 walks row bands exactly at d 32 (every head of the flagship and
+    the MH cells but their 1-feature head convs) and keeps the pixel tiles
+    at every other d, by :data:`FWD_TILES`, in both dtypes; the path is the
+    plan's, by shape."""
+    for d in range(1, 257):
+        for itemsize in (4, 2):
+            for heads in (1, 3):
+                dims = tga.GridAttnDims(224, 304, heads, d, 4)
+                p = tga.fwd_plan(dims, itemsize)
+                _check_fwd_plan(p, dims, itemsize)
+                assert p.walk == (d == 32)
+
+
+@pytest.mark.parametrize("ndirs", [4, 8])
+def test_fwd_plan_fills_the_card_on_the_flagship_grid(ndirs):
+    """On the flagship's 224 × 304 grid at batch 1, at every path width
+    (H 1, 32, 256, 768; and the MH head convs' 96 and 3) in f32 and bf16,
+    K5's plan is one the kernel takes: row bands at d 32 that fill the
+    H100 in one wave (at least one CTA a multiprocessor, and where the rows
+    are split into bands at most as many as the multiprocessors hold at
+    once at the CTA's threads, 128 registers a thread and shared memory),
+    tiles at d 1 with at least one CTA a multiprocessor."""
+    for heads, d in ((1, 1), (1, 32), (8, 32), (24, 32), (3, 32), (3, 1)):
+        for itemsize in (4, 2):
+            dims = tga.GridAttnDims(224, 304, heads, d, ndirs)
+            p = tga.fwd_plan(dims, itemsize)
+            _check_fwd_plan(p, dims, itemsize)
+            ctas = p.strips * p.bands * -(-heads // p.hpg)
+            assert p.walk == (d == 32) and tga.SMS <= ctas, p
+            if p.walk:
+                slots = min(2048 // p.threads, 65536 // (p.threads * tga.KERNEL_REGS),
+                            tga.SM_SMEM // (p.smem + 1024))
+                assert p.bands == 1 or ctas <= slots * tga.SMS, p
+                assert p.threads <= 128
 
 
 def _tree(x):
@@ -327,6 +563,109 @@ def test_fwd_lane_split_is_one_lane_in_order_off_the_tree():
     as :func:`_head_sum` does."""
     for d in (3, 5, 6, 12, 64, 256):
         assert tga.fwd_lanes(d) == (d, 1)
+
+
+def _k5_model(q, k, v, e, valid, keep, dims, plan):
+    """A numpy model of csrc/grid_attn.cu K5 in f32, in its order of sums,
+    for ``plan``'s layout. Per (pixel, head): each run of ``plan.run``
+    features sums its products as a pairwise tree and an xor butterfly
+    over the head's runs finishes the logit (where d does not divide 32,
+    the tiles' one lane sums the head in feature order); the softmax in
+    direction order, the denominator from 0; the output from 0 over every
+    direction in order. Masked pixels and pixels off the grid read as zero
+    (the kernels zero-fill their rows), so a direction without an edge adds
+    used_i = 0 times a finite value, as the row walk adds it without a
+    branch. exp is torch's, as the plain version's is."""
+    rows, cols, heads, d, ndirs = dims
+    f32 = np.float32
+    b = q.shape[0]
+    scale = f32(tga._scale(d))
+    shifts = [(-1, 0), (1, 0), (0, -1), (0, 1), (-1, -1), (1, -1), (-1, 1), (1, 1)][:ndirs]
+    ok = valid.reshape(rows, cols) != 0
+    q, k, v = (np.where(ok[None, ..., None], x.reshape(b, rows, cols, heads * d), f32(0))
+               for x in (q, k, v))
+
+    def shift(x, dr, dc):  # x[r - dr, c - dc], 0 off the grid
+        out = np.zeros_like(x)
+        rs, cs = slice(max(dr, 0), rows + min(dr, 0)), slice(max(dc, 0), cols + min(dc, 0))
+        rd, cd = slice(max(-dr, 0), rows + min(-dr, 0)), slice(max(-dc, 0), cols + min(-dc, 0))
+        out[..., rs, cs, :] = x[..., rd, cd, :]
+        return out
+
+    def tree(x):
+        while x.shape[-1] > 1:
+            x = x[..., 0::2] + x[..., 1::2]
+        return x[..., 0]
+
+    def head_dot(a, bb):  # (b, rows, cols, heads·d) x 2 -> (b, rows, cols, heads)
+        prod = a * bb
+        if 32 % d:
+            prod = prod.reshape(b, rows, cols, heads, d)
+            acc = prod[..., 0]
+            for x in range(1, d):
+                acc = acc + prod[..., x]
+            return acc
+        lanes = d // plan.run
+        acc = tree(prod.reshape(b, rows, cols, heads, lanes, plan.run))
+        o = 1
+        while o < lanes:
+            acc = acc + acc[..., np.arange(lanes) ^ o]
+            o *= 2
+        return acc[..., 0]
+
+    okf = ok[None, ..., None]
+    has = [okf & shift(okf.astype(f32), dr, dc).astype(bool) for dr, dc in shifts]
+    lg = [head_dot(q, shift(k, dr, dc) + e[i]) * scale for i, (dr, dc) in enumerate(shifts)]
+    mx = np.max([np.where(h, x, -np.inf) for h, x in zip(has, lg)], axis=0)
+    ex = [np.where(h, torch.exp(torch.from_numpy(np.where(h, x - mx, f32(0)))).numpy(), f32(0))
+          for h, x in zip(has, lg)]
+    den = np.zeros_like(ex[0])
+    for x in ex:
+        den = den + x
+    used = []
+    for i, (h, x) in enumerate(zip(has, ex)):
+        u = np.where(h, x / np.where(h, den, f32(1)), f32(0))
+        if keep is not None:
+            u = np.where(h, u * keep[:, i].reshape(b, rows, cols, heads), f32(0))
+        used.append(np.repeat(u, d, axis=-1))
+    out = np.zeros_like(q)
+    for i, (dr, dc) in enumerate(shifts):
+        out = out + used[i] * (shift(v, dr, dc) + e[i])
+    return out.reshape(b, rows * cols, heads * d)
+
+
+@pytest.mark.parametrize("heads,d,ndirs,dropout,itemsize", [
+    (8, 32, 4, True, 4), (8, 32, 4, False, 2), (1, 32, 8, False, 4), (24, 32, 4, True, 2),
+    (2, 16, 8, True, 4), (4, 8, 4, False, 2), (1, 1, 4, True, 4), (3, 6, 8, True, 4)])
+def test_k5_order_model_matches_the_plain_forward(heads, d, ndirs, dropout, itemsize):
+    """:func:`_k5_model` (K5's order of sums in the plan's layout: row bands
+    at d 32, tiles at d 16, 8, 1 and 6) on the 12 × 20 mask at batch 2
+    against ``grid_attn_plain``: equal value for value, as K5 is held to it
+    on the card, and within 1e-5 of the JAX package's ``grid_attn_apply``
+    (its Pallas kernel in interpret mode); masked pixels and the isolated
+    pixel exactly 0."""
+    q, k, v, _, e = _operands(heads, d, ndirs, heads * 5 + d + ndirs)
+    valid = (~_mask()).astype(np.float32).reshape(-1)
+    keep = None
+    if dropout:
+        rng = np.random.default_rng(6)
+        keep = ((rng.random((B, ndirs, P, heads)) < 0.9) / 0.9).astype(np.float32)
+    dims = tga.GridAttnDims(*SHAPE, heads, d, ndirs)
+    plan = tga.fwd_plan(dims, itemsize, B)
+    assert plan.walk == (d == 32)
+    mine = _k5_model(q, k, v, e, valid, keep, dims, plan)
+    assert mine.dtype == np.float32
+    plain = tga.grid_attn_plain(*(torch.from_numpy(x) for x in (q, k, v, e, valid)),
+                                None if keep is None else torch.from_numpy(keep), dims).numpy()
+    np.testing.assert_array_equal(mine, plain)
+    jdims = jga.GridAttnDims(*SHAPE, heads, d, ndirs, dropout)
+    for s in range(B):
+        ref = jga.grid_attn_apply(jnp.asarray(q[s]), jnp.asarray(k[s]), jnp.asarray(v[s]),
+                                  jnp.asarray(e), jnp.asarray(valid)[:, None],
+                                  None if keep is None else jnp.asarray(keep[s]), jdims)
+        np.testing.assert_allclose(mine[s], np.asarray(ref), rtol=0, atol=FWD_TOL)
+    out2d = mine.reshape(B, *SHAPE, -1)
+    assert not out2d[:, _mask()].any() and not out2d[:, ISOLATED[0], ISOLATED[1]].any()
 
 
 # ---------------------------------------------------------------- K6's plan
@@ -438,13 +777,6 @@ def _replay_bwd_plan(rows, cols, heads, d, ndirs, itemsize, batch):
                         cs = np.arange(max(0, c0 - halo), min(cols, c0 + w + halo))
                         np.add.at(n, (rr[:, None], cs[None, :]), 1)
     return out, kv_n, qg_n, soft, p
-
-
-def _covers(n, size, lo, hi):
-    """Per index of an axis of ``n``, how many of the ``size``-wide blocks
-    extended by ``lo`` before and ``hi`` after hold it."""
-    return np.array([sum(s - lo <= x < min(s + size, n) + hi for s in range(0, n, size))
-                     for x in range(n)])
 
 
 @pytest.mark.parametrize("itemsize", [4, 2])

@@ -519,39 +519,69 @@ def _grid_case(device, rows, cols, heads, d, ndirs, dropout, batch=2, dead_rows=
 
 # (rows, cols, heads, d, D, keep): H 256 (the flagship's gate stack, 8 × 32),
 # 32 and 1 (its head convs), D 4 and 8, cols 13 (column wrap, and not a
-# multiple of any K6 tile), d = 6, which takes K5's shared-memory head sums
-# instead of the shuffles (and K6's ragged 3-head group), and d = 64 > 32
-# (one head a K6 group, a 4 × 8 tile)
+# multiple of any K6 tile), d = 6, which takes K5's tiles with one lane
+# summing a head in feature order (and K6's ragged 3-head group), d = 64 >
+# 32 (one head a group, K5's tiles), and H 768 (the MH cells, 24 groups in
+# one launch) on a 37 × 45 grid, no multiple of a strip or a band
 GRID_CASES = [(224, 304, 8, 32, 4, False), (224, 304, 8, 32, 4, True),
               (224, 304, 1, 32, 4, False), (224, 304, 1, 1, 4, True),
               (11, 13, 8, 32, 8, True), (11, 13, 1, 32, 8, False), (11, 13, 1, 1, 8, True),
-              (11, 13, 3, 6, 4, True), (11, 13, 2, 4, 8, False), (11, 13, 2, 64, 4, True)]
+              (11, 13, 3, 6, 4, True), (11, 13, 2, 4, 8, False), (11, 13, 2, 64, 4, True),
+              (37, 45, 24, 32, 4, True), (37, 45, 3, 32, 8, False)]
+
+
+def _k5_holds(args):
+    """K5 on ``args`` by its plan (:func:`fwd_plan`: row bands at d 32, else
+    tiles) bit-identical to
+    ``grid_attn_plain``; a repeat and operands at an odd offset (read and
+    written a value at a time, in the same order of sums) give the same
+    bits; and with the first band (or tile row) and strip (or tile column)
+    masked whole, plus the row and column after them, every CTA there
+    stores zeros and the rest still agrees bit for bit. Returns K5's
+    output."""
+    from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
+
+    q, dims = args[0], args[6]
+    plan = grid_attn.fwd_plan(dims, q.element_size(), q.shape[0])
+    assert plan.walk == grid_attn.fwd_walks(dims.d), plan
+    out = grid_attn._grid_attn_fwd_cuda(*args)
+    plain = grid_attn.grid_attn_plain(*args)
+    assert torch.equal(out, plain), (plan, float((out.float() - plain.float()).abs().max()))
+    assert torch.equal(grid_attn._grid_attn_fwd_cuda(*args), out)
+    mis = tuple(_misaligned(x) for x in args[:3]) + args[3:]
+    assert torch.equal(grid_attn._grid_attn_fwd_cuda(*mis), out)
+    valid = args[4].clone().view(dims.rows, dims.cols)
+    valid[:plan.band + 1] = 0
+    valid[:, :plan.strip + 1] = 0
+    dead = args[:4] + (valid.view(-1),) + args[5:]
+    out = grid_attn._grid_attn_fwd_cuda(*dead)
+    assert torch.equal(out, grid_attn.grid_attn_plain(*dead)), plan
+    assert not out[:, valid.view(-1) == 0].any()
+    return grid_attn._grid_attn_fwd_cuda(*args)
 
 
 @pytest.mark.parametrize("rows,cols,heads,d,ndirs,dropout", GRID_CASES)
 def test_grid_attn_kernels_match_plain(card, rows, cols, heads, d, ndirs, dropout):
-    """K5 against ``grid_attn_plain`` (bit-identical where d divides 32, else
-    ≤1e-5) and K6 against autograd through it (≤1e-5 × max(1, max|grad|));
-    the isolated and the masked pixels aggregate exactly 0."""
+    """K5 bit-identical to ``grid_attn_plain`` at batch 2 (:func:`_k5_holds`:
+    a repeat, misaligned operands, a dead band and strip) and K6 against
+    autograd through it (≤1e-5 × max(1, max|grad|)); the isolated and the
+    masked pixels aggregate exactly 0; one launch of each a call."""
     from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
 
     args, gen = _grid_case(card, rows, cols, heads, d, ndirs, dropout)
     before = dict(grid_attn.LAUNCHES)
     out = grid_attn._grid_attn_fwd_cuda(*args)
-    plain = grid_attn.grid_attn_plain(*args)
-    if 32 % d == 0:  # K5 sums every head in _head_sum's tree: bit for bit
-        assert torch.equal(out, plain), float((out - plain).abs().max())
-    else:
-        torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"] + 1
+    assert torch.equal(_k5_holds(args), out)
     invalid = args[4] == 0
     assert not out[:, invalid].any() and not out[:, 3 * cols + 4].any()
     g = torch.randn(out.shape, device=card, generator=gen)
+    before = dict(grid_attn.LAUNCHES)
     kern = grid_attn._grid_attn_bwd_cuda(*args, g)
     plain = grid_attn.grid_attn_bwd_plain(*args, g)
     for name, a, p in zip(("dq", "dk", "dv", "de_dir"), kern, plain):
         err = float((a - p).abs().max())
         assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
-    assert grid_attn.LAUNCHES["grid_attn_apply"] == before["grid_attn_apply"] + 1
     assert grid_attn.LAUNCHES["grid_attn_apply_bwd"] == before["grid_attn_apply_bwd"] + 1
 
 
@@ -578,12 +608,12 @@ def test_grid_attn_backward_with_dead_tiles(card, heads, d, ndirs):
                                                    (1, 1, 4, True), (2, 16, 8, True),
                                                    (3, 6, 4, False)])
 def test_grid_attn_forward_on_ragged_and_masked_tiles(card, rows, cols, heads, d, ndirs, dropout):
-    """K5's tiles (8 × 8 at d 32, 8 × 32 at d 1; :func:`fwd_plan`) on grids
-    whose rows and columns are no multiple of a tile (21 × 45, 9 × 33) and
-    whose tiles end on the row's end, where a ±1 column shift must not wrap
-    to the next row (16 × 64); the top 8 rows are masked whole, so whole
-    tiles hold no valid pixel: bit-identical to ``grid_attn_plain`` where d
-    divides 32 (else ≤1e-5), and 0 at every masked pixel."""
+    """K5 by :func:`fwd_plan` (row bands at d 32, tiles at d 16, 1 and 6)
+    on grids whose rows and columns are no multiple of a strip, band or
+    tile (21 × 45, 9 × 33) and whose strips end on the row's end, where a
+    ±1 column shift must not wrap to the next row (16 × 64); the top 8 rows
+    are masked whole, so whole bands and tiles hold no valid pixel:
+    bit-identical to ``grid_attn_plain``, and 0 at every masked pixel."""
     from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
 
     args, _ = _grid_case(card, rows, cols, heads, d, ndirs, dropout, dead_rows=8)
@@ -591,10 +621,7 @@ def test_grid_attn_forward_on_ragged_and_masked_tiles(card, rows, cols, heads, d
     out = grid_attn._grid_attn_fwd_cuda(*args)
     assert grid_attn.LAUNCHES["grid_attn_apply"] == before + 1
     plain = grid_attn.grid_attn_plain(*args)
-    if 32 % d == 0:
-        assert torch.equal(out, plain), float((out - plain).abs().max())
-    else:
-        torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+    assert torch.equal(out, plain), float((out - plain).abs().max())
     assert not out[:, args[4] == 0].any() and not out[:, :8 * cols].any()
     assert out[:, 8 * cols:].any()
 
@@ -1130,33 +1157,29 @@ def test_attn_bf16_apply_through_autograd(card):
 def test_grid_attn_bf16_kernels_match_plain(card, rows, cols, heads, d, ndirs, dropout):
     """K5 and K6 in bf16 (bf16 q, k, v, e_dir, valid and cotangent; f32
     arithmetic in the f32 kernels' order; each output rounded once): K5
-    bit-identical to ``grid_attn_plain`` where d divides 32 (else within one
-    bf16 rounding × max(1, max|plain|)), K6 within one rounding of autograd
-    through it; the isolated and masked pixels aggregate 0. Misaligned q,
-    k, v and out take the scalar staging and give the same output bit for
-    bit; a repeat is bit-identical; the launches count as bf16."""
+    bit-identical to ``grid_attn_plain`` (:func:`_k5_holds`: a repeat,
+    misaligned operands, a dead band and strip), K6 within one rounding of
+    autograd through it, misaligned operands giving K6's bits too; the
+    isolated and masked pixels aggregate 0; the launches count as bf16."""
     from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
 
     args, gen = _grid_case(card, rows, cols, heads, d, ndirs, dropout)
     args = tuple(x.to(torch.bfloat16) if i < 5 else x for i, x in enumerate(args))
     grid_attn.reset_launch_counts()
     out = grid_attn._grid_attn_fwd_cuda(*args)
-    plain = grid_attn.grid_attn_plain(*args)
-    if 32 % d == 0:
-        assert torch.equal(out, plain), float((out.float() - plain.float()).abs().max())
-    _bf16_close(out, plain, f"K5 {heads}x{d}")
+    assert grid_attn.LAUNCHES_BF16["grid_attn_apply"] == 1
+    assert torch.equal(_k5_holds(args), out)
+    _bf16_close(out, grid_attn.grid_attn_plain(*args), f"K5 {heads}x{d}")
     invalid = args[4] == 0
     assert not out[:, invalid].any() and not out[:, 3 * cols + 4].any()
-    assert torch.equal(grid_attn._grid_attn_fwd_cuda(*args), out)
     mis = tuple(_misaligned(x) for x in args[:3]) + args[3:]
-    assert torch.equal(grid_attn._grid_attn_fwd_cuda(*mis), out)
     g = torch.randn(out.shape, device=card, generator=gen).to(torch.bfloat16)
     kern = grid_attn._grid_attn_bwd_cuda(*args, g)
     for name, a, p in zip(("dq", "dk", "dv", "de_dir"), kern,
                           grid_attn.grid_attn_bwd_plain(*args, g)):
         _bf16_close(a, p, f"K6 {name} {heads}x{d}")
     assert all(torch.equal(a, b) for a, b in zip(grid_attn._grid_attn_bwd_cuda(*mis, g), kern))
-    assert grid_attn.LAUNCHES_BF16 == {"grid_attn_apply": 3, "grid_attn_apply_bwd": 2}
+    assert grid_attn.LAUNCHES_BF16 == {"grid_attn_apply": 6, "grid_attn_apply_bwd": 2}
     assert grid_attn.LAUNCHES == {"grid_attn_apply": 0, "grid_attn_apply_bwd": 0}
 
 
@@ -1164,18 +1187,17 @@ def test_grid_attn_bf16_kernels_match_plain(card, rows, cols, heads, d, ndirs, d
 @pytest.mark.parametrize("heads,d,ndirs,dropout", [(8, 32, 4, True), (1, 32, 8, False),
                                                    (1, 1, 4, True), (3, 6, 4, False)])
 def test_grid_attn_bf16_on_ragged_and_masked_tiles(card, rows, cols, heads, d, ndirs, dropout):
-    """K5 and K6 in bf16 on grids that are no multiple of a tile, whose top
-    8 rows are masked whole (tiles without a valid pixel): K5 bit-identical
-    to its plain version where d divides 32 and 0 at every masked pixel, K6
-    within one bf16 rounding."""
+    """K5 and K6 in bf16 on grids that are no multiple of a strip, band or
+    tile, whose top 8 rows are masked whole (bands and tiles without a
+    valid pixel): K5 bit-identical to its plain version and 0 at every
+    masked pixel, K6 within one bf16 rounding."""
     from quadtree_mpnnlstm_tpu_torch.ops import grid_attn
 
     args, gen = _grid_case(card, rows, cols, heads, d, ndirs, dropout, dead_rows=8)
     args = tuple(x.to(torch.bfloat16) if i < 5 else x for i, x in enumerate(args))
     out = grid_attn._grid_attn_fwd_cuda(*args)
     plain = grid_attn.grid_attn_plain(*args)
-    if 32 % d == 0:
-        assert torch.equal(out, plain)
+    assert torch.equal(out, plain)
     _bf16_close(out, plain, f"K5 {rows}x{cols} {heads}x{d}")
     assert not out[:, args[4] == 0].any() and not out[:, :8 * cols].any()
     g = torch.randn(out.shape, device=card, generator=gen).to(torch.bfloat16)
