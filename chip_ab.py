@@ -52,7 +52,19 @@ against its plain version, repeated bit for bit, timed by CUDA graph and
 by events beside its bound, in bf16 the f32 kernel on the same operands,
 and split between K4's two kernels and the rest of the call by one
 ``torch.profiler`` pass (``k4_measure``); ``k4_means`` averages each
-path's sets by their calls, and ``--summarize`` prints them too. With ``--workload
+path's sets by their calls, and ``--summarize`` prints them too. With
+``--workload k3`` the window-attention forward K3 alone (``k3_sets``): on
+the first call at each width of a forecast (no keep) and of a train step
+(keep where it drops out) of the TransformerConv and MHTransformerConv
+models in f32 and bf16 (HD 128, 16, 1; 384, 48, 3) and of the
+ice-quadtree model in bf16 and f32 (HD 256, a T_out-90 forecast and a
+T_out-6 step), and at HD 768 on one ice-quadtree mesh with and without
+keep rows; each set at the call's whole width (a tree's head groups where
+it has them) against ``attn_plain``, repeated bit for bit, timed by CUDA
+graph and by events beside its bound, the plain version and, in bf16, the
+f32 kernel on the same operands, with the slots per distinct source of its
+32-row groups (``k3_measure``); then K4 at HD 768 a call in both dtypes
+(``k4_hd768``); ``k3_means`` averages each path's sets by their calls. With ``--workload
 k6`` the grid-attention backward K6 alone (``k6_sets``): on the operands of
 the sea-ice flagship's train steps as ``chip_smoke.py`` captures them (T_out
 6, with the dropout keep planes): the fused gate stacks in f32 (phase 14:
@@ -84,7 +96,7 @@ batch (default 16), ``--shared-mesh`` trains it on one mesh a step
 builds the quadtree paths' and the ice-quadtree model's edge lists
 without a sort (``bench.py --adjacency csum``; phase 56).
 
-    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2|k4|k5|k6]
+    python3 chip_ab.py [--workload quadtree|ice|ice-xla|ice-quadtree|k7|k2|k3|k4|k5|k6]
                        [--conv GCNConv|ChebConv|TransformerConv|MHTransformerConv|GATConv|GATv2Conv]
                        [--dtype float32|bfloat16]
                        [--remat none|full|mesh|dots] [--per-gate]
@@ -139,7 +151,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--workload", default="quadtree",
                         choices=("quadtree", "ice", "ice-xla", "ice-quadtree", "k7", "k2",
-                                 "k4", "k5", "k6"))
+                                 "k3", "k4", "k5", "k6"))
     parser.add_argument("--conv", choices=("GCNConv", "ChebConv", "TransformerConv",
                                                "MHTransformerConv", "GATConv", "GATv2Conv"),
                         help="time only this model of the quadtree paths (default: ChebConv "
@@ -167,8 +179,8 @@ def main() -> int:
                              "quadtree|ice-quadtree)")
     parser.add_argument("--tree", default=HERE)
     parser.add_argument("--summarize", nargs="+", metavar="RUN",
-                        help="print the k2_means, k4_means, k5_means or k6_means of "
-                             "earlier --workload k2, k4, k5 or k6 runs and exit")
+                        help="print the k2_means, k3_means, k4_means, k5_means or k6_means "
+                             "of earlier --workload k2, k3, k4, k5 or k6 runs and exit")
     parser.add_argument("--against",
                         help="an earlier --workload k2 run's output: hold this run's K2 and K2b "
                              "outputs to it bit for bit")
@@ -185,7 +197,7 @@ def main() -> int:
                      "(--workload ice|ice-xla)")
     if args.against and args.workload != "k2":
         parser.error("--against compares --workload k2 runs")
-    if args.conv and args.workload in ("ice-quadtree", "k7", "k2", "k4", "k5", "k6"):
+    if args.conv and args.workload in ("ice-quadtree", "k7", "k2", "k3", "k4", "k5", "k6"):
         parser.error(f"--workload {args.workload} has its own convolutions")
     if args.preset and (args.workload != "quadtree" or args.conv or args.per_gate):
         parser.error("--preset runs the experiments' own model (TransformerConv, fused gates, "
@@ -232,6 +244,8 @@ def main() -> int:
         _time_k7(cs, args, run_dir.name, result)
     elif args.workload == "k2":
         _time_k2(cs, args, run_dir.name, result)
+    elif args.workload == "k3":
+        _time_k3(cs, args, run_dir.name, result)
     elif args.workload == "k4":
         _time_k4(cs, args, run_dir.name, result)
     elif args.workload == "k5":
@@ -379,20 +393,24 @@ def k2_measure(cs, spmm, name: str, kernel: str, calls: int, args) -> dict:
 
 
 def _last_run(path: str) -> dict:
-    """The last JSON line with ``k2_sets``, ``k4_sets``, ``k5_sets`` or
-    ``k6_sets`` of a ``--workload k2``, ``k4``, ``k5`` or ``k6`` run's
-    output."""
+    """The last JSON line with ``k2_sets``, ``k3_sets``, ``k4_sets``,
+    ``k5_sets`` or ``k6_sets`` of a ``--workload k2``, ``k3``, ``k4``,
+    ``k5`` or ``k6`` run's output."""
     with open(path) as fh:
         return next(json.loads(ln) for ln in reversed(fh.read().splitlines())
                     if ln.startswith("{")
-                    and any(f'"{k}_sets"' in ln for k in ("k2", "k4", "k5", "k6")))
+                    and any(f'"{k}_sets"' in ln for k in ("k2", "k3", "k4", "k5", "k6")))
 
 
 def _means(run: dict) -> dict:
-    """A run's launch-weighted means: ``k2_means``, ``k4_means``,
-    ``k5_means`` (by ``k6_means``) or ``k6_means``."""
+    """A run's launch-weighted means: ``k2_means``, ``k3_means`` (with
+    ``k4_hd768``), ``k4_means``, ``k5_means`` (by ``k6_means``) or
+    ``k6_means``."""
     if "k2_sets" in run:
         return k2_means(run["k2_sets"])
+    if "k3_sets" in run:
+        return dict(k3_means(run["k3_sets"]),
+                    k4_hd768={r["set"]: r["ms"] for r in run["k4_hd768"]})
     if "k4_sets" in run:
         return k4_means(run["k4_sets"])
     return k6_means(run["k5_sets"] if "k5_sets" in run else run["k6_sets"])
@@ -608,6 +626,224 @@ def _time_k4(cs, args, run_dir: str, result: dict) -> None:
     result["k4_means"] = k4_means(rows)
 
 
+
+def k3_reuse(attn, meta, dims, rows: int = 32) -> dict:
+    """How often a 32-row group's slots name the same source: live slots
+    (a visible row, a source in the window) over the distinct (group,
+    source) pairs, over the batch's meshes (host-side, from the windows)."""
+    import torch
+
+    dst, src = attn.slot_nodes(meta, dims)
+    ok = (dst >= 0) & (src >= 0)
+    b = torch.arange(dst.shape[0], device=dst.device)[:, None].expand_as(dst)
+    groups = -(-dims.n_max // rows)
+    key = ((b * groups + dst // rows) * (dims.n_max + 1) + src)[ok]
+    slots, distinct = int(ok.sum()), int(torch.unique(key).numel())
+    return dict(rows=rows, slots=slots, distinct=distinct,
+                slots_per_source=slots / max(1, distinct))
+
+
+def _k3_full_width(attn):
+    """K3 on a call's whole width as the tree's ``AttnApply`` runs it: one
+    launch, or the tree's head groups (a launch a group on column copies)."""
+    if hasattr(attn, "attn_fwd_by_groups"):
+        return lambda *a: attn.attn_fwd_by_groups(attn._attn_fwd_cuda, *a)
+    return attn._attn_fwd_cuda
+
+
+def _k4_full_width(attn):
+    """K4 likewise (:func:`_k3_full_width`)."""
+    if hasattr(attn, "attn_bwd_by_groups"):
+        return lambda *a: attn.attn_bwd_by_groups(attn._attn_bwd_cuda, *a)
+    return attn._attn_bwd_cuda
+
+
+def k3_measure(cs, attn, name: str, calls: int, args) -> dict:
+    """One K3 operand set at the call's whole width: the kernel against
+    ``attn_plain`` (f32 within ``K3_TOL``, bf16 within one rounding ×
+    max(1, max|plain|)), repeated bit for bit; graph and event times beside
+    the bound, the plain version's time, in bf16 the f32 kernel on the same
+    operands; the slots per distinct source of its 32-row groups, the
+    launches a call, the plan where the tree has one and the digests."""
+    import torch
+
+    q, keep, meta, dims = args[0], args[4], args[5], args[6]
+    bf16 = q.dtype == torch.bfloat16
+    fwd = _k3_full_width(attn)
+    counts = attn.LAUNCHES_BF16 if bf16 else attn.LAUNCHES
+    with torch.no_grad():
+        before = counts["attn_apply"]
+        kern = fwd(*args)
+        launches = counts["attn_apply"] - before
+        plain, again = attn.attn_plain(*args), fwd(*args)
+    err = float((kern.float() - plain.float()).abs().max())
+    scale = max(1.0, float(plain.float().abs().max()))
+    cs.check(err <= (cs.BF16_TOL * scale if bf16 else cs.K3_TOL),
+             f"{name}: K3 differs from its plain version by {err}")
+    repeat = torch.equal(kern, again)
+    cs.check(repeat, f"{name}: two K3 launches differ")
+    bound, b_ms, o_ms = cs.attn_bound_ms(attn, args, False)
+    row = dict(set=name, dtype=str(q.dtype).replace("torch.", ""), batch=q.shape[0],
+               HD=q.shape[-1], heads=dims.heads, d=dims.d, calls=calls, keep=keep is not None,
+               live_tiles=int(meta.live.long().sum()), launches_per_call=launches,
+               max_abs_err=err, err_rel_to_max=err / scale, repeat_bit_identical=repeat,
+               ms=cs.graph_ms(lambda: fwd(*args)), events_ms=cs.cuda_ms(lambda: fwd(*args)),
+               plain_ms=cs.cuda_ms(lambda: attn.attn_plain(*args)), bound_ms=bound,
+               bytes_ms=b_ms, ops_ms=o_ms, bound_by="bytes" if b_ms >= o_ms else "operations",
+               reuse=k3_reuse(attn, meta, dims),
+               plan=attn.fwd_plan(dims, q.element_size())._asdict(),
+               input_sha=_digest(*(x for x in args if torch.is_tensor(x)), *meta),
+               output_sha=_digest(kern))
+    if bf16:
+        f32_args = tuple(x.float() if torch.is_tensor(x) and x.dtype == torch.bfloat16 else x
+                         for x in args)
+        row["f32_ms"] = cs.graph_ms(lambda: fwd(*f32_args))
+    return row
+
+
+def k4_call_row(cs, attn, name: str, args) -> dict:
+    """K4 on one call's whole width (:func:`_k4_full_width`) against
+    ``attn_bwd_plain`` (f32 within ``K4_TOL`` × max(1, max|grad|), bf16
+    within one rounding), repeated bit for bit; graph and event times
+    beside the bound and the launches a call."""
+    import torch
+
+    q = args[0]
+    bf16 = q.dtype == torch.bfloat16
+    bwd = _k4_full_width(attn)
+    counts = attn.LAUNCHES_BF16 if bf16 else attn.LAUNCHES
+    before = counts["attn_apply_bwd"]
+    kern = bwd(*args)
+    launches = counts["attn_apply_bwd"] - before
+    plain, again = attn.attn_bwd_plain(*args), bwd(*args)
+    names = ("dq", "dk", "dv", "dwe")
+    rel = {n: float((a.float() - p.float()).abs().max()) / max(1.0, float(p.float().abs().max()))
+           for n, a, p in zip(names, kern, plain)}
+    cs.check(max(rel.values()) <= (cs.BF16_TOL if bf16 else cs.K4_TOL),
+             f"{name}: K4 differs from its plain version: {rel}")
+    repeat = all(torch.equal(a, b) for a, b in zip(kern, again))
+    cs.check(repeat, f"{name}: two K4 calls differ")
+    bound, b_ms, o_ms = cs.attn_bound_ms(attn, args, True)
+    return dict(set=name, kernel="attn_apply_bwd", dtype=str(q.dtype).replace("torch.", ""),
+                HD=q.shape[-1], calls=1, keep=args[4] is not None, launches_per_call=launches,
+                err_rel_to_max=rel, repeat_bit_identical=repeat,
+                ms=cs.graph_ms(lambda: bwd(*args)), events_ms=cs.cuda_ms(lambda: bwd(*args)),
+                bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms,
+                output_sha=_digest(*kern))
+
+
+def k3_means(rows: list) -> dict:
+    """Per path (a set's name without its width), each number of its sets
+    averaged with the sets' calls as weights: graph and event times, the
+    bound, the plain version, the f32 kernel on the same operands and the
+    slots per distinct source."""
+    groups = {}
+    for r in rows:
+        groups.setdefault(r["set"].rsplit("_HD", 1)[0], []).append(r)
+    out = {}
+    for key, rs in groups.items():
+        n = sum(r["calls"] for r in rs)
+        out[key] = {"calls": n, "widths": [r["HD"] for r in rs]}
+        for k in ("ms", "events_ms", "bound_ms", "plain_ms", "f32_ms"):
+            if all(r.get(k) is not None for r in rs):
+                out[key][k] = sum(r["calls"] * r[k] for r in rs) / n
+        if all("reuse" in r for r in rs):
+            out[key]["slots_per_source"] = sum(r["calls"] * r["reuse"]["slots_per_source"]
+                                               for r in rs) / n
+    return out
+
+
+def _time_k3(cs, args, run_dir: str, result: dict) -> None:
+    """K3 per operand set (``k3_sets``): the first call at each width of a
+    forecast (no keep) and of a train step (keep windows where the step
+    drops out) of ``bench.py``'s TransformerConv model (phases 9-12, 31-34)
+    and MHTransformerConv model (phase 46: HD 384, 48, 3), each in f32 and
+    bf16, and of the ice-quadtree model (phase 42: HD 256; a T_out-90
+    forecast, a T_out-6 full-BPTT step) in bf16 and f32, each weighted by
+    its run's calls at that width; then HD 768 (24 heads × d 32, phase
+    49's operands on one ice-quadtree mesh) with keep rows a head and
+    without, in both dtypes, a call each, and K4 at HD 768 a call
+    (``k4_hd768``)."""
+    import torch
+
+    from quadtree_mpnnlstm_tpu_torch.data.moving_mnist import ModMovingMNISTDataset
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    ds = ModMovingMNISTDataset(
+        cs.BATCH, input_timesteps=cs.T_IN, output_timesteps=cs.T_OUT, canvas_size=cs.CANVAS,
+        digit_size=cs.DIGIT, pixel_noise=0.02, velocity_noise=0.0, seed=args.seed)
+    x = torch.as_tensor(ds.x, device=cs.DEVICE)
+    rows = []
+
+    def measure(path, fwd_cap, step_cap):
+        for kind, cap in (("forecast", fwd_cap), ("train", step_cap)):
+            for hd, a in sorted(cap.first.items()):
+                rows.append(k3_measure(cs, attn, f"{path}_{kind}_HD{hd}", cap.per_width[hd], a))
+                print(json.dumps(rows[-1]), flush=True)
+
+    for conv, n, forcing in (("TransformerConv", cs.TRAIN_STEPS + 1, 0.0),
+                             ("MHTransformerConv", 2, 0.5)):
+        batch = cs.train_batches(args.seed, n)[1][0]
+        for dtype in ("float32", "bfloat16"):
+            model = cs.make_model(args.seed, run_dir, conv, dtype=dtype)
+            with cs.CaptureBwd(attn, "_attn_fwd_cuda") as fwd_cap:
+                model.forecast(x)
+            del model
+            trainer = cs.make_trainer(args.seed, run_dir, conv, dtype=dtype,
+                                      teacher_forcing_ratio=forcing)
+            with cs.CaptureBwd(attn, "_attn_fwd_cuda") as step_cap:
+                trainer.train_step(*batch)
+            del trainer
+            measure(f"{conv}_{dtype}", fwd_cap, step_cap)
+            del fwd_cap, step_cap
+            torch.cuda.empty_cache()
+    data, clim, mask = cs.ice_data(args.seed)
+    x0, y0 = data.x[:1], data.y[:1]
+    for dtype in ("bfloat16", "float32"):
+        model = cs.make_ice_quadtree_model(args.seed, run_dir, dtype=dtype)
+        c = model._clim_batch(clim, data.launch_dates[:1])
+        with cs.CaptureBwd(attn, "_attn_fwd_cuda") as fwd_cap:
+            model.forecast(x0, mask=mask, climatology=c)
+        del model
+        short = cs.make_ice_quadtree_model(args.seed, run_dir, t_out=cs.ICE_SHORT_T_OUT,
+                                           dtype=dtype)
+        short.initiate_training(lr=cs.LR, lr_decay=0.95)
+        with cs.CaptureBwd(attn, "_attn_fwd_cuda") as step_cap:
+            short.train_step(x0, y0[:, :cs.ICE_SHORT_T_OUT], mask=mask,
+                             climatology=c[:, :cs.ICE_SHORT_T_OUT],
+                             truncated_backprop=cs.ICE_TBPTT)
+        del short
+        measure(f"ice_quadtree_{dtype}", fwd_cap, step_cap)
+        del fwd_cap, step_cap
+        torch.cuda.empty_cache()
+    # HD 768 on one ice-quadtree mesh (phase 49's operands)
+    bf16 = torch.bfloat16
+    quad = cs.make_ice_quadtree_model(args.seed, run_dir)
+    graph, _ = quad.model._graph(torch.as_tensor(x0, device=cs.DEVICE).to(bf16),
+                                 torch.as_tensor(mask, device=cs.DEVICE))
+    g = quad.gcfg
+    del quad
+    dims = attn.AttnDims(g.n_max, g.agg_nt, g.agg_eb, g.agg_sw, 24, 32)
+    meta = graph.attn_meta
+    gen = torch.Generator(cs.DEVICE).manual_seed(args.seed)
+    qkv = [torch.randn(1, g.n_max, 768, device=cs.DEVICE, generator=gen) for _ in range(4)]
+    we = torch.randn(meta.attr.shape[-1], 768, device=cs.DEVICE, generator=gen)
+    keep = ((torch.rand(1, meta.s0.shape[1], 24, g.agg_eb, device=cs.DEVICE, generator=gen)
+             < 0.9).float() / 0.9)
+    k4_rows = []
+    for dtype in ("float32", "bfloat16"):
+        cast = (lambda t: t.to(bf16)) if dtype == "bfloat16" else (lambda t: t)
+        q, k, v, cot = (cast(t) for t in qkv)
+        for kp, kind in ((None, "forecast"), (keep, "train")):
+            rows.append(k3_measure(cs, attn, f"hd768_{dtype}_{kind}_HD768", 1,
+                                   (q, k, v, cast(we), kp, meta, dims)))
+            print(json.dumps(rows[-1]), flush=True)
+        k4_rows.append(k4_call_row(cs, attn, f"hd768_{dtype}_train_HD768",
+                                   (q, k, v, cast(we), keep, meta, dims, cot, graph.slot_view)))
+        print(json.dumps(k4_rows[-1]), flush=True)
+    result["k3_sets"] = rows
+    result["k3_means"] = k3_means(rows)
+    result["k4_hd768"] = k4_rows
 
 def _k6_full_width(grid_attn):
     """K6 on a call's whole width, as the tree's ``GridAttnApply`` runs it:

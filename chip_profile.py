@@ -22,7 +22,7 @@ package's default conv, with ``--conv MHTransformerConv``, ``GATConv`` or
 ``GATv2Conv`` those convs), or with ``--workload ice`` its sea-ice flagship
 (one 224×304 pixelwise forecast of 10 → 90 days, TransformerConv, or
 with ``--conv GCNConv`` the JAX package's experiment 1, with ``--conv
-MHTransformerConv`` the attention kernels by head groups, with climatology,
+MHTransformerConv`` the attention kernels at H 768, with climatology,
 batch 1); ``--dtype bfloat16`` runs any of them in bf16, ``bench.py``'s
 default; or with ``--workload ice-xla`` the same model on the pixelwise
 edge list (training with truncated BPTT of 30 steps, full BPTT under

@@ -339,10 +339,10 @@ kernel's launches as read from the code (``expected_*_launches``):
    width (bf16 and f32), K6 on a T_out-6 step's cotangents (one bf16
    rounding; ≤1e-5 × max(1, max|g|) in f32), bit-identical on a repeat,
    one launch a call each;
-   K3/K4 at HD 768 (24 heads × 32 in 2 groups) on one ice-quadtree mesh
-   with operands, keep windows and a cotangent from ``--seed``, ≤1e-5
-   (one rounding in bf16), 2 launches a call; all timed beside their
-   bounds and plain versions.
+   K3/K4 at HD 768 (24 heads × 32, slices of heads) on one ice-quadtree
+   mesh with operands, keep windows and a cotangent from ``--seed``,
+   ≤1e-5 (one rounding in bf16), one launch a call each, K3 bit-identical
+   on a repeat; all timed beside their bounds and plain versions.
 
 ROADMAP Queue 1 item 8 and the baselines (phases 50-54), each kernel's
 launches as read from the code (``expected_preset_launches``,
@@ -3928,8 +3928,7 @@ def add_gcn_paths(entries, gcn: dict, dtype: str) -> None:
 # 7, on bench.py's model (--conv MHTransformerConv, GATConv, GATv2Conv; the
 # GRU, shared-conv, split and dummy cells with ChebConv), then
 # MHTransformerConv at the sea-ice widths (bench.py --workload ice --conv
-# MHTransformerConv), where K3/K4 run by head groups and K5/K6 take H 768
-# in one launch.
+# MHTransformerConv), where K3/K4 and K5/K6 take HD/H 768 in one launch.
 MH_REMAT_MODES = ("none", "full")
 CELL_VARIANTS = {"GRU": dict(rnn_type="GRU"),
                  "GRU-per_gate": dict(rnn_type="GRU", fused_gates=False),
@@ -4048,8 +4047,7 @@ def expected_ice_mh_launches(cfg, train: bool) -> dict:
 def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_sum,
                  loader, x) -> dict:
     """Phases 46-49; returns what the kernels line adds: K3/K4 rows at the
-    MH widths and at HD 768 by head groups, K5/K6 rows at H 768 (one
-    launch), K7 rows on GAT's self-loop sets, and each new path's
+    MH widths and at HD 768, K5/K6 rows at H 768 (each one launch), K7 rows on GAT's self-loop sets, and each new path's
     launches."""
     import torch
 
@@ -4523,15 +4521,14 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
     del bwd_args
     torch.cuda.empty_cache()
-    # K3/K4 at HD 768 (24 heads × d 32 in 2 groups of whole heads) on one
-    # ice-quadtree mesh, operands and cotangent from the seed
+    # K3/K4 at HD 768 (24 heads × d 32, one launch a call: the plans cut a
+    # row into slices of heads) on one ice-quadtree mesh, operands and
+    # cotangent from the seed
     quad = make_ice_quadtree_model(seed, run_dir.name)
     graph, _ = quad.model._graph(torch.as_tensor(x0, device=DEVICE).to(bf16),
                                  torch.as_tensor(mask, device=DEVICE))
     g = quad.gcfg
     del quad
-    hd_groups = len(attn.head_groups(24, 32, attn.MAX_HD))
-    check(hd_groups == 2, f"HD 768 runs in {hd_groups} head groups, expected 2")
     dims = attn.AttnDims(g.n_max, g.agg_nt, g.agg_eb, g.agg_sw, 24, 32)
     meta = graph.attn_meta
     gen = torch.Generator(DEVICE).manual_seed(seed)
@@ -4546,29 +4543,32 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
         fargs = (q, k, v, cast(we), keep, meta, dims)
         reset()
         with torch.no_grad():
-            kern = attn.attn_fwd_by_groups(attn._attn_fwd_cuda, *fargs)
-        launched = launch_totals(modules)["attn_apply"]
-        check(launched == hd_groups, f"K3 at HD 768 launched {launched}, not {hd_groups}")
+            kern = attn._attn_fwd_cuda(*fargs)
+            launched = launch_totals(modules)["attn_apply"]
+            check(launched == 1, f"K3 at HD 768 launched {launched}, not once")
+            check(torch.equal(attn._attn_fwd_cuda(*fargs), kern),
+                  f"two launches of K3 at HD 768 ({dtype}) differ")
         plain = attn.attn_plain(*fargs)
         if dtype == "bfloat16":
             err = _bf16_err(kern, plain, "K3 at HD 768")[0]
         else:
             err = float((kern - plain).abs().max())
-            check(err <= K3_TOL, f"K3 at HD 768 by groups differs from attn_plain: {err}")
+            check(err <= K3_TOL, f"K3 at HD 768 differs from attn_plain: {err}")
         bound, b_ms, o_ms = attn_bound_ms(attn, fargs, backward=False)
         k34_rows.append(dict(
-            kernel="attn_apply", HD=768, groups=hd_groups, dtype=dtype, keep=True,
-            max_abs_err=err, launches_per_call=launched,
+            kernel="attn_apply", HD=768, dtype=dtype, keep=True,
+            max_abs_err=err, launches_per_call=launched, repeat_bit_identical=True,
             live_tiles=int(meta.live.long().sum()),
-            ms=graph_ms(lambda: attn.attn_fwd_by_groups(attn._attn_fwd_cuda, *fargs)),
-            events_ms=cuda_ms(lambda: attn.attn_fwd_by_groups(attn._attn_fwd_cuda, *fargs)),
+            plan=attn.fwd_plan(dims, q.element_size())._asdict(),
+            ms=graph_ms(lambda: attn._attn_fwd_cuda(*fargs)),
+            events_ms=cuda_ms(lambda: attn._attn_fwd_cuda(*fargs)),
             plain_ms=cuda_ms(lambda: attn.attn_plain(*fargs)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
         bargs = fargs + (cot, graph.slot_view)
         reset()
-        kern = attn.attn_bwd_by_groups(attn._attn_bwd_cuda, *bargs)
+        kern = attn._attn_bwd_cuda(*bargs)
         launched = launch_totals(modules)["attn_apply_bwd"]
-        check(launched == hd_groups, f"K4 at HD 768 launched {launched}, not {hd_groups}")
+        check(launched == 1, f"K4 at HD 768 launched {launched}, not once")
         plain = attn.attn_bwd_plain(*bargs)
         if dtype == "bfloat16":
             errs = {n: _bf16_err(a, b, f"K4 {n} at HD 768")
@@ -4579,14 +4579,15 @@ def item7_phases(seed: int, card: str, spmm, attn, grid_attn, segment, segment_s
                 e = float((a - b).abs().max())
                 errs[n] = (e, e / max(1.0, float(b.abs().max())))
             check(max(e[1] for e in errs.values()) <= K4_TOL,
-                  f"K4 at HD 768 by groups differs from its plain backward: {errs}")
+                  f"K4 at HD 768 differs from its plain backward: {errs}")
         bound, b_ms, o_ms = attn_bound_ms(attn, bargs, backward=True)
         k34_rows.append(dict(
-            kernel="attn_apply_bwd", HD=768, groups=hd_groups, dtype=dtype, keep=True,
+            kernel="attn_apply_bwd", HD=768, dtype=dtype, keep=True,
             err_rel_to_max={n: e[1] for n, e in errs.items()},
             max_abs_err=max(e[0] for e in errs.values()), launches_per_call=launched,
-            ms=graph_ms(lambda: attn.attn_bwd_by_groups(attn._attn_bwd_cuda, *bargs)),
-            events_ms=cuda_ms(lambda: attn.attn_bwd_by_groups(attn._attn_bwd_cuda, *bargs)),
+            plan=attn.bwd_plan(dims, q.element_size())._asdict(),
+            ms=graph_ms(lambda: attn._attn_bwd_cuda(*bargs)),
+            events_ms=cuda_ms(lambda: attn._attn_bwd_cuda(*bargs)),
             plain_ms=cuda_ms(lambda: attn.attn_bwd_plain(*bargs)),
             bound_ms=bound, bytes_ms=b_ms, ops_ms=o_ms))
     del graph, meta, qkv, we, keep
@@ -4609,7 +4610,7 @@ def add_item7_paths(f32_entries, bf16_entries, item7: dict) -> None:
     """Adds phases 46-49 to the kernels line: each kernel's launches on the
     new paths (a forecast batch and a train step, remat none; bf16 entries
     count their bf16 launches), K3's and K4's rows at the MH widths
-    (``mh_by_width``) and at HD 768 by head groups (``hd768_by_groups``),
+    (``mh_by_width``) and at HD 768 in one launch (``hd768``),
     K5's and K6's at H 768 in one launch (``hd768``) and K7's on GAT's
     self-loop sets (``by_operand_set``, path ``gat``)."""
     mh, gat, cells, ice = item7["mh"], item7["gat"], item7["cells"], item7["ice_mh"]
@@ -4648,8 +4649,8 @@ def add_item7_paths(f32_entries, bf16_entries, item7: dict) -> None:
                 add("ice_mh_train_step", ice["train"])
             if name in ("attn_apply", "attn_apply_bwd"):
                 entry["mh_by_width"] = mh["k3" if name == "attn_apply" else "k4"][dtype]
-                entry["hd768_by_groups"] = [r for r in ice["k34"]
-                                            if r["kernel"] == name and r["dtype"] == dtype]
+                entry["hd768"] = [r for r in ice["k34"]
+                                  if r["kernel"] == name and r["dtype"] == dtype]
             if name in ("grid_attn_apply", "grid_attn_apply_bwd"):
                 entry["hd768"] = [r for r in ice["k5" if name == "grid_attn_apply" else "k6"]
                                   if r["dtype"] == dtype]

@@ -55,7 +55,10 @@
 //     features of q, k, v, We and out (float4 loads and stores where
 //     d % 4 == 0). At d 16 a head is 4 lanes x 4 features, so a warp holds
 //     one row at HD 128, 8 rows at HD 16 and 32 rows at HD 1; at 8 x d 32
-//     a head is 4 lanes x 8 features.
+//     a head is 4 lanes x 8 features. A row wider than a warp's lanes
+//     takes several slices, so any heads.d runs in one launch on the
+//     full-width operands (HD 768 as 24 x d 32: two slices of 16 heads of
+//     2 lanes x 16 features).
 //   - The edge term is folded: q . (k + e) = q . k + sum_a attr_a (q . We_a)
 //     and sum_j w_j (v_j + e_j) = sum_j w_j v_j + sum_a (sum_j w_j attr_ja)
 //     We_a, so a slot costs RUN + A multiply-adds a lane on each side, not
@@ -570,7 +573,7 @@ bool bad_plan(int B, int meta_b, int T, int EB, int NT, int n_max, int H, int D,
               bool keep, int run, int lanes_head, int heads_item, int lanes_item, int slices,
               int warps, int rows, int chunk) {
   return B < 0 || (meta_b != B && meta_b != 1) || T < 0 || EB < 1 || NT < 1 || n_max < 1 ||
-         A < 1 || A > kMaxA || H < 1 || D < 1 || H * D > 512 || KH < 0 || KH > H ||
+         A < 1 || A > kMaxA || H < 1 || D < 1 || KH < 0 || KH > H ||
          (KH == 0) == keep || !fwd_instance(run, chunk) || !pow2(lanes_head) ||
          lanes_head > 32 || lanes_head * run < D || heads_item < 1 || !pow2(lanes_item) ||
          lanes_item > 32 || heads_item * lanes_head > lanes_item || slices < 1 ||

@@ -24,13 +24,12 @@ batch 1 for q, k, v of batch B: both kernels read them, and their slot
 view, for every sample (a metadata batch stride of 0, no copy), and the
 plain versions expand them. Dispatch is by device: a CUDA tensor launches the kernel (and
 raises if it cannot be built or launched); a CPU tensor runs the plain
-version. Above :data:`MAX_HD` features the kernels run once per group of
-whole heads (:func:`head_groups`: the fewest groups that fit, each on its
-heads' columns); heads are independent, so the groups' outputs side by
-side are the call's. Each kernel launch, each group's too, adds one to
-:data:`LAUNCHES` (a bf16 launch to :data:`LAUNCHES_BF16`). K3's launch
-geometry is :func:`fwd_plan`'s and K4's :func:`bwd_plan`'s, pure functions
-of the widths.
+version. Both kernels take any heads·d up to :data:`MAX_HD` in one launch
+on the full-width operands: their plans cut a row into slices of heads
+(no column copies). Each kernel launch adds one to :data:`LAUNCHES` (a
+bf16 launch to :data:`LAUNCHES_BF16`). K3's launch geometry is
+:func:`fwd_plan`'s and K4's :func:`bwd_plan`'s, pure functions of the
+widths.
 
 q, k, v and Wₑ (and the cotangent) are float32 or bfloat16, all four in
 one dtype; the window attributes and ``keep`` stay float32. In bf16 both
@@ -70,9 +69,12 @@ from quadtree_mpnnlstm_tpu_torch.ops.segment_sum import (
 LAUNCHES = {"attn_apply": 0, "attn_apply_bwd": 0}
 LAUNCHES_BF16 = dict(LAUNCHES)
 
-# feature width and attribute columns both kernels accept (csrc/attn.cuh:
-# H * D <= 512, kMaxA)
-MAX_HD = 512
+# the widths both kernels accept: heads·d (every width the port runs, 768
+# at most, with room; a row wider than a warp takes several slices of heads
+# in the same launch), a head's d (32 lanes of 16 features) and the
+# attribute columns (csrc/attn.cuh kMaxA)
+MAX_HD = 1024
+MAX_D = 512
 MAX_A = 4
 # K3 and K4: the compiled (run, chunk) pairs — features a lane holds, slots
 # it holds in flight (csrc/attn.cuh fwd_instance); warps a CTA at most
@@ -187,8 +189,9 @@ def fwd_plan(dims: AttnDims, itemsize: int = 4) -> FwdPlan:
     """K3's CTA geometry for these widths and ``itemsize``-byte operands
     (4: f32, 2: bf16). A head takes ``lanes_head`` lanes
     of ``run`` features (d 16: 4 × 4; d 32 at 8 heads: 4 × 8; d 1: one lane),
-    a row's heads share a warp where they fit (slices of heads where they do
-    not), and narrow rows pack a warp (HD 128: 2 rows, HD 16: 8, HD 1: 32).
+    a row's heads share a warp where they fit (slices of heads, in the same
+    launch, where they do not: HD 768 as 24 × d 32 is two slices of 16
+    heads), and narrow rows pack a warp (HD 128: 2 rows, HD 16: 8, HD 1: 32).
     A row group is 32 rows (64 at 32 rows a warp; fewer when a row takes
     several items), so that a 128-row live tile gives 2–4 groups; a CTA
     runs it with up to 8 warps (HD 128: 2 passes of 16 rows). The geometry
@@ -229,7 +232,8 @@ def _bwd_run(heads: int, d: int, itemsize: int) -> int:
     where d allows it, so that two rows share a warp (8 heads × d 32: runs
     of 16, 16 lanes a row), or, where runs of 16 leave a warp to several
     heads of one lane each, runs of 8 with four slots in flight and the
-    heads in slices (24 heads × d 16: two slices of 16 heads)."""
+    heads in slices (24 heads × d 16: two slices of 16 heads; 24 × d 32:
+    three slices of 8)."""
     run = _fwd_run(heads, d)
     lanes = lambda r: _pow2ceil(-(-d // r))  # noqa: E731
     if itemsize == 2 and run == 4 and d % 8 == 0 and lanes(8) <= 32:
@@ -246,7 +250,7 @@ def _bwd_run(heads: int, d: int, itemsize: int) -> int:
 def bwd_plan(dims: AttnDims, itemsize: int = 4) -> FwdPlan:
     """K4's CTA geometry (csrc/attn_bwd.cuh ``attn_bwd_kernel`` and
     ``attn_bwd_src_kernel``) for these widths and ``itemsize``-byte
-    operands, in :class:`FwdPlan`'s fields. K3's lane layout (a head takes
+    operands, in :class:`FwdPlan`'s fields. Lanes over heads (a head takes
     ``lanes_head`` lanes of ``run`` features, narrow rows pack a warp), with
     bf16 runs of 8 where d allows (:func:`_bwd_run`: HD 16 packs 16 rows a
     warp in bf16, 8 in f32). A unit of the first kernel is a 32-row group
@@ -456,9 +460,9 @@ def _launch_args(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, source: str)
     spmm.check_meta_batch(bm, b)
     a = meta.attr.shape[-1]
     hd = heads * d
-    if not 1 <= hd <= MAX_HD or not 1 <= a <= MAX_A:
-        raise ValueError(f"attention kernels take 1 ≤ heads·d ≤ {MAX_HD} and 1 ≤ A ≤ {MAX_A}; "
-                         f"got heads·d={hd}, A={a}")
+    if not 1 <= hd <= MAX_HD or not 1 <= d <= MAX_D or not 1 <= a <= MAX_A:
+        raise ValueError(f"attention kernels take 1 ≤ heads·d ≤ {MAX_HD}, 1 ≤ d ≤ {MAX_D} "
+                         f"and 1 ≤ A ≤ {MAX_A}; got heads={heads}, d={d}, A={a}")
     if q.dtype not in spmm.KERNEL_DTYPES:
         raise TypeError(f"attention kernels take float32 or bfloat16 q, not {q.dtype}")
     check = spmm._check
@@ -562,76 +566,13 @@ def _attn_bwd_cuda(q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g, view=No
     return dq, dk, dv, dwe
 
 
-# ------------------------------------------------------- head groups
-
-
-def head_groups(heads: int, d: int, limit: int) -> Tuple[Tuple[int, int], ...]:
-    """The fewest groups of whole heads whose width (heads · d) is at most
-    ``limit``, as even as the count allows, as (first head, end) pairs in
-    head order: one group, (0, heads), where heads·d fits. A head wider
-    than ``limit`` raises."""
-    if not 1 <= d <= limit:
-        raise ValueError(f"a head of d={d} features is wider than the kernels' {limit}")
-    n = -(-heads // (limit // d))
-    size, extra = divmod(heads, n)
-    ends = [(i + 1) * size + min(i + 1, extra) for i in range(n)]
-    return tuple(zip([0] + ends[:-1], ends))
-
-
-def _group(x: Optional[torch.Tensor], h0: int, h1: int, d: int) -> Optional[torch.Tensor]:
-    """Columns [h0·d, h1·d) of x's last axis, contiguous."""
-    return None if x is None else x[..., h0 * d:h1 * d].contiguous()
-
-
-def _group_keep(keep: Optional[torch.Tensor], h0: int, h1: int) -> Optional[torch.Tensor]:
-    """The keep windows (B, T, KH, EB) of heads [h0, h1): shared when KH =
-    1, else the rows those heads read (:func:`_slot_keep`)."""
-    if keep is None or keep.shape[2] == 1:
-        return keep
-    rows = torch.arange(h0, h1, device=keep.device).clamp_max(keep.shape[2] - 1)
-    return keep[:, :, rows].contiguous()
-
-
-def attn_fwd_by_groups(fwd, q, k, v, we, keep, meta: AttnMeta, dims: AttnDims,
-                       limit: int = MAX_HD) -> torch.Tensor:
-    """``fwd`` (K3's launcher, or a plain version) on the fewest groups of
-    whole heads of at most ``limit`` features (:func:`head_groups`), each
-    on its heads' columns of q, k, v and Wₑ and its keep rows; the outputs
-    side by side. Heads are independent, so this is the one call's
-    result. One group is the one call, with the operands as given."""
-    groups = head_groups(dims.heads, dims.d, limit)
-    if len(groups) == 1:
-        return fwd(q, k, v, we, keep, meta, dims)
-    d = dims.d
-    return torch.cat([fwd(*(_group(x, h0, h1, d) for x in (q, k, v, we)),
-                          _group_keep(keep, h0, h1), meta, dims._replace(heads=h1 - h0))
-                      for h0, h1 in groups], dim=-1)
-
-
-def attn_bwd_by_groups(bwd, q, k, v, we, keep, meta: AttnMeta, dims: AttnDims, g,
-                       view: Optional[SegmentView] = None, limit: int = MAX_HD):
-    """``bwd`` (K4's launcher, or a plain version) by the head groups of
-    :func:`attn_fwd_by_groups`, on each group's columns of the cotangent
-    too; dq, dk, dv and dWₑ are the groups' side by side. The slot view
-    does not depend on the heads: it is built once for all groups."""
-    groups = head_groups(dims.heads, dims.d, limit)
-    if len(groups) == 1:
-        return bwd(q, k, v, we, keep, meta, dims, g, view)
-    if view is None and q.is_cuda:
-        view = slot_view(meta, dims)
-    d = dims.d
-    parts = [bwd(*(_group(x, h0, h1, d) for x in (q, k, v, we)), _group_keep(keep, h0, h1),
-                 meta, dims._replace(heads=h1 - h0), _group(g, h0, h1, d), view)
-             for h0, h1 in groups]
-    return tuple(torch.cat(grads, dim=-1) for grads in zip(*parts))
-
-
 # ------------------------------------------------------- dispatch
 
 
 class AttnApply(torch.autograd.Function):
     """K3 forward with the K4 backward. Each direction launches its kernel
-    on a CUDA tensor and runs its plain version on a CPU tensor. Only
+    once on a CUDA tensor, at the call's whole width, and runs its plain
+    version on a CPU tensor. Only
     q, k, v and Wₑ are saved (not α, which K4 recomputes); keep, the
     windows and the slot view get no gradient."""
 
@@ -643,7 +584,7 @@ class AttnApply(torch.autograd.Function):
         ctx.dims = dims
         meta = AttnMeta(s0, src_rel, dst_rel, attr, live)
         if q.is_cuda:
-            return attn_fwd_by_groups(_attn_fwd_cuda, q, k, v, we, keep, meta, dims)
+            return _attn_fwd_cuda(q, k, v, we, keep, meta, dims)
         return attn_plain(q, k, v, we, keep, meta, dims)
 
     @staticmethod
@@ -653,7 +594,7 @@ class AttnApply(torch.autograd.Function):
         view = None if offsets is None else SegmentView(order, offsets)
         args = (q, k, v, we, keep, AttnMeta(*meta), ctx.dims, g.contiguous(), view)
         if g.is_cuda:
-            dq, dk, dv, dwe = attn_bwd_by_groups(_attn_bwd_cuda, *args)
+            dq, dk, dv, dwe = _attn_bwd_cuda(*args)
         else:
             dq, dk, dv, dwe = attn_bwd_plain(*args)
         return (dq, dk, dv, dwe) + (None,) * 9

@@ -156,7 +156,7 @@ def test_cpu_tensors_never_launch_kernels(windows):
 # ---------------------------------------------------------------- K3's geometry
 
 FWD_WIDTHS = [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (24, 16), (64, 1), (3, 12), (5, 33),
-              (2, 132), (1, 512)]
+              (2, 132), (1, 512), (24, 32), (2, 512)]
 
 
 def _replay_fwd_plan(heads, d, nt, itemsize):
@@ -235,18 +235,27 @@ def test_fwd_plan_bf16_covers_every_row_and_feature_once(heads, d, nt):
 
 
 def test_fwd_plan_is_valid_at_every_width():
-    """Every heads·d the wrapper accepts (≤ MAX_HD) gets a plan the kernel
-    takes: a head's lanes are a power of two that fits a warp, and a run of
-    four or more features divides d only where it is read as float4s."""
-    for d in range(1, tattn.MAX_HD + 1):
-        for heads in range(1, tattn.MAX_HD // d + 1):
-            p = tattn.fwd_plan(tattn.AttnDims(2048, 128, 1024, 1024, heads, d))
-            assert p.lanes_head & (p.lanes_head - 1) == 0 and p.lanes_head <= 32, (heads, d)
-            assert p.lanes_head * p.run >= d, (heads, d)
-            assert (p.run, p.chunk) in tattn.FWD_INSTANCES, (heads, d)
-            assert p.heads_item * p.lanes_head <= p.lanes_item <= 32, (heads, d)
-            assert p.slices * p.heads_item >= heads and p.warps >= 1, (heads, d)
-            assert p.rows_cta * p.slices <= 32 * p.warps * p.items_warp, (heads, d)
+    """Every heads·d the wrapper accepts (≤ MAX_HD, heads of d ≤ MAX_D;
+    24 × 32 = 768 included) gets a plan the kernel takes, in f32 and bf16:
+    a head's lanes are a power of two that fits a warp, a run of four or
+    more features divides d where it is read as vectors, the row's slices
+    cover its heads and its CTA's warps hold the group's items, and no
+    slice leaves more lanes idle a row than one item a head would."""
+    for itemsize in (4, 2):
+        for d in range(1, tattn.MAX_D + 1):
+            for heads in range(1, tattn.MAX_HD // d + 1):
+                p = tattn.fwd_plan(tattn.AttnDims(2048, 128, 1024, 1024, heads, d), itemsize)
+                assert p.lanes_head & (p.lanes_head - 1) == 0 and p.lanes_head <= 32, (heads, d)
+                assert p.lanes_head * p.run >= d, (heads, d)
+                assert (p.run, p.chunk) in tattn.FWD_INSTANCES, (heads, d)
+                assert p.heads_item * p.lanes_head <= p.lanes_item <= 32, (heads, d)
+                assert p.slices * p.heads_item >= heads and p.warps >= 1, (heads, d)
+                assert p.rows_cta * p.slices <= 32 * p.warps * p.items_warp, (heads, d)
+                assert p.slices * p.lanes_item <= heads * p.lanes_head * 2, (heads, d)
+                if p.vec_bytes:
+                    assert d % p.run == 0 and p.vec_bytes == min(16, p.run * itemsize)
+    p = tattn.fwd_plan(tattn.AttnDims(16384, 128, 1024, 1024, 24, 32), 2)
+    assert (p.run, p.lanes_head, p.heads_item, p.slices) == (16, 2, 16, 2)
 
 
 def _k3_model(q, k, v, we, keep, meta, dims):
@@ -495,17 +504,20 @@ def test_bwd_plan_covers_every_row_and_feature_once(heads, d, itemsize):
 
 
 def test_bwd_plan_is_valid_at_every_width():
-    """Every heads·d the wrapper accepts (≤ MAX_HD) gets a K4 plan the
-    kernels take in both dtypes, with at most one item a warp where a row's
-    heads take several slices."""
+    """Every heads·d the wrapper accepts (≤ MAX_HD, heads of d ≤ MAX_D;
+    24 × 32 = 768 included) gets a K4 plan the kernels take in both dtypes,
+    with at most one item a warp where a row's heads take several slices."""
     for itemsize in (4, 2):
-        for d in range(1, tattn.MAX_HD + 1):
+        for d in range(1, tattn.MAX_D + 1):
             for heads in range(1, tattn.MAX_HD // d + 1):
                 p = tattn.bwd_plan(tattn.AttnDims(2048, 128, 1024, 1024, heads, d), itemsize)
                 assert p.lanes_head & (p.lanes_head - 1) == 0 and p.lanes_head <= 32
                 assert p.lanes_head * p.run >= d and (p.run, p.chunk) in tattn.FWD_INSTANCES
                 assert p.heads_item * p.lanes_head <= p.lanes_item <= 32, (heads, d)
-                assert p.slices * p.heads_item >= heads and p.slices <= 32, (heads, d)
+                # as few slices as the lanes allow (at most 32 up to 512 features)
+                assert p.heads_item == min(heads, 32 // p.lanes_head), (heads, d)
+                assert p.slices == -(-heads // p.heads_item), (heads, d)
+                assert heads * d > 512 or p.slices <= 32, (heads, d)
                 assert p.slices == 1 or p.lanes_item == 32, (heads, d)
 
 

@@ -964,13 +964,14 @@ def test_grid_attn_apply_at_h768_is_one_call(monkeypatch):
     """``GridAttnApply`` at H 768 (24 heads × d 32, the sea-ice MH cells)
     calls the plain forward and backward once each on the CPU, on the whole
     width, bit-identical to them (the CUDA path launches K5 and K6 once
-    each the same way: tests/test_torch_kernels_cuda.py); the module has no head-group dispatch
-    left and never splits heads (``head_groups`` is not reached)."""
+    each the same way: tests/test_torch_kernels_cuda.py); neither attention
+    module has a head-group dispatch left, so no call splits heads."""
     from quadtree_mpnnlstm_tpu_torch.ops import attn as tattn
 
     assert not any(hasattr(tga, n) for n in ("grid_fwd_by_groups", "grid_bwd_by_groups",
                                              "MAX_H", "head_groups"))
-    monkeypatch.setattr(tattn, "head_groups", lambda *a: pytest.fail("heads split"))
+    assert not any(hasattr(tattn, n) for n in ("attn_fwd_by_groups", "attn_bwd_by_groups",
+                                               "head_groups"))
     calls = []
     for name in ("grid_attn_plain", "grid_attn_bwd_plain"):
         real = getattr(tga, name)

@@ -426,7 +426,8 @@ def test_attn_forward_repeats_bit_for_bit(card, heads, d, dropout):
     assert torch.equal(attn._attn_fwd_cuda(*args), attn._attn_fwd_cuda(*args))
 
 
-@pytest.mark.parametrize("heads,d", [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (24, 16)])
+@pytest.mark.parametrize("heads,d", [(1, 1), (1, 16), (8, 16), (8, 32), (3, 8), (24, 16),
+                                     (24, 32)])
 def test_attn_forward_launches_its_plan(card, heads, d):
     """K3 launches ``fwd_plan``'s geometry, as the C entry reports it back
     through the wrapper: samples × the plan's row groups, at most one CTA
@@ -453,29 +454,80 @@ def test_attn_forward_launches_its_plan(card, heads, d):
     assert attn.LAUNCHES["attn_apply"] == before
 
 
-@pytest.mark.parametrize("heads,d,dropout", [(48, 16, True), (24, 32, False)])
-def test_attn_apply_takes_any_width_by_head_groups(card, heads, d, dropout):
-    """``attn_apply`` at HD 768 (above the kernels' 512): K3 and K4 launch
-    once per group of whole heads (2 here), and the result is the plain
-    version's at the full width, ≤1e-5 (gradients ≤1e-5 × max(1,
-    max|g|)), with keep rows a head."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d,dropout", [(48, 16, True), (24, 32, False), (24, 32, True)])
+def test_attn_apply_takes_any_width_in_one_launch(card, heads, d, dropout, dtype):
+    """``attn_apply`` at HD 768: K3 and K4 launch once a call each, on the
+    full-width operands (their plans cut a row into slices of heads), and
+    the result is the plain version's, ≤1e-5 in f32 (gradients ≤1e-5 ×
+    max(1, max|g|)) and within one rounding in bf16, with keep rows a
+    head."""
     from quadtree_mpnnlstm_tpu_torch.ops import attn
 
     (q, k, v, we, keep, meta, dims), gen = _attn_case(card, False, heads, d, dropout)
-    groups = len(attn.head_groups(heads, d, attn.MAX_HD))
-    assert groups == 2
+    q, k, v, we = (x.to(dtype) for x in (q, k, v, we))
     leaves = [x.requires_grad_(True) for x in (q, k, v, we)]
-    before = dict(attn.LAUNCHES)
+    attn.reset_launch_counts()
+    counts = attn.LAUNCHES_BF16 if dtype == torch.bfloat16 else attn.LAUNCHES
     out = attn.attn_apply(*leaves, keep, meta, dims)
-    assert attn.LAUNCHES["attn_apply"] == before["attn_apply"] + groups
+    assert counts["attn_apply"] == 1
     plain_args = [x.detach() for x in leaves] + [keep, meta, dims]
-    torch.testing.assert_close(out.detach(), attn.attn_plain(*plain_args), rtol=0, atol=1e-5)
-    g = torch.randn(out.shape, device=card, generator=gen)
+    plain = attn.attn_plain(*plain_args)
+    if dtype == torch.bfloat16:
+        _bf16_close(out.detach(), plain, f"K3 {heads}x{d}")
+    else:
+        torch.testing.assert_close(out.detach(), plain, rtol=0, atol=1e-5)
+    g = torch.randn(out.shape, device=card, generator=gen).to(dtype)
     grads = torch.autograd.grad(out, leaves, g)
-    assert attn.LAUNCHES["attn_apply_bwd"] == before["attn_apply_bwd"] + groups
+    assert counts["attn_apply_bwd"] == 1 and counts["attn_apply"] == 1
     for name, a, p in zip(("dq", "dk", "dv", "dwe"), grads, attn.attn_bwd_plain(*plain_args, g)):
-        err = float((a - p).abs().max())
-        assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+        if dtype == torch.bfloat16:
+            _bf16_close(a, p, f"K4 {name} {heads}x{d}")
+        else:
+            err = float((a - p).abs().max())
+            assert err <= 1e-5 * max(1.0, float(p.abs().max())), (name, err)
+
+
+# the widths the paths launch K3 at: TransformerConv HD 128, 16, 1; MH 384
+# (24 × 16), 48, 3; ice-quadtree 256 (8 × 32); the sea-ice MH cells 768
+K3_PATH_WIDTHS = [(8, 16), (1, 16), (1, 1), (24, 16), (3, 16), (3, 1), (8, 32), (24, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,d", K3_PATH_WIDTHS)
+def test_k3_matches_plain_at_the_paths_widths_on_near_capacity_windows(card, heads, d, dtype):
+    """K3 against ``attn_plain`` at every width the paths run, on the
+    meshes of true Moving-MNIST frames (windows more than half full), with
+    keep rows a head and without: f32 ≤1e-5, bf16 within one rounding
+    (2⁻⁷ × max(1, max|plain|)); a repeated launch is bit-identical and
+    counts one launch each."""
+    from quadtree_mpnnlstm_tpu_torch.ops import attn
+
+    frames = _sprite_frames(card)
+    cfg = GraphConfig(image_shape=(64, 64), max_grid_size=8, thresh=0.1, n_max=2048,
+                      e_max=10240, node_budget=2048, aggregation="pallas", attn_windows=True,
+                      carry_edges=False, agg_nt=NT, agg_eb=EB, agg_sw=SW)
+    wins, _ = image_to_graph(add_positional_encoding(frames[:, 9:10]), cfg)
+    meta = wins.attn_meta
+    assert int((meta.dst_rel >= 0).sum(-1).max()) > EB // 2
+    dims = attn.AttnDims(2048, NT, EB, SW, heads, d)
+    gen = torch.Generator(card).manual_seed(heads * d)
+    q, k, v = (torch.randn(16, 2048, heads * d, device=card, generator=gen).to(dtype)
+               for _ in range(3))
+    we = torch.randn(2, heads * d, device=card, generator=gen).to(dtype)
+    u = torch.rand(16, meta.s0.shape[1], heads, EB, device=card, generator=gen)
+    for keep in (None, (u < 0.9).float() / 0.9):
+        args = (q, k, v, we, keep, meta, dims)
+        attn.reset_launch_counts()
+        out = attn._attn_fwd_cuda(*args)
+        plain = attn.attn_plain(*args)
+        if dtype == torch.bfloat16:
+            _bf16_close(out, plain, f"K3 {heads}x{d}")
+        else:
+            torch.testing.assert_close(out, plain, rtol=0, atol=1e-5)
+        assert torch.equal(attn._attn_fwd_cuda(*args), out)
+        counts = attn.LAUNCHES_BF16 if dtype == torch.bfloat16 else attn.LAUNCHES
+        assert counts["attn_apply"] == 2
 
 
 def test_attn_wrappers_reject_bad_inputs(card):

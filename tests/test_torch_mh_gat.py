@@ -1,10 +1,10 @@
 """PyTorch port vs JAX package: MHTransformerConv, GATConv/GATv2Conv, the
-α side channel and the attention kernels' head groups.
+α side channel and the attention kernels at any width in one call.
 
-* ``head_groups``, and the grouped K3/K4 and K5/K6 dispatch with a small
-  limit on the plain versions: bit-equal to one call, forward and
-  backward (on the card the same split runs the unchanged kernels above
-  their widths);
+* K3's and K4's plans cut a wide row into slices of heads, and
+  ``AttnApply`` at HD 768 (24 heads × d 32, the sea-ice MH cells) reaches
+  each launcher once, on the full-width operands (on the card one launch
+  a direction, no column copies), equal to the JAX package's oracle;
 * ``MHTransformerConv`` on attention windows, a quadtree edge list and a
   masked grid, the fused MH gate stack and the per-gate MH cell with its
   gradients, ≤1e-5 (gradients ≤1e-4 × max(1, max|g|)); bf16 MH on
@@ -33,6 +33,7 @@ from quadtree_mpnnlstm_tpu.graph.build import image_to_graph as j_image_to_graph
 from quadtree_mpnnlstm_tpu.models import conv as jconv
 from quadtree_mpnnlstm_tpu.models.cells import GConvLSTM as JGConvLSTM
 from quadtree_mpnnlstm_tpu.models.fused import FusedAttnGateStack as JFusedAttn
+from quadtree_mpnnlstm_tpu.ops import pallas_attn as jattn
 from quadtree_mpnnlstm_tpu.utils.posenc import add_positional_encoding as j_posenc
 from quadtree_mpnnlstm_tpu_torch.config import GraphConfig as TGraphConfig
 from quadtree_mpnnlstm_tpu_torch.graph.build import image_to_graph as t_image_to_graph
@@ -148,23 +149,40 @@ def _f32(x):
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
-# ---------------------------------------------------------------- head groups
+# ---------------------------------------------------------------- any width in one call
 
 
-@pytest.mark.parametrize("heads,d,limit,groups", [
-    (24, 16, 512, ((0, 24),)),                 # MH gate stacks at hidden 16: one launch
-    (24, 32, 512, ((0, 12), (12, 24))),        # K3/K4 at the sea-ice widths
-    (24, 32, 256, ((0, 8), (8, 16), (16, 24))),  # K5/K6 at the sea-ice widths
-    (5, 3, 6, ((0, 2), (2, 4), (4, 5))),       # uneven: the first groups one head more
-    (1, 1, 512, ((0, 1),)),
+@pytest.mark.parametrize("heads,d,itemsize,k3,k4", [
+    (24, 16, 4, (16, 24, 1), (8, 16, 2)),  # MH gate stacks at hidden 16 (HD 384)
+    (24, 32, 2, (16, 16, 2), (8, 8, 3)),   # K3/K4 at the sea-ice widths (HD 768), bf16
+    (24, 32, 4, (16, 16, 2), (8, 8, 3)),   # ... and f32
+    (5, 3, 4, (1, 5, 1), (1, 5, 1)),       # uneven heads of odd width
+    (1, 1, 4, (1, 1, 1), (1, 1, 1)),
 ])
-def test_head_groups_are_the_fewest_even_groups_of_whole_heads(heads, d, limit, groups):
-    assert tattn.head_groups(heads, d, limit) == groups
+def test_attn_plans_cut_wide_rows_into_slices(heads, d, itemsize, k3, k4):
+    """(run, heads an item, slices) of K3's and K4's plans: a row of any
+    width runs in one launch as slices of whole heads, each a lane's run
+    the plan's and a slice at most a warp."""
+    dims = tattn.AttnDims(2048, 128, 1024, 1024, heads, d)
+    for plan, want in ((tattn.fwd_plan(dims, itemsize), k3),
+                       (tattn.bwd_plan(dims, itemsize), k4)):
+        assert (plan.run, plan.heads_item, plan.slices) == want
+        assert plan.heads_item * plan.slices >= heads and plan.lanes_item <= 32
 
 
-def test_a_head_wider_than_the_limit_raises():
-    with pytest.raises(ValueError, match="wider"):
-        tattn.head_groups(2, 300, 256)
+def test_a_head_wider_than_the_kernels_raises():
+    """A head of more than MAX_D (512) features, or a row of more than
+    MAX_HD, is refused before any launch (a CPU tensor never reaches the
+    card's checks)."""
+    n = 128
+    dims = tattn.AttnDims(n, 128, 1024, 1024, 2, 600)
+    meta = tattn.AttnMeta(torch.zeros(B, 1, dtype=torch.int32),
+                          torch.full((B, 1, 1024), -1, dtype=torch.int32),
+                          torch.full((B, 1, 1024), -1, dtype=torch.int32),
+                          torch.zeros(B, 1, 1024, 2), torch.ones(B, dtype=torch.int32))
+    q = torch.zeros(B, n, 1200)
+    with pytest.raises(ValueError, match="d ≤ 512"):
+        tattn._attn_fwd_cuda(q, q, q, torch.zeros(2, 1200), None, meta, dims)
 
 
 def _qkv(n, heads, d, a, seed, extra=()):
@@ -173,31 +191,59 @@ def _qkv(n, heads, d, a, seed, extra=()):
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
 
 
-@pytest.mark.parametrize("kh", [0, 1, 6])
-def test_grouped_window_attention_is_bit_equal_to_one_call(kh):
-    """K3's and K4's plain versions by head groups of at most 8 features
-    (6 heads × d 4 → 3 groups) against one call: the output and dq, dk,
-    dv, dWₑ bit for bit, with no keep, one shared keep row and a keep row
-    a head."""
-    tg, _ = _mesh("windows")
+@pytest.mark.parametrize("kh", [0, 1, 24])
+def test_attn_apply_at_hd768_is_one_call(kh, monkeypatch):
+    """``AttnApply`` at HD 768 (24 heads × d 32) on tensors that report a
+    card, with K3's and K4's launchers standing in as the plain versions:
+    each launcher is reached once, on the full-width q, k, v, Wₑ, keep and
+    cotangent (no column copies, no concatenation of group outputs), and
+    the result equals the JAX package's: its XLA oracle ``attn_reference``
+    without keep, its kernel (interpret mode) with keep rows shared (KH 1)
+    or a head each, ≤1e-5; the gradients equal the plain backward's."""
+    tg, jgs = _mesh("windows")
     meta = tg.attn_meta
     n, (_, nt, eb, sw) = tg.n_max, tg.agg
-    heads, d = 6, 4
+    heads, d = 24, 32
     dims = tattn.AttnDims(n, nt, eb, sw, heads, d)
-    q, k, v, we, g = _qkv(n, heads, d, meta.attr.shape[-1], 1, [(B, n, heads * d)])
+    q, k, v, we, g = _qkv(n, heads, d, meta.attr.shape[-1], 3, [(B, n, heads * d)])
     keep = None
     if kh:
-        u = torch.from_numpy(np.random.default_rng(2).random((B, meta.s0.shape[1], kh, eb)))
-        keep = ((u < 0.9).float() / 0.9).float()
-    assert len(tattn.head_groups(heads, d, 8)) == 3
-    one = tattn.attn_plain(q, k, v, we, keep, meta, dims)
-    grouped = tattn.attn_fwd_by_groups(tattn.attn_plain, q, k, v, we, keep, meta, dims, limit=8)
-    assert torch.equal(one, grouped)
-    ref = tattn.attn_bwd_plain(q, k, v, we, keep, meta, dims, g)
-    got = tattn.attn_bwd_by_groups(tattn.attn_bwd_plain, q, k, v, we, keep, meta, dims, g,
-                                   limit=8)
-    for name, a, b in zip(("dq", "dk", "dv", "dwe"), got, ref):
-        assert torch.equal(a, b), name
+        u = np.random.default_rng(4).random((B, meta.s0.shape[1], kh, eb))
+        keep = torch.from_numpy(((u < 0.9) / 0.9).astype(np.float32))
+    calls = []
+
+    def stand_in(plain, name):
+        def launch(*args):
+            calls.append((name, tuple(args[0].shape), args[4] is keep,
+                          None if len(args) < 8 else tuple(args[7].shape)))
+            return plain(*args)
+        return launch
+
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, we)]
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+        m.setattr(tattn, "_attn_fwd_cuda", stand_in(tattn.attn_plain, "fwd"))
+        m.setattr(tattn, "_attn_bwd_cuda", stand_in(tattn.attn_bwd_plain, "bwd"))
+        out = tattn.attn_apply(*leaves, keep, meta, dims)
+        grads = torch.autograd.grad(out, leaves, g)
+    full = (B, n, 768)
+    assert calls == [("fwd", full, True, None), ("bwd", full, True, full)]
+    for s, jg in enumerate(jgs):
+        if keep is None:
+            ref = jattn.attn_reference(jnp.asarray(q[s].numpy()), jnp.asarray(k[s].numpy()),
+                                       jnp.asarray(v[s].numpy()), jnp.asarray(we.numpy()),
+                                       jg.edge_src, jg.edge_dst, jg.edge_valid, jg.edge_attr,
+                                       n, heads, d)
+        else:
+            jm = jattn.attn_tile_meta(jg.edge_src, jg.edge_dst, jg.edge_attr, n, nt, eb, sw,
+                                      n_nodes=jg.n_nodes)[0]
+            ref = jattn.attn_apply(jnp.asarray(q[s].numpy()), jnp.asarray(k[s].numpy()),
+                                   jnp.asarray(v[s].numpy()), jnp.asarray(we.numpy()),
+                                   jnp.asarray(keep[s].numpy()), jm,
+                                   jattn.AttnDims(n, nt, eb, sw, heads, d))
+        np.testing.assert_allclose(out[s].detach().numpy(), np.asarray(ref), atol=CONV_TOL)
+    for a, b in zip(grads, tattn.attn_bwd_plain(q, k, v, we, keep, meta, dims, g)):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------- MHTransformerConv
